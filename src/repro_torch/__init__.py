@@ -1,0 +1,18 @@
+"""repro_torch — the PyTorch/CUDA port of the PERMANOVA engine, for one
+NVIDIA H100 (Hopper, sm_90a).
+
+The JAX package `repro` is the reference this port is checked against;
+each module here has a twin there at the same relative path:
+
+  hw.py          H100 SXM datasheet constants and device resolution
+  data/          synthetic microbiome studies (numpy, same draws per seed)
+  core/          permutations, s_W forms (fstat), distances, permanova()
+  kernels/       hand-written CUDA C++ kernels (sm_90a) + plain versions
+  engine/        s_W registry, planner, streaming scheduler, run()
+  launch/        the permanova CLI (matrix path)
+
+Entry points run on the card (`device="cuda"`) and raise when there is
+none; pass `device="cpu"` to run the plain PyTorch forms on the host.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,142 @@
+"""Distance-matrix construction — the substrate feeding PERMANOVA.
+
+Twin of `repro/core/distance.py`, in plain PyTorch (the reference computes
+these in plain jnp too; their kernels come with a later slice). Each
+metric is factored as
+
+  prepare(x)        one-off (n, d) feature transform (clr for Aitchison,
+                    presence cast for Jaccard; identity otherwise)
+  rows(xb, xprep)   distances for a block of rows against all samples
+
+and the dense drivers assemble the (n, n) matrix from row blocks, so the
+(block, n, d) intermediates of Bray-Curtis stay bounded.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+
+def _identity_prepare(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def clr_prepare(x, *, pseudocount: float = 0.5) -> torch.Tensor:
+    """Centered log-ratio transform (Aitchison geometry on compositions)."""
+    logx = torch.log(torch.as_tensor(x, dtype=torch.float32) + pseudocount)
+    return logx - logx.mean(dim=-1, keepdim=True)
+
+
+def presence_prepare(x) -> torch.Tensor:
+    """Presence/absence cast for binary metrics (kept float32)."""
+    return (torch.as_tensor(x) > 0).to(torch.float32)
+
+
+def euclidean_rows(xb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(block, n) Euclidean distances via the Gram trick."""
+    sq_b = (xb * xb).sum(dim=-1)[:, None]
+    sq = (x * x).sum(dim=-1)[None, :]
+    d2 = sq_b + sq - 2.0 * (xb @ x.T)
+    return torch.sqrt(d2.clamp(min=0.0))
+
+
+def braycurtis_rows(xb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(block, n) Bray-Curtis: sum|xi-xj| / sum(xi+xj)."""
+    num = (xb[:, None, :] - x[None, :, :]).abs().sum(dim=-1)
+    den = (xb[:, None, :] + x[None, :, :]).sum(dim=-1)
+    return num / den.clamp(min=1e-30)
+
+
+def jaccard_rows(xb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(block, n) binary Jaccard on presence/absence (float multiply is
+    AND, so the intersection is a matmul)."""
+    inter = xb @ x.T
+    card_b = xb.sum(dim=-1)[:, None]
+    card = x.sum(dim=-1)[None, :]
+    union = card_b + card - inter
+    return 1.0 - inter / union.clamp(min=1.0)
+
+
+class MetricDef(NamedTuple):
+    """Factored metric: one-off feature transform + row-block function."""
+    prepare: Callable
+    rows: Callable
+
+
+ROW_METRICS: dict[str, MetricDef] = {
+    "euclidean": MetricDef(_identity_prepare, euclidean_rows),
+    "braycurtis": MetricDef(_identity_prepare, braycurtis_rows),
+    "jaccard": MetricDef(presence_prepare, jaccard_rows),
+    "aitchison": MetricDef(clr_prepare, euclidean_rows),
+}
+
+
+# ---------------------------------------------------------------------------
+# Dense metrics (public API) — drivers over the row primitives.
+# ---------------------------------------------------------------------------
+
+def euclidean(x) -> torch.Tensor:
+    """Pairwise Euclidean via the Gram trick (single full-matrix form)."""
+    xp = _identity_prepare(x)
+    return _zero_diag(euclidean_rows(xp, xp))
+
+
+def braycurtis(x, *, block: int = 256) -> torch.Tensor:
+    """Bray-Curtis dissimilarity, blocked over rows (bounds peak memory)."""
+    xp = _identity_prepare(x)
+    return _zero_diag(_blocked_rows(braycurtis_rows, xp, block))
+
+
+def jaccard(x, *, block: int = 256) -> torch.Tensor:
+    """Binary Jaccard distance on presence/absence (x > 0)."""
+    xp = presence_prepare(x)
+    return _zero_diag(_blocked_rows(jaccard_rows, xp, block))
+
+
+def aitchison(x, *, pseudocount: float = 0.5) -> torch.Tensor:
+    """Aitchison distance: Euclidean over clr-transformed compositions."""
+    xp = clr_prepare(x, pseudocount=pseudocount)
+    return _zero_diag(euclidean_rows(xp, xp))
+
+
+METRICS: dict[str, Callable] = {
+    "euclidean": euclidean,
+    "braycurtis": braycurtis,
+    "jaccard": jaccard,
+    "aitchison": aitchison,
+}
+
+
+def distance_matrix(x, metric: str = "braycurtis", **kw) -> torch.Tensor:
+    """(n, n) f32 distances on x's device (a numpy x lands on the CPU)."""
+    return METRICS[metric](x, **kw)
+
+
+def _zero_diag(d: torch.Tensor) -> torch.Tensor:
+    """Zero the diagonal in place (the reference multiplies by 1 - eye,
+    which would hold a second (n, n) array at the paper's n)."""
+    return d.fill_diagonal_(0.0)
+
+
+def _blocked_rows(row_fn: Callable, x: torch.Tensor, block: int
+                  ) -> torch.Tensor:
+    """Apply row_fn to row blocks, writing each into one (n, n) buffer."""
+    n = x.shape[0]
+    block = max(1, min(block, n))
+    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    for lo in range(0, n, block):
+        out[lo:lo + block] = row_fn(x[lo:lo + block], x)
+    return out
+
+
+def validate_distance_matrix(d: torch.Tensor, *, atol: float = 1e-5
+                             ) -> dict:
+    """Structural checks the PERMANOVA engine relies on."""
+    sym = float((d - d.T).abs().max())
+    diag = float(torch.diagonal(d).abs().max())
+    neg = float(d.min())
+    ok = sym <= atol and diag <= atol and neg >= -atol
+    return {"symmetric_maxerr": sym, "diag_maxabs": diag,
+            "min_value": neg, "ok": ok}

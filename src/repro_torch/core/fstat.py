@@ -1,0 +1,189 @@
+"""PERMANOVA partial statistic s_W in plain PyTorch forms.
+
+    s_W[p] = sum_{row < col} mat2[row,col]
+             * 1[g_p[row] == g_p[col]] * inv_group_sizes[g_p[row]]
+
+Twin of `repro/core/fstat.py`. Forms:
+
+  sw_algorithm1_numpy  literal numpy transcription of the paper's
+                       Algorithm 1 — the oracle (a copy, not an import)
+  sw_brute_one/_brute  vectorized strict-upper-triangle brute force
+                       (paper Algorithm 3 dataflow)
+  sw_tiled_one/_tiled  paper Algorithm 2: explicit TILE x TILE loop nest
+                       over the upper triangle, sentinel-padded for
+                       ragged (e.g. prime) n
+  sw_matmul*           one-hot reformulation: s_W from mat2 @ E with
+                       E in {0, sqrt(w_g)}^{n x (P*G)}
+
+All take mat2 = D * D precomputed. These are the plain versions the CUDA
+kernels are held against; on the card they are what `chip_smoke.py`
+times as `plain_ms`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def sw_algorithm1_numpy(mat: np.ndarray, groupings: np.ndarray,
+                        inv_group_sizes: np.ndarray) -> np.ndarray:
+    """Literal transcription of the paper's ALGORITHM 1 (brute force).
+
+    Takes the distance matrix `mat` (not mat2) and squares in the loop."""
+    mat = np.asarray(mat, dtype=np.float32)
+    groupings = np.asarray(groupings)
+    inv_group_sizes = np.asarray(inv_group_sizes, dtype=np.float32)
+    n_perms, n_dims = groupings.shape
+    out = np.zeros((n_perms,), dtype=np.float32)
+    for p in range(n_perms):
+        grouping = groupings[p]
+        s_w = np.float32(0.0)
+        for row in range(n_dims - 1):          # no columns in last row
+            group_idx = grouping[row]
+            mat_row = mat[row]
+            local = np.float32(0.0)
+            for col in range(row + 1, n_dims):  # diagonal is always zero
+                if grouping[col] == group_idx:
+                    val = mat_row[col]
+                    local += val * val
+            s_w += local * inv_group_sizes[group_idx]
+        out[p] = s_w
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Brute force (paper Algorithm 3 dataflow).
+# ---------------------------------------------------------------------------
+
+def _brute_block(mat2, gblock, inv_gs, triu):
+    """(B,) s_W for a block of B label rows: every (row < col) pair adds
+    mat2[row,col] * w[g[row]] iff g[col] == g[row]."""
+    same = gblock[:, :, None] == gblock[:, None, :]          # (B, n, n)
+    w_row = inv_gs[gblock.long()][:, :, None]                # hoisted weight
+    contrib = torch.where(same & triu, mat2 * w_row,
+                          torch.zeros((), dtype=w_row.dtype,
+                                      device=mat2.device))
+    return contrib.sum(dim=(1, 2))
+
+
+def _triu(n: int, device) -> torch.Tensor:
+    return torch.ones((n, n), dtype=torch.bool, device=device).triu(1)
+
+
+def sw_brute_one(mat2: torch.Tensor, grouping: torch.Tensor,
+                 inv_group_sizes: torch.Tensor) -> torch.Tensor:
+    """Vectorized brute force over the strict upper triangle, one perm."""
+    triu = _triu(mat2.shape[0], mat2.device)
+    return _brute_block(mat2, grouping[None], inv_group_sizes, triu)[0]
+
+
+def sw_brute(mat2: torch.Tensor, groupings: torch.Tensor,
+             inv_group_sizes: torch.Tensor, *, block: int = 32
+             ) -> torch.Tensor:
+    """Brute-force s_W for a batch of permutations, `block` label rows at
+    a time (each block holds a few (block, n, n) temporaries). (P,) f32."""
+    triu = _triu(mat2.shape[0], mat2.device)
+    block = max(1, min(block, groupings.shape[0]))
+    return torch.cat([_brute_block(mat2, gb, inv_group_sizes, triu)
+                      for gb in torch.split(groupings, block)])
+
+
+# ---------------------------------------------------------------------------
+# Tiled (paper Algorithm 2 dataflow).
+# ---------------------------------------------------------------------------
+
+def _tiled_block(mat2, gblock, inv_gs, tile):
+    """Algorithm 2 for a block of B label rows: an explicit loop over the
+    TILE x TILE tiles with tj >= ti, the per-row weight hoisted.
+
+    When n is not a multiple of `tile` (prime n), mat2 is zero-padded up
+    to the tile and the pad carries a sentinel group (-1) with weight 0,
+    so every pad pair adds exactly 0 — the tiled dataflow is kept rather
+    than shrinking the tile."""
+    n = mat2.shape[0]
+    tile = min(tile, n)
+    w = inv_gs[gblock.long()]                               # (B, n)
+    g = gblock.long()
+    pad = (-n) % tile
+    if pad:
+        mat2 = torch.nn.functional.pad(mat2, (0, pad, 0, pad))
+        g = torch.nn.functional.pad(g, (0, pad), value=-1)
+        w = torch.nn.functional.pad(w, (0, pad))
+        n += pad
+    ids = torch.arange(tile, device=mat2.device)
+    s_w = torch.zeros(gblock.shape[0], dtype=mat2.dtype, device=mat2.device)
+    for r0 in range(0, n, tile):
+        g_row = g[:, r0:r0 + tile]
+        w_row = w[:, r0:r0 + tile]
+        for c0 in range(r0, n, tile):       # only tj >= ti hold pairs
+            m_tile = mat2[r0:r0 + tile, c0:c0 + tile]
+            g_col = g[:, c0:c0 + tile]
+            tri = (c0 + ids[None, :]) > (r0 + ids[:, None])   # global coords
+            mask = tri & (g_col[:, None, :] == g_row[:, :, None])
+            local = torch.where(mask, m_tile, 0.0).sum(dim=2)  # per-row local
+            s_w = s_w + (local * w_row).sum(dim=1)
+    return s_w
+
+
+def sw_tiled_one(mat2: torch.Tensor, grouping: torch.Tensor,
+                 inv_group_sizes: torch.Tensor, *, tile: int = 64
+                 ) -> torch.Tensor:
+    """Structural transcription of the paper's ALGORITHM 2, one perm."""
+    return _tiled_block(mat2, grouping[None], inv_group_sizes, tile)[0]
+
+
+def sw_tiled(mat2: torch.Tensor, groupings: torch.Tensor,
+             inv_group_sizes: torch.Tensor, *, tile: int = 64,
+             block: int = 8) -> torch.Tensor:
+    block = max(1, min(block, groupings.shape[0]))
+    return torch.cat([_tiled_block(mat2, gb, inv_group_sizes, tile)
+                      for gb in torch.split(groupings, block)])
+
+
+# ---------------------------------------------------------------------------
+# One-hot matmul formulation.
+# ---------------------------------------------------------------------------
+
+def onehot_perm_factors(groupings_block: torch.Tensor,
+                        inv_group_sizes: torch.Tensor, dtype
+                        ) -> torch.Tensor:
+    """E[p,:,g] = sqrt(w_g) * 1[g_p[i] == g] — the (P, n, G) one-hot
+    factor. sqrt(w) is rounded to `dtype`, as the reference does."""
+    n_groups = inv_group_sizes.shape[0]
+    sqrt_w = torch.sqrt(inv_group_sizes).to(dtype)
+    e = torch.nn.functional.one_hot(groupings_block.long(),
+                                    n_groups).to(dtype)
+    return e * sqrt_w[None, None, :]
+
+
+def sw_matmul_contract(mat2_rows: torch.Tensor, e: torch.Tensor,
+                       e_rows: torch.Tensor) -> torch.Tensor:
+    """s[p] = 1/2 * sum_ig (M2_rows @ E[p])[i,g] * E_rows[p,i,g].
+
+    e: (P, n, G) column factors over all samples; e_rows: (P, n_local, G)
+    row factors aligned with mat2_rows. The zero diagonal makes the full
+    i != j sum exactly twice the triangle sum."""
+    p, n, g = e.shape
+    n_local = mat2_rows.shape[0]
+    e2d = e.permute(1, 0, 2).reshape(n, p * g)              # (n, P*G)
+    y = mat2_rows @ e2d
+    s = (y.reshape(n_local, p, g) * e_rows.permute(1, 0, 2)).sum(dim=(0, 2))
+    return 0.5 * s
+
+
+def sw_matmul_block(mat2: torch.Tensor, groupings_block: torch.Tensor,
+                    inv_group_sizes: torch.Tensor) -> torch.Tensor:
+    """s_W for a block of P permutations via one matmul."""
+    e = onehot_perm_factors(groupings_block, inv_group_sizes, mat2.dtype)
+    return sw_matmul_contract(mat2, e, e)
+
+
+def sw_matmul(mat2: torch.Tensor, groupings: torch.Tensor,
+              inv_group_sizes: torch.Tensor, *, perm_block: int = 64
+              ) -> torch.Tensor:
+    """One-hot formulation over all permutations, perm_block at a time.
+    (P,) in mat2's dtype (f32 in, f32 out)."""
+    perm_block = max(1, min(perm_block, groupings.shape[0]))
+    return torch.cat([sw_matmul_block(mat2, gb, inv_group_sizes)
+                      for gb in torch.split(groupings, perm_block)])

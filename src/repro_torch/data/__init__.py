@@ -1,0 +1,2 @@
+from repro_torch.data.microbiome import (synthetic_abundance,  # noqa: F401
+                                        synthetic_study)

@@ -1,0 +1,40 @@
+"""Synthetic microbiome-style abundance tables (numpy).
+
+A copy of the reference's generators (`repro/data/microbiome.py`), so the
+two packages draw the same study from the same `seed`: compositional
+abundance tables with a planted group effect (effect_size=0 is the exact
+null; effect_size >> 0 gives p ~ 1/(n_perms+1)).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def synthetic_abundance(n_samples: int, n_features: int, *, seed: int = 0,
+                        sparsity: float = 0.7) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.gamma(0.7, 1.0, size=(n_samples, n_features))
+    mask = rng.random((n_samples, n_features)) < sparsity
+    x[mask] = 0.0
+    return x.astype(np.float32)
+
+
+def synthetic_study(n_samples: int, n_features: int, n_groups: int, *,
+                    effect_size: float = 0.0, seed: int = 0,
+                    sparsity: float = 0.7):
+    """(abundance (n, d) f32, grouping (n,) int32) with a planted effect:
+    each group's mean abundance is shifted on a random tenth of the
+    features; effect_size=0.0 keeps labels independent of the data."""
+    rng = np.random.default_rng(seed)
+    x = synthetic_abundance(n_samples, n_features, seed=seed + 1,
+                            sparsity=sparsity)
+    grouping = rng.integers(0, n_groups, size=n_samples).astype(np.int32)
+    if effect_size > 0:
+        for g in range(n_groups):
+            feat = rng.choice(n_features, size=max(n_features // 10, 1),
+                              replace=False)
+            bump = rng.gamma(effect_size, 1.0,
+                             size=(int((grouping == g).sum()), len(feat)))
+            x[np.ix_(grouping == g, feat)] += bump.astype(np.float32)
+    return x, grouping

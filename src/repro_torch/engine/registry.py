@@ -1,0 +1,102 @@
+"""s_W implementation registry.
+
+Twin of `repro/engine/registry.py`. Every implementation sits behind one
+batch interface
+
+    fn(mat2, groupings, inv_group_sizes) -> (n_perms,) f32 s_W
+
+and dispatches on the device of its operands: on CPU tensors it runs its
+plain `core.fstat` form, on CUDA tensors its hand-written kernel:
+
+  brute    paper Algorithm 3        -> the brute kernel
+  tiled    paper Algorithm 2        -> the permblock kernel (Algorithm 2's
+                                       dataflow on an on-chip tile)
+  matmul   one-hot reformulation    -> the matmul kernel
+
+The reference's kernel names `pallas_brute`, `pallas_permblock` and
+`pallas_matmul` are accepted as aliases of these three.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Mapping
+
+from repro_torch.core import fstat
+from repro_torch.kernels.permanova_sw import ops
+
+ALIASES = {"pallas_brute": "brute", "pallas_permblock": "tiled",
+           "pallas_matmul": "matmul"}
+
+
+@dataclasses.dataclass(frozen=True)
+class SwImpl:
+    """One s_W implementation plus the metadata the planner reads."""
+    name: str
+    plain: Callable               # core.fstat form, run on CPU tensors
+    kernel: str                   # ops.VARIANTS entry, run on CUDA tensors
+    tuning: Mapping[str, int]     # knobs of the plain form (the kernels
+                                  # take their tiles from the source)
+    description: str = ""
+
+    def bound(self, **overrides) -> Callable:
+        """The batch callable, with tuning resolved (defaults <-
+        overrides, unknown keys dropped)."""
+        kw = {k: v for k, v in {**self.tuning, **overrides}.items()
+              if k in self.tuning}
+        plain = functools.partial(self.plain, **kw)
+        kernel = self.kernel
+
+        def fn(mat2, groupings, inv_group_sizes):
+            if mat2.device.type == "cuda":
+                return ops.permanova_sw(mat2, groupings, inv_group_sizes,
+                                        variant=kernel)
+            return plain(mat2, groupings, inv_group_sizes)
+        return fn
+
+
+_REGISTRY: dict = {}
+
+
+def register(impl: SwImpl) -> SwImpl:
+    if impl.name in _REGISTRY:
+        raise ValueError(f"duplicate s_W impl {impl.name!r}")
+    _REGISTRY[impl.name] = impl
+    return impl
+
+
+def get(name: str) -> SwImpl:
+    """The impl registered as `name` (or as its pallas_* alias)."""
+    try:
+        return _REGISTRY[ALIASES.get(name, name)]
+    except KeyError:
+        raise KeyError(f"unknown s_W impl {name!r}; registered: "
+                       f"{sorted(_REGISTRY)}, aliases: "
+                       f"{sorted(ALIASES)}") from None
+
+
+def names():
+    """Registered impl names."""
+    return sorted(_REGISTRY)
+
+
+register(SwImpl(
+    name="brute", plain=fstat.sw_brute, kernel="brute",
+    tuning={"block": 32},
+    description="paper Algorithm 3 dataflow: every perm re-streams mat2 "
+                "(the MI300A GPU winner)",
+))
+register(SwImpl(
+    name="tiled", plain=fstat.sw_tiled, kernel="permblock",
+    tuning={"tile": 64, "block": 8},
+    description="paper Algorithm 2 dataflow: cache-tiled loop nest (the "
+                "MI300A CPU winner); on the card, a block of perms per "
+                "on-chip mat2 tile",
+))
+register(SwImpl(
+    name="matmul", plain=fstat.sw_matmul, kernel="matmul",
+    tuning={"perm_block": 64},
+    description="one-hot matmul reformulation (amortizes each mat2 byte "
+                "over perm_block*G columns)",
+))

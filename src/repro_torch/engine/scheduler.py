@@ -1,0 +1,77 @@
+"""Streaming permutation scheduler.
+
+Twin of `repro/engine/scheduler.py`. Runs an n_total-permutation sweep in
+fixed-size chunks. The labels of each chunk are made on the device from
+their GLOBAL permutation indices (`core.permutations`), so the
+(n_total, n) label tensor never exists and any chunk size gives the same
+labels; or they are sliced from a caller's explicit `perms` tensor. The
+s_W values stay on the device: the sweep never waits for the card between
+chunks.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import permutations
+
+
+class StreamStats(NamedTuple):
+    """How the sweep actually ran."""
+    n_total: int
+    chunk: int
+    n_chunks: int
+    peak_label_bytes: int   # (chunk, n) int32 — the live label footprint
+
+
+def _labels(grouping, lo, hi, *, seed, perms):
+    if perms is None:
+        return permutations.permutation_batch(grouping, lo, hi, seed=seed)
+    return perms[lo:hi].to(grouping.device, torch.int32).contiguous()
+
+
+def _check_perms(perms, n_total, n):
+    if perms is not None and tuple(perms.shape) != (n_total, n):
+        raise ValueError(f"perms must be (n_perms + 1, n) = "
+                         f"{(n_total, n)}, got {tuple(perms.shape)}")
+
+
+def sw_streaming(mat2: torch.Tensor, grouping: torch.Tensor,
+                 inv_gs: torch.Tensor, n_total: int, fn: Callable, *,
+                 chunk: int, seed: int = 0,
+                 perms: Optional[torch.Tensor] = None):
+    """s_W for global permutation indices [0, n_total) in chunks.
+
+    fn: batch impl fn(mat2, groupings, inv_gs) -> (P,) (a registry impl
+        bound via SwImpl.bound(), or any compatible callable).
+    perms: optional explicit (n_total, n) int32 labels, row 0 the
+        identity; it replaces the seed.
+    Returns ((n_total,) f32 tensor on mat2's device, StreamStats). The
+    last chunk may be shorter than `chunk`.
+    """
+    n = int(mat2.shape[0])
+    _check_perms(perms, n_total, n)
+    chunk = int(max(1, min(chunk, n_total)))
+    out = torch.empty((n_total,), dtype=torch.float32, device=mat2.device)
+    n_chunks = 0
+    for lo in range(0, n_total, chunk):
+        hi = min(lo + chunk, n_total)
+        out[lo:hi] = fn(mat2, _labels(grouping, lo, hi, seed=seed,
+                                      perms=perms), inv_gs)
+        n_chunks += 1
+    return out, StreamStats(n_total=n_total, chunk=chunk, n_chunks=n_chunks,
+                            peak_label_bytes=4 * chunk * n)
+
+
+def sw_batch(mat2: torch.Tensor, grouping: torch.Tensor,
+             inv_gs: torch.Tensor, n_total: int, fn: Callable, *,
+             seed: int = 0, perms: Optional[torch.Tensor] = None):
+    """One-shot path for small sweeps: all labels at once, one call."""
+    n = int(mat2.shape[0])
+    _check_perms(perms, n_total, n)
+    s_w = fn(mat2, _labels(grouping, 0, n_total, seed=seed, perms=perms),
+             inv_gs).to(torch.float32)
+    return s_w, StreamStats(n_total=n_total, chunk=n_total, n_chunks=1,
+                            peak_label_bytes=4 * n_total * n)

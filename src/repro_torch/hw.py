@@ -1,0 +1,56 @@
+"""Target-hardware constants for the port, and device resolution.
+
+The target is one NVIDIA H100 SXM. The numbers are NVIDIA's datasheet
+values (dense rates, no sparsity) at the card's full 700 W power limit;
+a card set to a lower limit runs slower under load, so every measurement
+is reported beside `nvidia-smi`'s name and power limit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ChipSpec:
+    name: str
+    peak_flops_bf16: float      # FLOP/s, dense tensor cores
+    peak_flops_f32: float       # FLOP/s, CUDA cores (non-tensor) FMA
+    hbm_bandwidth: float        # B/s
+    hbm_bytes: float            # device memory
+    l2_bytes: float
+    sms: int
+    smem_per_block: int         # bytes a block may opt in to (above
+                                # 48 KB: cudaFuncSetAttribute first)
+
+
+H100_SXM = ChipSpec(
+    name="h100-sxm",
+    peak_flops_bf16=989e12,
+    peak_flops_f32=67e12,
+    hbm_bandwidth=3.35e12,
+    hbm_bytes=80e9,
+    l2_bytes=50e6,
+    sms=132,
+    smem_per_block=232_448,     # 227 KB
+)
+
+# The paper's benchmark workload (EMP, Fig. 1).
+PAPER_N_DIMS = 25145
+PAPER_N_PERMS = 3999
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The torch.device to run on. Asking for CUDA where there is no CUDA
+    device raises: the port never falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch forms on "
+            "the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}; 'cuda' or 'cpu'")
+    return dev

@@ -1,0 +1,172 @@
+"""Wrappers around the permanova_sw CUDA kernels (csrc/permanova_sw.cu).
+
+Twin of `repro/kernels/permanova_sw/ops.py`. `permanova_sw` checks its
+operands, then
+
+  * on CPU tensors runs the plain version (`ref.sw_ref`);
+  * on CUDA tensors launches the kernel `variant` on the current stream,
+    without synchronising, and reduces the kernel's per-block partials with
+    one deterministic `torch.sum` — or raises.
+
+There is no fallback from a kernel to the plain version: a failed build
+or a refused launch raises. The library is built from the source at first
+use (`kernels/_build.py`). `LAUNCHES` counts kernel launches per variant,
+so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.permanova_sw import ref
+
+VARIANTS = ("brute", "permblock", "matmul")
+LAUNCHES = {v: 0 for v in VARIANTS}
+SOURCE = Path(__file__).resolve().parent / "csrc" / "permanova_sw.cu"
+
+_MAX_GRID_Y = 65535
+_lib = None
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# ctypes signatures of the C entry points: every pointer and the stream as
+# c_void_p, so no 64-bit address is cut to a 32-bit int.
+SIGNATURES = {
+    "sw_kernel_config": ([_PTR], None),
+    "sw_brute_launch": ([_PTR] * 4 + [_I64, _I64, _I32, _PTR], _I32),
+    "sw_permblock_launch": ([_PTR] * 4 + [_I64, _I64, _I32, _PTR], _I32),
+    "sw_matmul_launch": ([_PTR] * 4 + [_I64, _I64, _I32, _I32, _PTR], _I32),
+}
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernels' shared library."""
+    global _lib
+    if _lib is None:
+        lib = _build.load(SOURCE)
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        _lib = lib
+    return _lib
+
+
+def kernel_config(lib: ctypes.CDLL) -> dict:
+    """The tile constants compiled into the library."""
+    out = (ctypes.c_int * 5)()
+    lib.sw_kernel_config(out)
+    return {"brute_rows": out[0], "permblock_perms": out[1],
+            "permblock_tile": out[2], "matmul_rows": out[3],
+            "matmul_max_perm_block": out[4]}
+
+
+def _rounded_sqrt_w(inv_group_sizes: torch.Tensor, dtype) -> torch.Tensor:
+    """sqrt(w) rounded to mat2's dtype, as f32 — what the matmul kernel
+    multiplies by (the reference rounds it the same way)."""
+    return torch.sqrt(inv_group_sizes).to(dtype).to(torch.float32)
+
+
+def _check(mat2, groupings, inv_group_sizes, variant):
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    if mat2.dim() != 2 or mat2.shape[0] != mat2.shape[1] \
+            or mat2.shape[0] < 2:
+        raise ValueError(f"mat2 must be (n, n) with n >= 2, got "
+                         f"{tuple(mat2.shape)}")
+    dtypes = (torch.float32, torch.bfloat16) if variant == "matmul" \
+        else (torch.float32,)
+    if mat2.dtype not in dtypes:
+        raise TypeError(f"variant {variant!r} takes mat2 of dtype "
+                        f"{dtypes}, got {mat2.dtype}")
+    n = mat2.shape[0]
+    if groupings.dim() != 2 or groupings.shape[1] != n \
+            or groupings.shape[0] < 1:
+        raise ValueError(f"groupings must be (P, {n}) with P >= 1, got "
+                         f"{tuple(groupings.shape)}")
+    if groupings.dtype != torch.int32:
+        raise TypeError(f"groupings must be int32, got {groupings.dtype}")
+    if inv_group_sizes.dim() != 1 or inv_group_sizes.shape[0] < 1 \
+            or inv_group_sizes.dtype != torch.float32:
+        raise TypeError("inv_group_sizes must be a non-empty 1-D float32 "
+                        f"tensor, got {inv_group_sizes.dtype} "
+                        f"{tuple(inv_group_sizes.shape)}")
+    devices = {mat2.device, groupings.device, inv_group_sizes.device}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: {devices}")
+    if mat2.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {mat2.device}")
+    if not (mat2.is_contiguous() and groupings.is_contiguous()
+            and inv_group_sizes.is_contiguous()):
+        raise ValueError("mat2, groupings and inv_group_sizes must be "
+                         "contiguous")
+
+
+def _launch(lib, variant, mat2, groupings, inv_group_sizes, stream: int
+            ) -> torch.Tensor:
+    """Launch `variant` on `stream`; the (P,) s_W from its partials."""
+    cfg = kernel_config(lib)
+    n, n_perms = mat2.shape[0], groupings.shape[0]
+    n_groups = inv_group_sizes.shape[0]
+    rows = {"brute": cfg["brute_rows"], "permblock": cfg["permblock_tile"],
+            "matmul": cfg["matmul_rows"]}[variant]
+    n_bands = -(-n // rows)
+    if n_bands > _MAX_GRID_Y or n_perms >= 2 ** 31:
+        raise ValueError(f"shape (P={n_perms}, n={n}) exceeds the "
+                         f"{variant} kernel's grid")
+    partials = torch.empty((n_perms, n_bands), dtype=torch.float32,
+                           device=mat2.device)
+    args = (mat2.data_ptr(), groupings.data_ptr())
+    if variant == "matmul":
+        sqrt_w = _rounded_sqrt_w(inv_group_sizes, mat2.dtype)
+        err = lib.sw_matmul_launch(*args, sqrt_w.data_ptr(),
+                                   partials.data_ptr(), n, n_perms,
+                                   n_groups,
+                                   int(mat2.dtype == torch.bfloat16),
+                                   stream)
+    else:
+        fn = lib.sw_brute_launch if variant == "brute" \
+            else lib.sw_permblock_launch
+        err = fn(*args, inv_group_sizes.data_ptr(), partials.data_ptr(),
+                 n, n_perms, n_groups, stream)
+    if err != 0:
+        raise RuntimeError(f"permanova_sw {variant} kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES[variant] += 1
+    return partials.sum(dim=1)
+
+
+def permanova_sw(mat2: torch.Tensor, groupings: torch.Tensor,
+                 inv_group_sizes: torch.Tensor, *, variant: str = "matmul"
+                 ) -> torch.Tensor:
+    """(P,) f32 s_W for a batch of permutations.
+
+    mat2:            (n, n) squared distances with a ZERO diagonal. The
+                     matmul variant sums the full i != j square and halves
+                     it, which is exact only under that precondition. f32,
+                     or bf16 for the matmul variant (f32 accumulation).
+    groupings:       (P, n) int32 permuted labels.
+    inv_group_sizes: (G,) f32.
+
+    The brute kernel takes one permutation per block, permblock 16 and
+    matmul as many as fill 128 one-hot columns (16 at G = 8).
+    """
+    _check(mat2, groupings, inv_group_sizes, variant)
+    if mat2.device.type == "cpu":
+        if mat2.dtype == torch.bfloat16:
+            w = _rounded_sqrt_w(inv_group_sizes, mat2.dtype) ** 2
+            return ref.sw_ref(mat2.to(torch.float32), groupings, w)
+        return ref.sw_ref(mat2, groupings, inv_group_sizes)
+    lib = load_library()
+    stream = torch.cuda.current_stream(mat2.device).cuda_stream
+    return _launch(lib, variant, mat2, groupings, inv_group_sizes, stream)
+
+
+def make_sw_fn(variant: str = "matmul"):
+    """Adapter giving the (mat2, groupings, inv_gs) -> s_W signature that
+    engine.run(sw_fn=...) expects."""
+    def fn(mat2, groupings, inv_gs):
+        return permanova_sw(mat2, groupings, inv_gs, variant=variant)
+    return fn

@@ -1,0 +1,94 @@
+"""PERMANOVA launcher — the paper's workload as a CLI, on the port.
+
+Twin of `repro/launch/permanova.py` for the matrix path: a synthetic
+study, its distance matrix, then the full test through the engine.
+
+  PYTHONPATH=src python -m repro_torch.launch.permanova \
+      --samples 512 --features 128 --groups 8 --perms 999 --impl auto
+
+  # the paper's EMP shape on the card (2 streamed label chunks):
+  PYTHONPATH=src python -m repro_torch.launch.permanova \
+      --samples 25145 --perms 3999
+
+Runs on the card (`--device cuda`, the default) and fails without one;
+`--device cpu` runs the plain PyTorch forms on the host.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import engine
+from repro_torch.core.distance import (distance_matrix,
+                                       validate_distance_matrix)
+from repro_torch.data.microbiome import synthetic_study
+from repro_torch.hw import resolve_device
+
+IMPL_CHOICES = ["auto", "brute", "tiled", "matmul",
+                "pallas_brute", "pallas_permblock", "pallas_matmul"]
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--samples", type=int, default=512)
+    ap.add_argument("--features", type=int, default=128)
+    ap.add_argument("--groups", type=int, default=8)
+    ap.add_argument("--perms", type=int, default=999)
+    ap.add_argument("--effect", type=float, default=1.0)
+    ap.add_argument("--metric", default="braycurtis",
+                    choices=["braycurtis", "euclidean", "jaccard",
+                             "aitchison"])
+    ap.add_argument("--impl", default="auto", choices=IMPL_CHOICES,
+                    help="'auto' = planner (GPU-brute / CPU-tiled per the "
+                         "paper); or pin a registry impl")
+    ap.add_argument("--budget-mb", type=float, default=None,
+                    help="label-tensor memory budget; sweeps beyond it "
+                         "stream in fixed-size chunks")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="pin the streaming chunk (perms per dispatch)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    x, grouping = synthetic_study(args.samples, args.features, args.groups,
+                                  effect_size=args.effect, seed=args.seed)
+    budget = None if args.budget_mb is None else args.budget_mb * 2**20
+
+    t0 = time.perf_counter()
+    dm = distance_matrix(torch.from_numpy(x).to(dev), args.metric)
+    checks = validate_distance_matrix(dm)
+    if not checks["ok"]:
+        raise RuntimeError(f"distance matrix failed its checks: {checks}")
+    _sync(dev)
+    t_dm = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res = engine.run(dm, torch.from_numpy(grouping), n_perms=args.perms,
+                     seed=args.seed, impl=args.impl,
+                     memory_budget_bytes=budget, chunk=args.chunk,
+                     device=dev)
+    f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
+    t_pa = time.perf_counter() - t0
+
+    print(f"[permanova] n={args.samples} groups={args.groups} "
+          f"perms={res.n_perms} metric={args.metric} impl={args.impl} "
+          f"device={dev}")
+    print(f"[permanova] plan: {res.plan}")
+    print(f"[permanova] distance-matrix {t_dm:.2f}s  "
+          f"permutation-test {t_pa:.2f}s "
+          f"({res.n_perms / t_pa:.1f} perms/s)")
+    print(f"[permanova] F={f_stat:.6g} p={p_value:.6g}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,279 @@
+"""The port's permanova_sw plain forms and wrapper against the reference's
+Pallas kernels (interpret mode), plus the wrapper's contract and the
+kernel build/binding. The CUDA kernels themselves run only on the card;
+`chip_smoke.py` holds them against these plain versions there."""
+
+import functools
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import permutations as jperm  # noqa: E402
+from repro.kernels.permanova_sw import ops as jops  # noqa: E402
+from repro_torch.compat import from_reference  # noqa: E402
+from repro_torch.core import fstat  # noqa: E402
+from repro_torch.core import permutations as tperm  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.permanova_sw import ops, ref  # noqa: E402
+
+# The reference's kernel sweep (tests/test_kernels_permanova.py):
+# (n, n_groups, n_perms, tile, perm_block).
+SHAPES = [
+    (32, 2, 4, 16, 2),
+    (48, 3, 7, 16, 4),
+    (64, 5, 16, 32, 8),
+    (96, 4, 6, 32, 3),
+    (130, 2, 5, 32, 4),     # ragged: padding path
+    (57, 7, 9, 16, 16),     # perm_block > n_perms
+]
+RTOL, ATOL = 5e-5, 1e-5     # the reference's own kernel bar
+
+
+def _instance(n, g, p, seed=0):
+    """numpy (mat2, labels, inv_gs), as the reference's kernel test."""
+    rng = np.random.default_rng(seed)
+    d = rng.random((n, n)).astype(np.float32)
+    d = (d + d.T) / 2
+    np.fill_diagonal(d, 0.0)
+    grouping = rng.integers(0, g, size=n).astype(np.int32)
+    grouping[:g] = np.arange(g)
+    inv_gs = np.array(jperm.inv_group_sizes(jnp.asarray(grouping), g))
+    gperms = np.stack([rng.permutation(grouping) for _ in range(p)])
+    gperms[0] = grouping
+    return d * d, gperms.astype(np.int32), inv_gs
+
+
+def _shape_instance(shape):
+    n, g, p, _, _ = shape
+    return _instance(n, g, p, seed=n + g + p)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sw(variant, shape):
+    mat2, gperms, inv_gs = _shape_instance(shape)
+    _, _, _, tile, pb = shape
+    return np.asarray(jops.permanova_sw(
+        jnp.asarray(mat2), jnp.asarray(gperms), jnp.asarray(inv_gs),
+        variant=variant, tile_r=tile, tile_c=tile, perm_block=pb))
+
+
+PORT_FORMS = {
+    "sw_brute": lambda m, g, w, v: fstat.sw_brute(m, g, w, block=3),
+    "sw_tiled": lambda m, g, w, v: fstat.sw_tiled(m, g, w, tile=16, block=2),
+    "sw_matmul": lambda m, g, w, v: fstat.sw_matmul(m, g, w, perm_block=4),
+    "sw_ref": lambda m, g, w, v: ref.sw_ref(m, g, w),
+    "ops.permanova_sw": lambda m, g, w, v: ops.permanova_sw(m, g, w,
+                                                            variant=v),
+}
+
+
+@pytest.mark.parametrize("form", sorted(PORT_FORMS))
+@pytest.mark.parametrize("variant", jops.VARIANTS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "n{}g{}p{}".format(*s))
+def test_port_matches_reference_kernel(form, variant, shape):
+    mat2, gperms, inv_gs = _shape_instance(shape)
+    got = PORT_FORMS[form](torch.from_numpy(mat2), torch.from_numpy(gperms),
+                           torch.from_numpy(inv_gs), variant)
+    assert got.dtype == torch.float32 and got.shape == (shape[2],)
+    np.testing.assert_allclose(got.numpy(), _jax_sw(variant, shape),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n,g", [(37, 4), (53, 5), (9, 8), (32, 3)])
+@pytest.mark.parametrize("form", sorted(PORT_FORMS))
+def test_port_matches_algorithm1(form, n, g):
+    """Prime n (the tiled sentinel pad) and singleton groups (9, 8)."""
+    mat2, gperms, inv_gs = _instance(n, g, 5, seed=n * g)
+    oracle = fstat.sw_algorithm1_numpy(np.sqrt(mat2), gperms, inv_gs)
+    got = PORT_FORMS[form](torch.from_numpy(mat2), torch.from_numpy(gperms),
+                           torch.from_numpy(inv_gs), "brute")
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=RTOL, atol=ATOL)
+
+
+def test_bf16_matmul_on_cpu_within_reference_bar():
+    """bf16 mat2 through the wrapper: its plain version sees what the
+    kernel sees (bf16 operands, sqrt(w) rounded to bf16) and stays within
+    the reference's 5e-3 bar of the float64 result."""
+    mat2, gperms, inv_gs = _instance(64, 4, 8, seed=3)
+    m16 = torch.from_numpy(mat2).to(torch.bfloat16)
+    got = ops.permanova_sw(m16, torch.from_numpy(gperms),
+                           torch.from_numpy(inv_gs), variant="matmul")
+    ref64 = ref.sw_ref_f64(mat2, gperms, inv_gs)
+    rel = np.max(np.abs(got.double().numpy() - ref64) / np.abs(ref64))
+    assert rel < 5e-3, f"bf16 matmul rel err {rel}"
+    jax16 = np.asarray(jops.permanova_sw(
+        jnp.asarray(mat2).astype(jnp.bfloat16), jnp.asarray(gperms),
+        jnp.asarray(inv_gs), variant="matmul", tile_r=32, tile_c=32,
+        perm_block=4))
+    np.testing.assert_allclose(got.numpy(), jax16, rtol=1e-3)
+
+
+def test_sw_ref_f64_matches_reference():
+    mat2, gperms, inv_gs = _instance(40, 3, 4, seed=1)
+    from repro.kernels.permanova_sw import ref as jref
+    np.testing.assert_allclose(
+        ref.sw_ref_f64(torch.from_numpy(mat2), torch.from_numpy(gperms),
+                       torch.from_numpy(inv_gs)),
+        jref.sw_ref_f64(mat2, gperms, inv_gs), rtol=1e-12)
+
+
+def test_cpu_calls_launch_nothing():
+    mat2, gperms, inv_gs = _instance(32, 2, 3)
+    before = dict(ops.LAUNCHES)
+    for v in ops.VARIANTS:
+        ops.permanova_sw(torch.from_numpy(mat2), torch.from_numpy(gperms),
+                         torch.from_numpy(inv_gs), variant=v)
+    assert ops.LAUNCHES == before
+    assert set(ops.LAUNCHES) == set(ops.VARIANTS)
+
+
+def _operands():
+    mat2, gperms, inv_gs = _instance(16, 2, 3)
+    return (torch.from_numpy(mat2), torch.from_numpy(gperms),
+            torch.from_numpy(inv_gs))
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("unknown_variant", ValueError),
+    ("mat2_not_square", ValueError),
+    ("mat2_f64", TypeError),
+    ("bf16_brute", TypeError),
+    ("labels_int64", TypeError),
+    ("labels_wrong_n", ValueError),
+    ("weights_f64", TypeError),
+    ("not_contiguous", ValueError),
+    ("mixed_devices", ValueError),
+])
+def test_wrapper_rejects(case, exc):
+    m, g, w = _operands()
+    variant = "brute"
+    if case == "unknown_variant":
+        variant = "pallas"
+    elif case == "mat2_not_square":
+        m = m[:, :8].contiguous()
+    elif case == "mat2_f64":
+        m = m.double()
+    elif case == "bf16_brute":
+        m = m.to(torch.bfloat16)
+    elif case == "labels_int64":
+        g = g.long()
+    elif case == "labels_wrong_n":
+        g = g[:, :8].contiguous()
+    elif case == "weights_f64":
+        w = w.double()
+    elif case == "not_contiguous":
+        m = m.T
+    elif case == "mixed_devices":
+        g = g.to("meta")
+    with pytest.raises(exc):
+        ops.permanova_sw(m, g, w, variant=variant)
+
+
+def test_make_sw_fn_plugs_into_engine():
+    from repro.core import permanova as jpermanova
+    from repro_torch import engine
+    rng = np.random.default_rng(4)
+    x = rng.random((40, 12)).astype(np.float32)
+    d = np.abs(x[:, None, :] - x[None, :, :]).sum(-1).astype(np.float32)
+    grouping = rng.integers(0, 3, size=40).astype(np.int32)
+    grouping[:3] = np.arange(3)
+    _, _, perms = from_reference(perms=jperm.permutation_batch(
+        jax.random.key(0), jnp.asarray(grouping), 0, 20), device="cpu")
+    res_j = jpermanova(jnp.asarray(d), jnp.asarray(grouping), n_perms=19,
+                       sw_fn=jops.make_sw_fn("matmul", tile_r=16, tile_c=16,
+                                             perm_block=4))
+    res_t = engine.run(torch.from_numpy(d), torch.from_numpy(grouping),
+                       n_perms=19, perms=perms,
+                       sw_fn=ops.make_sw_fn("matmul"), device="cpu")
+    np.testing.assert_allclose(float(res_t.f_stat), float(res_j.f_stat),
+                               rtol=1e-4)
+    assert float(res_t.p_value) == float(res_j.p_value)
+    assert res_t.plan == res_j.plan     # <custom sw_fn>[perm_block=64] ...
+
+
+# ---------------------------------------------------------------------------
+# Build and binding (the compile itself happens on the card's machine).
+# ---------------------------------------------------------------------------
+
+def test_nvcc_command_targets_sm90a(tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text("// empty\n")
+    cmd = _build.nvcc_command("nvcc", src, tmp_path / "k.so")
+    assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+        assert flag in cmd
+
+
+def test_library_path_keyed_by_source(tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = _build.library_path(src)
+    assert first.parent == _build.BUILD_DIR
+    assert _build.library_path(src) == first
+    src.write_text("// two\n")
+    assert _build.library_path(src) != first
+    assert _build.BUILD_DIR.relative_to(_build.REPO_ROOT).parts == (
+        "build", "repro_torch")
+
+
+def test_missing_nvcc_raises_without_fallback(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "b")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(ops.SOURCE)
+    assert not (tmp_path / "b").exists()
+
+
+def _c_params(source: str, name: str):
+    m = re.search(rf"\b{name}\(([^)]*)\)\s*\{{", source)
+    assert m, name
+    return [p.strip() for p in m.group(1).split(",") if p.strip()]
+
+
+@pytest.mark.parametrize("name", sorted(ops.SIGNATURES))
+def test_ctypes_signature_matches_source(name):
+    """Every pointer parameter of a C entry point is bound as c_void_p
+    (else ctypes cuts it to 32 bits), every integer at its C width."""
+    import ctypes
+    params = _c_params(ops.SOURCE.read_text(), name)
+    argtypes, restype = ops.SIGNATURES[name]
+    assert len(params) == len(argtypes)
+    for p, t in zip(params, argtypes):
+        if "*" in p:
+            assert t is ctypes.c_void_p, p
+        elif p.startswith("long long"):
+            assert t is ctypes.c_longlong, p
+        else:
+            assert p.startswith("int ") and t is ctypes.c_int, p
+    assert restype is (None if name == "sw_kernel_config" else ctypes.c_int)
+
+
+def test_source_names_the_kernels_it_replaces():
+    src = ops.SOURCE.read_text()
+    for fn in ("sw_brute_pallas", "sw_permblock_pallas", "sw_matmul_pallas"):
+        assert f"kernels/permanova_sw/kernel.py:{fn}" in src
+    assert "atomicAdd" not in src    # partials + torch.sum, not atomics
+
+
+def test_matmul_perm_block_fills_128_onehot_columns():
+    """The matmul kernel fixes its perm block from G in the source: as
+    many permutations as fill 128 one-hot columns, at least one."""
+    src = ops.SOURCE.read_text()
+    assert "return n_groups >= kMK ? 1 : kMK / n_groups;" in src
+    assert "constexpr int kMK = 128;" in src
+
+
+def test_inv_group_sizes_match_reference():
+    grouping = np.array([0, 2, 2, 0, 2, 4], np.int32)   # groups 1, 3 empty
+    got = tperm.inv_group_sizes(torch.from_numpy(grouping), 5)
+    want = np.asarray(jperm.inv_group_sizes(jnp.asarray(grouping), 5))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[1] == 0 and got[3] == 0
