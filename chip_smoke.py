@@ -30,6 +30,26 @@ Phases, each timed:
    must also match the plain version's within SW_MAIN_RTOL. Then
    engine.run on the card against engine.run on the CPU at n=300 (same
    seed, so the same labels).
+5. Every pairwise-distance kernel (braycurtis, euclidean, jaccard,
+   jaccard_packed) against its plain PyTorch version on the card at
+   (nr, nc, d) = (57, 57, 3), (130, 130, 37), (2047, 2047, 128) and
+   (256, 25145, 128), the stream bridge's slab at the EMP shape: f32 at
+   rtol=1e-4, atol=1e-5 (the reference's own bar), and jaccard_packed
+   equal to the jaccard kernel bit for bit on the same presence data.
+6. The features path at the EMP shape through the entry point a user
+   calls: pipeline(features, Bray-Curtis, 3,999 permutations, seed 0),
+   once with a 6 GiB matrix budget (the planner picks the dense bridge:
+   one braycurtis launch) and once with 3 GiB (the stream bridge: one
+   launch per 256-row slab, 99), each launching the brute kernel twice
+   and nothing else; F of the two bridges and of phase 3's engine.run
+   (same seed, so the same labels) agree at rtol=1e-4 with p equal. Then
+   each other distance kernel's own path, the dense bridge at 999
+   permutations for euclidean (and aitchison), jaccard and jaccard with
+   packed=1, whose F must equal the float jaccard's bit for bit.
+7. Each distance kernel timed at the main path's shapes, (n, n, 128) for
+   the dense bridge and the (256, n, 128) slab x 99 for the stream
+   bridge, beside its plain version, torch.cdist for euclidean (the one
+   PyTorch call that computes one of these functions), and its bound.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -76,6 +96,25 @@ REPLACES = {
     "matmul": "src/repro/kernels/permanova_sw/kernel.py:174",
 }
 SOURCE = "src/repro_torch/kernels/permanova_sw/csrc/permanova_sw.cu"
+DIST_SOURCE = "src/repro_torch/kernels/distance/csrc/distance.cu"
+DIST_REPLACES = {
+    "braycurtis": "src/repro/kernels/distance/kernel.py:52",
+    "jaccard": "src/repro/kernels/distance/kernel.py:105",
+    "jaccard_packed": "src/repro/kernels/distance/kernel.py:168",
+    "euclidean": "src/repro/kernels/distance/kernel.py:219",
+}
+DIST_CHECK_SHAPES = [(57, 57, 3), (130, 130, 37), (2047, 2047, 128),
+                     (256, EMP_N, EMP_FEATURES)]
+GIB = 1024 ** 3
+# matrix budgets that make the planner pick each bridge at the EMP shape:
+# 8 n^2 = 4.71 GiB (D + mat2) fits 6 GiB; 4 n^2 = 2.36 GiB fits 3 GiB
+BRIDGE_BUDGETS = {"dense": 6 * GIB, "stream": 3 * GIB}
+STREAM_ROWS = 256       # the planner's row block at the EMP shape
+# each other distance kernel's own path: (metric, dist_tuning, kernel)
+OTHER_PATHS = [("euclidean", None, "euclidean"),
+               ("aitchison", None, "euclidean"),
+               ("jaccard", None, "jaccard"),
+               ("jaccard", {"packed": 1}, "jaccard_packed")]
 
 
 def log(msg: str) -> None:
@@ -166,16 +205,23 @@ def onehot_flop(labels, inv_gs) -> float:
 
 
 def phase_header():
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
+    from repro_torch.kernels.distance import ops as dops
     from repro_torch.kernels.permanova_sw import ops
     log(f"[smoke] card: {card_line()}")
     log(f"[smoke] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib = ops.load_library()
+    # one nvcc per source, started together
+    with ThreadPoolExecutor(2) as pool:
+        libs = [f.result() for f in [pool.submit(m.load_library)
+                                     for m in (ops, dops)]]
     log(f"[smoke] kernel build+load {time.perf_counter() - t0:.2f}s "
-        f"({ops.SOURCE.name} -> {ops._build.library_path(ops.SOURCE).name}) "
-        f"config {ops.kernel_config(lib)}")
+        f"({ops.SOURCE.name} -> {ops._build.library_path(ops.SOURCE).name}, "
+        f"{dops.SOURCE.name} -> {dops._build.library_path(dops.SOURCE).name})"
+        f" config {ops.kernel_config(libs[0])}")
 
 
 def phase_kernels(dev):
@@ -218,14 +264,24 @@ def phase_kernels(dev):
 
 
 def zero_launches():
+    from repro_torch.kernels.distance import ops as dops
     from repro_torch.kernels.permanova_sw import ops
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    for counts in (ops.LAUNCHES, dops.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since zero_launches(), by kernel name."""
+    from repro_torch.kernels.distance import ops as dops
+    from repro_torch.kernels.permanova_sw import ops
+    return {**ops.LAUNCHES, **dops.LAUNCHES}
 
 
 def phase_main_path(dev):
     """The paper's EMP shape through the entry points a user calls. Returns
-    mat2, the labels' device copy and each run's own launch counts."""
+    mat2, the labels' device copy, each run's own launch counts, the auto
+    run's (F, p) and the study (features, labels) as numpy arrays."""
     import torch
     from repro_torch import engine
     from repro_torch.core import permutations
@@ -306,7 +362,7 @@ def phase_main_path(dev):
             f"{excess:.3f} of the f32 allowance")
     mat2 = dm * dm
     del dm
-    return mat2, g_dev, paths
+    return mat2, g_dev, paths, (f_stat, p_value), (x, grouping)
 
 
 def phase_timings(dev, mat2, g_dev, paths, worst):
@@ -348,12 +404,13 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
               f"(limit {SW_MAIN_RTOL})")
         ms = cuda_ms(kern, reps=3 if v != "brute" else 2)
         plain_ms = cuda_ms(plain, reps=1, warm=lambda: plain(small))
-        library_ms = None
-        if v == "matmul":
-            e = fstat.onehot_perm_factors(labels, inv_gs, mat2.dtype)
-            e2d = e.permute(1, 0, 2).reshape(EMP_N, -1).contiguous()
-            library_ms = cuda_ms(lambda: torch.matmul(mat2, e2d), reps=3)
-            del e, e2d
+        # the library yardstick for all three: one torch.matmul of mat2
+        # with the (n, P*G) one-hot factor of these labels
+        e = fstat.onehot_perm_factors(labels, inv_gs, mat2.dtype)
+        e2d = e.permute(1, 0, 2).reshape(EMP_N, -1).contiguous()
+        del e
+        library_ms = cuda_ms(lambda: torch.matmul(mat2, e2d), reps=3)
+        del e2d
         b_ms, b_by = bound_ms(mat2, labels, inv_gs, H100_SXM)
         rows.append({
             "name": f"permanova_sw.{v}", "route": "cuda", "source": SOURCE,
@@ -411,6 +468,237 @@ def phase_reference(dev):
             f"CPU F={f_h:.7g} p={p_h}")
 
 
+def dist_operands(xr, xc):
+    """Each distance kernel's operands for rows xr against rows xc."""
+    from repro_torch.core.distance import (pack_presence_bits,
+                                           presence_prepare)
+    pr, pc = presence_prepare(xr), presence_prepare(xc)
+    return {"braycurtis": (xr, xc), "euclidean": (xr, xc),
+            "jaccard": (pr, pc),
+            "jaccard_packed": (pack_presence_bits(pr),
+                               pack_presence_bits(pc))}
+
+
+def self_pairs_zeroed(d, lo=0):
+    """d with its (global row == col) entries zeroed, rows starting at
+    global row lo: the contract both bridges apply (pairwise_distance
+    zeroes the diagonal, the stream step masks it while squaring)."""
+    d = d.clone()
+    d.diagonal(offset=lo).zero_()
+    return d
+
+
+def phase_distance_kernels(dev):
+    """Every distance kernel against its plain version at
+    DIST_CHECK_SHAPES; the (256, n, 128) slab is the EMP table's first 256
+    rows against the whole table, as the stream bridge's first slab."""
+    import numpy as np
+    import torch
+    from repro_torch.data.microbiome import synthetic_abundance
+    from repro_torch.kernels.distance import ops as dops, ref as dref
+    worst = {k: 0.0 for k in dops.KERNELS}
+    for nr, nc, d in DIST_CHECK_SHAPES:
+        x = torch.from_numpy(synthetic_abundance(nc, d, seed=nr + nc + d)
+                             ).to(dev)
+        outs = {}
+        for k, (a, b) in dist_operands(x[:nr].contiguous(), x).items():
+            got = self_pairs_zeroed(dops.pairwise_rect(a, b, kernel=k))
+            want = self_pairs_zeroed(dref.REFS[k](a, b))
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst[k] = max(worst[k], err)
+            check(got.shape == (nr, nc) and bool(torch.isfinite(got).all())
+                  and torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  f"{k} kernel != plain at {(nr, nc, d)}: abs {err:.3e}")
+            log(f"[smoke] kernel {k:14s} (nr,nc,d)={(nr, nc, d)} "
+                f"max_abs_err={err:.3e} vs plain")
+            outs[k] = got
+        check(torch.equal(outs["jaccard_packed"], outs["jaccard"]),
+              f"jaccard_packed != jaccard kernel bit for bit at "
+              f"{(nr, nc, d)}")
+        log(f"[smoke] kernel jaccard_packed == jaccard bit for bit at "
+            f"{(nr, nc, d)} ({np.prod((nr, nc))} entries)")
+    return worst
+
+
+def phase_pipeline(dev, x_np, grouping, f_p_main):
+    """pipeline() from the EMP features: the dense and the stream bridge,
+    picked by the planner from the matrix budget, with each run's own
+    launch counts; then each other distance kernel's own dense path."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.pipeline import registry, streaming
+    x = torch.from_numpy(x_np).to(dev)
+    g_dev = torch.from_numpy(grouping).to(dev)
+    f0, p0 = f_p_main
+    n_slabs = -(-EMP_N // STREAM_ROWS)
+    paths, results = {}, {}
+    for bridge, budget in BRIDGE_BUDGETS.items():
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipeline.pipeline(x, g_dev, metric="braycurtis",
+                                n_perms=EMP_PERMS, seed=0,
+                                matrix_budget_bytes=budget, device=dev)
+        f_b, p_b = float(res.f_stat), float(res.p_value)      # waits
+        dt = time.perf_counter() - t0
+        paths[bridge] = launch_counts()
+        results[bridge] = (f_b, p_b)
+        log(f"[smoke] pipeline {bridge:6s} n={EMP_N} perms={EMP_PERMS} "
+            f"{dt:.3f}s end to end F={f_b:.7g} p={p_b:.6g} "
+            f"launches={paths[bridge]}")
+        log(f"[smoke] pipeline {bridge:6s} plan: {res.plan}")
+        check(res.plan.startswith(
+            f"braycurtis.cuda[] -> {bridge}(rows={STREAM_ROWS})"),
+            f"expected braycurtis.cuda -> {bridge}, got {res.plan!r}")
+        check(res.method == f"pipeline[braycurtis.cuda->{bridge}->brute]",
+              f"unexpected method {res.method!r}")
+        want = {k: 0 for k in paths[bridge]}
+        want.update(brute=2,
+                    braycurtis=1 if bridge == "dense" else n_slabs)
+        check(paths[bridge] == want,
+              f"{bridge} bridge launches {paths[bridge]} != {want}")
+        check(res.f_perms.device == dev
+              and res.f_perms.shape == (EMP_PERMS + 1,)
+              and bool(torch.isfinite(res.f_perms).all()),
+              "null distribution must be finite, (n_perms + 1,), on the card")
+        for name, (f, p) in (("phase 3 engine.run", (f0, p0)),
+                             ("the dense bridge", results["dense"])):
+            check(abs(f_b - f) <= RTOL * abs(f) and p_b == p,
+                  f"{bridge} bridge F={f_b} p={p_b} vs {name} F={f} p={p}")
+        # stage 1 alone, timed outside the counted run
+        prepare, rows_fn, dense_fn = registry.get("braycurtis.cuda").bound()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if bridge == "dense":
+            out = dense_fn(x)
+            torch.cuda.synchronize()
+        else:
+            out, _ = streaming.build_mat2_streaming(
+                prepare(x), rows_fn, block=STREAM_ROWS)   # ends in a sync
+        t_stage1 = time.perf_counter() - t0
+        del out
+        what = "D" if bridge == "dense" else \
+            f"mat2 + Gower row sums, {n_slabs} slabs"
+        log(f"[smoke] pipeline {bridge:6s} stage 1 alone {t_stage1:.4f}s "
+            f"({what})")
+        del res
+
+    others = {}
+    for metric, tuning, kernel in OTHER_PATHS:
+        zero_launches()
+        t0 = time.perf_counter()
+        res = pipeline.pipeline(x, g_dev, metric=metric,
+                                n_perms=CROSS_PERMS, seed=0,
+                                dist_tuning=tuning,
+                                matrix_budget_bytes=BRIDGE_BUDGETS["dense"],
+                                device=dev)
+        f_m, p_m = float(res.f_stat), float(res.p_value)
+        dt = time.perf_counter() - t0
+        tag = kernel if metric != "aitchison" else "aitchison"
+        paths[tag] = launch_counts()
+        others[tag] = (res.f_stat, p_m)
+        log(f"[smoke] pipeline dense {tag:14s} perms={CROSS_PERMS} "
+            f"{dt:.3f}s F={f_m:.7g} p={p_m:.6g} launches={paths[tag]} "
+            f"plan: {res.plan.split(' | ')[0]}")
+        want = {k: 0 for k in paths[tag]}
+        want.update(brute=1, **{kernel: 1})
+        check(paths[tag] == want,
+              f"{tag} path launches {paths[tag]} != {want}")
+        check(res.f_perms.device == dev
+              and bool(torch.isfinite(res.f_perms).all())
+              and f_m > 0.0 and 0.0 < p_m <= 1.0,
+              f"{tag} path: F/p out of range")
+        del res
+    check(torch.equal(others["jaccard_packed"][0], others["jaccard"][0])
+          and others["jaccard_packed"][1] == others["jaccard"][1],
+          "packed jaccard F/p != float jaccard F/p bit for bit")
+    log("[smoke] pipeline jaccard packed=1 F == packed=0 F bit for bit")
+    return paths
+
+
+def dist_bound_ms(kernel, a, b, chip) -> tuple:
+    """(ms, 'bytes' | 'operations'): the least time this card could take
+    for the distances of a's rows against b's rows — inputs read once and
+    the f32 output written once at the HBM rate, against the feature
+    loop's operations at the f32 CUDA-core peak: 2 per (pair, feature)
+    for the three float kernels (braycurtis: a subtract and an add of its
+    magnitude; euclidean and jaccard: a fused multiply-add), 3 per (pair,
+    word) for jaccard_packed (AND, popcount, add; the guide's table has
+    no int32 row, and the f32 rate bounds it from below). The O(n^2)
+    finalize and O(n d) row sums are left out, so this stays a lower
+    bound."""
+    nr, nc, w = a.shape[0], b.shape[0], a.shape[1]
+    nbytes = (a.numel() + b.numel()) * a.element_size() + 4 * nr * nc
+    ops_ = (3 if kernel == "jaccard_packed" else 2) * nr * nc * w
+    t_bytes = nbytes / chip.hbm_bandwidth * 1e3
+    t_ops = ops_ / chip.peak_flops_f32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_distance_timings(dev, x_np, paths, worst):
+    """Each distance kernel at the main path's shapes: (n, n, 128) once
+    (dense bridge), the (256, n, 128) slab 99 times (stream bridge)."""
+    import torch
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels.distance import ops as dops, ref as dref
+    x = torch.from_numpy(x_np).to(dev)
+    dense_ops = dist_operands(x, x)
+    slab_ops = dist_operands(x[:STREAM_ROWS].contiguous(), x)
+    n_slabs = -(-EMP_N // STREAM_ROWS)
+    own_path = {"braycurtis": "dense", "euclidean": "euclidean",
+                "jaccard": "jaccard", "jaccard_packed": "jaccard_packed"}
+    rows, outs = [], {}
+    for k in dops.KERNELS:
+        a, b = dense_ops[k]
+        sa, sb = slab_ops[k]
+        got = dops.pairwise_rect(a, b, kernel=k).fill_diagonal_(0.0)
+        want = dref.REFS[k](a, b).fill_diagonal_(0.0)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+              f"{k} kernel != plain at the main-path shape: abs {err:.3e}")
+        if k.startswith("jaccard"):
+            outs[k] = got
+        del got, want
+        ms = cuda_ms(lambda: dops.pairwise_rect(a, b, kernel=k), reps=3)
+        plain_ms = cuda_ms(lambda: dref.REFS[k](a, b), reps=1,
+                           warm=lambda: dref.REFS[k](sa, sb))
+        slab_ms = cuda_ms(lambda: dops.pairwise_rect(sa, sb, kernel=k),
+                          reps=10)
+        slab_plain_ms = cuda_ms(lambda: dref.REFS[k](sa, sb), reps=3)
+        library_ms = None
+        if k == "euclidean":
+            library_ms = cuda_ms(lambda: torch.cdist(a, b), reps=3)
+        b_ms, b_by = dist_bound_ms(k, a, b, H100_SXM)
+        sb_ms, sb_by = dist_bound_ms(k, sa, sb, H100_SXM)
+        rows.append({
+            "name": f"distance.{k}", "route": "cuda",
+            "source": DIST_SOURCE, "replaces": DIST_REPLACES[k],
+            "path": f"pipeline {own_path[k]}",
+            "launches": paths[own_path[k]][k],
+            "launches_by_path": {p: c[k] for p, c in paths.items()},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "shape": {"nr": EMP_N, "nc": EMP_N, "d": EMP_FEATURES,
+                      "operand_cols": a.shape[1]},
+            "max_abs_err_checks": worst[k],
+            "stream_slab": {"nr": STREAM_ROWS, "nc": EMP_N, "ms": slab_ms,
+                            "plain_ms": slab_plain_ms, "bound_ms": sb_ms,
+                            "bound_by": sb_by, "slabs": n_slabs,
+                            "launches": paths["stream"][k]},
+        })
+        log(f"[smoke] timing {k:14s} (n={EMP_N}, d={EMP_FEATURES}) dense: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+            f"{library_ms} ms, bound {b_ms:.3f} ms ({b_by}); slab "
+            f"({STREAM_ROWS}, n): kernel {slab_ms:.4f} ms x {n_slabs} = "
+            f"{slab_ms * n_slabs:.3f} ms, plain {slab_plain_ms:.3f} ms, "
+            f"bound {sb_ms:.4f} ms ({sb_by}); max_abs_err {err:.3e}")
+    check(torch.equal(outs["jaccard_packed"], outs["jaccard"]),
+          "jaccard_packed != jaccard kernel bit for bit at the main shape")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -430,13 +718,24 @@ def main() -> int:
     worst = phase_kernels(dev)
     log(f"[smoke] phase 2 (kernels vs plain) {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
-    mat2, g_dev, paths = phase_main_path(dev)
+    mat2, g_dev, paths, f_p_main, (x, grouping) = phase_main_path(dev)
     log(f"[smoke] phase 3 (EMP main path) {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     rows = phase_timings(dev, mat2, g_dev, paths, worst)
     del mat2
     phase_reference(dev)
     log(f"[smoke] phase 4 (timings, reference) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    dist_worst = phase_distance_kernels(dev)
+    log(f"[smoke] phase 5 (distance kernels vs plain) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    dist_paths = phase_pipeline(dev, x, grouping, f_p_main)
+    log(f"[smoke] phase 6 (features path) {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    rows += phase_distance_timings(dev, x, dist_paths, dist_worst)
+    log(f"[smoke] phase 7 (distance timings) "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 

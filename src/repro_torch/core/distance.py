@@ -1,8 +1,8 @@
 """Distance-matrix construction — the substrate feeding PERMANOVA.
 
 Twin of `repro/core/distance.py`, in plain PyTorch (the reference computes
-these in plain jnp too; their kernels come with a later slice). Each
-metric is factored as
+these in plain jnp too; the tiled kernels live in `kernels/distance` and
+are reached through `pipeline.registry`). Each metric is factored as
 
   prepare(x)        one-off (n, d) feature transform (clr for Aitchison,
                     presence cast for Jaccard; identity otherwise)
@@ -57,6 +57,27 @@ def jaccard_rows(xb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     card = x.sum(dim=-1)[None, :]
     union = card_b + card - inter
     return 1.0 - inter / union.clamp(min=1.0)
+
+
+def pack_presence_bits(xprep) -> torch.Tensor:
+    """Pack a presence/absence slab into 32-bit words along features.
+
+    (n, d) -> (n, ceil(d/32)) int32 holding the reference's uint32 bits:
+    bit k of word w is 1[x[:, 32*w + k] > 0], pad features are zero bits.
+    torch has little uint32 support, so the words are int32 with the same
+    bits: built in int64, then values >= 2^31 are folded down by 2^32
+    before the cast (an out-of-range int64 -> int32 cast is not defined
+    to wrap)."""
+    x = torch.as_tensor(xprep)
+    n, d = x.shape
+    bits = (x > 0).to(torch.int64)
+    pad = (-d) % 32
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    words = (bits.reshape(n, -1, 32) << shifts).sum(dim=-1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32)
 
 
 class MetricDef(NamedTuple):

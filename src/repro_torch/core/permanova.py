@@ -8,8 +8,9 @@ Twin of `repro/core/permanova.py`:
   F[p]   = (s_A[p] / (a - 1)) / (s_W[p] / (N - a))
   p-val  = (#{F[p] >= F[0], p >= 1} + 1) / (n_perms + 1)
 
-with N objects, a groups, permutation 0 = observed labels. This slice
-takes a distance matrix; the features path and designs come later.
+with N objects, a groups, permutation 0 = observed labels. permanova()
+takes a distance matrix or a feature table (through pipeline); designs
+come later.
 """
 
 from __future__ import annotations
@@ -83,7 +84,10 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
     """Run the full PERMANOVA test on a distance matrix (thin engine
     wrapper).
 
-    dm:        (n, n) symmetric distance matrix with a zero diagonal.
+    dm:        (n, n) symmetric distance matrix with a zero diagonal, or
+               an (n, d) feature table (non-square, or `metric=` given),
+               which routes to pipeline.pipeline: distances by `metric`
+               (default 'braycurtis'), then the same test.
     grouping:  (n,) int labels in [0, n_groups).
     seed / perms: the permutation source — the port's counter-based
                generator from `seed`, or an explicit (n_perms + 1, n)
@@ -93,8 +97,8 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
                'matmul' (or their 'pallas_*' aliases).
     device:    'cuda' (default; raises without a card) or 'cpu'.
 
-    A raw (n, d) feature table (or `metric=`), and `covariates`, `strata`
-    or `weights`, raise NotImplementedError: those paths are later slices.
+    `covariates`, `strata` or `weights` raise NotImplementedError: the
+    designs are a later slice.
     """
     from repro_torch import engine   # deferred: engine imports this module
     if covariates is not None or strata is not None or weights is not None:
@@ -102,9 +106,21 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
     if grouping is None:
         raise ValueError("permanova needs grouping labels")
     arr = torch.as_tensor(dm)
-    if metric is not None or arr.dim() != 2 or arr.shape[0] != arr.shape[1]:
-        raise _later("the features path (metric= or an (n, d) table)",
-                     "stage-1 distances (slice 2)")
+    if metric is not None or (arr.dim() == 2
+                              and arr.shape[0] != arr.shape[1]):
+        if sw_fn is not None:
+            raise ValueError("sw_fn is not supported on the features path; "
+                             "precompute the distance matrix instead")
+        from repro_torch import pipeline   # deferred: it imports engine
+        return pipeline.pipeline(
+            arr, grouping, metric=metric or "braycurtis", n_perms=n_perms,
+            seed=seed, perms=perms, n_groups=n_groups, sw_impl=sw_impl,
+            memory_budget_bytes=memory_budget_bytes, chunk=chunk,
+            device=device)
+    if arr.dim() != 2:
+        raise ValueError(f"permanova takes an (n, n) distance matrix or an "
+                         f"(n, d) feature table, got shape "
+                         f"{tuple(arr.shape)}")
     if arr.shape[0] >= 2:
         # An (n, n) feature table would silently take this path; a sampled
         # O(n) structural check catches it without an (n, n) transient.

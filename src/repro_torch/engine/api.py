@@ -24,7 +24,8 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
         n_groups: Optional[int] = None, impl: str = "auto",
         sw_fn: Optional[Callable] = None,
         memory_budget_bytes: Optional[float] = None,
-        chunk: Optional[int] = None,
+        chunk: Optional[int] = None, squared: bool = False,
+        s_t: Optional[float] = None,
         covariates=None, strata=None, weights=None,
         device="cuda") -> PermanovaResult:
     """Full PERMANOVA through the engine.
@@ -37,6 +38,12 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
     sw_fn:  bypass the registry with a custom batch callable.
     memory_budget_bytes / chunk: bound the live label tensor; sweeps
             larger than the chunk run through the streaming scheduler.
+    squared: `dm` is already the element-squared matrix mat2 = D*D (the
+            pipeline's stream bridge builds mat2 directly, so D is never
+            resident beside it); it is not squared again.
+    s_t:    precomputed total sum of squares (the stream bridge
+            accumulates it as a Gower marginal); taken as given instead
+            of one more full-matrix reduction.
     device: 'cuda' (default; raises without a card) or 'cpu'.
     """
     if covariates is not None or strata is not None or weights is not None:
@@ -49,7 +56,7 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
     n = dm.shape[0]
     if n_groups is None:
         n_groups = int(grouping.max()) + 1
-    mat2 = dm * dm
+    mat2 = dm if squared else dm * dm
     inv_gs = permutations.inv_group_sizes(grouping, n_groups)
     n_total = n_perms + 1
 
@@ -74,7 +81,8 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
         s_w_all, stats = scheduler.sw_batch(
             mat2, grouping, inv_gs, n_total, fn, seed=seed, perms=perms)
 
-    s_t = s_total(mat2)
+    s_t = s_total(mat2) if s_t is None else torch.tensor(
+        s_t, dtype=torch.float32, device=dev)
     f_all = f_from_sw(s_w_all, s_t, n, n_groups)
     return PermanovaResult(
         f_stat=f_all[0],

@@ -1,0 +1,146 @@
+"""Wrappers around the pairwise-distance CUDA kernels (csrc/distance.cu).
+
+Twin of `repro/kernels/distance/ops.py`. Two entry points:
+
+  pairwise_distance       (n, n) matrix from (n, d) features, with an
+                          exact zero diagonal
+  pairwise_distance_rows  (b, n) slab of rows against the full table, the
+                          streaming unit of the pipeline's stream bridge;
+                          no diagonal zeroing (the slab does not know its
+                          global row offset: the consumer masks it)
+
+and `pairwise_rect`, one kernel on a rectangle, which both call. On CPU
+tensors it runs the plain version (`ref.py`); on CUDA tensors it launches
+the kernel on the current stream, without synchronising, or raises. There
+is no fallback from a kernel to its plain version. The kernels take their
+tiles from the source and mask ragged shapes themselves, so nothing is
+padded. `LAUNCHES` counts kernel launches per kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.distance import pack_presence_bits
+from repro_torch.kernels import _build
+from repro_torch.kernels.distance import ref
+
+KERNELS = ("braycurtis", "euclidean", "jaccard", "jaccard_packed")
+METRICS = ("braycurtis", "euclidean", "jaccard")
+LAUNCHES = {k: 0 for k in KERNELS}
+SOURCE = Path(__file__).resolve().parent / "csrc" / "distance.cu"
+
+_TILE = 64                  # kTile in the source
+_MAX_GRID_Y = 65535
+_lib = None
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# every pointer and the stream as c_void_p, so no 64-bit address is cut to
+# a 32-bit int
+SIGNATURES = {
+    "distance_launch": ([_I32, _PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR],
+                        _I32),
+}
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernels' shared library."""
+    global _lib
+    if _lib is None:
+        lib = _build.load(SOURCE)
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        _lib = lib
+    return _lib
+
+
+def _check(xr, xc, kernel):
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    dtype = torch.int32 if kernel == "jaccard_packed" else torch.float32
+    for name, t in (("xr", xr), ("xc", xc)):
+        if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 1:
+            raise ValueError(f"{name} must be a non-empty 2-D tensor, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"kernel {kernel!r} takes {dtype} operands, "
+                            f"got {name} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xr.shape[1] != xc.shape[1]:
+        raise ValueError(f"feature widths differ: {xr.shape[1]} vs "
+                         f"{xc.shape[1]}")
+    if xr.device != xc.device:
+        raise ValueError(f"operands on different devices: {xr.device}, "
+                         f"{xc.device}")
+    if xr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xr.device}")
+    if -(-xr.shape[0] // _TILE) > _MAX_GRID_Y:
+        raise ValueError(f"{xr.shape[0]} rows exceed the kernel's grid")
+
+
+def pairwise_rect(xr: torch.Tensor, xc: torch.Tensor, *, kernel: str
+                  ) -> torch.Tensor:
+    """(nr, nc) f32 distances of the rows of xr against the rows of xc.
+
+    kernel: 'braycurtis' | 'euclidean' | 'jaccard' (f32 operands; jaccard
+    on presence/absence 0/1) | 'jaccard_packed' (int32 words from
+    core.distance.pack_presence_bits)."""
+    _check(xr, xc, kernel)
+    if xr.device.type == "cpu":
+        return ref.REFS[kernel](xr, xc)
+    lib = load_library()
+    nr, nc, d = xr.shape[0], xc.shape[0], xr.shape[1]
+    out = torch.empty((nr, nc), dtype=torch.float32, device=xr.device)
+    stream = torch.cuda.current_stream(xr.device).cuda_stream
+    err = lib.distance_launch(KERNELS.index(kernel), xr.data_ptr(),
+                              xc.data_ptr(), out.data_ptr(), nr, nc, d,
+                              stream)
+    if err != 0:
+        raise RuntimeError(f"distance {kernel} kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES[kernel] += 1
+    return out
+
+
+def _kernel_for(metric, packed) -> str:
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; one of {METRICS}")
+    if packed and metric != "jaccard":
+        raise ValueError(
+            f"packed=1 requires metric='jaccard' (got {metric!r})")
+    return "jaccard_packed" if packed else metric
+
+
+def _operand(x, packed) -> torch.Tensor:
+    if packed:
+        return pack_presence_bits(x)
+    return x.to(torch.float32).contiguous()
+
+
+def pairwise_distance(x: torch.Tensor, *, metric: str = "braycurtis",
+                      packed: int = 0) -> torch.Tensor:
+    """(n, n) distance matrix from (n, d) features, zero diagonal.
+
+    Jaccard expects presence/absence floats (distance.presence_prepare);
+    the registry's prepare supplies them. packed=1 (jaccard only) packs
+    presence into 32-bit words and runs the popcount kernel: the same
+    distances bit for bit, from 32x fewer feature bytes."""
+    kernel = _kernel_for(metric, packed)
+    xq = _operand(x, packed)
+    return pairwise_rect(xq, xq, kernel=kernel).fill_diagonal_(0.0)
+
+
+def pairwise_distance_rows(x_rows: torch.Tensor, x: torch.Tensor, *,
+                           metric: str = "braycurtis", packed: int = 0
+                           ) -> torch.Tensor:
+    """(b, n) distances of a row slab against the full table; the
+    (global_row == col) entries are left as computed (pipeline.streaming
+    zeroes them while squaring)."""
+    kernel = _kernel_for(metric, packed)
+    return pairwise_rect(_operand(x_rows, packed), _operand(x, packed),
+                         kernel=kernel)

@@ -1,7 +1,9 @@
 """PERMANOVA launcher — the paper's workload as a CLI, on the port.
 
-Twin of `repro/launch/permanova.py` for the matrix path: a synthetic
-study, its distance matrix, then the full test through the engine.
+Twin of `repro/launch/permanova.py` for the matrix and features paths:
+a synthetic study, its distance matrix, then the full test through the
+engine; or, with --from-features, the whole features->p-value pipeline
+under one joint plan (distance kernel, bridge, s_W).
 
   PYTHONPATH=src python -m repro_torch.launch.permanova \
       --samples 512 --features 128 --groups 8 --perms 999 --impl auto
@@ -9,6 +11,10 @@ study, its distance matrix, then the full test through the engine.
   # the paper's EMP shape on the card (2 streamed label chunks):
   PYTHONPATH=src python -m repro_torch.launch.permanova \
       --samples 25145 --perms 3999
+
+  # features -> p-value, D^2 row slabs streamed into one buffer:
+  PYTHONPATH=src python -m repro_torch.launch.permanova \
+      --samples 25145 --perms 3999 --from-features --materialize stream
 
 Runs on the card (`--device cuda`, the default) and fails without one;
 `--device cpu` runs the plain PyTorch forms on the host.
@@ -21,7 +27,7 @@ import time
 
 import torch
 
-from repro_torch import engine
+from repro_torch import engine, pipeline
 from repro_torch.core.distance import (distance_matrix,
                                        validate_distance_matrix)
 from repro_torch.data.microbiome import synthetic_study
@@ -54,6 +60,20 @@ def main(argv=None) -> int:
                          "stream in fixed-size chunks")
     ap.add_argument("--chunk", type=int, default=None,
                     help="pin the streaming chunk (perms per dispatch)")
+    ap.add_argument("--from-features", action="store_true",
+                    help="route through the pipeline: distance "
+                         "construction + s_W planned jointly (stage-1 "
+                         "impl, bridge, chunking in one plan)")
+    ap.add_argument("--materialize", default="auto",
+                    choices=["auto", "dense", "stream"],
+                    help="pipeline bridge: materialize D, or stream D^2 "
+                         "row blocks into one buffer; implies "
+                         "--from-features")
+    ap.add_argument("--dist-impl", default="auto",
+                    help="pin the stage-1 distance impl (e.g. "
+                         "'braycurtis.cuda', 'euclidean.blocked'); "
+                         "'auto' = pipeline planner; implies "
+                         "--from-features")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -62,6 +82,27 @@ def main(argv=None) -> int:
     x, grouping = synthetic_study(args.samples, args.features, args.groups,
                                   effect_size=args.effect, seed=args.seed)
     budget = None if args.budget_mb is None else args.budget_mb * 2**20
+
+    if args.from_features or args.materialize != "auto" \
+            or args.dist_impl != "auto":
+        t0 = time.perf_counter()
+        res = pipeline.pipeline(
+            torch.from_numpy(x), torch.from_numpy(grouping),
+            metric=args.metric, n_perms=args.perms, seed=args.seed,
+            dist_impl=args.dist_impl, sw_impl=args.impl,
+            materialize=args.materialize, chunk=args.chunk,
+            memory_budget_bytes=budget, device=dev)
+        f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
+        t_pa = time.perf_counter() - t0
+        print(f"[permanova] n={args.samples} groups={args.groups} "
+              f"perms={res.n_perms} metric={args.metric} pipeline "
+              f"device={dev}")
+        print(f"[permanova] plan: {res.plan}")
+        print(f"[permanova] features->p-value {t_pa:.2f}s "
+              f"({res.n_perms / t_pa:.1f} perms/s)")
+        print(f"[permanova] F={f_stat:.6g} p={p_value:.6g} "
+              f"R2={float(res.r2):.4g}")
+        return 0
 
     t0 = time.perf_counter()
     dm = distance_matrix(torch.from_numpy(x).to(dev), args.metric)

@@ -1,0 +1,31 @@
+"""End-to-end distance->PERMANOVA pipeline (twin of `repro.pipeline`).
+
+Takes a raw abundance table (n, d) plus grouping labels all the way to F
+and p under ONE plan:
+
+  registry    every distance implementation (dense and blocked torch
+              forms, the hand-written CUDA kernels) behind one interface
+              with capability metadata — the stage-1 mirror of
+              engine.registry
+  planner     joint two-stage plans: distance impl + row block, the
+              materialization bridge (dense / stream), and the engine's
+              s_W plan, decided together
+  streaming   the stream bridge: the mat2 row-block producer and the
+              one-buffer mat2 build (+ Gower marginals)
+  api         pipeline(), one study
+
+Entry points routing here: core.permanova.permanova(features, metric=...)
+and the launch CLI's --from-features. (The fused bridges, ordination,
+out-of-core features and many-study runs come with later slices.)
+"""
+
+from repro_torch.pipeline import (api, planner, registry,  # noqa: F401
+                                  streaming)
+from repro_torch.pipeline.api import pipeline  # noqa: F401
+from repro_torch.pipeline.planner import (  # noqa: F401
+    DEFAULT_MATRIX_BUDGET_BYTES, PipelinePlan, plan_pipeline)
+from repro_torch.pipeline.registry import (DistanceImpl, get,  # noqa: F401
+                                           metrics, names)
+from repro_torch.pipeline.streaming import (GowerStats,  # noqa: F401
+                                            build_mat2_streaming,
+                                            gower_center, mat2_row_blocks)

@@ -1,0 +1,213 @@
+"""Joint two-stage planner: distance construction + s_W under ONE plan.
+
+Twin of `repro/pipeline/planner.py` for in-memory features. It decides,
+in one place:
+
+  stage 1   which distance impl (dense / blocked / cuda per backend and
+            transient-memory model), and its row-block size
+  bridge    the materialization: 'dense' (D then mat2 — two (n, n)
+            transients), 'stream' (square row blocks into ONE mat2
+            buffer), or, when not even one (n, n) buffer fits the matrix
+            budget, 'fused-kernel' (single pass, D² never resident; that
+            bridge comes with a later slice, and pipeline() raises there)
+  stage 2   the engine Plan (impl + streaming chunk) for s_W, delegated to
+            repro_torch.engine.planner
+
+On 'cuda' stage 1 is always `<metric>.cuda`: the kernels mask ragged
+shapes, so the TPU's tile-viability floor (PALLAS_MIN_N) has no
+counterpart, just as engine.planner sends 'cuda' to the brute kernel. On
+'cpu' the plans match the reference's field for field. (Persisted stage-1
+measurements wait for the autotune slice.)
+
+`plan_pipeline()` is pure shape/backend arithmetic, like `engine.plan()`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+from repro_torch.engine import planner as _eplanner
+from repro_torch.pipeline import registry as _dreg
+
+# Matrix-residency budget for the bridge decision. Distinct from the engine's
+# label budget: this one governs the O(n^2) distance operands.
+DEFAULT_MATRIX_BUDGET_BYTES = 1024 * 1024 ** 2
+# Transient slab budget for picking the row block (and the dense/blocked
+# stage-1 cut on CPU, standing in for the paper's LLC argument).
+DEFAULT_SLAB_BUDGET_BYTES = 128 * 1024 ** 2
+MIN_ROW_BLOCK = 8
+MAX_ROW_BLOCK = 4096
+
+MATERIALIZE_MODES = ("dense", "stream", "fused", "fused-kernel")
+FUSED_MODES = ("fused", "fused-kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelinePlan:
+    """A resolved features->p-value execution plan."""
+    metric: str
+    dist_impl: str                # distance registry name
+    dist_tuning: Dict[str, int]
+    materialize: str              # 'dense' | 'stream' | 'fused' |
+                                  # 'fused-kernel'
+    row_block: int
+    sw: _eplanner.Plan            # stage-2 engine plan
+    backend: str
+    reason: str
+
+    def explain(self) -> str:
+        """describe(); the reference's residency and precision tables
+        come with the out-of-core and precision slices."""
+        return self.describe()
+
+    def describe_stage1(self) -> str:
+        """Stage 1 + bridge only — what the pipeline itself executes; the
+        dense/stream bridges delegate stage 2 to engine.run, whose plan
+        record is authoritative there."""
+        t = ",".join(f"{k}={v}" for k, v in sorted(self.dist_tuning.items()))
+        return (f"{self.dist_impl}[{t}] -> {self.materialize}"
+                f"(rows={self.row_block})")
+
+    def describe(self) -> str:
+        return (f"{self.describe_stage1()} -> {self.sw.describe()}"
+                f" | {self.reason}")
+
+
+def _pick_dist_impl(metric: str, backend: str, n: int, d: int,
+                    slab_budget: float):
+    """Stage-1 impl by capability + transient model (Fig. 1 transplanted:
+    bounded-working-set forms on CPU, the hand-written kernel on the
+    card)."""
+    if metric not in _dreg.metrics():
+        raise KeyError(f"unknown metric {metric!r}; "
+                       f"registered: {_dreg.metrics()}")
+    if backend == "cuda":
+        return (f"{metric}.cuda",
+                "hand-written CUDA kernel (masks ragged shapes, so no "
+                "tile-viability floor)")
+    dense = _dreg.get(f"{metric}.dense")
+    # only consider the dense form where it is registered as performant
+    dense_ok = backend in dense.backends
+    dense_ws = dense.workset_bytes(n, d, n)
+    if dense_ok and dense_ws <= min(slab_budget, _eplanner.CPU_LLC_BYTES):
+        return (f"{metric}.dense",
+                f"dense transients {dense_ws/2**20:.0f}MiB fit the cache "
+                "model; single full-matrix form")
+    why = (f"dense transients {dense_ws/2**20:.0f}MiB spill the slab/cache "
+           "budget" if dense_ok else
+           f"dense form not registered for backend {backend!r}")
+    return (f"{metric}.blocked",
+            f"{why}; row-streaming form (Fig. 1 tiled analogue)")
+
+
+def _pick_materialize(n: int, matrix_budget: float):
+    dense_bytes = 8 * n * n      # D + mat2 both live transiently
+    mat2_bytes = 4 * n * n
+    if dense_bytes <= matrix_budget:
+        return "dense", (f"D+mat2 {dense_bytes/2**20:.0f}MiB fit the "
+                         "matrix budget")
+    if mat2_bytes <= matrix_budget:
+        return "stream", (f"mat2 {mat2_bytes/2**20:.0f}MiB fits but D+mat2 "
+                          "would not; stream row blocks into one buffer")
+    return "fused-kernel", (
+        f"even one (n,n) buffer {mat2_bytes/2**20:.0f}MiB exceeds the "
+        "matrix budget; single-pass sweep (distance tiles contracted "
+        "in-kernel, D² never resident)")
+
+
+def _pick_row_block(n: int, d: int, impl: _dreg.DistanceImpl,
+                    slab_budget: float) -> int:
+    """Largest power-of-two row block whose transient working set fits."""
+    block = MAX_ROW_BLOCK
+    while block > MIN_ROW_BLOCK and \
+            impl.workset_bytes(n, d, block) > slab_budget:
+        block //= 2
+    return max(MIN_ROW_BLOCK, min(block, n))
+
+
+def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
+                  backend: str,
+                  metric: str = "braycurtis",
+                  dist_impl: Optional[str] = None,
+                  materialize: Optional[str] = None,
+                  row_block: Optional[int] = None,
+                  matrix_budget_bytes: Optional[float] = None,
+                  slab_budget_bytes: Optional[float] = None,
+                  memory_budget_bytes: Optional[float] = None,
+                  sw_impl: Optional[str] = None,
+                  chunk: Optional[int] = None) -> PipelinePlan:
+    """Resolve the full two-stage plan for one problem.
+
+    n_perms counts TOTAL permutation slots (requested + 1 observed), as in
+    engine.plan(). Caller-pinned fields (dist_impl, materialize,
+    row_block, sw_impl, chunk) are respected; the planner fills in the
+    rest. backend: 'cuda' or 'cpu'.
+    """
+    matrix_budget = (DEFAULT_MATRIX_BUDGET_BYTES
+                     if matrix_budget_bytes is None else matrix_budget_bytes)
+    slab_budget = (DEFAULT_SLAB_BUDGET_BYTES
+                   if slab_budget_bytes is None else slab_budget_bytes)
+
+    if dist_impl is None or dist_impl == "auto":
+        dname, dreason = _pick_dist_impl(metric, backend, n, d, slab_budget)
+    else:
+        dname = dist_impl if "." in dist_impl else f"{metric}.{dist_impl}"
+        dreason = "caller-pinned distance impl"
+    dspec = _dreg.get(dname)
+    dname = dspec.name                    # '.pallas' aliases resolve
+    if dspec.metric != metric:
+        raise ValueError(f"distance impl {dname!r} computes "
+                         f"{dspec.metric!r}, not {metric!r}")
+
+    mat_pinned = materialize not in (None, "auto")
+    if not mat_pinned:
+        mat, mreason = _pick_materialize(n, matrix_budget)
+    else:
+        if materialize not in MATERIALIZE_MODES:
+            raise ValueError(f"materialize={materialize!r}; expected one of "
+                             f"{MATERIALIZE_MODES}")
+        mat, mreason = materialize, "caller-pinned materialization"
+
+    if row_block is None:
+        # size the block against the ROWS working set: the stream bridge
+        # consumes make_rows, whose transients scale with the block
+        rows_spec = (dspec if dspec.kind != "dense"
+                     else _dreg.get(f"{metric}.blocked"))
+        row_block = _pick_row_block(n, d, rows_spec, slab_budget)
+    row_block = max(1, min(int(row_block), n))
+
+    # Stage 2 via the engine planner. The fused bridges compute s_W in the
+    # one-hot matmul form, so the engine plan is pinned to 'matmul' there
+    # (a caller-pinned sw_impl they cannot honor is an error when the
+    # bridge was pinned too, a downgrade to 'stream' when it was ours),
+    # and the chunk is sized against the one-hot block (chunk, n, G).
+    pinned_sw = sw_impl if sw_impl not in (None, "auto") else None
+    if mat in FUSED_MODES and pinned_sw not in (None, "matmul"):
+        if mat_pinned:
+            raise ValueError(
+                f"the {mat} bridge computes s_W in the one-hot matmul form "
+                f"and cannot honor sw_impl={pinned_sw!r}; use "
+                "sw_impl='auto'/'matmul' or materialize='stream'")
+        mat = "stream"
+        mreason += (f"; downgraded fused->stream to honor "
+                    f"sw_impl={pinned_sw!r} (over matrix budget)")
+    if mat in FUSED_MODES and pinned_sw is None:
+        pinned_sw = "matmul"
+    if mat in FUSED_MODES and chunk is None:
+        budget = (_eplanner.DEFAULT_STREAM_BUDGET_BYTES
+                  if memory_budget_bytes is None else memory_budget_bytes)
+        per_perm = 4.0 * n * (2 * n_groups + 1)
+        chunk = int(max(1, min(budget // per_perm, n_perms)))
+    sw = _eplanner.plan(n, n_perms, backend=backend, impl=pinned_sw,
+                        memory_budget_bytes=memory_budget_bytes,
+                        chunk=chunk)
+
+    # the planned row block IS the blocked impls' working-set knob
+    dist_tuning = dict(dspec.tuning)
+    if "block" in dist_tuning:
+        dist_tuning["block"] = row_block
+    return PipelinePlan(
+        metric=metric, dist_impl=dname, dist_tuning=dist_tuning,
+        materialize=mat, row_block=row_block, sw=sw, backend=backend,
+        reason=f"{dreason}; {mreason}")

@@ -1,0 +1,243 @@
+"""Distance-implementation registry (stage 1 of the pipeline).
+
+Twin of `repro/pipeline/registry.py` for the in-memory distance impls:
+every way the port turns an (n, d) abundance table into pairwise
+distances sits behind one interface with the metadata the pipeline
+planner dispatches on. Three kinds per metric:
+
+  dense     single full-matrix torch form (Gram trick / broadcast)
+  blocked   row-streaming torch form over the same row primitives
+  cuda      the hand-written CUDA kernels (kernels/distance): rectangular,
+            so they serve both dense construction and row slabs; on CPU
+            tensors they run their plain versions
+
+Every impl exposes both a dense form and a row-slab form, so the
+planner's bridge choice (dense / stream) is orthogonal to the impl
+choice. The reference's kernel kind is named `<metric>.pallas`; that name
+is accepted as an alias of `<metric>.cuda`. (Residency tiers, precision
+tags and the fused registry come with later slices.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping, Optional, Tuple
+
+from repro_torch.core import distance as _dist
+
+
+@dataclasses.dataclass(frozen=True)
+class DistanceImpl:
+    """One distance implementation plus planner-facing metadata.
+
+    make_prepare(**tuning) -> prepare(x) -> xprep        one-off transform
+    make_rows(**tuning)    -> rows(xb, xprep) -> (b, n)  row slab
+    make_dense(**tuning)   -> dense(x) -> (n, n)         full matrix
+    """
+    name: str                      # "<metric>.<kind>"
+    metric: str
+    kind: str                      # 'dense' | 'blocked' | 'cuda'
+    backends: Tuple[str, ...]      # backends where this form is performant
+    tuning: Mapping[str, int]
+    make_prepare: Callable[..., Callable]
+    make_rows: Callable[..., Callable]
+    make_dense: Callable[..., Callable]
+    workset_bytes: Callable[[int, int, int], int]
+    # (n, d, row_block) -> peak TRANSIENT bytes beyond inputs/outputs
+    description: str = ""
+
+    def bound(self, **overrides):
+        """(prepare, rows, dense) callables with tuning resolved (defaults
+        <- overrides, unknown keys dropped)."""
+        kw = {k: v for k, v in {**self.tuning, **overrides}.items()
+              if k in self.tuning}
+        key = (self.name, tuple(sorted(kw.items())))
+        fns = _BOUND_CACHE.get(key)
+        if fns is None:
+            fns = _BOUND_CACHE[key] = (self.make_prepare(**kw),
+                                       self.make_rows(**kw),
+                                       self.make_dense(**kw))
+        return fns
+
+
+_REGISTRY: dict = {}
+_BOUND_CACHE: dict = {}
+ALIASES: dict = {}          # '<metric>.pallas' -> '<metric>.cuda'
+
+
+def register(impl: DistanceImpl) -> DistanceImpl:
+    if impl.name in _REGISTRY:
+        raise ValueError(f"duplicate distance impl {impl.name!r}")
+    _REGISTRY[impl.name] = impl
+    return impl
+
+
+def get(name: str) -> DistanceImpl:
+    """The impl registered as `name` (or as its `.pallas` alias)."""
+    try:
+        return _REGISTRY[ALIASES.get(name, name)]
+    except KeyError:
+        raise KeyError(
+            f"unknown distance impl {name!r}; registered: "
+            f"{sorted(_REGISTRY)}, aliases: {sorted(ALIASES)}") from None
+
+
+def names(*, metric: Optional[str] = None, backend: Optional[str] = None,
+          kind: Optional[str] = None):
+    """Registered impl names, optionally filtered by capability."""
+    out = []
+    for n, impl in _REGISTRY.items():
+        if metric is not None and impl.metric != metric:
+            continue
+        if backend is not None and backend not in impl.backends:
+            continue
+        if kind is not None and impl.kind != kind:
+            continue
+        out.append(n)
+    return sorted(out)
+
+
+def metrics():
+    return sorted({impl.metric for impl in _REGISTRY.values()})
+
+
+# ---------------------------------------------------------------------------
+# Registration.
+# ---------------------------------------------------------------------------
+
+def _const(fn):
+    def make(**_tuning):
+        return fn
+    return make
+
+
+def _make_true_dense(metric):
+    """Single-shot full-matrix form: all rows against all rows in one call
+    (O(n*n[*d]) transients, as the workset model charges)."""
+    mdef = _dist.ROW_METRICS[metric]
+
+    def make(**_tuning):
+        def dense(x):
+            xp = mdef.prepare(x)
+            return _dist._zero_diag(mdef.rows(xp, xp))
+        return dense
+    return make
+
+
+def _make_dense_from_rows(metric):
+    mdef = _dist.ROW_METRICS[metric]
+
+    def make(**tuning):
+        block = tuning.get("block", 256)
+
+        def dense(x):
+            xp = mdef.prepare(x)
+            return _dist._zero_diag(
+                _dist._blocked_rows(mdef.rows, xp, block))
+        return dense
+    return make
+
+
+def _kernel_metric(metric):
+    # aitchison is euclidean over clr features (its prepare)
+    return "euclidean" if metric == "aitchison" else metric
+
+
+def _make_cuda_rows(metric):
+    def make(**tuning):
+        from repro_torch.kernels.distance import ops
+
+        def rows(xb, xprep):
+            return ops.pairwise_distance_rows(
+                xb, xprep, metric=_kernel_metric(metric), **tuning)
+        return rows
+    return make
+
+
+def _make_cuda_dense(metric):
+    def make(**tuning):
+        from repro_torch.kernels.distance import ops
+        prep = _dist.ROW_METRICS[metric].prepare
+
+        def dense(x):
+            return ops.pairwise_distance(
+                prep(x), metric=_kernel_metric(metric), **tuning)
+        return dense
+    return make
+
+
+def _ws_dense_gram(n, d, _block):
+    # full Gram product + squared-distance intermediate
+    return 8 * n * n
+
+
+def _ws_dense_broadcast(n, d, block):
+    # (block, n, d) broadcast intermediates (x2: |.|, +)
+    return 8 * block * n * d
+
+
+def _ws_rows_gram(n, d, block):
+    return 8 * block * n
+
+
+def _ws_rows_broadcast(n, d, block):
+    return 8 * block * n * d
+
+
+def _ws_kernel(n, d, block):
+    # the reference's Pallas model (accumulators at output size), kept so
+    # the planner's row blocks match the reference's plans
+    return 12 * min(block, n) * n
+
+
+def _register_metric(metric, *, rows_ws, dense_ws, dense_backends,
+                     blocked_backends):
+    mdef = _dist.ROW_METRICS[metric]
+    register(DistanceImpl(
+        name=f"{metric}.dense", metric=metric, kind="dense",
+        backends=dense_backends, tuning={},
+        make_prepare=_const(mdef.prepare), make_rows=_const(mdef.rows),
+        make_dense=_make_true_dense(metric),
+        workset_bytes=dense_ws,
+        description=f"single full-matrix torch {metric} (maximum parallel "
+                    "width, largest transients)",
+    ))
+    register(DistanceImpl(
+        name=f"{metric}.blocked", metric=metric, kind="blocked",
+        backends=blocked_backends, tuning={"block": 256},
+        make_prepare=_const(mdef.prepare), make_rows=_const(mdef.rows),
+        make_dense=_make_dense_from_rows(metric),
+        workset_bytes=rows_ws,
+        description=f"row-streaming torch {metric} (bounded working set; "
+                    "feeds the stream bridge)",
+    ))
+    register(DistanceImpl(
+        name=f"{metric}.cuda", metric=metric, kind="cuda",
+        backends=("cuda",),
+        # packed=1 switches jaccard to 32-bit presence words + popcount
+        # (bit-identical distances, 32x fewer feature bytes)
+        tuning={"packed": 0} if metric == "jaccard" else {},
+        make_prepare=_const(mdef.prepare),
+        make_rows=_make_cuda_rows(metric),
+        make_dense=_make_cuda_dense(metric),
+        workset_bytes=_ws_kernel,
+        description=f"hand-written CUDA {metric} kernel (64 x 64 output "
+                    "tiles, feature loop in registers; plain torch on CPU "
+                    "tensors)",
+    ))
+    ALIASES[f"{metric}.pallas"] = f"{metric}.cuda"
+
+
+# euclidean / aitchison / jaccard: Gram-trick forms are BLAS-native.
+for _metric in ("euclidean", "aitchison"):
+    _register_metric(_metric, rows_ws=_ws_rows_gram, dense_ws=_ws_dense_gram,
+                     dense_backends=("cpu", "cuda"),
+                     blocked_backends=("cpu", "cuda"))
+# braycurtis: the broadcast form has (block, n, d) transients — blocked is
+# the CPU winner, dense the card's (paper Fig. 1 transplanted to stage 1).
+_register_metric("braycurtis", rows_ws=_ws_rows_broadcast,
+                 dense_ws=_ws_dense_broadcast, dense_backends=("cuda",),
+                 blocked_backends=("cpu", "cuda"))
+_register_metric("jaccard", rows_ws=_ws_rows_gram, dense_ws=_ws_dense_gram,
+                 dense_backends=("cpu", "cuda"),
+                 blocked_backends=("cpu", "cuda"))

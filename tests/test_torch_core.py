@@ -301,7 +301,8 @@ def test_permanova_matches_reference(impl, small_study):
     {"covariates": {"age": np.zeros(48)}},
     {"strata": np.zeros(48, np.int32)},
     {"weights": np.ones(48)},
-    {"metric": "braycurtis"},
+    # the features path (metric=) runs now; designs on it are still later
+    {"metric": "braycurtis", "weights": np.ones(48)},
 ], ids=["covariates", "strata", "weights", "metric"])
 def test_permanova_later_slices_raise(kw, small_study):
     dm, grouping, _ = from_reference(*small_study[:2], device="cpu")
@@ -310,10 +311,12 @@ def test_permanova_later_slices_raise(kw, small_study):
 
 
 def test_permanova_features_input_raises():
+    """An (n, d) table routes to the pipeline, which has no place for a
+    custom s_W callable: sw_fn raises there, as in the reference."""
     x, grouping = microbiome.synthetic_study(20, 8, 2, seed=0)
-    with pytest.raises(NotImplementedError, match="features"):
+    with pytest.raises(ValueError, match="features path"):
         permanova(torch.from_numpy(x), torch.from_numpy(grouping),
-                  n_perms=9, device="cpu")
+                  n_perms=9, sw_fn=lambda *a: None, device="cpu")
 
 
 def test_permanova_warns_on_square_feature_table():
@@ -382,7 +385,7 @@ def test_port_sources_import_no_reference():
 
 def test_port_loads_no_jax_or_reference_modules():
     code = ("import sys, repro_torch.engine, repro_torch.launch.permanova, "
-            "repro_torch.compat, repro_torch.core\n"
+            "repro_torch.compat, repro_torch.core, repro_torch.pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")

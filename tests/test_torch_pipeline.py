@@ -1,0 +1,433 @@
+"""The port's features -> F/p pipeline against the reference's: pipeline()
+through the dense and stream bridges for every metric and distance-impl
+kind (the reference's Pallas kind in interpret mode), with the
+reference's own label draws (F and the null at rtol 1e-4, p exactly
+equal); the planner on 'cpu' field for field and on 'cuda'; the streaming
+mat2 build and Gower marginals; engine.run(squared=, s_t=); permanova() on
+features; the CLI; and the options that wait for later slices."""
+
+import functools
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import pipeline as jpipe  # noqa: E402
+from repro.core import permutations as jperm  # noqa: E402
+from repro.core.permanova import permanova as jpermanova  # noqa: E402
+from repro.data import microbiome as jmicro  # noqa: E402
+from repro.pipeline import planner as jplanner  # noqa: E402
+from repro_torch import engine, pipeline  # noqa: E402
+from repro_torch.compat import from_reference  # noqa: E402
+from repro_torch.core import distance  # noqa: E402
+from repro_torch.core.permanova import permanova, s_total  # noqa: E402
+from repro_torch.kernels.distance import ops as dops  # noqa: E402
+from repro_torch.launch import permanova as cli  # noqa: E402
+from repro_torch.pipeline import planner, registry, streaming  # noqa: E402
+
+METRICS = ["aitchison", "braycurtis", "euclidean", "jaccard"]
+# (n, n_features, n_groups, effect, seed, n_perms)
+STUDY = (61, 24, 4, 0.4, 3, 49)
+ROW_BLOCK = 16                  # 61 = 3 x 16 + 13: a ragged last slab
+RTOL = 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def _study(n=STUDY[0], d=STUDY[1]):
+    _, _, g, effect, seed, n_perms = STUDY
+    x, grouping = jmicro.synthetic_study(n, d, g, effect_size=effect,
+                                         seed=seed)
+    key = jax.random.key(seed + 100)
+    perms = np.asarray(jperm.permutation_batch(key, jnp.asarray(grouping),
+                                               0, n_perms + 1))
+    return x, grouping, key, perms, n_perms
+
+
+def _port_args(grouping, perms):
+    _, g_t, p_t = from_reference(None, grouping, perms, device="cpu")
+    return g_t, p_t
+
+
+def _assert_same_test(res_t, res_j):
+    np.testing.assert_allclose(float(res_t.f_stat), float(res_j.f_stat),
+                               rtol=RTOL)
+    assert float(res_t.p_value) == float(res_j.p_value)
+    np.testing.assert_allclose(res_t.f_perms.numpy(),
+                               np.asarray(res_j.f_perms), rtol=RTOL)
+
+
+@pytest.mark.parametrize("bridge", ["dense", "stream"])
+@pytest.mark.parametrize("kind", ["pallas", "dense", "blocked"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_pipeline_matches_reference(metric, kind, bridge):
+    x, grouping, key, perms, n_perms = _study()
+    kw = dict(metric=metric, n_perms=n_perms, materialize=bridge,
+              dist_impl=f"{metric}.{kind}", row_block=ROW_BLOCK)
+    res_j = jpipe.pipeline(jnp.asarray(x), jnp.asarray(grouping), key=key,
+                           **kw)
+    g_t, p_t = _port_args(grouping, perms)
+    res_t = pipeline.pipeline(torch.from_numpy(x), g_t, perms=p_t,
+                              device="cpu", **kw)
+    _assert_same_test(res_t, res_j)
+    if kind == "pallas":
+        # the kernel kind is '<metric>.cuda' and takes no tile knobs
+        assert res_t.method == res_j.method.replace(".pallas", ".cuda")
+        assert res_t.plan.split("]", 1)[1] == res_j.plan.split("]", 1)[1]
+    else:
+        assert (res_t.method, res_t.plan) == (res_j.method, res_j.plan)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_stream_equals_dense_within_port(metric):
+    x, grouping, _, perms, n_perms = _study()
+    g_t, p_t = _port_args(grouping, perms)
+    runs = [pipeline.pipeline(torch.from_numpy(x), g_t, metric=metric,
+                              n_perms=n_perms, perms=p_t, materialize=m,
+                              row_block=ROW_BLOCK, device="cpu")
+            for m in ("dense", "stream")]
+    torch.testing.assert_close(runs[1].f_perms, runs[0].f_perms,
+                               rtol=1e-5, atol=0)
+    assert float(runs[1].p_value) == float(runs[0].p_value)
+    assert runs[1].method.split("->")[1] == "stream"
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("block", [7, 16, 61, 100])
+def test_stream_mat2_ragged_blocks(metric, block):
+    """Row blocks that do not divide n: mat2 is the dense D squared with
+    an exact zero diagonal, the float64 row sums and s_T are its own, and
+    both match the reference's build_mat2_streaming."""
+    x, *_ = _study()
+    _, rows_fn, dense_fn = registry.get(f"{metric}.cuda").bound()
+    prep = registry.get(f"{metric}.cuda").make_prepare()
+    xt = torch.from_numpy(x)
+    mat2, gower = streaming.build_mat2_streaming(prep(xt), rows_fn,
+                                                 block=block)
+    dm = dense_fn(xt)
+    torch.testing.assert_close(mat2, dm * dm, rtol=1e-5, atol=1e-6)
+    assert torch.all(torch.diagonal(mat2) == 0.0)
+    assert gower.row_sums.dtype == torch.float64
+    torch.testing.assert_close(gower.row_sums,
+                               mat2.double().sum(dim=1), rtol=1e-12, atol=0)
+    assert gower.s_t == pytest.approx(float(s_total(mat2)), rel=1e-6)
+    jspec = jpipe.get(f"{metric}.blocked")
+    jprep, jrows, _ = jspec.bound()
+    jmat2, jgower = jpipe.build_mat2_streaming(jprep(jnp.asarray(x)), jrows,
+                                               block=block)
+    np.testing.assert_allclose(mat2.numpy(), jmat2, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(gower.row_sums.numpy(), jgower.row_sums,
+                               rtol=1e-5)
+    assert gower.s_t == pytest.approx(jgower.s_t, rel=1e-5)
+
+
+def test_mat2_row_blocks_cover_rows_once():
+    x, *_ = _study()
+    xt = distance.presence_prepare(torch.from_numpy(x))
+    _, rows_fn, _ = registry.get("jaccard.cuda").bound()
+    spans = [(lo, slab.shape[0]) for lo, slab in
+             streaming.mat2_row_blocks(xt, rows_fn, block=16)]
+    assert spans == [(0, 16), (16, 16), (32, 16), (48, 13)]
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_gower_center_matches_reference(with_stats):
+    x, *_ = _study()
+    _, rows_fn, _ = registry.get("braycurtis.blocked").bound()
+    mat2, gower = streaming.build_mat2_streaming(torch.from_numpy(x),
+                                                 rows_fn, block=20)
+    jm2, jg = jpipe.build_mat2_streaming(jnp.asarray(x),
+                                         jpipe.get("braycurtis.blocked")
+                                         .bound()[1], block=20)
+    got = streaming.gower_center(mat2, gower if with_stats else None)
+    want = jpipe.gower_center(jnp.asarray(jm2), jg if with_stats else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-6)
+    torch.testing.assert_close(got.sum(dim=1), torch.zeros(got.shape[0]),
+                               rtol=0, atol=1e-5)
+
+
+def test_run_squared_and_s_t_are_taken_as_given():
+    x, grouping, _, perms, n_perms = _study()
+    g_t, p_t = _port_args(grouping, perms)
+    dm = distance.braycurtis(torch.from_numpy(x))
+    mat2 = dm * dm
+    kw = dict(n_perms=n_perms, perms=p_t, device="cpu")
+    plain = engine.run(dm, g_t, **kw)
+    squared = engine.run(mat2, g_t, squared=True, **kw)
+    given = engine.run(mat2, g_t, squared=True, s_t=float(s_total(mat2)),
+                       **kw)
+    for res in (squared, given):
+        torch.testing.assert_close(res.f_perms, plain.f_perms, rtol=0,
+                                   atol=0)
+        assert float(res.p_value) == float(plain.p_value)
+    doubled = engine.run(mat2, g_t, squared=True,
+                         s_t=2 * float(s_total(mat2)), **kw)
+    assert float(doubled.s_t) == pytest.approx(2 * float(plain.s_t))
+    assert float(doubled.f_stat) > float(plain.f_stat)
+
+
+# ---------------------------------------------------------------------------
+# Planner.
+# ---------------------------------------------------------------------------
+
+PLAN_CASES = {
+    "small-dense": (61, 24, "braycurtis", {}),
+    "euclidean-dense-form": (1000, 64, "euclidean", {}),
+    "euclidean-spills-llc": (2500, 64, "euclidean", {}),
+    "jaccard-slab-budget": (1500, 32, "jaccard",
+                            {"slab_budget_bytes": 2 ** 22}),
+    "aitchison-stream": (3000, 128, "aitchison",
+                         {"matrix_budget_bytes": 2 ** 26}),
+    "braycurtis-stream": (5000, 128, "braycurtis",
+                          {"matrix_budget_bytes": 2 ** 27}),
+    "fused-kernel": (20000, 128, "braycurtis", {}),
+    "fused-kernel-budget": (3000, 16, "euclidean",
+                            {"matrix_budget_bytes": 2 ** 24,
+                             "memory_budget_bytes": 2 ** 22}),
+    "fused-downgrade": (20000, 128, "braycurtis", {"sw_impl": "brute"}),
+    "pinned-everything": (700, 40, "jaccard",
+                          {"dist_impl": "blocked", "materialize": "stream",
+                           "row_block": 50, "sw_impl": "tiled",
+                           "chunk": 100}),
+    "label-budget": (900, 20, "euclidean",
+                     {"memory_budget_bytes": 2 ** 18}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plan_pipeline_matches_reference_on_cpu(case):
+    n, d, metric, kw = PLAN_CASES[case]
+    got = planner.plan_pipeline(n, d, 1000, 8, backend="cpu", metric=metric,
+                                **kw)
+    want = jplanner.plan_pipeline(n, d, 1000, 8, backend="cpu",
+                                  metric=metric, **kw)
+    assert (got.dist_impl, got.dist_tuning, got.materialize,
+            got.row_block) == (want.dist_impl, want.dist_tuning,
+                               want.materialize, want.row_block)
+    assert got.sw.describe() == want.sw.describe()
+    assert (got.sw.chunk, got.sw.streaming) == (want.sw.chunk,
+                                                want.sw.streaming)
+    if got.materialize in planner.FUSED_MODES:
+        # the reference names its fused impl after this reason
+        assert want.reason.startswith(got.reason + "; ")
+    else:
+        assert got.reason == want.reason
+        assert got.describe() == want.describe()
+        assert got.explain() == want.explain()
+
+
+def test_plan_pipeline_rejects_what_the_reference_rejects():
+    for mod in (planner, jplanner):
+        with pytest.raises(ValueError, match="cannot honor"):
+            mod.plan_pipeline(100, 8, 100, 2, backend="cpu",
+                              materialize="fused-kernel", sw_impl="tiled")
+        with pytest.raises(ValueError, match="materialize="):
+            mod.plan_pipeline(100, 8, 100, 2, backend="cpu",
+                              materialize="sideways")
+        with pytest.raises(ValueError, match="computes"):
+            mod.plan_pipeline(100, 8, 100, 2, backend="cpu",
+                              metric="jaccard", dist_impl="euclidean.dense")
+        with pytest.raises(KeyError, match="unknown metric"):
+            mod.plan_pipeline(100, 8, 100, 2, backend="cpu",
+                              metric="cosine")
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("n", [10, 300, 25145])
+def test_planner_on_cuda_picks_the_kernel(metric, n):
+    pl = planner.plan_pipeline(n, 128, 4000, 8, backend="cuda",
+                               metric=metric)
+    assert pl.dist_impl == f"{metric}.cuda"
+    assert pl.sw.impl == "brute" or pl.materialize in planner.FUSED_MODES
+    # the reference's Pallas workset model sizes the row block: 256 at
+    # the EMP shape under the default 128 MiB slab budget
+    assert pl.row_block == (256 if n == 25145 else n)
+
+
+def test_emp_bridges_follow_the_matrix_budget():
+    n = 25145
+    kw = dict(backend="cuda", metric="braycurtis")
+    gib = 1024 ** 3
+    assert planner.plan_pipeline(n, 128, 4000, 8, matrix_budget_bytes=6 * gib,
+                                 **kw).materialize == "dense"
+    assert planner.plan_pipeline(n, 128, 4000, 8, matrix_budget_bytes=3 * gib,
+                                 **kw).materialize == "stream"
+    assert planner.plan_pipeline(n, 128, 4000, 8, **kw).materialize == \
+        "fused-kernel"
+
+
+def test_pallas_alias_resolves_to_the_kernel_kind():
+    pl = planner.plan_pipeline(100, 8, 100, 2, backend="cpu",
+                               metric="jaccard", dist_impl="jaccard.pallas")
+    assert pl.dist_impl == "jaccard.cuda" and pl.dist_tuning == {"packed": 0}
+    assert pl.describe_stage1() == "jaccard.cuda[packed=0] -> dense(rows=100)"
+
+
+# ---------------------------------------------------------------------------
+# Registry.
+# ---------------------------------------------------------------------------
+
+def test_registry_names_kinds_and_aliases():
+    assert registry.metrics() == METRICS == jpipe.metrics()
+    assert registry.names(kind="cuda") == [f"{m}.cuda" for m in METRICS]
+    assert registry.names(backend="cpu") == [
+        n for n in jpipe.names(backend="cpu")]
+    for m in METRICS:
+        assert registry.get(f"{m}.pallas") is registry.get(f"{m}.cuda")
+        assert registry.get(f"{m}.cuda").backends == ("cuda",)
+        assert registry.get(f"{m}.cuda").workset_bytes(1000, 64, 128) == \
+            jpipe.get(f"{m}.pallas").workset_bytes(1000, 64, 128)
+    assert registry.get("jaccard.cuda").tuning == {"packed": 0}
+    with pytest.raises(KeyError, match="unknown distance impl"):
+        registry.get("braycurtis.fusedk")
+    with pytest.raises(ValueError, match="duplicate"):
+        registry.register(registry.get("euclidean.dense"))
+
+
+def test_bound_resolves_tuning_once():
+    spec = registry.get("braycurtis.blocked")
+    a = spec.bound(block=32, bogus=1)
+    assert spec.bound(block=32) is a
+    assert spec.bound(block=64) is not a
+
+
+@pytest.mark.parametrize("packed", [0, 1])
+def test_kernel_kind_dispatches_to_the_wrappers(packed):
+    x, *_ = _study()
+    xt = torch.from_numpy(x)
+    prep, rows_fn, dense_fn = registry.get("jaccard.cuda").bound(
+        packed=packed)
+    xp = prep(xt)
+    want = dops.pairwise_distance(xp, metric="jaccard", packed=packed)
+    assert torch.equal(dense_fn(xt), want)
+    assert torch.equal(rows_fn(xp[:5], xp),
+                       dops.pairwise_distance_rows(xp[:5], xp,
+                                                   metric="jaccard",
+                                                   packed=packed))
+    if packed:   # bit-identical to the float kernel's plain version
+        assert torch.equal(want, registry.get("jaccard.cuda").bound()[2](xt))
+
+
+# ---------------------------------------------------------------------------
+# Entry points.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_permanova_on_features_matches_reference(metric):
+    x, grouping, key, perms, n_perms = _study()
+    res_j = jpermanova(jnp.asarray(x), jnp.asarray(grouping),
+                       n_perms=n_perms, key=key, metric=metric)
+    g_t, p_t = _port_args(grouping, perms)
+    res_t = permanova(torch.from_numpy(x), g_t, n_perms=n_perms, perms=p_t,
+                      metric=metric, device="cpu")
+    _assert_same_test(res_t, res_j)
+    assert (res_t.method, res_t.plan) == (res_j.method, res_j.plan)
+
+
+def test_permanova_routes_a_non_square_table_without_metric():
+    x, grouping, key, perms, n_perms = _study()
+    g_t, p_t = _port_args(grouping, perms)
+    res = permanova(torch.from_numpy(x), g_t, n_perms=n_perms, perms=p_t,
+                    device="cpu")
+    assert res.method.startswith("pipeline[braycurtis.")
+
+
+def _slab_cache(tmp_path):
+    from repro.data import slabcache
+    x, *_ = _study()
+    return slabcache.build_slab_cache(str(tmp_path / "cache"), x,
+                                      slab_rows=16)
+
+
+@pytest.mark.parametrize("case", [
+    "fused", "fused-kernel", "auto-resolves-fused-kernel", "ordination",
+    "mesh", "autotune", "trace", "path", "slab-cache", "covariates",
+    "strata", "weights"])
+def test_not_ported_options_raise(case, tmp_path):
+    x, grouping, _, _, _ = _study()
+    x = torch.from_numpy(x)
+    kw = {}
+    if case in ("fused", "fused-kernel"):
+        kw["materialize"] = case
+    elif case == "auto-resolves-fused-kernel":
+        kw["matrix_budget_bytes"] = 1024
+    elif case == "ordination":
+        kw["ordination"] = 2
+    elif case == "mesh":
+        kw["mesh"] = object()
+    elif case == "autotune":
+        kw["autotune"] = True
+    elif case == "trace":
+        kw["trace"] = True
+    elif case == "path":
+        x = str(tmp_path)
+    elif case == "slab-cache":
+        x = _slab_cache(tmp_path)
+    elif case == "covariates":
+        kw["covariates"] = {"age": np.zeros(len(grouping))}
+    elif case == "strata":
+        kw["strata"] = np.zeros(len(grouping), np.int32)
+    elif case == "weights":
+        kw["weights"] = np.ones(len(grouping))
+    with pytest.raises(NotImplementedError, match="slice"):
+        pipeline.pipeline(x, torch.from_numpy(grouping), n_perms=9,
+                          device="cpu", **kw)
+
+
+def test_pipeline_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    x, grouping, *_ = _study()
+    with pytest.raises(RuntimeError, match="cuda"):
+        pipeline.pipeline(x, grouping, n_perms=9)
+
+
+def test_cpu_pipeline_launches_no_kernel():
+    x, grouping, *_ = _study()
+    before = dict(dops.LAUNCHES)
+    for bridge in ("dense", "stream"):
+        pipeline.pipeline(x, grouping, n_perms=9, materialize=bridge,
+                          dist_impl="braycurtis.cuda", device="cpu")
+    assert dops.LAUNCHES == before
+
+
+def test_cli_from_features_runs_on_cpu(capsys):
+    assert cli.main(["--samples", "64", "--features", "16", "--groups", "4",
+                     "--perms", "49", "--device", "cpu", "--from-features",
+                     "--materialize", "stream", "--dist-impl",
+                     "braycurtis.cuda"]) == 0
+    out = capsys.readouterr().out
+    assert "plan: braycurtis.cuda[] -> stream(rows=64)" in out
+    assert "pipeline" in out and "F=" in out and "p=" in out
+
+
+@pytest.mark.parametrize("extra", [
+    ["--from-features"],
+    ["--materialize", "stream", "--metric", "jaccard"],
+    ["--dist-impl", "euclidean.dense", "--metric", "euclidean"],
+])
+def test_cli_from_features_matches_reference_cli_statistic(capsys, extra):
+    """Same seed, same study: the observed F is the reference CLI's (the
+    p-values differ: the label streams differ)."""
+    from repro.launch import permanova as jcli
+    argv = ["--samples", "64", "--features", "16", "--groups", "4",
+            "--perms", "19"] + extra
+    cli.main(argv + ["--device", "cpu"])
+    out_t = capsys.readouterr().out
+    old = sys.argv
+    try:
+        sys.argv = ["permanova"] + argv
+        jcli.main()
+    finally:
+        sys.argv = old
+    out_j = capsys.readouterr().out
+    f_t = out_t.split("F=")[1].split()[0]
+    f_j = out_j.split("F=")[1].split()[0]
+    assert float(f_t) == pytest.approx(float(f_j), rel=1e-4)
+    assert out_t.split("plan: ")[1].split(" :: ")[0] == \
+        out_j.split("plan: ")[1].split(" :: ")[0]
