@@ -42,14 +42,41 @@ Phases, each timed:
    one braycurtis launch) and once with 3 GiB (the stream bridge: one
    launch per 256-row slab, 99), each launching the brute kernel twice
    and nothing else; F of the two bridges and of phase 3's engine.run
-   (same seed, so the same labels) agree at rtol=1e-4 with p equal. Then
-   each other distance kernel's own path, the dense bridge at 999
-   permutations for euclidean (and aitchison), jaccard and jaccard with
-   packed=1, whose F must equal the float jaccard's bit for bit.
+   (same seed, so the same labels) agree at rtol=1e-4 with p equal; each
+   run's peak device memory above its start is logged. Then each other
+   distance kernel's own path, the dense bridge at 999 permutations for
+   euclidean (and aitchison), jaccard and jaccard with packed=1, whose F
+   must equal the float jaccard's bit for bit.
 7. Each distance kernel timed at the main path's shapes, (n, n, 128) for
    the dense bridge and the (256, n, 128) slab x 99 for the stream
    bridge, beside its plain version, torch.cdist for euclidean (the one
    PyTorch call that computes one of these functions), and its bound.
+8. The fused distance -> s_W kernel against its plain version on the card
+   for euclidean, braycurtis and jaccard (on presence data) at (n, d, P,
+   G) = (57, 3, 1, 3), (130, 37, 5, 2), (2047, 128, 37, 8): s_W and row
+   sums at rtol=2e-4, atol=1e-5 (the reference's own bar); at n = 2047,
+   300-row slabs at their offsets must sum (s_W) and concatenate (row
+   sums) to the full call at rtol=1e-4, and 16 + 16 + 5 permutations
+   must give the 37-permutation call at rtol=1e-6; at the EMP shape one
+   chunk (P = 156) of s_W must match the plain version within
+   SW_MAIN_RTOL.
+9. The features path at the EMP shape with the DEFAULT budgets:
+   pipeline(features, Bray-Curtis, 3,999 permutations, seed 0), which the
+   planner sends to the fused-kernel bridge (not even one (n, n) buffer
+   fits 1 GiB): 26 fused_sw launches (one per 156-permutation chunk) and
+   no other kernel, F within rtol=1e-4 of phase 3's engine.run and of
+   phase 6's dense bridge with p equal, its null within what f32 s_W
+   allows of the dense bridge's (see SW_MAIN_RTOL), and a peak of device
+   memory above the call's start under the 1 GiB matrix budget (4 n^2 =
+   2.53 GB would not fit). Then the two-stage fused bridge at 999
+   permutations: 99 braycurtis slab launches and no other kernel, F
+   within rtol=1e-4 and the null within the same f32 allowance of the
+   dense bridge's first 1,000, and its p theirs.
+10. The fused kernel timed at the main path's shape, (n, d, P, G) =
+   (25145, 128, 156, 8), beside its plain version and its bound (no
+   PyTorch call computes features -> s_W, so no library time); and, to
+   split its time, the kernel at P = 1 (the feature phase and one
+   permutation) and the label draw of one chunk.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -58,8 +85,8 @@ Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA device it exits with code 2.
 
 Full-f32 matmuls: TF32 is switched off for torch.matmul and cuDNN below,
-so the plain sw_matmul and the library call run in f32, as the
-reference's f32 modes do.
+so the plain sw_matmul, the plain fused version and the library call run
+in f32, as the reference's f32 modes do.
 """
 
 from __future__ import annotations
@@ -115,6 +142,19 @@ OTHER_PATHS = [("euclidean", None, "euclidean"),
                ("aitchison", None, "euclidean"),
                ("jaccard", None, "jaccard"),
                ("jaccard", {"packed": 1}, "jaccard_packed")]
+FUSED_SOURCE = "src/repro_torch/kernels/fused_sw/csrc/fused_sw.cu"
+FUSED_REPLACES = "src/repro/kernels/fused_sw/kernel.py:193"
+FUSED_CHECK_SHAPES = [(57, 3, 1, 3), (130, 37, 5, 2), (2047, 128, 37, 8)]
+FUSED_RTOL = 2e-4       # the reference's bar (tests/test_fused_sw.py:60)
+SLAB_RTOL = 1e-4        # offset slabs against the full call (:95)
+SLAB_ROWS = 300
+SPLIT = (16, 16, 5)     # chunk invariance: 37 permutations in three calls
+SPLIT_RTOL = 1e-6
+# the planner's fused chunk at the EMP shape with the default label budget:
+# 256 MiB / (4 n (2 G + 1)) permutations; 4,000 slots take 26 launches
+FUSED_CHUNK = 156
+FUSED_LAUNCHES = 26
+DEFAULT_MATRIX_BUDGET = GIB
 
 
 def log(msg: str) -> None:
@@ -209,19 +249,22 @@ def phase_header():
 
     import torch
     from repro_torch.kernels.distance import ops as dops
+    from repro_torch.kernels.fused_sw import ops as fops
     from repro_torch.kernels.permanova_sw import ops
     log(f"[smoke] card: {card_line()}")
     log(f"[smoke] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         libs = [f.result() for f in [pool.submit(m.load_library)
-                                     for m in (ops, dops)]]
+                                     for m in (ops, dops, fops)]]
     log(f"[smoke] kernel build+load {time.perf_counter() - t0:.2f}s "
         f"({ops.SOURCE.name} -> {ops._build.library_path(ops.SOURCE).name}, "
-        f"{dops.SOURCE.name} -> {dops._build.library_path(dops.SOURCE).name})"
-        f" config {ops.kernel_config(libs[0])}")
+        f"{dops.SOURCE.name} -> {dops._build.library_path(dops.SOURCE).name}"
+        f", {fops.SOURCE.name} -> "
+        f"{fops._build.library_path(fops.SOURCE).name}) config "
+        f"{ops.kernel_config(libs[0])} {fops.kernel_config(libs[2])}")
 
 
 def phase_kernels(dev):
@@ -265,8 +308,9 @@ def phase_kernels(dev):
 
 def zero_launches():
     from repro_torch.kernels.distance import ops as dops
+    from repro_torch.kernels.fused_sw import ops as fops
     from repro_torch.kernels.permanova_sw import ops
-    for counts in (ops.LAUNCHES, dops.LAUNCHES):
+    for counts in (ops.LAUNCHES, dops.LAUNCHES, fops.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -274,8 +318,9 @@ def zero_launches():
 def launch_counts() -> dict:
     """Every kernel's launches since zero_launches(), by kernel name."""
     from repro_torch.kernels.distance import ops as dops
+    from repro_torch.kernels.fused_sw import ops as fops
     from repro_torch.kernels.permanova_sw import ops
-    return {**ops.LAUNCHES, **dops.LAUNCHES}
+    return {**ops.LAUNCHES, **dops.LAUNCHES, **fops.LAUNCHES}
 
 
 def phase_main_path(dev):
@@ -524,7 +569,9 @@ def phase_distance_kernels(dev):
 def phase_pipeline(dev, x_np, grouping, f_p_main):
     """pipeline() from the EMP features: the dense and the stream bridge,
     picked by the planner from the matrix budget, with each run's own
-    launch counts; then each other distance kernel's own dense path."""
+    launch counts; then each other distance kernel's own dense path.
+    Returns the launch counts by path and the dense bridge's (F, p, null
+    F) for phase 9."""
     import torch
     from repro_torch import pipeline
     from repro_torch.pipeline import registry, streaming
@@ -536,17 +583,23 @@ def phase_pipeline(dev, x_np, grouping, f_p_main):
     for bridge, budget in BRIDGE_BUDGETS.items():
         zero_launches()
         torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = pipeline.pipeline(x, g_dev, metric="braycurtis",
                                 n_perms=EMP_PERMS, seed=0,
                                 matrix_budget_bytes=budget, device=dev)
         f_b, p_b = float(res.f_stat), float(res.p_value)      # waits
         dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - start
         paths[bridge] = launch_counts()
         results[bridge] = (f_b, p_b)
+        if bridge == "dense":
+            dense = (f_b, p_b, res.f_perms)
         log(f"[smoke] pipeline {bridge:6s} n={EMP_N} perms={EMP_PERMS} "
             f"{dt:.3f}s end to end F={f_b:.7g} p={p_b:.6g} "
-            f"launches={paths[bridge]}")
+            f"launches={paths[bridge]} peak device memory above the "
+            f"call's start {peak / 2**20:.1f} MiB")
         log(f"[smoke] pipeline {bridge:6s} plan: {res.plan}")
         check(res.plan.startswith(
             f"braycurtis.cuda[] -> {bridge}(rows={STREAM_ROWS})"),
@@ -614,7 +667,7 @@ def phase_pipeline(dev, x_np, grouping, f_p_main):
           and others["jaccard_packed"][1] == others["jaccard"][1],
           "packed jaccard F/p != float jaccard F/p bit for bit")
     log("[smoke] pipeline jaccard packed=1 F == packed=0 F bit for bit")
-    return paths
+    return paths, dense
 
 
 def dist_bound_ms(kernel, a, b, chip) -> tuple:
@@ -699,6 +752,278 @@ def phase_distance_timings(dev, x_np, paths, worst):
     return rows
 
 
+def fused_instance(n, d, p, g, seed, device):
+    """Abundance-like features, labels (P, n) with every group present,
+    and inv_gs, for the fused kernel's checks."""
+    import numpy as np
+    import torch
+    from repro_torch.core import permutations
+    from repro_torch.data.microbiome import synthetic_abundance
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(synthetic_abundance(n, d, seed=seed)).to(device)
+    grouping = rng.integers(0, g, size=n).astype(np.int32)
+    grouping[:g] = np.arange(g)
+    gperms = np.stack([rng.permutation(grouping) for _ in range(p)])
+    labels = torch.from_numpy(gperms.astype(np.int32)).to(device)
+    inv_gs = permutations.inv_group_sizes(
+        torch.from_numpy(grouping).to(device), g)
+    return x, labels, inv_gs
+
+
+def emp_chunk(dev, x_np, grouping):
+    """The main path's first fused chunk: the EMP features on the card,
+    the first FUSED_CHUNK permutation slots of seed 0 and inv_gs."""
+    import torch
+    from repro_torch.core import permutations
+    x = torch.from_numpy(x_np).to(dev)
+    g = torch.from_numpy(grouping).to(dev)
+    labels = permutations.permutation_batch(g, 0, FUSED_CHUNK, seed=0)
+    return x, labels, permutations.inv_group_sizes(g, EMP_GROUPS)
+
+
+def phase_fused_kernel(dev, x_np, grouping):
+    """The fused kernel against its plain version at FUSED_CHECK_SHAPES,
+    offset slabs and chunk splits at n = 2047, and one chunk at the EMP
+    shape. Returns its largest errors for the kernels line."""
+    import torch
+    from repro_torch.core.distance import ROW_METRICS
+    from repro_torch.kernels.fused_sw import ops as fops, ref as fref
+    worst_rel = 0.0
+    for n, d, p, g in FUSED_CHECK_SHAPES:
+        x, labels, inv_gs = fused_instance(n, d, p, g, n + d + p, dev)
+        for metric in fops.FUSED_METRICS:
+            xp = ROW_METRICS[metric].prepare(x).contiguous()
+
+            def call(lo, hi, lab_lo=0, lab_hi=p):
+                lab = labels[lab_lo:lab_hi].contiguous()
+                return fops.fused_sw_rows(xp[lo:hi].contiguous(), xp,
+                                          lab[:, lo:hi].contiguous(), lab,
+                                          inv_gs, lo, metric=metric)
+            sw, rs = call(0, n)
+            sw_p, rs_p = fref.fused_sw_ref(xp, xp, labels, labels, inv_gs,
+                                           0, metric=metric)
+            torch.cuda.synchronize()
+            err = rel_err(sw, sw_p)
+            worst_rel = max(worst_rel, err)
+            check(sw.shape == (p,) and rs.shape == (n,)
+                  and bool(torch.isfinite(sw).all())
+                  and torch.allclose(sw, sw_p, rtol=FUSED_RTOL, atol=ATOL)
+                  and torch.allclose(rs, rs_p, rtol=FUSED_RTOL, atol=ATOL),
+                  f"fused {metric} kernel != plain at {(n, d, p, g)}: s_W "
+                  f"rel {err:.3e}, row sums abs "
+                  f"{float((rs - rs_p).abs().max()):.3e}")
+            log(f"[smoke] kernel fused_sw {metric:10s} (n,d,P,G)="
+                f"{(n, d, p, g)} s_W max_rel_err={err:.3e} row sums "
+                f"max_rel_err={rel_err(rs, rs_p):.3e} vs plain")
+            if n < 2047:
+                continue
+            parts = [call(lo, min(lo + SLAB_ROWS, n))
+                     for lo in range(0, n, SLAB_ROWS)]
+            sw_s = torch.stack([q[0] for q in parts]).sum(dim=0)
+            rs_s = torch.cat([q[1] for q in parts])
+            check(torch.allclose(sw_s, sw, rtol=SLAB_RTOL, atol=0)
+                  and torch.allclose(rs_s, rs, rtol=SLAB_RTOL, atol=0),
+                  f"fused {metric}: {len(parts)} offset slabs of "
+                  f"{SLAB_ROWS} rows != the full call")
+            bounds = [0, SPLIT[0], SPLIT[0] + SPLIT[1], sum(SPLIT)]
+            sw_c = torch.cat([call(0, n, a, b)[0]
+                              for a, b in zip(bounds, bounds[1:])])
+            check(torch.allclose(sw_c, sw, rtol=SPLIT_RTOL, atol=0),
+                  f"fused {metric}: chunks {SPLIT} != one call of "
+                  f"{sum(SPLIT)}: rel {rel_err(sw_c, sw):.3e}")
+            log(f"[smoke] kernel fused_sw {metric:10s} n={n}: "
+                f"{len(parts)} offset slabs sum to the full call (rel "
+                f"{rel_err(sw_s, sw):.3e}), chunks {SPLIT} equal one call "
+                f"(rel {rel_err(sw_c, sw):.3e})")
+    x, labels, inv_gs = emp_chunk(dev, x_np, grouping)
+    sw, rs = fops.fused_sw_rows(x, x, labels, labels, inv_gs, 0)
+    sw_p, rs_p = fref.fused_sw_ref(x, x, labels, labels, inv_gs, 0)
+    torch.cuda.synchronize()
+    err, err_abs = rel_err(sw, sw_p), float((sw - sw_p).abs().max())
+    check(bool(torch.isfinite(sw).all()) and err <= SW_MAIN_RTOL
+          and torch.allclose(rs, rs_p, rtol=FUSED_RTOL, atol=ATOL),
+          f"fused kernel != plain at the EMP chunk: s_W rel {err:.3e} "
+          f"(limit {SW_MAIN_RTOL})")
+    log(f"[smoke] kernel fused_sw braycurtis (n,d,P,G)="
+        f"{(EMP_N, EMP_FEATURES, FUSED_CHUNK, EMP_GROUPS)} s_W "
+        f"max_rel_err={err:.3e} (limit {SW_MAIN_RTOL}) max_abs_err="
+        f"{err_abs:.3e}; row sums max_rel_err={rel_err(rs, rs_p):.3e}")
+    return {"max_abs_err": err_abs, "max_rel_err": err,
+            "max_rel_err_checks": worst_rel}
+
+
+def phase_fused_pipeline(dev, x_np, grouping, f_p_main, dense):
+    """pipeline() at the EMP shape with the default budgets (the
+    fused-kernel bridge), then the fused bridge at 999 permutations, each
+    with its own launch counts. Returns the launch counts by path."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.core.permanova import p_value_from_null
+    x = torch.from_numpy(x_np).to(dev)
+    g_dev = torch.from_numpy(grouping).to(dev)
+    f0, p0 = f_p_main
+    f_d, p_d, null_d = dense
+    paths = {}
+
+    zero_launches()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = pipeline.pipeline(x, g_dev, metric="braycurtis",
+                            n_perms=EMP_PERMS, seed=0, device=dev)
+    f_k, p_k = float(res.f_stat), float(res.p_value)          # waits
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    paths["fused-kernel"] = launch_counts()
+    log(f"[smoke] pipeline fused-kernel n={EMP_N} perms={EMP_PERMS} default "
+        f"budgets {dt:.3f}s end to end F={f_k:.7g} p={p_k:.6g} "
+        f"launches={paths['fused-kernel']}")
+    log(f"[smoke] pipeline fused-kernel plan: {res.plan}")
+    log(f"[smoke] pipeline fused-kernel peak device memory above the call's "
+        f"start {peak / 2**20:.1f} MiB (limit "
+        f"{DEFAULT_MATRIX_BUDGET / 2**20:.0f} MiB; one (n, n) f32 buffer "
+        f"is {4 * EMP_N ** 2 / 2**20:.0f} MiB)")
+    check(res.plan.startswith("braycurtis.fusedk.cuda[")
+          and "-> fused-kernel(" in res.plan,
+          f"expected the fused-kernel bridge, got {res.plan!r}")
+    check(res.method == "pipeline[braycurtis.cuda->fused-kernel->matmul]",
+          f"unexpected method {res.method!r}")
+    want = {k: 0 for k in paths["fused-kernel"]}
+    want["fused_sw"] = FUSED_LAUNCHES
+    check(paths["fused-kernel"] == want,
+          f"fused-kernel bridge launches {paths['fused-kernel']} != {want}")
+    check(res.f_perms.device == dev and res.f_perms.shape == (EMP_PERMS + 1,)
+          and bool(torch.isfinite(res.f_perms).all()),
+          "null distribution must be finite, (n_perms + 1,), on the card")
+    for name, (f, p) in (("phase 3 engine.run", (f0, p0)),
+                         ("the dense bridge", (f_d, p_d))):
+        check(abs(f_k - f) <= RTOL * abs(f) and p_k == p,
+              f"fused-kernel bridge F={f_k} p={p_k} vs {name} F={f} p={p}")
+    check(peak < DEFAULT_MATRIX_BUDGET,
+          f"fused-kernel bridge peak {peak} B >= the matrix budget")
+    null_within_f32("fused-kernel", res.f_perms, null_d)
+    del res
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipeline.pipeline(x, g_dev, metric="braycurtis",
+                            n_perms=CROSS_PERMS, seed=0, materialize="fused",
+                            device=dev)
+    f_f, p_f = float(res.f_stat), float(res.p_value)          # waits
+    dt = time.perf_counter() - t0
+    paths["fused"] = launch_counts()
+    log(f"[smoke] pipeline fused n={EMP_N} perms={CROSS_PERMS} {dt:.3f}s end "
+        f"to end F={f_f:.7g} p={p_f:.6g} launches={paths['fused']}")
+    log(f"[smoke] pipeline fused plan: {res.plan}")
+    want = {k: 0 for k in paths["fused"]}
+    want["braycurtis"] = -(-EMP_N // STREAM_ROWS)
+    check(paths["fused"] == want,
+          f"fused bridge launches {paths['fused']} != {want}")
+    null_1000 = null_d[:CROSS_PERMS + 1]
+    check(abs(f_f - f_d) <= RTOL * abs(f_d),
+          f"fused bridge F={f_f} vs the dense bridge's F={f_d}")
+    null_within_f32("fused", res.f_perms, null_1000)
+    p_1000 = float(p_value_from_null(null_1000))
+    check(p_f == p_1000, f"fused bridge p={p_f} != {p_1000} of the dense "
+          "bridge's first 1,000")
+    log(f"[smoke] pipeline fused p {p_f} == {p_1000} of the dense bridge's "
+        "first 1,000")
+    return paths
+
+
+def null_within_f32(bridge, null, null_dense):
+    """A bridge's null F against the dense bridge's on the same labels,
+    within what f32 s_W allows at the EMP shape (see SW_MAIN_RTOL): rtol
+    on F itself would not do, since a null F is ~1 while an f32 error e
+    in s_W moves it by ~e (n - G) / (G - 1) ~ 3,600 e."""
+    import torch
+    c = (EMP_N - EMP_GROUPS) / (EMP_GROUPS - 1)
+    tol = 2 * SW_MAIN_RTOL * (null_dense.abs() + c)
+    d_null = (null - null_dense).abs()
+    excess = float((d_null / tol).max())
+    log(f"[smoke] pipeline {bridge} null F vs the dense bridge: max "
+        f"{float(d_null.max()):.3e} abs, {excess:.3f} of the f32 allowance "
+        f"2*{SW_MAIN_RTOL}*(F + {c:.1f})")
+    check(bool(torch.isfinite(null).all()) and excess <= 1.0,
+          f"{bridge} bridge null F differs from the dense bridge's by "
+          f"{excess:.3g}x the f32 allowance")
+
+
+def fused_bound_ms(x_rows, x, labels, inv_gs, chip) -> tuple:
+    """(ms, 'bytes' | 'operations'): the least time this card could take
+    for one fused call — its inputs (row slab, table, row and column
+    labels, inv_gs) read once and s_W and the row sums written once at
+    the HBM rate, against its operations at the f32 CUDA-core peak: 2 per
+    (pair, feature) to build D^2 (as the distance kernels), and a compare
+    per (pair, permutation) plus an add per matching pair for s_W, with
+    the pairs of the triangle (as the s_W kernels)."""
+    import torch
+    nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
+    p, g = labels.shape[0], inv_gs.shape[0]
+    nbytes = 4 * (nr * d + n * d + p * nr + p * n + g + p + nr)
+    sizes = torch.bincount(labels[0].long(), minlength=g).double()
+    matches = float((sizes * (sizes - 1) / 2).sum())
+    ops_ = 2.0 * nr * n * d + p * (n * (n - 1) / 2 + matches)
+    t_bytes = nbytes / chip.hbm_bandwidth * 1e3
+    t_ops = ops_ / chip.peak_flops_f32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_fused_timings(dev, x_np, grouping, paths, checked):
+    """The fused kernel at the main path's shape (one 156-permutation
+    chunk of the EMP sweep) beside its plain version and its bound; the
+    kernel at P = 1 and one chunk's labels, to split the sweep's time."""
+    import torch
+    from repro_torch.core import permutations
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels.fused_sw import ops as fops, ref as fref
+    x, labels, inv_gs = emp_chunk(dev, x_np, grouping)
+    one = labels[:1].contiguous()
+    ms_one = cuda_ms(lambda: fops.fused_sw_rows(x, x, one, one, inv_gs, 0),
+                     reps=5)
+    g_dev = torch.from_numpy(grouping).to(dev)
+    labels_ms = cuda_ms(lambda: permutations.permutation_batch(
+        g_dev, FUSED_CHUNK, 2 * FUSED_CHUNK, seed=0), reps=5)
+    small = x[:64].contiguous()
+    small_lab = labels[:, :64].contiguous()
+    ms = cuda_ms(lambda: fops.fused_sw_rows(x, x, labels, labels, inv_gs, 0),
+                 reps=5)
+    plain_ms = cuda_ms(
+        lambda: fref.fused_sw_ref(x, x, labels, labels, inv_gs, 0), reps=1,
+        warm=lambda: fref.fused_sw_ref(small, small, small_lab, small_lab,
+                                       inv_gs, 0))
+    b_ms, b_by = fused_bound_ms(x, x, labels, inv_gs, H100_SXM)
+    log(f"[smoke] timing fused_sw  (n={EMP_N}, d={EMP_FEATURES}, "
+        f"P={FUSED_CHUNK}, G={EMP_GROUPS}) f32: kernel {ms:.3f} ms x "
+        f"{FUSED_LAUNCHES} launches = {ms * FUSED_LAUNCHES:.1f} ms, plain "
+        f"{plain_ms:.3f} ms, library none, bound {b_ms:.3f} ms ({b_by}), "
+        f"{b_ms / ms * 100:.1f}% of it")
+    per_perm = (ms - ms_one) / (FUSED_CHUNK - 1)
+    log(f"[smoke] timing fused_sw  split: P=1 (feature phase + 1 "
+        f"permutation) {ms_one:.3f} ms, so ~{per_perm:.4f} ms per further "
+        f"permutation; labels of one chunk "
+        f"{labels_ms:.3f} ms (x {FUSED_LAUNCHES} = "
+        f"{labels_ms * FUSED_LAUNCHES:.1f} ms)")
+    return {
+        "name": "fused_sw", "route": "cuda", "source": FUSED_SOURCE,
+        "replaces": FUSED_REPLACES, "path": "pipeline fused-kernel",
+        "launches": paths["fused-kernel"]["fused_sw"],
+        "launches_by_path": {k: c["fused_sw"] for k, c in paths.items()},
+        "max_abs_err": checked["max_abs_err"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "library": "none: no PyTorch call computes features -> s_W",
+        "shape": {"n": EMP_N, "d": EMP_FEATURES, "P": FUSED_CHUNK,
+                  "G": EMP_GROUPS},
+        "max_rel_err": checked["max_rel_err"],
+        "max_rel_err_checks": checked["max_rel_err_checks"],
+        "ms_one_perm": ms_one, "labels_ms_per_chunk": labels_ms,
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -731,11 +1056,24 @@ def main() -> int:
     log(f"[smoke] phase 5 (distance kernels vs plain) "
         f"{time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
-    dist_paths = phase_pipeline(dev, x, grouping, f_p_main)
+    dist_paths, dense = phase_pipeline(dev, x, grouping, f_p_main)
     log(f"[smoke] phase 6 (features path) {time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
     rows += phase_distance_timings(dev, x, dist_paths, dist_worst)
     log(f"[smoke] phase 7 (distance timings) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    fused_check = phase_fused_kernel(dev, x, grouping)
+    log(f"[smoke] phase 8 (fused kernel vs plain) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    fused_paths = phase_fused_pipeline(dev, x, grouping, f_p_main, dense)
+    log(f"[smoke] phase 9 (features path, default budgets) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    rows.append(phase_fused_timings(dev, x, grouping, fused_paths,
+                                    fused_check))
+    log(f"[smoke] phase 10 (fused kernel timings) "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 

@@ -1,0 +1,343 @@
+// Fused distance -> s_W megakernel on Hopper (sm_90a). For a row slab
+// xr (nr, d) whose first row is global sample `row_offset`, against the
+// full table xc (n, d), and permuted labels g_rows (P, nr) / g_cols (P, n),
+// one launch gives
+//
+//   s_W[p]   = 1/2 sum_{r, c valid, r != c} D2[r, c] * 1[g_r == g_c] / n_{g_r}
+//   rows[r]  = sum_c D2[r, c]                       (the Gower row sums)
+//
+// as per-tile partials (reduced by the caller), and never writes D2 to
+// device memory. D2 is the metric's squared distance:
+//
+//   euclidean   max(|x|^2 + |y|^2 - 2 x.y, 0)
+//   braycurtis  (sum_k |x_k - y_k| / max(S_x + S_y, 1e-30))^2
+//   jaccard     (1 - inter / max(card_x + card_y - inter, 1))^2, 0/1 floats
+//
+// It replaces src/repro/kernels/fused_sw/kernel.py:193 (fused_sw_pallas,
+// dense f32 feature mode). That kernel walks a (row tile, col tile, t) grid
+// in order: feature steps accumulate into VMEM scratch, the last one
+// finalizes the masked D2 tile, and permutation steps contract it on the
+// MXU with one-hot label blocks into an s_W accumulator flushed at the
+// final step. CUDA blocks run in no order, so here each block of 256
+// threads owns one 64 x 64 tile and runs both phases itself:
+//
+//   feature phase   a loop over 32-feature chunks staged transposed in
+//                   static shared memory; each thread keeps a 4 x 4
+//                   micro-tile of accumulators in registers (the layout of
+//                   kernels/distance/csrc/distance.cu, whose metric bodies
+//                   are copied below with a squared finalize)
+//   finalize        D2 and the mask by GLOBAL index, once: slab pad rows,
+//                   row_offset + r >= n_valid, c >= n_valid and the exact
+//                   diagonal row_offset + r == c are zeroed before anything
+//                   reads the tile (the euclidean self pair is not 0 in f32)
+//   row sums        each thread sums its 4 columns per row, then a fixed
+//                   shuffle tree over the 16 threads of a tile row: one
+//                   partial per (row, column tile)
+//   permutations    blocks of 16: the 16 x 64 row labels (with 1/n_g of
+//                   each) and column labels are staged in shared memory;
+//                   each thread adds d2 * w_r over its 16 pairs where
+//                   g_r == g_c, then a fixed shuffle tree per warp and a
+//                   fixed-order sum over the 8 warps: one partial per
+//                   (tile, permutation)
+//
+// The same-group form weights each pair by 1/n_g once, where the reference
+// multiplies sqrt(1/n_g) from both sides; the two differ by rounding only.
+// It does ~G times fewer operations than the one-hot contraction, which
+// on CUDA cores made the permanova_sw matmul kernel ~5x slower than
+// permblock per permutation. Partials are reduced by the caller with
+// torch.sum (a fixed order): no float atomics, the same bits every run.
+//
+// Bound on an H100 SXM at 700 W at the main path's shape (n = 25,145,
+// d = 128, a chunk of P = 156 permutations, G = 8): the feature phase is
+// 2 n^2 d = 1.6e11 operations (2.4 ms at 67 TFLOP/s f32) and the
+// permutation phase P (n(n-1)/2 + matches) = 5.5e10 (0.8 ms), 3.2 ms in
+// all; the inputs are 13 MB of features and 16 MB of labels (0.01 ms of
+// HBM), so it is bound by operations. Every tile recomputes its D2 for
+// each chunk (the reference's design: the footprint does not grow with
+// n^2); the D2 tile
+// lives only in registers, and the staged tiles make each feature and
+// label read from L2 once per 64 rows or columns. Symmetry (half the
+// tiles) and wgmma are left for later.
+//
+// Ragged nr, n, d and P are masked here; nothing is padded. Element
+// offsets are 64-bit. Division is nvcc's default IEEE-rounded form (no
+// --use_fast_math). Static shared memory: 30,720 B.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC. The C entry point launches on the caller's
+//        stream, never synchronises, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;          // 16 x 16 threads
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;              // tile rows (and cols) per block
+constexpr int kMicro = 4;              // each thread owns 4 x 4 pairs
+constexpr int kChunk = 32;             // features staged per step
+constexpr int kPitch = kTile + 4;      // keeps 16-byte micro-tile reads
+constexpr int kPermBlock = 16;         // permutations staged per step
+constexpr int kMaxGridY = 65535;
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+// The metric bodies of distance.cu (stat: the per-row statistic; step: one
+// feature's contribution to a pair; d2: the squared distance from the
+// pair's sum and the two rows' statistics).
+struct BrayCurtis {
+  static __device__ __forceinline__ float stat(float a) { return a; }
+  static __device__ __forceinline__ void step(float& acc, float a, float b) {
+    acc += fabsf(a - b);
+  }
+  static __device__ __forceinline__ float d2(float num, float sr, float sc) {
+    const float d = num / fmaxf(sr + sc, 1e-30f);
+    return d * d;
+  }
+};
+
+struct Euclidean {
+  static __device__ __forceinline__ float stat(float a) { return a * a; }
+  static __device__ __forceinline__ void step(float& acc, float a, float b) {
+    acc = fmaf(a, b, acc);
+  }
+  static __device__ __forceinline__ float d2(float dot, float sr, float sc) {
+    return fmaxf(sr + sc - 2.f * dot, 0.f);
+  }
+};
+
+struct Jaccard {
+  static __device__ __forceinline__ float stat(float a) { return a; }
+  static __device__ __forceinline__ void step(float& acc, float a, float b) {
+    acc = fmaf(a, b, acc);  // 0/1 products: an exact integer count
+  }
+  static __device__ __forceinline__ float d2(float inter, float sr,
+                                             float sc) {
+    const float card = sr + sc;
+    const float uni = card - inter;
+    const float d = 1.f - inter / fmaxf(uni, 1.f);
+    return d * d;
+  }
+};
+
+// Grid (ceil(n / 64), ceil(nr / 64)); block (bx, by) owns slab rows
+// by*64 + [0, 64) and columns bx*64 + [0, 64). Thread (ty, tx) owns rows
+// 4 ty + [0, 4) and columns 4 tx + [0, 4) of the tile. Threads 0-63 sum
+// the row statistic of tile row t, threads 64-127 the column statistic.
+// sw_part: (ceil(nr/64) * ceil(n/64), P), row-major by tile (by, bx).
+// rs_part: (nr, ceil(n/64)).
+template <class M>
+__global__ void __launch_bounds__(kThreads)
+fused_sw_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
+                const int* __restrict__ g_rows,
+                const int* __restrict__ g_cols,
+                const float* __restrict__ inv_gs,
+                float* __restrict__ sw_part, float* __restrict__ rs_part,
+                int64_t nr, int64_t n, int64_t d, int64_t n_perms,
+                int n_groups, int64_t row_offset, int64_t n_valid) {
+  __shared__ __align__(16) float rs[kChunk][kPitch];
+  __shared__ __align__(16) float cs[kChunk][kPitch];
+  __shared__ float row_stat[kTile];
+  __shared__ float col_stat[kTile];
+  __shared__ __align__(16) int lab_r[kPermBlock][kTile];
+  __shared__ __align__(16) float w_r[kPermBlock][kTile];
+  __shared__ __align__(16) int lab_c[kPermBlock][kTile];
+  __shared__ float warp_sum[kWarps][kPermBlock];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t i0 = (int64_t)blockIdx.y * kTile;   // slab-local rows
+  const int64_t j0 = (int64_t)blockIdx.x * kTile;
+  const int64_t ntj = gridDim.x;
+  const int64_t tile = (int64_t)blockIdx.y * ntj + blockIdx.x;
+
+  // ---- feature phase -----------------------------------------------------
+  float acc[kMicro][kMicro];
+#pragma unroll
+  for (int a = 0; a < kMicro; ++a)
+#pragma unroll
+    for (int b = 0; b < kMicro; ++b) acc[a][b] = 0.f;
+  float stat = 0.f;
+
+  for (int64_t k0 = 0; k0 < d; k0 += kChunk) {
+    const int kn = (int)min64(kChunk, d - k0);
+    // Stage the chunk transposed: a warp reads 32 consecutive features of
+    // one row (coalesced) and writes them down one column of rs / cs.
+    for (int e = threadIdx.x; e < kTile * kChunk; e += kThreads) {
+      const int r = e / kChunk, k = e % kChunk;
+      const int64_t i = i0 + r, j = j0 + r;
+      float a = 0.f, b = 0.f;
+      if (k < kn) {
+        if (i < nr) a = xr[i * d + k0 + k];
+        if (j < n) b = xc[j * d + k0 + k];
+      }
+      rs[k][r] = a;
+      cs[k][r] = b;
+    }
+    __syncthreads();
+    if (threadIdx.x < kTile) {
+      for (int k = 0; k < kn; ++k) stat += M::stat(rs[k][threadIdx.x]);
+    } else if (threadIdx.x < 2 * kTile) {
+      for (int k = 0; k < kn; ++k)
+        stat += M::stat(cs[k][threadIdx.x - kTile]);
+    }
+#pragma unroll 4
+    for (int k = 0; k < kn; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&rs[k][ty * kMicro]);
+      const float4 b = *reinterpret_cast<const float4*>(&cs[k][tx * kMicro]);
+      const float av[kMicro] = {a.x, a.y, a.z, a.w};
+      const float bv[kMicro] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int ii = 0; ii < kMicro; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < kMicro; ++jj)
+          M::step(acc[ii][jj], av[ii], bv[jj]);
+    }
+    __syncthreads();  // the chunk's readers are done before it is replaced
+  }
+  if (threadIdx.x < kTile)
+    row_stat[threadIdx.x] = stat;
+  else if (threadIdx.x < 2 * kTile)
+    col_stat[threadIdx.x - kTile] = stat;
+  __syncthreads();
+
+  // ---- finalize: the masked D2 tile, in place of the accumulators --------
+#pragma unroll
+  for (int ii = 0; ii < kMicro; ++ii) {
+    const int64_t i = i0 + ty * kMicro + ii;
+    const int64_t gi = row_offset + i;
+    const bool row_ok = i < nr && gi < n_valid;
+    const float sr = row_stat[ty * kMicro + ii];
+#pragma unroll
+    for (int jj = 0; jj < kMicro; ++jj) {
+      const int64_t j = j0 + tx * kMicro + jj;
+      const bool ok = row_ok && j < n_valid && gi != j;
+      acc[ii][jj] = ok ? M::d2(acc[ii][jj], sr, col_stat[tx * kMicro + jj])
+                       : 0.f;
+    }
+  }
+
+  // ---- Gower row sums: one partial per (row, column tile) ----------------
+#pragma unroll
+  for (int ii = 0; ii < kMicro; ++ii) {
+    float s = ((acc[ii][0] + acc[ii][1]) + acc[ii][2]) + acc[ii][3];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)       // the 16 threads of a row
+      s += __shfl_down_sync(0xffffffffu, s, off, 16);
+    const int64_t i = i0 + ty * kMicro + ii;
+    if (tx == 0 && i < nr) rs_part[i * ntj + blockIdx.x] = s;
+  }
+
+  // ---- permutation phase: one partial per (tile, permutation) ------------
+  for (int64_t p0 = 0; p0 < n_perms; p0 += kPermBlock) {
+    const int pn = (int)min64(kPermBlock, n_perms - p0);
+    __syncthreads();  // the previous block's readers are done
+    for (int e = threadIdx.x; e < kPermBlock * kTile; e += kThreads) {
+      const int p = e / kTile, r = e % kTile;
+      int gr = 0, gc = -1;
+      float w = 0.f;
+      if (p < pn) {
+        const int64_t i = i0 + r, j = j0 + r;
+        if (i < nr) {
+          gr = g_rows[(p0 + p) * nr + i];
+          w = (gr >= 0 && gr < n_groups) ? inv_gs[gr] : 0.f;
+        }
+        if (j < n) gc = g_cols[(p0 + p) * n + j];
+      }
+      lab_r[p][r] = gr;
+      w_r[p][r] = w;
+      lab_c[p][r] = gc;
+    }
+    __syncthreads();
+    for (int p = 0; p < pn; ++p) {
+      const int4 gr = *reinterpret_cast<const int4*>(&lab_r[p][ty * kMicro]);
+      const float4 wr = *reinterpret_cast<const float4*>(&w_r[p][ty * kMicro]);
+      const int4 gc = *reinterpret_cast<const int4*>(&lab_c[p][tx * kMicro]);
+      const int grv[kMicro] = {gr.x, gr.y, gr.z, gr.w};
+      const float wv[kMicro] = {wr.x, wr.y, wr.z, wr.w};
+      const int gcv[kMicro] = {gc.x, gc.y, gc.z, gc.w};
+      float s = 0.f;
+#pragma unroll
+      for (int ii = 0; ii < kMicro; ++ii) {
+        float t = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < kMicro; ++jj)
+          t += grv[ii] == gcv[jj] ? acc[ii][jj] : 0.f;
+        s = fmaf(t, wv[ii], s);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_down_sync(0xffffffffu, s, off);
+      if (lane == 0) warp_sum[warp][p] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < pn) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += warp_sum[w][threadIdx.x];
+      sw_part[tile * n_perms + p0 + threadIdx.x] = 0.5f * s;
+    }
+  }
+}
+
+template <class M>
+int launch(const void* xr, const void* xc, const void* g_rows,
+           const void* g_cols, const void* inv_gs, void* sw_part,
+           void* rs_part, int64_t nr, int64_t n, int64_t d, int64_t n_perms,
+           int n_groups, int64_t row_offset, int64_t n_valid,
+           cudaStream_t stream) {
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile),
+                  (unsigned)((nr + kTile - 1) / kTile));
+  fused_sw_kernel<M><<<grid, kThreads, 0, stream>>>(
+      (const float*)xr, (const float*)xc, (const int*)g_rows,
+      (const int*)g_cols, (const float*)inv_gs, (float*)sw_part,
+      (float*)rs_part, nr, n, d, n_perms, n_groups, row_offset, n_valid);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// out: kTile, kPermBlock, kThreads.
+void fused_sw_config(int* out) {
+  out[0] = kTile;
+  out[1] = kPermBlock;
+  out[2] = kThreads;
+}
+
+// kind: 0 braycurtis, 1 euclidean, 2 jaccard. xr (nr, d), xc (n, d) f32;
+// g_rows (P, nr), g_cols (P, n) int32; inv_gs (G,) f32. sw_part
+// (ceil(nr/64) * ceil(n/64), P) and rs_part (nr, ceil(n/64)) f32.
+int fused_sw_launch(int kind, const void* xr, const void* xc,
+                    const void* g_rows, const void* g_cols,
+                    const void* inv_gs, void* sw_part, void* rs_part,
+                    long long nr, long long n, long long d, long long n_perms,
+                    int n_groups, long long row_offset, long long n_valid,
+                    void* stream) {
+  if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_groups < 1 ||
+      row_offset < 0 || n_valid < 1 || n_valid > n ||
+      (nr + kTile - 1) / kTile > kMaxGridY ||
+      (n + kTile - 1) / kTile > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (kind) {
+    case 0:
+      return launch<BrayCurtis>(xr, xc, g_rows, g_cols, inv_gs, sw_part,
+                            rs_part, nr, n, d, n_perms, n_groups,
+                            row_offset, n_valid, s);
+    case 1:
+      return launch<Euclidean>(xr, xc, g_rows, g_cols, inv_gs, sw_part,
+                            rs_part, nr, n, d, n_perms, n_groups,
+                            row_offset, n_valid, s);
+    case 2:
+      return launch<Jaccard>(xr, xc, g_rows, g_cols, inv_gs, sw_part,
+                            rs_part, nr, n, d, n_perms, n_groups,
+                            row_offset, n_valid, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

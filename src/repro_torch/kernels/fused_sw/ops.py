@@ -1,0 +1,212 @@
+"""Wrapper around the fused distance -> s_W CUDA kernel (csrc/fused_sw.cu).
+
+Twin of `repro/kernels/fused_sw/ops.py`. `fused_sw_rows` is the streaming
+unit of the pipeline's fused-kernel bridge: s_W partials and Gower row
+sums for one permutation chunk over one row slab, with the D^2 tiles never
+leaving the kernel's registers. The slab is the whole table on one card;
+`row_offset` keeps the sharding contract (partials of disjoint slabs sum
+to the full statistic). It checks its operands, then
+
+  * on CPU tensors runs the plain version (`ref.fused_sw_ref`);
+  * on CUDA tensors launches the kernel on the current stream, without
+    synchronising, and reduces its partials with two deterministic
+    `torch.sum`s — or raises.
+
+There is no fallback from the kernel to the plain version. The library is
+built from the source at first use (`kernels/_build.py`). `LAUNCHES`
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused_sw import ref
+
+# aitchison is euclidean geometry over clr-prepared features
+KERNEL_METRIC = {"euclidean": "euclidean", "braycurtis": "braycurtis",
+                 "jaccard": "jaccard", "aitchison": "euclidean"}
+FUSED_METRICS = ("euclidean", "braycurtis", "jaccard")
+_KIND = {"braycurtis": 0, "euclidean": 1, "jaccard": 2}   # the C switch
+LAUNCHES = {"fused_sw": 0}
+SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_sw.cu"
+TILE = 64                   # kTile in the source
+_MAX_GRID_Y = 65535
+_lib = None
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# every pointer and the stream as c_void_p, so no 64-bit address is cut to
+# a 32-bit int
+SIGNATURES = {
+    "fused_sw_config": ([_PTR], None),
+    "fused_sw_launch": ([_I32] + [_PTR] * 7 + [_I64] * 4
+                        + [_I32, _I64, _I64, _PTR], _I32),
+}
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's shared library. The
+    partial buffers are sized from TILE, so a library compiled with
+    another tile is refused."""
+    global _lib
+    if _lib is None:
+        lib = _build.load(SOURCE)
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
+        tile = kernel_config(lib)["tile"]
+        if tile != TILE:
+            raise RuntimeError(f"{SOURCE.name} was compiled with kTile = "
+                               f"{tile}; ops.TILE is {TILE}")
+        _lib = lib
+    return _lib
+
+
+def kernel_config(lib: ctypes.CDLL) -> dict:
+    """The tile constants compiled into the library."""
+    out = (ctypes.c_int * 3)()
+    lib.fused_sw_config(out)
+    return {"tile": out[0], "perm_block": out[1], "threads": out[2]}
+
+
+def partial_shapes(nr: int, n: int, n_perms: int):
+    """Shapes of the kernel's partials: s_W per (64 x 64 tile,
+    permutation) and row sums per (row, column tile)."""
+    nti, ntj = -(-nr // TILE), -(-n // TILE)
+    return (nti * ntj, n_perms), (nr, ntj)
+
+
+def alloc_workspace(nr: int, n: int, n_perms: int, device) -> tuple:
+    """Partial buffers for launches of up to n_perms permutations over an
+    nr-row slab, allocated once and reused by every chunk of a sweep."""
+    sw_shape, rs_shape = partial_shapes(nr, n, n_perms)
+    return (torch.empty(sw_shape[0] * sw_shape[1], dtype=torch.float32,
+                        device=device),
+            torch.empty(rs_shape[0] * rs_shape[1], dtype=torch.float32,
+                        device=device))
+
+
+def workspace_bytes(nr: int, n: int, n_perms: int) -> int:
+    (a, b), (c, e) = partial_shapes(nr, n, n_perms)
+    return 4 * (a * b + c * e)
+
+
+def _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid):
+    if metric not in KERNEL_METRIC:
+        raise ValueError(f"unknown fused metric {metric!r}; one of "
+                         f"{sorted(KERNEL_METRIC)}")
+    for name, t in (("x_rows", x_rows), ("x", x)):
+        if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 1:
+            raise ValueError(f"{name} must be a non-empty 2-D tensor, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x_rows.shape[1] != x.shape[1]:
+        raise ValueError(f"feature widths differ: {x_rows.shape[1]} vs "
+                         f"{x.shape[1]}")
+    nr, n = x_rows.shape[0], x.shape[0]
+    if g_rows.dim() != 2 or g_cols.dim() != 2 \
+            or tuple(g_rows.shape) != (g_cols.shape[0], nr) \
+            or g_cols.shape[1] != n or g_cols.shape[0] < 1:
+        raise ValueError(f"labels must be (P, {nr}) and (P, {n}) with "
+                         f"P >= 1, got {tuple(g_rows.shape)} and "
+                         f"{tuple(g_cols.shape)}")
+    if g_rows.dtype != torch.int32 or g_cols.dtype != torch.int32:
+        raise TypeError(f"labels must be int32, got {g_rows.dtype} and "
+                        f"{g_cols.dtype}")
+    if inv_gs.dim() != 1 or inv_gs.shape[0] < 1 \
+            or inv_gs.dtype != torch.float32:
+        raise TypeError("inv_gs must be a non-empty 1-D float32 tensor, got "
+                        f"{inv_gs.dtype} {tuple(inv_gs.shape)}")
+    devices = {t.device for t in (x_rows, x, g_rows, g_cols, inv_gs)}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: {devices}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if not all(t.is_contiguous()
+               for t in (x_rows, x, g_rows, g_cols, inv_gs)):
+        raise ValueError("operands must be contiguous")
+    if row_offset < 0:
+        raise ValueError(f"row_offset must be >= 0, got {row_offset}")
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"n_valid must be in [1, {n}], got {n_valid}")
+    if -(-nr // TILE) > _MAX_GRID_Y:
+        raise ValueError(f"{nr} rows exceed the kernel's grid")
+
+
+def _launch(lib, metric, x_rows, x, g_rows, g_cols, inv_gs, row_offset,
+            n_valid, stream: int, workspace=None):
+    """Launch the kernel on `stream`; (s_W (P,), row_sums (nr,)) from its
+    partials. `workspace` (alloc_workspace()) holds at least P's."""
+    nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
+    p, n_groups = g_cols.shape[0], inv_gs.shape[0]
+    sw_shape, rs_shape = partial_shapes(nr, n, p)
+    if workspace is None:
+        workspace = alloc_workspace(nr, n, p, x.device)
+    sw_buf, rs_buf = workspace
+    if sw_buf.numel() < sw_shape[0] * sw_shape[1] \
+            or rs_buf.numel() < rs_shape[0] * rs_shape[1]:
+        raise ValueError(f"workspace too small for {p} permutations over "
+                         f"({nr}, {n})")
+    sw_part = sw_buf[:sw_shape[0] * sw_shape[1]].view(sw_shape)
+    rs_part = rs_buf[:rs_shape[0] * rs_shape[1]].view(rs_shape)
+    err = lib.fused_sw_launch(
+        _KIND[KERNEL_METRIC[metric]], x_rows.data_ptr(), x.data_ptr(),
+        g_rows.data_ptr(), g_cols.data_ptr(), inv_gs.data_ptr(),
+        sw_part.data_ptr(), rs_part.data_ptr(), nr, n, d, p, n_groups,
+        row_offset, n_valid, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_sw kernel launch failed: cudaError {err}")
+    LAUNCHES["fused_sw"] += 1
+    return sw_part.sum(dim=0), rs_part.sum(dim=1)
+
+
+def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
+                  g_rows: torch.Tensor, g_cols: torch.Tensor,
+                  inv_gs: torch.Tensor, row_offset: int = 0, *,
+                  metric: str = "braycurtis", n_valid=None,
+                  tile_r: int = 128, tile_c: int = 128,
+                  feat_block: int = 128, perm_block: int = 16,
+                  feat_bf16: int = 0, feat_fp8: int = 0,
+                  feat_packed: int = 0, feat_scale=None, workspace=None):
+    """Fused s_W partial for one (row slab x permutation chunk) cell.
+
+    x_rows:   (nr, d) f32 prepared features of the slab's rows.
+    x:        (n, d) f32 prepared features of ALL samples (columns).
+    g_rows:   (P, nr) int32 permuted labels at the slab's GLOBAL rows.
+    g_cols:   (P, n) int32 permuted labels over all samples.
+    inv_gs:   (G,) f32 inverse group sizes.
+    row_offset: global index of x_rows[0].
+    n_valid:  global sample count (pad masking); defaults to n.
+    metric:   'euclidean' | 'braycurtis' | 'jaccard' (on presence 0/1
+              floats) | 'aitchison' (euclidean over clr features).
+
+    tile_r / tile_c / feat_block / perm_block are the reference's Pallas
+    tile knobs: accepted and ignored, since the CUDA tile is fixed (64 x 64
+    pairs, 32-feature chunks, 16-permutation blocks). feat_bf16 / feat_fp8
+    / feat_packed / feat_scale (the precision knobs) raise
+    NotImplementedError unless 0 / None: they come with the precision
+    slice. workspace: partial buffers from alloc_workspace(), reused
+    across the chunks of a sweep (allocated per call when None; unused on
+    the CPU).
+
+    Returns (s_W (P,) f32, row_sums (nr,) f32). Summing the outputs over
+    disjoint row slabs gives the full statistic and the full row sums.
+    """
+    del tile_r, tile_c, feat_block, perm_block
+    ref.reject_precision(dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
+                              feat_packed=feat_packed, feat_scale=feat_scale))
+    n_valid = x.shape[0] if n_valid is None else int(n_valid)
+    row_offset = int(row_offset)
+    _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid)
+    if x.device.type == "cpu":
+        return ref.fused_sw_ref(x_rows, x, g_rows, g_cols, inv_gs,
+                                row_offset, metric=metric, n_valid=n_valid)
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return _launch(lib, metric, x_rows, x, g_rows, g_cols, inv_gs,
+                   row_offset, n_valid, stream, workspace)

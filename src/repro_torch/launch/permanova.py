@@ -12,9 +12,11 @@ under one joint plan (distance kernel, bridge, s_W).
   PYTHONPATH=src python -m repro_torch.launch.permanova \
       --samples 25145 --perms 3999
 
-  # features -> p-value, D^2 row slabs streamed into one buffer:
+  # features -> p-value; at the default budgets the planner picks the
+  # fused-kernel bridge there (one megakernel launch per label chunk, no
+  # (n, n) array); --materialize stream squares D row slabs into one buffer:
   PYTHONPATH=src python -m repro_torch.launch.permanova \
-      --samples 25145 --perms 3999 --from-features --materialize stream
+      --samples 25145 --perms 3999 --from-features
 
 Runs on the card (`--device cuda`, the default) and fails without one;
 `--device cpu` runs the plain PyTorch forms on the host.
@@ -65,10 +67,19 @@ def main(argv=None) -> int:
                          "construction + s_W planned jointly (stage-1 "
                          "impl, bridge, chunking in one plan)")
     ap.add_argument("--materialize", default="auto",
-                    choices=["auto", "dense", "stream"],
-                    help="pipeline bridge: materialize D, or stream D^2 "
-                         "row blocks into one buffer; implies "
+                    choices=["auto", "dense", "stream", "fused",
+                             "fused-kernel"],
+                    help="pipeline bridge: materialize D, stream D^2 row "
+                         "blocks into one buffer, fuse blocks straight "
+                         "into the permutation sweep, or run the single-"
+                         "pass fused-kernel (distance tiles contracted "
+                         "in-kernel; D^2 never resident); implies "
                          "--from-features")
+    ap.add_argument("--fused-impl", default="auto",
+                    choices=["auto", "cuda", "torch", "pallas", "xla"],
+                    help="fused-kernel implementation: the CUDA megakernel "
+                         "(alias pallas; its plain version on --device "
+                         "cpu) or the plain torch sweep (alias xla)")
     ap.add_argument("--dist-impl", default="auto",
                     help="pin the stage-1 distance impl (e.g. "
                          "'braycurtis.cuda', 'euclidean.blocked'); "
@@ -84,14 +95,15 @@ def main(argv=None) -> int:
     budget = None if args.budget_mb is None else args.budget_mb * 2**20
 
     if args.from_features or args.materialize != "auto" \
-            or args.dist_impl != "auto":
+            or args.dist_impl != "auto" or args.fused_impl != "auto":
         t0 = time.perf_counter()
         res = pipeline.pipeline(
             torch.from_numpy(x), torch.from_numpy(grouping),
             metric=args.metric, n_perms=args.perms, seed=args.seed,
             dist_impl=args.dist_impl, sw_impl=args.impl,
             materialize=args.materialize, chunk=args.chunk,
-            memory_budget_bytes=budget, device=dev)
+            fused_impl=args.fused_impl, memory_budget_bytes=budget,
+            device=dev)
         f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
         t_pa = time.perf_counter() - t0
         print(f"[permanova] n={args.samples} groups={args.groups} "

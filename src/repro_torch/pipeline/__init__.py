@@ -8,15 +8,18 @@ and p under ONE plan:
               with capability metadata — the stage-1 mirror of
               engine.registry
   planner     joint two-stage plans: distance impl + row block, the
-              materialization bridge (dense / stream), and the engine's
-              s_W plan, decided together
-  streaming   the stream bridge: the mat2 row-block producer and the
-              one-buffer mat2 build (+ Gower marginals)
+              materialization bridge (dense / stream / fused /
+              fused-kernel) with its fused impl, and the engine's s_W
+              plan, decided together
+  streaming   the stream bridge (the mat2 row-block producer and the
+              one-buffer mat2 build + Gower marginals), the fused bridge
+              and the fused-kernel sweeps (the CUDA megakernel, its
+              plain torch twin)
   api         pipeline(), one study
 
 Entry points routing here: core.permanova.permanova(features, metric=...)
-and the launch CLI's --from-features. (The fused bridges, ordination,
-out-of-core features and many-study runs come with later slices.)
+and the launch CLI's --from-features. (Ordination, designs, out-of-core
+features and many-study runs come with later slices.)
 """
 
 from repro_torch.pipeline import (api, planner, registry,  # noqa: F401
@@ -24,8 +27,9 @@ from repro_torch.pipeline import (api, planner, registry,  # noqa: F401
 from repro_torch.pipeline.api import pipeline  # noqa: F401
 from repro_torch.pipeline.planner import (  # noqa: F401
     DEFAULT_MATRIX_BUDGET_BYTES, PipelinePlan, plan_pipeline)
-from repro_torch.pipeline.registry import (DistanceImpl, get,  # noqa: F401
-                                           metrics, names)
-from repro_torch.pipeline.streaming import (GowerStats,  # noqa: F401
-                                            build_mat2_streaming,
-                                            gower_center, mat2_row_blocks)
+from repro_torch.pipeline.registry import (DistanceImpl,  # noqa: F401
+                                           FusedImpl, fused_names, get,
+                                           get_fused, metrics, names)
+from repro_torch.pipeline.streaming import (  # noqa: F401
+    FusedKernelStats, FusedStats, GowerStats, build_mat2_streaming,
+    fused_kernel_sw, fused_sw, gower_center, mat2_row_blocks)

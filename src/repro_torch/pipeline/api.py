@@ -1,10 +1,11 @@
 """Pipeline entry point: raw abundance table -> F statistic and p-value.
 
-Twin of `repro/pipeline/api.py` for one study through the dense and
-stream bridges: stage 1 and the bridge come from this package, stage 2
-from engine.run. `core.permanova.permanova()` delegates here when handed
-features instead of a matrix, and the launch CLI exposes it as
-`--from-features`.
+Twin of `repro/pipeline/api.py` for one study on one device. Through the
+dense and stream bridges stage 1 and the bridge come from this package
+and stage 2 from engine.run; the fused and fused-kernel bridges compute
+s_W themselves (pipeline.streaming) and never hold an (n, n) array.
+`core.permanova.permanova()` delegates here when handed features instead
+of a matrix, and the launch CLI exposes it as `--from-features`.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import engine, hw
-from repro_torch.core.permanova import PermanovaResult, _later
+from repro_torch.core import permutations
+from repro_torch.core.permanova import (PermanovaResult, _later, f_from_sw,
+                                        p_value_from_null)
 from repro_torch.pipeline import planner as _planner
 from repro_torch.pipeline import registry as _registry
 from repro_torch.pipeline import streaming as _streaming
@@ -33,6 +36,8 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
              matrix_budget_bytes: Optional[float] = None,
              slab_budget_bytes: Optional[float] = None,
              dist_tuning: Optional[Dict[str, int]] = None,
+             fused_impl: str = "auto",
+             fused_tuning: Optional[Dict[str, int]] = None,
              mesh=None, ordination: Optional[int] = None,
              covariates=None, strata=None, weights=None,
              autotune: bool = False, trace=None,
@@ -40,12 +45,21 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
     """Full features->p-value PERMANOVA under one joint plan.
 
     x:           (n, d) abundance table (raw features, NOT distances).
-    materialize: 'auto' | 'dense' | 'stream' — whether the (n, n) matrix
-                 D is built outright (D and mat2 both resident), or its
-                 squared row blocks are streamed into one mat2 buffer (D
-                 never resident). 'fused' / 'fused-kernel', and an 'auto'
-                 plan that resolves to them (not even one (n, n) buffer
-                 fits matrix_budget_bytes), raise NotImplementedError.
+    materialize: 'auto' | 'dense' | 'stream' | 'fused' | 'fused-kernel' —
+                 whether the (n, n) matrix D is built outright (D and mat2
+                 both resident), its squared row blocks are streamed into
+                 one mat2 buffer, never materialized at all (fused: mat2
+                 row slabs feed the permutation chunks), or swept in a
+                 single pass with distance tiles contracted in-kernel
+                 (fused-kernel; what 'auto' picks when not even one (n, n)
+                 buffer fits matrix_budget_bytes, e.g. n > 16,384 at the
+                 default 1 GiB).
+    fused_impl:  'auto' | 'cuda' | 'torch' (or the reference's 'pallas' /
+                 'xla', or a fused registry name) — which single-pass
+                 sweep runs a fused-kernel plan: the CUDA megakernel (the
+                 card's choice) or the plain torch loops.
+    fused_tuning: overrides of the fused impl's knobs; the precision knobs
+                 (feat_bf16 / feat_fp8 / feat_packed) must stay 0.
     dist_impl:   'auto' or a registry name ('<metric>.cuda' — alias
                  '<metric>.pallas' — '.dense', '.blocked').
     dist_tuning: overrides of the impl's knobs, e.g. {'packed': 1} for
@@ -58,7 +72,7 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
     memory_budget_bytes for s_W labels. mesh, ordination, covariates,
     strata, weights, autotune, trace and out-of-core features (a slab
     cache or its path) raise NotImplementedError naming their slice.
-    For the same labels both bridges give the same F and p-value (to f32
+    For the same labels every bridge gives the same F and p-value (to f32
     accumulation order).
     """
     if isinstance(x, (str, os.PathLike)) or hasattr(x, "n_slabs"):
@@ -90,15 +104,13 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
         matrix_budget_bytes=matrix_budget_bytes,
         slab_budget_bytes=slab_budget_bytes,
         memory_budget_bytes=memory_budget_bytes, sw_impl=sw_impl,
-        chunk=chunk)
-    if pl.materialize in _planner.FUSED_MODES:
-        raise _later(f"the {pl.materialize} bridge (planned: "
-                     f"{pl.describe_stage1()}; pass materialize='dense'/"
-                     "'stream' or a larger matrix_budget_bytes)",
-                     "fused-kernel (slice 3)")
+        chunk=chunk, fused_impl=fused_impl, fused_tuning=fused_tuning)
     # planner-resolved tuning (row block folded in) <- caller overrides
     prepare, rows_fn, dense_fn = _registry.get(pl.dist_impl).bound(
         **{**pl.dist_tuning, **(dist_tuning or {})})
+    if pl.materialize in _planner.FUSED_MODES:
+        return _fused_bridge(pl, prepare(x), rows_fn, grouping, n_perms,
+                             n_groups, seed, perms)
     run_kw = dict(n_perms=n_perms, seed=seed, perms=perms,
                   n_groups=n_groups, impl=sw_impl,
                   memory_budget_bytes=memory_budget_bytes, chunk=chunk,
@@ -117,3 +129,40 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
         res,
         method=f"pipeline[{pl.dist_impl}->{pl.materialize}->{executed_sw}]",
         plan=f"{pl.describe_stage1()} | {pl.reason} :: {res.plan}")
+
+
+def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
+                  n_perms: int, n_groups: int, seed: int, perms):
+    """The fused and fused-kernel bridges: s_W from the streaming sweeps,
+    then F and p as engine.run assembles them; the joint plan string is
+    authoritative (no engine.run runs)."""
+    n = int(xprep.shape[0])
+    n_total = n_perms + 1
+    inv_gs = permutations.inv_group_sizes(grouping, n_groups)
+    if pl.materialize == "fused":
+        s_w, s_t, stats = _streaming.fused_sw(
+            xprep, rows_fn, grouping, inv_gs, n_total,
+            row_block=pl.row_block, chunk=pl.sw.chunk, seed=seed,
+            perms=perms)
+        ran = (f"rows={stats.row_block}x{stats.n_row_blocks} "
+               f"chunks={stats.n_chunks} "
+               f"slab={stats.peak_slab_bytes/2**20:.1f}MiB")
+    else:
+        fspec = _registry.get_fused(pl.fused_impl)
+        s_w, s_t, stats = _streaming.fused_kernel_sw(
+            xprep, rows_fn, grouping, inv_gs, n_total, impl=fspec.kind,
+            kernel_metric=fspec.kernel_metric, row_block=pl.row_block,
+            chunk=pl.sw.chunk, tuning=pl.fused_tuning, seed=seed,
+            perms=perms)
+        ran = (f"{stats.impl} rows={stats.row_block} "
+               f"chunks={stats.n_chunks} "
+               f"slab={stats.peak_slab_bytes/2**20:.2f}MiB "
+               f"labels={stats.peak_label_bytes/2**20:.2f}MiB")
+    s_t = s_t.to(torch.float32)
+    f_all = f_from_sw(s_w.to(torch.float32), s_t, n, n_groups)
+    return PermanovaResult(
+        f_stat=f_all[0], p_value=p_value_from_null(f_all), s_t=s_t,
+        s_w=s_w[0].to(torch.float32), f_perms=f_all, n_objects=n,
+        n_groups=n_groups, n_perms=n_perms,
+        method=f"pipeline[{pl.dist_impl}->{pl.materialize}->{pl.sw.impl}]",
+        plan=f"{pl.describe()} :: {ran}")

@@ -7,17 +7,23 @@ in one place:
             transient-memory model), and its row-block size
   bridge    the materialization: 'dense' (D then mat2 — two (n, n)
             transients), 'stream' (square row blocks into ONE mat2
-            buffer), or, when not even one (n, n) buffer fits the matrix
-            budget, 'fused-kernel' (single pass, D² never resident; that
-            bridge comes with a later slice, and pipeline() raises there)
+            buffer), 'fused' (no (n, n) array: mat2 row slabs feed the
+            permutation chunks directly) or, when not even one (n, n)
+            buffer fits the matrix budget, 'fused-kernel' (single pass:
+            distance tiles built AND contracted inside one kernel, D²
+            never in device memory)
+  fused     for 'fused-kernel', which single-pass impl runs it and its
+            tuning (registry defaults <- caller knobs)
   stage 2   the engine Plan (impl + streaming chunk) for s_W, delegated to
             repro_torch.engine.planner
 
-On 'cuda' stage 1 is always `<metric>.cuda`: the kernels mask ragged
-shapes, so the TPU's tile-viability floor (PALLAS_MIN_N) has no
-counterpart, just as engine.planner sends 'cuda' to the brute kernel. On
-'cpu' the plans match the reference's field for field. (Persisted stage-1
-measurements wait for the autotune slice.)
+On 'cuda' stage 1 is always `<metric>.cuda` and the fused-kernel sweep
+`<metric>.fusedk.cuda`: the kernels mask ragged shapes, so the TPU's
+tile-viability floor (PALLAS_MIN_N) has no counterpart, just as
+engine.planner sends 'cuda' to the brute kernel. On 'cpu' the plans match
+the reference's field for field (the fused impl under the port's kind
+names). (Persisted stage-1 and fused measurements wait for the autotune
+slice; `explain()`'s precision table for the precision slice.)
 
 `plan_pipeline()` is pure shape/backend arithmetic, like `engine.plan()`.
 """
@@ -28,6 +34,7 @@ import dataclasses
 from typing import Dict, Optional
 
 from repro_torch.engine import planner as _eplanner
+from repro_torch.kernels.fused_sw import ref as _fref
 from repro_torch.pipeline import registry as _dreg
 
 # Matrix-residency budget for the bridge decision. Distinct from the engine's
@@ -55,6 +62,12 @@ class PipelinePlan:
     sw: _eplanner.Plan            # stage-2 engine plan
     backend: str
     reason: str
+    fused_impl: Optional[str] = None      # fused registry name when the
+                                          # bridge is 'fused-kernel'
+    fused_tuning: Dict[str, int] = dataclasses.field(default_factory=dict)
+    n: int = 0                            # problem shape
+    d: int = 0
+    n_groups: int = 0
 
     def explain(self) -> str:
         """describe(); the reference's residency and precision tables
@@ -65,6 +78,11 @@ class PipelinePlan:
         """Stage 1 + bridge only — what the pipeline itself executes; the
         dense/stream bridges delegate stage 2 to engine.run, whose plan
         record is authoritative there."""
+        if self.materialize == "fused-kernel":
+            t = ",".join(f"{k}={v}"
+                         for k, v in sorted(self.fused_tuning.items()))
+            return (f"{self.fused_impl}[{t}] -> fused-kernel"
+                    f"(rows={self.row_block})")
         t = ",".join(f"{k}={v}" for k, v in sorted(self.dist_tuning.items()))
         return (f"{self.dist_impl}[{t}] -> {self.materialize}"
                 f"(rows={self.row_block})")
@@ -101,7 +119,7 @@ def _pick_dist_impl(metric: str, backend: str, n: int, d: int,
             f"{why}; row-streaming form (Fig. 1 tiled analogue)")
 
 
-def _pick_materialize(n: int, matrix_budget: float):
+def _pick_materialize(n: int, matrix_budget: float, metric: str):
     dense_bytes = 8 * n * n      # D + mat2 both live transiently
     mat2_bytes = 4 * n * n
     if dense_bytes <= matrix_budget:
@@ -110,10 +128,23 @@ def _pick_materialize(n: int, matrix_budget: float):
     if mat2_bytes <= matrix_budget:
         return "stream", (f"mat2 {mat2_bytes/2**20:.0f}MiB fits but D+mat2 "
                           "would not; stream row blocks into one buffer")
-    return "fused-kernel", (
-        f"even one (n,n) buffer {mat2_bytes/2**20:.0f}MiB exceeds the "
-        "matrix budget; single-pass sweep (distance tiles contracted "
-        "in-kernel, D² never resident)")
+    why = (f"even one (n,n) buffer {mat2_bytes/2**20:.0f}MiB exceeds the "
+           "matrix budget")
+    if _dreg.fused_names(metric=metric):
+        return "fused-kernel", (f"{why}; single-pass sweep (distance tiles "
+                                "contracted in-kernel, D² never resident)")
+    return "fused", f"{why}; fuse row slabs into the permutation sweep"
+
+
+def _pick_fused_impl(metric: str, backend: str):
+    """Fused-kernel impl: the CUDA megakernel on the card (it masks
+    ragged shapes, so for every n), the plain torch sweep elsewhere."""
+    if backend == "cuda":
+        return (f"{metric}.fusedk.cuda",
+                "hand-written CUDA megakernel (masks ragged shapes, so no "
+                "tile-viability floor)")
+    return (f"{metric}.fusedk.torch",
+            "one-pass torch sweep (no kernel path on this backend)")
 
 
 def _pick_row_block(n: int, d: int, impl: _dreg.DistanceImpl,
@@ -136,13 +167,19 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
                   slab_budget_bytes: Optional[float] = None,
                   memory_budget_bytes: Optional[float] = None,
                   sw_impl: Optional[str] = None,
-                  chunk: Optional[int] = None) -> PipelinePlan:
+                  chunk: Optional[int] = None,
+                  fused_impl: Optional[str] = None,
+                  fused_tuning: Optional[Dict[str, int]] = None
+                  ) -> PipelinePlan:
     """Resolve the full two-stage plan for one problem.
 
     n_perms counts TOTAL permutation slots (requested + 1 observed), as in
     engine.plan(). Caller-pinned fields (dist_impl, materialize,
-    row_block, sw_impl, chunk) are respected; the planner fills in the
-    rest. backend: 'cuda' or 'cpu'.
+    row_block, sw_impl, chunk, fused_impl) are respected; the planner
+    fills in the rest. backend: 'cuda' or 'cpu'. fused_impl: 'auto',
+    'cuda' / 'torch' (or the reference's 'pallas' / 'xla'), or a fused
+    registry name. fused_tuning: caller overrides of the fused impl's
+    knobs; a nonzero precision knob raises NotImplementedError.
     """
     matrix_budget = (DEFAULT_MATRIX_BUDGET_BYTES
                      if matrix_budget_bytes is None else matrix_budget_bytes)
@@ -162,7 +199,7 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
 
     mat_pinned = materialize not in (None, "auto")
     if not mat_pinned:
-        mat, mreason = _pick_materialize(n, matrix_budget)
+        mat, mreason = _pick_materialize(n, matrix_budget, metric)
     else:
         if materialize not in MATERIALIZE_MODES:
             raise ValueError(f"materialize={materialize!r}; expected one of "
@@ -202,6 +239,31 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     sw = _eplanner.plan(n, n_perms, backend=backend, impl=pinned_sw,
                         memory_budget_bytes=memory_budget_bytes,
                         chunk=chunk)
+    if mat in FUSED_MODES:
+        # the fused bridges contract s_W themselves: no s_W kernel runs
+        sw = dataclasses.replace(sw, kernel=None)
+
+    # Fused-kernel: which single-pass impl runs the sweep and its tuning
+    # (registry defaults <- caller knobs).
+    f_impl = None
+    f_tuning: Dict[str, int] = {}
+    if mat == "fused-kernel":
+        if fused_impl in (None, "auto"):
+            f_impl, freason = _pick_fused_impl(metric, backend)
+        else:
+            f_impl = (fused_impl if "." in fused_impl
+                      else f"{metric}.fusedk.{fused_impl}")
+            freason = "caller-pinned fused impl"
+        fspec = _dreg.get_fused(f_impl)
+        f_impl = fspec.name                   # reference aliases resolve
+        if fspec.metric != metric:
+            raise ValueError(f"fused impl {f_impl!r} computes "
+                             f"{fspec.metric!r}, not {metric!r}")
+        f_tuning = dict(fspec.tuning)
+        f_tuning.update({k: v for k, v in (fused_tuning or {}).items()
+                         if k in f_tuning})
+        _fref.reject_precision(f_tuning)
+        mreason += f"; {freason}"
 
     # the planned row block IS the blocked impls' working-set knob
     dist_tuning = dict(dspec.tuning)
@@ -210,4 +272,5 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     return PipelinePlan(
         metric=metric, dist_impl=dname, dist_tuning=dist_tuning,
         materialize=mat, row_block=row_block, sw=sw, backend=backend,
-        reason=f"{dreason}; {mreason}")
+        reason=f"{dreason}; {mreason}", fused_impl=f_impl,
+        fused_tuning=f_tuning, n=n, d=d, n_groups=n_groups)

@@ -14,8 +14,17 @@ planner dispatches on. Three kinds per metric:
 Every impl exposes both a dense form and a row-slab form, so the
 planner's bridge choice (dense / stream) is orthogonal to the impl
 choice. The reference's kernel kind is named `<metric>.pallas`; that name
-is accepted as an alias of `<metric>.cuda`. (Residency tiers, precision
-tags and the fused registry come with later slices.)
+is accepted as an alias of `<metric>.cuda`.
+
+The fused registry (`FusedImpl`) holds the single-pass sweeps of the
+fused-kernel bridge, two kinds per metric:
+
+  cuda      the hand-written CUDA megakernel (kernels/fused_sw); alias
+            `<metric>.fusedk.pallas`
+  torch     the plain torch sweep over row blocks x permutation chunks;
+            alias `<metric>.fusedk.xla`
+
+(Residency tiers and precision tags come with later slices.)
 """
 
 from __future__ import annotations
@@ -241,3 +250,106 @@ _register_metric("braycurtis", rows_ws=_ws_rows_broadcast,
 _register_metric("jaccard", rows_ws=_ws_rows_gram, dense_ws=_ws_dense_gram,
                  dense_backends=("cpu", "cuda"),
                  blocked_backends=("cpu", "cuda"))
+
+
+# ---------------------------------------------------------------------------
+# Fused-kernel (single-pass distance -> s_W) implementation registry.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FusedImpl:
+    """One single-pass distance -> s_W implementation (the fused-kernel
+    bridge) plus planner-facing metadata.
+
+    Unlike DistanceImpl, a fused impl produces no distance operand at all:
+    it runs the whole features -> s_W sweep (pipeline.streaming's
+    `fused_kernel_sw` dispatches on `kind`). `workset_bytes(n, d, chunk,
+    n_groups, row_block)` models its peak device residency beyond the
+    (n, d) features.
+    """
+    name: str                      # "<metric>.fusedk.<kind>"
+    metric: str
+    kind: str                      # 'cuda' | 'torch'
+    backends: Tuple[str, ...]      # backends where this form is performant
+    tuning: Mapping[str, int]
+    workset_bytes: Callable[[int, int, int, int, int], int]
+    kernel_metric: str             # kernel body (aitchison -> euclidean)
+    description: str = ""
+
+
+_FUSED_REGISTRY: dict = {}
+FUSED_ALIASES: dict = {}    # the reference's kind names -> the port's
+
+
+def register_fused(impl: FusedImpl) -> FusedImpl:
+    if impl.name in _FUSED_REGISTRY:
+        raise ValueError(f"duplicate fused impl {impl.name!r}")
+    _FUSED_REGISTRY[impl.name] = impl
+    return impl
+
+
+def get_fused(name: str) -> FusedImpl:
+    """The fused impl registered as `name` (or as its reference alias:
+    '.fusedk.pallas' -> '.fusedk.cuda', '.fusedk.xla' -> '.fusedk.torch')."""
+    try:
+        return _FUSED_REGISTRY[FUSED_ALIASES.get(name, name)]
+    except KeyError:
+        raise KeyError(
+            f"unknown fused impl {name!r}; registered: "
+            f"{sorted(_FUSED_REGISTRY)}, aliases: "
+            f"{sorted(FUSED_ALIASES)}") from None
+
+
+def fused_names(*, metric: Optional[str] = None,
+                backend: Optional[str] = None,
+                kind: Optional[str] = None):
+    """Registered fused-kernel impl names, filtered by capability."""
+    out = []
+    for n, impl in _FUSED_REGISTRY.items():
+        if metric is not None and impl.metric != metric:
+            continue
+        if backend is not None and backend not in impl.backends:
+            continue
+        if kind is not None and impl.kind != kind:
+            continue
+        out.append(n)
+    return sorted(out)
+
+
+def _ws_fused_cuda(n, d, chunk, n_groups, row_block):
+    # what the kernel's sweep holds: its partials, one s_W value per
+    # (64 x 64 tile, permutation) and one row sum per (row, column tile),
+    # and the (chunk, n) int32 labels
+    from repro_torch.kernels.fused_sw import ops
+    return ops.workspace_bytes(n, n, chunk) + 4 * chunk * n
+
+
+def _ws_fused_torch(n, d, chunk, n_groups, row_block):
+    # one (row_block, n) D^2 slab + the (chunk, n, G) one-hot factor
+    return 4 * row_block * n + 4 * chunk * n * (n_groups + 1)
+
+
+for _metric in ("euclidean", "aitchison", "braycurtis", "jaccard"):
+    _kmetric = _kernel_metric(_metric)
+    # the reference's precision knobs, kept at 0 so tuning dicts compare
+    # field for field; a nonzero value raises (the precision slice)
+    _prec = {"feat_bf16": 0, "feat_fp8": 0}
+    if _kmetric == "jaccard":
+        _prec["feat_packed"] = 0
+    register_fused(FusedImpl(
+        name=f"{_metric}.fusedk.cuda", metric=_metric, kind="cuda",
+        backends=("cuda",), tuning=dict(_prec),
+        workset_bytes=_ws_fused_cuda, kernel_metric=_kmetric,
+        description=f"hand-written CUDA megakernel: {_metric} D^2 tiles "
+                    "built and contracted in registers, D^2 never in "
+                    "device memory (plain torch on CPU tensors)",
+    ))
+    register_fused(FusedImpl(
+        name=f"{_metric}.fusedk.torch", metric=_metric, kind="torch",
+        backends=("cpu",), tuning=dict(_prec),
+        workset_bytes=_ws_fused_torch, kernel_metric=_kmetric,
+        description=f"plain torch {_metric} sweep: loops over row blocks x "
+                    "permutation chunks (the off-card fused-kernel form)",
+    ))
+    FUSED_ALIASES[f"{_metric}.fusedk.pallas"] = f"{_metric}.fusedk.cuda"
+    FUSED_ALIASES[f"{_metric}.fusedk.xla"] = f"{_metric}.fusedk.torch"

@@ -1,0 +1,399 @@
+"""The port's fused distance -> s_W wrapper and plain version against the
+reference's megakernel (interpret mode) and its plain version, on the same
+numpy inputs: every metric at the reference test's shape (prime n, ragged
+groups), offset row slabs, the global-index mask, the precision knobs that
+wait for their slice, the wrapper's contract, the single-pass sweeps of
+pipeline.streaming, and the kernel build/binding. The CUDA kernel itself
+runs only on the card; `chip_smoke.py` holds it against this plain
+version there."""
+
+import functools
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import distance as jdist  # noqa: E402
+from repro.core import permutations as jperm  # noqa: E402
+from repro.kernels.fused_sw import ops as jops  # noqa: E402
+from repro.kernels.fused_sw import ref as jref  # noqa: E402
+from repro.pipeline import streaming as jstreaming  # noqa: E402
+from repro_torch.core import distance, permutations  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.fused_sw import ops, ref  # noqa: E402
+from repro_torch.pipeline import streaming  # noqa: E402
+
+N, D, G = 53, 24, 5            # prime n, ragged group sizes
+METRICS = ["aitchison", "braycurtis", "euclidean", "jaccard"]
+# the reference's own bar for the megakernel against its oracle
+# (tests/test_fused_sw.py), and for offset slabs against the full call
+RTOL, ATOL = 2e-4, 1e-5
+SLAB_RTOL = 1e-4
+# the reference's Pallas tiles in its parity test: odd tiles, PB = 4
+TILES = dict(tile_r=16, tile_c=16, feat_block=8, perm_block=4)
+
+
+def _study(seed=0, n=N, d=D, g=G):
+    rng = np.random.default_rng(seed)
+    x = rng.gamma(1.0, 1.0, size=(n, d)).astype(np.float32)
+    x *= rng.random(size=(n, d)) < 0.5
+    x[:, 0] = np.maximum(x[:, 0], 1e-3)
+    grouping = rng.integers(0, g, size=n).astype(np.int32)
+    grouping[:g] = np.arange(g)          # ragged sizes, every group present
+    return x, grouping
+
+
+def _perm_batch(grouping, n_perms, seed=3):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.permutation(grouping)
+                     for _ in range(n_perms)]).astype(np.int32)
+
+
+def _operands(metric, seed=1, n_perms=10):
+    """numpy (prepared features, labels, inv_gs) from the reference's
+    prepare, and the port's tensors of the same values."""
+    x, grouping = _study(seed=seed)
+    prep = np.asarray(jdist.ROW_METRICS[metric].prepare(jnp.asarray(x)))
+    inv = np.asarray(jperm.inv_group_sizes(jnp.asarray(grouping), G))
+    g = _perm_batch(grouping, n_perms)
+    tprep = distance.ROW_METRICS[metric].prepare(
+        torch.from_numpy(x)).contiguous()
+    return (prep, g, inv), (tprep, torch.from_numpy(g),
+                            torch.from_numpy(inv.copy()))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(metric, form):
+    (prep, g, inv), _ = _operands(metric)
+    args = (jnp.asarray(prep), jnp.asarray(prep), jnp.asarray(g),
+            jnp.asarray(g), jnp.asarray(inv), 0)
+    if form == "kernel":
+        sw, rs = jops.fused_sw_rows(*args, metric=metric, **TILES)
+    else:
+        sw, rs = jref.fused_sw_ref(*args, metric=metric)
+    return np.asarray(sw), np.asarray(rs)
+
+
+@pytest.mark.parametrize("form", ["kernel", "oracle"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_port_matches_reference(metric, form):
+    """ops.fused_sw_rows on CPU tensors (the plain version) against the
+    reference's megakernel in interpret mode and its jnp oracle."""
+    _, (xp, g, inv) = _operands(metric)
+    sw, rs = ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric=metric)
+    sw_j, rs_j = _reference(metric, form)
+    assert sw.dtype == rs.dtype == torch.float32
+    assert sw.shape == (10,) and rs.shape == (N,)
+    np.testing.assert_allclose(sw.numpy(), sw_j, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(rs.numpy(), rs_j, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_plain_version_is_the_wrapper_on_cpu(metric):
+    _, (xp, g, inv) = _operands(metric)
+    got = ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric=metric)
+    want = ref.fused_sw_ref(xp, xp, g, g, inv, 0, metric=metric)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_offset_slabs_sum_to_the_full_call(metric):
+    """Slabs of 19 rows at their global offsets (19 divides nothing here):
+    the s_W partials sum to the full call and the row sums concatenate to
+    it; the diagonal is masked at row_offset + r == c, not r == c."""
+    _, (xp, g, inv) = _operands(metric, seed=3, n_perms=7)
+    full, rs_full = ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric=metric)
+    acc, parts = torch.zeros_like(full), []
+    for lo in range(0, N, 19):
+        hi = min(lo + 19, N)
+        sw, rs = ops.fused_sw_rows(xp[lo:hi].contiguous(), xp,
+                                   g[:, lo:hi].contiguous(), g, inv, lo,
+                                   metric=metric)
+        acc += sw
+        parts.append(rs)
+    torch.testing.assert_close(acc, full, rtol=SLAB_RTOL, atol=0)
+    torch.testing.assert_close(torch.cat(parts), rs_full, rtol=SLAB_RTOL,
+                               atol=0)
+
+
+def test_offset_slabs_match_the_reference_kernel():
+    (prep, g, inv), (xp, tg, tinv) = _operands("braycurtis", seed=3,
+                                               n_perms=7)
+    for lo in range(0, N, 19):
+        hi = min(lo + 19, N)
+        sw_j, rs_j = jops.fused_sw_rows(
+            jnp.asarray(prep[lo:hi]), jnp.asarray(prep),
+            jnp.asarray(g[:, lo:hi]), jnp.asarray(g), jnp.asarray(inv), lo,
+            metric="braycurtis", tile_r=8, tile_c=16, feat_block=8,
+            perm_block=4)
+        sw, rs = ops.fused_sw_rows(xp[lo:hi].contiguous(), xp,
+                                   tg[:, lo:hi].contiguous(), tg, tinv, lo)
+        np.testing.assert_allclose(sw.numpy(), np.asarray(sw_j), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(rs.numpy(), np.asarray(rs_j), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("n_valid", [N - 1, 40])
+def test_n_valid_masks_pad_rows_and_columns(n_valid):
+    """Rows or columns at or past n_valid add nothing: the call equals
+    the call on the first n_valid samples (row sums of pad rows are 0)."""
+    _, (xp, g, inv) = _operands("euclidean")
+    sw, rs = ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric="euclidean",
+                               n_valid=n_valid)
+    xs, gs = xp[:n_valid].contiguous(), g[:, :n_valid].contiguous()
+    sw_s, rs_s = ops.fused_sw_rows(xs, xs, gs, gs, inv, 0,
+                                   metric="euclidean")
+    torch.testing.assert_close(sw, sw_s, rtol=1e-6, atol=0)
+    torch.testing.assert_close(rs[:n_valid], rs_s, rtol=1e-6, atol=0)
+    assert torch.all(rs[n_valid:] == 0)
+
+
+def test_euclidean_self_pairs_are_masked():
+    """The Gram trick leaves f32 residue on the self pair; the mask zeroes
+    it, so the row sums equal those of the exact-zero-diagonal mat2."""
+    _, (xp, g, inv) = _operands("euclidean")
+    _, rs = ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric="euclidean")
+    d = distance.euclidean_rows(xp, xp)
+    m2 = (d * d).fill_diagonal_(0.0)
+    torch.testing.assert_close(rs, m2.sum(dim=1), rtol=1e-6, atol=0)
+
+
+def test_tile_knobs_are_accepted_and_ignored():
+    _, (xp, g, inv) = _operands("jaccard")
+    a = ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric="jaccard")
+    b = ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric="jaccard", **TILES)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("fn", ["ops", "ref"])
+@pytest.mark.parametrize("knob,value", [
+    ("feat_bf16", 1), ("feat_fp8", 1), ("feat_packed", 1),
+    ("feat_scale", 0.5)])
+def test_precision_knobs_raise_naming_their_slice(fn, knob, value):
+    _, (xp, g, inv) = _operands("jaccard")
+    call = ops.fused_sw_rows if fn == "ops" else ref.fused_sw_ref
+    with pytest.raises(NotImplementedError, match="precision slice"):
+        call(xp, xp, g, g, inv, 0, metric="jaccard", **{knob: value})
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("unknown_metric", ValueError),
+    ("one_dim", ValueError),
+    ("widths_differ", ValueError),
+    ("f64", TypeError),
+    ("labels_int64", TypeError),
+    ("labels_shape", ValueError),
+    ("inv_gs_f64", TypeError),
+    ("not_contiguous", ValueError),
+    ("mixed_devices", ValueError),
+    ("negative_offset", ValueError),
+    ("n_valid_too_large", ValueError),
+])
+def test_wrapper_rejects(case, exc):
+    _, (xp, g, inv) = _operands("braycurtis")
+    kw = dict(metric="braycurtis")
+    xr, x, gr, gc, off = xp, xp, g, g, 0
+    if case == "unknown_metric":
+        kw["metric"] = "cosine"
+    elif case == "one_dim":
+        xr = xp[0]
+    elif case == "widths_differ":
+        x = xp[:, :5].contiguous()
+    elif case == "f64":
+        xr = xp.double()
+    elif case == "labels_int64":
+        gr = g.long()
+    elif case == "labels_shape":
+        gr = g[:, :10].contiguous()
+    elif case == "inv_gs_f64":
+        inv = inv.double()
+    elif case == "not_contiguous":
+        x = xp.T.contiguous().T
+    elif case == "mixed_devices":
+        gc = g.to("meta")
+    elif case == "negative_offset":
+        off = -1
+    elif case == "n_valid_too_large":
+        kw["n_valid"] = N + 1
+    with pytest.raises(exc):
+        ops.fused_sw_rows(xr, x, gr, gc, inv, off, **kw)
+
+
+def test_cpu_calls_launch_nothing():
+    _, (xp, g, inv) = _operands("braycurtis")
+    before = dict(ops.LAUNCHES)
+    for metric in METRICS:
+        ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric=metric)
+    assert ops.LAUNCHES == before == {"fused_sw": before["fused_sw"]}
+
+
+def test_partials_at_the_emp_shape():
+    """One s_W partial per (64 x 64 tile, permutation) and one row sum per
+    (row, column tile): 393^2 x 156 + 25,145 x 393 floats at the EMP
+    chunk, what the fused registry's workset model charges."""
+    n, chunk = 25145, 156
+    assert ops.partial_shapes(n, n, chunk) == ((393 * 393, chunk),
+                                               (n, 393))
+    assert ops.workspace_bytes(n, n, chunk) == \
+        4 * (393 * 393 * chunk + n * 393)
+    assert ops.workspace_bytes(n, n, chunk) < 1024 ** 3 // 4
+
+
+# ---------------------------------------------------------------------------
+# The single-pass sweeps (pipeline.streaming).
+# ---------------------------------------------------------------------------
+
+def _sweep_inputs(metric="braycurtis", n_total=101, seed=4):
+    x, grouping = _study(seed=seed)
+    key = jax.random.key(7)
+    perms = np.asarray(jperm.permutation_batch(key, jnp.asarray(grouping),
+                                               0, n_total))
+    xp = distance.ROW_METRICS[metric].prepare(torch.from_numpy(x))
+    g = torch.from_numpy(grouping)
+    inv = permutations.inv_group_sizes(g, G)
+    return x, grouping, key, perms, xp, g, inv
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_sweep():
+    x, grouping, key, *_ = _sweep_inputs()
+    mdef = jdist.ROW_METRICS["braycurtis"]
+    xp = mdef.prepare(jnp.asarray(x))
+    inv = jperm.inv_group_sizes(jnp.asarray(grouping), G)
+    sw, s_t, _ = jstreaming.fused_sw(xp, mdef.rows, jnp.asarray(grouping),
+                                     inv, key, 101, row_block=13, chunk=17)
+    return np.asarray(sw), float(s_t)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "torch", "fused"])
+def test_sweeps_match_the_reference_fused_bridge(impl):
+    """fused_kernel_sw (both kinds) and fused_sw against the reference's
+    fused bridge on the reference's own labels (101 permutation slots in
+    chunks of 17, row blocks of 13)."""
+    _, _, _, perms, xp, g, inv = _sweep_inputs()
+    rows = distance.ROW_METRICS["braycurtis"].rows
+    kw = dict(row_block=13, chunk=17, perms=torch.from_numpy(perms.copy()))
+    if impl == "fused":
+        sw, s_t, stats = streaming.fused_sw(xp, rows, g, inv, 101, **kw)
+        assert (stats.n_row_blocks, stats.n_chunks) == (5, 6)
+    else:
+        sw, s_t, stats = streaming.fused_kernel_sw(
+            xp, rows, g, inv, 101, impl=impl, kernel_metric="braycurtis",
+            tuning={"feat_bf16": 0, "feat_fp8": 0}, **kw)
+        assert (stats.impl, stats.n_chunks) == (impl, 6)
+        assert stats.row_block == (ops.TILE if impl == "cuda" else 13)
+    ref_sw, ref_st = _reference_sweep()
+    assert sw.dtype == s_t.dtype == torch.float64 and s_t.dim() == 0
+    np.testing.assert_allclose(sw.numpy(), ref_sw, rtol=1e-4)
+    assert float(s_t) == pytest.approx(ref_st, rel=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_sweeps_are_chunk_invariant(impl):
+    _, _, _, perms, xp, g, inv = _sweep_inputs(n_total=40)
+    rows = distance.ROW_METRICS["braycurtis"].rows
+    p = torch.from_numpy(perms.copy())
+    runs = [streaming.fused_kernel_sw(
+        xp, rows, g, inv, 40, impl=impl, kernel_metric="braycurtis",
+        row_block=16, chunk=c, perms=p) for c in (40, 7)]
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-6, atol=0)
+    assert float(runs[1][1]) == float(runs[0][1])
+    assert (runs[0][2].n_chunks, runs[1][2].n_chunks) == (1, 6)
+
+
+def test_megakernel_sweep_labels_from_seed_match_explicit_labels():
+    _, _, _, _, xp, g, inv = _sweep_inputs()
+    labels = permutations.permutation_batch(g, 0, 30, seed=5)
+    a = streaming.fused_sw_megakernel(xp, g, inv, 30,
+                                      kernel_metric="braycurtis", chunk=8,
+                                      seed=5)
+    b = streaming.fused_sw_megakernel(xp, g, inv, 30,
+                                      kernel_metric="braycurtis", chunk=8,
+                                      perms=labels)
+    assert torch.equal(a[0], b[0]) and float(a[1]) == float(b[1])
+
+
+def test_sweeps_reject_what_they_cannot_run():
+    _, _, _, _, xp, g, inv = _sweep_inputs()
+    rows = distance.ROW_METRICS["braycurtis"].rows
+    kw = dict(kernel_metric="braycurtis", row_block=13, chunk=17)
+    with pytest.raises(ValueError, match="fused-kernel impl"):
+        streaming.fused_kernel_sw(xp, rows, g, inv, 10, impl="pallas", **kw)
+    with pytest.raises(NotImplementedError, match="precision"):
+        streaming.fused_kernel_sw(xp, rows, g, inv, 10, impl="torch",
+                                  tuning={"feat_fp8": 1}, **kw)
+    with pytest.raises(ValueError, match="perms must be"):
+        streaming.fused_kernel_sw(xp, rows, g, inv, 10, impl="cuda",
+                                  perms=torch.zeros((3, N), dtype=torch.int32),
+                                  **kw)
+
+
+# ---------------------------------------------------------------------------
+# Build and binding (the compile itself happens on the card's machine).
+# ---------------------------------------------------------------------------
+
+def test_build_command_names_sm90a_and_the_source():
+    cmd = _build.nvcc_command("nvcc", ops.SOURCE,
+                              _build.library_path(ops.SOURCE))
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[-1].endswith(os.path.join("fused_sw", "csrc", "fused_sw.cu"))
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert _build.library_path(ops.SOURCE).name.startswith("fused_sw-")
+
+
+def test_ctypes_signature_matches_source():
+    import ctypes
+    src = ops.SOURCE.read_text()
+    for name, (argtypes, restype) in ops.SIGNATURES.items():
+        m = re.search(rf"\b(int|void) {name}\(([^)]*)\)\s*\{{", src)
+        params = [p.strip() for p in m.group(2).split(",")]
+        assert len(params) == len(argtypes), name
+        assert (restype is None) == (m.group(1) == "void"), name
+        for p, t in zip(params, argtypes):
+            if "*" in p:
+                assert t is ctypes.c_void_p, p
+            elif p.startswith("long long"):
+                assert t is ctypes.c_longlong, p
+            else:
+                assert p.startswith("int ") and t is ctypes.c_int, p
+
+
+def test_source_names_what_it_replaces_and_its_constants():
+    src = ops.SOURCE.read_text()
+    assert "src/repro/kernels/fused_sw/kernel.py:193" in src
+    assert f"constexpr int kTile = {ops.TILE};" in src
+    functors = {"braycurtis": "BrayCurtis", "euclidean": "Euclidean",
+                "jaccard": "Jaccard"}
+    for metric, kind in ops._KIND.items():     # the wrapper's C switch
+        assert f"case {kind}:\n      return launch<{functors[metric]}>" \
+            in src
+    assert "cublas" not in src.lower() and "cudnn" not in src.lower()
+    assert "atomicAdd" not in src and "fast_math" not in src.replace(
+        "--use_fast_math", "")
+
+
+def test_importing_the_port_builds_nothing():
+    """Every module imports without nvcc and without building: the
+    library is built at the first launch on the card."""
+    code = ("import repro_torch.pipeline, repro_torch.launch.permanova, "
+            "repro_torch.kernels.fused_sw.ops as f\n"
+            "print(f._lib is None)\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.path.join(os.path.dirname(
+                   os.path.dirname(os.path.abspath(__file__))), "src"),
+               PATH="/nonexistent", CUDA_HOME="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "True"

@@ -1,10 +1,11 @@
 """The port's features -> F/p pipeline against the reference's: pipeline()
-through the dense and stream bridges for every metric and distance-impl
-kind (the reference's Pallas kind in interpret mode), with the
-reference's own label draws (F and the null at rtol 1e-4, p exactly
-equal); the planner on 'cpu' field for field and on 'cuda'; the streaming
-mat2 build and Gower marginals; engine.run(squared=, s_t=); permanova() on
-features; the CLI; and the options that wait for later slices."""
+through the dense, stream, fused and fused-kernel bridges for every metric
+and distance-impl kind (the reference's Pallas kernels in interpret mode),
+with the reference's own label draws (F and the null at rtol 1e-4, p
+exactly equal); the planner on 'cpu' field for field and on 'cuda'; the
+streaming mat2 build and Gower marginals; engine.run(squared=, s_t=);
+permanova() on features; the CLI; and the options that wait for later
+slices."""
 
 import functools
 import sys
@@ -27,6 +28,7 @@ from repro_torch.compat import from_reference  # noqa: E402
 from repro_torch.core import distance  # noqa: E402
 from repro_torch.core.permanova import permanova, s_total  # noqa: E402
 from repro_torch.kernels.distance import ops as dops  # noqa: E402
+from repro_torch.kernels.fused_sw import ops as fops  # noqa: E402
 from repro_torch.launch import permanova as cli  # noqa: E402
 from repro_torch.pipeline import planner, registry, streaming  # noqa: E402
 
@@ -61,6 +63,29 @@ def _assert_same_test(res_t, res_j):
                                np.asarray(res_j.f_perms), rtol=RTOL)
 
 
+# The port's names for what the reference's fused-kernel plans name: its
+# kinds 'cuda' / 'torch' for 'pallas' / 'xla', and the plain sweep's
+# reason. The CUDA kind takes no tile knobs and reports its own 64-row
+# tile where the Pallas kind reports its VMEM tiles.
+AS_REFERENCE = [(".fusedk.torch", ".fusedk.xla"),
+                (".fusedk.cuda", ".fusedk.pallas"),
+                ("one-pass torch sweep", "one-jit XLA sweep"),
+                (":: torch rows=", ":: xla rows=")]
+
+
+def _as_reference(text):
+    for port, reference in AS_REFERENCE:
+        text = text.replace(port, reference)
+    return text
+
+
+def _without_tiles(plan):
+    """A fused-kernel plan string without its tuning dict and what the
+    sweep reports after ' :: ' (tile sizes differ by design)."""
+    head, rest = plan.split("[", 1)
+    return head + rest.split("]", 1)[1].split(" :: ")[0]
+
+
 @pytest.mark.parametrize("bridge", ["dense", "stream"])
 @pytest.mark.parametrize("kind", ["pallas", "dense", "blocked"])
 @pytest.mark.parametrize("metric", METRICS)
@@ -80,6 +105,114 @@ def test_pipeline_matches_reference(metric, kind, bridge):
         assert res_t.plan.split("]", 1)[1] == res_j.plan.split("]", 1)[1]
     else:
         assert (res_t.method, res_t.plan) == (res_j.method, res_j.plan)
+
+
+FUSED_CASES = {   # port (materialize, fused_impl) -> the reference's
+    "fused-kernel-torch": ("fused-kernel", "torch", "xla"),
+    "fused-kernel-cuda": ("fused-kernel", "cuda", "pallas"),
+    "fused": ("fused", "auto", "auto"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+@pytest.mark.parametrize("metric", METRICS)
+def test_fused_bridges_match_reference(metric, case):
+    """The fused bridges on the reference's labels: the torch sweep
+    against the reference's XLA sweep, the CUDA kind (its plain version on
+    CPU tensors) against the Pallas megakernel in interpret mode, and the
+    two-stage fused bridge against the reference's."""
+    mat, impl_t, impl_j = FUSED_CASES[case]
+    x, grouping, key, perms, n_perms = _study()
+    kw = dict(metric=metric, n_perms=n_perms, materialize=mat,
+              row_block=ROW_BLOCK)
+    res_j = jpipe.pipeline(jnp.asarray(x), jnp.asarray(grouping), key=key,
+                           fused_impl=impl_j, **kw)
+    g_t, p_t = _port_args(grouping, perms)
+    res_t = pipeline.pipeline(torch.from_numpy(x), g_t, perms=p_t,
+                              fused_impl=impl_t, device="cpu", **kw)
+    _assert_same_test(res_t, res_j)
+    assert res_t.method == res_j.method
+    if case == "fused-kernel-cuda":
+        assert _without_tiles(_as_reference(res_t.plan)) == \
+            _without_tiles(res_j.plan)
+    else:
+        assert _as_reference(res_t.plan) == res_j.plan
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_fused_bridges_equal_dense_within_port(metric):
+    x, grouping, _, perms, n_perms = _study()
+    g_t, p_t = _port_args(grouping, perms)
+    kw = dict(metric=metric, n_perms=n_perms, perms=p_t,
+              row_block=ROW_BLOCK, device="cpu")
+    dense = pipeline.pipeline(torch.from_numpy(x), g_t, materialize="dense",
+                              **kw)
+    for mat, impl in (("fused-kernel", "cuda"), ("fused-kernel", "torch"),
+                      ("fused", "auto")):
+        res = pipeline.pipeline(torch.from_numpy(x), g_t, materialize=mat,
+                                fused_impl=impl, **kw)
+        torch.testing.assert_close(res.f_perms, dense.f_perms, rtol=RTOL,
+                                   atol=0)
+        assert float(res.p_value) == float(dense.p_value)
+        assert res.method.split("->")[1] == mat
+        assert res.f_perms.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bridge", ["fused-kernel-cuda", "fused-kernel-torch",
+                                    "fused"])
+def test_fused_bridges_are_chunk_invariant(bridge):
+    """chunk=7 (8 chunks of the 50 slots) against one chunk: the same
+    labels by global index, so the same null."""
+    mat, impl, _ = FUSED_CASES[bridge]
+    x, grouping, _, _, n_perms = _study()
+    g_t = torch.from_numpy(grouping)
+    runs = [pipeline.pipeline(torch.from_numpy(x), g_t, n_perms=n_perms,
+                              seed=4, materialize=mat, fused_impl=impl,
+                              row_block=ROW_BLOCK, chunk=c, device="cpu")
+            for c in (None, 7)]
+    torch.testing.assert_close(runs[1].f_perms, runs[0].f_perms, rtol=1e-5,
+                               atol=0)
+    assert float(runs[1].p_value) == float(runs[0].p_value)
+    assert "chunks=1" in runs[0].plan and "chunks=8" in runs[1].plan
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_small_matrix_budget_resolves_the_fused_kernel_bridge(metric):
+    """Where not even one (n, n) buffer fits the matrix budget (as the
+    default 1 GiB at the EMP shape), 'auto' plans the fused-kernel
+    bridge: the torch sweep on the CPU, as the reference's XLA sweep."""
+    x, grouping, key, perms, n_perms = _study()
+    kw = dict(metric=metric, n_perms=n_perms, matrix_budget_bytes=1024)
+    res_j = jpipe.pipeline(jnp.asarray(x), jnp.asarray(grouping), key=key,
+                           **kw)
+    g_t, p_t = _port_args(grouping, perms)
+    res_t = pipeline.pipeline(torch.from_numpy(x), g_t, perms=p_t,
+                              device="cpu", **kw)
+    _assert_same_test(res_t, res_j)
+    assert res_t.method == res_j.method == \
+        f"pipeline[{res_t.method[9:].split('->')[0]}->fused-kernel->matmul]"
+    assert _as_reference(res_t.plan) == res_j.plan
+    assert res_t.plan.startswith(f"{metric}.fusedk.torch[")
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_permanova_on_features_at_default_budget_reaches_fused_kernel(
+        metric, monkeypatch):
+    """permanova(features) passes no matrix budget: the planner's default
+    decides. With the default shrunk below one (n, n) buffer in both
+    packages (as 1 GiB is at n > 16,384), both run the fused-kernel
+    bridge and agree."""
+    for mod in (planner, jplanner):
+        monkeypatch.setattr(mod, "DEFAULT_MATRIX_BUDGET_BYTES", 1024)
+    x, grouping, key, perms, n_perms = _study()
+    res_j = jpermanova(jnp.asarray(x), jnp.asarray(grouping),
+                       n_perms=n_perms, key=key, metric=metric)
+    g_t, p_t = _port_args(grouping, perms)
+    res_t = permanova(torch.from_numpy(x), g_t, n_perms=n_perms, perms=p_t,
+                      metric=metric, device="cpu")
+    _assert_same_test(res_t, res_j)
+    assert "->fused-kernel->" in res_t.method
+    assert res_t.method == res_j.method
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -212,12 +345,16 @@ def test_plan_pipeline_matches_reference_on_cpu(case):
     assert got.sw.describe() == want.sw.describe()
     assert (got.sw.chunk, got.sw.streaming) == (want.sw.chunk,
                                                 want.sw.streaming)
-    if got.materialize in planner.FUSED_MODES:
-        # the reference names its fused impl after this reason
-        assert want.reason.startswith(got.reason + "; ")
+    assert (got.n, got.d, got.n_groups) == (n, d, 8)
+    assert got.fused_tuning == want.fused_tuning
+    if want.fused_impl is None:
+        assert got.fused_impl is None
     else:
-        assert got.reason == want.reason
-        assert got.describe() == want.describe()
+        assert got.fused_impl == registry.get_fused(want.fused_impl).name
+    assert _as_reference(got.reason) == want.reason
+    assert _as_reference(got.describe()) == want.describe()
+    if got.materialize != "fused-kernel":
+        # the reference adds its per-precision traffic table to fused plans
         assert got.explain() == want.explain()
 
 
@@ -244,6 +381,11 @@ def test_planner_on_cuda_picks_the_kernel(metric, n):
                                metric=metric)
     assert pl.dist_impl == f"{metric}.cuda"
     assert pl.sw.impl == "brute" or pl.materialize in planner.FUSED_MODES
+    if pl.materialize == "fused-kernel":
+        # the megakernel for every n: it masks ragged shapes
+        assert pl.fused_impl == f"{metric}.fusedk.cuda"
+        assert pl.sw.kernel is None    # no s_W kernel runs on this bridge
+        assert pl.describe().startswith(f"{metric}.fusedk.cuda[")
     # the reference's Pallas workset model sizes the row block: 256 at
     # the EMP shape under the default 128 MiB slab budget
     assert pl.row_block == (256 if n == 25145 else n)
@@ -257,8 +399,42 @@ def test_emp_bridges_follow_the_matrix_budget():
                                  **kw).materialize == "dense"
     assert planner.plan_pipeline(n, 128, 4000, 8, matrix_budget_bytes=3 * gib,
                                  **kw).materialize == "stream"
-    assert planner.plan_pipeline(n, 128, 4000, 8, **kw).materialize == \
-        "fused-kernel"
+    pl = planner.plan_pipeline(n, 128, 4000, 8, **kw)
+    assert (pl.materialize, pl.fused_impl) == ("fused-kernel",
+                                               "braycurtis.fusedk.cuda")
+    # the label budget's fused chunk: 256 MiB / (4 n (2 G + 1)) = 156
+    # permutations, so 4,000 slots take 26 launches
+    assert pl.sw.chunk == 156 and -(-4000 // pl.sw.chunk) == 26
+    assert pl.describe_stage1() == (
+        "braycurtis.fusedk.cuda[feat_bf16=0,feat_fp8=0] -> "
+        "fused-kernel(rows=256)")
+
+
+@pytest.mark.parametrize("pinned,name", [
+    ("pallas", "jaccard.fusedk.cuda"), ("cuda", "jaccard.fusedk.cuda"),
+    ("xla", "jaccard.fusedk.torch"), ("torch", "jaccard.fusedk.torch"),
+    ("jaccard.fusedk.xla", "jaccard.fusedk.torch")])
+def test_fused_impl_pins_and_aliases(pinned, name):
+    pl = planner.plan_pipeline(100, 8, 100, 2, backend="cpu",
+                               metric="jaccard", materialize="fused-kernel",
+                               fused_impl=pinned)
+    assert pl.fused_impl == name
+    assert pl.fused_tuning == {"feat_bf16": 0, "feat_fp8": 0,
+                               "feat_packed": 0}
+    assert pl.reason.endswith("; caller-pinned fused impl")
+
+
+def test_fused_tuning_keeps_known_keys_and_rejects_precision():
+    kw = dict(backend="cpu", metric="euclidean", materialize="fused-kernel")
+    pl = planner.plan_pipeline(100, 8, 100, 2, fused_tuning={
+        "tile_r": 32, "feat_bf16": 0}, **kw)
+    assert pl.fused_tuning == {"feat_bf16": 0, "feat_fp8": 0}
+    with pytest.raises(NotImplementedError, match="precision slice"):
+        planner.plan_pipeline(100, 8, 100, 2,
+                              fused_tuning={"feat_fp8": 1}, **kw)
+    with pytest.raises(ValueError, match="computes"):
+        planner.plan_pipeline(100, 8, 100, 2, fused_impl="jaccard.fusedk.cuda",
+                              **kw)
 
 
 def test_pallas_alias_resolves_to_the_kernel_kind():
@@ -287,6 +463,38 @@ def test_registry_names_kinds_and_aliases():
         registry.get("braycurtis.fusedk")
     with pytest.raises(ValueError, match="duplicate"):
         registry.register(registry.get("euclidean.dense"))
+
+
+def test_fused_registry_names_kinds_and_aliases():
+    assert registry.fused_names(kind="cuda") == [
+        f"{m}.fusedk.cuda" for m in METRICS]
+    assert registry.fused_names(backend="cpu") == [
+        f"{m}.fusedk.torch" for m in METRICS]
+    assert registry.fused_names(metric="jaccard") == [
+        "jaccard.fusedk.cuda", "jaccard.fusedk.torch"]
+    for m in METRICS:
+        cuda, plain = (registry.get_fused(f"{m}.fusedk.{k}")
+                       for k in ("cuda", "torch"))
+        assert registry.get_fused(f"{m}.fusedk.pallas") is cuda
+        assert registry.get_fused(f"{m}.fusedk.xla") is plain
+        assert (cuda.backends, plain.backends) == (("cuda",), ("cpu",))
+        kmetric = "euclidean" if m == "aitchison" else m
+        assert cuda.kernel_metric == plain.kernel_metric == kmetric
+        # the precision keys at 0, as the reference's, field for field
+        want = {k: v for k, v in jpipe.get_fused(f"{m}.fusedk.xla")
+                .tuning.items()}
+        assert cuda.tuning == plain.tuning == want
+        # the plain sweep keeps the reference's model; the kernel's counts
+        # its partials and labels
+        args = (25145, 128, 156, 8, 256)
+        assert plain.workset_bytes(*args) == \
+            jpipe.get_fused(f"{m}.fusedk.xla").workset_bytes(*args)
+        assert cuda.workset_bytes(*args) == \
+            4 * (393 * 393 * 156 + 25145 * 393) + 4 * 156 * 25145
+    with pytest.raises(KeyError, match="unknown fused impl"):
+        registry.get_fused("braycurtis.cuda")
+    with pytest.raises(ValueError, match="duplicate"):
+        registry.register_fused(registry.get_fused("euclidean.fusedk.cuda"))
 
 
 def test_bound_resolves_tuning_once():
@@ -345,17 +553,14 @@ def _slab_cache(tmp_path):
 
 
 @pytest.mark.parametrize("case", [
-    "fused", "fused-kernel", "auto-resolves-fused-kernel", "ordination",
-    "mesh", "autotune", "trace", "path", "slab-cache", "covariates",
-    "strata", "weights"])
+    "feat_bf16", "ordination", "mesh", "autotune", "trace", "path",
+    "slab-cache", "covariates", "strata", "weights"])
 def test_not_ported_options_raise(case, tmp_path):
     x, grouping, _, _, _ = _study()
     x = torch.from_numpy(x)
     kw = {}
-    if case in ("fused", "fused-kernel"):
-        kw["materialize"] = case
-    elif case == "auto-resolves-fused-kernel":
-        kw["matrix_budget_bytes"] = 1024
+    if case == "feat_bf16":
+        kw.update(materialize="fused-kernel", fused_tuning={"feat_bf16": 1})
     elif case == "ordination":
         kw["ordination"] = 2
     elif case == "mesh":
@@ -389,11 +594,12 @@ def test_pipeline_defaults_to_cuda_and_raises_without_it():
 
 def test_cpu_pipeline_launches_no_kernel():
     x, grouping, *_ = _study()
-    before = dict(dops.LAUNCHES)
-    for bridge in ("dense", "stream"):
+    before = (dict(dops.LAUNCHES), dict(fops.LAUNCHES))
+    for bridge in ("dense", "stream", "fused", "fused-kernel"):
         pipeline.pipeline(x, grouping, n_perms=9, materialize=bridge,
-                          dist_impl="braycurtis.cuda", device="cpu")
-    assert dops.LAUNCHES == before
+                          dist_impl="braycurtis.cuda", fused_impl="cuda",
+                          device="cpu")
+    assert (dops.LAUNCHES, fops.LAUNCHES) == before
 
 
 def test_cli_from_features_runs_on_cpu(capsys):
@@ -410,6 +616,10 @@ def test_cli_from_features_runs_on_cpu(capsys):
     ["--from-features"],
     ["--materialize", "stream", "--metric", "jaccard"],
     ["--dist-impl", "euclidean.dense", "--metric", "euclidean"],
+    ["--from-features", "--materialize", "fused-kernel"],
+    ["--materialize", "fused", "--metric", "aitchison"],
+    ["--materialize", "fused-kernel", "--fused-impl", "xla", "--metric",
+     "jaccard"],
 ])
 def test_cli_from_features_matches_reference_cli_statistic(capsys, extra):
     """Same seed, same study: the observed F is the reference CLI's (the
@@ -429,5 +639,20 @@ def test_cli_from_features_matches_reference_cli_statistic(capsys, extra):
     f_t = out_t.split("F=")[1].split()[0]
     f_j = out_j.split("F=")[1].split()[0]
     assert float(f_t) == pytest.approx(float(f_j), rel=1e-4)
-    assert out_t.split("plan: ")[1].split(" :: ")[0] == \
+    assert _as_reference(out_t.split("plan: ")[1].split(" :: ")[0]) == \
         out_j.split("plan: ")[1].split(" :: ")[0]
+
+
+@pytest.mark.parametrize("bridge,impl", [("fused-kernel", "cuda"),
+                                         ("fused-kernel", "torch"),
+                                         ("fused", "auto")])
+def test_cli_fused_bridges_run_on_cpu(capsys, bridge, impl):
+    assert cli.main(["--samples", "64", "--features", "16", "--groups", "4",
+                     "--perms", "49", "--device", "cpu", "--materialize",
+                     bridge, "--fused-impl", impl]) == 0
+    out = capsys.readouterr().out
+    head = (f"plan: braycurtis.fusedk.{impl}[feat_bf16=0,feat_fp8=0] -> "
+            "fused-kernel(rows=64)" if bridge == "fused-kernel" else
+            "plan: braycurtis.blocked[block=64] -> fused(rows=64)")
+    assert head in out
+    assert "F=" in out and "p=" in out
