@@ -77,6 +77,39 @@ Phases, each timed:
    PyTorch call computes features -> s_W, so no library time); and, to
    split its time, the kernel at P = 1 (the feature phase and one
    permutation) and the label draw of one chunk.
+11. The dense-design fused kernel (fused_sw_cols) against its plain
+   version on the card for euclidean, braycurtis and jaccard (on presence
+   data) at (n, d, P, K) = (57, 3, 1, 3), (130, 37, 5, 10), (2047, 128,
+   37, 10), on permuted design bases (core.design.build): s_cols and row
+   sums at rtol=2e-4, atol=1e-5; at n = 2047, 300-row offset slabs of the
+   table padded to 2,400 rows (n_valid = 2047, so the last slab is all pad
+   rows and must give zeros) sum to the full call at rtol=1e-4, and 16 +
+   16 + 5 permutations give the 37-permutation call at rtol=1e-6; at the
+   EMP design chunk (P = 127, K = 10) every s_cols entry within
+   SW_MAIN_RTOL * s_T of the plain version, and the plain version with
+   TF32 matmuls (a lower-precision stand-in) outside that bar.
+12. The design path at the EMP shape with the DEFAULT budgets:
+   pipeline(features, Bray-Curtis, 3,999 permutations, seed 0) with
+   synthetic_design(25145, ("age", "depth"), 4 strata, seed 0) columns:
+   (a) covariates, (b) covariates + weights, (c) strata only, (d)
+   covariates + strata. (a), (b) and (d) must launch fused_sw_cols 32
+   times (one per 127-permutation chunk) and nothing else, (c) fused_sw
+   26 times and nothing else; each run's peak device memory above its
+   start stays under the 1 GiB matrix budget. (a) and (c) run again
+   through the dense bridge (6 GiB budget, same seed): per-term observed
+   F at rtol=1e-4, each null F within the f32 allowance of
+   design_null_allowance (from SW_MAIN_RTOL * s_T on each column's form),
+   and p apart by at most the null F within that allowance of the
+   observed F, over 4,000. Those bars must reject the covariate dense
+   bridge run with TF32 matmuls (a lower-precision stand-in) in every
+   term.
+13. fused_sw_cols timed at the EMP design chunk beside its plain version
+   and its bound, at P = 1 to split the feature phase from the
+   permutation phase, and, for scale, one f32 torch.matmul of a resident
+   mat2 with the chunk's (n, P*K) basis factor (the contraction only; no
+   PyTorch call computes features -> per-column forms); and the rest of a
+   design chunk: its index-permutation draw (free and within the 4
+   strata) and its basis gather.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -91,6 +124,7 @@ in f32, as the reference's f32 modes do.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -155,6 +189,17 @@ SPLIT_RTOL = 1e-6
 FUSED_CHUNK = 156
 FUSED_LAUNCHES = 26
 DEFAULT_MATRIX_BUDGET = GIB
+COLS_REPLACES = "src/repro/kernels/fused_sw/kernel.py:338"
+COLS_CHECK_SHAPES = [(57, 3, 1, 3), (130, 37, 5, 10), (2047, 128, 37, 10)]
+COLS_PAD_ROWS = 2400    # the n = 2047 table padded so its last slab is pad
+# the design path at the EMP shape: K = 1 + 2 covariates + (G - 1) = 10
+# basis columns; the planner's chunk 256 MiB / (4 n (2 K + 1)) = 127, so
+# 4,000 slots take 32 launches
+DESIGN_COVARIATES = ("age", "depth")
+DESIGN_STRATA = 4
+DESIGN_K = 10
+COLS_CHUNK = 127
+COLS_LAUNCHES = 32
 
 
 def log(msg: str) -> None:
@@ -264,7 +309,8 @@ def phase_header():
         f"{dops.SOURCE.name} -> {dops._build.library_path(dops.SOURCE).name}"
         f", {fops.SOURCE.name} -> "
         f"{fops._build.library_path(fops.SOURCE).name}) config "
-        f"{ops.kernel_config(libs[0])} {fops.kernel_config(libs[2])}")
+        f"{ops.kernel_config(libs[0])} {fops.kernel_config(libs[2])} "
+        f"{fops.cols_kernel_config(libs[2])}")
 
 
 def phase_kernels(dev):
@@ -1024,6 +1070,415 @@ def phase_fused_timings(dev, x_np, grouping, paths, checked):
     }
 
 
+def design_basis(n, k, p, seed, device):
+    """A permuted dense-design basis (p, n, k) as the design path builds
+    it: core.design.build of a grouping (G = 2 for K = 3, else 8) and K -
+    G standard-normal covariates, rows gathered by p free index
+    permutations (identity first)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import design, fstat, permutations
+    rng = np.random.default_rng(seed)
+    g = 2 if k == 3 else 8
+    grouping = rng.integers(0, g, size=n).astype(np.int32)
+    grouping[:g] = np.arange(g)
+    des = design.build(grouping=grouping,
+                       covariates=rng.normal(size=(n, k - g)), n_groups=g,
+                       device=device)
+    check(des.k_cols == k, f"design basis has {des.k_cols} columns, not {k}")
+    perms = permutations.strata_permutation_batch(
+        torch.zeros(n, dtype=torch.int32, device=device), 0, p, seed=seed)
+    return fstat.basis_perm_factors(des.basis, perms).contiguous()
+
+
+def emp_design(dev, x_np, grouping, **kw):
+    """The EMP design columns (synthetic_design, seed 0) and the dense
+    design the default path builds from them (no strata, no weights
+    unless kw asks)."""
+    from repro_torch.core import design
+    from repro_torch.data.microbiome import synthetic_design
+    cov, strata, weights = synthetic_design(
+        EMP_N, covariate_names=DESIGN_COVARIATES, n_strata=DESIGN_STRATA,
+        weighted=True, seed=0)
+    return cov, strata, weights, design.build(
+        grouping=grouping, covariates=cov, n_groups=EMP_GROUPS, device=dev,
+        **kw)
+
+
+def emp_cols_chunk(dev, x_np, grouping):
+    """The design path's first fused_sw_cols chunk: the EMP features, the
+    first COLS_CHUNK index permutations of seed 0 (free: no strata) and
+    the permuted basis."""
+    import torch
+    from repro_torch.core import fstat, permutations
+    *_, des = emp_design(dev, x_np, grouping)
+    x = torch.from_numpy(x_np).to(dev)
+    perms = permutations.strata_permutation_batch(
+        torch.zeros(EMP_N, dtype=torch.int32, device=dev), 0, COLS_CHUNK,
+        seed=0)
+    return x, fstat.basis_perm_factors(des.basis, perms).contiguous()
+
+
+def phase_cols_kernel(dev, x_np, grouping):
+    """fused_sw_cols against its plain version at COLS_CHECK_SHAPES, offset
+    slabs (one all pad) and chunk splits at n = 2047, and the EMP design
+    chunk. Returns its errors for the kernels line."""
+    import torch
+    from repro_torch.core.distance import ROW_METRICS
+    from repro_torch.data.microbiome import synthetic_abundance
+    from repro_torch.kernels.fused_sw import ops as fops, ref as fref
+    worst_rel = 0.0
+    for n, d, p, k in COLS_CHECK_SHAPES:
+        x = torch.from_numpy(synthetic_abundance(n, d, seed=n + d)).to(dev)
+        v = design_basis(n, k, p, n + d + k, dev)
+        for metric in fops.FUSED_METRICS:
+            xp = ROW_METRICS[metric].prepare(x).contiguous()
+            sc, rs = fops.fused_sw_rows_cols(xp, xp, v, v, 0, metric=metric)
+            sc_p, rs_p = fref.fused_sw_cols_ref(xp, xp, v, v, 0,
+                                                metric=metric)
+            torch.cuda.synchronize()
+            err = rel_err(sc, sc_p)
+            worst_rel = max(worst_rel, err)
+            check(sc.shape == (p, k) and rs.shape == (n,)
+                  and bool(torch.isfinite(sc).all())
+                  and torch.allclose(sc, sc_p, rtol=FUSED_RTOL, atol=ATOL)
+                  and torch.allclose(rs, rs_p, rtol=FUSED_RTOL, atol=ATOL),
+                  f"fused_sw_cols {metric} != plain at {(n, d, p, k)}: "
+                  f"s_cols rel {err:.3e}, row sums abs "
+                  f"{float((rs - rs_p).abs().max()):.3e}")
+            log(f"[smoke] kernel fused_sw_cols {metric:10s} (n,d,P,K)="
+                f"{(n, d, p, k)} s_cols max_rel_err={err:.3e} row sums "
+                f"max_rel_err={rel_err(rs, rs_p):.3e} vs plain")
+            if n < 2047:
+                continue
+            # the table padded with zero rows (and zero basis rows) past
+            # n_valid = n: its 300-row slabs sum to the unpadded call, and
+            # the last one, all pad rows, gives exact zeros
+            pad = COLS_PAD_ROWS - n
+            xq = torch.nn.functional.pad(xp, (0, 0, 0, pad)).contiguous()
+            vq = torch.nn.functional.pad(v, (0, 0, 0, pad)).contiguous()
+            parts = [fops.fused_sw_rows_cols(
+                xq[lo:lo + SLAB_ROWS].contiguous(), xq,
+                vq[:, lo:lo + SLAB_ROWS].contiguous(), vq, lo,
+                metric=metric, n_valid=n)
+                for lo in range(0, COLS_PAD_ROWS, SLAB_ROWS)]
+            sc_s = torch.stack([q[0] for q in parts]).sum(dim=0)
+            rs_s = torch.cat([q[1] for q in parts])
+            check(torch.allclose(sc_s, sc, rtol=SLAB_RTOL, atol=ATOL)
+                  and torch.allclose(rs_s[:n], rs, rtol=SLAB_RTOL, atol=0)
+                  and bool((parts[-1][0] == 0).all())
+                  and bool((rs_s[n:] == 0).all()),
+                  f"fused_sw_cols {metric}: {len(parts)} offset slabs of "
+                  f"{SLAB_ROWS} rows (n_valid {n}) != the full call")
+            bounds = [0, SPLIT[0], SPLIT[0] + SPLIT[1], sum(SPLIT)]
+            sc_c = torch.cat([fops.fused_sw_rows_cols(
+                xp, xp, v[a:b].contiguous(), v[a:b].contiguous(), 0,
+                metric=metric)[0] for a, b in zip(bounds, bounds[1:])])
+            check(torch.allclose(sc_c, sc, rtol=SPLIT_RTOL, atol=0),
+                  f"fused_sw_cols {metric}: chunks {SPLIT} != one call of "
+                  f"{sum(SPLIT)}: rel {rel_err(sc_c, sc):.3e}")
+            log(f"[smoke] kernel fused_sw_cols {metric:10s} n={n}: "
+                f"{len(parts)} offset slabs of the {COLS_PAD_ROWS}-row "
+                f"padded table sum to the full call (rel "
+                f"{rel_err(sc_s, sc):.3e}; the all-pad slab gives zeros), "
+                f"chunks {SPLIT} equal one call (rel "
+                f"{rel_err(sc_c, sc):.3e})")
+    x, v = emp_cols_chunk(dev, x_np, grouping)
+    sc, rs = fops.fused_sw_rows_cols(x, x, v, v, 0)
+    sc_p, rs_p = fref.fused_sw_cols_ref(x, x, v, v, 0)
+    torch.cuda.synchronize()
+    s_t = float(rs_p.double().sum()) / 2.0 / EMP_N
+    err_abs = float((sc - sc_p).abs().max())
+    check(bool(torch.isfinite(sc).all())
+          and err_abs <= SW_MAIN_RTOL * s_t
+          and torch.allclose(rs, rs_p, rtol=FUSED_RTOL, atol=ATOL),
+          f"fused_sw_cols != plain at the EMP design chunk: s_cols abs "
+          f"{err_abs:.3e} > {SW_MAIN_RTOL} * s_T = {SW_MAIN_RTOL * s_t:.3e}")
+    log(f"[smoke] kernel fused_sw_cols braycurtis (n,d,P,K)="
+        f"{(EMP_N, EMP_FEATURES, COLS_CHUNK, DESIGN_K)} s_cols max_abs_err="
+        f"{err_abs:.3e} = {err_abs / s_t:.3e} s_T (limit {SW_MAIN_RTOL} "
+        f"s_T, s_T = {s_t:.6g}); row sums max_rel_err={rel_err(rs, rs_p):.3e}"
+        f"; workspace {fops.cols_workspace_bytes(EMP_N, EMP_N, COLS_CHUNK, DESIGN_K) / 2**20:.2f} MiB")
+    with tf32_matmuls():
+        sc_t, _ = fref.fused_sw_cols_ref(x, x, v, v, 0)
+        torch.cuda.synchronize()
+    err_t = float((sc_t - sc_p).abs().max())
+    check(err_t > SW_MAIN_RTOL * s_t,
+          f"the {SW_MAIN_RTOL} s_T bar lets a TF32 contraction pass: "
+          f"{err_t / s_t:.3e} s_T")
+    log(f"[smoke] kernel fused_sw_cols EMP design chunk, TF32 stand-in "
+        f"(the plain version with TF32 matmuls): s_cols max_abs_err="
+        f"{err_t:.3e} = {err_t / s_t:.3e} s_T against the f32 plain version "
+        f"({err_t / (SW_MAIN_RTOL * s_t):.3g}x the {SW_MAIN_RTOL} s_T bar)")
+    return {"max_abs_err": err_abs, "max_abs_err_over_s_t": err_abs / s_t,
+            "max_rel_err_checks": worst_rel}
+
+
+@contextlib.contextmanager
+def tf32_matmuls():
+    """torch.matmul in TF32 inside the block (a lower-precision stand-in
+    for the f32 contractions), switched back off on leaving it."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def design_null_allowance(res, k):
+    """Per-term f32 allowance on F between two paths on the same
+    permutations. Each column's form s_k is held within SW_MAIN_RTOL * s_T
+    of its plain version, so two paths differ by up to 2 e, e =
+    SW_MAIN_RTOL * s_T, on each of the K columns. With SS_t = -sum over
+    the term's df columns and SS_resid = sum over all K,
+    F_t = (SS_t / df) / (SS_resid / dof) moves by at most
+    2 e (K F_t + dof) / SS_resid; SS_resid is taken as the observed one,
+    the smallest of the null's under an effect (a larger allowance)."""
+    dof = res.n_objects - sum(t.df for t in res.terms) - 1
+    e = SW_MAIN_RTOL * float(res.s_t)
+    return {t.name: 2.0 * e * (k * t.f_perms.abs() + dof) / float(res.s_w)
+            for t in res.terms}
+
+
+def design_path_faults(tag, res, ref, allow) -> dict:
+    """Per-term F, null and p of `res` against `ref` (the dense bridge on
+    the same seed): observed F at rtol RTOL, every null F within allow[t]
+    (a tensor over the null), and p apart by at most the null F that lie
+    within the allowance of the observed F, over n_perms + 1. Logs each
+    term; returns {term: [the bars it misses]}."""
+    import torch
+    n_total = res.n_perms + 1
+    faults = {}
+    for t, u in zip(res.terms, ref.terms):
+        check(t.name == u.name and t.df == u.df, f"{tag}: terms differ")
+        f, g = float(t.f_stat), float(u.f_stat)
+        a = allow[t.name]
+        d_null = (t.f_perms - u.f_perms).abs()
+        excess = float((d_null / a).max())
+        near = int(((u.f_perms[1:] - u.f_perms[0]).abs()
+                    <= a[1:] + a[0]).sum())
+        dp = abs(float(t.p_value) - float(u.p_value)) * n_total
+        log(f"[smoke] design {tag} {t.name:8s} df={t.df} F={f:.7g} vs "
+            f"{g:.7g} (rel {abs(f - g) / abs(g):.3e}) p={float(t.p_value):.6g}"
+            f" vs {float(u.p_value):.6g}; null max "
+            f"{float(d_null.max()):.3e} abs, {excess:.3e} of the f32 "
+            f"allowance, {int((d_null > a).sum())} outside it; {near} null "
+            f"F within it of the observed")
+        faults[t.name] = [m for bad, m in (
+            (abs(f - g) > RTOL * abs(g), f"observed F {f} vs {g} at rtol "
+             f"{RTOL}"),
+            (not bool(torch.isfinite(t.f_perms).all()) or excess > 1.0,
+             f"null F differs by {excess:.3g}x the f32 allowance"),
+            (round(dp) > near, f"p differs by {dp:.0f}/{n_total}, more "
+             f"than the {near} null F within the allowance")) if bad]
+    return faults
+
+
+def check_design_paths(tag, res, ref, allow):
+    """design_path_faults of `res` against `ref`: every term meets every
+    bar."""
+    for name, missed in design_path_faults(tag, res, ref, allow).items():
+        check(not missed, f"{tag} {name}: {'; '.join(missed)}")
+
+
+def phase_design_pipeline(dev, x_np, grouping):
+    """pipeline() at the EMP shape with the default budgets for four
+    designs, each with its own launch counts and peak memory; (a) and
+    (c) again through the dense bridge. Returns the launch counts by
+    path."""
+    import torch
+    from repro_torch import pipeline
+    x = torch.from_numpy(x_np).to(dev)
+    g_dev = torch.from_numpy(grouping).to(dev)
+    cov, strata, weights, _ = emp_design(dev, x_np, grouping)
+    runs = {"covariates": dict(covariates=cov),
+            "covariates+weights": dict(covariates=cov, weights=weights),
+            "strata": dict(strata=strata),
+            "covariates+strata": dict(covariates=cov, strata=strata)}
+    paths, results = {}, {}
+    for tag, kw in runs.items():
+        zero_launches()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = pipeline.pipeline(x, g_dev, metric="braycurtis",
+                                n_perms=EMP_PERMS, seed=0, device=dev, **kw)
+        f_k, p_k = float(res.f_stat), float(res.p_value)          # waits
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - start
+        paths[tag] = launch_counts()
+        results[tag] = res
+        log(f"[smoke] design {tag} n={EMP_N} perms={EMP_PERMS} default "
+            f"budgets {dt:.3f}s end to end F={f_k:.7g} p={p_k:.6g} "
+            f"launches={paths[tag]} peak device memory above the call's "
+            f"start {peak / 2**20:.1f} MiB")
+        log(f"[smoke] design {tag} plan: {res.plan}")
+        want = {c: 0 for c in paths[tag]}
+        if tag == "strata":
+            want["fused_sw"] = FUSED_LAUNCHES
+            check(res.method == "pipeline[fused-kernel:cuda+strata]",
+                  f"unexpected method {res.method!r}")
+        else:
+            want["fused_sw_cols"] = COLS_LAUNCHES
+            check(res.method == "pipeline-design[fused-kernel:cuda]"
+                  and f"chunks={COLS_LAUNCHES} cols={DESIGN_K}" in res.plan,
+                  f"unexpected method/plan {res.method!r} {res.plan!r}")
+        check(paths[tag] == want,
+              f"design {tag} launches {paths[tag]} != {want}")
+        check(peak < DEFAULT_MATRIX_BUDGET,
+              f"design {tag} peak {peak} B >= the matrix budget")
+        check(res.terms is not None and all(
+            t.f_perms.device == dev and t.f_perms.shape == (EMP_PERMS + 1,)
+            and bool(torch.isfinite(t.f_perms).all()) for t in res.terms),
+            f"design {tag}: per-term nulls must be finite on the card")
+        for t in res.terms:
+            log(f"[smoke] design {tag} term {t.name:8s} df={t.df} "
+                f"F={float(t.f_stat):.7g} R2={float(t.r2):.4g} "
+                f"p={float(t.p_value):.6g}")
+
+    for tag in ("covariates", "strata"):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipeline.pipeline(x, g_dev, metric="braycurtis",
+                                n_perms=EMP_PERMS, seed=0,
+                                matrix_budget_bytes=BRIDGE_BUDGETS["dense"],
+                                device=dev, **runs[tag])
+        f_d = float(res.f_stat)                                   # waits
+        dt = time.perf_counter() - t0
+        path = launch_counts()
+        paths[f"{tag} dense"] = path
+        log(f"[smoke] design {tag} dense bridge {dt:.3f}s F={f_d:.7g} "
+            f"launches={path} plan: {res.plan.split(' | ')[0]} :: "
+            f"{res.plan.split(' :: ', 1)[1]}")
+        want = {c: 0 for c in path}
+        want["braycurtis"] = 1
+        if tag == "strata":
+            want["brute"] = 2
+        check(path == want, f"design {tag} dense launches {path} != {want}")
+        if tag == "strata":
+            c = (EMP_N - EMP_GROUPS) / (EMP_GROUPS - 1)
+            allow = {res.terms[0].name:
+                     2 * SW_MAIN_RTOL * (res.f_perms.abs() + c)}
+        else:
+            allow = design_null_allowance(res, DESIGN_K)
+        check_design_paths(tag, results[tag], res, allow)
+        del res
+        if tag == "covariates":
+            with tf32_matmuls():
+                alt = pipeline.pipeline(
+                    x, g_dev, metric="braycurtis", n_perms=EMP_PERMS,
+                    seed=0, matrix_budget_bytes=BRIDGE_BUDGETS["dense"],
+                    device=dev, **runs[tag])
+                torch.cuda.synchronize()
+            faults = design_path_faults(f"{tag} TF32 stand-in",
+                                        results[tag], alt, allow)
+            check(all(faults.values()),
+                  f"the per-term bars let a TF32 dense bridge pass: "
+                  f"{faults}")
+            log(f"[smoke] design {tag}: the per-term bars reject the TF32 "
+                f"stand-in in every term: {faults}")
+            del alt
+    return paths
+
+
+def cols_bound_ms(x_rows, x, v, chip) -> tuple:
+    """(ms, 'bytes' | 'operations'): the least time this card could take
+    for one fused_sw_cols call — its inputs (row slab, table, both basis
+    factors) read once and s_cols and the row sums written once at the
+    HBM rate, against its operations at the f32 CUDA-core peak: 2 per
+    (pair, feature) to build D^2 and 2 per (pair, permutation, column)
+    for the per-column forms (a multiply-add of D^2 v_c into each row's
+    sum; the O(n P K) outer product with v_r is left out)."""
+    nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
+    p, k = v.shape[0], v.shape[2]
+    nbytes = 4 * (nr * d + n * d + p * nr * k + p * n * k + p * k + nr)
+    ops_ = 2.0 * nr * n * d + 2.0 * nr * n * p * k
+    t_bytes = nbytes / chip.hbm_bandwidth * 1e3
+    t_ops = ops_ / chip.peak_flops_f32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_cols_timings(dev, x_np, grouping, paths, checked):
+    """fused_sw_cols at the EMP design chunk beside its plain version and
+    its bound, at P = 1, and one f32 torch.matmul of a resident mat2 with
+    the chunk's (n, P*K) basis factor."""
+    import torch
+    from repro_torch.core import fstat, permutations
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels.distance import ops as dops
+    from repro_torch.kernels.fused_sw import ops as fops, ref as fref
+    x, v = emp_cols_chunk(dev, x_np, grouping)
+    _, strata, _, des = emp_design(dev, x_np, grouping)
+    free = torch.zeros(EMP_N, dtype=torch.int32, device=dev)
+    blocks = torch.from_numpy(strata).to(dev)
+    draw_ms, draw_strata_ms = (cuda_ms(
+        lambda st=st: permutations.strata_permutation_batch(
+            st, COLS_CHUNK, 2 * COLS_CHUNK, seed=0), reps=5)
+        for st in (free, blocks))
+    idx = permutations.strata_permutation_batch(free, COLS_CHUNK,
+                                                2 * COLS_CHUNK, seed=0)
+    gather_ms = cuda_ms(lambda: fstat.basis_perm_factors(des.basis, idx),
+                        reps=5)
+    del idx
+    one = v[:1].contiguous()
+    ms_one = cuda_ms(lambda: fops.fused_sw_rows_cols(x, x, one, one, 0),
+                     reps=5)
+    ms = cuda_ms(lambda: fops.fused_sw_rows_cols(x, x, v, v, 0), reps=3)
+    small, small_v = x[:64].contiguous(), v[:, :64].contiguous()
+    plain_ms = cuda_ms(
+        lambda: fref.fused_sw_cols_ref(x, x, v, v, 0), reps=1,
+        warm=lambda: fref.fused_sw_cols_ref(small, small, small_v, small_v,
+                                            0))
+    d = dops.pairwise_distance(x, metric="braycurtis")
+    mat2 = d * d
+    del d
+    v2d = v.permute(1, 0, 2).reshape(EMP_N, -1).contiguous()
+    matmul_ms = cuda_ms(lambda: torch.matmul(mat2, v2d), reps=3)
+    del mat2, v2d
+    b_ms, b_by = cols_bound_ms(x, x, v, H100_SXM)
+    ws = fops.cols_workspace_bytes(EMP_N, EMP_N, COLS_CHUNK, DESIGN_K)
+    log(f"[smoke] timing fused_sw_cols (n={EMP_N}, d={EMP_FEATURES}, "
+        f"P={COLS_CHUNK}, K={DESIGN_K}) f32: kernel {ms:.3f} ms x "
+        f"{COLS_LAUNCHES} launches = {ms * COLS_LAUNCHES:.1f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+        f"{b_ms / ms * 100:.1f}% of it; contraction-only torch.matmul of "
+        f"mat2 with the (n, P*K) factor {matmul_ms:.3f} ms; workspace "
+        f"{ws} B")
+    per_q = (ms - ms_one) / ((COLS_CHUNK - 1) * DESIGN_K)
+    log(f"[smoke] timing fused_sw_cols split: P=1 (feature phase + K "
+        f"columns of one permutation) {ms_one:.3f} ms, so ~{per_q:.5f} ms "
+        f"per further (permutation, column); a chunk's index draw "
+        f"{draw_ms:.3f} ms free, {draw_strata_ms:.3f} ms within "
+        f"{DESIGN_STRATA} strata, its basis gather {gather_ms:.3f} ms (x "
+        f"{COLS_LAUNCHES} = {(draw_ms + gather_ms) * COLS_LAUNCHES:.1f} ms "
+        f"free)")
+    return {
+        "name": "fused_sw_cols", "route": "cuda", "source": FUSED_SOURCE,
+        "replaces": COLS_REPLACES, "path": "pipeline fused-kernel (design)",
+        "launches": paths["covariates"]["fused_sw_cols"],
+        "launches_by_path": {k: c["fused_sw_cols"]
+                             for k, c in paths.items()},
+        "max_abs_err": checked["max_abs_err"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "library": "none: no PyTorch call computes features -> per-column "
+                   "forms",
+        "contraction_matmul_ms": matmul_ms,
+        "shape": {"n": EMP_N, "d": EMP_FEATURES, "P": COLS_CHUNK,
+                  "K": DESIGN_K},
+        "max_abs_err_over_s_t": checked["max_abs_err_over_s_t"],
+        "max_rel_err_checks": checked["max_rel_err_checks"],
+        "ms_one_perm": ms_one, "workspace_bytes": ws,
+        "index_draw_ms_per_chunk": draw_ms,
+        "index_draw_strata_ms_per_chunk": draw_strata_ms,
+        "basis_gather_ms_per_chunk": gather_ms,
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1074,6 +1529,19 @@ def main() -> int:
     rows.append(phase_fused_timings(dev, x, grouping, fused_paths,
                                     fused_check))
     log(f"[smoke] phase 10 (fused kernel timings) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    cols_check = phase_cols_kernel(dev, x, grouping)
+    log(f"[smoke] phase 11 (fused_sw_cols vs plain) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    design_paths = phase_design_pipeline(dev, x, grouping)
+    log(f"[smoke] phase 12 (design path, default budgets) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    rows.append(phase_cols_timings(dev, x, grouping, design_paths,
+                                   cols_check))
+    log(f"[smoke] phase 13 (fused_sw_cols timings) "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 

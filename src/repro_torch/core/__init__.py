@@ -4,9 +4,13 @@
   fstat.sw_{brute,tiled,matmul}        the paper's hot-loop forms
   distance.distance_matrix(x, metric)  input construction
   permutations.permutation_batch       counter-based label source
+  design.build / Design                covariates, strata, weights
+  fstat.sw_cols_*                      the designs' per-column forms
 """
 
-from repro_torch.core import distance, fstat, permutations  # noqa: F401
+from repro_torch.core import (design, distance, fstat,  # noqa: F401
+                              permutations)
 from repro_torch.core.permanova import (PermanovaResult,  # noqa: F401
-                                        f_from_sw, p_value_from_null,
-                                        permanova, s_total)
+                                        TermResult, f_from_sw,
+                                        p_value_from_null, permanova,
+                                        s_total)

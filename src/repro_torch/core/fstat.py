@@ -187,3 +187,114 @@ def sw_matmul(mat2: torch.Tensor, groupings: torch.Tensor,
     perm_block = max(1, min(perm_block, groupings.shape[0]))
     return torch.cat([sw_matmul_block(mat2, gb, inv_group_sizes)
                       for gb in torch.split(groupings, perm_block)])
+
+
+# ---------------------------------------------------------------------------
+# Design-basis (hat-matrix) contraction: per-column quadratic forms.
+#
+# The design subsystem (core.design) generalizes the one-hot factor E to an
+# orthonormal basis V of a model's column space: SS_resid = 1/2 <mat2, V V'>
+# = sum_k 1/2 v_k' mat2 v_k, and per-term partial SS are (minus) sums of
+# the same forms over each term's columns. The dataflow is sw_matmul's with
+# the per-column sums kept apart. These are plain matrix products (outside
+# any kernel in the reference too); on the card they run in full f32.
+# ---------------------------------------------------------------------------
+
+def basis_perm_factors(basis: torch.Tensor, perms: torch.Tensor
+                       ) -> torch.Tensor:
+    """V[p] = basis[perms[p], :], the (P, n, K) row-permuted basis that
+    replaces the one-hot E (permuting basis rows is vegan's
+    permute-the-observations convention)."""
+    return basis[perms.long()]
+
+
+def sw_cols_contract(mat2_rows: torch.Tensor, v: torch.Tensor,
+                     v_rows: torch.Tensor) -> torch.Tensor:
+    """Per-column quadratic forms over a block of mat2 rows, (P, K):
+
+        s[p, k] = 1/2 * sum_i (M2_rows @ V[p])[i, k] * V_rows[p, i, k]
+
+    v: (P, n, K) permuted basis over ALL samples; v_rows: (P, n_local, K)
+    rows aligned with mat2_rows (v itself for the full matrix). Partials
+    over disjoint row blocks sum to the full statistic."""
+    p, n, k = v.shape
+    n_local = mat2_rows.shape[0]
+    v2d = v.permute(1, 0, 2).reshape(n, p * k)              # (n, P*K)
+    y = mat2_rows @ v2d
+    s = (y.reshape(n_local, p, k) * v_rows.permute(1, 0, 2)).sum(dim=0)
+    return 0.5 * s
+
+
+def sw_cols_block(mat2: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(P, K) per-column statistic for one block of permuted bases."""
+    return sw_cols_contract(mat2, v, v)
+
+
+def sw_cols_matmul(mat2: torch.Tensor, vperms: torch.Tensor, *,
+                   perm_block: int = 64) -> torch.Tensor:
+    """Per-column statistic over all permutations, matmul form,
+    perm_block permutations per product. (P, K)."""
+    perm_block = max(1, min(perm_block, vperms.shape[0]))
+    return torch.cat([sw_cols_block(mat2, vb)
+                      for vb in torch.split(vperms, perm_block)])
+
+
+def sw_cols_brute(mat2: torch.Tensor, vperms: torch.Tensor, *,
+                  block: int = 16) -> torch.Tensor:
+    """Per-column statistic, brute dataflow: every permutation streams
+    mat2 again (1/2 v_k' mat2 v_k one permutation at a time; `block` is
+    the reference's batching knob and leaves the result unchanged). The
+    dense-design analogue of Algorithm 3. (P, K)."""
+    del block
+    return torch.stack([0.5 * ((mat2 @ v) * v).sum(dim=0) for v in vperms])
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse basis contraction: strata-indicator bases are block-sparse
+# and strata-restricted permutations keep each row inside its stratum, so a
+# column's row support is a host-side constant of the design: gather the
+# supported rows once and skip the all-zero rest.
+# ---------------------------------------------------------------------------
+
+def sparse_col_groups(basis, strata):
+    """Group basis columns by permutation-invariant row support.
+
+    Returns ((cols, rows), ...): `cols` are column indices sharing one
+    support set, `rows` the sorted sample indices whose stratum appears
+    in any of those columns' nonzeros. The groups partition the columns.
+    Host-side (numpy), once per design."""
+    def host(a):
+        return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                else np.asarray(a))
+    b = host(basis)
+    s = host(strata)
+    by_support: dict = {}
+    for k in range(b.shape[1]):
+        nz = np.flatnonzero(b[:, k] != 0)
+        sup = frozenset(np.unique(s[nz]).tolist())
+        by_support.setdefault(sup, []).append(k)
+    groups = []
+    for sup, cols in sorted(by_support.items(), key=lambda t: t[1][0]):
+        rows = np.flatnonzero(np.isin(s, sorted(sup)))
+        groups.append((tuple(cols), tuple(int(r) for r in rows)))
+    return tuple(groups)
+
+
+def sw_cols_contract_sparse(mat2_rows: torch.Tensor, v: torch.Tensor,
+                            v_rows: torch.Tensor, groups) -> torch.Tensor:
+    """Block-sparse sw_cols_contract: each column group is contracted
+    against only its supported sample columns of mat2_rows. Every skipped
+    term has v[p, j, k] == 0 exactly, so this equals the dense
+    contraction up to the order of its sums; one group spanning all rows
+    is the dense contraction."""
+    p, n, k = v.shape
+    if len(groups) == 1 and len(groups[0][1]) == n:
+        return sw_cols_contract(mat2_rows, v, v_rows)
+    out = torch.zeros((p, k), dtype=mat2_rows.dtype, device=mat2_rows.device)
+    for cols, rows in groups:
+        cols_t = torch.tensor(cols, dtype=torch.long, device=v.device)
+        rows_t = torch.tensor(rows, dtype=torch.long, device=v.device)
+        out[:, cols_t] = sw_cols_contract(mat2_rows[:, rows_t],
+                                          v[:, rows_t][:, :, cols_t],
+                                          v_rows[:, :, cols_t])
+    return out

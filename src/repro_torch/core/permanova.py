@@ -9,8 +9,9 @@ Twin of `repro/core/permanova.py`:
   p-val  = (#{F[p] >= F[0], p >= 1} + 1) / (n_perms + 1)
 
 with N objects, a groups, permutation 0 = observed labels. permanova()
-takes a distance matrix or a feature table (through pipeline); designs
-come later.
+takes a distance matrix or a feature table (through pipeline), and a
+design (covariates, strata, weights; core.design), whose per-term
+statistics land in `PermanovaResult.terms`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,26 @@ import warnings
 from typing import Callable, Optional
 
 import torch
+
+
+@dataclasses.dataclass
+class TermResult:
+    """Per-term statistics of a multi-term (design) PERMANOVA: one entry
+    per non-intercept term, in sequential (adonis2) order, each term's SS
+    adjusted for everything before it."""
+    name: str
+    kind: str                  # 'factor' | 'covariate'
+    df: int
+    ss: torch.Tensor           # observed explained SS (sequential)
+    f_stat: torch.Tensor       # observed partial pseudo-F
+    p_value: torch.Tensor
+    r2: torch.Tensor           # ss / s_T (variance explained by the term)
+    f_perms: torch.Tensor      # (n_perms + 1,) null incl. observed at 0
+
+    def __repr__(self):  # pragma: no cover - cosmetic
+        return (f"TermResult({self.name}: df={self.df}, "
+                f"F={float(self.f_stat):.6g}, p={float(self.p_value):.6g}, "
+                f"R2={float(self.r2):.4g})")
 
 
 @dataclasses.dataclass
@@ -34,6 +55,10 @@ class PermanovaResult:
     n_perms: int
     method: str = "permanova"
     plan: str = ""             # engine execution plan (impl, chunking)
+    terms: Optional[tuple] = None  # tuple of TermResult on the design path
+                                   # (strata / covariates / weights); the
+                                   # headline F and p are the LAST term's;
+                                   # None on the plain single-factor path
 
     @property
     def r2(self) -> torch.Tensor:
@@ -75,6 +100,7 @@ def _later(what: str, slice_name: str):
 
 def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
               perms: Optional[torch.Tensor] = None,
+              index_perms: Optional[torch.Tensor] = None,
               n_groups: Optional[int] = None, sw_impl: str = "auto",
               sw_fn: Optional[Callable] = None,
               memory_budget_bytes: Optional[float] = None,
@@ -88,23 +114,38 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
                an (n, d) feature table (non-square, or `metric=` given),
                which routes to pipeline.pipeline: distances by `metric`
                (default 'braycurtis'), then the same test.
-    grouping:  (n,) int labels in [0, n_groups).
-    seed / perms: the permutation source — the port's counter-based
-               generator from `seed`, or an explicit (n_perms + 1, n)
-               int32 label tensor whose row 0 is the identity (it takes
-               the place of the seed; the reference's `key=`).
+    grouping:  (n,) int labels in [0, n_groups), or a compiled
+               core.design.Design (then covariates / strata / weights
+               stay None: the Design carries them).
+    covariates: continuous columns to adjust for (dict name -> (n,), list
+               of (name, values), or an (n, c) array). Terms are
+               sequential (adonis2): covariates first, the grouping
+               factor LAST, so the headline F is the adjusted factor's;
+               every term's statistics land in `result.terms`.
+    strata:    (n,) int blocks: permutations stay WITHIN them (vegan's
+               strata=).
+    weights:   (n,) non-negative sample weights (weighted PERMANOVA).
+    seed / perms / index_perms: the permutation source — the port's
+               counter-based generator from `seed`, an explicit
+               (n_perms + 1, n) int32 label tensor (labels-mode only), or
+               explicit (n_perms + 1, n) int32 index permutations; row 0
+               of either is the identity (they take the place of the
+               reference's `key=`).
     sw_impl:   'auto' (planner) or a registry name: 'brute' | 'tiled' |
                'matmul' (or their 'pallas_*' aliases).
     device:    'cuda' (default; raises without a card) or 'cpu'.
-
-    `covariates`, `strata` or `weights` raise NotImplementedError: the
-    designs are a later slice.
     """
     from repro_torch import engine   # deferred: engine imports this module
-    if covariates is not None or strata is not None or weights is not None:
-        raise _later("covariates/strata/weights (designs)", "designs")
-    if grouping is None:
-        raise ValueError("permanova needs grouping labels")
+    from repro_torch.core import design as _design
+    if isinstance(grouping, _design.Design):
+        if covariates is not None or strata is not None \
+                or weights is not None:
+            raise ValueError("pass covariates/strata/weights either to "
+                             "permanova() or inside the Design, not both")
+    elif grouping is None and covariates is None:
+        raise ValueError("permanova needs grouping labels, covariates, or "
+                         "a Design")
+    design_kw = dict(covariates=covariates, strata=strata, weights=weights)
     arr = torch.as_tensor(dm)
     if metric is not None or (arr.dim() == 2
                               and arr.shape[0] != arr.shape[1]):
@@ -114,9 +155,10 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
         from repro_torch import pipeline   # deferred: it imports engine
         return pipeline.pipeline(
             arr, grouping, metric=metric or "braycurtis", n_perms=n_perms,
-            seed=seed, perms=perms, n_groups=n_groups, sw_impl=sw_impl,
+            seed=seed, perms=perms, index_perms=index_perms,
+            n_groups=n_groups, sw_impl=sw_impl,
             memory_budget_bytes=memory_budget_bytes, chunk=chunk,
-            device=device)
+            device=device, **design_kw)
     if arr.dim() != 2:
         raise ValueError(f"permanova takes an (n, n) distance matrix or an "
                          f"(n, d) feature table, got shape "
@@ -134,6 +176,7 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
                 f"(sampled diag max {diag_err:.3g}, asymmetry max "
                 f"{sym_err:.3g})", stacklevel=2)
     return engine.run(arr, grouping, n_perms=n_perms, seed=seed, perms=perms,
-                      n_groups=n_groups, impl=sw_impl, sw_fn=sw_fn,
+                      index_perms=index_perms, n_groups=n_groups,
+                      impl=sw_impl, sw_fn=sw_fn,
                       memory_budget_bytes=memory_budget_bytes, chunk=chunk,
-                      device=device)
+                      device=device, **design_kw)

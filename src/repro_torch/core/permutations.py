@@ -85,3 +85,61 @@ def permutation_batch(grouping: torch.Tensor, lo: int, hi: int, *,
     if lo == 0 and hi > 0:
         labels[0] = grouping
     return labels
+
+
+# ---------------------------------------------------------------------------
+# Strata-restricted permutations (designs).
+#
+# Restricted permutation tests (vegan's `strata=`) shuffle samples only
+# WITHIN blocks: sites, batches, repeated-measure subjects. These draw from
+# the same counter keys as the free generator above, so they too are a
+# pure function of (seed, strata, global index): any chunking gives the
+# same rows, on CPU or CUDA.
+# ---------------------------------------------------------------------------
+
+def strata_permutation_batch(strata: torch.Tensor, lo: int, hi: int, *,
+                             seed: int = 0) -> torch.Tensor:
+    """(hi - lo, n) int32 INDEX permutations restricted within strata
+    blocks, for global indices [lo, hi), on strata's device: perm[i] has
+    the stratum of i. Index 0 is the identity.
+
+    The reference's construction: two stable argsorts group positions by
+    stratum, once in the random order of the row's keys and once in the
+    original order, and matching them up block by block gives a uniform
+    within-block bijection. With a constant strata vector the draw is the
+    free generator's argsort(keys)."""
+    n = strata.shape[0]
+    dev = strata.device
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+    s = strata.to(torch.int64)
+    a = torch.argsort(permutation_keys(seed, idx, n), dim=1,
+                      stable=True)                    # random position order
+    a = torch.gather(a, 1, torch.argsort(s[a], dim=1,
+                                         stable=True))  # by stratum
+    b = torch.argsort(s, stable=True)                 # by stratum, in order
+    perms = torch.empty_like(a)
+    perms[:, b] = a
+    perms = perms.to(torch.int32)
+    if lo == 0 and hi > 0:
+        perms[0] = torch.arange(n, dtype=torch.int32, device=dev)
+    return perms
+
+
+def strata_label_batch(grouping: torch.Tensor, strata: torch.Tensor,
+                       lo: int, hi: int, *, seed: int = 0) -> torch.Tensor:
+    """Permuted LABELS under strata restriction, (hi - lo, n) int32: the
+    grouping composed with the index permutations, so every label impl
+    and kernel consumes them unchanged."""
+    perms = strata_permutation_batch(strata, lo, hi, seed=seed)
+    return grouping.to(torch.int32)[perms.long()]
+
+
+def masked_strata(strata: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Move the pad suffix [n_valid, n) into its own sentinel stratum,
+    max(strata) + 1, so padded ragged studies permute pads only among
+    themselves. (Its callers, the multi-study runs, come with a later
+    slice of the port.)"""
+    n = strata.shape[0]
+    pos = torch.arange(n, device=strata.device)
+    return torch.where(pos < int(n_valid), strata,
+                       strata.max() + 1).to(strata.dtype)

@@ -1,2 +1,2 @@
 from repro_torch.data.microbiome import (synthetic_abundance,  # noqa: F401
-                                        synthetic_study)
+                                        synthetic_design, synthetic_study)

@@ -3,7 +3,8 @@
 A copy of the reference's generators (`repro/data/microbiome.py`), so the
 two packages draw the same study from the same `seed`: compositional
 abundance tables with a planted group effect (effect_size=0 is the exact
-null; effect_size >> 0 gives p ~ 1/(n_perms+1)).
+null; effect_size >> 0 gives p ~ 1/(n_perms+1)), and design columns
+(covariates, strata, weights) to go with them.
 """
 
 from __future__ import annotations
@@ -38,3 +39,30 @@ def synthetic_study(n_samples: int, n_features: int, n_groups: int, *,
                              size=(int((grouping == g).sum()), len(feat)))
             x[np.ix_(grouping == g, feat)] += bump.astype(np.float32)
     return x, grouping
+
+
+def synthetic_design(n_samples: int, *, covariate_names=("age", "depth"),
+                     n_strata: int = 0, weighted: bool = False,
+                     seed: int = 0):
+    """Synthetic design columns to pair with `synthetic_study`.
+
+    Returns (covariates dict name -> (n,) f64 | None, strata (n,) int32 |
+    None, weights (n,) f64 | None), the operands of the covariate /
+    strata / weighted path (core.design). Covariates are standard normals
+    (independent of the abundance table); strata are blocks with every
+    one non-empty; weights are positive gammas. The same draws as the
+    reference's per seed.
+    """
+    rng = np.random.default_rng(seed + 17)
+    covariates = None
+    if covariate_names:
+        covariates = {str(name): rng.normal(size=n_samples)
+                      for name in covariate_names}
+    strata = None
+    if n_strata and n_strata > 1:
+        strata = rng.integers(0, n_strata, size=n_samples).astype(np.int32)
+        strata[:n_strata] = np.arange(n_strata)     # every block non-empty
+    weights = None
+    if weighted:
+        weights = rng.gamma(4.0, 0.25, size=n_samples)
+    return covariates, strata, weights

@@ -5,13 +5,15 @@
   planner     backend + shape -> impl + tuning + streaming chunk
   scheduler   fixed-memory streaming sweeps (labels made on the device
               per chunk from global permutation indices)
-  api         run(), the single-study entry
+  api         run(), the single-study entry; run_design() for designs
+              (strata, covariates, weights) with per-term results
 """
 
 from repro_torch.engine import (api, planner, registry,  # noqa: F401
                                 scheduler)
-from repro_torch.engine.api import run  # noqa: F401
+from repro_torch.engine.api import (design_result,  # noqa: F401
+                                    label_design_result, run, run_design)
 from repro_torch.engine.planner import Plan, chunk_for_budget, plan  # noqa: F401
 from repro_torch.engine.registry import SwImpl, get, names  # noqa: F401
 from repro_torch.engine.scheduler import (StreamStats, sw_batch,  # noqa: F401
-                                          sw_streaming)
+                                          sw_cols_streaming, sw_streaming)

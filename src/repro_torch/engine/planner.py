@@ -14,8 +14,11 @@ Figure 1 result as dispatch rules:
 
 `plan()` is shape/backend arithmetic only, no timing; it also fixes the
 streaming chunk, so the live label tensor is (chunk, n) int32 rather
-than (n_perms, n). (The reference's measured autotune and its persisted
-cache are not ported yet.)
+than (n_perms, n). Dense designs (`n_cols` = K basis columns) plan a
+per-column companion instead (registry.resolve_cols): brute on cuda,
+matmul on cpu, both plain torch products, with the chunk sized for the
+(chunk, n, K) basis factor. (The reference's measured autotune and its
+persisted cache are not ported yet.)
 """
 
 from __future__ import annotations
@@ -63,14 +66,29 @@ def _pick_impl(backend: str, n: int) -> Tuple[str, str]:
     return "matmul", "mat2 cache-resident; one-hot BLAS form amortizes reads"
 
 
+def _pick_impl_design(backend: str) -> Tuple[str, str]:
+    """Impl for DENSE designs: the re-streaming brute dataflow on the card
+    (the paper's Fig. 1 GPU rule), the per-column matmul form elsewhere."""
+    if backend == "cuda":
+        return "brute", ("dense design, GPU: per-perm re-stream "
+                         "(Fig. 1 brute analogue)")
+    return "matmul", ("dense design: per-column matmul contraction "
+                      "(hat-matrix blocks on the MXU/BLAS path)")
+
+
 def chunk_for_budget(n: int, n_perms: int,
-                     budget_bytes: Optional[float] = None) -> int:
+                     budget_bytes: Optional[float] = None,
+                     n_cols: Optional[int] = None) -> int:
     """Largest permutation chunk whose streamed state — (chunk, n) int32
     labels plus the per-perm output — fits the budget. The resident mat2
-    is paid regardless of chunking and is not charged against it."""
+    is paid regardless of chunking and is not charged against it. Dense
+    designs (n_cols = K basis columns) also stream the gathered (chunk, n,
+    K) f32 basis factor and a (chunk, K) output."""
     budget = DEFAULT_STREAM_BUDGET_BYTES if budget_bytes is None \
         else budget_bytes
     per_perm = 4.0 * n + 8.0
+    if n_cols is not None:
+        per_perm += 4.0 * n * n_cols + 4.0 * n_cols
     if MIN_CHUNK * per_perm > budget:
         warnings.warn(
             f"label budget {budget/2**20:.2f}MiB cannot hold even the "
@@ -83,21 +101,33 @@ def chunk_for_budget(n: int, n_perms: int,
 
 def plan(n: int, n_perms: int, *, backend: str,
          memory_budget_bytes: Optional[float] = None,
-         chunk: Optional[int] = None, impl: Optional[str] = None) -> Plan:
+         chunk: Optional[int] = None, impl: Optional[str] = None,
+         n_cols: Optional[int] = None) -> Plan:
     """Resolve impl + streaming chunk for one problem.
 
     n_perms counts all permutation slots (the requested count + 1 for the
     observed labels at index 0). `impl`/`chunk` pin those choices.
+    n_cols: the basis width K of a DENSE design; the plan then names the
+    impl whose per-column companion runs (a label-only impl resolves to
+    matmul's) and no kernel, since the companions are torch products.
     """
     if impl is None:
-        name, reason = _pick_impl(backend, n)
+        name, reason = (_pick_impl_design(backend) if n_cols is not None
+                        else _pick_impl(backend, n))
     else:
         name, reason = impl, "caller-pinned impl"
+    if n_cols is not None:
+        resolved, _ = registry.resolve_cols(name)
+        if resolved != registry.get(name).name:
+            reason += (f"; {name!r} is label-only, dense design runs its "
+                       f"{resolved!r} companion")
+            name = resolved
     spec = registry.get(name)
     if chunk is None:
-        chunk = chunk_for_budget(n, n_perms, memory_budget_bytes)
+        chunk = chunk_for_budget(n, n_perms, memory_budget_bytes,
+                                 n_cols=n_cols)
     chunk = max(1, min(int(chunk), n_perms))
-    on_card = backend == "cuda"
+    on_card = backend == "cuda" and n_cols is None
     return Plan(impl=spec.name, backend=backend,
                 tuning={} if on_card else dict(spec.tuning),
                 kernel=spec.kernel if on_card else None,

@@ -15,13 +15,21 @@ plain `core.fstat` form, on CUDA tensors its hand-written kernel:
 
 The reference's kernel names `pallas_brute`, `pallas_permblock` and
 `pallas_matmul` are accepted as aliases of these three.
+
+Dense designs (core.design: covariates, weights, several factors) need a
+per-column companion, `cols(mat2, vperms (P, n, K)) -> (P, K)`: brute ->
+`fstat.sw_cols_brute`, matmul -> `fstat.sw_cols_matmul`; tiled is
+label-only and routes dense designs to matmul's (`resolve_cols`). The
+companions are plain torch matrix products on every device; labels-mode
+designs (one factor with strata) need none, since every impl consumes
+permuted labels unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Optional, Tuple
 
 from repro_torch.core import fstat
 from repro_torch.kernels.permanova_sw import ops
@@ -39,6 +47,8 @@ class SwImpl:
     tuning: Mapping[str, int]     # knobs of the plain form (the kernels
                                   # take their tiles from the source)
     description: str = ""
+    cols: Optional[Callable] = None   # dense-design companion, or None
+                                      # for a label-only dataflow
 
     def bound(self, **overrides) -> Callable:
         """The batch callable, with tuning resolved (defaults <-
@@ -81,11 +91,29 @@ def names():
     return sorted(_REGISTRY)
 
 
+def resolve_cols(name: str) -> Tuple[str, Callable]:
+    """(impl name, dense-design companion) for `name`, falling back to the
+    matmul form when the impl is label-only (tiled)."""
+    impl = get(name)
+    if impl.cols is not None:
+        return impl.name, impl.cols
+    return "matmul", get("matmul").cols
+
+
+def bound_cols(name: str, **overrides) -> Callable:
+    """The dense-design companion for `name` with the resolved impl's
+    tuning knobs bound (unknown keys dropped)."""
+    resolved, fn = resolve_cols(name)
+    kw = {k: v for k, v in overrides.items() if k in get(resolved).tuning}
+    return functools.partial(fn, **kw) if kw else fn
+
+
 register(SwImpl(
     name="brute", plain=fstat.sw_brute, kernel="brute",
     tuning={"block": 32},
     description="paper Algorithm 3 dataflow: every perm re-streams mat2 "
                 "(the MI300A GPU winner)",
+    cols=fstat.sw_cols_brute,
 ))
 register(SwImpl(
     name="tiled", plain=fstat.sw_tiled, kernel="permblock",
@@ -99,4 +127,5 @@ register(SwImpl(
     tuning={"perm_block": 64},
     description="one-hot matmul reformulation (amortizes each mat2 byte "
                 "over perm_block*G columns)",
+    cols=fstat.sw_cols_matmul,
 ))

@@ -1,4 +1,4 @@
-// Fused distance -> s_W megakernel on Hopper (sm_90a). For a row slab
+// Fused distance -> s_W megakernels on Hopper (sm_90a). For a row slab
 // xr (nr, d) whose first row is global sample `row_offset`, against the
 // full table xc (n, d), and permuted labels g_rows (P, nr) / g_cols (P, n),
 // one launch gives
@@ -59,9 +59,45 @@
 // label read from L2 once per 64 rows or columns. Symmetry (half the
 // tiles) and wgmma are left for later.
 //
-// Ragged nr, n, d and P are masked here; nothing is padded. Element
+// The dense-design kernel (fused_sw_cols_kernel) replaces
+// src/repro/kernels/fused_sw/kernel.py:338 (fused_sw_cols_pallas, dense
+// f32 feature mode). It shares the feature phase, the finalize and the
+// mask (feature_tile below) and swaps the labels for a permuted design
+// basis v_rows (P, nr, K) / v_cols (P, n, K):
+//
+//   s[p, k]  = 1/2 sum_{r, c valid, r != c} v_r[p, r, k] D2[r, c] v_c[p, c, k]
+//   rows[r]  = sum_c D2[r, c]
+//
+// Pallas sums s over the whole grid in a VMEM accumulator flushed at the
+// last step; a CUDA block must not, and one (P, K) partial per 64 x 64
+// tile would be 785 MB at the EMP design chunk (n = 25,145, P = 127, K =
+// 10). So each block owns a row tile and a strip of kStripTiles = 8
+// column tiles and sums over the strip itself, kRegTiles = 2 D2 tiles in
+// registers at a time: one partial per (row tile, strip, permutation,
+// column), 99.8 MB there, plus one row sum per (row, strip), reduced by
+// the caller with torch.sum. The permutation phase takes kQ = 32
+// (permutation, column) pairs q = p K + k a step, any P and K: their basis
+// entries at the tile's rows and columns are staged in shared memory (zero
+// past Q), each thread forms sum_ii v_r[ii] sum_jj D2[ii][jj] v_c[jj] over
+// its 4 x 4 pairs of both tiles (f32 FMAs on the CUDA cores), and a
+// transposed shuffle reduction leaves one warp sum per q in each lane, then
+// a fixed-order sum over the 8 warps. The strip's later register tiles add
+// to the block's own partials in place: no atomics, the same bits every
+// run. A row tile made only of pad rows (row_offset + i0 >= n_valid, the
+// reference's row_live) writes zeros and skips both phases.
+//
+// Its bound at the EMP design chunk on an H100 SXM at 700 W: 2 n^2 d +
+// 2 n^2 P K = 1.6e11 + 1.6e12 operations, ~26 ms at 67 TFLOP/s f32; the
+// inputs (features 13 MB, each basis factor 128 MB) take ~0.08 ms of HBM,
+// so it is bound by operations. A block reads its strip's v_c entries
+// once and its rows' v_r entries once per pair of register tiles, from L2
+// where the concurrent blocks (neighbouring row tiles of one strip) share
+// them. Symmetry, TMA and wgmma are left for later.
+//
+// Ragged nr, n, d, P and K are masked here; nothing is padded. Element
 // offsets are 64-bit. Division is nvcc's default IEEE-rounded form (no
-// --use_fast_math). Static shared memory: 30,720 B.
+// --use_fast_math). Static shared memory: 30,720 B (labels), 45,056 B
+// (dense design).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. The C entry point launches on the caller's
@@ -80,6 +116,12 @@ constexpr int kChunk = 32;             // features staged per step
 constexpr int kPitch = kTile + 4;      // keeps 16-byte micro-tile reads
 constexpr int kPermBlock = 16;         // permutations staged per step
 constexpr int kMaxGridY = 65535;
+// the dense-design kernel (fused_sw_cols_kernel)
+constexpr int kStripTiles = 8;         // column tiles a block sums over
+constexpr int kRegTiles = 2;           // D2 tiles a thread holds at once
+constexpr int kQ = 32;                 // (permutation, column) pairs a step
+constexpr int kRowStep = kThreads / kQ;  // rows apart a thread stages
+static_assert(kThreads % kQ == 0, "a thread stages one pair a step");
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -123,38 +165,23 @@ struct Jaccard {
   }
 };
 
-// Grid (ceil(n / 64), ceil(nr / 64)); block (bx, by) owns slab rows
-// by*64 + [0, 64) and columns bx*64 + [0, 64). Thread (ty, tx) owns rows
-// 4 ty + [0, 4) and columns 4 tx + [0, 4) of the tile. Threads 0-63 sum
-// the row statistic of tile row t, threads 64-127 the column statistic.
-// sw_part: (ceil(nr/64) * ceil(n/64), P), row-major by tile (by, bx).
-// rs_part: (nr, ceil(n/64)).
+// The feature phase and the finalize of one 64 x 64 tile, shared by both
+// kernels: the block's 256 threads stage 32-feature chunks of slab rows
+// i0 + [0, 64) and columns j0 + [0, 64) transposed in rs / cs, thread (ty,
+// tx) accumulates rows 4 ty + [0, 4) x columns 4 tx + [0, 4) in `acc`, and
+// the finalize leaves the masked D2 there. Threads 0-63 sum the row
+// statistic of tile row t, threads 64-127 the column statistic. Every
+// caller passes d >= 1, so the chunk loop's barriers also separate this
+// call's writes of rs / cs / row_stat / col_stat from an earlier call's
+// reads.
 template <class M>
-__global__ void __launch_bounds__(kThreads)
-fused_sw_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
-                const int* __restrict__ g_rows,
-                const int* __restrict__ g_cols,
-                const float* __restrict__ inv_gs,
-                float* __restrict__ sw_part, float* __restrict__ rs_part,
-                int64_t nr, int64_t n, int64_t d, int64_t n_perms,
-                int n_groups, int64_t row_offset, int64_t n_valid) {
-  __shared__ __align__(16) float rs[kChunk][kPitch];
-  __shared__ __align__(16) float cs[kChunk][kPitch];
-  __shared__ float row_stat[kTile];
-  __shared__ float col_stat[kTile];
-  __shared__ __align__(16) int lab_r[kPermBlock][kTile];
-  __shared__ __align__(16) float w_r[kPermBlock][kTile];
-  __shared__ __align__(16) int lab_c[kPermBlock][kTile];
-  __shared__ float warp_sum[kWarps][kPermBlock];
+__device__ __forceinline__ void feature_tile(
+    const float* __restrict__ xr, const float* __restrict__ xc,
+    int64_t nr, int64_t n, int64_t d, int64_t i0, int64_t j0,
+    int64_t row_offset, int64_t n_valid, float (&rs)[kChunk][kPitch],
+    float (&cs)[kChunk][kPitch], float (&row_stat)[kTile],
+    float (&col_stat)[kTile], float (&acc)[kMicro][kMicro]) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int64_t i0 = (int64_t)blockIdx.y * kTile;   // slab-local rows
-  const int64_t j0 = (int64_t)blockIdx.x * kTile;
-  const int64_t ntj = gridDim.x;
-  const int64_t tile = (int64_t)blockIdx.y * ntj + blockIdx.x;
-
-  // ---- feature phase -----------------------------------------------------
-  float acc[kMicro][kMicro];
 #pragma unroll
   for (int a = 0; a < kMicro; ++a)
 #pragma unroll
@@ -218,14 +245,58 @@ fused_sw_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
                        : 0.f;
     }
   }
+}
+
+// Row ii of a thread's D2 micro-tile summed over the tile's 64 columns: the
+// thread's 4, then a fixed shuffle tree over the 16 threads of the tile
+// row. The result is valid at tx == 0.
+__device__ __forceinline__ float tile_row_sum(
+    const float (&acc)[kMicro][kMicro], int ii) {
+  float s = ((acc[ii][0] + acc[ii][1]) + acc[ii][2]) + acc[ii][3];
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)         // the 16 threads of a row
+    s += __shfl_down_sync(0xffffffffu, s, off, 16);
+  return s;
+}
+
+// Grid (ceil(n / 64), ceil(nr / 64)); block (bx, by) owns slab rows
+// by*64 + [0, 64) and columns bx*64 + [0, 64). Thread (ty, tx) owns rows
+// 4 ty + [0, 4) and columns 4 tx + [0, 4) of the tile.
+// sw_part: (ceil(nr/64) * ceil(n/64), P), row-major by tile (by, bx).
+// rs_part: (nr, ceil(n/64)).
+template <class M>
+__global__ void __launch_bounds__(kThreads)
+fused_sw_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
+                const int* __restrict__ g_rows,
+                const int* __restrict__ g_cols,
+                const float* __restrict__ inv_gs,
+                float* __restrict__ sw_part, float* __restrict__ rs_part,
+                int64_t nr, int64_t n, int64_t d, int64_t n_perms,
+                int n_groups, int64_t row_offset, int64_t n_valid) {
+  __shared__ __align__(16) float rs[kChunk][kPitch];
+  __shared__ __align__(16) float cs[kChunk][kPitch];
+  __shared__ float row_stat[kTile];
+  __shared__ float col_stat[kTile];
+  __shared__ __align__(16) int lab_r[kPermBlock][kTile];
+  __shared__ __align__(16) float w_r[kPermBlock][kTile];
+  __shared__ __align__(16) int lab_c[kPermBlock][kTile];
+  __shared__ float warp_sum[kWarps][kPermBlock];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t i0 = (int64_t)blockIdx.y * kTile;   // slab-local rows
+  const int64_t j0 = (int64_t)blockIdx.x * kTile;
+  const int64_t ntj = gridDim.x;
+  const int64_t tile = (int64_t)blockIdx.y * ntj + blockIdx.x;
+
+  // ---- feature phase and finalize: the masked D2 tile in registers ------
+  float acc[kMicro][kMicro];
+  feature_tile<M>(xr, xc, nr, n, d, i0, j0, row_offset, n_valid, rs, cs,
+                  row_stat, col_stat, acc);
 
   // ---- Gower row sums: one partial per (row, column tile) ----------------
 #pragma unroll
   for (int ii = 0; ii < kMicro; ++ii) {
-    float s = ((acc[ii][0] + acc[ii][1]) + acc[ii][2]) + acc[ii][3];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)       // the 16 threads of a row
-      s += __shfl_down_sync(0xffffffffu, s, off, 16);
+    const float s = tile_row_sum(acc, ii);
     const int64_t i = i0 + ty * kMicro + ii;
     if (tx == 0 && i < nr) rs_part[i * ntj + blockIdx.x] = s;
   }
@@ -282,6 +353,164 @@ fused_sw_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
   }
 }
 
+// One step of a warp's transposed reduction over kQ = 32 values a lane:
+// lanes exchange the half of their values the partner keeps (shuffle xor
+// W), so after the steps 16, 8, 4, 2, 1 lane L holds in v[0] the warp's
+// sum of value L, in a fixed order: 31 shuffles for 32 sums where a
+// shuffle tree per value would take 160.
+template <int W>
+__device__ __forceinline__ void transpose_reduce_step(float (&v)[kQ],
+                                                      int lane) {
+  const bool upper = (lane & W) != 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? v[i] : v[i + W];
+    const float keep = upper ? v[i + W] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
+  }
+}
+
+// Grid (ceil(nr / 64), n_strips); block (bx, by) owns slab rows
+// bx*64 + [0, 64) and the strip of column tiles by*kStripTiles + [0,
+// kStripTiles), kRegTiles at a time, and sums over the strip itself. Q =
+// P * K (permutation, column) pairs, q = p * K + k.
+// s_part: (n_strips * ceil(nr/64), Q), row-major by (by, bx).
+// rs_part: (nr, n_strips).
+template <class M>
+__global__ void __launch_bounds__(kThreads)
+fused_sw_cols_kernel(const float* __restrict__ xr,
+                     const float* __restrict__ xc,
+                     const float* __restrict__ v_rows,
+                     const float* __restrict__ v_cols,
+                     float* __restrict__ s_part, float* __restrict__ rs_part,
+                     int64_t nr, int64_t n, int64_t d, int64_t n_perms,
+                     int64_t n_cols, int64_t row_offset, int64_t n_valid) {
+  __shared__ __align__(16) float rs[kChunk][kPitch];
+  __shared__ __align__(16) float cs[kChunk][kPitch];
+  __shared__ float row_stat[kTile];
+  __shared__ float col_stat[kTile];
+  __shared__ __align__(16) float vr_s[kQ][kPitch];
+  __shared__ __align__(16) float vc_s[kRegTiles][kQ][kPitch];
+  __shared__ float warp_sum[kWarps][kQ];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t i0 = (int64_t)blockIdx.x * kTile;   // slab-local rows
+  const int64_t ntj = (n + kTile - 1) / kTile;
+  const int64_t n_strips = gridDim.y;
+  const int64_t jt0 = (int64_t)blockIdx.y * kStripTiles;
+  const int64_t nq = n_perms * n_cols;
+  float* __restrict__ out =
+      s_part + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * nq;
+
+  // A row tile made only of pad rows (an offset slab past n_valid) has
+  // nothing to add: its partials and row sums are 0.
+  if (row_offset + i0 >= n_valid) {
+    for (int64_t q = threadIdx.x; q < nq; q += kThreads) out[q] = 0.f;
+#pragma unroll
+    for (int ii = 0; ii < kMicro; ++ii) {
+      const int64_t i = i0 + ty * kMicro + ii;
+      if (tx == 0 && i < nr) rs_part[i * n_strips + blockIdx.y] = 0.f;
+    }
+    return;
+  }
+
+  float rsum[kMicro] = {0.f, 0.f, 0.f, 0.f};
+  for (int sub = 0; sub < kStripTiles && jt0 + sub < ntj;
+       sub += kRegTiles) {
+    // ---- feature phase: kRegTiles masked D2 tiles in registers ----------
+    float d2[kRegTiles][kMicro][kMicro];
+#pragma unroll
+    for (int t = 0; t < kRegTiles; ++t) {
+      if (jt0 + sub + t < ntj) {
+        feature_tile<M>(xr, xc, nr, n, d, i0, (jt0 + sub + t) * kTile,
+                        row_offset, n_valid, rs, cs, row_stat, col_stat,
+                        d2[t]);
+#pragma unroll
+        for (int ii = 0; ii < kMicro; ++ii)
+          rsum[ii] += tile_row_sum(d2[t], ii);
+      } else {
+#pragma unroll
+        for (int ii = 0; ii < kMicro; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < kMicro; ++jj) d2[t][ii][jj] = 0.f;
+      }
+    }
+
+    // ---- permutation phase: kQ (permutation, column) pairs a step -------
+    for (int64_t q0 = 0; q0 < nq; q0 += kQ) {
+      __syncthreads();  // the previous step's readers are done
+      // Stage the step's basis entries: v_rows at the tile's 64 rows and
+      // v_cols at each register tile's 64 columns, 0 past nr, n or Q.
+      // kThreads is a multiple of kQ, so a thread stages one pair q (its
+      // (p, k) found once a step) at rows kRowStep apart.
+      {
+        const int qq = threadIdx.x % kQ;
+        const int64_t q = q0 + qq;
+        const bool live = q < nq;
+        const int64_t p = live ? q / n_cols : 0, k = live ? q % n_cols : 0;
+        const float* __restrict__ vr_q = v_rows + p * nr * n_cols + k;
+        const float* __restrict__ vc_q = v_cols + p * n * n_cols + k;
+        for (int r = threadIdx.x / kQ; r < kTile; r += kRowStep) {
+          const int64_t i = i0 + r;
+          vr_s[qq][r] = live && i < nr ? vr_q[i * n_cols] : 0.f;
+#pragma unroll
+          for (int t = 0; t < kRegTiles; ++t) {
+            const int64_t j = (jt0 + sub + t) * kTile + r;
+            vc_s[t][qq][r] = live && j < n ? vc_q[j * n_cols] : 0.f;
+          }
+        }
+      }
+      __syncthreads();
+      // sum_{ii, jj} v_r[ii] D2[ii][jj] v_c[jj] over the thread's pairs
+      float part[kQ];
+#pragma unroll
+      for (int qq = 0; qq < kQ; ++qq) {
+        float y[kMicro] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int t = 0; t < kRegTiles; ++t) {
+          const float4 c =
+              *reinterpret_cast<const float4*>(&vc_s[t][qq][tx * kMicro]);
+#pragma unroll
+          for (int ii = 0; ii < kMicro; ++ii) {
+            y[ii] = fmaf(d2[t][ii][0], c.x, y[ii]);
+            y[ii] = fmaf(d2[t][ii][1], c.y, y[ii]);
+            y[ii] = fmaf(d2[t][ii][2], c.z, y[ii]);
+            y[ii] = fmaf(d2[t][ii][3], c.w, y[ii]);
+          }
+        }
+        const float4 rv =
+            *reinterpret_cast<const float4*>(&vr_s[qq][ty * kMicro]);
+        float s = y[0] * rv.x;
+        s = fmaf(y[1], rv.y, s);
+        s = fmaf(y[2], rv.z, s);
+        part[qq] = fmaf(y[3], rv.w, s);
+      }
+      transpose_reduce_step<16>(part, lane);
+      transpose_reduce_step<8>(part, lane);
+      transpose_reduce_step<4>(part, lane);
+      transpose_reduce_step<2>(part, lane);
+      transpose_reduce_step<1>(part, lane);
+      warp_sum[warp][lane] = part[0];
+      __syncthreads();
+      // a fixed-order sum over the 8 warps; the block owns these partials,
+      // so later register tiles of its strip add to them in place
+      const int64_t q = q0 + threadIdx.x;
+      if (threadIdx.x < kQ && q < nq) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) s += warp_sum[w][threadIdx.x];
+        s *= 0.5f;
+        out[q] = sub == 0 ? s : out[q] + s;
+      }
+    }
+  }
+#pragma unroll
+  for (int ii = 0; ii < kMicro; ++ii) {
+    const int64_t i = i0 + ty * kMicro + ii;
+    if (tx == 0 && i < nr) rs_part[i * n_strips + blockIdx.y] = rsum[ii];
+  }
+}
+
 template <class M>
 int launch(const void* xr, const void* xc, const void* g_rows,
            const void* g_cols, const void* inv_gs, void* sw_part,
@@ -297,6 +526,21 @@ int launch(const void* xr, const void* xc, const void* g_rows,
   return (int)cudaGetLastError();
 }
 
+template <class M>
+int launch_cols(const void* xr, const void* xc, const void* v_rows,
+                const void* v_cols, void* s_part, void* rs_part, int64_t nr,
+                int64_t n, int64_t d, int64_t n_perms, int64_t n_cols,
+                int64_t row_offset, int64_t n_valid, cudaStream_t stream) {
+  const int64_t ntj = (n + kTile - 1) / kTile;
+  const dim3 grid((unsigned)((nr + kTile - 1) / kTile),
+                  (unsigned)((ntj + kStripTiles - 1) / kStripTiles));
+  fused_sw_cols_kernel<M><<<grid, kThreads, 0, stream>>>(
+      (const float*)xr, (const float*)xc, (const float*)v_rows,
+      (const float*)v_cols, (float*)s_part, (float*)rs_part, nr, n, d,
+      n_perms, n_cols, row_offset, n_valid);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -306,6 +550,13 @@ void fused_sw_config(int* out) {
   out[0] = kTile;
   out[1] = kPermBlock;
   out[2] = kThreads;
+}
+
+// out: kStripTiles, kRegTiles, kQ.
+void fused_sw_cols_config(int* out) {
+  out[0] = kStripTiles;
+  out[1] = kRegTiles;
+  out[2] = kQ;
 }
 
 // kind: 0 braycurtis, 1 euclidean, 2 jaccard. xr (nr, d), xc (n, d) f32;
@@ -336,6 +587,40 @@ int fused_sw_launch(int kind, const void* xr, const void* xc,
       return launch<Jaccard>(xr, xc, g_rows, g_cols, inv_gs, sw_part,
                             rs_part, nr, n, d, n_perms, n_groups,
                             row_offset, n_valid, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// kind: 0 braycurtis, 1 euclidean, 2 jaccard. xr (nr, d), xc (n, d) f32;
+// v_rows (P, nr, K), v_cols (P, n, K) f32. s_part (n_strips *
+// ceil(nr/64), P * K) and rs_part (nr, n_strips) f32, n_strips =
+// ceil(ceil(n/64) / kStripTiles).
+int fused_sw_cols_launch(int kind, const void* xr, const void* xc,
+                         const void* v_rows, const void* v_cols,
+                         void* s_part, void* rs_part, long long nr,
+                         long long n, long long d, long long n_perms,
+                         long long n_cols, long long row_offset,
+                         long long n_valid, void* stream) {
+  const long long ntj = (n + kTile - 1) / kTile;
+  if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_cols < 1 ||
+      row_offset < 0 || n_valid < 1 || n_valid > n ||
+      (nr + kTile - 1) / kTile > 0x7fffffffLL ||
+      (ntj + kStripTiles - 1) / kStripTiles > kMaxGridY)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (kind) {
+    case 0:
+      return launch_cols<BrayCurtis>(xr, xc, v_rows, v_cols, s_part,
+                                     rs_part, nr, n, d, n_perms, n_cols,
+                                     row_offset, n_valid, s);
+    case 1:
+      return launch_cols<Euclidean>(xr, xc, v_rows, v_cols, s_part,
+                                    rs_part, nr, n, d, n_perms, n_cols,
+                                    row_offset, n_valid, s);
+    case 2:
+      return launch_cols<Jaccard>(xr, xc, v_rows, v_cols, s_part,
+                                  rs_part, nr, n, d, n_perms, n_cols,
+                                  row_offset, n_valid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

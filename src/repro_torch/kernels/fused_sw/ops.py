@@ -3,18 +3,21 @@
 Twin of `repro/kernels/fused_sw/ops.py`. `fused_sw_rows` is the streaming
 unit of the pipeline's fused-kernel bridge: s_W partials and Gower row
 sums for one permutation chunk over one row slab, with the D^2 tiles never
-leaving the kernel's registers. The slab is the whole table on one card;
-`row_offset` keeps the sharding contract (partials of disjoint slabs sum
-to the full statistic). It checks its operands, then
+leaving the kernel's registers; `fused_sw_rows_cols` is the same unit for
+a dense design (per-column quadratic forms of a permuted basis). The slab
+is the whole table on one card; `row_offset` keeps the sharding contract
+(partials of disjoint slabs sum to the full statistic). Each checks its
+operands, then
 
-  * on CPU tensors runs the plain version (`ref.fused_sw_ref`);
-  * on CUDA tensors launches the kernel on the current stream, without
+  * on CPU tensors runs the plain version (`ref.fused_sw_ref`,
+    `ref.fused_sw_cols_ref`);
+  * on CUDA tensors launches its kernel on the current stream, without
     synchronising, and reduces its partials with two deterministic
     `torch.sum`s — or raises.
 
-There is no fallback from the kernel to the plain version. The library is
+There is no fallback from a kernel to its plain version. The library is
 built from the source at first use (`kernels/_build.py`). `LAUNCHES`
-counts kernel launches.
+counts kernel launches, one counter per kernel.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ KERNEL_METRIC = {"euclidean": "euclidean", "braycurtis": "braycurtis",
                  "jaccard": "jaccard", "aitchison": "euclidean"}
 FUSED_METRICS = ("euclidean", "braycurtis", "jaccard")
 _KIND = {"braycurtis": 0, "euclidean": 1, "jaccard": 2}   # the C switch
-LAUNCHES = {"fused_sw": 0}
+LAUNCHES = {"fused_sw": 0, "fused_sw_cols": 0}
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_sw.cu"
 TILE = 64                   # kTile in the source
+STRIP_TILES = 8             # kStripTiles: column tiles per cols block
 _MAX_GRID_Y = 65535
 _lib = None
 
@@ -45,6 +49,9 @@ SIGNATURES = {
     "fused_sw_config": ([_PTR], None),
     "fused_sw_launch": ([_I32] + [_PTR] * 7 + [_I64] * 4
                         + [_I32, _I64, _I64, _PTR], _I32),
+    "fused_sw_cols_config": ([_PTR], None),
+    "fused_sw_cols_launch": ([_I32] + [_PTR] * 6 + [_I64] * 7 + [_PTR],
+                             _I32),
 }
 
 
@@ -59,9 +66,11 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
         tile = kernel_config(lib)["tile"]
-        if tile != TILE:
+        strip = cols_kernel_config(lib)["strip_tiles"]
+        if (tile, strip) != (TILE, STRIP_TILES):
             raise RuntimeError(f"{SOURCE.name} was compiled with kTile = "
-                               f"{tile}; ops.TILE is {TILE}")
+                               f"{tile}, kStripTiles = {strip}; ops has "
+                               f"{TILE}, {STRIP_TILES}")
         _lib = lib
     return _lib
 
@@ -71,6 +80,13 @@ def kernel_config(lib: ctypes.CDLL) -> dict:
     out = (ctypes.c_int * 3)()
     lib.fused_sw_config(out)
     return {"tile": out[0], "perm_block": out[1], "threads": out[2]}
+
+
+def cols_kernel_config(lib: ctypes.CDLL) -> dict:
+    """The dense-design kernel's constants compiled into the library."""
+    out = (ctypes.c_int * 3)()
+    lib.fused_sw_cols_config(out)
+    return {"strip_tiles": out[0], "reg_tiles": out[1], "q_step": out[2]}
 
 
 def partial_shapes(nr: int, n: int, n_perms: int):
@@ -95,7 +111,38 @@ def workspace_bytes(nr: int, n: int, n_perms: int) -> int:
     return 4 * (a * b + c * e)
 
 
-def _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid):
+def _strips(n: int) -> int:
+    """Strips of STRIP_TILES column tiles covering n columns."""
+    return -(-(-(-n // TILE)) // STRIP_TILES)
+
+
+def cols_partial_shapes(nr: int, n: int, n_perms: int, n_cols: int):
+    """Shapes of the dense-design kernel's partials: one (P * K) row per
+    (row tile, strip of STRIP_TILES column tiles) and one row sum per
+    (row, strip)."""
+    return (_strips(n) * -(-nr // TILE), n_perms * n_cols), (nr, _strips(n))
+
+
+def alloc_cols_workspace(nr: int, n: int, n_perms: int, n_cols: int,
+                         device) -> tuple:
+    """Partial buffers for dense-design launches of up to n_perms
+    permutations and n_cols columns over an nr-row slab, allocated once
+    and reused by every chunk of a sweep."""
+    s_shape, rs_shape = cols_partial_shapes(nr, n, n_perms, n_cols)
+    return (torch.empty(s_shape[0] * s_shape[1], dtype=torch.float32,
+                        device=device),
+            torch.empty(rs_shape[0] * rs_shape[1], dtype=torch.float32,
+                        device=device))
+
+
+def cols_workspace_bytes(nr: int, n: int, n_perms: int, n_cols: int) -> int:
+    (a, b), (c, e) = cols_partial_shapes(nr, n, n_perms, n_cols)
+    return 4 * (a * b + c * e)
+
+
+def _check_common(x_rows, x, row_offset, metric, n_valid):
+    """The checks both wrappers share: metric, feature tables, offset and
+    n_valid."""
     if metric not in KERNEL_METRIC:
         raise ValueError(f"unknown fused metric {metric!r}; one of "
                          f"{sorted(KERNEL_METRIC)}")
@@ -108,6 +155,25 @@ def _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid):
     if x_rows.shape[1] != x.shape[1]:
         raise ValueError(f"feature widths differ: {x_rows.shape[1]} vs "
                          f"{x.shape[1]}")
+    n = x.shape[0]
+    if row_offset < 0:
+        raise ValueError(f"row_offset must be >= 0, got {row_offset}")
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"n_valid must be in [1, {n}], got {n_valid}")
+
+
+def _check_devices(*tensors):
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: {devices}")
+    if tensors[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("operands must be contiguous")
+
+
+def _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid):
+    _check_common(x_rows, x, row_offset, metric, n_valid)
     nr, n = x_rows.shape[0], x.shape[0]
     if g_rows.dim() != 2 or g_cols.dim() != 2 \
             or tuple(g_rows.shape) != (g_cols.shape[0], nr) \
@@ -122,20 +188,27 @@ def _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid):
             or inv_gs.dtype != torch.float32:
         raise TypeError("inv_gs must be a non-empty 1-D float32 tensor, got "
                         f"{inv_gs.dtype} {tuple(inv_gs.shape)}")
-    devices = {t.device for t in (x_rows, x, g_rows, g_cols, inv_gs)}
-    if len(devices) != 1:
-        raise ValueError(f"operands on different devices: {devices}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
-    if not all(t.is_contiguous()
-               for t in (x_rows, x, g_rows, g_cols, inv_gs)):
-        raise ValueError("operands must be contiguous")
-    if row_offset < 0:
-        raise ValueError(f"row_offset must be >= 0, got {row_offset}")
-    if not 1 <= n_valid <= n:
-        raise ValueError(f"n_valid must be in [1, {n}], got {n_valid}")
+    _check_devices(x_rows, x, g_rows, g_cols, inv_gs)
     if -(-nr // TILE) > _MAX_GRID_Y:
         raise ValueError(f"{nr} rows exceed the kernel's grid")
+
+
+def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
+    _check_common(x_rows, x, row_offset, metric, n_valid)
+    nr, n = x_rows.shape[0], x.shape[0]
+    if v_rows.dim() != 3 or v_cols.dim() != 3 \
+            or tuple(v_rows.shape) != (v_cols.shape[0], nr, v_cols.shape[2]) \
+            or v_cols.shape[1] != n or v_cols.shape[0] < 1 \
+            or v_cols.shape[2] < 1:
+        raise ValueError(f"basis factors must be (P, {nr}, K) and (P, {n}, "
+                         f"K) with P, K >= 1, got {tuple(v_rows.shape)} and "
+                         f"{tuple(v_cols.shape)}")
+    if v_rows.dtype != torch.float32 or v_cols.dtype != torch.float32:
+        raise TypeError(f"basis factors must be float32, got "
+                        f"{v_rows.dtype} and {v_cols.dtype}")
+    _check_devices(x_rows, x, v_rows, v_cols)
+    if _strips(n) > _MAX_GRID_Y:
+        raise ValueError(f"{n} columns exceed the kernel's grid")
 
 
 def _launch(lib, metric, x_rows, x, g_rows, g_cols, inv_gs, row_offset,
@@ -210,3 +283,66 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     return _launch(lib, metric, x_rows, x, g_rows, g_cols, inv_gs,
                    row_offset, n_valid, stream, workspace)
+
+
+def _launch_cols(lib, metric, x_rows, x, v_rows, v_cols, row_offset,
+                 n_valid, stream: int, workspace=None):
+    """Launch the dense-design kernel on `stream`; (s_cols (P, K),
+    row_sums (nr,)) from its partials. `workspace`
+    (alloc_cols_workspace()) holds at least this call's."""
+    nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
+    p, k = v_cols.shape[0], v_cols.shape[2]
+    s_shape, rs_shape = cols_partial_shapes(nr, n, p, k)
+    if workspace is None:
+        workspace = alloc_cols_workspace(nr, n, p, k, x.device)
+    s_buf, rs_buf = workspace
+    if s_buf.numel() < s_shape[0] * s_shape[1] \
+            or rs_buf.numel() < rs_shape[0] * rs_shape[1]:
+        raise ValueError(f"workspace too small for {p} permutations x {k} "
+                         f"columns over ({nr}, {n})")
+    s_part = s_buf[:s_shape[0] * s_shape[1]].view(s_shape)
+    rs_part = rs_buf[:rs_shape[0] * rs_shape[1]].view(rs_shape)
+    err = lib.fused_sw_cols_launch(
+        _KIND[KERNEL_METRIC[metric]], x_rows.data_ptr(), x.data_ptr(),
+        v_rows.data_ptr(), v_cols.data_ptr(), s_part.data_ptr(),
+        rs_part.data_ptr(), nr, n, d, p, k, row_offset, n_valid, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_sw_cols kernel launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES["fused_sw_cols"] += 1
+    return s_part.sum(dim=0).view(p, k), rs_part.sum(dim=1)
+
+
+def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
+                       v_rows: torch.Tensor, v_cols: torch.Tensor,
+                       row_offset: int = 0, *, metric: str = "braycurtis",
+                       n_valid=None, workspace=None):
+    """Dense-design fused partial: per-COLUMN quadratic forms for one (row
+    slab x permutation chunk) cell (core.design's hat-matrix blocks in
+    place of the one-hot labels).
+
+    x_rows:   (nr, d) f32 prepared features of the slab's rows.
+    x:        (n, d) f32 prepared features of ALL samples (columns).
+    v_rows:   (P, nr, K) f32 permuted basis rows at the slab's GLOBAL rows.
+    v_cols:   (P, n, K) f32 permuted basis over all samples.
+    row_offset / n_valid / metric: as fused_sw_rows.
+
+    f32 features only (the precision modes come with the precision
+    slice). workspace: partial buffers from alloc_cols_workspace(),
+    reused across the chunks of a sweep (allocated per call when None;
+    unused on the CPU).
+
+    Returns (s_cols (P, K) f32, row_sums (nr,) f32). Summing the outputs
+    over disjoint row slabs gives the full per-column statistic and the
+    full row sums.
+    """
+    n_valid = x.shape[0] if n_valid is None else int(n_valid)
+    row_offset = int(row_offset)
+    _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid)
+    if x.device.type == "cpu":
+        return ref.fused_sw_cols_ref(x_rows, x, v_rows, v_cols, row_offset,
+                                     metric=metric, n_valid=n_valid)
+    lib = load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return _launch_cols(lib, metric, x_rows, x, v_rows, v_cols, row_offset,
+                        n_valid, stream, workspace)

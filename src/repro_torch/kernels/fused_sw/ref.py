@@ -7,6 +7,10 @@ the one-hot factors (`fstat.onehot_perm_factors` / `sw_matmul_contract`).
 The rows go in blocks, so the (block, n, d) Bray-Curtis intermediates stay
 bounded and the plain version also runs on the card at the paper's n.
 
+`fused_sw_cols_ref` is the plain version of the dense-design kernel: the
+same masked D^2 slab contracted per basis column
+(`fstat.sw_cols_contract`) instead of with one-hot labels.
+
 The reference's precision knobs (bf16 / fp8 / packed feature slabs) come
 with the precision slice; a nonzero value raises NotImplementedError.
 """
@@ -37,6 +41,25 @@ def reject_precision(tuning) -> None:
                      "precision")
 
 
+def _masked_d2_blocks(x_rows, x, row_offset, metric, n_valid):
+    """Yield (lo, hi, m2) over the slab's rows in blocks: the squared
+    distances of rows [lo, hi) against all samples, with pairs at or past
+    n_valid and the global diagonal row_offset + r == c zeroed."""
+    rows_fn = ROWS_FNS[{"aitchison": "euclidean"}.get(metric, metric)]
+    nr, n = x_rows.shape[0], x.shape[0]
+    xr = x_rows.to(torch.float32)
+    xc = x.to(torch.float32)
+    per_row = n * x.shape[1] if metric == "braycurtis" else n
+    block = max(1, _MAX_ELEMS // max(per_row, 1))
+    cols = torch.arange(n, device=x.device)[None, :]
+    for lo in range(0, nr, block):
+        hi = min(lo + block, nr)
+        d = rows_fn(xr[lo:hi], xc)
+        rows = row_offset + torch.arange(lo, hi, device=x.device)[:, None]
+        valid = (rows < n_valid) & (cols < n_valid) & (rows != cols)
+        yield lo, hi, torch.where(valid, d * d, 0.0)
+
+
 def fused_sw_ref(x_rows: torch.Tensor, x: torch.Tensor,
                  g_rows: torch.Tensor, g_cols: torch.Tensor,
                  inv_gs: torch.Tensor, row_offset: int, *,
@@ -51,25 +74,39 @@ def fused_sw_ref(x_rows: torch.Tensor, x: torch.Tensor,
     == c contribute nothing."""
     reject_precision(dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
                           feat_packed=feat_packed, feat_scale=feat_scale))
-    rows_fn = ROWS_FNS[{"aitchison": "euclidean"}.get(metric, metric)]
     nr, n = x_rows.shape[0], x.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
-    xr = x_rows.to(torch.float32)
-    xc = x.to(torch.float32)
-    per_row = n * x.shape[1] if metric == "braycurtis" else n
-    block = max(1, _MAX_ELEMS // max(per_row, 1))
     e = fstat.onehot_perm_factors(g_cols, inv_gs, torch.float32)  # (P, n, G)
-    cols = torch.arange(n, device=x.device)[None, :]
     s_w = torch.zeros(g_cols.shape[0], dtype=torch.float32, device=x.device)
     row_sums = torch.empty(nr, dtype=torch.float32, device=x.device)
-    for lo in range(0, nr, block):
-        hi = min(lo + block, nr)
-        d = rows_fn(xr[lo:hi], xc)
-        rows = row_offset + torch.arange(lo, hi, device=x.device)[:, None]
-        valid = (rows < n_valid) & (cols < n_valid) & (rows != cols)
-        m2 = torch.where(valid, d * d, 0.0)
+    for lo, hi, m2 in _masked_d2_blocks(x_rows, x, row_offset, metric,
+                                        n_valid):
         e_rows = fstat.onehot_perm_factors(g_rows[:, lo:hi], inv_gs,
                                            torch.float32)
         s_w = s_w + fstat.sw_matmul_contract(m2, e, e_rows)
         row_sums[lo:hi] = m2.sum(dim=1)
     return s_w, row_sums
+
+
+def fused_sw_cols_ref(x_rows: torch.Tensor, x: torch.Tensor,
+                      v_rows: torch.Tensor, v_cols: torch.Tensor,
+                      row_offset: int, *, metric: str = "braycurtis",
+                      n_valid=None):
+    """(s_cols (P, K) f32, row_sums (nr,) f32) for one row slab of a dense
+    design: s[p, k] = 1/2 sum_{r,c} D2[r, c] v_rows[p, r, k] v_cols[p, c, k]
+    over the masked squared distances (the mask of fused_sw_ref).
+
+    v_rows (P, nr, K) f32 permuted basis at the slab's GLOBAL rows; v_cols
+    (P, n, K) f32 permuted basis over all samples."""
+    nr, n = x_rows.shape[0], x.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    p, _, k = v_cols.shape
+    vc = v_cols.to(torch.float32)
+    s_cols = torch.zeros((p, k), dtype=torch.float32, device=x.device)
+    row_sums = torch.empty(nr, dtype=torch.float32, device=x.device)
+    for lo, hi, m2 in _masked_d2_blocks(x_rows, x, row_offset, metric,
+                                        n_valid):
+        s_cols = s_cols + fstat.sw_cols_contract(
+            m2, vc, v_rows[:, lo:hi].to(torch.float32))
+        row_sums[lo:hi] = m2.sum(dim=1)
+    return s_cols, row_sums

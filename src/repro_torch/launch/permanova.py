@@ -18,6 +18,12 @@ under one joint plan (distance kernel, bridge, s_W).
   PYTHONPATH=src python -m repro_torch.launch.permanova \
       --samples 25145 --perms 3999 --from-features
 
+  # a design: covariates (adjusted for, sequential terms), permutations
+  # within strata, sample weights; prints a per-term F / R2 / p table:
+  PYTHONPATH=src python -m repro_torch.launch.permanova \
+      --samples 25145 --perms 3999 --from-features \
+      --covariates age,depth --strata site:4 --weights
+
 Runs on the card (`--device cuda`, the default) and fails without one;
 `--device cpu` runs the plain PyTorch forms on the host.
 """
@@ -32,7 +38,7 @@ import torch
 from repro_torch import engine, pipeline
 from repro_torch.core.distance import (distance_matrix,
                                        validate_distance_matrix)
-from repro_torch.data.microbiome import synthetic_study
+from repro_torch.data.microbiome import synthetic_design, synthetic_study
 from repro_torch.hw import resolve_device
 
 IMPL_CHOICES = ["auto", "brute", "tiled", "matmul",
@@ -85,6 +91,21 @@ def main(argv=None) -> int:
                          "'braycurtis.cuda', 'euclidean.blocked'); "
                          "'auto' = pipeline planner; implies "
                          "--from-features")
+    ap.add_argument("--covariates", default=None, metavar="NAMES",
+                    help="comma-separated covariate names (synthetic "
+                         "standard-normal columns, e.g. 'age,depth'): the "
+                         "covariate design path, sequential adonis2-style "
+                         "terms with the grouping factor last (adjusted "
+                         "for the covariates); prints a per-term F/R2/p "
+                         "table; implies --from-features")
+    ap.add_argument("--strata", default=None, metavar="NAME[:K]",
+                    help="restrict permutations within K synthetic blocks "
+                         "(default K=4), e.g. 'site' or 'site:6' (vegan's "
+                         "strata=); implies --from-features")
+    ap.add_argument("--weights", action="store_true",
+                    help="weighted PERMANOVA: synthetic positive sample "
+                         "weights folded into the design basis; implies "
+                         "--from-features")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -94,8 +115,23 @@ def main(argv=None) -> int:
                                   effect_size=args.effect, seed=args.seed)
     budget = None if args.budget_mb is None else args.budget_mb * 2**20
 
+    covariates = strata = weights = None
+    design_path = (args.covariates is not None or args.strata is not None
+                   or args.weights)
+    if design_path:
+        cov_names = (tuple(c for c in args.covariates.split(",") if c)
+                     if args.covariates else ())
+        n_strata = 0
+        if args.strata is not None:
+            _, _, k = args.strata.partition(":")
+            n_strata = int(k) if k else 4
+        covariates, strata, weights = synthetic_design(
+            args.samples, covariate_names=cov_names, n_strata=n_strata,
+            weighted=args.weights, seed=args.seed)
+
     if args.from_features or args.materialize != "auto" \
-            or args.dist_impl != "auto" or args.fused_impl != "auto":
+            or args.dist_impl != "auto" or args.fused_impl != "auto" \
+            or design_path:
         t0 = time.perf_counter()
         res = pipeline.pipeline(
             torch.from_numpy(x), torch.from_numpy(grouping),
@@ -103,6 +139,7 @@ def main(argv=None) -> int:
             dist_impl=args.dist_impl, sw_impl=args.impl,
             materialize=args.materialize, chunk=args.chunk,
             fused_impl=args.fused_impl, memory_budget_bytes=budget,
+            covariates=covariates, strata=strata, weights=weights,
             device=dev)
         f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
         t_pa = time.perf_counter() - t0
@@ -114,6 +151,13 @@ def main(argv=None) -> int:
               f"({res.n_perms / t_pa:.1f} perms/s)")
         print(f"[permanova] F={f_stat:.6g} p={p_value:.6g} "
               f"R2={float(res.r2):.4g}")
+        if res.terms is not None:
+            print(f"[permanova] {'term':<12} {'df':>3} {'SS':>10} "
+                  f"{'F':>9} {'R2':>8} {'p':>8}")
+            for t in res.terms:
+                print(f"[permanova] {t.name:<12} {t.df:>3} "
+                      f"{float(t.ss):>10.4g} {float(t.f_stat):>9.4g} "
+                      f"{float(t.r2):>8.4g} {float(t.p_value):>8.4g}")
         return 0
 
     t0 = time.perf_counter()

@@ -18,8 +18,9 @@ and p under ONE plan:
   api         pipeline(), one study
 
 Entry points routing here: core.permanova.permanova(features, metric=...)
-and the launch CLI's --from-features. (Ordination, designs, out-of-core
-features and many-study runs come with later slices.)
+and the launch CLI's --from-features; designs (covariates, strata,
+weights) run through every bridge. (Ordination, out-of-core features and
+many-study runs come with later slices.)
 """
 
 from repro_torch.pipeline import (api, planner, registry,  # noqa: F401
@@ -32,4 +33,5 @@ from repro_torch.pipeline.registry import (DistanceImpl,  # noqa: F401
                                            get_fused, metrics, names)
 from repro_torch.pipeline.streaming import (  # noqa: F401
     FusedKernelStats, FusedStats, GowerStats, build_mat2_streaming,
-    fused_kernel_sw, fused_sw, gower_center, mat2_row_blocks)
+    fused_kernel_sw, fused_kernel_sw_design, fused_sw, fused_sw_design,
+    gower_center, mat2_row_blocks)

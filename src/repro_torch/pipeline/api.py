@@ -3,7 +3,10 @@
 Twin of `repro/pipeline/api.py` for one study on one device. Through the
 dense and stream bridges stage 1 and the bridge come from this package
 and stage 2 from engine.run; the fused and fused-kernel bridges compute
-s_W themselves (pipeline.streaming) and never hold an (n, n) array.
+s_W themselves (pipeline.streaming) and never hold an (n, n) array. A
+design (covariates, strata, weights, or a prebuilt core.design.Design)
+goes through `_pipeline_design`: the same bridges with engine.run_design
+or the sweeps' design twins, per-term F and p in `.terms`.
 `core.permanova.permanova()` delegates here when handed features instead
 of a matrix, and the launch CLI exposes it as `--from-features`.
 """
@@ -17,6 +20,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import engine, hw
+from repro_torch.core import design as _design
 from repro_torch.core import permutations
 from repro_torch.core.permanova import (PermanovaResult, _later, f_from_sw,
                                         p_value_from_null)
@@ -25,9 +29,10 @@ from repro_torch.pipeline import registry as _registry
 from repro_torch.pipeline import streaming as _streaming
 
 
-def pipeline(x, grouping, *, metric: str = "braycurtis",
+def pipeline(x, grouping=None, *, metric: str = "braycurtis",
              n_perms: int = 999, seed: int = 0,
              perms: Optional[torch.Tensor] = None,
+             index_perms: Optional[torch.Tensor] = None,
              n_groups: Optional[int] = None,
              dist_impl: str = "auto", sw_impl: str = "auto",
              materialize: str = "auto", row_block: Optional[int] = None,
@@ -64,22 +69,27 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
                  '<metric>.pallas' — '.dense', '.blocked').
     dist_tuning: overrides of the impl's knobs, e.g. {'packed': 1} for
                  jaccard's popcount kernel.
-    seed / perms: as engine.run — the port's labels from `seed`, or an
-                 explicit (n_perms + 1, n) int32 label tensor.
+    grouping:    (n,) labels, or a prebuilt core.design.Design (then
+                 covariates / strata / weights stay None).
+    covariates / strata / weights: a design (core.design.build):
+                 sequential per-term F and p in `.terms`, permutations
+                 within strata blocks; every bridge takes it.
+    seed / perms / index_perms: as engine.run — the port's draws from
+                 `seed`, an explicit (n_perms + 1, n) int32 label tensor
+                 (labels-mode designs only), or explicit (n_perms + 1, n)
+                 int32 index permutations.
     device:      'cuda' (default; raises without a card) or 'cpu'.
 
     Budgets split per stage: matrix/slab for distances,
-    memory_budget_bytes for s_W labels. mesh, ordination, covariates,
-    strata, weights, autotune, trace and out-of-core features (a slab
-    cache or its path) raise NotImplementedError naming their slice.
-    For the same labels every bridge gives the same F and p-value (to f32
-    accumulation order).
+    memory_budget_bytes for s_W labels. mesh (with or without a design),
+    ordination, autotune, trace and out-of-core features (a slab cache or
+    its path) raise NotImplementedError naming their slice. For the same
+    labels every bridge gives the same F and p-value (to f32 accumulation
+    order).
     """
     if isinstance(x, (str, os.PathLike)) or hasattr(x, "n_slabs"):
         raise _later("out-of-core features (a slab cache or its path)",
                      "out-of-core")
-    if covariates is not None or strata is not None or weights is not None:
-        raise _later("covariates/strata/weights (designs)", "designs")
     if mesh is not None:
         raise _later("mesh execution", "multi-device")
     if ordination is not None:
@@ -94,6 +104,32 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
         raise ValueError(f"features must be (n, d); got shape "
                          f"{tuple(x.shape)}")
     n, d = x.shape
+    design = None
+    if isinstance(grouping, _design.Design):
+        if covariates is not None or strata is not None \
+                or weights is not None:
+            raise ValueError("pass covariates/strata/weights either to "
+                             "pipeline() or inside the Design, not both")
+        design = grouping.to(dev)
+    elif covariates is not None or strata is not None or weights is not None:
+        design = _design.build(grouping=grouping, covariates=covariates,
+                               strata=strata, weights=weights,
+                               n_groups=n_groups, n=int(n), device=dev)
+    if design is not None and design.is_plain_labels:
+        grouping, n_groups, design = (design.grouping, design.n_groups,
+                                      None)
+    if design is not None:
+        return _pipeline_design(
+            x, design, metric=metric, n_perms=n_perms, seed=seed,
+            perms=perms, index_perms=index_perms, dist_impl=dist_impl,
+            sw_impl=sw_impl, materialize=materialize, row_block=row_block,
+            chunk=chunk, memory_budget_bytes=memory_budget_bytes,
+            matrix_budget_bytes=matrix_budget_bytes,
+            slab_budget_bytes=slab_budget_bytes, dist_tuning=dist_tuning,
+            fused_impl=fused_impl, fused_tuning=fused_tuning, dev=dev)
+    if grouping is None:
+        raise ValueError("pipeline needs grouping labels, covariates, or a "
+                         "Design")
     grouping = torch.as_tensor(grouping).to(dev, torch.int32)
     if n_groups is None:
         n_groups = int(grouping.max()) + 1
@@ -110,9 +146,9 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
         **{**pl.dist_tuning, **(dist_tuning or {})})
     if pl.materialize in _planner.FUSED_MODES:
         return _fused_bridge(pl, prepare(x), rows_fn, grouping, n_perms,
-                             n_groups, seed, perms)
+                             n_groups, seed, perms, index_perms)
     run_kw = dict(n_perms=n_perms, seed=seed, perms=perms,
-                  n_groups=n_groups, impl=sw_impl,
+                  index_perms=index_perms, n_groups=n_groups, impl=sw_impl,
                   memory_budget_bytes=memory_budget_bytes, chunk=chunk,
                   device=dev)
     if pl.materialize == "dense":
@@ -132,7 +168,8 @@ def pipeline(x, grouping, *, metric: str = "braycurtis",
 
 
 def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
-                  n_perms: int, n_groups: int, seed: int, perms):
+                  n_perms: int, n_groups: int, seed: int, perms,
+                  index_perms):
     """The fused and fused-kernel bridges: s_W from the streaming sweeps,
     then F and p as engine.run assembles them; the joint plan string is
     authoritative (no engine.run runs)."""
@@ -143,7 +180,7 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
         s_w, s_t, stats = _streaming.fused_sw(
             xprep, rows_fn, grouping, inv_gs, n_total,
             row_block=pl.row_block, chunk=pl.sw.chunk, seed=seed,
-            perms=perms)
+            perms=perms, index_perms=index_perms)
         ran = (f"rows={stats.row_block}x{stats.n_row_blocks} "
                f"chunks={stats.n_chunks} "
                f"slab={stats.peak_slab_bytes/2**20:.1f}MiB")
@@ -153,7 +190,7 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
             xprep, rows_fn, grouping, inv_gs, n_total, impl=fspec.kind,
             kernel_metric=fspec.kernel_metric, row_block=pl.row_block,
             chunk=pl.sw.chunk, tuning=pl.fused_tuning, seed=seed,
-            perms=perms)
+            perms=perms, index_perms=index_perms)
         ran = (f"{stats.impl} rows={stats.row_block} "
                f"chunks={stats.n_chunks} "
                f"slab={stats.peak_slab_bytes/2**20:.2f}MiB "
@@ -166,3 +203,113 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
         n_groups=n_groups, n_perms=n_perms,
         method=f"pipeline[{pl.dist_impl}->{pl.materialize}->{pl.sw.impl}]",
         plan=f"{pl.describe()} :: {ran}")
+
+
+def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
+                     metric: str, n_perms: int, seed: int, perms,
+                     index_perms, dist_impl: str, sw_impl: str,
+                     materialize: str, row_block, chunk,
+                     memory_budget_bytes, matrix_budget_bytes,
+                     slab_budget_bytes, dist_tuning, fused_impl,
+                     fused_tuning, dev: torch.device) -> PermanovaResult:
+    """features -> per-term F and p for a non-plain design.
+
+    Every bridge keeps its residency contract: dense and stream hand the
+    (squared) distance matrix to engine.run_design; the fused bridges
+    contract the permuted basis (dense designs) or strata-restricted
+    labels (one factor with strata) against D^2 row slabs or tiles as the
+    label sweeps do — only the right-hand operand changes.
+    """
+    n, d = (int(v) for v in x.shape)
+    if design.n != n:
+        raise ValueError(f"design is for n={design.n}, features are "
+                         f"({n}, {d})")
+    n_total = n_perms + 1
+    dense_mode = design.mode == _design.MODE_DENSE
+    if dense_mode and perms is not None:
+        raise ValueError("perms= (explicit labels) applies to labels-mode "
+                         "designs; a dense design takes index_perms=")
+    k = design.k_cols if dense_mode else None
+    n_groups_plan = (design.n_groups if design.n_groups is not None
+                     else design.rank)
+    pl = _planner.plan_pipeline(
+        n, d, n_total, n_groups_plan, backend=dev.type, metric=metric,
+        dist_impl=dist_impl, materialize=materialize, row_block=row_block,
+        matrix_budget_bytes=matrix_budget_bytes,
+        slab_budget_bytes=slab_budget_bytes,
+        memory_budget_bytes=memory_budget_bytes, sw_impl=sw_impl,
+        chunk=chunk, fused_impl=fused_impl, fused_tuning=fused_tuning,
+        design_cols=k)
+    prepare, rows_fn, dense_fn = _registry.get(pl.dist_impl).bound(
+        **{**pl.dist_tuning, **(dist_tuning or {})})
+    labels = dict(seed=seed, index_perms=index_perms)
+    if not dense_mode:
+        labels.update(perms=perms)
+
+    if pl.materialize in ("dense", "stream"):
+        run_kw = dict(n_perms=n_perms, impl=sw_impl,
+                      memory_budget_bytes=memory_budget_bytes, chunk=chunk,
+                      device=dev, **labels)
+        if pl.materialize == "dense":
+            res = engine.run_design(dense_fn(x), design, **run_kw)
+        else:
+            mat2, gower = _streaming.build_mat2_streaming(
+                prepare(x), rows_fn, block=pl.row_block)
+            res = engine.run_design(mat2, design, squared=True,
+                                    s_t=gower.s_t, **run_kw)
+    elif pl.materialize == "fused":
+        xprep = prepare(x)
+        if dense_mode:
+            s_cols, _, stats = _streaming.fused_sw_design(
+                xprep, rows_fn, design, n_total, row_block=pl.row_block,
+                chunk=pl.sw.chunk, **labels)
+            res = engine.design_result(
+                s_cols.to(torch.float32), design, n_objects=n,
+                n_perms=n_perms, method="pipeline-design[fused]",
+                plan=(f"rows={stats.row_block}x{stats.n_row_blocks} "
+                      f"chunks={stats.n_chunks} cols={k}"))
+        else:
+            inv_gs = permutations.inv_group_sizes(design.grouping,
+                                                  design.n_groups)
+            s_w, s_t, stats = _streaming.fused_sw(
+                xprep, rows_fn, design.grouping, inv_gs, n_total,
+                row_block=pl.row_block, chunk=pl.sw.chunk,
+                strata=design.strata, **labels)
+            res = engine.label_design_result(
+                s_w.to(torch.float32), s_t.to(torch.float32), design,
+                n_objects=n, n_perms=n_perms,
+                method="pipeline[fused+strata]",
+                plan=(f"rows={stats.row_block}x{stats.n_row_blocks} "
+                      f"chunks={stats.n_chunks} strata"))
+    else:   # fused-kernel (the planner validates the mode)
+        fspec = _registry.get_fused(pl.fused_impl)
+        xprep = prepare(x)
+        kw = dict(impl=fspec.kind, kernel_metric=fspec.kernel_metric,
+                  row_block=pl.row_block, chunk=pl.sw.chunk,
+                  tuning=pl.fused_tuning)
+        if dense_mode:
+            s_cols, _, stats = _streaming.fused_kernel_sw_design(
+                xprep, rows_fn, design, n_total, **kw, **labels)
+            res = engine.design_result(
+                s_cols.to(torch.float32), design, n_objects=n,
+                n_perms=n_perms,
+                method=f"pipeline-design[fused-kernel:{stats.impl}]",
+                plan=(f"{stats.impl} rows={stats.row_block} "
+                      f"chunks={stats.n_chunks} cols={k} "
+                      f"slab={stats.peak_slab_bytes/2**20:.2f}MiB "
+                      f"labels={stats.peak_label_bytes/2**20:.2f}MiB"))
+        else:
+            inv_gs = permutations.inv_group_sizes(design.grouping,
+                                                  design.n_groups)
+            s_w, s_t, stats = _streaming.fused_kernel_sw(
+                xprep, rows_fn, design.grouping, inv_gs, n_total,
+                strata=design.strata, **kw, **labels)
+            res = engine.label_design_result(
+                s_w.to(torch.float32), s_t.to(torch.float32), design,
+                n_objects=n, n_perms=n_perms,
+                method=f"pipeline[fused-kernel:{stats.impl}+strata]",
+                plan=(f"{stats.impl} rows={stats.row_block} "
+                      f"chunks={stats.n_chunks} strata"))
+    return dataclasses.replace(
+        res, plan=(f"{pl.describe_stage1()} | {pl.reason} :: {res.plan} "
+                   f"({design.describe()})"))

@@ -15,7 +15,9 @@ in one place:
   fused     for 'fused-kernel', which single-pass impl runs it and its
             tuning (registry defaults <- caller knobs)
   stage 2   the engine Plan (impl + streaming chunk) for s_W, delegated to
-            repro_torch.engine.planner
+            repro_torch.engine.planner (for a dense design, `design_cols`
+            = K basis columns: the per-column companion and a chunk sized
+            for the (chunk, n, K) basis factor)
 
 On 'cuda' stage 1 is always `<metric>.cuda` and the fused-kernel sweep
 `<metric>.fusedk.cuda`: the kernels mask ragged shapes, so the TPU's
@@ -169,7 +171,8 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
                   sw_impl: Optional[str] = None,
                   chunk: Optional[int] = None,
                   fused_impl: Optional[str] = None,
-                  fused_tuning: Optional[Dict[str, int]] = None
+                  fused_tuning: Optional[Dict[str, int]] = None,
+                  design_cols: Optional[int] = None
                   ) -> PipelinePlan:
     """Resolve the full two-stage plan for one problem.
 
@@ -180,6 +183,9 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     'cuda' / 'torch' (or the reference's 'pallas' / 'xla'), or a fused
     registry name. fused_tuning: caller overrides of the fused impl's
     knobs; a nonzero precision knob raises NotImplementedError.
+    design_cols: the dense-design basis width K (covariates / weights /
+    several factors); the fused chunk and the engine plan are sized for K
+    basis columns instead of G one-hot groups.
     """
     matrix_budget = (DEFAULT_MATRIX_BUDGET_BYTES
                      if matrix_budget_bytes is None else matrix_budget_bytes)
@@ -232,13 +238,17 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     if mat in FUSED_MODES and pinned_sw is None:
         pinned_sw = "matmul"
     if mat in FUSED_MODES and chunk is None:
+        # the fused step's working set is the one-hot block (chunk, n, G)
+        # and its (n, chunk*G) reshape; a dense design's basis factor
+        # swaps G for K
         budget = (_eplanner.DEFAULT_STREAM_BUDGET_BYTES
                   if memory_budget_bytes is None else memory_budget_bytes)
-        per_perm = 4.0 * n * (2 * n_groups + 1)
+        cols = n_groups if design_cols is None else design_cols
+        per_perm = 4.0 * n * (2 * cols + 1)
         chunk = int(max(1, min(budget // per_perm, n_perms)))
     sw = _eplanner.plan(n, n_perms, backend=backend, impl=pinned_sw,
                         memory_budget_bytes=memory_budget_bytes,
-                        chunk=chunk)
+                        chunk=chunk, n_cols=design_cols)
     if mat in FUSED_MODES:
         # the fused bridges contract s_W themselves: no s_W kernel runs
         sw = dataclasses.replace(sw, kernel=None)

@@ -264,15 +264,15 @@ class FusedImpl:
     Unlike DistanceImpl, a fused impl produces no distance operand at all:
     it runs the whole features -> s_W sweep (pipeline.streaming's
     `fused_kernel_sw` dispatches on `kind`). `workset_bytes(n, d, chunk,
-    n_groups, row_block)` models its peak device residency beyond the
-    (n, d) features.
+    n_groups, row_block, n_cols=None)` models its peak device residency
+    beyond the (n, d) features; n_cols = K for a dense design.
     """
     name: str                      # "<metric>.fusedk.<kind>"
     metric: str
     kind: str                      # 'cuda' | 'torch'
     backends: Tuple[str, ...]      # backends where this form is performant
     tuning: Mapping[str, int]
-    workset_bytes: Callable[[int, int, int, int, int], int]
+    workset_bytes: Callable[..., int]
     kernel_metric: str             # kernel body (aitchison -> euclidean)
     description: str = ""
 
@@ -316,17 +316,25 @@ def fused_names(*, metric: Optional[str] = None,
     return sorted(out)
 
 
-def _ws_fused_cuda(n, d, chunk, n_groups, row_block):
+def _ws_fused_cuda(n, d, chunk, n_groups, row_block, n_cols=None):
     # what the kernel's sweep holds: its partials, one s_W value per
     # (64 x 64 tile, permutation) and one row sum per (row, column tile),
-    # and the (chunk, n) int32 labels
+    # and the (chunk, n) int32 labels; for a dense design the cols
+    # kernel's partials, one (P, K) row per (row tile, strip) and one row
+    # sum per (row, strip), the index permutations and the (chunk, n, K)
+    # basis factor
     from repro_torch.kernels.fused_sw import ops
+    if n_cols is not None:
+        return (ops.cols_workspace_bytes(n, n, chunk, n_cols)
+                + 4 * chunk * n * (n_cols + 1))
     return ops.workspace_bytes(n, n, chunk) + 4 * chunk * n
 
 
-def _ws_fused_torch(n, d, chunk, n_groups, row_block):
-    # one (row_block, n) D^2 slab + the (chunk, n, G) one-hot factor
-    return 4 * row_block * n + 4 * chunk * n * (n_groups + 1)
+def _ws_fused_torch(n, d, chunk, n_groups, row_block, n_cols=None):
+    # one (row_block, n) D^2 slab + the (chunk, n, G) one-hot factor (the
+    # (chunk, n, K) basis factor for a dense design)
+    cols = n_groups if n_cols is None else n_cols
+    return 4 * row_block * n + 4 * chunk * n * (cols + 1)
 
 
 for _metric in ("euclidean", "aitchison", "braycurtis", "jaccard"):

@@ -21,11 +21,15 @@ Twin of `repro/pipeline/streaming.py` for one device. Three ways from an
            never leave registers), or its plain twin `fused_sw_onepass`
            (row blocks x chunks in torch) off the card.
 
-Labels are the port's counter-based draws from `seed` or slices of an
-explicit `perms` tensor (engine.scheduler's label source), so any
-chunking gives the same rows. s_W is accumulated, and s_T computed, in
-float64 on the device; the reference copies every chunk to host numpy.
-(Design, sharded and out-of-core sweeps come with later slices.)
+Labels are the port's counter-based draws from `seed` (within `strata`
+blocks when given) or slices of an explicit `perms` / `index_perms` tensor
+(engine.scheduler's label source), so any chunking gives the same rows.
+Each sweep has a `_design` twin for dense designs (core.design): index
+permutations gather the basis rows and the contraction is per column
+(`fstat.sw_cols_contract`, the fused_sw_cols kernel), (n_total, K) out.
+s_W is accumulated, and s_T computed, in float64 on the device; the
+reference copies every chunk to host numpy. (Sharded and out-of-core
+sweeps come with later slices.)
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import fstat
-from repro_torch.engine.scheduler import _check_perms, _labels
+from repro_torch.engine.scheduler import _check_perms, _index_perms, _labels
 from repro_torch.kernels.fused_sw import ops as _fops
 from repro_torch.kernels.fused_sw import ref as _fref
 
@@ -124,10 +128,11 @@ def _fused_sw_step(m2rows: torch.Tensor, labels: torch.Tensor,
 
 
 def _sweep(slabs, n: int, grouping, inv_gs, n_total: int, chunk: int,
-           seed: int, perms):
+           **label_src):
     """Outer loop over (lo_r, mat2 slab), inner over permutation chunks
-    (labels made again per slab). (s_w (n_total,) f64, row_sums (n,) f64,
-    number of slabs), all on the slabs' device."""
+    (labels made again per slab from `label_src`: seed, perms, strata,
+    index_perms as engine.scheduler._labels takes them). (s_w (n_total,)
+    f64, row_sums (n,) f64, number of slabs), all on the slabs' device."""
     dev = grouping.device
     s_w = torch.zeros((n_total,), dtype=torch.float64, device=dev)
     row_sums = torch.empty((n,), dtype=torch.float64, device=dev)
@@ -138,36 +143,127 @@ def _sweep(slabs, n: int, grouping, inv_gs, n_total: int, chunk: int,
                                                       dtype=torch.float64)
         for lo in range(0, n_total, chunk):
             hi = min(lo + chunk, n_total)
-            g = _labels(grouping, lo, hi, seed=seed, perms=perms)
+            g = _labels(grouping, lo, hi, **label_src)
             s_w[lo:hi] += _fused_sw_step(slab, g, inv_gs, lo_r)
     return s_w, row_sums, n_slabs
+
+
+def _fused_sw_step_cols(m2rows: torch.Tensor, v: torch.Tensor, lo_r: int,
+                        groups=()) -> torch.Tensor:
+    """Dense-design cousin of _fused_sw_step: the row-partial per-column
+    forms (chunk, K) of the permuted basis v (chunk, n, K) over mat2 rows
+    [lo_r, lo_r + len(m2rows)); `groups` (fstat.sparse_col_groups)
+    switches to the block-sparse form."""
+    v_rows = v[:, lo_r:lo_r + m2rows.shape[0]]
+    if groups:
+        return fstat.sw_cols_contract_sparse(m2rows, v, v_rows, groups)
+    return fstat.sw_cols_contract(m2rows, v, v_rows)
+
+
+def _design_strata(design, n: int, device) -> torch.Tensor:
+    """The design's strata, or zeros (the free draw) without them."""
+    if design.strata is not None:
+        return design.strata.to(device)
+    return torch.zeros((n,), dtype=torch.int32, device=device)
+
+
+def _sweep_cols(slabs, n: int, design, n_total: int, chunk: int, *,
+                seed: int, index_perms, groups=()):
+    """_sweep for a dense design: per (slab, chunk) cell, the chunk's
+    index permutations gather the basis and the per-column forms are
+    accumulated. (s_cols (n_total, K) f64, row_sums (n,) f64, number of
+    slabs)."""
+    basis = design.basis
+    dev = basis.device
+    strata = _design_strata(design, n, dev)
+    s_cols = torch.zeros((n_total, design.k_cols), dtype=torch.float64,
+                         device=dev)
+    row_sums = torch.empty((n,), dtype=torch.float64, device=dev)
+    n_slabs = 0
+    for lo_r, slab in slabs:
+        n_slabs += 1
+        row_sums[lo_r:lo_r + slab.shape[0]] = slab.sum(dim=1,
+                                                      dtype=torch.float64)
+        for lo in range(0, n_total, chunk):
+            hi = min(lo + chunk, n_total)
+            v = fstat.basis_perm_factors(basis, _index_perms(
+                strata, lo, hi, seed=seed, index_perms=index_perms))
+            s_cols[lo:hi] += _fused_sw_step_cols(slab, v, lo_r, groups)
+    return s_cols, row_sums, n_slabs
+
+
+def _label_src(n_total, n, *, seed, perms, strata, index_perms):
+    """The label source of a sweep (engine.scheduler._labels' keywords),
+    with explicit tensors checked against (n_total, n)."""
+    _check_perms(perms, n_total, n)
+    _check_perms(index_perms, n_total, n, "index_perms")
+    return dict(seed=seed, perms=perms, strata=strata,
+                index_perms=index_perms)
 
 
 def fused_sw(xprep: torch.Tensor, rows_fn: Callable, grouping: torch.Tensor,
              inv_gs: torch.Tensor, n_total: int, *, row_block: int,
              chunk: int, seed: int = 0,
-             perms: Optional[torch.Tensor] = None):
+             perms: Optional[torch.Tensor] = None,
+             strata: Optional[torch.Tensor] = None,
+             index_perms: Optional[torch.Tensor] = None):
     """s_W for permutation indices [0, n_total) without ever holding the
     (n, n) matrix: outer loop over mat2 row slabs (each built once by
     rows_fn, squared and diagonal-masked), inner loop over permutation
     chunks consuming the live slab.
 
-    seed / perms: the port's labels from `seed`, or an explicit
-    (n_total, n) int32 label tensor. Returns (s_w (n_total,) float64,
-    s_t 0-d float64, FusedStats), the tensors on xprep's device.
+    seed / perms / strata / index_perms: the port's labels from `seed`
+    (within `strata` blocks when given), or an explicit (n_total, n)
+    int32 label tensor, or the grouping gathered through explicit index
+    permutations. Returns (s_w (n_total,) float64, s_t 0-d float64,
+    FusedStats), the tensors on xprep's device.
     """
     n = int(xprep.shape[0])
-    _check_perms(perms, n_total, n)
+    src = _label_src(n_total, n, seed=seed, perms=perms, strata=strata,
+                     index_perms=index_perms)
     row_block = int(max(1, min(row_block, n)))
     chunk = int(max(1, min(chunk, n_total)))
     s_w, row_sums, n_slabs = _sweep(
         mat2_row_blocks(xprep, rows_fn, block=row_block), n, grouping,
-        inv_gs, n_total, chunk, seed, perms)
+        inv_gs, n_total, chunk, **src)
     stats = FusedStats(
         n_total=n_total, chunk=chunk, n_chunks=-(-n_total // chunk),
         row_block=row_block, n_row_blocks=n_slabs,
         peak_slab_bytes=4 * row_block * n, peak_label_bytes=4 * chunk * n)
     return s_w, row_sums.sum() / 2.0 / n, stats
+
+
+def fused_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
+                    n_total: int, *, row_block: int, chunk: int,
+                    seed: int = 0,
+                    index_perms: Optional[torch.Tensor] = None):
+    """The plain design sweep (the fused bridge, and the torch kind of
+    the fused-kernel bridge): per-column quadratic forms accumulated over
+    mat2 row slabs, nothing (n, n)-shaped ever resident. Strata-blocked
+    bases contract block-sparsely (each column group only touches its
+    strata's samples; the skipped terms are exact zeros).
+
+    Returns (s_cols (n_total, K) float64, s_t 0-d float64, FusedStats).
+    """
+    n = int(xprep.shape[0])
+    _check_perms(index_perms, n_total, n, "index_perms")
+    k = design.k_cols
+    groups = ()
+    if design.strata is not None:
+        groups = fstat.sparse_col_groups(design.basis, design.strata)
+        if len(groups) <= 1:   # dense support: the gather buys nothing
+            groups = ()
+    row_block = int(max(1, min(row_block, n)))
+    chunk = int(max(1, min(chunk, n_total)))
+    s_cols, row_sums, n_slabs = _sweep_cols(
+        mat2_row_blocks(xprep, rows_fn, block=row_block), n, design,
+        n_total, chunk, seed=seed, index_perms=index_perms, groups=groups)
+    stats = FusedStats(
+        n_total=n_total, chunk=chunk, n_chunks=-(-n_total // chunk),
+        row_block=row_block, n_row_blocks=n_slabs,
+        peak_slab_bytes=4 * row_block * n,
+        peak_label_bytes=4 * chunk * n * (k + 1))
+    return s_cols, row_sums.sum() / 2.0 / n, stats
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +287,9 @@ class FusedKernelStats(NamedTuple):
 def fused_sw_onepass(xprep: torch.Tensor, rows_fn: Callable,
                      grouping: torch.Tensor, inv_gs: torch.Tensor,
                      n_total: int, *, row_block: int, chunk: int,
-                     seed: int = 0, perms: Optional[torch.Tensor] = None):
+                     seed: int = 0, perms: Optional[torch.Tensor] = None,
+                     strata: Optional[torch.Tensor] = None,
+                     index_perms: Optional[torch.Tensor] = None):
     """The plain twin of the megakernel sweep: loops over row blocks x
     permutation chunks; each D^2 block is built once (masked by global
     index, squared) and consumed by every chunk before the next.
@@ -199,12 +297,13 @@ def fused_sw_onepass(xprep: torch.Tensor, rows_fn: Callable,
     Returns (s_w (n_total,) float64, s_t 0-d float64, FusedKernelStats).
     """
     n = int(xprep.shape[0])
-    _check_perms(perms, n_total, n)
+    src = _label_src(n_total, n, seed=seed, perms=perms, strata=strata,
+                     index_perms=index_perms)
     block = int(max(1, min(row_block, n)))
     chunk = int(max(1, min(chunk, n_total)))
     s_w, row_sums, _ = _sweep(
         mat2_row_blocks(xprep, rows_fn, block=block), n, grouping, inv_gs,
-        n_total, chunk, seed, perms)
+        n_total, chunk, **src)
     stats = FusedKernelStats(
         impl="torch", n_total=n_total, chunk=chunk,
         n_chunks=-(-n_total // chunk), row_block=block,
@@ -217,7 +316,9 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
                         inv_gs: torch.Tensor, n_total: int, *,
                         kernel_metric: str, chunk: int,
                         tuning: Optional[dict] = None, seed: int = 0,
-                        perms: Optional[torch.Tensor] = None):
+                        perms: Optional[torch.Tensor] = None,
+                        strata: Optional[torch.Tensor] = None,
+                        index_perms: Optional[torch.Tensor] = None):
     """The fused sweep through the megakernel (kernels/fused_sw): one
     launch per permutation chunk covers every tile and permutation of the
     chunk, so the only device traffic per chunk is the feature table and
@@ -228,7 +329,8 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
     Returns (s_w (n_total,) float64, s_t 0-d float64, FusedKernelStats).
     """
     n = int(xprep.shape[0])
-    _check_perms(perms, n_total, n)
+    src = _label_src(n_total, n, seed=seed, perms=perms, strata=strata,
+                     index_perms=index_perms)
     chunk = int(max(1, min(chunk, n_total)))
     xprep = xprep.to(torch.float32).contiguous()
     workspace = (_fops.alloc_workspace(n, n, chunk, xprep.device)
@@ -237,7 +339,7 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
     row_sums = None
     for lo in range(0, n_total, chunk):
         hi = min(lo + chunk, n_total)
-        g = _labels(grouping, lo, hi, seed=seed, perms=perms)
+        g = _labels(grouping, lo, hi, **src)
         sw, rs = _fops.fused_sw_rows(xprep, xprep, g, g, inv_gs, 0,
                                      metric=kernel_metric,
                                      workspace=workspace, **(tuning or {}))
@@ -252,12 +354,58 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
     return s_w, row_sums.sum(dtype=torch.float64) / 2.0 / n, stats
 
 
+def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
+                               kernel_metric: str, chunk: int,
+                               tuning: Optional[dict] = None, seed: int = 0,
+                               index_perms: Optional[torch.Tensor] = None):
+    """The megakernel sweep for DENSE designs (kernels/fused_sw's
+    fused_sw_cols): one launch per permutation chunk, fed the chunk's
+    permuted basis (chunk, n, K) in place of labels; the partial buffers
+    are allocated once for the sweep. s_T comes from the first chunk's
+    row sums.
+
+    Returns (s_cols (n_total, K) float64, s_t 0-d float64,
+    FusedKernelStats).
+    """
+    _fref.reject_precision(tuning)
+    n = int(xprep.shape[0])
+    _check_perms(index_perms, n_total, n, "index_perms")
+    k = design.k_cols
+    basis = design.basis.to(torch.float32)
+    strata = _design_strata(design, n, basis.device)
+    chunk = int(max(1, min(chunk, n_total)))
+    xprep = xprep.to(torch.float32).contiguous()
+    workspace = (_fops.alloc_cols_workspace(n, n, chunk, k, xprep.device)
+                 if xprep.device.type == "cuda" else None)
+    s_cols = torch.empty((n_total, k), dtype=torch.float64,
+                         device=xprep.device)
+    row_sums = None
+    for lo in range(0, n_total, chunk):
+        hi = min(lo + chunk, n_total)
+        v = fstat.basis_perm_factors(basis, _index_perms(
+            strata, lo, hi, seed=seed, index_perms=index_perms))
+        sc, rs = _fops.fused_sw_rows_cols(xprep, xprep, v, v, 0,
+                                          metric=kernel_metric,
+                                          workspace=workspace)
+        s_cols[lo:hi] = sc
+        if row_sums is None:
+            row_sums = rs
+    stats = FusedKernelStats(
+        impl="cuda", n_total=n_total, chunk=chunk,
+        n_chunks=-(-n_total // chunk), row_block=_fops.TILE,
+        peak_slab_bytes=_fops.cols_workspace_bytes(n, n, chunk, k),
+        peak_label_bytes=4 * chunk * n * (k + 1))
+    return s_cols, row_sums.sum(dtype=torch.float64) / 2.0 / n, stats
+
+
 def fused_kernel_sw(xprep: torch.Tensor, rows_fn: Callable,
                     grouping: torch.Tensor, inv_gs: torch.Tensor,
                     n_total: int, *, impl: str, kernel_metric: str,
                     row_block: int, chunk: int,
                     tuning: Optional[dict] = None, seed: int = 0,
-                    perms: Optional[torch.Tensor] = None):
+                    perms: Optional[torch.Tensor] = None,
+                    strata: Optional[torch.Tensor] = None,
+                    index_perms: Optional[torch.Tensor] = None):
     """Dispatch the single-pass fused sweep to the planned implementation.
 
     impl: 'cuda' (the megakernel; its plain version on CPU tensors) or
@@ -265,14 +413,42 @@ def fused_kernel_sw(xprep: torch.Tensor, rows_fn: Callable,
     float64, s_t 0-d float64, FusedKernelStats) with the same statistic
     for the same labels.
     """
+    labels = dict(seed=seed, perms=perms, strata=strata,
+                  index_perms=index_perms)
     if impl == "cuda":
         return fused_sw_megakernel(
             xprep, grouping, inv_gs, n_total, kernel_metric=kernel_metric,
-            chunk=chunk, tuning=tuning, seed=seed, perms=perms)
+            chunk=chunk, tuning=tuning, **labels)
     if impl == "torch":
         _fref.reject_precision(tuning)
         return fused_sw_onepass(xprep, rows_fn, grouping, inv_gs, n_total,
-                                row_block=row_block, chunk=chunk, seed=seed,
-                                perms=perms)
+                                row_block=row_block, chunk=chunk, **labels)
+    raise ValueError(f"unknown fused-kernel impl {impl!r}; "
+                     "expected 'cuda' or 'torch'")
+
+
+def fused_kernel_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
+                           n_total: int, *, impl: str, kernel_metric: str,
+                           row_block: int, chunk: int,
+                           tuning: Optional[dict] = None, seed: int = 0,
+                           index_perms: Optional[torch.Tensor] = None):
+    """fused_kernel_sw for DENSE designs: 'cuda' runs
+    fused_sw_megakernel_design, 'torch' the plain sweep fused_sw_design.
+    Both return (s_cols (n_total, K) float64, s_t 0-d float64,
+    FusedKernelStats)."""
+    if impl == "cuda":
+        return fused_sw_megakernel_design(
+            xprep, design, n_total, kernel_metric=kernel_metric, chunk=chunk,
+            tuning=tuning, seed=seed, index_perms=index_perms)
+    if impl == "torch":
+        _fref.reject_precision(tuning)
+        s_cols, s_t, st = fused_sw_design(
+            xprep, rows_fn, design, n_total, row_block=row_block,
+            chunk=chunk, seed=seed, index_perms=index_perms)
+        return s_cols, s_t, FusedKernelStats(
+            impl="torch", n_total=st.n_total, chunk=st.chunk,
+            n_chunks=st.n_chunks, row_block=st.row_block,
+            peak_slab_bytes=st.peak_slab_bytes,
+            peak_label_bytes=st.peak_label_bytes)
     raise ValueError(f"unknown fused-kernel impl {impl!r}; "
                      "expected 'cuda' or 'torch'")

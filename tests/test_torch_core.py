@@ -301,13 +301,17 @@ def test_permanova_matches_reference(impl, small_study):
     {"covariates": {"age": np.zeros(48)}},
     {"strata": np.zeros(48, np.int32)},
     {"weights": np.ones(48)},
-    # the features path (metric=) runs now; designs on it are still later
+    # the features path (metric=) takes designs too
     {"metric": "braycurtis", "weights": np.ones(48)},
 ], ids=["covariates", "strata", "weights", "metric"])
 def test_permanova_later_slices_raise(kw, small_study):
+    """These options waited for the designs slice, which has landed: each
+    now runs and reports per-term statistics (test_torch_design.py holds
+    them against the reference)."""
     dm, grouping, _ = from_reference(*small_study[:2], device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        permanova(dm, grouping, n_perms=9, device="cpu", **kw)
+    res = permanova(dm, grouping, n_perms=9, device="cpu", **kw)
+    assert res.terms is not None and res.terms[-1].name == "grouping"
+    assert res.f_perms.shape == (10,) and 0.0 < float(res.p_value) <= 1.0
 
 
 def test_permanova_features_input_raises():

@@ -201,10 +201,18 @@ def test_run_seed_path_is_chunk_invariant():
 
 
 def test_run_designs_not_ported_yet():
+    """Designs came with the designs slice: a strata design now runs and
+    reports its term. What is not ported stays out: the many-study design
+    runs (no engine.permanova_many yet), and a custom sw_fn with a design
+    raises ValueError as in the reference."""
     dm, grouping, _, _, _ = _study("null48")
-    with pytest.raises(NotImplementedError, match="designs"):
+    res = engine.run(dm, grouping, strata=np.zeros(48, np.int32), n_perms=9,
+                     device="cpu")
+    assert res.terms is not None and res.method.endswith("+strata]")
+    assert not hasattr(engine, "permanova_many")
+    with pytest.raises(ValueError, match="sw_fn"):
         engine.run(dm, grouping, strata=np.zeros(48, np.int32),
-                   device="cpu")
+                   sw_fn=lambda *a: None, device="cpu")
 
 
 def test_run_defaults_to_cuda_and_raises_without_it():

@@ -26,7 +26,7 @@ from repro.core import permutations as jperm  # noqa: E402
 from repro.kernels.fused_sw import ops as jops  # noqa: E402
 from repro.kernels.fused_sw import ref as jref  # noqa: E402
 from repro.pipeline import streaming as jstreaming  # noqa: E402
-from repro_torch.core import distance, permutations  # noqa: E402
+from repro_torch.core import design, distance, permutations  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.fused_sw import ops, ref  # noqa: E402
 from repro_torch.pipeline import streaming  # noqa: E402
@@ -232,10 +232,14 @@ def test_wrapper_rejects(case, exc):
 
 def test_cpu_calls_launch_nothing():
     _, (xp, g, inv) = _operands("braycurtis")
+    v = torch.from_numpy(_basis(7, 3))
     before = dict(ops.LAUNCHES)
     for metric in METRICS:
         ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric=metric)
-    assert ops.LAUNCHES == before == {"fused_sw": before["fused_sw"]}
+        ops.fused_sw_rows_cols(xp, xp, v, v, 0, metric=metric)
+    assert ops.LAUNCHES == before == {
+        "fused_sw": before["fused_sw"],
+        "fused_sw_cols": before["fused_sw_cols"]}
 
 
 def test_partials_at_the_emp_shape():
@@ -248,6 +252,187 @@ def test_partials_at_the_emp_shape():
     assert ops.workspace_bytes(n, n, chunk) == \
         4 * (393 * 393 * chunk + n * 393)
     assert ops.workspace_bytes(n, n, chunk) < 1024 ** 3 // 4
+
+
+# ---------------------------------------------------------------------------
+# The dense-design kernel's wrapper and plain version (fused_sw_cols).
+# ---------------------------------------------------------------------------
+
+def _basis(n_perms, k, seed=6, n=N):
+    """(P, n, K) f32 permuted design basis: an orthonormal basis with an
+    intercept column, rows gathered by random permutations."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(np.concatenate(
+        [np.ones((n, 1)), rng.normal(size=(n, k - 1))], axis=1))
+    perms = np.stack([np.arange(n)] + [rng.permutation(n)
+                                       for _ in range(n_perms - 1)])
+    return q[perms].astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _cols_reference(metric, n_perms=6, k=5):
+    (prep, _, _), _ = _operands(metric)
+    v = _basis(n_perms, k)
+    sc, rs = jops.fused_sw_rows_cols(
+        jnp.asarray(prep), jnp.asarray(prep), jnp.asarray(v), jnp.asarray(v),
+        0, metric=metric, **TILES)
+    return np.asarray(sc), np.asarray(rs)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_cols_port_matches_reference_kernel(metric):
+    """ops.fused_sw_rows_cols on CPU tensors (the plain version) against
+    the reference's dense-design megakernel in interpret mode, prime n,
+    K = 5 (padded to 8 lanes there): rtol 2e-4, atol 1e-5."""
+    _, (xp, _, _) = _operands(metric)
+    v = torch.from_numpy(_basis(6, 5))
+    sc, rs = ops.fused_sw_rows_cols(xp, xp, v, v, 0, metric=metric)
+    sc_j, rs_j = _cols_reference(metric)
+    assert sc.dtype == rs.dtype == torch.float32
+    assert sc.shape == (6, 5) and rs.shape == (N,)
+    np.testing.assert_allclose(sc.numpy(), sc_j, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(rs.numpy(), rs_j, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_cols_plain_version_is_the_wrapper_on_cpu(metric):
+    _, (xp, _, _) = _operands(metric)
+    v = torch.from_numpy(_basis(4, 3))
+    got = ops.fused_sw_rows_cols(xp, xp, v, v, 0, metric=metric)
+    want = ref.fused_sw_cols_ref(xp, xp, v, v, 0, metric=metric)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_cols_offset_slabs_sum_to_the_full_call(metric):
+    """Slabs of 19 rows at their global offsets, over the table padded
+    with zero rows past n_valid = N (so the last slab is all pad rows and
+    gives exact zeros): the per-column partials sum to the full call and
+    the row sums concatenate to it."""
+    _, (xp, _, _) = _operands(metric, seed=3)
+    v = torch.from_numpy(_basis(5, 4, seed=3))
+    full, rs_full = ops.fused_sw_rows_cols(xp, xp, v, v, 0, metric=metric)
+    pad = 76 - N
+    xq = torch.nn.functional.pad(xp, (0, 0, 0, pad))
+    vq = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    acc, parts = torch.zeros_like(full), []
+    for lo in range(0, 76, 19):
+        sc, rs = ops.fused_sw_rows_cols(
+            xq[lo:lo + 19].contiguous(), xq, vq[:, lo:lo + 19].contiguous(),
+            vq, lo, metric=metric, n_valid=N)
+        acc += sc
+        parts.append(rs)
+    assert torch.all(sc == 0) and torch.all(rs == 0)   # rows 57-75: pad
+    torch.testing.assert_close(acc, full, rtol=SLAB_RTOL, atol=ATOL)
+    torch.testing.assert_close(torch.cat(parts)[:N], rs_full,
+                               rtol=SLAB_RTOL, atol=0)
+
+
+def test_cols_offset_slabs_match_the_reference_kernel():
+    """Odd slabs (odd n, a ragged last slab) against the reference's
+    kernel at the same offsets, with n_valid masking the last rows."""
+    (prep, _, _), (xp, _, _) = _operands("braycurtis", seed=3)
+    v = _basis(5, 7, seed=3)
+    vt = torch.from_numpy(v)
+    for lo in range(0, N, 23):
+        hi = min(lo + 23, N)
+        sc_j, rs_j = jops.fused_sw_rows_cols(
+            jnp.asarray(prep[lo:hi]), jnp.asarray(prep),
+            jnp.asarray(v[:, lo:hi]), jnp.asarray(v), lo,
+            metric="braycurtis", n_valid=N - 4, tile_r=8, tile_c=16,
+            feat_block=8, perm_block=2)
+        sc, rs = ops.fused_sw_rows_cols(xp[lo:hi].contiguous(), xp,
+                                        vt[:, lo:hi].contiguous(), vt, lo,
+                                        n_valid=N - 4)
+        np.testing.assert_allclose(sc.numpy(), np.asarray(sc_j), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(rs.numpy(), np.asarray(rs_j), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_cols_with_one_hot_columns_is_the_label_statistic():
+    """With the one-hot factor sqrt(1/n_g) 1[g_i == g] as the basis, the
+    per-column forms sum to the label kernel's s_W (rtol 1e-5)."""
+    _, (xp, g, inv) = _operands("euclidean")
+    from repro_torch.core import fstat
+    e = fstat.onehot_perm_factors(g, inv, torch.float32).contiguous()
+    sc, rs = ops.fused_sw_rows_cols(xp, xp, e, e, 0, metric="euclidean")
+    sw, rs_l = ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric="euclidean")
+    torch.testing.assert_close(sc.sum(dim=1), sw, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rs, rs_l, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("feat_bf16", 1), ("feat_fp8", 1), ("feat_packed", 1),
+    ("feat_scale", 0.5)])
+def test_cols_precision_knobs_raise_naming_their_slice(knob, value):
+    """The dense-design sweeps turn a precision knob in `tuning` away
+    before any work, in both kinds (the cols kernel is f32 only)."""
+    _, (xp, g, _) = _operands("jaccard")
+    des = design.build(grouping=g[0], covariates=xp[:, 0].double(),
+                       device="cpu")
+    assert des.mode == design.MODE_DENSE
+    rows = distance.ROW_METRICS["jaccard"].rows
+    for impl in ("cuda", "torch"):
+        with pytest.raises(NotImplementedError, match="precision slice"):
+            streaming.fused_kernel_sw_design(
+                xp, rows, des, 4, impl=impl, kernel_metric="jaccard",
+                row_block=8, chunk=2, tuning={knob: value})
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("unknown_metric", ValueError),
+    ("basis_2d", ValueError),
+    ("basis_rows", ValueError),
+    ("basis_k", ValueError),
+    ("basis_f64", TypeError),
+    ("not_contiguous", ValueError),
+    ("mixed_devices", ValueError),
+    ("negative_offset", ValueError),
+    ("n_valid_zero", ValueError),
+])
+def test_cols_wrapper_rejects(case, exc):
+    _, (xp, _, _) = _operands("braycurtis")
+    v = torch.from_numpy(_basis(3, 4))
+    kw = dict(metric="braycurtis")
+    vr, vc, off = v, v, 0
+    if case == "unknown_metric":
+        kw["metric"] = "cosine"
+    elif case == "basis_2d":
+        vr = v[0]
+    elif case == "basis_rows":
+        vr = v[:, :10].contiguous()
+    elif case == "basis_k":
+        vr = v[:, :, :2].contiguous()
+    elif case == "basis_f64":
+        vc = v.double()
+    elif case == "not_contiguous":
+        vc = v.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "mixed_devices":
+        vc = v.to("meta")
+    elif case == "negative_offset":
+        off = -1
+    elif case == "n_valid_zero":
+        kw["n_valid"] = 0
+    with pytest.raises(exc):
+        ops.fused_sw_rows_cols(xp, xp, vr, vc, off, **kw)
+
+
+def test_cols_partials_at_the_emp_design_chunk():
+    """One (P * K) partial per (row tile, strip of 8 column tiles) and one
+    row sum per (row, strip): 50 strips x 393 row tiles x 1,270 + 25,145
+    x 50 floats at the EMP design chunk (P = 127, K = 10), 100 MiB, under
+    the label kernel's 129.6 MiB; per-tile partials would be 785 MB."""
+    n, chunk, k = 25145, 127, 10
+    assert ops.cols_partial_shapes(n, n, chunk, k) == \
+        ((50 * 393, chunk * k), (n, 50))
+    assert ops.cols_workspace_bytes(n, n, chunk, k) == \
+        4 * (50 * 393 * chunk * k + n * 50)
+    assert ops.cols_workspace_bytes(n, n, chunk, k) < \
+        ops.workspace_bytes(n, n, 156) < 1024 ** 3 // 4
+    assert 4 * 393 * 393 * chunk * k > 7.8e8
+    assert ops.cols_partial_shapes(100, 70, 3, 2) == ((1 * 2, 6), (100, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -372,11 +557,15 @@ def test_ctypes_signature_matches_source():
 def test_source_names_what_it_replaces_and_its_constants():
     src = ops.SOURCE.read_text()
     assert "src/repro/kernels/fused_sw/kernel.py:193" in src
+    assert "src/repro/kernels/fused_sw/kernel.py:338" in src
     assert f"constexpr int kTile = {ops.TILE};" in src
+    assert f"constexpr int kStripTiles = {ops.STRIP_TILES};" in src
     functors = {"braycurtis": "BrayCurtis", "euclidean": "Euclidean",
                 "jaccard": "Jaccard"}
-    for metric, kind in ops._KIND.items():     # the wrapper's C switch
+    for metric, kind in ops._KIND.items():     # the wrapper's C switches
         assert f"case {kind}:\n      return launch<{functors[metric]}>" \
+            in src
+        assert f"case {kind}:\n      return launch_cols<{functors[metric]}>" \
             in src
     assert "cublas" not in src.lower() and "cudnn" not in src.lower()
     assert "atomicAdd" not in src and "fast_math" not in src.replace(

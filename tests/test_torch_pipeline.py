@@ -573,12 +573,14 @@ def test_not_ported_options_raise(case, tmp_path):
         x = str(tmp_path)
     elif case == "slab-cache":
         x = _slab_cache(tmp_path)
+    # designs run since the designs slice; a design with a mesh still
+    # raises (the multi-device slice), as the reference refuses it too
     elif case == "covariates":
-        kw["covariates"] = {"age": np.zeros(len(grouping))}
+        kw.update(covariates={"age": np.zeros(len(grouping))}, mesh=object())
     elif case == "strata":
-        kw["strata"] = np.zeros(len(grouping), np.int32)
+        kw.update(strata=np.zeros(len(grouping), np.int32), mesh=object())
     elif case == "weights":
-        kw["weights"] = np.ones(len(grouping))
+        kw.update(weights=np.ones(len(grouping)), mesh=object())
     with pytest.raises(NotImplementedError, match="slice"):
         pipeline.pipeline(x, torch.from_numpy(grouping), n_perms=9,
                           device="cpu", **kw)
