@@ -110,6 +110,41 @@ Phases, each timed:
    PyTorch call computes features -> per-column forms); and the rest of a
    design chunk: its index-permutation draw (free and within the 4
    strata) and its basis gather.
+14. Each feature mode of both fused kernels against its plain version in
+   the same mode (both sides see the same quantized values): bf16 and fp8
+   for euclidean, braycurtis and jaccard (on presence data), packed for
+   jaccard, at phase 8's and phase 11's check shapes (phase 8 / 11's bars)
+   and at the EMP chunks, (n, d, P, G) = (25145, 128, 156, 8) and (n, d,
+   P, K) = (25145, 128, 127, 10) (s_W within SW_MAIN_RTOL, s_cols within
+   SW_MAIN_RTOL * s_T); packed equal to the f32 jaccard kernel on the same
+   presence data bit for bit (s_W or s_cols, and row sums); the fp8 bytes
+   the wrapper hands the kernel equal to core.distance's cast on the CPU
+   (byte for byte the reference's); each mode's s_W drift from the f32
+   kernel at the EMP chunk logged and held to the reference's bars on raw
+   s_W against an fp64 oracle (2e-2 braycurtis and euclidean, 1e-5
+   jaccard); and the f32 fused_sw_cols at the EMP design chunk within
+   SW_MAIN_RTOL * s_T of an fp64 oracle (euclidean, jaccard), its plain
+   version's distance from it logged.
+15. pipeline() at the EMP shape with the default budgets at a precision
+   (fused_tuning = registry.precision_tuning(tag)): bf16 and fp8 on
+   Bray-Curtis, packed on jaccard, and the covariate design at bf16, fp8
+   and (jaccard) packed. Each launches its mode's kernel only, 26
+   fused_sw[tag] or 32 fused_sw_cols[tag]. Each is held to the plain
+   sweep at the same precision on the same labels, the dense bridge (6
+   GiB budget) on the table round-tripped through the mode: F at
+   rtol=1e-4 with p equal and the null within phase 9's f32 allowance,
+   or per term phase 12's bars; packed F, p and nulls equal to those of
+   the f32 jaccard run bit for bit. Each run's peak device memory above
+   its start is logged and held under the 1 GiB matrix budget.
+16. Each mode's kernel timed at its EMP chunk and at P = 1, beside its
+   plain version (timed in phase 14) and its bound counted both ways, by
+   operations and by bytes at the mode's element width (4 / 2 / 1 /
+   0.125 B a feature); then the STREAM probe (kernels/stream): copy,
+   scale, add and triad at 2^28 f32 elements (1 GiB an array), each
+   launched once through stream_op with its launch counted, checked
+   against its plain form on the card bit for bit, and timed beside one
+   PyTorch call of the same op and its byte bound, with its GB/s against
+   the datasheet's 3.35 TB/s.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -200,6 +235,21 @@ DESIGN_STRATA = 4
 DESIGN_K = 10
 COLS_CHUNK = 127
 COLS_LAUNCHES = 32
+# the feature modes (phases 14-16): the metrics each runs on, and the
+# reference's bars for a mode's raw s_W against an fp64 oracle
+# (tests/test_precision.py:197), held here against the f32 kernel
+MODE_METRICS = {"bf16": ("braycurtis", "euclidean", "jaccard"),
+                "fp8": ("braycurtis", "euclidean", "jaccard"),
+                "packed": ("jaccard",)}
+MODE_DRIFT = {"braycurtis": 2e-2, "euclidean": 2e-2, "jaccard": 1e-5}
+# the metric of each mode's main path (phase 15) and timing (phase 16)
+MODE_PATH_METRIC = {"bf16": "braycurtis", "fp8": "braycurtis",
+                    "packed": "jaccard"}
+MODE_BYTES = {"f32": 4.0, "bf16": 2.0, "fp8": 1.0, "packed": 0.125}
+STREAM_SOURCE = "src/repro_torch/kernels/stream/csrc/stream.cu"
+STREAM_REPLACES = "src/repro/kernels/stream/kernel.py:35"
+STREAM_N = 2 ** 28          # 1 GiB of f32 an array
+STREAM_SCALAR = 3.0
 
 
 def log(msg: str) -> None:
@@ -220,6 +270,22 @@ def check(cond: bool, msg: str) -> None:
 
 def rel_err(got, want) -> float:
     return float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+
+
+def cuda_ms_once(fn, warm) -> tuple:
+    """(ms, result) of one fn() call by CUDA events, after a warm-up call
+    of `warm` (e.g. fn at a small shape): a slow plain version timed on
+    the same call whose result is checked."""
+    import torch
+    warm()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
 
 
 def cuda_ms(fn, reps: int, warm=None) -> float:
@@ -296,19 +362,21 @@ def phase_header():
     from repro_torch.kernels.distance import ops as dops
     from repro_torch.kernels.fused_sw import ops as fops
     from repro_torch.kernels.permanova_sw import ops
+    from repro_torch.kernels.stream import ops as sops
     log(f"[smoke] card: {card_line()}")
     log(f"[smoke] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = [f.result() for f in [pool.submit(m.load_library)
-                                     for m in (ops, dops, fops)]]
+                                     for m in (ops, dops, fops, sops)]]
     log(f"[smoke] kernel build+load {time.perf_counter() - t0:.2f}s "
         f"({ops.SOURCE.name} -> {ops._build.library_path(ops.SOURCE).name}, "
         f"{dops.SOURCE.name} -> {dops._build.library_path(dops.SOURCE).name}"
         f", {fops.SOURCE.name} -> "
-        f"{fops._build.library_path(fops.SOURCE).name}) config "
+        f"{fops._build.library_path(fops.SOURCE).name}, {sops.SOURCE.name} "
+        f"-> {sops._build.library_path(sops.SOURCE).name}) config "
         f"{ops.kernel_config(libs[0])} {fops.kernel_config(libs[2])} "
         f"{fops.cols_kernel_config(libs[2])}")
 
@@ -356,17 +424,23 @@ def zero_launches():
     from repro_torch.kernels.distance import ops as dops
     from repro_torch.kernels.fused_sw import ops as fops
     from repro_torch.kernels.permanova_sw import ops
-    for counts in (ops.LAUNCHES, dops.LAUNCHES, fops.LAUNCHES):
+    from repro_torch.kernels.stream import ops as sops
+    for counts in (ops.LAUNCHES, dops.LAUNCHES, fops.LAUNCHES,
+                   sops.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches since zero_launches(), by kernel name."""
+    """Every kernel's launches since zero_launches(), by kernel name (a
+    fused kernel's mode as 'fused_sw[fp8]', a STREAM op as
+    'stream.triad')."""
     from repro_torch.kernels.distance import ops as dops
     from repro_torch.kernels.fused_sw import ops as fops
     from repro_torch.kernels.permanova_sw import ops
-    return {**ops.LAUNCHES, **dops.LAUNCHES, **fops.LAUNCHES}
+    from repro_torch.kernels.stream import ops as sops
+    return {**ops.LAUNCHES, **dops.LAUNCHES, **fops.LAUNCHES,
+            **{f"stream.{k}": v for k, v in sops.LAUNCHES.items()}}
 
 
 def phase_main_path(dev):
@@ -485,8 +559,9 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
         else:
             def plain(lab=labels):
                 return ref.sw_ref(mat2, lab, inv_gs)
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
+        got = kern()
+        # the plain version is timed on the call whose result is checked
+        plain_ms, want = cuda_ms_once(plain, warm=lambda: plain(small))
         err_abs = float((got - want).abs().max())
         err = rel_err(got, want)
         check(torch.allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -494,7 +569,6 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
               f"{v} kernel != plain at the main-path shape: rel {err:.3e} "
               f"(limit {SW_MAIN_RTOL})")
         ms = cuda_ms(kern, reps=3 if v != "brute" else 2)
-        plain_ms = cuda_ms(plain, reps=1, warm=lambda: plain(small))
         # the library yardstick for all three: one torch.matmul of mat2
         # with the (n, P*G) one-hot factor of these labels
         e = fstat.onehot_perm_factors(labels, inv_gs, mat2.dtype)
@@ -1479,6 +1553,497 @@ def phase_cols_timings(dev, x_np, grouping, paths, checked):
     }
 
 
+def mode_cases():
+    """(tag, metric) of every feature mode's kernel checks."""
+    return [(tag, m) for tag, ms in MODE_METRICS.items() for m in ms]
+
+
+def fp8_bytes_match(xp, metric) -> bool:
+    """The e4m3 bytes the wrapper hands the kernel for xp equal
+    core.distance's cast of the same values on the CPU (which the tests
+    hold byte for byte to the reference's)."""
+    import torch
+    from repro_torch.core import distance
+    from repro_torch.kernels.fused_sw import ops as fops
+    from repro_torch.kernels.fused_sw import ref as fref
+    q = fops.quantize_slabs(
+        xp, xp, *fref.resolve_precision(xp, metric, feat_fp8=1))[1]
+    xc = xp.cpu()
+    want = distance.fp8_quantize(xc, distance.fp8_metric_scale(xc, metric))
+    return torch.equal(q.view(torch.uint8).cpu(), want.view(torch.uint8))
+
+
+def cols_f64(xp, v, metric):
+    """(P, K) float64 per-column forms of the masked D^2 (an fp64 oracle
+    for the Gram-form metrics, euclidean and jaccard: the row primitive
+    and the contraction in float64, 2048 rows at a time)."""
+    import torch
+    from repro_torch.core import fstat
+    from repro_torch.kernels.fused_sw import ref as fref
+    n = xp.shape[0]
+    x64, v64 = xp.double(), v.double()
+    s = torch.zeros((v.shape[0], v.shape[2]), dtype=torch.float64,
+                    device=xp.device)
+    for lo in range(0, n, 2048):
+        hi = min(lo + 2048, n)
+        d = fref.ROWS_FNS[metric](x64[lo:hi], x64)
+        m2 = d * d
+        i = torch.arange(lo, hi, device=xp.device)
+        m2[i - lo, i] = 0.0
+        s += fstat.sw_cols_contract(m2, v64, v64[:, lo:hi])
+    return s
+
+
+def phase_mode_kernels(dev, x_np, grouping):
+    """Both fused kernels in each feature mode against their plain
+    versions in the same mode, at the check shapes and the EMP chunks;
+    packed against the f32 jaccard kernel bit for bit; the fp8 bytes.
+    Returns {(kernel, tag, metric): the EMP chunk's errors, drift and
+    plain time}."""
+    import torch
+    from repro_torch.core.distance import ROW_METRICS
+    from repro_torch.data.microbiome import synthetic_abundance
+    from repro_torch.kernels.fused_sw import ops as fops, ref as fref
+    from repro_torch.pipeline.registry import precision_tuning
+    for (n, d, p, g), (_, _, _, k) in zip(FUSED_CHECK_SHAPES,
+                                          COLS_CHECK_SHAPES):
+        x, labels, inv_gs = fused_instance(n, d, p, g, n + d + p, dev)
+        xv = torch.from_numpy(synthetic_abundance(n, d, seed=n + d)).to(dev)
+        v = design_basis(n, k, p, n + d + k, dev)
+        for metric in fops.FUSED_METRICS:
+            xp = ROW_METRICS[metric].prepare(x).contiguous()
+            xq = ROW_METRICS[metric].prepare(xv).contiguous()
+            f32 = fops.fused_sw_rows(xp, xp, labels, labels, inv_gs, 0,
+                                     metric=metric)
+            f32c = fops.fused_sw_rows_cols(xq, xq, v, v, 0, metric=metric)
+            for tag in [t for t, m in mode_cases() if m == metric]:
+                kn = precision_tuning(tag)
+                sw, rs = fops.fused_sw_rows(xp, xp, labels, labels, inv_gs,
+                                            0, metric=metric, **kn)
+                sw_p, rs_p = fref.fused_sw_ref(xp, xp, labels, labels,
+                                               inv_gs, 0, metric=metric,
+                                               **kn)
+                sc, rc = fops.fused_sw_rows_cols(xq, xq, v, v, 0,
+                                                 metric=metric, **kn)
+                sc_p, rc_p = fref.fused_sw_cols_ref(xq, xq, v, v, 0,
+                                                    metric=metric, **kn)
+                torch.cuda.synchronize()
+                check(sw.shape == (p,) and rs.shape == (n,)
+                      and bool(torch.isfinite(sw).all())
+                      and torch.allclose(sw, sw_p, rtol=FUSED_RTOL, atol=ATOL)
+                      and torch.allclose(rs, rs_p, rtol=FUSED_RTOL,
+                                         atol=ATOL),
+                      f"fused_sw[{tag}] {metric} != plain at "
+                      f"{(n, d, p, g)}: s_W rel {rel_err(sw, sw_p):.3e}")
+                check(sc.shape == (p, k) and bool(torch.isfinite(sc).all())
+                      and torch.allclose(sc, sc_p, rtol=FUSED_RTOL, atol=ATOL)
+                      and torch.allclose(rc, rc_p, rtol=FUSED_RTOL,
+                                         atol=ATOL),
+                      f"fused_sw_cols[{tag}] {metric} != plain at "
+                      f"{(n, d, p, k)}: s_cols abs "
+                      f"{float((sc - sc_p).abs().max()):.3e}")
+                extra = ""
+                if tag == "packed":
+                    check(torch.equal(sw, f32[0]) and torch.equal(rs, f32[1])
+                          and torch.equal(sc, f32c[0])
+                          and torch.equal(rc, f32c[1]),
+                          f"packed != the f32 jaccard kernels at "
+                          f"{(n, d, p)}")
+                    extra = "; equal to the f32 jaccard kernels bit for bit"
+                if tag == "fp8":
+                    check(fp8_bytes_match(xp, metric),
+                          f"fp8 bytes of the wrapper != the CPU cast "
+                          f"({metric}, n={n})")
+                    extra = "; fp8 bytes equal the CPU cast"
+                log(f"[smoke] mode {tag:6s} {metric:10s} (n,d,P,G|K)="
+                    f"{(n, d, p, g)}|{k}: fused_sw s_W max_rel_err="
+                    f"{rel_err(sw, sw_p):.3e}, fused_sw_cols s_cols "
+                    f"max_abs_err={float((sc - sc_p).abs().max()):.3e} vs "
+                    f"plain; s_W drift from f32 {rel_err(sw, f32[0]):.3e}"
+                    f"{extra}")
+
+    x, labels, inv_gs = emp_chunk(dev, x_np, grouping)
+    _, v = emp_cols_chunk(dev, x_np, grouping)
+    emp = {}
+    for metric in fops.FUSED_METRICS:
+        xp = ROW_METRICS[metric].prepare(x).contiguous()
+        small, small_lab = xp[:64].contiguous(), labels[:, :64].contiguous()
+        small_v = v[:, :64].contiguous()
+        f32 = fops.fused_sw_rows(xp, xp, labels, labels, inv_gs, 0,
+                                 metric=metric)
+        f32c = fops.fused_sw_rows_cols(xp, xp, v, v, 0, metric=metric)
+        if metric in ("euclidean", "jaccard"):
+            # the f32 kernel and its plain version against fp64 at the EMP
+            # design chunk: which side carries what error
+            s64 = cols_f64(xp, v, metric)
+            plain = fref.fused_sw_cols_ref(xp, xp, v, v, 0,
+                                           metric=metric)[0]
+            s_t = float(f32c[1].double().sum()) / 2.0 / EMP_N
+            e_k = float((f32c[0].double() - s64).abs().max()) / s_t
+            e_p = float((plain.double() - s64).abs().max()) / s_t
+            check(e_k <= SW_MAIN_RTOL,
+                  f"fused_sw_cols {metric} at the EMP design chunk "
+                  f"{e_k:.3e} s_T from fp64 (limit {SW_MAIN_RTOL})")
+            log(f"[smoke] fp64 oracle fused_sw_cols {metric} (n,d,P,K)="
+                f"{(EMP_N, EMP_FEATURES, COLS_CHUNK, DESIGN_K)}: the f32 "
+                f"kernel {e_k:.3e} s_T from fp64 (limit {SW_MAIN_RTOL}), its "
+                f"plain version {e_p:.3e} s_T")
+            del s64, plain
+        for tag in [t for t, m in mode_cases() if m == metric]:
+            kn = precision_tuning(tag)
+            sw, rs = fops.fused_sw_rows(xp, xp, labels, labels, inv_gs, 0,
+                                        metric=metric, **kn)
+            plain_ms, (sw_p, rs_p) = cuda_ms_once(
+                lambda: fref.fused_sw_ref(xp, xp, labels, labels, inv_gs, 0,
+                                          metric=metric, **kn),
+                warm=lambda: fref.fused_sw_ref(small, small, small_lab,
+                                               small_lab, inv_gs, 0,
+                                               metric=metric, **kn))
+            err = rel_err(sw, sw_p)
+            drift = rel_err(sw, f32[0])
+            check(bool(torch.isfinite(sw).all()) and err <= SW_MAIN_RTOL
+                  and torch.allclose(rs, rs_p, rtol=FUSED_RTOL, atol=ATOL),
+                  f"fused_sw[{tag}] {metric} != plain at the EMP chunk: s_W "
+                  f"rel {err:.3e} (limit {SW_MAIN_RTOL})")
+            check(drift <= MODE_DRIFT[metric],
+                  f"fused_sw[{tag}] {metric}: s_W drift from f32 "
+                  f"{drift:.3e} > the reference's bar {MODE_DRIFT[metric]}")
+            if tag == "packed":
+                check(torch.equal(sw, f32[0]) and torch.equal(rs, f32[1]),
+                      "packed fused_sw != the f32 jaccard kernel at the EMP "
+                      "chunk")
+            if tag == "fp8":
+                check(fp8_bytes_match(xp, metric),
+                      f"fp8 bytes of the wrapper != the CPU cast at the EMP "
+                      f"chunk ({metric})")
+            emp[("fused_sw", tag, metric)] = {
+                "max_abs_err": float((sw - sw_p).abs().max()),
+                "max_rel_err": err, "drift": drift, "plain_ms": plain_ms}
+            log(f"[smoke] mode {tag:6s} {metric:10s} fused_sw (n,d,P,G)="
+                f"{(EMP_N, EMP_FEATURES, FUSED_CHUNK, EMP_GROUPS)} s_W "
+                f"max_rel_err={err:.3e} (limit {SW_MAIN_RTOL}) vs plain "
+                f"({plain_ms:.3f} ms); s_W drift from the f32 kernel "
+                f"{drift:.3e} (the reference's bar {MODE_DRIFT[metric]}, "
+                f"{drift / MODE_DRIFT[metric]:.3g}x)")
+            del sw_p, rs_p
+
+            sc, rc = fops.fused_sw_rows_cols(xp, xp, v, v, 0, metric=metric,
+                                             **kn)
+            plain_ms, (sc_p, rc_p) = cuda_ms_once(
+                lambda: fref.fused_sw_cols_ref(xp, xp, v, v, 0,
+                                               metric=metric, **kn),
+                warm=lambda: fref.fused_sw_cols_ref(small, small, small_v,
+                                                    small_v, 0,
+                                                    metric=metric, **kn))
+            s_t = float(rc_p.double().sum()) / 2.0 / EMP_N
+            err_abs = float((sc - sc_p).abs().max())
+            drift = float((sc - f32c[0]).abs().max()) / s_t
+            check(bool(torch.isfinite(sc).all())
+                  and err_abs <= SW_MAIN_RTOL * s_t
+                  and torch.allclose(rc, rc_p, rtol=FUSED_RTOL, atol=ATOL),
+                  f"fused_sw_cols[{tag}] {metric} != plain at the EMP design "
+                  f"chunk: s_cols abs {err_abs:.3e} > {SW_MAIN_RTOL} s_T")
+            if tag == "packed":
+                check(torch.equal(sc, f32c[0]) and torch.equal(rc, f32c[1]),
+                      "packed fused_sw_cols != the f32 jaccard kernel at the "
+                      "EMP design chunk")
+            emp[("fused_sw_cols", tag, metric)] = {
+                "max_abs_err": err_abs, "max_abs_err_over_s_t": err_abs / s_t,
+                "drift_over_s_t": drift, "plain_ms": plain_ms}
+            log(f"[smoke] mode {tag:6s} {metric:10s} fused_sw_cols "
+                f"(n,d,P,K)={(EMP_N, EMP_FEATURES, COLS_CHUNK, DESIGN_K)} "
+                f"s_cols max_abs_err={err_abs / s_t:.3e} s_T (limit "
+                f"{SW_MAIN_RTOL} s_T) vs plain ({plain_ms:.3f} ms); drift "
+                f"from the f32 kernel {drift:.3e} s_T")
+            del sc_p, rc_p
+    return emp
+
+
+def mode_run(dev, tag, metric, x, g_dev, tuning, **kw):
+    """pipeline() at the EMP shape at a precision (tuning), with its own
+    launch counts, wall time and peak device memory above its start."""
+    import torch
+    from repro_torch import pipeline
+    zero_launches()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = pipeline.pipeline(x, g_dev, metric=metric, n_perms=EMP_PERMS,
+                            seed=0, device=dev, fused_tuning=tuning, **kw)
+    f, p = float(res.f_stat), float(res.p_value)              # waits
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    counts = launch_counts()
+    log(f"[smoke] precision {tag} {metric} n={EMP_N} perms={EMP_PERMS} "
+        f"{dt:.3f}s end to end F={f:.7g} p={p:.6g} peak device memory "
+        f"above the call's start {peak / 2**20:.1f} MiB launches="
+        f"{ {k: c for k, c in counts.items() if c} }")
+    log(f"[smoke] precision {tag} plan: {res.plan.split(' | ')[0]} :: "
+        f"{res.plan.split(' :: ')[-1]}")
+    return res, counts, peak
+
+
+def mode_table(x, metric, tag):
+    """The table as the mode's kernel sees it, in f32: the plain sweep's
+    input at that precision (fp8 at the table's scale)."""
+    from repro_torch.kernels.fused_sw import ref as fref
+    from repro_torch.pipeline.registry import precision_tuning
+    mode, scale = fref.resolve_precision(x, metric, **precision_tuning(tag))
+    return fref.roundtrip(x, mode, scale).contiguous()
+
+
+def phase_mode_pipeline(dev, x_np, grouping):
+    """pipeline() at the EMP shape, default budgets, at each precision:
+    plain labels (bf16, fp8 Bray-Curtis; packed jaccard) and the
+    covariate design (the same three); each its mode's kernel only, held
+    to the dense bridge on the round-tripped table (packed: to the f32
+    jaccard run, bit for bit). Returns the launch counts by path."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.kernels.fused_sw import ops as fops
+    from repro_torch.pipeline.registry import precision_tuning
+    x = torch.from_numpy(x_np).to(dev)
+    g_dev = torch.from_numpy(grouping).to(dev)
+    cov, *_ = emp_design(dev, x_np, grouping)
+    dense_budget = BRIDGE_BUDGETS["dense"]
+    paths = {}
+    for design in (False, True):
+        kw = dict(covariates=cov) if design else {}
+        kernel = "fused_sw_cols" if design else "fused_sw"
+        for tag in ("bf16", "fp8", "packed"):
+            metric = MODE_PATH_METRIC[tag]
+            name = f"{'design ' if design else ''}{tag}"
+            res, counts, peak = mode_run(dev, name, metric, x, g_dev,
+                                         precision_tuning(tag), **kw)
+            paths[name] = counts
+            want = {c: 0 for c in counts}
+            want[fops.launch_key(kernel, tag)] = (COLS_LAUNCHES if design
+                                                  else FUSED_LAUNCHES)
+            check(counts == want, f"precision {name} launches {counts} != "
+                  f"{want}")
+            check(res.plan.startswith(f"{metric}.fusedk.cuda[")
+                  and f"feat_{tag}=1" in res.plan.split(" -> ")[0],
+                  f"precision {name}: unexpected plan {res.plan!r}")
+            check(peak < DEFAULT_MATRIX_BUDGET,
+                  f"precision {name} peak {peak} B >= the matrix budget")
+            if tag == "packed":
+                base, base_counts, _ = mode_run(dev, f"{name} (f32 base)",
+                                                metric, x, g_dev, None, **kw)
+                want = {c: 0 for c in base_counts}
+                want[kernel] = COLS_LAUNCHES if design else FUSED_LAUNCHES
+                check(base_counts == want,
+                      f"f32 jaccard base launches {base_counts} != {want}")
+                pairs = (list(zip(res.terms, base.terms)) if design
+                         else [(res, base)])
+                for t, u in pairs:
+                    check(float(t.f_stat) == float(u.f_stat)
+                          and float(t.p_value) == float(u.p_value)
+                          and torch.equal(t.f_perms, u.f_perms),
+                          f"precision {name}: F/p/null != the f32 jaccard "
+                          f"run's ({float(t.f_stat)!r} vs "
+                          f"{float(u.f_stat)!r})")
+                log(f"[smoke] precision {name}: F, p and every null F equal "
+                    f"the f32 jaccard run's bit for bit"
+                    f"{' in every term' if design else ''}")
+                del base
+                if design:
+                    del res
+                    continue
+            t0 = time.perf_counter()
+            ref = pipeline.pipeline(
+                mode_table(x, metric, tag), g_dev, metric=metric,
+                n_perms=EMP_PERMS, seed=0, matrix_budget_bytes=dense_budget,
+                device=dev, **kw)
+            float(ref.f_stat)                                     # waits
+            dt = time.perf_counter() - t0
+            log(f"[smoke] precision {name}: the plain sweep at {tag} (dense "
+                f"bridge on the round-tripped table) {dt:.3f}s plan: "
+                f"{ref.plan.split(' | ')[0]}")
+            if design:
+                check_design_paths(f"precision {name}", res, ref,
+                                   design_null_allowance(ref, DESIGN_K))
+            else:
+                f_k, p_k = float(res.f_stat), float(res.p_value)
+                f_r, p_r = float(ref.f_stat), float(ref.p_value)
+                check(abs(f_k - f_r) <= RTOL * abs(f_r) and p_k == p_r,
+                      f"precision {name}: F={f_k} p={p_k} vs the plain "
+                      f"sweep's F={f_r} p={p_r}")
+                log(f"[smoke] precision {name}: F={f_k:.7g} vs {f_r:.7g} "
+                    f"(rel {abs(f_k - f_r) / abs(f_r):.3e}), p {p_k} == "
+                    f"{p_r}")
+                null_within_f32(f"precision {name}", res.f_perms,
+                                ref.f_perms)
+            del res, ref
+    return paths
+
+
+def mode_bounds(kernel, tag, n, d, p, g_or_k, matches, chip) -> tuple:
+    """(operations ms, bytes ms) for one call of a fused kernel in a mode
+    at the EMP chunk: the operations as phases 10 and 13 count them (2
+    per (pair, feature) for D^2, or 3 per (pair, 32-bit word) packed:
+    AND, popcount, add, at the f32 rate as for jaccard_packed; then the
+    permutation phase's), and the bytes with each feature at the mode's
+    element width (4 / 2 / 1 / 0.125 B), the labels or basis, inv_gs
+    and the outputs read or written once."""
+    words = -(-d // 32)
+    feat_ops = (3.0 * n * n * words if tag == "packed"
+                else 2.0 * n * n * d)
+    feat_bytes = 2 * n * (words * 4 if tag == "packed"
+                          else d * MODE_BYTES[tag])
+    if kernel == "fused_sw":
+        ops_ = feat_ops + p * (n * (n - 1) / 2 + matches)
+        nbytes = feat_bytes + 4 * (2 * p * n + g_or_k + p + n)
+    else:
+        ops_ = feat_ops + 2.0 * n * n * p * g_or_k
+        nbytes = feat_bytes + 4 * (2 * p * n * g_or_k + p * g_or_k + n)
+    return (ops_ / chip.peak_flops_f32 * 1e3,
+            nbytes / chip.hbm_bandwidth * 1e3)
+
+
+def phase_stream(dev):
+    """The STREAM probe at STREAM_N elements: each op once through
+    stream_op (launches counted), checked against its plain form bit for
+    bit, then timed beside one PyTorch call of the op and its plain form.
+    Returns (kernel rows, GB/s by op)."""
+    import torch
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels.stream import ops as sops, ref as sref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    a = torch.rand(STREAM_N, device=dev, generator=gen)
+    b = torch.rand(STREAM_N, device=dev, generator=gen)
+    s = STREAM_SCALAR
+    zero_launches()
+    outs = {op: sops.stream_op(a, b, s, op=op) for op in sops.OPS}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {c: 0 for c in counts}
+    want.update({f"stream.{op}": 1 for op in sops.OPS})
+    check(counts == want, f"STREAM probe launches {counts} != {want}")
+    out = torch.empty_like(a)
+    library = {"copy": lambda: out.copy_(a),
+               "scale": lambda: torch.mul(a, s, out=out),
+               "add": lambda: torch.add(a, b, out=out),
+               "triad": lambda: torch.add(a, b, alpha=s, out=out)}
+    library_name = {"copy": "Tensor.copy_", "scale": "torch.mul(out=)",
+                    "add": "torch.add(out=)",
+                    "triad": "torch.add(a, b, alpha=s, out=)"}
+    rows, gbps = [], {}
+    for op in sops.OPS:
+        plain = sref.REFS[op](a, b, s)
+        equal = torch.equal(outs[op], plain)
+        err = float((outs[op] - plain).abs().max())
+        del plain
+        outs[op] = None
+        check(equal, f"stream {op} != its plain form: max abs {err:.3e}")
+        ms = cuda_ms(lambda: sops.stream_op(a, b, s, op=op), reps=10)
+        lib_ms = cuda_ms(library[op], reps=10)
+        plain_ms = cuda_ms(lambda: sref.REFS[op](a, b, s), reps=5)
+        nbytes = sops.BYTES_PER_ELEM[op] * 4 * STREAM_N
+        t_bytes = nbytes / H100_SXM.hbm_bandwidth * 1e3
+        t_ops = ({"copy": 0, "scale": 1, "add": 1, "triad": 2}[op]
+                 * STREAM_N / H100_SXM.peak_flops_f32 * 1e3)
+        gbps[op] = nbytes / ms / 1e6
+        share = gbps[op] * 1e9 / H100_SXM.hbm_bandwidth * 100
+        log(f"[smoke] STREAM {op:5s} n={STREAM_N}: kernel {ms:.4f} ms = "
+            f"{gbps[op]:.1f} GB/s ({share:.1f}% of "
+            f"{H100_SXM.hbm_bandwidth / 1e12:.2f} TB/s), library "
+            f"{library_name[op]} {lib_ms:.4f} ms = "
+            f"{nbytes / lib_ms / 1e6:.1f} GB/s, plain {plain_ms:.4f} ms, "
+            f"bound {t_bytes:.4f} ms (bytes); equal to its plain form bit "
+            f"for bit")
+        rows.append({
+            "name": f"stream.{op}", "route": "cuda", "source": STREAM_SOURCE,
+            "replaces": STREAM_REPLACES, "path": "STREAM probe",
+            "launches": counts[f"stream.{op}"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "library": library_name[op],
+            "gb_per_s": gbps[op], "shape": {"n": STREAM_N}})
+    del a, b, out, outs
+    return rows, gbps
+
+
+def phase_mode_timings(dev, x_np, grouping, paths, emp, gbps):
+    """Each mode's kernel at its EMP chunk and at P = 1 beside its plain
+    version (timed in phase 14) and its bound both ways; packed beside
+    the f32 jaccard kernel. Returns the kernel rows."""
+    import torch
+    from repro_torch.core.distance import ROW_METRICS
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels.fused_sw import ops as fops
+    from repro_torch.pipeline.registry import precision_tuning
+    x, labels, inv_gs = emp_chunk(dev, x_np, grouping)
+    _, v = emp_cols_chunk(dev, x_np, grouping)
+    one, one_v = labels[:1].contiguous(), v[:1].contiguous()
+    sizes = torch.bincount(labels[0].long(), minlength=EMP_GROUPS).double()
+    matches = float((sizes * (sizes - 1) / 2).sum())
+    triad = gbps["triad"] * 1e9
+    rows = []
+    for kernel in ("fused_sw", "fused_sw_cols"):
+        cols = kernel == "fused_sw_cols"
+        for tag in ("f32-jaccard", "bf16", "fp8", "packed"):
+            mode = "f32" if tag == "f32-jaccard" else tag
+            metric = "jaccard" if mode == "f32" else MODE_PATH_METRIC[tag]
+            xp = ROW_METRICS[metric].prepare(x).contiguous()
+            kn = precision_tuning(mode)
+            if cols:
+                def call(vv, xp=xp, kn=kn, metric=metric):
+                    return fops.fused_sw_rows_cols(xp, xp, vv, vv, 0,
+                                                   metric=metric, **kn)
+                ms = cuda_ms(lambda: call(v), reps=3)
+                ms_one = cuda_ms(lambda: call(one_v), reps=5)
+                p, g_or_k = COLS_CHUNK, DESIGN_K
+            else:
+                def call(lab, xp=xp, kn=kn, metric=metric):
+                    return fops.fused_sw_rows(xp, xp, lab, lab, inv_gs, 0,
+                                              metric=metric, **kn)
+                ms = cuda_ms(lambda: call(labels), reps=5)
+                ms_one = cuda_ms(lambda: call(one), reps=5)
+                p, g_or_k = FUSED_CHUNK, EMP_GROUPS
+            ops_ms, bytes_ms = mode_bounds(kernel, mode, EMP_N, EMP_FEATURES,
+                                           p, g_or_k, matches, H100_SXM)
+            bytes_ms_triad = bytes_ms * H100_SXM.hbm_bandwidth / triad
+            log(f"[smoke] timing {kernel}[{mode}] {metric} (n={EMP_N}, "
+                f"d={EMP_FEATURES}, P={p}, {'K' if cols else 'G'}={g_or_k}): "
+                f"kernel {ms:.3f} ms, P=1 {ms_one:.3f} ms; bound by "
+                f"operations {ops_ms:.3f} ms, by bytes {bytes_ms:.4f} ms at "
+                f"3.35 TB/s ({bytes_ms_triad:.4f} ms at the measured triad "
+                f"{gbps['triad']:.1f} GB/s); the kernel at "
+                f"{max(ops_ms, bytes_ms) / ms * 100:.1f}% of the bound")
+            if mode == "f32":
+                continue
+            key = fops.launch_key(kernel, mode)
+            path = f"{'design ' if cols else ''}{mode}"
+            e = emp[(kernel, mode, metric)]
+            b_ms = max(ops_ms, bytes_ms)
+            rows.append({
+                "name": key, "route": "cuda", "source": FUSED_SOURCE,
+                "replaces": COLS_REPLACES if cols else FUSED_REPLACES,
+                "path": f"pipeline fused-kernel {path}",
+                "launches": paths[path][key],
+                "launches_by_path": {k: c[key] for k, c in paths.items()},
+                "max_abs_err": e["max_abs_err"], "ms": ms,
+                "plain_ms": e["plain_ms"], "bound_ms": b_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": None,
+                "library": "none: no PyTorch call computes features -> "
+                           + ("per-column forms" if cols else "s_W"),
+                "mode": mode, "metric": metric,
+                "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+                "bound_bytes_ms_at_measured_triad": bytes_ms_triad,
+                "ms_one_perm": ms_one,
+                "shape": ({"n": EMP_N, "d": EMP_FEATURES, "P": p, "K": g_or_k}
+                          if cols else {"n": EMP_N, "d": EMP_FEATURES,
+                                        "P": p, "G": g_or_k}),
+                **{k: val for k, val in e.items()
+                   if k not in ("max_abs_err", "plain_ms")}})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1542,6 +2107,21 @@ def main() -> int:
     rows.append(phase_cols_timings(dev, x, grouping, design_paths,
                                    cols_check))
     log(f"[smoke] phase 13 (fused_sw_cols timings) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    mode_check = phase_mode_kernels(dev, x, grouping)
+    log(f"[smoke] phase 14 (feature modes vs plain) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    mode_paths = phase_mode_pipeline(dev, x, grouping)
+    log(f"[smoke] phase 15 (features path at each precision) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    stream_rows, gbps = phase_stream(dev)
+    rows += phase_mode_timings(dev, x, grouping, mode_paths, mode_check,
+                               gbps)
+    rows += stream_rows
+    log(f"[smoke] phase 16 (feature mode and STREAM timings) "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 

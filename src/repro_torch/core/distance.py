@@ -80,6 +80,57 @@ def pack_presence_bits(xprep) -> torch.Tensor:
     return words.to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# Precision helpers: fp8 (e4m3) feature-slab quantization. They feed the
+# fused kernels' feat_fp8 knob and the plain versions' round trips.
+# ---------------------------------------------------------------------------
+
+FP8_MAX = 448.0            # largest finite float8_e4m3fn magnitude
+# Past this |x| / scale the reference's cast (ml_dtypes, round to nearest
+# even) gives NaN, while torch's saturates to +-448; 464 itself, the
+# midpoint to the next (absent) step, still rounds to 448.
+FP8_NAN_ABOVE = 464.0
+
+
+def fp8_scale(xprep) -> torch.Tensor:
+    """Calibration scale so max|x| / scale hits the e4m3 range: a 0-d
+    float32 tensor, at least 1e-12 (an all-zero table must not divide by
+    zero). Computed once per study on the prepared table."""
+    amax = torch.as_tensor(xprep, dtype=torch.float32).abs().max()
+    return torch.clamp(amax / FP8_MAX, min=1e-12)
+
+
+def fp8_metric_scale(xprep, metric: str) -> torch.Tensor:
+    """Metric-aware calibration: presence tables (jaccard) are {0, 1},
+    exact in e4m3 at scale 1; every other metric calibrates to the table's
+    largest magnitude."""
+    if metric == "jaccard":
+        return torch.ones((), dtype=torch.float32,
+                          device=torch.as_tensor(xprep).device)
+    return fp8_scale(xprep)
+
+
+def fp8_quantize(xprep, scale) -> torch.Tensor:
+    """x / scale cast to float8_e4m3fn, byte for byte the reference's cast:
+    round to nearest even, and NaN (with x's sign) where |x| / scale >
+    FP8_NAN_ABOVE, where torch alone would saturate to +-448."""
+    x = torch.as_tensor(xprep, dtype=torch.float32)
+    y = x / torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    y = torch.where(y.abs() > FP8_NAN_ABOVE,
+                    torch.copysign(torch.full_like(y, float("nan")), y), y)
+    return y.to(torch.float8_e4m3fn)
+
+
+def fp8_roundtrip(xprep, scale=None) -> torch.Tensor:
+    """Quantize to float8_e4m3fn and back to float32: the values the fp8
+    kernel computes with (scale down, cast, cast up, scale up). The scale
+    defaults to fp8_scale(xprep)."""
+    x = torch.as_tensor(xprep, dtype=torch.float32)
+    s = fp8_scale(x) if scale is None else torch.as_tensor(
+        scale, dtype=torch.float32, device=x.device)
+    return fp8_quantize(x, s).to(torch.float32) * s
+
+
 class MetricDef(NamedTuple):
     """Factored metric: one-off feature transform + row-block function."""
     prepare: Callable

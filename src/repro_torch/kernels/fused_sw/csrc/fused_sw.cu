@@ -14,12 +14,13 @@
 //   jaccard     (1 - inter / max(card_x + card_y - inter, 1))^2, 0/1 floats
 //
 // It replaces src/repro/kernels/fused_sw/kernel.py:193 (fused_sw_pallas,
-// dense f32 feature mode). That kernel walks a (row tile, col tile, t) grid
-// in order: feature steps accumulate into VMEM scratch, the last one
-// finalizes the masked D2 tile, and permutation steps contract it on the
-// MXU with one-hot label blocks into an s_W accumulator flushed at the
-// final step. CUDA blocks run in no order, so here each block of 256
-// threads owns one 64 x 64 tile and runs both phases itself:
+// in each of its feature modes: below). That kernel walks a (row tile,
+// col tile, t) grid in order: feature steps accumulate into VMEM scratch,
+// the last one finalizes the masked D2 tile, and permutation steps
+// contract it on the MXU with one-hot label blocks into an s_W
+// accumulator flushed at the final step. CUDA blocks run in no order, so
+// here each block of 256 threads owns one 64 x 64 tile and runs both
+// phases itself:
 //
 //   feature phase   a loop over 32-feature chunks staged transposed in
 //                   static shared memory; each thread keeps a 4 x 4
@@ -60,8 +61,8 @@
 // tiles) and wgmma are left for later.
 //
 // The dense-design kernel (fused_sw_cols_kernel) replaces
-// src/repro/kernels/fused_sw/kernel.py:338 (fused_sw_cols_pallas, dense
-// f32 feature mode). It shares the feature phase, the finalize and the
+// src/repro/kernels/fused_sw/kernel.py:338 (fused_sw_cols_pallas, in each
+// of its feature modes). It shares the feature phase, the finalize and the
 // mask (feature_tile below) and swaps the labels for a permuted design
 // basis v_rows (P, nr, K) / v_cols (P, n, K):
 //
@@ -94,6 +95,24 @@
 // where the concurrent blocks (neighbouring row tiles of one strip) share
 // them. Symmetry, TMA and wgmma are left for later.
 //
+// Feature modes (src/repro/kernels/fused_sw/kernel.py:54-103, _accumulate):
+// both kernels take their features as f32, bf16, fp8 e4m3 with one
+// per-study scale (a device scalar), or 32-bit presence words for jaccard
+// (the element type is a template parameter, the loaders below). Staging
+// is where the modes differ and nothing else: each staged element becomes
+// f32 in shared memory (bf16 cast up; e4m3 cast up and multiplied by the
+// scale, as the reference dequantizes in-register; a presence word moved
+// bit for bit), so the register micro-tile, the finalize, the mask and
+// both permutation phases are the f32 code. The packed body (PackedJaccard)
+// counts |A & B| with popcount(AND) and each row's cardinality with
+// popcount, exact integers like the f32 jaccard's 0/1 FMAs, so its D2,
+// s_W and row sums equal those of the f32 jaccard kernel on the same
+// presence data bit for bit. The modes move 2, 4 or 32 times fewer feature
+// bytes, but the kernels are bound by operations (above): a mode's cast
+// runs once per staged element, not per pair, so bf16 and fp8 take the
+// f32 time, and packed does 4 AND + popcount a pair where f32 jaccard
+// does 128 FMAs (d = 128), which shrinks only the feature phase.
+//
 // Ragged nr, n, d, P and K are masked here; nothing is padded. Element
 // offsets are 64-bit. Division is nvcc's default IEEE-rounded form (no
 // --use_fast_math). Static shared memory: 30,720 B (labels), 45,056 B
@@ -103,6 +122,8 @@
 //        -Xcompiler -fPIC. The C entry point launches on the caller's
 //        stream, never synchronises, and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -165,6 +186,63 @@ struct Jaccard {
   }
 };
 
+// Jaccard on 32-bit presence words staged bit for bit as floats (d counts
+// words): popcount(AND) per word for |A & B|, popcount for a row's
+// cardinality, the float jaccard's finalize.
+struct PackedJaccard {
+  static __device__ __forceinline__ float stat(float w) {
+    return (float)__popc(__float_as_uint(w));
+  }
+  static __device__ __forceinline__ void step(float& acc, float a, float b) {
+    acc += (float)__popc(__float_as_uint(a) & __float_as_uint(b));
+  }
+  static __device__ __forceinline__ float d2(float inter, float sr,
+                                             float sc) {
+    return Jaccard::d2(inter, sr, sc);
+  }
+};
+
+// Feature loaders: element type T in device memory -> the f32 staged in
+// shared memory. scale() reads the fp8 scale once per block (the other
+// modes take no scale and never dereference the pointer).
+struct F32In {
+  using T = float;
+  static __device__ __forceinline__ float scale(const float*) { return 1.f; }
+  static __device__ __forceinline__ float load(const T* p, int64_t i,
+                                               float) {
+    return p[i];
+  }
+};
+
+struct Bf16In {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ float scale(const float*) { return 1.f; }
+  static __device__ __forceinline__ float load(const T* p, int64_t i,
+                                               float) {
+    return __bfloat162float(p[i]);
+  }
+};
+
+struct Fp8In {
+  using T = __nv_fp8_e4m3;
+  static __device__ __forceinline__ float scale(const float* s) {
+    return __ldg(s);
+  }
+  static __device__ __forceinline__ float load(const T* p, int64_t i,
+                                               float s) {
+    return static_cast<float>(p[i]) * s;
+  }
+};
+
+struct PackedIn {
+  using T = uint32_t;
+  static __device__ __forceinline__ float scale(const float*) { return 1.f; }
+  static __device__ __forceinline__ float load(const T* p, int64_t i,
+                                               float) {
+    return __uint_as_float(p[i]);
+  }
+};
+
 // The feature phase and the finalize of one 64 x 64 tile, shared by both
 // kernels: the block's 256 threads stage 32-feature chunks of slab rows
 // i0 + [0, 64) and columns j0 + [0, 64) transposed in rs / cs, thread (ty,
@@ -173,10 +251,11 @@ struct Jaccard {
 // statistic of tile row t, threads 64-127 the column statistic. Every
 // caller passes d >= 1, so the chunk loop's barriers also separate this
 // call's writes of rs / cs / row_stat / col_stat from an earlier call's
-// reads.
-template <class M>
+// reads. L loads the mode's elements (d of them a row) as f32.
+template <class M, class L>
 __device__ __forceinline__ void feature_tile(
-    const float* __restrict__ xr, const float* __restrict__ xc,
+    const typename L::T* __restrict__ xr,
+    const typename L::T* __restrict__ xc, float scale,
     int64_t nr, int64_t n, int64_t d, int64_t i0, int64_t j0,
     int64_t row_offset, int64_t n_valid, float (&rs)[kChunk][kPitch],
     float (&cs)[kChunk][kPitch], float (&row_stat)[kTile],
@@ -197,8 +276,8 @@ __device__ __forceinline__ void feature_tile(
       const int64_t i = i0 + r, j = j0 + r;
       float a = 0.f, b = 0.f;
       if (k < kn) {
-        if (i < nr) a = xr[i * d + k0 + k];
-        if (j < n) b = xc[j * d + k0 + k];
+        if (i < nr) a = L::load(xr, i * d + k0 + k, scale);
+        if (j < n) b = L::load(xc, j * d + k0 + k, scale);
       }
       rs[k][r] = a;
       cs[k][r] = b;
@@ -264,9 +343,11 @@ __device__ __forceinline__ float tile_row_sum(
 // 4 ty + [0, 4) and columns 4 tx + [0, 4) of the tile.
 // sw_part: (ceil(nr/64) * ceil(n/64), P), row-major by tile (by, bx).
 // rs_part: (nr, ceil(n/64)).
-template <class M>
+template <class M, class L>
 __global__ void __launch_bounds__(kThreads)
-fused_sw_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
+fused_sw_kernel(const typename L::T* __restrict__ xr,
+                const typename L::T* __restrict__ xc,
+                const float* __restrict__ scale,
                 const int* __restrict__ g_rows,
                 const int* __restrict__ g_cols,
                 const float* __restrict__ inv_gs,
@@ -290,8 +371,8 @@ fused_sw_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
 
   // ---- feature phase and finalize: the masked D2 tile in registers ------
   float acc[kMicro][kMicro];
-  feature_tile<M>(xr, xc, nr, n, d, i0, j0, row_offset, n_valid, rs, cs,
-                  row_stat, col_stat, acc);
+  feature_tile<M, L>(xr, xc, L::scale(scale), nr, n, d, i0, j0,
+                     row_offset, n_valid, rs, cs, row_stat, col_stat, acc);
 
   // ---- Gower row sums: one partial per (row, column tile) ----------------
 #pragma unroll
@@ -376,10 +457,11 @@ __device__ __forceinline__ void transpose_reduce_step(float (&v)[kQ],
 // P * K (permutation, column) pairs, q = p * K + k.
 // s_part: (n_strips * ceil(nr/64), Q), row-major by (by, bx).
 // rs_part: (nr, n_strips).
-template <class M>
+template <class M, class L>
 __global__ void __launch_bounds__(kThreads)
-fused_sw_cols_kernel(const float* __restrict__ xr,
-                     const float* __restrict__ xc,
+fused_sw_cols_kernel(const typename L::T* __restrict__ xr,
+                     const typename L::T* __restrict__ xc,
+                     const float* __restrict__ scale,
                      const float* __restrict__ v_rows,
                      const float* __restrict__ v_cols,
                      float* __restrict__ s_part, float* __restrict__ rs_part,
@@ -414,6 +496,7 @@ fused_sw_cols_kernel(const float* __restrict__ xr,
     return;
   }
 
+  const float xscale = L::scale(scale);
   float rsum[kMicro] = {0.f, 0.f, 0.f, 0.f};
   for (int sub = 0; sub < kStripTiles && jt0 + sub < ntj;
        sub += kRegTiles) {
@@ -422,9 +505,9 @@ fused_sw_cols_kernel(const float* __restrict__ xr,
 #pragma unroll
     for (int t = 0; t < kRegTiles; ++t) {
       if (jt0 + sub + t < ntj) {
-        feature_tile<M>(xr, xc, nr, n, d, i0, (jt0 + sub + t) * kTile,
-                        row_offset, n_valid, rs, cs, row_stat, col_stat,
-                        d2[t]);
+        feature_tile<M, L>(xr, xc, xscale, nr, n, d, i0,
+                           (jt0 + sub + t) * kTile, row_offset, n_valid, rs,
+                           cs, row_stat, col_stat, d2[t]);
 #pragma unroll
         for (int ii = 0; ii < kMicro; ++ii)
           rsum[ii] += tile_row_sum(d2[t], ii);
@@ -511,34 +594,65 @@ fused_sw_cols_kernel(const float* __restrict__ xr,
   }
 }
 
-template <class M>
-int launch(const void* xr, const void* xc, const void* g_rows,
-           const void* g_cols, const void* inv_gs, void* sw_part,
-           void* rs_part, int64_t nr, int64_t n, int64_t d, int64_t n_perms,
-           int n_groups, int64_t row_offset, int64_t n_valid,
-           cudaStream_t stream) {
+template <class M, class L>
+int launch(const void* xr, const void* xc, const void* scale,
+           const void* g_rows, const void* g_cols, const void* inv_gs,
+           void* sw_part, void* rs_part, int64_t nr, int64_t n, int64_t d,
+           int64_t n_perms, int n_groups, int64_t row_offset,
+           int64_t n_valid, cudaStream_t stream) {
+  using T = typename L::T;
   const dim3 grid((unsigned)((n + kTile - 1) / kTile),
                   (unsigned)((nr + kTile - 1) / kTile));
-  fused_sw_kernel<M><<<grid, kThreads, 0, stream>>>(
-      (const float*)xr, (const float*)xc, (const int*)g_rows,
+  fused_sw_kernel<M, L><<<grid, kThreads, 0, stream>>>(
+      (const T*)xr, (const T*)xc, (const float*)scale, (const int*)g_rows,
       (const int*)g_cols, (const float*)inv_gs, (float*)sw_part,
       (float*)rs_part, nr, n, d, n_perms, n_groups, row_offset, n_valid);
   return (int)cudaGetLastError();
 }
 
-template <class M>
-int launch_cols(const void* xr, const void* xc, const void* v_rows,
-                const void* v_cols, void* s_part, void* rs_part, int64_t nr,
-                int64_t n, int64_t d, int64_t n_perms, int64_t n_cols,
-                int64_t row_offset, int64_t n_valid, cudaStream_t stream) {
+template <class M, class L>
+int launch_cols(const void* xr, const void* xc, const void* scale,
+                const void* v_rows, const void* v_cols, void* s_part,
+                void* rs_part, int64_t nr, int64_t n, int64_t d,
+                int64_t n_perms, int64_t n_cols, int64_t row_offset,
+                int64_t n_valid, cudaStream_t stream) {
+  using T = typename L::T;
   const int64_t ntj = (n + kTile - 1) / kTile;
   const dim3 grid((unsigned)((nr + kTile - 1) / kTile),
                   (unsigned)((ntj + kStripTiles - 1) / kStripTiles));
-  fused_sw_cols_kernel<M><<<grid, kThreads, 0, stream>>>(
-      (const float*)xr, (const float*)xc, (const float*)v_rows,
+  fused_sw_cols_kernel<M, L><<<grid, kThreads, 0, stream>>>(
+      (const T*)xr, (const T*)xc, (const float*)scale, (const float*)v_rows,
       (const float*)v_cols, (float*)s_part, (float*)rs_part, nr, n, d,
       n_perms, n_cols, row_offset, n_valid);
   return (int)cudaGetLastError();
+}
+
+// The metric switch of both C entries (kind: 0 braycurtis, 1 euclidean,
+// 2 jaccard) for one feature loader L.
+template <class L, class... A>
+int launch_kind(int kind, A... a) {
+  switch (kind) {
+    case 0:
+      return launch<BrayCurtis, L>(a...);
+    case 1:
+      return launch<Euclidean, L>(a...);
+    case 2:
+      return launch<Jaccard, L>(a...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class L, class... A>
+int launch_cols_kind(int kind, A... a) {
+  switch (kind) {
+    case 0:
+      return launch_cols<BrayCurtis, L>(a...);
+    case 1:
+      return launch_cols<Euclidean, L>(a...);
+    case 2:
+      return launch_cols<Jaccard, L>(a...);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -559,48 +673,58 @@ void fused_sw_cols_config(int* out) {
   out[2] = kQ;
 }
 
-// kind: 0 braycurtis, 1 euclidean, 2 jaccard. xr (nr, d), xc (n, d) f32;
-// g_rows (P, nr), g_cols (P, n) int32; inv_gs (G,) f32. sw_part
-// (ceil(nr/64) * ceil(n/64), P) and rs_part (nr, ceil(n/64)) f32.
-int fused_sw_launch(int kind, const void* xr, const void* xc,
-                    const void* g_rows, const void* g_cols,
-                    const void* inv_gs, void* sw_part, void* rs_part,
-                    long long nr, long long n, long long d, long long n_perms,
-                    int n_groups, long long row_offset, long long n_valid,
-                    void* stream) {
+// kind: 0 braycurtis, 1 euclidean, 2 jaccard. mode: 0 f32, 1 bf16, 2 fp8
+// e4m3 (scale: one f32 on the device, the dequantization factor), 3 packed
+// 32-bit presence words (jaccard only; d counts words). xr (nr, d), xc (n,
+// d) of the mode's type; g_rows (P, nr), g_cols (P, n) int32; inv_gs (G,)
+// f32. sw_part (ceil(nr/64) * ceil(n/64), P) and rs_part (nr, ceil(n/64))
+// f32.
+int fused_sw_launch(int kind, int mode, const void* xr, const void* xc,
+                    const void* scale, const void* g_rows,
+                    const void* g_cols, const void* inv_gs, void* sw_part,
+                    void* rs_part, long long nr, long long n, long long d,
+                    long long n_perms, int n_groups, long long row_offset,
+                    long long n_valid, void* stream) {
   if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_groups < 1 ||
       row_offset < 0 || n_valid < 1 || n_valid > n ||
       (nr + kTile - 1) / kTile > kMaxGridY ||
       (n + kTile - 1) / kTile > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (kind) {
+  switch (mode) {
     case 0:
-      return launch<BrayCurtis>(xr, xc, g_rows, g_cols, inv_gs, sw_part,
-                            rs_part, nr, n, d, n_perms, n_groups,
-                            row_offset, n_valid, s);
+      return launch_kind<F32In>(kind, xr, xc, scale, g_rows, g_cols, inv_gs,
+                                sw_part, rs_part, nr, n, d, n_perms,
+                                n_groups, row_offset, n_valid, s);
     case 1:
-      return launch<Euclidean>(xr, xc, g_rows, g_cols, inv_gs, sw_part,
-                            rs_part, nr, n, d, n_perms, n_groups,
-                            row_offset, n_valid, s);
+      return launch_kind<Bf16In>(kind, xr, xc, scale, g_rows, g_cols,
+                                 inv_gs, sw_part, rs_part, nr, n, d, n_perms,
+                                 n_groups, row_offset, n_valid, s);
     case 2:
-      return launch<Jaccard>(xr, xc, g_rows, g_cols, inv_gs, sw_part,
-                            rs_part, nr, n, d, n_perms, n_groups,
-                            row_offset, n_valid, s);
+      if (scale == nullptr) return (int)cudaErrorInvalidValue;
+      return launch_kind<Fp8In>(kind, xr, xc, scale, g_rows, g_cols, inv_gs,
+                                sw_part, rs_part, nr, n, d, n_perms,
+                                n_groups, row_offset, n_valid, s);
+    case 3:
+      if (kind != 2) return (int)cudaErrorInvalidValue;
+      return launch<PackedJaccard, PackedIn>(
+          xr, xc, scale, g_rows, g_cols, inv_gs, sw_part, rs_part, nr, n, d,
+          n_perms, n_groups, row_offset, n_valid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// kind: 0 braycurtis, 1 euclidean, 2 jaccard. xr (nr, d), xc (n, d) f32;
-// v_rows (P, nr, K), v_cols (P, n, K) f32. s_part (n_strips *
+// kind and mode as fused_sw_launch's. xr (nr, d), xc (n, d) of the mode's
+// type; v_rows (P, nr, K), v_cols (P, n, K) f32. s_part (n_strips *
 // ceil(nr/64), P * K) and rs_part (nr, n_strips) f32, n_strips =
 // ceil(ceil(n/64) / kStripTiles).
-int fused_sw_cols_launch(int kind, const void* xr, const void* xc,
-                         const void* v_rows, const void* v_cols,
-                         void* s_part, void* rs_part, long long nr,
-                         long long n, long long d, long long n_perms,
-                         long long n_cols, long long row_offset,
-                         long long n_valid, void* stream) {
+int fused_sw_cols_launch(int kind, int mode, const void* xr, const void* xc,
+                         const void* scale, const void* v_rows,
+                         const void* v_cols, void* s_part, void* rs_part,
+                         long long nr, long long n, long long d,
+                         long long n_perms, long long n_cols,
+                         long long row_offset, long long n_valid,
+                         void* stream) {
   const long long ntj = (n + kTile - 1) / kTile;
   if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_cols < 1 ||
       row_offset < 0 || n_valid < 1 || n_valid > n ||
@@ -608,19 +732,25 @@ int fused_sw_cols_launch(int kind, const void* xr, const void* xc,
       (ntj + kStripTiles - 1) / kStripTiles > kMaxGridY)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (kind) {
+  switch (mode) {
     case 0:
-      return launch_cols<BrayCurtis>(xr, xc, v_rows, v_cols, s_part,
-                                     rs_part, nr, n, d, n_perms, n_cols,
-                                     row_offset, n_valid, s);
+      return launch_cols_kind<F32In>(kind, xr, xc, scale, v_rows, v_cols,
+                                     s_part, rs_part, nr, n, d, n_perms,
+                                     n_cols, row_offset, n_valid, s);
     case 1:
-      return launch_cols<Euclidean>(xr, xc, v_rows, v_cols, s_part,
-                                    rs_part, nr, n, d, n_perms, n_cols,
-                                    row_offset, n_valid, s);
+      return launch_cols_kind<Bf16In>(kind, xr, xc, scale, v_rows, v_cols,
+                                      s_part, rs_part, nr, n, d, n_perms,
+                                      n_cols, row_offset, n_valid, s);
     case 2:
-      return launch_cols<Jaccard>(xr, xc, v_rows, v_cols, s_part,
-                                  rs_part, nr, n, d, n_perms, n_cols,
-                                  row_offset, n_valid, s);
+      if (scale == nullptr) return (int)cudaErrorInvalidValue;
+      return launch_cols_kind<Fp8In>(kind, xr, xc, scale, v_rows, v_cols,
+                                     s_part, rs_part, nr, n, d, n_perms,
+                                     n_cols, row_offset, n_valid, s);
+    case 3:
+      if (kind != 2) return (int)cudaErrorInvalidValue;
+      return launch_cols<PackedJaccard, PackedIn>(
+          xr, xc, scale, v_rows, v_cols, s_part, rs_part, nr, n, d, n_perms,
+          n_cols, row_offset, n_valid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

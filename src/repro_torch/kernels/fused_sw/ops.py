@@ -15,9 +15,15 @@ operands, then
     synchronising, and reduces its partials with two deterministic
     `torch.sum`s — or raises.
 
-There is no fallback from a kernel to its plain version. The library is
-built from the source at first use (`kernels/_build.py`). `LAUNCHES`
-counts kernel launches, one counter per kernel.
+The precision knobs (feat_bf16 / feat_fp8 / feat_packed, feat_scale) pick
+the kernel's feature mode, as in the reference: the wrapper quantizes the
+f32 features it is given (`quantize_slabs`: bf16, e4m3 at one per-study
+scale, or 32-bit presence words for jaccard) and launches that mode's
+kernel; the plain versions round-trip the same values. There is no
+fallback from a kernel to its plain version. The library is built from the
+source at first use (`kernels/_build.py`). `LAUNCHES` counts kernel
+launches per kernel and mode: 'fused_sw' / 'fused_sw_cols' for f32, e.g.
+'fused_sw[fp8]' for another mode.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core import distance
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_sw import ref
 
@@ -35,7 +42,18 @@ KERNEL_METRIC = {"euclidean": "euclidean", "braycurtis": "braycurtis",
                  "jaccard": "jaccard", "aitchison": "euclidean"}
 FUSED_METRICS = ("euclidean", "braycurtis", "jaccard")
 _KIND = {"braycurtis": 0, "euclidean": 1, "jaccard": 2}   # the C switch
-LAUNCHES = {"fused_sw": 0, "fused_sw_cols": 0}
+MODES = ("f32", "bf16", "fp8", "packed")
+_MODE = {m: i for i, m in enumerate(MODES)}                # the C switch
+KERNELS = ("fused_sw", "fused_sw_cols")
+
+
+def launch_key(kernel: str, mode: str) -> str:
+    """The LAUNCHES key of a kernel in a feature mode: the kernel's name
+    for f32, 'fused_sw[fp8]' and the like otherwise."""
+    return kernel if mode == "f32" else f"{kernel}[{mode}]"
+
+
+LAUNCHES = {launch_key(k, m): 0 for k in KERNELS for m in MODES}
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_sw.cu"
 TILE = 64                   # kTile in the source
 STRIP_TILES = 8             # kStripTiles: column tiles per cols block
@@ -47,11 +65,11 @@ _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # a 32-bit int
 SIGNATURES = {
     "fused_sw_config": ([_PTR], None),
-    "fused_sw_launch": ([_I32] + [_PTR] * 7 + [_I64] * 4
+    "fused_sw_launch": ([_I32, _I32] + [_PTR] * 8 + [_I64] * 4
                         + [_I32, _I64, _I64, _PTR], _I32),
     "fused_sw_cols_config": ([_PTR], None),
-    "fused_sw_cols_launch": ([_I32] + [_PTR] * 6 + [_I64] * 7 + [_PTR],
-                             _I32),
+    "fused_sw_cols_launch": ([_I32, _I32] + [_PTR] * 7 + [_I64] * 7
+                             + [_PTR], _I32),
 }
 
 
@@ -211,10 +229,33 @@ def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
         raise ValueError(f"{n} columns exceed the kernel's grid")
 
 
-def _launch(lib, metric, x_rows, x, g_rows, g_cols, inv_gs, row_offset,
-            n_valid, stream: int, workspace=None):
-    """Launch the kernel on `stream`; (s_W (P,), row_sums (nr,)) from its
-    partials. `workspace` (alloc_workspace()) holds at least P's."""
+def quantize_slabs(x_rows, x, mode, scale=None):
+    """(xr, xc): the slab and the table in the mode's representation
+    (ref.resolve_precision gives mode and scale), as the kernel reads
+    them: f32 as given; bf16 cast; fp8 e4m3 bytes of x / scale
+    (core.distance.fp8_quantize); packed 32-bit presence words (int32
+    holding the reference's uint32 bits; the feature axis becomes
+    ceil(d / 32) words). A slab that is the table itself is quantized
+    once."""
+    def q(t):
+        if mode == "bf16":
+            return t.to(torch.bfloat16)
+        if mode == "fp8":
+            return distance.fp8_quantize(t, scale)
+        if mode == "packed":
+            return distance.pack_presence_bits(t)
+        return t
+    xc = q(x)
+    same = x_rows.data_ptr() == x.data_ptr() and x_rows.shape == x.shape
+    return (xc if same else q(x_rows)), xc
+
+
+def _launch(lib, metric, mode, x_rows, x, scale, g_rows, g_cols, inv_gs,
+            row_offset, n_valid, stream: int, workspace=None):
+    """Launch the mode's kernel on `stream` over quantized features
+    (quantize_slabs) and the fp8 scale (a float32 scalar on the device,
+    or None); (s_W (P,), row_sums (nr,)) from its partials. `workspace`
+    (alloc_workspace()) holds at least P's."""
     nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
     p, n_groups = g_cols.shape[0], inv_gs.shape[0]
     sw_shape, rs_shape = partial_shapes(nr, n, p)
@@ -228,13 +269,15 @@ def _launch(lib, metric, x_rows, x, g_rows, g_cols, inv_gs, row_offset,
     sw_part = sw_buf[:sw_shape[0] * sw_shape[1]].view(sw_shape)
     rs_part = rs_buf[:rs_shape[0] * rs_shape[1]].view(rs_shape)
     err = lib.fused_sw_launch(
-        _KIND[KERNEL_METRIC[metric]], x_rows.data_ptr(), x.data_ptr(),
+        _KIND[KERNEL_METRIC[metric]], _MODE[mode], x_rows.data_ptr(),
+        x.data_ptr(), None if scale is None else scale.data_ptr(),
         g_rows.data_ptr(), g_cols.data_ptr(), inv_gs.data_ptr(),
         sw_part.data_ptr(), rs_part.data_ptr(), nr, n, d, p, n_groups,
         row_offset, n_valid, stream)
+    key = launch_key("fused_sw", mode)
     if err != 0:
-        raise RuntimeError(f"fused_sw kernel launch failed: cudaError {err}")
-    LAUNCHES["fused_sw"] += 1
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
+    LAUNCHES[key] += 1
     return sw_part.sum(dim=0), rs_part.sum(dim=1)
 
 
@@ -260,36 +303,50 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
 
     tile_r / tile_c / feat_block / perm_block are the reference's Pallas
     tile knobs: accepted and ignored, since the CUDA tile is fixed (64 x 64
-    pairs, 32-feature chunks, 16-permutation blocks). feat_bf16 / feat_fp8
-    / feat_packed / feat_scale (the precision knobs) raise
-    NotImplementedError unless 0 / None: they come with the precision
-    slice. workspace: partial buffers from alloc_workspace(), reused
-    across the chunks of a sweep (allocated per call when None; unused on
-    the CPU).
+    pairs, 32-feature chunks, 16-permutation blocks).
+
+    Precision knobs (mutually exclusive; the features stay f32 here, the
+    wrapper quantizes them):
+    feat_bf16:   1 = bf16 features (half the feature bytes; f32 sums).
+    feat_fp8:    1 = float8_e4m3fn features x / s with one calibration
+                 scale s (max|x| / 448 of the full table, or feat_scale),
+                 cast up and multiplied by s as the kernel stages them.
+    feat_packed: 1 = 32-bit presence words (jaccard only): popcount
+                 bodies, the same bits as the f32 jaccard kernel on
+                 presence data.
+    feat_scale:  pins the fp8 scale (a float or a one-element tensor;
+                 sweeps compute it once per study).
+
+    workspace: partial buffers from alloc_workspace(), reused across the
+    chunks of a sweep (allocated per call when None; unused on the CPU).
 
     Returns (s_W (P,) f32, row_sums (nr,) f32). Summing the outputs over
     disjoint row slabs gives the full statistic and the full row sums.
     """
     del tile_r, tile_c, feat_block, perm_block
-    ref.reject_precision(dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
-                              feat_packed=feat_packed, feat_scale=feat_scale))
     n_valid = x.shape[0] if n_valid is None else int(n_valid)
     row_offset = int(row_offset)
     _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid)
+    precision = dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
+                     feat_packed=feat_packed, feat_scale=feat_scale)
     if x.device.type == "cpu":
         return ref.fused_sw_ref(x_rows, x, g_rows, g_cols, inv_gs,
-                                row_offset, metric=metric, n_valid=n_valid)
+                                row_offset, metric=metric, n_valid=n_valid,
+                                **precision)
+    mode, scale = ref.resolve_precision(x, metric, **precision)
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    return _launch(lib, metric, x_rows, x, g_rows, g_cols, inv_gs,
+    xr, xc = quantize_slabs(x_rows, x, mode, scale)
+    return _launch(lib, metric, mode, xr, xc, scale, g_rows, g_cols, inv_gs,
                    row_offset, n_valid, stream, workspace)
 
 
-def _launch_cols(lib, metric, x_rows, x, v_rows, v_cols, row_offset,
-                 n_valid, stream: int, workspace=None):
-    """Launch the dense-design kernel on `stream`; (s_cols (P, K),
-    row_sums (nr,)) from its partials. `workspace`
-    (alloc_cols_workspace()) holds at least this call's."""
+def _launch_cols(lib, metric, mode, x_rows, x, scale, v_rows, v_cols,
+                 row_offset, n_valid, stream: int, workspace=None):
+    """Launch the mode's dense-design kernel on `stream` over quantized
+    features (quantize_slabs); (s_cols (P, K), row_sums (nr,)) from its
+    partials. `workspace` (alloc_cols_workspace()) holds at least this
+    call's."""
     nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
     p, k = v_cols.shape[0], v_cols.shape[2]
     s_shape, rs_shape = cols_partial_shapes(nr, n, p, k)
@@ -303,20 +360,23 @@ def _launch_cols(lib, metric, x_rows, x, v_rows, v_cols, row_offset,
     s_part = s_buf[:s_shape[0] * s_shape[1]].view(s_shape)
     rs_part = rs_buf[:rs_shape[0] * rs_shape[1]].view(rs_shape)
     err = lib.fused_sw_cols_launch(
-        _KIND[KERNEL_METRIC[metric]], x_rows.data_ptr(), x.data_ptr(),
+        _KIND[KERNEL_METRIC[metric]], _MODE[mode], x_rows.data_ptr(),
+        x.data_ptr(), None if scale is None else scale.data_ptr(),
         v_rows.data_ptr(), v_cols.data_ptr(), s_part.data_ptr(),
         rs_part.data_ptr(), nr, n, d, p, k, row_offset, n_valid, stream)
+    key = launch_key("fused_sw_cols", mode)
     if err != 0:
-        raise RuntimeError(f"fused_sw_cols kernel launch failed: cudaError "
-                           f"{err}")
-    LAUNCHES["fused_sw_cols"] += 1
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
+    LAUNCHES[key] += 1
     return s_part.sum(dim=0).view(p, k), rs_part.sum(dim=1)
 
 
 def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
                        v_rows: torch.Tensor, v_cols: torch.Tensor,
                        row_offset: int = 0, *, metric: str = "braycurtis",
-                       n_valid=None, workspace=None):
+                       n_valid=None, feat_bf16: int = 0, feat_fp8: int = 0,
+                       feat_packed: int = 0, feat_scale=None,
+                       workspace=None):
     """Dense-design fused partial: per-COLUMN quadratic forms for one (row
     slab x permutation chunk) cell (core.design's hat-matrix blocks in
     place of the one-hot labels).
@@ -325,12 +385,12 @@ def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
     x:        (n, d) f32 prepared features of ALL samples (columns).
     v_rows:   (P, nr, K) f32 permuted basis rows at the slab's GLOBAL rows.
     v_cols:   (P, n, K) f32 permuted basis over all samples.
-    row_offset / n_valid / metric: as fused_sw_rows.
+    row_offset / n_valid / metric and the precision knobs (feat_bf16 /
+    feat_fp8 / feat_packed / feat_scale): as fused_sw_rows.
 
-    f32 features only (the precision modes come with the precision
-    slice). workspace: partial buffers from alloc_cols_workspace(),
-    reused across the chunks of a sweep (allocated per call when None;
-    unused on the CPU).
+    workspace: partial buffers from alloc_cols_workspace(), reused across
+    the chunks of a sweep (allocated per call when None; unused on the
+    CPU).
 
     Returns (s_cols (P, K) f32, row_sums (nr,) f32). Summing the outputs
     over disjoint row slabs gives the full per-column statistic and the
@@ -339,10 +399,15 @@ def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
     n_valid = x.shape[0] if n_valid is None else int(n_valid)
     row_offset = int(row_offset)
     _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid)
+    precision = dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
+                     feat_packed=feat_packed, feat_scale=feat_scale)
     if x.device.type == "cpu":
         return ref.fused_sw_cols_ref(x_rows, x, v_rows, v_cols, row_offset,
-                                     metric=metric, n_valid=n_valid)
+                                     metric=metric, n_valid=n_valid,
+                                     **precision)
+    mode, scale = ref.resolve_precision(x, metric, **precision)
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    return _launch_cols(lib, metric, x_rows, x, v_rows, v_cols, row_offset,
-                        n_valid, stream, workspace)
+    xr, xc = quantize_slabs(x_rows, x, mode, scale)
+    return _launch_cols(lib, metric, mode, xr, xc, scale, v_rows, v_cols,
+                        row_offset, n_valid, stream, workspace)

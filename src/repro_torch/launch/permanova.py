@@ -18,6 +18,11 @@ under one joint plan (distance kernel, bridge, s_W).
   PYTHONPATH=src python -m repro_torch.launch.permanova \
       --samples 25145 --perms 3999 --from-features
 
+  # the fused kernel's feature modes: bf16, fp8 (e4m3 + per-study scale)
+  # or, for jaccard, packed presence words (F and p equal to f32's):
+  PYTHONPATH=src python -m repro_torch.launch.permanova \
+      --samples 25145 --perms 3999 --feat-precision fp8
+
   # a design: covariates (adjusted for, sequential terms), permutations
   # within strata, sample weights; prints a per-term F / R2 / p table:
   PYTHONPATH=src python -m repro_torch.launch.permanova \
@@ -86,6 +91,13 @@ def main(argv=None) -> int:
                     help="fused-kernel implementation: the CUDA megakernel "
                          "(alias pallas; its plain version on --device "
                          "cpu) or the plain torch sweep (alias xla)")
+    ap.add_argument("--feat-precision", default="f32",
+                    choices=list(pipeline.registry.PRECISIONS),
+                    help="feature storage for the fused-kernel sweep: f32, "
+                         "bf16, fp8 (e4m3 + per-metric scale, f32 sums), or "
+                         "packed (jaccard only: presence bits in 32-bit "
+                         "words, popcount tiles; the same F and p as f32); "
+                         "implies --materialize fused-kernel when not f32")
     ap.add_argument("--dist-impl", default="auto",
                     help="pin the stage-1 distance impl (e.g. "
                          "'braycurtis.cuda', 'euclidean.blocked'); "
@@ -129,6 +141,16 @@ def main(argv=None) -> int:
             args.samples, covariate_names=cov_names, n_strata=n_strata,
             weighted=args.weights, seed=args.seed)
 
+    fused_tuning = None
+    if args.feat_precision != "f32":
+        # the precision knobs live on the fused-kernel sweep; route there
+        if args.materialize not in ("auto", "fused-kernel"):
+            ap.error("--feat-precision applies to the fused-kernel sweep; "
+                     "drop --materialize or set it to fused-kernel")
+        args.materialize = "fused-kernel"
+        fused_tuning = pipeline.registry.precision_tuning(
+            args.feat_precision)
+
     if args.from_features or args.materialize != "auto" \
             or args.dist_impl != "auto" or args.fused_impl != "auto" \
             or design_path:
@@ -138,7 +160,8 @@ def main(argv=None) -> int:
             metric=args.metric, n_perms=args.perms, seed=args.seed,
             dist_impl=args.dist_impl, sw_impl=args.impl,
             materialize=args.materialize, chunk=args.chunk,
-            fused_impl=args.fused_impl, memory_budget_bytes=budget,
+            fused_impl=args.fused_impl, fused_tuning=fused_tuning,
+            memory_budget_bytes=budget,
             covariates=covariates, strata=strata, weights=weights,
             device=dev)
         f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits

@@ -63,8 +63,11 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
                  'xla', or a fused registry name) — which single-pass
                  sweep runs a fused-kernel plan: the CUDA megakernel (the
                  card's choice) or the plain torch loops.
-    fused_tuning: overrides of the fused impl's knobs; the precision knobs
-                 (feat_bf16 / feat_fp8 / feat_packed) must stay 0.
+    fused_tuning: overrides of the fused impl's knobs: the precision knobs
+                 feat_bf16 / feat_fp8 / feat_packed (one at a time; packed
+                 for jaccard only; e.g. registry.precision_tuning('fp8'))
+                 select the kernel's feature mode on the fused-kernel
+                 bridge (ValueError on another bridge).
     dist_impl:   'auto' or a registry name ('<metric>.cuda' — alias
                  '<metric>.pallas' — '.dense', '.blocked').
     dist_tuning: overrides of the impl's knobs, e.g. {'packed': 1} for

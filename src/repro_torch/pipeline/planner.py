@@ -13,7 +13,9 @@ in one place:
             distance tiles built AND contracted inside one kernel, D²
             never in device memory)
   fused     for 'fused-kernel', which single-pass impl runs it and its
-            tuning (registry defaults <- caller knobs)
+            tuning (registry defaults <- caller knobs), the precision
+            knobs among them (validated here: mutually exclusive, packed
+            for jaccard only, and only on the fused-kernel bridge)
   stage 2   the engine Plan (impl + streaming chunk) for s_W, delegated to
             repro_torch.engine.planner (for a dense design, `design_cols`
             = K basis columns: the per-column companion and a chunk sized
@@ -24,8 +26,9 @@ On 'cuda' stage 1 is always `<metric>.cuda` and the fused-kernel sweep
 tile-viability floor (PALLAS_MIN_N) has no counterpart, just as
 engine.planner sends 'cuda' to the brute kernel. On 'cpu' the plans match
 the reference's field for field (the fused impl under the port's kind
-names). (Persisted stage-1 and fused measurements wait for the autotune
-slice; `explain()`'s precision table for the precision slice.)
+names). `explain()` adds the reference's per-precision table of feature
+traffic and workset. (Persisted stage-1 and fused measurements wait for
+the autotune slice.)
 
 `plan_pipeline()` is pure shape/backend arithmetic, like `engine.plan()`.
 """
@@ -38,6 +41,8 @@ from typing import Dict, Optional
 from repro_torch.engine import planner as _eplanner
 from repro_torch.kernels.fused_sw import ref as _fref
 from repro_torch.pipeline import registry as _dreg
+
+PRECISION_KNOBS = ("feat_bf16", "feat_fp8", "feat_packed")
 
 # Matrix-residency budget for the bridge decision. Distinct from the engine's
 # label budget: this one governs the O(n^2) distance operands.
@@ -70,11 +75,36 @@ class PipelinePlan:
     n: int = 0                            # problem shape
     d: int = 0
     n_groups: int = 0
+    n_cols: Optional[int] = None          # a dense design's basis width K
 
     def explain(self) -> str:
-        """describe(); the reference's residency and precision tables
-        come with the out-of-core and precision slices."""
-        return self.describe()
+        """describe() plus the precision-aware memory model of a
+        fused-kernel plan: the predicted feature bytes per permutation
+        chunk and the workset for each precision of the planned fused
+        impl, the planned one marked. (The reference's residency table
+        comes with the out-of-core slice.)"""
+        lines = [self.describe()]
+        if self.materialize != "fused-kernel" or not self.fused_impl \
+                or not self.n:
+            return "\n".join(lines)
+        spec = _dreg.get_fused(self.fused_impl)
+        planned = _dreg.precision_tag(self.fused_tuning)
+        lines.append(
+            f"predicted feature traffic per permutation chunk "
+            f"(n={self.n}, d={self.d}, {spec.kind} kind):")
+        for tag in _dreg.PRECISIONS:
+            if tag == "packed" and spec.kernel_metric != "jaccard":
+                continue
+            t = {**self.fused_tuning, **_dreg.precision_tuning(tag)}
+            traffic = _dreg.fused_feat_traffic_bytes(
+                spec, self.n, self.d, t, self.row_block)
+            workset = _dreg.fused_workset_bytes(
+                spec, self.n, self.d, self.sw.chunk, self.n_groups,
+                self.row_block, t, self.n_cols)
+            mark = "  <- planned" if tag == planned else ""
+            lines.append(f"  {tag:>6}: {traffic/2**20:9.2f} MiB feat "
+                         f"traffic, {workset/2**20:8.3f} MiB workset{mark}")
+        return "\n".join(lines)
 
     def describe_stage1(self) -> str:
         """Stage 1 + bridge only — what the pipeline itself executes; the
@@ -182,7 +212,10 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     fills in the rest. backend: 'cuda' or 'cpu'. fused_impl: 'auto',
     'cuda' / 'torch' (or the reference's 'pallas' / 'xla'), or a fused
     registry name. fused_tuning: caller overrides of the fused impl's
-    knobs; a nonzero precision knob raises NotImplementedError.
+    knobs, the precision knobs (feat_bf16 / feat_fp8 / feat_packed)
+    among them: mutually exclusive, packed only where the kernel metric
+    is jaccard, and only on the fused-kernel bridge (ValueError
+    otherwise; the reference's planner drops what it cannot run).
     design_cols: the dense-design basis width K (covariates / weights /
     several factors); the fused chunk and the engine plan are sized for K
     basis columns instead of G one-hot groups.
@@ -253,6 +286,15 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
         # the fused bridges contract s_W themselves: no s_W kernel runs
         sw = dataclasses.replace(sw, kernel=None)
 
+    caller_prec = {k: v for k, v in (fused_tuning or {}).items()
+                   if k in PRECISION_KNOBS}
+    if any(int(v or 0) for v in caller_prec.values()) \
+            and mat != "fused-kernel":
+        raise ValueError(
+            f"precision knobs {caller_prec} apply to the fused-kernel "
+            f"bridge, and this plan's bridge is {mat!r}; pass "
+            "materialize='fused-kernel'")
+
     # Fused-kernel: which single-pass impl runs the sweep and its tuning
     # (registry defaults <- caller knobs).
     f_impl = None
@@ -269,10 +311,13 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
         if fspec.metric != metric:
             raise ValueError(f"fused impl {f_impl!r} computes "
                              f"{fspec.metric!r}, not {metric!r}")
+        # validated before the registry's keys filter them: packed asked
+        # of a non-jaccard impl (no feat_packed key) must not be dropped
+        _fref.feature_mode(fspec.kernel_metric, *(
+            caller_prec.get(k) for k in PRECISION_KNOBS))
         f_tuning = dict(fspec.tuning)
         f_tuning.update({k: v for k, v in (fused_tuning or {}).items()
                          if k in f_tuning})
-        _fref.reject_precision(f_tuning)
         mreason += f"; {freason}"
 
     # the planned row block IS the blocked impls' working-set knob
@@ -283,4 +328,5 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
         metric=metric, dist_impl=dname, dist_tuning=dist_tuning,
         materialize=mat, row_block=row_block, sw=sw, backend=backend,
         reason=f"{dreason}; {mreason}", fused_impl=f_impl,
-        fused_tuning=f_tuning, n=n, d=d, n_groups=n_groups)
+        fused_tuning=f_tuning, n=n, d=d, n_groups=n_groups,
+        n_cols=design_cols)

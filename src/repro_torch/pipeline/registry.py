@@ -24,7 +24,11 @@ fused-kernel bridge, two kinds per metric:
   torch     the plain torch sweep over row blocks x permutation chunks;
             alias `<metric>.fusedk.xla`
 
-(Residency tiers and precision tags come with later slices.)
+The precision tags (`PRECISIONS`, `precision_tag`, `precision_tuning`,
+`feat_element_bytes`) name the fused kernels' feature modes, and
+`fused_feat_traffic_bytes` / `fused_workset_bytes` model what each mode
+moves and holds, for `PipelinePlan.explain()`. (Residency tiers come with
+the out-of-core slice.)
 """
 
 from __future__ import annotations
@@ -253,6 +257,41 @@ _register_metric("jaccard", rows_ws=_ws_rows_gram, dense_ws=_ws_dense_gram,
 
 
 # ---------------------------------------------------------------------------
+# Precision knobs shared by the fused kernels and the traffic models.
+# ---------------------------------------------------------------------------
+
+PRECISIONS = ("f32", "bf16", "fp8", "packed")
+
+
+def precision_tag(tuning) -> str:
+    """Canonical precision tag of a fused tuning dict (reporting
+    vocabulary; packed > fp8 > bf16 > f32)."""
+    t = tuning or {}
+    if t.get("feat_packed"):
+        return "packed"
+    if t.get("feat_fp8"):
+        return "fp8"
+    if t.get("feat_bf16"):
+        return "bf16"
+    return "f32"
+
+
+def precision_tuning(tag: str) -> dict:
+    """The fused tuning-knob dict selecting a precision tag."""
+    if tag not in PRECISIONS:
+        raise ValueError(f"unknown precision {tag!r}; one of {PRECISIONS}")
+    return {"feat_bf16": int(tag == "bf16"), "feat_fp8": int(tag == "fp8"),
+            "feat_packed": int(tag == "packed")}
+
+
+def feat_element_bytes(tuning) -> float:
+    """Bytes moved per FEATURE element at the tuning dict's precision
+    (packed: 32 presence bits per 32-bit word = 1/8 byte each)."""
+    return {"f32": 4.0, "bf16": 2.0, "fp8": 1.0,
+            "packed": 0.125}[precision_tag(tuning)]
+
+
+# ---------------------------------------------------------------------------
 # Fused-kernel (single-pass distance -> s_W) implementation registry.
 # ---------------------------------------------------------------------------
 
@@ -339,8 +378,10 @@ def _ws_fused_torch(n, d, chunk, n_groups, row_block, n_cols=None):
 
 for _metric in ("euclidean", "aitchison", "braycurtis", "jaccard"):
     _kmetric = _kernel_metric(_metric)
-    # the reference's precision knobs, kept at 0 so tuning dicts compare
-    # field for field; a nonzero value raises (the precision slice)
+    # the precision knobs (mutually exclusive): feat_bf16 halves the
+    # feature bytes, feat_fp8 quarters them (one per-study scale, f32
+    # accumulation), feat_packed (jaccard only) cuts them 32x with 32-bit
+    # presence words and bit-identical results
     _prec = {"feat_bf16": 0, "feat_fp8": 0}
     if _kmetric == "jaccard":
         _prec["feat_packed"] = 0
@@ -350,14 +391,56 @@ for _metric in ("euclidean", "aitchison", "braycurtis", "jaccard"):
         workset_bytes=_ws_fused_cuda, kernel_metric=_kmetric,
         description=f"hand-written CUDA megakernel: {_metric} D^2 tiles "
                     "built and contracted in registers, D^2 never in "
-                    "device memory (plain torch on CPU tensors)",
+                    "device memory (feat_bf16/feat_fp8/feat_packed shrink "
+                    "the feature loads 2x/4x/32x; plain torch on CPU "
+                    "tensors)",
     ))
     register_fused(FusedImpl(
         name=f"{_metric}.fusedk.torch", metric=_metric, kind="torch",
         backends=("cpu",), tuning=dict(_prec),
         workset_bytes=_ws_fused_torch, kernel_metric=_kmetric,
         description=f"plain torch {_metric} sweep: loops over row blocks x "
-                    "permutation chunks (the off-card fused-kernel form)",
+                    "permutation chunks (the off-card fused-kernel form; "
+                    "precision knobs round-trip the feature table)",
     ))
     FUSED_ALIASES[f"{_metric}.fusedk.pallas"] = f"{_metric}.fusedk.cuda"
     FUSED_ALIASES[f"{_metric}.fusedk.xla"] = f"{_metric}.fusedk.torch"
+
+
+def fused_feat_traffic_bytes(spec: FusedImpl, n: int, d: int, tuning=None,
+                             row_block: int = 256) -> float:
+    """Modelled feature bytes loaded for ONE permutation chunk's sweep at
+    the tuning dict's precision.
+
+    CUDA megakernel: each 64 x 64 tile stages its 64 rows' and 64 columns'
+    features (in 32-element chunks) at the mode's element width, so
+    traffic = bpe * d * nti * ntj * (64 + 64), nti = ntj = ceil(n / 64)
+    (loads the kernel issues; most are served from L2). The same for the
+    dense-design kernel, whose blocks stage the same tiles. Torch sweep
+    (the reference's XLA kind): each row block re-reads the full table
+    once, 4 * d * n * (ceil(n / row_block) + 1); its precision knobs are
+    value round trips (the table stays f32), so no traffic credit. A
+    reporting model (plan.explain), not a hardware counter."""
+    t = {**dict(spec.tuning), **(tuning or {})}
+    if spec.kind == "cuda":
+        from repro_torch.kernels.fused_sw import ops
+        nt = -(-n // ops.TILE)
+        return feat_element_bytes(t) * d * nt * nt * (2 * ops.TILE)
+    return 4.0 * d * n * (-(-n // max(int(row_block), 1)) + 1)
+
+
+def fused_workset_bytes(spec: FusedImpl, n: int, d: int, chunk: int,
+                        n_groups: int, row_block: int, tuning=None,
+                        n_cols=None) -> float:
+    """Precision-aware device residency: the base workset_bytes plus what
+    the precision adds. CUDA megakernel: the feature table quantized once
+    at the mode's element width (f32 reads the table in place; the staged
+    tiles are f32 in shared memory in every mode). Torch sweep: one
+    round-tripped f32 copy of the table when a knob is on."""
+    base = spec.workset_bytes(n, d, chunk, n_groups, row_block, n_cols)
+    t = {**dict(spec.tuning), **(tuning or {})}
+    if precision_tag(t) == "f32":
+        return base
+    if spec.kind == "cuda":
+        return base + feat_element_bytes(t) * n * d
+    return base + 4.0 * n * d

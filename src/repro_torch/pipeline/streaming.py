@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import distance as _dist
 from repro_torch.core import fstat
 from repro_torch.engine.scheduler import _check_perms, _index_perms, _labels
 from repro_torch.kernels.fused_sw import ops as _fops
@@ -312,6 +313,33 @@ def fused_sw_onepass(xprep: torch.Tensor, rows_fn: Callable,
     return s_w, row_sums.sum() / 2.0 / n, stats
 
 
+_PRECISION_KEYS = ("feat_bf16", "feat_fp8", "feat_packed", "feat_scale")
+
+
+def _precision_roundtrip(xprep: torch.Tensor, metric: str,
+                         tuning: Optional[dict]) -> torch.Tensor:
+    """Value parity for the plain (torch) sweep: the feature table
+    quantized ONCE per the precision knobs and cast back to f32 (the plain
+    sweep computes in f32 whatever the knobs say; they buy bytes only on
+    the kernel path), so both fused impls contract the same quantized
+    features."""
+    t = tuning or {}
+    mode, scale = _fref.resolve_precision(
+        xprep, metric, **{k: t.get(k) for k in _PRECISION_KEYS})
+    return xprep if mode == "f32" else _fref.roundtrip(xprep, mode, scale)
+
+
+def _fp8_scale_kwargs(xprep: torch.Tensor, metric: str,
+                      tuning: dict) -> dict:
+    """The per-metric fp8 calibration, computed ONCE per study before the
+    chunk loop (per chunk it would reduce the whole table again); a
+    caller's feat_scale stands."""
+    if int(tuning.get("feat_fp8") or 0) \
+            and tuning.get("feat_scale") is None:
+        return {"feat_scale": _dist.fp8_metric_scale(xprep, metric)}
+    return {}
+
+
 def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
                         inv_gs: torch.Tensor, n_total: int, *,
                         kernel_metric: str, chunk: int,
@@ -323,8 +351,10 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
     launch per permutation chunk covers every tile and permutation of the
     chunk, so the only device traffic per chunk is the feature table and
     the (chunk, n) labels. The partial buffers are allocated once for the
-    sweep. s_T comes from the FIRST chunk's row sums (every chunk gives
-    the same ones).
+    sweep, and the fp8 scale computed once. s_T comes from the FIRST
+    chunk's row sums (every chunk gives the same ones). `tuning` holds
+    the precision knobs (feat_bf16 / feat_fp8 / feat_packed /
+    feat_scale).
 
     Returns (s_w (n_total,) float64, s_t 0-d float64, FusedKernelStats).
     """
@@ -333,6 +363,8 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
                      index_perms=index_perms)
     chunk = int(max(1, min(chunk, n_total)))
     xprep = xprep.to(torch.float32).contiguous()
+    tuning = dict(tuning or {})
+    tuning.update(_fp8_scale_kwargs(xprep, kernel_metric, tuning))
     workspace = (_fops.alloc_workspace(n, n, chunk, xprep.device)
                  if xprep.device.type == "cuda" else None)
     s_w = torch.empty((n_total,), dtype=torch.float64, device=xprep.device)
@@ -342,7 +374,7 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
         g = _labels(grouping, lo, hi, **src)
         sw, rs = _fops.fused_sw_rows(xprep, xprep, g, g, inv_gs, 0,
                                      metric=kernel_metric,
-                                     workspace=workspace, **(tuning or {}))
+                                     workspace=workspace, **tuning)
         s_w[lo:hi] = sw
         if row_sums is None:
             row_sums = rs
@@ -361,13 +393,13 @@ def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
     """The megakernel sweep for DENSE designs (kernels/fused_sw's
     fused_sw_cols): one launch per permutation chunk, fed the chunk's
     permuted basis (chunk, n, K) in place of labels; the partial buffers
-    are allocated once for the sweep. s_T comes from the first chunk's
-    row sums.
+    are allocated once for the sweep, and the fp8 scale computed once.
+    s_T comes from the first chunk's row sums. `tuning` holds the
+    precision knobs.
 
     Returns (s_cols (n_total, K) float64, s_t 0-d float64,
     FusedKernelStats).
     """
-    _fref.reject_precision(tuning)
     n = int(xprep.shape[0])
     _check_perms(index_perms, n_total, n, "index_perms")
     k = design.k_cols
@@ -375,6 +407,8 @@ def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
     strata = _design_strata(design, n, basis.device)
     chunk = int(max(1, min(chunk, n_total)))
     xprep = xprep.to(torch.float32).contiguous()
+    tuning = dict(tuning or {})
+    tuning.update(_fp8_scale_kwargs(xprep, kernel_metric, tuning))
     workspace = (_fops.alloc_cols_workspace(n, n, chunk, k, xprep.device)
                  if xprep.device.type == "cuda" else None)
     s_cols = torch.empty((n_total, k), dtype=torch.float64,
@@ -386,7 +420,7 @@ def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
             strata, lo, hi, seed=seed, index_perms=index_perms))
         sc, rs = _fops.fused_sw_rows_cols(xprep, xprep, v, v, 0,
                                           metric=kernel_metric,
-                                          workspace=workspace)
+                                          workspace=workspace, **tuning)
         s_cols[lo:hi] = sc
         if row_sums is None:
             row_sums = rs
@@ -409,7 +443,8 @@ def fused_kernel_sw(xprep: torch.Tensor, rows_fn: Callable,
     """Dispatch the single-pass fused sweep to the planned implementation.
 
     impl: 'cuda' (the megakernel; its plain version on CPU tensors) or
-    'torch' (the row-block x chunk loops). Both return (s_w (n_total,)
+    'torch' (the row-block x chunk loops, on the table round-tripped per
+    the precision knobs in `tuning`). Both return (s_w (n_total,)
     float64, s_t 0-d float64, FusedKernelStats) with the same statistic
     for the same labels.
     """
@@ -420,9 +455,10 @@ def fused_kernel_sw(xprep: torch.Tensor, rows_fn: Callable,
             xprep, grouping, inv_gs, n_total, kernel_metric=kernel_metric,
             chunk=chunk, tuning=tuning, **labels)
     if impl == "torch":
-        _fref.reject_precision(tuning)
-        return fused_sw_onepass(xprep, rows_fn, grouping, inv_gs, n_total,
-                                row_block=row_block, chunk=chunk, **labels)
+        return fused_sw_onepass(
+            _precision_roundtrip(xprep, kernel_metric, tuning), rows_fn,
+            grouping, inv_gs, n_total, row_block=row_block, chunk=chunk,
+            **labels)
     raise ValueError(f"unknown fused-kernel impl {impl!r}; "
                      "expected 'cuda' or 'torch'")
 
@@ -433,18 +469,18 @@ def fused_kernel_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
                            tuning: Optional[dict] = None, seed: int = 0,
                            index_perms: Optional[torch.Tensor] = None):
     """fused_kernel_sw for DENSE designs: 'cuda' runs
-    fused_sw_megakernel_design, 'torch' the plain sweep fused_sw_design.
-    Both return (s_cols (n_total, K) float64, s_t 0-d float64,
-    FusedKernelStats)."""
+    fused_sw_megakernel_design, 'torch' the plain sweep fused_sw_design
+    (on the round-tripped table, as fused_kernel_sw's). Both return
+    (s_cols (n_total, K) float64, s_t 0-d float64, FusedKernelStats)."""
     if impl == "cuda":
         return fused_sw_megakernel_design(
             xprep, design, n_total, kernel_metric=kernel_metric, chunk=chunk,
             tuning=tuning, seed=seed, index_perms=index_perms)
     if impl == "torch":
-        _fref.reject_precision(tuning)
         s_cols, s_t, st = fused_sw_design(
-            xprep, rows_fn, design, n_total, row_block=row_block,
-            chunk=chunk, seed=seed, index_perms=index_perms)
+            _precision_roundtrip(xprep, kernel_metric, tuning), rows_fn,
+            design, n_total, row_block=row_block, chunk=chunk, seed=seed,
+            index_perms=index_perms)
         return s_cols, s_t, FusedKernelStats(
             impl="torch", n_total=st.n_total, chunk=st.chunk,
             n_chunks=st.n_chunks, row_block=st.row_block,

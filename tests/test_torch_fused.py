@@ -1,8 +1,9 @@
 """The port's fused distance -> s_W wrapper and plain version against the
 reference's megakernel (interpret mode) and its plain version, on the same
 numpy inputs: every metric at the reference test's shape (prime n, ragged
-groups), offset row slabs, the global-index mask, the precision knobs that
-wait for their slice, the wrapper's contract, the single-pass sweeps of
+groups), offset row slabs, the global-index mask, the precision knobs (the
+modes themselves are held to the reference in test_torch_precision.py),
+the wrapper's contract, the single-pass sweeps of
 pipeline.streaming, and the kernel build/binding. The CUDA kernel itself
 runs only on the card; `chip_smoke.py` holds it against this plain
 version there."""
@@ -181,10 +182,24 @@ def test_tile_knobs_are_accepted_and_ignored():
     ("feat_bf16", 1), ("feat_fp8", 1), ("feat_packed", 1),
     ("feat_scale", 0.5)])
 def test_precision_knobs_raise_naming_their_slice(fn, knob, value):
-    _, (xp, g, inv) = _operands("jaccard")
+    """The knobs raised until the precision slice ported them (hence the
+    name); now each runs, in the wrapper and the plain version alike, and
+    equals the f32 plain version on the table round-tripped through its
+    mode (packed on jaccard's presence data; feat_scale alone pins
+    nothing, as in the reference)."""
+    metric = "jaccard" if knob == "feat_packed" else "braycurtis"
+    _, (xp, g, inv) = _operands(metric)
     call = ops.fused_sw_rows if fn == "ops" else ref.fused_sw_ref
-    with pytest.raises(NotImplementedError, match="precision slice"):
-        call(xp, xp, g, g, inv, 0, metric="jaccard", **{knob: value})
+    got = call(xp, xp, g, g, inv, 0, metric=metric, **{knob: value})
+    mode = ref.feature_mode(metric, **({} if knob == "feat_scale"
+                                       else {knob: value}))
+    scale = distance.fp8_scale(xp) if mode == "fp8" else None
+    rt = ref.roundtrip(xp, mode, scale)
+    want = ref.fused_sw_ref(rt, rt, g, g, inv, 0, metric=metric)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if knob in ("feat_bf16", "feat_fp8"):    # the mode changed the values
+        assert not torch.equal(got[0], ref.fused_sw_ref(
+            xp, xp, g, g, inv, 0, metric=metric)[0])
 
 
 @pytest.mark.parametrize("case,exc", [
@@ -237,9 +252,9 @@ def test_cpu_calls_launch_nothing():
     for metric in METRICS:
         ops.fused_sw_rows(xp, xp, g, g, inv, 0, metric=metric)
         ops.fused_sw_rows_cols(xp, xp, v, v, 0, metric=metric)
-    assert ops.LAUNCHES == before == {
-        "fused_sw": before["fused_sw"],
-        "fused_sw_cols": before["fused_sw_cols"]}
+    assert ops.LAUNCHES == before
+    assert set(before) == {ops.launch_key(k, m) for k in ops.KERNELS
+                           for m in ops.MODES}
 
 
 def test_partials_at_the_emp_shape():
@@ -367,18 +382,26 @@ def test_cols_with_one_hot_columns_is_the_label_statistic():
     ("feat_bf16", 1), ("feat_fp8", 1), ("feat_packed", 1),
     ("feat_scale", 0.5)])
 def test_cols_precision_knobs_raise_naming_their_slice(knob, value):
-    """The dense-design sweeps turn a precision knob in `tuning` away
-    before any work, in both kinds (the cols kernel is f32 only)."""
+    """The dense-design sweeps turned a precision knob away until the
+    precision slice (hence the name); now both kinds run it and agree
+    (rtol 1e-5), and on jaccard's presence data every mode's values are
+    the f32 ones, so each kind equals its own f32 run bit for bit."""
     _, (xp, g, _) = _operands("jaccard")
     des = design.build(grouping=g[0], covariates=xp[:, 0].double(),
                        device="cpu")
     assert des.mode == design.MODE_DENSE
     rows = distance.ROW_METRICS["jaccard"].rows
+    kw = dict(kernel_metric="jaccard", row_block=8, chunk=2, seed=3)
+    runs = {}
     for impl in ("cuda", "torch"):
-        with pytest.raises(NotImplementedError, match="precision slice"):
-            streaming.fused_kernel_sw_design(
-                xp, rows, des, 4, impl=impl, kernel_metric="jaccard",
-                row_block=8, chunk=2, tuning={knob: value})
+        runs[impl] = streaming.fused_kernel_sw_design(
+            xp, rows, des, 4, impl=impl, tuning={knob: value}, **kw)
+        f32 = streaming.fused_kernel_sw_design(xp, rows, des, 4, impl=impl,
+                                               **kw)
+        assert torch.equal(runs[impl][0], f32[0])
+        assert float(runs[impl][1]) == float(f32[1])
+    torch.testing.assert_close(runs["cuda"][0], runs["torch"][0], rtol=1e-5,
+                               atol=1e-9)
 
 
 @pytest.mark.parametrize("case,exc", [
@@ -515,9 +538,9 @@ def test_sweeps_reject_what_they_cannot_run():
     kw = dict(kernel_metric="braycurtis", row_block=13, chunk=17)
     with pytest.raises(ValueError, match="fused-kernel impl"):
         streaming.fused_kernel_sw(xp, rows, g, inv, 10, impl="pallas", **kw)
-    with pytest.raises(NotImplementedError, match="precision"):
+    with pytest.raises(ValueError, match="jaccard"):
         streaming.fused_kernel_sw(xp, rows, g, inv, 10, impl="torch",
-                                  tuning={"feat_fp8": 1}, **kw)
+                                  tuning={"feat_packed": 1}, **kw)
     with pytest.raises(ValueError, match="perms must be"):
         streaming.fused_kernel_sw(xp, rows, g, inv, 10, impl="cuda",
                                   perms=torch.zeros((3, N), dtype=torch.int32),
@@ -563,10 +586,19 @@ def test_source_names_what_it_replaces_and_its_constants():
     functors = {"braycurtis": "BrayCurtis", "euclidean": "Euclidean",
                 "jaccard": "Jaccard"}
     for metric, kind in ops._KIND.items():     # the wrapper's C switches
-        assert f"case {kind}:\n      return launch<{functors[metric]}>" \
+        assert f"case {kind}:\n      return launch<{functors[metric]}, L>" \
             in src
-        assert f"case {kind}:\n      return launch_cols<{functors[metric]}>" \
-            in src
+        assert f"case {kind}:\n      return launch_cols<{functors[metric]}, " \
+            "L>" in src
+    loaders = {"f32": "F32In", "bf16": "Bf16In", "fp8": "Fp8In"}
+    for mode, i in ops._MODE.items():
+        if mode == "packed":
+            assert f"case {i}:\n      if (kind != 2)" in src
+            assert "return launch<PackedJaccard, PackedIn>(" in src
+            assert "return launch_cols<PackedJaccard, PackedIn>(" in src
+        else:
+            assert f"return launch_kind<{loaders[mode]}>(" in src
+            assert f"return launch_cols_kind<{loaders[mode]}>(" in src
     assert "cublas" not in src.lower() and "cudnn" not in src.lower()
     assert "atomicAdd" not in src and "fast_math" not in src.replace(
         "--use_fast_math", "")

@@ -425,13 +425,19 @@ def test_fused_impl_pins_and_aliases(pinned, name):
 
 
 def test_fused_tuning_keeps_known_keys_and_rejects_precision():
+    """Known keys are kept, others dropped; a precision knob resolves into
+    the plan since the precision slice, and one the impl cannot run
+    (packed on euclidean) is rejected."""
     kw = dict(backend="cpu", metric="euclidean", materialize="fused-kernel")
     pl = planner.plan_pipeline(100, 8, 100, 2, fused_tuning={
         "tile_r": 32, "feat_bf16": 0}, **kw)
     assert pl.fused_tuning == {"feat_bf16": 0, "feat_fp8": 0}
-    with pytest.raises(NotImplementedError, match="precision slice"):
+    pl = planner.plan_pipeline(100, 8, 100, 2,
+                               fused_tuning={"feat_fp8": 1}, **kw)
+    assert pl.fused_tuning == {"feat_bf16": 0, "feat_fp8": 1}
+    with pytest.raises(ValueError, match="jaccard"):
         planner.plan_pipeline(100, 8, 100, 2,
-                              fused_tuning={"feat_fp8": 1}, **kw)
+                              fused_tuning={"feat_packed": 1}, **kw)
     with pytest.raises(ValueError, match="computes"):
         planner.plan_pipeline(100, 8, 100, 2, fused_impl="jaccard.fusedk.cuda",
                               **kw)
@@ -559,8 +565,13 @@ def test_not_ported_options_raise(case, tmp_path):
     x, grouping, _, _, _ = _study()
     x = torch.from_numpy(x)
     kw = {}
+    exc, match = NotImplementedError, "slice"
     if case == "feat_bf16":
-        kw.update(materialize="fused-kernel", fused_tuning={"feat_bf16": 1})
+        # the precision knobs run on the fused-kernel bridge since the
+        # precision slice; on another bridge they cannot, and the planner
+        # refuses them rather than run f32
+        kw.update(materialize="dense", fused_tuning={"feat_bf16": 1})
+        exc, match = ValueError, "fused-kernel"
     elif case == "ordination":
         kw["ordination"] = 2
     elif case == "mesh":
@@ -581,7 +592,7 @@ def test_not_ported_options_raise(case, tmp_path):
         kw.update(strata=np.zeros(len(grouping), np.int32), mesh=object())
     elif case == "weights":
         kw.update(weights=np.ones(len(grouping)), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(exc, match=match):
         pipeline.pipeline(x, torch.from_numpy(grouping), n_perms=9,
                           device="cpu", **kw)
 
