@@ -24,10 +24,20 @@ multiply is split in 16-bit halves so no int64 product overflows.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 _M32 = 0xFFFFFFFF
 _SALTS = (0x9E3779B9, 0x85EBCA6B)
+# The label draws' memory. A row of n keys holds, at its peak, up to eight
+# (n,) int64 arrays at once: the two hash halves and a _mix32's
+# temporaries, the keys, argsort's output and its workspace (the strata
+# draw's second argsort and gather peak no higher). The draws go in
+# sub-blocks of rows whose transients fit the label budget the engine
+# planner charges its chunks (4 n + 8 bytes a permutation); the labels
+# themselves are that budget.
+DRAW_BYTES_PER_ELEMENT = 64
 
 
 def group_sizes(grouping: torch.Tensor, n_groups: int) -> torch.Tensor:
@@ -73,15 +83,48 @@ def permutation_keys(seed: int, idx: torch.Tensor, n: int) -> torch.Tensor:
     return ((halves[0] >> 1) << 32) | halves[1]
 
 
+def draw_rows(n: int, budget_bytes: float) -> int:
+    """Rows of a draw's sub-block: the most whose int64 transients
+    (draw_transient_bytes) fit the label budget, at least one. A pure
+    function of (n, budget), so the rows drawn do not depend on the
+    device."""
+    return max(1, int(budget_bytes // (DRAW_BYTES_PER_ELEMENT * int(n))))
+
+
+def draw_transient_bytes(rows: int, n: int) -> int:
+    """Modelled peak bytes of the int64 transients of one sub-block of
+    `rows` permutations of n samples (the output labels not counted)."""
+    return DRAW_BYTES_PER_ELEMENT * int(rows) * int(n)
+
+
+def _sub_blocks(lo: int, hi: int, n: int, block_rows: Optional[int]):
+    """[a, b) sub-blocks of [lo, hi), block_rows global indices each
+    (None: the whole range in one)."""
+    step = max(hi - lo, 1) if block_rows is None else int(block_rows)
+    if step < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    return [(a, min(a + step, hi)) for a in range(lo, hi, step)]
+
+
 def permutation_batch(grouping: torch.Tensor, lo: int, hi: int, *,
-                      seed: int = 0) -> torch.Tensor:
+                      seed: int = 0, block_rows: Optional[int] = None
+                      ) -> torch.Tensor:
     """(hi - lo, n) int32 permuted labels for global indices [lo, hi),
-    on grouping's device. Index 0 is the identity (the observed labels)."""
+    on grouping's device. Index 0 is the identity (the observed labels).
+    The keys and their argsort are made block_rows rows at a time
+    (draw_rows(n, budget) keeps them within a label budget; None: all at
+    once); row p depends on (seed, p) alone, so every block size gives
+    the same labels."""
     n = grouping.shape[0]
-    idx = torch.arange(lo, hi, dtype=torch.int64, device=grouping.device)
-    order = torch.argsort(permutation_keys(seed, idx, n), dim=1,
-                          stable=True)
-    labels = grouping.to(torch.int32)[order]
+    g32 = grouping.to(torch.int32)
+    labels = torch.empty((max(hi - lo, 0), n), dtype=torch.int32,
+                         device=grouping.device)
+    for a, b in _sub_blocks(lo, hi, n, block_rows):
+        idx = torch.arange(a, b, dtype=torch.int64, device=grouping.device)
+        order = torch.argsort(permutation_keys(seed, idx, n), dim=1,
+                              stable=True)
+        labels[a - lo:b - lo] = g32[order]
+        del order       # freed before the next sub-block's keys exist
     if lo == 0 and hi > 0:
         labels[0] = grouping
     return labels
@@ -98,7 +141,8 @@ def permutation_batch(grouping: torch.Tensor, lo: int, hi: int, *,
 # ---------------------------------------------------------------------------
 
 def strata_permutation_batch(strata: torch.Tensor, lo: int, hi: int, *,
-                             seed: int = 0) -> torch.Tensor:
+                             seed: int = 0, block_rows: Optional[int] = None
+                             ) -> torch.Tensor:
     """(hi - lo, n) int32 INDEX permutations restricted within strata
     blocks, for global indices [lo, hi), on strata's device: perm[i] has
     the stratum of i. Index 0 is the identity.
@@ -107,31 +151,45 @@ def strata_permutation_batch(strata: torch.Tensor, lo: int, hi: int, *,
     stratum, once in the random order of the row's keys and once in the
     original order, and matching them up block by block gives a uniform
     within-block bijection. With a constant strata vector the draw is the
-    free generator's argsort(keys)."""
+    free generator's argsort(keys). Drawn block_rows rows at a time
+    (None: all at once), with the same rows for every block size."""
     n = strata.shape[0]
     dev = strata.device
-    idx = torch.arange(lo, hi, dtype=torch.int64, device=dev)
     s = strata.to(torch.int64)
-    a = torch.argsort(permutation_keys(seed, idx, n), dim=1,
-                      stable=True)                    # random position order
-    a = torch.gather(a, 1, torch.argsort(s[a], dim=1,
-                                         stable=True))  # by stratum
     b = torch.argsort(s, stable=True)                 # by stratum, in order
-    perms = torch.empty_like(a)
-    perms[:, b] = a
-    perms = perms.to(torch.int32)
+    perms = torch.empty((max(hi - lo, 0), n), dtype=torch.int32, device=dev)
+    for r0, r1 in _sub_blocks(lo, hi, n, block_rows):
+        idx = torch.arange(r0, r1, dtype=torch.int64, device=dev)
+        a = torch.argsort(permutation_keys(seed, idx, n), dim=1,
+                          stable=True)                # random position order
+        a = torch.gather(a, 1, torch.argsort(s[a], dim=1,
+                                             stable=True))  # by stratum
+        block = torch.empty_like(a)
+        block[:, b] = a
+        perms[r0 - lo:r1 - lo] = block
+        del a, block
     if lo == 0 and hi > 0:
         perms[0] = torch.arange(n, dtype=torch.int32, device=dev)
     return perms
 
 
 def strata_label_batch(grouping: torch.Tensor, strata: torch.Tensor,
-                       lo: int, hi: int, *, seed: int = 0) -> torch.Tensor:
+                       lo: int, hi: int, *, seed: int = 0,
+                       block_rows: Optional[int] = None) -> torch.Tensor:
     """Permuted LABELS under strata restriction, (hi - lo, n) int32: the
     grouping composed with the index permutations, so every label impl
-    and kernel consumes them unchanged."""
-    perms = strata_permutation_batch(strata, lo, hi, seed=seed)
-    return grouping.to(torch.int32)[perms.long()]
+    and kernel consumes them unchanged. Drawn and gathered block_rows
+    rows at a time (None: all at once)."""
+    n = strata.shape[0]
+    g32 = grouping.to(torch.int32)
+    labels = torch.empty((max(hi - lo, 0), n), dtype=torch.int32,
+                         device=grouping.device)
+    for a, b in _sub_blocks(lo, hi, n, block_rows):
+        perms = strata_permutation_batch(strata, a, b, seed=seed,
+                                         block_rows=b - a)
+        labels[a - lo:b - lo] = g32[perms.long()]
+        del perms
+    return labels
 
 
 def masked_strata(strata: torch.Tensor, n_valid: int) -> torch.Tensor:

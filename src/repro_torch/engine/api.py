@@ -96,7 +96,8 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
         pl = dataclasses.replace(pl, impl="<custom sw_fn>", kernel=None,
                                  reason="caller-supplied sw_fn")
     s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
-                            seed=seed, perms=perms, index_perms=index_perms)
+                            seed=seed, perms=perms, index_perms=index_perms,
+                            draw_budget=memory_budget_bytes)
 
     s_t = s_total(mat2) if s_t is None else torch.tensor(
         s_t, dtype=torch.float32, device=dev)
@@ -211,7 +212,8 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
         fn = registry.get(pl.impl).bound(**pl.tuning)
         s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
                                 seed=seed, perms=perms, strata=design.strata,
-                                index_perms=index_perms)
+                                index_perms=index_perms,
+                                draw_budget=memory_budget_bytes)
         s_t = s_total(mat2) if s_t is None else torch.tensor(
             s_t, dtype=torch.float32, device=dev)
         return label_design_result(
@@ -231,7 +233,7 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
               else torch.zeros((n,), dtype=torch.int32, device=dev))
     s_cols, stats = scheduler.sw_cols_streaming(
         mat2, design.basis, strata, n_total, cols_fn, chunk=pl.chunk,
-        seed=seed, index_perms=index_perms)
+        seed=seed, index_perms=index_perms, draw_budget=memory_budget_bytes)
     return design_result(
         s_cols, design, n_objects=n, n_perms=n_perms,
         method=f"permanova-design[{pl.impl}]",

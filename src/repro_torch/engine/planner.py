@@ -76,6 +76,12 @@ def _pick_impl_design(backend: str) -> Tuple[str, str]:
                       "(hat-matrix blocks on the MXU/BLAS path)")
 
 
+def label_budget(budget_bytes: Optional[float] = None) -> float:
+    """The label budget in bytes: the caller's, or the default."""
+    return DEFAULT_STREAM_BUDGET_BYTES if budget_bytes is None \
+        else budget_bytes
+
+
 def chunk_for_budget(n: int, n_perms: int,
                      budget_bytes: Optional[float] = None,
                      n_cols: Optional[int] = None) -> int:
@@ -84,8 +90,7 @@ def chunk_for_budget(n: int, n_perms: int,
     is paid regardless of chunking and is not charged against it. Dense
     designs (n_cols = K basis columns) also stream the gathered (chunk, n,
     K) f32 basis factor and a (chunk, K) output."""
-    budget = DEFAULT_STREAM_BUDGET_BYTES if budget_bytes is None \
-        else budget_bytes
+    budget = label_budget(budget_bytes)
     per_perm = 4.0 * n + 8.0
     if n_cols is not None:
         per_perm += 4.0 * n * n_cols + 4.0 * n_cols

@@ -6,10 +6,12 @@ build the distance slab from the core row primitives
 the one-hot factors (`fstat.onehot_perm_factors` / `sw_matmul_contract`).
 The rows go in blocks of at most 256, so the (block, n, d) Bray-Curtis
 intermediates stay bounded and the plain version also runs on the card at
-the paper's n; each block's contraction is summed over at most 256 rows in
-f32 and the blocks' partials in float64, so the plain version stays an
-oracle for the kernels at that n (one f32 sum over tens of thousands of
-rows errs more than the kernels' tile-by-tile sums).
+the paper's n. Each block's f32 squared distances are contracted in
+float64 and the blocks' partials summed in float64, so the plain version
+is an oracle sharper than the kernels it checks at that n: an f32
+contraction of a design's signed basis columns cancels to ~s_T / n and
+kept ~6e-7 s_T of rounding at the EMP design chunk, 59% of the 1e-6 s_T
+bar, where the kernel's own error is ~2e-9 s_T.
 
 `fused_sw_cols_ref` is the plain version of the dense-design kernel: the
 same masked D^2 slab contracted per basis column
@@ -33,7 +35,7 @@ from repro_torch.core import distance, fstat
 ROWS_FNS = {m: distance.ROW_METRICS[m].rows
             for m in ("euclidean", "braycurtis", "jaccard")}
 # Elements of the largest (block, n[, d]) intermediate of the row primitive,
-# and the most rows a block's contraction sums in f32.
+# and the most rows a block holds.
 _MAX_ELEMS = 2 ** 30
 _MAX_ROWS = 256
 # aitchison is euclidean geometry over clr-prepared features
@@ -125,7 +127,9 @@ def fused_sw_ref(x_rows: torch.Tensor, x: torch.Tensor,
     scale; default: the full table's)."""
     nr, n = x_rows.shape[0], x.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
-    e = fstat.onehot_perm_factors(g_cols, inv_gs, torch.float32)  # (P, n, G)
+    # sqrt(w) rounded to f32 as the kernel's, the contraction in float64
+    e = fstat.onehot_perm_factors(g_cols, inv_gs,
+                                  torch.float32).double()     # (P, n, G)
     s_w = torch.zeros(g_cols.shape[0], dtype=torch.float64, device=x.device)
     row_sums = torch.empty(nr, dtype=torch.float32, device=x.device)
     precision = dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
@@ -133,8 +137,8 @@ def fused_sw_ref(x_rows: torch.Tensor, x: torch.Tensor,
     for lo, hi, m2 in _masked_d2_blocks(x_rows, x, row_offset, metric,
                                         n_valid, precision):
         e_rows = fstat.onehot_perm_factors(g_rows[:, lo:hi], inv_gs,
-                                           torch.float32)
-        s_w += fstat.sw_matmul_contract(m2, e, e_rows)
+                                           torch.float32).double()
+        s_w += fstat.sw_matmul_contract(m2.double(), e, e_rows)
         row_sums[lo:hi] = m2.sum(dim=1)
     return s_w.to(torch.float32), row_sums
 
@@ -154,7 +158,7 @@ def fused_sw_cols_ref(x_rows: torch.Tensor, x: torch.Tensor,
     nr, n = x_rows.shape[0], x.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
     p, _, k = v_cols.shape
-    vc = v_cols.to(torch.float32)
+    vc = v_cols.to(torch.float32).double()
     s_cols = torch.zeros((p, k), dtype=torch.float64, device=x.device)
     row_sums = torch.empty(nr, dtype=torch.float32, device=x.device)
     precision = dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
@@ -162,6 +166,6 @@ def fused_sw_cols_ref(x_rows: torch.Tensor, x: torch.Tensor,
     for lo, hi, m2 in _masked_d2_blocks(x_rows, x, row_offset, metric,
                                         n_valid, precision):
         s_cols += fstat.sw_cols_contract(
-            m2, vc, v_rows[:, lo:hi].to(torch.float32))
+            m2.double(), vc, v_rows[:, lo:hi].to(torch.float32).double())
         row_sums[lo:hi] = m2.sum(dim=1)
     return s_cols.to(torch.float32), row_sums

@@ -56,11 +56,11 @@ def load_library() -> ctypes.CDLL:
 
 def kernel_config(lib: ctypes.CDLL) -> dict:
     """The tile constants compiled into the library."""
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     lib.sw_kernel_config(out)
     return {"brute_rows": out[0], "permblock_perms": out[1],
             "permblock_tile": out[2], "matmul_rows": out[3],
-            "matmul_max_perm_block": out[4]}
+            "matmul_max_perm_block": out[4], "matmul_columns": out[5]}
 
 
 def _rounded_sqrt_w(inv_group_sizes: torch.Tensor, dtype) -> torch.Tensor:
@@ -151,7 +151,9 @@ def permanova_sw(mat2: torch.Tensor, groupings: torch.Tensor,
     inv_group_sizes: (G,) f32.
 
     The brute kernel takes one permutation per block, permblock 16 and
-    matmul as many as fill 128 one-hot columns (16 at G = 8).
+    matmul as many as fill 256 one-hot columns (32 at G = 8, at most
+    128), on the tensor cores (wgmma): two TF32 products of an exact
+    split on f32 mat2, one bf16 product on bf16.
     """
     _check(mat2, groupings, inv_group_sizes, variant)
     if mat2.device.type == "cpu":

@@ -2,7 +2,9 @@
 
 Twin of `repro/kernels/permanova_sw/ref.py`: the vectorized brute force
 (tied back to the literal Algorithm 1 in core.fstat by the tests), plus a
-float64 numpy version for tolerance calibration.
+float64 numpy version for tolerance calibration, and `tf32_round`, the
+rounding the matmul kernel's tensor-core split applies (for the tests
+that pin why it takes two TF32 products).
 """
 
 from __future__ import annotations
@@ -45,3 +47,11 @@ def sw_ref_f64(mat2, groupings, inv_group_sizes) -> np.ndarray:
         same = g[:, None] == g[None, :]
         out.append(np.sum(np.where(same & triu, mat2 * w[g][:, None], 0.0)))
     return np.asarray(out)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as cvt.rna.tf32.f32 rounds: add half of the dropped
+    13 bits' range to the magnitude's bit pattern and clear them."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)

@@ -149,7 +149,8 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
         **{**pl.dist_tuning, **(dist_tuning or {})})
     if pl.materialize in _planner.FUSED_MODES:
         return _fused_bridge(pl, prepare(x), rows_fn, grouping, n_perms,
-                             n_groups, seed, perms, index_perms)
+                             n_groups, seed, perms, index_perms,
+                             memory_budget_bytes)
     run_kw = dict(n_perms=n_perms, seed=seed, perms=perms,
                   index_perms=index_perms, n_groups=n_groups, impl=sw_impl,
                   memory_budget_bytes=memory_budget_bytes, chunk=chunk,
@@ -172,7 +173,7 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
 
 def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
                   n_perms: int, n_groups: int, seed: int, perms,
-                  index_perms):
+                  index_perms, draw_budget):
     """The fused and fused-kernel bridges: s_W from the streaming sweeps,
     then F and p as engine.run assembles them; the joint plan string is
     authoritative (no engine.run runs)."""
@@ -183,7 +184,7 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
         s_w, s_t, stats = _streaming.fused_sw(
             xprep, rows_fn, grouping, inv_gs, n_total,
             row_block=pl.row_block, chunk=pl.sw.chunk, seed=seed,
-            perms=perms, index_perms=index_perms)
+            perms=perms, index_perms=index_perms, draw_budget=draw_budget)
         ran = (f"rows={stats.row_block}x{stats.n_row_blocks} "
                f"chunks={stats.n_chunks} "
                f"slab={stats.peak_slab_bytes/2**20:.1f}MiB")
@@ -193,7 +194,7 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
             xprep, rows_fn, grouping, inv_gs, n_total, impl=fspec.kind,
             kernel_metric=fspec.kernel_metric, row_block=pl.row_block,
             chunk=pl.sw.chunk, tuning=pl.fused_tuning, seed=seed,
-            perms=perms, index_perms=index_perms)
+            perms=perms, index_perms=index_perms, draw_budget=draw_budget)
         ran = (f"{stats.impl} rows={stats.row_block} "
                f"chunks={stats.n_chunks} "
                f"slab={stats.peak_slab_bytes/2**20:.2f}MiB "
@@ -248,6 +249,8 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
     labels = dict(seed=seed, index_perms=index_perms)
     if not dense_mode:
         labels.update(perms=perms)
+    # the fused sweeps draw in sub-blocks sized to the label budget
+    sweep_labels = dict(labels, draw_budget=memory_budget_bytes)
 
     if pl.materialize in ("dense", "stream"):
         run_kw = dict(n_perms=n_perms, impl=sw_impl,
@@ -265,7 +268,7 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
         if dense_mode:
             s_cols, _, stats = _streaming.fused_sw_design(
                 xprep, rows_fn, design, n_total, row_block=pl.row_block,
-                chunk=pl.sw.chunk, **labels)
+                chunk=pl.sw.chunk, **sweep_labels)
             res = engine.design_result(
                 s_cols.to(torch.float32), design, n_objects=n,
                 n_perms=n_perms, method="pipeline-design[fused]",
@@ -277,7 +280,7 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
             s_w, s_t, stats = _streaming.fused_sw(
                 xprep, rows_fn, design.grouping, inv_gs, n_total,
                 row_block=pl.row_block, chunk=pl.sw.chunk,
-                strata=design.strata, **labels)
+                strata=design.strata, **sweep_labels)
             res = engine.label_design_result(
                 s_w.to(torch.float32), s_t.to(torch.float32), design,
                 n_objects=n, n_perms=n_perms,
@@ -292,7 +295,7 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
                   tuning=pl.fused_tuning)
         if dense_mode:
             s_cols, _, stats = _streaming.fused_kernel_sw_design(
-                xprep, rows_fn, design, n_total, **kw, **labels)
+                xprep, rows_fn, design, n_total, **kw, **sweep_labels)
             res = engine.design_result(
                 s_cols.to(torch.float32), design, n_objects=n,
                 n_perms=n_perms,
@@ -306,7 +309,7 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
                                                   design.n_groups)
             s_w, s_t, stats = _streaming.fused_kernel_sw(
                 xprep, rows_fn, design.grouping, inv_gs, n_total,
-                strata=design.strata, **kw, **labels)
+                strata=design.strata, **kw, **sweep_labels)
             res = engine.label_design_result(
                 s_w.to(torch.float32), s_t.to(torch.float32), design,
                 n_objects=n, n_perms=n_perms,

@@ -169,7 +169,7 @@ def _design_strata(design, n: int, device) -> torch.Tensor:
 
 
 def _sweep_cols(slabs, n: int, design, n_total: int, chunk: int, *,
-                seed: int, index_perms, groups=()):
+                seed: int, index_perms, groups=(), draw_budget=None):
     """_sweep for a dense design: per (slab, chunk) cell, the chunk's
     index permutations gather the basis and the per-column forms are
     accumulated. (s_cols (n_total, K) f64, row_sums (n,) f64, number of
@@ -188,18 +188,22 @@ def _sweep_cols(slabs, n: int, design, n_total: int, chunk: int, *,
         for lo in range(0, n_total, chunk):
             hi = min(lo + chunk, n_total)
             v = fstat.basis_perm_factors(basis, _index_perms(
-                strata, lo, hi, seed=seed, index_perms=index_perms))
+                strata, lo, hi, seed=seed, index_perms=index_perms,
+                draw_budget=draw_budget))
             s_cols[lo:hi] += _fused_sw_step_cols(slab, v, lo_r, groups)
     return s_cols, row_sums, n_slabs
 
 
-def _label_src(n_total, n, *, seed, perms, strata, index_perms):
+def _label_src(n_total, n, *, seed, perms, strata, index_perms,
+               draw_budget=None):
     """The label source of a sweep (engine.scheduler._labels' keywords),
-    with explicit tensors checked against (n_total, n)."""
+    with explicit tensors checked against (n_total, n); draw_budget (the
+    label budget, None: the planner's default) sizes the draws'
+    sub-blocks."""
     _check_perms(perms, n_total, n)
     _check_perms(index_perms, n_total, n, "index_perms")
     return dict(seed=seed, perms=perms, strata=strata,
-                index_perms=index_perms)
+                index_perms=index_perms, draw_budget=draw_budget)
 
 
 def fused_sw(xprep: torch.Tensor, rows_fn: Callable, grouping: torch.Tensor,
@@ -207,7 +211,8 @@ def fused_sw(xprep: torch.Tensor, rows_fn: Callable, grouping: torch.Tensor,
              chunk: int, seed: int = 0,
              perms: Optional[torch.Tensor] = None,
              strata: Optional[torch.Tensor] = None,
-             index_perms: Optional[torch.Tensor] = None):
+             index_perms: Optional[torch.Tensor] = None,
+             draw_budget: Optional[float] = None):
     """s_W for permutation indices [0, n_total) without ever holding the
     (n, n) matrix: outer loop over mat2 row slabs (each built once by
     rows_fn, squared and diagonal-masked), inner loop over permutation
@@ -221,7 +226,7 @@ def fused_sw(xprep: torch.Tensor, rows_fn: Callable, grouping: torch.Tensor,
     """
     n = int(xprep.shape[0])
     src = _label_src(n_total, n, seed=seed, perms=perms, strata=strata,
-                     index_perms=index_perms)
+                     index_perms=index_perms, draw_budget=draw_budget)
     row_block = int(max(1, min(row_block, n)))
     chunk = int(max(1, min(chunk, n_total)))
     s_w, row_sums, n_slabs = _sweep(
@@ -237,7 +242,8 @@ def fused_sw(xprep: torch.Tensor, rows_fn: Callable, grouping: torch.Tensor,
 def fused_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
                     n_total: int, *, row_block: int, chunk: int,
                     seed: int = 0,
-                    index_perms: Optional[torch.Tensor] = None):
+                    index_perms: Optional[torch.Tensor] = None,
+                    draw_budget: Optional[float] = None):
     """The plain design sweep (the fused bridge, and the torch kind of
     the fused-kernel bridge): per-column quadratic forms accumulated over
     mat2 row slabs, nothing (n, n)-shaped ever resident. Strata-blocked
@@ -258,7 +264,8 @@ def fused_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
     chunk = int(max(1, min(chunk, n_total)))
     s_cols, row_sums, n_slabs = _sweep_cols(
         mat2_row_blocks(xprep, rows_fn, block=row_block), n, design,
-        n_total, chunk, seed=seed, index_perms=index_perms, groups=groups)
+        n_total, chunk, seed=seed, index_perms=index_perms, groups=groups,
+        draw_budget=draw_budget)
     stats = FusedStats(
         n_total=n_total, chunk=chunk, n_chunks=-(-n_total // chunk),
         row_block=row_block, n_row_blocks=n_slabs,
@@ -290,7 +297,8 @@ def fused_sw_onepass(xprep: torch.Tensor, rows_fn: Callable,
                      n_total: int, *, row_block: int, chunk: int,
                      seed: int = 0, perms: Optional[torch.Tensor] = None,
                      strata: Optional[torch.Tensor] = None,
-                     index_perms: Optional[torch.Tensor] = None):
+                     index_perms: Optional[torch.Tensor] = None,
+                     draw_budget: Optional[float] = None):
     """The plain twin of the megakernel sweep: loops over row blocks x
     permutation chunks; each D^2 block is built once (masked by global
     index, squared) and consumed by every chunk before the next.
@@ -299,7 +307,7 @@ def fused_sw_onepass(xprep: torch.Tensor, rows_fn: Callable,
     """
     n = int(xprep.shape[0])
     src = _label_src(n_total, n, seed=seed, perms=perms, strata=strata,
-                     index_perms=index_perms)
+                     index_perms=index_perms, draw_budget=draw_budget)
     block = int(max(1, min(row_block, n)))
     chunk = int(max(1, min(chunk, n_total)))
     s_w, row_sums, _ = _sweep(
@@ -346,7 +354,8 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
                         tuning: Optional[dict] = None, seed: int = 0,
                         perms: Optional[torch.Tensor] = None,
                         strata: Optional[torch.Tensor] = None,
-                        index_perms: Optional[torch.Tensor] = None):
+                        index_perms: Optional[torch.Tensor] = None,
+                        draw_budget: Optional[float] = None):
     """The fused sweep through the megakernel (kernels/fused_sw): one
     launch per permutation chunk covers every tile and permutation of the
     chunk, so the only device traffic per chunk is the feature table and
@@ -360,7 +369,7 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
     """
     n = int(xprep.shape[0])
     src = _label_src(n_total, n, seed=seed, perms=perms, strata=strata,
-                     index_perms=index_perms)
+                     index_perms=index_perms, draw_budget=draw_budget)
     chunk = int(max(1, min(chunk, n_total)))
     xprep = xprep.to(torch.float32).contiguous()
     tuning = dict(tuning or {})
@@ -389,7 +398,8 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
 def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
                                kernel_metric: str, chunk: int,
                                tuning: Optional[dict] = None, seed: int = 0,
-                               index_perms: Optional[torch.Tensor] = None):
+                               index_perms: Optional[torch.Tensor] = None,
+                               draw_budget: Optional[float] = None):
     """The megakernel sweep for DENSE designs (kernels/fused_sw's
     fused_sw_cols): one launch per permutation chunk, fed the chunk's
     permuted basis (chunk, n, K) in place of labels; the partial buffers
@@ -417,7 +427,8 @@ def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
     for lo in range(0, n_total, chunk):
         hi = min(lo + chunk, n_total)
         v = fstat.basis_perm_factors(basis, _index_perms(
-            strata, lo, hi, seed=seed, index_perms=index_perms))
+            strata, lo, hi, seed=seed, index_perms=index_perms,
+            draw_budget=draw_budget))
         sc, rs = _fops.fused_sw_rows_cols(xprep, xprep, v, v, 0,
                                           metric=kernel_metric,
                                           workspace=workspace, **tuning)
@@ -439,7 +450,8 @@ def fused_kernel_sw(xprep: torch.Tensor, rows_fn: Callable,
                     tuning: Optional[dict] = None, seed: int = 0,
                     perms: Optional[torch.Tensor] = None,
                     strata: Optional[torch.Tensor] = None,
-                    index_perms: Optional[torch.Tensor] = None):
+                    index_perms: Optional[torch.Tensor] = None,
+                    draw_budget: Optional[float] = None):
     """Dispatch the single-pass fused sweep to the planned implementation.
 
     impl: 'cuda' (the megakernel; its plain version on CPU tensors) or
@@ -449,7 +461,7 @@ def fused_kernel_sw(xprep: torch.Tensor, rows_fn: Callable,
     for the same labels.
     """
     labels = dict(seed=seed, perms=perms, strata=strata,
-                  index_perms=index_perms)
+                  index_perms=index_perms, draw_budget=draw_budget)
     if impl == "cuda":
         return fused_sw_megakernel(
             xprep, grouping, inv_gs, n_total, kernel_metric=kernel_metric,
@@ -467,7 +479,8 @@ def fused_kernel_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
                            n_total: int, *, impl: str, kernel_metric: str,
                            row_block: int, chunk: int,
                            tuning: Optional[dict] = None, seed: int = 0,
-                           index_perms: Optional[torch.Tensor] = None):
+                           index_perms: Optional[torch.Tensor] = None,
+                           draw_budget: Optional[float] = None):
     """fused_kernel_sw for DENSE designs: 'cuda' runs
     fused_sw_megakernel_design, 'torch' the plain sweep fused_sw_design
     (on the round-tripped table, as fused_kernel_sw's). Both return
@@ -475,12 +488,13 @@ def fused_kernel_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
     if impl == "cuda":
         return fused_sw_megakernel_design(
             xprep, design, n_total, kernel_metric=kernel_metric, chunk=chunk,
-            tuning=tuning, seed=seed, index_perms=index_perms)
+            tuning=tuning, seed=seed, index_perms=index_perms,
+            draw_budget=draw_budget)
     if impl == "torch":
         s_cols, s_t, st = fused_sw_design(
             _precision_roundtrip(xprep, kernel_metric, tuning), rows_fn,
             design, n_total, row_block=row_block, chunk=chunk, seed=seed,
-            index_perms=index_perms)
+            index_perms=index_perms, draw_budget=draw_budget)
         return s_cols, s_t, FusedKernelStats(
             impl="torch", n_total=st.n_total, chunk=st.chunk,
             n_chunks=st.n_chunks, row_block=st.row_block,

@@ -190,6 +190,93 @@ def test_permutation_batch_is_uniform_enough():
     assert chi2 < 2 * (n - 1) ** 2      # dof (n-1)^2 = 225, mean 225
 
 
+def _whole_chunk_draws(grouping, strata, lo, hi, seed):
+    """The draws of [lo, hi) made in one piece, as the generator made them
+    before it drew in sub-blocks: (labels, strata index perms, strata
+    labels)."""
+    n = grouping.shape[0]
+    idx = torch.arange(lo, hi, dtype=torch.int64)
+    order = torch.argsort(permutations.permutation_keys(seed, idx, n),
+                          dim=1, stable=True)
+    labels = grouping.to(torch.int32)[order]
+    s = strata.to(torch.int64)
+    a = torch.gather(order, 1, torch.argsort(s[order], dim=1, stable=True))
+    perms = torch.empty_like(a)
+    perms[:, torch.argsort(s, stable=True)] = a
+    perms = perms.to(torch.int32)
+    if lo == 0:
+        labels[0] = grouping
+        perms[0] = torch.arange(n, dtype=torch.int32)
+    return labels, perms, grouping.to(torch.int32)[perms.long()]
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 23), (5, 40)])
+@pytest.mark.parametrize("block_rows", [1, 3, "chunk", None])
+def test_draws_are_bit_identical_for_every_sub_block(block_rows, lo, hi):
+    """permutation_batch, strata_permutation_batch and strata_label_batch
+    give the same rows, bit for bit, whatever rows a sub-block holds (1, 3,
+    the whole chunk, or None: the range in one piece), and the rows of the
+    draw made in one piece."""
+    grouping = _grouping()
+    strata = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 3, size=57).astype(np.int32))
+    rows = hi - lo if block_rows == "chunk" else block_rows
+    want = _whole_chunk_draws(grouping, strata, lo, hi, seed=13)
+    got = (permutations.permutation_batch(grouping, lo, hi, seed=13,
+                                          block_rows=rows),
+           permutations.strata_permutation_batch(strata, lo, hi, seed=13,
+                                                 block_rows=rows),
+           permutations.strata_label_batch(grouping, strata, lo, hi,
+                                           seed=13, block_rows=rows))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (hi - lo, 57)
+        assert torch.equal(g, w)
+
+
+def test_draw_sub_block_fits_the_planners_label_budget():
+    """At the EMP shape (n = 25,145) the sub-block the planner's label
+    budget gives keeps the draws' modelled transients within that budget,
+    while the whole chunk the same budget sizes (4 n + 8 bytes a
+    permutation) would not; a smaller budget gives a smaller sub-block."""
+    from repro_torch.engine import planner
+    n = 25145
+    budget = planner.DEFAULT_STREAM_BUDGET_BYTES
+    rows = permutations.draw_rows(n, budget)
+    assert rows == 166
+    assert permutations.draw_transient_bytes(rows, n) <= budget
+    assert permutations.draw_transient_bytes(rows + 1, n) > budget
+    chunk = planner.chunk_for_budget(n, 4000, budget)
+    assert chunk == 2668
+    assert permutations.draw_transient_bytes(chunk, n) > 10 * budget
+    assert permutations.draw_rows(n, budget / 4) == rows // 4
+    assert permutations.draw_rows(n, 1.0) == 1
+    with pytest.raises(ValueError, match="block_rows"):
+        permutations.permutation_batch(_grouping(), 0, 4, block_rows=0)
+
+
+def test_scheduler_draws_in_budget_sized_sub_blocks(monkeypatch):
+    """The engine's label sweep hands the draw the sub-block its label
+    budget gives (the planner's default when none is given), and the
+    result is the same for any budget."""
+    from repro_torch.engine import planner, scheduler
+    seen = []
+    orig = permutations.permutation_batch
+
+    def spy(grouping, lo, hi, *, seed=0, block_rows=None):
+        seen.append(block_rows)
+        return orig(grouping, lo, hi, seed=seed, block_rows=block_rows)
+
+    monkeypatch.setattr(permutations, "permutation_batch", spy)
+    grouping = _grouping()
+    budget = 64 * 57 * 5          # five rows of transients
+    a = scheduler._labels(grouping, 0, 30, seed=4, perms=None,
+                          draw_budget=budget)
+    b = scheduler._labels(grouping, 0, 30, seed=4, perms=None)
+    assert seen == [5, permutations.draw_rows(
+        57, planner.DEFAULT_STREAM_BUDGET_BYTES)]
+    assert torch.equal(a, b)
+
+
 def test_group_sizes_match_reference():
     grouping = _grouping(40, 5, seed=2)
     np.testing.assert_array_equal(

@@ -378,6 +378,60 @@ def test_cols_with_one_hot_columns_is_the_label_statistic():
     torch.testing.assert_close(rs, rs_l, rtol=1e-6, atol=0)
 
 
+def _masked_d2_f64(xp, metric):
+    """The plain version's own f32 masked D^2 of the whole table, as a
+    float64 numpy array (diagonal zeroed)."""
+    d = ref.ROWS_FNS[metric](xp, xp)
+    m2 = (d * d).double().numpy()
+    np.fill_diagonal(m2, 0.0)
+    return m2
+
+
+def _ulps(got, oracle):
+    """Largest distance of float32 results from a float64 oracle, in
+    units of the f32 spacing at the oracle's value."""
+    o32 = np.abs(oracle).astype(np.float32)
+    return float((np.abs(np.asarray(got, np.float64) - oracle)
+                  / np.spacing(o32).astype(np.float64)).max())
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "jaccard"])
+def test_plain_versions_contract_in_float64(metric):
+    """The plain versions contract each 256-row block in float64: against
+    an fp64 numpy oracle of the same f32 squared distances, at n = 700
+    (three blocks), their f32 results are the oracle correctly rounded
+    (within half an ulp), where a contraction of the same blocks in f32
+    (the plain versions before they went to float64) is several ulps off."""
+    from repro_torch.core import fstat
+    n = 700
+    x, grouping = _study(seed=5, n=n, d=24)
+    xp = distance.ROW_METRICS[metric].prepare(
+        torch.from_numpy(x)).contiguous()
+    m2 = _masked_d2_f64(xp, metric)
+    blocks = range(0, n, 256)
+    v = torch.from_numpy(_basis(4, 6, seed=5, n=n))
+    oracle = 0.5 * np.stack([(m2 @ vp * vp).sum(0)
+                             for vp in v.double().numpy()])
+    sc, _ = ref.fused_sw_cols_ref(xp, xp, v, v, 0, metric=metric)
+    f32 = sum(fstat.sw_cols_contract(
+        torch.from_numpy(m2[lo:lo + 256]).float(), v, v[:, lo:lo + 256])
+        .double() for lo in blocks).numpy()
+    assert _ulps(sc.numpy(), oracle) <= 0.5 + 1e-9
+    assert _ulps(f32, oracle) >= 4.0
+
+    g = torch.from_numpy(_perm_batch(grouping, 4))
+    inv = permutations.inv_group_sizes(torch.from_numpy(grouping), G)
+    e = fstat.onehot_perm_factors(g, inv, torch.float32)
+    e64 = e.double().numpy()
+    oracle_w = 0.5 * np.stack([(m2 @ ep * ep).sum() for ep in e64])
+    sw, _ = ref.fused_sw_ref(xp, xp, g, g, inv, 0, metric=metric)
+    f32_w = sum(fstat.sw_matmul_contract(
+        torch.from_numpy(m2[lo:lo + 256]).float(), e, e[:, lo:lo + 256])
+        .double() for lo in blocks).numpy()
+    assert _ulps(sw.numpy(), oracle_w) <= 0.5 + 1e-9
+    assert _ulps(f32_w, oracle_w) > _ulps(sw.numpy(), oracle_w)
+
+
 @pytest.mark.parametrize("knob,value", [
     ("feat_bf16", 1), ("feat_fp8", 1), ("feat_packed", 1),
     ("feat_scale", 0.5)])

@@ -265,10 +265,85 @@ def test_source_names_the_kernels_it_replaces():
 
 def test_matmul_perm_block_fills_128_onehot_columns():
     """The matmul kernel fixes its perm block from G in the source: as
-    many permutations as fill 128 one-hot columns, at least one."""
+    many permutations as fill a slice of one-hot columns, at least one.
+    The slice is 256 columns wide (32 permutations at G = 8), double the
+    128 of the CUDA-core design; the perm block is capped at 128 (only
+    G = 1 fills half the slice), and kernel_config reports both
+    (matmul_columns, matmul_max_perm_block)."""
     src = ops.SOURCE.read_text()
-    assert "return n_groups >= kMK ? 1 : kMK / n_groups;" in src
-    assert "constexpr int kMK = 128;" in src
+    assert ("return n_groups >= kMN ? 1 : (kMN / n_groups < kMaxPB ? "
+            "kMN / n_groups") in src
+    assert "constexpr int kMN = 256;" in src
+    assert "constexpr int kMaxPB = 128;" in src
+    assert "out[4] = kMaxPB;" in src and "out[5] = kMN;" in src
+
+
+def test_matmul_source_is_the_tensor_core_design():
+    """The matmul kernel runs on the tensor cores (wgmma: two TF32
+    products on f32 mat2, one bf16 product on bf16, A from registers, the
+    0/1 B tile from shared memory), splits f32 with cvt.rna.tf32, builds
+    its B tile from labels, stages through a cp.async ring in dynamic
+    shared memory it raises past 48 KB, and calls no library GEMM."""
+    src = ops.SOURCE.read_text()
+    for needle in ("wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32",
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "fence.proxy.async.shared::cta",
+                   "cvt.rna.tf32.f32", "cp.async.ca.shared.global",
+                   "cp.async.wait_group", "constexpr int kStages = 4;",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize",
+                   "E has no low part"):
+        assert needle in src, needle
+    assert "cublas" not in src.lower() and "cutlass" not in src.lower()
+
+
+def _onehot_split_sw(mat2, labels, inv_gs, products):
+    """s_W as the matmul kernel computes it on f32 mat2, in plain torch:
+    the exact 0/1 factor against tf32(x) (products=1) or tf32(x) and
+    tf32(x - tf32(x)) (products=2), exact products summed in float64,
+    then the weights sqrt(w)^2 applied per row's own group."""
+    hi = ref.tf32_round(mat2)
+    parts = [hi] if products == 1 else [hi, ref.tf32_round(mat2 - hi)]
+    m = sum(part.double() for part in parts)
+    sw = ops._rounded_sqrt_w(inv_gs, torch.float32)
+    w = (sw * sw).double()
+    out = []
+    for g in labels.long():
+        e = torch.nn.functional.one_hot(g, inv_gs.shape[0]).double()
+        y = m @ e                                   # (n, G)
+        out.append(0.5 * float((y * e * w[None, :]).sum()))
+    return torch.tensor(out, dtype=torch.float64)
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e-3],
+                     dtype=torch.float32)
+    got = ref.tf32_round(x)
+    want = [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10),
+            1.0]
+    assert got[:5].tolist() == want
+    bits = got.view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all())
+    assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+def test_two_tf32_products_reproduce_f32_and_one_does_not():
+    """At a small shape the kernel's split (exact 0/1 factor, hi = tf32(x),
+    lo = tf32(x - hi), two exact products) gives the f32 s_W within 1e-6
+    relative, the bar the kernel is held to at the main path's shape,
+    while a single TF32 pass misses it: why the split is needed, and that
+    two products suffice (the factor has no low part)."""
+    mat2, gperms, inv_gs = _instance(96, 4, 6, seed=21)
+    m, g, w = (torch.from_numpy(a) for a in (mat2, gperms, inv_gs))
+    f32 = ref.sw_ref(m, g, w).double()
+    ref64 = torch.from_numpy(ref.sw_ref_f64(mat2, gperms, inv_gs))
+    two = _onehot_split_sw(m, g, w, products=2)
+    one = _onehot_split_sw(m, g, w, products=1)
+    rel2 = float(((two - f32).abs() / f32).max())
+    rel1 = float(((one - f32).abs() / f32).max())
+    assert rel2 <= 1e-6, rel2
+    assert float(((two - ref64).abs() / ref64).max()) <= 1e-6
+    assert rel1 > 1e-6, rel1
 
 
 def test_inv_group_sizes_match_reference():

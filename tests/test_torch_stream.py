@@ -143,3 +143,9 @@ def test_source_names_what_it_replaces():
         assert f"case {i}: return launch<{i}>" in src
         assert f"{i} {op}" in src.split("int stream_launch")[0]
     assert "float4" in src and "atomicAdd" not in src
+    # the chosen design: a grid that covers the arrays once, one float4
+    # of each array a thread in blocks of 1,024, read-only loads
+    assert "constexpr int kThreads = 1024;" in src
+    assert "__ldg(reinterpret_cast<const float4*>(a) + t)" in src
+    assert "gridDim" not in src.split("extern \"C\"")[0]
+    assert "__fmul_rn" in src and "__fadd_rn" in src
