@@ -10,10 +10,12 @@ Phases, each timed:
 2. Every permanova_sw kernel against its plain PyTorch version on the card
    at (n, P, G) = (57, 1, 3), (130, 5, 2), (2047, 37, 8), (400, 3, 300)
    (the matmul kernel's 256-column slices) and (100, 7, 1): f32 at
-   rtol=1e-4, atol=1e-5; the matmul kernel on bf16 mat2 against the plain
-   version on the same bf16-rounded operands at rtol=1e-4, and against a
-   float64 reference on the f32 operands at 5e-3 relative (the
-   reference package's own bar for bf16).
+   rtol=1e-4, atol=1e-5, the brute kernel within 1e-6 relative, also at
+   n and P on both sides of its 64-row bands, 64-column tiles and
+   128-permutation blocks (BRUTE_EDGE_SHAPES); the matmul kernel on bf16
+   mat2 against the plain version on the same bf16-rounded operands at
+   rtol=1e-4, and against a float64 reference on the f32 operands at 5e-3
+   relative (the reference package's own bar for bf16).
 3. The main path at the paper's EMP shape: synthetic_study(25145, 128, 8,
    effect 1.0) -> Bray-Curtis D -> engine.run(impl="auto", 3,999 perms),
    which the planner sends to the brute kernel in 2 streamed label
@@ -38,8 +40,10 @@ Phases, each timed:
    bf16 operands), with its f32 and bf16 times beside the library call,
    its one-hot TFLOP/s and its one-hot form's own floors (two TF32 or one
    bf16 tensor-core product at the dense peak, and the bytes of its mat2
-   passes). Then engine.run on the card against engine.run on the CPU at
-   n=300 (same seed, so the same labels).
+   passes); the brute kernel beside its own floor (one INT32 compare per
+   (pair, permutation) at the INT32 pipe's rate; a time under a floor
+   fails the run). Then engine.run on the card against engine.run on the
+   CPU at n=300 (same seed, so the same labels).
 5. Every pairwise-distance kernel (braycurtis, euclidean, jaccard,
    jaccard_packed) against its plain PyTorch version on the card at
    (nr, nc, d) = (57, 57, 3), (130, 130, 37), (2047, 2047, 128) and
@@ -93,9 +97,14 @@ Phases, each timed:
    37, 10), on permuted design bases (core.design.build): s_cols and row
    sums at rtol=2e-4, atol=1e-5; at n = 2047, 300-row offset slabs of the
    table padded to 2,400 rows (n_valid = 2047, so the last slab is all pad
-   rows and must give zeros) sum to the full call at rtol=1e-4, and 16 +
-   16 + 5 permutations give the 37-permutation call at rtol=1e-6; at the
-   EMP design chunk (P = 127, K = 10) every s_cols entry within
+   rows and must give zeros) sum to the full call at rtol=1e-4, as does
+   the padded table in one call (the symmetric visit past n_valid), and 16 +
+   16 + 5 permutations give the 37-permutation call at rtol=1e-6; every
+   feature mode at (n, d, P, K) = (331, 24, 261, 1) (odd n, K = 1, P * K
+   past two 128-q passes), the whole table (the kernel's symmetric visit of
+   the tiles j >= i) and a row slab at offset 97, at those bars and within
+   SW_MAIN_RTOL * s_T; at the EMP design chunk (P = 127, K = 10) every
+   s_cols entry within
    SW_MAIN_RTOL * s_T of the plain version, and the plain version with
    TF32 matmuls (a lower-precision stand-in) outside that bar.
 12. The design path at the EMP shape with the DEFAULT budgets:
@@ -113,8 +122,11 @@ Phases, each timed:
    observed F, over 4,000. Those bars must reject the covariate dense
    bridge run with TF32 matmuls (a lower-precision stand-in) in every
    term.
-13. fused_sw_cols timed at the EMP design chunk beside its plain version
-   and its bound, at P = 1 to split the feature phase from the
+13. fused_sw_cols timed at the EMP design chunk beside its plain version,
+   its bound and its own floors (its feature phase at the f32 peak and its
+   three TF32 products at the dense TF32 peak, both over the symmetric
+   half; a time under the larger fails the run), at P = 1 to split the
+   feature phase from the
    permutation phase, and, for scale, one f32 torch.matmul of a resident
    mat2 with the chunk's (n, P*K) basis factor (the contraction only; no
    PyTorch call computes features -> per-column forms); and the rest of a
@@ -188,6 +200,10 @@ CROSS_PERMS = 999
 # one permutation; (100, 7, 1) is one group
 CHECK_SHAPES = [(57, 1, 3), (130, 5, 2), (2047, 37, 8), (400, 3, 300),
                 (100, 7, 1)]
+# the brute kernel's 64-row bands, 64-column tiles and 128-permutation
+# blocks, each edge met from both sides (and G past a byte)
+BRUTE_EDGE_SHAPES = [(63, 129, 4), (64, 128, 2), (65, 130, 5),
+                     (127, 255, 8), (129, 257, 8), (333, 5, 300)]
 RTOL, ATOL = 1e-4, 1e-5
 # At the EMP shape the part of s_W that depends on the permutation is
 # s_A / s_T ~ (G - 1) / (n - 1) ~ 2.8e-4 of it, so rtol 1e-4 on s_W would
@@ -246,6 +262,10 @@ DEFAULT_MATRIX_BUDGET = GIB
 COLS_REPLACES = "src/repro/kernels/fused_sw/kernel.py:338"
 COLS_CHECK_SHAPES = [(57, 3, 1, 3), (130, 37, 5, 10), (2047, 128, 37, 10)]
 COLS_PAD_ROWS = 2400    # the n = 2047 table padded so its last slab is pad
+# every mode of fused_sw_cols at an odd n, K = 1 and P * K past two 128-q
+# passes (not a multiple of one), symmetric and as a row slab at an offset
+COLS_ODD = (331, 24, 261, 1)
+COLS_ODD_SLAB = (97, 251)
 # the design path at the EMP shape: K = 1 + 2 covariates + (G - 1) = 10
 # basis columns; the planner's chunk 256 MiB / (4 n (2 K + 1)) = 127, so
 # 4,000 slots take 32 launches
@@ -275,6 +295,9 @@ STREAM_ROUNDS = 3
 # dense tensor-core peaks (NVIDIA's H100 SXM data sheet) for the matmul
 # kernel's one-hot floors; H100_SXM carries bf16's
 TC_TF32, TC_BF16 = 495e12, 989e12
+# the brute kernel's own floor: one INT32 compare per (pair, permutation)
+# at 64 lanes a clock on each of the 132 SMs, at the 1.98 GHz boost clock
+INT32_LANES_PER_SM, SMS, BOOST_HZ = 64, 132, 1.98e9
 
 
 def log(msg: str) -> None:
@@ -419,7 +442,8 @@ def phase_kernels(dev):
             torch.cuda.synchronize()
             err = rel_err(got, plain)
             worst[v] = max(worst[v], err)
-            check(torch.allclose(got, plain, rtol=RTOL, atol=ATOL),
+            check(torch.allclose(got, plain, rtol=RTOL, atol=ATOL)
+                  and (v != "brute" or err <= SW_MAIN_RTOL),
                   f"{v} kernel != sw_ref at {(n, p, g)}: rel {err:.3e}")
             log(f"[smoke] kernel {v:9s} f32  (n,P,G)={(n, p, g)} "
                 f"max_rel_err={err:.3e} vs sw_ref")
@@ -442,6 +466,18 @@ def phase_kernels(dev):
         log(f"[smoke] kernel matmul    bf16 (n,P,G)={(n, p, g)} "
             f"max_rel_err={err_same:.3e} vs sw_ref(bf16 operands), "
             f"{err64:.3e} vs f64 reference")
+    for n, p, g in BRUTE_EDGE_SHAPES:
+        mat2, labels, inv_gs = random_instance(n, p, g, n + p + g, dev)
+        got = ops.permanova_sw(mat2, labels, inv_gs, variant="brute")
+        plain = ref.sw_ref(mat2, labels, inv_gs)
+        torch.cuda.synchronize()
+        err = rel_err(got, plain)
+        worst["brute"] = max(worst["brute"], err)
+        check(err <= SW_MAIN_RTOL,
+              f"brute kernel != sw_ref at the tile edge {(n, p, g)}: rel "
+              f"{err:.3e} (limit {SW_MAIN_RTOL})")
+        log(f"[smoke] kernel brute     f32  (n,P,G)={(n, p, g)} "
+            f"max_rel_err={err:.3e} vs sw_ref (tile edges)")
     return worst
 
 
@@ -599,6 +635,11 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
         library_ms = cuda_ms(lambda: torch.matmul(mat2, e2d), reps=3)
         del e2d
         b_ms, b_by = bound_ms(mat2, labels, inv_gs, H100_SXM)
+        if v == "brute":
+            floor_ms = brute_floor_ms(labels)
+            check(ms > floor_ms and ms > b_ms,
+                  f"brute {ms:.3f} ms reads under its floors ({floor_ms:.3f}"
+                  f", {b_ms:.3f} ms): a count is wrong")
         rows.append({
             "name": f"permanova_sw.{v}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[v], "path": PATH_OF[v],
@@ -616,7 +657,24 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
         if v == "matmul":
             rows[-1].update(matmul_bf16(mat2, labels, inv_gs, ms,
                                         library_ms))
+        if v == "brute":
+            rows[-1].update({"own_floor_ms": floor_ms,
+                             "own_floor_by": "INT32 compares"})
+            log(f"[smoke] timing brute     (n={EMP_N}, P={shapes[v]}): "
+                f"kernel/library {ms / library_ms:.3f}; its own floor (one "
+                f"INT32 compare per (pair, permutation), {INT32_LANES_PER_SM}"
+                f" lanes x {SMS} SMs at {BOOST_HZ / 1e9:.2f} GHz) "
+                f"{floor_ms:.3f} ms, {floor_ms / ms * 100:.1f}% of the "
+                f"kernel's time")
     return rows
+
+
+def brute_floor_ms(labels) -> float:
+    """The brute kernel's own floor (its formulation's, not the
+    function's bound): one INT32 compare per (pair, permutation) of the
+    upper triangle at the INT32 pipe's rate on every SM at boost clock."""
+    n, p = labels.shape[1], labels.shape[0]
+    return p * n * (n - 1) / 2 / (INT32_LANES_PER_SM * SMS * BOOST_HZ) * 1e3
 
 
 def onehot_floors(labels, inv_gs, bf16) -> dict:
@@ -1209,21 +1267,32 @@ def null_within_f32(bridge, null, null_dense):
           f"{excess:.3g}x the f32 allowance")
 
 
+def bound_pairs(x_rows, x) -> float:
+    """The (row, column) pairs a fused call's function needs: D^2 is
+    symmetric with a zero diagonal, so a call over the whole table needs
+    each unordered pair once, n (n - 1) / 2, as the s_W bounds count
+    them; a row slab needs its nr * n."""
+    nr, n = x_rows.shape[0], x.shape[0]
+    if x_rows.data_ptr() == x.data_ptr() and nr == n:
+        return n * (n - 1) / 2
+    return float(nr * n)
+
+
 def fused_bound_ms(x_rows, x, labels, inv_gs, chip) -> tuple:
     """(ms, 'bytes' | 'operations'): the least time this card could take
     for one fused call — its inputs (row slab, table, row and column
     labels, inv_gs) read once and s_W and the row sums written once at
     the HBM rate, against its operations at the f32 CUDA-core peak: 2 per
-    (pair, feature) to build D^2 (as the distance kernels), and a compare
-    per (pair, permutation) plus an add per matching pair for s_W, with
-    the pairs of the triangle (as the s_W kernels)."""
+    (pair, feature) to build D^2, and a compare per (pair, permutation)
+    plus an add per matching pair for s_W, each pair once (bound_pairs)."""
     import torch
     nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
     p, g = labels.shape[0], inv_gs.shape[0]
     nbytes = 4 * (nr * d + n * d + p * nr + p * n + g + p + nr)
     sizes = torch.bincount(labels[0].long(), minlength=g).double()
     matches = float((sizes * (sizes - 1) / 2).sum())
-    ops_ = 2.0 * nr * n * d + p * (n * (n - 1) / 2 + matches)
+    ops_ = 2.0 * bound_pairs(x_rows, x) * d + p * (n * (n - 1) / 2
+                                                   + matches)
     t_bytes = nbytes / chip.hbm_bandwidth * 1e3
     t_ops = ops_ / chip.peak_flops_f32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1381,6 +1450,15 @@ def phase_cols_kernel(dev, x_np, grouping):
                   and bool((rs_s[n:] == 0).all()),
                   f"fused_sw_cols {metric}: {len(parts)} offset slabs of "
                   f"{SLAB_ROWS} rows (n_valid {n}) != the full call")
+            # the whole padded table in one call (the kernel's symmetric
+            # visit with pad rows past n_valid) gives the unpadded call too
+            sc_q, rs_q = fops.fused_sw_rows_cols(xq, xq, vq, vq, 0,
+                                                 metric=metric, n_valid=n)
+            check(torch.allclose(sc_q, sc, rtol=SLAB_RTOL, atol=ATOL)
+                  and torch.allclose(rs_q[:n], rs, rtol=SLAB_RTOL, atol=0)
+                  and bool((rs_q[n:] == 0).all()),
+                  f"fused_sw_cols {metric}: the padded table (n_valid {n}) "
+                  f"!= the unpadded call: rel {rel_err(sc_q, sc):.3e}")
             bounds = [0, SPLIT[0], SPLIT[0] + SPLIT[1], sum(SPLIT)]
             sc_c = torch.cat([fops.fused_sw_rows_cols(
                 xp, xp, v[a:b].contiguous(), v[a:b].contiguous(), 0,
@@ -1392,8 +1470,11 @@ def phase_cols_kernel(dev, x_np, grouping):
                 f"{len(parts)} offset slabs of the {COLS_PAD_ROWS}-row "
                 f"padded table sum to the full call (rel "
                 f"{rel_err(sc_s, sc):.3e}; the all-pad slab gives zeros), "
+                f"the padded table in one call equals it (rel "
+                f"{rel_err(sc_q, sc):.3e}), "
                 f"chunks {SPLIT} equal one call (rel "
                 f"{rel_err(sc_c, sc):.3e})")
+    worst_rel = max(worst_rel, cols_odd_checks(dev))
     x, v = emp_cols_chunk(dev, x_np, grouping)
     sc, rs = fops.fused_sw_rows_cols(x, x, v, v, 0)
     sc_p, rs_p = fref.fused_sw_cols_ref(x, x, v, v, 0)
@@ -1422,6 +1503,58 @@ def phase_cols_kernel(dev, x_np, grouping):
         f"({err_t / (SW_MAIN_RTOL * s_t):.3g}x the {SW_MAIN_RTOL} s_T bar)")
     return {"max_abs_err": err_abs, "max_abs_err_over_s_t": err_abs / s_t,
             "max_rel_err_checks": worst_rel}
+
+
+def cols_odd_checks(dev) -> float:
+    """fused_sw_cols in every feature mode at COLS_ODD (odd n, K = 1, P * K
+    past two 128-q passes, unit basis columns), as the symmetric
+    whole-table call and as the row slab COLS_ODD_SLAB at its offset,
+    against the plain version in the same mode: rtol FUSED_RTOL, atol
+    ATOL, and every entry within SW_MAIN_RTOL * s_T. Returns the worst
+    relative error."""
+    import torch
+    from repro_torch.core.distance import ROW_METRICS
+    from repro_torch.data.microbiome import synthetic_abundance
+    from repro_torch.kernels.fused_sw import ops as fops, ref as fref
+    from repro_torch.pipeline.registry import precision_tuning
+    n, d, p, k = COLS_ODD
+    lo, hi = COLS_ODD_SLAB
+    x = torch.from_numpy(synthetic_abundance(n, d, seed=n + d)).to(dev)
+    # a random basis of unit columns, the scale of the design's
+    # orthonormal ones (an entry's error grows with |v|^2 against s_T)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + p)
+    v = torch.randn((p, n, k), generator=gen, device=dev)
+    v = (v / v.norm(dim=1, keepdim=True)).contiguous()
+    vs = v[:, lo:hi].contiguous()
+    worst = 0.0
+    for tag, metric in [("f32", m) for m in fops.FUSED_METRICS] + \
+            mode_cases():
+        kn = precision_tuning(tag) if tag != "f32" else {}
+        xp = ROW_METRICS[metric].prepare(x).contiguous()
+        xs = xp[lo:hi].contiguous()
+        for part, args in (("symmetric", (xp, xp, v, v, 0)),
+                           (f"slab [{lo}, {hi})", (xs, xp, vs, v, lo))):
+            sc, rs = fops.fused_sw_rows_cols(*args, metric=metric, **kn)
+            sc_p, rs_p = fref.fused_sw_cols_ref(*args, metric=metric, **kn)
+            torch.cuda.synchronize()
+            if part == "symmetric":     # s_T from the whole table's rows
+                s_t = float(rs_p.double().sum()) / 2.0 / n
+            err = rel_err(sc, sc_p)
+            err_t = float((sc - sc_p).abs().max()) / s_t
+            worst = max(worst, err)
+            check(sc.shape == (p, k) and rs.shape == (args[0].shape[0],)
+                  and bool(torch.isfinite(sc).all())
+                  and torch.allclose(sc, sc_p, rtol=FUSED_RTOL, atol=ATOL)
+                  and torch.allclose(rs, rs_p, rtol=FUSED_RTOL, atol=ATOL)
+                  and err_t <= SW_MAIN_RTOL,
+                  f"fused_sw_cols[{tag}] {metric} {part} != plain at "
+                  f"{COLS_ODD}: s_cols rel {err:.3e}, {err_t:.3e} s_T")
+            log(f"[smoke] kernel fused_sw_cols[{tag}] {metric:10s} "
+                f"(n,d,P,K)={COLS_ODD} {part}: s_cols max_rel_err="
+                f"{err:.3e}, {err_t:.3e} s_T; row sums max_rel_err="
+                f"{rel_err(rs, rs_p):.3e} vs plain")
+    return worst
 
 
 def cols_tf32_stand_in(x, v):
@@ -1623,14 +1756,26 @@ def cols_bound_ms(x_rows, x, v, chip) -> tuple:
     HBM rate, against its operations at the f32 CUDA-core peak: 2 per
     (pair, feature) to build D^2 and 2 per (pair, permutation, column)
     for the per-column forms (a multiply-add of D^2 v_c into each row's
-    sum; the O(n P K) outer product with v_r is left out)."""
+    sum; the O(n P K) outer product with v_r is left out), each pair once
+    (bound_pairs)."""
     nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
     p, k = v.shape[0], v.shape[2]
     nbytes = 4 * (nr * d + n * d + p * nr * k + p * n * k + p * k + nr)
-    ops_ = 2.0 * nr * n * d + 2.0 * nr * n * p * k
+    ops_ = 2.0 * bound_pairs(x_rows, x) * (d + p * k)
     t_bytes = nbytes / chip.hbm_bandwidth * 1e3
     t_ops = ops_ / chip.peak_flops_f32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cols_own_floors_ms(x, v, chip) -> tuple:
+    """The dense-design kernel's own floors (its formulation's, not the
+    function's bound), halved by its symmetric visit of the tiles j >= i:
+    (the feature phase's 2 n^2 d / 2 at the f32 peak, the product's three
+    TF32 passes of 2 n^2 P K / 2 at the dense TF32 peak)."""
+    n, d = x.shape[0], x.shape[1]
+    q = v.shape[0] * v.shape[2]
+    return (n * n * d / chip.peak_flops_f32 * 1e3,
+            3 * n * n * q / TC_TF32 * 1e3)
 
 
 def phase_cols_timings(dev, x_np, grouping, paths, checked):
@@ -1671,12 +1816,21 @@ def phase_cols_timings(dev, x_np, grouping, paths, checked):
     matmul_ms = cuda_ms(lambda: torch.matmul(mat2, v2d), reps=3)
     del mat2, v2d
     b_ms, b_by = cols_bound_ms(x, x, v, H100_SXM)
+    # the two phases run on different units, so the larger is the floor
+    feat_floor, tc_floor = cols_own_floors_ms(x, v, H100_SXM)
+    floor_ms = max(feat_floor, tc_floor)
+    check(ms > floor_ms, f"fused_sw_cols {ms:.3f} ms reads under its own "
+          f"floor {floor_ms:.3f} ms: a count is wrong")
     ws = fops.cols_workspace_bytes(EMP_N, EMP_N, COLS_CHUNK, DESIGN_K)
     log(f"[smoke] timing fused_sw_cols (n={EMP_N}, d={EMP_FEATURES}, "
         f"P={COLS_CHUNK}, K={DESIGN_K}) f32: kernel {ms:.3f} ms x "
         f"{COLS_LAUNCHES} launches = {ms * COLS_LAUNCHES:.1f} ms, plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-        f"{b_ms / ms * 100:.1f}% of it; contraction-only torch.matmul of "
+        f"{b_ms / ms * 100:.1f}% of it; its own floors (the symmetric "
+        f"half) {feat_floor:.3f} ms of feature phase at the f32 peak, "
+        f"{tc_floor:.3f} ms of three TF32 products at {TC_TF32 / 1e12:.0f} "
+        f"TFLOP/s, {floor_ms / ms * 100:.1f}% of the kernel's time for the "
+        f"larger; contraction-only torch.matmul of "
         f"mat2 with the (n, P*K) factor {matmul_ms:.3f} ms; workspace "
         f"{ws} B")
     per_q = (ms - ms_one) / ((COLS_CHUNK - 1) * DESIGN_K)
@@ -1698,7 +1852,11 @@ def phase_cols_timings(dev, x_np, grouping, paths, checked):
         "library_ms": None,
         "library": "none: no PyTorch call computes features -> per-column "
                    "forms",
-        "contraction_matmul_ms": matmul_ms,
+        "contraction_matmul_ms": matmul_ms, "own_floor_ms": floor_ms,
+        "own_floor_by": "the symmetric half: the larger of the feature "
+                        "phase at the f32 peak and three TF32 products at "
+                        "the dense TF32 peak",
+        "own_floor_feature_ms": feat_floor, "own_floor_products_ms": tc_floor,
         "shape": {"n": EMP_N, "d": EMP_FEATURES, "P": COLS_CHUNK,
                   "K": DESIGN_K},
         "max_abs_err_over_s_t": checked["max_abs_err_over_s_t"],
@@ -2064,22 +2222,24 @@ def phase_mode_pipeline(dev, x_np, grouping):
 
 def mode_bounds(kernel, tag, n, d, p, g_or_k, matches, chip) -> tuple:
     """(operations ms, bytes ms) for one call of a fused kernel in a mode
-    at the EMP chunk: the operations as phases 10 and 13 count them (2
-    per (pair, feature) for D^2, or 3 per (pair, 32-bit word) packed:
-    AND, popcount, add, at the f32 rate as for jaccard_packed; then the
+    at the EMP chunk (the whole table: each of its n (n - 1) / 2 pairs
+    once): the operations as phases 10 and 13 count them (2 per (pair,
+    feature) for D^2, or 3 per (pair, 32-bit word) packed: AND,
+    popcount, add, at the f32 rate as for jaccard_packed; then the
     permutation phase's), and the bytes with each feature at the mode's
     element width (4 / 2 / 1 / 0.125 B), the labels or basis, inv_gs
     and the outputs read or written once."""
     words = -(-d // 32)
-    feat_ops = (3.0 * n * n * words if tag == "packed"
-                else 2.0 * n * n * d)
+    pairs = n * (n - 1) / 2
+    feat_ops = (3.0 * pairs * words if tag == "packed"
+                else 2.0 * pairs * d)
     feat_bytes = 2 * n * (words * 4 if tag == "packed"
                           else d * MODE_BYTES[tag])
     if kernel == "fused_sw":
         ops_ = feat_ops + p * (n * (n - 1) / 2 + matches)
         nbytes = feat_bytes + 4 * (2 * p * n + g_or_k + p + n)
     else:
-        ops_ = feat_ops + 2.0 * n * n * p * g_or_k
+        ops_ = feat_ops + 2.0 * pairs * p * g_or_k
         nbytes = feat_bytes + 4 * (2 * p * n * g_or_k + p * g_or_k + n)
     return (ops_ / chip.peak_flops_f32 * 1e3,
             nbytes / chip.hbm_bandwidth * 1e3)
@@ -2198,6 +2358,13 @@ def phase_mode_timings(dev, x_np, grouping, paths, emp, gbps):
             ops_ms, bytes_ms = mode_bounds(kernel, mode, EMP_N, EMP_FEATURES,
                                            p, g_or_k, matches, H100_SXM)
             bytes_ms_triad = bytes_ms * H100_SXM.hbm_bandwidth / triad
+            # the labels kernel runs on the CUDA cores, so its bound is
+            # a floor; the cols kernel's product runs on the tensor cores,
+            # whose own floor is its three TF32 products
+            floor = max(bytes_ms, cols_own_floors_ms(x, v, H100_SXM)[1]
+                        if cols else ops_ms)
+            check(ms > floor, f"{kernel}[{mode}] {ms:.3f} ms reads under "
+                  f"its floor {floor:.3f} ms: a count is wrong")
             log(f"[smoke] timing {kernel}[{mode}] {metric} (n={EMP_N}, "
                 f"d={EMP_FEATURES}, P={p}, {'K' if cols else 'G'}={g_or_k}): "
                 f"kernel {ms:.3f} ms, P=1 {ms_one:.3f} ms; bound by "

@@ -49,10 +49,10 @@
 // torch.sum (a fixed order): no float atomics, the same bits every run.
 //
 // Bound on an H100 SXM at 700 W at the main path's shape (n = 25,145,
-// d = 128, a chunk of P = 156 permutations, G = 8): the feature phase is
-// 2 n^2 d = 1.6e11 operations (2.4 ms at 67 TFLOP/s f32) and the
-// permutation phase P (n(n-1)/2 + matches) = 5.5e10 (0.8 ms), 3.2 ms in
-// all; the inputs are 13 MB of features and 16 MB of labels (0.01 ms of
+// d = 128, a chunk of P = 156 permutations, G = 8), each unordered pair
+// once (D2 is symmetric): the feature phase is n(n-1) d = 8.1e10
+// operations (1.2 ms at 67 TFLOP/s f32) and the permutation phase
+// P (n(n-1)/2 + matches) = 5.5e10 (0.8 ms), 2.0 ms in all; the inputs are 13 MB of features and 16 MB of labels (0.01 ms of
 // HBM), so it is bound by operations. Every tile recomputes its D2 for
 // each chunk (the reference's design: the footprint does not grow with
 // n^2); the D2 tile
@@ -70,31 +70,67 @@
 //   rows[r]  = sum_c D2[r, c]
 //
 // Pallas sums s over the whole grid in a VMEM accumulator flushed at the
-// last step; a CUDA block must not, and one (P, K) partial per 64 x 64
-// tile would be 785 MB at the EMP design chunk (n = 25,145, P = 127, K =
-// 10). So each block owns a row tile and a strip of kStripTiles = 8
-// column tiles and sums over the strip itself, kRegTiles = 2 D2 tiles in
-// registers at a time: one partial per (row tile, strip, permutation,
-// column), 99.8 MB there, plus one row sum per (row, strip), reduced by
-// the caller with torch.sum. The permutation phase takes kQ = 32
-// (permutation, column) pairs q = p K + k a step, any P and K: their basis
-// entries at the tile's rows and columns are staged in shared memory (zero
-// past Q), each thread forms sum_ii v_r[ii] sum_jj D2[ii][jj] v_c[jj] over
-// its 4 x 4 pairs of both tiles (f32 FMAs on the CUDA cores), and a
-// transposed shuffle reduction leaves one warp sum per q in each lane, then
-// a fixed-order sum over the 8 warps. The strip's later register tiles add
-// to the block's own partials in place: no atomics, the same bits every
-// run. A row tile made only of pad rows (row_offset + i0 >= n_valid, the
+// last step; a CUDA block must not. Its permutation phase is a matrix
+// product, Y = D2 (64 rows x the strip's columns) . V_c (those columns x Q,
+// Q = P K), then s[q] += sum_r v_r[r, q] Y[r, q]; with Q = 1,270 at the
+// EMP design chunk (n = 25,145, P = 127, K = 10) it is 2 n^2 Q = 1.6e12 of
+// the kernel's 1.77e12 operations. What bounded the first port (88 ms a
+// chunk on an H100 SXM at 700 W, ~21.5 TFLOP/s in that phase): every 32 q
+// paid three barriers, a staging pass reading v_cols K floats apart and a
+// 31-shuffle transposed reduction, each staged basis float4 served 4 rows,
+// and the full square was computed. This design:
+//
+//   symmetry        a call over the whole table against itself (the design
+//                   sweep's) visits the column tiles j >= i only: off-
+//                   diagonal tiles count once at weight 1, diagonal tiles
+//                   keep 1/2, and each off-diagonal tile's column sums are
+//                   the Gower row sums of its columns' rows (a second set
+//                   of row-sum partials), so the row sums stay exact. Both
+//                   phases halve. A slab call with an offset keeps the
+//                   full tiles at weight 1/2, so summing disjoint slabs
+//                   still gives the whole statistic.
+//   tensor cores    the product runs as wgmma m64n64k8 in 3xTF32: neither
+//                   D2 nor the basis is 0/1, so both are split, hi =
+//                   tf32(x) and lo = tf32(x - hi), and hi.hi + hi.lo +
+//                   lo.hi carries ~22 bits (lo.lo is below f32's
+//                   rounding; one TF32 product keeps 11, which the f32
+//                   bars reject). A block holds its strip's kStripTiles = 2
+//                   D2 tiles in shared memory as B (hi and lo tiles,
+//                   written split by the feature phase); per pass of 128 q
+//                   each of its two warpgroups takes 64 q as A from
+//                   registers, split as they are loaded from a four-stage
+//                   cp.async ring of the basis (16 columns a stage,
+//                   [c][q]). The tensor cores truncate as they accumulate,
+//                   so a stage's 6 products go into a fresh accumulator
+//                   that joins the f32 sums with a rounded add; that
+//                   leaves s ~2e-7 s_T from fp64 at the EMP design chunk
+//                   (the f32 bar is 1e-6 s_T), with a signed drift of ~-2e-8
+//                   s_T. The v_r reduction runs once per (strip, pass): a
+//                   thread's 16 rows, then its quad's shuffles.
+//
+// One partial per (block, q) and the row sums per (strip slot, row) and,
+// symmetric, per (row tile, column) are reduced by the caller with
+// torch.sum: no atomics, the same bits every run. 132 SMs hold two blocks
+// each (100,352 B of dynamic shared memory, <= 128 registers a thread). A
+// row tile made only of pad rows (row_offset + i0 >= n_valid, the
 // reference's row_live) writes zeros and skips both phases.
 //
-// Its bound at the EMP design chunk on an H100 SXM at 700 W: 2 n^2 d +
-// 2 n^2 P K = 1.6e11 + 1.6e12 operations, ~26 ms at 67 TFLOP/s f32; the
-// inputs (features 13 MB, each basis factor 128 MB) take ~0.08 ms of HBM,
-// so it is bound by operations. A block reads its strip's v_c entries
-// once and its rows' v_r entries once per pair of register tiles, from L2
-// where the concurrent blocks (neighbouring row tiles of one strip) share
-// them. Symmetry, TMA and wgmma are left for later.
-//
+// Its bound at the EMP design chunk on an H100 SXM at 700 W, each
+// unordered pair once: n(n-1) (d + P K) = 8.8e11 operations, 13.2 ms at
+// 67 TFLOP/s f32 (the function's bound; the inputs, features 13 MB and
+// each basis factor 128 MB, take ~0.08 ms of HBM; before this design it
+// was counted over the full square, 26.4 ms, which the packed mode now
+// beats). This formulation's own floors, over the same half: the feature
+// phase 1.21 ms at the f32 peak and the three TF32 products 4.87 ms at
+// 495 TFLOP/s dense. What holds it now: the
+// product runs at ~25% of the TF32 peak (~20 ms of ~29), and the integer
+// work around each stage's 6 products counts (copies from precomputed
+// pointers and descriptors built by adding offsets gained 4%); the same
+// product on the CUDA cores (8 x 8 register tiles of Y) was ~10% slower, a
+// deeper ring (2 -> 4 stages) gained 2.5%, two accumulator chains in
+// flight lost 12% to spills, and 12 products a wait gained 1% but doubled
+// the drift. The feature phase (~8.5 ms) runs at two blocks an SM.
+
 // Feature modes (src/repro/kernels/fused_sw/kernel.py:54-103, _accumulate):
 // both kernels take their features as f32, bf16, fp8 e4m3 with one
 // per-study scale (a device scalar), or 32-bit presence words for jaccard
@@ -115,8 +151,8 @@
 //
 // Ragged nr, n, d, P and K are masked here; nothing is padded. Element
 // offsets are 64-bit. Division is nvcc's default IEEE-rounded form (no
-// --use_fast_math). Static shared memory: 30,720 B (labels), 45,056 B
-// (dense design).
+// --use_fast_math). Shared memory: 30,720 B static (labels); 100,352 B
+// dynamic and 512 B static (dense design).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. The C entry point launches on the caller's
@@ -138,11 +174,29 @@ constexpr int kPitch = kTile + 4;      // keeps 16-byte micro-tile reads
 constexpr int kPermBlock = 16;         // permutations staged per step
 constexpr int kMaxGridY = 65535;
 // the dense-design kernel (fused_sw_cols_kernel)
-constexpr int kStripTiles = 8;         // column tiles a block sums over
-constexpr int kRegTiles = 2;           // D2 tiles a thread holds at once
-constexpr int kQ = 32;                 // (permutation, column) pairs a step
-constexpr int kRowStep = kThreads / kQ;  // rows apart a thread stages
-static_assert(kThreads % kQ == 0, "a thread stages one pair a step");
+constexpr int kStripTiles = 2;         // column tiles a block sums over
+constexpr int kQPass = 128;            // (permutation, column) pairs a pass
+constexpr int kKc = 16;                // basis columns a ring stage (2 k8)
+constexpr int kVLd = kQPass + 8;       // a staged basis row: 136 floats
+constexpr int kColsStages = 4;         // cp.async ring depth
+constexpr int kD2Floats = kTile * kTile;
+// a D2 tile as wgmma's B operand: K-major (the columns c of a row r), no
+// swizzle, 8 x 16-byte core matrices; the two along k kLbo bytes apart,
+// the 8-row groups kSbo apart, a k-step's 64 rows x 8 columns kBStep
+constexpr int kLbo = 128, kSbo = 256, kBStep = kTile / 8 * kSbo;
+// dynamic shared memory: the strip's D2 tiles (hi and lo halves each),
+// then a ring of basis stages (which first holds the feature phase's
+// staged chunks, then the column-sum partials)
+constexpr int kRingFloats = kColsStages * kKc * kVLd;
+constexpr int kColsSmemBytes =
+    (kStripTiles * 2 * kD2Floats + kRingFloats) * 4;   // 100,352
+static_assert(2 * kQPass == kThreads, "two threads stage a q");
+static_assert(kTile % kKc == 0 && kKc % 16 == 0, "whole k-steps a stage");
+static_assert(kQPass == 2 * 64, "two warpgroups of 64 q");
+static_assert(kRingFloats >= 2 * kChunk * kPitch,
+              "the ring holds the feature staging");
+static_assert(kRingFloats >= kStripTiles * 16 * kTile,
+              "the ring holds the column-sum partials");
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -434,31 +488,126 @@ fused_sw_kernel(const typename L::T* __restrict__ xr,
   }
 }
 
-// One step of a warp's transposed reduction over kQ = 32 values a lane:
-// lanes exchange the half of their values the partner keeps (shuffle xor
-// W), so after the steps 16, 8, 4, 2, 1 lane L holds in v[0] the warp's
-// sum of value L, in a fixed order: 31 shuffles for 32 sums where a
-// shuffle tree per value would take 160.
-template <int W>
-__device__ __forceinline__ void transpose_reduce_step(float (&v)[kQ],
-                                                      int lane) {
-  const bool upper = (lane & W) != 0;
+// 4-byte asynchronous copy global -> shared; src_bytes 0 writes a zero and
+// reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// x rounded to TF32, round to nearest with ties away (a .b32 pattern whose
+// low 13 bits are zero).
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// Shared-memory stores of this thread become visible to the tensor cores'
+// (async proxy) reads of the B tiles.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// A B-tile descriptor: no swizzle, the start address and the core
+// matrices' strides in 16-byte units.
+__device__ __forceinline__ uint64_t b_desc(const void* tile) {
+  const uint64_t a = (uint64_t)__cvta_generic_to_shared(tile);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(kLbo >> 4) << 16) |
+         ((uint64_t)(kSbo >> 4) << 32);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until this warpgroup's committed wgmma groups are done.
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// The accumulator registers are read and written here, so the compiler
+// keeps their other uses on the right side of the wgmma and its wait.
+__device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float send = upper ? v[i] : v[i + W];
-    const float keep = upper ? v[i + W] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
-  }
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// d (+)= a . B: m64n64k8, tf32 A from registers (4 a thread), B from
+// shared memory; scale_d 0 starts a fresh sum, 1 adds to d.
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// Grid (ceil(nr / 64), n_strips); block (bx, by) owns slab rows
-// bx*64 + [0, 64) and the strip of column tiles by*kStripTiles + [0,
-// kStripTiles), kRegTiles at a time, and sums over the strip itself. Q =
-// P * K (permutation, column) pairs, q = p * K + k.
-// s_part: (n_strips * ceil(nr/64), Q), row-major by (by, bx).
-// rs_part: (nr, n_strips).
+// Byte offset of D2 element (row r, column c) of a tile in the B layout.
+__device__ __forceinline__ int b_offset(int r, int c) {
+  return (c / 8) * kBStep + (r / 8) * kSbo + ((c % 8) / 4) * kLbo +
+         (r % 8) * 16 + (c % 4) * 4;
+}
+
+// The block's tiles. A symmetric call (the whole table against itself)
+// visits the column tiles j >= i only: its blocks are the strips of
+// kStripTiles column tiles that start at the diagonal and every kStripTiles
+// tiles after it, numbered strip offset first (c = 0 for every row tile,
+// then c = 1, ...). A slab call visits every column tile: block b is row
+// tile b % nti and strip b / nti. `slot` numbers the block's row-sum
+// partial: its strip (offset).
+struct ColsBlock {
+  int64_t ti, jt0, slot;
+};
+
+__host__ __device__ inline int64_t cols_strips(int64_t ntj) {
+  return (ntj + kStripTiles - 1) / kStripTiles;
+}
+
+__host__ __device__ inline int64_t cols_blocks(int64_t nti, int64_t ntj,
+                                               int sym) {
+  if (!sym) return nti * cols_strips(ntj);
+  int64_t total = 0;
+  for (int64_t c = 0; c < cols_strips(ntj); ++c)
+    total += ntj - c * kStripTiles;
+  return total;
+}
+
+__device__ __forceinline__ ColsBlock cols_block(int64_t b, int64_t nti,
+                                                int64_t ntj, int sym) {
+  if (!sym) return {b % nti, (b / nti) * kStripTiles, b / nti};
+  int64_t c = 0;
+  while (b >= ntj - c * kStripTiles) {
+    b -= ntj - c * kStripTiles;
+    ++c;
+  }
+  return {b, b + c * kStripTiles, c};
+}
+
+// Grid: cols_blocks(nti, ntj, sym) blocks of 256 threads (two
+// warpgroups). Block (ti, jt0) owns slab rows ti*64 + [0, 64) and column
+// tiles jt0 + [0, kStripTiles). Q = P * K (permutation, column) pairs,
+// q = p * K + k.
+// s_part: (blocks, Q). rs_part (zeroed by the caller): row sums at
+// [slot, i] for slots < n_strips, and for a symmetric call the column sums
+// of the off-diagonal tiles of row tile ti at [n_strips + ti, j].
 template <class M, class L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_sw_cols_kernel(const typename L::T* __restrict__ xr,
                      const typename L::T* __restrict__ xc,
                      const float* __restrict__ scale,
@@ -466,131 +615,209 @@ fused_sw_cols_kernel(const typename L::T* __restrict__ xr,
                      const float* __restrict__ v_cols,
                      float* __restrict__ s_part, float* __restrict__ rs_part,
                      int64_t nr, int64_t n, int64_t d, int64_t n_perms,
-                     int64_t n_cols, int64_t row_offset, int64_t n_valid) {
-  __shared__ __align__(16) float rs[kChunk][kPitch];
-  __shared__ __align__(16) float cs[kChunk][kPitch];
+                     int64_t n_cols, int64_t row_offset, int64_t n_valid,
+                     int sym) {
+  extern __shared__ __align__(128) float cols_smem[];
+  unsigned char* btiles = reinterpret_cast<unsigned char*>(cols_smem);
+  float* ring = cols_smem + kStripTiles * 2 * kD2Floats;   // stages [c][q]
+  // the feature phase stages its chunks where the ring will be
+  auto& rs = *reinterpret_cast<float (*)[kChunk][kPitch]>(ring);
+  auto& cs = *reinterpret_cast<float (*)[kChunk][kPitch]>(ring +
+                                                         kChunk * kPitch);
   __shared__ float row_stat[kTile];
   __shared__ float col_stat[kTile];
-  __shared__ __align__(16) float vr_s[kQ][kPitch];
-  __shared__ __align__(16) float vc_s[kRegTiles][kQ][kPitch];
-  __shared__ float warp_sum[kWarps][kQ];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int64_t i0 = (int64_t)blockIdx.x * kTile;   // slab-local rows
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int lane = tid % 32, warp = tid / 32;
+  const int64_t nti = (nr + kTile - 1) / kTile;
   const int64_t ntj = (n + kTile - 1) / kTile;
-  const int64_t n_strips = gridDim.y;
-  const int64_t jt0 = (int64_t)blockIdx.y * kStripTiles;
+  const int64_t n_strips = cols_strips(ntj);
+  const ColsBlock blk = cols_block(blockIdx.x, nti, ntj, sym);
+  const int n_t = (int)min64(kStripTiles, ntj - blk.jt0);
+  const int64_t i0 = blk.ti * kTile;   // slab-local rows
   const int64_t nq = n_perms * n_cols;
-  float* __restrict__ out =
-      s_part + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * nq;
+  float* __restrict__ out = s_part + (int64_t)blockIdx.x * nq;
 
   // A row tile made only of pad rows (an offset slab past n_valid) has
-  // nothing to add: its partials and row sums are 0.
+  // nothing to add (and in a symmetric call neither have its columns).
   if (row_offset + i0 >= n_valid) {
-    for (int64_t q = threadIdx.x; q < nq; q += kThreads) out[q] = 0.f;
-#pragma unroll
-    for (int ii = 0; ii < kMicro; ++ii) {
-      const int64_t i = i0 + ty * kMicro + ii;
-      if (tx == 0 && i < nr) rs_part[i * n_strips + blockIdx.y] = 0.f;
-    }
+    for (int64_t q = tid; q < nq; q += kThreads) out[q] = 0.f;
     return;
   }
 
+  // ---- feature phase: the strip's masked D2 tiles into shared memory -----
+  // Each tile is weighted as it is stored: 1/2 where both orders of a pair
+  // are visited (every tile of a slab call, the diagonal tile of a
+  // symmetric one), 1 for a symmetric call's off-diagonal tiles, which
+  // stand for their mirror images too; both weights are exact. It is
+  // stored split for the tensor cores, hi = tf32(x) and lo = tf32(x - hi)
+  // (x - hi is exact in f32), as two B tiles.
   const float xscale = L::scale(scale);
   float rsum[kMicro] = {0.f, 0.f, 0.f, 0.f};
-  for (int sub = 0; sub < kStripTiles && jt0 + sub < ntj;
-       sub += kRegTiles) {
-    // ---- feature phase: kRegTiles masked D2 tiles in registers ----------
-    float d2[kRegTiles][kMicro][kMicro];
+  float csum[kStripTiles][kMicro];   // this thread's 4 rows, per column
+  for (int t = 0; t < n_t; ++t) {
+    const int64_t jt = blk.jt0 + t;
+    float d2[kMicro][kMicro];
+    feature_tile<M, L>(xr, xc, xscale, nr, n, d, i0, jt * kTile, row_offset,
+                       n_valid, rs, cs, row_stat, col_stat, d2);
 #pragma unroll
-    for (int t = 0; t < kRegTiles; ++t) {
-      if (jt0 + sub + t < ntj) {
-        feature_tile<M, L>(xr, xc, xscale, nr, n, d, i0,
-                           (jt0 + sub + t) * kTile, row_offset, n_valid, rs,
-                           cs, row_stat, col_stat, d2[t]);
+    for (int ii = 0; ii < kMicro; ++ii) rsum[ii] += tile_row_sum(d2, ii);
 #pragma unroll
-        for (int ii = 0; ii < kMicro; ++ii)
-          rsum[ii] += tile_row_sum(d2[t], ii);
-      } else {
+    for (int jj = 0; jj < kMicro; ++jj)
+      csum[t][jj] = ((d2[0][jj] + d2[1][jj]) + d2[2][jj]) + d2[3][jj];
+    const float wt = sym && jt != blk.ti ? 1.f : 0.5f;
+    unsigned char* hi = btiles + t * 2 * kD2Floats * 4;
+    unsigned char* lo = hi + kD2Floats * 4;
 #pragma unroll
-        for (int ii = 0; ii < kMicro; ++ii)
+    for (int ii = 0; ii < kMicro; ++ii) {
+      uint32_t h[kMicro], l[kMicro];
 #pragma unroll
-          for (int jj = 0; jj < kMicro; ++jj) d2[t][ii][jj] = 0.f;
+      for (int jj = 0; jj < kMicro; ++jj) {
+        const float x = wt * d2[ii][jj];
+        h[jj] = tf32_round(x);
+        l[jj] = tf32_round(x - __uint_as_float(h[jj]));
       }
-    }
-
-    // ---- permutation phase: kQ (permutation, column) pairs a step -------
-    for (int64_t q0 = 0; q0 < nq; q0 += kQ) {
-      __syncthreads();  // the previous step's readers are done
-      // Stage the step's basis entries: v_rows at the tile's 64 rows and
-      // v_cols at each register tile's 64 columns, 0 past nr, n or Q.
-      // kThreads is a multiple of kQ, so a thread stages one pair q (its
-      // (p, k) found once a step) at rows kRowStep apart.
-      {
-        const int qq = threadIdx.x % kQ;
-        const int64_t q = q0 + qq;
-        const bool live = q < nq;
-        const int64_t p = live ? q / n_cols : 0, k = live ? q % n_cols : 0;
-        const float* __restrict__ vr_q = v_rows + p * nr * n_cols + k;
-        const float* __restrict__ vc_q = v_cols + p * n * n_cols + k;
-        for (int r = threadIdx.x / kQ; r < kTile; r += kRowStep) {
-          const int64_t i = i0 + r;
-          vr_s[qq][r] = live && i < nr ? vr_q[i * n_cols] : 0.f;
-#pragma unroll
-          for (int t = 0; t < kRegTiles; ++t) {
-            const int64_t j = (jt0 + sub + t) * kTile + r;
-            vc_s[t][qq][r] = live && j < n ? vc_q[j * n_cols] : 0.f;
-          }
-        }
-      }
-      __syncthreads();
-      // sum_{ii, jj} v_r[ii] D2[ii][jj] v_c[jj] over the thread's pairs
-      float part[kQ];
-#pragma unroll
-      for (int qq = 0; qq < kQ; ++qq) {
-        float y[kMicro] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int t = 0; t < kRegTiles; ++t) {
-          const float4 c =
-              *reinterpret_cast<const float4*>(&vc_s[t][qq][tx * kMicro]);
-#pragma unroll
-          for (int ii = 0; ii < kMicro; ++ii) {
-            y[ii] = fmaf(d2[t][ii][0], c.x, y[ii]);
-            y[ii] = fmaf(d2[t][ii][1], c.y, y[ii]);
-            y[ii] = fmaf(d2[t][ii][2], c.z, y[ii]);
-            y[ii] = fmaf(d2[t][ii][3], c.w, y[ii]);
-          }
-        }
-        const float4 rv =
-            *reinterpret_cast<const float4*>(&vr_s[qq][ty * kMicro]);
-        float s = y[0] * rv.x;
-        s = fmaf(y[1], rv.y, s);
-        s = fmaf(y[2], rv.z, s);
-        part[qq] = fmaf(y[3], rv.w, s);
-      }
-      transpose_reduce_step<16>(part, lane);
-      transpose_reduce_step<8>(part, lane);
-      transpose_reduce_step<4>(part, lane);
-      transpose_reduce_step<2>(part, lane);
-      transpose_reduce_step<1>(part, lane);
-      warp_sum[warp][lane] = part[0];
-      __syncthreads();
-      // a fixed-order sum over the 8 warps; the block owns these partials,
-      // so later register tiles of its strip add to them in place
-      const int64_t q = q0 + threadIdx.x;
-      if (threadIdx.x < kQ && q < nq) {
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += warp_sum[w][threadIdx.x];
-        s *= 0.5f;
-        out[q] = sub == 0 ? s : out[q] + s;
-      }
+      const int off = b_offset(ty * kMicro + ii, tx * kMicro);
+      *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
     }
   }
+  fence_proxy_async();
+  __syncthreads();   // the B tiles are complete; the staging area is free
+
+  // ---- Gower row sums: the strip's rows, and (symmetric) its columns -----
 #pragma unroll
   for (int ii = 0; ii < kMicro; ++ii) {
     const int64_t i = i0 + ty * kMicro + ii;
-    if (tx == 0 && i < nr) rs_part[i * n_strips + blockIdx.y] = rsum[ii];
+    if (tx == 0 && i < nr) rs_part[blk.slot * nr + i] = rsum[ii];
+  }
+  if (sym) {   // an off-diagonal tile's column sums are its columns' rows'
+    for (int t = 0; t < n_t; ++t)
+#pragma unroll
+      for (int jj = 0; jj < kMicro; ++jj)
+        ring[(t * 16 + ty) * kTile + tx * kMicro + jj] = csum[t][jj];
+    __syncthreads();
+    const int t = tid / kTile, c = tid % kTile;
+    const int64_t j = (blk.jt0 + t) * kTile + c;
+    if (t < n_t && blk.jt0 + t != blk.ti && j < n) {
+      float s = 0.f;
+      for (int y = 0; y < 16; ++y) s += ring[(t * 16 + y) * kTile + c];
+      rs_part[(n_strips + blk.ti) * n + j] = s;
+    }
+  }
+
+  // ---- permutation phase: Y^T = V_c^T . D2^T on the tensor cores ---------
+  // Per pass of 128 q, warpgroup wg computes for its 64 q (M) and the row
+  // tile's 64 rows r (N) the sum over every column c of the strip (K):
+  // A = V_c^T from registers, B = the D2 tile from shared memory, in three
+  // TF32 products of the split operands, hi.hi + hi.lo + lo.hi (lo.lo is
+  // below f32's rounding). V_c goes through a four-stage cp.async ring, 16
+  // columns a stage ([c][q]; the basis is (P, n, K), so a q's entries lie K
+  // floats apart down the columns), and is split as it is loaded into A
+  // fragments. The tensor cores truncate as they accumulate, so each
+  // stage's 6 products go into a fresh accumulator that joins the f32 sums
+  // with a rounded add. Then s[q] += sum_r v_r[r, q] Y[r, q]: a thread's 16
+  // rows, then its quad (shuffles) in a fixed order.
+  const int wg = warp / 4;
+  const int arow = (warp % 4) * 16 + lane / 4;   // A rows (q) arow, arow + 8
+  const int tig = lane % 4;
+  const int steps = n_t * (kTile / kKc);
+  const int ql = tid % kQPass, ch = tid / kQPass;   // this thread's copies
+  constexpr int kHalf = kKc / 2;   // columns a thread copies a stage
+  // its columns' offset from the strip's first, and the columns left
+  const int64_t c_first = blk.jt0 * kTile + ch * kHalf;
+  const int c_left = (int)min64(n - c_first, 0x7fffffff);
+  const uint64_t desc0 = b_desc(btiles);   // stage offsets are added to it
+  for (int64_t q0 = 0; q0 < nq; q0 += kQPass) {
+    const int64_t qs = q0 + ql;
+    const bool q_ok = qs < nq;
+    const float* vsrc =
+        (q_ok ? v_cols + (qs / n_cols) * n * n_cols + qs % n_cols : v_cols) +
+        c_first * n_cols;
+    auto stage = [&](int st) {
+      float* vs = ring + (st % kColsStages) * kKc * kVLd + ch * kHalf * kVLd +
+                  ql;
+      const float* src = vsrc + (int64_t)st * kKc * n_cols;
+      const int rem = c_left - st * kKc;
+#pragma unroll
+      for (int cc = 0; cc < kHalf; ++cc) {
+        const bool ok = q_ok && cc < rem;
+        cp_async4(vs + cc * kVLd, ok ? src : v_cols, ok ? 4 : 0);
+        src += n_cols;
+      }
+    };
+    float acc[32], dd[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = dd[i] = 0.f;
+    const bool wg_live = q0 + 64 * wg < nq;   // any of its q < Q
+    __syncthreads();   // the ring's earlier readers are done
+#pragma unroll
+    for (int s = 0; s < kColsStages - 1; ++s) {
+      if (s < steps) stage(s);
+      cp_async_commit();
+    }
+    for (int st = 0; st < steps; ++st) {
+      cp_async_wait<kColsStages - 2>();   // this thread's copies of st
+      __syncthreads();   // everyone's; stage st - 1's readers are done
+      if (st + kColsStages - 1 < steps) stage(st + kColsStages - 1);
+      cp_async_commit();
+      if (!wg_live) continue;
+      const float* vs =
+          ring + (st % kColsStages) * kKc * kVLd + 64 * wg + arow;
+      // the stage's k-steps in the strip's B tiles: tile st / (kTile /
+      // kKc), k-step (st % (kTile / kKc)) * kKc / 8 on
+      const uint64_t bh0 =
+          desc0 + (((st / (kTile / kKc)) * 2 * kD2Floats * 4 +
+                    (st % (kTile / kKc)) * (kKc / 8) * kBStep) >> 4);
+      constexpr uint64_t kLoDesc = kD2Floats * 4 >> 4, kStepDesc = kBStep >> 4;
+      uint32_t ah[kKc / 8][4], al[kKc / 8][4];
+#pragma unroll
+      for (int f = 0; f < kKc / 8; ++f) {
+        const float* v0 = vs + (8 * f + tig) * kVLd;
+        const float x[4] = {v0[0], v0[8], v0[4 * kVLd], v0[4 * kVLd + 8]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ah[f][e] = tf32_round(x[e]);
+          al[f][e] = tf32_round(x[e] - __uint_as_float(ah[f][e]));
+        }
+      }
+      fence_regs(dd);
+      wgmma_fence();
+#pragma unroll
+      for (int f = 0; f < kKc / 8; ++f) {
+        const uint64_t bh = bh0 + f * kStepDesc, bl = bh + kLoDesc;
+        wgmma_tf32(dd, ah[f], bh, f > 0);
+        wgmma_tf32(dd, ah[f], bl, 1);
+        wgmma_tf32(dd, al[f], bh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dd);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += dd[i];
+    }
+    if (wg_live) {
+      // acc[4i + 2h + e] is q = arow + 8h, row r = 8i + 2 tig + e
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t q = q0 + 64 * wg + arow + 8 * h;
+        float s = 0.f;
+        if (q < nq) {
+          const float* vq = v_rows + (q / n_cols) * nr * n_cols + q % n_cols;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int64_t r = i0 + 8 * i + 2 * tig + e;
+              if (r < nr)
+                s = fmaf(__ldg(vq + r * n_cols), acc[4 * i + 2 * h + e], s);
+            }
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if (tig == 0 && q < nq) out[q] = s;
+      }
+    }
   }
 }
 
@@ -615,15 +842,18 @@ int launch_cols(const void* xr, const void* xc, const void* scale,
                 const void* v_rows, const void* v_cols, void* s_part,
                 void* rs_part, int64_t nr, int64_t n, int64_t d,
                 int64_t n_perms, int64_t n_cols, int64_t row_offset,
-                int64_t n_valid, cudaStream_t stream) {
+                int64_t n_valid, int sym, cudaStream_t stream) {
   using T = typename L::T;
-  const int64_t ntj = (n + kTile - 1) / kTile;
-  const dim3 grid((unsigned)((nr + kTile - 1) / kTile),
-                  (unsigned)((ntj + kStripTiles - 1) / kStripTiles));
-  fused_sw_cols_kernel<M, L><<<grid, kThreads, 0, stream>>>(
+  const int64_t blocks = cols_blocks((nr + kTile - 1) / kTile,
+                                     (n + kTile - 1) / kTile, sym);
+  cudaFuncSetAttribute(fused_sw_cols_kernel<M, L>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kColsSmemBytes);
+  fused_sw_cols_kernel<M, L><<<(unsigned)blocks, kThreads, kColsSmemBytes,
+                               stream>>>(
       (const T*)xr, (const T*)xc, (const float*)scale, (const float*)v_rows,
       (const float*)v_cols, (float*)s_part, (float*)rs_part, nr, n, d,
-      n_perms, n_cols, row_offset, n_valid);
+      n_perms, n_cols, row_offset, n_valid, sym);
   return (int)cudaGetLastError();
 }
 
@@ -666,11 +896,11 @@ void fused_sw_config(int* out) {
   out[2] = kThreads;
 }
 
-// out: kStripTiles, kRegTiles, kQ.
+// out: kStripTiles, kQPass, kKc.
 void fused_sw_cols_config(int* out) {
   out[0] = kStripTiles;
-  out[1] = kRegTiles;
-  out[2] = kQ;
+  out[1] = kQPass;
+  out[2] = kKc;
 }
 
 // kind: 0 braycurtis, 1 euclidean, 2 jaccard. mode: 0 f32, 1 bf16, 2 fp8
@@ -715,42 +945,51 @@ int fused_sw_launch(int kind, int mode, const void* xr, const void* xc,
 }
 
 // kind and mode as fused_sw_launch's. xr (nr, d), xc (n, d) of the mode's
-// type; v_rows (P, nr, K), v_cols (P, n, K) f32. s_part (n_strips *
-// ceil(nr/64), P * K) and rs_part (nr, n_strips) f32, n_strips =
-// ceil(ceil(n/64) / kStripTiles).
+// type; v_rows (P, nr, K), v_cols (P, n, K) f32. symmetric: 1 when the
+// call covers the whole table against itself (xr and xc, v_rows and v_cols
+// the same storage, nr == n, row_offset 0), which visits the column tiles
+// j >= i only. s_part (blocks, P * K) f32, blocks = nti * n_strips for a
+// slab and sum_{c < n_strips} (ntj - c kStripTiles) for a symmetric call
+// (nti = ceil(nr / 64), ntj = ceil(n / 64), n_strips = ceil(ntj /
+// kStripTiles)); rs_part (n_strips, nr) f32 for a slab, (n_strips + nti,
+// n) for a symmetric call, zeroed by the caller.
 int fused_sw_cols_launch(int kind, int mode, const void* xr, const void* xc,
                          const void* scale, const void* v_rows,
                          const void* v_cols, void* s_part, void* rs_part,
                          long long nr, long long n, long long d,
                          long long n_perms, long long n_cols,
                          long long row_offset, long long n_valid,
-                         void* stream) {
+                         int symmetric, void* stream) {
+  const long long nti = (nr + kTile - 1) / kTile;
   const long long ntj = (n + kTile - 1) / kTile;
   if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_cols < 1 ||
       row_offset < 0 || n_valid < 1 || n_valid > n ||
-      (nr + kTile - 1) / kTile > 0x7fffffffLL ||
-      (ntj + kStripTiles - 1) / kStripTiles > kMaxGridY)
+      (symmetric && (nr != n || row_offset != 0)) ||
+      cols_blocks(nti, ntj, symmetric) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:
       return launch_cols_kind<F32In>(kind, xr, xc, scale, v_rows, v_cols,
                                      s_part, rs_part, nr, n, d, n_perms,
-                                     n_cols, row_offset, n_valid, s);
+                                     n_cols, row_offset, n_valid, symmetric,
+                                     s);
     case 1:
       return launch_cols_kind<Bf16In>(kind, xr, xc, scale, v_rows, v_cols,
                                       s_part, rs_part, nr, n, d, n_perms,
-                                      n_cols, row_offset, n_valid, s);
+                                      n_cols, row_offset, n_valid, symmetric,
+                                      s);
     case 2:
       if (scale == nullptr) return (int)cudaErrorInvalidValue;
       return launch_cols_kind<Fp8In>(kind, xr, xc, scale, v_rows, v_cols,
                                      s_part, rs_part, nr, n, d, n_perms,
-                                     n_cols, row_offset, n_valid, s);
+                                     n_cols, row_offset, n_valid, symmetric,
+                                     s);
     case 3:
       if (kind != 2) return (int)cudaErrorInvalidValue;
       return launch_cols<PackedJaccard, PackedIn>(
           xr, xc, scale, v_rows, v_cols, s_part, rs_part, nr, n, d, n_perms,
-          n_cols, row_offset, n_valid, s);
+          n_cols, row_offset, n_valid, symmetric, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -56,7 +56,8 @@ def launch_key(kernel: str, mode: str) -> str:
 LAUNCHES = {launch_key(k, m): 0 for k in KERNELS for m in MODES}
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_sw.cu"
 TILE = 64                   # kTile in the source
-STRIP_TILES = 8             # kStripTiles: column tiles per cols block
+STRIP_TILES = 2             # kStripTiles: column tiles per cols block
+Q_PASS = 128                # kQPass: (permutation, column) pairs a pass
 _MAX_GRID_Y = 65535
 _lib = None
 
@@ -69,7 +70,7 @@ SIGNATURES = {
                         + [_I32, _I64, _I64, _PTR], _I32),
     "fused_sw_cols_config": ([_PTR], None),
     "fused_sw_cols_launch": ([_I32, _I32] + [_PTR] * 7 + [_I64] * 7
-                             + [_PTR], _I32),
+                             + [_I32, _PTR], _I32),
 }
 
 
@@ -104,7 +105,7 @@ def cols_kernel_config(lib: ctypes.CDLL) -> dict:
     """The dense-design kernel's constants compiled into the library."""
     out = (ctypes.c_int * 3)()
     lib.fused_sw_cols_config(out)
-    return {"strip_tiles": out[0], "reg_tiles": out[1], "q_step": out[2]}
+    return {"strip_tiles": out[0], "q_pass": out[1], "k_chunk": out[2]}
 
 
 def partial_shapes(nr: int, n: int, n_perms: int):
@@ -134,27 +135,46 @@ def _strips(n: int) -> int:
     return -(-(-(-n // TILE)) // STRIP_TILES)
 
 
-def cols_partial_shapes(nr: int, n: int, n_perms: int, n_cols: int):
+def _n_cols_blocks(nr: int, n: int, symmetric: bool) -> int:
+    """Blocks of the dense-design kernel: a slab call launches one per (row
+    tile, strip of STRIP_TILES column tiles); a symmetric call (the whole
+    table against itself) one per strip at or past the diagonal, the
+    strips starting at the diagonal tile and every STRIP_TILES tiles
+    after it."""
+    ntj = -(-n // TILE)
+    if not symmetric:
+        return -(-nr // TILE) * _strips(n)
+    return sum(ntj - c * STRIP_TILES for c in range(_strips(n)))
+
+
+def cols_partial_shapes(nr: int, n: int, n_perms: int, n_cols: int,
+                        symmetric=None):
     """Shapes of the dense-design kernel's partials: one (P * K) row per
-    (row tile, strip of STRIP_TILES column tiles) and one row sum per
-    (row, strip)."""
-    return (_strips(n) * -(-nr // TILE), n_perms * n_cols), (nr, _strips(n))
+    block (_n_cols_blocks) and the row sums, one per (strip slot, row) and,
+    for a symmetric call, one per (row tile, column) from its
+    off-diagonal tiles' column sums. `symmetric` defaults to nr == n (the
+    design sweep's whole-table call)."""
+    sym = nr == n if symmetric is None else bool(symmetric)
+    slots = _strips(n) + (-(-nr // TILE) if sym else 0)
+    return (_n_cols_blocks(nr, n, sym), n_perms * n_cols), (slots, nr)
 
 
 def alloc_cols_workspace(nr: int, n: int, n_perms: int, n_cols: int,
-                         device) -> tuple:
+                         device, symmetric=None) -> tuple:
     """Partial buffers for dense-design launches of up to n_perms
     permutations and n_cols columns over an nr-row slab, allocated once
     and reused by every chunk of a sweep."""
-    s_shape, rs_shape = cols_partial_shapes(nr, n, n_perms, n_cols)
+    s_shape, rs_shape = cols_partial_shapes(nr, n, n_perms, n_cols,
+                                            symmetric)
     return (torch.empty(s_shape[0] * s_shape[1], dtype=torch.float32,
                         device=device),
             torch.empty(rs_shape[0] * rs_shape[1], dtype=torch.float32,
                         device=device))
 
 
-def cols_workspace_bytes(nr: int, n: int, n_perms: int, n_cols: int) -> int:
-    (a, b), (c, e) = cols_partial_shapes(nr, n, n_perms, n_cols)
+def cols_workspace_bytes(nr: int, n: int, n_perms: int, n_cols: int,
+                         symmetric=None) -> int:
+    (a, b), (c, e) = cols_partial_shapes(nr, n, n_perms, n_cols, symmetric)
     return 4 * (a * b + c * e)
 
 
@@ -225,8 +245,8 @@ def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
         raise TypeError(f"basis factors must be float32, got "
                         f"{v_rows.dtype} and {v_cols.dtype}")
     _check_devices(x_rows, x, v_rows, v_cols)
-    if _strips(n) > _MAX_GRID_Y:
-        raise ValueError(f"{n} columns exceed the kernel's grid")
+    if _n_cols_blocks(nr, n, False) >= 2 ** 31:
+        raise ValueError(f"({nr}, {n}) exceeds the kernel's grid")
 
 
 def quantize_slabs(x_rows, x, mode, scale=None):
@@ -341,17 +361,29 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
                    row_offset, n_valid, stream, workspace)
 
 
+def is_symmetric_call(x_rows, x, v_rows, v_cols, row_offset) -> bool:
+    """Whether a dense-design call covers the whole table against itself:
+    the slab is the table and its basis the columns' (the same storage,
+    offset 0), so the kernel visits the column tiles j >= i only."""
+    return (row_offset == 0 and x_rows.data_ptr() == x.data_ptr()
+            and x_rows.shape == x.shape
+            and v_rows.data_ptr() == v_cols.data_ptr()
+            and v_rows.shape == v_cols.shape)
+
+
 def _launch_cols(lib, metric, mode, x_rows, x, scale, v_rows, v_cols,
-                 row_offset, n_valid, stream: int, workspace=None):
+                 row_offset, n_valid, stream: int, workspace=None,
+                 symmetric=False):
     """Launch the mode's dense-design kernel on `stream` over quantized
     features (quantize_slabs); (s_cols (P, K), row_sums (nr,)) from its
     partials. `workspace` (alloc_cols_workspace()) holds at least this
-    call's."""
+    call's; `symmetric` (is_symmetric_call on the f32 operands) visits the
+    column tiles j >= i only."""
     nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
     p, k = v_cols.shape[0], v_cols.shape[2]
-    s_shape, rs_shape = cols_partial_shapes(nr, n, p, k)
+    s_shape, rs_shape = cols_partial_shapes(nr, n, p, k, symmetric)
     if workspace is None:
-        workspace = alloc_cols_workspace(nr, n, p, k, x.device)
+        workspace = alloc_cols_workspace(nr, n, p, k, x.device, symmetric)
     s_buf, rs_buf = workspace
     if s_buf.numel() < s_shape[0] * s_shape[1] \
             or rs_buf.numel() < rs_shape[0] * rs_shape[1]:
@@ -359,16 +391,18 @@ def _launch_cols(lib, metric, mode, x_rows, x, scale, v_rows, v_cols,
                          f"columns over ({nr}, {n})")
     s_part = s_buf[:s_shape[0] * s_shape[1]].view(s_shape)
     rs_part = rs_buf[:rs_shape[0] * rs_shape[1]].view(rs_shape)
+    rs_part.zero_()    # the kernel writes only the row-sum slots it visits
     err = lib.fused_sw_cols_launch(
         _KIND[KERNEL_METRIC[metric]], _MODE[mode], x_rows.data_ptr(),
         x.data_ptr(), None if scale is None else scale.data_ptr(),
         v_rows.data_ptr(), v_cols.data_ptr(), s_part.data_ptr(),
-        rs_part.data_ptr(), nr, n, d, p, k, row_offset, n_valid, stream)
+        rs_part.data_ptr(), nr, n, d, p, k, row_offset, n_valid,
+        int(symmetric), stream)
     key = launch_key("fused_sw_cols", mode)
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
-    return s_part.sum(dim=0).view(p, k), rs_part.sum(dim=1)
+    return s_part.sum(dim=0).view(p, k), rs_part.sum(dim=0)
 
 
 def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
@@ -408,6 +442,7 @@ def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
     mode, scale = ref.resolve_precision(x, metric, **precision)
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    sym = is_symmetric_call(x_rows, x, v_rows, v_cols, row_offset)
     xr, xc = quantize_slabs(x_rows, x, mode, scale)
     return _launch_cols(lib, metric, mode, xr, xc, scale, v_rows, v_cols,
-                        row_offset, n_valid, stream, workspace)
+                        row_offset, n_valid, stream, workspace, sym)

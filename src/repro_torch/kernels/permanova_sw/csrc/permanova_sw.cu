@@ -39,26 +39,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of v over the block, in a fixed order; the result is valid in
-// thread 0. Every thread of the block must call it.
-__device__ float block_sum(float v, float* scratch) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < kWarps; ++i) s += scratch[i];
-  return s;
-}
-
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
-__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
-  return a > b ? a : b;
-}
 
+// 4-byte asynchronous copy global -> shared; src_bytes < 4 zero-fills the
+// rest (0: the destination becomes 0 and nothing is read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 __device__ __forceinline__ float row_weight(int g, const float* w,
                                             int n_groups) {
   return (g >= 0 && g < n_groups) ? w[g] : 0.f;
@@ -66,67 +65,168 @@ __device__ __forceinline__ float row_weight(int g, const float* w,
 
 // ---------------------------------------------------------------------------
 // brute — replaces kernels/permanova_sw/kernel.py:sw_brute_pallas (paper
-// Algorithm 3).
+// Algorithm 3: a same-group test on every (pair, permutation), w[g_p[i]]
+// applied per row; no one-hot product and no tensor cores).
 //
-// Grid (P, ceil(n / kBruteRows)); block (p, band) sums the strict upper
-// triangle of rows [band*32, band*32 + 32) for permutation p. The labels of
-// g_p are staged in shared memory a column tile at a time; threads stride
-// over the columns j > i of each row (coalesced reads of mat2[i, j]) and add
-// mat2[i, j] where the labels match. Each thread's per-row sum is weighted
-// by w[g_p[i]]; the block reduces through warp shuffles and shared memory
-// and writes partials[p, band].
+// What bounds it. The TPU kernel re-reads the triangle for every
+// permutation, P * n(n-1)/2 * 4 B = 3.37 TB at P = 2,668; the first port
+// (one block a permutation) took those reads from L2 at ~6.5 TB/s, one
+// compare and add per 4-byte L2 read (519 ms on an H100 SXM at 700 W).
+// Here a block applies each mat2 element it stages to kBrutePerms = 128
+// permutations, so L2 serves 4 / 128 B of mat2 and (4 / 64 B of labels)
+// per (pair, permutation), 21x less, and the kernel is bound by its
+// instruction rate: an integer compare and a predicated add per (pair,
+// permutation). That floor is the compare on the INT32 pipe, 8.43e11
+// updates at P = 2,668 over 132 SMs x 64 lanes x 1.98 GHz, ~50 ms (the
+// function's operations bound at the f32 rate is 14.2 ms).
 //
-// Bound: Algorithm 3 re-reads the triangle for every permutation,
-// P * n(n-1)/2 * 4 B = 5.06 TB, 1.5 s of HBM (3.0 s for the full square, as
-// the TPU kernel reads it). The permutation index is the grid's fastest
-// axis, so the blocks resident at once are ~1,000 permutations of the same
-// band and the band is served from L2: HBM traffic falls to a few passes of
-// mat2, and the kernel is bound by L2 reads and instruction issue over the
-// 1.3e12 (pair, permutation) updates instead.
+// Grid (ceil(P / 128), ceil(n / 64)), the permutation block fastest, so the
+// blocks resident at once share a band of mat2 in L2. Block (pb, band) owns
+// rows [band*64, band*64 + 64) and permutations [pb*128, pb*128 + 128) and
+// walks the column tiles tb >= band of its band: only tiles on or above the
+// diagonal are visited. Each 64 x 64 mat2 tile and the 128 x 64 labels of
+// its columns go through a two-stage cp.async ring in dynamic shared memory
+// (4-byte copies: n need not be a multiple of 4); pairs with j <= i, j >= n
+// or i >= n are zero-filled as they are copied, so the diagonal tile adds
+// only j > i and nothing past n is read. Warp w owns 8 rows, lane l the
+// permutations l + 32k (k < 4): their row labels sit in registers, and so
+// does one accumulator per (row, permutation). Per 4 columns a lane reads
+// its 4 permutations' labels (one int4 each; rows of 68 ints keep a
+// quarter-warp's 16-byte reads on distinct banks) and each of its rows'
+// mat2 values (one float4, the same address across the warp), then does
+// `if (g_r == g_c) acc += m`, an ISETP and a predicated FADD, 128 times.
+// Labels stay int32 in shared memory: one int4 read gives four of them with
+// no byte extraction in the inner loop, and any G the reference accepts
+// runs. At the end each accumulator is weighted once by w[g_r], the 8 warps'
+// sums are added in a fixed order and one partial per (permutation, band)
+// is written; the wrapper sums the partials with torch.sum. No atomics.
 // ---------------------------------------------------------------------------
 
-constexpr int kBruteRows = 32;
-constexpr int kBruteCols = 2048;
+constexpr int kBruteRows = 64;      // rows per band (per block)
+constexpr int kBruteCols = 64;      // columns per staged tile
+constexpr int kBrutePerms = 128;    // permutations per block
+constexpr int kBruteWarpRows = kBruteRows / kWarps;    // 8 rows a warp
+constexpr int kBruteLanePerms = kBrutePerms / 32;      // 4 a lane
+constexpr int kBruteLabLd = kBruteCols + 4;            // a label row: 68
+constexpr int kBruteTileFloats = kBruteRows * kBruteCols;
+constexpr int kBruteStageBytes =
+    (kBruteTileFloats + kBrutePerms * kBruteLabLd) * 4;
+constexpr int kBruteSmemBytes = 2 * kBruteStageBytes;  // 102,400
+static_assert(kBruteCols % 4 == 0 && kBruteRows % kWarps == 0 &&
+              kBrutePerms % 32 == 0, "whole vectors, warps and lanes");
 
-__global__ void __launch_bounds__(kThreads)
+// Start the copies of column tile c0.. of band r0.. into one ring stage:
+// the mat2 tile (zero where j <= i, i >= n or j >= n) and the labels of
+// permutations p0.. at those columns (zero past P or n).
+__device__ __forceinline__ void brute_load_tile(
+    float* ms, int* lab, const float* __restrict__ mat2,
+    const int* __restrict__ groupings, int64_t n, int64_t n_perms,
+    int64_t r0, int64_t c0, int64_t p0) {
+  for (int e = threadIdx.x; e < kBruteTileFloats; e += kThreads) {
+    const int r = e / kBruteCols, c = e % kBruteCols;
+    const int64_t i = r0 + r, j = c0 + c;
+    const bool ok = i < n && j < n && j > i;
+    cp_async4(ms + e, ok ? (const void*)(mat2 + i * n + j)
+                         : (const void*)mat2, ok ? 4 : 0);
+  }
+  for (int e = threadIdx.x; e < kBrutePerms * kBruteCols; e += kThreads) {
+    const int q = e / kBruteCols, c = e % kBruteCols;
+    const int64_t p = p0 + q, j = c0 + c;
+    const bool ok = p < n_perms && j < n;
+    cp_async4(lab + q * kBruteLabLd + c,
+              ok ? (const void*)(groupings + p * n + j)
+                 : (const void*)groupings, ok ? 4 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 sw_brute_kernel(const float* __restrict__ mat2,
                 const int* __restrict__ groupings,
                 const float* __restrict__ w, float* __restrict__ partials,
-                int64_t n, int n_groups) {
-  __shared__ int lab[kBruteCols];
-  __shared__ int row_lab[kBruteRows];
-  __shared__ float row_w[kBruteRows];
-  __shared__ float scratch[kWarps];
-  const int64_t p = blockIdx.x;
+                int64_t n, int64_t n_perms, int n_groups) {
+  extern __shared__ __align__(16) unsigned char brute_smem[];
+  __shared__ float red[kWarps][kBrutePerms];
+  const int64_t p0 = (int64_t)blockIdx.x * kBrutePerms;
   const int64_t band = blockIdx.y;
   const int64_t r0 = band * kBruteRows;
-  const int64_t r1 = min64(r0 + kBruteRows, n);
-  const int* g = groupings + p * n;
-  if (threadIdx.x < kBruteRows) {
-    const int64_t i = r0 + threadIdx.x;
-    const int gi = i < n ? g[i] : -1;
-    row_lab[threadIdx.x] = gi;
-    row_w[threadIdx.x] = row_weight(gi, w, n_groups);
-  }
-  float acc = 0.f;
-  for (int64_t c0 = r0 + 1; c0 < n; c0 += kBruteCols) {
-    const int64_t c1 = min64(c0 + kBruteCols, n);
-    __syncthreads();  // the previous tile's readers are done
-    for (int64_t j = c0 + threadIdx.x; j < c1; j += kThreads)
-      lab[j - c0] = g[j];
-    __syncthreads();
-    for (int64_t i = r0; i < r1; ++i) {
-      const int gi = row_lab[i - r0];
-      const int64_t js = max64(c0, i + 1);
-      const float* mrow = mat2 + i * n;
-      float local = 0.f;
-      for (int64_t j = js + threadIdx.x; j < c1; j += kThreads)
-        if (lab[j - c0] == gi) local += __ldg(mrow + j);
-      acc += local * row_w[i - r0];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rw = warp * kBruteWarpRows;   // the warp's first row in the band
+
+  // row labels of (row rw + r, permutation lane + 32k); -1 past n or P
+  int gr[kBruteWarpRows][kBruteLanePerms];
+  float acc[kBruteWarpRows][kBruteLanePerms];
+#pragma unroll
+  for (int r = 0; r < kBruteWarpRows; ++r)
+#pragma unroll
+    for (int k = 0; k < kBruteLanePerms; ++k) {
+      const int64_t i = r0 + rw + r, p = p0 + lane + 32 * k;
+      gr[r][k] = i < n && p < n_perms ? groupings[p * n + i] : -1;
+      acc[r][k] = 0.f;
+    }
+
+  const int64_t n_tiles = (n + kBruteCols - 1) / kBruteCols - band;
+  auto stage_ms = [&](int64_t t) {
+    return reinterpret_cast<float*>(brute_smem + (t & 1) * kBruteStageBytes);
+  };
+  brute_load_tile(stage_ms(0), reinterpret_cast<int*>(stage_ms(0) +
+                  kBruteTileFloats), mat2, groupings, n, n_perms, r0,
+                  band * kBruteCols, p0);
+  cp_async_commit();
+  for (int64_t t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile t has landed; stage t + 1's readers are done
+    if (t + 1 < n_tiles) {
+      float* nxt = stage_ms(t + 1);
+      brute_load_tile(nxt, reinterpret_cast<int*>(nxt + kBruteTileFloats),
+                      mat2, groupings, n, n_perms, r0,
+                      (band + t + 1) * kBruteCols, p0);
+    }
+    cp_async_commit();
+    const float* ms = stage_ms(t) + rw * kBruteCols;
+    const int* lab = reinterpret_cast<const int*>(stage_ms(t) +
+                                                  kBruteTileFloats) +
+                     lane * kBruteLabLd;
+#pragma unroll 2
+    for (int c = 0; c < kBruteCols; c += 4) {
+      int4 gc[kBruteLanePerms];
+#pragma unroll
+      for (int k = 0; k < kBruteLanePerms; ++k)
+        gc[k] = *reinterpret_cast<const int4*>(lab + 32 * k * kBruteLabLd +
+                                               c);
+#pragma unroll
+      for (int r = 0; r < kBruteWarpRows; ++r) {
+        const float4 m =
+            *reinterpret_cast<const float4*>(ms + r * kBruteCols + c);
+#pragma unroll
+        for (int k = 0; k < kBruteLanePerms; ++k) {
+          const int g = gr[r][k];
+          if (g == gc[k].x) acc[r][k] += m.x;
+          if (g == gc[k].y) acc[r][k] += m.y;
+          if (g == gc[k].z) acc[r][k] += m.z;
+          if (g == gc[k].w) acc[r][k] += m.w;
+        }
+      }
     }
   }
-  const float s = block_sum(acc, scratch);
-  if (threadIdx.x == 0) partials[p * gridDim.y + band] = s;
+  cp_async_wait<0>();
+
+  // w[g_r] once per (row, permutation), then the warps in a fixed order
+#pragma unroll
+  for (int k = 0; k < kBruteLanePerms; ++k) {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < kBruteWarpRows; ++r)
+      s = fmaf(acc[r][k], row_weight(gr[r][k], w, n_groups), s);
+    red[warp][lane + 32 * k] = s;
+  }
+  __syncthreads();
+  const int64_t p = p0 + threadIdx.x;
+  if (threadIdx.x < kBrutePerms && p < n_perms) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) s += red[k][threadIdx.x];
+    partials[p * gridDim.y + band] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -353,21 +453,6 @@ __host__ __device__ constexpr int matmul_smem_bytes(int perm_block) {
              : kContribBytes;
 }
 
-// 4-byte asynchronous copy global -> shared; src_bytes < 4 zero-fills the
-// rest (0: the destination becomes 0 and nothing is read).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 // Shared-memory stores of this thread become visible to the tensor cores'
 // (async proxy) reads of the B tile.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -733,7 +818,7 @@ extern "C" {
 // Tile constants the host needs to size the partials:
 // [brute rows per band, permblock perms per block, permblock tile,
 //  matmul rows per block, matmul max perms per block, matmul one-hot
-//  columns per block].
+//  columns per block, brute columns per tile, brute perms per block].
 void sw_kernel_config(int* out) {
   out[0] = kBruteRows;
   out[1] = kPB;
@@ -741,17 +826,25 @@ void sw_kernel_config(int* out) {
   out[3] = kMR;
   out[4] = kMaxPB;
   out[5] = kMN;
+  out[6] = kBruteCols;
+  out[7] = kBrutePerms;
 }
 
-// partials: (P, ceil(n / 32)) f32.
+// partials: (P, ceil(n / 64)) f32. The two-stage ring takes 102,400 bytes
+// of dynamic shared memory, above the 48 KB default, so the limit is
+// raised first.
 int sw_brute_launch(const void* mat2, const void* groupings, const void* w,
                     void* partials, long long n, long long n_perms,
                     int n_groups, void* stream) {
-  const dim3 grid((unsigned)n_perms,
+  const dim3 grid((unsigned)((n_perms + kBrutePerms - 1) / kBrutePerms),
                   (unsigned)((n + kBruteRows - 1) / kBruteRows));
-  sw_brute_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  cudaFuncSetAttribute(sw_brute_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kBruteSmemBytes);
+  sw_brute_kernel<<<grid, kThreads, kBruteSmemBytes,
+                    (cudaStream_t)stream>>>(
       (const float*)mat2, (const int*)groupings, (const float*)w,
-      (float*)partials, n, n_groups);
+      (float*)partials, n, n_perms, n_groups);
   return (int)cudaGetLastError();
 }
 

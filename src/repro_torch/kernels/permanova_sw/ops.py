@@ -56,11 +56,12 @@ def load_library() -> ctypes.CDLL:
 
 def kernel_config(lib: ctypes.CDLL) -> dict:
     """The tile constants compiled into the library."""
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     lib.sw_kernel_config(out)
     return {"brute_rows": out[0], "permblock_perms": out[1],
             "permblock_tile": out[2], "matmul_rows": out[3],
-            "matmul_max_perm_block": out[4], "matmul_columns": out[5]}
+            "matmul_max_perm_block": out[4], "matmul_columns": out[5],
+            "brute_cols": out[6], "brute_perms": out[7]}
 
 
 def _rounded_sqrt_w(inv_group_sizes: torch.Tensor, dtype) -> torch.Tensor:
@@ -150,10 +151,12 @@ def permanova_sw(mat2: torch.Tensor, groupings: torch.Tensor,
     groupings:       (P, n) int32 permuted labels.
     inv_group_sizes: (G,) f32.
 
-    The brute kernel takes one permutation per block, permblock 16 and
-    matmul as many as fill 256 one-hot columns (32 at G = 8, at most
-    128), on the tensor cores (wgmma): two TF32 products of an exact
-    split on f32 mat2, one bf16 product on bf16.
+    The brute kernel applies each staged 64 x 64 tile of the upper
+    triangle to 128 permutations (a compare and a predicated add per
+    pair and permutation), permblock takes 16 and matmul as many as fill
+    256 one-hot columns (32 at G = 8, at most 128), on the tensor cores
+    (wgmma): two TF32 products of an exact split on f32 mat2, one bf16
+    product on bf16.
     """
     _check(mat2, groupings, inv_group_sizes, variant)
     if mat2.device.type == "cpu":

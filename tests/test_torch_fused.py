@@ -30,6 +30,7 @@ from repro.pipeline import streaming as jstreaming  # noqa: E402
 from repro_torch.core import design, distance, permutations  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.fused_sw import ops, ref  # noqa: E402
+from repro_torch.kernels.permanova_sw import ref as ref_sw  # noqa: E402,E501
 from repro_torch.pipeline import streaming  # noqa: E402
 
 N, D, G = 53, 24, 5            # prime n, ragged group sizes
@@ -497,19 +498,141 @@ def test_cols_wrapper_rejects(case, exc):
 
 
 def test_cols_partials_at_the_emp_design_chunk():
-    """One (P * K) partial per (row tile, strip of 8 column tiles) and one
-    row sum per (row, strip): 50 strips x 393 row tiles x 1,270 + 25,145
-    x 50 floats at the EMP design chunk (P = 127, K = 10), 100 MiB, under
-    the label kernel's 129.6 MiB; per-tile partials would be 785 MB."""
+    """The design sweep's call (the whole table against itself) is
+    symmetric: one (P * K) partial per block, a strip of 2 column tiles
+    at or past the diagonal, sum_{c < 197} (393 - 2c) = 38,809 blocks,
+    and the row sums per (strip slot, row) plus the column sums of each
+    row tile's off-diagonal tiles per (row tile, column), (197 + 393) x
+    25,145 floats: 244.6 MiB at the EMP design chunk (P = 127, K = 10);
+    with the chunk's 134.0 MiB of index permutations and basis, under
+    half the 1 GiB matrix budget. Per-tile partials would be 785 MB. A
+    slab keeps every (row tile, strip) block and its row sums only."""
     n, chunk, k = 25145, 127, 10
+    blocks = sum(393 - 2 * c for c in range(197))
+    assert blocks == 38809
     assert ops.cols_partial_shapes(n, n, chunk, k) == \
-        ((50 * 393, chunk * k), (n, 50))
+        ((blocks, chunk * k), (197 + 393, n))
     assert ops.cols_workspace_bytes(n, n, chunk, k) == \
-        4 * (50 * 393 * chunk * k + n * 50)
-    assert ops.cols_workspace_bytes(n, n, chunk, k) < \
-        ops.workspace_bytes(n, n, 156) < 1024 ** 3 // 4
+        4 * (blocks * chunk * k + (197 + 393) * n)
+    assert ops.cols_workspace_bytes(n, n, chunk, k) \
+        + 4 * chunk * n * (k + 1) < 1024 ** 3 // 2
     assert 4 * 393 * 393 * chunk * k > 7.8e8
-    assert ops.cols_partial_shapes(100, 70, 3, 2) == ((1 * 2, 6), (100, 1))
+    assert ops.cols_partial_shapes(100, 70, 3, 2) == ((2 * 1, 6), (1, 100))
+    assert ops.cols_partial_shapes(n, n, chunk, k, symmetric=False) == \
+        ((393 * 197, chunk * k), (197, n))
+    assert len(_cols_blocks(n, n, True)) == blocks
+    assert _cols_blocks(n, n, True)[:2] == [(0, 0, 0), (1, 1, 0)]
+    assert _cols_blocks(n, n, True)[393] == (0, 2, 1)
+    assert len(_cols_blocks(n, n, False)) == 393 * 197
+    assert _cols_blocks(130, 70, False) == [(0, 0, 0), (1, 0, 0), (2, 0, 0)]
+
+
+def _cols_blocks(nr, n, symmetric):
+    """The dense-design kernel's blocks in launch order (fused_sw.cu,
+    cols_block), as (row tile, first column tile, row-sum slot): a
+    symmetric call takes the strips of STRIP_TILES column tiles starting
+    at the diagonal and every STRIP_TILES tiles after it, strip offset
+    first; a slab call every (row tile, strip) with the row tile
+    fastest."""
+    t, s = ops.TILE, ops.STRIP_TILES
+    nti, ntj = -(-nr // t), -(-n // t)
+    n_strips = -(-ntj // s)
+    if not symmetric:
+        return [(b % nti, (b // nti) * s, b // nti)
+                for b in range(nti * n_strips)]
+    return [(ti, ti + c * s, c) for c in range(n_strips)
+            for ti in range(ntj - c * s)]
+
+
+def _symmetric_decomposition(xp, v, metric):
+    """s_cols and row sums as the symmetric kernel assembles them, in
+    float64 on the plain version's masked f32 D^2: its blocks
+    (_cols_blocks) visit only the column tiles j >= i, diagonal tiles
+    at 1/2 and off-diagonal ones at 1, in passes of Q_PASS q; each
+    block's
+    row sums go to its strip slot and its off-diagonal tiles' column sums
+    to its row tile's slot; the partials are summed at the end."""
+    n, (p, _, k) = xp.shape[0], v.shape
+    t = ops.TILE
+    m2 = torch.cat([blk for _, _, blk in ref._masked_d2_blocks(
+        xp, xp, 0, metric, n, dict(feat_bf16=0, feat_fp8=0, feat_packed=0,
+                                   feat_scale=None))]).double()
+    vq = v.double().permute(1, 0, 2).reshape(n, p * k)     # (n, Q)
+    (nb, nq), (slots, _) = ops.cols_partial_shapes(n, n, p, k)
+    n_strips = slots - -(-n // t)
+    blocks = _cols_blocks(n, n, True)
+    assert len(blocks) == nb
+    s_part = torch.zeros((nb, nq), dtype=torch.float64)
+    rs_part = torch.zeros((slots, n), dtype=torch.float64)
+    ntj = -(-n // t)
+    for b, (ti, jt0, slot) in enumerate(blocks):
+        r = slice(ti * t, min(ti * t + t, n))
+        for jt in range(jt0, min(jt0 + ops.STRIP_TILES, ntj)):
+            c = slice(jt * t, min(jt * t + t, n))
+            tile = m2[r, c]
+            wt = 0.5 if jt == ti else 1.0
+            for q0 in range(0, nq, ops.Q_PASS):
+                q = slice(q0, min(q0 + ops.Q_PASS, nq))
+                s_part[b, q] += ((wt * tile) @ vq[c, q] * vq[r, q]).sum(0)
+            rs_part[slot, r] += tile.sum(1)
+            if jt != ti:
+                rs_part[n_strips + ti, c] += tile.sum(0)
+    return s_part.sum(0).view(p, k), rs_part.sum(0)
+
+
+@pytest.mark.parametrize("p,k", [(261, 1), (29, 3)])
+def test_symmetric_decomposition_equals_the_plain_version(p, k):
+    """The symmetric kernel's decomposition (upper tiles only, diagonal
+    tiles at 1/2, column sums standing in for the mirrored rows' sums)
+    gives the plain version's s_cols within 1e-6 s_T and its row sums at
+    rtol 1e-6, at a ragged n (331: six 64-row tiles, three strips, the
+    last tile 11 rows), K = 1, and P * K not a multiple of the 128-q
+    pass."""
+    x, _ = _study(seed=8, n=331, d=24)
+    xp = distance.ROW_METRICS["braycurtis"].prepare(
+        torch.from_numpy(x)).contiguous()
+    v = torch.from_numpy(_basis(p, k, seed=8, n=331))
+    sc, rs = _symmetric_decomposition(xp, v, "braycurtis")
+    sc_p, rs_p = ref.fused_sw_cols_ref(xp, xp, v, v, 0, metric="braycurtis")
+    s_t = float(rs_p.double().sum()) / 2.0 / 331
+    assert float((sc - sc_p.double()).abs().max()) <= 1e-6 * s_t
+    torch.testing.assert_close(rs, rs_p.double(), rtol=1e-6, atol=0)
+
+
+def test_three_tf32_products_reproduce_the_cols_forms_and_one_does_not():
+    """The cols kernel's product on the tensor cores: neither D^2 nor the
+    basis is 0/1, so both are split, hi = tf32(x) and lo = tf32(x - hi),
+    and hi.hi + hi.lo + lo.hi (exact products summed in float64) gives the
+    float64 per-column forms within 1e-6 s_T, the bar the kernel is held
+    to, at a small ragged shape; one TF32 product misses it."""
+    n = 203
+    x, _ = _study(seed=9, n=n, d=24)
+    xp = distance.ROW_METRICS["euclidean"].prepare(
+        torch.from_numpy(x)).contiguous()
+    m2 = torch.from_numpy(_masked_d2_f64(xp, "euclidean"))
+    v = torch.from_numpy(_basis(5, 7, seed=9, n=n))
+    s_t = float(m2.sum()) / 2.0 / n
+    oracle = 0.5 * torch.stack([(m2 @ vp * vp).sum(0)
+                                for vp in v.double()])
+    a = m2.float()
+    a_hi = ref_sw.tf32_round(a)
+    a_lo = ref_sw.tf32_round(a - a_hi)
+
+    def forms(products):
+        out = []
+        for vp in v:
+            b_hi = ref_sw.tf32_round(vp)
+            b_lo = ref_sw.tf32_round(vp - b_hi)
+            y = a_hi.double() @ b_hi.double()
+            if products == 3:
+                y = y + a_hi.double() @ b_lo.double() \
+                    + a_lo.double() @ b_hi.double()
+            out.append(0.5 * (y * vp.double()).sum(0))
+        return torch.stack(out)
+
+    three, one = forms(3), forms(1)
+    assert float((three - oracle).abs().max()) <= 1e-6 * s_t
+    assert float((one - oracle).abs().max()) > 1e-6 * s_t
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +760,25 @@ def test_source_names_what_it_replaces_and_its_constants():
     assert "src/repro/kernels/fused_sw/kernel.py:338" in src
     assert f"constexpr int kTile = {ops.TILE};" in src
     assert f"constexpr int kStripTiles = {ops.STRIP_TILES};" in src
+    # the dense-design kernel: the symmetric visit of the tiles j >= i,
+    # the product in 3xTF32 on the tensor cores (wgmma, both operands split
+    # hi / lo) through a cp.async ring in dynamic shared memory raised past
+    # 48 KB, and the block order _cols_blocks models
+    assert f"constexpr int kQPass = {ops.Q_PASS};" in src
+    for needle in ("constexpr int kKc = 16;",
+                   "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
+                   "cvt.rna.tf32.f32", "fence.proxy.async.shared::cta",
+                   "wgmma_tf32(dd, ah[f], bh, f > 0);",
+                   "wgmma_tf32(dd, ah[f], bl, 1);",
+                   "wgmma_tf32(dd, al[f], bh, 1);",
+                   "const float wt = sym && jt != blk.ti ? 1.f : 0.5f;",
+                   "rs_part[(n_strips + blk.ti) * n + j] = s;",
+                   "cp.async.ca.shared.global",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize",
+                   "return {b, b + c * kStripTiles, c};",
+                   "if (!sym) return {b % nti, (b / nti) * kStripTiles, "
+                   "b / nti};"):
+        assert needle in src, needle
     functors = {"braycurtis": "BrayCurtis", "euclidean": "Euclidean",
                 "jaccard": "Jaccard"}
     for metric, kind in ops._KIND.items():     # the wrapper's C switches

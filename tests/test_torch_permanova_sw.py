@@ -257,10 +257,71 @@ def test_ctypes_signature_matches_source(name):
 
 
 def test_source_names_the_kernels_it_replaces():
+    """Each kernel names the TPU kernel it replaces; brute's note says what
+    bounds it now (its instruction rate: an integer compare and a predicated
+    add per (pair, permutation), its INT32 floor) and keeps Algorithm 3's
+    form: a same-group test per (pair, permutation), no one-hot product,
+    no tensor cores; no atomics anywhere."""
     src = ops.SOURCE.read_text()
     for fn in ("sw_brute_pallas", "sw_permblock_pallas", "sw_matmul_pallas"):
         assert f"kernels/permanova_sw/kernel.py:{fn}" in src
     assert "atomicAdd" not in src    # partials + torch.sum, not atomics
+    brute = src[src.index("// brute —"):src.index("// permblock —")]
+    for needle in ("instruction rate: an integer compare", "INT32 pipe",
+                   "if (g == gc[k].x) acc[r][k] += m.x;",
+                   "const bool ok = i < n && j < n && j > i;",
+                   "row_weight(gr[r][k], w, n_groups)"):
+        assert needle in brute, needle
+    assert "wgmma" not in brute.split("// ----")[-1]
+
+
+def test_brute_band_tile_and_partials_from_the_source():
+    """The brute kernel's band (64 rows), column tile (64) and
+    permutation block (128) are compile-time constants reported by
+    sw_kernel_config; the wrapper sizes its partials (P, ceil(n / 64))
+    from that report (a stand-in library fills every partial with 1, so
+    each permutation's s_W is the band count), and the launch's grid is
+    (ceil(P / 128), ceil(n / 64))."""
+    import ctypes
+    src = ops.SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (kBrute(?:Rows|Cols|Perms)) = "
+                             r"(\d+);", src))
+    assert consts == {"kBruteRows": "64", "kBruteCols": "64",
+                      "kBrutePerms": "128"}
+    for i, name in ((0, "kBruteRows"), (6, "kBruteCols"),
+                    (7, "kBrutePerms")):
+        assert f"out[{i}] = {name};" in src
+    assert "const dim3 grid((unsigned)((n_perms + kBrutePerms - 1) / " \
+        "kBrutePerms),\n                  (unsigned)((n + kBruteRows - 1) " \
+        "/ kBruteRows));" in src
+    assert "2 * kBruteStageBytes;  // 102,400" in src
+
+    class StandIn:
+        def sw_kernel_config(self, out):
+            for i, v in enumerate((64, 16, 64, 64, 128, 256, 64, 128)):
+                out[i] = v
+
+        def sw_brute_launch(self, mat2, g, w, partials, n, p, n_groups,
+                            stream):
+            self.shape = (p, -(-n // 64))
+            arr = (ctypes.c_float * (p * self.shape[1])).from_address(
+                partials)
+            for i in range(len(arr)):
+                arr[i] = 1.0
+            return 0
+
+    lib = StandIn()
+    assert ops.kernel_config(lib) == {
+        "brute_rows": 64, "permblock_perms": 16, "permblock_tile": 64,
+        "matmul_rows": 64, "matmul_max_perm_block": 128,
+        "matmul_columns": 256, "brute_cols": 64, "brute_perms": 128}
+    mat2, gperms, inv_gs = _instance(130, 3, 5, seed=2)
+    before = ops.LAUNCHES["brute"]
+    got = ops._launch(lib, "brute", torch.from_numpy(mat2),
+                      torch.from_numpy(gperms), torch.from_numpy(inv_gs), 0)
+    assert lib.shape == (5, 3)
+    assert got.tolist() == [3.0] * 5
+    ops.LAUNCHES["brute"] = before
 
 
 def test_matmul_perm_block_fills_128_onehot_columns():
