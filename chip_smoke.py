@@ -66,19 +66,28 @@ Phases, each timed:
    bridge, beside its plain version, torch.cdist for euclidean (the one
    PyTorch call that computes one of these functions), and its bound.
 8. The fused distance -> s_W kernel against its plain version on the card
-   for euclidean, braycurtis and jaccard (on presence data) at (n, d, P,
-   G) = (57, 3, 1, 3), (130, 37, 5, 2), (2047, 128, 37, 8): s_W and row
-   sums at rtol=2e-4, atol=1e-5 (the reference's own bar); at n = 2047,
-   300-row slabs at their offsets must sum (s_W) and concatenate (row
-   sums) to the full call at rtol=1e-4, and 16 + 16 + 5 permutations
-   must give the 37-permutation call at rtol=1e-6; at the EMP shape one
-   chunk (P = 156) of s_W must match the plain version within
+   for euclidean, braycurtis and jaccard (on presence data), each a
+   whole-table call (the kernel's symmetric visit of the tiles j >= i),
+   at (n, d, P, G) = (57, 3, 1, 3), (130, 37, 5, 2), (2047, 128, 37, 8),
+   at ragged n on both sides of a 16-tile strip's end with P on both
+   sides of a 128-permutation pass (FUSED_SYM_SHAPES) and at (2047, 128,
+   261, 8): s_W and row sums at rtol=2e-4, atol=1e-5 (the reference's own
+   bar); at (2047, 128, 261, 8), 300-row slabs at their offsets (the full
+   visit at 1/2) must sum (s_W) and concatenate (row sums) to the full
+   call at rtol=1e-4, as must the slabs of the table zero-padded to 2,400
+   rows (n_valid = 2047, so the last slab is all pad rows and must give
+   zeros) and the padded table in one call (the symmetric visit past
+   n_valid), each also against the plain version on the padded table at
+   the reference's bar; 16 + 16 + 5 and 128 + 128 + 5 permutations must
+   give the one call at rtol=1e-6; at the EMP shape P = 156 and the
+   plan's chunk (fused_plan) of s_W must match the plain version within
    SW_MAIN_RTOL.
 9. The features path at the EMP shape with the DEFAULT budgets:
    pipeline(features, Bray-Curtis, 3,999 permutations, seed 0), which the
    planner sends to the fused-kernel bridge (not even one (n, n) buffer
-   fits 1 GiB): 26 fused_sw launches (one per 156-permutation chunk) and
-   no other kernel, F within rtol=1e-4 of phase 3's engine.run and of
+   fits 1 GiB) in chunks its plan sizes by the kernel's workset
+   (fused_plan: 1,792 permutations, 3 launches): fused_sw launched once a
+   chunk and no other kernel, F within rtol=1e-4 of phase 3's engine.run and of
    phase 6's dense bridge with p equal, its null within what f32 s_W
    allows of the dense bridge's (see SW_MAIN_RTOL), and a peak of device
    memory above the call's start under the 1 GiB matrix budget (4 n^2 =
@@ -86,11 +95,15 @@ Phases, each timed:
    permutations: 99 braycurtis slab launches and no other kernel, F
    within rtol=1e-4 and the null within the same f32 allowance of the
    dense bridge's first 1,000, and its p theirs.
-10. The fused kernel timed at the main path's shape, (n, d, P, G) =
-   (25145, 128, 156, 8), beside its plain version and its bound (no
-   PyTorch call computes features -> s_W, so no library time); and, to
-   split its time, the kernel at P = 1 (the feature phase and one
-   permutation) and the label draw of one chunk.
+10. The fused kernel timed at (n, d, G) = (25145, 128, 8) at the plan's
+   chunk (the main path's shape), at P = 156 (every earlier time's) and
+   at P = 1 (the feature phase and one 128-permutation pass), each beside
+   its bound (each pair once), its own floors (the feature phase at the
+   f32 peak and one INT32 compare per (pair, permutation), as brute's; a
+   time under the larger fails the run), its plain version and, for
+   scale, one f32 torch.matmul of a resident mat2 with the chunk's (n, P
+   G) one-hot factor (the contraction alone: no PyTorch call computes
+   features -> s_W, so no library time); and the label draw of one chunk.
 11. The dense-design fused kernel (fused_sw_cols) against its plain
    version on the card for euclidean, braycurtis and jaccard (on presence
    data) at (n, d, P, K) = (57, 3, 1, 3), (130, 37, 5, 10), (2047, 128,
@@ -113,7 +126,8 @@ Phases, each timed:
    (a) covariates, (b) covariates + weights, (c) strata only, (d)
    covariates + strata. (a), (b) and (d) must launch fused_sw_cols 32
    times (one per 127-permutation chunk) and nothing else, (c) fused_sw
-   26 times and nothing else; each run's peak device memory above its
+   once per chunk of the plan's (fused_plan) and nothing else; each run's
+   peak device memory above its
    start stays under the 1 GiB matrix budget. (a) and (c) run again
    through the dense bridge (6 GiB budget, same seed): per-term observed
    F at rtol=1e-4, each null F within the f32 allowance of
@@ -136,8 +150,9 @@ Phases, each timed:
    the same mode (both sides see the same quantized values): bf16 and fp8
    for euclidean, braycurtis and jaccard (on presence data), packed for
    jaccard, at phase 8's and phase 11's check shapes (phase 8 / 11's bars)
-   and at the EMP chunks, (n, d, P, G) = (25145, 128, 156, 8) and (n, d,
-   P, K) = (25145, 128, 127, 10) (s_W within SW_MAIN_RTOL, s_cols within
+   and at the EMP chunks, (n, d, P, G) = (25145, 128, the plan's chunk,
+   8) and (n, d, P, K) = (25145, 128, 127, 10) (s_W within SW_MAIN_RTOL,
+   s_cols within
    SW_MAIN_RTOL * s_T); packed equal to the f32 jaccard kernel on the same
    presence data bit for bit (s_W or s_cols, and row sums); the fp8 bytes
    the wrapper hands the kernel equal to core.distance's cast on the CPU
@@ -152,18 +167,20 @@ Phases, each timed:
 15. pipeline() at the EMP shape with the default budgets at a precision
    (fused_tuning = registry.precision_tuning(tag)): bf16 and fp8 on
    Bray-Curtis, packed on jaccard, and the covariate design at bf16, fp8
-   and (jaccard) packed. Each launches its mode's kernel only, 26
-   fused_sw[tag] or 32 fused_sw_cols[tag]. Each is held to the plain
-   sweep at the same precision on the same labels, the dense bridge (6
-   GiB budget) on the table round-tripped through the mode: F at
-   rtol=1e-4 with p equal and the null within phase 9's f32 allowance,
+   and (jaccard) packed. Each launches its mode's kernel only,
+   fused_sw[tag] once a chunk of the plan's or 32 fused_sw_cols[tag]. Each
+   is held to the plain sweep at the same precision on the same labels,
+   the dense bridge (6 GiB budget) on the table round-tripped through the
+   mode: F at rtol=1e-4 with p equal and the null within phase 9's f32
+   allowance,
    or per term phase 12's bars; packed F, p and nulls equal to those of
    the f32 jaccard run bit for bit. Each run's peak device memory above
    its start is logged and held under the 1 GiB matrix budget.
-16. Each mode's kernel timed at its EMP chunk and at P = 1, beside its
-   plain version (timed in phase 14) and its bound counted both ways, by
-   operations and by bytes at the mode's element width (4 / 2 / 1 /
-   0.125 B a feature); then the STREAM probe (kernels/stream): copy,
+16. Each mode's kernel timed at its EMP chunk and at P = 1 (fused_sw
+   also at P = 156), beside its plain version (timed in phase 14), its
+   floors (fused_sw: also its INT32 compares) and its bound counted both
+   ways, by operations and by bytes at the mode's element width (4 / 2 /
+   1 / 0.125 B a feature); then the STREAM probe (kernels/stream): copy,
    scale, add and triad at 2^28 f32 elements (1 GiB an array), each
    launched once through stream_op with its launch counted, checked
    against its plain form on the card bit for bit, and timed in turns
@@ -185,6 +202,7 @@ in f32, as the reference's f32 modes do.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -249,19 +267,28 @@ OTHER_PATHS = [("euclidean", None, "euclidean"),
 FUSED_SOURCE = "src/repro_torch/kernels/fused_sw/csrc/fused_sw.cu"
 FUSED_REPLACES = "src/repro/kernels/fused_sw/kernel.py:193"
 FUSED_CHECK_SHAPES = [(57, 3, 1, 3), (130, 37, 5, 2), (2047, 128, 37, 8)]
+# whole-table calls (the kernel's symmetric visit of the tiles j >= i) at
+# ragged n on both sides of a strip end (16 column tiles: n = 1,024) and P
+# on both sides of a 128-permutation pass
+FUSED_SYM_SHAPES = [(331, 24, 127, 8), (331, 24, 129, 300),
+                    (1023, 16, 128, 5), (1025, 16, 257, 8), (1089, 8, 29, 3)]
+# offset slabs and permutation splits: 261 permutations, 300-row slabs
+FUSED_SPLIT_SHAPE = (2047, 128, 261, 8)
 FUSED_RTOL = 2e-4       # the reference's bar (tests/test_fused_sw.py:60)
 SLAB_RTOL = 1e-4        # offset slabs against the full call (:95)
 SLAB_ROWS = 300
-SPLIT = (16, 16, 5)     # chunk invariance: 37 permutations in three calls
+PAD_ROWS = 2400    # the n = 2047 table padded so its last slab is all pad
+# chunk invariance: the first 37 permutations in three calls, and all 261
+# in calls of whole and partial 128-permutation passes
+SPLITS = ((16, 16, 5), (128, 128, 5))
 SPLIT_RTOL = 1e-6
-# the planner's fused chunk at the EMP shape with the default label budget:
-# 256 MiB / (4 n (2 G + 1)) permutations; 4,000 slots take 26 launches
-FUSED_CHUNK = 156
-FUSED_LAUNCHES = 26
+# the fused_sw chunk the one-hot model gives at the EMP shape, 256 MiB /
+# (4 n (2 G + 1)): every earlier time of the kernel was taken at it, so
+# phases 10 and 16 time it there too, beside the plan's chunk (fused_plan)
+ONEHOT_CHUNK = 156
 DEFAULT_MATRIX_BUDGET = GIB
 COLS_REPLACES = "src/repro/kernels/fused_sw/kernel.py:338"
 COLS_CHECK_SHAPES = [(57, 3, 1, 3), (130, 37, 5, 10), (2047, 128, 37, 10)]
-COLS_PAD_ROWS = 2400    # the n = 2047 table padded so its last slab is pad
 # every mode of fused_sw_cols at an odd n, K = 1 and P * K past two 128-q
 # passes (not a multiple of one), symmetric and as a row slab at an offset
 COLS_ODD = (331, 24, 261, 1)
@@ -302,6 +329,20 @@ INT32_LANES_PER_SM, SMS, BOOST_HZ = 64, 132, 1.98e9
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan() -> tuple:
+    """(chunk, launches) of fused_sw on the main path: the planner's chunk
+    at the EMP shape with the default budgets on the card (the largest
+    whole number of the kernel's 128-permutation passes whose workset,
+    partials and labels, fits the 256 MiB label budget) and the launches
+    for the EMP_PERMS + 1 slots."""
+    from repro_torch.pipeline import planner
+    chunk = planner.plan_pipeline(
+        EMP_N, EMP_FEATURES, EMP_PERMS + 1, EMP_GROUPS, backend="cuda",
+        metric="braycurtis").sw.chunk
+    return chunk, -(-(EMP_PERMS + 1) // chunk)
 
 
 def card_line() -> str:
@@ -658,8 +699,6 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
             rows[-1].update(matmul_bf16(mat2, labels, inv_gs, ms,
                                         library_ms))
         if v == "brute":
-            rows[-1].update({"own_floor_ms": floor_ms,
-                             "own_floor_by": "INT32 compares"})
             log(f"[smoke] timing brute     (n={EMP_N}, P={shapes[v]}): "
                 f"kernel/library {ms / library_ms:.3f}; its own floor (one "
                 f"INT32 compare per (pair, permutation), {INT32_LANES_PER_SM}"
@@ -743,11 +782,7 @@ def matmul_bf16(mat2, labels, inv_gs, ms, library_ms) -> dict:
         f"{err16:.3e} vs plain on bf16 operands; the function's bound "
         f"{b16:.3f} ms ({by16}) on bf16 mat2")
     return {"ms_bf16": ms16, "max_rel_err_bf16": err16,
-            "bound_ms_bf16": b16, "bound_by_bf16": by16,
-            **{f"{k}_f32" if k != "onehot_flop" else k: val
-               for k, val in f32.items()},
-            **{f"{k}_bf16": val for k, val in bf.items()
-               if k != "onehot_flop"}}
+            "bound_ms_bf16": b16, "bound_by_bf16": by16}
 
 
 def draw_checks(dev, g_dev, chunk):
@@ -1087,24 +1122,72 @@ def fused_instance(n, d, p, g, seed, device):
 
 def emp_chunk(dev, x_np, grouping):
     """The main path's first fused chunk: the EMP features on the card,
-    the first FUSED_CHUNK permutation slots of seed 0 and inv_gs."""
+    the first fused_plan() chunk of permutation slots of seed 0 and
+    inv_gs."""
     import torch
     from repro_torch.core import permutations
     x = torch.from_numpy(x_np).to(dev)
     g = torch.from_numpy(grouping).to(dev)
-    labels = permutations.permutation_batch(g, 0, FUSED_CHUNK, seed=0)
+    labels = permutations.permutation_batch(g, 0, fused_plan()[0], seed=0)
     return x, labels, permutations.inv_group_sizes(g, EMP_GROUPS)
 
 
+def fused_padded_checks(xp, labels, inv_gs, metric, sw, rs) -> str:
+    """The labels kernel on the table zero-padded to PAD_ROWS rows (pad
+    labels 0) with n_valid = n: its SLAB_ROWS-row offset slabs, the last
+    all pad rows and so exact zeros, and the whole padded table in one
+    call (the symmetric visit, its columns past n_valid masked) give the
+    unpadded call (sw, rs) at SLAB_RTOL and the plain version on the
+    padded table at FUSED_RTOL. Returns a note for the log."""
+    import torch
+    from repro_torch.kernels.fused_sw import ops as fops, ref as fref
+    n = xp.shape[0]
+    pad = PAD_ROWS - n
+    xq = torch.nn.functional.pad(xp, (0, 0, 0, pad)).contiguous()
+    gq = torch.nn.functional.pad(labels, (0, pad)).contiguous()
+    parts = [fops.fused_sw_rows(
+        xq[lo:lo + SLAB_ROWS].contiguous(), xq,
+        gq[:, lo:lo + SLAB_ROWS].contiguous(), gq, inv_gs, lo,
+        metric=metric, n_valid=n) for lo in range(0, PAD_ROWS, SLAB_ROWS)]
+    sw_s = torch.stack([q[0] for q in parts]).sum(dim=0)
+    rs_s = torch.cat([q[1] for q in parts])
+    check(fops.is_symmetric_call(xq, xq, gq, gq, 0),
+          "the padded whole-table call must take the symmetric visit")
+    sw_q, rs_q = fops.fused_sw_rows(xq, xq, gq, gq, inv_gs, 0,
+                                    metric=metric, n_valid=n)
+    sw_p, rs_p = fref.fused_sw_ref(xq, xq, gq, gq, inv_gs, 0,
+                                   metric=metric, n_valid=n)
+    torch.cuda.synchronize()
+    for what, s_w, r_s in (("offset slabs", sw_s, rs_s),
+                           ("one call", sw_q, rs_q)):
+        check(torch.allclose(s_w, sw, rtol=SLAB_RTOL, atol=ATOL)
+              and torch.allclose(r_s[:n], rs, rtol=SLAB_RTOL, atol=0)
+              and bool((r_s[n:] == 0).all())
+              and torch.allclose(s_w, sw_p, rtol=FUSED_RTOL, atol=ATOL)
+              and torch.allclose(r_s, rs_p, rtol=FUSED_RTOL, atol=ATOL),
+              f"fused {metric}: the {PAD_ROWS}-row padded table (n_valid "
+              f"{n}), {what}, != the unpadded call or the plain version: "
+              f"rel {rel_err(s_w, sw):.3e} / {rel_err(s_w, sw_p):.3e}")
+    check(bool((parts[-1][0] == 0).all()),
+          f"fused {metric}: the all-pad slab gave a nonzero s_W")
+    return (f"the {PAD_ROWS}-row padded table's {len(parts)} slabs (the "
+            f"last all pad, zeros) and one call equal it (rel "
+            f"{rel_err(sw_s, sw):.3e} / {rel_err(sw_q, sw):.3e}; plain "
+            f"{rel_err(sw_q, sw_p):.3e})")
+
+
 def phase_fused_kernel(dev, x_np, grouping):
-    """The fused kernel against its plain version at FUSED_CHECK_SHAPES,
-    offset slabs and chunk splits at n = 2047, and one chunk at the EMP
-    shape. Returns its largest errors for the kernels line."""
+    """The fused kernel against its plain version at FUSED_CHECK_SHAPES
+    and FUSED_SYM_SHAPES (whole-table calls, the symmetric visit), offset
+    slabs and permutation splits at FUSED_SPLIT_SHAPE, and at the EMP
+    shape at P = ONEHOT_CHUNK and the plan's chunk. Returns its largest
+    errors for the kernels line."""
     import torch
     from repro_torch.core.distance import ROW_METRICS
     from repro_torch.kernels.fused_sw import ops as fops, ref as fref
     worst_rel = 0.0
-    for n, d, p, g in FUSED_CHECK_SHAPES:
+    for n, d, p, g in (FUSED_CHECK_SHAPES + FUSED_SYM_SHAPES
+                       + [FUSED_SPLIT_SHAPE]):
         x, labels, inv_gs = fused_instance(n, d, p, g, n + d + p, dev)
         for metric in fops.FUSED_METRICS:
             xp = ROW_METRICS[metric].prepare(x).contiguous()
@@ -1114,6 +1197,10 @@ def phase_fused_kernel(dev, x_np, grouping):
                 return fops.fused_sw_rows(xp[lo:hi].contiguous(), xp,
                                           lab[:, lo:hi].contiguous(), lab,
                                           inv_gs, lo, metric=metric)
+            check(fops.is_symmetric_call(
+                xp[0:n].contiguous(), xp, labels[:, 0:n].contiguous(),
+                labels, 0), "a whole-table call must take the symmetric "
+                "visit")
             sw, rs = call(0, n)
             sw_p, rs_p = fref.fused_sw_ref(xp, xp, labels, labels, inv_gs,
                                            0, metric=metric)
@@ -1128,9 +1215,10 @@ def phase_fused_kernel(dev, x_np, grouping):
                   f"rel {err:.3e}, row sums abs "
                   f"{float((rs - rs_p).abs().max()):.3e}")
             log(f"[smoke] kernel fused_sw {metric:10s} (n,d,P,G)="
-                f"{(n, d, p, g)} s_W max_rel_err={err:.3e} row sums "
-                f"max_rel_err={rel_err(rs, rs_p):.3e} vs plain")
-            if n < 2047:
+                f"{(n, d, p, g)} symmetric visit: s_W max_rel_err="
+                f"{err:.3e} row sums max_rel_err={rel_err(rs, rs_p):.3e} "
+                f"vs plain")
+            if (n, d, p, g) != FUSED_SPLIT_SHAPE:
                 continue
             parts = [call(lo, min(lo + SLAB_ROWS, n))
                      for lo in range(0, n, SLAB_ROWS)]
@@ -1140,31 +1228,41 @@ def phase_fused_kernel(dev, x_np, grouping):
                   and torch.allclose(rs_s, rs, rtol=SLAB_RTOL, atol=0),
                   f"fused {metric}: {len(parts)} offset slabs of "
                   f"{SLAB_ROWS} rows != the full call")
-            bounds = [0, SPLIT[0], SPLIT[0] + SPLIT[1], sum(SPLIT)]
-            sw_c = torch.cat([call(0, n, a, b)[0]
-                              for a, b in zip(bounds, bounds[1:])])
-            check(torch.allclose(sw_c, sw, rtol=SPLIT_RTOL, atol=0),
-                  f"fused {metric}: chunks {SPLIT} != one call of "
-                  f"{sum(SPLIT)}: rel {rel_err(sw_c, sw):.3e}")
+            pad_note = fused_padded_checks(xp, labels, inv_gs, metric, sw,
+                                           rs)
+            splits = []
+            for split in SPLITS:
+                bounds = [0, split[0], split[0] + split[1], sum(split)]
+                sw_c = torch.cat([call(0, n, a, b)[0]
+                                  for a, b in zip(bounds, bounds[1:])])
+                want = sw[:sum(split)]
+                check(torch.allclose(sw_c, want, rtol=SPLIT_RTOL, atol=0),
+                      f"fused {metric}: chunks {split} != one call of "
+                      f"{p}: rel {rel_err(sw_c, want):.3e}")
+                splits.append(f"chunks {split} equal one call (rel "
+                              f"{rel_err(sw_c, want):.3e})")
             log(f"[smoke] kernel fused_sw {metric:10s} n={n}: "
                 f"{len(parts)} offset slabs sum to the full call (rel "
-                f"{rel_err(sw_s, sw):.3e}), chunks {SPLIT} equal one call "
-                f"(rel {rel_err(sw_c, sw):.3e})")
+                f"{rel_err(sw_s, sw):.3e}), {pad_note}, "
+                f"{', '.join(splits)}")
     x, labels, inv_gs = emp_chunk(dev, x_np, grouping)
-    sw, rs = fops.fused_sw_rows(x, x, labels, labels, inv_gs, 0)
-    sw_p, rs_p = fref.fused_sw_ref(x, x, labels, labels, inv_gs, 0)
-    torch.cuda.synchronize()
-    err, err_abs = rel_err(sw, sw_p), float((sw - sw_p).abs().max())
-    check(bool(torch.isfinite(sw).all()) and err <= SW_MAIN_RTOL
-          and torch.allclose(rs, rs_p, rtol=FUSED_RTOL, atol=ATOL),
-          f"fused kernel != plain at the EMP chunk: s_W rel {err:.3e} "
-          f"(limit {SW_MAIN_RTOL})")
-    log(f"[smoke] kernel fused_sw braycurtis (n,d,P,G)="
-        f"{(EMP_N, EMP_FEATURES, FUSED_CHUNK, EMP_GROUPS)} s_W "
-        f"max_rel_err={err:.3e} (limit {SW_MAIN_RTOL}) max_abs_err="
-        f"{err_abs:.3e}; row sums max_rel_err={rel_err(rs, rs_p):.3e}")
-    return {"max_abs_err": err_abs, "max_rel_err": err,
-            "max_rel_err_checks": worst_rel}
+    out = {"max_rel_err_checks": worst_rel}
+    for p in (ONEHOT_CHUNK, labels.shape[0]):
+        lab = labels[:p].contiguous()
+        sw, rs = fops.fused_sw_rows(x, x, lab, lab, inv_gs, 0)
+        sw_p, rs_p = fref.fused_sw_ref(x, x, lab, lab, inv_gs, 0)
+        torch.cuda.synchronize()
+        err, err_abs = rel_err(sw, sw_p), float((sw - sw_p).abs().max())
+        check(bool(torch.isfinite(sw).all()) and err <= SW_MAIN_RTOL
+              and torch.allclose(rs, rs_p, rtol=FUSED_RTOL, atol=ATOL),
+              f"fused kernel != plain at the EMP shape, P = {p}: s_W rel "
+              f"{err:.3e} (limit {SW_MAIN_RTOL})")
+        log(f"[smoke] kernel fused_sw braycurtis (n,d,P,G)="
+            f"{(EMP_N, EMP_FEATURES, p, EMP_GROUPS)} s_W "
+            f"max_rel_err={err:.3e} (limit {SW_MAIN_RTOL}) max_abs_err="
+            f"{err_abs:.3e}; row sums max_rel_err={rel_err(rs, rs_p):.3e}")
+        out.update(max_abs_err=err_abs, max_rel_err=err)   # the plan's
+    return out
 
 
 def phase_fused_pipeline(dev, x_np, grouping, f_p_main, dense):
@@ -1205,8 +1303,11 @@ def phase_fused_pipeline(dev, x_np, grouping, f_p_main, dense):
           f"expected the fused-kernel bridge, got {res.plan!r}")
     check(res.method == "pipeline[braycurtis.cuda->fused-kernel->matmul]",
           f"unexpected method {res.method!r}")
+    chunk, launches = fused_plan()
+    check(f"stream(chunk={chunk})" in res.plan,
+          f"expected the plan's chunk {chunk}, got {res.plan!r}")
     want = {k: 0 for k in paths["fused-kernel"]}
-    want["fused_sw"] = FUSED_LAUNCHES
+    want["fused_sw"] = launches
     check(paths["fused-kernel"] == want,
           f"fused-kernel bridge launches {paths['fused-kernel']} != {want}")
     check(res.f_perms.device == dev and res.f_perms.shape == (EMP_PERMS + 1,)
@@ -1298,55 +1399,101 @@ def fused_bound_ms(x_rows, x, labels, inv_gs, chip) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fused_own_floors_ms(x, labels, chip) -> tuple:
+    """The labels kernel's own floors (its formulation's, not the
+    function's bound), each pair of the whole table once as its symmetric
+    visit does: (the feature phase's 2 per (pair, feature) at the f32
+    peak, one INT32 compare per (pair, permutation) at the INT32 pipe's
+    rate as brute's floor counts it)."""
+    n, d = x.shape[0], x.shape[1]
+    return (n * (n - 1) * d / chip.peak_flops_f32 * 1e3,
+            brute_floor_ms(labels))
+
+
 def phase_fused_timings(dev, x_np, grouping, paths, checked):
-    """The fused kernel at the main path's shape (one 156-permutation
-    chunk of the EMP sweep) beside its plain version and its bound; the
-    kernel at P = 1 and one chunk's labels, to split the sweep's time."""
+    """The fused kernel at P = 1, P = ONEHOT_CHUNK (every earlier row's
+    chunk) and the plan's chunk (the main path's), each beside its bound
+    (each pair once), its own floors (a time under the larger fails the
+    run) and, for scale, one f32 torch.matmul of a resident mat2 with the
+    chunk's (n, P G) one-hot factor (the contraction alone; no PyTorch
+    call computes features -> s_W); the plain version at P = ONEHOT_CHUNK
+    and the plan's chunk; one chunk's label draw, as the path draws it."""
     import torch
-    from repro_torch.core import permutations
+    from repro_torch.core import fstat, permutations
+    from repro_torch.engine import planner as eplanner
     from repro_torch.hw import H100_SXM
+    from repro_torch.kernels.distance import ops as dops
     from repro_torch.kernels.fused_sw import ops as fops, ref as fref
     x, labels, inv_gs = emp_chunk(dev, x_np, grouping)
-    one = labels[:1].contiguous()
-    ms_one = cuda_ms(lambda: fops.fused_sw_rows(x, x, one, one, inv_gs, 0),
-                     reps=5)
+    chunk, launches = fused_plan()
     g_dev = torch.from_numpy(grouping).to(dev)
+    rows = permutations.draw_rows(EMP_N, eplanner.DEFAULT_STREAM_BUDGET_BYTES)
     labels_ms = cuda_ms(lambda: permutations.permutation_batch(
-        g_dev, FUSED_CHUNK, 2 * FUSED_CHUNK, seed=0), reps=5)
+        g_dev, chunk, 2 * chunk, seed=0, block_rows=rows), reps=3)
+    d = dops.pairwise_distance(x, metric="braycurtis")
+    mat2 = d * d
+    del d
     small = x[:64].contiguous()
     small_lab = labels[:, :64].contiguous()
-    ms = cuda_ms(lambda: fops.fused_sw_rows(x, x, labels, labels, inv_gs, 0),
-                 reps=5)
-    plain_ms = cuda_ms(
-        lambda: fref.fused_sw_ref(x, x, labels, labels, inv_gs, 0), reps=1,
-        warm=lambda: fref.fused_sw_ref(small, small, small_lab, small_lab,
-                                       inv_gs, 0))
-    b_ms, b_by = fused_bound_ms(x, x, labels, inv_gs, H100_SXM)
-    log(f"[smoke] timing fused_sw  (n={EMP_N}, d={EMP_FEATURES}, "
-        f"P={FUSED_CHUNK}, G={EMP_GROUPS}) f32: kernel {ms:.3f} ms x "
-        f"{FUSED_LAUNCHES} launches = {ms * FUSED_LAUNCHES:.1f} ms, plain "
-        f"{plain_ms:.3f} ms, library none, bound {b_ms:.3f} ms ({b_by}), "
-        f"{b_ms / ms * 100:.1f}% of it")
-    per_perm = (ms - ms_one) / (FUSED_CHUNK - 1)
-    log(f"[smoke] timing fused_sw  split: P=1 (feature phase + 1 "
-        f"permutation) {ms_one:.3f} ms, so ~{per_perm:.4f} ms per further "
-        f"permutation; labels of one chunk "
-        f"{labels_ms:.3f} ms (x {FUSED_LAUNCHES} = "
-        f"{labels_ms * FUSED_LAUNCHES:.1f} ms)")
+    t = {}
+    for p in (1, ONEHOT_CHUNK, chunk):
+        lab = labels[:p].contiguous()
+        ms = cuda_ms(lambda: fops.fused_sw_rows(x, x, lab, lab, inv_gs, 0),
+                     reps=5 if p < chunk else 3)
+        b_ms, b_by = fused_bound_ms(x, x, lab, inv_gs, H100_SXM)
+        feat_floor, cmp_floor = fused_own_floors_ms(x, lab, H100_SXM)
+        floor_ms = max(feat_floor, cmp_floor)
+        check(ms > floor_ms, f"fused_sw {ms:.3f} ms at P = {p} reads under "
+              f"its own floor {floor_ms:.3f} ms: a count is wrong")
+        plain_ms = matmul_ms = None
+        if p > 1:
+            plain_ms = cuda_ms(
+                lambda: fref.fused_sw_ref(x, x, lab, lab, inv_gs, 0),
+                reps=1, warm=lambda: fref.fused_sw_ref(
+                    small, small, small_lab[:p].contiguous(),
+                    small_lab[:p].contiguous(), inv_gs, 0))
+            e2d = fstat.onehot_perm_factors(lab, inv_gs, torch.float32) \
+                .permute(1, 0, 2).reshape(EMP_N, -1).contiguous()
+            matmul_ms = cuda_ms(lambda: torch.matmul(mat2, e2d), reps=1)
+            del e2d
+        t[p] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                    contraction_matmul_ms=matmul_ms)
+        log(f"[smoke] timing fused_sw  (n={EMP_N}, d={EMP_FEATURES}, "
+            f"P={p}, G={EMP_GROUPS}) f32: kernel {ms:.3f} ms, plain "
+            f"{plain_ms} ms, library none, bound {b_ms:.3f} ms ({b_by}, "
+            f"each pair once), {b_ms / ms * 100:.1f}% of it; its own floors "
+            f"{feat_floor:.3f} ms of feature phase at the f32 peak, "
+            f"{cmp_floor:.3f} ms of INT32 compares, {floor_ms / ms * 100:.1f}"
+            f"% of the kernel's time for the larger; contraction-only "
+            f"torch.matmul of mat2 with the (n, P*G) one-hot factor "
+            f"{matmul_ms} ms")
+    del mat2
+    ms, ms_one = t[chunk]["ms"], t[1]["ms"]
+    per_perm = (ms - ms_one) / (chunk - 1)
+    last = EMP_PERMS + 1 - (launches - 1) * chunk
+    log(f"[smoke] timing fused_sw  the plan's chunk {chunk}: {ms:.3f} ms x "
+        f"{launches} launches (the last of {last} slots); P=1 (feature "
+        f"phase + one 128-permutation pass) {ms_one:.3f} ms, so "
+        f"~{per_perm:.4f} ms per further permutation (P={ONEHOT_CHUNK}: "
+        f"{t[ONEHOT_CHUNK]['ms']:.3f} ms); labels of one chunk "
+        f"{labels_ms:.3f} ms (x {launches} = {labels_ms * launches:.1f} ms)")
     return {
         "name": "fused_sw", "route": "cuda", "source": FUSED_SOURCE,
         "replaces": FUSED_REPLACES, "path": "pipeline fused-kernel",
         "launches": paths["fused-kernel"]["fused_sw"],
         "launches_by_path": {k: c["fused_sw"] for k, c in paths.items()},
         "max_abs_err": checked["max_abs_err"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "plain_ms": t[chunk]["plain_ms"], "bound_ms": t[chunk]["bound_ms"],
+        "bound_by": t[chunk]["bound_by"], "library_ms": None,
         "library": "none: no PyTorch call computes features -> s_W",
-        "shape": {"n": EMP_N, "d": EMP_FEATURES, "P": FUSED_CHUNK,
+        "shape": {"n": EMP_N, "d": EMP_FEATURES, "P": chunk,
                   "G": EMP_GROUPS},
+        "contraction_matmul_ms": t[chunk]["contraction_matmul_ms"],
+        "at_p": {str(p): v for p, v in t.items()},
         "max_rel_err": checked["max_rel_err"],
         "max_rel_err_checks": checked["max_rel_err_checks"],
-        "ms_one_perm": ms_one, "labels_ms_per_chunk": labels_ms,
+        "ms_one_perm": ms_one, "ms_per_further_perm": per_perm,
+        "labels_ms_per_chunk": labels_ms,
     }
 
 
@@ -1434,14 +1581,14 @@ def phase_cols_kernel(dev, x_np, grouping):
             # the table padded with zero rows (and zero basis rows) past
             # n_valid = n: its 300-row slabs sum to the unpadded call, and
             # the last one, all pad rows, gives exact zeros
-            pad = COLS_PAD_ROWS - n
+            pad = PAD_ROWS - n
             xq = torch.nn.functional.pad(xp, (0, 0, 0, pad)).contiguous()
             vq = torch.nn.functional.pad(v, (0, 0, 0, pad)).contiguous()
             parts = [fops.fused_sw_rows_cols(
                 xq[lo:lo + SLAB_ROWS].contiguous(), xq,
                 vq[:, lo:lo + SLAB_ROWS].contiguous(), vq, lo,
                 metric=metric, n_valid=n)
-                for lo in range(0, COLS_PAD_ROWS, SLAB_ROWS)]
+                for lo in range(0, PAD_ROWS, SLAB_ROWS)]
             sc_s = torch.stack([q[0] for q in parts]).sum(dim=0)
             rs_s = torch.cat([q[1] for q in parts])
             check(torch.allclose(sc_s, sc, rtol=SLAB_RTOL, atol=ATOL)
@@ -1459,20 +1606,21 @@ def phase_cols_kernel(dev, x_np, grouping):
                   and bool((rs_q[n:] == 0).all()),
                   f"fused_sw_cols {metric}: the padded table (n_valid {n}) "
                   f"!= the unpadded call: rel {rel_err(sc_q, sc):.3e}")
-            bounds = [0, SPLIT[0], SPLIT[0] + SPLIT[1], sum(SPLIT)]
+            split = SPLITS[0]
+            bounds = [0, split[0], split[0] + split[1], sum(split)]
             sc_c = torch.cat([fops.fused_sw_rows_cols(
                 xp, xp, v[a:b].contiguous(), v[a:b].contiguous(), 0,
                 metric=metric)[0] for a, b in zip(bounds, bounds[1:])])
             check(torch.allclose(sc_c, sc, rtol=SPLIT_RTOL, atol=0),
-                  f"fused_sw_cols {metric}: chunks {SPLIT} != one call of "
-                  f"{sum(SPLIT)}: rel {rel_err(sc_c, sc):.3e}")
+                  f"fused_sw_cols {metric}: chunks {split} != one call of "
+                  f"{sum(split)}: rel {rel_err(sc_c, sc):.3e}")
             log(f"[smoke] kernel fused_sw_cols {metric:10s} n={n}: "
-                f"{len(parts)} offset slabs of the {COLS_PAD_ROWS}-row "
+                f"{len(parts)} offset slabs of the {PAD_ROWS}-row "
                 f"padded table sum to the full call (rel "
                 f"{rel_err(sc_s, sc):.3e}; the all-pad slab gives zeros), "
                 f"the padded table in one call equals it (rel "
                 f"{rel_err(sc_q, sc):.3e}), "
-                f"chunks {SPLIT} equal one call (rel "
+                f"chunks {split} equal one call (rel "
                 f"{rel_err(sc_c, sc):.3e})")
     worst_rel = max(worst_rel, cols_odd_checks(dev))
     x, v = emp_cols_chunk(dev, x_np, grouping)
@@ -1682,7 +1830,7 @@ def phase_design_pipeline(dev, x_np, grouping):
         log(f"[smoke] design {tag} plan: {res.plan}")
         want = {c: 0 for c in paths[tag]}
         if tag == "strata":
-            want["fused_sw"] = FUSED_LAUNCHES
+            want["fused_sw"] = fused_plan()[1]
             check(res.method == "pipeline[fused-kernel:cuda+strata]",
                   f"unexpected method {res.method!r}")
         else:
@@ -1852,11 +2000,7 @@ def phase_cols_timings(dev, x_np, grouping, paths, checked):
         "library_ms": None,
         "library": "none: no PyTorch call computes features -> per-column "
                    "forms",
-        "contraction_matmul_ms": matmul_ms, "own_floor_ms": floor_ms,
-        "own_floor_by": "the symmetric half: the larger of the feature "
-                        "phase at the f32 peak and three TF32 products at "
-                        "the dense TF32 peak",
-        "own_floor_feature_ms": feat_floor, "own_floor_products_ms": tc_floor,
+        "contraction_matmul_ms": matmul_ms,
         "shape": {"n": EMP_N, "d": EMP_FEATURES, "P": COLS_CHUNK,
                   "K": DESIGN_K},
         "max_abs_err_over_s_t": checked["max_abs_err_over_s_t"],
@@ -2025,7 +2169,8 @@ def phase_mode_kernels(dev, x_np, grouping):
                   f"from fp64: not {ORACLE_MARGIN}x inside its "
                   f"{SW_MAIN_RTOL} bar")
             log(f"[smoke] fp64 oracle fused_sw {metric} (n,d,P,G)="
-                f"{(EMP_N, EMP_FEATURES, FUSED_CHUNK, EMP_GROUPS)}: the f32 "
+                f"{(EMP_N, EMP_FEATURES, labels.shape[0], EMP_GROUPS)}: the "
+                f"f32 "
                 f"kernel {e_kw:.3e} relative from fp64, its plain version "
                 f"{e_pw:.3e}, {SW_MAIN_RTOL / max(e_pw, 1e-30):.3g}x inside "
                 f"the {SW_MAIN_RTOL} bar")
@@ -2061,7 +2206,7 @@ def phase_mode_kernels(dev, x_np, grouping):
                 "max_abs_err": float((sw - sw_p).abs().max()),
                 "max_rel_err": err, "drift": drift, "plain_ms": plain_ms}
             log(f"[smoke] mode {tag:6s} {metric:10s} fused_sw (n,d,P,G)="
-                f"{(EMP_N, EMP_FEATURES, FUSED_CHUNK, EMP_GROUPS)} s_W "
+                f"{(EMP_N, EMP_FEATURES, labels.shape[0], EMP_GROUPS)} s_W "
                 f"max_rel_err={err:.3e} (limit {SW_MAIN_RTOL}) vs plain "
                 f"({plain_ms:.3f} ms); s_W drift from the f32 kernel "
                 f"{drift:.3e} (the reference's bar {MODE_DRIFT[metric]}, "
@@ -2161,7 +2306,7 @@ def phase_mode_pipeline(dev, x_np, grouping):
             paths[name] = counts
             want = {c: 0 for c in counts}
             want[fops.launch_key(kernel, tag)] = (COLS_LAUNCHES if design
-                                                  else FUSED_LAUNCHES)
+                                                  else fused_plan()[1])
             check(counts == want, f"precision {name} launches {counts} != "
                   f"{want}")
             check(res.plan.startswith(f"{metric}.fusedk.cuda[")
@@ -2173,7 +2318,7 @@ def phase_mode_pipeline(dev, x_np, grouping):
                 base, base_counts, _ = mode_run(dev, f"{name} (f32 base)",
                                                 metric, x, g_dev, None, **kw)
                 want = {c: 0 for c in base_counts}
-                want[kernel] = COLS_LAUNCHES if design else FUSED_LAUNCHES
+                want[kernel] = COLS_LAUNCHES if design else fused_plan()[1]
                 check(base_counts == want,
                       f"f32 jaccard base launches {base_counts} != {want}")
                 pairs = (list(zip(res.terms, base.terms)) if design
@@ -2319,9 +2464,10 @@ def phase_stream(dev):
 
 
 def phase_mode_timings(dev, x_np, grouping, paths, emp, gbps):
-    """Each mode's kernel at its EMP chunk and at P = 1 beside its plain
-    version (timed in phase 14) and its bound both ways; packed beside
-    the f32 jaccard kernel. Returns the kernel rows."""
+    """Each mode's kernel at its EMP chunk (the plan's) and at P = 1, the
+    labels kernel also at P = ONEHOT_CHUNK, beside its plain version
+    (timed in phase 14) and its bound both ways; packed beside the f32
+    jaccard kernel. Returns the kernel rows."""
     import torch
     from repro_torch.core.distance import ROW_METRICS
     from repro_torch.hw import H100_SXM
@@ -2330,6 +2476,7 @@ def phase_mode_timings(dev, x_np, grouping, paths, emp, gbps):
     x, labels, inv_gs = emp_chunk(dev, x_np, grouping)
     _, v = emp_cols_chunk(dev, x_np, grouping)
     one, one_v = labels[:1].contiguous(), v[:1].contiguous()
+    l_onehot = labels[:ONEHOT_CHUNK].contiguous()
     sizes = torch.bincount(labels[0].long(), minlength=EMP_GROUPS).double()
     matches = float((sizes * (sizes - 1) / 2).sum())
     triad = gbps["triad"] * 1e9
@@ -2352,22 +2499,26 @@ def phase_mode_timings(dev, x_np, grouping, paths, emp, gbps):
                 def call(lab, xp=xp, kn=kn, metric=metric):
                     return fops.fused_sw_rows(xp, xp, lab, lab, inv_gs, 0,
                                               metric=metric, **kn)
-                ms = cuda_ms(lambda: call(labels), reps=5)
+                ms = cuda_ms(lambda: call(labels), reps=3)
                 ms_one = cuda_ms(lambda: call(one), reps=5)
-                p, g_or_k = FUSED_CHUNK, EMP_GROUPS
+                ms_onehot = cuda_ms(lambda: call(l_onehot), reps=5)
+                p, g_or_k = labels.shape[0], EMP_GROUPS
             ops_ms, bytes_ms = mode_bounds(kernel, mode, EMP_N, EMP_FEATURES,
                                            p, g_or_k, matches, H100_SXM)
             bytes_ms_triad = bytes_ms * H100_SXM.hbm_bandwidth / triad
             # the labels kernel runs on the CUDA cores, so its bound is
-            # a floor; the cols kernel's product runs on the tensor cores,
-            # whose own floor is its three TF32 products
+            # a floor, and so are its INT32 compares; the cols kernel's
+            # product runs on the tensor cores, whose own floor is its
+            # three TF32 products
             floor = max(bytes_ms, cols_own_floors_ms(x, v, H100_SXM)[1]
-                        if cols else ops_ms)
+                        if cols else max(ops_ms, brute_floor_ms(labels)))
             check(ms > floor, f"{kernel}[{mode}] {ms:.3f} ms reads under "
                   f"its floor {floor:.3f} ms: a count is wrong")
+            extra = ("" if cols else
+                     f", P={ONEHOT_CHUNK} {ms_onehot:.3f} ms")
             log(f"[smoke] timing {kernel}[{mode}] {metric} (n={EMP_N}, "
                 f"d={EMP_FEATURES}, P={p}, {'K' if cols else 'G'}={g_or_k}): "
-                f"kernel {ms:.3f} ms, P=1 {ms_one:.3f} ms; bound by "
+                f"kernel {ms:.3f} ms, P=1 {ms_one:.3f} ms{extra}; bound by "
                 f"operations {ops_ms:.3f} ms, by bytes {bytes_ms:.4f} ms at "
                 f"3.35 TB/s ({bytes_ms_triad:.4f} ms at the measured triad "
                 f"{gbps['triad']:.1f} GB/s); the kernel at "
@@ -2394,6 +2545,7 @@ def phase_mode_timings(dev, x_np, grouping, paths, emp, gbps):
                 "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
                 "bound_bytes_ms_at_measured_triad": bytes_ms_triad,
                 "ms_one_perm": ms_one,
+                **({} if cols else {f"ms_p{ONEHOT_CHUNK}": ms_onehot}),
                 "shape": ({"n": EMP_N, "d": EMP_FEATURES, "P": p, "K": g_or_k}
                           if cols else {"n": EMP_N, "d": EMP_FEATURES,
                                         "P": p, "G": g_or_k}),

@@ -1,6 +1,6 @@
 """Fused distance -> s_W megakernel package.
 
-csrc/fused_sw.cu  the CUDA C++ kernels (D^2 tiles never leave registers):
+csrc/fused_sw.cu  the CUDA C++ kernels (D^2 never reaches device memory):
                   one for labels, one for a dense design's basis
 ops               wrappers with operand checks and dispatch
                   (`fused_sw_rows`, `fused_sw_rows_cols`)

@@ -6,7 +6,7 @@
 //   s_W[p]   = 1/2 sum_{r, c valid, r != c} D2[r, c] * 1[g_r == g_c] / n_{g_r}
 //   rows[r]  = sum_c D2[r, c]                       (the Gower row sums)
 //
-// as per-tile partials (reduced by the caller), and never writes D2 to
+// as per-block partials (reduced by the caller), and never writes D2 to
 // device memory. D2 is the metric's squared distance:
 //
 //   euclidean   max(|x|^2 + |y|^2 - 2 x.y, 0)
@@ -19,46 +19,77 @@
 // the last one finalizes the masked D2 tile, and permutation steps
 // contract it on the MXU with one-hot label blocks into an s_W
 // accumulator flushed at the final step. CUDA blocks run in no order, so
-// here each block of 256 threads owns one 64 x 64 tile and runs both
-// phases itself:
+// here a block of 256 threads owns one row tile of 64 rows and a strip of
+// kSwStripTiles = 16 column tiles, and every permutation of the launch:
 //
-//   feature phase   a loop over 32-feature chunks staged transposed in
-//                   static shared memory; each thread keeps a 4 x 4
-//                   micro-tile of accumulators in registers (the layout of
+//   symmetry        a call over the whole table against itself (the
+//                   sweep's: the same features, the same label storage,
+//                   offset 0) visits the column tiles j >= i only: off-
+//                   diagonal tiles count once at weight 1, diagonal tiles
+//                   keep 1/2, and each off-diagonal tile's column sums go
+//                   to a second set of row-sum partials (the rows of its
+//                   columns), so the row sums stay exact. A slab call with
+//                   an offset visits every tile at 1/2, so disjoint slabs
+//                   still sum to the whole statistic.
+//   feature phase   per tile, once: 32-feature chunks staged transposed in
+//                   shared memory, each thread a 4 x 4 micro-tile of
+//                   accumulators in registers (the layout of
 //                   kernels/distance/csrc/distance.cu, whose metric bodies
 //                   are copied below with a squared finalize)
 //   finalize        D2 and the mask by GLOBAL index, once: slab pad rows,
 //                   row_offset + r >= n_valid, c >= n_valid and the exact
 //                   diagonal row_offset + r == c are zeroed before anything
-//                   reads the tile (the euclidean self pair is not 0 in f32)
-//   row sums        each thread sums its 4 columns per row, then a fixed
-//                   shuffle tree over the 16 threads of a tile row: one
-//                   partial per (row, column tile)
-//   permutations    blocks of 16: the 16 x 64 row labels (with 1/n_g of
-//                   each) and column labels are staged in shared memory;
-//                   each thread adds d2 * w_r over its 16 pairs where
-//                   g_r == g_c, then a fixed shuffle tree per warp and a
-//                   fixed-order sum over the 8 warps: one partial per
-//                   (tile, permutation)
+//                   reads the tile (the euclidean self pair is not 0 in f32);
+//                   the row sums accumulate in registers over the strip,
+//                   and the tile goes, weighted, into shared memory (16 KB)
+//   permutations    brute's pattern (permanova_sw.cu, sw_brute_kernel): in
+//                   passes of kSwPass = 128 permutations, the columns'
+//                   int32 labels (68-int rows) come through a two-stage
+//                   cp.async ring; warp w owns tile rows 8w + [0, 8), lane l
+//                   the permutations l + 32k (k < 4), with their row labels
+//                   and one accumulator per (row, permutation) in
+//                   registers, and per 4 columns does `if (g_r == g_c) acc
+//                   += m` (an integer compare and a predicated add) 128
+//                   times. w[g_r] is applied once per (row, permutation) a
+//                   pass; the 8 warps' sums are added in a fixed order once
+//                   per (tile, pass) into the block's running s_W, which
+//                   lives in its own partial row (one value per (block,
+//                   permutation), read and rewritten by the same thread)
 //
-// The same-group form weights each pair by 1/n_g once, where the reference
-// multiplies sqrt(1/n_g) from both sides; the two differ by rounding only.
-// It does ~G times fewer operations than the one-hot contraction, which
-// on CUDA cores made the permanova_sw matmul kernel ~5x slower than
-// permblock per permutation. Partials are reduced by the caller with
+// What bounded the first port (36.7 ms a 156-permutation chunk on an H100
+// SXM at 700 W, ~18x its bound): every 16 permutations cost a staging pass
+// and 3 barriers, every permutation 16 compare-selects and 4 FMAs a thread
+// and then a 5-step shuffle tree, a shared write and a cross-warp sum, so
+// the reduction cost about as much as the work; the full square was
+// computed; and its partials, one per (64 x 64 tile, permutation), grew
+// with tiles x P and held the plan to chunks of 156, so the feature phase
+// ran 26 times a test. The partials now grow with blocks x P (5,025 x P
+// floats at n = 25,145, a fifth of the labels' 4 n P bytes), so the plan
+// takes chunks of thousands. The same-group form weights each pair by 1/n_g
+// once, where the reference multiplies sqrt(1/n_g) from both sides; the two
+// differ by rounding only. Partials are reduced by the caller with
 // torch.sum (a fixed order): no float atomics, the same bits every run.
 //
 // Bound on an H100 SXM at 700 W at the main path's shape (n = 25,145,
-// d = 128, a chunk of P = 156 permutations, G = 8), each unordered pair
-// once (D2 is symmetric): the feature phase is n(n-1) d = 8.1e10
-// operations (1.2 ms at 67 TFLOP/s f32) and the permutation phase
-// P (n(n-1)/2 + matches) = 5.5e10 (0.8 ms), 2.0 ms in all; the inputs are 13 MB of features and 16 MB of labels (0.01 ms of
-// HBM), so it is bound by operations. Every tile recomputes its D2 for
-// each chunk (the reference's design: the footprint does not grow with
-// n^2); the D2 tile
-// lives only in registers, and the staged tiles make each feature and
-// label read from L2 once per 64 rows or columns. Symmetry (half the
-// tiles) and wgmma are left for later.
+// d = 128, G = 8, the plan's chunk of P = 1,792), each unordered pair
+// once: the feature phase is n(n-1) d = 8.1e10 operations (1.2 ms at 67
+// TFLOP/s f32) and the permutation phase P (n(n-1)/2 + matches) = 6.4e11
+// (9.5 ms); the inputs are 13 MB of features and 180 MB of labels (0.06 ms
+// of HBM), so it is bound by operations, 10.7 ms. This formulation's own
+// floor is brute's: one INT32 compare per (pair, permutation) at 64 lanes
+// x 132 SMs x 1.98 GHz, 33.9 ms, beside the feature phase at the f32 peak.
+// What holds it now: 73.4 ms, 46% of that floor; a further permutation
+// costs 0.0355 ms (brute's 0.0346), two instructions an update (a
+// compare and a predicated add) at about half the rate the schedulers
+// allow, and the feature phase takes ~4.9 ms a launch. Each chunk
+// rebuilds its D2 tiles (the reference's design: the footprint does not
+// grow with n^2). Tried and dropped: the column loop unrolled 4 (barely
+// faster, with spills; unrolled 1, kept, spills nothing) and strips of 32
+// tiles (half the partials, so two launches a 4,000-slot test in place of
+// three, slightly shorter in all, but each launch slower for its longer
+// tail). Tensor cores are not used: the labels form
+// is a compare and an add, and the exact one-hot wgmma product of the
+// permanova_sw matmul kernel loses to it by ~4x a permutation.
 //
 // The dense-design kernel (fused_sw_cols_kernel) replaces
 // src/repro/kernels/fused_sw/kernel.py:338 (fused_sw_cols_pallas, in each
@@ -151,8 +182,9 @@
 //
 // Ragged nr, n, d, P and K are masked here; nothing is padded. Element
 // offsets are 64-bit. Division is nvcc's default IEEE-rounded form (no
-// --use_fast_math). Shared memory: 30,720 B static (labels); 100,352 B
-// dynamic and 512 B static (dense design).
+// --use_fast_math). Shared memory: 90,112 B dynamic and 512 B static
+// (labels); 100,352 B dynamic and 512 B static (dense design). Both
+// kernels run two blocks an SM (<= 128 registers a thread).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC. The C entry point launches on the caller's
@@ -171,15 +203,32 @@ constexpr int kTile = 64;              // tile rows (and cols) per block
 constexpr int kMicro = 4;              // each thread owns 4 x 4 pairs
 constexpr int kChunk = 32;             // features staged per step
 constexpr int kPitch = kTile + 4;      // keeps 16-byte micro-tile reads
-constexpr int kPermBlock = 16;         // permutations staged per step
-constexpr int kMaxGridY = 65535;
+constexpr int kD2Floats = kTile * kTile;
+// the labels kernel (fused_sw_kernel)
+constexpr int kSwStripTiles = 16;      // column tiles a block walks
+constexpr int kSwPass = 128;           // permutations a pass
+constexpr int kSwWarpRows = kTile / kWarps;       // 8 tile rows a warp
+constexpr int kSwLanePerms = kSwPass / 32;        // 4 permutations a lane
+constexpr int kLabLd = kTile + 4;      // a staged label row: 68 ints
+constexpr int kLabStage = kSwPass * kLabLd;       // ints a ring stage
+// dynamic shared memory: two ring stages of column labels (the stage not
+// in flight also holds the feature phase's staged chunks), the weighted
+// D2 tile [r][c] and the warps' sums [warp][p]
+constexpr int kSwSmemBytes =
+    (2 * kLabStage + kD2Floats + kWarps * kSwPass) * 4;   // 90,112
+static_assert(kSwPass % 32 == 0 && kTile % kWarps == 0 && kTile % 4 == 0,
+              "whole lanes, warps and vectors");
+static_assert(kThreads % kTile == 0 && kSwPass * kTile % kThreads == 0,
+              "a thread copies one column of the staged labels");
+static_assert(kLabStage >= 2 * kChunk * kPitch,
+              "a ring stage holds the feature staging");
+static_assert(kThreads >= kSwPass, "a thread sums a permutation");
 // the dense-design kernel (fused_sw_cols_kernel)
 constexpr int kStripTiles = 2;         // column tiles a block sums over
 constexpr int kQPass = 128;            // (permutation, column) pairs a pass
 constexpr int kKc = 16;                // basis columns a ring stage (2 k8)
 constexpr int kVLd = kQPass + 8;       // a staged basis row: 136 floats
 constexpr int kColsStages = 4;         // cp.async ring depth
-constexpr int kD2Floats = kTile * kTile;
 // a D2 tile as wgmma's B operand: K-major (the columns c of a row r), no
 // swizzle, 8 x 16-byte core matrices; the two along k kLbo bytes apart,
 // the 8-row groups kSbo apart, a k-step's 64 rows x 8 columns kBStep
@@ -200,6 +249,22 @@ static_assert(kRingFloats >= kStripTiles * 16 * kTile,
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
+}
+
+// 4-byte asynchronous copy global -> shared; src_bytes 0 writes a zero and
+// reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // The metric bodies of distance.cu (stat: the per-row statistic; step: one
@@ -380,6 +445,43 @@ __device__ __forceinline__ void feature_tile(
   }
 }
 
+// A block's tiles, for strips of S column tiles (both kernels). A
+// symmetric call (the whole table against itself) visits the column tiles
+// j >= i only: its blocks are the strips of S column tiles that start at
+// the diagonal and every S tiles after it, numbered strip offset first (c
+// = 0 for every row tile, then c = 1, ...). A slab call visits every
+// column tile: block b is row tile b % nti and strip b / nti. `slot`
+// numbers the block's row-sum partial: its strip (offset).
+struct TileBlock {
+  int64_t ti, jt0, slot;
+};
+
+template <int S>
+__host__ __device__ inline int64_t strip_count(int64_t ntj) {
+  return (ntj + S - 1) / S;
+}
+
+template <int S>
+__host__ __device__ inline int64_t n_blocks(int64_t nti, int64_t ntj,
+                                            int sym) {
+  if (!sym) return nti * strip_count<S>(ntj);
+  int64_t total = 0;
+  for (int64_t c = 0; c < strip_count<S>(ntj); ++c) total += ntj - c * S;
+  return total;
+}
+
+template <int S>
+__device__ __forceinline__ TileBlock tile_block(int64_t b, int64_t nti,
+                                                int64_t ntj, int sym) {
+  if (!sym) return {b % nti, (b / nti) * S, b / nti};
+  int64_t c = 0;
+  while (b >= ntj - c * S) {
+    b -= ntj - c * S;
+    ++c;
+  }
+  return {b, b + c * S, c};
+}
+
 // Row ii of a thread's D2 micro-tile summed over the tile's 64 columns: the
 // thread's 4, then a fixed shuffle tree over the 16 threads of the tile
 // row. The result is valid at tx == 0.
@@ -392,13 +494,24 @@ __device__ __forceinline__ float tile_row_sum(
   return s;
 }
 
-// Grid (ceil(n / 64), ceil(nr / 64)); block (bx, by) owns slab rows
-// by*64 + [0, 64) and columns bx*64 + [0, 64). Thread (ty, tx) owns rows
-// 4 ty + [0, 4) and columns 4 tx + [0, 4) of the tile.
-// sw_part: (ceil(nr/64) * ceil(n/64), P), row-major by tile (by, bx).
-// rs_part: (nr, ceil(n/64)).
+__device__ __forceinline__ float row_weight(int g, const float* w,
+                                            int n_groups) {
+  return (g >= 0 && g < n_groups) ? __ldg(w + g) : 0.f;
+}
+
+// Grid: n_blocks<kSwStripTiles>(nti, ntj, sym) blocks of 256 threads.
+// Block (ti, jt0) owns slab rows ti*64 + [0, 64), the column tiles jt0 +
+// [0, kSwStripTiles) and every permutation. Per tile: the feature phase
+// (thread (ty, tx) holds rows 4 ty + [0, 4) x columns 4 tx + [0, 4)), the
+// weighted D2 tile into shared memory, then the tile's passes; the steps
+// s = t * n_pass + q (tile t, pass q) take their column labels from ring
+// stage s % 2, copied during step s - 1.
+// sw_part: (blocks, P), one running s_W per (block, permutation).
+// rs_part (zeroed by the caller): row sums at [slot, i] for slots <
+// n_strips, and for a symmetric call the column sums of the off-diagonal
+// tiles of row tile ti at [n_strips + ti, j].
 template <class M, class L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_sw_kernel(const typename L::T* __restrict__ xr,
                 const typename L::T* __restrict__ xc,
                 const float* __restrict__ scale,
@@ -407,102 +520,168 @@ fused_sw_kernel(const typename L::T* __restrict__ xr,
                 const float* __restrict__ inv_gs,
                 float* __restrict__ sw_part, float* __restrict__ rs_part,
                 int64_t nr, int64_t n, int64_t d, int64_t n_perms,
-                int n_groups, int64_t row_offset, int64_t n_valid) {
-  __shared__ __align__(16) float rs[kChunk][kPitch];
-  __shared__ __align__(16) float cs[kChunk][kPitch];
+                int n_groups, int64_t row_offset, int64_t n_valid, int sym) {
+  extern __shared__ __align__(16) int sw_smem[];
+  float* d2s = reinterpret_cast<float*>(sw_smem + 2 * kLabStage);  // [r][c]
+  float* red = d2s + kD2Floats;                                 // [warp][p]
   __shared__ float row_stat[kTile];
   __shared__ float col_stat[kTile];
-  __shared__ __align__(16) int lab_r[kPermBlock][kTile];
-  __shared__ __align__(16) float w_r[kPermBlock][kTile];
-  __shared__ __align__(16) int lab_c[kPermBlock][kTile];
-  __shared__ float warp_sum[kWarps][kPermBlock];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int64_t i0 = (int64_t)blockIdx.y * kTile;   // slab-local rows
-  const int64_t j0 = (int64_t)blockIdx.x * kTile;
-  const int64_t ntj = gridDim.x;
-  const int64_t tile = (int64_t)blockIdx.y * ntj + blockIdx.x;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int lane = tid % 32, warp = tid / 32;
+  const int64_t nti = (nr + kTile - 1) / kTile;
+  const int64_t ntj = (n + kTile - 1) / kTile;
+  const int64_t n_strips = strip_count<kSwStripTiles>(ntj);
+  const TileBlock blk = tile_block<kSwStripTiles>(blockIdx.x, nti, ntj, sym);
+  const int n_t = (int)min64(kSwStripTiles, ntj - blk.jt0);
+  const int64_t i0 = blk.ti * kTile;   // slab-local rows
+  float* __restrict__ out = sw_part + (int64_t)blockIdx.x * n_perms;
 
-  // ---- feature phase and finalize: the masked D2 tile in registers ------
-  float acc[kMicro][kMicro];
-  feature_tile<M, L>(xr, xc, L::scale(scale), nr, n, d, i0, j0,
-                     row_offset, n_valid, rs, cs, row_stat, col_stat, acc);
+  // A row tile made only of pad rows (an offset slab past n_valid) has
+  // nothing to add (and in a symmetric call neither have its columns).
+  if (row_offset + i0 >= n_valid) {
+    for (int64_t p = tid; p < n_perms; p += kThreads) out[p] = 0.f;
+    return;
+  }
 
-  // ---- Gower row sums: one partial per (row, column tile) ----------------
+  const int64_t n_pass = (n_perms + kSwPass - 1) / kSwPass;
+  const int64_t steps = n_t * n_pass;
+  // Start the copies of step s's column labels into its ring stage: thread
+  // tid copies column tid % 64 of permutations tid / 64 + 4u. A label past
+  // P (whose row labels are -1) or past n (whose D2 is 0) is a zero, which
+  // adds nothing.
+  constexpr int kCopyPerms = kThreads / kTile;   // 4 permutations a sweep
+  auto start_copies = [&](int64_t s) {
+    const int64_t jt = blk.jt0 + s / n_pass, p0 = (s % n_pass) * kSwPass;
+    const int c = tid % kTile, q0 = tid / kTile;
+    const int64_t j = jt * kTile + c;
+    int* dst = sw_smem + (s & 1) * kLabStage + q0 * kLabLd + c;
+    const int* src = g_cols + (p0 + q0) * n + j;
+#pragma unroll 4
+    for (int u = 0; u < kSwPass / kCopyPerms; ++u) {
+      const bool ok = j < n && p0 + q0 + kCopyPerms * u < n_perms;
+      cp_async4(dst + kCopyPerms * u * kLabLd, ok ? src : g_cols,
+                ok ? 4 : 0);
+      src += kCopyPerms * n;
+    }
+  };
+  start_copies(0);
+  cp_async_commit();
+
+  const float xscale = L::scale(scale);
+  const int rw = warp * kSwWarpRows;   // the warp's first tile row
+  float rsum[kMicro] = {0.f, 0.f, 0.f, 0.f};
+  for (int t = 0; t < n_t; ++t) {
+    const int64_t jt = blk.jt0 + t;
+    // ---- feature phase and finalize: the masked D2 tile in registers ----
+    // Staged in the ring stage that is not in flight (step t * n_pass - 1's,
+    // whose readers finished before that step's last barrier).
+    float* stage = reinterpret_cast<float*>(
+        sw_smem + ((t * n_pass + 1) & 1) * kLabStage);
+    auto& rs = *reinterpret_cast<float (*)[kChunk][kPitch]>(stage);
+    auto& cs = *reinterpret_cast<float (*)[kChunk][kPitch]>(stage +
+                                                           kChunk * kPitch);
+    float d2[kMicro][kMicro];
+    feature_tile<M, L>(xr, xc, xscale, nr, n, d, i0, jt * kTile, row_offset,
+                       n_valid, rs, cs, row_stat, col_stat, d2);
+#pragma unroll
+    for (int ii = 0; ii < kMicro; ++ii) rsum[ii] += tile_row_sum(d2, ii);
+    // Weighted as it is stored: 1/2 where both orders of a pair are
+    // visited (every tile of a slab call, the diagonal tile of a symmetric
+    // one), 1 for a symmetric call's off-diagonal tiles, which stand for
+    // their mirror images too; both weights are exact.
+    const bool mirrored = sym && jt != blk.ti;
+    const float wt = mirrored ? 1.f : 0.5f;
+#pragma unroll
+    for (int ii = 0; ii < kMicro; ++ii)
+      *reinterpret_cast<float4*>(d2s + (ty * kMicro + ii) * kTile +
+                                 tx * kMicro) =
+          make_float4(wt * d2[ii][0], wt * d2[ii][1], wt * d2[ii][2],
+                      wt * d2[ii][3]);
+
+    // ---- permutation phase: the tile's passes ------------------------------
+    for (int64_t q = 0; q < n_pass; ++q) {
+      const int64_t s = t * n_pass + q;
+      cp_async_wait<0>();
+      __syncthreads();   // step s's labels and the D2 tile are complete;
+                         // step s - 1's readers of the other stage are done
+      if (q == 0 && mirrored && tid < kTile) {
+        // an off-diagonal tile's column sums are its columns' rows' sums
+        const int64_t j = jt * kTile + tid;
+        float cs_sum = 0.f;
+        for (int r = 0; r < kTile; ++r) cs_sum += d2s[r * kTile + tid];
+        if (j < n) rs_part[(n_strips + blk.ti) * n + j] = cs_sum;
+      }
+      if (s + 1 < steps) start_copies(s + 1);
+      cp_async_commit();
+
+      const int64_t p0 = q * kSwPass;
+      // row labels of (tile row rw + r, permutation p0 + lane + 32k); -1
+      // past nr or P
+      int gr[kSwWarpRows][kSwLanePerms];
+      float acc[kSwWarpRows][kSwLanePerms];
+#pragma unroll
+      for (int k = 0; k < kSwLanePerms; ++k) {
+        const int64_t p = p0 + lane + 32 * k;
+        const int* src = g_rows + p * nr + i0 + rw;
+#pragma unroll
+        for (int r = 0; r < kSwWarpRows; ++r) {
+          gr[r][k] = p < n_perms && i0 + rw + r < nr ? __ldg(src + r) : -1;
+          acc[r][k] = 0.f;
+        }
+      }
+      const float* ms = d2s + rw * kTile;
+      const int* lab = sw_smem + (s & 1) * kLabStage + lane * kLabLd;
+#pragma unroll 1
+      for (int c = 0; c < kTile; c += 4) {
+        int4 gc[kSwLanePerms];
+#pragma unroll
+        for (int k = 0; k < kSwLanePerms; ++k)
+          gc[k] = *reinterpret_cast<const int4*>(lab + 32 * k * kLabLd + c);
+#pragma unroll
+        for (int r = 0; r < kSwWarpRows; ++r) {
+          const float4 m =
+              *reinterpret_cast<const float4*>(ms + r * kTile + c);
+#pragma unroll
+          for (int k = 0; k < kSwLanePerms; ++k) {
+            const int g = gr[r][k];
+            if (g == gc[k].x) acc[r][k] += m.x;
+            if (g == gc[k].y) acc[r][k] += m.y;
+            if (g == gc[k].z) acc[r][k] += m.z;
+            if (g == gc[k].w) acc[r][k] += m.w;
+          }
+        }
+      }
+      // w[g_r] once per (row, permutation), then the warps in a fixed
+      // order into the block's running s_W
+#pragma unroll
+      for (int k = 0; k < kSwLanePerms; ++k) {
+        float v = 0.f;
+#pragma unroll
+        for (int r = 0; r < kSwWarpRows; ++r)
+          v = fmaf(acc[r][k], row_weight(gr[r][k], inv_gs, n_groups), v);
+        red[warp * kSwPass + lane + 32 * k] = v;
+      }
+      __syncthreads();
+      const int64_t p = p0 + tid;
+      if (tid < kSwPass && p < n_perms) {
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) v += red[w * kSwPass + tid];
+        out[p] = (t == 0 ? 0.f : out[p]) + v;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- Gower row sums: the strip's rows ------------------------------------
 #pragma unroll
   for (int ii = 0; ii < kMicro; ++ii) {
-    const float s = tile_row_sum(acc, ii);
     const int64_t i = i0 + ty * kMicro + ii;
-    if (tx == 0 && i < nr) rs_part[i * ntj + blockIdx.x] = s;
-  }
-
-  // ---- permutation phase: one partial per (tile, permutation) ------------
-  for (int64_t p0 = 0; p0 < n_perms; p0 += kPermBlock) {
-    const int pn = (int)min64(kPermBlock, n_perms - p0);
-    __syncthreads();  // the previous block's readers are done
-    for (int e = threadIdx.x; e < kPermBlock * kTile; e += kThreads) {
-      const int p = e / kTile, r = e % kTile;
-      int gr = 0, gc = -1;
-      float w = 0.f;
-      if (p < pn) {
-        const int64_t i = i0 + r, j = j0 + r;
-        if (i < nr) {
-          gr = g_rows[(p0 + p) * nr + i];
-          w = (gr >= 0 && gr < n_groups) ? inv_gs[gr] : 0.f;
-        }
-        if (j < n) gc = g_cols[(p0 + p) * n + j];
-      }
-      lab_r[p][r] = gr;
-      w_r[p][r] = w;
-      lab_c[p][r] = gc;
-    }
-    __syncthreads();
-    for (int p = 0; p < pn; ++p) {
-      const int4 gr = *reinterpret_cast<const int4*>(&lab_r[p][ty * kMicro]);
-      const float4 wr = *reinterpret_cast<const float4*>(&w_r[p][ty * kMicro]);
-      const int4 gc = *reinterpret_cast<const int4*>(&lab_c[p][tx * kMicro]);
-      const int grv[kMicro] = {gr.x, gr.y, gr.z, gr.w};
-      const float wv[kMicro] = {wr.x, wr.y, wr.z, wr.w};
-      const int gcv[kMicro] = {gc.x, gc.y, gc.z, gc.w};
-      float s = 0.f;
-#pragma unroll
-      for (int ii = 0; ii < kMicro; ++ii) {
-        float t = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < kMicro; ++jj)
-          t += grv[ii] == gcv[jj] ? acc[ii][jj] : 0.f;
-        s = fmaf(t, wv[ii], s);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      if (lane == 0) warp_sum[warp][p] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < pn) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += warp_sum[w][threadIdx.x];
-      sw_part[tile * n_perms + p0 + threadIdx.x] = 0.5f * s;
-    }
+    if (tx == 0 && i < nr) rs_part[blk.slot * nr + i] = rsum[ii];
   }
 }
 
-// 4-byte asynchronous copy global -> shared; src_bytes 0 writes a zero and
-// reads nothing.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 // x rounded to TF32, round to nearest with ties away (a .b32 pattern whose
 // low 13 bits are zero).
 __device__ __forceinline__ uint32_t tf32_round(float x) {
@@ -564,42 +743,7 @@ __device__ __forceinline__ int b_offset(int r, int c) {
          (r % 8) * 16 + (c % 4) * 4;
 }
 
-// The block's tiles. A symmetric call (the whole table against itself)
-// visits the column tiles j >= i only: its blocks are the strips of
-// kStripTiles column tiles that start at the diagonal and every kStripTiles
-// tiles after it, numbered strip offset first (c = 0 for every row tile,
-// then c = 1, ...). A slab call visits every column tile: block b is row
-// tile b % nti and strip b / nti. `slot` numbers the block's row-sum
-// partial: its strip (offset).
-struct ColsBlock {
-  int64_t ti, jt0, slot;
-};
-
-__host__ __device__ inline int64_t cols_strips(int64_t ntj) {
-  return (ntj + kStripTiles - 1) / kStripTiles;
-}
-
-__host__ __device__ inline int64_t cols_blocks(int64_t nti, int64_t ntj,
-                                               int sym) {
-  if (!sym) return nti * cols_strips(ntj);
-  int64_t total = 0;
-  for (int64_t c = 0; c < cols_strips(ntj); ++c)
-    total += ntj - c * kStripTiles;
-  return total;
-}
-
-__device__ __forceinline__ ColsBlock cols_block(int64_t b, int64_t nti,
-                                                int64_t ntj, int sym) {
-  if (!sym) return {b % nti, (b / nti) * kStripTiles, b / nti};
-  int64_t c = 0;
-  while (b >= ntj - c * kStripTiles) {
-    b -= ntj - c * kStripTiles;
-    ++c;
-  }
-  return {b, b + c * kStripTiles, c};
-}
-
-// Grid: cols_blocks(nti, ntj, sym) blocks of 256 threads (two
+// Grid: n_blocks<kStripTiles>(nti, ntj, sym) blocks of 256 threads (two
 // warpgroups). Block (ti, jt0) owns slab rows ti*64 + [0, 64) and column
 // tiles jt0 + [0, kStripTiles). Q = P * K (permutation, column) pairs,
 // q = p * K + k.
@@ -631,8 +775,8 @@ fused_sw_cols_kernel(const typename L::T* __restrict__ xr,
   const int lane = tid % 32, warp = tid / 32;
   const int64_t nti = (nr + kTile - 1) / kTile;
   const int64_t ntj = (n + kTile - 1) / kTile;
-  const int64_t n_strips = cols_strips(ntj);
-  const ColsBlock blk = cols_block(blockIdx.x, nti, ntj, sym);
+  const int64_t n_strips = strip_count<kStripTiles>(ntj);
+  const TileBlock blk = tile_block<kStripTiles>(blockIdx.x, nti, ntj, sym);
   const int n_t = (int)min64(kStripTiles, ntj - blk.jt0);
   const int64_t i0 = blk.ti * kTile;   // slab-local rows
   const int64_t nq = n_perms * n_cols;
@@ -826,14 +970,19 @@ int launch(const void* xr, const void* xc, const void* scale,
            const void* g_rows, const void* g_cols, const void* inv_gs,
            void* sw_part, void* rs_part, int64_t nr, int64_t n, int64_t d,
            int64_t n_perms, int n_groups, int64_t row_offset,
-           int64_t n_valid, cudaStream_t stream) {
+           int64_t n_valid, int sym, cudaStream_t stream) {
   using T = typename L::T;
-  const dim3 grid((unsigned)((n + kTile - 1) / kTile),
-                  (unsigned)((nr + kTile - 1) / kTile));
-  fused_sw_kernel<M, L><<<grid, kThreads, 0, stream>>>(
+  const int64_t blocks = n_blocks<kSwStripTiles>(
+      (nr + kTile - 1) / kTile, (n + kTile - 1) / kTile, sym);
+  cudaFuncSetAttribute(fused_sw_kernel<M, L>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSwSmemBytes);
+  fused_sw_kernel<M, L><<<(unsigned)blocks, kThreads, kSwSmemBytes,
+                          stream>>>(
       (const T*)xr, (const T*)xc, (const float*)scale, (const int*)g_rows,
       (const int*)g_cols, (const float*)inv_gs, (float*)sw_part,
-      (float*)rs_part, nr, n, d, n_perms, n_groups, row_offset, n_valid);
+      (float*)rs_part, nr, n, d, n_perms, n_groups, row_offset, n_valid,
+      sym);
   return (int)cudaGetLastError();
 }
 
@@ -844,8 +993,8 @@ int launch_cols(const void* xr, const void* xc, const void* scale,
                 int64_t n_perms, int64_t n_cols, int64_t row_offset,
                 int64_t n_valid, int sym, cudaStream_t stream) {
   using T = typename L::T;
-  const int64_t blocks = cols_blocks((nr + kTile - 1) / kTile,
-                                     (n + kTile - 1) / kTile, sym);
+  const int64_t blocks = n_blocks<kStripTiles>((nr + kTile - 1) / kTile,
+                                                (n + kTile - 1) / kTile, sym);
   cudaFuncSetAttribute(fused_sw_cols_kernel<M, L>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kColsSmemBytes);
@@ -889,11 +1038,12 @@ int launch_cols_kind(int kind, A... a) {
 
 extern "C" {
 
-// out: kTile, kPermBlock, kThreads.
+// out: kTile, kSwPass, kThreads, kSwStripTiles.
 void fused_sw_config(int* out) {
   out[0] = kTile;
-  out[1] = kPermBlock;
+  out[1] = kSwPass;
   out[2] = kThreads;
+  out[3] = kSwStripTiles;
 }
 
 // out: kStripTiles, kQPass, kKc.
@@ -907,39 +1057,48 @@ void fused_sw_cols_config(int* out) {
 // e4m3 (scale: one f32 on the device, the dequantization factor), 3 packed
 // 32-bit presence words (jaccard only; d counts words). xr (nr, d), xc (n,
 // d) of the mode's type; g_rows (P, nr), g_cols (P, n) int32; inv_gs (G,)
-// f32. sw_part (ceil(nr/64) * ceil(n/64), P) and rs_part (nr, ceil(n/64))
-// f32.
+// f32. symmetric: 1 when the call covers the whole table against itself
+// (xr and xc, g_rows and g_cols the same storage, nr == n, row_offset 0),
+// which visits the column tiles j >= i only. sw_part (blocks, P) f32,
+// blocks = nti * n_strips for a slab and sum_{c < n_strips} (ntj - c
+// kSwStripTiles) for a symmetric call (nti = ceil(nr / 64), ntj = ceil(n /
+// 64), n_strips = ceil(ntj / kSwStripTiles)); rs_part (n_strips, nr) f32
+// for a slab, (n_strips + nti, n) for a symmetric call, zeroed by the
+// caller.
 int fused_sw_launch(int kind, int mode, const void* xr, const void* xc,
                     const void* scale, const void* g_rows,
                     const void* g_cols, const void* inv_gs, void* sw_part,
                     void* rs_part, long long nr, long long n, long long d,
                     long long n_perms, int n_groups, long long row_offset,
-                    long long n_valid, void* stream) {
+                    long long n_valid, int symmetric, void* stream) {
+  const long long nti = (nr + kTile - 1) / kTile;
+  const long long ntj = (n + kTile - 1) / kTile;
   if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_groups < 1 ||
       row_offset < 0 || n_valid < 1 || n_valid > n ||
-      (nr + kTile - 1) / kTile > kMaxGridY ||
-      (n + kTile - 1) / kTile > 0x7fffffffLL)
+      (symmetric && (nr != n || row_offset != 0)) ||
+      n_blocks<kSwStripTiles>(nti, ntj, symmetric) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:
       return launch_kind<F32In>(kind, xr, xc, scale, g_rows, g_cols, inv_gs,
                                 sw_part, rs_part, nr, n, d, n_perms,
-                                n_groups, row_offset, n_valid, s);
+                                n_groups, row_offset, n_valid, symmetric, s);
     case 1:
       return launch_kind<Bf16In>(kind, xr, xc, scale, g_rows, g_cols,
                                  inv_gs, sw_part, rs_part, nr, n, d, n_perms,
-                                 n_groups, row_offset, n_valid, s);
+                                 n_groups, row_offset, n_valid, symmetric,
+                                 s);
     case 2:
       if (scale == nullptr) return (int)cudaErrorInvalidValue;
       return launch_kind<Fp8In>(kind, xr, xc, scale, g_rows, g_cols, inv_gs,
                                 sw_part, rs_part, nr, n, d, n_perms,
-                                n_groups, row_offset, n_valid, s);
+                                n_groups, row_offset, n_valid, symmetric, s);
     case 3:
       if (kind != 2) return (int)cudaErrorInvalidValue;
       return launch<PackedJaccard, PackedIn>(
           xr, xc, scale, g_rows, g_cols, inv_gs, sw_part, rs_part, nr, n, d,
-          n_perms, n_groups, row_offset, n_valid, s);
+          n_perms, n_groups, row_offset, n_valid, symmetric, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -965,7 +1124,7 @@ int fused_sw_cols_launch(int kind, int mode, const void* xr, const void* xc,
   if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_cols < 1 ||
       row_offset < 0 || n_valid < 1 || n_valid > n ||
       (symmetric && (nr != n || row_offset != 0)) ||
-      cols_blocks(nti, ntj, symmetric) > 0x7fffffffLL)
+      n_blocks<kStripTiles>(nti, ntj, symmetric) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {

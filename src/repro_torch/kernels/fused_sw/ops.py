@@ -3,7 +3,7 @@
 Twin of `repro/kernels/fused_sw/ops.py`. `fused_sw_rows` is the streaming
 unit of the pipeline's fused-kernel bridge: s_W partials and Gower row
 sums for one permutation chunk over one row slab, with the D^2 tiles never
-leaving the kernel's registers; `fused_sw_rows_cols` is the same unit for
+reaching device memory; `fused_sw_rows_cols` is the same unit for
 a dense design (per-column quadratic forms of a permuted basis). The slab
 is the whole table on one card; `row_offset` keeps the sharding contract
 (partials of disjoint slabs sum to the full statistic). Each checks its
@@ -56,9 +56,10 @@ def launch_key(kernel: str, mode: str) -> str:
 LAUNCHES = {launch_key(k, m): 0 for k in KERNELS for m in MODES}
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_sw.cu"
 TILE = 64                   # kTile in the source
+SW_STRIP_TILES = 16         # kSwStripTiles: column tiles per labels block
+SW_PASS = 128               # kSwPass: permutations a labels pass
 STRIP_TILES = 2             # kStripTiles: column tiles per cols block
 Q_PASS = 128                # kQPass: (permutation, column) pairs a pass
-_MAX_GRID_Y = 65535
 _lib = None
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -67,7 +68,7 @@ _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     "fused_sw_config": ([_PTR], None),
     "fused_sw_launch": ([_I32, _I32] + [_PTR] * 8 + [_I64] * 4
-                        + [_I32, _I64, _I64, _PTR], _I32),
+                        + [_I32, _I64, _I64, _I32, _PTR], _I32),
     "fused_sw_cols_config": ([_PTR], None),
     "fused_sw_cols_launch": ([_I32, _I32] + [_PTR] * 7 + [_I64] * 7
                              + [_I32, _PTR], _I32),
@@ -76,29 +77,31 @@ SIGNATURES = {
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library. The
-    partial buffers are sized from TILE, so a library compiled with
-    another tile is refused."""
+    partial buffers are sized from TILE and the strips, so a library
+    compiled with other constants is refused."""
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
         for name, (argtypes, restype) in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
-        tile = kernel_config(lib)["tile"]
-        strip = cols_kernel_config(lib)["strip_tiles"]
-        if (tile, strip) != (TILE, STRIP_TILES):
-            raise RuntimeError(f"{SOURCE.name} was compiled with kTile = "
-                               f"{tile}, kStripTiles = {strip}; ops has "
-                               f"{TILE}, {STRIP_TILES}")
+        cfg = kernel_config(lib)
+        got = (cfg["tile"], cfg["strip_tiles"],
+               cols_kernel_config(lib)["strip_tiles"])
+        if got != (TILE, SW_STRIP_TILES, STRIP_TILES):
+            raise RuntimeError(f"{SOURCE.name} was compiled with (kTile, "
+                               f"kSwStripTiles, kStripTiles) = {got}; ops "
+                               f"has {(TILE, SW_STRIP_TILES, STRIP_TILES)}")
         _lib = lib
     return _lib
 
 
 def kernel_config(lib: ctypes.CDLL) -> dict:
-    """The tile constants compiled into the library."""
-    out = (ctypes.c_int * 3)()
+    """The labels kernel's constants compiled into the library."""
+    out = (ctypes.c_int * 4)()
     lib.fused_sw_config(out)
-    return {"tile": out[0], "perm_block": out[1], "threads": out[2]}
+    return {"tile": out[0], "perm_pass": out[1], "threads": out[2],
+            "strip_tiles": out[3]}
 
 
 def cols_kernel_config(lib: ctypes.CDLL) -> dict:
@@ -108,55 +111,66 @@ def cols_kernel_config(lib: ctypes.CDLL) -> dict:
     return {"strip_tiles": out[0], "q_pass": out[1], "k_chunk": out[2]}
 
 
-def partial_shapes(nr: int, n: int, n_perms: int):
-    """Shapes of the kernel's partials: s_W per (64 x 64 tile,
-    permutation) and row sums per (row, column tile)."""
-    nti, ntj = -(-nr // TILE), -(-n // TILE)
-    return (nti * ntj, n_perms), (nr, ntj)
+def _strips(n: int, strip: int = STRIP_TILES) -> int:
+    """Strips of `strip` column tiles covering n columns."""
+    return -(-(-(-n // TILE)) // strip)
 
 
-def alloc_workspace(nr: int, n: int, n_perms: int, device) -> tuple:
+def _n_blocks(nr: int, n: int, symmetric: bool, strip: int) -> int:
+    """Blocks of a kernel whose block owns a row tile and a strip of
+    `strip` column tiles: a slab call launches one per (row tile, strip);
+    a symmetric call (the whole table against itself) one per strip at or
+    past the diagonal, the strips starting at the diagonal tile and every
+    `strip` tiles after it."""
+    ntj = -(-n // TILE)
+    if not symmetric:
+        return -(-nr // TILE) * _strips(n, strip)
+    return sum(ntj - c * strip for c in range(_strips(n, strip)))
+
+
+def _row_sum_slots(nr: int, n: int, symmetric: bool, strip: int) -> int:
+    """Row-sum partial rows: one per strip and, for a symmetric call, one
+    per row tile for its off-diagonal tiles' column sums."""
+    return _strips(n, strip) + (-(-nr // TILE) if symmetric else 0)
+
+
+def partial_shapes(nr: int, n: int, n_perms: int, symmetric=None):
+    """Shapes of the labels kernel's partials: s_W per (block,
+    permutation), a block being a row tile and a strip of SW_STRIP_TILES
+    column tiles (_n_blocks), and the row sums per (strip slot, row) and,
+    for a symmetric call, per (row tile, column). `symmetric` defaults to
+    nr == n (the sweep's whole-table call)."""
+    sym = nr == n if symmetric is None else bool(symmetric)
+    return ((_n_blocks(nr, n, sym, SW_STRIP_TILES), n_perms),
+            (_row_sum_slots(nr, n, sym, SW_STRIP_TILES), nr))
+
+
+def alloc_workspace(nr: int, n: int, n_perms: int, device,
+                    symmetric=None) -> tuple:
     """Partial buffers for launches of up to n_perms permutations over an
     nr-row slab, allocated once and reused by every chunk of a sweep."""
-    sw_shape, rs_shape = partial_shapes(nr, n, n_perms)
+    sw_shape, rs_shape = partial_shapes(nr, n, n_perms, symmetric)
     return (torch.empty(sw_shape[0] * sw_shape[1], dtype=torch.float32,
                         device=device),
             torch.empty(rs_shape[0] * rs_shape[1], dtype=torch.float32,
                         device=device))
 
 
-def workspace_bytes(nr: int, n: int, n_perms: int) -> int:
-    (a, b), (c, e) = partial_shapes(nr, n, n_perms)
+def workspace_bytes(nr: int, n: int, n_perms: int, symmetric=None) -> int:
+    (a, b), (c, e) = partial_shapes(nr, n, n_perms, symmetric)
     return 4 * (a * b + c * e)
-
-
-def _strips(n: int) -> int:
-    """Strips of STRIP_TILES column tiles covering n columns."""
-    return -(-(-(-n // TILE)) // STRIP_TILES)
-
-
-def _n_cols_blocks(nr: int, n: int, symmetric: bool) -> int:
-    """Blocks of the dense-design kernel: a slab call launches one per (row
-    tile, strip of STRIP_TILES column tiles); a symmetric call (the whole
-    table against itself) one per strip at or past the diagonal, the
-    strips starting at the diagonal tile and every STRIP_TILES tiles
-    after it."""
-    ntj = -(-n // TILE)
-    if not symmetric:
-        return -(-nr // TILE) * _strips(n)
-    return sum(ntj - c * STRIP_TILES for c in range(_strips(n)))
 
 
 def cols_partial_shapes(nr: int, n: int, n_perms: int, n_cols: int,
                         symmetric=None):
     """Shapes of the dense-design kernel's partials: one (P * K) row per
-    block (_n_cols_blocks) and the row sums, one per (strip slot, row) and,
+    block (_n_blocks) and the row sums, one per (strip slot, row) and,
     for a symmetric call, one per (row tile, column) from its
     off-diagonal tiles' column sums. `symmetric` defaults to nr == n (the
     design sweep's whole-table call)."""
     sym = nr == n if symmetric is None else bool(symmetric)
-    slots = _strips(n) + (-(-nr // TILE) if sym else 0)
-    return (_n_cols_blocks(nr, n, sym), n_perms * n_cols), (slots, nr)
+    return ((_n_blocks(nr, n, sym, STRIP_TILES), n_perms * n_cols),
+            (_row_sum_slots(nr, n, sym, STRIP_TILES), nr))
 
 
 def alloc_cols_workspace(nr: int, n: int, n_perms: int, n_cols: int,
@@ -227,8 +241,8 @@ def _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid):
         raise TypeError("inv_gs must be a non-empty 1-D float32 tensor, got "
                         f"{inv_gs.dtype} {tuple(inv_gs.shape)}")
     _check_devices(x_rows, x, g_rows, g_cols, inv_gs)
-    if -(-nr // TILE) > _MAX_GRID_Y:
-        raise ValueError(f"{nr} rows exceed the kernel's grid")
+    if _n_blocks(nr, n, False, SW_STRIP_TILES) >= 2 ** 31:
+        raise ValueError(f"({nr}, {n}) exceeds the kernel's grid")
 
 
 def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
@@ -245,7 +259,7 @@ def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
         raise TypeError(f"basis factors must be float32, got "
                         f"{v_rows.dtype} and {v_cols.dtype}")
     _check_devices(x_rows, x, v_rows, v_cols)
-    if _n_cols_blocks(nr, n, False) >= 2 ** 31:
+    if _n_blocks(nr, n, False, STRIP_TILES) >= 2 ** 31:
         raise ValueError(f"({nr}, {n}) exceeds the kernel's grid")
 
 
@@ -271,16 +285,19 @@ def quantize_slabs(x_rows, x, mode, scale=None):
 
 
 def _launch(lib, metric, mode, x_rows, x, scale, g_rows, g_cols, inv_gs,
-            row_offset, n_valid, stream: int, workspace=None):
+            row_offset, n_valid, stream: int, workspace=None,
+            symmetric=False):
     """Launch the mode's kernel on `stream` over quantized features
     (quantize_slabs) and the fp8 scale (a float32 scalar on the device,
     or None); (s_W (P,), row_sums (nr,)) from its partials. `workspace`
-    (alloc_workspace()) holds at least P's."""
+    (alloc_workspace()) holds at least this call's; `symmetric`
+    (is_symmetric_call on the f32 operands) visits the column tiles
+    j >= i only."""
     nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
     p, n_groups = g_cols.shape[0], inv_gs.shape[0]
-    sw_shape, rs_shape = partial_shapes(nr, n, p)
+    sw_shape, rs_shape = partial_shapes(nr, n, p, symmetric)
     if workspace is None:
-        workspace = alloc_workspace(nr, n, p, x.device)
+        workspace = alloc_workspace(nr, n, p, x.device, symmetric)
     sw_buf, rs_buf = workspace
     if sw_buf.numel() < sw_shape[0] * sw_shape[1] \
             or rs_buf.numel() < rs_shape[0] * rs_shape[1]:
@@ -288,17 +305,18 @@ def _launch(lib, metric, mode, x_rows, x, scale, g_rows, g_cols, inv_gs,
                          f"({nr}, {n})")
     sw_part = sw_buf[:sw_shape[0] * sw_shape[1]].view(sw_shape)
     rs_part = rs_buf[:rs_shape[0] * rs_shape[1]].view(rs_shape)
+    rs_part.zero_()    # the kernel writes only the row-sum slots it visits
     err = lib.fused_sw_launch(
         _KIND[KERNEL_METRIC[metric]], _MODE[mode], x_rows.data_ptr(),
         x.data_ptr(), None if scale is None else scale.data_ptr(),
         g_rows.data_ptr(), g_cols.data_ptr(), inv_gs.data_ptr(),
         sw_part.data_ptr(), rs_part.data_ptr(), nr, n, d, p, n_groups,
-        row_offset, n_valid, stream)
+        row_offset, n_valid, int(symmetric), stream)
     key = launch_key("fused_sw", mode)
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
-    return sw_part.sum(dim=0), rs_part.sum(dim=1)
+    return sw_part.sum(dim=0), rs_part.sum(dim=0)
 
 
 def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
@@ -322,8 +340,13 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
               floats) | 'aitchison' (euclidean over clr features).
 
     tile_r / tile_c / feat_block / perm_block are the reference's Pallas
-    tile knobs: accepted and ignored, since the CUDA tile is fixed (64 x 64
-    pairs, 32-feature chunks, 16-permutation blocks).
+    tile knobs: accepted and ignored, since the CUDA kernel's shape is
+    fixed: a block owns a 64-row tile and a strip of SW_STRIP_TILES
+    64-column tiles, builds each D^2 tile once from 32-feature chunks and
+    applies it to every permutation of the call in passes of SW_PASS (one
+    accumulator per (row, permutation) in registers, one s_W partial per
+    (block, permutation)). A whole-table call (is_symmetric_call: the
+    sweep's) visits only the tiles j >= i.
 
     Precision knobs (mutually exclusive; the features stay f32 here, the
     wrapper quantizes them):
@@ -356,19 +379,21 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
     mode, scale = ref.resolve_precision(x, metric, **precision)
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    sym = is_symmetric_call(x_rows, x, g_rows, g_cols, row_offset)
     xr, xc = quantize_slabs(x_rows, x, mode, scale)
     return _launch(lib, metric, mode, xr, xc, scale, g_rows, g_cols, inv_gs,
-                   row_offset, n_valid, stream, workspace)
+                   row_offset, n_valid, stream, workspace, sym)
 
 
-def is_symmetric_call(x_rows, x, v_rows, v_cols, row_offset) -> bool:
-    """Whether a dense-design call covers the whole table against itself:
-    the slab is the table and its basis the columns' (the same storage,
-    offset 0), so the kernel visits the column tiles j >= i only."""
+def is_symmetric_call(x_rows, x, r_rows, r_cols, row_offset) -> bool:
+    """Whether a call of either kernel covers the whole table against
+    itself: the slab is the table and its row operand the columns' (the
+    labels, or the basis of a dense design; the same storage, offset 0),
+    so the kernel visits the column tiles j >= i only."""
     return (row_offset == 0 and x_rows.data_ptr() == x.data_ptr()
             and x_rows.shape == x.shape
-            and v_rows.data_ptr() == v_cols.data_ptr()
-            and v_rows.shape == v_cols.shape)
+            and r_rows.data_ptr() == r_cols.data_ptr()
+            and r_rows.shape == r_cols.shape)
 
 
 def _launch_cols(lib, metric, mode, x_rows, x, scale, v_rows, v_cols,

@@ -24,7 +24,9 @@ in one place:
 On 'cuda' stage 1 is always `<metric>.cuda` and the fused-kernel sweep
 `<metric>.fusedk.cuda`: the kernels mask ragged shapes, so the TPU's
 tile-viability floor (PALLAS_MIN_N) has no counterpart, just as
-engine.planner sends 'cuda' to the brute kernel. On 'cpu' the plans match
+engine.planner sends 'cuda' to the brute kernel. Its labels chunk is sized
+by the kernel's own workset (partials and labels) in whole passes, not by
+the reference's one-hot block, which that kernel never builds. On 'cpu' the plans match
 the reference's field for field (the fused impl under the port's kind
 names). `explain()` adds the reference's per-precision table of feature
 traffic and workset. (Persisted stage-1 and fused measurements wait for
@@ -179,6 +181,55 @@ def _pick_fused_impl(metric: str, backend: str):
             "one-pass torch sweep (no kernel path on this backend)")
 
 
+def _resolve_fused(metric: str, backend: str, fused_impl: Optional[str]):
+    """(fused registry name or alias, reason): the backend's pick for
+    'auto' / None, else the caller's impl ('cuda', 'torch', the
+    reference's 'pallas' / 'xla', or a registry name)."""
+    if fused_impl in (None, "auto"):
+        return _pick_fused_impl(metric, backend)
+    name = (fused_impl if "." in fused_impl
+            else f"{metric}.fusedk.{fused_impl}")
+    return name, "caller-pinned fused impl"
+
+
+def _onehot_chunk(n: int, cols: int, n_perms: int, budget: float) -> int:
+    """The reference's fused chunk: its working set is the one-hot block
+    (chunk, n, G) and its (n, chunk*G) reshape; a dense design's basis
+    factor swaps G for K."""
+    per_perm = 4.0 * n * (2 * cols + 1)
+    return int(max(1, min(budget // per_perm, n_perms)))
+
+
+def _kernel_chunk(spec: _dreg.FusedImpl, n: int, d: int, n_perms: int,
+                  n_groups: int, row_block: int, budget: float):
+    """(chunk, reason): the most permutations a launch of the fused_sw
+    kernel takes with its workset (spec's model: the partials and the
+    (chunk, n) labels, linear in the chunk) inside `budget`, cut to whole
+    passes of spec.chunk_quantum permutations (a partial pass costs a
+    whole one), at most n_perms. Where the partials that do not depend on
+    the chunk leave no room for one pass, the chunk is one pass or the
+    one-hot model's chunk in whole passes, the larger, and the workset
+    exceeds the budget."""
+    ws, q = spec.workset_bytes, spec.chunk_quantum
+    fixed = ws(n, d, 0, n_groups, row_block)
+    per_perm = ws(n, d, 1, n_groups, row_block) - fixed
+    fit = int(max(budget - fixed, 0) // per_perm)
+    if fit >= q:
+        chunk = fit - fit % q
+    else:
+        onehot = _onehot_chunk(n, n_groups, n_perms, budget)
+        chunk = max(q, onehot - onehot % q)
+    chunk = min(chunk, n_perms)
+    used = ws(n, d, chunk, n_groups, row_block)
+    if used <= budget:
+        return chunk, (f"kernel workset {used/2**20:.0f}MiB of "
+                       f"{budget/2**20:.0f}MiB sizes the chunk")
+    return chunk, (f"kernel workset {used/2**20:.0f}MiB exceeds "
+                   f"{budget/2**20:.0f}MiB: its fixed partials "
+                   f"({fixed/2**20:.0f}MiB) leave no room for a pass of "
+                   f"{q}: one pass or the one-hot chunk, the larger")
+
+
 def _pick_row_block(n: int, d: int, impl: _dreg.DistanceImpl,
                     slab_budget: float) -> int:
     """Largest power-of-two row block whose transient working set fits."""
@@ -257,7 +308,9 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     # one-hot matmul form, so the engine plan is pinned to 'matmul' there
     # (a caller-pinned sw_impl they cannot honor is an error when the
     # bridge was pinned too, a downgrade to 'stream' when it was ours),
-    # and the chunk is sized against the one-hot block (chunk, n, G).
+    # and the chunk is sized against the one-hot block (chunk, n, G),
+    # except on the card's labels kernel, which holds only its partials
+    # and the labels (_kernel_chunk).
     pinned_sw = sw_impl if sw_impl not in (None, "auto") else None
     if mat in FUSED_MODES and pinned_sw not in (None, "matmul"):
         if mat_pinned:
@@ -271,14 +324,21 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     if mat in FUSED_MODES and pinned_sw is None:
         pinned_sw = "matmul"
     if mat in FUSED_MODES and chunk is None:
-        # the fused step's working set is the one-hot block (chunk, n, G)
-        # and its (n, chunk*G) reshape; a dense design's basis factor
-        # swaps G for K
         budget = (_eplanner.DEFAULT_STREAM_BUDGET_BYTES
                   if memory_budget_bytes is None else memory_budget_bytes)
-        cols = n_groups if design_cols is None else design_cols
-        per_perm = 4.0 * n * (2 * cols + 1)
-        chunk = int(max(1, min(budget // per_perm, n_perms)))
+        kspec = None
+        if mat == "fused-kernel" and design_cols is None \
+                and backend == "cuda":
+            kspec = _dreg.get_fused(_resolve_fused(metric, backend,
+                                                   fused_impl)[0])
+        if kspec is not None and kspec.kind == "cuda":
+            # the labels kernel holds its partials and the labels only
+            chunk, why = _kernel_chunk(kspec, n, d, n_perms, n_groups,
+                                       row_block, budget)
+            mreason += f"; {why}"
+        else:
+            cols = n_groups if design_cols is None else design_cols
+            chunk = _onehot_chunk(n, cols, n_perms, budget)
     sw = _eplanner.plan(n, n_perms, backend=backend, impl=pinned_sw,
                         memory_budget_bytes=memory_budget_bytes,
                         chunk=chunk, n_cols=design_cols)
@@ -300,12 +360,7 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     f_impl = None
     f_tuning: Dict[str, int] = {}
     if mat == "fused-kernel":
-        if fused_impl in (None, "auto"):
-            f_impl, freason = _pick_fused_impl(metric, backend)
-        else:
-            f_impl = (fused_impl if "." in fused_impl
-                      else f"{metric}.fusedk.{fused_impl}")
-            freason = "caller-pinned fused impl"
+        f_impl, freason = _resolve_fused(metric, backend, fused_impl)
         fspec = _dreg.get_fused(f_impl)
         f_impl = fspec.name                   # reference aliases resolve
         if fspec.metric != metric:

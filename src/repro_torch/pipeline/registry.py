@@ -37,6 +37,7 @@ import dataclasses
 from typing import Callable, Mapping, Optional, Tuple
 
 from repro_torch.core import distance as _dist
+from repro_torch.kernels.fused_sw import ops as _fops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,6 +306,9 @@ class FusedImpl:
     `fused_kernel_sw` dispatches on `kind`). `workset_bytes(n, d, chunk,
     n_groups, row_block, n_cols=None)` models its peak device residency
     beyond the (n, d) features; n_cols = K for a dense design.
+    `chunk_quantum` is the number of permutations the impl applies in one
+    pass: a chunk past it costs whole passes, so the planner sizes a
+    labels chunk in multiples of it.
     """
     name: str                      # "<metric>.fusedk.<kind>"
     metric: str
@@ -314,6 +318,7 @@ class FusedImpl:
     workset_bytes: Callable[..., int]
     kernel_metric: str             # kernel body (aitchison -> euclidean)
     description: str = ""
+    chunk_quantum: int = 1
 
 
 _FUSED_REGISTRY: dict = {}
@@ -356,17 +361,17 @@ def fused_names(*, metric: Optional[str] = None,
 
 
 def _ws_fused_cuda(n, d, chunk, n_groups, row_block, n_cols=None):
-    # what the kernel's sweep holds: its partials, one s_W value per
-    # (64 x 64 tile, permutation) and one row sum per (row, column tile),
-    # and the (chunk, n) int32 labels; for a dense design the cols
-    # kernel's partials, one (P, K) row per (row tile, strip) and one row
-    # sum per (row, strip), the index permutations and the (chunk, n, K)
-    # basis factor
-    from repro_torch.kernels.fused_sw import ops
+    # what the kernel's sweep (a whole-table call) holds: its partials,
+    # one s_W value per (block, permutation), a block being a row tile and
+    # a strip of column tiles at or past the diagonal, and the row sums per
+    # (strip slot, row) plus per (row tile, column), and the (chunk, n)
+    # int32 labels; for a dense design the cols kernel's partials, one (P,
+    # K) row per block and the same row sums, the index permutations and
+    # the (chunk, n, K) basis factor
     if n_cols is not None:
-        return (ops.cols_workspace_bytes(n, n, chunk, n_cols)
+        return (_fops.cols_workspace_bytes(n, n, chunk, n_cols)
                 + 4 * chunk * n * (n_cols + 1))
-    return ops.workspace_bytes(n, n, chunk) + 4 * chunk * n
+    return _fops.workspace_bytes(n, n, chunk, symmetric=True) + 4 * chunk * n
 
 
 def _ws_fused_torch(n, d, chunk, n_groups, row_block, n_cols=None):
@@ -389,6 +394,7 @@ for _metric in ("euclidean", "aitchison", "braycurtis", "jaccard"):
         name=f"{_metric}.fusedk.cuda", metric=_metric, kind="cuda",
         backends=("cuda",), tuning=dict(_prec),
         workset_bytes=_ws_fused_cuda, kernel_metric=_kmetric,
+        chunk_quantum=_fops.SW_PASS,
         description=f"hand-written CUDA megakernel: {_metric} D^2 tiles "
                     "built and contracted in registers, D^2 never in "
                     "device memory (feat_bf16/feat_fp8/feat_packed shrink "
@@ -412,9 +418,10 @@ def fused_feat_traffic_bytes(spec: FusedImpl, n: int, d: int, tuning=None,
     """Modelled feature bytes loaded for ONE permutation chunk's sweep at
     the tuning dict's precision.
 
-    CUDA megakernel: each 64 x 64 tile stages its 64 rows' and 64 columns'
-    features (in 32-element chunks) at the mode's element width, so
-    traffic = bpe * d * nti * ntj * (64 + 64), nti = ntj = ceil(n / 64)
+    CUDA megakernel: each 64 x 64 tile it visits stages its 64 rows' and 64
+    columns' features (in 32-element chunks) at the mode's element width,
+    and the sweep's whole-table call visits the tiles j >= i only, so
+    traffic = bpe * d * nt (nt + 1) / 2 * (64 + 64), nt = ceil(n / 64)
     (loads the kernel issues; most are served from L2). The same for the
     dense-design kernel, whose blocks stage the same tiles. Torch sweep
     (the reference's XLA kind): each row block re-reads the full table
@@ -423,9 +430,9 @@ def fused_feat_traffic_bytes(spec: FusedImpl, n: int, d: int, tuning=None,
     reporting model (plan.explain), not a hardware counter."""
     t = {**dict(spec.tuning), **(tuning or {})}
     if spec.kind == "cuda":
-        from repro_torch.kernels.fused_sw import ops
-        nt = -(-n // ops.TILE)
-        return feat_element_bytes(t) * d * nt * nt * (2 * ops.TILE)
+        nt = -(-n // _fops.TILE)
+        return (feat_element_bytes(t) * d * nt * (nt + 1) / 2
+                * (2 * _fops.TILE))
     return 4.0 * d * n * (-(-n // max(int(row_block), 1)) + 1)
 
 

@@ -18,7 +18,7 @@ Twin of `repro/pipeline/streaming.py` for one device. Three ways from an
   fused-kernel
            the single-pass form: distances built AND contracted inside
            one launch per permutation chunk (kernels/fused_sw, D^2 tiles
-           never leave registers), or its plain twin `fused_sw_onepass`
+           never in device memory), or its plain twin `fused_sw_onepass`
            (row blocks x chunks in torch) off the card.
 
 Labels are the port's counter-based draws from `seed` (within `strata`
@@ -287,7 +287,7 @@ class FusedKernelStats(NamedTuple):
     row_block: int           # rows per slab (torch) or per kernel tile
     peak_slab_bytes: int     # torch: the (row_block, n) D^2 slab; cuda:
                              # the kernel's partial buffers (D^2 itself
-                             # never leaves its registers)
+                             # never reaches device memory)
     peak_label_bytes: int    # (chunk, n) labels (+ the (chunk, n, G)
                              # one-hot factor in the torch form)
 
@@ -357,13 +357,15 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
                         index_perms: Optional[torch.Tensor] = None,
                         draw_budget: Optional[float] = None):
     """The fused sweep through the megakernel (kernels/fused_sw): one
-    launch per permutation chunk covers every tile and permutation of the
-    chunk, so the only device traffic per chunk is the feature table and
-    the (chunk, n) labels. The partial buffers are allocated once for the
-    sweep, and the fp8 scale computed once. s_T comes from the FIRST
-    chunk's row sums (every chunk gives the same ones). `tuning` holds
-    the precision knobs (feat_bf16 / feat_fp8 / feat_packed /
-    feat_scale).
+    launch per permutation chunk covers every pair and permutation of the
+    chunk (the whole table against itself, so the kernel visits the tiles
+    j >= i only), and the only device traffic per chunk is the feature
+    table and the (chunk, n) labels. The partial buffers, one s_W value
+    per (block, permutation) and the row sums, are allocated once for the
+    sweep, and the fp8 scale computed once; on the card the planner sizes
+    the chunk by them and the labels. s_T comes from the FIRST chunk's row
+    sums (every chunk gives the same ones). `tuning` holds the precision
+    knobs (feat_bf16 / feat_fp8 / feat_packed / feat_scale).
 
     Returns (s_w (n_total,) float64, s_t 0-d float64, FusedKernelStats).
     """
@@ -387,6 +389,7 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
         s_w[lo:hi] = sw
         if row_sums is None:
             row_sums = rs
+        del g   # freed before the next chunk's labels are drawn
     stats = FusedKernelStats(
         impl="cuda", n_total=n_total, chunk=chunk,
         n_chunks=-(-n_total // chunk), row_block=_fops.TILE,

@@ -634,14 +634,17 @@ def test_pipeline_plan_with_design_cols_matches_reference_on_cpu(
 def test_emp_design_plans_on_cuda():
     """At the EMP shape with the default budgets: a K = 10 design takes
     the fused-kernel bridge in chunks of 256 MiB / (4 n 21) = 127 (32
-    launches for 4,000 slots); strata only keeps the label chunk, 156."""
+    launches for 4,000 slots); strata only keeps the label chunk, which
+    the fused_sw kernel's workset sizes on the card: 1,792 (3
+    launches)."""
     pl = pplanner.plan_pipeline(25145, 128, 4000, 8, backend="cuda",
                                 design_cols=10)
     assert (pl.materialize, pl.fused_impl, pl.sw.chunk) == \
         ("fused-kernel", "braycurtis.fusedk.cuda", 127)
     assert -(-4000 // pl.sw.chunk) == 32
     pl = pplanner.plan_pipeline(25145, 128, 4000, 8, backend="cuda")
-    assert (pl.materialize, pl.sw.chunk) == ("fused-kernel", 156)
+    assert (pl.materialize, pl.sw.chunk) == ("fused-kernel", 1792)
+    assert -(-4000 // pl.sw.chunk) == 3
 
 
 def test_fused_workset_charges_the_cols_workspace():

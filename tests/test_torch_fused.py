@@ -259,15 +259,31 @@ def test_cpu_calls_launch_nothing():
 
 
 def test_partials_at_the_emp_shape():
-    """One s_W partial per (64 x 64 tile, permutation) and one row sum per
-    (row, column tile): 393^2 x 156 + 25,145 x 393 floats at the EMP
-    chunk, what the fused registry's workset model charges."""
-    n, chunk = 25145, 156
-    assert ops.partial_shapes(n, n, chunk) == ((393 * 393, chunk),
-                                               (n, 393))
+    """The sweep's call (the whole table against itself) is symmetric: one
+    s_W partial per (block, permutation), a block being a row tile and a
+    strip of 16 column tiles at or past the diagonal, sum_{c < 25} (393 -
+    16 c) = 5,025 blocks, under n / 4, so the partials take under a
+    quarter of the labels' 4 n bytes a permutation; and the row sums per
+    (strip slot, row) plus per (row tile, column), (25 + 393) x 25,145
+    floats whatever the chunk. At the plan's EMP chunk (1,792) partials
+    and labels take 246.3 MiB, inside the 256 MiB budget; per-tile
+    partials would take 1.1 GB. A slab keeps every (row tile, strip) block
+    and its row sums only."""
+    n, chunk = 25145, 1792
+    blocks = sum(393 - 16 * c for c in range(25))
+    assert blocks == 5025 and 4 * blocks < n
+    assert ops.partial_shapes(n, n, chunk) == ((blocks, chunk),
+                                               (25 + 393, n))
     assert ops.workspace_bytes(n, n, chunk) == \
-        4 * (393 * 393 * chunk + n * 393)
-    assert ops.workspace_bytes(n, n, chunk) < 1024 ** 3 // 4
+        4 * (blocks * chunk + (25 + 393) * n)
+    assert ops.workspace_bytes(n, n, chunk) + 4 * chunk * n \
+        <= 256 * 2 ** 20
+    assert 4 * 393 * 393 * chunk > 1.1e9
+    assert ops.partial_shapes(n, n, chunk, symmetric=False) == \
+        ((393 * 25, chunk), (25, n))
+    assert ops.partial_shapes(300, n, 7) == ((5 * 25, 7), (25, 300))
+    assert len(_tile_blocks(n, n, True, ops.SW_STRIP_TILES)) == blocks
+    assert _tile_blocks(n, n, True, ops.SW_STRIP_TILES)[393] == (0, 16, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -520,21 +536,22 @@ def test_cols_partials_at_the_emp_design_chunk():
     assert ops.cols_partial_shapes(100, 70, 3, 2) == ((2 * 1, 6), (1, 100))
     assert ops.cols_partial_shapes(n, n, chunk, k, symmetric=False) == \
         ((393 * 197, chunk * k), (197, n))
-    assert len(_cols_blocks(n, n, True)) == blocks
-    assert _cols_blocks(n, n, True)[:2] == [(0, 0, 0), (1, 1, 0)]
-    assert _cols_blocks(n, n, True)[393] == (0, 2, 1)
-    assert len(_cols_blocks(n, n, False)) == 393 * 197
-    assert _cols_blocks(130, 70, False) == [(0, 0, 0), (1, 0, 0), (2, 0, 0)]
+    assert len(_tile_blocks(n, n, True)) == blocks
+    assert _tile_blocks(n, n, True)[:2] == [(0, 0, 0), (1, 1, 0)]
+    assert _tile_blocks(n, n, True)[393] == (0, 2, 1)
+    assert len(_tile_blocks(n, n, False)) == 393 * 197
+    assert _tile_blocks(130, 70, False) == [(0, 0, 0), (1, 0, 0), (2, 0, 0)]
 
 
-def _cols_blocks(nr, n, symmetric):
-    """The dense-design kernel's blocks in launch order (fused_sw.cu,
-    cols_block), as (row tile, first column tile, row-sum slot): a
-    symmetric call takes the strips of STRIP_TILES column tiles starting
-    at the diagonal and every STRIP_TILES tiles after it, strip offset
-    first; a slab call every (row tile, strip) with the row tile
-    fastest."""
-    t, s = ops.TILE, ops.STRIP_TILES
+def _tile_blocks(nr, n, symmetric, strip=ops.STRIP_TILES):
+    """A fused kernel's blocks in launch order (fused_sw.cu, tile_block),
+    as (row tile, first column tile, row-sum slot), for strips of `strip`
+    column tiles (ops.STRIP_TILES for the dense-design kernel,
+    ops.SW_STRIP_TILES for the labels kernel): a symmetric call takes the
+    strips starting at the diagonal and every `strip` tiles after it,
+    strip offset first; a slab call every (row tile, strip) with the row
+    tile fastest."""
+    t, s = ops.TILE, strip
     nti, ntj = -(-nr // t), -(-n // t)
     n_strips = -(-ntj // s)
     if not symmetric:
@@ -544,23 +561,29 @@ def _cols_blocks(nr, n, symmetric):
             for ti in range(ntj - c * s)]
 
 
+def _masked_d2_f32(xp, metric):
+    """The plain version's masked f32 D^2 of the whole table, in float64."""
+    return torch.cat([blk for _, _, blk in ref._masked_d2_blocks(
+        xp, xp, 0, metric, xp.shape[0], dict(feat_bf16=0, feat_fp8=0,
+                                             feat_packed=0,
+                                             feat_scale=None))]).double()
+
+
 def _symmetric_decomposition(xp, v, metric):
     """s_cols and row sums as the symmetric kernel assembles them, in
     float64 on the plain version's masked f32 D^2: its blocks
-    (_cols_blocks) visit only the column tiles j >= i, diagonal tiles
+    (_tile_blocks) visit only the column tiles j >= i, diagonal tiles
     at 1/2 and off-diagonal ones at 1, in passes of Q_PASS q; each
     block's
     row sums go to its strip slot and its off-diagonal tiles' column sums
     to its row tile's slot; the partials are summed at the end."""
     n, (p, _, k) = xp.shape[0], v.shape
     t = ops.TILE
-    m2 = torch.cat([blk for _, _, blk in ref._masked_d2_blocks(
-        xp, xp, 0, metric, n, dict(feat_bf16=0, feat_fp8=0, feat_packed=0,
-                                   feat_scale=None))]).double()
+    m2 = _masked_d2_f32(xp, metric)
     vq = v.double().permute(1, 0, 2).reshape(n, p * k)     # (n, Q)
     (nb, nq), (slots, _) = ops.cols_partial_shapes(n, n, p, k)
     n_strips = slots - -(-n // t)
-    blocks = _cols_blocks(n, n, True)
+    blocks = _tile_blocks(n, n, True)
     assert len(blocks) == nb
     s_part = torch.zeros((nb, nq), dtype=torch.float64)
     rs_part = torch.zeros((slots, n), dtype=torch.float64)
@@ -596,6 +619,70 @@ def test_symmetric_decomposition_equals_the_plain_version(p, k):
     sc_p, rs_p = ref.fused_sw_cols_ref(xp, xp, v, v, 0, metric="braycurtis")
     s_t = float(rs_p.double().sum()) / 2.0 / 331
     assert float((sc - sc_p.double()).abs().max()) <= 1e-6 * s_t
+    torch.testing.assert_close(rs, rs_p.double(), rtol=1e-6, atol=0)
+
+
+def _labels_symmetric_decomposition(xp, g, inv, metric, strip):
+    """s_W and row sums as the symmetric labels kernel assembles them, in
+    float64 on the plain version's masked f32 D^2: its blocks
+    (_tile_blocks, strips of `strip` column tiles) visit only the column
+    tiles j >= i, diagonal tiles at 1/2 and off-diagonal ones at 1; each
+    tile goes through passes of SW_PASS permutations, in which the
+    same-group sums per (row, permutation) are weighted by w[g_r] once and
+    added into the block's running s_W; each block's row sums go to its
+    strip slot and its off-diagonal tiles' column sums to its row tile's
+    slot; the partials are summed at the end."""
+    n, p = xp.shape[0], g.shape[0]
+    t = ops.TILE
+    m2 = _masked_d2_f32(xp, metric)
+    w = inv.double()
+    ntj = -(-n // t)
+    n_strips = -(-ntj // strip)
+    blocks = _tile_blocks(n, n, True, strip)
+    s_part = torch.zeros((len(blocks), p), dtype=torch.float64)
+    rs_part = torch.zeros((n_strips + ntj, n), dtype=torch.float64)
+    if strip == ops.SW_STRIP_TILES:
+        assert ops.partial_shapes(n, n, p) == (tuple(s_part.shape),
+                                               tuple(rs_part.shape))
+    for b, (ti, jt0, slot) in enumerate(blocks):
+        r = slice(ti * t, min(ti * t + t, n))
+        for jt in range(jt0, min(jt0 + strip, ntj)):
+            c = slice(jt * t, min(jt * t + t, n))
+            tile = m2[r, c] * (0.5 if jt == ti else 1.0)
+            for p0 in range(0, p, ops.SW_PASS):
+                q = slice(p0, min(p0 + ops.SW_PASS, p))
+                gr, gc = g[q, r].long(), g[q, c].long()
+                same = gr[:, :, None] == gc[:, None, :]
+                acc = torch.where(same, tile[None], 0.0).sum(2)
+                s_part[b, q] += (acc * w[gr]).sum(1)
+            rs_part[slot, r] += m2[r, c].sum(1)
+            if jt != ti:
+                rs_part[n_strips + ti, c] += m2[r, c].sum(0)
+    return s_part.sum(0), rs_part.sum(0)
+
+
+@pytest.mark.parametrize("strip", [ops.SW_STRIP_TILES, 2])
+@pytest.mark.parametrize("p,g", [(261, 8), (29, 8), (261, 300), (29, 300)])
+def test_labels_symmetric_decomposition_equals_the_plain_version(p, g,
+                                                                 strip):
+    """The symmetric labels kernel's decomposition (upper tiles only,
+    diagonal tiles at 1/2, passes of 128 permutations with w[g_r] once a
+    pass, column sums standing in for the mirrored rows' sums) gives the
+    plain version's s_W within 1e-6 relative and its row sums at rtol
+    1e-6, at a ragged n (331: six 64-row tiles, the last 11 rows), P
+    across (261) and inside (29) a 128-permutation pass, G = 8 and 300,
+    with the kernel's strips (one strip a row tile at this n) and strips
+    of 2 tiles (three strip offsets)."""
+    x, grouping = _study(seed=10, n=331, d=24, g=g)
+    xp = distance.ROW_METRICS["braycurtis"].prepare(
+        torch.from_numpy(x)).contiguous()
+    labels = torch.from_numpy(_perm_batch(grouping, p, seed=10))
+    inv = permutations.inv_group_sizes(torch.from_numpy(grouping), g)
+    sw, rs = _labels_symmetric_decomposition(xp, labels, inv, "braycurtis",
+                                             strip)
+    sw_p, rs_p = ref.fused_sw_ref(xp, xp, labels, labels, inv, 0,
+                                  metric="braycurtis")
+    assert float(((sw - sw_p.double()).abs() / sw_p.double()).max()) <= 1e-6
     torch.testing.assert_close(rs, rs_p.double(), rtol=1e-6, atol=0)
 
 
@@ -760,10 +847,25 @@ def test_source_names_what_it_replaces_and_its_constants():
     assert "src/repro/kernels/fused_sw/kernel.py:338" in src
     assert f"constexpr int kTile = {ops.TILE};" in src
     assert f"constexpr int kStripTiles = {ops.STRIP_TILES};" in src
+    # the labels kernel: strips of SW_STRIP_TILES tiles, the symmetric
+    # visit, passes of SW_PASS permutations on brute's compare-and-add,
+    # one running s_W partial per (block, permutation)
+    assert f"constexpr int kSwStripTiles = {ops.SW_STRIP_TILES};" in src
+    assert f"constexpr int kSwPass = {ops.SW_PASS};" in src
+    for needle in ("tile_block<kSwStripTiles>(blockIdx.x, nti, ntj, sym)",
+                   "const float wt = mirrored ? 1.f : 0.5f;",
+                   "if (g == gc[k].x) acc[r][k] += m.x;",
+                   "v = fmaf(acc[r][k], row_weight(gr[r][k], inv_gs, "
+                   "n_groups), v);",
+                   "out[p] = (t == 0 ? 0.f : out[p]) + v;",
+                   "if (j < n) rs_part[(n_strips + blk.ti) * n + j] = "
+                   "cs_sum;",
+                   "kSwSmemBytes);"):
+        assert needle in src, needle
     # the dense-design kernel: the symmetric visit of the tiles j >= i,
     # the product in 3xTF32 on the tensor cores (wgmma, both operands split
     # hi / lo) through a cp.async ring in dynamic shared memory raised past
-    # 48 KB, and the block order _cols_blocks models
+    # 48 KB, and the block order _tile_blocks models
     assert f"constexpr int kQPass = {ops.Q_PASS};" in src
     for needle in ("constexpr int kKc = 16;",
                    "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
@@ -775,9 +877,8 @@ def test_source_names_what_it_replaces_and_its_constants():
                    "rs_part[(n_strips + blk.ti) * n + j] = s;",
                    "cp.async.ca.shared.global",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize",
-                   "return {b, b + c * kStripTiles, c};",
-                   "if (!sym) return {b % nti, (b / nti) * kStripTiles, "
-                   "b / nti};"):
+                   "return {b, b + c * S, c};",
+                   "if (!sym) return {b % nti, (b / nti) * S, b / nti};"):
         assert needle in src, needle
     functors = {"braycurtis": "BrayCurtis", "euclidean": "Euclidean",
                 "jaccard": "Jaccard"}

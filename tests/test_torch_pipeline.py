@@ -402,12 +402,63 @@ def test_emp_bridges_follow_the_matrix_budget():
     pl = planner.plan_pipeline(n, 128, 4000, 8, **kw)
     assert (pl.materialize, pl.fused_impl) == ("fused-kernel",
                                                "braycurtis.fusedk.cuda")
-    # the label budget's fused chunk: 256 MiB / (4 n (2 G + 1)) = 156
-    # permutations, so 4,000 slots take 26 launches
-    assert pl.sw.chunk == 156 and -(-4000 // pl.sw.chunk) == 26
+    # the kernel's workset sizes the chunk: its partials (5,025 x 4 B a
+    # permutation and 40.1 MiB of row sums) and the (chunk, n) labels fit
+    # 256 MiB at 1,875 permutations, cut to 14 whole 128-permutation
+    # passes, 1,792, so 4,000 slots take 3 launches
+    assert pl.sw.chunk == 1792 and -(-4000 // pl.sw.chunk) == 3
+    assert pl.reason.endswith("; kernel workset 246MiB of 256MiB sizes "
+                              "the chunk; hand-written CUDA megakernel "
+                              "(masks ragged shapes, so no tile-viability "
+                              "floor)")
     assert pl.describe_stage1() == (
         "braycurtis.fusedk.cuda[feat_bf16=0,feat_fp8=0] -> "
         "fused-kernel(rows=256)")
+
+
+@pytest.mark.parametrize("n,d,n_perms,budget", [
+    (25145, 128, 4000, None), (331, 24, 999, 2 ** 20),
+    (1100, 16, 5000, 3 * 2 ** 20), (97, 8, 50, None),
+    (70000, 128, 4000, None)])
+def test_cuda_fused_chunk_fits_the_kernel_workset(n, d, n_perms, budget):
+    """On the card the fused-kernel chunk is the largest whole number of
+    the kernel's 128-permutation passes whose workset (the registry's
+    model: partials and (chunk, n) labels) fits the label budget, or every
+    slot. Where the row-sum partials alone leave no room for one pass (n
+    past ~63,600 at 256 MiB), it is one pass or the one-hot model's chunk
+    in whole passes, the larger, and the plan says the budget is exceeded:
+    at n = 70,000, 128 permutations, 32 launches for 4,000 slots (the
+    one-hot model's 56 would take 72). The CPU plan stays the reference's
+    field for field."""
+    kw = dict(metric="braycurtis", materialize="fused-kernel",
+              memory_budget_bytes=budget)
+    pl = planner.plan_pipeline(n, d, n_perms, 8, backend="cuda", **kw)
+    spec = registry.get_fused(pl.fused_impl)
+    cap = 256 * 2 ** 20 if budget is None else budget
+    q = fops.SW_PASS
+
+    def ws(chunk):
+        return spec.workset_bytes(n, d, chunk, 8, pl.row_block)
+    assert spec.kind == "cuda" and spec.chunk_quantum == q
+    assert ws(pl.sw.chunk) == fops.workspace_bytes(n, n, pl.sw.chunk) \
+        + 4 * pl.sw.chunk * n
+    if ws(q) <= cap:
+        assert ws(pl.sw.chunk) <= cap and "exceeds" not in pl.reason
+        if pl.sw.chunk < n_perms:
+            assert pl.sw.chunk % q == 0
+            assert ws(pl.sw.chunk + q) > cap
+    else:
+        onehot = int(cap // (4 * n * (2 * 8 + 1)))
+        assert pl.sw.chunk == min(n_perms, max(q, onehot - onehot % q))
+        assert ws(pl.sw.chunk) > cap
+        assert f"exceeds {cap // 2 ** 20}MiB" in pl.reason
+    if n == 70000:
+        assert (pl.sw.chunk, -(-4000 // pl.sw.chunk), onehot) == (128, 32, 56)
+    got = planner.plan_pipeline(n, d, n_perms, 8, backend="cpu", **kw)
+    want = jplanner.plan_pipeline(n, d, n_perms, 8, backend="cpu", **kw)
+    assert (got.sw.chunk, got.sw.describe(), got.row_block) == \
+        (want.sw.chunk, want.sw.describe(), want.row_block)
+    assert _as_reference(got.reason) == want.reason
 
 
 @pytest.mark.parametrize("pinned,name", [
@@ -491,12 +542,13 @@ def test_fused_registry_names_kinds_and_aliases():
                 .tuning.items()}
         assert cuda.tuning == plain.tuning == want
         # the plain sweep keeps the reference's model; the kernel's counts
-        # its partials and labels
+        # its partials (5,025 blocks at the EMP shape, (25 + 393) row-sum
+        # slots) and labels
         args = (25145, 128, 156, 8, 256)
         assert plain.workset_bytes(*args) == \
             jpipe.get_fused(f"{m}.fusedk.xla").workset_bytes(*args)
         assert cuda.workset_bytes(*args) == \
-            4 * (393 * 393 * 156 + 25145 * 393) + 4 * 156 * 25145
+            4 * (5025 * 156 + (25 + 393) * 25145) + 4 * 156 * 25145
     with pytest.raises(KeyError, match="unknown fused impl"):
         registry.get_fused("braycurtis.cuda")
     with pytest.raises(ValueError, match="duplicate"):

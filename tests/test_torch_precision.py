@@ -539,15 +539,17 @@ def test_torch_kind_models_equal_the_reference_xla_kind(metric):
 
 
 def test_cuda_kind_traffic_follows_the_element_width():
-    """The kernel's model: 64 x 64 tiles each staging 64 rows' and 64
-    columns' features at the mode's width, so f32 : bf16 : fp8 : packed =
-    32 : 16 : 8 : 1 (the reference's 32x packed cut), and the quantized
-    table is what a mode adds to the workset."""
+    """The kernel's model: the 64 x 64 tiles j >= i of the sweep's
+    whole-table call, each staging 64 rows' and 64 columns' features at
+    the mode's width, so f32 : bf16 : fp8 : packed = 32 : 16 : 8 : 1 (the
+    reference's 32x packed cut), and the quantized table is what a mode
+    adds to the workset."""
     spec = registry.get_fused("jaccard.fusedk.cuda")
     n, d = 1024, 512
     t = {tag: registry.fused_feat_traffic_bytes(spec, n, d, _knobs(tag))
          for tag in registry.PRECISIONS}
-    assert t["f32"] == 4.0 * d * (n // 64) ** 2 * 128
+    nt = n // 64
+    assert t["f32"] == 4.0 * d * nt * (nt + 1) / 2 * 128
     assert t["f32"] / t["packed"] == 32.0
     assert t["f32"] == 2 * t["bf16"] == 4 * t["fp8"]
     base = spec.workset_bytes(n, d, 64, 8, 256)
