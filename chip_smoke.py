@@ -10,9 +10,15 @@ Phases, each timed:
 2. Every permanova_sw kernel against its plain PyTorch version on the card
    at (n, P, G) = (57, 1, 3), (130, 5, 2), (2047, 37, 8), (400, 3, 300)
    (the matmul kernel's 256-column slices) and (100, 7, 1): f32 at
-   rtol=1e-4, atol=1e-5, the brute kernel within 1e-6 relative, also at
-   n and P on both sides of its 64-row bands, 64-column tiles and
-   128-permutation blocks (BRUTE_EDGE_SHAPES); the matmul kernel on bf16
+   rtol=1e-4, atol=1e-5, the brute and permblock kernels within 1e-6
+   relative, brute also at n and P on both sides of its 64-row bands,
+   64-column tiles and 128-permutation blocks (BRUTE_EDGE_SHAPES), and
+   permblock (the paper's Algorithm 2: each staged tile for every
+   permutation) at n and P on both sides of its bands, its 16-tile strips
+   (n = 1,023 / 1,024 / 1,025, 2,047 / 2,048 / 2,049) and its
+   128-permutation passes (P = 127 / 128 / 129 / 257), there also within
+   1e-6 of the plain version in float64 (PERMBLOCK_EDGE_SHAPES); the
+   matmul kernel on bf16
    mat2 against the plain version on the same bf16-rounded operands at
    rtol=1e-4, and against a float64 reference on the f32 operands at 5e-3
    relative (the reference package's own bar for bf16).
@@ -25,8 +31,9 @@ Phases, each timed:
    SW_MAIN_RTOL). The kernels' launch counts are set to 0 just before each
    of these four runs and read just after it: the auto run must launch
    the brute kernel once per chunk and nothing else (no chunk may take a
-   CPU path), each pinned run its own kernel once per chunk and nothing
-   else.
+   CPU path), each pinned run its own kernel once per chunk of the card's
+   plan for that impl (tiled's charges the permblock kernel's partials)
+   and nothing else.
 4. The label draws of a dense / stream bridge chunk (2,668 permutations,
    free and within 4 strata): drawn in the label budget's sub-blocks they
    equal the whole chunk drawn at once bit for bit, and their device
@@ -42,14 +49,25 @@ Phases, each timed:
    bf16 tensor-core product at the dense peak, and the bytes of its mat2
    passes); the brute kernel beside its own floor (one INT32 compare per
    (pair, permutation) at the INT32 pipe's rate; a time under a floor
-   fails the run). Then engine.run on the card against engine.run on the
-   CPU at n=300 (same seed, so the same labels).
+   fails the run). The permblock kernel is also timed in turns with brute
+   on the same labels at P = 1,000 and at brute's chunk (2,668), each
+   beside its bound and the same INT32 floor, within 1e-6 of the plain
+   version at both; and a tiled chunk of the card's plan (2 chunks for
+   4,000 slots) must keep its labels plus the (blocks, chunk) partials a
+   launch allocates within the 256 MiB label budget. Then engine.run on the card against engine.run on the CPU at
+   n=300 (same seed, so the same labels).
 5. Every pairwise-distance kernel (braycurtis, euclidean, jaccard,
    jaccard_packed) against its plain PyTorch version on the card at
    (nr, nc, d) = (57, 57, 3), (130, 130, 37), (2047, 2047, 128) and
    (256, 25145, 128), the stream bridge's slab at the EMP shape: f32 at
    rtol=1e-4, atol=1e-5 (the reference's own bar), and jaccard_packed
    equal to the jaccard kernel bit for bit on the same presence data.
+   Then each kernel's whole-table call (one table as both operands: the
+   symmetric visit of the 128 x 128 tiles j >= i, each mirrored) against
+   the rectangular call on a clone of the table, bit for bit off the
+   diagonal, and against its plain version at the same bar, at (n, d) =
+   (57, 3), (130, 37), (2047, 128), (2049, 128) (DIST_SYM_SHAPES) and,
+   for braycurtis, the EMP table.
 6. The features path at the EMP shape through the entry point a user
    calls: pipeline(features, Bray-Curtis, 3,999 permutations, seed 0),
    once with a 6 GiB matrix budget (the planner picks the dense bridge:
@@ -62,9 +80,13 @@ Phases, each timed:
    euclidean (and aitchison), jaccard and jaccard with packed=1, whose F
    must equal the float jaccard's bit for bit.
 7. Each distance kernel timed at the main path's shapes, (n, n, 128) for
-   the dense bridge and the (256, n, 128) slab x 99 for the stream
-   bridge, beside its plain version, torch.cdist for euclidean (the one
-   PyTorch call that computes one of these functions), and its bound.
+   the dense bridge (the whole-table call, each pair once; the
+   rectangular call on a clone logged beside it) and the (256, n, 128)
+   slab x 99 for the stream bridge, beside its plain version, torch.cdist
+   for euclidean (the one PyTorch call that computes one of these
+   functions; the kernel must not be slower), its bound (each pair once
+   for the whole-table call) and its own floor (FP32 instructions, or
+   popcounts for jaccard_packed; a time under it fails the run).
 8. The fused distance -> s_W kernel against its plain version on the card
    for euclidean, braycurtis and jaccard (on presence data), each a
    whole-table call (the kernel's symmetric visit of the tiles j >= i),
@@ -222,6 +244,12 @@ CHECK_SHAPES = [(57, 1, 3), (130, 5, 2), (2047, 37, 8), (400, 3, 300),
 # blocks, each edge met from both sides (and G past a byte)
 BRUTE_EDGE_SHAPES = [(63, 129, 4), (64, 128, 2), (65, 130, 5),
                      (127, 255, 8), (129, 257, 8), (333, 5, 300)]
+# the permblock kernel's 64-row bands, 16-tile strips (n = 64 * 16 * k)
+# and 128-permutation passes, each edge met from both sides (and G past a
+# byte)
+PERMBLOCK_EDGE_SHAPES = [(63, 129, 4), (64, 128, 2), (65, 127, 5),
+                         (1023, 127, 5), (1024, 128, 8), (1025, 129, 8),
+                         (2047, 257, 8), (2048, 1, 3), (2049, 129, 300)]
 RTOL, ATOL = 1e-4, 1e-5
 # At the EMP shape the part of s_W that depends on the permutation is
 # s_A / s_T ~ (G - 1) / (n - 1) ~ 2.8e-4 of it, so rtol 1e-4 on s_W would
@@ -254,6 +282,19 @@ DIST_REPLACES = {
 }
 DIST_CHECK_SHAPES = [(57, 57, 3), (130, 130, 37), (2047, 2047, 128),
                      (256, EMP_N, EMP_FEATURES)]
+# whole-table calls (the distance kernels' symmetric visit of the 128 x
+# 128 tiles j >= i) against the rectangular call on a clone of the table:
+# ragged n on both sides of a tile edge, 16 tiles, and (braycurtis) the
+# EMP table
+DIST_SYM_SHAPES = [(57, 3), (130, 37), (2047, 128), (2049, 128)]
+# the distance kernels' own floors: FP32 instructions at 128 lanes a clock
+# on each SM (braycurtis issues 2 per (pair, feature), euclidean and
+# jaccard one FMA), and for jaccard_packed the popcount, 16 a clock on
+# each SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0), one per (pair, word)
+FP32_LANES_PER_SM, POPC_PER_SM = 128, 16
+DIST_OWN_INSTR = {"braycurtis": 2, "euclidean": 1, "jaccard": 1,
+                  "jaccard_packed": 1}
 GIB = 1024 ** 3
 # matrix budgets that make the planner pick each bridge at the EMP shape:
 # 8 n^2 = 4.71 GiB (D + mat2) fits 6 GiB; 4 n^2 = 2.36 GiB fits 3 GiB
@@ -484,7 +525,7 @@ def phase_kernels(dev):
             err = rel_err(got, plain)
             worst[v] = max(worst[v], err)
             check(torch.allclose(got, plain, rtol=RTOL, atol=ATOL)
-                  and (v != "brute" or err <= SW_MAIN_RTOL),
+                  and (v == "matmul" or err <= SW_MAIN_RTOL),
                   f"{v} kernel != sw_ref at {(n, p, g)}: rel {err:.3e}")
             log(f"[smoke] kernel {v:9s} f32  (n,P,G)={(n, p, g)} "
                 f"max_rel_err={err:.3e} vs sw_ref")
@@ -519,6 +560,20 @@ def phase_kernels(dev):
               f"{err:.3e} (limit {SW_MAIN_RTOL})")
         log(f"[smoke] kernel brute     f32  (n,P,G)={(n, p, g)} "
             f"max_rel_err={err:.3e} vs sw_ref (tile edges)")
+    for n, p, g in PERMBLOCK_EDGE_SHAPES:
+        mat2, labels, inv_gs = random_instance(n, p, g, n + p + g, dev)
+        got = ops.permanova_sw(mat2, labels, inv_gs, variant="permblock")
+        plain = ref.sw_ref(mat2, labels, inv_gs)
+        plain64 = ref.sw_ref(mat2.double(), labels, inv_gs.double())
+        torch.cuda.synchronize()
+        err, err64 = rel_err(got, plain), rel_err(got.double(), plain64)
+        worst["permblock"] = max(worst["permblock"], err)
+        check(err <= SW_MAIN_RTOL and err64 <= SW_MAIN_RTOL,
+              f"permblock kernel at the tile edge {(n, p, g)}: rel {err:.3e} "
+              f"vs sw_ref, {err64:.3e} vs float64 (limit {SW_MAIN_RTOL})")
+        log(f"[smoke] kernel permblock f32  (n,P,G)={(n, p, g)} "
+            f"max_rel_err={err:.3e} vs sw_ref, {err64:.3e} vs float64 "
+            f"(band, strip and pass edges)")
     return worst
 
 
@@ -593,8 +648,6 @@ def phase_main_path(dev):
 
     g_dev = torch.from_numpy(grouping).to(dev)
     perms = permutations.permutation_batch(g_dev, 0, CROSS_PERMS + 1, seed=1)
-    cross_chunks = -(-(CROSS_PERMS + 1)
-                     // planner.chunk_for_budget(EMP_N, CROSS_PERMS + 1))
     cross = {}
     for impl in ("brute", "tiled", "matmul"):
         zero_launches()
@@ -608,6 +661,9 @@ def phase_main_path(dev):
         log(f"[smoke] cross-impl {impl:6s} n_perms={CROSS_PERMS} {dt:.3f}s "
             f"({(CROSS_PERMS + 1) / dt:.1f} perms/s) F={f_i:.7g} p={p_i:.6g} "
             f"launches={paths[impl]} plan: {r.plan}")
+        # the card's plan for this impl (tiled charges its partials)
+        cross_chunks = -(-(CROSS_PERMS + 1) // planner.plan(
+            EMP_N, CROSS_PERMS + 1, backend="cuda", impl=impl).chunk)
         want = {v: cross_chunks if v == KERNEL_OF[impl] else 0
                 for v in ops.VARIANTS}
         check(paths[impl] == want,
@@ -644,7 +700,7 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
     draw_checks(dev, g_dev, chunk)
     shapes = {"brute": chunk, "permblock": CROSS_PERMS + 1,
               "matmul": CROSS_PERMS + 1}
-    rows = []
+    rows, plain_at = [], {}
     for v in ops.VARIANTS:
         labels = permutations.permutation_batch(g_dev, 0, shapes[v], seed=0)
         small = labels[:2].contiguous()
@@ -661,6 +717,8 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
         got = kern()
         # the plain version is timed on the call whose result is checked
         plain_ms, want = cuda_ms_once(plain, warm=lambda: plain(small))
+        if v != "matmul":
+            plain_at[shapes[v]] = want    # the same labels for any variant
         err_abs = float((got - want).abs().max())
         err = rel_err(got, want)
         check(torch.allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -705,7 +763,96 @@ def phase_timings(dev, mat2, g_dev, paths, worst):
                 f" lanes x {SMS} SMs at {BOOST_HZ / 1e9:.2f} GHz) "
                 f"{floor_ms:.3f} ms, {floor_ms / ms * 100:.1f}% of the "
                 f"kernel's time")
+        if v == "permblock":
+            rows[-1]["at_p"] = permblock_vs_brute(mat2, g_dev, inv_gs,
+                                                  plain_at)
+            rows[-1]["tiled_chunk"] = tiled_chunk_memory(mat2, g_dev, inv_gs)
     return rows
+
+
+def permblock_vs_brute(mat2, g_dev, inv_gs, plain_at) -> list:
+    """The permblock kernel (the paper's Algorithm 2: each staged tile for
+    every permutation) and brute (Algorithm 3's re-streaming) on the same
+    labels, timed in turns (brute, permblock, permblock, brute) at the
+    tiled path's P = 1,000 and at brute's chunk, each beside its bound and
+    its own floor (one INT32 compare per (pair, permutation), the same for
+    both), and permblock within SW_MAIN_RTOL of the plain version there
+    (plain_at: the plain s_W by P, from the rows above, same labels)."""
+    from repro_torch.core import permutations
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels.permanova_sw import ops
+    out = []
+    for p in sorted(plain_at):
+        labels = permutations.permutation_batch(g_dev, 0, p, seed=0)
+        got = ops.permanova_sw(mat2, labels, inv_gs, variant="permblock")
+        err = rel_err(got, plain_at[p])
+        check(err <= SW_MAIN_RTOL,
+              f"permblock at the EMP shape, P = {p}: rel {err:.3e} vs the "
+              f"plain version (limit {SW_MAIN_RTOL})")
+        t = {"brute": [], "permblock": []}
+        for v in ("brute", "permblock", "permblock", "brute"):
+            t[v].append(cuda_ms(lambda v=v: ops.permanova_sw(
+                mat2, labels, inv_gs, variant=v), reps=2))
+        b_ms, _ = bound_ms(mat2, labels, inv_gs, H100_SXM)
+        floor_ms = brute_floor_ms(labels)
+        for v, ts in t.items():
+            check(min(ts) > floor_ms and min(ts) > b_ms,
+                  f"{v} {min(ts):.3f} ms at P = {p} reads under its floors "
+                  f"({floor_ms:.3f}, {b_ms:.3f} ms): a count is wrong")
+        log(f"[smoke] timing permblock vs brute (n={EMP_N}, P={p}, in "
+            f"turns): permblock {t['permblock'][0]:.3f} / "
+            f"{t['permblock'][1]:.3f} ms, brute {t['brute'][0]:.3f} / "
+            f"{t['brute'][1]:.3f} ms, permblock/brute "
+            f"{sum(t['permblock']) / sum(t['brute']):.3f}; bound {b_ms:.3f} "
+            f"ms, own floor (INT32 compares) {floor_ms:.3f} ms, "
+            f"{floor_ms / min(t['permblock']) * 100:.1f}% of permblock's "
+            f"time; max_rel_err {err:.3e} vs the plain version")
+        out.append({"P": p, "ms": t["permblock"], "brute_ms": t["brute"],
+                    "bound_ms": b_ms, "max_rel_err": err})
+    return out
+
+
+def tiled_chunk_memory(mat2, g_dev, inv_gs) -> dict:
+    """A tiled chunk on the card's plan (labels plus the permblock
+    kernel's (blocks, chunk) partials charged against the label budget):
+    the labels and the partials buffer a launch allocates (the kernel
+    allocates nothing else) stay within that budget. The caching
+    allocator's peak above the labels for the wrapper's whole call (the
+    partials, torch.sum's output, and a cached block may be larger than
+    asked for) is logged beside it."""
+    import torch
+    from repro_torch.core import permutations
+    from repro_torch.engine import planner
+    from repro_torch.kernels.permanova_sw import ops
+    pl = planner.plan(EMP_N, EMP_PERMS + 1, backend="cuda", impl="tiled")
+    budget = planner.label_budget()
+    labels = permutations.permutation_batch(g_dev, 0, pl.chunk, seed=0)
+    partials = ops.launch_partials(
+        ops.load_library(), "permblock", mat2, labels, inv_gs,
+        torch.cuda.current_stream().cuda_stream)
+    partial_bytes = partials.numel() * partials.element_size()
+    del partials
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.permanova_sw(mat2, labels, inv_gs, variant="permblock")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    label_bytes = labels.numel() * labels.element_size()
+    total = label_bytes + partial_bytes
+    chunks = -(-(EMP_PERMS + 1) // pl.chunk)
+    check(total <= budget and chunks == 2,
+          f"tiled chunk {pl.chunk}: labels + partials {total / 2**20:.2f} "
+          f"MiB vs the {budget / 2**20:.0f} MiB label budget, {chunks} "
+          f"chunks")
+    log(f"[smoke] tiled chunk (n={EMP_N}, plan: {pl.describe()}): "
+        f"{chunks} chunks of {pl.chunk}; labels {label_bytes / 2**20:.2f} "
+        f"MiB + a launch's partials {partial_bytes / 2**20:.2f} MiB = "
+        f"{total / 2**20:.2f} MiB of the {budget / 2**20:.0f} MiB budget "
+        f"({budget - total} B left); the allocator's peak above the labels "
+        f"for the wrapper's whole call {peak / 2**20:.2f} MiB")
+    return {"chunk": pl.chunk, "chunks": chunks, "bytes": total,
+            "budget_bytes": budget}
 
 
 def brute_floor_ms(labels) -> float:
@@ -883,10 +1030,14 @@ def self_pairs_zeroed(d, lo=0):
     return d
 
 
-def phase_distance_kernels(dev):
+def phase_distance_kernels(dev, x_np):
     """Every distance kernel against its plain version at
     DIST_CHECK_SHAPES; the (256, n, 128) slab is the EMP table's first 256
-    rows against the whole table, as the stream bridge's first slab."""
+    rows against the whole table, as the stream bridge's first slab. Then
+    the whole-table calls (symmetric visit) against the rectangular call
+    on a clone of the table, bit for bit off the diagonal, at
+    DIST_SYM_SHAPES for every kernel and at the EMP table for
+    braycurtis."""
     import numpy as np
     import torch
     from repro_torch.data.microbiome import synthetic_abundance
@@ -913,6 +1064,42 @@ def phase_distance_kernels(dev):
               f"{(nr, nc, d)}")
         log(f"[smoke] kernel jaccard_packed == jaccard bit for bit at "
             f"{(nr, nc, d)} ({np.prod((nr, nc))} entries)")
+    sym_tables = [(n, d, torch.from_numpy(synthetic_abundance(
+        n, d, seed=2 * n + d)).to(dev), dops.KERNELS)
+        for n, d in DIST_SYM_SHAPES]
+    sym_tables.append((EMP_N, EMP_FEATURES, torch.from_numpy(x_np).to(dev),
+                       ("braycurtis",)))
+    for n, d, x, kernels in sym_tables:
+        ops_ = dist_operands(x, x)
+        outs = {}
+        for k in kernels:
+            a = ops_[k][0]
+            check(dops.is_symmetric_call(a, a)
+                  and not dops.is_symmetric_call(a, a.clone()),
+                  "the symmetric predicate must hold for one table only")
+            got = dops.pairwise_rect(a, a, kernel=k)
+            rect = dops.pairwise_rect(a, a.clone(), kernel=k)
+            torch.cuda.synchronize()
+            off = ~torch.eye(n, dtype=torch.bool, device=dev)
+            check(torch.equal(got[off], rect[off]),
+                  f"{k}: the symmetric call != the rectangular call bit for "
+                  f"bit off the diagonal at {(n, d)}")
+            del rect
+            want = dref.REFS[k](a, a)
+            err = float((got[off] - want[off]).abs().max())
+            worst[k] = max(worst[k], err)
+            check(bool(torch.isfinite(got).all()) and torch.allclose(
+                got[off], want[off], rtol=RTOL, atol=ATOL),
+                f"{k} symmetric call != plain at {(n, d)}: abs {err:.3e}")
+            log(f"[smoke] kernel {k:14s} (n,d)={(n, d)} symmetric call == "
+                f"rectangular call (a clone) bit for bit off the diagonal; "
+                f"max_abs_err={err:.3e} vs plain")
+            outs[k] = got
+            del want, off
+        if "jaccard" in outs:
+            check(torch.equal(outs["jaccard_packed"], outs["jaccard"]),
+                  f"jaccard_packed != jaccard symmetric call at {(n, d)}")
+        del outs, ops_
     return worst
 
 
@@ -1020,6 +1207,15 @@ def phase_pipeline(dev, x_np, grouping, f_p_main):
     return paths, dense
 
 
+def dist_pairs(a, b) -> float:
+    """Pairs a call computes: each pair once for a whole-table call (the
+    kernel's symmetric visit), every (row, column) for a slab."""
+    from repro_torch.kernels.distance import ops as dops
+    n = a.shape[0]
+    return n * (n - 1) / 2 if dops.is_symmetric_call(a, b) \
+        else float(a.shape[0] * b.shape[0])
+
+
 def dist_bound_ms(kernel, a, b, chip) -> tuple:
     """(ms, 'bytes' | 'operations'): the least time this card could take
     for the distances of a's rows against b's rows — inputs read once and
@@ -1028,20 +1224,34 @@ def dist_bound_ms(kernel, a, b, chip) -> tuple:
     for the three float kernels (braycurtis: a subtract and an add of its
     magnitude; euclidean and jaccard: a fused multiply-add), 3 per (pair,
     word) for jaccard_packed (AND, popcount, add; the guide's table has
-    no int32 row, and the f32 rate bounds it from below). The O(n^2)
-    finalize and O(n d) row sums are left out, so this stays a lower
-    bound."""
+    no int32 row, and the f32 rate bounds it from below), each pair once
+    for a whole-table call. The O(n^2) finalize and O(n d) row sums are
+    left out, so this stays a lower bound."""
     nr, nc, w = a.shape[0], b.shape[0], a.shape[1]
     nbytes = (a.numel() + b.numel()) * a.element_size() + 4 * nr * nc
-    ops_ = (3 if kernel == "jaccard_packed" else 2) * nr * nc * w
+    ops_ = (3 if kernel == "jaccard_packed" else 2) * dist_pairs(a, b) * w
     t_bytes = nbytes / chip.hbm_bandwidth * 1e3
     t_ops = ops_ / chip.peak_flops_f32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dist_own_floor_ms(kernel, a, b) -> float:
+    """A distance kernel's own floor (its formulation's, not the
+    function's bound): DIST_OWN_INSTR instructions per (pair, feature) on
+    the FP32 lanes, or the popcount per (pair, word) for jaccard_packed,
+    at the boost clock, over the pairs the call computes."""
+    per_sm = POPC_PER_SM if kernel == "jaccard_packed" \
+        else FP32_LANES_PER_SM
+    instr = DIST_OWN_INSTR[kernel] * dist_pairs(a, b) * a.shape[1]
+    return instr / (per_sm * SMS * BOOST_HZ) * 1e3
+
+
 def phase_distance_timings(dev, x_np, paths, worst):
     """Each distance kernel at the main path's shapes: (n, n, 128) once
-    (dense bridge), the (256, n, 128) slab 99 times (stream bridge)."""
+    (dense bridge; the whole-table call, each pair once, and for scale
+    the rectangular call on a clone), the (256, n, 128) slab 99 times
+    (stream bridge); each beside its bound and its own floor (a time under
+    the floor fails the run)."""
     import torch
     from repro_torch.hw import H100_SXM
     from repro_torch.kernels.distance import ops as dops, ref as dref
@@ -1053,10 +1263,10 @@ def phase_distance_timings(dev, x_np, paths, worst):
                 "jaccard": "jaccard", "jaccard_packed": "jaccard_packed"}
     rows, outs = [], {}
     for k in dops.KERNELS:
-        a, b = dense_ops[k]
+        a = dense_ops[k][0]         # one table: the dense bridge's call
         sa, sb = slab_ops[k]
-        got = dops.pairwise_rect(a, b, kernel=k).fill_diagonal_(0.0)
-        want = dref.REFS[k](a, b).fill_diagonal_(0.0)
+        got = dops.pairwise_rect(a, a, kernel=k).fill_diagonal_(0.0)
+        want = dref.REFS[k](a, a).fill_diagonal_(0.0)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
@@ -1064,17 +1274,31 @@ def phase_distance_timings(dev, x_np, paths, worst):
         if k.startswith("jaccard"):
             outs[k] = got
         del got, want
-        ms = cuda_ms(lambda: dops.pairwise_rect(a, b, kernel=k), reps=3)
-        plain_ms = cuda_ms(lambda: dref.REFS[k](a, b), reps=1,
+        ms = cuda_ms(lambda: dops.pairwise_rect(a, a, kernel=k), reps=3)
+        a2 = a.clone()
+        rect_ms = cuda_ms(lambda: dops.pairwise_rect(a, a2, kernel=k),
+                          reps=3)
+        del a2
+        plain_ms = cuda_ms(lambda: dref.REFS[k](a, a), reps=1,
                            warm=lambda: dref.REFS[k](sa, sb))
         slab_ms = cuda_ms(lambda: dops.pairwise_rect(sa, sb, kernel=k),
                           reps=10)
         slab_plain_ms = cuda_ms(lambda: dref.REFS[k](sa, sb), reps=3)
         library_ms = None
         if k == "euclidean":
-            library_ms = cuda_ms(lambda: torch.cdist(a, b), reps=3)
-        b_ms, b_by = dist_bound_ms(k, a, b, H100_SXM)
+            library_ms = cuda_ms(lambda: torch.cdist(a, a), reps=3)
+            check(ms <= library_ms,
+                  f"euclidean kernel {ms:.3f} ms slower than torch.cdist "
+                  f"{library_ms:.3f} ms")
+        b_ms, b_by = dist_bound_ms(k, a, a, H100_SXM)
         sb_ms, sb_by = dist_bound_ms(k, sa, sb, H100_SXM)
+        floor_ms = dist_own_floor_ms(k, a, a)
+        slab_floor_ms = dist_own_floor_ms(k, sa, sb)
+        check(ms > max(floor_ms, b_ms) and slab_ms > max(slab_floor_ms,
+                                                         sb_ms),
+              f"{k} reads under its floors: dense {ms:.3f} ms (floors "
+              f"{floor_ms:.3f}, {b_ms:.3f}), slab {slab_ms:.4f} ms "
+              f"({slab_floor_ms:.4f}, {sb_ms:.4f}): a count is wrong")
         rows.append({
             "name": f"distance.{k}", "route": "cuda",
             "source": DIST_SOURCE, "replaces": DIST_REPLACES[k],
@@ -1083,20 +1307,25 @@ def phase_distance_timings(dev, x_np, paths, worst):
             "launches_by_path": {p: c[k] for p, c in paths.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "rect_ms": rect_ms,
             "shape": {"nr": EMP_N, "nc": EMP_N, "d": EMP_FEATURES,
-                      "operand_cols": a.shape[1]},
+                      "operand_cols": a.shape[1], "symmetric": True},
             "max_abs_err_checks": worst[k],
             "stream_slab": {"nr": STREAM_ROWS, "nc": EMP_N, "ms": slab_ms,
                             "plain_ms": slab_plain_ms, "bound_ms": sb_ms,
                             "bound_by": sb_by, "slabs": n_slabs,
                             "launches": paths["stream"][k]},
         })
-        log(f"[smoke] timing {k:14s} (n={EMP_N}, d={EMP_FEATURES}) dense: "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-            f"{library_ms} ms, bound {b_ms:.3f} ms ({b_by}); slab "
+        log(f"[smoke] timing {k:14s} (n={EMP_N}, d={EMP_FEATURES}) dense "
+            f"(whole table, each pair once): kernel {ms:.3f} ms (the "
+            f"rectangular call on a clone {rect_ms:.3f} ms), plain "
+            f"{plain_ms:.3f} ms, library {library_ms} ms, bound {b_ms:.3f} "
+            f"ms ({b_by}), own floor {floor_ms:.3f} ms "
+            f"({floor_ms / ms * 100:.1f}% of the kernel's time); slab "
             f"({STREAM_ROWS}, n): kernel {slab_ms:.4f} ms x {n_slabs} = "
             f"{slab_ms * n_slabs:.3f} ms, plain {slab_plain_ms:.3f} ms, "
-            f"bound {sb_ms:.4f} ms ({sb_by}); max_abs_err {err:.3e}")
+            f"bound {sb_ms:.4f} ms ({sb_by}), own floor "
+            f"{slab_floor_ms:.4f} ms; max_abs_err {err:.3e}")
     check(torch.equal(outs["jaccard_packed"], outs["jaccard"]),
           "jaccard_packed != jaccard kernel bit for bit at the main shape")
     return rows
@@ -2582,7 +2811,7 @@ def main() -> int:
     log(f"[smoke] phase 4 (timings, reference) "
         f"{time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()
-    dist_worst = phase_distance_kernels(dev)
+    dist_worst = phase_distance_kernels(dev, x)
     log(f"[smoke] phase 5 (distance kernels vs plain) "
         f"{time.perf_counter() - t0:.2f}s")
     t0 = time.perf_counter()

@@ -14,10 +14,12 @@ Figure 1 result as dispatch rules:
 
 `plan()` is shape/backend arithmetic only, no timing; it also fixes the
 streaming chunk, so the live label tensor is (chunk, n) int32 rather
-than (n_perms, n). Dense designs (`n_cols` = K basis columns) plan a
-per-column companion instead (registry.resolve_cols): brute on cuda,
-matmul on cpu, both plain torch products, with the chunk sized for the
-(chunk, n, K) basis factor. (The reference's measured autotune and its
+than (n_perms, n). On cuda a kernel whose partials grow with the chunk
+(the permblock kernel's (blocks, chunk)) has them charged beside the
+labels; cpu plans match the reference's. Dense designs (`n_cols` = K
+basis columns) plan a per-column companion instead
+(registry.resolve_cols): brute on cuda, matmul on cpu, both plain torch
+products, with the chunk sized for the (chunk, n, K) basis factor. (The reference's measured autotune and its
 persisted cache are not ported yet.)
 """
 
@@ -84,14 +86,17 @@ def label_budget(budget_bytes: Optional[float] = None) -> float:
 
 def chunk_for_budget(n: int, n_perms: int,
                      budget_bytes: Optional[float] = None,
-                     n_cols: Optional[int] = None) -> int:
+                     n_cols: Optional[int] = None,
+                     partial_bytes_per_perm: float = 0.0) -> int:
     """Largest permutation chunk whose streamed state — (chunk, n) int32
     labels plus the per-perm output — fits the budget. The resident mat2
     is paid regardless of chunking and is not charged against it. Dense
     designs (n_cols = K basis columns) also stream the gathered (chunk, n,
-    K) f32 basis factor and a (chunk, K) output."""
+    K) f32 basis factor and a (chunk, K) output. partial_bytes_per_perm:
+    a kernel's partials per permutation (SwImpl.card_bytes_per_perm),
+    charged beside the labels."""
     budget = label_budget(budget_bytes)
-    per_perm = 4.0 * n + 8.0
+    per_perm = 4.0 * n + 8.0 + partial_bytes_per_perm
     if n_cols is not None:
         per_perm += 4.0 * n * n_cols + 4.0 * n_cols
     if MIN_CHUNK * per_perm > budget:
@@ -128,11 +133,14 @@ def plan(n: int, n_perms: int, *, backend: str,
                        f"{resolved!r} companion")
             name = resolved
     spec = registry.get(name)
-    if chunk is None:
-        chunk = chunk_for_budget(n, n_perms, memory_budget_bytes,
-                                 n_cols=n_cols)
-    chunk = max(1, min(int(chunk), n_perms))
     on_card = backend == "cuda" and n_cols is None
+    if chunk is None:
+        partials = spec.card_bytes_per_perm(n) \
+            if on_card and spec.card_bytes_per_perm else 0.0
+        chunk = chunk_for_budget(n, n_perms, memory_budget_bytes,
+                                 n_cols=n_cols,
+                                 partial_bytes_per_perm=partials)
+    chunk = max(1, min(int(chunk), n_perms))
     return Plan(impl=spec.name, backend=backend,
                 tuning={} if on_card else dict(spec.tuning),
                 kernel=spec.kernel if on_card else None,

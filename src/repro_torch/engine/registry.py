@@ -49,6 +49,9 @@ class SwImpl:
     description: str = ""
     cols: Optional[Callable] = None   # dense-design companion, or None
                                       # for a label-only dataflow
+    card_bytes_per_perm: Optional[Callable[[int], int]] = None
+    # device bytes the kernel's partials add per permutation at n, charged
+    # by a cuda plan beside the labels (None: nothing to charge)
 
     def bound(self, **overrides) -> Callable:
         """The batch callable, with tuning resolved (defaults <-
@@ -119,8 +122,9 @@ register(SwImpl(
     name="tiled", plain=fstat.sw_tiled, kernel="permblock",
     tuning={"tile": 64, "block": 8},
     description="paper Algorithm 2 dataflow: cache-tiled loop nest (the "
-                "MI300A CPU winner); on the card, a block of perms per "
-                "on-chip mat2 tile",
+                "MI300A CPU winner); on the card, every perm of a chunk "
+                "per staged mat2 tile",
+    card_bytes_per_perm=lambda n: 4 * ops.permblock_blocks(n),
 ))
 register(SwImpl(
     name="matmul", plain=fstat.sw_matmul, kernel="matmul",

@@ -14,7 +14,10 @@ tensors it runs the plain version (`ref.py`); on CUDA tensors it launches
 the kernel on the current stream, without synchronising, or raises. There
 is no fallback from a kernel to its plain version. The kernels take their
 tiles from the source and mask ragged shapes themselves, so nothing is
-padded. `LAUNCHES` counts kernel launches per kernel.
+padded. A call of one table against itself (`is_symmetric_call`: the same
+storage, shape and strides, as `pairwise_distance` makes it) computes
+the tiles j >= i only and mirrors them; the result is the rectangular
+call's bit for bit. `LAUNCHES` counts kernel launches per kernel.
 """
 
 from __future__ import annotations
@@ -33,16 +36,15 @@ METRICS = ("braycurtis", "euclidean", "jaccard")
 LAUNCHES = {k: 0 for k in KERNELS}
 SOURCE = Path(__file__).resolve().parent / "csrc" / "distance.cu"
 
-_TILE = 64                  # kTile in the source
-_MAX_GRID_Y = 65535
+TILE = 128                  # kTile in the source
 _lib = None
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # every pointer and the stream as c_void_p, so no 64-bit address is cut to
 # a 32-bit int
 SIGNATURES = {
-    "distance_launch": ([_I32, _PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR],
-                        _I32),
+    "distance_launch": ([_I32, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I32,
+                         _PTR], _I32),
 }
 
 
@@ -79,8 +81,18 @@ def _check(xr, xc, kernel):
                          f"{xc.device}")
     if xr.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xr.device}")
-    if -(-xr.shape[0] // _TILE) > _MAX_GRID_Y:
-        raise ValueError(f"{xr.shape[0]} rows exceed the kernel's grid")
+    if -(-xr.shape[0] // TILE) * -(-xc.shape[0] // TILE) >= 2 ** 31:
+        raise ValueError(f"({xr.shape[0]}, {xc.shape[0]}) exceeds the "
+                         f"kernel's grid")
+
+
+def is_symmetric_call(xr: torch.Tensor, xc: torch.Tensor) -> bool:
+    """Whether a call covers one table against itself: the same storage
+    at the same address, shape and strides. The kernel then visits the
+    tiles j >= i only and writes each with its transpose. A clone, a row
+    slab or an offset view of the table is a rectangular call."""
+    return (xr.data_ptr() == xc.data_ptr() and xr.shape == xc.shape
+            and xr.stride() == xc.stride())
 
 
 def pairwise_rect(xr: torch.Tensor, xc: torch.Tensor, *, kernel: str
@@ -89,7 +101,8 @@ def pairwise_rect(xr: torch.Tensor, xc: torch.Tensor, *, kernel: str
 
     kernel: 'braycurtis' | 'euclidean' | 'jaccard' (f32 operands; jaccard
     on presence/absence 0/1) | 'jaccard_packed' (int32 words from
-    core.distance.pack_presence_bits)."""
+    core.distance.pack_presence_bits). When xr and xc are one table
+    (is_symmetric_call), the kernel computes each pair once."""
     _check(xr, xc, kernel)
     if xr.device.type == "cpu":
         return ref.REFS[kernel](xr, xc)
@@ -99,7 +112,7 @@ def pairwise_rect(xr: torch.Tensor, xc: torch.Tensor, *, kernel: str
     stream = torch.cuda.current_stream(xr.device).cuda_stream
     err = lib.distance_launch(KERNELS.index(kernel), xr.data_ptr(),
                               xc.data_ptr(), out.data_ptr(), nr, nc, d,
-                              stream)
+                              int(is_symmetric_call(xr, xc)), stream)
     if err != 0:
         raise RuntimeError(f"distance {kernel} kernel launch failed: "
                            f"cudaError {err}")
@@ -129,7 +142,9 @@ def pairwise_distance(x: torch.Tensor, *, metric: str = "braycurtis",
     Jaccard expects presence/absence floats (distance.presence_prepare);
     the registry's prepare supplies them. packed=1 (jaccard only) packs
     presence into 32-bit words and runs the popcount kernel: the same
-    distances bit for bit, from 32x fewer feature bytes."""
+    distances bit for bit, from 32x fewer feature bytes. The table goes
+    in once as both operands, so on the card each pair is computed once
+    (is_symmetric_call)."""
     kernel = _kernel_for(metric, packed)
     xq = _operand(x, packed)
     return pairwise_rect(xq, xq, kernel=kernel).fill_diagonal_(0.0)

@@ -33,9 +33,10 @@
 //                   still sum to the whole statistic.
 //   feature phase   per tile, once: 32-feature chunks staged transposed in
 //                   shared memory, each thread a 4 x 4 micro-tile of
-//                   accumulators in registers (the layout of
-//                   kernels/distance/csrc/distance.cu, whose metric bodies
-//                   are copied below with a squared finalize)
+//                   accumulators in registers (the layout the distance
+//                   kernels had before their 128 x 128 tiles; their
+//                   metric bodies, kernels/distance/csrc/distance.cu, are
+//                   copied below with a squared finalize)
 //   finalize        D2 and the mask by GLOBAL index, once: slab pad rows,
 //                   row_offset + r >= n_valid, c >= n_valid and the exact
 //                   diagonal row_offset + r == c are zeroed before anything

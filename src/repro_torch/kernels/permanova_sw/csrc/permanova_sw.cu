@@ -32,13 +32,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
@@ -115,13 +108,12 @@ constexpr int kBruteSmemBytes = 2 * kBruteStageBytes;  // 102,400
 static_assert(kBruteCols % 4 == 0 && kBruteRows % kWarps == 0 &&
               kBrutePerms % 32 == 0, "whole vectors, warps and lanes");
 
-// Start the copies of column tile c0.. of band r0.. into one ring stage:
-// the mat2 tile (zero where j <= i, i >= n or j >= n) and the labels of
-// permutations p0.. at those columns (zero past P or n).
-__device__ __forceinline__ void brute_load_tile(
-    float* ms, int* lab, const float* __restrict__ mat2,
-    const int* __restrict__ groupings, int64_t n, int64_t n_perms,
-    int64_t r0, int64_t c0, int64_t p0) {
+// Start the copies of the mat2 tile of rows r0.. and columns c0.. into
+// shared memory, zero where j <= i, i >= n or j >= n (so a diagonal tile
+// adds only j > i and nothing past n is read). Both kernels below.
+__device__ __forceinline__ void load_mat2_tile(
+    float* ms, const float* __restrict__ mat2, int64_t n, int64_t r0,
+    int64_t c0) {
   for (int e = threadIdx.x; e < kBruteTileFloats; e += kThreads) {
     const int r = e / kBruteCols, c = e % kBruteCols;
     const int64_t i = r0 + r, j = c0 + c;
@@ -129,6 +121,13 @@ __device__ __forceinline__ void brute_load_tile(
     cp_async4(ms + e, ok ? (const void*)(mat2 + i * n + j)
                          : (const void*)mat2, ok ? 4 : 0);
   }
+}
+
+// Start the copies of the labels of permutations p0.. at columns c0..
+// (rows of kBruteLabLd ints; zero past P or n).
+__device__ __forceinline__ void load_col_labels(
+    int* lab, const int* __restrict__ groupings, int64_t n, int64_t n_perms,
+    int64_t c0, int64_t p0) {
   for (int e = threadIdx.x; e < kBrutePerms * kBruteCols; e += kThreads) {
     const int q = e / kBruteCols, c = e % kBruteCols;
     const int64_t p = p0 + q, j = c0 + c;
@@ -136,6 +135,37 @@ __device__ __forceinline__ void brute_load_tile(
     cp_async4(lab + q * kBruteLabLd + c,
               ok ? (const void*)(groupings + p * n + j)
                  : (const void*)groupings, ok ? 4 : 0);
+  }
+}
+
+// One staged tile applied to 128 permutations: ms points at the warp's 8
+// rows of the tile, lab at the labels of the lane's first permutation;
+// gr and acc hold the row labels and accumulators of (row, permutation
+// lane + 32k). Both kernels below.
+__device__ __forceinline__ void apply_tile(
+    const float* ms, const int* lab,
+    const int (&gr)[kBruteWarpRows][kBruteLanePerms],
+    float (&acc)[kBruteWarpRows][kBruteLanePerms]) {
+#pragma unroll 2
+  for (int c = 0; c < kBruteCols; c += 4) {
+    int4 gc[kBruteLanePerms];
+#pragma unroll
+    for (int k = 0; k < kBruteLanePerms; ++k)
+      gc[k] = *reinterpret_cast<const int4*>(lab + 32 * k * kBruteLabLd +
+                                             c);
+#pragma unroll
+    for (int r = 0; r < kBruteWarpRows; ++r) {
+      const float4 m =
+          *reinterpret_cast<const float4*>(ms + r * kBruteCols + c);
+#pragma unroll
+      for (int k = 0; k < kBruteLanePerms; ++k) {
+        const int g = gr[r][k];
+        if (g == gc[k].x) acc[r][k] += m.x;
+        if (g == gc[k].y) acc[r][k] += m.y;
+        if (g == gc[k].z) acc[r][k] += m.z;
+        if (g == gc[k].w) acc[r][k] += m.w;
+      }
+    }
   }
 }
 
@@ -168,45 +198,25 @@ sw_brute_kernel(const float* __restrict__ mat2,
   auto stage_ms = [&](int64_t t) {
     return reinterpret_cast<float*>(brute_smem + (t & 1) * kBruteStageBytes);
   };
-  brute_load_tile(stage_ms(0), reinterpret_cast<int*>(stage_ms(0) +
-                  kBruteTileFloats), mat2, groupings, n, n_perms, r0,
-                  band * kBruteCols, p0);
+  load_mat2_tile(stage_ms(0), mat2, n, r0, band * kBruteCols);
+  load_col_labels(reinterpret_cast<int*>(stage_ms(0) + kBruteTileFloats),
+                  groupings, n, n_perms, band * kBruteCols, p0);
   cp_async_commit();
   for (int64_t t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();
     __syncthreads();   // tile t has landed; stage t + 1's readers are done
     if (t + 1 < n_tiles) {
       float* nxt = stage_ms(t + 1);
-      brute_load_tile(nxt, reinterpret_cast<int*>(nxt + kBruteTileFloats),
-                      mat2, groupings, n, n_perms, r0,
-                      (band + t + 1) * kBruteCols, p0);
+      load_mat2_tile(nxt, mat2, n, r0, (band + t + 1) * kBruteCols);
+      load_col_labels(reinterpret_cast<int*>(nxt + kBruteTileFloats),
+                      groupings, n, n_perms, (band + t + 1) * kBruteCols,
+                      p0);
     }
     cp_async_commit();
-    const float* ms = stage_ms(t) + rw * kBruteCols;
-    const int* lab = reinterpret_cast<const int*>(stage_ms(t) +
-                                                  kBruteTileFloats) +
-                     lane * kBruteLabLd;
-#pragma unroll 2
-    for (int c = 0; c < kBruteCols; c += 4) {
-      int4 gc[kBruteLanePerms];
-#pragma unroll
-      for (int k = 0; k < kBruteLanePerms; ++k)
-        gc[k] = *reinterpret_cast<const int4*>(lab + 32 * k * kBruteLabLd +
-                                               c);
-#pragma unroll
-      for (int r = 0; r < kBruteWarpRows; ++r) {
-        const float4 m =
-            *reinterpret_cast<const float4*>(ms + r * kBruteCols + c);
-#pragma unroll
-        for (int k = 0; k < kBruteLanePerms; ++k) {
-          const int g = gr[r][k];
-          if (g == gc[k].x) acc[r][k] += m.x;
-          if (g == gc[k].y) acc[r][k] += m.y;
-          if (g == gc[k].z) acc[r][k] += m.z;
-          if (g == gc[k].w) acc[r][k] += m.w;
-        }
-      }
-    }
+    apply_tile(stage_ms(t) + rw * kBruteCols,
+               reinterpret_cast<const int*>(stage_ms(t) + kBruteTileFloats) +
+                   lane * kBruteLabLd,
+               gr, acc);
   }
   cp_async_wait<0>();
 
@@ -231,98 +241,156 @@ sw_brute_kernel(const float* __restrict__ mat2,
 
 // ---------------------------------------------------------------------------
 // permblock — replaces kernels/permanova_sw/kernel.py:sw_permblock_pallas
-// (the paper's CPU tiling on an on-chip tile).
+// (the paper's Algorithm 2: one cache-resident mat2 tile serves a block of
+// permutations), here with the tile in shared memory and EVERY permutation
+// of the launch as its block.
 //
-// Grid (ceil(P / kPB), ceil(n / kTile)); block (pb, ti) walks the row
-// stripe ti over the upper-triangle tiles tj >= ti. Each 64 x 64 mat2 tile
-// is read once into registers (thread t holds column t % 64 of rows
-// t / 64 + 4k, k < 16, with the lower triangle and the ragged edge zeroed)
-// and applied to kPB = 16 permutations, whose row and column labels sit in
-// shared memory. Each block writes partials[p, ti] for its 16 permutations.
+// Brute's grid is (permutation block, band): it streams the triangle from
+// L2 once per 128 permutations. Here a block owns a 64-row band ti, a strip
+// of kPbStripTiles = 16 column tiles j >= ti (the strips that start at the
+// diagonal and every 16 tiles after it, numbered strip offset first, as
+// fused_sw.cu's symmetric visit) and every permutation, so each mat2 tile
+// of the upper triangle is read from HBM once and staged once. Per tile,
+// passes of 128 permutations run brute's pattern (apply_tile): the pass's
+// column labels come through a two-stage cp.async ring, the row labels and
+// one accumulator per (row, permutation) sit in registers, `if (g_r ==
+// g_c) acc += m`; w[g_r] is applied once per (row, permutation) a pass and
+// one fixed-order reduction per (tile, pass) adds the 8 warps' sums into
+// the block's running s_W, kept in its own partial row (one value per
+// (block, permutation), read and rewritten by the same thread). The
+// wrapper sums the (blocks, P) partials with one torch.sum over the
+// blocks. No atomics.
 //
-// Bound: ceil(P / 16) * n^2 * 4 B / 2 (upper tiles) = 0.32 TB, 0.09 s of
-// HBM, against 1.3e12 masked (pair, permutation) updates of a compare and
-// an FMA each: issue-bound at a similar order. The perm block is the grid's
-// fastest axis, so the blocks resident at once share a few row stripes in
-// L2.
+// What bounds it: the same compare-and-add as brute, P n(n-1)/2 INT32
+// compares, 18.9 ms at P = 1,000 and n = 25,145 over 132 SMs x 64 lanes
+// at 1.98 GHz; mat2 crosses HBM once (1.26 GB, 0.38 ms). Unlike brute it
+// reloads the pass's row labels for every tile: 32 loads a thread whose
+// lanes hit 32 rows of the label array, served by L1. So the tile is
+// staged once, in one buffer (its copies start when the previous tile's
+// last pass is done, one exposed copy per n_pass passes): 90,112 bytes of
+// shared memory, two blocks an SM, leave L1 room for those rows. A second
+// tile buffer (106,496 bytes) made the kernel slower on the card;
+// staging 2 or 4 tiles a pass, which halves or quarters the reloads, did
+// not beat one.
 // ---------------------------------------------------------------------------
 
-constexpr int kPB = 16;
-constexpr int kTile = 64;
-constexpr int kRowsPerThread = kTile * kTile / kThreads;  // 16
+constexpr int kPbStripTiles = 16;   // column tiles a block walks
+constexpr int kPbPass = kBrutePerms;   // permutations a pass (128)
+constexpr int kPbLabStage = kPbPass * kBruteLabLd;   // ints a label stage
+constexpr int kPbSmemBytes =
+    (kBruteTileFloats + 2 * kPbLabStage + kWarps * kPbPass) * 4;
+static_assert(kPbSmemBytes == 90112, "one mat2 tile, two label stages");
+static_assert(kThreads >= kPbPass, "a thread sums a permutation");
 
-__global__ void __launch_bounds__(kThreads)
+// A block's (band, first column tile): blocks are the strips of
+// kPbStripTiles column tiles that start at the diagonal and every
+// kPbStripTiles tiles after it, strip offset first (c = 0 for every band,
+// then c = 1, ...).
+struct PbBlock {
+  int64_t ti, jt0;
+};
+
+__host__ __device__ inline int64_t pb_blocks(int64_t nt) {
+  int64_t total = 0;
+  for (int64_t c = 0; c * kPbStripTiles < nt; ++c)
+    total += nt - c * kPbStripTiles;
+  return total;
+}
+
+__device__ __forceinline__ PbBlock pb_block(int64_t b, int64_t nt) {
+  int64_t c = 0;
+  while (b >= nt - c * kPbStripTiles) {
+    b -= nt - c * kPbStripTiles;
+    ++c;
+  }
+  return {b, b + c * kPbStripTiles};
+}
+
+// Grid: pb_blocks(ceil(n / 64)) blocks of 256 threads. Step s = t * n_pass
+// + q (tile t of the strip, pass q) takes its column labels from label
+// stage s % 2, copied during step s - 1. partials: (blocks, P).
+__global__ void __launch_bounds__(kThreads, 2)
 sw_permblock_kernel(const float* __restrict__ mat2,
                     const int* __restrict__ groupings,
                     const float* __restrict__ w,
                     float* __restrict__ partials, int64_t n,
                     int64_t n_perms, int n_groups) {
-  __shared__ int gr[kPB][kTile];
-  __shared__ float wr[kPB][kTile];
-  __shared__ int gc[kPB][kTile];
-  __shared__ float scratch[kWarps][kPB];
-  const int64_t p0 = (int64_t)blockIdx.x * kPB;
-  const int64_t ti = blockIdx.y;
-  const int64_t n_tiles = gridDim.y;
-  const int64_t r0 = ti * kTile;
+  extern __shared__ __align__(16) unsigned char pb_smem[];
+  float* tile = reinterpret_cast<float*>(pb_smem);         // [64 * 64]
+  int* labs = reinterpret_cast<int*>(tile + kBruteTileFloats);
+  float* red = reinterpret_cast<float*>(labs + 2 * kPbLabStage);
   const int tid = threadIdx.x;
-  const int c = tid % kTile;
-  const int rbase = tid / kTile;
-
-  for (int e = tid; e < kPB * kTile; e += kThreads) {
-    const int q = e / kTile, r = e % kTile;
-    const int64_t p = p0 + q, i = r0 + r;
-    int gi = -2;  // pad rows never match a column (pad columns carry -1)
-    if (p < n_perms && i < n) gi = groupings[p * n + i];
-    gr[q][r] = gi;
-    wr[q][r] = row_weight(gi, w, n_groups);
-  }
-
-  float acc[kPB];
-#pragma unroll
-  for (int q = 0; q < kPB; ++q) acc[q] = 0.f;
-
-  for (int64_t tj = ti; tj < n_tiles; ++tj) {
-    const int64_t c0 = tj * kTile;
-    __syncthreads();  // the previous tile's readers of gc are done
-    for (int e = tid; e < kPB * kTile; e += kThreads) {
-      const int q = e / kTile, cc = e % kTile;
-      const int64_t p = p0 + q, j = c0 + cc;
-      gc[q][cc] = (p < n_perms && j < n) ? groupings[p * n + j] : -1;
-    }
-    float m[kRowsPerThread];
-    const int64_t j = c0 + c;
-#pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      const int64_t i = r0 + rbase + 4 * k;
-      m[k] = (i < n && j < n && j > i) ? __ldg(mat2 + i * n + j) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kPB; ++q) {
-      const int gj = gc[q][c];
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k) {
-        const int r = rbase + 4 * k;
-        s += (gr[q][r] == gj) ? m[k] * wr[q][r] : 0.f;
-      }
-      acc[q] += s;
-    }
-  }
-
   const int lane = tid & 31, warp = tid >> 5;
+  const int rw = warp * kBruteWarpRows;   // the warp's first row in the band
+  const int64_t nt = (n + kBruteCols - 1) / kBruteCols;
+  const PbBlock blk = pb_block(blockIdx.x, nt);
+  const int n_t = (int)min64(kPbStripTiles, nt - blk.jt0);
+  const int64_t r0 = blk.ti * kBruteRows;
+  const int64_t n_pass = (n_perms + kPbPass - 1) / kPbPass;
+  float* __restrict__ out = partials + (int64_t)blockIdx.x * n_perms;
+
+  load_mat2_tile(tile, mat2, n, r0, blk.jt0 * kBruteCols);
+  load_col_labels(labs, groupings, n, n_perms, blk.jt0 * kBruteCols, 0);
+  cp_async_commit();
+  int64_t s = 0;
+  for (int t = 0; t < n_t; ++t) {
+    const int64_t c0 = (blk.jt0 + t) * kBruteCols;
+    if (t > 0) {   // tile t - 1's readers passed its last reduction barrier
+      load_mat2_tile(tile, mat2, n, r0, c0);
+      cp_async_commit();
+    }
+    for (int64_t q = 0; q < n_pass; ++q, ++s) {
+      const int64_t p0 = q * kPbPass;
+      // row labels of (row rw + r, permutation p0 + lane + 32k); -1 past
+      // n or P
+      int gr[kBruteWarpRows][kBruteLanePerms];
+      float acc[kBruteWarpRows][kBruteLanePerms];
 #pragma unroll
-  for (int q = 0; q < kPB; ++q) {
-    const float v = warp_sum(acc[q]);
-    if (lane == 0) scratch[warp][q] = v;
+      for (int k = 0; k < kBruteLanePerms; ++k) {
+        const int64_t p = p0 + lane + 32 * k;
+        const int* src = groupings + p * n + r0 + rw;
+#pragma unroll
+        for (int r = 0; r < kBruteWarpRows; ++r) {
+          gr[r][k] = p < n_perms && r0 + rw + r < n ? __ldg(src + r) : -1;
+          acc[r][k] = 0.f;
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();   // step s's labels (and tile t) have landed; step
+                         // s - 1's readers are done
+      // the next step's labels: this tile's next pass, else the next
+      // tile's first
+      if (q + 1 < n_pass)
+        load_col_labels(labs + ((s + 1) & 1) * kPbLabStage, groupings, n,
+                        n_perms, c0, p0 + kPbPass);
+      else if (t + 1 < n_t)
+        load_col_labels(labs + ((s + 1) & 1) * kPbLabStage, groupings, n,
+                        n_perms, c0 + kBruteCols, 0);
+      cp_async_commit();
+      apply_tile(tile + rw * kBruteCols,
+                 labs + (s & 1) * kPbLabStage + lane * kBruteLabLd, gr, acc);
+
+      // w[g_r] once per (row, permutation), then the warps in a fixed
+      // order into the block's running s_W
+#pragma unroll
+      for (int k = 0; k < kBruteLanePerms; ++k) {
+        float v = 0.f;
+#pragma unroll
+        for (int r = 0; r < kBruteWarpRows; ++r)
+          v = fmaf(acc[r][k], row_weight(gr[r][k], w, n_groups), v);
+        red[warp * kPbPass + lane + 32 * k] = v;
+      }
+      __syncthreads();
+      const int64_t p = p0 + tid;
+      if (tid < kPbPass && p < n_perms) {
+        float v = 0.f;
+#pragma unroll
+        for (int k = 0; k < kWarps; ++k) v += red[k * kPbPass + tid];
+        out[p] = (t == 0 ? 0.f : out[p]) + v;
+      }
+    }
   }
-  __syncthreads();
-  if (tid < kPB && p0 + tid < n_perms) {
-    float s = 0.f;
-    for (int k = 0; k < kWarps; ++k) s += scratch[k][tid];
-    partials[(p0 + tid) * n_tiles + ti] = s;
-  }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -816,18 +884,20 @@ sw_matmul_kernel(const T* __restrict__ mat2,
 extern "C" {
 
 // Tile constants the host needs to size the partials:
-// [brute rows per band, permblock perms per block, permblock tile,
+// [brute rows per band, permblock perms per pass, permblock tile,
 //  matmul rows per block, matmul max perms per block, matmul one-hot
-//  columns per block, brute columns per tile, brute perms per block].
+//  columns per block, brute columns per tile, brute perms per block,
+//  permblock column tiles per strip].
 void sw_kernel_config(int* out) {
   out[0] = kBruteRows;
-  out[1] = kPB;
-  out[2] = kTile;
+  out[1] = kPbPass;
+  out[2] = kBruteRows;
   out[3] = kMR;
   out[4] = kMaxPB;
   out[5] = kMN;
   out[6] = kBruteCols;
   out[7] = kBrutePerms;
+  out[8] = kPbStripTiles;
 }
 
 // partials: (P, ceil(n / 64)) f32. The two-stage ring takes 102,400 bytes
@@ -848,13 +918,20 @@ int sw_brute_launch(const void* mat2, const void* groupings, const void* w,
   return (int)cudaGetLastError();
 }
 
-// partials: (P, ceil(n / 64)) f32.
+// partials: (blocks, P) f32, blocks = pb_blocks(ceil(n / 64)) (5,025 at
+// n = 25,145). The tile and the label stages take 90,112 bytes of dynamic
+// shared memory, above the 48 KB default, so the limit is raised first.
 int sw_permblock_launch(const void* mat2, const void* groupings,
                         const void* w, void* partials, long long n,
                         long long n_perms, int n_groups, void* stream) {
-  const dim3 grid((unsigned)((n_perms + kPB - 1) / kPB),
-                  (unsigned)((n + kTile - 1) / kTile));
-  sw_permblock_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const int64_t blocks = pb_blocks((n + kBruteCols - 1) / kBruteCols);
+  if (n < 1 || n_perms < 1 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(sw_permblock_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kPbSmemBytes);
+  sw_permblock_kernel<<<(unsigned)blocks, kThreads, kPbSmemBytes,
+                        (cudaStream_t)stream>>>(
       (const float*)mat2, (const int*)groupings, (const float*)w,
       (float*)partials, n, n_perms, n_groups);
   return (int)cudaGetLastError();

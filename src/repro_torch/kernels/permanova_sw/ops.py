@@ -29,6 +29,9 @@ LAUNCHES = {v: 0 for v in VARIANTS}
 SOURCE = Path(__file__).resolve().parent / "csrc" / "permanova_sw.cu"
 
 _MAX_GRID_Y = 65535
+# the permblock kernel's band / tile (kBruteRows) and strip (kPbStripTiles)
+PERMBLOCK_TILE = 64
+PERMBLOCK_STRIP_TILES = 16
 _lib = None
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -56,12 +59,23 @@ def load_library() -> ctypes.CDLL:
 
 def kernel_config(lib: ctypes.CDLL) -> dict:
     """The tile constants compiled into the library."""
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 9)()
     lib.sw_kernel_config(out)
-    return {"brute_rows": out[0], "permblock_perms": out[1],
+    return {"brute_rows": out[0], "permblock_pass": out[1],
             "permblock_tile": out[2], "matmul_rows": out[3],
             "matmul_max_perm_block": out[4], "matmul_columns": out[5],
-            "brute_cols": out[6], "brute_perms": out[7]}
+            "brute_cols": out[6], "brute_perms": out[7],
+            "permblock_strip_tiles": out[8]}
+
+
+def permblock_blocks(n: int, tile: int = PERMBLOCK_TILE,
+                     strip: int = PERMBLOCK_STRIP_TILES) -> int:
+    """Blocks of the permblock kernel for an (n, n) mat2 (pb_blocks in the
+    source): the strips of `strip` column tiles that start at each band's
+    diagonal tile and every `strip` tiles after it. Its partials are
+    (blocks, P) f32: 5,025 blocks at n = 25,145."""
+    nt = -(-n // tile)
+    return sum(nt - c * strip for c in range(-(-nt // strip)))
 
 
 def _rounded_sqrt_w(inv_group_sizes: torch.Tensor, dtype) -> torch.Tensor:
@@ -108,17 +122,33 @@ def _check(mat2, groupings, inv_group_sizes, variant):
 def _launch(lib, variant, mat2, groupings, inv_group_sizes, stream: int
             ) -> torch.Tensor:
     """Launch `variant` on `stream`; the (P,) s_W from its partials."""
+    partials = launch_partials(lib, variant, mat2, groupings,
+                               inv_group_sizes, stream)
+    return partials.sum(dim=0 if variant == "permblock" else 1)
+
+
+def launch_partials(lib, variant, mat2, groupings, inv_group_sizes,
+                    stream: int) -> torch.Tensor:
+    """Launch `variant` on `stream` into a partials buffer of its own and
+    return it: (P, bands) for brute and matmul, (blocks, P) for permblock.
+    The kernel allocates nothing else."""
     cfg = kernel_config(lib)
     n, n_perms = mat2.shape[0], groupings.shape[0]
     n_groups = inv_group_sizes.shape[0]
-    rows = {"brute": cfg["brute_rows"], "permblock": cfg["permblock_tile"],
-            "matmul": cfg["matmul_rows"]}[variant]
-    n_bands = -(-n // rows)
-    if n_bands > _MAX_GRID_Y or n_perms >= 2 ** 31:
+    if variant == "permblock":
+        # (blocks, P): one running s_W per (block, permutation)
+        shape = (permblock_blocks(n, cfg["permblock_tile"],
+                                  cfg["permblock_strip_tiles"]), n_perms)
+        too_big = shape[0] >= 2 ** 31
+    else:
+        rows = cfg["brute_rows"] if variant == "brute" \
+            else cfg["matmul_rows"]
+        shape = (n_perms, -(-n // rows))
+        too_big = shape[1] > _MAX_GRID_Y or n_perms >= 2 ** 31
+    if too_big:
         raise ValueError(f"shape (P={n_perms}, n={n}) exceeds the "
                          f"{variant} kernel's grid")
-    partials = torch.empty((n_perms, n_bands), dtype=torch.float32,
-                           device=mat2.device)
+    partials = torch.empty(shape, dtype=torch.float32, device=mat2.device)
     args = (mat2.data_ptr(), groupings.data_ptr())
     if variant == "matmul":
         sqrt_w = _rounded_sqrt_w(inv_group_sizes, mat2.dtype)
@@ -136,7 +166,7 @@ def _launch(lib, variant, mat2, groupings, inv_group_sizes, stream: int
         raise RuntimeError(f"permanova_sw {variant} kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES[variant] += 1
-    return partials.sum(dim=1)
+    return partials
 
 
 def permanova_sw(mat2: torch.Tensor, groupings: torch.Tensor,
@@ -153,10 +183,12 @@ def permanova_sw(mat2: torch.Tensor, groupings: torch.Tensor,
 
     The brute kernel applies each staged 64 x 64 tile of the upper
     triangle to 128 permutations (a compare and a predicated add per
-    pair and permutation), permblock takes 16 and matmul as many as fill
-    256 one-hot columns (32 at G = 8, at most 128), on the tensor cores
-    (wgmma): two TF32 products of an exact split on f32 mat2, one bf16
-    product on bf16.
+    pair and permutation); permblock stages each tile once and applies
+    it to every permutation of the call in passes of 128 (the paper's
+    Algorithm 2; its partials are (blocks, P), see permblock_blocks);
+    matmul takes as many as fill 256 one-hot columns (32 at G = 8, at
+    most 128), on the tensor cores (wgmma): two TF32 products of an exact
+    split on f32 mat2, one bf16 product on bf16.
     """
     _check(mat2, groupings, inv_group_sizes, variant)
     if mat2.device.type == "cpu":

@@ -219,6 +219,11 @@ def test_ctypes_signature_matches_source():
 
 
 def test_source_holds_four_kernels_and_names_what_they_replace():
+    """One template for the four metrics: 128 x 128 tiles, an 8 x 8
+    micro-tile a thread, 32-feature chunks double-buffered through
+    cp.async, a symmetric visit of the tiles j >= i that writes each
+    off-diagonal tile and its transpose; the wrapper's TILE is the
+    source's."""
     src = ops.SOURCE.read_text()
     for fn in ("braycurtis_pallas", "euclidean_pallas", "jaccard_pallas",
                "jaccard_packed_pallas"):
@@ -230,6 +235,71 @@ def test_source_holds_four_kernels_and_names_what_they_replace():
     assert src.count("return jaccard_finalize(") == 2
     assert "cublas" not in src.lower() and "cudnn" not in src.lower()
     assert "atomicAdd" not in src
+    assert f"constexpr int kTile = {ops.TILE};" in src and ops.TILE == 128
+    assert "constexpr int kMicro = 8;" in src
+    assert "cp.async.ca.shared.global" in src
+    assert "cp_async_wait<1>();" in src          # chunk c + 1 in flight
+    assert "return sym ? nti * (nti + 1) / 2 : nti * ntj;" in src
+    assert "if (sym && tp.bj != tp.bi) {" in src
+    assert "out[j * nc + i] = tile[r * kOutPitch + cc];" in src
+    assert "(symmetric && nr != nc)" in src
+
+
+def _sym_blocks(n, tile=ops.TILE):
+    """The kernel's blocks of a symmetric call in launch order
+    (tile_pair in the source): row tile by row tile, the tiles j >= i."""
+    nt = -(-n // tile)
+    return [(i, j) for i in range(nt) for j in range(i, nt)]
+
+
+@pytest.mark.parametrize("n", [57, 128, 130, 300, 385])
+def test_symmetric_visit_writes_every_entry_once(n):
+    """The blocks of a whole-table call, each writing its tile and (off
+    the diagonal) its transpose, cover every entry of the (n, n) output
+    exactly once; mirroring the plain version's tiles j >= i rebuilds the
+    plain version's full table bit for bit (|a - b| = |b - a|, and a pair's
+    sums are formed the same way in either order)."""
+    t = ops.TILE
+    x = torch.from_numpy(_features(n, 9, n))
+    full = ref.REFS["braycurtis"](x, x)
+    count = torch.zeros(n, n, dtype=torch.int32)
+    out = torch.full((n, n), float("nan"))
+    blocks = _sym_blocks(n)
+    assert len(blocks) == (-(-n // t)) * (-(-n // t) + 1) // 2
+    for i, j in blocks:
+        r, c = slice(i * t, i * t + t), slice(j * t, j * t + t)
+        count[r, c] += 1
+        out[r, c] = full[r, c]
+        if j != i:
+            count[c, r] += 1
+            out[c, r] = full[r, c].T
+    assert bool((count == 1).all())
+    assert torch.equal(out, full)
+
+
+def test_symmetric_predicate_holds_for_one_table_only(monkeypatch):
+    """pairwise_distance(x) hands the kernel one table as both operands
+    (packed too), so the call is symmetric; a slab, a clone of the table
+    or an offset view of it is a rectangular call."""
+    x = distance.presence_prepare(torch.from_numpy(_features(40, 64, 3)))
+    seen = []
+    real = ops.pairwise_rect
+
+    def spy(xr, xc, *, kernel):
+        seen.append(ops.is_symmetric_call(xr, xc))
+        return real(xr, xc, kernel=kernel)
+
+    monkeypatch.setattr(ops, "pairwise_rect", spy)
+    for metric in ops.METRICS:
+        ops.pairwise_distance(x, metric=metric)
+    ops.pairwise_distance(x, metric="jaccard", packed=1)
+    ops.pairwise_distance_rows(x[:7], x)
+    assert seen == [True, True, True, True, False]
+    assert ops.is_symmetric_call(x, x)
+    assert not ops.is_symmetric_call(x, x.clone())
+    assert not ops.is_symmetric_call(x[:7], x)          # a slab
+    assert not ops.is_symmetric_call(x[1:], x)          # an offset view
+    assert not ops.is_symmetric_call(x[:, :32], x[:, :32].contiguous())
 
 
 def test_importing_the_port_builds_nothing():

@@ -124,6 +124,39 @@ def test_plan_on_cuda_names_the_kernel_not_plain_knobs(impl, kernel):
     assert planner.plan(2000, 1000, backend="cpu", impl=impl).kernel is None
 
 
+@pytest.mark.parametrize("n,n_total,budget", [
+    (25145, 4000, None), (25145, 1000, None), (10000, 50000, 2 ** 26),
+    (2049, 100000, None)])
+def test_cuda_tiled_chunk_charges_the_permblock_partials(n, n_total, budget):
+    """On the card the tiled impl runs the permblock kernel, whose
+    partials are (blocks, chunk) f32: the plan charges them beside the
+    (chunk, n) labels, so labels plus partials (plus the per-permutation
+    output) stay inside the label budget, and one permutation more would
+    not fit. At the EMP shape that is 2,224 a chunk (5,025 blocks), still
+    2 chunks for 4,000. Brute's and matmul's chunks, and every cpu plan,
+    stay the reference's."""
+    from repro_torch.kernels.permanova_sw import ops
+    pl = planner.plan(n, n_total, backend="cuda", impl="tiled",
+                      memory_budget_bytes=budget)
+    limit = planner.label_budget(budget)
+    per_perm = 4 * n + 8 + 4 * ops.permblock_blocks(n)
+    assert pl.kernel == "permblock"
+    assert pl.chunk * per_perm <= limit
+    assert pl.chunk == n_total or (pl.chunk + 1) * per_perm > limit
+    if (n, n_total, budget) == (25145, 4000, None):
+        assert ops.permblock_blocks(n) == 5025
+        assert pl.chunk == 2224 and -(-n_total // pl.chunk) == 2
+    for impl in ("brute", "matmul"):
+        assert planner.plan(n, n_total, backend="cuda", impl=impl,
+                            memory_budget_bytes=budget).chunk == \
+            planner.chunk_for_budget(n, n_total, budget)
+    got = planner.plan(n, n_total, backend="cpu", impl="tiled",
+                       memory_budget_bytes=budget)
+    want = jengine.plan(n, n_total, 8, backend="cpu", impl="tiled",
+                        memory_budget_bytes=budget)
+    assert (got.chunk, got.describe()) == (want.chunk, want.describe())
+
+
 def test_chunk_for_budget_warns_below_minimum():
     with pytest.warns(UserWarning, match="minimum chunk"):
         assert planner.chunk_for_budget(10_000, 5000, 1024) == \

@@ -277,51 +277,138 @@ def test_source_names_the_kernels_it_replaces():
 
 def test_brute_band_tile_and_partials_from_the_source():
     """The brute kernel's band (64 rows), column tile (64) and
-    permutation block (128) are compile-time constants reported by
-    sw_kernel_config; the wrapper sizes its partials (P, ceil(n / 64))
-    from that report (a stand-in library fills every partial with 1, so
-    each permutation's s_W is the band count), and the launch's grid is
-    (ceil(P / 128), ceil(n / 64))."""
+    permutation block (128), and the permblock kernel's pass (128) and
+    strip (16 column tiles), are compile-time constants reported by
+    sw_kernel_config; the wrapper sizes the brute partials (P, ceil(n /
+    64)) and the permblock partials (blocks, P) from that report (a
+    stand-in library fills every partial with 1, so each permutation's
+    s_W is the band count, or the block count), and brute's grid is
+    (ceil(P / 128), ceil(n / 64)), permblock's pb_blocks(ceil(n / 64))."""
     import ctypes
     src = ops.SOURCE.read_text()
     consts = dict(re.findall(r"constexpr int (kBrute(?:Rows|Cols|Perms)) = "
                              r"(\d+);", src))
     assert consts == {"kBruteRows": "64", "kBruteCols": "64",
                       "kBrutePerms": "128"}
-    for i, name in ((0, "kBruteRows"), (6, "kBruteCols"),
-                    (7, "kBrutePerms")):
+    assert "constexpr int kPbStripTiles = 16;" in src
+    assert "constexpr int kPbPass = kBrutePerms;" in src
+    assert ops.PERMBLOCK_TILE == 64 and ops.PERMBLOCK_STRIP_TILES == 16
+    for i, name in ((0, "kBruteRows"), (1, "kPbPass"), (2, "kBruteRows"),
+                    (6, "kBruteCols"), (7, "kBrutePerms"),
+                    (8, "kPbStripTiles")):
         assert f"out[{i}] = {name};" in src
     assert "const dim3 grid((unsigned)((n_perms + kBrutePerms - 1) / " \
         "kBrutePerms),\n                  (unsigned)((n + kBruteRows - 1) " \
         "/ kBruteRows));" in src
     assert "2 * kBruteStageBytes;  // 102,400" in src
+    assert "const int64_t blocks = pb_blocks((n + kBruteCols - 1) / " \
+        "kBruteCols);" in src
+    assert "static_assert(kPbSmemBytes == 90112" in src
 
     class StandIn:
         def sw_kernel_config(self, out):
-            for i, v in enumerate((64, 16, 64, 64, 128, 256, 64, 128)):
+            for i, v in enumerate((64, 128, 64, 64, 128, 256, 64, 128, 16)):
                 out[i] = v
 
-        def sw_brute_launch(self, mat2, g, w, partials, n, p, n_groups,
-                            stream):
-            self.shape = (p, -(-n // 64))
-            arr = (ctypes.c_float * (p * self.shape[1])).from_address(
+        def _fill(self, partials, shape):
+            self.shape = shape
+            arr = (ctypes.c_float * (shape[0] * shape[1])).from_address(
                 partials)
             for i in range(len(arr)):
                 arr[i] = 1.0
             return 0
 
+        def sw_brute_launch(self, mat2, g, w, partials, n, p, n_groups,
+                            stream):
+            return self._fill(partials, (p, -(-n // 64)))
+
+        def sw_permblock_launch(self, mat2, g, w, partials, n, p,
+                                n_groups, stream):
+            return self._fill(partials, (ops.permblock_blocks(n), p))
+
     lib = StandIn()
     assert ops.kernel_config(lib) == {
-        "brute_rows": 64, "permblock_perms": 16, "permblock_tile": 64,
+        "brute_rows": 64, "permblock_pass": 128, "permblock_tile": 64,
         "matmul_rows": 64, "matmul_max_perm_block": 128,
-        "matmul_columns": 256, "brute_cols": 64, "brute_perms": 128}
+        "matmul_columns": 256, "brute_cols": 64, "brute_perms": 128,
+        "permblock_strip_tiles": 16}
     mat2, gperms, inv_gs = _instance(130, 3, 5, seed=2)
-    before = ops.LAUNCHES["brute"]
+    before = dict(ops.LAUNCHES)
     got = ops._launch(lib, "brute", torch.from_numpy(mat2),
                       torch.from_numpy(gperms), torch.from_numpy(inv_gs), 0)
     assert lib.shape == (5, 3)
     assert got.tolist() == [3.0] * 5
-    ops.LAUNCHES["brute"] = before
+    mat2, gperms, inv_gs = _instance(1100, 3, 5, seed=2)
+    got = ops._launch(lib, "permblock", torch.from_numpy(mat2),
+                      torch.from_numpy(gperms), torch.from_numpy(inv_gs), 0)
+    # 18 bands: strips at offset 0 (18 blocks) and 16 (2 blocks)
+    assert lib.shape == (20, 5) and ops.permblock_blocks(1100) == 20
+    assert got.tolist() == [20.0] * 5
+    ops.LAUNCHES.update(before)
+
+
+def _permblock_blocks_in_order(n):
+    """The permblock kernel's blocks in launch order (pb_block in the
+    source) as (band, first column tile): the strips of 16 column tiles
+    that start at each band's diagonal tile and every 16 tiles after it,
+    strip offset first."""
+    t, s = ops.PERMBLOCK_TILE, ops.PERMBLOCK_STRIP_TILES
+    nt = -(-n // t)
+    return [(ti, ti + c * s) for c in range(-(-nt // s))
+            for ti in range(nt - c * s)]
+
+
+def _permblock_model(mat2, labels, w):
+    """s_W the permblock kernel's way, in float64: per block, its strip's
+    tiles of the upper triangle (the diagonal tile keeps j > i), every
+    permutation applied to each staged tile, w[g_r] once per (row,
+    permutation), one partial per (block, permutation); the partials
+    summed over the blocks."""
+    n, t = mat2.shape[0], ops.PERMBLOCK_TILE
+    m = torch.triu(torch.from_numpy(mat2).double(), diagonal=1)
+    g = torch.from_numpy(labels).long()
+    wr = torch.from_numpy(w).double()[g]                     # (P, n)
+    blocks = _permblock_blocks_in_order(n)
+    partials = torch.zeros(len(blocks), labels.shape[0], dtype=torch.float64)
+    nt = -(-n // t)
+    for b, (ti, jt0) in enumerate(blocks):
+        rows = slice(ti * t, min(n, ti * t + t))
+        for jt in range(jt0, min(nt, jt0 + ops.PERMBLOCK_STRIP_TILES)):
+            cols = slice(jt * t, min(n, jt * t + t))
+            same = g[:, rows, None] == g[:, None, cols]      # (P, r, c)
+            per_row = (same * m[rows, cols]).sum(-1)         # (P, r)
+            partials[b] += (per_row * wr[:, rows]).sum(-1)
+    return partials.sum(0)
+
+
+@pytest.mark.parametrize("n,p", [(63, 3), (64, 5), (65, 4), (130, 7),
+                                 (1023, 2), (1025, 3), (1100, 2)])
+def test_permblock_blocks_cover_the_upper_triangle_once(n, p):
+    """The kernel's strips of 16 tiles per band visit every tile j >= i
+    once (ops.permblock_blocks counts them: 5,025 at the EMP n), and the
+    per-(block, permutation) partials sum to the plain s_W."""
+    nt = -(-n // ops.PERMBLOCK_TILE)
+    blocks = _permblock_blocks_in_order(n)
+    assert len(blocks) == ops.permblock_blocks(n)
+    tiles = [(ti, jt) for ti, jt0 in blocks
+             for jt in range(jt0, min(nt, jt0 + ops.PERMBLOCK_STRIP_TILES))]
+    assert sorted(tiles) == [(i, j) for i in range(nt) for j in range(i, nt)]
+    assert ops.permblock_blocks(25145) == 5025
+    mat2, gperms, inv_gs = _instance(n, 4, p, seed=n)
+    np.testing.assert_allclose(
+        _permblock_model(mat2, gperms, inv_gs).numpy(),
+        ref.sw_ref_f64(mat2, gperms, inv_gs), rtol=1e-12)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "n{}g{}p{}".format(*s))
+def test_permblock_model_matches_reference_permblock_kernel(shape):
+    """The tiled dataflow the card runs (the kernel's block decomposition,
+    every permutation per staged tile) against the reference's
+    pallas_permblock kernel (interpret mode) at ragged n and P."""
+    mat2, gperms, inv_gs = _shape_instance(shape)
+    np.testing.assert_allclose(_permblock_model(mat2, gperms, inv_gs),
+                               _jax_sw("permblock", shape), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_matmul_perm_block_fills_128_onehot_columns():
