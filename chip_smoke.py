@@ -66,8 +66,12 @@ Phases, each timed:
    symmetric visit of the 128 x 128 tiles j >= i, each mirrored) against
    the rectangular call on a clone of the table, bit for bit off the
    diagonal, and against its plain version at the same bar, at (n, d) =
-   (57, 3), (130, 37), (2047, 128), (2049, 128) (DIST_SYM_SHAPES) and,
-   for braycurtis, the EMP table.
+   (57, 3), (130, 37), (2047, 128), (2049, 128) (DIST_SYM_SHAPES) and the
+   EMP table (jaccard_packed == jaccard there too). Euclidean (on the
+   tensor cores in three TF32 products) against a float64 oracle of the
+   Gram form at (2047, 128) and the EMP table: within twice the plain f32
+   version's error, while a TF32 torch.matmul stand-in (the plain version
+   with TF32 on) misses that bar.
 6. The features path at the EMP shape through the entry point a user
    calls: pipeline(features, Bray-Curtis, 3,999 permutations, seed 0),
    once with a 6 GiB matrix budget (the planner picks the dense bridge:
@@ -84,9 +88,12 @@ Phases, each timed:
    rectangular call on a clone logged beside it) and the (256, n, 128)
    slab x 99 for the stream bridge, beside its plain version, torch.cdist
    for euclidean (the one PyTorch call that computes one of these
-   functions; the kernel must not be slower), its bound (each pair once
-   for the whole-table call) and its own floor (FP32 instructions, or
-   popcounts for jaccard_packed; a time under it fails the run).
+   functions; the kernel must not be slower), for scale beside jaccard its
+   intersection alone as one bf16 torch.matmul of the 0/1 table with its
+   transpose, its bound (each pair once for the whole-table call) and its
+   own floor (FP32 instructions for braycurtis, popcounts for
+   jaccard_packed, the tensor-core product of its exact form for
+   euclidean and jaccard; a time under it fails the run).
 8. The fused distance -> s_W kernel against its plain version on the card
    for euclidean, braycurtis and jaccard (on presence data), each a
    whole-table call (the kernel's symmetric visit of the tiles j >= i),
@@ -284,17 +291,19 @@ DIST_CHECK_SHAPES = [(57, 57, 3), (130, 130, 37), (2047, 2047, 128),
                      (256, EMP_N, EMP_FEATURES)]
 # whole-table calls (the distance kernels' symmetric visit of the 128 x
 # 128 tiles j >= i) against the rectangular call on a clone of the table:
-# ragged n on both sides of a tile edge, 16 tiles, and (braycurtis) the
-# EMP table
+# ragged n on both sides of a tile edge, 16 tiles, and the EMP table
 DIST_SYM_SHAPES = [(57, 3), (130, 37), (2047, 128), (2049, 128)]
-# the distance kernels' own floors: FP32 instructions at 128 lanes a clock
-# on each SM (braycurtis issues 2 per (pair, feature), euclidean and
-# jaccard one FMA), and for jaccard_packed the popcount, 16 a clock on
-# each SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
-# compute capability 9.0), one per (pair, word)
+# the CUDA-core distance kernels' own floors: FP32 instructions at 128
+# lanes a clock on each SM (braycurtis issues 2 per (pair, feature)), and
+# for jaccard_packed the popcount, 16 a clock on each SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0), one per (pair, word)
 FP32_LANES_PER_SM, POPC_PER_SM = 128, 16
-DIST_OWN_INSTR = {"braycurtis": 2, "euclidean": 1, "jaccard": 1,
-                  "jaccard_packed": 1}
+DIST_OWN_INSTR = {"braycurtis": 2, "jaccard_packed": 1}
+# the tensor-core distance kernels' products in their exact forms: (products
+# of 2 operations per (pair, feature), the dense peak of their type):
+# euclidean three TF32 products, jaccard one int8 product
+DIST_TC_PRODUCT = {"euclidean": (3, "tf32"), "jaccard": (1, "int8")}
 GIB = 1024 ** 3
 # matrix budgets that make the planner pick each bridge at the EMP shape:
 # 8 n^2 = 4.71 GiB (D + mat2) fits 6 GiB; 4 n^2 = 2.36 GiB fits 3 GiB
@@ -362,7 +371,8 @@ STREAM_SCALAR = 3.0
 STREAM_ROUNDS = 3
 # dense tensor-core peaks (NVIDIA's H100 SXM data sheet) for the matmul
 # kernel's one-hot floors; H100_SXM carries bf16's
-TC_TF32, TC_BF16 = 495e12, 989e12
+TC_TF32, TC_BF16, TC_INT8 = 495e12, 989e12, 1979e12
+TC_PEAK = {"tf32": TC_TF32, "int8": TC_INT8}
 # the brute kernel's own floor: one INT32 compare per (pair, permutation)
 # at 64 lanes a clock on each of the 132 SMs, at the 1.98 GHz boost clock
 INT32_LANES_PER_SM, SMS, BOOST_HZ = 64, 132, 1.98e9
@@ -1036,8 +1046,9 @@ def phase_distance_kernels(dev, x_np):
     rows against the whole table, as the stream bridge's first slab. Then
     the whole-table calls (symmetric visit) against the rectangular call
     on a clone of the table, bit for bit off the diagonal, at
-    DIST_SYM_SHAPES for every kernel and at the EMP table for
-    braycurtis."""
+    DIST_SYM_SHAPES and the EMP table for every kernel; then euclidean
+    against float64 (euclidean_f64_check) at (2047, 128) and the EMP
+    table."""
     import numpy as np
     import torch
     from repro_torch.data.microbiome import synthetic_abundance
@@ -1068,7 +1079,7 @@ def phase_distance_kernels(dev, x_np):
         n, d, seed=2 * n + d)).to(dev), dops.KERNELS)
         for n, d in DIST_SYM_SHAPES]
     sym_tables.append((EMP_N, EMP_FEATURES, torch.from_numpy(x_np).to(dev),
-                       ("braycurtis",)))
+                       dops.KERNELS))
     for n, d, x, kernels in sym_tables:
         ops_ = dist_operands(x, x)
         outs = {}
@@ -1096,11 +1107,53 @@ def phase_distance_kernels(dev, x_np):
                 f"max_abs_err={err:.3e} vs plain")
             outs[k] = got
             del want, off
-        if "jaccard" in outs:
-            check(torch.equal(outs["jaccard_packed"], outs["jaccard"]),
-                  f"jaccard_packed != jaccard symmetric call at {(n, d)}")
+        check(torch.equal(outs["jaccard_packed"], outs["jaccard"]),
+              f"jaccard_packed != jaccard symmetric call at {(n, d)}")
         del outs, ops_
+    for n, d, x in ((2047, 128, torch.from_numpy(synthetic_abundance(
+            2047, 128, seed=3)).to(dev)),
+                    (EMP_N, EMP_FEATURES, torch.from_numpy(x_np).to(dev))):
+        euclidean_f64_check(x)
     return worst
+
+
+def euclidean_f64_check(x):
+    """The euclidean kernel's whole-table call (three TF32 products)
+    against a float64 oracle of the Gram form: within twice the plain f32
+    version's error of it; the plain version with its matmul in TF32 (a
+    one-product stand-in) must miss that bar. Diagonals are zero, as
+    pairwise_distance makes them; the oracle runs in row blocks."""
+    import torch
+    from repro_torch.kernels.distance import ops as dops, ref as dref
+    n = x.shape[0]
+    got = dops.pairwise_rect(x, x, kernel="euclidean").fill_diagonal_(0.0)
+    plain = dref.euclidean_ref(x, x).fill_diagonal_(0.0)
+    with tf32_matmuls():
+        tf32 = dref.euclidean_ref(x, x).fill_diagonal_(0.0)
+        torch.cuda.synchronize()
+    x64 = x.double()
+    sq = (x64 * x64).sum(1)
+    errs = [0.0, 0.0, 0.0]
+    for lo in range(0, n, 4096):
+        hi = min(n, lo + 4096)
+        o64 = torch.sqrt((sq[lo:hi, None] + sq[None, :]
+                          - 2.0 * (x64[lo:hi] @ x64.T)).clamp(min=0.0))
+        o64[:, lo:hi].fill_diagonal_(0.0)
+        for e, out in enumerate((got, plain, tf32)):
+            errs[e] = max(errs[e],
+                          float((out[lo:hi].double() - o64).abs().max()))
+        del o64
+    e_kernel, e_plain, e_tf32 = errs
+    log(f"[smoke] kernel euclidean         (n,d)={(n, x.shape[1])} against "
+        f"float64 (Gram form): kernel {e_kernel:.3e}, plain f32 "
+        f"{e_plain:.3e} ({e_kernel / e_plain:.2f}x; bar 2x), TF32 "
+        f"torch.matmul stand-in {e_tf32:.3e} ({e_tf32 / e_plain:.1f}x)")
+    check(e_kernel <= 2.0 * e_plain,
+          f"euclidean kernel {e_kernel:.3e} from float64, over twice the "
+          f"plain f32 version's {e_plain:.3e} at n={n}")
+    check(e_tf32 > 2.0 * e_plain,
+          f"the TF32 stand-in ({e_tf32:.3e}) passes the float64 bar at "
+          f"n={n}: the bar would not reject one TF32 product")
 
 
 def phase_pipeline(dev, x_np, grouping, f_p_main):
@@ -1216,30 +1269,47 @@ def dist_pairs(a, b) -> float:
         else float(a.shape[0] * b.shape[0])
 
 
+def dist_tc_ms(kernel, a, b) -> float:
+    """The product of a tensor-core distance kernel in its exact form
+    (DIST_TC_PRODUCT: 2 operations per (pair, feature) a product) at the
+    dense peak of its type, over the pairs the call computes."""
+    products, kind = DIST_TC_PRODUCT[kernel]
+    return products * 2 * dist_pairs(a, b) * a.shape[1] / TC_PEAK[kind] \
+        * 1e3
+
+
 def dist_bound_ms(kernel, a, b, chip) -> tuple:
     """(ms, 'bytes' | 'operations'): the least time this card could take
     for the distances of a's rows against b's rows — inputs read once and
-    the f32 output written once at the HBM rate, against the feature
-    loop's operations at the f32 CUDA-core peak: 2 per (pair, feature)
-    for the three float kernels (braycurtis: a subtract and an add of its
-    magnitude; euclidean and jaccard: a fused multiply-add), 3 per (pair,
-    word) for jaccard_packed (AND, popcount, add; the guide's table has
-    no int32 row, and the f32 rate bounds it from below), each pair once
+    the f32 output written once at the HBM rate, against the operations:
+    for braycurtis the feature loop at the f32 CUDA-core peak, 2 per
+    (pair, feature) (a subtract and an add of its magnitude); 3 per (pair,
+    word) for jaccard_packed (AND, popcount, add; the guide's table has no
+    int32 row, and the f32 rate bounds it from below); for euclidean and
+    jaccard their products on the tensor cores in the exact form
+    (dist_tc_ms: three TF32 products, one int8 product). Each pair once
     for a whole-table call. The O(n^2) finalize and O(n d) row sums are
     left out, so this stays a lower bound."""
     nr, nc, w = a.shape[0], b.shape[0], a.shape[1]
     nbytes = (a.numel() + b.numel()) * a.element_size() + 4 * nr * nc
-    ops_ = (3 if kernel == "jaccard_packed" else 2) * dist_pairs(a, b) * w
     t_bytes = nbytes / chip.hbm_bandwidth * 1e3
-    t_ops = ops_ / chip.peak_flops_f32 * 1e3
+    if kernel in DIST_TC_PRODUCT:
+        t_ops = dist_tc_ms(kernel, a, b)
+    else:
+        ops_ = (3 if kernel == "jaccard_packed" else 2) * dist_pairs(a, b) * w
+        t_ops = ops_ / chip.peak_flops_f32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def dist_own_floor_ms(kernel, a, b) -> float:
     """A distance kernel's own floor (its formulation's, not the
-    function's bound): DIST_OWN_INSTR instructions per (pair, feature) on
-    the FP32 lanes, or the popcount per (pair, word) for jaccard_packed,
-    at the boost clock, over the pairs the call computes."""
+    function's bound), over the pairs the call computes: for euclidean
+    and jaccard the tensor-core product at the dense peak (dist_tc_ms);
+    for braycurtis DIST_OWN_INSTR instructions per (pair, feature) on the
+    FP32 lanes and for jaccard_packed the popcount per (pair, word), at
+    the boost clock."""
+    if kernel in DIST_TC_PRODUCT:
+        return dist_tc_ms(kernel, a, b)
     per_sm = POPC_PER_SM if kernel == "jaccard_packed" \
         else FP32_LANES_PER_SM
     instr = DIST_OWN_INSTR[kernel] * dist_pairs(a, b) * a.shape[1]
@@ -1251,7 +1321,8 @@ def phase_distance_timings(dev, x_np, paths, worst):
     (dense bridge; the whole-table call, each pair once, and for scale
     the rectangular call on a clone), the (256, n, 128) slab 99 times
     (stream bridge); each beside its bound and its own floor (a time under
-    the floor fails the run)."""
+    the floor fails the run), and for scale beside jaccard the
+    intersection alone as one bf16 torch.matmul."""
     import torch
     from repro_torch.hw import H100_SXM
     from repro_torch.kernels.distance import ops as dops, ref as dref
@@ -1290,6 +1361,11 @@ def phase_distance_timings(dev, x_np, paths, worst):
             check(ms <= library_ms,
                   f"euclidean kernel {ms:.3f} ms slower than torch.cdist "
                   f"{library_ms:.3f} ms")
+        inter_ms = None
+        if k == "jaccard":   # for scale: the intersection alone
+            a16 = a.to(torch.bfloat16)
+            inter_ms = cuda_ms(lambda: a16 @ a16.T, reps=3)
+            del a16
         b_ms, b_by = dist_bound_ms(k, a, a, H100_SXM)
         sb_ms, sb_by = dist_bound_ms(k, sa, sb, H100_SXM)
         floor_ms = dist_own_floor_ms(k, a, a)
@@ -1307,7 +1383,7 @@ def phase_distance_timings(dev, x_np, paths, worst):
             "launches_by_path": {p: c[k] for p, c in paths.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "rect_ms": rect_ms,
+            "rect_ms": rect_ms, "intersection_bf16_matmul_ms": inter_ms,
             "shape": {"nr": EMP_N, "nc": EMP_N, "d": EMP_FEATURES,
                       "operand_cols": a.shape[1], "symmetric": True},
             "max_abs_err_checks": worst[k],
@@ -1319,7 +1395,8 @@ def phase_distance_timings(dev, x_np, paths, worst):
         log(f"[smoke] timing {k:14s} (n={EMP_N}, d={EMP_FEATURES}) dense "
             f"(whole table, each pair once): kernel {ms:.3f} ms (the "
             f"rectangular call on a clone {rect_ms:.3f} ms), plain "
-            f"{plain_ms:.3f} ms, library {library_ms} ms, bound {b_ms:.3f} "
+            f"{plain_ms:.3f} ms, library {library_ms} ms, the intersection "
+            f"alone as a bf16 torch.matmul {inter_ms} ms, bound {b_ms:.3f} "
             f"ms ({b_by}), own floor {floor_ms:.3f} ms "
             f"({floor_ms / ms * 100:.1f}% of the kernel's time); slab "
             f"({STREAM_ROWS}, n): kernel {slab_ms:.4f} ms x {n_slabs} = "

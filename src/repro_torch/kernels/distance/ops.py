@@ -99,10 +99,18 @@ def pairwise_rect(xr: torch.Tensor, xc: torch.Tensor, *, kernel: str
                   ) -> torch.Tensor:
     """(nr, nc) f32 distances of the rows of xr against the rows of xc.
 
-    kernel: 'braycurtis' | 'euclidean' | 'jaccard' (f32 operands; jaccard
-    on presence/absence 0/1) | 'jaccard_packed' (int32 words from
-    core.distance.pack_presence_bits). When xr and xc are one table
-    (is_symmetric_call), the kernel computes each pair once."""
+    kernel: 'braycurtis' | 'euclidean' | 'jaccard' (f32 operands) |
+    'jaccard_packed' (int32 words from core.distance.pack_presence_bits).
+    When xr and xc are one table (is_symmetric_call), the kernel computes
+    each pair once.
+
+    Operand contract for 'jaccard': presence data, every value 0.0 or 1.0
+    exactly (core.distance.presence_prepare; the registry's prepare
+    supplies it). On the card the kernel converts each value to int8 and
+    counts the intersection exactly on the tensor cores; other values give
+    wrong counts, and nothing checks them on the device (a check would
+    synchronize). Euclidean runs its Gram on the tensor cores as three
+    TF32 products, within the f32 bar."""
     _check(xr, xc, kernel)
     if xr.device.type == "cpu":
         return ref.REFS[kernel](xr, xc)
