@@ -38,7 +38,10 @@ Phases, each timed:
    free and within 4 strata): drawn in the label budget's sub-blocks they
    equal the whole chunk drawn at once bit for bit, and their device
    memory above the start, less the labels, stays within the 256 MiB
-   label budget; both ways timed, and the design path's index draw. Then
+   label budget; both ways timed, and the design path's index draw; each
+   kind of draw (free labels, labels within strata, index permutations)
+   as one sub-block of 1 to 107 rows, its transients under
+   core.permutations' model for that kind, and timed. Then
    each kernel timed at the shape the main path gives it, beside its
    plain version, one PyTorch library call where one computes the same
    function, and its bound on this card; at that shape each kernel's s_W
@@ -115,7 +118,7 @@ Phases, each timed:
    pipeline(features, Bray-Curtis, 3,999 permutations, seed 0), which the
    planner sends to the fused-kernel bridge (not even one (n, n) buffer
    fits 1 GiB) in chunks its plan sizes by the kernel's workset
-   (fused_plan: 1,792 permutations, 3 launches): fused_sw launched once a
+   (fused_plan: 896 permutations, 5 launches): fused_sw launched once a
    chunk and no other kernel, F within rtol=1e-4 of phase 3's engine.run and of
    phase 6's dense bridge with p equal, its null within what f32 s_W
    allows of the dense bridge's (see SW_MAIN_RTOL), and a peak of device
@@ -145,7 +148,8 @@ Phases, each timed:
    feature mode at (n, d, P, K) = (331, 24, 261, 1) (odd n, K = 1, P * K
    past two 128-q passes), the whole table (the kernel's symmetric visit of
    the tiles j >= i) and a row slab at offset 97, at those bars and within
-   SW_MAIN_RTOL * s_T; at the EMP design chunk (P = 127, K = 10) every
+   SW_MAIN_RTOL * s_T; at the EMP design chunk (cols_plan: P = 204, K =
+   10) every
    s_cols entry within
    SW_MAIN_RTOL * s_T of the plain version, and the plain version with
    TF32 matmuls (a lower-precision stand-in) outside that bar.
@@ -153,9 +157,10 @@ Phases, each timed:
    pipeline(features, Bray-Curtis, 3,999 permutations, seed 0) with
    synthetic_design(25145, ("age", "depth"), 4 strata, seed 0) columns:
    (a) covariates, (b) covariates + weights, (c) strata only, (d)
-   covariates + strata. (a), (b) and (d) must launch fused_sw_cols 32
-   times (one per 127-permutation chunk) and nothing else, (c) fused_sw
-   once per chunk of the plan's (fused_plan) and nothing else; each run's
+   covariates + strata. (a), (b) and (d) must launch fused_sw_cols 20
+   times (one per chunk of cols_plan, 204) and nothing else, (c) fused_sw
+   once per chunk of the strata draw's plan (strata_plan) and nothing
+   else; each run's
    peak device memory above its
    start stays under the 1 GiB matrix budget. (a) and (c) run again
    through the dense bridge (6 GiB budget, same seed): per-term observed
@@ -180,7 +185,7 @@ Phases, each timed:
    for euclidean, braycurtis and jaccard (on presence data), packed for
    jaccard, at phase 8's and phase 11's check shapes (phase 8 / 11's bars)
    and at the EMP chunks, (n, d, P, G) = (25145, 128, the plan's chunk,
-   8) and (n, d, P, K) = (25145, 128, 127, 10) (s_W within SW_MAIN_RTOL,
+   8) and (n, d, P, K) = (25145, 128, 204, 10) (s_W within SW_MAIN_RTOL,
    s_cols within
    SW_MAIN_RTOL * s_T); packed equal to the f32 jaccard kernel on the same
    presence data bit for bit (s_W or s_cols, and row sums); the fp8 bytes
@@ -197,14 +202,17 @@ Phases, each timed:
    (fused_tuning = registry.precision_tuning(tag)): bf16 and fp8 on
    Bray-Curtis, packed on jaccard, and the covariate design at bf16, fp8
    and (jaccard) packed. Each launches its mode's kernel only,
-   fused_sw[tag] once a chunk of the plan's or 32 fused_sw_cols[tag]. Each
+   fused_sw[tag] once a chunk of the plan's or 25 fused_sw_cols[tag]. Each
    is held to the plain sweep at the same precision on the same labels,
    the dense bridge (6 GiB budget) on the table round-tripped through the
    mode: F at rtol=1e-4 with p equal and the null within phase 9's f32
    allowance,
    or per term phase 12's bars; packed F, p and nulls equal to those of
    the f32 jaccard run bit for bit. Each run's peak device memory above
-   its start is logged and held under the 1 GiB matrix budget.
+   its start is logged and held under the 1 GiB matrix budget, and, less
+   the run's feature copies (jaccard's presence table, the quantized
+   table), under the 256 MiB label budget (the sweeps quantize the table
+   once, not a launch).
 16. Each mode's kernel timed at its EMP chunk and at P = 1 (fused_sw
    also at P = 156), beside its plain version (timed in phase 14), its
    floors (fused_sw: also its INT32 compares) and its bound counted both
@@ -216,6 +224,28 @@ Phases, each timed:
    with one PyTorch call of the same op (library, kernel, kernel,
    library, three rounds; their ratio logged) beside its byte bound,
    with its GB/s against the datasheet's 3.35 TB/s.
+17. The fused-kernel bridge against its memory budget: pipeline() with
+   the default budgets (256 MiB of label budget) at the EMP shape for
+   labels, strata only and the K = 10 covariate design (3,999
+   permutations), and for labels at n = 60,000 (999 permutations), each
+   with its chunk, launches and end-to-end time; its device peak above
+   the start, less the feature copies the run makes (none in f32: the
+   table the caller passed is read in place), must stay within the budget
+   (the kernels' partials of fixed slots, the draw's sub-blocks sized by
+   what the workset and the slack leave). Then s_W, s_cols and s_T
+   through the megakernel sweeps at the chunks of two budgets (256 and 48
+   MiB, 1,000 slots), bit-equal.
+18. Many-study runs: pipeline_many on 3 stacked EMP-shape studies
+   (synthetic_study seeds 0-2; the 7.6 GB distance stack is over the
+   1 GiB matrix budget, so 'auto' takes the fused-kernel bridge), labels
+   and the K = 10 covariate design, each study's F null and p bit-equal
+   to pipeline(x_s, seed=study_seed(0, s)) and the batch's peak (no
+   feature copy in f32) within the budget; then permanova_many on a
+   ragged batch of 6 studies (n = 1,500 ... 9,000, Bray-Curtis matrices
+   from the distance kernel) with n_pad = 10,240 recorded, through brute
+   only, each study's F null and p bit-equal to its engine.run (each
+   ragged study runs on its own matrix, so this holds by construction).
+   Their times are logged.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -344,13 +374,22 @@ COLS_CHECK_SHAPES = [(57, 3, 1, 3), (130, 37, 5, 10), (2047, 128, 37, 10)]
 COLS_ODD = (331, 24, 261, 1)
 COLS_ODD_SLAB = (97, 251)
 # the design path at the EMP shape: K = 1 + 2 covariates + (G - 1) = 10
-# basis columns; the planner's chunk 256 MiB / (4 n (2 K + 1)) = 127, so
-# 4,000 slots take 32 launches
+# basis columns; the card's plan sizes its chunk by fused_sw_cols' workset
+# (cols_plan: 204, so 4,000 slots take 20 launches)
 DESIGN_COVARIATES = ("age", "depth")
 DESIGN_STRATA = 4
 DESIGN_K = 10
-COLS_CHUNK = 127
-COLS_LAUNCHES = 32
+# phase 4: the rows of one draw sub-block at which each kind of draw is
+# held to its memory model and timed
+DRAW_MODEL_ROWS = (1, 4, 17, 45, 91, 107)
+# phase 17: labels at this n, where the earlier layout planned a 271 MiB
+# workset at the 256 MiB budget
+BUDGET_N = 60000
+# phase 18: stacked EMP-shape studies, and a ragged batch of single EMP
+# sub-study sizes with the reference's bucket width
+MANY_STUDIES = 3
+RAGGED_SIZES = (1500, 3000, 4500, 6000, 7500, 9000)
+RAGGED_PAD = 10240
 # the feature modes (phases 14-16): the metrics each runs on, and the
 # reference's bars for a mode's raw s_W against an fp64 oracle
 # (tests/test_precision.py:197), held here against the f32 kernel
@@ -385,15 +424,59 @@ def log(msg: str) -> None:
 @functools.lru_cache(maxsize=None)
 def fused_plan() -> tuple:
     """(chunk, launches) of fused_sw on the main path: the planner's chunk
-    at the EMP shape with the default budgets on the card (the largest
-    whole number of the kernel's 128-permutation passes whose workset,
-    partials and labels, fits the 256 MiB label budget) and the launches
-    for the EMP_PERMS + 1 slots."""
+    at the EMP shape with the default budgets on the card (the whole
+    number of the kernel's 128-permutation passes of least modelled time
+    whose workset, partials and labels, the label draw and the slack fit
+    the 256 MiB label budget) and the launches for the EMP_PERMS + 1
+    slots."""
     from repro_torch.pipeline import planner
     chunk = planner.plan_pipeline(
         EMP_N, EMP_FEATURES, EMP_PERMS + 1, EMP_GROUPS, backend="cuda",
         metric="braycurtis").sw.chunk
     return chunk, -(-(EMP_PERMS + 1) // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def cols_plan() -> tuple:
+    """(chunk, launches) of fused_sw_cols on the design path: the
+    planner's chunk at the EMP shape, K = DESIGN_K, with the default
+    budgets on the card (the kernel's workset, partials, index and
+    basis, with the index draw and the slack in the 256 MiB label
+    budget, whole 128-q passes) and the launches for the EMP_PERMS + 1
+    slots."""
+    from repro_torch.pipeline import planner
+    chunk = planner.plan_pipeline(
+        EMP_N, EMP_FEATURES, EMP_PERMS + 1, EMP_GROUPS, backend="cuda",
+        metric="braycurtis", design_cols=DESIGN_K).sw.chunk
+    return chunk, -(-(EMP_PERMS + 1) // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def strata_plan() -> tuple:
+    """(chunk, launches) of fused_sw on a strata-only design at the EMP
+    shape with the default budgets on the card: fused_plan's, with the
+    strata draw's sub-blocks charged to the budget."""
+    from repro_torch.pipeline import planner
+    chunk = planner.plan_pipeline(
+        EMP_N, EMP_FEATURES, EMP_PERMS + 1, EMP_GROUPS, backend="cuda",
+        metric="braycurtis", draw="strata").sw.chunk
+    return chunk, -(-(EMP_PERMS + 1) // chunk)
+
+
+def feature_copies(x, metric: str, tuning=None) -> int:
+    """Bytes of the feature copies a fused-kernel run on the table x
+    makes: the metric's prepared table where preparing copies (jaccard's
+    presence floats; Bray-Curtis reads the caller's table in place) and
+    the table quantized at the precision of `tuning` (none in f32)."""
+    from repro_torch.core import distance
+    from repro_torch.pipeline import registry
+    n, d = x.shape
+    xp = distance.ROW_METRICS[metric].prepare(x)
+    prepared = 0 if xp.data_ptr() == x.data_ptr() else 4 * n * d
+    t = tuning or {}
+    if registry.precision_tag(t) == "f32":
+        return prepared
+    return prepared + int(registry.feat_element_bytes(t) * n * d)
 
 
 def card_line() -> str:
@@ -953,15 +1036,17 @@ def draw_checks(dev, g_dev, chunk):
     from repro_torch.core import permutations
     from repro_torch.engine import planner
     budget = planner.DEFAULT_STREAM_BUDGET_BYTES
-    rows = permutations.draw_rows(EMP_N, budget)
     strata = (torch.arange(EMP_N, device=dev) % DESIGN_STRATA).to(
         torch.int32)
     draws = {
-        "permutation_batch": lambda r: permutations.permutation_batch(
-            g_dev, chunk, 2 * chunk, seed=0, block_rows=r),
-        "strata_label_batch": lambda r: permutations.strata_label_batch(
-            g_dev, strata, chunk, 2 * chunk, seed=0, block_rows=r)}
-    for name, draw in draws.items():
+        "permutation_batch": ("labels", lambda r: (
+            permutations.permutation_batch(
+                g_dev, chunk, 2 * chunk, seed=0, block_rows=r))),
+        "strata_label_batch": ("strata", lambda r: (
+            permutations.strata_label_batch(
+                g_dev, strata, chunk, 2 * chunk, seed=0, block_rows=r)))}
+    for name, (kind, draw) in draws.items():
+        rows = permutations.draw_rows(EMP_N, budget, kind)
         out = {}
         for r in (rows, chunk):
             torch.cuda.synchronize()
@@ -983,18 +1068,59 @@ def draw_checks(dev, g_dev, chunk):
         n_sub = -(-chunk // rows)
         log(f"[smoke] draw {name} (n={EMP_N}, chunk={chunk}): {n_sub} "
             f"sub-blocks of {rows} rows: transients {t_sub / 2**20:.1f} MiB "
-            f"(model {permutations.draw_transient_bytes(rows, EMP_N) / 2**20:.1f}"
+            f"(model {permutations.draw_transient_bytes(rows, EMP_N, kind) / 2**20:.1f}"
             f" MiB, budget {budget / 2**20:.0f}), {ms_sub:.3f} ms; the whole "
             f"chunk at once {t_whole / 2**20:.1f} MiB, {ms_whole:.3f} ms; "
             f"bit-identical labels")
         del sub, whole
+    draw_model_checks(g_dev, strata)
+    rows = permutations.draw_rows(EMP_N, budget, "index")
     free = torch.zeros(EMP_N, dtype=torch.int32, device=dev)
     for name, st in (("free", free), ("4 strata", strata)):
         ms = cuda_ms(lambda: permutations.strata_permutation_batch(
-            st, 0, COLS_CHUNK, seed=0, block_rows=rows), reps=5)
+            st, 0, cols_plan()[0], seed=0, block_rows=rows), reps=5)
         log(f"[smoke] draw index permutations {name} (n={EMP_N}, "
-            f"chunk={COLS_CHUNK}, one sub-block of "
-            f"{min(rows, COLS_CHUNK)} rows): {ms:.3f} ms")
+            f"chunk={cols_plan()[0]}, one sub-block of "
+            f"{min(rows, cols_plan()[0])} rows): {ms:.3f} ms")
+
+
+def draw_model_checks(g_dev, strata):
+    """Each kind of draw (free labels, labels within 4 strata, index
+    permutations within them) as one sub-block of DRAW_MODEL_ROWS rows at
+    the EMP shape: its transients above the start, less its output, held
+    under core.permutations' model for that kind, and its time (the
+    fused-kernel plan's DRAW_SUB_BLOCK_MS weighs a sub-block by it)."""
+    import torch
+    from repro_torch.core import permutations
+    draws = {
+        "labels": lambda r: permutations.permutation_batch(
+            g_dev, 7, 7 + r, seed=0, block_rows=r),
+        "strata": lambda r: permutations.strata_label_batch(
+            g_dev, strata, 7, 7 + r, seed=0, block_rows=r),
+        "index": lambda r: permutations.strata_permutation_batch(
+            strata, 7, 7 + r, seed=0, block_rows=r)}
+    for kind, draw in draws.items():
+        notes = []
+        for r in DRAW_MODEL_ROWS:
+            draw(r)
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = draw(r)
+            torch.cuda.synchronize()
+            transient = (torch.cuda.max_memory_allocated() - start
+                         - out.numel() * out.element_size())
+            model = permutations.draw_transient_bytes(r, EMP_N, kind)
+            check(transient <= model,
+                  f"draw {kind} at {r} rows: transients {transient} B > "
+                  f"the model's {model} B")
+            del out
+            ms = cuda_ms(lambda: draw(r), reps=5)
+            notes.append(f"{r} rows {transient / (r * EMP_N):.2f} B/elt "
+                         f"{ms:.3f} ms")
+        log(f"[smoke] draw model {kind} (n={EMP_N}, one sub-block; model "
+            f"{permutations.DRAW_BYTES_PER_ELEMENT[kind]} B/elt): "
+            f"{'; '.join(notes)}")
 
 
 def phase_reference(dev):
@@ -1726,14 +1852,16 @@ def phase_fused_timings(dev, x_np, grouping, paths, checked):
     and the plan's chunk; one chunk's label draw, as the path draws it."""
     import torch
     from repro_torch.core import fstat, permutations
-    from repro_torch.engine import planner as eplanner
     from repro_torch.hw import H100_SXM
     from repro_torch.kernels.distance import ops as dops
     from repro_torch.kernels.fused_sw import ops as fops, ref as fref
+    from repro_torch.pipeline import planner as pplanner
     x, labels, inv_gs = emp_chunk(dev, x_np, grouping)
     chunk, launches = fused_plan()
     g_dev = torch.from_numpy(grouping).to(dev)
-    rows = permutations.draw_rows(EMP_N, eplanner.DEFAULT_STREAM_BUDGET_BYTES)
+    rows = min(permutations.draw_rows(EMP_N, pplanner.plan_pipeline(
+        EMP_N, EMP_FEATURES, EMP_PERMS + 1, EMP_GROUPS,
+        backend="cuda").draw_budget), chunk)
     labels_ms = cuda_ms(lambda: permutations.permutation_batch(
         g_dev, chunk, 2 * chunk, seed=0, block_rows=rows), reps=3)
     d = dops.pairwise_distance(x, metric="braycurtis")
@@ -1782,7 +1910,8 @@ def phase_fused_timings(dev, x_np, grouping, paths, checked):
         f"phase + one 128-permutation pass) {ms_one:.3f} ms, so "
         f"~{per_perm:.4f} ms per further permutation (P={ONEHOT_CHUNK}: "
         f"{t[ONEHOT_CHUNK]['ms']:.3f} ms); labels of one chunk "
-        f"{labels_ms:.3f} ms (x {launches} = {labels_ms * launches:.1f} ms)")
+        f"{labels_ms:.3f} ms in sub-blocks of {rows} rows (x {launches} = "
+        f"{labels_ms * launches:.1f} ms)")
     return {
         "name": "fused_sw", "route": "cuda", "source": FUSED_SOURCE,
         "replaces": FUSED_REPLACES, "path": "pipeline fused-kernel",
@@ -1840,14 +1969,14 @@ def emp_design(dev, x_np, grouping, **kw):
 
 def emp_cols_chunk(dev, x_np, grouping):
     """The design path's first fused_sw_cols chunk: the EMP features, the
-    first COLS_CHUNK index permutations of seed 0 (free: no strata) and
+    first cols_plan()[0] index permutations of seed 0 (free: no strata) and
     the permuted basis."""
     import torch
     from repro_torch.core import fstat, permutations
     *_, des = emp_design(dev, x_np, grouping)
     x = torch.from_numpy(x_np).to(dev)
     perms = permutations.strata_permutation_batch(
-        torch.zeros(EMP_N, dtype=torch.int32, device=dev), 0, COLS_CHUNK,
+        torch.zeros(EMP_N, dtype=torch.int32, device=dev), 0, cols_plan()[0],
         seed=0)
     return x, fstat.basis_perm_factors(des.basis, perms).contiguous()
 
@@ -1941,10 +2070,10 @@ def phase_cols_kernel(dev, x_np, grouping):
           f"fused_sw_cols != plain at the EMP design chunk: s_cols abs "
           f"{err_abs:.3e} > {SW_MAIN_RTOL} * s_T = {SW_MAIN_RTOL * s_t:.3e}")
     log(f"[smoke] kernel fused_sw_cols braycurtis (n,d,P,K)="
-        f"{(EMP_N, EMP_FEATURES, COLS_CHUNK, DESIGN_K)} s_cols max_abs_err="
+        f"{(EMP_N, EMP_FEATURES, cols_plan()[0], DESIGN_K)} s_cols max_abs_err="
         f"{err_abs:.3e} = {err_abs / s_t:.3e} s_T (limit {SW_MAIN_RTOL} "
         f"s_T, s_T = {s_t:.6g}); row sums max_rel_err={rel_err(rs, rs_p):.3e}"
-        f"; workspace {fops.cols_workspace_bytes(EMP_N, EMP_N, COLS_CHUNK, DESIGN_K) / 2**20:.2f} MiB")
+        f"; workspace {fops.cols_workspace_bytes(EMP_N, EMP_N, cols_plan()[0], DESIGN_K) / 2**20:.2f} MiB")
     sc_t = cols_tf32_stand_in(x, v)
     err_t = float((sc_t - sc_p).abs().max())
     check(err_t > SW_MAIN_RTOL * s_t,
@@ -2136,13 +2265,14 @@ def phase_design_pipeline(dev, x_np, grouping):
         log(f"[smoke] design {tag} plan: {res.plan}")
         want = {c: 0 for c in paths[tag]}
         if tag == "strata":
-            want["fused_sw"] = fused_plan()[1]
+            want["fused_sw"] = strata_plan()[1]
             check(res.method == "pipeline[fused-kernel:cuda+strata]",
                   f"unexpected method {res.method!r}")
         else:
-            want["fused_sw_cols"] = COLS_LAUNCHES
+            want["fused_sw_cols"] = cols_plan()[1]
             check(res.method == "pipeline-design[fused-kernel:cuda]"
-                  and f"chunks={COLS_LAUNCHES} cols={DESIGN_K}" in res.plan,
+                  and f"chunks={cols_plan()[1]} " in res.plan
+                  and f" cols={DESIGN_K} " in res.plan,
                   f"unexpected method/plan {res.method!r} {res.plan!r}")
         check(paths[tag] == want,
               f"design {tag} launches {paths[tag]} != {want}")
@@ -2247,10 +2377,10 @@ def phase_cols_timings(dev, x_np, grouping, paths, checked):
     blocks = torch.from_numpy(strata).to(dev)
     draw_ms, draw_strata_ms = (cuda_ms(
         lambda st=st: permutations.strata_permutation_batch(
-            st, COLS_CHUNK, 2 * COLS_CHUNK, seed=0), reps=5)
+            st, cols_plan()[0], 2 * cols_plan()[0], seed=0), reps=5)
         for st in (free, blocks))
-    idx = permutations.strata_permutation_batch(free, COLS_CHUNK,
-                                                2 * COLS_CHUNK, seed=0)
+    idx = permutations.strata_permutation_batch(free, cols_plan()[0],
+                                                2 * cols_plan()[0], seed=0)
     gather_ms = cuda_ms(lambda: fstat.basis_perm_factors(des.basis, idx),
                         reps=5)
     del idx
@@ -2275,10 +2405,10 @@ def phase_cols_timings(dev, x_np, grouping, paths, checked):
     floor_ms = max(feat_floor, tc_floor)
     check(ms > floor_ms, f"fused_sw_cols {ms:.3f} ms reads under its own "
           f"floor {floor_ms:.3f} ms: a count is wrong")
-    ws = fops.cols_workspace_bytes(EMP_N, EMP_N, COLS_CHUNK, DESIGN_K)
+    ws = fops.cols_workspace_bytes(EMP_N, EMP_N, cols_plan()[0], DESIGN_K)
     log(f"[smoke] timing fused_sw_cols (n={EMP_N}, d={EMP_FEATURES}, "
-        f"P={COLS_CHUNK}, K={DESIGN_K}) f32: kernel {ms:.3f} ms x "
-        f"{COLS_LAUNCHES} launches = {ms * COLS_LAUNCHES:.1f} ms, plain "
+        f"P={cols_plan()[0]}, K={DESIGN_K}) f32: kernel {ms:.3f} ms x "
+        f"{cols_plan()[1]} launches = {ms * cols_plan()[1]:.1f} ms, plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
         f"{b_ms / ms * 100:.1f}% of it; its own floors (the symmetric "
         f"half) {feat_floor:.3f} ms of feature phase at the f32 peak, "
@@ -2287,13 +2417,13 @@ def phase_cols_timings(dev, x_np, grouping, paths, checked):
         f"larger; contraction-only torch.matmul of "
         f"mat2 with the (n, P*K) factor {matmul_ms:.3f} ms; workspace "
         f"{ws} B")
-    per_q = (ms - ms_one) / ((COLS_CHUNK - 1) * DESIGN_K)
+    per_q = (ms - ms_one) / ((cols_plan()[0] - 1) * DESIGN_K)
     log(f"[smoke] timing fused_sw_cols split: P=1 (feature phase + K "
         f"columns of one permutation) {ms_one:.3f} ms, so ~{per_q:.5f} ms "
         f"per further (permutation, column); a chunk's index draw "
         f"{draw_ms:.3f} ms free, {draw_strata_ms:.3f} ms within "
         f"{DESIGN_STRATA} strata, its basis gather {gather_ms:.3f} ms (x "
-        f"{COLS_LAUNCHES} = {(draw_ms + gather_ms) * COLS_LAUNCHES:.1f} ms "
+        f"{cols_plan()[1]} = {(draw_ms + gather_ms) * cols_plan()[1]:.1f} ms "
         f"free)")
     return {
         "name": "fused_sw_cols", "route": "cuda", "source": FUSED_SOURCE,
@@ -2307,7 +2437,7 @@ def phase_cols_timings(dev, x_np, grouping, paths, checked):
         "library": "none: no PyTorch call computes features -> per-column "
                    "forms",
         "contraction_matmul_ms": matmul_ms,
-        "shape": {"n": EMP_N, "d": EMP_FEATURES, "P": COLS_CHUNK,
+        "shape": {"n": EMP_N, "d": EMP_FEATURES, "P": cols_plan()[0],
                   "K": DESIGN_K},
         "max_abs_err_over_s_t": checked["max_abs_err_over_s_t"],
         "max_rel_err_checks": checked["max_rel_err_checks"],
@@ -2457,7 +2587,7 @@ def phase_mode_kernels(dev, x_np, grouping):
                   f"{e_p:.3e} s_T from fp64: not {ORACLE_MARGIN}x inside "
                   f"its {SW_MAIN_RTOL} s_T bar")
             log(f"[smoke] fp64 oracle fused_sw_cols {metric} (n,d,P,K)="
-                f"{(EMP_N, EMP_FEATURES, COLS_CHUNK, DESIGN_K)}: the f32 "
+                f"{(EMP_N, EMP_FEATURES, cols_plan()[0], DESIGN_K)}: the f32 "
                 f"kernel {e_k:.3e} s_T from fp64 (limit {SW_MAIN_RTOL}), its "
                 f"plain version {e_p:.3e} s_T, "
                 f"{SW_MAIN_RTOL / max(e_p, 1e-30):.3g}x inside the bar")
@@ -2543,7 +2673,7 @@ def phase_mode_kernels(dev, x_np, grouping):
                 "max_abs_err": err_abs, "max_abs_err_over_s_t": err_abs / s_t,
                 "drift_over_s_t": drift, "plain_ms": plain_ms}
             log(f"[smoke] mode {tag:6s} {metric:10s} fused_sw_cols "
-                f"(n,d,P,K)={(EMP_N, EMP_FEATURES, COLS_CHUNK, DESIGN_K)} "
+                f"(n,d,P,K)={(EMP_N, EMP_FEATURES, cols_plan()[0], DESIGN_K)} "
                 f"s_cols max_abs_err={err_abs / s_t:.3e} s_T (limit "
                 f"{SW_MAIN_RTOL} s_T) vs plain ({plain_ms:.3f} ms); drift "
                 f"from the f32 kernel {drift:.3e} s_T")
@@ -2553,7 +2683,10 @@ def phase_mode_kernels(dev, x_np, grouping):
 
 def mode_run(dev, tag, metric, x, g_dev, tuning, **kw):
     """pipeline() at the EMP shape at a precision (tuning), with its own
-    launch counts, wall time and peak device memory above its start."""
+    launch counts, wall time and peak device memory above its start; it
+    fails if the peak, less the run's feature copies (feature_copies),
+    exceeds the label budget."""
+    from repro_torch.engine import planner as eplanner
     import torch
     from repro_torch import pipeline
     zero_launches()
@@ -2568,10 +2701,17 @@ def mode_run(dev, tag, metric, x, g_dev, tuning, **kw):
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - start
     counts = launch_counts()
+    copies = feature_copies(x, metric, tuning)
+    budget = eplanner.DEFAULT_STREAM_BUDGET_BYTES
     log(f"[smoke] precision {tag} {metric} n={EMP_N} perms={EMP_PERMS} "
         f"{dt:.3f}s end to end F={f:.7g} p={p:.6g} peak device memory "
-        f"above the call's start {peak / 2**20:.1f} MiB launches="
+        f"above the call's start {peak / 2**20:.1f} MiB, less its feature "
+        f"copies {(peak - copies) / 2**20:.1f} MiB of the "
+        f"{budget / 2**20:.0f} MiB budget, launches="
         f"{ {k: c for k, c in counts.items() if c} }")
+    check(peak - copies <= budget,
+          f"precision {tag} {metric}: peak {peak} B less its feature "
+          f"copies {copies} B exceeds the {budget} B budget")
     log(f"[smoke] precision {tag} plan: {res.plan.split(' | ')[0]} :: "
         f"{res.plan.split(' :: ')[-1]}")
     return res, counts, peak
@@ -2611,7 +2751,7 @@ def phase_mode_pipeline(dev, x_np, grouping):
                                          precision_tuning(tag), **kw)
             paths[name] = counts
             want = {c: 0 for c in counts}
-            want[fops.launch_key(kernel, tag)] = (COLS_LAUNCHES if design
+            want[fops.launch_key(kernel, tag)] = (cols_plan()[1] if design
                                                   else fused_plan()[1])
             check(counts == want, f"precision {name} launches {counts} != "
                   f"{want}")
@@ -2624,7 +2764,7 @@ def phase_mode_pipeline(dev, x_np, grouping):
                 base, base_counts, _ = mode_run(dev, f"{name} (f32 base)",
                                                 metric, x, g_dev, None, **kw)
                 want = {c: 0 for c in base_counts}
-                want[kernel] = COLS_LAUNCHES if design else fused_plan()[1]
+                want[kernel] = cols_plan()[1] if design else fused_plan()[1]
                 check(base_counts == want,
                       f"f32 jaccard base launches {base_counts} != {want}")
                 pairs = (list(zip(res.terms, base.terms)) if design
@@ -2800,7 +2940,7 @@ def phase_mode_timings(dev, x_np, grouping, paths, emp, gbps):
                                                    metric=metric, **kn)
                 ms = cuda_ms(lambda: call(v), reps=3)
                 ms_one = cuda_ms(lambda: call(one_v), reps=5)
-                p, g_or_k = COLS_CHUNK, DESIGN_K
+                p, g_or_k = cols_plan()[0], DESIGN_K
             else:
                 def call(lab, xp=xp, kn=kn, metric=metric):
                     return fops.fused_sw_rows(xp, xp, lab, lab, inv_gs, 0,
@@ -2858,6 +2998,237 @@ def phase_mode_timings(dev, x_np, grouping, paths, emp, gbps):
                 **{k: val for k, val in e.items()
                    if k not in ("max_abs_err", "plain_ms")}})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the fused-kernel bridge against its memory budget.
+# ---------------------------------------------------------------------------
+
+def bridge_peak_run(dev, x, g_dev, tag, **kw):
+    """pipeline() with the default budgets (and kw), its launches counted
+    from 0 and its device peak above the start; fails if the peak, less
+    the feature table and its quantized copy, exceeds the label budget
+    that sized the chunk. Returns (result, launches, seconds)."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.engine import planner as eplanner
+    n, d = x.shape
+    zero_launches()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = pipeline.pipeline(x, g_dev, metric="braycurtis", seed=0,
+                            device=dev, **kw)
+    f_k, p_k = float(res.f_stat), float(res.p_value)              # waits
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    launches = {k: v for k, v in launch_counts().items() if v}
+    budget = eplanner.DEFAULT_STREAM_BUDGET_BYTES
+    copies = feature_copies(x, "braycurtis")   # f32: none
+    ran = res.plan.rsplit(" :: ", 1)[1]
+    log(f"[smoke] budget {tag} n={n} perms={kw['n_perms']}: {dt:.3f}s end "
+        f"to end F={f_k:.7g} p={p_k:.6g} launches={launches} ({ran}); "
+        f"peak above the start {peak / 2**20:.2f} MiB, less the feature "
+        f"copies ({copies} B) {(peak - copies) / 2**20:.2f} MiB of the "
+        f"{budget / 2**20:.0f} MiB budget")
+    check(peak - copies <= budget,
+          f"budget {tag}: peak {peak} B less the feature copies {copies} B "
+          f"exceeds the {budget} B budget")
+    check(bool(torch.isfinite(res.f_perms).all()),
+          f"budget {tag}: non-finite F")
+    return res, launches, dt
+
+
+def sweeps_at_two_chunks(dev, x, g_dev, cov):
+    """s_W, s_cols and s_T through the megakernel sweeps at the chunks of
+    two budgets (256 MiB and 48 MiB, 1,000 slots): bit-equal."""
+    import torch
+    from repro_torch.core import design, distance, permutations
+    from repro_torch.pipeline import planner, streaming
+    xp = distance.ROW_METRICS["braycurtis"].prepare(x).contiguous()
+    inv = permutations.inv_group_sizes(g_dev, EMP_GROUPS)
+    des = design.build(grouping=g_dev.cpu().numpy(), covariates=cov,
+                       n_groups=EMP_GROUPS, device=dev)
+    n_total = CROSS_PERMS + 1
+    out = []
+    for budget in (None, 48 * 2 ** 20):
+        plans = [planner.plan_pipeline(
+            EMP_N, EMP_FEATURES, n_total, EMP_GROUPS, backend="cuda",
+            memory_budget_bytes=budget, design_cols=k) for k in (None,
+                                                                 DESIGN_K)]
+        sw, st, sts = streaming.fused_sw_megakernel(
+            xp, g_dev, inv, n_total, kernel_metric="braycurtis",
+            chunk=plans[0].sw.chunk, seed=0, draw_budget=plans[0].draw_budget)
+        sc, stc, stc_s = streaming.fused_sw_megakernel_design(
+            xp, des, n_total, kernel_metric="braycurtis",
+            chunk=plans[1].sw.chunk, seed=0, draw_budget=plans[1].draw_budget)
+        torch.cuda.synchronize()
+        out.append((sw, st, sc, stc, sts.n_chunks, stc_s.n_chunks))
+    (a, b) = out
+    check(a[4] != b[4] and a[5] != b[5],
+          f"the two budgets must give different chunks: {a[4:]} {b[4:]}")
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+          and torch.equal(a[2], b[2]) and torch.equal(a[3], b[3]),
+          "s_W / s_T / s_cols differ between two chunkings")
+    log(f"[smoke] budget chunk invariance: s_W, s_T (labels; {a[4]} / "
+        f"{b[4]} launches) and s_cols, s_T (K = {DESIGN_K}; {a[5]} / {b[5]} "
+        f"launches) bit-equal at the 256 MiB and 48 MiB budgets' chunks")
+
+
+def phase_budget(dev, x_np, grouping):
+    """The fused-kernel bridge's peak against its budget: labels, strata
+    only and the K = 10 design at the EMP shape (3,999 permutations) and
+    labels at n = 60,000 (999), each with its chunk, launches and time;
+    then the sweeps at two budgets' chunks, bit-equal."""
+    import torch
+    from repro_torch.data.microbiome import synthetic_study
+    x = torch.from_numpy(x_np).to(dev)
+    g_dev = torch.from_numpy(grouping).to(dev)
+    cov, strata, _, _ = emp_design(dev, x_np, grouping)
+    runs = {"labels": {}, "strata": dict(strata=strata),
+            "design K=10": dict(covariates=cov)}
+    for tag, kw in runs.items():
+        _, launches, _ = bridge_peak_run(dev, x, g_dev, tag,
+                                         n_perms=EMP_PERMS, **kw)
+        want = ({"fused_sw_cols": cols_plan()[1]} if "design" in tag
+                else {"fused_sw": (strata_plan() if tag == "strata"
+                                   else fused_plan())[1]})
+        check(launches == want, f"budget {tag}: launches {launches} != "
+              f"{want}")
+    del x, g_dev
+    x6, g6 = synthetic_study(BUDGET_N, EMP_FEATURES, EMP_GROUPS,
+                             effect_size=1.0, seed=0)
+    x6, g6 = torch.from_numpy(x6).to(dev), torch.from_numpy(g6).to(dev)
+    res, launches, _ = bridge_peak_run(dev, x6, g6, "labels",
+                                       n_perms=CROSS_PERMS)
+    log(f"[smoke] budget labels n={BUDGET_N} plan: {res.plan}")
+    check(set(launches) == {"fused_sw"}, f"n={BUDGET_N}: {launches}")
+    del x6, g6, res
+    sweeps_at_two_chunks(dev, torch.from_numpy(x_np).to(dev),
+                         torch.from_numpy(grouping).to(dev), cov)
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: many-study runs.
+# ---------------------------------------------------------------------------
+
+def many_peak(fn):
+    """(result, seconds, device peak above the start) of fn()."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    res.f_stat.sum().item()                                        # waits
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - start)
+
+
+def check_study_equal(tag, many, s, one):
+    """Study s of a many-study result against its single-study run: F
+    null and p bit for bit (and every design term's)."""
+    import torch
+    same = (torch.equal(many.f_perms[s], one.f_perms)
+            and float(many.p_value[s]) == float(one.p_value))
+    if one.terms is not None:
+        same = same and all(torch.equal(tm.f_perms[s], to.f_perms)
+                            for tm, to in zip(many.terms, one.terms))
+    check(same, f"many {tag}: study {s} != its single-study run "
+          f"(F {float(many.f_stat[s])!r} vs {float(one.f_stat)!r})")
+
+
+def phase_many(dev):
+    """pipeline_many on 3 stacked EMP-shape studies (labels, and the K =
+    10 covariate design), each study bit-equal to pipeline(x_s,
+    seed=study_seed(0, s)) and the batch's peak within the budget; then
+    permanova_many on a ragged batch of 6 studies (n = 1,500 ... 9,000,
+    n_pad = 10,240 recorded) through brute, each study bit-equal to its
+    engine.run (by construction: a ragged study runs on its own
+    matrix)."""
+    import numpy as np
+    import torch
+    from repro_torch import engine, pipeline
+    from repro_torch.core import distance
+    from repro_torch.core.permutations import study_seed
+    from repro_torch.data.microbiome import synthetic_design, synthetic_study
+    from repro_torch.engine import planner as eplanner
+    from repro_torch.kernels.distance import ops as dops
+    studies = [synthetic_study(EMP_N, EMP_FEATURES, EMP_GROUPS,
+                               effect_size=1.0, seed=s)
+               for s in range(MANY_STUDIES)]
+    xs = torch.from_numpy(np.stack([x for x, _ in studies])).to(dev)
+    gs = torch.from_numpy(np.stack([g for _, g in studies])).to(dev)
+    covs = [synthetic_design(EMP_N, covariate_names=DESIGN_COVARIATES,
+                             seed=s)[0] for s in range(MANY_STUDIES)]
+    cov_stack = np.stack([np.stack([c[k] for k in DESIGN_COVARIATES], 1)
+                          for c in covs])
+    budget = eplanner.DEFAULT_STREAM_BUDGET_BYTES
+    copies = feature_copies(xs[0], "braycurtis")    # f32: none
+    for tag, kw in (("labels", {}), ("covariates", dict(
+            covariates=cov_stack))):
+        zero_launches()
+        res, dt, peak = many_peak(lambda: pipeline.pipeline_many(
+            xs, gs, n_groups=EMP_GROUPS, n_perms=EMP_PERMS, seed=0,
+            device=dev, **kw))
+        launches = {k: v for k, v in launch_counts().items() if v}
+        log(f"[smoke] many pipeline_many {tag} S={MANY_STUDIES} "
+            f"n={EMP_N} perms={EMP_PERMS}: {dt:.3f}s end to end, "
+            f"{dt / MANY_STUDIES:.3f}s a study; F={res.f_stat.tolist()} "
+            f"p={res.p_value.tolist()} launches={launches}; peak above "
+            f"the start {peak / 2**20:.2f} MiB ({(peak - copies) / 2**20:.2f}"
+            f" less a study's feature copies)")
+        log(f"[smoke] many pipeline_many {tag} plan: {res.plan}")
+        kernel, per = (("fused_sw_cols", cols_plan()[1]) if kw
+                       else ("fused_sw", fused_plan()[1]))
+        check("fused-kernel(rows=" in res.plan
+              and launches == {kernel: per * MANY_STUDIES},
+              f"many {tag}: auto must run the fused-kernel bridge, "
+              f"{per} {kernel} launches a study: {launches}")
+        check(peak - copies <= budget,
+              f"many {tag}: a study's peak exceeds the budget: {peak} B")
+        for s in range(MANY_STUDIES):
+            one = pipeline.pipeline(
+                xs[s], gs[s], n_perms=EMP_PERMS, seed=study_seed(0, s),
+                device=dev, **({} if not kw else dict(
+                    covariates=covs[s])))
+            check_study_equal(f"pipeline_many {tag}", res, s, one)
+        log(f"[smoke] many pipeline_many {tag}: each study's F null and p "
+            "== pipeline(x_s, seed=study_seed(0, s)) bit for bit")
+    del xs, gs
+    dms, groupings = [], []
+    for i, n in enumerate(RAGGED_SIZES):
+        x, g = synthetic_study(n, EMP_FEATURES, EMP_GROUPS, effect_size=0.3,
+                               seed=100 + i)
+        xt = distance.ROW_METRICS["braycurtis"].prepare(
+            torch.from_numpy(x).to(dev)).contiguous()
+        dms.append(dops.pairwise_distance(xt, metric="braycurtis"))
+        groupings.append(torch.from_numpy(g).to(dev))
+    zero_launches()
+    res, dt, peak = many_peak(lambda: engine.permanova_many(
+        dms, groupings, n_groups=EMP_GROUPS, n_perms=EMP_PERMS, seed=0,
+        n_pad=RAGGED_PAD, device=dev))
+    launches = {k: v for k, v in launch_counts().items() if v}
+    log(f"[smoke] many permanova_many ragged S={len(RAGGED_SIZES)} "
+        f"n={list(RAGGED_SIZES)} n_pad={RAGGED_PAD} perms={EMP_PERMS}: "
+        f"{dt:.3f}s, launches={launches}, F={res.f_stat.tolist()}, "
+        f"p={res.p_value.tolist()}; plan: {res.plan}")
+    check(set(launches) == {"brute"} and res.n_objects == RAGGED_PAD
+          and res.n_valid.tolist() == list(RAGGED_SIZES),
+          f"many ragged: brute only at n_pad: {launches}")
+    zero_launches()
+    t0 = time.perf_counter()
+    for s in range(len(RAGGED_SIZES)):
+        one = engine.run(dms[s], groupings[s], n_perms=EMP_PERMS,
+                         seed=study_seed(0, s), device=dev)
+        check_study_equal("permanova_many ragged", res, s, one)
+    log(f"[smoke] many ragged: each study's F null and p == its "
+        f"engine.run bit for bit ({time.perf_counter() - t0:.3f}s "
+        f"for the {len(RAGGED_SIZES)} runs, launches "
+        f"{ {k: v for k, v in launch_counts().items() if v} })")
 
 
 def main() -> int:
@@ -2938,6 +3309,14 @@ def main() -> int:
                                gbps)
     rows += stream_rows
     log(f"[smoke] phase 16 (feature mode and STREAM timings) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_budget(dev, x, grouping)
+    log(f"[smoke] phase 17 (the fused-kernel bridge's budget) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_many(dev)
+    log(f"[smoke] phase 18 (many-study runs) "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 

@@ -204,8 +204,11 @@ def basis_perm_factors(basis: torch.Tensor, perms: torch.Tensor
                        ) -> torch.Tensor:
     """V[p] = basis[perms[p], :], the (P, n, K) row-permuted basis that
     replaces the one-hot E (permuting basis rows is vegan's
-    permute-the-observations convention)."""
-    return basis[perms.long()]
+    permute-the-observations convention). int32 indices gather as they
+    are: no (P, n) int64 copy beside the basis."""
+    p, n = perms.shape
+    return basis.index_select(0, perms.reshape(-1)).view(p, n,
+                                                         basis.shape[1])
 
 
 def sw_cols_contract(mat2_rows: torch.Tensor, v: torch.Tensor,

@@ -30,14 +30,24 @@ import torch
 
 _M32 = 0xFFFFFFFF
 _SALTS = (0x9E3779B9, 0x85EBCA6B)
-# The label draws' memory. A row of n keys holds, at its peak, up to eight
-# (n,) int64 arrays at once: the two hash halves and a _mix32's
-# temporaries, the keys, argsort's output and its workspace (the strata
-# draw's second argsort and gather peak no higher). The draws go in
-# sub-blocks of rows whose transients fit the label budget the engine
-# planner charges its chunks (4 n + 8 bytes a permutation); the labels
-# themselves are that budget.
-DRAW_BYTES_PER_ELEMENT = 64
+# The draws' memory: the peak bytes of one sub-block's int64 transients
+# per (row, sample), the output not counted, by kind of draw. "labels"
+# (permutation_batch): the two hash halves and a _mix32's temporaries,
+# the keys, argsort's output and its workspace, the gather. "strata"
+# (strata_label_batch): the index draw below, its int32 rows, their
+# int64 copy and the gathered labels. "index" (strata_permutation_batch,
+# the design sweeps' draw, free or within strata): the keys, two argsorts
+# and their workspace, the gather and the scatter. The card's peaks per
+# element at n = 25,145 and 1 to 107 rows reach 64.4, 80.4 and 76.4
+# (chip_smoke.py phase 4). Beside the bytes, the caching allocator may
+# hand each request of more than 1 MiB a cached block up to
+# ALLOC_EXCESS_BYTES larger than it asked for, one for each of the
+# (bytes / 8) int64 arrays live at the peak. Phase 4 holds each kind
+# under this model, and phase 17 the fused-kernel bridge's whole peak.
+# The draws go in sub-blocks of rows whose transients fit the budget they
+# are given (draw_rows).
+DRAW_BYTES_PER_ELEMENT = {"labels": 65, "strata": 84, "index": 80}
+ALLOC_EXCESS_BYTES = 1024 ** 2
 
 
 def group_sizes(grouping: torch.Tensor, n_groups: int) -> torch.Tensor:
@@ -83,18 +93,35 @@ def permutation_keys(seed: int, idx: torch.Tensor, n: int) -> torch.Tensor:
     return ((halves[0] >> 1) << 32) | halves[1]
 
 
-def draw_rows(n: int, budget_bytes: float) -> int:
-    """Rows of a draw's sub-block: the most whose int64 transients
-    (draw_transient_bytes) fit the label budget, at least one. A pure
-    function of (n, budget), so the rows drawn do not depend on the
-    device."""
-    return max(1, int(budget_bytes // (DRAW_BYTES_PER_ELEMENT * int(n))))
+def _draw_arrays(kind: str) -> int:
+    """The int64 (row, sample) arrays a draw of this kind holds at its
+    peak, rounded up."""
+    return -(-DRAW_BYTES_PER_ELEMENT[kind] // 8)
 
 
-def draw_transient_bytes(rows: int, n: int) -> int:
-    """Modelled peak bytes of the int64 transients of one sub-block of
-    `rows` permutations of n samples (the output labels not counted)."""
-    return DRAW_BYTES_PER_ELEMENT * int(rows) * int(n)
+def draw_rows(n: int, budget_bytes: float, kind: str = "labels") -> int:
+    """Rows of a draw's sub-block: the most whose transients
+    (draw_transient_bytes for this kind of draw) fit the budget, at least
+    one. A pure function of (n, budget, kind), so the rows drawn do not
+    depend on the device."""
+    n = int(n)
+    per_row = DRAW_BYTES_PER_ELEMENT[kind] * n
+    small = min(int(budget_bytes // per_row),
+                ALLOC_EXCESS_BYTES // (8 * n))      # arrays of <= 1 MiB
+    large = int((budget_bytes - _draw_arrays(kind) * ALLOC_EXCESS_BYTES)
+                // per_row)
+    return max(1, small, large)
+
+
+def draw_transient_bytes(rows: int, n: int, kind: str = "labels") -> int:
+    """Modelled peak bytes of the transients of one sub-block of `rows`
+    permutations of n samples (the output not counted); kind is
+    'labels', 'strata' or 'index' (DRAW_BYTES_PER_ELEMENT, and
+    ALLOC_EXCESS_BYTES for each array of more than 1 MiB)."""
+    rows, n = int(rows), int(n)
+    excess = (_draw_arrays(kind) * ALLOC_EXCESS_BYTES
+              if 8 * rows * n > ALLOC_EXCESS_BYTES else 0)
+    return DRAW_BYTES_PER_ELEMENT[kind] * rows * n + excess
 
 
 def _sub_blocks(lo: int, hi: int, n: int, block_rows: Optional[int]):
@@ -195,9 +222,74 @@ def strata_label_batch(grouping: torch.Tensor, strata: torch.Tensor,
 def masked_strata(strata: torch.Tensor, n_valid: int) -> torch.Tensor:
     """Move the pad suffix [n_valid, n) into its own sentinel stratum,
     max(strata) + 1, so padded ragged studies permute pads only among
-    themselves. (Its callers, the multi-study runs, come with a later
-    slice of the port.)"""
+    themselves. Every key is a function of (seed, index, sample), so the
+    valid prefix of a masked strata draw is the unpadded study's draw."""
     n = strata.shape[0]
     pos = torch.arange(n, device=strata.device)
     return torch.where(pos < int(n_valid), strata,
                        strata.max() + 1).to(strata.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Many-study batches: per-study seeds and ragged studies padded to a common
+# length.
+# ---------------------------------------------------------------------------
+
+_STUDY_SALT = 0x27D4EB2F
+
+
+def _mix32_int(x: int) -> int:
+    """_mix32 on one Python int in [0, 2^32)."""
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & _M32
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & _M32
+    return x ^ (x >> 16)
+
+
+def study_seed(seed: int, s: int) -> int:
+    """The seed study s of a batch draws from: a counter hash of (seed,
+    s) in [0, 2^32), the port's fold_in(key, s). Study s of a many-study
+    run draws exactly as a single-study run with seed=study_seed(seed,
+    s), and no two studies share a stream."""
+    seed, s = int(seed), int(s)
+    folded = (seed & _M32) ^ ((seed >> 32) & _M32)
+    return _mix32_int(_mix32_int(folded ^ _STUDY_SALT) ^ (s & _M32))
+
+
+def masked_permute_grouping(grouping: torch.Tensor, n_valid: int, index: int,
+                            *, seed: int = 0) -> torch.Tensor:
+    """One relabeling (n,) of the VALID PREFIX [0, n_valid) only, for
+    global permutation index `index` (no identity at 0): the prefix gets
+    the stable argsort of permutation_keys(seed, index, n_valid), the pad
+    suffix (a sentinel group) stays in place. The keys are the unpadded
+    study's, so the prefix is the unpadded draw bit for bit (the
+    reference's masked draw is a stream of its own)."""
+    nv = int(n_valid)
+    idx = torch.tensor([int(index)], dtype=torch.int64,
+                       device=grouping.device)
+    order = torch.argsort(permutation_keys(seed, idx, nv)[0], stable=True)
+    out = grouping.to(torch.int32).clone()
+    out[:nv] = grouping[:nv].to(torch.int32)[order]
+    return out
+
+
+def masked_permutation_batch(grouping: torch.Tensor, n_valid: int, lo: int,
+                             hi: int, *, seed: int = 0,
+                             block_rows: Optional[int] = None
+                             ) -> torch.Tensor:
+    """permutation_batch for a padded ragged study, (hi - lo, n) int32:
+    each row permutes the valid prefix [0, n_valid) as the unpadded
+    study's permutation_batch(grouping[:n_valid], ...) does (index 0 the
+    identity; the same keys, so padded == unpadded bit for bit) and keeps
+    the pad suffix in place."""
+    nv = int(n_valid)
+    n = grouping.shape[0]
+    g32 = grouping.to(torch.int32)
+    if nv == n:
+        return permutation_batch(g32, lo, hi, seed=seed,
+                                 block_rows=block_rows)
+    labels = g32[None, :].repeat(max(hi - lo, 0), 1)
+    labels[:, :nv] = permutation_batch(g32[:nv], lo, hi, seed=seed,
+                                       block_rows=block_rows)
+    return labels

@@ -1,10 +1,11 @@
 """Engine entry point: every PERMANOVA path of the port routes through here.
 
-Twin of `repro/engine/api.py` for one study on one device: run() plans the
-impl and the streaming chunk, runs the sweep through the scheduler and
-assembles F and p. Every label argument routes through
-`Design.from_labels`: a plain single-factor design is the label path
-below, anything else (strata, covariates, weights) goes to run_design().
+Twin of `repro/engine/api.py` on one device: run() plans the impl and the
+streaming chunk, runs the sweep through the scheduler and assembles F and
+p. Every label argument routes through `Design.from_labels`: a plain
+single-factor design is the label path below, anything else (strata,
+covariates, weights) goes to run_design(). permanova_many() runs a batch
+of studies, stacked or ragged, one after another.
 """
 
 from __future__ import annotations
@@ -12,12 +13,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import hw
 from repro_torch.core import design as design_mod
 from repro_torch.core import permutations
-from repro_torch.core.permanova import (PermanovaResult, TermResult,
+from repro_torch.core.permanova import (PermanovaResult, TermResult, _later,
                                         f_from_sw, p_value_from_null, s_total)
 from repro_torch.engine import planner, registry, scheduler
 
@@ -238,3 +240,346 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
         s_cols, design, n_objects=n, n_perms=n_perms,
         method=f"permanova-design[{pl.impl}]",
         plan=f"{pl.describe()} chunks={stats.n_chunks} cols={k}")
+
+
+# ---------------------------------------------------------------------------
+# Many-study runs: a batch of studies, stacked or ragged.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PermanovaManyResult:
+    """Stacked results over S studies (leading axis S on every tensor):
+    the result of engine.permanova_many and pipeline.pipeline_many."""
+    f_stat: torch.Tensor      # (S,)
+    p_value: torch.Tensor     # (S,)
+    s_t: torch.Tensor         # (S,)
+    s_w: torch.Tensor         # (S,)
+    f_perms: torch.Tensor     # (S, n_perms + 1)
+    n_objects: int            # common study size n (ragged: n_pad or the
+                              # largest study)
+    n_groups: int
+    n_perms: int
+    plan: str = ""
+    n_valid: Optional[torch.Tensor] = None   # (S,) sample counts of a
+                                             # ragged batch
+    terms: Optional[tuple] = None   # design path: TermResults with
+                                    # (S,)-leading tensors
+
+    @property
+    def r2(self) -> torch.Tensor:
+        """(S,) effect sizes R^2 = 1 - s_W / s_T."""
+        return 1.0 - self.s_w / self.s_t
+
+    def __len__(self):
+        return int(self.f_stat.shape[0])
+
+    def study(self, s: int) -> PermanovaResult:
+        """Study s as a single-study PermanovaResult."""
+        n_obj = (self.n_objects if self.n_valid is None
+                 else int(self.n_valid[s]))
+        terms_s = None
+        if self.terms is not None:
+            terms_s = tuple(dataclasses.replace(
+                t, ss=t.ss[s], f_stat=t.f_stat[s], p_value=t.p_value[s],
+                r2=t.r2[s], f_perms=t.f_perms[s]) for t in self.terms)
+        return PermanovaResult(
+            f_stat=self.f_stat[s], p_value=self.p_value[s],
+            s_t=self.s_t[s], s_w=self.s_w[s], f_perms=self.f_perms[s],
+            n_objects=n_obj, n_groups=self.n_groups, n_perms=self.n_perms,
+            method="permanova_many", plan=self.plan, terms=terms_s)
+
+
+def _ragged_studies(dms, groupings, n_pad=None, device="cpu"):
+    """Check a ragged study list and move it to `device`. Nothing is
+    padded: each study keeps its own (n_s, n_s) f32 matrix and (n_s,)
+    int32 labels and runs on them alone, so a study's statistic is its
+    unpadded run's by construction (the reference pads to one stack
+    because its vmap needs one shape). n is `n_pad` (a fixed bucket
+    width, at least the largest study) or the largest n_s: the batch's
+    recorded width and the width of explicit per-study draws. Returns
+    (dms, groupings, n_valid (S,) int32, n)."""
+    if len(dms) != len(groupings):
+        raise ValueError(f"ragged input: {len(dms)} matrices vs "
+                         f"{len(groupings)} groupings")
+    dev = hw.resolve_device(device)
+    dms = [torch.as_tensor(d).to(dev, torch.float32) for d in dms]
+    groupings = [torch.as_tensor(g).to(dev, torch.int32) for g in groupings]
+    for i, (d, g) in enumerate(zip(dms, groupings)):
+        m = int(d.shape[0])
+        if tuple(d.shape) != (m, m) or tuple(g.shape) != (m,):
+            raise ValueError(f"study {i}: expected a square matrix and its "
+                             f"labels, got {tuple(d.shape)} and "
+                             f"{tuple(g.shape)}")
+    sizes = [int(d.shape[0]) for d in dms]
+    n = max(sizes)
+    if n_pad is not None:
+        if int(n_pad) < n:
+            raise ValueError(f"n_pad={n_pad} is smaller than the largest "
+                             f"study (n={n})")
+        n = int(n_pad)
+    return (dms, groupings, torch.tensor(sizes, dtype=torch.int32,
+                                         device=dev), n)
+
+
+def _study_draws(perms, s: int, n_valid: int):
+    """Study s's explicit (n_total, n) draws cut to its first n_valid
+    columns (a ragged study's valid prefix), or None."""
+    return None if perms is None else perms[s][:, :n_valid].contiguous()
+
+
+def _study_budgets(backend: str, memory_budget_bytes, s_count: int):
+    """The label budget each study's plan gets: on 'cuda' the whole budget,
+    since the studies run one after another; on 'cpu' the reference's
+    1/S (its vmap holds every study live), so the plans match its own."""
+    if backend == "cuda":
+        return memory_budget_bytes
+    total = (planner.DEFAULT_STREAM_BUDGET_BYTES
+             if memory_budget_bytes is None else memory_budget_bytes)
+    return total / s_count
+
+
+def _many_plan(backend: str, n: int, n_valid: int, n_total: int, *, impl,
+               budget, chunk, n_cols=None):
+    """A study's plan: on 'cuda' at its own n_valid, as its single-study
+    run plans; on 'cpu' at the batch's n, the reference's one plan."""
+    return planner.plan(n_valid if backend == "cuda" else n, n_total,
+                        backend=backend,
+                        impl=None if impl == "auto" else impl,
+                        memory_budget_bytes=budget, chunk=chunk,
+                        n_cols=n_cols)
+
+
+def _many_plan_string(plans, chunks, s_count: int, ragged: bool) -> str:
+    """The batch's plan record: each distinct study plan once, the chunks
+    per study."""
+    seen = list(dict.fromkeys(p.describe() for p in plans))
+    counts = list(dict.fromkeys(chunks))
+    per = (str(counts[0]) if len(counts) == 1
+           else ",".join(str(c) for c in chunks))
+    return (f"{' / '.join(seen)} studies={s_count}"
+            f"{' ragged' if ragged else ''} chunks={per} [in turn]")
+
+
+def _check_study_perms(perms, s_count, n_total, n, name):
+    if perms is not None and tuple(perms.shape) != (s_count, n_total, n):
+        raise ValueError(f"{name} must be (S, n_perms + 1, n) = "
+                         f"{(s_count, n_total, n)}, got "
+                         f"{tuple(perms.shape)}")
+
+
+def _stacked(dms, groupings, dev):
+    dms = torch.as_tensor(dms).to(dev, torch.float32)
+    groupings = torch.as_tensor(groupings).to(dev, torch.int32)
+    if dms.dim() != 3 or groupings.dim() != 2 \
+            or tuple(dms.shape[:2]) != tuple(groupings.shape) \
+            or dms.shape[1] != dms.shape[2]:
+        raise ValueError(f"stacked studies must be (S, n, n) and (S, n); "
+                         f"got {tuple(dms.shape)} and "
+                         f"{tuple(groupings.shape)}")
+    return dms, groupings
+
+
+def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
+                   seed: int = 0, perms: Optional[torch.Tensor] = None,
+                   index_perms: Optional[torch.Tensor] = None,
+                   impl: str = "auto", chunk: Optional[int] = None,
+                   memory_budget_bytes: Optional[float] = None, mesh=None,
+                   covariates=None, strata=None, weights=None,
+                   ordination: Optional[int] = None,
+                   n_pad: Optional[int] = None,
+                   device="cuda") -> PermanovaManyResult:
+    """PERMANOVA over a batch of studies.
+
+    dms:        (S, n, n) distance matrices, or a RAGGED list of (n_s, n_s)
+                matrices (each study runs on its own matrix, unpadded;
+                the n_s are recorded in `n_valid`).
+    groupings:  (S, n) labels in [0, n_groups) (a list for ragged input).
+    n_pad:      the reference's bucket width for ragged input (at least
+                the largest study): recorded as `n_objects` and the width
+                of explicit per-study draws, of which each study reads
+                its first n_s columns. Nothing is padded.
+    seed:       study s draws as a single-study run with
+                seed=core.permutations.study_seed(seed, s), on every path:
+                stacked study s equals engine.run(dms[s], groupings[s],
+                seed=study_seed(seed, s)) bit for bit (at the same plan),
+                and so does a ragged study.
+    perms / index_perms: explicit (S, n_perms + 1, n) int32 labels, or a
+                design's index permutations, per study (the reference's
+                draws, for parity tests).
+    covariates / strata / weights: per-study design columns, stacked (S,
+                n, c) / (S, n) or ragged lists; any of them routes the
+                batch through the dense-design path (every study compiles
+                to one design structure; per-term statistics in `.terms`).
+    device:     'cuda' (default; raises without a card) or 'cpu'.
+
+    The studies run one after another on the existing kernels (brute and
+    its kin on each study's resident matrix). A 'cuda' plan gives each
+    study the whole label budget and plans it at its own n_valid; a 'cpu'
+    plan keeps the reference's: one plan at n with 1/S of the budget.
+    mesh= (study-axis sharding) and ordination= raise NotImplementedError
+    naming their slices.
+    """
+    if mesh is not None:
+        raise _later("mesh= (study-axis sharding)", "multi-device")
+    if ordination is not None:
+        raise _later("ordination= (PCoA)", "ordination")
+    dev = hw.resolve_device(device)
+    if covariates is not None or strata is not None or weights is not None:
+        if perms is not None:
+            raise ValueError("perms= (explicit labels) applies to the labels "
+                             "path; a design batch takes index_perms=")
+        return _permanova_many_design(
+            dms, groupings, covariates=covariates, strata=strata,
+            weights=weights, n_groups=n_groups, n_perms=n_perms, seed=seed,
+            index_perms=index_perms, impl=impl, chunk=chunk,
+            memory_budget_bytes=memory_budget_bytes, n_pad=n_pad, dev=dev)
+    if index_perms is not None:
+        raise ValueError("index_perms= applies to design batches; the "
+                         "labels path takes perms=")
+    ragged = isinstance(dms, (list, tuple))
+    if ragged:
+        dms, groupings, n_valid, n = _ragged_studies(dms, groupings, n_pad,
+                                                     dev)
+    else:
+        dms, groupings = _stacked(dms, groupings, dev)
+        n_valid, n = None, int(groupings.shape[1])
+    s_count = len(dms)
+    n_total = n_perms + 1
+    _check_study_perms(perms, s_count, n_total, n, "perms")
+    budget = _study_budgets(dev.type, memory_budget_bytes, s_count)
+    plans, chunks, f_rows, s_ts, s_ws, p_vals = [], [], [], [], [], []
+    for s in range(s_count):
+        nv = int(groupings[s].shape[0])
+        pl = _many_plan(dev.type, n, nv, n_total, impl=impl, budget=budget,
+                        chunk=chunk)
+        fn = registry.get(pl.impl).bound(**pl.tuning)
+        mat2 = dms[s] * dms[s]
+        inv_gs = permutations.inv_group_sizes(groupings[s], n_groups)
+        s_w_all, stats = _sweep(
+            pl, mat2, groupings[s], inv_gs, n_total, fn,
+            seed=permutations.study_seed(seed, s),
+            perms=_study_draws(perms, s, nv), draw_budget=budget)
+        s_t = s_total(mat2)
+        f_all = f_from_sw(s_w_all, s_t, nv, n_groups)
+        plans.append(pl)
+        chunks.append(stats.n_chunks)
+        f_rows.append(f_all)
+        s_ts.append(s_t)
+        s_ws.append(s_w_all[0])
+        p_vals.append(p_value_from_null(f_all))
+    f_perms = torch.stack(f_rows)
+    return PermanovaManyResult(
+        f_stat=f_perms[:, 0], p_value=torch.stack(p_vals),
+        s_t=torch.stack(s_ts), s_w=torch.stack(s_ws), f_perms=f_perms,
+        n_objects=n, n_groups=n_groups, n_perms=n_perms, n_valid=n_valid,
+        plan=_many_plan_string(plans, chunks, s_count, ragged))
+
+
+def design_many_result(s_cols, designs, *, n_objects: int, n_groups: int,
+                       n_perms: int, n_valid=None,
+                       plan: str = "") -> PermanovaManyResult:
+    """Many-study result assembly from stacked (S, n_total, K) per-column
+    sweeps and each study's design (one term structure; each study's
+    residual dof its own), term by term as design_result assembles one
+    study (shared by permanova_many and pipeline_many)."""
+    per = [design_result(s_cols[s], d, n_objects=d.n, n_perms=n_perms,
+                         method="", plan="")
+           for s, d in enumerate(designs)]
+    terms = tuple(dataclasses.replace(
+        t, ss=torch.stack([r.terms[i].ss for r in per]),
+        f_stat=torch.stack([r.terms[i].f_stat for r in per]),
+        p_value=torch.stack([r.terms[i].p_value for r in per]),
+        r2=torch.stack([r.terms[i].r2 for r in per]),
+        f_perms=torch.stack([r.terms[i].f_perms for r in per]))
+        for i, t in enumerate(per[0].terms))
+    last = terms[-1]
+    return PermanovaManyResult(
+        f_stat=last.f_stat, p_value=last.p_value,
+        s_t=torch.stack([r.s_t for r in per]),
+        s_w=torch.stack([r.s_w for r in per]), f_perms=last.f_perms,
+        n_objects=n_objects, n_groups=n_groups, n_perms=n_perms,
+        n_valid=n_valid, terms=terms, plan=plan)
+
+
+def _build_study_designs(groupings, covariates, strata, weights, *,
+                         n_groups: int, s_count: int, sizes, device):
+    """Each study's dense design on its own n_s rows (force_dense, as the
+    reference's batch: strata-only studies too), checked for one shared
+    term structure, or ValueError."""
+    def pick(what, x, s, m):
+        if x is None:
+            return None
+        arr = x[s]
+        arr = arr.cpu().numpy() if isinstance(arr, torch.Tensor) \
+            else np.asarray(arr)
+        if arr.shape[0] != m:
+            raise ValueError(
+                f"study {s}: {what} has {arr.shape[0]} rows, expected {m} "
+                "(per-study design columns must be UNPADDED, aligned with "
+                "that study's samples)")
+        return arr
+
+    designs = []
+    for s in range(s_count):
+        m = int(sizes[s])
+        cov = pick("covariates", covariates, s, m)
+        designs.append(design_mod.build(
+            grouping=pick("groupings", groupings, s, m),
+            covariates=None if cov is None else cov.astype(np.float64),
+            strata=pick("strata", strata, s, m),
+            weights=(None if weights is None
+                     else pick("weights", weights, s, m).astype(np.float64)),
+            n_groups=n_groups, force_dense=True, device=device))
+    spans = [tuple((t.name, t.kind, t.df, t.lo, t.hi) for t in d.terms)
+             for d in designs]
+    if any(sp != spans[0] for sp in spans[1:]):
+        raise ValueError(
+            "the studies compiled to different design structures (per-study "
+            "term ranks differ, e.g. a covariate collinear in one study "
+            f"only); run such studies one at a time: {sorted(set(spans))}")
+    return designs
+
+
+def _permanova_many_design(dms, groupings, *, covariates, strata, weights,
+                           n_groups: int, n_perms: int, seed: int,
+                           index_perms, impl: str, chunk,
+                           memory_budget_bytes, n_pad, dev
+                           ) -> PermanovaManyResult:
+    """The many-study dense-design path: every study's design (strata-only
+    ones too) as one dense structure, each study's per-column sweep run
+    in turn on its own operands from study_seed(seed, s), then per-term F
+    and p per study."""
+    ragged = isinstance(dms, (list, tuple))
+    if ragged:
+        dms, _, n_valid, n = _ragged_studies(dms, groupings, n_pad, dev)
+    else:
+        dms = torch.as_tensor(dms).to(dev, torch.float32)
+        n_valid, n = None, int(dms.shape[1])
+    s_count = len(dms)
+    designs = _build_study_designs(
+        groupings, covariates, strata, weights, n_groups=n_groups,
+        s_count=s_count, sizes=[int(d.shape[0]) for d in dms], device=dev)
+    k = designs[0].k_cols
+    n_total = n_perms + 1
+    _check_study_perms(index_perms, s_count, n_total, n, "index_perms")
+    budget = _study_budgets(dev.type, memory_budget_bytes, s_count)
+    plans, chunks, s_cols = [], [], []
+    for s, d in enumerate(designs):
+        nv = d.n
+        st = (d.strata if d.strata is not None
+              else torch.zeros((nv,), dtype=torch.int32, device=dev))
+        pl = _many_plan(dev.type, n, nv, n_total, impl=impl, budget=budget,
+                        chunk=chunk, n_cols=k)
+        cols_fn = registry.bound_cols(pl.impl, **pl.tuning)
+        sc, stats = scheduler.sw_cols_streaming(
+            dms[s] * dms[s], d.basis, st, n_total, cols_fn, chunk=pl.chunk,
+            seed=permutations.study_seed(seed, s),
+            index_perms=_study_draws(index_perms, s, nv), draw_budget=budget)
+        plans.append(pl)
+        chunks.append(stats.n_chunks)
+        s_cols.append(sc)
+    return design_many_result(
+        torch.stack(s_cols), designs, n_objects=n, n_groups=n_groups,
+        n_perms=n_perms, n_valid=n_valid,
+        plan=(f"{_many_plan_string(plans, chunks, s_count, ragged)} "
+              f"cols={k} ({designs[0].describe()})"))

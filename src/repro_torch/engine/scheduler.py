@@ -39,8 +39,9 @@ def _labels(grouping, lo, hi, *, seed, perms, strata=None,
     if index_perms is not None:
         return grouping.to(torch.int32)[
             index_perms[lo:hi].to(grouping.device).long()]
+    kind = "labels" if strata is None else "strata"
     rows = permutations.draw_rows(grouping.shape[0],
-                                  planner.label_budget(draw_budget))
+                                  planner.label_budget(draw_budget), kind)
     if strata is not None:
         return permutations.strata_label_batch(grouping, strata, lo, hi,
                                                seed=seed, block_rows=rows)
@@ -58,7 +59,8 @@ def _index_perms(strata, lo, hi, *, seed, index_perms, draw_budget=None):
     return permutations.strata_permutation_batch(
         strata, lo, hi, seed=seed,
         block_rows=permutations.draw_rows(strata.shape[0],
-                                          planner.label_budget(draw_budget)))
+                                          planner.label_budget(draw_budget),
+                                          "index"))
 
 
 def _check_perms(perms, n_total, n, name="perms"):

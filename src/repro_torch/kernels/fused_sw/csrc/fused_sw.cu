@@ -6,8 +6,9 @@
 //   s_W[p]   = 1/2 sum_{r, c valid, r != c} D2[r, c] * 1[g_r == g_c] / n_{g_r}
 //   rows[r]  = sum_c D2[r, c]                       (the Gower row sums)
 //
-// as per-block partials (reduced by the caller), and never writes D2 to
-// device memory. D2 is the metric's squared distance:
+// as partials of a fixed number of slots, summed in a fixed order by a
+// second kernel, and never writes D2 to device memory. D2 is the
+// metric's squared distance:
 //
 //   euclidean   max(|x|^2 + |y|^2 - 2 x.y, 0)
 //   braycurtis  (sum_k |x_k - y_k| / max(S_x + S_y, 1e-30))^2
@@ -53,9 +54,20 @@
 //                   += m` (an integer compare and a predicated add) 128
 //                   times. w[g_r] is applied once per (row, permutation) a
 //                   pass; the 8 warps' sums are added in a fixed order once
-//                   per (tile, pass) into the block's running s_W, which
-//                   lives in its own partial row (one value per (block,
+//                   per (tile, pass) into the slot's running s_W, which
+//                   lives in its own partial row (one value per (slot,
 //                   permutation), read and rewritten by the same thread)
+//   slots           the grid is min(kSwSlots, items) blocks; block s walks
+//                   the work items (row tile, strip) s, s + slots, ... and
+//                   carries its partial row across them, so the partials
+//                   are slots x P floats whatever n (16 KiB a permutation,
+//                   a sixth of the labels' 4 n bytes at n = 25,145), and one
+//                   f64 D2 total a slot (for s_T). The row sums are written
+//                   only when the caller asks for them (rs_part not null,
+//                   (strips + row tiles) x n floats); the sweeps take the
+//                   totals. Before, one partial row per item and (strips +
+//                   row tiles) x n row sums grew as n^2 / 64 (633.6 MiB at
+//                   n = 100,000, over the 256 MiB budget that sized them)
 //
 // What bounded the first port (36.7 ms a 156-permutation chunk on an H100
 // SXM at 700 W, ~18x its bound): every 16 permutations cost a staging pass
@@ -64,12 +76,15 @@
 // the reduction cost about as much as the work; the full square was
 // computed; and its partials, one per (64 x 64 tile, permutation), grew
 // with tiles x P and held the plan to chunks of 156, so the feature phase
-// ran 26 times a test. The partials now grow with blocks x P (5,025 x P
-// floats at n = 25,145, a fifth of the labels' 4 n P bytes), so the plan
-// takes chunks of thousands. The same-group form weights each pair by 1/n_g
-// once, where the reference multiplies sqrt(1/n_g) from both sides; the two
-// differ by rounding only. Partials are reduced by the caller with
-// torch.sum (a fixed order): no float atomics, the same bits every run.
+// ran 26 times a test. The partials now grow with slots x P (4,096 x P
+// floats), so the plan takes chunks of thousands. The same-group form
+// weights each pair by 1/n_g once, where the reference multiplies
+// sqrt(1/n_g) from both sides; the two differ by rounding only. The slot
+// sum (slot_sum_kernel) adds the slots in an order that does not depend on
+// P, in double: no float atomics, the same bits every run and in every
+// chunk. The slot walk costs the labels kernel nothing measurable; a slot
+// sum of one thread a q (a dependent chain of 4,096 loads) cost ~1-2 ms,
+// so 8 warps split the slots.
 //
 // Bound on an H100 SXM at 700 W at the main path's shape (n = 25,145,
 // d = 128, G = 8, the plan's chunk of P = 1,792), each unordered pair
@@ -140,12 +155,22 @@
 //                   s_T. The v_r reduction runs once per (strip, pass): a
 //                   thread's 16 rows, then its quad's shuffles.
 //
-// One partial per (block, q) and the row sums per (strip slot, row) and,
-// symmetric, per (row tile, column) are reduced by the caller with
-// torch.sum: no atomics, the same bits every run. 132 SMs hold two blocks
-// each (100,352 B of dynamic shared memory, <= 128 registers a thread). A
-// row tile made only of pad rows (row_offset + i0 >= n_valid, the
-// reference's row_live) writes zeros and skips both phases.
+// Its grid is min(kColsSlots = 2,048, items) slots, each walking its items
+// s, s + slots, ... with one running partial per (slot, q) (80 KiB a
+// permutation at K = 10, against the 1.06 MiB of index and basis it
+// gathers) and one f64 D2 total; the row sums only when the caller asks
+// (as the labels kernel's); the slot sum adds the slots in a fixed order:
+// no atomics, the same bits every run and in every chunk. Each pass loads
+// its running partials at its start, so the load is not waited for at its
+// end. The walk costs ~10% against one block an item (29 ms at P = 127
+// -> ~32 ms on an H100 SXM at 700 W): ~1 ms the tail of the last wave
+// (8,192 slots recover it, with partials that would cut the chunk to
+// 128), ~2 ms not pinned down without a profiler: not the slot sum, not
+// the registers (128, no spills, the item body inlined or not), not the
+// order of the items. 132 SMs hold two blocks each
+// (100,352 B of dynamic shared memory, <= 128 registers a thread). A row
+// tile made only of pad rows (row_offset + i0 >= n_valid, the reference's
+// row_live) adds nothing and skips both phases.
 //
 // Its bound at the EMP design chunk on an H100 SXM at 700 W, each
 // unordered pair once: n(n-1) (d + P K) = 8.8e11 operations, 13.2 ms at
@@ -247,6 +272,21 @@ static_assert(kRingFloats >= 2 * kChunk * kPitch,
               "the ring holds the feature staging");
 static_assert(kRingFloats >= kStripTiles * 16 * kTile,
               "the ring holds the column-sum partials");
+// Both kernels: the grid is min(slots, work items) blocks, a block the
+// slot of its index; slot s walks the work items (row tile, strip) s, s +
+// slots, s + 2 slots, ... in that order and keeps one running partial per
+// permutation (or q) across them. The map depends on the call's shape
+// alone (never on P or on the card), so a permutation's partials and
+// their sum are the same bits for any chunking.
+constexpr int kSwSlots = 4096;         // labels: 1-2 items a slot at the
+                                       // EMP shape (2-3 at 2,048 left a
+                                       // longer tail)
+constexpr int kColsSlots = 2048;       // dense design: its partials are K
+                                       // floats a permutation a slot
+// The slot sum: a block of kSumWarps warps takes 32 q (a lane a q); warp w
+// adds the slots w, w + kSumWarps, ... in order, and the warps' sums are
+// added in warp order: a fixed order that does not depend on Q.
+constexpr int kSumWarps = 8;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -446,13 +486,13 @@ __device__ __forceinline__ void feature_tile(
   }
 }
 
-// A block's tiles, for strips of S column tiles (both kernels). A
+// A work item's tiles, for strips of S column tiles (both kernels). A
 // symmetric call (the whole table against itself) visits the column tiles
-// j >= i only: its blocks are the strips of S column tiles that start at
+// j >= i only: its items are the strips of S column tiles that start at
 // the diagonal and every S tiles after it, numbered strip offset first (c
 // = 0 for every row tile, then c = 1, ...). A slab call visits every
-// column tile: block b is row tile b % nti and strip b / nti. `slot`
-// numbers the block's row-sum partial: its strip (offset).
+// column tile: item b is row tile b % nti and strip b / nti. `slot`
+// numbers the item's row-sum partial row: its strip (offset).
 struct TileBlock {
   int64_t ti, jt0, slot;
 };
@@ -469,6 +509,27 @@ __host__ __device__ inline int64_t n_blocks(int64_t nti, int64_t ntj,
   int64_t total = 0;
   for (int64_t c = 0; c < strip_count<S>(ntj); ++c) total += ntj - c * S;
   return total;
+}
+
+// Blocks of a launch: one a slot, at most one a work item.
+template <int S, int kMaxSlots>
+__host__ __device__ inline int64_t n_slots(int64_t nti, int64_t ntj,
+                                           int sym) {
+  const int64_t items = n_blocks<S>(nti, ntj, sym);
+  return items < kMaxSlots ? items : kMaxSlots;
+}
+
+// The slot's D2 total: each thread adds its share into its own entry of
+// tot (shared memory, so no register is held across the item loop), and
+// thread 0 sums the entries in thread order in double (a fixed order).
+__device__ __forceinline__ void slot_total(const double* tot,
+                                           double* tot_part) {
+  __syncthreads();   // every thread's last share is in
+  if (threadIdx.x == 0) {
+    double s = 0.0;
+    for (int t = 0; t < kThreads; ++t) s += tot[t];
+    tot_part[blockIdx.x] = s;
+  }
 }
 
 template <int S>
@@ -500,17 +561,21 @@ __device__ __forceinline__ float row_weight(int g, const float* w,
   return (g >= 0 && g < n_groups) ? __ldg(w + g) : 0.f;
 }
 
-// Grid: n_blocks<kSwStripTiles>(nti, ntj, sym) blocks of 256 threads.
-// Block (ti, jt0) owns slab rows ti*64 + [0, 64), the column tiles jt0 +
-// [0, kSwStripTiles) and every permutation. Per tile: the feature phase
+// Grid: n_slots<kSwStripTiles>(nti, ntj, sym) blocks of 256 threads, one
+// a slot. Slot s walks the work items b = s, s + slots, ...: item (ti,
+// jt0) is slab rows ti*64 + [0, 64), the column tiles jt0 + [0,
+// kSwStripTiles) and every permutation. Per tile: the feature phase
 // (thread (ty, tx) holds rows 4 ty + [0, 4) x columns 4 tx + [0, 4)), the
 // weighted D2 tile into shared memory, then the tile's passes; the steps
 // s = t * n_pass + q (tile t, pass q) take their column labels from ring
 // stage s % 2, copied during step s - 1.
-// sw_part: (blocks, P), one running s_W per (block, permutation).
-// rs_part (zeroed by the caller): row sums at [slot, i] for slots <
-// n_strips, and for a symmetric call the column sums of the off-diagonal
-// tiles of row tile ti at [n_strips + ti, j].
+// sw_part: (slots, P), one running s_W per (slot, permutation) over its
+// items. tot_part: (slots,) f64, the slot's D2 total (every ordered pair
+// of its tiles, a symmetric call's off-diagonal tiles twice), so the
+// slots sum to the slab's row sums' total. rs_part (optional, zeroed by
+// the caller): row sums at [strip, i] for strips < n_strips, and for a
+// symmetric call the column sums of the off-diagonal tiles of row tile ti
+// at [n_strips + ti, j].
 template <class M, class L>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_sw_kernel(const typename L::T* __restrict__ xr,
@@ -519,9 +584,10 @@ fused_sw_kernel(const typename L::T* __restrict__ xr,
                 const int* __restrict__ g_rows,
                 const int* __restrict__ g_cols,
                 const float* __restrict__ inv_gs,
-                float* __restrict__ sw_part, float* __restrict__ rs_part,
-                int64_t nr, int64_t n, int64_t d, int64_t n_perms,
-                int n_groups, int64_t row_offset, int64_t n_valid, int sym) {
+                float* __restrict__ sw_part, double* __restrict__ tot_part,
+                float* __restrict__ rs_part, int64_t nr, int64_t n,
+                int64_t d, int64_t n_perms, int n_groups, int64_t row_offset,
+                int64_t n_valid, int sym) {
   extern __shared__ __align__(16) int sw_smem[];
   float* d2s = reinterpret_cast<float*>(sw_smem + 2 * kLabStage);  // [r][c]
   float* red = d2s + kD2Floats;                                 // [warp][p]
@@ -533,154 +599,169 @@ fused_sw_kernel(const typename L::T* __restrict__ xr,
   const int64_t nti = (nr + kTile - 1) / kTile;
   const int64_t ntj = (n + kTile - 1) / kTile;
   const int64_t n_strips = strip_count<kSwStripTiles>(ntj);
-  const TileBlock blk = tile_block<kSwStripTiles>(blockIdx.x, nti, ntj, sym);
-  const int n_t = (int)min64(kSwStripTiles, ntj - blk.jt0);
-  const int64_t i0 = blk.ti * kTile;   // slab-local rows
+  const int64_t n_items = n_blocks<kSwStripTiles>(nti, ntj, sym);
   float* __restrict__ out = sw_part + (int64_t)blockIdx.x * n_perms;
-
-  // A row tile made only of pad rows (an offset slab past n_valid) has
-  // nothing to add (and in a symmetric call neither have its columns).
-  if (row_offset + i0 >= n_valid) {
-    for (int64_t p = tid; p < n_perms; p += kThreads) out[p] = 0.f;
-    return;
-  }
+  // out[p] is zeroed, and later rewritten, by thread p % kSwPass
+  if (tid < kSwPass)
+    for (int64_t p = tid; p < n_perms; p += kSwPass) out[p] = 0.f;
 
   const int64_t n_pass = (n_perms + kSwPass - 1) / kSwPass;
-  const int64_t steps = n_t * n_pass;
-  // Start the copies of step s's column labels into its ring stage: thread
-  // tid copies column tid % 64 of permutations tid / 64 + 4u. A label past
-  // P (whose row labels are -1) or past n (whose D2 is 0) is a zero, which
-  // adds nothing.
-  constexpr int kCopyPerms = kThreads / kTile;   // 4 permutations a sweep
-  auto start_copies = [&](int64_t s) {
-    const int64_t jt = blk.jt0 + s / n_pass, p0 = (s % n_pass) * kSwPass;
-    const int c = tid % kTile, q0 = tid / kTile;
-    const int64_t j = jt * kTile + c;
-    int* dst = sw_smem + (s & 1) * kLabStage + q0 * kLabLd + c;
-    const int* src = g_cols + (p0 + q0) * n + j;
-#pragma unroll 4
-    for (int u = 0; u < kSwPass / kCopyPerms; ++u) {
-      const bool ok = j < n && p0 + q0 + kCopyPerms * u < n_perms;
-      cp_async4(dst + kCopyPerms * u * kLabLd, ok ? src : g_cols,
-                ok ? 4 : 0);
-      src += kCopyPerms * n;
-    }
-  };
-  start_copies(0);
-  cp_async_commit();
-
   const float xscale = L::scale(scale);
   const int rw = warp * kSwWarpRows;   // the warp's first tile row
-  float rsum[kMicro] = {0.f, 0.f, 0.f, 0.f};
-  for (int t = 0; t < n_t; ++t) {
-    const int64_t jt = blk.jt0 + t;
-    // ---- feature phase and finalize: the masked D2 tile in registers ----
-    // Staged in the ring stage that is not in flight (step t * n_pass - 1's,
-    // whose readers finished before that step's last barrier).
-    float* stage = reinterpret_cast<float*>(
-        sw_smem + ((t * n_pass + 1) & 1) * kLabStage);
-    auto& rs = *reinterpret_cast<float (*)[kChunk][kPitch]>(stage);
-    auto& cs = *reinterpret_cast<float (*)[kChunk][kPitch]>(stage +
-                                                           kChunk * kPitch);
-    float d2[kMicro][kMicro];
-    feature_tile<M, L>(xr, xc, xscale, nr, n, d, i0, jt * kTile, row_offset,
-                       n_valid, rs, cs, row_stat, col_stat, d2);
-#pragma unroll
-    for (int ii = 0; ii < kMicro; ++ii) rsum[ii] += tile_row_sum(d2, ii);
-    // Weighted as it is stored: 1/2 where both orders of a pair are
-    // visited (every tile of a slab call, the diagonal tile of a symmetric
-    // one), 1 for a symmetric call's off-diagonal tiles, which stand for
-    // their mirror images too; both weights are exact.
-    const bool mirrored = sym && jt != blk.ti;
-    const float wt = mirrored ? 1.f : 0.5f;
-#pragma unroll
-    for (int ii = 0; ii < kMicro; ++ii)
-      *reinterpret_cast<float4*>(d2s + (ty * kMicro + ii) * kTile +
-                                 tx * kMicro) =
-          make_float4(wt * d2[ii][0], wt * d2[ii][1], wt * d2[ii][2],
-                      wt * d2[ii][3]);
+  constexpr int kCopyPerms = kThreads / kTile;   // 4 permutations a sweep
+  __shared__ double tot[kThreads];   // each thread's share of the slot's
+  tot[tid] = 0.0;                    // D2 total
+  for (int64_t b = blockIdx.x; b < n_items; b += gridDim.x) {
+    const TileBlock blk = tile_block<kSwStripTiles>(b, nti, ntj, sym);
+    const int n_t = (int)min64(kSwStripTiles, ntj - blk.jt0);
+    const int64_t i0 = blk.ti * kTile;   // slab-local rows
+    // A row tile made only of pad rows (an offset slab past n_valid) has
+    // nothing to add (and in a symmetric call neither have its columns).
+    if (row_offset + i0 >= n_valid) continue;
+    __syncthreads();   // the previous item's readers of shared memory
+                       // are done
 
-    // ---- permutation phase: the tile's passes ------------------------------
-    for (int64_t q = 0; q < n_pass; ++q) {
-      const int64_t s = t * n_pass + q;
-      cp_async_wait<0>();
-      __syncthreads();   // step s's labels and the D2 tile are complete;
-                         // step s - 1's readers of the other stage are done
-      if (q == 0 && mirrored && tid < kTile) {
-        // an off-diagonal tile's column sums are its columns' rows' sums
-        const int64_t j = jt * kTile + tid;
-        float cs_sum = 0.f;
-        for (int r = 0; r < kTile; ++r) cs_sum += d2s[r * kTile + tid];
-        if (j < n) rs_part[(n_strips + blk.ti) * n + j] = cs_sum;
+    const int64_t steps = n_t * n_pass;
+    // Start the copies of step s's column labels into its ring stage:
+    // thread tid copies column tid % 64 of permutations tid / 64 + 4u. A
+    // label past P (whose row labels are -1) or past n (whose D2 is 0) is
+    // a zero, which adds nothing.
+    auto start_copies = [&](int64_t s) {
+      const int64_t jt = blk.jt0 + s / n_pass, p0 = (s % n_pass) * kSwPass;
+      const int c = tid % kTile, q0 = tid / kTile;
+      const int64_t j = jt * kTile + c;
+      int* dst = sw_smem + (s & 1) * kLabStage + q0 * kLabLd + c;
+      const int* src = g_cols + (p0 + q0) * n + j;
+#pragma unroll 4
+      for (int u = 0; u < kSwPass / kCopyPerms; ++u) {
+        const bool ok = j < n && p0 + q0 + kCopyPerms * u < n_perms;
+        cp_async4(dst + kCopyPerms * u * kLabLd, ok ? src : g_cols,
+                  ok ? 4 : 0);
+        src += kCopyPerms * n;
       }
-      if (s + 1 < steps) start_copies(s + 1);
-      cp_async_commit();
+    };
+    start_copies(0);
+    cp_async_commit();
 
-      const int64_t p0 = q * kSwPass;
-      // row labels of (tile row rw + r, permutation p0 + lane + 32k); -1
-      // past nr or P
-      int gr[kSwWarpRows][kSwLanePerms];
-      float acc[kSwWarpRows][kSwLanePerms];
+    float rsum[kMicro] = {0.f, 0.f, 0.f, 0.f};
+    for (int t = 0; t < n_t; ++t) {
+      const int64_t jt = blk.jt0 + t;
+      // ---- feature phase and finalize: the masked D2 tile in registers --
+      // Staged in the ring stage that is not in flight (step t * n_pass -
+      // 1's, whose readers finished before that step's last barrier).
+      float* stage = reinterpret_cast<float*>(
+          sw_smem + ((t * n_pass + 1) & 1) * kLabStage);
+      auto& rs = *reinterpret_cast<float (*)[kChunk][kPitch]>(stage);
+      auto& cs = *reinterpret_cast<float (*)[kChunk][kPitch]>(
+          stage + kChunk * kPitch);
+      float d2[kMicro][kMicro];
+      feature_tile<M, L>(xr, xc, xscale, nr, n, d, i0, jt * kTile,
+                         row_offset, n_valid, rs, cs, row_stat, col_stat,
+                         d2);
 #pragma unroll
-      for (int k = 0; k < kSwLanePerms; ++k) {
-        const int64_t p = p0 + lane + 32 * k;
-        const int* src = g_rows + p * nr + i0 + rw;
+      for (int ii = 0; ii < kMicro; ++ii) rsum[ii] += tile_row_sum(d2, ii);
+      // Weighted as it is stored: 1/2 where both orders of a pair are
+      // visited (every tile of a slab call, the diagonal tile of a
+      // symmetric one), 1 for a symmetric call's off-diagonal tiles, which
+      // stand for their mirror images too; both weights are exact.
+      const bool mirrored = sym && jt != blk.ti;
+      const float wt = mirrored ? 1.f : 0.5f;
 #pragma unroll
-        for (int r = 0; r < kSwWarpRows; ++r) {
-          gr[r][k] = p < n_perms && i0 + rw + r < nr ? __ldg(src + r) : -1;
-          acc[r][k] = 0.f;
+      for (int ii = 0; ii < kMicro; ++ii)
+        *reinterpret_cast<float4*>(d2s + (ty * kMicro + ii) * kTile +
+                                   tx * kMicro) =
+            make_float4(wt * d2[ii][0], wt * d2[ii][1], wt * d2[ii][2],
+                        wt * d2[ii][3]);
+
+      // ---- permutation phase: the tile's passes ----------------------------
+      for (int64_t q = 0; q < n_pass; ++q) {
+        const int64_t s = t * n_pass + q;
+        cp_async_wait<0>();
+        __syncthreads();   // step s's labels and the D2 tile are complete;
+                           // step s - 1's readers of the other stage are
+                           // done
+        if (q == 0 && mirrored && tid < kTile) {
+          // an off-diagonal tile's column sums are its columns' rows' sums
+          const int64_t j = jt * kTile + tid;
+          float cs_sum = 0.f;
+          for (int r = 0; r < kTile; ++r) cs_sum += d2s[r * kTile + tid];
+          tot[tid] += cs_sum;
+          if (rs_part != nullptr && j < n)
+            rs_part[(n_strips + blk.ti) * n + j] = cs_sum;
         }
-      }
-      const float* ms = d2s + rw * kTile;
-      const int* lab = sw_smem + (s & 1) * kLabStage + lane * kLabLd;
-#pragma unroll 1
-      for (int c = 0; c < kTile; c += 4) {
-        int4 gc[kSwLanePerms];
+        if (s + 1 < steps) start_copies(s + 1);
+        cp_async_commit();
+
+        const int64_t p0 = q * kSwPass;
+        // row labels of (tile row rw + r, permutation p0 + lane + 32k); -1
+        // past nr or P
+        int gr[kSwWarpRows][kSwLanePerms];
+        float acc[kSwWarpRows][kSwLanePerms];
 #pragma unroll
-        for (int k = 0; k < kSwLanePerms; ++k)
-          gc[k] = *reinterpret_cast<const int4*>(lab + 32 * k * kLabLd + c);
+        for (int k = 0; k < kSwLanePerms; ++k) {
+          const int64_t p = p0 + lane + 32 * k;
+          const int* src = g_rows + p * nr + i0 + rw;
 #pragma unroll
-        for (int r = 0; r < kSwWarpRows; ++r) {
-          const float4 m =
-              *reinterpret_cast<const float4*>(ms + r * kTile + c);
-#pragma unroll
-          for (int k = 0; k < kSwLanePerms; ++k) {
-            const int g = gr[r][k];
-            if (g == gc[k].x) acc[r][k] += m.x;
-            if (g == gc[k].y) acc[r][k] += m.y;
-            if (g == gc[k].z) acc[r][k] += m.z;
-            if (g == gc[k].w) acc[r][k] += m.w;
+          for (int r = 0; r < kSwWarpRows; ++r) {
+            gr[r][k] = p < n_perms && i0 + rw + r < nr ? __ldg(src + r) : -1;
+            acc[r][k] = 0.f;
           }
         }
+        const float* ms = d2s + rw * kTile;
+        const int* lab = sw_smem + (s & 1) * kLabStage + lane * kLabLd;
+#pragma unroll 1
+        for (int c = 0; c < kTile; c += 4) {
+          int4 gc[kSwLanePerms];
+#pragma unroll
+          for (int k = 0; k < kSwLanePerms; ++k)
+            gc[k] = *reinterpret_cast<const int4*>(lab + 32 * k * kLabLd + c);
+#pragma unroll
+          for (int r = 0; r < kSwWarpRows; ++r) {
+            const float4 m =
+                *reinterpret_cast<const float4*>(ms + r * kTile + c);
+#pragma unroll
+            for (int k = 0; k < kSwLanePerms; ++k) {
+              const int g = gr[r][k];
+              if (g == gc[k].x) acc[r][k] += m.x;
+              if (g == gc[k].y) acc[r][k] += m.y;
+              if (g == gc[k].z) acc[r][k] += m.z;
+              if (g == gc[k].w) acc[r][k] += m.w;
+            }
+          }
+        }
+        // w[g_r] once per (row, permutation), then the warps in a fixed
+        // order into the slot's running s_W
+#pragma unroll
+        for (int k = 0; k < kSwLanePerms; ++k) {
+          float v = 0.f;
+#pragma unroll
+          for (int r = 0; r < kSwWarpRows; ++r)
+            v = fmaf(acc[r][k], row_weight(gr[r][k], inv_gs, n_groups), v);
+          red[warp * kSwPass + lane + 32 * k] = v;
+        }
+        __syncthreads();
+        const int64_t p = p0 + tid;
+        if (tid < kSwPass && p < n_perms) {
+          float v = 0.f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) v += red[w * kSwPass + tid];
+          out[p] += v;
+        }
       }
-      // w[g_r] once per (row, permutation), then the warps in a fixed
-      // order into the block's running s_W
+    }
+    cp_async_wait<0>();
+
+    // ---- Gower row sums: the strip's rows ----------------------------------
 #pragma unroll
-      for (int k = 0; k < kSwLanePerms; ++k) {
-        float v = 0.f;
-#pragma unroll
-        for (int r = 0; r < kSwWarpRows; ++r)
-          v = fmaf(acc[r][k], row_weight(gr[r][k], inv_gs, n_groups), v);
-        red[warp * kSwPass + lane + 32 * k] = v;
-      }
-      __syncthreads();
-      const int64_t p = p0 + tid;
-      if (tid < kSwPass && p < n_perms) {
-        float v = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) v += red[w * kSwPass + tid];
-        out[p] = (t == 0 ? 0.f : out[p]) + v;
+    for (int ii = 0; ii < kMicro; ++ii) {
+      const int64_t i = i0 + ty * kMicro + ii;
+      if (tx == 0 && i < nr) {
+        tot[tid] += rsum[ii];
+        if (rs_part != nullptr) rs_part[blk.slot * nr + i] = rsum[ii];
       }
     }
   }
-  cp_async_wait<0>();
-
-  // ---- Gower row sums: the strip's rows ------------------------------------
-#pragma unroll
-  for (int ii = 0; ii < kMicro; ++ii) {
-    const int64_t i = i0 + ty * kMicro + ii;
-    if (tx == 0 && i < nr) rs_part[blk.slot * nr + i] = rsum[ii];
-  }
+  slot_total(tot, tot_part);
 }
 
 // x rounded to TF32, round to nearest with ties away (a .b32 pattern whose
@@ -744,13 +825,15 @@ __device__ __forceinline__ int b_offset(int r, int c) {
          (r % 8) * 16 + (c % 4) * 4;
 }
 
-// Grid: n_blocks<kStripTiles>(nti, ntj, sym) blocks of 256 threads (two
-// warpgroups). Block (ti, jt0) owns slab rows ti*64 + [0, 64) and column
-// tiles jt0 + [0, kStripTiles). Q = P * K (permutation, column) pairs,
-// q = p * K + k.
-// s_part: (blocks, Q). rs_part (zeroed by the caller): row sums at
-// [slot, i] for slots < n_strips, and for a symmetric call the column sums
-// of the off-diagonal tiles of row tile ti at [n_strips + ti, j].
+// Grid: n_slots<kStripTiles>(nti, ntj, sym) blocks of 256 threads (two
+// warpgroups), one a slot. Slot s walks the work items b = s, s + slots,
+// ...: item (ti, jt0) is slab rows ti*64 + [0, 64) and column tiles jt0 +
+// [0, kStripTiles). Q = P * K (permutation, column) pairs, q = p * K + k.
+// s_part: (slots, Q), one running partial per (slot, q) over its items.
+// tot_part: (slots,) f64, the slot's D2 total (as the labels kernel's).
+// rs_part (optional, zeroed by the caller): row sums at [strip, i] for
+// strips < n_strips, and for a symmetric call the column sums of the
+// off-diagonal tiles of row tile ti at [n_strips + ti, j].
 template <class M, class L>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_sw_cols_kernel(const typename L::T* __restrict__ xr,
@@ -758,10 +841,11 @@ fused_sw_cols_kernel(const typename L::T* __restrict__ xr,
                      const float* __restrict__ scale,
                      const float* __restrict__ v_rows,
                      const float* __restrict__ v_cols,
-                     float* __restrict__ s_part, float* __restrict__ rs_part,
-                     int64_t nr, int64_t n, int64_t d, int64_t n_perms,
-                     int64_t n_cols, int64_t row_offset, int64_t n_valid,
-                     int sym) {
+                     float* __restrict__ s_part,
+                     double* __restrict__ tot_part,
+                     float* __restrict__ rs_part, int64_t nr, int64_t n,
+                     int64_t d, int64_t n_perms, int64_t n_cols,
+                     int64_t row_offset, int64_t n_valid, int sym) {
   extern __shared__ __align__(128) float cols_smem[];
   unsigned char* btiles = reinterpret_cast<unsigned char*>(cols_smem);
   float* ring = cols_smem + kStripTiles * 2 * kD2Floats;   // stages [c][q]
@@ -777,234 +861,325 @@ fused_sw_cols_kernel(const typename L::T* __restrict__ xr,
   const int64_t nti = (nr + kTile - 1) / kTile;
   const int64_t ntj = (n + kTile - 1) / kTile;
   const int64_t n_strips = strip_count<kStripTiles>(ntj);
-  const TileBlock blk = tile_block<kStripTiles>(blockIdx.x, nti, ntj, sym);
-  const int n_t = (int)min64(kStripTiles, ntj - blk.jt0);
-  const int64_t i0 = blk.ti * kTile;   // slab-local rows
+  const int64_t n_items = n_blocks<kStripTiles>(nti, ntj, sym);
   const int64_t nq = n_perms * n_cols;
   float* __restrict__ out = s_part + (int64_t)blockIdx.x * nq;
+  // zeroed before the first item's first barrier; every later write of
+  // out[q] follows a barrier
+  for (int64_t q = tid; q < nq; q += kThreads) out[q] = 0.f;
 
-  // A row tile made only of pad rows (an offset slab past n_valid) has
-  // nothing to add (and in a symmetric call neither have its columns).
-  if (row_offset + i0 >= n_valid) {
-    for (int64_t q = tid; q < nq; q += kThreads) out[q] = 0.f;
-    return;
-  }
-
-  // ---- feature phase: the strip's masked D2 tiles into shared memory -----
-  // Each tile is weighted as it is stored: 1/2 where both orders of a pair
-  // are visited (every tile of a slab call, the diagonal tile of a
-  // symmetric one), 1 for a symmetric call's off-diagonal tiles, which
-  // stand for their mirror images too; both weights are exact. It is
-  // stored split for the tensor cores, hi = tf32(x) and lo = tf32(x - hi)
-  // (x - hi is exact in f32), as two B tiles.
   const float xscale = L::scale(scale);
-  float rsum[kMicro] = {0.f, 0.f, 0.f, 0.f};
-  float csum[kStripTiles][kMicro];   // this thread's 4 rows, per column
-  for (int t = 0; t < n_t; ++t) {
-    const int64_t jt = blk.jt0 + t;
-    float d2[kMicro][kMicro];
-    feature_tile<M, L>(xr, xc, xscale, nr, n, d, i0, jt * kTile, row_offset,
-                       n_valid, rs, cs, row_stat, col_stat, d2);
-#pragma unroll
-    for (int ii = 0; ii < kMicro; ++ii) rsum[ii] += tile_row_sum(d2, ii);
-#pragma unroll
-    for (int jj = 0; jj < kMicro; ++jj)
-      csum[t][jj] = ((d2[0][jj] + d2[1][jj]) + d2[2][jj]) + d2[3][jj];
-    const float wt = sym && jt != blk.ti ? 1.f : 0.5f;
-    unsigned char* hi = btiles + t * 2 * kD2Floats * 4;
-    unsigned char* lo = hi + kD2Floats * 4;
-#pragma unroll
-    for (int ii = 0; ii < kMicro; ++ii) {
-      uint32_t h[kMicro], l[kMicro];
-#pragma unroll
-      for (int jj = 0; jj < kMicro; ++jj) {
-        const float x = wt * d2[ii][jj];
-        h[jj] = tf32_round(x);
-        l[jj] = tf32_round(x - __uint_as_float(h[jj]));
-      }
-      const int off = b_offset(ty * kMicro + ii, tx * kMicro);
-      *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
-      *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
-    }
-  }
-  fence_proxy_async();
-  __syncthreads();   // the B tiles are complete; the staging area is free
-
-  // ---- Gower row sums: the strip's rows, and (symmetric) its columns -----
-#pragma unroll
-  for (int ii = 0; ii < kMicro; ++ii) {
-    const int64_t i = i0 + ty * kMicro + ii;
-    if (tx == 0 && i < nr) rs_part[blk.slot * nr + i] = rsum[ii];
-  }
-  if (sym) {   // an off-diagonal tile's column sums are its columns' rows'
-    for (int t = 0; t < n_t; ++t)
-#pragma unroll
-      for (int jj = 0; jj < kMicro; ++jj)
-        ring[(t * 16 + ty) * kTile + tx * kMicro + jj] = csum[t][jj];
-    __syncthreads();
-    const int t = tid / kTile, c = tid % kTile;
-    const int64_t j = (blk.jt0 + t) * kTile + c;
-    if (t < n_t && blk.jt0 + t != blk.ti && j < n) {
-      float s = 0.f;
-      for (int y = 0; y < 16; ++y) s += ring[(t * 16 + y) * kTile + c];
-      rs_part[(n_strips + blk.ti) * n + j] = s;
-    }
-  }
-
-  // ---- permutation phase: Y^T = V_c^T . D2^T on the tensor cores ---------
-  // Per pass of 128 q, warpgroup wg computes for its 64 q (M) and the row
-  // tile's 64 rows r (N) the sum over every column c of the strip (K):
-  // A = V_c^T from registers, B = the D2 tile from shared memory, in three
-  // TF32 products of the split operands, hi.hi + hi.lo + lo.hi (lo.lo is
-  // below f32's rounding). V_c goes through a four-stage cp.async ring, 16
-  // columns a stage ([c][q]; the basis is (P, n, K), so a q's entries lie K
-  // floats apart down the columns), and is split as it is loaded into A
-  // fragments. The tensor cores truncate as they accumulate, so each
-  // stage's 6 products go into a fresh accumulator that joins the f32 sums
-  // with a rounded add. Then s[q] += sum_r v_r[r, q] Y[r, q]: a thread's 16
-  // rows, then its quad (shuffles) in a fixed order.
   const int wg = warp / 4;
   const int arow = (warp % 4) * 16 + lane / 4;   // A rows (q) arow, arow + 8
   const int tig = lane % 4;
-  const int steps = n_t * (kTile / kKc);
   const int ql = tid % kQPass, ch = tid / kQPass;   // this thread's copies
   constexpr int kHalf = kKc / 2;   // columns a thread copies a stage
-  // its columns' offset from the strip's first, and the columns left
-  const int64_t c_first = blk.jt0 * kTile + ch * kHalf;
-  const int c_left = (int)min64(n - c_first, 0x7fffffff);
   const uint64_t desc0 = b_desc(btiles);   // stage offsets are added to it
-  for (int64_t q0 = 0; q0 < nq; q0 += kQPass) {
-    const int64_t qs = q0 + ql;
-    const bool q_ok = qs < nq;
-    const float* vsrc =
-        (q_ok ? v_cols + (qs / n_cols) * n * n_cols + qs % n_cols : v_cols) +
-        c_first * n_cols;
-    auto stage = [&](int st) {
-      float* vs = ring + (st % kColsStages) * kKc * kVLd + ch * kHalf * kVLd +
-                  ql;
-      const float* src = vsrc + (int64_t)st * kKc * n_cols;
-      const int rem = c_left - st * kKc;
+  __shared__ double tot[kThreads];   // each thread's share of the slot's
+  tot[tid] = 0.0;                    // D2 total
+  for (int64_t b = blockIdx.x; b < n_items; b += gridDim.x) {
+    const TileBlock blk = tile_block<kStripTiles>(b, nti, ntj, sym);
+    const int n_t = (int)min64(kStripTiles, ntj - blk.jt0);
+    const int64_t i0 = blk.ti * kTile;   // slab-local rows
+    // A row tile made only of pad rows (an offset slab past n_valid) has
+    // nothing to add (and in a symmetric call neither have its columns).
+    if (row_offset + i0 >= n_valid) continue;
+    __syncthreads();   // the previous item's readers of the ring and of
+                       // the B tiles are done
+
+    // ---- feature phase: the strip's masked D2 tiles into shared memory ---
+    // Each tile is weighted as it is stored: 1/2 where both orders of a
+    // pair are visited (every tile of a slab call, the diagonal tile of a
+    // symmetric one), 1 for a symmetric call's off-diagonal tiles, which
+    // stand for their mirror images too; both weights are exact. It is
+    // stored split for the tensor cores, hi = tf32(x) and lo = tf32(x - hi)
+    // (x - hi is exact in f32), as two B tiles.
+    float rsum[kMicro] = {0.f, 0.f, 0.f, 0.f};
+    float csum[kStripTiles][kMicro];   // this thread's 4 rows, per column
+    for (int t = 0; t < n_t; ++t) {
+      const int64_t jt = blk.jt0 + t;
+      float d2[kMicro][kMicro];
+      feature_tile<M, L>(xr, xc, xscale, nr, n, d, i0, jt * kTile,
+                         row_offset, n_valid, rs, cs, row_stat, col_stat,
+                         d2);
 #pragma unroll
-      for (int cc = 0; cc < kHalf; ++cc) {
-        const bool ok = q_ok && cc < rem;
-        cp_async4(vs + cc * kVLd, ok ? src : v_cols, ok ? 4 : 0);
-        src += n_cols;
-      }
-    };
-    float acc[32], dd[32];
+      for (int ii = 0; ii < kMicro; ++ii) rsum[ii] += tile_row_sum(d2, ii);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = dd[i] = 0.f;
-    const bool wg_live = q0 + 64 * wg < nq;   // any of its q < Q
-    __syncthreads();   // the ring's earlier readers are done
+      for (int jj = 0; jj < kMicro; ++jj)
+        csum[t][jj] = ((d2[0][jj] + d2[1][jj]) + d2[2][jj]) + d2[3][jj];
+      const float wt = sym && jt != blk.ti ? 1.f : 0.5f;
+      unsigned char* hi = btiles + t * 2 * kD2Floats * 4;
+      unsigned char* lo = hi + kD2Floats * 4;
 #pragma unroll
-    for (int s = 0; s < kColsStages - 1; ++s) {
-      if (s < steps) stage(s);
-      cp_async_commit();
-    }
-    for (int st = 0; st < steps; ++st) {
-      cp_async_wait<kColsStages - 2>();   // this thread's copies of st
-      __syncthreads();   // everyone's; stage st - 1's readers are done
-      if (st + kColsStages - 1 < steps) stage(st + kColsStages - 1);
-      cp_async_commit();
-      if (!wg_live) continue;
-      const float* vs =
-          ring + (st % kColsStages) * kKc * kVLd + 64 * wg + arow;
-      // the stage's k-steps in the strip's B tiles: tile st / (kTile /
-      // kKc), k-step (st % (kTile / kKc)) * kKc / 8 on
-      const uint64_t bh0 =
-          desc0 + (((st / (kTile / kKc)) * 2 * kD2Floats * 4 +
-                    (st % (kTile / kKc)) * (kKc / 8) * kBStep) >> 4);
-      constexpr uint64_t kLoDesc = kD2Floats * 4 >> 4, kStepDesc = kBStep >> 4;
-      uint32_t ah[kKc / 8][4], al[kKc / 8][4];
+      for (int ii = 0; ii < kMicro; ++ii) {
+        uint32_t h[kMicro], l[kMicro];
 #pragma unroll
-      for (int f = 0; f < kKc / 8; ++f) {
-        const float* v0 = vs + (8 * f + tig) * kVLd;
-        const float x[4] = {v0[0], v0[8], v0[4 * kVLd], v0[4 * kVLd + 8]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ah[f][e] = tf32_round(x[e]);
-          al[f][e] = tf32_round(x[e] - __uint_as_float(ah[f][e]));
+        for (int jj = 0; jj < kMicro; ++jj) {
+          const float x = wt * d2[ii][jj];
+          h[jj] = tf32_round(x);
+          l[jj] = tf32_round(x - __uint_as_float(h[jj]));
         }
+        const int off = b_offset(ty * kMicro + ii, tx * kMicro);
+        *reinterpret_cast<uint4*>(hi + off) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(lo + off) =
+            make_uint4(l[0], l[1], l[2], l[3]);
       }
-      fence_regs(dd);
-      wgmma_fence();
-#pragma unroll
-      for (int f = 0; f < kKc / 8; ++f) {
-        const uint64_t bh = bh0 + f * kStepDesc, bl = bh + kLoDesc;
-        wgmma_tf32(dd, ah[f], bh, f > 0);
-        wgmma_tf32(dd, ah[f], bl, 1);
-        wgmma_tf32(dd, al[f], bh, 1);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(dd);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] += dd[i];
     }
-    if (wg_live) {
-      // acc[4i + 2h + e] is q = arow + 8h, row r = 8i + 2 tig + e
+    fence_proxy_async();
+    __syncthreads();   // the B tiles are complete; the staging area is free
+
+    // ---- Gower row sums: the strip's rows, and (symmetric) its columns ---
+#pragma unroll
+    for (int ii = 0; ii < kMicro; ++ii) {
+      const int64_t i = i0 + ty * kMicro + ii;
+      if (tx == 0 && i < nr) {
+        tot[tid] += rsum[ii];
+        if (rs_part != nullptr) rs_part[blk.slot * nr + i] = rsum[ii];
+      }
+    }
+    if (sym) {   // an off-diagonal tile's column sums are its columns' rows'
+      for (int t = 0; t < n_t; ++t)
+#pragma unroll
+        for (int jj = 0; jj < kMicro; ++jj)
+          ring[(t * 16 + ty) * kTile + tx * kMicro + jj] = csum[t][jj];
+      __syncthreads();
+      const int t = tid / kTile, c = tid % kTile;
+      const int64_t j = (blk.jt0 + t) * kTile + c;
+      if (t < n_t && blk.jt0 + t != blk.ti && j < n) {
+        float s = 0.f;
+        for (int y = 0; y < 16; ++y) s += ring[(t * 16 + y) * kTile + c];
+        tot[tid] += s;
+        if (rs_part != nullptr) rs_part[(n_strips + blk.ti) * n + j] = s;
+      }
+    }
+
+    // ---- permutation phase: Y^T = V_c^T . D2^T on the tensor cores -------
+    // Per pass of 128 q, warpgroup wg computes for its 64 q (M) and the row
+    // tile's 64 rows r (N) the sum over every column c of the strip (K):
+    // A = V_c^T from registers, B = the D2 tile from shared memory, in
+    // three TF32 products of the split operands, hi.hi + hi.lo + lo.hi
+    // (lo.lo is below f32's rounding). V_c goes through a four-stage
+    // cp.async ring, 16 columns a stage ([c][q]; the basis is (P, n, K),
+    // so a q's entries lie K floats apart down the columns), and is split
+    // as it is loaded into A fragments. The tensor cores truncate as they
+    // accumulate, so each stage's 6 products go into a fresh accumulator
+    // that joins the f32 sums with a rounded add. Then s[q] += sum_r
+    // v_r[r, q] Y[r, q]: a thread's 16 rows, then its quad (shuffles) in a
+    // fixed order, into the slot's running partial.
+    const int steps = n_t * (kTile / kKc);
+    // its columns' offset from the strip's first, and the columns left
+    const int64_t c_first = blk.jt0 * kTile + ch * kHalf;
+    const int c_left = (int)min64(n - c_first, 0x7fffffff);
+    for (int64_t q0 = 0; q0 < nq; q0 += kQPass) {
+      const int64_t qs = q0 + ql;
+      const bool q_ok = qs < nq;
+      const float* vsrc =
+          (q_ok ? v_cols + (qs / n_cols) * n * n_cols + qs % n_cols
+                : v_cols) +
+          c_first * n_cols;
+      auto stage = [&](int st) {
+        float* vs = ring + (st % kColsStages) * kKc * kVLd +
+                    ch * kHalf * kVLd + ql;
+        const float* src = vsrc + (int64_t)st * kKc * n_cols;
+        const int rem = c_left - st * kKc;
+#pragma unroll
+        for (int cc = 0; cc < kHalf; ++cc) {
+          const bool ok = q_ok && cc < rem;
+          cp_async4(vs + cc * kVLd, ok ? src : v_cols, ok ? 4 : 0);
+          src += n_cols;
+        }
+      };
+      float acc[32], dd[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = dd[i] = 0.f;
+      const bool wg_live = q0 + 64 * wg < nq;   // any of its q < Q
+      // the slot's running partials of this thread's two q, loaded now so
+      // the load is not waited for at the pass's end
+      float prev[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int64_t q = q0 + 64 * wg + arow + 8 * h;
-        float s = 0.f;
-        if (q < nq) {
-          const float* vq = v_rows + (q / n_cols) * nr * n_cols + q % n_cols;
+        prev[h] = (wg_live && tig == 0 && q < nq) ? out[q] : 0.f;
+      }
+      __syncthreads();   // the ring's earlier readers are done
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
+      for (int s = 0; s < kColsStages - 1; ++s) {
+        if (s < steps) stage(s);
+        cp_async_commit();
+      }
+      for (int st = 0; st < steps; ++st) {
+        cp_async_wait<kColsStages - 2>();   // this thread's copies of st
+        __syncthreads();   // everyone's; stage st - 1's readers are done
+        if (st + kColsStages - 1 < steps) stage(st + kColsStages - 1);
+        cp_async_commit();
+        if (!wg_live) continue;
+        const float* vs =
+            ring + (st % kColsStages) * kKc * kVLd + 64 * wg + arow;
+        // the stage's k-steps in the strip's B tiles: tile st / (kTile /
+        // kKc), k-step (st % (kTile / kKc)) * kKc / 8 on
+        const uint64_t bh0 =
+            desc0 + (((st / (kTile / kKc)) * 2 * kD2Floats * 4 +
+                      (st % (kTile / kKc)) * (kKc / 8) * kBStep) >> 4);
+        constexpr uint64_t kLoDesc = kD2Floats * 4 >> 4,
+                           kStepDesc = kBStep >> 4;
+        uint32_t ah[kKc / 8][4], al[kKc / 8][4];
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int64_t r = i0 + 8 * i + 2 * tig + e;
-              if (r < nr)
-                s = fmaf(__ldg(vq + r * n_cols), acc[4 * i + 2 * h + e], s);
-            }
+        for (int f = 0; f < kKc / 8; ++f) {
+          const float* v0 = vs + (8 * f + tig) * kVLd;
+          const float x[4] = {v0[0], v0[8], v0[4 * kVLd],
+                              v0[4 * kVLd + 8]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[f][e] = tf32_round(x[e]);
+            al[f][e] = tf32_round(x[e] - __uint_as_float(ah[f][e]));
+          }
         }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (tig == 0 && q < nq) out[q] = s;
+        fence_regs(dd);
+        wgmma_fence();
+#pragma unroll
+        for (int f = 0; f < kKc / 8; ++f) {
+          const uint64_t bh = bh0 + f * kStepDesc, bl = bh + kLoDesc;
+          wgmma_tf32(dd, ah[f], bh, f > 0);
+          wgmma_tf32(dd, ah[f], bl, 1);
+          wgmma_tf32(dd, al[f], bh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dd);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += dd[i];
+      }
+      cp_async_wait<0>();
+      if (wg_live) {
+        // acc[4i + 2h + e] is q = arow + 8h, row r = 8i + 2 tig + e
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t q = q0 + 64 * wg + arow + 8 * h;
+          float s = 0.f;
+          if (q < nq) {
+            const float* vq =
+                v_rows + (q / n_cols) * nr * n_cols + q % n_cols;
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int64_t r = i0 + 8 * i + 2 * tig + e;
+                if (r < nr)
+                  s = fmaf(__ldg(vq + r * n_cols), acc[4 * i + 2 * h + e],
+                           s);
+              }
+          }
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          if (tig == 0 && q < nq) out[q] = prev[h] + s;
+        }
       }
     }
   }
+  slot_total(tot, tot_part);
+}
+
+// The fixed-order sum of a launch's slot partials (either kernel): out[q]
+// = sum_s part[s, q] in double, rounded once to f32; block x takes q =
+// 32 x + lane, warp w the slots w, w + kSumWarps, ... in order, then the
+// warps' sums in warp order. Block 0 also sums tot_part (thread t the
+// slots t, t + 256, ... in order, then the threads in order) into tot_out.
+// Neither order depends on Q, so a permutation's s_W (or s_cols) is the
+// same bits in any chunk.
+__global__ void __launch_bounds__(kSumWarps * 32)
+slot_sum_kernel(const float* __restrict__ part,
+                const double* __restrict__ tot_part, int64_t slots,
+                int64_t nq, float* __restrict__ out,
+                double* __restrict__ tot_out) {
+  __shared__ double red[kSumWarps * 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int64_t q = (int64_t)blockIdx.x * 32 + lane;
+  double s = 0.0;
+  if (q < nq) {
+#pragma unroll 8
+    for (int64_t k = warp; k < slots; k += kSumWarps) s += part[k * nq + q];
+  }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  if (warp == 0 && q < nq) {
+    double t = 0.0;
+    for (int w = 0; w < kSumWarps; ++w) t += red[w * 32 + lane];
+    out[q] = (float)t;
+  }
+  if (blockIdx.x != 0) return;
+  __syncthreads();
+  double t = 0.0;
+  for (int64_t k = threadIdx.x; k < slots; k += kSumWarps * 32)
+    t += tot_part[k];
+  red[threadIdx.x] = t;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double u = 0.0;
+    for (int i = 0; i < kSumWarps * 32; ++i) u += red[i];
+    *tot_out = u;
+  }
+}
+
+// Launch the slot sum after a kernel on the same stream.
+inline int launch_slot_sum(const float* part, const double* tot_part,
+                           int64_t slots, int64_t nq, float* out,
+                           double* tot_out, cudaStream_t stream) {
+  const int64_t blocks = (nq + 31) / 32;
+  slot_sum_kernel<<<(unsigned)blocks, kSumWarps * 32, 0, stream>>>(
+      part, tot_part, slots, nq, out, tot_out);
+  return (int)cudaGetLastError();
 }
 
 template <class M, class L>
 int launch(const void* xr, const void* xc, const void* scale,
            const void* g_rows, const void* g_cols, const void* inv_gs,
-           void* sw_part, void* rs_part, int64_t nr, int64_t n, int64_t d,
-           int64_t n_perms, int n_groups, int64_t row_offset,
-           int64_t n_valid, int sym, cudaStream_t stream) {
+           void* sw_part, void* tot_part, void* rs_part, void* sw_out,
+           void* tot_out, int64_t nr, int64_t n, int64_t d, int64_t n_perms,
+           int n_groups, int64_t row_offset, int64_t n_valid, int sym,
+           cudaStream_t stream) {
   using T = typename L::T;
-  const int64_t blocks = n_blocks<kSwStripTiles>(
+  const int64_t slots = n_slots<kSwStripTiles, kSwSlots>(
       (nr + kTile - 1) / kTile, (n + kTile - 1) / kTile, sym);
   cudaFuncSetAttribute(fused_sw_kernel<M, L>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kSwSmemBytes);
-  fused_sw_kernel<M, L><<<(unsigned)blocks, kThreads, kSwSmemBytes,
+  fused_sw_kernel<M, L><<<(unsigned)slots, kThreads, kSwSmemBytes,
                           stream>>>(
       (const T*)xr, (const T*)xc, (const float*)scale, (const int*)g_rows,
       (const int*)g_cols, (const float*)inv_gs, (float*)sw_part,
-      (float*)rs_part, nr, n, d, n_perms, n_groups, row_offset, n_valid,
-      sym);
-  return (int)cudaGetLastError();
+      (double*)tot_part, (float*)rs_part, nr, n, d, n_perms, n_groups,
+      row_offset, n_valid, sym);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_slot_sum((const float*)sw_part, (const double*)tot_part,
+                         slots, n_perms, (float*)sw_out, (double*)tot_out,
+                         stream);
 }
 
 template <class M, class L>
 int launch_cols(const void* xr, const void* xc, const void* scale,
                 const void* v_rows, const void* v_cols, void* s_part,
-                void* rs_part, int64_t nr, int64_t n, int64_t d,
-                int64_t n_perms, int64_t n_cols, int64_t row_offset,
-                int64_t n_valid, int sym, cudaStream_t stream) {
+                void* tot_part, void* rs_part, void* s_out, void* tot_out,
+                int64_t nr, int64_t n, int64_t d, int64_t n_perms,
+                int64_t n_cols, int64_t row_offset, int64_t n_valid, int sym,
+                cudaStream_t stream) {
   using T = typename L::T;
-  const int64_t blocks = n_blocks<kStripTiles>((nr + kTile - 1) / kTile,
-                                                (n + kTile - 1) / kTile, sym);
+  const int64_t slots = n_slots<kStripTiles, kColsSlots>(
+      (nr + kTile - 1) / kTile, (n + kTile - 1) / kTile, sym);
   cudaFuncSetAttribute(fused_sw_cols_kernel<M, L>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kColsSmemBytes);
-  fused_sw_cols_kernel<M, L><<<(unsigned)blocks, kThreads, kColsSmemBytes,
+  fused_sw_cols_kernel<M, L><<<(unsigned)slots, kThreads, kColsSmemBytes,
                                stream>>>(
       (const T*)xr, (const T*)xc, (const float*)scale, (const float*)v_rows,
-      (const float*)v_cols, (float*)s_part, (float*)rs_part, nr, n, d,
-      n_perms, n_cols, row_offset, n_valid, sym);
-  return (int)cudaGetLastError();
+      (const float*)v_cols, (float*)s_part, (double*)tot_part,
+      (float*)rs_part, nr, n, d, n_perms, n_cols, row_offset, n_valid, sym);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_slot_sum((const float*)s_part, (const double*)tot_part,
+                         slots, n_perms * n_cols, (float*)s_out,
+                         (double*)tot_out, stream);
 }
 
 // The metric switch of both C entries (kind: 0 braycurtis, 1 euclidean,
@@ -1039,19 +1214,21 @@ int launch_cols_kind(int kind, A... a) {
 
 extern "C" {
 
-// out: kTile, kSwPass, kThreads, kSwStripTiles.
+// out: kTile, kSwPass, kThreads, kSwStripTiles, kSwSlots.
 void fused_sw_config(int* out) {
   out[0] = kTile;
   out[1] = kSwPass;
   out[2] = kThreads;
   out[3] = kSwStripTiles;
+  out[4] = kSwSlots;
 }
 
-// out: kStripTiles, kQPass, kKc.
+// out: kStripTiles, kQPass, kKc, kColsSlots.
 void fused_sw_cols_config(int* out) {
   out[0] = kStripTiles;
   out[1] = kQPass;
   out[2] = kKc;
+  out[3] = kColsSlots;
 }
 
 // kind: 0 braycurtis, 1 euclidean, 2 jaccard. mode: 0 f32, 1 bf16, 2 fp8
@@ -1060,46 +1237,50 @@ void fused_sw_cols_config(int* out) {
 // d) of the mode's type; g_rows (P, nr), g_cols (P, n) int32; inv_gs (G,)
 // f32. symmetric: 1 when the call covers the whole table against itself
 // (xr and xc, g_rows and g_cols the same storage, nr == n, row_offset 0),
-// which visits the column tiles j >= i only. sw_part (blocks, P) f32,
-// blocks = nti * n_strips for a slab and sum_{c < n_strips} (ntj - c
-// kSwStripTiles) for a symmetric call (nti = ceil(nr / 64), ntj = ceil(n /
-// 64), n_strips = ceil(ntj / kSwStripTiles)); rs_part (n_strips, nr) f32
-// for a slab, (n_strips + nti, n) for a symmetric call, zeroed by the
-// caller.
+// which visits the column tiles j >= i only. Work items: nti * n_strips
+// for a slab and sum_{c < n_strips} (ntj - c kSwStripTiles) for a
+// symmetric call (nti = ceil(nr / 64), ntj = ceil(n / 64), n_strips =
+// ceil(ntj / kSwStripTiles)); slots = min(kSwSlots, items). Scratch:
+// sw_part (slots, P) f32 and tot_part (slots,) f64. Out: sw_out (P,) f32,
+// the slots summed in order, and tot_out (1,) f64, the slab's D2 total.
+// rs_part: null, or the row sums, (n_strips, nr) f32 for a slab and
+// (n_strips + nti, n) for a symmetric call, zeroed by the caller.
 int fused_sw_launch(int kind, int mode, const void* xr, const void* xc,
                     const void* scale, const void* g_rows,
                     const void* g_cols, const void* inv_gs, void* sw_part,
-                    void* rs_part, long long nr, long long n, long long d,
+                    void* tot_part, void* rs_part, void* sw_out,
+                    void* tot_out, long long nr, long long n, long long d,
                     long long n_perms, int n_groups, long long row_offset,
                     long long n_valid, int symmetric, void* stream) {
-  const long long nti = (nr + kTile - 1) / kTile;
-  const long long ntj = (n + kTile - 1) / kTile;
   if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_groups < 1 ||
       row_offset < 0 || n_valid < 1 || n_valid > n ||
       (symmetric && (nr != n || row_offset != 0)) ||
-      n_blocks<kSwStripTiles>(nti, ntj, symmetric) > 0x7fffffffLL)
+      n_perms > 0x7fffffffLL * 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:
       return launch_kind<F32In>(kind, xr, xc, scale, g_rows, g_cols, inv_gs,
-                                sw_part, rs_part, nr, n, d, n_perms,
-                                n_groups, row_offset, n_valid, symmetric, s);
+                                sw_part, tot_part, rs_part, sw_out, tot_out,
+                                nr, n, d, n_perms, n_groups, row_offset,
+                                n_valid, symmetric, s);
     case 1:
       return launch_kind<Bf16In>(kind, xr, xc, scale, g_rows, g_cols,
-                                 inv_gs, sw_part, rs_part, nr, n, d, n_perms,
-                                 n_groups, row_offset, n_valid, symmetric,
-                                 s);
+                                 inv_gs, sw_part, tot_part, rs_part, sw_out,
+                                 tot_out, nr, n, d, n_perms, n_groups,
+                                 row_offset, n_valid, symmetric, s);
     case 2:
       if (scale == nullptr) return (int)cudaErrorInvalidValue;
       return launch_kind<Fp8In>(kind, xr, xc, scale, g_rows, g_cols, inv_gs,
-                                sw_part, rs_part, nr, n, d, n_perms,
-                                n_groups, row_offset, n_valid, symmetric, s);
+                                sw_part, tot_part, rs_part, sw_out, tot_out,
+                                nr, n, d, n_perms, n_groups, row_offset,
+                                n_valid, symmetric, s);
     case 3:
       if (kind != 2) return (int)cudaErrorInvalidValue;
       return launch<PackedJaccard, PackedIn>(
-          xr, xc, scale, g_rows, g_cols, inv_gs, sw_part, rs_part, nr, n, d,
-          n_perms, n_groups, row_offset, n_valid, symmetric, s);
+          xr, xc, scale, g_rows, g_cols, inv_gs, sw_part, tot_part, rs_part,
+          sw_out, tot_out, nr, n, d, n_perms, n_groups, row_offset, n_valid,
+          symmetric, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1108,48 +1289,49 @@ int fused_sw_launch(int kind, int mode, const void* xr, const void* xc,
 // type; v_rows (P, nr, K), v_cols (P, n, K) f32. symmetric: 1 when the
 // call covers the whole table against itself (xr and xc, v_rows and v_cols
 // the same storage, nr == n, row_offset 0), which visits the column tiles
-// j >= i only. s_part (blocks, P * K) f32, blocks = nti * n_strips for a
-// slab and sum_{c < n_strips} (ntj - c kStripTiles) for a symmetric call
-// (nti = ceil(nr / 64), ntj = ceil(n / 64), n_strips = ceil(ntj /
-// kStripTiles)); rs_part (n_strips, nr) f32 for a slab, (n_strips + nti,
-// n) for a symmetric call, zeroed by the caller.
+// j >= i only. Work items and slots as fused_sw_launch's with kStripTiles
+// and kColsSlots.
+// Scratch: s_part (slots, P * K) f32 and tot_part (slots,) f64. Out:
+// s_out (P * K,) f32, the slots summed in order, and tot_out (1,) f64.
+// rs_part: null, or the row sums, (n_strips, nr) f32 for a slab and
+// (n_strips + nti, n) for a symmetric call, zeroed by the caller.
 int fused_sw_cols_launch(int kind, int mode, const void* xr, const void* xc,
                          const void* scale, const void* v_rows,
-                         const void* v_cols, void* s_part, void* rs_part,
+                         const void* v_cols, void* s_part, void* tot_part,
+                         void* rs_part, void* s_out, void* tot_out,
                          long long nr, long long n, long long d,
                          long long n_perms, long long n_cols,
                          long long row_offset, long long n_valid,
                          int symmetric, void* stream) {
-  const long long nti = (nr + kTile - 1) / kTile;
-  const long long ntj = (n + kTile - 1) / kTile;
   if (nr < 1 || n < 1 || d < 1 || n_perms < 1 || n_cols < 1 ||
       row_offset < 0 || n_valid < 1 || n_valid > n ||
       (symmetric && (nr != n || row_offset != 0)) ||
-      n_blocks<kStripTiles>(nti, ntj, symmetric) > 0x7fffffffLL)
+      n_perms * n_cols > 0x7fffffffLL * 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:
       return launch_cols_kind<F32In>(kind, xr, xc, scale, v_rows, v_cols,
-                                     s_part, rs_part, nr, n, d, n_perms,
-                                     n_cols, row_offset, n_valid, symmetric,
-                                     s);
+                                     s_part, tot_part, rs_part, s_out,
+                                     tot_out, nr, n, d, n_perms, n_cols,
+                                     row_offset, n_valid, symmetric, s);
     case 1:
       return launch_cols_kind<Bf16In>(kind, xr, xc, scale, v_rows, v_cols,
-                                      s_part, rs_part, nr, n, d, n_perms,
-                                      n_cols, row_offset, n_valid, symmetric,
-                                      s);
+                                      s_part, tot_part, rs_part, s_out,
+                                      tot_out, nr, n, d, n_perms, n_cols,
+                                      row_offset, n_valid, symmetric, s);
     case 2:
       if (scale == nullptr) return (int)cudaErrorInvalidValue;
       return launch_cols_kind<Fp8In>(kind, xr, xc, scale, v_rows, v_cols,
-                                     s_part, rs_part, nr, n, d, n_perms,
-                                     n_cols, row_offset, n_valid, symmetric,
-                                     s);
+                                     s_part, tot_part, rs_part, s_out,
+                                     tot_out, nr, n, d, n_perms, n_cols,
+                                     row_offset, n_valid, symmetric, s);
     case 3:
       if (kind != 2) return (int)cudaErrorInvalidValue;
       return launch_cols<PackedJaccard, PackedIn>(
-          xr, xc, scale, v_rows, v_cols, s_part, rs_part, nr, n, d, n_perms,
-          n_cols, row_offset, n_valid, symmetric, s);
+          xr, xc, scale, v_rows, v_cols, s_part, tot_part, rs_part, s_out,
+          tot_out, nr, n, d, n_perms, n_cols, row_offset, n_valid,
+          symmetric, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,8 +12,8 @@ operands, then
   * on CPU tensors runs the plain version (`ref.fused_sw_ref`,
     `ref.fused_sw_cols_ref`);
   * on CUDA tensors launches its kernel on the current stream, without
-    synchronising, and reduces its partials with two deterministic
-    `torch.sum`s — or raises.
+    synchronising, and then a second kernel that sums the slots' partials
+    in a fixed order — or raises.
 
 The precision knobs (feat_bf16 / feat_fp8 / feat_packed, feat_scale) pick
 the kernel's feature mode, as in the reference: the wrapper quantizes the
@@ -60,6 +60,11 @@ SW_STRIP_TILES = 16         # kSwStripTiles: column tiles per labels block
 SW_PASS = 128               # kSwPass: permutations a labels pass
 STRIP_TILES = 2             # kStripTiles: column tiles per cols block
 Q_PASS = 128                # kQPass: (permutation, column) pairs a pass
+SW_SLOTS = 4096             # kSwSlots: most blocks of a labels launch
+COLS_SLOTS = 2048           # kColsSlots: most blocks of a cols launch
+# each kernel's (column tiles a work item, most slots)
+LAYOUT = {"fused_sw": (SW_STRIP_TILES, SW_SLOTS),
+          "fused_sw_cols": (STRIP_TILES, COLS_SLOTS)}
 _lib = None
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -67,48 +72,50 @@ _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # a 32-bit int
 SIGNATURES = {
     "fused_sw_config": ([_PTR], None),
-    "fused_sw_launch": ([_I32, _I32] + [_PTR] * 8 + [_I64] * 4
+    "fused_sw_launch": ([_I32, _I32] + [_PTR] * 11 + [_I64] * 4
                         + [_I32, _I64, _I64, _I32, _PTR], _I32),
     "fused_sw_cols_config": ([_PTR], None),
-    "fused_sw_cols_launch": ([_I32, _I32] + [_PTR] * 7 + [_I64] * 7
+    "fused_sw_cols_launch": ([_I32, _I32] + [_PTR] * 10 + [_I64] * 7
                              + [_I32, _PTR], _I32),
 }
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library. The
-    partial buffers are sized from TILE and the strips, so a library
-    compiled with other constants is refused."""
+    partial buffers are sized from TILE, the strips and the slots, so a
+    library compiled with other constants is refused."""
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
         for name, (argtypes, restype) in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = argtypes, restype
-        cfg = kernel_config(lib)
-        got = (cfg["tile"], cfg["strip_tiles"],
-               cols_kernel_config(lib)["strip_tiles"])
-        if got != (TILE, SW_STRIP_TILES, STRIP_TILES):
+        cfg, ccfg = kernel_config(lib), cols_kernel_config(lib)
+        got = (cfg["tile"], cfg["strip_tiles"], ccfg["strip_tiles"],
+               cfg["slots"], ccfg["slots"])
+        want = (TILE, SW_STRIP_TILES, STRIP_TILES, SW_SLOTS, COLS_SLOTS)
+        if got != want:
             raise RuntimeError(f"{SOURCE.name} was compiled with (kTile, "
-                               f"kSwStripTiles, kStripTiles) = {got}; ops "
-                               f"has {(TILE, SW_STRIP_TILES, STRIP_TILES)}")
+                               f"kSwStripTiles, kStripTiles, kSwSlots, "
+                               f"kColsSlots) = {got}; ops has {want}")
         _lib = lib
     return _lib
 
 
 def kernel_config(lib: ctypes.CDLL) -> dict:
     """The labels kernel's constants compiled into the library."""
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     lib.fused_sw_config(out)
     return {"tile": out[0], "perm_pass": out[1], "threads": out[2],
-            "strip_tiles": out[3]}
+            "strip_tiles": out[3], "slots": out[4]}
 
 
 def cols_kernel_config(lib: ctypes.CDLL) -> dict:
     """The dense-design kernel's constants compiled into the library."""
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     lib.fused_sw_cols_config(out)
-    return {"strip_tiles": out[0], "q_pass": out[1], "k_chunk": out[2]}
+    return {"strip_tiles": out[0], "q_pass": out[1], "k_chunk": out[2],
+            "slots": out[3]}
 
 
 def _strips(n: int, strip: int = STRIP_TILES) -> int:
@@ -116,10 +123,10 @@ def _strips(n: int, strip: int = STRIP_TILES) -> int:
     return -(-(-(-n // TILE)) // strip)
 
 
-def _n_blocks(nr: int, n: int, symmetric: bool, strip: int) -> int:
-    """Blocks of a kernel whose block owns a row tile and a strip of
-    `strip` column tiles: a slab call launches one per (row tile, strip);
-    a symmetric call (the whole table against itself) one per strip at or
+def _n_items(nr: int, n: int, symmetric: bool, strip: int) -> int:
+    """Work items of a kernel whose item is a row tile and a strip of
+    `strip` column tiles: a slab call has one per (row tile, strip); a
+    symmetric call (the whole table against itself) one per strip at or
     past the diagonal, the strips starting at the diagonal tile and every
     `strip` tiles after it."""
     ntj = -(-n // TILE)
@@ -128,68 +135,85 @@ def _n_blocks(nr: int, n: int, symmetric: bool, strip: int) -> int:
     return sum(ntj - c * strip for c in range(_strips(n, strip)))
 
 
-def _row_sum_slots(nr: int, n: int, symmetric: bool, strip: int) -> int:
-    """Row-sum partial rows: one per strip and, for a symmetric call, one
-    per row tile for its off-diagonal tiles' column sums."""
-    return _strips(n, strip) + (-(-nr // TILE) if symmetric else 0)
+def n_slots(nr: int, n: int, symmetric: bool,
+            kernel: str = "fused_sw") -> int:
+    """Blocks of a `kernel` launch ('fused_sw' or 'fused_sw_cols'):
+    min(its most slots, work items), a function of the call's shape alone
+    (never of P or of the card)."""
+    strip, most = LAYOUT[kernel]
+    return min(most, _n_items(nr, n, symmetric, strip))
+
+
+def row_sum_shape(nr: int, n: int, symmetric: bool,
+                  kernel: str = "fused_sw") -> tuple:
+    """Shape of the row-sum partials a `kernel` call writes when asked for
+    its row sums: one row per strip and, for a symmetric call, one per row
+    tile for its off-diagonal tiles' column sums, (strips + row tiles,
+    n); a slab call (strips, nr). Only the wrappers' direct callers ask
+    (row_sums=True); the sweeps take the slots' D2 totals."""
+    strip = LAYOUT[kernel][0]
+    if symmetric:
+        return (_strips(n, strip) + -(-nr // TILE), n)
+    return (_strips(n, strip), nr)
 
 
 def partial_shapes(nr: int, n: int, n_perms: int, symmetric=None):
-    """Shapes of the labels kernel's partials: s_W per (block,
-    permutation), a block being a row tile and a strip of SW_STRIP_TILES
-    column tiles (_n_blocks), and the row sums per (strip slot, row) and,
-    for a symmetric call, per (row tile, column). `symmetric` defaults to
-    nr == n (the sweep's whole-table call)."""
+    """Shapes of the labels kernel's partials: s_W per (slot,
+    permutation) and one f64 D2 total per slot plus the grand total (the
+    slot sum's output), slots = n_slots(..., 'fused_sw'). Neither grows
+    with n^2. `symmetric` defaults to nr == n (the sweep's whole-table
+    call)."""
     sym = nr == n if symmetric is None else bool(symmetric)
-    return ((_n_blocks(nr, n, sym, SW_STRIP_TILES), n_perms),
-            (_row_sum_slots(nr, n, sym, SW_STRIP_TILES), nr))
+    slots = n_slots(nr, n, sym, "fused_sw")
+    return (slots, n_perms), (slots + 1,)
 
 
 def alloc_workspace(nr: int, n: int, n_perms: int, device,
                     symmetric=None) -> tuple:
-    """Partial buffers for launches of up to n_perms permutations over an
-    nr-row slab, allocated once and reused by every chunk of a sweep."""
-    sw_shape, rs_shape = partial_shapes(nr, n, n_perms, symmetric)
+    """Scratch for launches of up to n_perms permutations over an nr-row
+    slab, allocated once and reused by every chunk of a sweep: the (slots,
+    P) f32 partials and the (slots + 1,) f64 totals."""
+    sw_shape, tot_shape = partial_shapes(nr, n, n_perms, symmetric)
     return (torch.empty(sw_shape[0] * sw_shape[1], dtype=torch.float32,
                         device=device),
-            torch.empty(rs_shape[0] * rs_shape[1], dtype=torch.float32,
-                        device=device))
+            torch.empty(tot_shape, dtype=torch.float64, device=device))
 
 
 def workspace_bytes(nr: int, n: int, n_perms: int, symmetric=None) -> int:
-    (a, b), (c, e) = partial_shapes(nr, n, n_perms, symmetric)
-    return 4 * (a * b + c * e)
+    """Device bytes of a launch beside its operands: the workspace and
+    the (P,) s_W it returns."""
+    (a, b), (c,) = partial_shapes(nr, n, n_perms, symmetric)
+    return 4 * a * b + 8 * c + 4 * n_perms
 
 
 def cols_partial_shapes(nr: int, n: int, n_perms: int, n_cols: int,
                         symmetric=None):
     """Shapes of the dense-design kernel's partials: one (P * K) row per
-    block (_n_blocks) and the row sums, one per (strip slot, row) and,
-    for a symmetric call, one per (row tile, column) from its
-    off-diagonal tiles' column sums. `symmetric` defaults to nr == n (the
-    design sweep's whole-table call)."""
+    slot (n_slots(..., 'fused_sw_cols')) and the f64 totals as the labels
+    kernel's. `symmetric` defaults to nr == n (the design sweep's
+    whole-table call)."""
     sym = nr == n if symmetric is None else bool(symmetric)
-    return ((_n_blocks(nr, n, sym, STRIP_TILES), n_perms * n_cols),
-            (_row_sum_slots(nr, n, sym, STRIP_TILES), nr))
+    slots = n_slots(nr, n, sym, "fused_sw_cols")
+    return (slots, n_perms * n_cols), (slots + 1,)
 
 
 def alloc_cols_workspace(nr: int, n: int, n_perms: int, n_cols: int,
                          device, symmetric=None) -> tuple:
-    """Partial buffers for dense-design launches of up to n_perms
-    permutations and n_cols columns over an nr-row slab, allocated once
-    and reused by every chunk of a sweep."""
-    s_shape, rs_shape = cols_partial_shapes(nr, n, n_perms, n_cols,
-                                            symmetric)
+    """Scratch for dense-design launches of up to n_perms permutations and
+    n_cols columns over an nr-row slab, allocated once and reused by every
+    chunk of a sweep."""
+    s_shape, tot_shape = cols_partial_shapes(nr, n, n_perms, n_cols,
+                                             symmetric)
     return (torch.empty(s_shape[0] * s_shape[1], dtype=torch.float32,
                         device=device),
-            torch.empty(rs_shape[0] * rs_shape[1], dtype=torch.float32,
-                        device=device))
+            torch.empty(tot_shape, dtype=torch.float64, device=device))
 
 
 def cols_workspace_bytes(nr: int, n: int, n_perms: int, n_cols: int,
                          symmetric=None) -> int:
-    (a, b), (c, e) = cols_partial_shapes(nr, n, n_perms, n_cols, symmetric)
-    return 4 * (a * b + c * e)
+    """cols' workspace_bytes: its workspace and the (P, K) s_cols."""
+    (a, b), (c,) = cols_partial_shapes(nr, n, n_perms, n_cols, symmetric)
+    return 4 * a * b + 8 * c + 4 * n_perms * n_cols
 
 
 def _check_common(x_rows, x, row_offset, metric, n_valid):
@@ -241,8 +265,9 @@ def _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid):
         raise TypeError("inv_gs must be a non-empty 1-D float32 tensor, got "
                         f"{inv_gs.dtype} {tuple(inv_gs.shape)}")
     _check_devices(x_rows, x, g_rows, g_cols, inv_gs)
-    if _n_blocks(nr, n, False, SW_STRIP_TILES) >= 2 ** 31:
-        raise ValueError(f"({nr}, {n}) exceeds the kernel's grid")
+    if g_cols.shape[0] >= 2 ** 31:
+        raise ValueError(f"P = {g_cols.shape[0]} exceeds the kernel's "
+                         "slot sum")
 
 
 def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
@@ -259,8 +284,9 @@ def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
         raise TypeError(f"basis factors must be float32, got "
                         f"{v_rows.dtype} and {v_cols.dtype}")
     _check_devices(x_rows, x, v_rows, v_cols)
-    if _n_blocks(nr, n, False, STRIP_TILES) >= 2 ** 31:
-        raise ValueError(f"({nr}, {n}) exceeds the kernel's grid")
+    if v_cols.shape[0] * v_cols.shape[2] >= 2 ** 31:
+        raise ValueError(f"P * K = {v_cols.shape[0] * v_cols.shape[2]} "
+                         "exceeds the kernel's slot sum")
 
 
 def quantize_slabs(x_rows, x, mode, scale=None):
@@ -284,39 +310,60 @@ def quantize_slabs(x_rows, x, mode, scale=None):
     return (xc if same else q(x_rows)), xc
 
 
+def _workspace_views(workspace, shapes, alloc, what):
+    """(partials (slots, Q) view, totals) of a workspace holding at least
+    `shapes` (allocated by `alloc` when None)."""
+    (slots, q), (n_tot,) = shapes
+    part, tot = alloc() if workspace is None else workspace
+    if part.numel() < slots * q or tot.numel() < n_tot:
+        raise ValueError(f"workspace too small for {what}")
+    return part[:slots * q].view(slots, q), tot[:n_tot]
+
+
+def _row_sum_buffer(nr, n, symmetric, kernel, row_sums, device):
+    """The zeroed row-sum partials of a call that asks for its row sums
+    (row_sum_shape; the kernel writes only the rows it visits), else
+    None."""
+    if not row_sums:
+        return None
+    return torch.zeros(row_sum_shape(nr, n, symmetric, kernel),
+                       dtype=torch.float32, device=device)
+
+
 def _launch(lib, metric, mode, x_rows, x, scale, g_rows, g_cols, inv_gs,
             row_offset, n_valid, stream: int, workspace=None,
-            symmetric=False):
+            symmetric=False, row_sums=True):
     """Launch the mode's kernel on `stream` over quantized features
     (quantize_slabs) and the fp8 scale (a float32 scalar on the device,
-    or None); (s_W (P,), row_sums (nr,)) from its partials. `workspace`
-    (alloc_workspace()) holds at least this call's; `symmetric`
-    (is_symmetric_call on the f32 operands) visits the column tiles
-    j >= i only."""
+    or None), then the fixed-order slot sum; (s_W (P,), row_sums (nr,))
+    or, with row_sums=False, (s_W (P,), the slab's D2 total 0-d f64).
+    `workspace` (alloc_workspace()) holds at least this call's;
+    `symmetric` (is_symmetric_call on the f32 operands) visits the column
+    tiles j >= i only."""
     nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
     p, n_groups = g_cols.shape[0], inv_gs.shape[0]
-    sw_shape, rs_shape = partial_shapes(nr, n, p, symmetric)
-    if workspace is None:
-        workspace = alloc_workspace(nr, n, p, x.device, symmetric)
-    sw_buf, rs_buf = workspace
-    if sw_buf.numel() < sw_shape[0] * sw_shape[1] \
-            or rs_buf.numel() < rs_shape[0] * rs_shape[1]:
-        raise ValueError(f"workspace too small for {p} permutations over "
-                         f"({nr}, {n})")
-    sw_part = sw_buf[:sw_shape[0] * sw_shape[1]].view(sw_shape)
-    rs_part = rs_buf[:rs_shape[0] * rs_shape[1]].view(rs_shape)
-    rs_part.zero_()    # the kernel writes only the row-sum slots it visits
+    part, tot = _workspace_views(
+        workspace, partial_shapes(nr, n, p, symmetric),
+        lambda: alloc_workspace(nr, n, p, x.device, symmetric),
+        f"{p} permutations over ({nr}, {n})")
+    rs_part = _row_sum_buffer(nr, n, symmetric, "fused_sw", row_sums,
+                              x.device)
+    sw = torch.empty(p, dtype=torch.float32, device=x.device)
     err = lib.fused_sw_launch(
         _KIND[KERNEL_METRIC[metric]], _MODE[mode], x_rows.data_ptr(),
         x.data_ptr(), None if scale is None else scale.data_ptr(),
         g_rows.data_ptr(), g_cols.data_ptr(), inv_gs.data_ptr(),
-        sw_part.data_ptr(), rs_part.data_ptr(), nr, n, d, p, n_groups,
-        row_offset, n_valid, int(symmetric), stream)
+        part.data_ptr(), tot.data_ptr(),
+        None if rs_part is None else rs_part.data_ptr(), sw.data_ptr(),
+        tot[-1:].data_ptr(), nr, n, d, p, n_groups, row_offset, n_valid,
+        int(symmetric), stream)
     key = launch_key("fused_sw", mode)
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
-    return sw_part.sum(dim=0), rs_part.sum(dim=0)
+    if rs_part is None:
+        return sw, tot[-1].clone()
+    return sw, rs_part.sum(dim=0)
 
 
 def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
@@ -326,7 +373,8 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
                   tile_r: int = 128, tile_c: int = 128,
                   feat_block: int = 128, perm_block: int = 16,
                   feat_bf16: int = 0, feat_fp8: int = 0,
-                  feat_packed: int = 0, feat_scale=None, workspace=None):
+                  feat_packed: int = 0, feat_scale=None, workspace=None,
+                  row_sums: bool = True, quantized=None):
     """Fused s_W partial for one (row slab x permutation chunk) cell.
 
     x_rows:   (nr, d) f32 prepared features of the slab's rows.
@@ -344,9 +392,13 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
     fixed: a block owns a 64-row tile and a strip of SW_STRIP_TILES
     64-column tiles, builds each D^2 tile once from 32-feature chunks and
     applies it to every permutation of the call in passes of SW_PASS (one
-    accumulator per (row, permutation) in registers, one s_W partial per
-    (block, permutation)). A whole-table call (is_symmetric_call: the
-    sweep's) visits only the tiles j >= i.
+    accumulator per (row, permutation) in registers). A launch has at
+    most SW_SLOTS blocks; each walks a fixed list of (row tile, strip) work
+    items with one running s_W partial per permutation, and a second
+    kernel sums the slots in a fixed order, so the partials do not grow
+    with n^2 and a permutation's s_W is the same bits in any chunk. A
+    whole-table call (is_symmetric_call: the sweep's) visits only the
+    tiles j >= i.
 
     Precision knobs (mutually exclusive; the features stay f32 here, the
     wrapper quantizes them):
@@ -362,9 +414,18 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
 
     workspace: partial buffers from alloc_workspace(), reused across the
     chunks of a sweep (allocated per call when None; unused on the CPU).
+    row_sums: True (the default, as the reference's) returns the (nr,)
+    row sums, from (strips [+ row tiles], n) partials allocated for the
+    call; False (the sweeps') returns the slab's D2 total instead, a 0-d
+    float64 (sum_r row_sums[r]), from the slots' totals.
+    quantized: the (xr, xc) pair quantize_slabs gives for these operands
+    at this precision, made once by a sweep that launches on the same
+    table many times (so the quantization and its transients are not
+    paid a launch); None quantizes here. Unused on the CPU.
 
-    Returns (s_W (P,) f32, row_sums (nr,) f32). Summing the outputs over
-    disjoint row slabs gives the full statistic and the full row sums.
+    Returns (s_W (P,) f32, row_sums (nr,) f32) or, with row_sums=False,
+    (s_W (P,) f32, total 0-d f64). Summing the outputs over disjoint row
+    slabs gives the full statistic and the full row sums (or total).
     """
     del tile_r, tile_c, feat_block, perm_block
     n_valid = x.shape[0] if n_valid is None else int(n_valid)
@@ -373,16 +434,18 @@ def fused_sw_rows(x_rows: torch.Tensor, x: torch.Tensor,
     precision = dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
                      feat_packed=feat_packed, feat_scale=feat_scale)
     if x.device.type == "cpu":
-        return ref.fused_sw_ref(x_rows, x, g_rows, g_cols, inv_gs,
-                                row_offset, metric=metric, n_valid=n_valid,
-                                **precision)
+        sw, rs = ref.fused_sw_ref(x_rows, x, g_rows, g_cols, inv_gs,
+                                  row_offset, metric=metric, n_valid=n_valid,
+                                  **precision)
+        return sw, (rs if row_sums else rs.sum(dtype=torch.float64))
     mode, scale = ref.resolve_precision(x, metric, **precision)
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sym = is_symmetric_call(x_rows, x, g_rows, g_cols, row_offset)
-    xr, xc = quantize_slabs(x_rows, x, mode, scale)
+    xr, xc = (quantize_slabs(x_rows, x, mode, scale) if quantized is None
+              else quantized)
     return _launch(lib, metric, mode, xr, xc, scale, g_rows, g_cols, inv_gs,
-                   row_offset, n_valid, stream, workspace, sym)
+                   row_offset, n_valid, stream, workspace, sym, row_sums)
 
 
 def is_symmetric_call(x_rows, x, r_rows, r_cols, row_offset) -> bool:
@@ -398,36 +461,36 @@ def is_symmetric_call(x_rows, x, r_rows, r_cols, row_offset) -> bool:
 
 def _launch_cols(lib, metric, mode, x_rows, x, scale, v_rows, v_cols,
                  row_offset, n_valid, stream: int, workspace=None,
-                 symmetric=False):
+                 symmetric=False, row_sums=True):
     """Launch the mode's dense-design kernel on `stream` over quantized
-    features (quantize_slabs); (s_cols (P, K), row_sums (nr,)) from its
-    partials. `workspace` (alloc_cols_workspace()) holds at least this
-    call's; `symmetric` (is_symmetric_call on the f32 operands) visits the
-    column tiles j >= i only."""
+    features (quantize_slabs), then the fixed-order slot sum; (s_cols (P,
+    K), row_sums (nr,)) or, with row_sums=False, (s_cols (P, K), the
+    slab's D2 total 0-d f64). `workspace` (alloc_cols_workspace()) holds
+    at least this call's; `symmetric` (is_symmetric_call on the f32
+    operands) visits the column tiles j >= i only."""
     nr, n, d = x_rows.shape[0], x.shape[0], x.shape[1]
     p, k = v_cols.shape[0], v_cols.shape[2]
-    s_shape, rs_shape = cols_partial_shapes(nr, n, p, k, symmetric)
-    if workspace is None:
-        workspace = alloc_cols_workspace(nr, n, p, k, x.device, symmetric)
-    s_buf, rs_buf = workspace
-    if s_buf.numel() < s_shape[0] * s_shape[1] \
-            or rs_buf.numel() < rs_shape[0] * rs_shape[1]:
-        raise ValueError(f"workspace too small for {p} permutations x {k} "
-                         f"columns over ({nr}, {n})")
-    s_part = s_buf[:s_shape[0] * s_shape[1]].view(s_shape)
-    rs_part = rs_buf[:rs_shape[0] * rs_shape[1]].view(rs_shape)
-    rs_part.zero_()    # the kernel writes only the row-sum slots it visits
+    part, tot = _workspace_views(
+        workspace, cols_partial_shapes(nr, n, p, k, symmetric),
+        lambda: alloc_cols_workspace(nr, n, p, k, x.device, symmetric),
+        f"{p} permutations x {k} columns over ({nr}, {n})")
+    rs_part = _row_sum_buffer(nr, n, symmetric, "fused_sw_cols", row_sums,
+                              x.device)
+    s_cols = torch.empty((p, k), dtype=torch.float32, device=x.device)
     err = lib.fused_sw_cols_launch(
         _KIND[KERNEL_METRIC[metric]], _MODE[mode], x_rows.data_ptr(),
         x.data_ptr(), None if scale is None else scale.data_ptr(),
-        v_rows.data_ptr(), v_cols.data_ptr(), s_part.data_ptr(),
-        rs_part.data_ptr(), nr, n, d, p, k, row_offset, n_valid,
-        int(symmetric), stream)
+        v_rows.data_ptr(), v_cols.data_ptr(), part.data_ptr(),
+        tot.data_ptr(), None if rs_part is None else rs_part.data_ptr(),
+        s_cols.data_ptr(), tot[-1:].data_ptr(), nr, n, d, p, k, row_offset,
+        n_valid, int(symmetric), stream)
     key = launch_key("fused_sw_cols", mode)
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
-    return s_part.sum(dim=0).view(p, k), rs_part.sum(dim=0)
+    if rs_part is None:
+        return s_cols, tot[-1].clone()
+    return s_cols, rs_part.sum(dim=0)
 
 
 def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
@@ -435,7 +498,8 @@ def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
                        row_offset: int = 0, *, metric: str = "braycurtis",
                        n_valid=None, feat_bf16: int = 0, feat_fp8: int = 0,
                        feat_packed: int = 0, feat_scale=None,
-                       workspace=None):
+                       workspace=None, row_sums: bool = True,
+                       quantized=None):
     """Dense-design fused partial: per-COLUMN quadratic forms for one (row
     slab x permutation chunk) cell (core.design's hat-matrix blocks in
     place of the one-hot labels).
@@ -449,11 +513,12 @@ def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
 
     workspace: partial buffers from alloc_cols_workspace(), reused across
     the chunks of a sweep (allocated per call when None; unused on the
-    CPU).
+    CPU). row_sums and quantized: as fused_sw_rows'.
 
-    Returns (s_cols (P, K) f32, row_sums (nr,) f32). Summing the outputs
-    over disjoint row slabs gives the full per-column statistic and the
-    full row sums.
+    Returns (s_cols (P, K) f32, row_sums (nr,) f32) or, with
+    row_sums=False, (s_cols (P, K) f32, total 0-d f64). Summing the
+    outputs over disjoint row slabs gives the full per-column statistic
+    and the full row sums (or total).
     """
     n_valid = x.shape[0] if n_valid is None else int(n_valid)
     row_offset = int(row_offset)
@@ -461,13 +526,16 @@ def fused_sw_rows_cols(x_rows: torch.Tensor, x: torch.Tensor,
     precision = dict(feat_bf16=feat_bf16, feat_fp8=feat_fp8,
                      feat_packed=feat_packed, feat_scale=feat_scale)
     if x.device.type == "cpu":
-        return ref.fused_sw_cols_ref(x_rows, x, v_rows, v_cols, row_offset,
-                                     metric=metric, n_valid=n_valid,
-                                     **precision)
+        sc, rs = ref.fused_sw_cols_ref(x_rows, x, v_rows, v_cols,
+                                       row_offset, metric=metric,
+                                       n_valid=n_valid, **precision)
+        return sc, (rs if row_sums else rs.sum(dtype=torch.float64))
     mode, scale = ref.resolve_precision(x, metric, **precision)
     lib = load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sym = is_symmetric_call(x_rows, x, v_rows, v_cols, row_offset)
-    xr, xc = quantize_slabs(x_rows, x, mode, scale)
+    xr, xc = (quantize_slabs(x_rows, x, mode, scale) if quantized is None
+              else quantized)
     return _launch_cols(lib, metric, mode, xr, xc, scale, v_rows, v_cols,
-                        row_offset, n_valid, stream, workspace, sym)
+                        row_offset, n_valid, stream, workspace, sym,
+                        row_sums)

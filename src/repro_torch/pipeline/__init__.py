@@ -15,17 +15,17 @@ and p under ONE plan:
               one-buffer mat2 build + Gower marginals), the fused bridge
               and the fused-kernel sweeps (the CUDA megakernel, its
               plain torch twin)
-  api         pipeline(), one study
+  api         pipeline(), one study; pipeline_many(), a stack of studies
 
 Entry points routing here: core.permanova.permanova(features, metric=...)
 and the launch CLI's --from-features; designs (covariates, strata,
 weights) run through every bridge. (Ordination, out-of-core features and
-many-study runs come with later slices.)
+study-axis sharding come with later slices.)
 """
 
 from repro_torch.pipeline import (api, planner, registry,  # noqa: F401
                                   streaming)
-from repro_torch.pipeline.api import pipeline  # noqa: F401
+from repro_torch.pipeline.api import pipeline, pipeline_many  # noqa: F401
 from repro_torch.pipeline.planner import (  # noqa: F401
     DEFAULT_MATRIX_BUDGET_BYTES, PipelinePlan, plan_pipeline)
 from repro_torch.pipeline.registry import (DistanceImpl,  # noqa: F401

@@ -9,12 +9,15 @@ goes through `_pipeline_design`: the same bridges with engine.run_design
 or the sweeps' design twins, per-term F and p in `.terms`.
 `core.permanova.permanova()` delegates here when handed features instead
 of a matrix, and the launch CLI exposes it as `--from-features`.
+`pipeline_many` runs a stack of studies one after another through the
+same bridges (dense, or the fused-kernel sweeps).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Dict, Optional
 
 import torch
@@ -194,11 +197,9 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
             xprep, rows_fn, grouping, inv_gs, n_total, impl=fspec.kind,
             kernel_metric=fspec.kernel_metric, row_block=pl.row_block,
             chunk=pl.sw.chunk, tuning=pl.fused_tuning, seed=seed,
-            perms=perms, index_perms=index_perms, draw_budget=draw_budget)
-        ran = (f"{stats.impl} rows={stats.row_block} "
-               f"chunks={stats.n_chunks} "
-               f"slab={stats.peak_slab_bytes/2**20:.2f}MiB "
-               f"labels={stats.peak_label_bytes/2**20:.2f}MiB")
+            perms=perms, index_perms=index_perms,
+            draw_budget=_draw_budget(pl, draw_budget))
+        ran = _kernel_ran(stats)
     s_t = s_t.to(torch.float32)
     f_all = f_from_sw(s_w.to(torch.float32), s_t, n, n_groups)
     return PermanovaResult(
@@ -207,6 +208,27 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
         n_groups=n_groups, n_perms=n_perms,
         method=f"pipeline[{pl.dist_impl}->{pl.materialize}->{pl.sw.impl}]",
         plan=f"{pl.describe()} :: {ran}")
+
+
+def _kernel_ran(stats) -> str:
+    """How a fused-kernel sweep ran, for the plan record: its chunks and
+    buffers, and on the card the kernel's slots and the draws'
+    sub-blocks (rows and modelled transients)."""
+    ran = (f"{stats.impl} rows={stats.row_block} chunks={stats.n_chunks} "
+           f"slab={stats.peak_slab_bytes/2**20:.2f}MiB "
+           f"labels={stats.peak_label_bytes/2**20:.2f}MiB")
+    if stats.impl == "cuda":
+        ran += (f" slots={stats.slots} draw={stats.draw_rows}rows/"
+                f"{stats.peak_draw_bytes/2**20:.2f}MiB")
+    return ran
+
+
+def _draw_budget(pl: _planner.PipelinePlan, memory_budget_bytes):
+    """The budget of a fused-kernel sweep's label or index draws: on the
+    card what the planned workset leaves of the label budget, else the
+    label budget itself."""
+    return (memory_budget_bytes if pl.draw_budget is None
+            else pl.draw_budget)
 
 
 def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
@@ -243,7 +265,8 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
         slab_budget_bytes=slab_budget_bytes,
         memory_budget_bytes=memory_budget_bytes, sw_impl=sw_impl,
         chunk=chunk, fused_impl=fused_impl, fused_tuning=fused_tuning,
-        design_cols=k)
+        design_cols=k, draw=("strata" if k is None
+                             and design.strata is not None else "labels"))
     prepare, rows_fn, dense_fn = _registry.get(pl.dist_impl).bound(
         **{**pl.dist_tuning, **(dist_tuning or {})})
     labels = dict(seed=seed, index_perms=index_perms)
@@ -293,6 +316,8 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
         kw = dict(impl=fspec.kind, kernel_metric=fspec.kernel_metric,
                   row_block=pl.row_block, chunk=pl.sw.chunk,
                   tuning=pl.fused_tuning)
+        sweep_labels.update(draw_budget=_draw_budget(pl,
+                                                     memory_budget_bytes))
         if dense_mode:
             s_cols, _, stats = _streaming.fused_kernel_sw_design(
                 xprep, rows_fn, design, n_total, **kw, **sweep_labels)
@@ -300,10 +325,7 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
                 s_cols.to(torch.float32), design, n_objects=n,
                 n_perms=n_perms,
                 method=f"pipeline-design[fused-kernel:{stats.impl}]",
-                plan=(f"{stats.impl} rows={stats.row_block} "
-                      f"chunks={stats.n_chunks} cols={k} "
-                      f"slab={stats.peak_slab_bytes/2**20:.2f}MiB "
-                      f"labels={stats.peak_label_bytes/2**20:.2f}MiB"))
+                plan=f"{_kernel_ran(stats)} cols={k}")
         else:
             inv_gs = permutations.inv_group_sizes(design.grouping,
                                                   design.n_groups)
@@ -314,8 +336,160 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
                 s_w.to(torch.float32), s_t.to(torch.float32), design,
                 n_objects=n, n_perms=n_perms,
                 method=f"pipeline[fused-kernel:{stats.impl}+strata]",
-                plan=(f"{stats.impl} rows={stats.row_block} "
-                      f"chunks={stats.n_chunks} strata"))
+                plan=f"{_kernel_ran(stats)} strata")
     return dataclasses.replace(
         res, plan=(f"{pl.describe_stage1()} | {pl.reason} :: {res.plan} "
                    f"({design.describe()})"))
+
+
+# ---------------------------------------------------------------------------
+# Many-study pipeline: a stack of studies' features.
+# ---------------------------------------------------------------------------
+
+def pipeline_many(xs, groupings, *, n_groups: int,
+                  metric: str = "braycurtis", n_perms: int = 999,
+                  seed: int = 0, perms: Optional[torch.Tensor] = None,
+                  index_perms: Optional[torch.Tensor] = None,
+                  dist_impl: str = "auto", sw_impl: str = "auto",
+                  materialize: str = "auto",
+                  row_block: Optional[int] = None,
+                  chunk: Optional[int] = None,
+                  memory_budget_bytes: Optional[float] = None,
+                  matrix_budget_bytes: Optional[float] = None,
+                  fused_impl: str = "auto",
+                  fused_tuning: Optional[Dict[str, int]] = None,
+                  mesh=None, covariates=None, strata=None, weights=None,
+                  ordination: Optional[int] = None,
+                  device="cuda") -> engine.PermanovaManyResult:
+    """Stacked studies' features -> F and p, study by study under one plan.
+
+    xs:          (S, n, d) abundance tables; groupings (S, n) labels in
+                 [0, n_groups).
+    materialize: 'auto' | 'dense' | 'fused-kernel'. The dense bridge
+                 builds each study's (n, n) distances (the (S, n, n) stack
+                 must fit the matrix budget) and runs engine.permanova_many;
+                 the fused-kernel bridge runs each study's single-pass
+                 sweep (on the card the fused kernels, each study's workset
+                 and draws held to the label budget), nothing (n, n)-shaped
+                 ever resident. 'auto' picks fused-kernel exactly when the
+                 stack would exceed the matrix budget.
+    seed:        study s draws from core.permutations.study_seed(seed, s):
+                 its F and p equal pipeline(xs[s], groupings[s],
+                 seed=study_seed(seed, s)) at the same bridge and budget,
+                 bit for bit, on every path.
+    perms / index_perms: explicit (S, n_perms + 1, n) per-study draws.
+    covariates / strata / weights: stacked per-study design columns ((S,
+                 n, c) / (S, n)); the batch then runs the dense-design
+                 forms (every study one dense structure, as the
+                 reference's batch), per-term statistics in `.terms`.
+    device:      'cuda' (default; raises without a card) or 'cpu'.
+
+    The studies run one after another. A 'cuda' plan gives each study the
+    whole label budget (the reference splits it S ways because its vmap
+    holds every study live); a 'cpu' plan keeps the reference's 1/S.
+    mesh= (study-axis sharding) and ordination= raise NotImplementedError
+    naming their slices.
+    """
+    if mesh is not None:
+        raise _later("mesh= (study-axis sharding)", "multi-device")
+    if ordination is not None:
+        raise _later("ordination= (PCoA)", "ordination")
+    dev = hw.resolve_device(device)
+    xs = torch.as_tensor(xs).to(dev, torch.float32)
+    if xs.dim() != 3:
+        raise ValueError(f"stacked features must be (S, n, d); got shape "
+                         f"{tuple(xs.shape)}")
+    groupings = torch.as_tensor(groupings).to(dev, torch.int32)
+    s_count, n, d = (int(v) for v in xs.shape)
+    if tuple(groupings.shape) != (s_count, n):
+        raise ValueError(f"groupings must be (S, n) = {(s_count, n)}, got "
+                         f"{tuple(groupings.shape)}")
+    n_total = n_perms + 1
+    stack_bytes = 4 * s_count * n * n
+    matrix_budget = (_planner.DEFAULT_MATRIX_BUDGET_BYTES
+                     if matrix_budget_bytes is None else matrix_budget_bytes)
+    if materialize == "auto":
+        materialize = ("fused-kernel" if stack_bytes > matrix_budget
+                       else "dense")
+    if materialize not in ("dense", "fused-kernel"):
+        raise ValueError(
+            f"pipeline_many supports materialize='dense'/'fused-kernel' "
+            f"(got {materialize!r}); stream/fused are single-study bridges")
+    designed = (covariates is not None or strata is not None
+                or weights is not None)
+    if materialize == "dense":
+        pl = _planner.plan_pipeline(
+            n, d, n_total, n_groups, backend=dev.type, metric=metric,
+            dist_impl=dist_impl, row_block=row_block, materialize="dense",
+            matrix_budget_bytes=matrix_budget_bytes,
+            memory_budget_bytes=memory_budget_bytes,
+            sw_impl=None if designed else sw_impl, chunk=chunk)
+        if stack_bytes > matrix_budget:
+            warnings.warn(
+                f"pipeline_many materializes the full (S, n, n) stack "
+                f"({stack_bytes / 2 ** 20:.0f}MiB), exceeding the matrix "
+                f"budget ({matrix_budget / 2 ** 20:.0f}MiB); use "
+                "materialize='fused-kernel' (never builds the stack) or "
+                "split the studies", stacklevel=2)
+        _, _, dense_fn = _registry.get(pl.dist_impl).bound(**pl.dist_tuning)
+        dms = torch.stack([dense_fn(xs[s]) for s in range(s_count)])
+        res = engine.permanova_many(
+            dms, groupings, n_groups=n_groups, n_perms=n_perms, seed=seed,
+            perms=perms, index_perms=index_perms,
+            impl="auto" if designed else sw_impl, chunk=chunk,
+            memory_budget_bytes=memory_budget_bytes, covariates=covariates,
+            strata=strata, weights=weights, device=dev)
+        res.plan = f"{pl.dist_impl} -> dense(per study) -> {res.plan}"
+        return res
+    budget = engine.api._study_budgets(dev.type, memory_budget_bytes,
+                                       s_count)
+    designs = (engine.api._build_study_designs(
+        groupings, covariates, strata, weights, n_groups=n_groups,
+        s_count=s_count, sizes=[n] * s_count, device=dev)
+        if designed else None)
+    results = []
+    for s in range(s_count):
+        kw = dict(metric=metric, n_perms=n_perms,
+                  seed=permutations.study_seed(seed, s),
+                  index_perms=None if index_perms is None else index_perms[s],
+                  dist_impl=dist_impl, sw_impl="auto",
+                  materialize="fused-kernel", row_block=row_block,
+                  chunk=chunk, memory_budget_bytes=budget,
+                  matrix_budget_bytes=matrix_budget_bytes,
+                  slab_budget_bytes=None, dist_tuning=None,
+                  fused_impl=fused_impl, fused_tuning=fused_tuning)
+        if designed:
+            kw.update(perms=None, dev=dev)
+            results.append(_pipeline_design(xs[s], designs[s], **kw))
+        else:
+            results.append(pipeline(
+                xs[s], groupings[s], n_groups=n_groups,
+                perms=None if perms is None else perms[s], device=dev,
+                **{k: v for k, v in kw.items() if k not in (
+                    "slab_budget_bytes", "dist_tuning")}))
+    return _stack_results(results, n_objects=n, n_groups=n_groups,
+                          n_perms=n_perms)
+
+
+def _stack_results(results, *, n_objects: int, n_groups: int,
+                   n_perms: int) -> engine.PermanovaManyResult:
+    """Stack per-study PermanovaResults (one plan) into the many-study
+    result; each study's plan record is the same but its chunks, so the
+    first is kept with the study count."""
+    def stack(get):
+        return torch.stack([get(r) for r in results])
+    terms = None
+    if results[0].terms is not None:
+        terms = tuple(dataclasses.replace(
+            t, ss=stack(lambda r, i=i: r.terms[i].ss),
+            f_stat=stack(lambda r, i=i: r.terms[i].f_stat),
+            p_value=stack(lambda r, i=i: r.terms[i].p_value),
+            r2=stack(lambda r, i=i: r.terms[i].r2),
+            f_perms=stack(lambda r, i=i: r.terms[i].f_perms))
+            for i, t in enumerate(results[0].terms))
+    return engine.PermanovaManyResult(
+        f_stat=stack(lambda r: r.f_stat), p_value=stack(lambda r: r.p_value),
+        s_t=stack(lambda r: r.s_t), s_w=stack(lambda r: r.s_w),
+        f_perms=stack(lambda r: r.f_perms), n_objects=n_objects,
+        n_groups=n_groups, n_perms=n_perms, terms=terms,
+        plan=f"{results[0].plan} studies={len(results)} [in turn]")

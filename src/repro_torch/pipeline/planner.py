@@ -24,13 +24,18 @@ in one place:
 On 'cuda' stage 1 is always `<metric>.cuda` and the fused-kernel sweep
 `<metric>.fusedk.cuda`: the kernels mask ragged shapes, so the TPU's
 tile-viability floor (PALLAS_MIN_N) has no counterpart, just as
-engine.planner sends 'cuda' to the brute kernel. Its labels chunk is sized
-by the kernel's own workset (partials and labels) in whole passes, not by
-the reference's one-hot block, which that kernel never builds. On 'cpu' the plans match
-the reference's field for field (the fused impl under the port's kind
-names). `explain()` adds the reference's per-precision table of feature
-traffic and workset. (Persisted stage-1 and fused measurements wait for
-the autotune slice.)
+engine.planner sends 'cuda' to the brute kernel. Its chunk, for labels and
+for a dense design alike, is sized by the kernel's own workset (partials,
+labels or index and basis) in whole passes, not by the reference's one-hot
+block, which that kernel never builds; the label or index draw shares the
+same budget: its sub-blocks get what the workset and a small slack leave
+(`draw_budget`), and the chunk is the whole-pass chunk of least modelled
+time (launches against draw sub-blocks), so the bridge holds at most
+`memory_budget_bytes` beside its features. On 'cpu'
+the plans match the reference's field for field (the fused impl under the
+port's kind names). `explain()` adds the reference's per-precision table
+of feature traffic and workset, and on the card the workset's split.
+(Persisted stage-1 and fused measurements wait for the autotune slice.)
 
 `plan_pipeline()` is pure shape/backend arithmetic, like `engine.plan()`.
 """
@@ -40,7 +45,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+from repro_torch.core import permutations as _perm
 from repro_torch.engine import planner as _eplanner
+from repro_torch.kernels.fused_sw import ops as _fops
 from repro_torch.kernels.fused_sw import ref as _fref
 from repro_torch.pipeline import registry as _dreg
 
@@ -54,6 +61,28 @@ DEFAULT_MATRIX_BUDGET_BYTES = 1024 * 1024 ** 2
 DEFAULT_SLAB_BUDGET_BYTES = 128 * 1024 ** 2
 MIN_ROW_BLOCK = 8
 MAX_ROW_BLOCK = 4096
+# What a card's fused-kernel sweep holds beside its workset and draw: the
+# (n_total,) results, inv_gs and the fp8 scale, and the caching
+# allocator's rounding (a request of more than 1 MiB may take a cached
+# block up to 1 MiB larger than it asked for). chip_smoke.py phase 17
+# holds the bridge's whole peak under the budget. A budget of a few MiB
+# holds only small requests, which the allocator rounds to 512 B: there
+# the slack is a sixteenth of the budget (sweep_slack).
+SWEEP_SLACK_BYTES = 4 * 1024 ** 2
+# The card's fused-kernel plan weighs a chunk's launches against its
+# draw's sub-blocks. Each launch repeats the kernel's feature phase, which
+# grows with the pairs and the features: `fused_sw` / `fused_sw_cols` at
+# P = 1 take 9.881 / 9.754 ms at n = 25,145, d = 128 (chip_smoke.py phases
+# 10 and 13), so a launch is modelled as LAUNCH_MS_EMP (n / 25,145)^2 d /
+# 128. A draw sub-block takes the longer of the host's dispatch of its ~40
+# small launches (DRAW_SUB_BLOCK_MS: the free draw 1.4-2.0 ms at 1 to 107
+# rows, one host; 1.8-3.5 on another) and the card's work on its rows
+# (DRAW_ROW_MS_EMP a row of 25,145 samples, scaled by n: 54.3 ms for 17
+# sub-blocks of 158 rows); chip_smoke.py phase 4. NVIDIA H100 80GB HBM3
+# at 700 W.
+LAUNCH_MS_EMP, LAUNCH_N, LAUNCH_D = 9.8, 25145, 128
+DRAW_SUB_BLOCK_MS, DRAW_ROW_MS_EMP = 1.9, 0.02
+DRAW_KINDS = ("labels", "strata")
 
 MATERIALIZE_MODES = ("dense", "stream", "fused", "fused-kernel")
 FUSED_MODES = ("fused", "fused-kernel")
@@ -78,18 +107,28 @@ class PipelinePlan:
     d: int = 0
     n_groups: int = 0
     n_cols: Optional[int] = None          # a dense design's basis width K
+    draw_budget: Optional[float] = None   # card's fused-kernel plans: the
+                                          # bytes its workset leaves the
+                                          # label / index draws
+    draw: str = "labels"                  # their kind (a dense design's:
+                                          # 'index')
+    budget: Optional[float] = None        # the label budget they share
 
     def explain(self) -> str:
         """describe() plus the precision-aware memory model of a
         fused-kernel plan: the predicted feature bytes per permutation
         chunk and the workset for each precision of the planned fused
-        impl, the planned one marked. (The reference's residency table
+        impl, the planned one marked; on the card, the workset's split
+        (partials and their slots, labels or index and basis, the draw's
+        sub-blocks) against the budget. (The reference's residency table
         comes with the out-of-core slice.)"""
         lines = [self.describe()]
         if self.materialize != "fused-kernel" or not self.fused_impl \
                 or not self.n:
             return "\n".join(lines)
         spec = _dreg.get_fused(self.fused_impl)
+        if spec.kind == "cuda" and self.draw_budget is not None:
+            lines.append(self.workset_split())
         planned = _dreg.precision_tag(self.fused_tuning)
         lines.append(
             f"predicted feature traffic per permutation chunk "
@@ -107,6 +146,28 @@ class PipelinePlan:
             lines.append(f"  {tag:>6}: {traffic/2**20:9.2f} MiB feat "
                          f"traffic, {workset/2**20:8.3f} MiB workset{mark}")
         return "\n".join(lines)
+
+    def workset_split(self) -> str:
+        """The card's fused-kernel workset at the plan's chunk, by part,
+        with the draw's sub-blocks (beside what the sweep holds while it
+        draws: all but a dense design's basis), the sweep's slack and the
+        peak they make against the budget."""
+        parts = _dreg.fused_cuda_workset(self.n, self.sw.chunk, self.n_cols)
+        slots = _fops.n_slots(self.n, self.n, True, "fused_sw"
+                              if self.n_cols is None else "fused_sw_cols")
+        rows = min(_perm.draw_rows(self.n, self.draw_budget, self.draw),
+                   self.sw.chunk)
+        draw = _perm.draw_transient_bytes(rows, self.n, self.draw)
+        slack = sweep_slack(self.budget)
+        peak = max(sum(parts.values()), _at_draw(parts) + draw) + slack
+        split = ", ".join(f"{k} {v / 2 ** 20:.2f}MiB"
+                          for k, v in parts.items())
+        return (f"kernel workset at chunk {self.sw.chunk}: {split} "
+                f"({slots} slots); {self.draw} draw {draw / 2 ** 20:.2f}MiB "
+                f"({rows} rows of {self.n}) beside "
+                f"{_at_draw(parts) / 2 ** 20:.2f}MiB of it; slack "
+                f"{slack / 2 ** 20:.2f}MiB; peak {peak / 2 ** 20:.2f}MiB of "
+                f"{self.budget / 2 ** 20:.2f}MiB")
 
     def describe_stage1(self) -> str:
         """Stage 1 + bridge only — what the pipeline itself executes; the
@@ -200,34 +261,116 @@ def _onehot_chunk(n: int, cols: int, n_perms: int, budget: float) -> int:
     return int(max(1, min(budget // per_perm, n_perms)))
 
 
+def sweep_slack(budget: float) -> float:
+    """The bytes a card's fused-kernel plan keeps from `budget` for what
+    its sweep holds beside the workset and the draw."""
+    return min(SWEEP_SLACK_BYTES, budget / 16)
+
+
+def _pass_chunks(n_perms: int, quantum: int, n_cols: Optional[int]):
+    """The whole-pass chunks below n_perms, ascending, then n_perms: a
+    labels chunk is a multiple of `quantum` permutations; a design chunk
+    the most permutations whose n_cols columns fill m passes of Q_PASS
+    (at least one pass's worth)."""
+    if n_cols is None:
+        return list(range(quantum, n_perms, quantum)) + [n_perms]
+    need = -(-_fops.Q_PASS // n_cols)
+    out, m = [], 1
+    while True:
+        c = max(need, m * _fops.Q_PASS // n_cols)
+        if c >= n_perms:
+            return sorted(set(out)) + [n_perms]
+        out.append(c)
+        m += 1
+
+
+def _draw_sub_blocks(n_perms: int, chunk: int, rows: int) -> int:
+    """Sub-blocks the draws of n_perms permutations take in chunks of
+    `chunk`, `rows` a sub-block."""
+    full, last = divmod(n_perms, chunk)
+    return full * -(-chunk // rows) + -(-last // rows)
+
+
+def _draw_ms(n: int, n_perms: int, chunk: int, rows: int) -> float:
+    """Modelled time of those draws: each sub-block the longer of
+    DRAW_SUB_BLOCK_MS and its rows at DRAW_ROW_MS_EMP (scaled by n)."""
+    row_ms = DRAW_ROW_MS_EMP * n / LAUNCH_N
+
+    def chunk_ms(c):
+        q, r = divmod(c, rows)
+        return (q * max(DRAW_SUB_BLOCK_MS, rows * row_ms)
+                + (max(DRAW_SUB_BLOCK_MS, r * row_ms) if r else 0.0))
+    full, last = divmod(n_perms, chunk)
+    return full * chunk_ms(chunk) + (chunk_ms(last) if last else 0.0)
+
+
+def _at_draw(parts: dict) -> int:
+    """What a fused-kernel sweep holds while it draws: all its workset but
+    a dense design's basis, which is gathered after the index draw (and
+    the previous chunk's freed before it)."""
+    return sum(parts.values()) - parts.get("basis", 0)
+
+
 def _kernel_chunk(spec: _dreg.FusedImpl, n: int, d: int, n_perms: int,
-                  n_groups: int, row_block: int, budget: float):
-    """(chunk, reason): the most permutations a launch of the fused_sw
-    kernel takes with its workset (spec's model: the partials and the
-    (chunk, n) labels, linear in the chunk) inside `budget`, cut to whole
-    passes of spec.chunk_quantum permutations (a partial pass costs a
-    whole one), at most n_perms. Where the partials that do not depend on
-    the chunk leave no room for one pass, the chunk is one pass or the
-    one-hot model's chunk in whole passes, the larger, and the workset
-    exceeds the budget."""
-    ws, q = spec.workset_bytes, spec.chunk_quantum
-    fixed = ws(n, d, 0, n_groups, row_block)
-    per_perm = ws(n, d, 1, n_groups, row_block) - fixed
-    fit = int(max(budget - fixed, 0) // per_perm)
-    if fit >= q:
-        chunk = fit - fit % q
-    else:
-        onehot = _onehot_chunk(n, n_groups, n_perms, budget)
-        chunk = max(q, onehot - onehot % q)
-    chunk = min(chunk, n_perms)
-    used = ws(n, d, chunk, n_groups, row_block)
-    if used <= budget:
-        return chunk, (f"kernel workset {used/2**20:.0f}MiB of "
-                       f"{budget/2**20:.0f}MiB sizes the chunk")
-    return chunk, (f"kernel workset {used/2**20:.0f}MiB exceeds "
-                   f"{budget/2**20:.0f}MiB: its fixed partials "
-                   f"({fixed/2**20:.0f}MiB) leave no room for a pass of "
-                   f"{q}: one pass or the one-hot chunk, the larger")
+                  budget: float, n_cols: Optional[int] = None,
+                  draw: str = "labels"):
+    """(chunk, draw_budget, reason) of the card's fused kernel. Its
+    workset (registry.fused_cuda_workset: the partials and the (chunk, n)
+    labels, or a dense design's index and basis) and the sweep's slack
+    fit the budget, and so do the draw's sub-blocks beside what the sweep
+    holds while it draws (_at_draw): draw_budget = budget -
+    sweep_slack(budget) - _at_draw. Among the whole-pass chunks
+    (_pass_chunks) that leave room for one draw row, the one of least
+    modelled time: a launch's feature phase (LAUNCH_MS_EMP, scaled by the
+    pairs and the features) and the draw's sub-blocks (_draw_ms; fewer
+    launches on a tie). A bigger chunk saves launches and leaves the
+    draw fewer rows a sub-block. Where not even one pass fits, ValueError
+    names the least budget that would."""
+    kind = "index" if n_cols is not None else draw
+    slack = sweep_slack(budget)
+    row = _perm.draw_transient_bytes(1, n, kind)
+
+    def parts(c):
+        return _dreg.fused_cuda_workset(n, c, n_cols)
+
+    def need(c):     # the budget less its slack that chunk c takes
+        p = parts(c)
+        return max(sum(p.values()), _at_draw(p) + row)
+
+    chunks = _pass_chunks(n_perms, spec.chunk_quantum, n_cols)
+    fits = [c for c in chunks if need(c) <= budget - slack]
+    if not fits:
+        base = need(chunks[0])
+        least = (base + SWEEP_SLACK_BYTES if base >= 15 * SWEEP_SLACK_BYTES
+                 else base * 16 / 15)       # the budget less its slack
+        raise ValueError(
+            f"the fused kernel's workset at n={n} takes {base / 2 ** 20:.1f}"
+            f"MiB for one pass of {chunks[0]} permutations (with one {kind} "
+            f"draw row; + the slack) and the budget is "
+            f"{budget / 2 ** 20:.1f}MiB; pass memory_budget_bytes >= "
+            f"{int(-(-least // 1))}")
+
+    launch_ms = LAUNCH_MS_EMP * (n / LAUNCH_N) ** 2 * d / LAUNCH_D
+
+    def rows_at(c):
+        return _perm.draw_rows(n, budget - slack - _at_draw(parts(c)), kind)
+
+    def cost(c):
+        launches = -(-n_perms // c)
+        return (launches * launch_ms + _draw_ms(n, n_perms, c, rows_at(c)),
+                launches)
+
+    chunk = min(fits, key=cost)
+    at_draw = _at_draw(parts(chunk))
+    draw_budget = budget - slack - at_draw
+    rows = min(rows_at(chunk), chunk)
+    return chunk, draw_budget, (
+        f"kernel workset {sum(parts(chunk).values()) / 2 ** 20:.0f}MiB, "
+        f"{kind} draw {_perm.draw_transient_bytes(rows, n, kind) / 2 ** 20:.0f}"
+        f"MiB beside {at_draw / 2 ** 20:.0f}MiB of it, slack "
+        f"{slack / 2 ** 20:.1f}MiB, of {budget / 2 ** 20:.0f}MiB; chunk "
+        f"{chunk} of least modelled time ({-(-n_perms // chunk)} launches, "
+        f"{_draw_sub_blocks(n_perms, chunk, rows)} draws of {rows} rows)")
 
 
 def _pick_row_block(n: int, d: int, impl: _dreg.DistanceImpl,
@@ -253,7 +396,8 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
                   chunk: Optional[int] = None,
                   fused_impl: Optional[str] = None,
                   fused_tuning: Optional[Dict[str, int]] = None,
-                  design_cols: Optional[int] = None
+                  design_cols: Optional[int] = None,
+                  draw: str = "labels"
                   ) -> PipelinePlan:
     """Resolve the full two-stage plan for one problem.
 
@@ -269,8 +413,13 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     otherwise; the reference's planner drops what it cannot run).
     design_cols: the dense-design basis width K (covariates / weights /
     several factors); the fused chunk and the engine plan are sized for K
-    basis columns instead of G one-hot groups.
+    basis columns instead of G one-hot groups. draw: the kind of label
+    draw the sweep makes ('labels', or 'strata' for labels within strata
+    blocks; a dense design's index draw is implied by design_cols), which
+    the card's fused-kernel plan charges to the budget.
     """
+    if draw not in DRAW_KINDS:
+        raise ValueError(f"draw={draw!r}; expected one of {DRAW_KINDS}")
     matrix_budget = (DEFAULT_MATRIX_BUDGET_BYTES
                      if matrix_budget_bytes is None else matrix_budget_bytes)
     slab_budget = (DEFAULT_SLAB_BUDGET_BYTES
@@ -309,8 +458,8 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     # (a caller-pinned sw_impl they cannot honor is an error when the
     # bridge was pinned too, a downgrade to 'stream' when it was ours),
     # and the chunk is sized against the one-hot block (chunk, n, G),
-    # except on the card's labels kernel, which holds only its partials
-    # and the labels (_kernel_chunk).
+    # except on the card's fused kernels, which hold only their partials
+    # and the labels or the index and basis (_kernel_chunk).
     pinned_sw = sw_impl if sw_impl not in (None, "auto") else None
     if mat in FUSED_MODES and pinned_sw not in (None, "matmul"):
         if mat_pinned:
@@ -323,18 +472,19 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
                     f"sw_impl={pinned_sw!r} (over matrix budget)")
     if mat in FUSED_MODES and pinned_sw is None:
         pinned_sw = "matmul"
+    draw_budget = None   # a caller's chunk: the draws keep the label budget
     if mat in FUSED_MODES and chunk is None:
         budget = (_eplanner.DEFAULT_STREAM_BUDGET_BYTES
                   if memory_budget_bytes is None else memory_budget_bytes)
         kspec = None
-        if mat == "fused-kernel" and design_cols is None \
-                and backend == "cuda":
+        if mat == "fused-kernel" and backend == "cuda":
             kspec = _dreg.get_fused(_resolve_fused(metric, backend,
                                                    fused_impl)[0])
         if kspec is not None and kspec.kind == "cuda":
-            # the labels kernel holds its partials and the labels only
-            chunk, why = _kernel_chunk(kspec, n, d, n_perms, n_groups,
-                                       row_block, budget)
+            # the card's kernels hold their partials and the labels (or
+            # index and basis) only; the draw takes what is left
+            chunk, draw_budget, why = _kernel_chunk(
+                kspec, n, d, n_perms, budget, design_cols, draw)
             mreason += f"; {why}"
         else:
             cols = n_groups if design_cols is None else design_cols
@@ -384,4 +534,6 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
         materialize=mat, row_block=row_block, sw=sw, backend=backend,
         reason=f"{dreason}; {mreason}", fused_impl=f_impl,
         fused_tuning=f_tuning, n=n, d=d, n_groups=n_groups,
-        n_cols=design_cols)
+        n_cols=design_cols, draw_budget=draw_budget,
+        draw="index" if design_cols is not None else draw,
+        budget=None if draw_budget is None else budget)

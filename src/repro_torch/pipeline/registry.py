@@ -360,18 +360,27 @@ def fused_names(*, metric: Optional[str] = None,
     return sorted(out)
 
 
+def fused_cuda_workset(n: int, chunk: int, n_cols=None) -> dict:
+    """What the card's fused-kernel sweep (a whole-table call) holds at
+    `chunk`, by part, in bytes: 'partials', the kernel's workspace (one
+    s_W value per (slot, permutation), or one (P, K) row per slot for a
+    dense design, at most SW_SLOTS or COLS_SLOTS slots, and the slots'
+    f64 totals) and its output; 'labels', the (chunk, n) int32 labels,
+    or for a dense design 'index' and 'basis', the (chunk, n) int32
+    index permutations and the (chunk, n, K) f32 basis they gather.
+    Nothing grows with n^2. The label or index draw comes on top, in
+    what the budget leaves (pipeline.planner)."""
+    if n_cols is None:
+        return {"partials": _fops.workspace_bytes(n, n, chunk,
+                                                  symmetric=True),
+                "labels": 4 * chunk * n}
+    return {"partials": _fops.cols_workspace_bytes(n, n, chunk, n_cols,
+                                                   symmetric=True),
+            "index": 4 * chunk * n, "basis": 4 * chunk * n * n_cols}
+
+
 def _ws_fused_cuda(n, d, chunk, n_groups, row_block, n_cols=None):
-    # what the kernel's sweep (a whole-table call) holds: its partials,
-    # one s_W value per (block, permutation), a block being a row tile and
-    # a strip of column tiles at or past the diagonal, and the row sums per
-    # (strip slot, row) plus per (row tile, column), and the (chunk, n)
-    # int32 labels; for a dense design the cols kernel's partials, one (P,
-    # K) row per block and the same row sums, the index permutations and
-    # the (chunk, n, K) basis factor
-    if n_cols is not None:
-        return (_fops.cols_workspace_bytes(n, n, chunk, n_cols)
-                + 4 * chunk * n * (n_cols + 1))
-    return _fops.workspace_bytes(n, n, chunk, symmetric=True) + 4 * chunk * n
+    return sum(fused_cuda_workset(n, chunk, n_cols).values())
 
 
 def _ws_fused_torch(n, d, chunk, n_groups, row_block, n_cols=None):

@@ -40,6 +40,8 @@ import torch
 
 from repro_torch.core import distance as _dist
 from repro_torch.core import fstat
+from repro_torch.core import permutations as _perm
+from repro_torch.engine import planner as _eplanner
 from repro_torch.engine.scheduler import _check_perms, _index_perms, _labels
 from repro_torch.kernels.fused_sw import ops as _fops
 from repro_torch.kernels.fused_sw import ref as _fref
@@ -289,7 +291,12 @@ class FusedKernelStats(NamedTuple):
                              # the kernel's partial buffers (D^2 itself
                              # never reaches device memory)
     peak_label_bytes: int    # (chunk, n) labels (+ the (chunk, n, G)
-                             # one-hot factor in the torch form)
+                             # one-hot factor in the torch form; the
+                             # (chunk, n, K) basis of a design)
+    slots: int = 0           # cuda: the kernel's blocks (partial rows)
+    draw_rows: int = 0       # rows of a label / index draw's sub-block
+    peak_draw_bytes: int = 0  # their modelled transients (0: explicit
+                              # perms or index_perms, nothing drawn)
 
 
 def fused_sw_onepass(xprep: torch.Tensor, rows_fn: Callable,
@@ -348,6 +355,20 @@ def _fp8_scale_kwargs(xprep: torch.Tensor, metric: str,
     return {}
 
 
+def _sweep_tuning(xprep: torch.Tensor, metric: str,
+                  tuning: Optional[dict]) -> dict:
+    """A megakernel sweep's keyword arguments for every launch: the
+    precision knobs, the fp8 scale (_fp8_scale_kwargs) and the table
+    quantized ONCE for the sweep (`quantized`), so neither the
+    quantization's time nor its transients are paid a launch."""
+    tuning = dict(tuning or {})
+    tuning.update(_fp8_scale_kwargs(xprep, metric, tuning))
+    mode, scale = _fref.resolve_precision(
+        xprep, metric, **{k: tuning.get(k) for k in _PRECISION_KEYS})
+    tuning["quantized"] = _fops.quantize_slabs(xprep, xprep, mode, scale)
+    return tuning
+
+
 def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
                         inv_gs: torch.Tensor, n_total: int, *,
                         kernel_metric: str, chunk: int,
@@ -360,12 +381,15 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
     launch per permutation chunk covers every pair and permutation of the
     chunk (the whole table against itself, so the kernel visits the tiles
     j >= i only), and the only device traffic per chunk is the feature
-    table and the (chunk, n) labels. The partial buffers, one s_W value
-    per (block, permutation) and the row sums, are allocated once for the
-    sweep, and the fp8 scale computed once; on the card the planner sizes
-    the chunk by them and the labels. s_T comes from the FIRST chunk's row
-    sums (every chunk gives the same ones). `tuning` holds the precision
-    knobs (feat_bf16 / feat_fp8 / feat_packed / feat_scale).
+    table and the (chunk, n) labels. The kernel's partials, one s_W value
+    per (slot, permutation) and one D2 total per slot (SW_SLOTS blocks at
+    most, so nothing grows with n^2), are allocated once for the sweep,
+    and the fp8 scale computed once; on the card the planner sizes the
+    chunk by them and the labels, and `draw_budget` (what that workset
+    and the slack leave of the budget) sizes the label draws'
+    sub-blocks. s_T comes from the FIRST chunk's D2 total (every chunk
+    gives the same one). `tuning` holds the precision knobs (feat_bf16 /
+    feat_fp8 / feat_packed / feat_scale).
 
     Returns (s_w (n_total,) float64, s_t 0-d float64, FusedKernelStats).
     """
@@ -374,28 +398,44 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
                      index_perms=index_perms, draw_budget=draw_budget)
     chunk = int(max(1, min(chunk, n_total)))
     xprep = xprep.to(torch.float32).contiguous()
-    tuning = dict(tuning or {})
-    tuning.update(_fp8_scale_kwargs(xprep, kernel_metric, tuning))
+    tuning = _sweep_tuning(xprep, kernel_metric, tuning)
     workspace = (_fops.alloc_workspace(n, n, chunk, xprep.device)
                  if xprep.device.type == "cuda" else None)
     s_w = torch.empty((n_total,), dtype=torch.float64, device=xprep.device)
-    row_sums = None
+    total = None
     for lo in range(0, n_total, chunk):
         hi = min(lo + chunk, n_total)
         g = _labels(grouping, lo, hi, **src)
-        sw, rs = _fops.fused_sw_rows(xprep, xprep, g, g, inv_gs, 0,
-                                     metric=kernel_metric,
-                                     workspace=workspace, **tuning)
+        sw, tot = _fops.fused_sw_rows(xprep, xprep, g, g, inv_gs, 0,
+                                      metric=kernel_metric,
+                                      workspace=workspace, row_sums=False,
+                                      **tuning)
         s_w[lo:hi] = sw
-        if row_sums is None:
-            row_sums = rs
+        if total is None:
+            total = tot
         del g   # freed before the next chunk's labels are drawn
+    rows, draw = _draw_stats(n, chunk, draw_budget, "labels"
+                             if strata is None else "strata",
+                             perms is None and index_perms is None)
     stats = FusedKernelStats(
         impl="cuda", n_total=n_total, chunk=chunk,
         n_chunks=-(-n_total // chunk), row_block=_fops.TILE,
         peak_slab_bytes=_fops.workspace_bytes(n, n, chunk),
-        peak_label_bytes=4 * chunk * n)
-    return s_w, row_sums.sum(dtype=torch.float64) / 2.0 / n, stats
+        peak_label_bytes=4 * chunk * n,
+        slots=_fops.n_slots(n, n, True, "fused_sw"),
+        draw_rows=rows, peak_draw_bytes=draw)
+    return s_w, total / 2.0 / n, stats
+
+
+def _draw_stats(n: int, chunk: int, draw_budget, kind: str, drawn: bool):
+    """(rows, modelled transient bytes) of the draws' largest sub-block
+    at `draw_budget` (None: the planner's label budget), as
+    engine.scheduler draws a chunk; (0, 0) where nothing is drawn."""
+    if not drawn:
+        return 0, 0
+    rows = min(_perm.draw_rows(n, _eplanner.label_budget(draw_budget),
+                               kind), chunk)
+    return rows, _perm.draw_transient_bytes(rows, n, kind)
 
 
 def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
@@ -407,8 +447,9 @@ def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
     fused_sw_cols): one launch per permutation chunk, fed the chunk's
     permuted basis (chunk, n, K) in place of labels; the partial buffers
     are allocated once for the sweep, and the fp8 scale computed once.
-    s_T comes from the first chunk's row sums. `tuning` holds the
-    precision knobs.
+    Each chunk's basis is freed before the next chunk's index draw, whose
+    sub-blocks `draw_budget` sizes. s_T comes from the first chunk's D2
+    total. `tuning` holds the precision knobs.
 
     Returns (s_cols (n_total, K) float64, s_t 0-d float64,
     FusedKernelStats).
@@ -420,30 +461,35 @@ def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
     strata = _design_strata(design, n, basis.device)
     chunk = int(max(1, min(chunk, n_total)))
     xprep = xprep.to(torch.float32).contiguous()
-    tuning = dict(tuning or {})
-    tuning.update(_fp8_scale_kwargs(xprep, kernel_metric, tuning))
+    tuning = _sweep_tuning(xprep, kernel_metric, tuning)
     workspace = (_fops.alloc_cols_workspace(n, n, chunk, k, xprep.device)
                  if xprep.device.type == "cuda" else None)
     s_cols = torch.empty((n_total, k), dtype=torch.float64,
                          device=xprep.device)
-    row_sums = None
+    total = None
     for lo in range(0, n_total, chunk):
         hi = min(lo + chunk, n_total)
         v = fstat.basis_perm_factors(basis, _index_perms(
             strata, lo, hi, seed=seed, index_perms=index_perms,
             draw_budget=draw_budget))
-        sc, rs = _fops.fused_sw_rows_cols(xprep, xprep, v, v, 0,
-                                          metric=kernel_metric,
-                                          workspace=workspace, **tuning)
+        sc, tot = _fops.fused_sw_rows_cols(xprep, xprep, v, v, 0,
+                                           metric=kernel_metric,
+                                           workspace=workspace,
+                                           row_sums=False, **tuning)
         s_cols[lo:hi] = sc
-        if row_sums is None:
-            row_sums = rs
+        if total is None:
+            total = tot
+        del v   # freed before the next chunk's index draw
+    rows, draw = _draw_stats(n, chunk, draw_budget, "index",
+                             index_perms is None)
     stats = FusedKernelStats(
         impl="cuda", n_total=n_total, chunk=chunk,
         n_chunks=-(-n_total // chunk), row_block=_fops.TILE,
         peak_slab_bytes=_fops.cols_workspace_bytes(n, n, chunk, k),
-        peak_label_bytes=4 * chunk * n * (k + 1))
-    return s_cols, row_sums.sum(dtype=torch.float64) / 2.0 / n, stats
+        peak_label_bytes=4 * chunk * n * (k + 1),
+        slots=_fops.n_slots(n, n, True, "fused_sw_cols"),
+        draw_rows=rows, peak_draw_bytes=draw)
+    return s_cols, total / 2.0 / n, stats
 
 
 def fused_kernel_sw(xprep: torch.Tensor, rows_fn: Callable,

@@ -235,20 +235,21 @@ def test_draws_are_bit_identical_for_every_sub_block(block_rows, lo, hi):
 
 def test_draw_sub_block_fits_the_planners_label_budget():
     """At the EMP shape (n = 25,145) the sub-block the planner's label
-    budget gives keeps the draws' modelled transients within that budget,
-    while the whole chunk the same budget sizes (4 n + 8 bytes a
+    budget gives keeps the draws' modelled transients (65 B an element and
+    1 MiB of allocator excess for each of the 9 int64 arrays) within that
+    budget, while the whole chunk the same budget sizes (4 n + 8 bytes a
     permutation) would not; a smaller budget gives a smaller sub-block."""
     from repro_torch.engine import planner
     n = 25145
     budget = planner.DEFAULT_STREAM_BUDGET_BYTES
     rows = permutations.draw_rows(n, budget)
-    assert rows == 166
+    assert rows == 158
     assert permutations.draw_transient_bytes(rows, n) <= budget
     assert permutations.draw_transient_bytes(rows + 1, n) > budget
     chunk = planner.chunk_for_budget(n, 4000, budget)
     assert chunk == 2668
     assert permutations.draw_transient_bytes(chunk, n) > 10 * budget
-    assert permutations.draw_rows(n, budget / 4) == rows // 4
+    assert permutations.draw_rows(n, budget / 4) == 35 < rows // 4
     assert permutations.draw_rows(n, 1.0) == 1
     with pytest.raises(ValueError, match="block_rows"):
         permutations.permutation_batch(_grouping(), 0, 4, block_rows=0)
@@ -268,13 +269,74 @@ def test_scheduler_draws_in_budget_sized_sub_blocks(monkeypatch):
 
     monkeypatch.setattr(permutations, "permutation_batch", spy)
     grouping = _grouping()
-    budget = 64 * 57 * 5          # five rows of transients
+    budget = 65 * 57 * 5          # five rows of transients
     a = scheduler._labels(grouping, 0, 30, seed=4, perms=None,
                           draw_budget=budget)
     b = scheduler._labels(grouping, 0, 30, seed=4, perms=None)
     assert seen == [5, permutations.draw_rows(
         57, planner.DEFAULT_STREAM_BUDGET_BYTES)]
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind,per_element", [
+    ("labels", 65), ("strata", 84), ("index", 80)])
+def test_draw_model_is_by_kind_of_draw(kind, per_element):
+    """Each kind of draw has its own bytes an element (the strata label
+    draw holds two argsorts, its index rows and their gather; the index
+    draw the two argsorts and a scatter) and 1 MiB of allocator excess
+    for each int64 array of more than 1 MiB: the sub-block rows a budget
+    gives follow them, so a strata or index draw takes fewer rows than a
+    free one in the same budget, and its model stays within it. Arrays
+    of at most 1 MiB carry no excess."""
+    n, budget = 25145, 256 * 2 ** 20
+    assert permutations.DRAW_BYTES_PER_ELEMENT[kind] == per_element
+    arrays = -(-per_element // 8)
+    rows = permutations.draw_rows(n, budget, kind)
+    assert rows == (budget - arrays * 2 ** 20) // (per_element * n)
+    assert permutations.draw_transient_bytes(5, n, kind) == \
+        per_element * 5 * n               # 5 rows: arrays under 1 MiB
+    assert permutations.draw_transient_bytes(6, n, kind) == \
+        per_element * 6 * n + arrays * 2 ** 20
+    assert permutations.draw_transient_bytes(rows, n, kind) <= budget
+    assert permutations.draw_transient_bytes(rows + 1, n, kind) > budget
+    assert permutations.draw_rows(n, budget) == \
+        permutations.draw_rows(n, budget, "labels")
+    assert rows <= permutations.draw_rows(n, budget)
+
+
+def test_scheduler_draws_each_kind_in_its_own_sub_blocks(monkeypatch):
+    """The engine's label sweep sizes a strata label draw's sub-blocks by
+    the strata model and an index draw's by the index model; the values
+    do not depend on the sub-block size."""
+    from repro_torch.engine import scheduler
+    seen = []
+    orig_s = permutations.strata_label_batch
+    orig_i = permutations.strata_permutation_batch
+
+    def spy_s(grouping, strata, lo, hi, *, seed=0, block_rows=None):
+        seen.append(("strata", block_rows))
+        return orig_s(grouping, strata, lo, hi, seed=seed,
+                      block_rows=block_rows)
+
+    def spy_i(strata, lo, hi, *, seed=0, block_rows=None):
+        seen.append(("index", block_rows))
+        return orig_i(strata, lo, hi, seed=seed, block_rows=block_rows)
+
+    monkeypatch.setattr(permutations, "strata_label_batch", spy_s)
+    monkeypatch.setattr(permutations, "strata_permutation_batch", spy_i)
+    grouping = _grouping()
+    strata = (torch.arange(57) % 3).to(torch.int32)
+    budget = 84 * 57 * 5 + 1           # five rows of strata transients
+    a = scheduler._labels(grouping, 0, 30, seed=4, perms=None,
+                          strata=strata, draw_budget=budget)
+    b = scheduler._index_perms(strata, 0, 30, seed=4, index_perms=None,
+                               draw_budget=budget)
+    assert seen[0] == ("strata", 5) and seen[-1] == ("index", 5)
+    monkeypatch.undo()
+    assert torch.equal(a, permutations.strata_label_batch(
+        grouping, strata, 0, 30, seed=4))
+    assert torch.equal(b, permutations.strata_permutation_batch(
+        strata, 0, 30, seed=4))
 
 
 def test_group_sizes_match_reference():

@@ -633,18 +633,29 @@ def test_pipeline_plan_with_design_cols_matches_reference_on_cpu(
 
 def test_emp_design_plans_on_cuda():
     """At the EMP shape with the default budgets: a K = 10 design takes
-    the fused-kernel bridge in chunks of 256 MiB / (4 n 21) = 127 (32
-    launches for 4,000 slots); strata only keeps the label chunk, which
-    the fused_sw kernel's workset sizes on the card: 1,792 (3
-    launches)."""
+    the fused-kernel bridge in chunks the fused_sw_cols kernel's workset
+    sizes on the card: its partials (2,048 slots x K floats), index and
+    basis (4 n (K + 1) bytes) a permutation and the slack share 256 MiB,
+    and the index draw's sub-blocks what the partials and the index leave
+    (the basis is gathered after the draw); of the whole 128-q passes
+    that fit, 204 permutations (16 passes) cost least: 20 launches for
+    4,000 slots, 40 index draws of 107 rows (where the reference's
+    one-hot model took 127 and 32 launches); strata only keeps the label
+    chunk, which the fused_sw kernel's workset and the strata draw size:
+    896 (5 launches). The CPU plan keeps the one-hot chunk."""
     pl = pplanner.plan_pipeline(25145, 128, 4000, 8, backend="cuda",
                                 design_cols=10)
     assert (pl.materialize, pl.fused_impl, pl.sw.chunk) == \
-        ("fused-kernel", "braycurtis.fusedk.cuda", 127)
-    assert -(-4000 // pl.sw.chunk) == 32
-    pl = pplanner.plan_pipeline(25145, 128, 4000, 8, backend="cuda")
-    assert (pl.materialize, pl.sw.chunk) == ("fused-kernel", 1792)
-    assert -(-4000 // pl.sw.chunk) == 3
+        ("fused-kernel", "braycurtis.fusedk.cuda", 204)
+    assert -(-4000 // pl.sw.chunk) == 20 and 204 * 10 // 128 == 15
+    assert "(20 launches, 40 draws of 107 rows)" in pl.reason
+    pl = pplanner.plan_pipeline(25145, 128, 4000, 8, backend="cuda",
+                                draw="strata")
+    assert (pl.materialize, pl.sw.chunk) == ("fused-kernel", 896)
+    assert -(-4000 // pl.sw.chunk) == 5
+    pl = pplanner.plan_pipeline(25145, 128, 4000, 8, backend="cpu",
+                                design_cols=10)
+    assert pl.sw.chunk == 127 and pl.draw_budget is None
 
 
 def test_fused_workset_charges_the_cols_workspace():

@@ -235,14 +235,24 @@ def test_run_seed_path_is_chunk_invariant():
 
 def test_run_designs_not_ported_yet():
     """Designs came with the designs slice: a strata design now runs and
-    reports its term. What is not ported stays out: the many-study design
-    runs (no engine.permanova_many yet), and a custom sw_fn with a design
+    reports its term; the many-study design runs came with the
+    many-study slice (engine.permanova_many, its study-axis sharding still
+    to come with the multi-device slice); a custom sw_fn with a design
     raises ValueError as in the reference."""
     dm, grouping, _, _, _ = _study("null48")
     res = engine.run(dm, grouping, strata=np.zeros(48, np.int32), n_perms=9,
                      device="cpu")
     assert res.terms is not None and res.method.endswith("+strata]")
-    assert not hasattr(engine, "permanova_many")
+    assert engine.permanova_many is engine.api.permanova_many
+    many = engine.permanova_many(np.stack([dm, dm]), np.stack([grouping] * 2),
+                                 n_groups=int(grouping.max()) + 1,
+                                 strata=np.zeros((2, 48), np.int32),
+                                 n_perms=9, device="cpu")
+    assert len(many) == 2 and many.terms is not None
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        engine.permanova_many(np.stack([dm]), np.stack([grouping]),
+                              n_groups=int(grouping.max()) + 1, mesh=object(),
+                              device="cpu")
     with pytest.raises(ValueError, match="sw_fn"):
         engine.run(dm, grouping, strata=np.zeros(48, np.int32),
                    sw_fn=lambda *a: None, device="cpu")

@@ -259,31 +259,62 @@ def test_cpu_calls_launch_nothing():
 
 
 def test_partials_at_the_emp_shape():
-    """The sweep's call (the whole table against itself) is symmetric: one
-    s_W partial per (block, permutation), a block being a row tile and a
-    strip of 16 column tiles at or past the diagonal, sum_{c < 25} (393 -
-    16 c) = 5,025 blocks, under n / 4, so the partials take under a
-    quarter of the labels' 4 n bytes a permutation; and the row sums per
-    (strip slot, row) plus per (row tile, column), (25 + 393) x 25,145
-    floats whatever the chunk. At the plan's EMP chunk (1,792) partials
-    and labels take 246.3 MiB, inside the 256 MiB budget; per-tile
-    partials would take 1.1 GB. A slab keeps every (row tile, strip) block
-    and its row sums only."""
-    n, chunk = 25145, 1792
-    blocks = sum(393 - 16 * c for c in range(25))
-    assert blocks == 5025 and 4 * blocks < n
-    assert ops.partial_shapes(n, n, chunk) == ((blocks, chunk),
-                                               (25 + 393, n))
+    """The sweep's call (the whole table against itself) is symmetric:
+    5,025 work items, each a row tile and a strip of 16 column tiles at
+    or past the diagonal (sum_{c < 25} (393 - 16 c)), walked by
+    min(SW_SLOTS, items) = 4,096 slots, with one running s_W per (slot,
+    permutation) and one f64 D2 total per slot: 16 KiB a permutation,
+    under a sixth of the labels' 4 n, and 32 KiB whatever the chunk and
+    the n, where the earlier layout also held (strips + row tiles) x n row
+    sums (40.1 MiB at n = 25,145, 633.6 MiB at 100,000). At the plan's EMP
+    chunk (1,664) partials and labels take 185.7 MiB of the 256 MiB
+    budget. A slab call walks every (row tile, strip) item; the row sums,
+    when a direct caller asks for them, take (strips + row tiles, n)
+    floats for that call only."""
+    n, chunk = 25145, 1664
+    items = sum(393 - 16 * c for c in range(25))
+    assert items == 5025 and ops.n_slots(n, n, True) == ops.SW_SLOTS == 4096
+    assert ops.partial_shapes(n, n, chunk) == ((4096, chunk), (4097,))
     assert ops.workspace_bytes(n, n, chunk) == \
-        4 * (blocks * chunk + (25 + 393) * n)
-    assert ops.workspace_bytes(n, n, chunk) + 4 * chunk * n \
-        <= 256 * 2 ** 20
-    assert 4 * 393 * 393 * chunk > 1.1e9
+        4 * 4096 * chunk + 8 * 4097 + 4 * chunk
+    assert 6 * 4 * 4096 < 4 * n
+    assert (ops.workspace_bytes(n, n, chunk) + 4 * chunk * n) / 2 ** 20 \
+        == pytest.approx(185.65, abs=0.01)
+    for big in (60000, 100000):
+        assert ops.workspace_bytes(big, big, 0) == 8 * 4097
     assert ops.partial_shapes(n, n, chunk, symmetric=False) == \
-        ((393 * 25, chunk), (25, n))
-    assert ops.partial_shapes(300, n, 7) == ((5 * 25, 7), (25, 300))
-    assert len(_tile_blocks(n, n, True, ops.SW_STRIP_TILES)) == blocks
+        ((4096, chunk), (4097,))
+    assert ops.partial_shapes(300, n, 7) == ((5 * 25, 7), (126,))
+    assert ops.row_sum_shape(n, n, True) == (25 + 393, n)
+    assert ops.row_sum_shape(300, n, False) == (25, 300)
+    assert len(_tile_blocks(n, n, True, ops.SW_STRIP_TILES)) == items
     assert _tile_blocks(n, n, True, ops.SW_STRIP_TILES)[393] == (0, 16, 1)
+
+
+@pytest.mark.parametrize("kernel", ["fused_sw", "fused_sw_cols"])
+@pytest.mark.parametrize("nr,n,symmetric", [
+    (25145, 25145, True), (25145, 25145, False), (300, 25145, False),
+    (331, 331, True), (2047, 2047, True), (60000, 60000, True)])
+def test_slot_walk_covers_every_work_item_once(kernel, nr, n, symmetric):
+    """A Python model of the kernels' item-to-slot map (_slot_items: slot
+    s walks the work items s, s + slots, ..., the source's item loop):
+    every (row tile, strip) item of the launch, in the order _tile_blocks
+    models, is visited by exactly one slot, in increasing order within
+    the slot; the slots, and so each item's slot and place in it, depend
+    on the shape alone: the partials' rows are the same for any P."""
+    strip = ops.LAYOUT[kernel][0]
+    tiles = _tile_blocks(nr, n, symmetric, strip)
+    slots = ops.n_slots(nr, n, symmetric, kernel)
+    assert slots == min(ops.LAYOUT[kernel][1], len(tiles))
+    walks = [_slot_items(s, len(tiles), slots) for s in range(slots)]
+    seen = sorted(b for w in walks for b in w)
+    assert seen == list(range(len(tiles)))
+    assert all(w == sorted(w) and w[0] == s for s, w in enumerate(walks))
+    shapes = ops.partial_shapes if kernel == "fused_sw" else (
+        lambda *a: ops.cols_partial_shapes(*a[:3], 10, *a[3:]))
+    for p in (1, 129, 5000):
+        assert shapes(nr, n, p, symmetric)[0] == (slots, p * (
+            1 if kernel == "fused_sw" else 10))
 
 
 # ---------------------------------------------------------------------------
@@ -515,37 +546,48 @@ def test_cols_wrapper_rejects(case, exc):
 
 def test_cols_partials_at_the_emp_design_chunk():
     """The design sweep's call (the whole table against itself) is
-    symmetric: one (P * K) partial per block, a strip of 2 column tiles
-    at or past the diagonal, sum_{c < 197} (393 - 2c) = 38,809 blocks,
-    and the row sums per (strip slot, row) plus the column sums of each
-    row tile's off-diagonal tiles per (row tile, column), (197 + 393) x
-    25,145 floats: 244.6 MiB at the EMP design chunk (P = 127, K = 10);
-    with the chunk's 134.0 MiB of index permutations and basis, under
-    half the 1 GiB matrix budget. Per-tile partials would be 785 MB. A
-    slab keeps every (row tile, strip) block and its row sums only."""
-    n, chunk, k = 25145, 127, 10
-    blocks = sum(393 - 2 * c for c in range(197))
-    assert blocks == 38809
+    symmetric: 38,809 work items (a strip of 2 column tiles at or past
+    the diagonal, sum_{c < 197} (393 - 2c)) walked by COLS_SLOTS = 2,048
+    slots, one running (P * K) partial row per slot and one f64 D2 total
+    per slot: 80 KiB a permutation at K = 10, under a thirteenth of the
+    (n, K) basis and index it gathers (1.06 MiB), and 16 KiB whatever the
+    chunk and the n, where the earlier layout held one row per item and
+    (197 + 393) x n row sums (244.6 MiB at the old chunk of 127). At the
+    plan's EMP design chunk (166) partials, index and basis take 188.1 MiB
+    of the 256 MiB budget."""
+    n, chunk, k = 25145, 166, 10
+    items = sum(393 - 2 * c for c in range(197))
+    assert items == 38809
+    assert ops.n_slots(n, n, True, "fused_sw_cols") == ops.COLS_SLOTS == 2048
     assert ops.cols_partial_shapes(n, n, chunk, k) == \
-        ((blocks, chunk * k), (197 + 393, n))
+        ((2048, chunk * k), (2049,))
     assert ops.cols_workspace_bytes(n, n, chunk, k) == \
-        4 * (blocks * chunk * k + (197 + 393) * n)
-    assert ops.cols_workspace_bytes(n, n, chunk, k) \
-        + 4 * chunk * n * (k + 1) < 1024 ** 3 // 2
-    assert 4 * 393 * 393 * chunk * k > 7.8e8
-    assert ops.cols_partial_shapes(100, 70, 3, 2) == ((2 * 1, 6), (1, 100))
+        4 * 2048 * chunk * k + 8 * 2049 + 4 * chunk * k
+    assert 13 * 4 * 2048 * k < 4 * n * (k + 1)
+    assert (ops.cols_workspace_bytes(n, n, chunk, k)
+            + 4 * chunk * n * (k + 1)) / 2 ** 20 == pytest.approx(188.14,
+                                                                 abs=0.01)
+    assert ops.cols_partial_shapes(100, 70, 3, 2) == ((2 * 1, 6), (3,))
     assert ops.cols_partial_shapes(n, n, chunk, k, symmetric=False) == \
-        ((393 * 197, chunk * k), (197, n))
-    assert len(_tile_blocks(n, n, True)) == blocks
+        ((2048, chunk * k), (2049,))
+    assert ops.row_sum_shape(n, n, True, "fused_sw_cols") == (197 + 393, n)
+    assert ops.row_sum_shape(100, 70, False, "fused_sw_cols") == (1, 100)
+    assert len(_tile_blocks(n, n, True)) == items
     assert _tile_blocks(n, n, True)[:2] == [(0, 0, 0), (1, 1, 0)]
     assert _tile_blocks(n, n, True)[393] == (0, 2, 1)
     assert len(_tile_blocks(n, n, False)) == 393 * 197
     assert _tile_blocks(130, 70, False) == [(0, 0, 0), (1, 0, 0), (2, 0, 0)]
 
 
+def _slot_items(slot, n_items, slots):
+    """The work items slot `slot` of a launch walks, in its order (the
+    kernels' `for (b = blockIdx.x; b < n_items; b += gridDim.x)`)."""
+    return list(range(slot, n_items, slots))
+
+
 def _tile_blocks(nr, n, symmetric, strip=ops.STRIP_TILES):
-    """A fused kernel's blocks in launch order (fused_sw.cu, tile_block),
-    as (row tile, first column tile, row-sum slot), for strips of `strip`
+    """A fused kernel's work items in order (fused_sw.cu, tile_block),
+    as (row tile, first column tile, row-sum row), for strips of `strip`
     column tiles (ops.STRIP_TILES for the dense-design kernel,
     ops.SW_STRIP_TILES for the labels kernel): a symmetric call takes the
     strips starting at the diagonal and every `strip` tiles after it,
@@ -571,22 +613,25 @@ def _masked_d2_f32(xp, metric):
 
 def _symmetric_decomposition(xp, v, metric):
     """s_cols and row sums as the symmetric kernel assembles them, in
-    float64 on the plain version's masked f32 D^2: its blocks
+    float64 on the plain version's masked f32 D^2: its work items
     (_tile_blocks) visit only the column tiles j >= i, diagonal tiles
-    at 1/2 and off-diagonal ones at 1, in passes of Q_PASS q; each
-    block's
-    row sums go to its strip slot and its off-diagonal tiles' column sums
-    to its row tile's slot; the partials are summed at the end."""
+    at 1/2 and off-diagonal ones at 1, in passes of Q_PASS q, each into
+    the running partial of the slot that walks it (_slot_items); each
+    item's row sums go to its strip's row and its off-diagonal tiles'
+    column sums to its row tile's row; the slots are summed at the end."""
     n, (p, _, k) = xp.shape[0], v.shape
     t = ops.TILE
     m2 = _masked_d2_f32(xp, metric)
     vq = v.double().permute(1, 0, 2).reshape(n, p * k)     # (n, Q)
-    (nb, nq), (slots, _) = ops.cols_partial_shapes(n, n, p, k)
-    n_strips = slots - -(-n // t)
+    (n_slots, nq), _ = ops.cols_partial_shapes(n, n, p, k)
+    rows, _ = ops.row_sum_shape(n, n, True, "fused_sw_cols")
+    n_strips = rows - -(-n // t)
     blocks = _tile_blocks(n, n, True)
-    assert len(blocks) == nb
-    s_part = torch.zeros((nb, nq), dtype=torch.float64)
-    rs_part = torch.zeros((slots, n), dtype=torch.float64)
+    slot_of = {b: s for s in range(n_slots)
+               for b in _slot_items(s, len(blocks), n_slots)}
+    assert sorted(slot_of) == list(range(len(blocks)))
+    s_part = torch.zeros((n_slots, nq), dtype=torch.float64)
+    rs_part = torch.zeros((rows, n), dtype=torch.float64)
     ntj = -(-n // t)
     for b, (ti, jt0, slot) in enumerate(blocks):
         r = slice(ti * t, min(ti * t + t, n))
@@ -596,7 +641,8 @@ def _symmetric_decomposition(xp, v, metric):
             wt = 0.5 if jt == ti else 1.0
             for q0 in range(0, nq, ops.Q_PASS):
                 q = slice(q0, min(q0 + ops.Q_PASS, nq))
-                s_part[b, q] += ((wt * tile) @ vq[c, q] * vq[r, q]).sum(0)
+                s_part[slot_of[b], q] += ((wt * tile) @ vq[c, q]
+                                          * vq[r, q]).sum(0)
             rs_part[slot, r] += tile.sum(1)
             if jt != ti:
                 rs_part[n_strips + ti, c] += tile.sum(0)
@@ -629,9 +675,10 @@ def _labels_symmetric_decomposition(xp, g, inv, metric, strip):
     tiles j >= i, diagonal tiles at 1/2 and off-diagonal ones at 1; each
     tile goes through passes of SW_PASS permutations, in which the
     same-group sums per (row, permutation) are weighted by w[g_r] once and
-    added into the block's running s_W; each block's row sums go to its
-    strip slot and its off-diagonal tiles' column sums to its row tile's
-    slot; the partials are summed at the end."""
+    added into the running s_W of the slot that walks the item (slots of
+    the kernel's map, _slot_items, at the kernel's strips); each item's
+    row sums go to its strip's row and its off-diagonal tiles' column sums
+    to its row tile's row; the slots are summed at the end."""
     n, p = xp.shape[0], g.shape[0]
     t = ops.TILE
     m2 = _masked_d2_f32(xp, metric)
@@ -639,11 +686,14 @@ def _labels_symmetric_decomposition(xp, g, inv, metric, strip):
     ntj = -(-n // t)
     n_strips = -(-ntj // strip)
     blocks = _tile_blocks(n, n, True, strip)
-    s_part = torch.zeros((len(blocks), p), dtype=torch.float64)
+    n_slots = min(ops.SW_SLOTS, len(blocks))
+    slot_of = {b: b % n_slots for b in range(len(blocks))}
+    s_part = torch.zeros((n_slots, p), dtype=torch.float64)
     rs_part = torch.zeros((n_strips + ntj, n), dtype=torch.float64)
     if strip == ops.SW_STRIP_TILES:
-        assert ops.partial_shapes(n, n, p) == (tuple(s_part.shape),
-                                               tuple(rs_part.shape))
+        assert ops.partial_shapes(n, n, p) == ((n_slots, p), (n_slots + 1,))
+        assert ops.row_sum_shape(n, n, True) == tuple(rs_part.shape)
+        assert n_slots == ops.n_slots(n, n, True)
     for b, (ti, jt0, slot) in enumerate(blocks):
         r = slice(ti * t, min(ti * t + t, n))
         for jt in range(jt0, min(jt0 + strip, ntj)):
@@ -654,7 +704,7 @@ def _labels_symmetric_decomposition(xp, g, inv, metric, strip):
                 gr, gc = g[q, r].long(), g[q, c].long()
                 same = gr[:, :, None] == gc[:, None, :]
                 acc = torch.where(same, tile[None], 0.0).sum(2)
-                s_part[b, q] += (acc * w[gr]).sum(1)
+                s_part[slot_of[b], q] += (acc * w[gr]).sum(1)
             rs_part[slot, r] += m2[r, c].sum(1)
             if jt != ti:
                 rs_part[n_strips + ti, c] += m2[r, c].sum(0)
@@ -784,6 +834,85 @@ def test_sweeps_are_chunk_invariant(impl):
     assert (runs[0][2].n_chunks, runs[1][2].n_chunks) == (1, 6)
 
 
+@pytest.mark.parametrize("form", ["labels", "strata", "design"])
+def test_megakernel_sweeps_are_chunk_invariant_bit_for_bit(form):
+    """Through the megakernel sweeps (their plain versions here, the
+    kernels and the slot sum on the card), s_W or s_cols and s_T are the
+    same bits at two chunkings (one chunk of 40, six of 7): each
+    permutation's statistic and the D2 total never depend on the chunk."""
+    _, grouping, _, _, xp, g, inv = _sweep_inputs(n_total=40)
+    rng = np.random.default_rng(11)
+    strata = rng.integers(0, 3, N).astype(np.int32)
+    des = design.build(grouping=grouping, covariates={
+        "a": rng.normal(size=N)}, strata=strata, n_groups=G, device="cpu")
+    runs = []
+    for chunk in (40, 7):
+        if form == "design":
+            runs.append(streaming.fused_sw_megakernel_design(
+                xp, des, 40, kernel_metric="braycurtis", chunk=chunk,
+                seed=3))
+        else:
+            runs.append(streaming.fused_sw_megakernel(
+                xp, g, inv, 40, kernel_metric="braycurtis", chunk=chunk,
+                seed=3, strata=(torch.from_numpy(strata)
+                                if form == "strata" else None)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert float(runs[0][1]) == float(runs[1][1])
+    assert (runs[0][2].n_chunks, runs[1][2].n_chunks) == (1, 6)
+
+
+@pytest.mark.parametrize("mode", ["f32", "fp8", "packed"])
+@pytest.mark.parametrize("form", ["labels", "design"])
+def test_megakernel_sweeps_quantize_the_table_once(monkeypatch, mode, form):
+    """A megakernel sweep quantizes the feature table once (its
+    quantization and transients are not paid a launch) and hands every
+    launch the same quantized pair, the pair quantize_slabs gives for the
+    table at the sweep's precision; the statistic is the one without."""
+    metric = "jaccard" if mode == "packed" else "braycurtis"
+    _, grouping, _, _, xp, g, inv = _sweep_inputs(metric, n_total=30)
+    knobs = {"f32": {}, "fp8": {"feat_fp8": 1},
+             "packed": {"feat_packed": 1}}[mode]
+    des = design.build(grouping=grouping, covariates={
+        "a": np.random.default_rng(2).normal(size=N)}, n_groups=G,
+        device="cpu")
+    quantize, rows, cols = ops.quantize_slabs, ops.fused_sw_rows, \
+        ops.fused_sw_rows_cols
+    seen = {"quantize": 0, "pairs": []}
+
+    def spy_q(*a, **k):
+        seen["quantize"] += 1
+        return quantize(*a, **k)
+
+    def spy_launch(fn):
+        def launch(*a, quantized=None, **k):
+            seen["pairs"].append(quantized)
+            return fn(*a, quantized=quantized, **k)
+        return launch
+    monkeypatch.setattr(ops, "quantize_slabs", spy_q)
+    monkeypatch.setattr(ops, "fused_sw_rows", spy_launch(rows))
+    monkeypatch.setattr(ops, "fused_sw_rows_cols", spy_launch(cols))
+
+    def sweep():
+        if form == "design":
+            return streaming.fused_sw_megakernel_design(
+                xp, des, 30, kernel_metric=metric, chunk=7, seed=3,
+                tuning=knobs)
+        return streaming.fused_sw_megakernel(
+            xp, g, inv, 30, kernel_metric=metric, chunk=7, seed=3,
+            tuning=knobs)
+    got = sweep()
+    assert seen["quantize"] == 1 and len(seen["pairs"]) == 5
+    first = seen["pairs"][0]
+    assert all(p is first for p in seen["pairs"])
+    scale = (ref.resolve_precision(xp, metric, **knobs)[1]
+             if mode == "fp8" else None)
+    want = quantize(xp, xp, mode, scale)
+    assert all(torch.equal(a, b) for a, b in zip(first, want))
+    monkeypatch.undo()
+    again = sweep()
+    assert torch.equal(got[0], again[0]) and float(got[1]) == float(again[1])
+
+
 def test_megakernel_sweep_labels_from_seed_match_explicit_labels():
     _, _, _, _, xp, g, inv = _sweep_inputs()
     labels = permutations.permutation_batch(g, 0, 30, seed=5)
@@ -849,17 +978,24 @@ def test_source_names_what_it_replaces_and_its_constants():
     assert f"constexpr int kStripTiles = {ops.STRIP_TILES};" in src
     # the labels kernel: strips of SW_STRIP_TILES tiles, the symmetric
     # visit, passes of SW_PASS permutations on brute's compare-and-add,
-    # one running s_W partial per (block, permutation)
+    # one running s_W partial per (slot, permutation) over the slot's
+    # work items, and the slots summed in a fixed order by a second kernel
     assert f"constexpr int kSwStripTiles = {ops.SW_STRIP_TILES};" in src
     assert f"constexpr int kSwPass = {ops.SW_PASS};" in src
-    for needle in ("tile_block<kSwStripTiles>(blockIdx.x, nti, ntj, sym)",
+    assert f"constexpr int kSwSlots = {ops.SW_SLOTS};" in src
+    assert f"constexpr int kColsSlots = {ops.COLS_SLOTS};" in src
+    for needle in ("for (int64_t b = blockIdx.x; b < n_items; "
+                   "b += gridDim.x) {",
+                   "tile_block<kSwStripTiles>(b, nti, ntj, sym)",
                    "const float wt = mirrored ? 1.f : 0.5f;",
                    "if (g == gc[k].x) acc[r][k] += m.x;",
                    "v = fmaf(acc[r][k], row_weight(gr[r][k], inv_gs, "
                    "n_groups), v);",
-                   "out[p] = (t == 0 ? 0.f : out[p]) + v;",
-                   "if (j < n) rs_part[(n_strips + blk.ti) * n + j] = "
-                   "cs_sum;",
+                   "out[p] += v;",
+                   "rs_part[(n_strips + blk.ti) * n + j] = cs_sum;",
+                   "n_slots<kSwStripTiles, kSwSlots>(",
+                   "for (int64_t k = warp; k < slots; k += kSumWarps) "
+                   "s += part[k * nq + q];",
                    "kSwSmemBytes);"):
         assert needle in src, needle
     # the dense-design kernel: the symmetric visit of the tiles j >= i,
@@ -875,6 +1011,9 @@ def test_source_names_what_it_replaces_and_its_constants():
                    "wgmma_tf32(dd, al[f], bh, 1);",
                    "const float wt = sym && jt != blk.ti ? 1.f : 0.5f;",
                    "rs_part[(n_strips + blk.ti) * n + j] = s;",
+                   "tile_block<kStripTiles>(b, nti, ntj, sym)",
+                   "n_slots<kStripTiles, kColsSlots>(",
+                   "out[q] = prev[h] + s;",
                    "cp.async.ca.shared.global",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize",
                    "return {b, b + c * S, c};",

@@ -25,7 +25,7 @@ from repro.data import microbiome as jmicro  # noqa: E402
 from repro.pipeline import planner as jplanner  # noqa: E402
 from repro_torch import engine, pipeline  # noqa: E402
 from repro_torch.compat import from_reference  # noqa: E402
-from repro_torch.core import distance  # noqa: E402
+from repro_torch.core import distance, permutations  # noqa: E402
 from repro_torch.core.permanova import permanova, s_total  # noqa: E402
 from repro_torch.kernels.distance import ops as dops  # noqa: E402
 from repro_torch.kernels.fused_sw import ops as fops  # noqa: E402
@@ -402,15 +402,18 @@ def test_emp_bridges_follow_the_matrix_budget():
     pl = planner.plan_pipeline(n, 128, 4000, 8, **kw)
     assert (pl.materialize, pl.fused_impl) == ("fused-kernel",
                                                "braycurtis.fusedk.cuda")
-    # the kernel's workset sizes the chunk: its partials (5,025 x 4 B a
-    # permutation and 40.1 MiB of row sums) and the (chunk, n) labels fit
-    # 256 MiB at 1,875 permutations, cut to 14 whole 128-permutation
-    # passes, 1,792, so 4,000 slots take 3 launches
-    assert pl.sw.chunk == 1792 and -(-4000 // pl.sw.chunk) == 3
-    assert pl.reason.endswith("; kernel workset 246MiB of 256MiB sizes "
-                              "the chunk; hand-written CUDA megakernel "
-                              "(masks ragged shapes, so no tile-viability "
-                              "floor)")
+    # the kernel's workset (its partials, 4,096 slots x 4 B a permutation
+    # and 32 KiB of totals, and the (chunk, n) labels), the label draw's
+    # sub-blocks in what it leaves and a 4 MiB slack share 256 MiB; of
+    # the whole 128-permutation passes that fit, 896 costs least (5
+    # launches, 45 draws of 91 rows; 1,664 would take 3 launches but 100
+    # draws of 40 rows)
+    assert pl.sw.chunk == 896 and -(-4000 // pl.sw.chunk) == 5
+    assert pl.reason.endswith(
+        "; kernel workset 100MiB, labels draw 151MiB beside 100MiB of it, "
+        "slack 4.0MiB, of 256MiB; chunk 896 of least modelled time (5 "
+        "launches, 45 draws of 91 rows); hand-written CUDA megakernel "
+        "(masks ragged shapes, so no tile-viability floor)")
     assert pl.describe_stage1() == (
         "braycurtis.fusedk.cuda[feat_bf16=0,feat_fp8=0] -> "
         "fused-kernel(rows=256)")
@@ -421,44 +424,165 @@ def test_emp_bridges_follow_the_matrix_budget():
     (1100, 16, 5000, 3 * 2 ** 20), (97, 8, 50, None),
     (70000, 128, 4000, None)])
 def test_cuda_fused_chunk_fits_the_kernel_workset(n, d, n_perms, budget):
-    """On the card the fused-kernel chunk is the largest whole number of
-    the kernel's 128-permutation passes whose workset (the registry's
-    model: partials and (chunk, n) labels) fits the label budget, or every
-    slot. Where the row-sum partials alone leave no room for one pass (n
-    past ~63,600 at 256 MiB), it is one pass or the one-hot model's chunk
-    in whole passes, the larger, and the plan says the budget is exceeded:
-    at n = 70,000, 128 permutations, 32 launches for 4,000 slots (the
-    one-hot model's 56 would take 72). The CPU plan stays the reference's
-    field for field."""
+    """On the card the fused-kernel chunk is a whole number of the
+    kernel's 128-permutation passes (or every slot) whose workset (the
+    registry's model: partials and (chunk, n) labels), one draw row and
+    the sweep's slack fit the label budget; the draw's sub-blocks take
+    what the workset and the slack leave, so all three stay inside the
+    budget. Among those chunks it is the one of least modelled time: a
+    launch's feature phase (9.8 ms at the EMP shape, scaled by n^2 d)
+    against the draw's sub-blocks (each the longer of 1.9 ms and 0.02 ms
+    a row of 25,145 samples), recomputed here for every candidate.
+    With partials of fixed slots this holds at any n the labels allow:
+    at n = 70,000 (where the old row-sum partials left no room for one
+    pass) 512 permutations, 8 launches for 4,000 slots. The CPU plan
+    stays the reference's field for field."""
     kw = dict(metric="braycurtis", materialize="fused-kernel",
               memory_budget_bytes=budget)
     pl = planner.plan_pipeline(n, d, n_perms, 8, backend="cuda", **kw)
     spec = registry.get_fused(pl.fused_impl)
     cap = 256 * 2 ** 20 if budget is None else budget
+    slack = min(4 * 2 ** 20, cap / 16)
     q = fops.SW_PASS
 
     def ws(chunk):
         return spec.workset_bytes(n, d, chunk, 8, pl.row_block)
+
+    def cost(chunk):
+        rows = permutations.draw_rows(n, cap - slack - ws(chunk))
+        draws = 0.0
+        for lo in range(0, n_perms, chunk):
+            for a in range(lo, min(lo + chunk, n_perms), rows):
+                r = min(rows, lo + chunk - a, n_perms - a)
+                draws += max(1.9, 0.02 * n / 25145 * r)
+        launches = -(-n_perms // chunk)
+        return (launches * 9.8 * (n / 25145) ** 2 * d / 128 + draws,
+                launches)
     assert spec.kind == "cuda" and spec.chunk_quantum == q
     assert ws(pl.sw.chunk) == fops.workspace_bytes(n, n, pl.sw.chunk) \
         + 4 * pl.sw.chunk * n
-    if ws(q) <= cap:
-        assert ws(pl.sw.chunk) <= cap and "exceeds" not in pl.reason
-        if pl.sw.chunk < n_perms:
-            assert pl.sw.chunk % q == 0
-            assert ws(pl.sw.chunk + q) > cap
-    else:
-        onehot = int(cap // (4 * n * (2 * 8 + 1)))
-        assert pl.sw.chunk == min(n_perms, max(q, onehot - onehot % q))
-        assert ws(pl.sw.chunk) > cap
-        assert f"exceeds {cap // 2 ** 20}MiB" in pl.reason
+    assert pl.draw_budget == cap - slack - ws(pl.sw.chunk)
+    rows = permutations.draw_rows(n, pl.draw_budget)
+    assert ws(pl.sw.chunk) + permutations.draw_transient_bytes(rows, n) \
+        + slack <= cap
+    assert pl.sw.chunk % q == 0 or pl.sw.chunk == n_perms
+    fits = [c for c in list(range(q, n_perms, q)) + [n_perms]
+            if ws(c) + permutations.draw_transient_bytes(1, n) + slack
+            <= cap]
+    assert pl.sw.chunk in fits
+    assert all(cost(pl.sw.chunk) <= cost(c) for c in fits)
+    assert "exceeds" not in pl.reason
     if n == 70000:
-        assert (pl.sw.chunk, -(-4000 // pl.sw.chunk), onehot) == (128, 32, 56)
+        assert (pl.sw.chunk, -(-4000 // pl.sw.chunk)) == (512, 8)
     got = planner.plan_pipeline(n, d, n_perms, 8, backend="cpu", **kw)
     want = jplanner.plan_pipeline(n, d, n_perms, 8, backend="cpu", **kw)
     assert (got.sw.chunk, got.sw.describe(), got.row_block) == \
         (want.sw.chunk, want.sw.describe(), want.row_block)
     assert _as_reference(got.reason) == want.reason
+    assert got.draw_budget is None
+
+
+@pytest.mark.parametrize("n", [25145, 60000, 100000])
+@pytest.mark.parametrize("k", [None, 10])
+def test_cuda_fused_workset_and_draw_fit_the_budget(n, k):
+    """The budget bounds the whole bridge: at n = 25,145, 60,000 and
+    100,000, for labels, labels within strata and a K = 10 design, the
+    card's plan puts the kernel's workset (partials, labels or index and
+    basis) and the sweep's slack inside the default 256 MiB, and so its
+    draw's modelled transients (by the kind of draw) beside what the
+    sweep holds while it draws (all of the workset but a design's basis,
+    gathered after the draw), with at least one pass a chunk (128
+    permutations; a design at least one 128-q pass, 13 permutations at K
+    = 10); explain() prints the split. Nothing in the workset grows with
+    n^2: the partials take the same bytes a permutation at every n, and
+    the fixed part stays 32 KiB."""
+    for draw in (("labels", "strata") if k is None else ("labels",)):
+        pl = planner.plan_pipeline(n, 128, 4000, 8, backend="cuda",
+                                   design_cols=k, draw=draw)
+        kind = "index" if k is not None else draw
+        assert pl.materialize == "fused-kernel" and pl.draw == kind
+        parts = registry.fused_cuda_workset(n, pl.sw.chunk, k)
+        rows = permutations.draw_rows(n, pl.draw_budget, kind)
+        draw_bytes = permutations.draw_transient_bytes(rows, n, kind)
+        cap = 256 * 2 ** 20
+        at_draw = sum(v for p, v in parts.items() if p != "basis")
+        assert sum(parts.values()) + 4 * 2 ** 20 <= cap
+        assert at_draw + draw_bytes + 4 * 2 ** 20 <= cap
+        assert rows >= 1 and pl.budget == cap
+        assert pl.sw.chunk >= (fops.SW_PASS if k is None
+                               else -(-fops.Q_PASS // k))
+        kernel = "fused_sw" if k is None else "fused_sw_cols"
+        width = 1 if k is None else k
+        slots = fops.n_slots(n, n, True, kernel)
+        assert slots == fops.LAYOUT[kernel][1]
+        assert parts["partials"] == 4 * slots * pl.sw.chunk * width \
+            + 8 * (slots + 1) + 4 * pl.sw.chunk * width
+        assert fops.workspace_bytes(n, n, 0) <= 32 * 1024 + 8
+        split = pl.explain().splitlines()[1]
+        assert split.startswith(f"kernel workset at chunk {pl.sw.chunk}: "
+                                "partials ")
+        assert f"({slots} slots); {kind} draw " in split
+        assert f"({min(rows, pl.sw.chunk)} rows of {n}) beside " \
+            f"{at_draw / 2 ** 20:.2f}MiB of it; slack 4.00MiB; peak " in split
+        assert split.endswith("of 256.00MiB")
+
+
+def test_cuda_fused_plan_raises_below_one_pass():
+    """Where not even one pass fits, the card's plan raises and names the
+    least budget that would fit; that budget plans one pass."""
+    with pytest.raises(ValueError, match="memory_budget_bytes >= ") as err:
+        planner.plan_pipeline(25145, 128, 4000, 8, backend="cuda",
+                              memory_budget_bytes=8 * 2 ** 20)
+    least = int(str(err.value).rsplit(">= ", 1)[1])
+    pl = planner.plan_pipeline(25145, 128, 4000, 8, backend="cuda",
+                               memory_budget_bytes=least)
+    assert pl.sw.chunk == fops.SW_PASS
+    with pytest.raises(ValueError, match="memory_budget_bytes >= "):
+        planner.plan_pipeline(25145, 128, 4000, 8, backend="cuda",
+                              memory_budget_bytes=least - 1)
+    # the CPU plan keeps the reference's one-hot chunk at any budget
+    assert planner.plan_pipeline(25145, 128, 4000, 8, backend="cpu",
+                                 materialize="fused-kernel",
+                                 memory_budget_bytes=8 * 2 ** 20).sw.chunk
+
+
+@pytest.mark.parametrize("form,kind", [
+    ("labels", "labels"), ("strata", "strata"), ("covariates", "index")])
+def test_fused_kernel_record_reports_slots_and_draws(form, kind):
+    """The megakernel sweep's plan record carries what it ran with: the
+    kernel's slots and the draws' sub-block rows with their modelled
+    transients, by kind of draw (free labels, labels within strata, a
+    dense design's index permutations); explicit draws make none. The
+    card's plan charges the kind it will draw: at the EMP shape a strata
+    draw gets fewer rows a sub-block than a free one."""
+    rng = np.random.default_rng(0)
+    n = 40
+    x = rng.gamma(1.0, 1.0, (n, 6)).astype(np.float32)
+    g = rng.integers(0, 3, n).astype(np.int32)
+    kw = dict(n_perms=19, materialize="fused-kernel", fused_impl="cuda",
+              device="cpu")
+    if form == "strata":
+        kw["strata"] = (np.arange(n) % 2).astype(np.int32)
+    if form == "covariates":
+        kw["covariates"] = rng.normal(size=(n, 2))
+    res = pipeline.pipeline(x, g, **kw)
+    slots = fops.n_slots(n, n, True, "fused_sw_cols" if form == "covariates"
+                         else "fused_sw")
+    draw = permutations.draw_transient_bytes(20, n, kind)
+    assert f" slots={slots} draw=20rows/{draw / 2 ** 20:.2f}MiB" in res.plan
+    if form == "labels":
+        perms = permutations.permutation_batch(torch.from_numpy(g), 0, 20,
+                                               seed=0)
+        explicit = pipeline.pipeline(x, g, perms=perms, **kw)
+        assert " draw=0rows/0.00MiB" in explicit.plan
+        free, within = (planner.plan_pipeline(
+            25145, 128, 4000, 8, backend="cuda", draw=d)
+            for d in ("labels", "strata"))
+        assert (free.draw, within.draw) == ("labels", "strata")
+        assert permutations.draw_rows(25145, within.draw_budget, "strata") \
+            < permutations.draw_rows(25145, free.draw_budget)
+    with pytest.raises(ValueError, match="draw="):
+        planner.plan_pipeline(n, 6, 20, 3, backend="cuda", draw="index")
 
 
 @pytest.mark.parametrize("pinned,name", [
@@ -542,13 +666,13 @@ def test_fused_registry_names_kinds_and_aliases():
                 .tuning.items()}
         assert cuda.tuning == plain.tuning == want
         # the plain sweep keeps the reference's model; the kernel's counts
-        # its partials (5,025 blocks at the EMP shape, (25 + 393) row-sum
-        # slots) and labels
+        # its partials (4,096 slots at the EMP shape, their f64 totals and
+        # the (P,) s_W) and labels
         args = (25145, 128, 156, 8, 256)
         assert plain.workset_bytes(*args) == \
             jpipe.get_fused(f"{m}.fusedk.xla").workset_bytes(*args)
         assert cuda.workset_bytes(*args) == \
-            4 * (5025 * 156 + (25 + 393) * 25145) + 4 * 156 * 25145
+            4 * 4096 * 156 + 8 * 4097 + 4 * 156 + 4 * 156 * 25145
     with pytest.raises(KeyError, match="unknown fused impl"):
         registry.get_fused("braycurtis.cuda")
     with pytest.raises(ValueError, match="duplicate"):
