@@ -246,6 +246,34 @@ Phases, each timed:
    only, each study's F null and p bit-equal to its engine.run (each
    ragged study runs on its own matrix, so this holds by construction).
    Their times are logged.
+19. Autotune at the EMP shape (n = 25,145, 8 groups, 3,999
+   permutations). Before any phase runs, REPRO_TORCH_AUTOTUNE_CACHE
+   points at a file in a fresh temporary directory (removed at the end),
+   so no winner outlives the run and phases 1-18 plan from the
+   heuristics. engine.run(autotune=True) times brute, permblock and
+   matmul (each its hand kernel: a warm-up call, then the median of 3 by
+   CUDA events, on 1,024 permutations); each candidate's median and the
+   winner are printed; F within rtol=1e-4 of phase 3's heuristic run
+   with p equal; the shoot-out launches each kernel 4 times and the run
+   its winner once a chunk; the EMP test pinned to brute and to tiled is
+   timed in turns beside it (logged). A second tuned call on a fresh view of the
+   file reads the persisted entry and measures nothing (the shoot-out
+   count), and a plain plan names the persisted winner. Then
+   pipeline(autotune=True) on the dense bridge (6 GiB budget): the
+   stage-1 shoot-out (braycurtis.cuda, its one candidate) persisted, F
+   and p as phase 3's. The cache then points at an empty file again.
+20. Ordination at full width: pipeline(EMP features, ordination=3) on the
+   default fused-kernel bridge (pcoa_features: every matvec rebuilds the
+   (256, n) Bray-Curtis slabs through the distance kernel; launches
+   counted: the sweep's fused_sw and one slab sweep per matvec) and on
+   the stream bridge (3 GiB budget; pcoa_subspace on its mat2), each with
+   its time and subspace iterations, the two embeddings within the
+   reference's bridge bar (rtol 2e-3, sign-aligned). At n = 8,192
+   (synthetic_study seed 1), pcoa_subspace and pcoa_features against
+   pcoa_eigh (cuSOLVER, f32) and a float64 torch.linalg.eigh oracle on
+   the card: eigenvalues and sign-aligned coordinates within rtol 2e-4
+   (the reference's bar), explained == eigvals / s_T. (The dense bridge's
+   eigh at n = 25,145 is a probe of its own: scripts/pcoa_eigh_probe.py.)
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -3231,7 +3259,286 @@ def phase_many(dev):
         f"{ {k: v for k, v in launch_counts().items() if v} })")
 
 
+AUTOTUNE_CANDIDATES = ("brute", "matmul", "tiled")
+PCOA_K = 3
+PCOA_CHECK_N = 8192
+PCOA_RTOL = 2e-4        # the reference's bar (tests/test_ordination.py:40)
+PCOA_BRIDGE_RTOL = 2e-3     # its bridges' agreement (:119)
+
+
+def phase_autotune(dev, x_np, grouping, f_p_main, cache_dir):
+    """engine.run(autotune=True) and pipeline(autotune=True) at the EMP
+    shape against phase 3's heuristic run, the winner persisted in the
+    run's own cache file and read back without a measurement."""
+    import torch
+    from repro_torch import engine, pipeline
+    from repro_torch.core.distance import distance_matrix
+    from repro_torch.engine import planner
+    path = os.environ[planner.AUTOTUNE_CACHE_ENV]
+    check(os.path.dirname(path) == cache_dir and not os.path.exists(path),
+          f"autotune cache {path} must be a new file in {cache_dir}")
+    f0, p0 = f_p_main
+    x = torch.from_numpy(x_np).to(dev)
+    g_dev = torch.from_numpy(grouping).to(dev)
+    dm = distance_matrix(x, "braycurtis")
+    before = dict(planner.MEASURED)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = engine.run(dm, g_dev, n_perms=EMP_PERMS, seed=0, autotune=True,
+                     device=dev)
+    f_t, p_t = float(res.f_stat), float(res.p_value)              # waits
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    key = planner._persist_key(planner.device_kind("cuda"), EMP_N,
+                               EMP_GROUPS)
+    entry = planner.measured_entry(key)
+    check(entry is not None and entry["candidates"] == list(
+        AUTOTUNE_CANDIDATES) and set(entry["times_ms"]) == set(
+        AUTOTUNE_CANDIDATES), f"autotune entry {key}: {entry}")
+    times = entry["times_ms"]
+    winner = entry["impl"]
+    log(f"[smoke] autotune key {key}: candidates (median of "
+        f"{entry['calls']} calls at P={entry['sample_perms']}, ms) "
+        + ", ".join(f"{c} ({KERNEL_OF[c]} kernel) {times[c]:.3f}"
+                    for c in AUTOTUNE_CANDIDATES)
+        + f"; winner {winner}")
+    log(f"[smoke] autotune engine.run {dt:.3f}s (shoot-out included) "
+        f"F={f_t:.7g} p={p_t:.6g} launches={launches} plan: {res.plan}")
+    check(planner.MEASURED["sw"] == before.get("sw", 0) + 1,
+          "autotune must run one shoot-out")
+    check("empirical autotune winner" in res.plan
+          and res.plan.startswith(f"{winner}["),
+          f"the tuned run must run its winner: {res.plan!r}")
+    chunks = int(res.plan.rsplit("chunks=", 1)[1])
+    shoot = 1 + planner.TIMED_CALLS
+    want = {KERNEL_OF[c]: shoot + (chunks if c == winner else 0)
+            for c in AUTOTUNE_CANDIDATES}
+    check(launches == want, f"autotune launches {launches} != {want} "
+          f"({shoot} a candidate, {chunks} chunks of the winner)")
+    check(abs(f_t - f0) <= RTOL * abs(f0) and p_t == p0,
+          f"autotuned F={f_t} p={p_t} vs phase 3's F={f0} p={p0}")
+    # the shoot-out's pick against the run it stands for: the EMP test
+    # pinned to each compare-and-add impl, in turns (best of 2)
+    e2e = {c: [] for c in ("brute", "tiled")}
+    for c in ("brute", "tiled", "tiled", "brute"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(engine.run(dm, g_dev, n_perms=EMP_PERMS, seed=0, impl=c,
+                         device=dev).f_stat)
+        e2e[c].append(time.perf_counter() - t0)
+    log("[smoke] autotune in turns, engine.run pinned (best of 2, s): "
+        + ", ".join(f"{c} {min(t):.4f}" for c, t in e2e.items())
+        + f"; the shoot-out picked {winner}")
+    planner.load_autotune_cache(reload=True)     # a new process's view
+    t0 = time.perf_counter()
+    again = engine.run(dm, g_dev, n_perms=EMP_PERMS, seed=0, autotune=True,
+                       device=dev)
+    float(again.f_stat)
+    dt2 = time.perf_counter() - t0
+    check(planner.MEASURED["sw"] == before.get("sw", 0) + 1,
+          "the second tuned call must measure nothing")
+    check(torch.equal(again.f_perms, res.f_perms),
+          "the second tuned call must run the same winner")
+    pl = planner.plan(EMP_N, EMP_PERMS + 1, backend="cuda",
+                      n_groups=EMP_GROUPS)
+    check(pl.impl == winner and pl.reason.startswith(
+        "persisted autotune measurement"), f"plain plan: {pl.describe()}")
+    log(f"[smoke] autotune second call {dt2:.3f}s: read the persisted "
+        f"entry, measured nothing (sw shoot-outs this run: "
+        f"{planner.MEASURED['sw'] - before.get('sw', 0)}); plan() without "
+        f"autotune: {pl.describe()}")
+    del dm, res, again
+    zero_launches()
+    t0 = time.perf_counter()
+    res = pipeline.pipeline(x, g_dev, n_perms=EMP_PERMS, seed=0,
+                            matrix_budget_bytes=BRIDGE_BUDGETS["dense"],
+                            autotune=True, device=dev)
+    f_d, p_d = float(res.f_stat), float(res.p_value)
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    stage1 = planner.measured_entry("dist|" + planner.device_kind("cuda")
+                                    + "|braycurtis|braycurtis.cuda")
+    log(f"[smoke] autotune pipeline dense {dt:.3f}s F={f_d:.7g} "
+        f"p={p_d:.6g} launches={launches}; stage 1 braycurtis.cuda "
+        f"{stage1['ms']:.3f} ms (median of {planner.TIMED_CALLS}); plan: "
+        f"{res.plan}")
+    check(planner.MEASURED["stage1"] == before.get("stage1", 0) + 1
+          and planner.MEASURED["sw"] == before.get("sw", 0) + 1,
+          f"pipeline autotune: one stage-1 shoot-out, no s_W one: "
+          f"{dict(planner.MEASURED)}")
+    check(res.plan.startswith("braycurtis.cuda[] -> dense(")
+          and "empirical autotune winner" in res.plan,
+          f"pipeline autotune plan: {res.plan!r}")
+    check(launches.get("braycurtis") == 1 + shoot,
+          f"stage 1: {shoot} shoot-out launches and the bridge's one: "
+          f"{launches}")
+    check(abs(f_d - f0) <= RTOL * abs(f0) and p_d == p0,
+          f"pipeline autotune F={f_d} p={p_d} vs phase 3's F={f0} p={p0}")
+    # later runs of this script plan from the heuristics again
+    os.environ[planner.AUTOTUNE_CACHE_ENV] = os.path.join(cache_dir,
+                                                          "empty.json")
+    check(planner.plan(EMP_N, EMP_PERMS + 1, backend="cuda",
+                       n_groups=EMP_GROUPS).impl == "brute",
+          "the empty cache must plan brute")
+
+
+def pcoa_aligned_err(res, wk, coords_ref) -> tuple:
+    """(eigenvalue error, sign-aligned coordinate error), each over the
+    reference's scale as the reference's test bars them."""
+    import torch
+    ev = res.eigvals.double()
+    c = res.coords.double()
+    sgn = torch.sign((c * coords_ref).sum(0))
+    sgn[sgn == 0] = 1.0
+    e_ev = float(((ev - wk).abs() / (wk.abs() + wk.abs().max())).max())
+    e_c = float(((c * sgn - coords_ref).abs()
+                 / (coords_ref.abs() + coords_ref.abs().max())).max())
+    return e_ev, e_c
+
+
+def pcoa_check(tag, res, wk, coords_ref, s_t, rtol):
+    """res against (eigenvalues, coordinates, s_T) at the reference's
+    assert_allclose(rtol, atol=rtol * max) bars, explained == eigvals /
+    s_T."""
+    import torch
+    ev = res.eigvals.double()
+    c = res.coords.double()
+    sgn = torch.sign((c * coords_ref).sum(0))
+    sgn[sgn == 0] = 1.0
+    ok_ev = bool(((ev - wk).abs() <= rtol * wk.abs()
+                  + rtol * wk.abs().max()).all())
+    ok_c = bool(((c * sgn - coords_ref).abs() <= rtol * coords_ref.abs()
+                 + rtol * coords_ref.abs().max()).all())
+    ok_x = bool(((res.explained.double() - wk / s_t).abs()
+                 <= 1e-3 * (wk / s_t).abs() + 1e-5).all())
+    e_ev, e_c = pcoa_aligned_err(res, wk, coords_ref)
+    log(f"[smoke] pcoa {tag}: eigenvalues {[round(float(v), 4) for v in ev]}"
+        f", max err {e_ev:.3e} / coords {e_c:.3e} of scale, iterations "
+        f"{res.iterations}")
+    check(ok_ev and ok_c and ok_x,
+          f"pcoa {tag}: outside rtol {rtol} (eigenvalues {ok_ev}, coords "
+          f"{ok_c}, explained {ok_x})")
+
+
+def phase_ordination(dev, x_np, grouping):
+    """pipeline(ordination=3) at the EMP shape on the fused-kernel and the
+    stream bridges; at n = 8,192 the subspace paths against eigh and a
+    float64 oracle."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.data.microbiome import synthetic_study
+    from repro_torch.pipeline import ordination as ordn
+    from repro_torch.pipeline import planner as pplanner
+    from repro_torch.pipeline import registry
+    x = torch.from_numpy(x_np).to(dev)
+    g_dev = torch.from_numpy(grouping).to(dev)
+    rows = pplanner.plan_pipeline(
+        EMP_N, EMP_FEATURES, EMP_PERMS + 1, EMP_GROUPS, backend="cuda",
+        metric="braycurtis").row_block
+    n_slabs = -(-EMP_N // rows)
+    out = {}
+    for bridge, kw in (("fused-kernel", {}), ("stream", dict(
+            matrix_budget_bytes=BRIDGE_BUDGETS["stream"]))):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipeline.pipeline(x, g_dev, n_perms=EMP_PERMS, seed=0,
+                                ordination=PCOA_K, device=dev, **kw)
+        o = res.ordination
+        o.coords.sum().item()                                      # waits
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        its = o.iterations
+        # the marginals' sweep, 16 radius matvecs, the start, the
+        # iterations and the Rayleigh-Ritz product: one slab sweep each
+        sweeps = 1 + ordn.RADIUS_ITERS + 1 + its + 1
+        want = ({"fused_sw": fused_plan()[1], "braycurtis": sweeps * n_slabs}
+                if bridge == "fused-kernel" else
+                {"braycurtis": -(-EMP_N // STREAM_ROWS), "brute": 2})
+        log(f"[smoke] pcoa {bridge} n={EMP_N} k={PCOA_K}: {dt:.3f}s end to "
+            f"end (test + ordination), method {o.method}, {its} "
+            f"iterations, eigenvalues {[round(float(v), 4) for v in o.eigvals]}"
+            f", explained {[round(float(v), 5) for v in o.explained]}, "
+            f"launches={launches}")
+        check(launches == want, f"pcoa {bridge}: launches {launches} != "
+              f"{want}")
+        check(o.coords.shape == (EMP_N, PCOA_K)
+              and bool(torch.isfinite(o.coords).all())
+              and bool((o.eigvals[:-1] >= o.eigvals[1:]).all()),
+              f"pcoa {bridge}: coordinates must be finite (n, k), "
+              "eigenvalues descending")
+        check(bool(torch.allclose(o.explained * res.s_t, o.eigvals,
+                                  rtol=1e-4)),
+              f"pcoa {bridge}: explained * s_T != eigenvalues")
+        out[bridge] = o
+        del res
+    # the ordination alone on the fused bridges' path, timed
+    prepare, rows_fn, _ = registry.get("braycurtis.cuda").bound()
+    xp = prepare(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alone = ordn.pcoa_features(xp, rows_fn, PCOA_K, row_block=rows)
+    alone.coords.sum().item()
+    t_alone = time.perf_counter() - t0
+    log(f"[smoke] pcoa_features alone n={EMP_N}: {t_alone:.3f}s, "
+        f"{alone.iterations} iterations, {n_slabs} slabs of {rows} rows a "
+        f"matvec ({t_alone / (alone.iterations + 19) * 1e3:.2f} ms a "
+        f"matvec)")
+    a, b = out["fused-kernel"], out["stream"]
+    e_ev, e_c = pcoa_aligned_err(a, b.eigvals.double(), b.coords.double())
+    log(f"[smoke] pcoa fused-kernel vs stream at n={EMP_N}: eigenvalues "
+        f"{e_ev:.3e}, coords {e_c:.3e} of scale")
+    pcoa_check("fused-kernel vs stream (EMP)", a, b.eigvals.double(),
+               b.coords.double(), float(b.eigvals[0] / b.explained[0]),
+               PCOA_BRIDGE_RTOL)
+    del out, a, b, alone, xp
+
+    xs, _ = synthetic_study(PCOA_CHECK_N, EMP_FEATURES, EMP_GROUPS,
+                            effect_size=1.0, seed=1)
+    xs = prepare(torch.from_numpy(xs).to(dev))
+    from repro_torch.kernels.distance import ops as dops
+    dm = dops.pairwise_distance(xs, metric="braycurtis")
+    mat2 = dm * dm
+    del dm
+    t0 = time.perf_counter()
+    m = mat2.double()
+    rs = m.sum(1)
+    n = PCOA_CHECK_N
+    g64 = -0.5 * (m - rs[:, None] / n - rs[None, :] / n + rs.sum() / n / n)
+    del m
+    w, v = torch.linalg.eigh(g64)
+    s_t = float(torch.trace(g64))
+    del g64
+    order = torch.argsort(-w)[:PCOA_K]
+    wk, vk = w[order], v[:, order]
+    coords_ref = vk * wk.clamp(min=0).sqrt()[None, :]
+    del v
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    timed = {}
+    for tag, fn in (("eigh", lambda: ordn.pcoa_eigh(mat2, PCOA_K)),
+                    ("subspace", lambda: ordn.pcoa_subspace(mat2, PCOA_K)),
+                    ("features", lambda: ordn.pcoa_features(
+                        xs, rows_fn, PCOA_K, row_block=rows))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        r.coords.sum().item()
+        timed[tag] = (time.perf_counter() - t0, r)
+    log(f"[smoke] pcoa n={n}: float64 eigh oracle {t64:.3f}s; "
+        + ", ".join(f"{t} {dt:.3f}s" for t, (dt, _) in timed.items()))
+    for tag, (_, r) in timed.items():
+        pcoa_check(f"{tag} vs float64 (n={n})", r, wk, coords_ref, s_t,
+                   PCOA_RTOL)
+    e = timed["eigh"][1]
+    for tag in ("subspace", "features"):
+        pcoa_check(f"{tag} vs eigh (n={n})", timed[tag][1],
+                   e.eigvals.double(), e.coords.double(), s_t, PCOA_RTOL)
+
+
 def main() -> int:
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3241,6 +3548,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # the run's own autotune cache, removed at its end: no winner outlives
+    # it, and phases 1-18 plan from the heuristics
+    cache_dir = tempfile.mkdtemp(prefix="repro_torch_autotune.")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(
+        cache_dir, "autotune.json")
+    try:
+        return run_phases(torch, dev, cache_dir)
+    finally:
+        for name in os.listdir(cache_dir):
+            os.unlink(os.path.join(cache_dir, name))
+        os.rmdir(cache_dir)
+
+
+def run_phases(torch, dev, cache_dir) -> int:
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -3318,6 +3639,12 @@ def main() -> int:
     phase_many(dev)
     log(f"[smoke] phase 18 (many-study runs) "
         f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_autotune(dev, x, grouping, f_p_main, cache_dir)
+    log(f"[smoke] phase 19 (autotune) {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_ordination(dev, x, grouping)
+    log(f"[smoke] phase 20 (ordination) {time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 
     print(json.dumps({"kernels": rows}))

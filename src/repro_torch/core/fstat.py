@@ -145,13 +145,21 @@ def sw_tiled(mat2: torch.Tensor, groupings: torch.Tensor,
 # One-hot matmul formulation.
 # ---------------------------------------------------------------------------
 
+def rounded_sqrt(x: torch.Tensor, dtype) -> torch.Tensor:
+    """sqrt(x) correctly rounded to `dtype`: computed in float64, rounded
+    once (as IEEE, numpy and XLA round an f32 sqrt)."""
+    return torch.sqrt(x.to(torch.float64)).to(dtype)
+
+
 def onehot_perm_factors(groupings_block: torch.Tensor,
                         inv_group_sizes: torch.Tensor, dtype
                         ) -> torch.Tensor:
     """E[p,:,g] = sqrt(w_g) * 1[g_p[i] == g] — the (P, n, G) one-hot
-    factor. sqrt(w) is rounded to `dtype`, as the reference does."""
+    factor. sqrt(w) is rounded to `dtype`, as the reference does: taken
+    in float64 and rounded once, so it is the correctly rounded f32
+    square root (torch's f32 sqrt is 1 ulp off on some CPUs)."""
     n_groups = inv_group_sizes.shape[0]
-    sqrt_w = torch.sqrt(inv_group_sizes).to(dtype)
+    sqrt_w = rounded_sqrt(inv_group_sizes, dtype)
     e = torch.nn.functional.one_hot(groupings_block.long(),
                                     n_groups).to(dtype)
     return e * sqrt_w[None, None, :]
@@ -219,13 +227,12 @@ def sw_cols_contract(mat2_rows: torch.Tensor, v: torch.Tensor,
 
     v: (P, n, K) permuted basis over ALL samples; v_rows: (P, n_local, K)
     rows aligned with mat2_rows (v itself for the full matrix). Partials
-    over disjoint row blocks sum to the full statistic."""
-    p, n, k = v.shape
-    n_local = mat2_rows.shape[0]
-    v2d = v.permute(1, 0, 2).reshape(n, p * k)              # (n, P*K)
-    y = mat2_rows @ v2d
-    s = (y.reshape(n_local, p, k) * v_rows.permute(1, 0, 2)).sum(dim=0)
-    return 0.5 * s
+    over disjoint row blocks sum to the full statistic. Each permutation's
+    (n, K) block is contracted on its own: one (n_local, n P K) product's
+    BLAS blocking changes with P, and with it a permutation's sums, so a
+    chunk of 7 and one of 40 would not give the same null."""
+    return torch.stack([0.5 * ((mat2_rows @ vp) * vr).sum(dim=0)
+                        for vp, vr in zip(v, v_rows)])
 
 
 def sw_cols_block(mat2: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

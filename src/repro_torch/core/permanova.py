@@ -59,6 +59,8 @@ class PermanovaResult:
                                    # (strata / covariates / weights); the
                                    # headline F and p are the LAST term's;
                                    # None on the plain single-factor path
+    ordination: object = None  # pipeline.ordination.PCoAResult when the
+                               # caller asked for ordination=k
 
     @property
     def r2(self) -> torch.Tensor:
@@ -106,7 +108,7 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
               memory_budget_bytes: Optional[float] = None,
               chunk: Optional[int] = None, metric: Optional[str] = None,
               covariates=None, strata=None, weights=None,
-              device="cuda") -> PermanovaResult:
+              autotune: bool = False, device="cuda") -> PermanovaResult:
     """Run the full PERMANOVA test on a distance matrix (thin engine
     wrapper).
 
@@ -133,6 +135,8 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
                reference's `key=`).
     sw_impl:   'auto' (planner) or a registry name: 'brute' | 'tiled' |
                'matmul' (or their 'pallas_*' aliases).
+    autotune:  measure the candidates on the real operands instead of
+               trusting the heuristics (engine.planner.autotune).
     device:    'cuda' (default; raises without a card) or 'cpu'.
     """
     from repro_torch import engine   # deferred: engine imports this module
@@ -158,7 +162,7 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
             seed=seed, perms=perms, index_perms=index_perms,
             n_groups=n_groups, sw_impl=sw_impl,
             memory_budget_bytes=memory_budget_bytes, chunk=chunk,
-            device=device, **design_kw)
+            autotune=autotune, device=device, **design_kw)
     if arr.dim() != 2:
         raise ValueError(f"permanova takes an (n, n) distance matrix or an "
                          f"(n, d) feature table, got shape "
@@ -179,4 +183,4 @@ def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
                       index_perms=index_perms, n_groups=n_groups,
                       impl=sw_impl, sw_fn=sw_fn,
                       memory_budget_bytes=memory_budget_bytes, chunk=chunk,
-                      device=device, **design_kw)
+                      autotune=autotune, device=device, **design_kw)

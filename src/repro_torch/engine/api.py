@@ -11,6 +11,7 @@ of studies, stacked or ragged, one after another.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -33,7 +34,7 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
         chunk: Optional[int] = None, squared: bool = False,
         s_t: Optional[float] = None,
         covariates=None, strata=None, weights=None,
-        device="cuda") -> PermanovaResult:
+        autotune: bool = False, device="cuda") -> PermanovaResult:
     """Full PERMANOVA through the engine.
 
     dm:     (n, n) distance matrix with a zero diagonal (tensor or array).
@@ -46,7 +47,13 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
             (labels-mode designs only), or explicit (n_perms + 1, n)
             int32 index permutations; row 0 of either is the identity —
             the counterparts of the reference's `key=`.
-    impl:   'auto' (planner) or a registry name (pallas_* aliases too).
+    impl:   'auto' (planner; a persisted autotune winner for this device
+            kind, n bucket and groups where one exists) or a registry name
+            (pallas_* aliases too).
+    autotune: with impl='auto', measure every registered impl on a sample
+            of the actual permutations and run the fastest
+            (planner.autotune; the winner persists for later plans). On
+            the card every candidate is a hand kernel.
     sw_fn:  bypass the registry with a custom batch callable.
     memory_budget_bytes / chunk: bound the live label tensor; sweeps
             larger than the chunk run through the streaming scheduler.
@@ -77,7 +84,7 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
                           perms=perms, index_perms=index_perms, impl=impl,
                           memory_budget_bytes=memory_budget_bytes,
                           chunk=chunk, squared=squared, s_t=s_t,
-                          device=dev)
+                          autotune=autotune, device=dev)
     dm = torch.as_tensor(dm).to(dev, torch.float32)
     grouping, n_groups = design.grouping, design.n_groups
     n = dm.shape[0]
@@ -89,8 +96,14 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
     # plan string keeps the reference's form
     pinned = "matmul" if sw_fn is not None else (
         None if impl == "auto" else impl)
+    tuned = sw_fn is None and _autotuned(autotune, impl)
+    if tuned:
+        pinned = planner.autotune(mat2, grouping, inv_gs, seed=seed)
     pl = planner.plan(n, n_total, backend=dev.type, impl=pinned,
-                      memory_budget_bytes=memory_budget_bytes, chunk=chunk)
+                      memory_budget_bytes=memory_budget_bytes, chunk=chunk,
+                      n_groups=n_groups)
+    if tuned:
+        pl = dataclasses.replace(pl, reason=_TUNED)
     if sw_fn is None:
         fn = registry.get(pl.impl).bound(**pl.tuning)
     else:
@@ -116,6 +129,19 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
         method=f"permanova[{pl.impl}]",
         plan=f"{pl.describe()} chunks={stats.n_chunks}",
     )
+
+
+_TUNED = "empirical autotune winner (measured on operands)"
+
+
+def _autotuned(autotune: bool, impl: str) -> bool:
+    """Whether a run measures its impl: autotune=True with impl='auto'
+    (a pinned impl wins, with a warning, as in the reference)."""
+    if autotune and impl != "auto":
+        warnings.warn(
+            f"autotune=True ignored: impl is pinned to {impl!r} (use "
+            "impl='auto' to let measurements pick)", stacklevel=3)
+    return autotune and impl == "auto"
 
 
 def _sweep(pl, mat2, grouping, inv_gs, n_total, fn, **labels):
@@ -183,7 +209,7 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
                impl: str = "auto",
                memory_budget_bytes: Optional[float] = None,
                chunk: Optional[int] = None, squared: bool = False,
-               s_t: Optional[float] = None,
+               s_t: Optional[float] = None, autotune: bool = False,
                device="cuda") -> PermanovaResult:
     """Full PERMANOVA for a non-plain design (strata / covariates /
     weights / several factors) on a resident (squared) distance matrix.
@@ -193,7 +219,9 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
     designs run the per-column contraction of the permuted basis (a
     registry impl's `cols` companion), with the chunk sized for K columns.
     perms (explicit labels) applies to labels-mode designs only;
-    index_perms (explicit index permutations) to both.
+    index_perms (explicit index permutations) to both. autotune applies
+    to labels-mode designs (as in run()); a dense design warns and plans
+    as without it, as the reference does.
     """
     dev = hw.resolve_device(device)
     design = design.to(dev)
@@ -208,9 +236,14 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
     if design.mode == design_mod.MODE_LABELS:
         grouping, n_groups = design.grouping, design.n_groups
         inv_gs = permutations.inv_group_sizes(grouping, n_groups)
+        tuned = _autotuned(autotune, impl)
+        if tuned:
+            pinned = planner.autotune(mat2, grouping, inv_gs, seed=seed)
         pl = planner.plan(n, n_total, backend=dev.type, impl=pinned,
                           memory_budget_bytes=memory_budget_bytes,
-                          chunk=chunk)
+                          chunk=chunk, n_groups=n_groups)
+        if tuned:
+            pl = dataclasses.replace(pl, reason=_TUNED)
         fn = registry.get(pl.impl).bound(**pl.tuning)
         s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
                                 seed=seed, perms=perms, strata=design.strata,
@@ -226,6 +259,10 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
     if perms is not None:
         raise ValueError("perms= (explicit labels) applies to labels-mode "
                          "designs; a dense design takes index_perms=")
+    if autotune:
+        warnings.warn(
+            "autotune=True ignored for dense designs: the contraction is "
+            "the per-column companion on every device", stacklevel=2)
     k = design.k_cols
     pl = planner.plan(n, n_total, backend=dev.type, impl=pinned,
                       memory_budget_bytes=memory_budget_bytes, chunk=chunk,
@@ -264,6 +301,8 @@ class PermanovaManyResult:
                                              # ragged batch
     terms: Optional[tuple] = None   # design path: TermResults with
                                     # (S,)-leading tensors
+    ordination: object = None       # pipeline.ordination.PCoAResult with
+                                    # a leading study axis (ordination=k)
 
     @property
     def r2(self) -> torch.Tensor:
@@ -286,7 +325,9 @@ class PermanovaManyResult:
             f_stat=self.f_stat[s], p_value=self.p_value[s],
             s_t=self.s_t[s], s_w=self.s_w[s], f_perms=self.f_perms[s],
             n_objects=n_obj, n_groups=self.n_groups, n_perms=self.n_perms,
-            method="permanova_many", plan=self.plan, terms=terms_s)
+            method="permanova_many", plan=self.plan, terms=terms_s,
+            ordination=(None if self.ordination is None
+                        else self.ordination.study(s)))
 
 
 def _ragged_studies(dms, groupings, n_pad=None, device="cpu"):
@@ -410,19 +451,21 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
                 n, c) / (S, n) or ragged lists; any of them routes the
                 batch through the dense-design path (every study compiles
                 to one design structure; per-term statistics in `.terms`).
+    ordination: k: each study's top-k PCoA axes (pipeline.ordination.
+                pcoa_many: the implicit centered operator on the study's
+                own matrix) in `result.ordination`, stacked (S, n, k),
+                a ragged study's rows past its n_s exactly zero.
     device:     'cuda' (default; raises without a card) or 'cpu'.
 
     The studies run one after another on the existing kernels (brute and
     its kin on each study's resident matrix). A 'cuda' plan gives each
     study the whole label budget and plans it at its own n_valid; a 'cpu'
     plan keeps the reference's: one plan at n with 1/S of the budget.
-    mesh= (study-axis sharding) and ordination= raise NotImplementedError
-    naming their slices.
+    mesh= (study-axis sharding) raises NotImplementedError naming its
+    slice.
     """
     if mesh is not None:
         raise _later("mesh= (study-axis sharding)", "multi-device")
-    if ordination is not None:
-        raise _later("ordination= (PCoA)", "ordination")
     dev = hw.resolve_device(device)
     if covariates is not None or strata is not None or weights is not None:
         if perms is not None:
@@ -432,7 +475,8 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
             dms, groupings, covariates=covariates, strata=strata,
             weights=weights, n_groups=n_groups, n_perms=n_perms, seed=seed,
             index_perms=index_perms, impl=impl, chunk=chunk,
-            memory_budget_bytes=memory_budget_bytes, n_pad=n_pad, dev=dev)
+            memory_budget_bytes=memory_budget_bytes, n_pad=n_pad,
+            ordination=ordination, dev=dev)
     if index_perms is not None:
         raise ValueError("index_perms= applies to design batches; the "
                          "labels path takes perms=")
@@ -472,12 +516,22 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
         f_stat=f_perms[:, 0], p_value=torch.stack(p_vals),
         s_t=torch.stack(s_ts), s_w=torch.stack(s_ws), f_perms=f_perms,
         n_objects=n, n_groups=n_groups, n_perms=n_perms, n_valid=n_valid,
-        plan=_many_plan_string(plans, chunks, s_count, ragged))
+        plan=_many_plan_string(plans, chunks, s_count, ragged),
+        ordination=_many_ordination(dms, ordination, n))
+
+
+def _many_ordination(dms, ordination, n: int):
+    """Each study's PCoA (pipeline.ordination.pcoa_many) at width n, or
+    None without ordination=."""
+    if ordination is None:
+        return None
+    from repro_torch.pipeline import ordination as _ord   # deferred: cycle
+    return _ord.pcoa_many(dms, int(ordination), n_pad=n)
 
 
 def design_many_result(s_cols, designs, *, n_objects: int, n_groups: int,
-                       n_perms: int, n_valid=None,
-                       plan: str = "") -> PermanovaManyResult:
+                       n_perms: int, n_valid=None, plan: str = "",
+                       ordination=None) -> PermanovaManyResult:
     """Many-study result assembly from stacked (S, n_total, K) per-column
     sweeps and each study's design (one term structure; each study's
     residual dof its own), term by term as design_result assembles one
@@ -498,7 +552,7 @@ def design_many_result(s_cols, designs, *, n_objects: int, n_groups: int,
         s_t=torch.stack([r.s_t for r in per]),
         s_w=torch.stack([r.s_w for r in per]), f_perms=last.f_perms,
         n_objects=n_objects, n_groups=n_groups, n_perms=n_perms,
-        n_valid=n_valid, terms=terms, plan=plan)
+        n_valid=n_valid, terms=terms, plan=plan, ordination=ordination)
 
 
 def _build_study_designs(groupings, covariates, strata, weights, *,
@@ -543,7 +597,7 @@ def _build_study_designs(groupings, covariates, strata, weights, *,
 def _permanova_many_design(dms, groupings, *, covariates, strata, weights,
                            n_groups: int, n_perms: int, seed: int,
                            index_perms, impl: str, chunk,
-                           memory_budget_bytes, n_pad, dev
+                           memory_budget_bytes, n_pad, ordination, dev
                            ) -> PermanovaManyResult:
     """The many-study dense-design path: every study's design (strata-only
     ones too) as one dense structure, each study's per-column sweep run
@@ -582,4 +636,5 @@ def _permanova_many_design(dms, groupings, *, covariates, strata, weights,
         torch.stack(s_cols), designs, n_objects=n, n_groups=n_groups,
         n_perms=n_perms, n_valid=n_valid,
         plan=(f"{_many_plan_string(plans, chunks, s_count, ragged)} "
-              f"cols={k} ({designs[0].describe()})"))
+              f"cols={k} ({designs[0].describe()})"),
+        ordination=_many_ordination(dms, ordination, n))

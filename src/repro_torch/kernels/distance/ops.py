@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.distance import pack_presence_bits
-from repro_torch.kernels import _build
+from repro_torch.kernels import ShapeNotSupported, _build
 from repro_torch.kernels.distance import ref
 
 KERNELS = ("braycurtis", "euclidean", "jaccard", "jaccard_packed")
@@ -82,8 +82,8 @@ def _check(xr, xc, kernel):
     if xr.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xr.device}")
     if -(-xr.shape[0] // TILE) * -(-xc.shape[0] // TILE) >= 2 ** 31:
-        raise ValueError(f"({xr.shape[0]}, {xc.shape[0]}) exceeds the "
-                         f"kernel's grid")
+        raise ShapeNotSupported(f"({xr.shape[0]}, {xc.shape[0]}) exceeds "
+                                "the kernel's grid")
 
 
 def is_symmetric_call(xr: torch.Tensor, xc: torch.Tensor) -> bool:

@@ -34,7 +34,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import distance
-from repro_torch.kernels import _build
+from repro_torch.kernels import ShapeNotSupported, _build
 from repro_torch.kernels.fused_sw import ref
 
 # aitchison is euclidean geometry over clr-prepared features
@@ -266,8 +266,8 @@ def _check(x_rows, x, g_rows, g_cols, inv_gs, row_offset, metric, n_valid):
                         f"{inv_gs.dtype} {tuple(inv_gs.shape)}")
     _check_devices(x_rows, x, g_rows, g_cols, inv_gs)
     if g_cols.shape[0] >= 2 ** 31:
-        raise ValueError(f"P = {g_cols.shape[0]} exceeds the kernel's "
-                         "slot sum")
+        raise ShapeNotSupported(f"P = {g_cols.shape[0]} exceeds the "
+                                "kernel's slot sum")
 
 
 def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
@@ -285,8 +285,9 @@ def _check_cols(x_rows, x, v_rows, v_cols, row_offset, metric, n_valid):
                         f"{v_rows.dtype} and {v_cols.dtype}")
     _check_devices(x_rows, x, v_rows, v_cols)
     if v_cols.shape[0] * v_cols.shape[2] >= 2 ** 31:
-        raise ValueError(f"P * K = {v_cols.shape[0] * v_cols.shape[2]} "
-                         "exceeds the kernel's slot sum")
+        raise ShapeNotSupported(
+            f"P * K = {v_cols.shape[0] * v_cols.shape[2]} exceeds the "
+            "kernel's slot sum")
 
 
 def quantize_slabs(x_rows, x, mode, scale=None):

@@ -21,7 +21,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.core import fstat
+from repro_torch.kernels import ShapeNotSupported, _build
 from repro_torch.kernels.permanova_sw import ref
 
 VARIANTS = ("brute", "permblock", "matmul")
@@ -81,7 +82,7 @@ def permblock_blocks(n: int, tile: int = PERMBLOCK_TILE,
 def _rounded_sqrt_w(inv_group_sizes: torch.Tensor, dtype) -> torch.Tensor:
     """sqrt(w) rounded to mat2's dtype, as f32 — what the matmul kernel
     multiplies by (the reference rounds it the same way)."""
-    return torch.sqrt(inv_group_sizes).to(dtype).to(torch.float32)
+    return fstat.rounded_sqrt(inv_group_sizes, dtype).to(torch.float32)
 
 
 def _check(mat2, groupings, inv_group_sizes, variant):
@@ -146,8 +147,8 @@ def launch_partials(lib, variant, mat2, groupings, inv_group_sizes,
         shape = (n_perms, -(-n // rows))
         too_big = shape[1] > _MAX_GRID_Y or n_perms >= 2 ** 31
     if too_big:
-        raise ValueError(f"shape (P={n_perms}, n={n}) exceeds the "
-                         f"{variant} kernel's grid")
+        raise ShapeNotSupported(f"shape (P={n_perms}, n={n}) exceeds the "
+                                f"{variant} kernel's grid")
     partials = torch.empty(shape, dtype=torch.float32, device=mat2.device)
     args = (mat2.data_ptr(), groupings.data_ptr())
     if variant == "matmul":

@@ -29,6 +29,12 @@ under one joint plan (distance kernel, bridge, s_W).
       --samples 25145 --perms 3999 --from-features \
       --covariates age,depth --strata site:4 --weights
 
+  # measured instead of heuristic picks (winners persist in
+  # $REPRO_TORCH_AUTOTUNE_CACHE, default ~/.cache/repro_torch/autotune.json),
+  # and the top-3 PCoA axes from the same dataflow:
+  PYTHONPATH=src python -m repro_torch.launch.permanova \
+      --samples 25145 --perms 3999 --autotune --pcoa 3
+
 Runs on the card (`--device cuda`, the default) and fails without one;
 `--device cpu` runs the plain PyTorch forms on the host.
 """
@@ -68,6 +74,10 @@ def main(argv=None) -> int:
     ap.add_argument("--impl", default="auto", choices=IMPL_CHOICES,
                     help="'auto' = planner (GPU-brute / CPU-tiled per the "
                          "paper); or pin a registry impl")
+    ap.add_argument("--autotune", action="store_true",
+                    help="empirically measure candidates on the real "
+                         "operands instead of trusting the heuristics "
+                         "(the winners persist for later runs)")
     ap.add_argument("--budget-mb", type=float, default=None,
                     help="label-tensor memory budget; sweeps beyond it "
                          "stream in fixed-size chunks")
@@ -103,6 +113,12 @@ def main(argv=None) -> int:
                          "'braycurtis.cuda', 'euclidean.blocked'); "
                          "'auto' = pipeline planner; implies "
                          "--from-features")
+    ap.add_argument("--pcoa", type=int, default=None, metavar="K",
+                    help="also compute the top-K PCoA ordination axes "
+                         "(coordinates + explained variance) from the "
+                         "same pipeline dataflow (the stream and fused "
+                         "bridges never build the Gower matrix); implies "
+                         "the pipeline path")
     ap.add_argument("--covariates", default=None, metavar="NAMES",
                     help="comma-separated covariate names (synthetic "
                          "standard-normal columns, e.g. 'age,depth'): the "
@@ -153,7 +169,7 @@ def main(argv=None) -> int:
 
     if args.from_features or args.materialize != "auto" \
             or args.dist_impl != "auto" or args.fused_impl != "auto" \
-            or design_path:
+            or args.pcoa is not None or design_path:
         t0 = time.perf_counter()
         res = pipeline.pipeline(
             torch.from_numpy(x), torch.from_numpy(grouping),
@@ -161,9 +177,9 @@ def main(argv=None) -> int:
             dist_impl=args.dist_impl, sw_impl=args.impl,
             materialize=args.materialize, chunk=args.chunk,
             fused_impl=args.fused_impl, fused_tuning=fused_tuning,
-            memory_budget_bytes=budget,
+            memory_budget_bytes=budget, ordination=args.pcoa,
             covariates=covariates, strata=strata, weights=weights,
-            device=dev)
+            autotune=args.autotune, device=dev)
         f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
         t_pa = time.perf_counter() - t0
         print(f"[permanova] n={args.samples} groups={args.groups} "
@@ -181,6 +197,12 @@ def main(argv=None) -> int:
                 print(f"[permanova] {t.name:<12} {t.df:>3} "
                       f"{float(t.ss):>10.4g} {float(t.f_stat):>9.4g} "
                       f"{float(t.r2):>8.4g} {float(t.p_value):>8.4g}")
+        if res.ordination is not None:
+            o = res.ordination
+            expl = ", ".join(f"{float(v):.3f}" for v in o.explained)
+            print(f"[permanova] pcoa[{o.method}] k={o.k} "
+                  f"explained=[{expl}] coords={tuple(o.coords.shape)} "
+                  f"iterations={o.iterations}")
         return 0
 
     t0 = time.perf_counter()
@@ -195,7 +217,7 @@ def main(argv=None) -> int:
     res = engine.run(dm, torch.from_numpy(grouping), n_perms=args.perms,
                      seed=args.seed, impl=args.impl,
                      memory_budget_bytes=budget, chunk=args.chunk,
-                     device=dev)
+                     autotune=args.autotune, device=dev)
     f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
     t_pa = time.perf_counter() - t0
 

@@ -10,7 +10,13 @@ or the sweeps' design twins, per-term F and p in `.terms`.
 `core.permanova.permanova()` delegates here when handed features instead
 of a matrix, and the launch CLI exposes it as `--from-features`.
 `pipeline_many` runs a stack of studies one after another through the
-same bridges (dense, or the fused-kernel sweeps).
+same bridges (dense, or the fused-kernel sweeps). `ordination=k` adds the
+top-k PCoA axes from the same dataflow (pipeline.ordination): eigh on the
+dense bridge, the implicit centered operator on the stream bridge's mat2,
+the feature-streamed slabs on the fused bridges. `autotune=True` runs the
+planners' shoot-outs where they apply: stage 1 on the dense and stream
+bridges (and the s_W impl in engine.run), the fused-kernel impl on the
+fused-kernel bridge.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from repro_torch.core import design as _design
 from repro_torch.core import permutations
 from repro_torch.core.permanova import (PermanovaResult, _later, f_from_sw,
                                         p_value_from_null)
+from repro_torch.pipeline import ordination as _ordination
 from repro_torch.pipeline import planner as _planner
 from repro_torch.pipeline import registry as _registry
 from repro_torch.pipeline import streaming as _streaming
@@ -84,24 +91,29 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
                  `seed`, an explicit (n_perms + 1, n) int32 label tensor
                  (labels-mode designs only), or explicit (n_perms + 1, n)
                  int32 index permutations.
+    ordination:  k: also the top-k PCoA axes (coordinates, eigenvalues,
+                 explained variance) in `result.ordination`, from the
+                 bridge's own dataflow (pipeline.ordination); the stream
+                 and fused bridges never build the Gower matrix.
+    autotune:    measure instead of trusting the heuristics: on the dense
+                 and stream bridges the stage-1 candidates (dist_impl
+                 'auto') and the s_W impl (engine.run, sw_impl 'auto'), on
+                 the fused-kernel bridge the fused candidates (fused_impl
+                 'auto'); winners persist (engine.planner's cache). On the
+                 card every candidate is a hand kernel.
     device:      'cuda' (default; raises without a card) or 'cpu'.
 
     Budgets split per stage: matrix/slab for distances,
     memory_budget_bytes for s_W labels. mesh (with or without a design),
-    ordination, autotune, trace and out-of-core features (a slab cache or
-    its path) raise NotImplementedError naming their slice. For the same
-    labels every bridge gives the same F and p-value (to f32 accumulation
-    order).
+    trace and out-of-core features (a slab cache or its path) raise
+    NotImplementedError naming their slice. For the same labels every
+    bridge gives the same F and p-value (to f32 accumulation order).
     """
     if isinstance(x, (str, os.PathLike)) or hasattr(x, "n_slabs"):
         raise _later("out-of-core features (a slab cache or its path)",
                      "out-of-core")
     if mesh is not None:
         raise _later("mesh execution", "multi-device")
-    if ordination is not None:
-        raise _later("ordination (PCoA)", "ordination")
-    if autotune:
-        raise _later("autotune=True", "autotune")
     if trace:
         raise _later("trace=", "tracing (obs)")
     dev = hw.resolve_device(device)
@@ -132,7 +144,8 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
             chunk=chunk, memory_budget_bytes=memory_budget_bytes,
             matrix_budget_bytes=matrix_budget_bytes,
             slab_budget_bytes=slab_budget_bytes, dist_tuning=dist_tuning,
-            fused_impl=fused_impl, fused_tuning=fused_tuning, dev=dev)
+            fused_impl=fused_impl, fused_tuning=fused_tuning,
+            ordination=ordination, autotune=autotune, dev=dev)
     if grouping is None:
         raise ValueError("pipeline needs grouping labels, covariates, or a "
                          "Design")
@@ -140,38 +153,86 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
     if n_groups is None:
         n_groups = int(grouping.max()) + 1
 
-    pl = _planner.plan_pipeline(
-        n, d, n_perms + 1, n_groups, backend=dev.type, metric=metric,
-        dist_impl=dist_impl, materialize=materialize, row_block=row_block,
-        matrix_budget_bytes=matrix_budget_bytes,
-        slab_budget_bytes=slab_budget_bytes,
-        memory_budget_bytes=memory_budget_bytes, sw_impl=sw_impl,
-        chunk=chunk, fused_impl=fused_impl, fused_tuning=fused_tuning)
+    def _plan():
+        return _planner.plan_pipeline(
+            n, d, n_perms + 1, n_groups, backend=dev.type, metric=metric,
+            dist_impl=dist_impl, materialize=materialize,
+            row_block=row_block, matrix_budget_bytes=matrix_budget_bytes,
+            slab_budget_bytes=slab_budget_bytes,
+            memory_budget_bytes=memory_budget_bytes, sw_impl=sw_impl,
+            chunk=chunk, fused_impl=fused_impl, fused_tuning=fused_tuning)
+
+    pl = _plan()
+    if autotune:
+        # measure only what the resolved plan runs; the winners persist,
+        # so the plan made again reads them back
+        if pl.materialize == "fused-kernel" and fused_impl == "auto":
+            fused_impl = _planner.autotune_fused(
+                x, grouping, metric=metric, n_groups=n_groups, seed=seed)
+            pl = _plan()
+        elif pl.materialize in ("dense", "stream") and dist_impl == "auto":
+            # never on 'fused': the stage-1 shoot-out builds whole dense
+            # matrices, what that bridge exists to avoid
+            dist_impl = _planner.autotune_stage1(x, metric)
+            pl = _plan()
+        elif pl.materialize == "fused":
+            warnings.warn(
+                "autotune=True ignored: the fused bridge computes s_W in "
+                "its one-hot matmul form (use materialize='stream'/'dense' "
+                "to let measurements pick the s_W impl, or "
+                "materialize='fused-kernel' for the measured single-pass "
+                "candidates)", stacklevel=2)
     # planner-resolved tuning (row block folded in) <- caller overrides
     prepare, rows_fn, dense_fn = _registry.get(pl.dist_impl).bound(
         **{**pl.dist_tuning, **(dist_tuning or {})})
     if pl.materialize in _planner.FUSED_MODES:
-        return _fused_bridge(pl, prepare(x), rows_fn, grouping, n_perms,
-                             n_groups, seed, perms, index_perms,
-                             memory_budget_bytes)
+        xprep = prepare(x)
+        res = _fused_bridge(pl, xprep, rows_fn, grouping, n_perms,
+                            n_groups, seed, perms, index_perms,
+                            memory_budget_bytes)
+        return dataclasses.replace(res, ordination=_features_ordination(
+            pl, xprep, rows_fn, ordination))
     run_kw = dict(n_perms=n_perms, seed=seed, perms=perms,
                   index_perms=index_perms, n_groups=n_groups, impl=sw_impl,
                   memory_budget_bytes=memory_budget_bytes, chunk=chunk,
-                  device=dev)
+                  autotune=autotune, device=dev)
+    ordn = None
     if pl.materialize == "dense":
-        res = engine.run(dense_fn(x), grouping, **run_kw)
+        dm = dense_fn(x)
+        res = engine.run(dm, grouping, **run_kw)
+        if ordination is not None:
+            # the dense bridge budgets (n, n) transients: G and eigh
+            ordn = _ordination.pcoa_eigh(dm * dm, ordination)
     else:
         mat2, gower = _streaming.build_mat2_streaming(
             prepare(x), rows_fn, block=pl.row_block)
         res = engine.run(mat2, grouping, squared=True, s_t=gower.s_t,
                          **run_kw)
+        if ordination is not None:
+            # the implicit centered operator on the same mat2 and the
+            # marginals the streaming pass accumulated: no second (n, n)
+            ordn = _ordination.pcoa_subspace(mat2, ordination, stats=gower)
 
-    # engine.run planned stage 2: report its record once
+    # engine.run planned stage 2 (autotune may have picked it): report
+    # its record once
     executed_sw = res.method.split("[", 1)[1].rstrip("]")
     return dataclasses.replace(
         res,
         method=f"pipeline[{pl.dist_impl}->{pl.materialize}->{executed_sw}]",
-        plan=f"{pl.describe_stage1()} | {pl.reason} :: {res.plan}")
+        plan=f"{pl.describe_stage1()} | {pl.reason} :: {res.plan}",
+        ordination=ordn)
+
+
+def _features_ordination(pl: _planner.PipelinePlan, xprep, rows_fn,
+                         ordination):
+    """The fused bridges' PCoA: every matvec of the subspace iteration
+    rebuilds the squared-distance slabs from the features (on the card
+    through the distance kernel), so nothing (n, n) is added. None
+    without ordination=."""
+    if ordination is None:
+        return None
+    return _ordination.pcoa_features(xprep, rows_fn, ordination,
+                                     row_block=pl.row_block)
 
 
 def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
@@ -237,7 +298,8 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
                      materialize: str, row_block, chunk,
                      memory_budget_bytes, matrix_budget_bytes,
                      slab_budget_bytes, dist_tuning, fused_impl,
-                     fused_tuning, dev: torch.device) -> PermanovaResult:
+                     fused_tuning, dev: torch.device, ordination=None,
+                     autotune: bool = False) -> PermanovaResult:
     """features -> per-term F and p for a non-plain design.
 
     Every bridge keeps its residency contract: dense and stream hand the
@@ -258,15 +320,26 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
     k = design.k_cols if dense_mode else None
     n_groups_plan = (design.n_groups if design.n_groups is not None
                      else design.rank)
-    pl = _planner.plan_pipeline(
-        n, d, n_total, n_groups_plan, backend=dev.type, metric=metric,
-        dist_impl=dist_impl, materialize=materialize, row_block=row_block,
-        matrix_budget_bytes=matrix_budget_bytes,
-        slab_budget_bytes=slab_budget_bytes,
-        memory_budget_bytes=memory_budget_bytes, sw_impl=sw_impl,
-        chunk=chunk, fused_impl=fused_impl, fused_tuning=fused_tuning,
-        design_cols=k, draw=("strata" if k is None
-                             and design.strata is not None else "labels"))
+
+    def _plan():
+        return _planner.plan_pipeline(
+            n, d, n_total, n_groups_plan, backend=dev.type, metric=metric,
+            dist_impl=dist_impl, materialize=materialize,
+            row_block=row_block, matrix_budget_bytes=matrix_budget_bytes,
+            slab_budget_bytes=slab_budget_bytes,
+            memory_budget_bytes=memory_budget_bytes, sw_impl=sw_impl,
+            chunk=chunk, fused_impl=fused_impl, fused_tuning=fused_tuning,
+            design_cols=k, draw=("strata" if k is None
+                                 and design.strata is not None
+                                 else "labels"))
+
+    pl = _plan()
+    if autotune and pl.materialize in ("dense", "stream") \
+            and dist_impl == "auto":
+        # the reference measures stage 1 only on a design's dense and
+        # stream bridges
+        dist_impl = _planner.autotune_stage1(x, metric)
+        pl = _plan()
     prepare, rows_fn, dense_fn = _registry.get(pl.dist_impl).bound(
         **{**pl.dist_tuning, **(dist_tuning or {})})
     labels = dict(seed=seed, index_perms=index_perms)
@@ -275,17 +348,24 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
     # the fused sweeps draw in sub-blocks sized to the label budget
     sweep_labels = dict(labels, draw_budget=memory_budget_bytes)
 
+    ordn = xprep = None
     if pl.materialize in ("dense", "stream"):
         run_kw = dict(n_perms=n_perms, impl=sw_impl,
                       memory_budget_bytes=memory_budget_bytes, chunk=chunk,
                       device=dev, **labels)
         if pl.materialize == "dense":
-            res = engine.run_design(dense_fn(x), design, **run_kw)
+            dm = dense_fn(x)
+            res = engine.run_design(dm, design, **run_kw)
+            if ordination is not None:
+                ordn = _ordination.pcoa_eigh(dm * dm, ordination)
         else:
             mat2, gower = _streaming.build_mat2_streaming(
                 prepare(x), rows_fn, block=pl.row_block)
             res = engine.run_design(mat2, design, squared=True,
                                     s_t=gower.s_t, **run_kw)
+            if ordination is not None:
+                ordn = _ordination.pcoa_subspace(mat2, ordination,
+                                                 stats=gower)
     elif pl.materialize == "fused":
         xprep = prepare(x)
         if dense_mode:
@@ -337,9 +417,11 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
                 n_objects=n, n_perms=n_perms,
                 method=f"pipeline[fused-kernel:{stats.impl}+strata]",
                 plan=f"{_kernel_ran(stats)} strata")
+    if xprep is not None:
+        ordn = _features_ordination(pl, xprep, rows_fn, ordination)
     return dataclasses.replace(
         res, plan=(f"{pl.describe_stage1()} | {pl.reason} :: {res.plan} "
-                   f"({design.describe()})"))
+                   f"({design.describe()})"), ordination=ordn)
 
 
 # ---------------------------------------------------------------------------
@@ -384,16 +466,20 @@ def pipeline_many(xs, groupings, *, n_groups: int,
                  reference's batch), per-term statistics in `.terms`.
     device:      'cuda' (default; raises without a card) or 'cpu'.
 
+    ordination:  k: each study's top-k PCoA axes, stacked (S, n, k) in
+                 `result.ordination`: from the distance stack on the
+                 dense bridge (engine.permanova_many), from each study's
+                 feature-streamed slabs on the fused-kernel bridge
+                 (nothing (n, n) added).
+
     The studies run one after another. A 'cuda' plan gives each study the
     whole label budget (the reference splits it S ways because its vmap
     holds every study live); a 'cpu' plan keeps the reference's 1/S.
-    mesh= (study-axis sharding) and ordination= raise NotImplementedError
-    naming their slices.
+    mesh= (study-axis sharding) raises NotImplementedError naming its
+    slice.
     """
     if mesh is not None:
         raise _later("mesh= (study-axis sharding)", "multi-device")
-    if ordination is not None:
-        raise _later("ordination= (PCoA)", "ordination")
     dev = hw.resolve_device(device)
     xs = torch.as_tensor(xs).to(dev, torch.float32)
     if xs.dim() != 3:
@@ -438,7 +524,8 @@ def pipeline_many(xs, groupings, *, n_groups: int,
             perms=perms, index_perms=index_perms,
             impl="auto" if designed else sw_impl, chunk=chunk,
             memory_budget_bytes=memory_budget_bytes, covariates=covariates,
-            strata=strata, weights=weights, device=dev)
+            strata=strata, weights=weights, ordination=ordination,
+            device=dev)
         res.plan = f"{pl.dist_impl} -> dense(per study) -> {res.plan}"
         return res
     budget = engine.api._study_budgets(dev.type, memory_budget_bytes,
@@ -457,7 +544,8 @@ def pipeline_many(xs, groupings, *, n_groups: int,
                   chunk=chunk, memory_budget_bytes=budget,
                   matrix_budget_bytes=matrix_budget_bytes,
                   slab_budget_bytes=None, dist_tuning=None,
-                  fused_impl=fused_impl, fused_tuning=fused_tuning)
+                  fused_impl=fused_impl, fused_tuning=fused_tuning,
+                  ordination=ordination)
         if designed:
             kw.update(perms=None, dev=dev)
             results.append(_pipeline_design(xs[s], designs[s], **kw))
@@ -478,7 +566,14 @@ def _stack_results(results, *, n_objects: int, n_groups: int,
     first is kept with the study count."""
     def stack(get):
         return torch.stack([get(r) for r in results])
-    terms = None
+    terms = ordn = None
+    if results[0].ordination is not None:
+        ordn = _ordination.PCoAResult(
+            coords=stack(lambda r: r.ordination.coords),
+            eigvals=stack(lambda r: r.ordination.eigvals),
+            explained=stack(lambda r: r.ordination.explained),
+            method=results[0].ordination.method,
+            iterations=tuple(r.ordination.iterations for r in results))
     if results[0].terms is not None:
         terms = tuple(dataclasses.replace(
             t, ss=stack(lambda r, i=i: r.terms[i].ss),
@@ -491,5 +586,5 @@ def _stack_results(results, *, n_objects: int, n_groups: int,
         f_stat=stack(lambda r: r.f_stat), p_value=stack(lambda r: r.p_value),
         s_t=stack(lambda r: r.s_t), s_w=stack(lambda r: r.s_w),
         f_perms=stack(lambda r: r.f_perms), n_objects=n_objects,
-        n_groups=n_groups, n_perms=n_perms, terms=terms,
+        n_groups=n_groups, n_perms=n_perms, terms=terms, ordination=ordn,
         plan=f"{results[0].plan} studies={len(results)} [in turn]")

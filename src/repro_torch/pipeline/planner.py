@@ -35,9 +35,13 @@ time (launches against draw sub-blocks), so the bridge holds at most
 the plans match the reference's field for field (the fused impl under the
 port's kind names). `explain()` adds the reference's per-precision table
 of feature traffic and workset, and on the card the workset's split.
-(Persisted stage-1 and fused measurements wait for the autotune slice.)
 
-`plan_pipeline()` is pure shape/backend arithmetic, like `engine.plan()`.
+`plan_pipeline()` is shape/backend arithmetic, like `engine.plan()`; a
+persisted stage-1 or fused-kernel shoot-out for this device kind and n
+bucket (autotune_stage1 / autotune_fused, in engine.planner's cache)
+becomes its default. On 'cuda' each shoot-out has one candidate, the
+kernel (`<metric>.cuda`, `<metric>.fusedk.cuda`): the torch forms are its
+plain twins, so it measures and persists that entry and changes no plan.
 """
 
 from __future__ import annotations
@@ -45,8 +49,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import torch
+
 from repro_torch.core import permutations as _perm
 from repro_torch.engine import planner as _eplanner
+from repro_torch.kernels import ShapeNotSupported
 from repro_torch.kernels.fused_sw import ops as _fops
 from repro_torch.kernels.fused_sw import ref as _fref
 from repro_torch.pipeline import registry as _dreg
@@ -191,10 +198,14 @@ def _pick_dist_impl(metric: str, backend: str, n: int, d: int,
                     slab_budget: float):
     """Stage-1 impl by capability + transient model (Fig. 1 transplanted:
     bounded-working-set forms on CPU, the hand-written kernel on the
-    card)."""
+    card). A persisted stage-1 shoot-out overrides the model."""
     if metric not in _dreg.metrics():
         raise KeyError(f"unknown metric {metric!r}; "
                        f"registered: {_dreg.metrics()}")
+    measured = measured_stage1(backend, metric, n)
+    if measured is not None:
+        return measured, ("persisted stage-1 autotune measurement "
+                          f"({_eplanner.autotune_cache_path()})")
     if backend == "cuda":
         return (f"{metric}.cuda",
                 "hand-written CUDA kernel (masks ragged shapes, so no "
@@ -231,9 +242,14 @@ def _pick_materialize(n: int, matrix_budget: float, metric: str):
     return "fused", f"{why}; fuse row slabs into the permutation sweep"
 
 
-def _pick_fused_impl(metric: str, backend: str):
-    """Fused-kernel impl: the CUDA megakernel on the card (it masks
-    ragged shapes, so for every n), the plain torch sweep elsewhere."""
+def _pick_fused_impl(metric: str, backend: str, n: int,
+                     tuning: Optional[Dict[str, int]] = None):
+    """Fused-kernel impl: a persisted shoot-out winner (at the requested
+    precision), else the CUDA megakernel on the card (it masks ragged
+    shapes, so for every n), the plain torch sweep elsewhere."""
+    measured = measured_fused(backend, metric, n, tuning)
+    if measured is not None:
+        return measured, "persisted fused-kernel autotune measurement"
     if backend == "cuda":
         return (f"{metric}.fusedk.cuda",
                 "hand-written CUDA megakernel (masks ragged shapes, so no "
@@ -242,12 +258,13 @@ def _pick_fused_impl(metric: str, backend: str):
             "one-pass torch sweep (no kernel path on this backend)")
 
 
-def _resolve_fused(metric: str, backend: str, fused_impl: Optional[str]):
+def _resolve_fused(metric: str, backend: str, fused_impl: Optional[str],
+                   n: int, tuning: Optional[Dict[str, int]] = None):
     """(fused registry name or alias, reason): the backend's pick for
     'auto' / None, else the caller's impl ('cuda', 'torch', the
     reference's 'pallas' / 'xla', or a registry name)."""
     if fused_impl in (None, "auto"):
-        return _pick_fused_impl(metric, backend)
+        return _pick_fused_impl(metric, backend, n, tuning)
     name = (fused_impl if "." in fused_impl
             else f"{metric}.fusedk.{fused_impl}")
     return name, "caller-pinned fused impl"
@@ -478,8 +495,8 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
                   if memory_budget_bytes is None else memory_budget_bytes)
         kspec = None
         if mat == "fused-kernel" and backend == "cuda":
-            kspec = _dreg.get_fused(_resolve_fused(metric, backend,
-                                                   fused_impl)[0])
+            kspec = _dreg.get_fused(_resolve_fused(
+                metric, backend, fused_impl, n, fused_tuning)[0])
         if kspec is not None and kspec.kind == "cuda":
             # the card's kernels hold their partials and the labels (or
             # index and basis) only; the draw takes what is left
@@ -491,7 +508,7 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
             chunk = _onehot_chunk(n, cols, n_perms, budget)
     sw = _eplanner.plan(n, n_perms, backend=backend, impl=pinned_sw,
                         memory_budget_bytes=memory_budget_bytes,
-                        chunk=chunk, n_cols=design_cols)
+                        chunk=chunk, n_cols=design_cols, n_groups=n_groups)
     if mat in FUSED_MODES:
         # the fused bridges contract s_W themselves: no s_W kernel runs
         sw = dataclasses.replace(sw, kernel=None)
@@ -510,7 +527,8 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     f_impl = None
     f_tuning: Dict[str, int] = {}
     if mat == "fused-kernel":
-        f_impl, freason = _resolve_fused(metric, backend, fused_impl)
+        f_impl, freason = _resolve_fused(metric, backend, fused_impl, n,
+                                         fused_tuning)
         fspec = _dreg.get_fused(f_impl)
         f_impl = fspec.name                   # reference aliases resolve
         if fspec.metric != metric:
@@ -537,3 +555,158 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
         n_cols=design_cols, draw_budget=draw_budget,
         draw="index" if design_cols is not None else draw,
         budget=None if draw_budget is None else budget)
+
+
+# ---------------------------------------------------------------------------
+# Persisted stage-1 / fused-kernel autotuning. Candidate timings live in
+# engine.planner's cache beside the s_W shoot-outs, one entry per (device
+# kind, metric, impl), so a host measures each candidate once and
+# plan_pipeline() reads the winners back as its defaults.
+# ---------------------------------------------------------------------------
+
+def _stage1_key(kind: str, metric: str, impl: str) -> str:
+    return f"dist|{kind}|{metric}|{impl}"
+
+
+def _fused_key(kind: str, metric: str, impl: str,
+               tuning: Optional[Dict[str, int]] = None) -> str:
+    """Fused-kernel cache key: the precision knobs are part of it (an fp8
+    timing never feeds an f32 plan); f32 keeps the untagged form."""
+    tag = _dreg.precision_tag(tuning)
+    base = f"fusedk|{kind}|{metric}|{impl}"
+    return base if tag == "f32" else f"{base}|{tag}"
+
+
+def _stage1_candidates(metric: str, backend: str):
+    """The distance kernel on the card (the dense and blocked torch forms
+    are its plain twins there), the dense and blocked forms elsewhere."""
+    if backend == "cuda":
+        return [f"{metric}.cuda"]
+    return (_dreg.names(metric=metric, kind="dense")
+            + _dreg.names(metric=metric, kind="blocked"))
+
+
+def _fused_candidates(metric: str, backend: str):
+    return _dreg.fused_names(metric=metric, backend=backend)
+
+
+def _argmin_measured(keys_by_name, n: int):
+    """Winner among candidates whose persisted entry matches n's bucket;
+    None unless EVERY candidate was measured (a partial shoot-out does
+    not replace the heuristics)."""
+    bucket = _eplanner._bucket(n)
+    times = {}
+    for name, key in keys_by_name.items():
+        entry = _eplanner.measured_entry(key)
+        if not entry or entry.get("bucket") != bucket or "ms" not in entry:
+            return None
+        times[name] = entry["ms"]
+    return min(times, key=times.get) if times else None
+
+
+def measured_stage1(backend: str, metric: str, n: int) -> Optional[str]:
+    """Persisted stage-1 winner for this (device kind, metric, n bucket)."""
+    kind = _eplanner.device_kind(backend)
+    if kind is None:
+        return None
+    return _argmin_measured(
+        {c: _stage1_key(kind, metric, c)
+         for c in _stage1_candidates(metric, backend)}, n)
+
+
+def measured_fused(backend: str, metric: str, n: int,
+                   tuning: Optional[Dict[str, int]] = None) -> Optional[str]:
+    """Persisted fused-kernel winner for this (device kind, metric, n
+    bucket) at the precision the tuning knobs select (default f32)."""
+    kind = _eplanner.device_kind(backend)
+    if kind is None:
+        return None
+    return _argmin_measured(
+        {c: _fused_key(kind, metric, c, tuning)
+         for c in _fused_candidates(metric, backend)}, n)
+
+
+def autotune_stage1(x: torch.Tensor, metric: str) -> str:
+    """Time each stage-1 candidate's dense build on the real table, on
+    its device (engine.planner.time_call: a warm-up call, then the median
+    of its timed calls), persist one entry per (device kind, metric,
+    impl) and return the winner; a winner already persisted for this
+    device kind and n bucket is returned unmeasured. A candidate whose
+    kernel does not apply to the shape is skipped; any other failure
+    raises."""
+    backend = x.device.type
+    kind = _eplanner.device_kind(backend)
+    n, d = (int(v) for v in x.shape)
+    known = measured_stage1(backend, metric, n)
+    if known is not None:
+        return known
+    times = {}
+    for name in _stage1_candidates(metric, backend):
+        _, _, dense_fn = _dreg.get(name).bound()
+        try:
+            times[name] = _eplanner.time_call(lambda: dense_fn(x), x.device)
+        except ShapeNotSupported:
+            continue
+        _eplanner.record_entry(_stage1_key(kind, metric, name), {
+            "impl": name, "ms": times[name], "n": n, "d": d,
+            "bucket": _eplanner._bucket(n)})
+    if not times:
+        raise RuntimeError("autotune_stage1: no candidate applies to "
+                           f"({n}, {d})")
+    _eplanner.MEASURED["stage1"] += 1
+    return min(times, key=times.get)
+
+
+def autotune_fused(x: torch.Tensor, grouping: torch.Tensor, *,
+                   metric: str = "braycurtis",
+                   n_groups: Optional[int] = None,
+                   sample_perms: int = _eplanner.SAMPLE_PERMS,
+                   seed: int = 0) -> str:
+    """Time each fused-kernel candidate on `sample_perms` of the port's
+    draws from `seed` over the real table (one chunk of that size, f32),
+    on its device; persist one entry per (device kind, metric, impl)
+    with the tuning it ran and return the winner (an f32 winner already
+    persisted for this device kind and n bucket, unmeasured). On the
+    card the one candidate is the megakernel."""
+    from repro_torch.core import distance as _dist      # deferred: cycles
+    from repro_torch.core import permutations as _perms
+    from repro_torch.pipeline import streaming as _streaming
+    backend = x.device.type
+    kind = _eplanner.device_kind(backend)
+    n, d = (int(v) for v in x.shape)
+    known = measured_fused(backend, metric, n)
+    if known is not None:
+        return known
+    grouping = grouping.to(x.device, torch.int32)
+    if n_groups is None:
+        n_groups = int(grouping.max()) + 1
+    inv_gs = _perms.inv_group_sizes(grouping, n_groups)
+    mdef = _dist.ROW_METRICS[metric]
+    xprep = mdef.prepare(x)
+    row_block = _pick_row_block(n, d, _dreg.get(f"{metric}.blocked"),
+                                DEFAULT_SLAB_BUDGET_BYTES)
+    times = {}
+    for name in _fused_candidates(metric, backend):
+        spec = _dreg.get_fused(name)
+        tuning = dict(spec.tuning)
+
+        def run(spec=spec, tuning=tuning):
+            return _streaming.fused_kernel_sw(
+                xprep, mdef.rows, grouping, inv_gs, sample_perms,
+                impl=spec.kind, kernel_metric=spec.kernel_metric,
+                row_block=row_block, chunk=sample_perms, tuning=tuning,
+                seed=seed)
+
+        try:
+            times[name] = _eplanner.time_call(run, x.device)
+        except ShapeNotSupported:
+            continue
+        _eplanner.record_entry(_fused_key(kind, metric, name, tuning), {
+            "impl": name, "ms": times[name], "n": n, "d": d,
+            "bucket": _eplanner._bucket(n), "tuning": tuning,
+            "sample_perms": sample_perms})
+    if not times:
+        raise RuntimeError("autotune_fused: no candidate applies to "
+                           f"({n}, {d})")
+    _eplanner.MEASURED["fused"] += 1
+    return min(times, key=times.get)

@@ -393,6 +393,34 @@ def test_onehot_factors_and_matmul_block_match_reference(dtype):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-5)
 
 
+@pytest.mark.parametrize("sizes", [(7, 14), (14, 3, 28, 1), (56, 7, 112)])
+def test_onehot_sqrt_is_correctly_rounded(sizes):
+    """sqrt(w) in the one-hot factor and in the matmul kernel's operand is
+    the correctly rounded f32 square root at group sizes where torch's own
+    f32 sqrt can be 1 ulp off (1/14 on some CPUs): bit-equal to numpy's
+    and to the reference's factor."""
+    from repro_torch.kernels.permanova_sw import ops as sw_ops
+    grouping = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    g = len(sizes)
+    inv_t = permutations.inv_group_sizes(torch.from_numpy(grouping), g)
+    inv_j = np.asarray(jperm.inv_group_sizes(jnp.asarray(grouping), g))
+    np.testing.assert_array_equal(inv_t.numpy(), inv_j)
+    want = np.sqrt(inv_j)
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(
+        fstat.rounded_sqrt(inv_t, torch.float32).numpy(), want)
+    np.testing.assert_array_equal(
+        sw_ops._rounded_sqrt_w(inv_t, torch.float32).numpy(), want)
+    gperms = grouping[None, :]
+    e_t = fstat.onehot_perm_factors(torch.from_numpy(gperms), inv_t,
+                                    torch.float32)
+    e_j = jfstat.onehot_perm_factors(jnp.asarray(gperms),
+                                     jnp.asarray(inv_j), jnp.float32)
+    np.testing.assert_array_equal(e_t.numpy(), np.asarray(e_j))
+    np.testing.assert_array_equal(e_t[0, np.arange(len(grouping)),
+                                      grouping].numpy(), want[grouping])
+
+
 def test_tiled_pad_keeps_requested_tile():
     """Prime n pads to the requested tile with sentinel labels: the result
     equals the unpadded brute force."""

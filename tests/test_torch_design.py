@@ -492,6 +492,23 @@ def test_permanova_matches_reference_and_fp64_oracle(case):
         assert float(t.r2) == pytest.approx(float(t.ss) / float(got.s_t))
 
 
+@pytest.mark.parametrize("case", ["covariates+strata", "weights"])
+def test_dense_design_null_is_bit_equal_at_chunk_1_and_40(case):
+    """A permutation's per-column forms do not depend on how many
+    permutations share the product: chunk 1 (one permutation a product)
+    and chunk 40 (all of them in one) give the same null bit for bit."""
+    n = 30
+    dm = _sym_dm(n, seed=9)
+    labels, kw = _design_kw(case, n, seed=9)
+    a = engine.run(dm, labels, n_perms=39, seed=4, chunk=40, device="cpu",
+                   **kw)
+    b = engine.run(dm, labels, n_perms=39, seed=4, chunk=1, device="cpu",
+                   **kw)
+    assert "chunks=1 " in a.plan and "chunks=40 " in b.plan
+    for ta, tb in zip(a.terms, b.terms):
+        assert torch.equal(ta.f_perms, tb.f_perms)
+
+
 def test_design_runs_from_seed_are_chunk_invariant_and_restricted():
     """From `seed` the design draws are the port's own: any chunking gives
     the same null, and the strata-restricted null differs from the free

@@ -467,8 +467,10 @@ def test_many_rejects_what_it_cannot_run():
     kw = dict(n_groups=G, n_perms=9, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
         engine.permanova_many(dms, gs, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ordination"):
-        engine.permanova_many(dms, gs, ordination=2, **kw)
+    # ordination runs since the ordination slice: each ragged study's
+    # axes, zero past its n_s
+    assert engine.permanova_many(dms, gs, ordination=2, **kw) \
+        .ordination.coords.shape == (len(SIZES), max(SIZES), 2)
     with pytest.raises(ValueError, match="n_pad=30 is smaller"):
         engine.permanova_many(dms, gs, n_pad=30, **kw)
     with pytest.raises(ValueError, match="perms must be"):

@@ -737,7 +737,7 @@ def _slab_cache(tmp_path):
 @pytest.mark.parametrize("case", [
     "feat_bf16", "ordination", "mesh", "autotune", "trace", "path",
     "slab-cache", "covariates", "strata", "weights"])
-def test_not_ported_options_raise(case, tmp_path):
+def test_not_ported_options_raise(case, tmp_path, monkeypatch):
     x, grouping, _, _, _ = _study()
     x = torch.from_numpy(x)
     kw = {}
@@ -749,11 +749,19 @@ def test_not_ported_options_raise(case, tmp_path):
         kw.update(materialize="dense", fused_tuning={"feat_bf16": 1})
         exc, match = ValueError, "fused-kernel"
     elif case == "ordination":
+        # ported since the ordination slice: it runs (eigh on this dense
+        # plan)
         kw["ordination"] = 2
+        exc = None
     elif case == "mesh":
         kw["mesh"] = object()
     elif case == "autotune":
+        # ported since the autotune slice: it runs, and its cache is a
+        # file of this test's own
+        monkeypatch.setenv(engine.planner.AUTOTUNE_CACHE_ENV,
+                           str(tmp_path / "autotune.json"))
         kw["autotune"] = True
+        exc = None
     elif case == "trace":
         kw["trace"] = True
     elif case == "path":
@@ -768,6 +776,13 @@ def test_not_ported_options_raise(case, tmp_path):
         kw.update(strata=np.zeros(len(grouping), np.int32), mesh=object())
     elif case == "weights":
         kw.update(weights=np.ones(len(grouping)), mesh=object())
+    if exc is None:
+        res = pipeline.pipeline(x, torch.from_numpy(grouping), n_perms=9,
+                                device="cpu", **kw)
+        assert (res.ordination.k == 2 and res.ordination.method == "eigh"
+                if case == "ordination" else
+                "empirical autotune winner" in res.plan)
+        return
     with pytest.raises(exc, match=match):
         pipeline.pipeline(x, torch.from_numpy(grouping), n_perms=9,
                           device="cpu", **kw)
