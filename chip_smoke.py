@@ -274,6 +274,36 @@ Phases, each timed:
    the card: eigenvalues and sign-aligned coordinates within rtol 2e-4
    (the reference's bar), explained == eigvals / s_T. (The dense bridge's
    eigh at n = 25,145 is a probe of its own: scripts/pcoa_eigh_probe.py.)
+21. Out of core (pipeline() on a data.slabcache cache; the caches live in
+   a temporary directory removed at the end). (a) At (n, d, slab_rows) =
+   (2500, 512, 256), a ragged last slab of 196: for every metric (jaccard
+   f32 from a dense cache, packed from a csr cache) the row slabs
+   streaming.ooc_mat2_row_blocks assembles from (slab, slab) distance
+   tiles equal mat2_row_blocks' slabs of the resident table bit for bit,
+   the distance kernel launched once a tile. At d = 16,384 (at 512 the
+   sweep's own footprint exceeds the table, so no budget both forces
+   'host' and holds it), pipeline(cache) at a device budget one byte under
+   the table ('host') equals the in-memory fused bridge at row_block = 256
+   bit for bit (F, p, s_T, the null; per term), every metric, both forms
+   (fused, fused-kernel), labels, labels within 4 strata and the design
+   of two covariates and 4 strata; jaccard f32 and packed from a csr
+   cache against the presence table; and the 'hbm' short circuit equals
+   the resident run. (b) The realistic cell:
+   synthetic_sparse_counts(25145, 16384, density 0.1, seed 0, slab_rows
+   2048), 1,647,902,720 B of dense f32 in 13 slabs (12 x 2,048 + 569),
+   device budget 1.5 GiB (under the table: 'host'); Bray-Curtis labels at
+   3,999 permutations, the covariate design (K = 10) at 999 and Aitchison
+   labels at 999 (clr in place on each fetched slab). Each prints its
+   end to end, sweep and stall times, and must read
+   ooc_disk_traffic_bytes(13, table) = 23,070,638,080 B (182 fetches),
+   launch its distance kernel (braycurtis; euclidean for aitchison) 169
+   times and nothing else, and keep its device peak above the start
+   (allocated, and reserved from an emptied cache) within the plan's
+   modelled peak (planner.ooc_peak_bytes), itself within 1.5 GiB; then
+   F, p and the null equal the same table resident on the card through
+   the fused bridge at row_block = 2,048 bit for bit. The host -> device
+   GB/s of one 128 MiB slab from pinned and from pageable
+   memory (CUDA events) is logged beside the host tier's model.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -3536,6 +3566,328 @@ def phase_ordination(dev, x_np, grouping):
                    e.eigvals.double(), e.coords.double(), s_t, PCOA_RTOL)
 
 
+# phase 21: out of core. The realistic cell: the paper's EMP sample count
+# at a filtered sOTU table's width, dense f32 on disk in 13 slabs (12 x
+# 2,048 + 569), a device budget under the table, so the residency is
+# 'host'
+OOC_N, OOC_D, OOC_SLAB, OOC_DENSITY = 25145, 16384, 2048, 0.1
+OOC_TABLE_BYTES = 1_647_902_720         # 4 n d
+OOC_SLABS = 13
+OOC_READ_BYTES = 23_070_638_080         # 14 passes: (13 + 1) x the table
+OOC_BUDGET = 1536 * 2 ** 20              # 1.5 GiB, under the 1.535 GiB table
+OOC_DESIGN_PERMS = 999
+OOC_AITCHISON_PERMS = 999
+# (a) at small sizes: the tile-assembled row slabs (n, d, slab_rows) with a
+# ragged last slab of 196, and pipeline() at the cell's width: at d = 512
+# the sweep's own footprint (the feature slabs in flight and the (256, n)
+# mat2 row slab) exceeds the table, so no device budget would both force
+# 'host' and hold the sweep (the plan refuses it)
+OOC_SMALL = (2500, 512, 256)
+OOC_SMALL_PIPE_D = 16384
+OOC_SMALL_PERMS = 99
+OOC_SMALL_LABEL_BUDGET = 4 * 2 ** 20
+OOC_METRICS = ("braycurtis", "euclidean", "aitchison", "jaccard")
+H2D_BYTES = OOC_SLAB * OOC_D * 4        # one 128 MiB slab
+H2D_REPS = 10
+
+
+def ooc_identical(tag, res, ref):
+    """F, p, s_T and the whole null of an out-of-core run equal to the
+    in-memory run's bit for bit (per term for a design)."""
+    import torch
+    if ref.terms is None:
+        same = all(torch.equal(getattr(res, k), getattr(ref, k))
+                   for k in ("f_stat", "p_value", "s_t", "s_w", "f_perms"))
+    else:
+        same = ([t.name for t in res.terms] == [t.name for t in ref.terms]
+                and torch.equal(res.s_t, ref.s_t)
+                and all(torch.equal(a.f_perms, b.f_perms)
+                        and torch.equal(a.p_value, b.p_value)
+                        for a, b in zip(res.terms, ref.terms)))
+    check(same, f"ooc {tag}: F, p or the null differ from the in-memory "
+          f"fused bridge's")
+
+
+def ooc_row_blocks_identity(dev, root):
+    """(a) For every metric (jaccard f32 from a dense cache, jaccard packed
+    from a csr cache), the row slabs ooc_mat2_row_blocks assembles from
+    (slab, slab) distance tiles equal mat2_row_blocks' slabs of the
+    resident table bit for bit, the ragged last one included; the
+    distance kernel launched once a tile and once a resident slab."""
+    import torch
+    from repro_torch.data.microbiome import synthetic_sparse_counts
+    from repro_torch.pipeline import registry, streaming
+    n, d, slab = OOC_SMALL
+    caches = {fmt: synthetic_sparse_counts(
+        n, d, density=OOC_DENSITY, seed=1, slab_rows=slab, fmt=fmt,
+        cache_dir=os.path.join(root, f"rows_{fmt}"))[0]
+        for fmt in ("dense", "csr")}
+    n_slabs = caches["dense"].n_slabs
+    x = torch.from_numpy(caches["dense"].to_array()).to(dev)
+    cases = [(m, "dense", {}) for m in OOC_METRICS] + [
+        ("jaccard", "csr", {"packed": 1})]
+    for metric, fmt, tuning in cases:
+        prepare, rows_fn, _ = registry.get(f"{metric}.cuda").bound(**tuning)
+        kernel = ("jaccard_packed" if tuning else
+                  "euclidean" if metric == "aitchison" else metric)
+        zero_launches()
+        got = streaming.ooc_mat2_row_blocks(caches[fmt], prepare, rows_fn,
+                                            device=dev)
+        want = streaming.mat2_row_blocks(prepare(x), rows_fn, block=slab)
+        rows = []
+        for (lo_a, a), (lo_b, b) in zip(got, want):
+            check(lo_a == lo_b and torch.equal(a, b),
+                  f"ooc row slab at {lo_b} ({metric}, {fmt} cache "
+                  f"{tuning}): the tile-assembled slab differs from "
+                  f"mat2_row_blocks'")
+            rows.append(a.shape[0])
+        got.close()
+        torch.cuda.synchronize()
+        launches = launch_counts()[kernel]
+        check(len(rows) == n_slabs and rows[-1] == n % slab
+              and launches == n_slabs * n_slabs + n_slabs,
+              f"ooc row slabs {metric}: {rows}, {launches} {kernel} "
+              f"launches")
+        log(f"[smoke] ooc row slabs {metric:10s} ({fmt} cache"
+            f"{', packed' if tuning else ''}) (n, d, slab)={OOC_SMALL}: "
+            f"{n_slabs} slabs (last {rows[-1]} rows) equal mat2_row_blocks' "
+            f"bit for bit; {launches} {kernel} launches ({n_slabs}^2 tiles "
+            f"+ {n_slabs} resident slabs)")
+
+
+def ooc_pipeline_identity(dev, root):
+    """(a) pipeline(cache) at a device budget one byte under the table
+    ('host') against the in-memory fused bridge at row_block = slab_rows
+    on the same table, seed and label budget, bit for bit: every metric,
+    both forms, labels, labels within 4 strata, and the dense design of
+    two covariates and 4 strata; jaccard f32 and packed from a csr cache
+    against the presence table; the 'hbm' short circuit (the default 2 GiB
+    budget) against the resident run at the default budgets."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.data.microbiome import (synthetic_design,
+                                             synthetic_sparse_counts)
+    n, _, slab = OOC_SMALL
+    d = OOC_SMALL_PIPE_D
+    dense, grouping = synthetic_sparse_counts(
+        n, d, density=OOC_DENSITY, seed=2, slab_rows=slab,
+        cache_dir=os.path.join(root, "pipe_dense"))
+    csr, _ = synthetic_sparse_counts(
+        n, d, density=OOC_DENSITY, seed=2, slab_rows=slab, fmt="csr",
+        cache_dir=os.path.join(root, "pipe_csr"))
+    x = torch.from_numpy(dense.to_array()).to(dev)
+    g = torch.from_numpy(grouping).to(dev)
+    cov, strata, _ = synthetic_design(n, covariate_names=DESIGN_COVARIATES,
+                                      n_strata=DESIGN_STRATA, seed=2)
+    modes = {"labels": {}, "strata": {"strata": strata},
+             "design": {"covariates": cov, "strata": strata}}
+    host = dense.feature_bytes - 1
+    kw = dict(n_perms=OOC_SMALL_PERMS, seed=0, device=dev,
+              memory_budget_bytes=OOC_SMALL_LABEL_BUDGET)
+    t0 = time.perf_counter()
+    runs = 0
+    for metric in OOC_METRICS:
+        for mode, mkw in modes.items():
+            ref = pipeline.pipeline(x, g, metric=metric, materialize="fused",
+                                    row_block=slab, **mkw, **kw)
+            for form in ("fused", "fused-kernel"):
+                res = pipeline.pipeline(dense, g, metric=metric,
+                                        materialize=form,
+                                        device_budget_bytes=host, **mkw,
+                                        **kw)
+                check("residency=host" in res.plan
+                      and f"ooc-{form}" in res.method,
+                      f"ooc {metric} {mode} {form}: {res.method} "
+                      f"{res.plan}")
+                ooc_identical(f"{metric} {mode} {form}", res, ref)
+                runs += 1
+    presence = (x > 0).to(torch.float32)
+    for packed in (0, 1):
+        tuning = {"packed": packed}
+        ref = pipeline.pipeline(presence, g, metric="jaccard",
+                                materialize="fused", row_block=slab,
+                                dist_tuning=tuning, **kw)
+        res = pipeline.pipeline(csr, g, metric="jaccard", dist_tuning=tuning,
+                                device_budget_bytes=host, **kw)
+        ooc_identical(f"jaccard csr packed={packed}", res, ref)
+        runs += 1
+    res = pipeline.pipeline(dense, g, **kw)
+    check(res.plan.endswith("| features=slab-cache(residency=hbm)"),
+          f"ooc hbm short circuit: {res.plan}")
+    ooc_identical("hbm short circuit", res, pipeline.pipeline(x, g, **kw))
+    log(f"[smoke] ooc pipeline (n, d, slab)=({n}, {d}, {slab}), "
+        f"{OOC_SMALL_PERMS} permutations, label budget "
+        f"{OOC_SMALL_LABEL_BUDGET // 2 ** 20} MiB, device budget {host} B: "
+        f"{runs} out-of-core runs (4 metrics x labels / strata / design x "
+        f"fused / fused-kernel, csr jaccard f32 / packed) and the hbm short "
+        f"circuit equal the in-memory runs bit for bit "
+        f"({time.perf_counter() - t0:.2f}s)")
+
+
+def h2d_rates(dev) -> dict:
+    """GB/s of host -> device copies of one 128 MiB slab from pinned and
+    from pageable memory, by CUDA events over H2D_REPS copies."""
+    import torch
+    n = H2D_BYTES // 4
+    dst = torch.empty(n, dtype=torch.float32, device=dev)
+    rates = {}
+    for tag, pinned in (("pinned", True), ("pageable", False)):
+        src = torch.ones(n, dtype=torch.float32, pin_memory=pinned)
+        ms = cuda_ms(lambda: dst.copy_(src, non_blocking=pinned), H2D_REPS)
+        rates[tag] = H2D_BYTES / (ms * 1e-3) / 1e9
+    return rates
+
+
+def ooc_run(dev, cache, g_dev, tag, pl, **kw):
+    """One out-of-core pipeline() run of the realistic cell at OOC_BUDGET:
+    its launches counted from 0, its device peak above the start (the
+    allocated bytes, and the allocator's reserved ones from an emptied
+    cache), the sweep's OocStats (the result's). Fails unless the plan is
+    `pl`, the metric's distance kernel launched once a tile and nothing
+    else ran, the bytes read equal the traffic model's, and the peak
+    (allocated, and reserved: slabs freed while a kernel still reads
+    them stay reserved, and the prefetcher's stream keeps its own pool)
+    stays within the plan's modelled peak, itself within the budget."""
+    import torch
+    from repro_torch import pipeline
+    kernel = "euclidean" if pl.metric == "aitchison" else pl.metric
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    start_r = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = pipeline.pipeline(cache, g_dev, metric=pl.metric, seed=0,
+                            device_budget_bytes=OOC_BUDGET, device=dev, **kw)
+    f, p = float(res.f_stat), float(res.p_value)                  # waits
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    peak_r = torch.cuda.max_memory_reserved() - start_r
+    st = res.ooc_stats
+    launches = {k: v for k, v in launch_counts().items() if v}
+    footprint = pl.ooc_peak
+    log(f"[smoke] ooc {tag}: {dt:.3f}s end to end, sweep {st.sweep_s:.3f}s, "
+        f"stall {st.stall_s:.3f}s; F={f:.7g} p={p:.6g}; read "
+        f"{st.disk_bytes_read} B in {st.n_slabs} x {st.n_slabs + 1} fetches; "
+        f"{st.n_chunks} chunks of {st.chunk} a row slab; launches "
+        f"{launches}; peak above the start {peak / 2 ** 20:.2f} MiB "
+        f"allocated, {peak_r / 2 ** 20:.2f} MiB reserved, of the plan's "
+        f"modelled peak {footprint / 2 ** 20:.2f} MiB ("
+        + ", ".join(f"{k} {v / 2 ** 20:.2f}"
+                    for k, v in pl.ooc_footprint.items())
+        + f") in the {OOC_BUDGET / 2 ** 20:.0f} MiB device budget; "
+        f"{card_line()}")
+    check(res.plan.startswith(pl.describe()),
+          f"ooc {tag}: the run's plan is not the planner's: {res.plan}")
+    check(launches == {kernel: OOC_SLABS * OOC_SLABS},
+          f"ooc {tag}: launches {launches}, expected "
+          f"{OOC_SLABS * OOC_SLABS} {kernel}")
+    check(st.disk_bytes_read == OOC_READ_BYTES,
+          f"ooc {tag}: read {st.disk_bytes_read} B, the traffic model "
+          f"{OOC_READ_BYTES} B")
+    check(footprint <= OOC_BUDGET and max(peak, peak_r) <= footprint,
+          f"ooc {tag}: peak {peak} B allocated, {peak_r} B reserved, "
+          f"modelled peak {footprint} B, budget {OOC_BUDGET} B")
+    check(bool(torch.isfinite(res.f_perms).all()), f"ooc {tag}: non-finite")
+    return res, dt
+
+
+def ooc_emp(dev, root):
+    """(b) The realistic cell on one card: the EMP-width cache built by
+    synthetic_sparse_counts, Bray-Curtis labels at 3,999 permutations,
+    the covariate design (K = 10) at 999 and Aitchison labels at 999 (clr
+    in place on each fetched slab) out of core, each against
+    the same table resident on the card through the in-memory fused
+    bridge at row_block = 2,048, bit for bit."""
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.core import design as design_mod
+    from repro_torch.data.microbiome import (synthetic_design,
+                                             synthetic_sparse_counts)
+    from repro_torch.pipeline import planner, registry
+    t0 = time.perf_counter()
+    cache, grouping = synthetic_sparse_counts(
+        OOC_N, OOC_D, density=OOC_DENSITY, seed=0, slab_rows=OOC_SLAB,
+        cache_dir=os.path.join(root, "emp"))
+    build_s = time.perf_counter() - t0
+    check(cache.disk_bytes == OOC_TABLE_BYTES and cache.n_slabs == OOC_SLABS
+          and cache.rows_in_slab(OOC_SLABS - 1) == OOC_N % OOC_SLAB
+          and registry.ooc_disk_traffic_bytes(cache.n_slabs,
+                                              cache.disk_bytes)
+          == OOC_READ_BYTES,
+          f"ooc cache: {cache.disk_bytes} B in {cache.n_slabs} slabs")
+    g = torch.from_numpy(grouping).to(dev)
+    cov, _, _ = synthetic_design(OOC_N, covariate_names=DESIGN_COVARIATES,
+                                 seed=0)
+    des = design_mod.build(grouping=g, covariates=cov, n_groups=EMP_GROUPS,
+                           device=dev)
+    check(des.k_cols == DESIGN_K, f"ooc design K = {des.k_cols}")
+    log(f"[smoke] ooc cache ({OOC_N}, {OOC_D}) density {OOC_DENSITY}: "
+        f"{cache.disk_bytes} B dense f32 in {cache.n_slabs} slabs of "
+        f"{OOC_SLAB} (last {cache.rows_in_slab(OOC_SLABS - 1)}), built in "
+        f"{build_s:.2f}s")
+    rates = h2d_rates(dev)
+    log(f"[smoke] ooc host -> device, one {H2D_BYTES // 2 ** 20} MiB slab "
+        f"(CUDA events, {H2D_REPS} copies): pinned {rates['pinned']:.2f} "
+        f"GB/s, pageable {rates['pageable']:.2f} GB/s (the host tier's "
+        f"model: {registry.tier_bandwidth_gbps('host', 'cuda'):.2f} GB/s); "
+        f"{card_line()}")
+
+    def plan(n_total, n_groups, k=None, metric="braycurtis"):
+        return planner.plan_pipeline(
+            OOC_N, OOC_D, n_total, n_groups, backend="cuda",
+            metric=metric, design_cols=k, features_on_disk=True,
+            slab_rows=OOC_SLAB, features_disk_bytes=cache.disk_bytes,
+            device_budget_bytes=OOC_BUDGET)
+    runs = [("labels", dict(n_perms=EMP_PERMS),
+             plan(EMP_PERMS + 1, EMP_GROUPS)),
+            ("covariates", dict(n_perms=OOC_DESIGN_PERMS, covariates=cov,
+                                n_groups=EMP_GROUPS),
+             plan(OOC_DESIGN_PERMS + 1, des.n_groups or des.rank,
+                  des.k_cols)),
+            ("aitchison", dict(n_perms=OOC_AITCHISON_PERMS),
+             plan(OOC_AITCHISON_PERMS + 1, EMP_GROUPS,
+                  metric="aitchison"))]
+    for _, _, pl in runs:
+        check(pl.residency == "host" and pl.row_block == OOC_SLAB,
+              f"ooc plan: {pl.describe()}")
+    done = [(tag, kw) + ooc_run(dev, cache, g, tag, pl, **kw)
+            for tag, kw, pl in runs]
+    t0 = time.perf_counter()
+    x = torch.from_numpy(cache.to_array()).to(dev)
+    load_s = time.perf_counter() - t0
+    for (tag, kw, res, dt), (_, _, pl) in zip(done, runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = pipeline.pipeline(x, g, metric=pl.metric, seed=0,
+                                materialize="fused", row_block=OOC_SLAB,
+                                device=dev, **kw)
+        float(ref.f_stat)
+        ref_s = time.perf_counter() - t0
+        ooc_identical(f"EMP {tag}", res, ref)
+        log(f"[smoke] ooc {tag}: F, p, s_T and the null equal the resident "
+            f"table's in-memory fused bridge (row_block {OOC_SLAB}) bit for "
+            f"bit; resident {ref_s:.3f}s (+ {load_s:.3f}s to read the "
+            f"cache and copy it up once) against {dt:.3f}s out of core")
+    del x
+
+
+def phase_ooc(dev):
+    """Phase 21: (a) identity at small sizes, (b) the realistic cell. The
+    caches live in a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="repro_torch_ooc.")
+    try:
+        ooc_row_blocks_identity(dev, root)
+        ooc_pipeline_identity(dev, root)
+        ooc_emp(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import tempfile
 
@@ -3645,6 +3997,9 @@ def run_phases(torch, dev, cache_dir) -> int:
     t0 = time.perf_counter()
     phase_ordination(dev, x, grouping)
     log(f"[smoke] phase 20 (ordination) {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_ooc(dev)
+    log(f"[smoke] phase 21 (out of core) {time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 
     print(json.dumps({"kernels": rows}))

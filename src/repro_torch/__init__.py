@@ -6,10 +6,12 @@ each module here has a twin there at the same relative path:
 
   hw.py          H100 SXM datasheet constants and device resolution
   data/          synthetic microbiome studies (numpy, same draws per seed)
+                 and the disk slab cache with its prefetcher to the card
   core/          permutations, s_W forms (fstat), distances, permanova()
   kernels/       hand-written CUDA C++ kernels (sm_90a) + plain versions
   engine/        s_W registry, planner, streaming scheduler, run()
-  launch/        the permanova CLI (matrix path)
+  pipeline/      features -> p under one plan (bridges, out of core)
+  launch/        the permanova CLI (matrix, features and cache paths)
 
 Entry points run on the card (`device="cuda"`) and raise when there is
 none; pass `device="cpu"` to run the plain PyTorch forms on the host.

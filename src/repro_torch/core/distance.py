@@ -34,11 +34,61 @@ def presence_prepare(x) -> torch.Tensor:
     return (torch.as_tensor(x) > 0).to(torch.float32)
 
 
+def clr_prepare_(x: torch.Tensor, *,
+                 pseudocount: float = 0.5) -> torch.Tensor:
+    """clr_prepare in place on a float32 tensor the caller owns: the same
+    operations, so the same bits, and no copy of it."""
+    x.add_(pseudocount).log_()
+    return x.sub_(x.mean(dim=-1, keepdim=True))
+
+
+def presence_prepare_(x: torch.Tensor) -> torch.Tensor:
+    """presence_prepare in place on a float32 tensor the caller owns."""
+    return x.gt_(0)
+
+
+_INPLACE_PREPARE = {clr_prepare: clr_prepare_,
+                    presence_prepare: presence_prepare_}
+
+
+def inplace_prepare(prepare):
+    """The in-place twin of a prepare that copies its input (clr,
+    presence), else `prepare` itself: for a caller that owns each float32
+    tensor it prepares, as the out-of-core sweep owns its fetched
+    slabs."""
+    return _INPLACE_PREPARE.get(prepare, prepare)
+
+
+# Elements of the (rows, n, d) products a CPU Gram block multiplies at once.
+_GRAM_BLOCK_ELEMS = 2 ** 22
+
+
+def _cross_rows(xb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(block, n) dot products xb @ x.T. On the CPU each pair is a
+    multiply-and-sum over its d features, in row blocks of bounded
+    products: a CPU matmul picks its blocking by the call's width, so a
+    pair's bits would depend on how many columns share the call (the
+    out-of-core sweep builds a row slab from (slab, slab) tiles). On the
+    card the matmul stays (its sums are held to float64 there); only a
+    pinned '<metric>.blocked' / '.dense' impl reaches it, and cuBLAS may
+    pick its split-k by shape, so their out-of-core run is not promised
+    the in-memory bits (the '.cuda' kernels are)."""
+    if x.device.type != "cpu":
+        return xb @ x.T
+    rows = max(1, _GRAM_BLOCK_ELEMS // max(x.shape[0] * x.shape[1], 1))
+    out = torch.empty((xb.shape[0], x.shape[0]), dtype=torch.float32)
+    for lo in range(0, xb.shape[0], rows):
+        out[lo:lo + rows] = (xb[lo:lo + rows, None, :]
+                             * x[None, :, :]).sum(dim=-1)
+    return out
+
+
 def euclidean_rows(xb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(block, n) Euclidean distances via the Gram trick."""
+    """(block, n) Euclidean distances via the Gram trick; on the CPU each
+    pair's bits do not depend on the call's shape (_cross_rows)."""
     sq_b = (xb * xb).sum(dim=-1)[:, None]
     sq = (x * x).sum(dim=-1)[None, :]
-    d2 = sq_b + sq - 2.0 * (xb @ x.T)
+    d2 = sq_b + sq - 2.0 * _cross_rows(xb, x)
     return torch.sqrt(d2.clamp(min=0.0))
 
 
@@ -67,15 +117,15 @@ def pack_presence_bits(xprep) -> torch.Tensor:
     torch has little uint32 support, so the words are int32 with the same
     bits: built in int64, then values >= 2^31 are folded down by 2^32
     before the cast (an out-of-range int64 -> int32 cast is not defined
-    to wrap)."""
+    to wrap). The words are built one bit position at a time (features
+    k, 32 + k, ...), so the transients are word-sized, not an int64 copy
+    of the table."""
     x = torch.as_tensor(xprep)
     n, d = x.shape
-    bits = (x > 0).to(torch.int64)
-    pad = (-d) % 32
-    if pad:
-        bits = torch.nn.functional.pad(bits, (0, pad))
-    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
-    words = (bits.reshape(n, -1, 32) << shifts).sum(dim=-1)
+    words = torch.zeros((n, -(-d // 32)), dtype=torch.int64, device=x.device)
+    for k in range(min(32, d)):
+        bits = x[:, k::32] > 0
+        words[:, :bits.shape[1]] |= bits.to(torch.int64) << k
     words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
     return words.to(torch.int32)
 

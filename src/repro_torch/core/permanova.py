@@ -61,6 +61,8 @@ class PermanovaResult:
                                    # None on the plain single-factor path
     ordination: object = None  # pipeline.ordination.PCoAResult when the
                                # caller asked for ordination=k
+    ooc_stats: object = None   # pipeline.streaming.OocStats of a sweep
+                               # run out of core (slab-cache features)
 
     @property
     def r2(self) -> torch.Tensor:

@@ -3,8 +3,9 @@
 A copy of the reference's generators (`repro/data/microbiome.py`), so the
 two packages draw the same study from the same `seed`: compositional
 abundance tables with a planted group effect (effect_size=0 is the exact
-null; effect_size >> 0 gives p ~ 1/(n_perms+1)), and design columns
-(covariates, strata, weights) to go with them.
+null; effect_size >> 0 gives p ~ 1/(n_perms+1)), design columns
+(covariates, strata, weights) to go with them, and an EMP-scale sparse
+count table written straight into a slab cache (data.slabcache).
 """
 
 from __future__ import annotations
@@ -39,6 +40,38 @@ def synthetic_study(n_samples: int, n_features: int, n_groups: int, *,
                              size=(int((grouping == g).sum()), len(feat)))
             x[np.ix_(grouping == g, feat)] += bump.astype(np.float32)
     return x, grouping
+
+
+def synthetic_sparse_counts(n_samples: int, n_features: int, *,
+                            density: float = 0.1, seed: int = 0,
+                            cache_dir=None, slab_rows: int = 1024,
+                            fmt: str = "dense", n_groups: int = 8):
+    """An EMP-scale sparse count table written straight into a slab cache.
+
+    Generates one row slab at a time from np.random.default_rng((seed,
+    slab)), so any slab is reproducible on its own, and appends it to a
+    SlabCacheWriter: the (n, d) table never exists in memory. fmt='csr'
+    stores the presence structure only (jaccard's diet). The table and
+    the grouping equal the reference's for the same arguments. Returns
+    (SlabCache, grouping (n,) int32)."""
+    from repro_torch.data import slabcache as _slabcache
+    if cache_dir is None:
+        raise ValueError("synthetic_sparse_counts writes a slab cache; "
+                         "pass cache_dir=")
+    slab_rows = max(1, min(int(slab_rows), n_samples))
+    writer = _slabcache.SlabCacheWriter(cache_dir, d=n_features,
+                                        slab_rows=slab_rows, fmt=fmt)
+    for slab_idx, lo in enumerate(range(0, n_samples, slab_rows)):
+        rows = min(slab_rows, n_samples - lo)
+        rng = np.random.default_rng((seed, slab_idx))
+        x = rng.gamma(0.7, 1.0, size=(rows, n_features)).astype(np.float32)
+        x[rng.random((rows, n_features)) >= density] = 0.0
+        writer.append(x)
+    cache = writer.finalize()
+    grng = np.random.default_rng((seed, 0x6772))   # a label stream of its own
+    grouping = grng.integers(0, n_groups, size=n_samples).astype(np.int32)
+    grouping[:n_groups] = np.arange(n_groups)   # every group non-empty
+    return cache, grouping
 
 
 def synthetic_design(n_samples: int, *, covariate_names=("age", "depth"),

@@ -29,6 +29,16 @@ under one joint plan (distance kernel, bridge, s_W).
       --samples 25145 --perms 3999 --from-features \
       --covariates age,depth --strata site:4 --weights
 
+  # out of core: the table in a slab cache under DIR (built from the
+  # synthetic study on first use, opened after that); below the device
+  # budget's residency the sweep streams slabs from disk through the
+  # prefetcher into the fused bridge's sweep, one distance launch a
+  # (row slab, column slab) pair:
+  PYTHONPATH=src python -m repro_torch.launch.permanova \
+      --samples 25145 --features 16384 --perms 999 \
+      --features-cache /path/to/cache --slab-rows 2048 \
+      --device-budget-mb 1536
+
   # measured instead of heuristic picks (winners persist in
   # $REPRO_TORCH_AUTOTUNE_CACHE, default ~/.cache/repro_torch/autotune.json),
   # and the top-3 PCoA axes from the same dataflow:
@@ -42,6 +52,7 @@ Runs on the card (`--device cuda`, the default) and fails without one;
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -49,7 +60,9 @@ import torch
 from repro_torch import engine, pipeline
 from repro_torch.core.distance import (distance_matrix,
                                        validate_distance_matrix)
+from repro_torch.data import slabcache
 from repro_torch.data.microbiome import synthetic_design, synthetic_study
+from repro_torch.pipeline import planner as _pplanner
 from repro_torch.hw import resolve_device
 
 IMPL_CHOICES = ["auto", "brute", "tiled", "matmul",
@@ -113,6 +126,27 @@ def main(argv=None) -> int:
                          "'braycurtis.cuda', 'euclidean.blocked'); "
                          "'auto' = pipeline planner; implies "
                          "--from-features")
+    ap.add_argument("--features-cache", default=None, metavar="DIR",
+                    help="run from a disk slab cache at DIR (built from "
+                         "the synthetic study on first use, opened after "
+                         "that): below the device budget's residency the "
+                         "table never lives in memory whole, its slabs "
+                         "stream through the prefetcher into the fused "
+                         "sweep; implies the pipeline path")
+    ap.add_argument("--cache-format", default="dense",
+                    choices=list(slabcache.FORMATS),
+                    help="slab-cache storage when building --features-"
+                         "cache: raw f32 rows, or csr presence structure "
+                         "(jaccard only: reads nonzeros, not zeros)")
+    ap.add_argument("--slab-rows", type=int, default=None, metavar="R",
+                    help="slab height when building --features-cache "
+                         "(default: the planner's plan_slab_rows for the "
+                         "device budget)")
+    ap.add_argument("--device-budget-mb", type=float, default=None,
+                    help="device-memory budget grading the feature "
+                         "residency tier (hbm / host / disk) of "
+                         "--features-cache runs; below the table's f32 "
+                         "size the sweep runs out of core")
     ap.add_argument("--pcoa", type=int, default=None, metavar="K",
                     help="also compute the top-K PCoA ordination axes "
                          "(coordinates + explained variance) from the "
@@ -167,19 +201,42 @@ def main(argv=None) -> int:
         fused_tuning = pipeline.registry.precision_tuning(
             args.feat_precision)
 
+    features = torch.from_numpy(x)
+    dev_budget = (None if args.device_budget_mb is None
+                  else args.device_budget_mb * 2**20)
+    if args.features_cache is not None:
+        if os.path.exists(os.path.join(args.features_cache,
+                                       slabcache.META_NAME)):
+            features = slabcache.SlabCache.open(args.features_cache)
+            print(f"[permanova] opened slab cache {args.features_cache}: "
+                  f"{features.n_slabs} slabs x {features.slab_rows} rows "
+                  f"({features.fmt})")
+        else:
+            rows = args.slab_rows or _pplanner.plan_slab_rows(
+                args.samples, args.features, device_budget_bytes=dev_budget)
+            features = slabcache.build_slab_cache(
+                args.features_cache, x, slab_rows=rows,
+                fmt=args.cache_format)
+            print(f"[permanova] built slab cache {args.features_cache}: "
+                  f"{features.n_slabs} slabs x {features.slab_rows} rows, "
+                  f"{features.disk_bytes/2**20:.1f} MiB on disk "
+                  f"({args.cache_format})")
+
     if args.from_features or args.materialize != "auto" \
             or args.dist_impl != "auto" or args.fused_impl != "auto" \
-            or args.pcoa is not None or design_path:
+            or args.pcoa is not None or design_path \
+            or args.features_cache is not None:
         t0 = time.perf_counter()
         res = pipeline.pipeline(
-            torch.from_numpy(x), torch.from_numpy(grouping),
+            features, torch.from_numpy(grouping),
             metric=args.metric, n_perms=args.perms, seed=args.seed,
             dist_impl=args.dist_impl, sw_impl=args.impl,
             materialize=args.materialize, chunk=args.chunk,
             fused_impl=args.fused_impl, fused_tuning=fused_tuning,
             memory_budget_bytes=budget, ordination=args.pcoa,
             covariates=covariates, strata=strata, weights=weights,
-            autotune=args.autotune, device=dev)
+            autotune=args.autotune, device_budget_bytes=dev_budget,
+            device=dev)
         f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
         t_pa = time.perf_counter() - t0
         print(f"[permanova] n={args.samples} groups={args.groups} "

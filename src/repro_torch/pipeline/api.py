@@ -16,7 +16,9 @@ dense bridge, the implicit centered operator on the stream bridge's mat2,
 the feature-streamed slabs on the fused bridges. `autotune=True` runs the
 planners' shoot-outs where they apply: stage 1 on the dense and stream
 bridges (and the s_W impl in engine.run), the fused-kernel impl on the
-fused-kernel bridge.
+fused-kernel bridge. Features in a slab cache (data.slabcache, or its
+directory) go through `_pipeline_ooc`: read once into the resident path
+while the f32 table fits the device budget, else the out-of-core sweep.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro_torch.core import design as _design
 from repro_torch.core import permutations
 from repro_torch.core.permanova import (PermanovaResult, _later, f_from_sw,
                                         p_value_from_null)
+from repro_torch.data import slabcache as _slabcache
 from repro_torch.pipeline import ordination as _ordination
 from repro_torch.pipeline import planner as _planner
 from repro_torch.pipeline import registry as _registry
@@ -56,10 +59,26 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
              mesh=None, ordination: Optional[int] = None,
              covariates=None, strata=None, weights=None,
              autotune: bool = False, trace=None,
+             device_budget_bytes: Optional[float] = None,
+             host_budget_bytes: Optional[float] = None,
              device="cuda") -> PermanovaResult:
     """Full features->p-value PERMANOVA under one joint plan.
 
-    x:           (n, d) abundance table (raw features, NOT distances).
+    x:           (n, d) abundance table (raw features, NOT distances), or
+                 a data.slabcache.SlabCache (or its directory path): the
+                 table stays on disk and the planner grades its residency
+                 against device_budget_bytes (default 2 GiB) and
+                 host_budget_bytes (32 GiB); below 'hbm' the sweep runs
+                 out of core (slabs streamed through the prefetcher into
+                 the fused bridge's sweep; its OocStats in
+                 `result.ooc_stats`), F, p and the null equal to the
+                 in-memory fused bridge at row_block == slab_rows bit for
+                 bit on the CPU forms and the card's '<metric>.cuda'
+                 kernels. A pinned '<metric>.blocked' or '.dense' impl on
+                 the card runs cuBLAS, whose split-k choice may depend on
+                 the call's shape: out of core it is called on (slab,
+                 slab) tiles, in memory on (slab, n), so there the
+                 identity is not promised.
     materialize: 'auto' | 'dense' | 'stream' | 'fused' | 'fused-kernel' —
                  whether the (n, n) matrix D is built outright (D and mat2
                  both resident), its squared row blocks are streamed into
@@ -104,38 +123,40 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
     device:      'cuda' (default; raises without a card) or 'cpu'.
 
     Budgets split per stage: matrix/slab for distances,
-    memory_budget_bytes for s_W labels. mesh (with or without a design),
-    trace and out-of-core features (a slab cache or its path) raise
-    NotImplementedError naming their slice. For the same labels every
-    bridge gives the same F and p-value (to f32 accumulation order).
+    memory_budget_bytes for s_W labels. mesh (with or without a design)
+    and trace raise NotImplementedError naming their slice (a slab cache
+    with a mesh raises ValueError, as the reference does). For the same
+    labels every bridge gives the same F and p-value (to f32 accumulation
+    order).
     """
-    if isinstance(x, (str, os.PathLike)) or hasattr(x, "n_slabs"):
-        raise _later("out-of-core features (a slab cache or its path)",
-                     "out-of-core")
-    if mesh is not None:
-        raise _later("mesh execution", "multi-device")
     if trace:
         raise _later("trace=", "tracing (obs)")
     dev = hw.resolve_device(device)
+    if isinstance(x, (str, os.PathLike)):
+        x = _slabcache.SlabCache.open(x)
+    if isinstance(x, _slabcache.SlabCache):
+        return _pipeline_ooc(
+            x, grouping, metric=metric, n_perms=n_perms, seed=seed,
+            perms=perms, index_perms=index_perms, n_groups=n_groups,
+            dist_impl=dist_impl, sw_impl=sw_impl, materialize=materialize,
+            row_block=row_block, chunk=chunk,
+            memory_budget_bytes=memory_budget_bytes,
+            matrix_budget_bytes=matrix_budget_bytes,
+            slab_budget_bytes=slab_budget_bytes, dist_tuning=dist_tuning,
+            fused_impl=fused_impl, fused_tuning=fused_tuning, mesh=mesh,
+            ordination=ordination, covariates=covariates, strata=strata,
+            weights=weights, autotune=autotune,
+            device_budget_bytes=device_budget_bytes,
+            host_budget_bytes=host_budget_bytes, dev=dev)
+    if mesh is not None:
+        raise _later("mesh execution", "multi-device")
     x = torch.as_tensor(x).to(dev, torch.float32)
     if x.dim() != 2:
         raise ValueError(f"features must be (n, d); got shape "
                          f"{tuple(x.shape)}")
     n, d = x.shape
-    design = None
-    if isinstance(grouping, _design.Design):
-        if covariates is not None or strata is not None \
-                or weights is not None:
-            raise ValueError("pass covariates/strata/weights either to "
-                             "pipeline() or inside the Design, not both")
-        design = grouping.to(dev)
-    elif covariates is not None or strata is not None or weights is not None:
-        design = _design.build(grouping=grouping, covariates=covariates,
-                               strata=strata, weights=weights,
-                               n_groups=n_groups, n=int(n), device=dev)
-    if design is not None and design.is_plain_labels:
-        grouping, n_groups, design = (design.grouping, design.n_groups,
-                                      None)
+    grouping, n_groups, design = _build_design(
+        grouping, covariates, strata, weights, n_groups, n, dev)
     if design is not None:
         return _pipeline_design(
             x, design, metric=metric, n_perms=n_perms, seed=seed,
@@ -261,14 +282,22 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
             perms=perms, index_perms=index_perms,
             draw_budget=_draw_budget(pl, draw_budget))
         ran = _kernel_ran(stats)
+    return _sweep_result(
+        s_w, s_t, n, n_groups, n_perms,
+        method=f"pipeline[{pl.dist_impl}->{pl.materialize}->{pl.sw.impl}]",
+        plan=f"{pl.describe()} :: {ran}")
+
+
+def _sweep_result(s_w, s_t, n: int, n_groups: int, n_perms: int, *,
+                  method: str, plan: str) -> PermanovaResult:
+    """F and p from a labels sweep's float64 s_W (n_perms + 1,) and s_T,
+    as engine.run assembles them."""
     s_t = s_t.to(torch.float32)
     f_all = f_from_sw(s_w.to(torch.float32), s_t, n, n_groups)
     return PermanovaResult(
         f_stat=f_all[0], p_value=p_value_from_null(f_all), s_t=s_t,
         s_w=s_w[0].to(torch.float32), f_perms=f_all, n_objects=n,
-        n_groups=n_groups, n_perms=n_perms,
-        method=f"pipeline[{pl.dist_impl}->{pl.materialize}->{pl.sw.impl}]",
-        plan=f"{pl.describe()} :: {ran}")
+        n_groups=n_groups, n_perms=n_perms, method=method, plan=plan)
 
 
 def _kernel_ran(stats) -> str:
@@ -290,6 +319,165 @@ def _draw_budget(pl: _planner.PipelinePlan, memory_budget_bytes):
     label budget itself."""
     return (memory_budget_bytes if pl.draw_budget is None
             else pl.draw_budget)
+
+
+def _build_design(grouping, covariates, strata, weights, n_groups, n: int,
+                  dev: torch.device):
+    """The call's design (a Design passed as the grouping, or built from
+    covariates / strata / weights), or None for plain labels; a plain
+    labels design comes back as (grouping, n_groups, None)."""
+    design = None
+    if isinstance(grouping, _design.Design):
+        if covariates is not None or strata is not None \
+                or weights is not None:
+            raise ValueError("pass covariates/strata/weights either to "
+                             "pipeline() or inside the Design, not both")
+        design = grouping.to(dev)
+    elif covariates is not None or strata is not None or weights is not None:
+        design = _design.build(grouping=grouping, covariates=covariates,
+                               strata=strata, weights=weights,
+                               n_groups=n_groups, n=int(n), device=dev)
+    if design is not None and design.is_plain_labels:
+        return design.grouping, design.n_groups, None
+    return grouping, n_groups, design
+
+
+def _pipeline_ooc(cache: _slabcache.SlabCache, grouping, *, metric: str,
+                  n_perms: int, seed: int, perms, index_perms, n_groups,
+                  dist_impl, sw_impl, materialize, row_block, chunk,
+                  memory_budget_bytes, matrix_budget_bytes,
+                  slab_budget_bytes, dist_tuning, fused_impl, fused_tuning,
+                  mesh, ordination, covariates, strata, weights, autotune,
+                  device_budget_bytes, host_budget_bytes,
+                  dev: torch.device) -> PermanovaResult:
+    """pipeline() when the features live in a slab cache.
+
+    The planner grades the residency tier from the f32 table: 'hbm'
+    reads the cache once and runs the ordinary resident path (its plan
+    marked `features=slab-cache(residency=hbm)`); 'host' / 'disk' run the
+    out-of-core sweep (pipeline.streaming.fused_sw_ooc: the prefetcher
+    streams slab k+1 while slab k's distance tiles are built, on the card
+    by the distance kernel, one launch a (row slab, column slab) pair,
+    and the fused bridge's own sweep contracts each assembled row slab),
+    so F, p and the null are the in-memory fused bridge's at row_block ==
+    slab_rows bit for bit, for labels, labels within strata and dense
+    designs (on the card through the '.cuda' kernels; a pinned cuBLAS
+    impl is not promised it). Out of core, ordination raises (it needs resident
+    features) and autotune is ignored with a warning (its shoot-outs run
+    on resident operands).
+    """
+    n, d = cache.n, cache.d
+    n_total = n_perms + 1
+    if mesh is not None:
+        raise ValueError("slab-cache features run single-device; mesh "
+                         "execution needs the resident table")
+    if cache.fmt == "csr" and metric != "jaccard":
+        raise ValueError(
+            f"csr slab caches store presence structure only; metric "
+            f"{metric!r} needs the dense format (jaccard reads it)")
+    grouping, n_groups, design = _build_design(
+        grouping, covariates, strata, weights, n_groups, n, dev)
+    dense_mode = design is not None and design.mode == _design.MODE_DENSE
+    if design is None:
+        if grouping is None:
+            raise ValueError("pipeline needs grouping labels, covariates, "
+                             "or a Design")
+        grouping = torch.as_tensor(grouping).to(dev, torch.int32)
+        if n_groups is None:
+            n_groups = int(grouping.max()) + 1
+        n_groups_plan = n_groups
+    else:
+        if design.n != n:
+            raise ValueError(f"design is for n={design.n}, cache is "
+                             f"({n}, {d})")
+        if dense_mode and perms is not None:
+            raise ValueError("perms= (explicit labels) applies to "
+                             "labels-mode designs; a dense design takes "
+                             "index_perms=")
+        n_groups_plan = (design.n_groups if design.n_groups is not None
+                         else design.rank)
+    k = design.k_cols if dense_mode else None
+    pl = _planner.plan_pipeline(
+        n, d, n_total, n_groups_plan, backend=dev.type, metric=metric,
+        dist_impl=dist_impl, materialize=materialize, row_block=row_block,
+        matrix_budget_bytes=matrix_budget_bytes,
+        slab_budget_bytes=slab_budget_bytes,
+        memory_budget_bytes=memory_budget_bytes, sw_impl=sw_impl,
+        chunk=chunk, fused_impl=fused_impl, fused_tuning=fused_tuning,
+        design_cols=k, draw=("strata" if design is not None
+                             and not dense_mode else "labels"),
+        features_on_disk=True, slab_rows=cache.slab_rows,
+        features_disk_bytes=cache.disk_bytes,
+        device_budget_bytes=device_budget_bytes,
+        host_budget_bytes=host_budget_bytes, dist_tuning=dist_tuning,
+        sparse_design=dense_mode and bool(_streaming._design_groups(design)))
+
+    if pl.residency == "hbm":
+        # the f32 table fits the device budget: read the cache ONCE and
+        # run the ordinary resident path
+        res = pipeline(
+            torch.from_numpy(cache.to_array()),
+            grouping if design is None else design, metric=metric,
+            n_perms=n_perms, seed=seed, perms=perms,
+            index_perms=index_perms, n_groups=n_groups,
+            dist_impl=dist_impl, sw_impl=sw_impl, materialize=materialize,
+            row_block=row_block, chunk=chunk,
+            memory_budget_bytes=memory_budget_bytes,
+            matrix_budget_bytes=matrix_budget_bytes,
+            slab_budget_bytes=slab_budget_bytes, dist_tuning=dist_tuning,
+            fused_impl=fused_impl, fused_tuning=fused_tuning,
+            ordination=ordination, autotune=autotune, device=dev)
+        return dataclasses.replace(
+            res, plan=f"{res.plan} | features=slab-cache(residency=hbm)")
+
+    if ordination is not None:
+        raise ValueError(
+            "ordination needs resident features; raise "
+            "device_budget_bytes (residency must reach 'hbm') or run it "
+            "separately on a subsample")
+    if autotune:
+        warnings.warn(
+            "autotune=True ignored out of core: the shoot-outs run on "
+            "resident operands", stacklevel=3)
+    prepare, rows_fn, _ = _registry.get(pl.dist_impl).bound(
+        **{**pl.dist_tuning, **(dist_tuning or {})})
+    sweep_kw = dict(chunk=pl.sw.chunk, seed=seed, index_perms=index_perms,
+                    draw_budget=memory_budget_bytes)
+    if design is None:
+        inv_gs = permutations.inv_group_sizes(grouping, n_groups)
+        s_w, s_t, ost = _streaming.fused_sw_ooc(
+            cache, prepare, rows_fn, grouping, inv_gs, n_total,
+            perms=perms, **sweep_kw)
+    elif dense_mode:
+        s_cols, _, ost = _streaming.fused_sw_ooc_design(
+            cache, prepare, rows_fn, design, n_total, **sweep_kw)
+    else:
+        inv_gs = permutations.inv_group_sizes(design.grouping,
+                                              design.n_groups)
+        s_w, s_t, ost = _streaming.fused_sw_ooc(
+            cache, prepare, rows_fn, design.grouping, inv_gs, n_total,
+            perms=perms, strata=design.strata, **sweep_kw)
+
+    sweep = (f"residency={pl.residency} slabs={ost.n_slabs}"
+             f"x{ost.slab_rows} chunks={ost.n_chunks} "
+             f"read={ost.disk_bytes_read/2**20:.1f}MiB "
+             f"stall={ost.stall_s*1e3:.1f}ms/{ost.sweep_s*1e3:.0f}ms "
+             f"tiles={ost.tiles} ({pl.dist_impl})")
+    form = f"ooc-{pl.materialize}"
+    if design is None:
+        res = _sweep_result(s_w, s_t, n, n_groups, n_perms,
+                            method=f"pipeline[{form}]", plan=sweep)
+    elif dense_mode:
+        res = engine.design_result(
+            s_cols.to(torch.float32), design, n_objects=n, n_perms=n_perms,
+            method=f"pipeline-design[{form}]", plan=sweep)
+    else:
+        res = engine.label_design_result(
+            s_w.to(torch.float32), s_t.to(torch.float32), design,
+            n_objects=n, n_perms=n_perms, method=f"pipeline[{form}+strata]",
+            plan=f"{sweep} strata")
+    return dataclasses.replace(res, plan=f"{pl.describe()} :: {res.plan}",
+                               ooc_stats=ost)
 
 
 def _pipeline_design(x: torch.Tensor, design: _design.Design, *,

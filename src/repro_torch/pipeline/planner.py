@@ -21,6 +21,18 @@ in one place:
             = K basis columns: the per-column companion and a chunk sized
             for the (chunk, n, K) basis factor)
 
+Features in a slab cache (`features_on_disk`) are graded by residency
+tier: 'hbm' while the f32 table fits `device_budget_bytes` (the ordinary
+resident plan), else 'host' / 'disk', the out-of-core sweep, with the
+reference's rules: the row block IS the cache's slab height, 'auto'
+becomes the fused-kernel form, which out of core is the torch sweep over
+the assembled row slabs (the megakernel needs resident features: pinning
+it raises, as do the dense and stream bridges and a precision knob). On
+the card the out-of-core plan also models the sweep's device footprint
+(`ooc_footprint`: feature slabs in flight, the mat2 row slab, the tiles,
+the label chunk's transients; `ooc_peak_bytes` their peak) and raises
+where it exceeds the device budget.
+
 On 'cuda' stage 1 is always `<metric>.cuda` and the fused-kernel sweep
 `<metric>.fusedk.cuda`: the kernels mask ragged shapes, so the TPU's
 tile-viability floor (PALLAS_MIN_N) has no counterpart, just as
@@ -52,6 +64,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import permutations as _perm
+from repro_torch.data.slabcache import PREFETCH_DEPTH
 from repro_torch.engine import planner as _eplanner
 from repro_torch.kernels import ShapeNotSupported
 from repro_torch.kernels.fused_sw import ops as _fops
@@ -93,6 +106,11 @@ DRAW_KINDS = ("labels", "strata")
 
 MATERIALIZE_MODES = ("dense", "stream", "fused", "fused-kernel")
 FUSED_MODES = ("fused", "fused-kernel")
+# Residency budgets for the out-of-core decision: the f32 feature table
+# must fit the device budget to run the resident bridges; the host budget
+# only grades the bandwidth model (page-cache-warm against cold reads).
+DEFAULT_DEVICE_BUDGET_BYTES = 2 * 1024 ** 3
+DEFAULT_HOST_BUDGET_BYTES = 32 * 1024 ** 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,16 +138,34 @@ class PipelinePlan:
     draw: str = "labels"                  # their kind (a dense design's:
                                           # 'index')
     budget: Optional[float] = None        # the label budget they share
+    residency: str = "hbm"                # where the features LIVE during
+                                          # the sweep (registry tier)
+    slab_rows: int = 0                    # a slab cache's slab height
+    disk_bytes: int = 0                   # its on-disk footprint
+    ooc_footprint: Optional[Dict[str, int]] = None  # card's out-of-core
+                                          # plans: the sweep's device
+                                          # footprint by part
+    device_budget: Optional[float] = None  # the budget its peak is held to
+
+    @property
+    def ooc_peak(self) -> Optional[int]:
+        """The out-of-core footprint's peak (ooc_peak_bytes), or None."""
+        if self.ooc_footprint is None:
+            return None
+        return ooc_peak_bytes(self.ooc_footprint)
 
     def explain(self) -> str:
-        """describe() plus the precision-aware memory model of a
-        fused-kernel plan: the predicted feature bytes per permutation
-        chunk and the workset for each precision of the planned fused
-        impl, the planned one marked; on the card, the workset's split
-        (partials and their slots, labels or index and basis, the draw's
-        sub-blocks) against the budget. (The reference's residency table
-        comes with the out-of-core slice.)"""
+        """describe() plus, for a slab cache below 'hbm', the residency
+        line, the tier bandwidth table, the predicted slab-cache traffic
+        and on the card the sweep's device footprint; then the
+        precision-aware memory model of a fused-kernel plan: the predicted
+        feature bytes per permutation chunk and the workset for each
+        precision of the planned fused impl, the planned one marked; on
+        the card, the workset's split (partials and their slots, labels or
+        index and basis, the draw's sub-blocks) against the budget."""
         lines = [self.describe()]
+        if self.residency != "hbm" and self.slab_rows and self.n:
+            lines += self.residency_lines()
         if self.materialize != "fused-kernel" or not self.fused_impl \
                 or not self.n:
             return "\n".join(lines)
@@ -153,6 +189,33 @@ class PipelinePlan:
             lines.append(f"  {tag:>6}: {traffic/2**20:9.2f} MiB feat "
                          f"traffic, {workset/2**20:8.3f} MiB workset{mark}")
         return "\n".join(lines)
+
+    def residency_lines(self) -> list:
+        """The out-of-core plan's residency, tier bandwidths, predicted
+        slab-cache traffic and (on the card) device footprint."""
+        n_slabs = -(-self.n // self.slab_rows)
+        traffic = _dreg.ooc_disk_traffic_bytes(n_slabs, self.disk_bytes)
+        gbps = _dreg.tier_bandwidth_gbps(self.residency, self.backend)
+        lines = [
+            f"residency: {self.residency} (features "
+            f"{4 * self.n * self.d / 2**20:.0f} MiB f32 exceed the "
+            f"device budget; {n_slabs} slabs x {self.slab_rows} rows)",
+            "tier bandwidth model (GB/s): " + ", ".join(
+                f"{t}={_dreg.tier_bandwidth_gbps(t, self.backend):.1f}"
+                for t in _dreg.backend_tiers(self.backend)),
+            f"predicted slab-cache traffic per sweep: "
+            f"{traffic / 2**20:.1f} MiB ({n_slabs + 1} passes over "
+            f"{self.disk_bytes / 2**20:.1f} MiB on disk, independent "
+            f"of n_perms), ~{traffic / (gbps * 1e9) * 1e3:.1f} ms at "
+            f"the {self.residency} tier"]
+        if self.ooc_footprint is not None:
+            split = ", ".join(f"{k} {v / 2 ** 20:.2f}MiB"
+                              for k, v in self.ooc_footprint.items())
+            lines.append(
+                f"sweep device footprint: {split}; peak (the slab and the "
+                f"label phase never overlap) {self.ooc_peak / 2 ** 20:.2f}"
+                f"MiB of {self.device_budget / 2 ** 20:.2f}MiB")
+        return lines
 
     def workset_split(self) -> str:
         """The card's fused-kernel workset at the plan's chunk, by part,
@@ -400,6 +463,109 @@ def _pick_row_block(n: int, d: int, impl: _dreg.DistanceImpl,
     return max(MIN_ROW_BLOCK, min(block, n))
 
 
+def plan_slab_rows(n: int, d: int, *,
+                   device_budget_bytes: Optional[float] = None) -> int:
+    """Slab height for BUILDING a cache destined for the out-of-core
+    sweep: the largest power-of-two block whose live footprint (a row slab
+    and a column slab of features, and the assembled (slab, n) mat2 row
+    slab) stays a sixteenth of the device budget, leaving the rest to the
+    permutation chunks."""
+    budget = (DEFAULT_DEVICE_BUDGET_BYTES if device_budget_bytes is None
+              else device_budget_bytes)
+    per_slab = budget / 16.0
+    block = MAX_ROW_BLOCK
+    while block > MIN_ROW_BLOCK and 4.0 * block * (2 * d + n) > per_slab:
+        block //= 2
+    return max(MIN_ROW_BLOCK, min(block, n))
+
+
+def _ooc_label_bytes(n: int, slab_rows: int, chunk: int, n_groups: int,
+                     n_cols: Optional[int], draw: str, draw_rows: int,
+                     sparse: bool) -> int:
+    """Peak bytes of one permutation chunk of the out-of-core sweep (the
+    plain one-hot step, pipeline.streaming._sweep / _sweep_cols), beside
+    the mat2 row slab: labels, the (chunk, n) int32 labels and the
+    largest of their draw's sub-block (core.permutations' model), the
+    int64 labels and one-hot in core.fstat.onehot_perm_factors (8 P n +
+    8 P n G, then 8 + 4 P n G while it casts), and the one-hot with its
+    (n, P G) copy and the (slab, P G) product and its weighting
+    (sw_matmul_contract); a dense design, the (chunk, n) index and its
+    draw or the (chunk, n, K) gathered basis, plus for a block-sparse
+    design a group's column gather of the slab and of the basis."""
+    p = int(chunk)
+    if n_cols is None:
+        g = int(n_groups)
+        body = max(8 * p * n + 8 * p * n * g, 12 * p * n * g,
+                   8 * p * n * g + 8 * slab_rows * p * g)
+        return 4 * p * n + max(_perm.draw_transient_bytes(draw_rows, n,
+                                                          draw), body)
+    k = int(n_cols)
+    body = 4 * p * n * k
+    if sparse:
+        body += 4 * slab_rows * n + 8 * p * n * k
+    return 4 * p * n + max(_perm.draw_transient_bytes(draw_rows, n,
+                                                      "index"), body)
+
+
+# The parts of the out-of-core footprint that only one phase of the sweep
+# holds: the slab phase builds a row slab's tiles, the label phase
+# contracts it chunk by chunk, and the two never overlap.
+OOC_SLAB_PHASE = ("prepared slabs", "tiles")
+OOC_LABEL_PHASE = ("labels",)
+
+
+def ooc_footprint(n: int, d: int, slab_rows: int, chunk: int,
+                  n_groups: int, *,
+                  n_cols: Optional[int] = None, draw: str = "labels",
+                  packed: bool = False, sparse: bool = False,
+                  label_budget: Optional[float] = None) -> Dict[str, int]:
+    """The card's out-of-core sweep (pipeline.streaming.fused_sw_ooc) by
+    part, in bytes (ooc_peak_bytes: their peak):
+
+      feature slabs   (PREFETCH_DEPTH + 3) f32 slabs of (slab_rows, d):
+                      those fetched ahead of the sweep, the row slab, the
+                      column slab being contracted, and the previous
+                      column slab, whose tile may still run (the sweep
+                      waits for it before it takes the next)
+      prepared slabs  packed jaccard's words and their int64 transients
+                      (a quarter slab); clr and presence run in place on
+                      the fetched slabs (core.distance.inplace_prepare)
+      mat2 row slab   the one (slab_rows, n) f32 buffer the tiles fill
+      tiles           the (slab, slab) distance tile and the previous one
+      labels          one permutation chunk's transients (_ooc_label_bytes)
+      slack           what the caching allocator rounds up (sweep_slack)
+    """
+    slab = 4 * slab_rows * d
+    parts = {"feature slabs": (PREFETCH_DEPTH + 3) * slab}
+    if packed:
+        parts["prepared slabs"] = slab // 4
+    parts["mat2 row slab"] = 4 * slab_rows * n
+    parts["tiles"] = 2 * 4 * slab_rows * slab_rows
+    budget = _eplanner.label_budget(label_budget)
+    kind = "index" if n_cols is not None else draw
+    rows = min(_perm.draw_rows(n, budget, kind), int(chunk))
+    parts["labels"] = _ooc_label_bytes(n, slab_rows, chunk, n_groups,
+                                       n_cols, draw, rows, sparse)
+    parts["slack"] = int(sweep_slack(budget))
+    return parts
+
+
+def ooc_peak_bytes(parts: Dict[str, int]) -> int:
+    """The out-of-core footprint's peak on the card: every part both
+    phases keep, and the larger of the slab phase (OOC_SLAB_PHASE) and
+    the label phase (OOC_LABEL_PHASE). The feature slabs count in whole
+    through both phases: the prefetcher allocates them on its own stream,
+    and the caching allocator keeps what a stream frees for that stream,
+    so the label chunks, on the compute stream, cannot take their memory
+    (only PREFETCH_DEPTH of them stay allocated through the label phase,
+    but all stay reserved)."""
+    slab_phase = sum(parts.get(k, 0) for k in OOC_SLAB_PHASE)
+    label_phase = sum(parts.get(k, 0) for k in OOC_LABEL_PHASE)
+    both = sum(v for k, v in parts.items()
+               if k not in OOC_SLAB_PHASE + OOC_LABEL_PHASE)
+    return both + max(slab_phase, label_phase)
+
+
 def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
                   backend: str,
                   metric: str = "braycurtis",
@@ -414,7 +580,14 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
                   fused_impl: Optional[str] = None,
                   fused_tuning: Optional[Dict[str, int]] = None,
                   design_cols: Optional[int] = None,
-                  draw: str = "labels"
+                  draw: str = "labels",
+                  features_on_disk: bool = False,
+                  slab_rows: Optional[int] = None,
+                  features_disk_bytes: Optional[int] = None,
+                  device_budget_bytes: Optional[float] = None,
+                  host_budget_bytes: Optional[float] = None,
+                  dist_tuning: Optional[Dict[str, int]] = None,
+                  sparse_design: bool = False
                   ) -> PipelinePlan:
     """Resolve the full two-stage plan for one problem.
 
@@ -434,6 +607,18 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     draw the sweep makes ('labels', or 'strata' for labels within strata
     blocks; a dense design's index draw is implied by design_cols), which
     the card's fused-kernel plan charges to the budget.
+
+    features_on_disk: the features come from a slab cache (slab_rows its
+    slab height, features_disk_bytes its size on disk). The residency
+    tier is graded from the f32 table against device_budget_bytes and
+    host_budget_bytes (defaults 2 and 32 GiB); below 'hbm' the plan is
+    the out-of-core sweep: row_block = slab_rows, 'auto' -> fused-kernel
+    in its torch form (a pinned 'cuda' / 'pallas' megakernel, the dense
+    and stream bridges and a precision knob raise). On 'cuda' it also
+    models the sweep's device footprint (ooc_footprint; dist_tuning: the
+    caller's stage-1 knobs, whose packed=1 adds jaccard's word packing;
+    sparse_design: a design contracted block-sparsely) and raises
+    ValueError, naming the least device budget, where it does not fit.
     """
     if draw not in DRAW_KINDS:
         raise ValueError(f"draw={draw!r}; expected one of {DRAW_KINDS}")
@@ -441,6 +626,34 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
                      if matrix_budget_bytes is None else matrix_budget_bytes)
     slab_budget = (DEFAULT_SLAB_BUDGET_BYTES
                    if slab_budget_bytes is None else slab_budget_bytes)
+    device_budget = (DEFAULT_DEVICE_BUDGET_BYTES if device_budget_bytes is None
+                     else device_budget_bytes)
+
+    residency = "hbm"
+    if features_on_disk:
+        if not slab_rows:
+            raise ValueError("features_on_disk=True requires slab_rows "
+                             "(the cache's slab height)")
+        residency = _dreg.residency_tier(
+            4.0 * n * d, device_budget_bytes=device_budget,
+            host_budget_bytes=(DEFAULT_HOST_BUDGET_BYTES
+                               if host_budget_bytes is None
+                               else host_budget_bytes))
+    ooc = residency != "hbm"
+    ooc_auto = False
+    if ooc:
+        if materialize not in (None, "auto", "fused", "fused-kernel"):
+            raise ValueError(
+                f"features exceed the device budget (residency="
+                f"{residency!r}); the {materialize!r} bridge needs a "
+                "resident (n,n) operand — use materialize='auto'/'fused'/"
+                "'fused-kernel' or raise device_budget_bytes")
+        ooc_auto = materialize in (None, "auto")
+        if ooc_auto:
+            materialize = "fused-kernel"
+        # the disk slab IS the unit of streaming: the sweep assembles one
+        # (slab_rows, n) mat2 row slab at a time
+        row_block = int(slab_rows)
 
     if dist_impl is None or dist_impl == "auto":
         dname, dreason = _pick_dist_impl(metric, backend, n, d, slab_budget)
@@ -461,6 +674,9 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
             raise ValueError(f"materialize={materialize!r}; expected one of "
                              f"{MATERIALIZE_MODES}")
         mat, mreason = materialize, "caller-pinned materialization"
+        if ooc_auto:
+            mreason = (f"features exceed the device budget (residency="
+                       f"{residency}); out-of-core slab sweep")
 
     if row_block is None:
         # size the block against the ROWS working set: the stream bridge
@@ -494,7 +710,7 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
         budget = (_eplanner.DEFAULT_STREAM_BUDGET_BYTES
                   if memory_budget_bytes is None else memory_budget_bytes)
         kspec = None
-        if mat == "fused-kernel" and backend == "cuda":
+        if mat == "fused-kernel" and backend == "cuda" and not ooc:
             kspec = _dreg.get_fused(_resolve_fused(
                 metric, backend, fused_impl, n, fused_tuning)[0])
         if kspec is not None and kspec.kind == "cuda":
@@ -527,13 +743,24 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
     f_impl = None
     f_tuning: Dict[str, int] = {}
     if mat == "fused-kernel":
-        f_impl, freason = _resolve_fused(metric, backend, fused_impl, n,
-                                         fused_tuning)
+        if ooc and fused_impl in (None, "auto"):
+            # the megakernel reads the whole resident table; out of core
+            # the torch sweep consumes the assembled mat2 row slabs
+            f_impl, freason = (f"{metric}.fusedk.torch",
+                               "one-pass torch sweep over disk slabs")
+        else:
+            f_impl, freason = _resolve_fused(metric, backend, fused_impl,
+                                             n, fused_tuning)
         fspec = _dreg.get_fused(f_impl)
         f_impl = fspec.name                   # reference aliases resolve
         if fspec.metric != metric:
             raise ValueError(f"fused impl {f_impl!r} computes "
                              f"{fspec.metric!r}, not {metric!r}")
+        if ooc and fspec.kind != "torch":
+            raise ValueError(
+                f"fused impl {f_impl!r} ({fspec.kind} kind) needs the "
+                "resident feature table; out-of-core sweeps require the "
+                "torch form")
         # validated before the registry's keys filter them: packed asked
         # of a non-jaccard impl (no feat_packed key) must not be dropped
         _fref.feature_mode(fspec.kernel_metric, *(
@@ -544,9 +771,33 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
         mreason += f"; {freason}"
 
     # the planned row block IS the blocked impls' working-set knob
+    caller_dist = dict(dist_tuning or {})
     dist_tuning = dict(dspec.tuning)
     if "block" in dist_tuning:
         dist_tuning["block"] = row_block
+    if ooc and _dreg.precision_tag(f_tuning) != "f32":
+        raise ValueError(
+            "out-of-core sweeps run f32 only: the reduced-precision slabs "
+            "need a global calibration pass over the resident table")
+    footprint = None
+    if ooc and backend == "cuda":
+        footprint = ooc_footprint(
+            n, d, row_block, sw.chunk, n_groups,
+            n_cols=design_cols, draw=draw,
+            packed=bool({**dist_tuning, **caller_dist}.get("packed")),
+            sparse=sparse_design, label_budget=memory_budget_bytes)
+        need = ooc_peak_bytes(footprint)
+        if need > device_budget:
+            raise ValueError(
+                f"the out-of-core sweep's device footprint at slab_rows="
+                f"{row_block} peaks at {need / 2 ** 20:.1f}MiB ("
+                + ", ".join(f"{k} {v / 2 ** 20:.1f}MiB"
+                            for k, v in footprint.items())
+                + f"; the slab and the label phase never overlap) and "
+                f"the device budget is "
+                f"{device_budget / 2 ** 20:.1f}MiB; pass "
+                f"device_budget_bytes >= {need}, a smaller label budget, or "
+                "a cache of fewer rows a slab")
     return PipelinePlan(
         metric=metric, dist_impl=dname, dist_tuning=dist_tuning,
         materialize=mat, row_block=row_block, sw=sw, backend=backend,
@@ -554,7 +805,10 @@ def plan_pipeline(n: int, d: int, n_perms: int, n_groups: int, *,
         fused_tuning=f_tuning, n=n, d=d, n_groups=n_groups,
         n_cols=design_cols, draw_budget=draw_budget,
         draw="index" if design_cols is not None else draw,
-        budget=None if draw_budget is None else budget)
+        budget=None if draw_budget is None else budget,
+        residency=residency, slab_rows=int(slab_rows or 0),
+        disk_bytes=int(features_disk_bytes or 0), ooc_footprint=footprint,
+        device_budget=device_budget if footprint is not None else None)
 
 
 # ---------------------------------------------------------------------------

@@ -27,17 +27,96 @@ fused-kernel bridge, two kinds per metric:
 The precision tags (`PRECISIONS`, `precision_tag`, `precision_tuning`,
 `feat_element_bytes`) name the fused kernels' feature modes, and
 `fused_feat_traffic_bytes` / `fused_workset_bytes` model what each mode
-moves and holds, for `PipelinePlan.explain()`. (Residency tiers come with
-the out-of-core slice.)
+moves and holds, for `PipelinePlan.explain()`. The residency tiers
+(`RESIDENCY_TIERS`, `tier_bandwidth_gbps`, `residency_tier`,
+`ooc_disk_traffic_bytes`) grade where a slab cache's features live during
+the sweep and what its out-of-core sweep reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Mapping, Optional, Tuple
 
 from repro_torch.core import distance as _dist
 from repro_torch.kernels.fused_sw import ops as _fops
+
+
+# ---------------------------------------------------------------------------
+# Residency tiers: one bandwidth model for every level the features can live
+# at, down to disk (out-of-core slab streaming).
+# ---------------------------------------------------------------------------
+
+RESIDENCY_TIERS = ("vmem", "hbm", "host", "disk")
+TIER_ENV_PREFIX = "REPRO_TORCH_TIER_GBPS_"
+
+# On the card (GB/s). hbm: the STREAM triad kernel's measured rate
+# (chip_smoke.py phase 16, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6
+# row 10). host: pinned host-to-device copies of one 128 MiB slab by CUDA
+# events (chip_smoke.py phase 21, same card and limit: 55.26 on one
+# machine, 44.57 on another; pageable memory 5.43 and 4.74). disk: a
+# model, not a
+# measurement: an NVMe-class sequential read, the rate a cold cache
+# streams at (a warm one reads from the page cache at the host rate).
+# vmem has no counterpart: it is the TPU's on-chip vector memory, which
+# its compiler stages features through; the card's kernels stage their
+# tiles in shared memory themselves, and no plan keeps a feature table
+# there, so asking for it on 'cuda' raises.
+CUDA_TIER_GBPS = {"hbm": 3091.2, "host": 55.26, "disk": 2.0}
+# On 'cpu', the reference's model (on-chip SRAM order of magnitude, the
+# paper's MI300A CPU STREAM triad, DDR-class staging, NVMe-class disk),
+# kept so a CPU plan explains as the reference's does; none of it was
+# measured for this port.
+CPU_TIER_GBPS = {"vmem": 22e3, "hbm": 209.0, "host": 64.0, "disk": 2.0}
+
+
+def tier_bandwidth_gbps(tier: str, backend: str = "cuda") -> float:
+    """Bandwidth of one residency tier in GB/s on `backend` ('cuda' or
+    'cpu'); $REPRO_TORCH_TIER_GBPS_<TIER> overrides any of them."""
+    if tier not in RESIDENCY_TIERS:
+        raise ValueError(f"unknown residency tier {tier!r}; "
+                         f"one of {RESIDENCY_TIERS}")
+    override = os.environ.get(TIER_ENV_PREFIX + tier.upper())
+    if override:
+        return float(override)
+    if backend == "cuda":
+        if tier not in CUDA_TIER_GBPS:
+            raise ValueError(
+                "the 'vmem' tier is the TPU's on-chip vector memory; the "
+                "card's kernels stage tiles in shared memory themselves "
+                "and no plan keeps features there, so it has no bandwidth "
+                "on 'cuda'")
+        return CUDA_TIER_GBPS[tier]
+    return CPU_TIER_GBPS[tier]
+
+
+def backend_tiers(backend: str = "cuda") -> tuple:
+    """The tiers that have a bandwidth on `backend` (no vmem on 'cuda')."""
+    return tuple(t for t in RESIDENCY_TIERS
+                 if backend != "cuda" or t in CUDA_TIER_GBPS)
+
+
+def residency_tier(feature_bytes: float, *, device_budget_bytes: float,
+                   host_budget_bytes: float) -> str:
+    """Where the feature table LIVES during the sweep: 'hbm' while its f32
+    form fits the device budget (read the cache once, then run the
+    in-memory bridges), 'host' / 'disk' otherwise (out-of-core slab
+    streaming; the two differ only in the bandwidth the traffic model
+    charges: page-cache-warm against cold reads)."""
+    if feature_bytes <= device_budget_bytes:
+        return "hbm"
+    if feature_bytes <= host_budget_bytes:
+        return "host"
+    return "disk"
+
+
+def ooc_disk_traffic_bytes(n_slabs: int, disk_bytes: float) -> float:
+    """Bytes read from the slab cache by ONE out-of-core sweep: per row
+    slab, the row operand and then every column slab, (n_slabs + 1) passes
+    over the on-disk table. Independent of n_perms: every permutation
+    chunk consumes the live assembled row slab."""
+    return float(disk_bytes) * (int(n_slabs) + 1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,12 +28,20 @@ Each sweep has a `_design` twin for dense designs (core.design): index
 permutations gather the basis rows and the contraction is per column
 (`fstat.sw_cols_contract`, the fused_sw_cols kernel), (n_total, K) out.
 s_W is accumulated, and s_T computed, in float64 on the device; the
-reference copies every chunk to host numpy. (Sharded and out-of-core
-sweeps come with later slices.)
+reference copies every chunk to host numpy.
+
+Out of core (`fused_sw_ooc`, `fused_sw_ooc_design`) the feature table
+lives in a slab cache (data.slabcache): `ooc_mat2_row_blocks` plays
+`mat2_row_blocks`' part, assembling each mat2 row slab from (slab, slab)
+distance tiles of slabs the prefetcher streams in, and the same `_sweep`
+/ `_sweep_cols` consume it, so the statistic equals the in-memory fused
+bridge's at row_block == slab_rows bit for bit. (Sharded sweeps come with
+a later slice.)
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -148,6 +156,7 @@ def _sweep(slabs, n: int, grouping, inv_gs, n_total: int, chunk: int,
             hi = min(lo + chunk, n_total)
             g = _labels(grouping, lo, hi, **label_src)
             s_w[lo:hi] += _fused_sw_step(slab, g, inv_gs, lo_r)
+            del g   # freed before the next chunk's labels are drawn
     return s_w, row_sums, n_slabs
 
 
@@ -193,6 +202,7 @@ def _sweep_cols(slabs, n: int, design, n_total: int, chunk: int, *,
                 strata, lo, hi, seed=seed, index_perms=index_perms,
                 draw_budget=draw_budget))
             s_cols[lo:hi] += _fused_sw_step_cols(slab, v, lo_r, groups)
+            del v   # freed before the next chunk's index draw
     return s_cols, row_sums, n_slabs
 
 
@@ -241,6 +251,15 @@ def fused_sw(xprep: torch.Tensor, rows_fn: Callable, grouping: torch.Tensor,
     return s_w, row_sums.sum() / 2.0 / n, stats
 
 
+def _design_groups(design):
+    """A strata-blocked basis's column groups (fstat.sparse_col_groups),
+    or () where the support is dense (the gather buys nothing)."""
+    if design.strata is None:
+        return ()
+    groups = fstat.sparse_col_groups(design.basis, design.strata)
+    return groups if len(groups) > 1 else ()
+
+
 def fused_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
                     n_total: int, *, row_block: int, chunk: int,
                     seed: int = 0,
@@ -257,11 +276,7 @@ def fused_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
     n = int(xprep.shape[0])
     _check_perms(index_perms, n_total, n, "index_perms")
     k = design.k_cols
-    groups = ()
-    if design.strata is not None:
-        groups = fstat.sparse_col_groups(design.basis, design.strata)
-        if len(groups) <= 1:   # dense support: the gather buys nothing
-            groups = ()
+    groups = _design_groups(design)
     row_block = int(max(1, min(row_block, n)))
     chunk = int(max(1, min(chunk, n_total)))
     s_cols, row_sums, n_slabs = _sweep_cols(
@@ -274,6 +289,158 @@ def fused_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
         peak_slab_bytes=4 * row_block * n,
         peak_label_bytes=4 * chunk * n * (k + 1))
     return s_cols, row_sums.sum() / 2.0 / n, stats
+
+
+# ---------------------------------------------------------------------------
+# Out of core: the feature table in a slab cache, never in memory whole.
+# ---------------------------------------------------------------------------
+
+class OocStats(NamedTuple):
+    """How the out-of-core sweep actually ran."""
+    n_total: int
+    chunk: int
+    n_chunks: int
+    slab_rows: int
+    n_slabs: int
+    tiles: int               # distance calls, one per (row, column) slab
+    disk_bytes_read: int     # bytes through the prefetcher
+    stall_s: float           # the sweep's time blocked on slab reads
+    sweep_s: float           # the whole sweep, its device work included
+
+
+def ooc_mat2_row_blocks(cache, prepare: Callable, rows_fn: Callable, *,
+                        device, stats: Optional[dict] = None):
+    """Yield (lo, mat2_rows) for the table in a slab cache, as
+    mat2_row_blocks does for a resident one: one row slab per cache slab,
+    the last holding the n - lo remaining rows.
+
+    The prefetcher (data.slabcache.SlabPrefetcher, PREFETCH_DEPTH slabs
+    ahead) brings the slabs to `device` in ooc_schedule order: each row
+    slab, then every column slab. `prepare` runs on each slab (row-local
+    for every metric: clr, presence), in place where it would copy
+    (core.distance.inplace_prepare: the fetched slabs are the sweep's
+    own), `rows_fn` on each (row slab, column slab) pair (on the card one
+    distance-kernel launch), and each tile is squared straight into ONE
+    preallocated (slab_rows, n) buffer, reused for every row slab, with
+    the global diagonal zeroed.
+
+    On the card the host syncs once a tile and once a row: before it
+    takes the next column slab it waits for the tile before last, and
+    before it yields a row for the row's last tile. A slab handed over
+    with record_stream goes back to the allocator only once the kernels
+    that read it are done, so without the per-tile wait the host would
+    run ahead and the freed slabs still held would pile up; with it at
+    most two column slabs and one row slab of the sweep are held beside
+    the prefetched ones (planner.ooc_footprint). The consumer must be
+    done with a yielded slab before asking for the next. `stats` (a dict)
+    receives the prefetcher's counters and the number of tiles when the
+    sweep ends."""
+    from repro_torch.data import slabcache as _slabcache
+    n, block, n_slabs = cache.n, cache.slab_rows, cache.n_slabs
+    prepare = _dist.inplace_prepare(prepare)
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    pf = _slabcache.SlabPrefetcher(cache, _slabcache.ooc_schedule(n_slabs),
+                                   depth=_slabcache.PREFETCH_DEPTH,
+                                   device=device)
+    buf = torch.empty((block, n), dtype=torch.float32, device=device)
+    tiles = 0
+    try:
+        for r in range(n_slabs):
+            _, x_rows = next(pf)
+            lo_r, rows_r = r * block, cache.rows_in_slab(r)
+            prep_r = prepare(x_rows[:rows_r])
+            done = []          # the events of this row's tiles
+            for c in range(n_slabs):
+                if len(done) >= 2:
+                    # one host sync a tile: the tile before last is done,
+                    # so its column slab is free before the next arrives
+                    done[-2].synchronize()
+                _, x_cols = next(pf)
+                lo_c, rows_c = c * block, cache.rows_in_slab(c)
+                tile = rows_fn(prep_r, prepare(x_cols[:rows_c]))
+                dst = buf[:rows_r, lo_c:lo_c + rows_c]
+                torch.mul(tile, tile, out=dst)
+                if c == r:
+                    torch.diagonal(dst).zero_()
+                tiles += 1
+                del x_cols, tile
+                if cuda:
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(device))
+                    done.append(ev)
+            if done:
+                # and one a row: its last tiles are done, so its slabs
+                # are free before the consumer draws labels
+                done[-1].synchronize()
+            del x_rows, prep_r
+            yield lo_r, buf[:rows_r]
+    finally:
+        pf.close()
+        if stats is not None:
+            stats.update(tiles=tiles, bytes_read=pf.bytes_read,
+                         stall_s=pf.stall_s, slabs=pf.slabs_fetched)
+
+
+def _ooc_stats(cache, n_total: int, chunk: int, counters: dict,
+               t0: float) -> OocStats:
+    return OocStats(
+        n_total=n_total, chunk=chunk, n_chunks=-(-n_total // chunk),
+        slab_rows=cache.slab_rows, n_slabs=cache.n_slabs,
+        tiles=counters["tiles"], disk_bytes_read=counters["bytes_read"],
+        stall_s=counters["stall_s"], sweep_s=time.perf_counter() - t0)
+
+
+def fused_sw_ooc(cache, prepare: Callable, rows_fn: Callable,
+                 grouping: torch.Tensor, inv_gs: torch.Tensor, n_total: int,
+                 *, chunk: int, seed: int = 0,
+                 perms: Optional[torch.Tensor] = None,
+                 strata: Optional[torch.Tensor] = None,
+                 index_perms: Optional[torch.Tensor] = None,
+                 draw_budget: Optional[float] = None):
+    """s_W with the feature table on DISK: the fused bridge's `_sweep`
+    over the row slabs ooc_mat2_row_blocks assembles from the cache, on
+    grouping's device. Labels as fused_sw takes them. The same arithmetic
+    as fused_sw at row_block == cache.slab_rows, so the same bits.
+
+    Returns (s_w (n_total,) float64, s_t 0-d float64, OocStats); the
+    sweep's time includes its device work (s_T is read on the host)."""
+    n = cache.n
+    src = _label_src(n_total, n, seed=seed, perms=perms, strata=strata,
+                     index_perms=index_perms, draw_budget=draw_budget)
+    chunk = int(max(1, min(chunk, n_total)))
+    counters: dict = {}
+    t0 = time.perf_counter()
+    s_w, row_sums, _ = _sweep(
+        ooc_mat2_row_blocks(cache, prepare, rows_fn,
+                            device=grouping.device, stats=counters),
+        n, grouping, inv_gs, n_total, chunk, **src)
+    s_t = row_sums.sum() / 2.0 / n
+    s_t.item()
+    return s_w, s_t, _ooc_stats(cache, n_total, chunk, counters, t0)
+
+
+def fused_sw_ooc_design(cache, prepare: Callable, rows_fn: Callable, design,
+                        n_total: int, *, chunk: int, seed: int = 0,
+                        index_perms: Optional[torch.Tensor] = None,
+                        draw_budget: Optional[float] = None):
+    """fused_sw_ooc for DENSE designs: the per-column sweep `_sweep_cols`
+    (block-sparse for a strata-blocked basis, as fused_sw_design) over
+    the cache's assembled row slabs, on the design's device. Returns
+    (s_cols (n_total, K) float64, s_t 0-d float64, OocStats)."""
+    n = cache.n
+    _check_perms(index_perms, n_total, n, "index_perms")
+    chunk = int(max(1, min(chunk, n_total)))
+    counters: dict = {}
+    t0 = time.perf_counter()
+    s_cols, row_sums, _ = _sweep_cols(
+        ooc_mat2_row_blocks(cache, prepare, rows_fn,
+                            device=design.basis.device, stats=counters),
+        n, design, n_total, chunk, seed=seed, index_perms=index_perms,
+        groups=_design_groups(design), draw_budget=draw_budget)
+    s_t = row_sums.sum() / 2.0 / n
+    s_t.item()
+    return s_cols, s_t, _ooc_stats(cache, n_total, chunk, counters, t0)
 
 
 # ---------------------------------------------------------------------------

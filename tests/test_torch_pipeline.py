@@ -728,6 +728,8 @@ def test_permanova_routes_a_non_square_table_without_metric():
 
 
 def _slab_cache(tmp_path):
+    """A slab cache of the study written by the reference (the port opens
+    it: the format is shared)."""
     from repro.data import slabcache
     x, *_ = _study()
     return slabcache.build_slab_cache(str(tmp_path / "cache"), x,
@@ -765,9 +767,17 @@ def test_not_ported_options_raise(case, tmp_path, monkeypatch):
     elif case == "trace":
         kw["trace"] = True
     elif case == "path":
-        x = str(tmp_path)
+        # ported since the out-of-core slice: a cache's directory runs; at
+        # the default 2 GiB device budget the table is resident ('hbm')
+        x = _slab_cache(tmp_path).path
+        exc = None
     elif case == "slab-cache":
-        x = _slab_cache(tmp_path)
+        # ported since the out-of-core slice: below the device budget the
+        # sweep runs out of core
+        from repro_torch.data import slabcache as port_slabcache
+        x = port_slabcache.SlabCache.open(_slab_cache(tmp_path).path)
+        kw["device_budget_bytes"] = 1024
+        exc = None
     # designs run since the designs slice; a design with a mesh still
     # raises (the multi-device slice), as the reference refuses it too
     elif case == "covariates":
@@ -779,9 +789,14 @@ def test_not_ported_options_raise(case, tmp_path, monkeypatch):
     if exc is None:
         res = pipeline.pipeline(x, torch.from_numpy(grouping), n_perms=9,
                                 device="cpu", **kw)
-        assert (res.ordination.k == 2 and res.ordination.method == "eigh"
-                if case == "ordination" else
-                "empirical autotune winner" in res.plan)
+        ran = {"ordination": lambda: (res.ordination.k == 2
+                                      and res.ordination.method == "eigh"),
+               "autotune": lambda: "empirical autotune winner" in res.plan,
+               "path": lambda: res.plan.endswith(
+                   "| features=slab-cache(residency=hbm)"),
+               "slab-cache": lambda: (res.method
+                                      == "pipeline[ooc-fused-kernel]")}
+        assert ran[case](), res.plan
         return
     with pytest.raises(exc, match=match):
         pipeline.pipeline(x, torch.from_numpy(grouping), n_perms=9,
