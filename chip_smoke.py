@@ -303,7 +303,30 @@ Phases, each timed:
    F, p and the null equal the same table resident on the card through
    the fused bridge at row_block = 2,048 bit for bit. The host -> device
    GB/s of one 128 MiB slab from pinned and from pageable
-   memory (CUDA events) is logged beside the host tier's model.
+   memory (CUDA events) is logged beside the host tier's model. Then one
+   more Bray-Curtis labels sweep at 999 permutations is profiled for
+   phase 22's idle share (here, before the cache is removed).
+22. Telemetry (repro_torch.obs). (a) At the EMP shape, traced against
+   untraced: pipeline(trace=<tmp>.json) on the labels fused-kernel bridge
+   and the covariate design (default budgets) and on the stream bridge (3
+   GiB), engine.run on the resident D inside obs.session(). F, p and
+   every null F equal bit for bit; the exported JSON loads and its span
+   tree (name, parent, depth) is the one the CPU parity tests expect for
+   the path (tests/test_torch_obs.py); engine.perm_chunks, the
+   fusedk.chunk or engine.sw_chunk spans and the kernel's launches agree,
+   and every cuda.launches.* counter equals the run's LAUNCHES.
+   obs.report() of the four runs is printed, and no stage of
+   obs.stage_rows(backend="cuda") may read above 105% of the HBM peak (a
+   guard on the traffic models). (b) The device idle share: one warm run
+   of phase 3's engine.run, phase 6's dense and stream bridges, phase 9's
+   labels path, phase 12's covariate design and phase 15's bf16 labels
+   under torch.profiler (CPU and CUDA) with tracing on; from the exported
+   Chrome trace, the window, the busy time (the union of kernel, memcpy
+   and memset intervals on every stream), the idle share 1 - busy /
+   window, the five device operations that took the most time and the
+   three longest idle gaps, each with the innermost obs span open across
+   it. A profile with fewer device kernels than the run's counted
+   launches fails the phase.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -3577,6 +3600,7 @@ OOC_READ_BYTES = 23_070_638_080         # 14 passes: (13 + 1) x the table
 OOC_BUDGET = 1536 * 2 ** 20              # 1.5 GiB, under the 1.535 GiB table
 OOC_DESIGN_PERMS = 999
 OOC_AITCHISON_PERMS = 999
+OOC_IDLE_PERMS = 999        # the labels sweep profiled for phase 22
 # (a) at small sizes: the tile-assembled row slabs (n, d, slab_rows) with a
 # ragged last slab of 196, and pipeline() at the cell's width: at d = 512
 # the sweep's own footprint (the feature slabs in flight and the (256, n)
@@ -3855,6 +3879,12 @@ def ooc_emp(dev, root):
               f"ooc plan: {pl.describe()}")
     done = [(tag, kw) + ooc_run(dev, cache, g, tag, pl, **kw)
             for tag, kw, pl in runs]
+    # phase 22's idle share of this path, here while the cache exists
+    idle_profile(f"phase 21 out of core, labels, {OOC_IDLE_PERMS}",
+                 lambda: float(pipeline.pipeline(
+                     cache, g, metric="braycurtis", n_perms=OOC_IDLE_PERMS,
+                     seed=0, device_budget_bytes=OOC_BUDGET,
+                     device=dev).f_stat), dev, warm=False)
     t0 = time.perf_counter()
     x = torch.from_numpy(cache.to_array()).to(dev)
     load_s = time.perf_counter() - t0
@@ -3886,6 +3916,287 @@ def phase_ooc(dev):
         ooc_emp(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 22: telemetry. (a) traced against untraced at the EMP shape: the
+# spans each path must show (the trees the CPU parity tests hold the port
+# to, tests/test_torch_obs.py), and the guard on the traffic models: no
+# traced stage may read above TRACE_HBM_FRACTION of the HBM peak. (b) the
+# device idle share of each main path from a torch.profiler trace.
+TRACE_HBM_FRACTION = 1.05
+IDLE_TOP_OPS = 5
+IDLE_GAPS = 3
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+IDLE_SHARES = []      # (path, window ms, busy ms, idle share), in run order
+
+
+def obs_tree(events) -> dict:
+    """{(name, parent, depth): count} of an obs event buffer."""
+    import collections
+    return dict(collections.Counter(
+        (e["name"], e["args"].get("parent"), e["args"]["depth"])
+        for e in events))
+
+
+def traced_run(tag, fn, tree, chunk_span, kernel, path):
+    """fn() untraced and then traced (obs on, spans exported to `path`),
+    after one warm-up run: F, p and every null F equal bit for bit; the
+    exported JSON loads and its span tree is `tree`; engine.perm_chunks,
+    the `chunk_span` spans and the `kernel` launches of the traced run
+    agree, and each cuda.launches.* counter equals the run's LAUNCHES.
+    Returns (untraced s, traced s)."""
+    import torch
+    from repro_torch import obs
+    float(fn(None).f_stat)                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = fn(None)
+    float(plain.f_stat)
+    t_plain = time.perf_counter() - t0
+    obs.clear()
+    obs.metrics.reset()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traced = fn(path)
+    float(traced.f_stat)
+    t_traced = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    with open(path) as f:
+        doc = json.load(f)
+    got = obs_tree(doc["traceEvents"])
+    snap = obs.metrics.snapshot()
+    from repro_torch.obs import cudahooks
+    cuda_launches = cudahooks.launch_counts(snap)
+    pairs = ([(plain, traced)] if plain.terms is None
+             else list(zip(plain.terms, traced.terms)))
+    same = all(torch.equal(a.f_stat, b.f_stat)
+               and torch.equal(a.p_value, b.p_value)
+               and torch.equal(a.f_perms, b.f_perms) for a, b in pairs)
+    chunks = snap["counters"].get("engine.perm_chunks", 0)
+    n_spans = sum(v for (name, _, _), v in got.items() if name == chunk_span)
+    log(f"[smoke] traced {tag}: untraced {t_plain:.3f}s, traced "
+        f"{t_traced:.3f}s; F={float(traced.f_stat):.7g} "
+        f"p={float(traced.p_value):.6g}; {len(doc['traceEvents'])} spans "
+        f"{sorted(got.items())}; engine.perm_chunks={chunks:g}, "
+        f"{chunk_span} spans {n_spans}, launches {launches}")
+    check(same, f"traced {tag}: F, p or the null differ from the "
+          "untraced run")
+    check(got == tree, f"traced {tag}: span tree {got} != {tree}")
+    check(chunks == n_spans == launches.get(kernel, 0) > 0,
+          f"traced {tag}: engine.perm_chunks {chunks}, {chunk_span} spans "
+          f"{n_spans}, {kernel} launches {launches}")
+    check(cuda_launches == {k: float(v) for k, v in launches.items()},
+          f"traced {tag}: cuda.launches {cuda_launches} != LAUNCHES "
+          f"{launches}")
+    return t_plain, t_traced
+
+
+def merged(intervals):
+    """The union of (start, end) intervals, sorted and merged."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_profile(tag, fn, dev, warm=True):
+    """One warm run of fn() under torch.profiler (CPU and CUDA) with obs
+    tracing on, so its spans show as ranges. From the exported Chrome
+    trace: the window (the run's own range, its final sync included), the
+    device's busy time (the union of kernel, memcpy and memset intervals
+    on every stream), the idle share 1 - busy / window, the device
+    operations that took the most time and the longest idle gaps, each
+    with the innermost obs span open across it. Fails unless the trace
+    holds at least as many device kernels as the run's counted launches
+    (an empty trace cannot pass). warm=False: the caller ran the path
+    just before."""
+    import tempfile
+    import torch
+    from repro_torch import obs
+    from torch.profiler import ProfilerActivity, profile, record_function
+    plain_ms = None
+    if warm:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    zero_launches()
+    obs.clear()
+    with obs.session(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.window"):
+            fn()
+            torch.cuda.synchronize(dev)
+    launched = sum(launch_counts().values())
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)
+    finally:
+        os.unlink(path)
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    spans = {e["name"] for e in obs.events()}
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    wins = [e for e in xs if e.get("name") == "smoke.window"
+            and e.get("cat") == "user_annotation"]
+    check(len(wins) == 1, f"idle {tag}: the profile has {len(wins)} "
+          f"window ranges; categories {sorted({e.get('cat') for e in xs})}")
+    w0 = float(wins[0]["ts"])
+    w1 = w0 + float(wins[0]["dur"])
+    dev_ops = [e for e in xs if e.get("cat") in DEVICE_CATS]
+    kernels = sum(e.get("cat") == "kernel" for e in dev_ops)
+    busy_iv = merged((max(w0, float(e["ts"])),
+                      min(w1, float(e["ts"]) + float(e["dur"])))
+                     for e in dev_ops
+                     if float(e["ts"]) < w1 and float(e["ts"]) + float(
+                         e["dur"]) > w0)
+    busy = sum(b - a for a, b in busy_iv)
+    window = w1 - w0
+    idle = 1.0 - busy / window
+    by_op = {}
+    for e in dev_ops:
+        name = e["name"][:60]
+        c, t = by_op.get(name, (0, 0.0))
+        by_op[name] = (c + 1, t + float(e["dur"]))
+    top = sorted(by_op.items(), key=lambda kv: -kv[1][1])[:IDLE_TOP_OPS]
+    edges = [w0] + [v for iv in busy_iv for v in iv] + [w1]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
+                   for i in range(0, len(edges), 2)), reverse=True)
+    ranges = [e for e in xs if e.get("cat") == "user_annotation"
+              and e.get("name") in spans]
+
+    def innermost(a, b):
+        mid = (a + b) / 2
+        open_ = [e for e in ranges
+                 if float(e["ts"]) <= mid <= float(e["ts"]) + float(e["dur"])]
+        return (min(open_, key=lambda e: float(e["dur"]))["name"]
+                if open_ else "(no obs span)")
+    gap_txt = "; ".join(f"{g / 1e3:.3f} ms at +{(a - w0) / 1e3:.3f} ms in "
+                        f"{innermost(a, b)}" for g, a, b in gaps[:IDLE_GAPS])
+    top_txt = "; ".join(f"{name} x{c} {t / 1e3:.3f} ms"
+                        for name, (c, t) in top)
+    IDLE_SHARES.append((tag, window / 1e3, busy / 1e3, idle))
+    # the profiler slows the host's launches, so beside the profile's
+    # window: the same run's time unprofiled and untraced (its warm-up)
+    plain = ("" if plain_ms is None else
+             f" (unprofiled and untraced {plain_ms:.3f} ms: busy "
+             f"{busy / 1e3 / plain_ms:.1%} of it)")
+    log(f"[smoke] idle {tag}: window {window / 1e3:.3f} ms, busy "
+        f"{busy / 1e3:.3f} ms, idle share {idle:.4f}{plain}; {kernels} device "
+        f"kernels, {launched} counted launches; top device ops: {top_txt}; "
+        f"longest idle gaps: {gap_txt}; {card_line()}")
+    check(kernels >= launched > 0,
+          f"idle {tag}: the profile holds {kernels} device kernels, fewer "
+          f"than the run's {launched} counted launches (no CUPTI trace?)")
+    return idle
+
+
+def phase_telemetry(dev, x_np, grouping, cache_dir):
+    """Phase 22: (a) traced against untraced at the EMP shape with the
+    report and the traffic models' guard, (b) the device idle share of
+    phases 3, 6, 9, 12 and 15's paths (phase 21 profiled its own)."""
+    import torch
+    from repro_torch import engine, hw, obs, pipeline
+    from repro_torch.core.distance import distance_matrix
+    from repro_torch.pipeline import registry
+    x = torch.from_numpy(x_np).to(dev)
+    g = torch.from_numpy(grouping).to(dev)
+    cov, _, _, _ = emp_design(dev, x_np, grouping)
+    dm = distance_matrix(x, "braycurtis")
+    chunk, n_fused = fused_plan()
+    _, n_cols = cols_plan()
+    n_slabs = -(-EMP_N // STREAM_ROWS)
+    base = dict(metric="braycurtis", n_perms=EMP_PERMS, seed=0, device=dev)
+
+    def pipe(**kw):
+        return lambda path: pipeline.pipeline(x, g, trace=path, **base, **kw)
+
+    def run_d(path):
+        if path is None:
+            return engine.run(dm, g, n_perms=EMP_PERMS, seed=0, device=dev)
+        with obs.session(path):
+            return engine.run(dm, g, n_perms=EMP_PERMS, seed=0, device=dev)
+    sw = {("engine.sw", None, 0): 1,
+          ("engine.sw_chunk", "engine.sw", 1): 2}
+    cases = [
+        ("labels, fused-kernel bridge", pipe(),
+         {("bridge.fused-kernel", None, 0): 1,
+          ("fusedk.chunk", "bridge.fused-kernel", 1): n_fused},
+         "fusedk.chunk", "fused_sw"),
+        ("covariates, fused-kernel bridge", pipe(covariates=cov),
+         {("bridge.fused-kernel", None, 0): 1,
+          ("fusedk.chunk", "bridge.fused-kernel", 1): n_cols},
+         "fusedk.chunk", "fused_sw_cols"),
+        ("labels, stream bridge (3 GiB)",
+         pipe(matrix_budget_bytes=BRIDGE_BUDGETS["stream"]),
+         {("stage1.braycurtis", None, 0): 1,
+          ("stream.mat2_block", "stage1.braycurtis", 1): n_slabs, **sw},
+         "engine.sw_chunk", "brute"),
+        ("engine.run on the resident D", run_d, sw, "engine.sw_chunk",
+         "brute")]
+    obs.clear()
+    obs.metrics.reset()
+    times = {}
+    for i, (tag, fn, tree, span, kernel) in enumerate(cases):
+        times[tag] = traced_run(tag, fn, tree, span, kernel,
+                                os.path.join(cache_dir, f"trace{i}.json"))
+    # the traces of the four traced runs: the report and the guard
+    obs.clear()
+    obs.metrics.reset()
+    with obs.session():
+        for _, fn, _, _, _ in cases:
+            float(fn(None).f_stat)
+    text = obs.report(backend="cuda", file=None)
+    log("[smoke] obs.report(backend='cuda') of the four traced runs:\n"
+        + text)
+    limit = TRACE_HBM_FRACTION * hw.H100_SXM.hbm_bandwidth / 1e9
+    rows = obs.stage_rows(backend="cuda")
+    for r in rows:
+        log(f"[smoke] traced stage {r['stage']}: {r['calls']} calls, "
+            f"{r['predicted_mib']:.1f} MiB predicted in "
+            f"{r['measured_s']:.4f}s, {r['achieved_gbps']:.1f} GB/s "
+            f"({r['achieved_gbps'] / (hw.H100_SXM.hbm_bandwidth / 1e9):.1%}"
+            f" of the HBM peak); {card_line()}")
+        check(r["achieved_gbps"] <= limit,
+              f"traced stage {r['stage']} reads {r['achieved_gbps']:.1f} "
+              f"GB/s, above {TRACE_HBM_FRACTION:.0%} of the HBM peak: its "
+              "traffic model counts bytes the card cannot move")
+    check({r["stage"] for r in rows} == {
+        "bridge.fused-kernel", "engine.sw", "stage1.braycurtis"},
+        f"expected the traffic-model stages, got {rows}")
+    obs.clear()
+    obs.metrics.reset()
+
+    # (b) the device idle share per path
+    idle_profile("phase 3 engine.run (brute, 3,999)",
+                 lambda: float(run_d(None).f_stat), dev)
+    for bridge, budget in BRIDGE_BUDGETS.items():
+        idle_profile(f"phase 6 {bridge} bridge", lambda b=budget: float(
+            pipeline.pipeline(x, g, matrix_budget_bytes=b,
+                              **base).f_stat), dev)
+    idle_profile("phase 9 labels, fused-kernel bridge",
+                 lambda: float(pipeline.pipeline(x, g, **base).f_stat), dev)
+    idle_profile("phase 12 covariates, fused-kernel bridge",
+                 lambda: float(pipeline.pipeline(
+                     x, g, covariates=cov, **base).f_stat), dev)
+    idle_profile("phase 15 labels bf16", lambda: float(pipeline.pipeline(
+        x, g, fused_tuning=registry.precision_tuning("bf16"),
+        **base).f_stat), dev)
+    log("[smoke] idle shares: " + "; ".join(
+        f"{tag} {share:.4f} ({busy:.1f} of {win:.1f} ms)"
+        for tag, win, busy, share in IDLE_SHARES) + f"; {card_line()}")
+    check(len(IDLE_SHARES) == 7, f"idle shares of 7 paths: {IDLE_SHARES}")
+    for tag, (t_plain, t_traced) in times.items():
+        log(f"[smoke] traced {tag}: {t_traced / t_plain:.3f}x the untraced "
+            "time")
 
 
 def main() -> int:
@@ -4000,6 +4311,9 @@ def run_phases(torch, dev, cache_dir) -> int:
     t0 = time.perf_counter()
     phase_ooc(dev)
     log(f"[smoke] phase 21 (out of core) {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_telemetry(dev, x, grouping, cache_dir)
+    log(f"[smoke] phase 22 (telemetry) {time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 
     print(json.dumps({"kernels": rows}))

@@ -21,15 +21,22 @@ a cache written by either package opens in the other):
                               nonzeros from disk
 
 A corrupt or truncated slab file (or an unreadable manifest) is moved to
-`<file>.corrupt` on open, logged once, counted in `COUNTS`, and the open
-fails telling the caller to rebuild.
+`<file>.corrupt` on open, logged once, counted in `COUNTS` (and in obs'
+`slabcache.corrupt_quarantined`), and the open fails telling the caller
+to rebuild.
 
 `SlabPrefetcher` is the host -> device half: a worker thread reads each
 scheduled slab into one of two reused host buffers and hands the consumer
 an owning device tensor. On the card the buffers are pinned and the copy
 runs on the prefetcher's own CUDA stream, ordered against the consumer's
 stream by an event (see the class). The consumer's blocking time is
-`stall_s`, the overlap's evidence.
+`stall_s`, the overlap's evidence. While tracing (obs), each fetch is a
+`prefetch.fetch` span on the worker thread (its own `tid`, depth 0): the
+read, the wait for a slot ahead of the consumer (its attr
+`slot_wait_ms`) and the copy, which it waits for on the prefetcher's
+stream only. Each wait for a slab is a `prefetch.wait` span on the
+consumer. With metrics on, `prefetch.slabs`, `prefetch.bytes` and
+`prefetch.stall_ms` count them.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
+
 _log = logging.getLogger("repro_torch.data.slabcache")
 _WARNED: set = set()
 
@@ -55,9 +64,9 @@ SCHEMA = 1
 FORMATS = ("dense", "csr")
 DEFAULT_SLAB_ROWS = 1024
 
-# Cache-health events of this process ('corrupt_quarantined'): the
-# reference counts them in its telemetry registry, which the port does
-# not have yet.
+# Cache-health events of this process ('corrupt_quarantined'), counted
+# whether telemetry is on or not; with metrics on (obs) they also count
+# as `slabcache.corrupt_quarantined`.
 COUNTS: collections.Counter = collections.Counter()
 
 
@@ -88,6 +97,7 @@ def _quarantine(path: str, why: str) -> str:
     except OSError:
         where = " (quarantine rename failed; leaving in place)"
     COUNTS["corrupt_quarantined"] += 1
+    _obs.metrics.inc("slabcache.corrupt_quarantined")
     _warn_once("corrupt",
                f"slab cache file {path} is corrupt ({why}){where}. "
                "Rebuild the cache with build_slab_cache().")
@@ -504,16 +514,27 @@ class SlabPrefetcher:
                 slot = pos % 2
                 if copied[slot] is not None:
                     copied[slot].synchronize()
-                buf = ring[slot].numpy()
-                rows = cache.rows_in_slab(idx)
-                cache.read_slab(idx, out=buf)
-                if rows < self.pad_to:
-                    buf[rows:] = 0.0
-                if not self._acquire():
-                    return
-                dev, ev = self._to_device(ring[slot], slot, copied)
-                self.bytes_read += cache.meta.slab_file_bytes(idx)
+                attrs = _fetch_attrs(idx)
+                with _obs.span("prefetch.fetch", attrs):
+                    buf = ring[slot].numpy()
+                    rows = cache.rows_in_slab(idx)
+                    cache.read_slab(idx, out=buf)
+                    if rows < self.pad_to:
+                        buf[rows:] = 0.0
+                    t_wait = time.perf_counter()
+                    if not self._acquire():
+                        return
+                    if attrs is not None:   # the wait for a slot ahead
+                        attrs["slot_wait_ms"] = round(
+                            (time.perf_counter() - t_wait) * 1e3, 3)
+                    dev, ev = self._to_device(ring[slot], slot, copied)
+                    if ev is not None and attrs is not None:
+                        ev.synchronize()   # this copy only, not the sweep
+                nbytes = cache.meta.slab_file_bytes(idx)
+                self.bytes_read += nbytes
                 self.slabs_fetched += 1
+                _obs.metrics.inc("prefetch.slabs")
+                _obs.metrics.inc("prefetch.bytes", nbytes)
                 if not self._put((int(idx), dev, ev)):
                     return
         except BaseException as e:  # noqa: BLE001 — surfaced to consumer
@@ -528,8 +549,11 @@ class SlabPrefetcher:
 
     def __next__(self):
         t0 = time.perf_counter()
-        item = self._q.get()
-        self.stall_s += time.perf_counter() - t0
+        with _obs.span("prefetch.wait"):
+            item = self._q.get()
+        stall = time.perf_counter() - t0
+        self.stall_s += stall
+        _obs.metrics.inc("prefetch.stall_ms", stall * 1e3)
         if item is _DONE:
             if self._err is not None:
                 err, self._err = self._err, None
@@ -562,6 +586,11 @@ class SlabPrefetcher:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+def _fetch_attrs(idx):
+    """The `prefetch.fetch` span's attrs (None while tracing is off)."""
+    return {"slab": int(idx)} if _obs.trace_enabled() else None
 
 
 def ooc_schedule(n_slabs: int) -> Iterable[int]:

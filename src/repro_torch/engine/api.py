@@ -5,7 +5,11 @@ streaming chunk, runs the sweep through the scheduler and assembles F and
 p. Every label argument routes through `Design.from_labels`: a plain
 single-factor design is the label path below, anything else (strata,
 covariates, weights) goes to run_design(). permanova_many() runs a batch
-of studies, stacked or ragged, one after another.
+of studies, stacked or ragged, one after another. While tracing (obs) the
+sweep is an `engine.sw` span (a batch of studies `engine.studies`) whose
+`predicted_bytes` is the traffic model `_sw_traffic_bytes`; with metrics
+on, each run gauges the card's peak memory and `engine.studies` counts
+the studies of a batch.
 """
 
 from __future__ import annotations
@@ -18,11 +22,60 @@ import numpy as np
 import torch
 
 from repro_torch import hw
+from repro_torch import obs as _obs
 from repro_torch.core import design as design_mod
 from repro_torch.core import permutations
 from repro_torch.core.permanova import (PermanovaResult, TermResult, _later,
                                         f_from_sw, p_value_from_null, s_total)
 from repro_torch.engine import planner, registry, scheduler
+
+
+def _sw_traffic_bytes(impl: str, n: int, n_total: int, chunk: int,
+                      n_cols: int = 0, *, backend: str = "cpu",
+                      n_groups: Optional[int] = None) -> float:
+    """Predicted device traffic of the s_W sweep.
+
+    On 'cpu', and for every path that runs no hand kernel (a dense
+    design's per-column companion, a custom sw_fn), the reference's
+    model number for number, per the paper's dataflow distinction:
+    'brute' re-streams the full f32 mat2 once PER PERMUTATION, every
+    other impl once per CHUNK, plus the (chunk, n) int32 labels of each
+    chunk, (K + 1)-wide on the dense-design path. On 'cuda' a label
+    sweep counts what the card's kernel moves, launch by launch
+    (kernels.permanova_sw.ops.launch_bytes: brute stages each
+    upper-triangle tile once per 128-permutation block, not once per
+    permutation), plus the labels each chunk's draw writes."""
+    n_chunks = -(-n_total // max(chunk, 1))
+    kernel = None
+    if backend == "cuda" and not n_cols and n_groups is not None:
+        try:
+            kernel = registry.get(impl).kernel
+        except KeyError:      # a custom sw_fn
+            kernel = None
+    if kernel is None:
+        mat2_passes = n_total if impl == "brute" else n_chunks
+        label_bytes = 4 * chunk * n * (n_cols + 1)
+        return (float(mat2_passes) * 4.0 * n * n
+                + float(n_chunks) * label_bytes)
+    from repro_torch.kernels.permanova_sw import ops as _swops
+    total = 0.0
+    for lo in range(0, n_total, chunk):
+        p = min(chunk, n_total - lo)
+        total += _swops.launch_bytes(kernel, n, p, n_groups) + 4.0 * p * n
+    return total
+
+
+def _sw_span_attrs(impl: str, n: int, n_total: int, chunk: int,
+                   n_cols: int = 0, *, backend: str = "cpu",
+                   n_groups: Optional[int] = None):
+    """Span attrs for the s_W stage (None while tracing is off, so the
+    disabled path allocates nothing)."""
+    if not _obs.trace_enabled():
+        return None
+    return {"impl": impl, "chunk": chunk,
+            "predicted_bytes": _sw_traffic_bytes(
+                impl, n, n_total, chunk, n_cols, backend=backend,
+                n_groups=n_groups)}
 
 
 def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
@@ -111,7 +164,8 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
         pl = dataclasses.replace(pl, impl="<custom sw_fn>", kernel=None,
                                  reason="caller-supplied sw_fn")
     s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
-                            seed=seed, perms=perms, index_perms=index_perms,
+                            n_groups, seed=seed, perms=perms,
+                            index_perms=index_perms,
                             draw_budget=memory_budget_bytes)
 
     s_t = s_total(mat2) if s_t is None else torch.tensor(
@@ -144,8 +198,23 @@ def _autotuned(autotune: bool, impl: str) -> bool:
     return autotune and impl == "auto"
 
 
-def _sweep(pl, mat2, grouping, inv_gs, n_total, fn, **labels):
-    """The label sweep of a plan: streamed in chunks or in one batch."""
+def _sweep(pl, mat2, grouping, inv_gs, n_total, fn, n_groups, *,
+           span: bool = True, **labels):
+    """The label sweep of a plan: streamed in chunks or in one batch,
+    inside an `engine.sw` span while tracing, then the card's peak memory
+    (obs); span=False for a study of a batch, inside the batch's span."""
+    if not span:
+        return _run_sweep(pl, mat2, grouping, inv_gs, n_total, fn, **labels)
+    ch = pl.chunk if pl.streaming else n_total
+    with _obs.span("engine.sw", _sw_span_attrs(
+            pl.impl, int(mat2.shape[0]), n_total, ch,
+            backend=mat2.device.type, n_groups=n_groups)):
+        out = _run_sweep(pl, mat2, grouping, inv_gs, n_total, fn, **labels)
+    _obs.record_device_memory()
+    return out
+
+
+def _run_sweep(pl, mat2, grouping, inv_gs, n_total, fn, **labels):
     if pl.streaming:
         return scheduler.sw_streaming(mat2, grouping, inv_gs, n_total, fn,
                                       chunk=pl.chunk, **labels)
@@ -246,7 +315,8 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
             pl = dataclasses.replace(pl, reason=_TUNED)
         fn = registry.get(pl.impl).bound(**pl.tuning)
         s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
-                                seed=seed, perms=perms, strata=design.strata,
+                                n_groups, seed=seed, perms=perms,
+                                strata=design.strata,
                                 index_perms=index_perms,
                                 draw_budget=memory_budget_bytes)
         s_t = s_total(mat2) if s_t is None else torch.tensor(
@@ -270,9 +340,14 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
     cols_fn = registry.bound_cols(pl.impl, **pl.tuning)
     strata = (design.strata if design.strata is not None
               else torch.zeros((n,), dtype=torch.int32, device=dev))
-    s_cols, stats = scheduler.sw_cols_streaming(
-        mat2, design.basis, strata, n_total, cols_fn, chunk=pl.chunk,
-        seed=seed, index_perms=index_perms, draw_budget=memory_budget_bytes)
+    with _obs.span("engine.sw", _sw_span_attrs(
+            pl.impl, n, n_total, pl.chunk, n_cols=k,
+            backend=dev.type)):
+        s_cols, stats = scheduler.sw_cols_streaming(
+            mat2, design.basis, strata, n_total, cols_fn, chunk=pl.chunk,
+            seed=seed, index_perms=index_perms,
+            draw_budget=memory_budget_bytes)
+    _obs.record_device_memory()
     return design_result(
         s_cols, design, n_objects=n, n_perms=n_perms,
         method=f"permanova-design[{pl.impl}]",
@@ -380,14 +455,18 @@ def _study_budgets(backend: str, memory_budget_bytes, s_count: int):
 
 
 def _many_plan(backend: str, n: int, n_valid: int, n_total: int, *, impl,
-               budget, chunk, n_cols=None):
+               budget, chunk, n_cols=None, n_groups=None, plans=()):
     """A study's plan: on 'cuda' at its own n_valid, as its single-study
-    run plans; on 'cpu' at the batch's n, the reference's one plan."""
+    run plans; on 'cpu' at the batch's n, the reference's one plan, made
+    once (the batch's first, `plans[0]`). A labels plan takes n_groups,
+    so it reads a persisted autotune winner as run() does."""
+    if backend != "cuda" and plans:
+        return plans[0]
     return planner.plan(n_valid if backend == "cuda" else n, n_total,
                         backend=backend,
                         impl=None if impl == "auto" else impl,
                         memory_budget_bytes=budget, chunk=chunk,
-                        n_cols=n_cols)
+                        n_cols=n_cols, n_groups=n_groups)
 
 
 def _many_plan_string(plans, chunks, s_count: int, ragged: bool) -> str:
@@ -492,25 +571,32 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
     _check_study_perms(perms, s_count, n_total, n, "perms")
     budget = _study_budgets(dev.type, memory_budget_bytes, s_count)
     plans, chunks, f_rows, s_ts, s_ws, p_vals = [], [], [], [], [], []
-    for s in range(s_count):
-        nv = int(groupings[s].shape[0])
-        pl = _many_plan(dev.type, n, nv, n_total, impl=impl, budget=budget,
-                        chunk=chunk)
-        fn = registry.get(pl.impl).bound(**pl.tuning)
-        mat2 = dms[s] * dms[s]
-        inv_gs = permutations.inv_group_sizes(groupings[s], n_groups)
-        s_w_all, stats = _sweep(
-            pl, mat2, groupings[s], inv_gs, n_total, fn,
-            seed=permutations.study_seed(seed, s),
-            perms=_study_draws(perms, s, nv), draw_budget=budget)
-        s_t = s_total(mat2)
-        f_all = f_from_sw(s_w_all, s_t, nv, n_groups)
-        plans.append(pl)
-        chunks.append(stats.n_chunks)
-        f_rows.append(f_all)
-        s_ts.append(s_t)
-        s_ws.append(s_w_all[0])
-        p_vals.append(p_value_from_null(f_all))
+    attrs = _studies_attrs(s_count)
+    with _obs.span("engine.studies", attrs):
+        for s in range(s_count):
+            nv = int(groupings[s].shape[0])
+            pl = _many_plan(dev.type, n, nv, n_total, impl=impl,
+                            budget=budget, chunk=chunk, n_groups=n_groups,
+                            plans=plans)
+            fn = registry.get(pl.impl).bound(**pl.tuning)
+            mat2 = dms[s] * dms[s]
+            inv_gs = permutations.inv_group_sizes(groupings[s], n_groups)
+            s_w_all, stats = _sweep(
+                pl, mat2, groupings[s], inv_gs, n_total, fn, n_groups,
+                span=False, seed=permutations.study_seed(seed, s),
+                perms=_study_draws(perms, s, nv), draw_budget=budget)
+            s_t = s_total(mat2)
+            f_all = f_from_sw(s_w_all, s_t, nv, n_groups)
+            plans.append(pl)
+            chunks.append(stats.n_chunks)
+            f_rows.append(f_all)
+            s_ts.append(s_t)
+            s_ws.append(s_w_all[0])
+            p_vals.append(p_value_from_null(f_all))
+            _add_study_traffic(attrs, pl, n if dev.type == "cpu" else nv,
+                               n_total, dev.type, n_groups)
+        _obs.maybe_block(f_rows)
+    _count_studies(s_count)
     f_perms = torch.stack(f_rows)
     return PermanovaManyResult(
         f_stat=f_perms[:, 0], p_value=torch.stack(p_vals),
@@ -518,6 +604,34 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
         n_objects=n, n_groups=n_groups, n_perms=n_perms, n_valid=n_valid,
         plan=_many_plan_string(plans, chunks, s_count, ragged),
         ordination=_many_ordination(dms, ordination, n))
+
+
+def _studies_attrs(s_count: int):
+    """The `engine.studies` span's attrs, filled study by study
+    (_add_study_traffic); None while tracing is off."""
+    if not _obs.trace_enabled():
+        return None
+    return {"studies": s_count, "where": "in turn", "predicted_bytes": 0.0}
+
+
+def _add_study_traffic(attrs, pl, n: int, n_total: int, backend: str,
+                       n_groups: int, n_cols: int = 0) -> None:
+    """Add one study's sweep to the batch span's attrs: its impl and its
+    traffic (_sw_traffic_bytes at the chunk of its plan, at the width it
+    was planned at: the batch's n on 'cpu', as the reference's one plan,
+    its own n_valid on 'cuda')."""
+    if attrs is None:
+        return
+    attrs["impl"] = pl.impl
+    attrs["predicted_bytes"] += _sw_traffic_bytes(
+        pl.impl, n, n_total, pl.chunk, n_cols, backend=backend,
+        n_groups=n_groups)
+
+
+def _count_studies(s_count: int) -> None:
+    """A finished batch: `engine.studies` and the card's peak memory."""
+    _obs.metrics.inc("engine.studies", s_count)
+    _obs.record_device_memory()
 
 
 def _many_ordination(dms, ordination, n: int):
@@ -618,20 +732,28 @@ def _permanova_many_design(dms, groupings, *, covariates, strata, weights,
     _check_study_perms(index_perms, s_count, n_total, n, "index_perms")
     budget = _study_budgets(dev.type, memory_budget_bytes, s_count)
     plans, chunks, s_cols = [], [], []
-    for s, d in enumerate(designs):
-        nv = d.n
-        st = (d.strata if d.strata is not None
-              else torch.zeros((nv,), dtype=torch.int32, device=dev))
-        pl = _many_plan(dev.type, n, nv, n_total, impl=impl, budget=budget,
-                        chunk=chunk, n_cols=k)
-        cols_fn = registry.bound_cols(pl.impl, **pl.tuning)
-        sc, stats = scheduler.sw_cols_streaming(
-            dms[s] * dms[s], d.basis, st, n_total, cols_fn, chunk=pl.chunk,
-            seed=permutations.study_seed(seed, s),
-            index_perms=_study_draws(index_perms, s, nv), draw_budget=budget)
-        plans.append(pl)
-        chunks.append(stats.n_chunks)
-        s_cols.append(sc)
+    attrs = _studies_attrs(s_count)
+    with _obs.span("engine.studies", attrs):
+        for s, d in enumerate(designs):
+            nv = d.n
+            st = (d.strata if d.strata is not None
+                  else torch.zeros((nv,), dtype=torch.int32, device=dev))
+            pl = _many_plan(dev.type, n, nv, n_total, impl=impl,
+                            budget=budget, chunk=chunk, n_cols=k,
+                            plans=plans)
+            cols_fn = registry.bound_cols(pl.impl, **pl.tuning)
+            sc, stats = scheduler.sw_cols_streaming(
+                dms[s] * dms[s], d.basis, st, n_total, cols_fn,
+                chunk=pl.chunk, seed=permutations.study_seed(seed, s),
+                index_perms=_study_draws(index_perms, s, nv),
+                draw_budget=budget)
+            plans.append(pl)
+            chunks.append(stats.n_chunks)
+            s_cols.append(sc)
+            _add_study_traffic(attrs, pl, n if dev.type == "cpu" else nv,
+                               n_total, dev.type, n_groups, n_cols=k)
+        _obs.maybe_block(s_cols)
+    _count_studies(s_count)
     return design_many_result(
         torch.stack(s_cols), designs, n_objects=n, n_groups=n_groups,
         n_perms=n_perms, n_valid=n_valid,

@@ -31,8 +31,11 @@ card's name), so no card's entry is read on another card or on the CPU.
 On 'cuda' every candidate is a hand kernel (brute, permblock, matmul) and
 is timed by CUDA events; a candidate is skipped only where its kernel
 does not apply to the shape (kernels.ShapeNotSupported), every other
-build or launch error propagates. (The reference also counts cache hits
-and misses in its obs metrics; those come with the obs slice.)
+build or launch error propagates. With metrics on (obs), the reference's
+counters: `autotune.cache.hit` / `.miss` per lookup, `.stale_dropped`
+and `.corrupt_quarantined` per cache load, `autotune.measured` per
+shoot-out of autotune(); `MEASURED` counts the shoot-outs of every kind
+whether telemetry is on or not.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import torch
 
 from repro_torch.engine import registry
 from repro_torch.kernels import ShapeNotSupported
+from repro_torch.obs import metrics as _metrics
 
 _log = logging.getLogger(__name__)
 _WARNED: set = set()
@@ -305,6 +309,7 @@ def load_autotune_cache(*, reload: bool = False) -> Dict[str, dict]:
                         if _valid_entry(k, v)}
             dropped = len(data) - len(_PERSIST)
             if dropped:
+                _metrics.inc("autotune.cache.stale_dropped", dropped)
                 _warn_once(
                     "stale", f"autotune cache {path}: dropped {dropped} "
                     f"entr{'y' if dropped == 1 else 'ies'} of another "
@@ -325,6 +330,7 @@ def _quarantine_corrupt_cache(path: str, err: Exception) -> None:
         where = f"; quarantined to {quarantined}"
     except OSError:
         where = " (quarantine rename failed; leaving it in place)"
+    _metrics.inc("autotune.cache.corrupt_quarantined")
     _warn_once("corrupt",
                f"autotune cache {path} is corrupt ({err}); continuing "
                f"with an empty cache{where}. Entries will be measured "
@@ -387,18 +393,24 @@ def measured_impl(backend: str, n: int, n_groups: int,
     registered."""
     kind = device_kind(backend)
     if kind is None:
+        _metrics.inc("autotune.cache.miss")
         return None
     entry = load_autotune_cache().get(_persist_key(kind, n, n_groups))
     if not entry:
+        _metrics.inc("autotune.cache.miss")
         return None
     wanted = set(candidates if candidates is not None else registry.names())
     if not wanted <= set(entry.get("candidates", ())):
+        _metrics.inc("autotune.cache.miss")
         return None
     name = entry.get("impl")
     try:
-        return registry.get(name).name
+        name = registry.get(name).name
     except KeyError:
+        _metrics.inc("autotune.cache.miss")
         return None
+    _metrics.inc("autotune.cache.hit")
+    return name
 
 
 def time_call(fn: Callable, device: torch.device,
@@ -449,6 +461,7 @@ def autotune(mat2: torch.Tensor, grouping: torch.Tensor,
     if use_cache:
         load_autotune_cache()      # a changed cache path clears the memo
         if memo_key in _AUTOTUNE_CACHE:
+            _metrics.inc("autotune.cache.hit")
             return _AUTOTUNE_CACHE[memo_key]
         persisted = measured_impl(backend, n, n_groups, names)
         if persisted in names:
@@ -470,6 +483,7 @@ def autotune(mat2: torch.Tensor, grouping: torch.Tensor,
         raise RuntimeError("autotune: no candidate impl applies to "
                            f"n={n}, P={sample_perms}")
     MEASURED["sw"] += 1
+    _metrics.inc("autotune.measured")
     best = min(times_ms, key=times_ms.get)
     if use_cache:
         _AUTOTUNE_CACHE[memo_key] = best

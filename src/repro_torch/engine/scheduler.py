@@ -6,7 +6,9 @@ their GLOBAL permutation indices (`core.permutations`), so the
 (n_total, n) label tensor never exists and any chunk size gives the same
 labels; or they are sliced from a caller's explicit `perms` tensor. The
 s_W values stay on the device: the sweep never waits for the card between
-chunks.
+chunks. While tracing (obs), each chunk is an `engine.sw_chunk` span that
+waits for its chunk; with metrics on, `engine.perm_chunks` counts the
+chunks and `engine.peak_label_bytes` gauges the live label footprint.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core import permutations
 from repro_torch.engine import planner
 
@@ -25,6 +28,13 @@ class StreamStats(NamedTuple):
     chunk: int
     n_chunks: int
     peak_label_bytes: int   # (chunk, n) int32 — the live label footprint
+
+
+def _count(stats: StreamStats) -> StreamStats:
+    """Record a finished sweep's chunks and label footprint (obs)."""
+    _obs.metrics.inc("engine.perm_chunks", stats.n_chunks)
+    _obs.metrics.gauge_set("engine.peak_label_bytes", stats.peak_label_bytes)
+    return stats
 
 
 def _labels(grouping, lo, hi, *, seed, perms, strata=None,
@@ -97,14 +107,17 @@ def sw_streaming(mat2: torch.Tensor, grouping: torch.Tensor,
     out = torch.empty((n_total,), dtype=torch.float32, device=mat2.device)
     n_chunks = 0
     for lo in range(0, n_total, chunk):
-        hi = min(lo + chunk, n_total)
-        out[lo:hi] = fn(mat2, _labels(grouping, lo, hi, seed=seed,
-                                      perms=perms, strata=strata,
-                                      index_perms=index_perms,
-                                      draw_budget=draw_budget), inv_gs)
+        with _obs.span("engine.sw_chunk", {"lo": lo}):
+            hi = min(lo + chunk, n_total)
+            out[lo:hi] = fn(mat2, _labels(grouping, lo, hi, seed=seed,
+                                          perms=perms, strata=strata,
+                                          index_perms=index_perms,
+                                          draw_budget=draw_budget), inv_gs)
+            _obs.maybe_block(out)
         n_chunks += 1
-    return out, StreamStats(n_total=n_total, chunk=chunk, n_chunks=n_chunks,
-                            peak_label_bytes=4 * chunk * n)
+    return out, _count(StreamStats(n_total=n_total, chunk=chunk,
+                                   n_chunks=n_chunks,
+                                   peak_label_bytes=4 * chunk * n))
 
 
 def sw_batch(mat2: torch.Tensor, grouping: torch.Tensor,
@@ -117,12 +130,15 @@ def sw_batch(mat2: torch.Tensor, grouping: torch.Tensor,
     n = int(mat2.shape[0])
     _check_perms(perms, n_total, n)
     _check_perms(index_perms, n_total, n, "index_perms")
-    s_w = fn(mat2, _labels(grouping, 0, n_total, seed=seed, perms=perms,
-                           strata=strata, index_perms=index_perms,
-                           draw_budget=draw_budget),
-             inv_gs).to(torch.float32)
-    return s_w, StreamStats(n_total=n_total, chunk=n_total, n_chunks=1,
-                            peak_label_bytes=4 * n_total * n)
+    with _obs.span("engine.sw_chunk", {"lo": 0}):
+        s_w = fn(mat2, _labels(grouping, 0, n_total, seed=seed, perms=perms,
+                               strata=strata, index_perms=index_perms,
+                               draw_budget=draw_budget),
+                 inv_gs).to(torch.float32)
+        s_w = _obs.maybe_block(s_w)
+    return s_w, _count(StreamStats(n_total=n_total, chunk=n_total,
+                                   n_chunks=1,
+                                   peak_label_bytes=4 * n_total * n))
 
 
 def sw_cols_streaming(mat2: torch.Tensor, basis: torch.Tensor,
@@ -148,10 +164,14 @@ def sw_cols_streaming(mat2: torch.Tensor, basis: torch.Tensor,
     out = torch.empty((n_total, k), dtype=torch.float32, device=mat2.device)
     n_chunks = 0
     for lo in range(0, n_total, chunk):
-        hi = min(lo + chunk, n_total)
-        idx = _index_perms(strata, lo, hi, seed=seed,
-                           index_perms=index_perms, draw_budget=draw_budget)
-        out[lo:hi] = fn(mat2, fstat.basis_perm_factors(basis, idx))
+        with _obs.span("engine.sw_chunk", {"lo": lo, "cols": k}):
+            hi = min(lo + chunk, n_total)
+            idx = _index_perms(strata, lo, hi, seed=seed,
+                               index_perms=index_perms,
+                               draw_budget=draw_budget)
+            out[lo:hi] = fn(mat2, fstat.basis_perm_factors(basis, idx))
+            _obs.maybe_block(out)
         n_chunks += 1
-    return out, StreamStats(n_total=n_total, chunk=chunk, n_chunks=n_chunks,
-                            peak_label_bytes=4 * chunk * n * (k + 1))
+    return out, _count(StreamStats(n_total=n_total, chunk=chunk,
+                                   n_chunks=n_chunks,
+                                   peak_label_bytes=4 * chunk * n * (k + 1)))

@@ -41,6 +41,24 @@ H100_SXM = ChipSpec(
 PAPER_N_DIMS = 25145
 PAPER_N_PERMS = 3999
 
+# The paper's MI300A CPU STREAM triad (App. A2), B/s: obs.report's
+# reference bandwidth on 'cpu', so a CPU report reads as the reference's.
+# It was measured on the paper's machine, not for this port.
+MI300A_CPU_STREAM_TRIAD = 0.209e12
+
+TARGET = H100_SXM
+
+
+def ridge_point_bf16(chip: ChipSpec = TARGET) -> float:
+    """FLOP/byte where the card turns from memory- to compute-bound on
+    the bf16 tensor cores (295 at the H100 SXM's datasheet rates)."""
+    return chip.peak_flops_bf16 / chip.hbm_bandwidth
+
+
+def ridge_point_f32(chip: ChipSpec = TARGET) -> float:
+    """The same on the f32 CUDA cores (20 FLOP/byte)."""
+    return chip.peak_flops_f32 / chip.hbm_bandwidth
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The torch.device to run on. Asking for CUDA where there is no CUDA

@@ -4,7 +4,9 @@ The library has a plain C interface and is loaded with ctypes (no PyTorch
 headers, so a build takes seconds). It lands in `build/repro_torch/` at the
 root of the checkout, named by a hash of the source and the flags, so an
 edited source builds anew and an unchanged one is loaded as it is. A
-failed build raises with the compiler's output; nothing falls back.
+failed build raises with the compiler's output; nothing falls back. With
+metrics on (obs), each nvcc run counts `cuda.builds` and its seconds
+(`cuda.build_seconds`), each library found built `cuda.loads`.
 """
 
 from __future__ import annotations
@@ -14,7 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from repro_torch.obs import cudahooks
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
@@ -52,8 +57,10 @@ def build(source: Path) -> Path:
     """Compile `source` unless its library is already built; its path."""
     out = library_path(source)
     if out.exists():
+        cudahooks.count_load()
         return out
     nvcc = find_nvcc()
+    t0 = time.perf_counter()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     cmd = nvcc_command(nvcc, source, tmp)
@@ -63,6 +70,7 @@ def build(source: Path) -> Path:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)    # atomic: a concurrent loader sees all or none
+    cudahooks.count_build(time.perf_counter() - t0)
     return out
 
 

@@ -28,8 +28,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.distance import pack_presence_bits
-from repro_torch.kernels import ShapeNotSupported, _build
+from repro_torch.kernels import ShapeNotSupported, _build, tile_visit_elems
 from repro_torch.kernels.distance import ref
+from repro_torch.obs import cudahooks
 
 KERNELS = ("braycurtis", "euclidean", "jaccard", "jaccard_packed")
 METRICS = ("braycurtis", "euclidean", "jaccard")
@@ -86,6 +87,17 @@ def _check(xr, xc, kernel):
                                 "the kernel's grid")
 
 
+def launch_bytes(nr: int, n: int, d: int, *, symmetric: bool = False,
+                 feat_bytes: float = 4.0) -> float:
+    """Device bytes one launch moves, worked out from the source: per
+    visited 128 x 128 output tile its rows' and columns' d features (of
+    `feat_bytes`: packed jaccard passes its words as d with 4 bytes), and
+    the (nr, n) f32 output written once (a symmetric call writes each
+    visited tile and its transpose)."""
+    _, cols, rows = tile_visit_elems(nr, n, TILE, symmetric)
+    return feat_bytes * d * (cols + rows) + 4.0 * nr * n
+
+
 def is_symmetric_call(xr: torch.Tensor, xc: torch.Tensor) -> bool:
     """Whether a call covers one table against itself: the same storage
     at the same address, shape and strides. The kernel then visits the
@@ -125,6 +137,7 @@ def pairwise_rect(xr: torch.Tensor, xc: torch.Tensor, *, kernel: str
         raise RuntimeError(f"distance {kernel} kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES[kernel] += 1
+    cudahooks.count_launch(kernel)
     return out
 
 

@@ -34,8 +34,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import distance
-from repro_torch.kernels import ShapeNotSupported, _build
+from repro_torch.kernels import ShapeNotSupported, _build, tile_visit_elems
 from repro_torch.kernels.fused_sw import ref
+from repro_torch.obs import cudahooks
 
 # aitchison is euclidean geometry over clr-prepared features
 KERNEL_METRIC = {"euclidean": "euclidean", "braycurtis": "braycurtis",
@@ -142,6 +143,29 @@ def n_slots(nr: int, n: int, symmetric: bool,
     (never of P or of the card)."""
     strip, most = LAYOUT[kernel]
     return min(most, _n_items(nr, n, symmetric, strip))
+
+
+def launch_bytes(nr: int, n: int, d: int, n_perms: int, *,
+                 feat_bytes: float = 4.0, n_cols=None,
+                 symmetric=None) -> float:
+    """Device bytes one launch moves (the kernel and its slot sum), worked
+    out from the source: per visited 64 x 64 tile its rows' and columns'
+    features (d elements of `feat_bytes`; rows past nr, columns past n
+    read nothing), and per (tile, pass) its column and row labels and the
+    slot's running partial read and rewritten; the slots' partials zeroed
+    at the start, their totals, and the slot sum (reads every slot's
+    partials, writes the (P,) output). For a dense design (n_cols = K)
+    the labels are the (P, n, K) f32 basis: the same walk over Q = P K
+    columns. `symmetric` defaults to nr == n (the sweeps' whole-table
+    call, tiles j >= i)."""
+    sym = nr == n if symmetric is None else bool(symmetric)
+    visits, cols, rows = tile_visit_elems(nr, n, TILE, sym)
+    q = n_perms * (1 if n_cols is None else int(n_cols))
+    slots = n_slots(nr, n, sym,
+                    "fused_sw" if n_cols is None else "fused_sw_cols")
+    return (feat_bytes * d * (cols + rows) + 4.0 * q * (cols + rows)
+            + 8.0 * q * visits + 4.0 * q * slots + 8.0 * slots
+            + 4.0 * q * slots + 8.0 * slots + 4.0 * q)
 
 
 def row_sum_shape(nr: int, n: int, symmetric: bool,
@@ -362,6 +386,7 @@ def _launch(lib, metric, mode, x_rows, x, scale, g_rows, g_cols, inv_gs,
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
+    cudahooks.count_launch(key)
     if rs_part is None:
         return sw, tot[-1].clone()
     return sw, rs_part.sum(dim=0)
@@ -489,6 +514,7 @@ def _launch_cols(lib, metric, mode, x_rows, x, scale, v_rows, v_cols,
     if err != 0:
         raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
     LAUNCHES[key] += 1
+    cudahooks.count_launch(key)
     if rs_part is None:
         return s_cols, tot[-1].clone()
     return s_cols, rs_part.sum(dim=0)

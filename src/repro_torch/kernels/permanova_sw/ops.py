@@ -22,8 +22,9 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import fstat
-from repro_torch.kernels import ShapeNotSupported, _build
+from repro_torch.kernels import ShapeNotSupported, _build, tile_visit_elems
 from repro_torch.kernels.permanova_sw import ref
+from repro_torch.obs import cudahooks
 
 VARIANTS = ("brute", "permblock", "matmul")
 LAUNCHES = {v: 0 for v in VARIANTS}
@@ -77,6 +78,63 @@ def permblock_blocks(n: int, tile: int = PERMBLOCK_TILE,
     (blocks, P) f32: 5,025 blocks at n = 25,145."""
     nt = -(-n // tile)
     return sum(nt - c * strip for c in range(-(-nt // strip)))
+
+
+def matmul_perm_block(n_groups: int) -> int:
+    """Permutations a matmul block takes: as many as fill 256 one-hot
+    columns, at least 1 and at most 128 (matmul_perm_block in the
+    source)."""
+    return 1 if n_groups >= 256 else min(256 // n_groups, 128)
+
+
+def launch_bytes(variant: str, n: int, n_perms: int, n_groups: int,
+                 elem_bytes: int = 4) -> int:
+    """Device bytes one launch of `variant` moves at (n, P = n_perms, G),
+    worked out from the source: every global element a block copies or
+    loads, counted once a block, every partial it writes, and the
+    wrapper's sum of the partials. Copies the kernels mask (j <= i on a
+    diagonal tile, rows or columns past n, permutations past P) read
+    nothing. w (G floats) is not counted.
+
+      brute      each 64 x 64 upper-triangle tile staged once per
+                 128-permutation block: n(n-1)/2 mat2 elements a block of
+                 permutations, each tile's column labels (128 x 64) with
+                 it, the row labels once a block; partials (P, bands).
+      permblock  each upper-triangle tile staged once; per (tile, pass of
+                 128) its column labels and its row labels, and the
+                 block's running s_W read and rewritten; partials
+                 (blocks, P).
+      matmul     a block (PB permutations, a 64-row band) reads its band
+                 of mat2 (all n columns), the PB x n labels of its
+                 columns and its rows' labels, once per slice of 256
+                 one-hot columns; partials (P, bands).
+    The draws that make the labels are not the kernel's and not counted.
+    """
+    tile = PERMBLOCK_TILE
+    nb = -(-n // tile)
+    p = n_perms
+    if variant in ("brute", "permblock"):
+        tri = n * (n - 1) // 2
+        visits, cols, rows = tile_visit_elems(n, n, tile, True)
+        if variant == "brute":
+            passes = -(-p // 128)
+            reads = elem_bytes * passes * tri + 4 * p * (cols + n)
+            return reads + 2 * 4 * p * nb + 4 * p
+        blocks = permblock_blocks(n)
+        reads = elem_bytes * tri + 4 * p * (cols + rows)
+        running = 4 * p * visits + 4 * p * (visits - blocks)
+        return reads + running + 4 * p * blocks + 4 * p
+    if variant == "matmul":
+        pb = matmul_perm_block(n_groups)
+        loads = 0
+        for p0 in range(0, p, pb):
+            here = min(pb, p - p0)
+            slices = -(-here * n_groups // 256)
+            span = here if slices == 1 else 1
+            loads += slices * (elem_bytes * n * n + 4 * n * span * nb
+                               + 4 * n * span)
+        return loads + 2 * 4 * p * nb + 4 * p
+    raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
 
 
 def _rounded_sqrt_w(inv_group_sizes: torch.Tensor, dtype) -> torch.Tensor:
@@ -167,6 +225,7 @@ def launch_partials(lib, variant, mat2, groupings, inv_group_sizes,
         raise RuntimeError(f"permanova_sw {variant} kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES[variant] += 1
+    cudahooks.count_launch(variant)
     return partials
 
 

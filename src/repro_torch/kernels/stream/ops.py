@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.stream import ref
+from repro_torch.obs import cudahooks
 
 OPS = ("copy", "scale", "add", "triad")
 # f32 arrays each op moves per element, by the STREAM convention (reads +
@@ -96,4 +97,5 @@ def stream_op(a: torch.Tensor, b: torch.Tensor, s: float = 3.0, *,
         raise RuntimeError(f"stream {op} kernel launch failed: cudaError "
                            f"{err}")
     LAUNCHES[op] += 1
+    cudahooks.count_launch(op)
     return out

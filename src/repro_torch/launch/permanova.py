@@ -45,6 +45,12 @@ under one joint plan (distance kernel, bridge, s_W).
   PYTHONPATH=src python -m repro_torch.launch.permanova \
       --samples 25145 --perms 3999 --autotune --pcoa 3
 
+  # telemetry: spans of every layer as Chrome/Perfetto trace_event JSON,
+  # and the predicted-vs-measured report with the counters:
+  PYTHONPATH=src python -m repro_torch.launch.permanova \
+      --samples 25145 --perms 3999 --from-features \
+      --trace /tmp/permanova.json --metrics
+
 Runs on the card (`--device cuda`, the default) and fails without one;
 `--device cpu` runs the plain PyTorch forms on the host.
 """
@@ -53,11 +59,12 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import torch
 
-from repro_torch import engine, pipeline
+from repro_torch import engine, obs, pipeline
 from repro_torch.core.distance import (distance_matrix,
                                        validate_distance_matrix)
 from repro_torch.data import slabcache
@@ -67,6 +74,16 @@ from repro_torch.hw import resolve_device
 
 IMPL_CHOICES = ["auto", "brute", "tiled", "matmul",
                 "pallas_brute", "pallas_permblock", "pallas_matmul"]
+
+
+def _emit_obs(args):
+    """Export the trace and/or print the telemetry report, if asked."""
+    if args.trace:
+        obs.trace.export(args.trace)
+        print(f"[permanova] trace written to {args.trace} "
+              f"({len(obs.events())} events)")
+    if args.metrics:
+        obs.report(file=sys.stdout)
 
 
 def _sync(dev: torch.device) -> None:
@@ -168,9 +185,20 @@ def main(argv=None) -> int:
                     help="weighted PERMANOVA: synthetic positive sample "
                          "weights folded into the design basis; implies "
                          "--from-features")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record trace spans across every layer and write "
+                         "Chrome/Perfetto trace_event JSON to PATH (open "
+                         "in chrome://tracing or ui.perfetto.dev)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the telemetry report after the run: the "
+                         "per-stage predicted-vs-measured bandwidth table "
+                         "and the build, launch and traffic counters")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+
+    if args.trace or args.metrics:
+        obs.enable(trace=bool(args.trace) or args.metrics, metrics=True)
 
     dev = resolve_device(args.device)
     x, grouping = synthetic_study(args.samples, args.features, args.groups,
@@ -260,6 +288,7 @@ def main(argv=None) -> int:
             print(f"[permanova] pcoa[{o.method}] k={o.k} "
                   f"explained=[{expl}] coords={tuple(o.coords.shape)} "
                   f"iterations={o.iterations}")
+        _emit_obs(args)
         return 0
 
     t0 = time.perf_counter()
@@ -286,6 +315,7 @@ def main(argv=None) -> int:
           f"permutation-test {t_pa:.2f}s "
           f"({res.n_perms / t_pa:.1f} perms/s)")
     print(f"[permanova] F={f_stat:.6g} p={p_value:.6g}")
+    _emit_obs(args)
     return 0
 
 

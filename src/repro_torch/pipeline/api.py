@@ -19,6 +19,11 @@ bridges (and the s_W impl in engine.run), the fused-kernel impl on the
 fused-kernel bridge. Features in a slab cache (data.slabcache, or its
 directory) go through `_pipeline_ooc`: read once into the resident path
 while the f32 table fits the device budget, else the out-of-core sweep.
+`trace=` scopes telemetry (obs) to the call: spans for stage 1
+(`stage1.<metric>`), each bridge (`bridge.fused`, `bridge.fused-kernel`,
+`bridge.ooc`) and PCoA (`pipeline.pcoa`), with the predicted traffic of
+`_stage1_attrs` / `_fused_attrs` (also counted in
+`pipeline.predicted_bytes`) for obs.report().
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import engine, hw
+from repro_torch import obs as _obs
 from repro_torch.core import design as _design
 from repro_torch.core import permutations
 from repro_torch.core.permanova import (PermanovaResult, _later, f_from_sw,
@@ -40,6 +46,109 @@ from repro_torch.pipeline import ordination as _ordination
 from repro_torch.pipeline import planner as _planner
 from repro_torch.pipeline import registry as _registry
 from repro_torch.pipeline import streaming as _streaming
+
+
+def _feat_words(d: int, dist_tuning) -> int:
+    """The distance kernel's feature width: packed jaccard reads 32-bit
+    presence words."""
+    return -(-d // 32) if int((dist_tuning or {}).get("packed", 0)) else d
+
+
+def _stage1_attrs(pl, dspec, n: int, d: int, bridge: str, backend: str):
+    """Span attrs for the distance stage, its predicted traffic also
+    counted in `pipeline.predicted_bytes`; None while tracing is off (the
+    disabled path allocates nothing).
+
+    On 'cpu', and for a torch impl on the card, the reference's model:
+    the registry's workset per row block (the dense form one block of n
+    rows) plus the 4n^2 mat2 write. The card's kernel ('<metric>.cuda'
+    on 'cuda'): what its launches move (kernels.distance.ops.
+    launch_bytes): the dense bridge's one whole-table call; the stream
+    bridge's (block, n) slab calls, each slab then squared, its diagonal
+    zeroed, copied into mat2 and summed by rows (20 bytes an element)."""
+    if not _obs.trace_enabled():
+        return None
+    if backend == "cuda" and dspec.kind == "cuda":
+        from repro_torch.kernels.distance import ops as _dops
+        words = _feat_words(d, pl.dist_tuning)
+        if bridge == "dense":
+            predicted = _dops.launch_bytes(n, n, words, symmetric=True)
+        else:
+            block = int(min(pl.row_block, n))
+            predicted = sum(
+                _dops.launch_bytes(min(block, n - lo), n, words)
+                + 20.0 * min(block, n - lo) * n
+                for lo in range(0, n, block))
+    else:
+        block = n if bridge == "dense" else int(min(pl.row_block, n))
+        n_blocks = -(-n // block)
+        predicted = (float(dspec.workset_bytes(n, d, block)) * n_blocks
+                     + 4.0 * n * n)
+    _obs.metrics.inc("pipeline.predicted_bytes", predicted)
+    return {"bridge": bridge, "impl": pl.dist_impl,
+            "predicted_bytes": predicted}
+
+
+def _fused_attrs(pl, n: int, d: int, n_groups: int, n_total: int, *,
+                 fspec=None, studies: int = 1, backend: str = "cpu",
+                 n_cols=None):
+    """Span attrs for the fused bridges, the predicted traffic also
+    counted in `pipeline.predicted_bytes`; None while tracing is off.
+
+    On 'cpu', the reference's models: the fused (two-stage) sweep builds
+    every mat2 row slab once and streams the (chunk, n, G + 1)-equivalent
+    label state per (slab, chunk) pair; the fused-kernel sweep's feature
+    traffic comes from the registry's precision-aware model per chunk,
+    plus the label state per chunk. On 'cuda': the fused-kernel bridge
+    counts what each megakernel launch moves (kernels.fused_sw.ops.
+    launch_bytes, n_cols = K for a dense design) plus what each chunk's
+    draw writes (labels, or the index permutations and the gathered
+    basis); the fused bridge, through the distance kernel, each slab's
+    launch, its square and row sums (12 bytes an element), and per (slab,
+    chunk) the slab read and the label state."""
+    if not _obs.trace_enabled():
+        return None
+    block = int(min(pl.row_block, n))
+    n_blocks = -(-n // block)
+    ch = int(max(1, min(pl.sw.chunk, n_total)))
+    n_chunks = -(-n_total // ch)
+    if fspec is not None:
+        bridge, impl = "fused-kernel", fspec.name
+        if backend == "cuda" and fspec.kind == "cuda":
+            from repro_torch.kernels.fused_sw import ops as _fops
+            bpe = _registry.feat_element_bytes(
+                {**dict(fspec.tuning), **pl.fused_tuning})
+            k = 0 if n_cols is None else int(n_cols)
+            predicted = 0.0
+            for lo in range(0, n_total, ch):
+                p = min(ch, n_total - lo)
+                predicted += (_fops.launch_bytes(n, n, d, p, feat_bytes=bpe,
+                                                 n_cols=n_cols)
+                              + 4.0 * p * n * (k + 1))
+        else:
+            predicted = (
+                _registry.fused_feat_traffic_bytes(
+                    fspec, n, d, pl.fused_tuning, block) * n_chunks
+                + 4.0 * ch * n * (n_groups + 1) * n_chunks)
+    else:
+        bridge, impl = "fused", pl.sw.impl
+        label_state = n_blocks * n_chunks * 4.0 * ch * n * (n_groups + 1)
+        if backend == "cuda" and \
+                _registry.get(pl.dist_impl).kind == "cuda":
+            from repro_torch.kernels.distance import ops as _dops
+            words = _feat_words(d, pl.dist_tuning)
+            predicted = label_state + 4.0 * n * n * n_chunks + sum(
+                _dops.launch_bytes(min(block, n - lo), n, words)
+                + 12.0 * min(block, n - lo) * n
+                for lo in range(0, n, block))
+        else:
+            predicted = 4.0 * n * n + label_state
+    predicted *= studies
+    _obs.metrics.inc("pipeline.predicted_bytes", predicted)
+    attrs = {"bridge": bridge, "impl": impl, "predicted_bytes": predicted}
+    if studies > 1:
+        attrs["studies"] = studies
+    return attrs
 
 
 def pipeline(x, grouping=None, *, metric: str = "braycurtis",
@@ -122,15 +231,38 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
                  card every candidate is a hand kernel.
     device:      'cuda' (default; raises without a card) or 'cpu'.
 
+    trace:       telemetry for this call: True enables scoped span
+                 tracing + metrics (obs.session), a string also exports the
+                 Chrome trace_event JSON to that path on return; None /
+                 False (default) leaves telemetry as the process had it
+                 (nothing recorded, no sync, when it is off). Read it with
+                 obs.report() / obs.trace.stage_table() afterwards.
+                 Tracing waits for the card at each span's end, so the
+                 spans time finished device work; F, p and the null are
+                 unchanged.
+
     Budgets split per stage: matrix/slab for distances,
     memory_budget_bytes for s_W labels. mesh (with or without a design)
-    and trace raise NotImplementedError naming their slice (a slab cache
-    with a mesh raises ValueError, as the reference does). For the same
-    labels every bridge gives the same F and p-value (to f32 accumulation
-    order).
+    raises NotImplementedError naming its slice (a slab cache with a mesh
+    raises ValueError, as the reference does). For the same labels every
+    bridge gives the same F and p-value (to f32 accumulation order).
     """
     if trace:
-        raise _later("trace=", "tracing (obs)")
+        with _obs.session(trace if isinstance(trace, str) else None):
+            return pipeline(
+                x, grouping, metric=metric, n_perms=n_perms, seed=seed,
+                perms=perms, index_perms=index_perms, n_groups=n_groups,
+                dist_impl=dist_impl, sw_impl=sw_impl,
+                materialize=materialize, row_block=row_block, chunk=chunk,
+                memory_budget_bytes=memory_budget_bytes,
+                matrix_budget_bytes=matrix_budget_bytes,
+                slab_budget_bytes=slab_budget_bytes,
+                dist_tuning=dist_tuning, fused_impl=fused_impl,
+                fused_tuning=fused_tuning, mesh=mesh, ordination=ordination,
+                covariates=covariates, strata=strata, weights=weights,
+                autotune=autotune, trace=None,
+                device_budget_bytes=device_budget_bytes,
+                host_budget_bytes=host_budget_bytes, device=device)
     dev = hw.resolve_device(device)
     if isinstance(x, (str, os.PathLike)):
         x = _slabcache.SlabCache.open(x)
@@ -204,13 +336,14 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
                 "materialize='fused-kernel' for the measured single-pass "
                 "candidates)", stacklevel=2)
     # planner-resolved tuning (row block folded in) <- caller overrides
-    prepare, rows_fn, dense_fn = _registry.get(pl.dist_impl).bound(
+    dspec = _registry.get(pl.dist_impl)
+    prepare, rows_fn, dense_fn = dspec.bound(
         **{**pl.dist_tuning, **(dist_tuning or {})})
     if pl.materialize in _planner.FUSED_MODES:
         xprep = prepare(x)
         res = _fused_bridge(pl, xprep, rows_fn, grouping, n_perms,
                             n_groups, seed, perms, index_perms,
-                            memory_budget_bytes)
+                            memory_budget_bytes, d=int(d))
         return dataclasses.replace(res, ordination=_features_ordination(
             pl, xprep, rows_fn, ordination))
     run_kw = dict(n_perms=n_perms, seed=seed, perms=perms,
@@ -219,20 +352,27 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
                   autotune=autotune, device=dev)
     ordn = None
     if pl.materialize == "dense":
-        dm = dense_fn(x)
+        with _obs.span(f"stage1.{metric}", _stage1_attrs(
+                pl, dspec, n, d, "dense", dev.type)):
+            dm = _obs.maybe_block(dense_fn(x))
         res = engine.run(dm, grouping, **run_kw)
         if ordination is not None:
             # the dense bridge budgets (n, n) transients: G and eigh
-            ordn = _ordination.pcoa_eigh(dm * dm, ordination)
+            with _obs.span("pipeline.pcoa"):
+                ordn = _ordination.pcoa_eigh(dm * dm, ordination)
     else:
-        mat2, gower = _streaming.build_mat2_streaming(
-            prepare(x), rows_fn, block=pl.row_block)
+        with _obs.span(f"stage1.{metric}", _stage1_attrs(
+                pl, dspec, n, d, "stream", dev.type)):
+            mat2, gower = _streaming.build_mat2_streaming(
+                prepare(x), rows_fn, block=pl.row_block)
         res = engine.run(mat2, grouping, squared=True, s_t=gower.s_t,
                          **run_kw)
         if ordination is not None:
             # the implicit centered operator on the same mat2 and the
             # marginals the streaming pass accumulated: no second (n, n)
-            ordn = _ordination.pcoa_subspace(mat2, ordination, stats=gower)
+            with _obs.span("pipeline.pcoa"):
+                ordn = _ordination.pcoa_subspace(mat2, ordination,
+                                                 stats=gower)
 
     # engine.run planned stage 2 (autotune may have picked it): report
     # its record once
@@ -252,35 +392,46 @@ def _features_ordination(pl: _planner.PipelinePlan, xprep, rows_fn,
     without ordination=."""
     if ordination is None:
         return None
-    return _ordination.pcoa_features(xprep, rows_fn, ordination,
-                                     row_block=pl.row_block)
+    with _obs.span("pipeline.pcoa"):
+        return _ordination.pcoa_features(xprep, rows_fn, ordination,
+                                         row_block=pl.row_block)
 
 
 def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
                   n_perms: int, n_groups: int, seed: int, perms,
-                  index_perms, draw_budget):
+                  index_perms, draw_budget, *, d: int):
     """The fused and fused-kernel bridges: s_W from the streaming sweeps,
     then F and p as engine.run assembles them; the joint plan string is
-    authoritative (no engine.run runs)."""
+    authoritative (no engine.run runs). Each bridge is a span while
+    tracing (`bridge.fused` / `bridge.fused-kernel`, `_fused_attrs`)."""
     n = int(xprep.shape[0])
     n_total = n_perms + 1
     inv_gs = permutations.inv_group_sizes(grouping, n_groups)
+    backend = xprep.device.type
     if pl.materialize == "fused":
-        s_w, s_t, stats = _streaming.fused_sw(
-            xprep, rows_fn, grouping, inv_gs, n_total,
-            row_block=pl.row_block, chunk=pl.sw.chunk, seed=seed,
-            perms=perms, index_perms=index_perms, draw_budget=draw_budget)
+        with _obs.span("bridge.fused", _fused_attrs(
+                pl, n, d, n_groups, n_total, backend=backend)):
+            s_w, s_t, stats = _streaming.fused_sw(
+                xprep, rows_fn, grouping, inv_gs, n_total,
+                row_block=pl.row_block, chunk=pl.sw.chunk, seed=seed,
+                perms=perms, index_perms=index_perms,
+                draw_budget=draw_budget)
+            _obs.maybe_block(s_w)
         ran = (f"rows={stats.row_block}x{stats.n_row_blocks} "
                f"chunks={stats.n_chunks} "
                f"slab={stats.peak_slab_bytes/2**20:.1f}MiB")
     else:
         fspec = _registry.get_fused(pl.fused_impl)
-        s_w, s_t, stats = _streaming.fused_kernel_sw(
-            xprep, rows_fn, grouping, inv_gs, n_total, impl=fspec.kind,
-            kernel_metric=fspec.kernel_metric, row_block=pl.row_block,
-            chunk=pl.sw.chunk, tuning=pl.fused_tuning, seed=seed,
-            perms=perms, index_perms=index_perms,
-            draw_budget=_draw_budget(pl, draw_budget))
+        with _obs.span("bridge.fused-kernel", _fused_attrs(
+                pl, n, d, n_groups, n_total, fspec=fspec, backend=backend)):
+            s_w, s_t, stats = _streaming.fused_kernel_sw(
+                xprep, rows_fn, grouping, inv_gs, n_total, impl=fspec.kind,
+                kernel_metric=fspec.kernel_metric, row_block=pl.row_block,
+                chunk=pl.sw.chunk, tuning=pl.fused_tuning, seed=seed,
+                perms=perms, index_perms=index_perms,
+                draw_budget=_draw_budget(pl, draw_budget))
+            _obs.maybe_block(s_w)
+        _obs.record_device_memory()
         ran = _kernel_ran(stats)
     return _sweep_result(
         s_w, s_t, n, n_groups, n_perms,
@@ -443,20 +594,36 @@ def _pipeline_ooc(cache: _slabcache.SlabCache, grouping, *, metric: str,
         **{**pl.dist_tuning, **(dist_tuning or {})})
     sweep_kw = dict(chunk=pl.sw.chunk, seed=seed, index_perms=index_perms,
                     draw_budget=memory_budget_bytes)
-    if design is None:
-        inv_gs = permutations.inv_group_sizes(grouping, n_groups)
-        s_w, s_t, ost = _streaming.fused_sw_ooc(
-            cache, prepare, rows_fn, grouping, inv_gs, n_total,
-            perms=perms, **sweep_kw)
-    elif dense_mode:
-        s_cols, _, ost = _streaming.fused_sw_ooc_design(
-            cache, prepare, rows_fn, design, n_total, **sweep_kw)
-    else:
-        inv_gs = permutations.inv_group_sizes(design.grouping,
-                                              design.n_groups)
-        s_w, s_t, ost = _streaming.fused_sw_ooc(
-            cache, prepare, rows_fn, design.grouping, inv_gs, n_total,
-            perms=perms, strata=design.strata, **sweep_kw)
+    span_attrs = None
+    if _obs.trace_enabled():
+        # the reference's model: the disk reads, (n_slabs + 1) passes
+        predicted = _registry.ooc_disk_traffic_bytes(cache.n_slabs,
+                                                     cache.disk_bytes)
+        _obs.metrics.inc("pipeline.predicted_bytes", predicted)
+        span_attrs = {"bridge": f"ooc-{pl.materialize}",
+                      "residency": pl.residency,
+                      "predicted_bytes": predicted}
+    with _obs.span("bridge.ooc", span_attrs):
+        if design is None:
+            inv_gs = permutations.inv_group_sizes(grouping, n_groups)
+            s_w, s_t, ost = _streaming.fused_sw_ooc(
+                cache, prepare, rows_fn, grouping, inv_gs, n_total,
+                perms=perms, **sweep_kw)
+        elif dense_mode:
+            s_cols, _, ost = _streaming.fused_sw_ooc_design(
+                cache, prepare, rows_fn, design, n_total, **sweep_kw)
+        else:
+            inv_gs = permutations.inv_group_sizes(design.grouping,
+                                                  design.n_groups)
+            s_w, s_t, ost = _streaming.fused_sw_ooc(
+                cache, prepare, rows_fn, design.grouping, inv_gs, n_total,
+                perms=perms, strata=design.strata, **sweep_kw)
+        if span_attrs is not None:
+            # read at the span's exit: the measured overlap evidence
+            # lands in the trace
+            span_attrs["stall_ms"] = round(ost.stall_s * 1e3, 3)
+            span_attrs["disk_bytes_read"] = ost.disk_bytes_read
+    _obs.record_device_memory()
 
     sweep = (f"residency={pl.residency} slabs={ost.n_slabs}"
              f"x{ost.slab_rows} chunks={ost.n_chunks} "
@@ -528,7 +695,8 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
         # stream bridges
         dist_impl = _planner.autotune_stage1(x, metric)
         pl = _plan()
-    prepare, rows_fn, dense_fn = _registry.get(pl.dist_impl).bound(
+    dspec = _registry.get(pl.dist_impl)
+    prepare, rows_fn, dense_fn = dspec.bound(
         **{**pl.dist_tuning, **(dist_tuning or {})})
     labels = dict(seed=seed, index_perms=index_perms)
     if not dense_mode:
@@ -541,25 +709,36 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
         run_kw = dict(n_perms=n_perms, impl=sw_impl,
                       memory_budget_bytes=memory_budget_bytes, chunk=chunk,
                       device=dev, **labels)
+        stage1 = _obs.span(f"stage1.{metric}", _stage1_attrs(
+            pl, dspec, n, d, pl.materialize, dev.type))
         if pl.materialize == "dense":
-            dm = dense_fn(x)
+            with stage1:
+                dm = _obs.maybe_block(dense_fn(x))
             res = engine.run_design(dm, design, **run_kw)
             if ordination is not None:
-                ordn = _ordination.pcoa_eigh(dm * dm, ordination)
+                with _obs.span("pipeline.pcoa"):
+                    ordn = _ordination.pcoa_eigh(dm * dm, ordination)
         else:
-            mat2, gower = _streaming.build_mat2_streaming(
-                prepare(x), rows_fn, block=pl.row_block)
+            with stage1:
+                mat2, gower = _streaming.build_mat2_streaming(
+                    prepare(x), rows_fn, block=pl.row_block)
             res = engine.run_design(mat2, design, squared=True,
                                     s_t=gower.s_t, **run_kw)
             if ordination is not None:
+                # no span here: the reference has none at this site
                 ordn = _ordination.pcoa_subspace(mat2, ordination,
                                                  stats=gower)
     elif pl.materialize == "fused":
         xprep = prepare(x)
+        fused_span = _obs.span("bridge.fused", _fused_attrs(
+            pl, n, d, n_groups_plan, n_total, backend=dev.type))
         if dense_mode:
-            s_cols, _, stats = _streaming.fused_sw_design(
-                xprep, rows_fn, design, n_total, row_block=pl.row_block,
-                chunk=pl.sw.chunk, **sweep_labels)
+            with fused_span:
+                s_cols, _, stats = _streaming.fused_sw_design(
+                    xprep, rows_fn, design, n_total,
+                    row_block=pl.row_block, chunk=pl.sw.chunk,
+                    **sweep_labels)
+                _obs.maybe_block(s_cols)
             res = engine.design_result(
                 s_cols.to(torch.float32), design, n_objects=n,
                 n_perms=n_perms, method="pipeline-design[fused]",
@@ -568,10 +747,12 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
         else:
             inv_gs = permutations.inv_group_sizes(design.grouping,
                                                   design.n_groups)
-            s_w, s_t, stats = _streaming.fused_sw(
-                xprep, rows_fn, design.grouping, inv_gs, n_total,
-                row_block=pl.row_block, chunk=pl.sw.chunk,
-                strata=design.strata, **sweep_labels)
+            with fused_span:
+                s_w, s_t, stats = _streaming.fused_sw(
+                    xprep, rows_fn, design.grouping, inv_gs, n_total,
+                    row_block=pl.row_block, chunk=pl.sw.chunk,
+                    strata=design.strata, **sweep_labels)
+                _obs.maybe_block(s_w)
             res = engine.label_design_result(
                 s_w.to(torch.float32), s_t.to(torch.float32), design,
                 n_objects=n, n_perms=n_perms,
@@ -586,9 +767,15 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
                   tuning=pl.fused_tuning)
         sweep_labels.update(draw_budget=_draw_budget(pl,
                                                      memory_budget_bytes))
+        kernel_span = _obs.span("bridge.fused-kernel", _fused_attrs(
+            pl, n, d, n_groups_plan, n_total, fspec=fspec,
+            backend=dev.type, n_cols=k))
         if dense_mode:
-            s_cols, _, stats = _streaming.fused_kernel_sw_design(
-                xprep, rows_fn, design, n_total, **kw, **sweep_labels)
+            with kernel_span:
+                s_cols, _, stats = _streaming.fused_kernel_sw_design(
+                    xprep, rows_fn, design, n_total, **kw, **sweep_labels)
+                _obs.maybe_block(s_cols)
+            _obs.record_device_memory()
             res = engine.design_result(
                 s_cols.to(torch.float32), design, n_objects=n,
                 n_perms=n_perms,
@@ -597,9 +784,12 @@ def _pipeline_design(x: torch.Tensor, design: _design.Design, *,
         else:
             inv_gs = permutations.inv_group_sizes(design.grouping,
                                                   design.n_groups)
-            s_w, s_t, stats = _streaming.fused_kernel_sw(
-                xprep, rows_fn, design.grouping, inv_gs, n_total,
-                strata=design.strata, **kw, **sweep_labels)
+            with kernel_span:
+                s_w, s_t, stats = _streaming.fused_kernel_sw(
+                    xprep, rows_fn, design.grouping, inv_gs, n_total,
+                    strata=design.strata, **kw, **sweep_labels)
+                _obs.maybe_block(s_w)
+            _obs.record_device_memory()
             res = engine.label_design_result(
                 s_w.to(torch.float32), s_t.to(torch.float32), design,
                 n_objects=n, n_perms=n_perms,
@@ -743,6 +933,8 @@ def pipeline_many(xs, groupings, *, n_groups: int,
                 perms=None if perms is None else perms[s], device=dev,
                 **{k: v for k, v in kw.items() if k not in (
                     "slab_budget_bytes", "dist_tuning")}))
+    _obs.metrics.inc("engine.studies", s_count)
+    _obs.record_device_memory()
     return _stack_results(results, n_objects=n, n_groups=n_groups,
                           n_perms=n_perms)
 

@@ -37,6 +37,15 @@ distance tiles of slabs the prefetcher streams in, and the same `_sweep`
 / `_sweep_cols` consume it, so the statistic equals the in-memory fused
 bridge's at row_block == slab_rows bit for bit. (Sharded sweeps come with
 a later slice.)
+
+Telemetry (obs), at the reference's sites: while tracing, each stream
+block is a `stream.mat2_block` span, each row slab of the fused bridge a
+`fused.row_slab`, of the out-of-core sweep an `ooc.row_slab` (its column
+slabs' fetch waits and tiles and its chunks), each megakernel launch a
+`fusedk.chunk`; each waits for its device work. With metrics on:
+`pipeline.mat2_bytes_built`, `fused.row_slabs` / `fused.chunk_steps`
+(the fused bridge, in memory or out of core) and `engine.perm_chunks`
+(the fused-kernel sweeps, either kind).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core import distance as _dist
 from repro_torch.core import fstat
 from repro_torch.core import permutations as _perm
@@ -106,9 +116,12 @@ def build_mat2_streaming(xprep: torch.Tensor, rows_fn: Callable, *,
     mat2 = torch.empty((n, n), dtype=torch.float32, device=xprep.device)
     row_sums = torch.empty((n,), dtype=torch.float64, device=xprep.device)
     for lo, slab in mat2_row_blocks(xprep, rows_fn, block=block):
-        hi = lo + slab.shape[0]
-        mat2[lo:hi] = slab
-        row_sums[lo:hi] = slab.sum(dim=1, dtype=torch.float64)
+        with _obs.span("stream.mat2_block", {"lo": lo}):
+            hi = lo + slab.shape[0]
+            mat2[lo:hi] = slab
+            row_sums[lo:hi] = slab.sum(dim=1, dtype=torch.float64)
+            _obs.maybe_block(row_sums)
+    _obs.metrics.inc("pipeline.mat2_bytes_built", 4.0 * n * n)
     return mat2, GowerStats(row_sums=row_sums,
                             total=float(row_sums.sum()), n=n)
 
@@ -138,26 +151,45 @@ def _fused_sw_step(m2rows: torch.Tensor, labels: torch.Tensor,
     return fstat.sw_matmul_contract(m2rows, e, e_rows)
 
 
-def _sweep(slabs, n: int, grouping, inv_gs, n_total: int, chunk: int,
-           **label_src):
+def _sweep(slabs, n: int, grouping, inv_gs, n_total: int, chunk: int, *,
+           span: Optional[str] = None, **label_src):
     """Outer loop over (lo_r, mat2 slab), inner over permutation chunks
     (labels made again per slab from `label_src`: seed, perms, strata,
-    index_perms as engine.scheduler._labels takes them). (s_w (n_total,)
-    f64, row_sums (n,) f64, number of slabs), all on the slabs' device."""
+    index_perms as engine.scheduler._labels takes them); each slab's work
+    a `span` span while tracing (the fused bridge's `fused.row_slab`;
+    None: no span). (s_w (n_total,) f64, row_sums (n,) f64, number of
+    slabs), all on the slabs' device."""
     dev = grouping.device
     s_w = torch.zeros((n_total,), dtype=torch.float64, device=dev)
     row_sums = torch.empty((n,), dtype=torch.float64, device=dev)
     n_slabs = 0
     for lo_r, slab in slabs:
-        n_slabs += 1
-        row_sums[lo_r:lo_r + slab.shape[0]] = slab.sum(dim=1,
-                                                      dtype=torch.float64)
-        for lo in range(0, n_total, chunk):
-            hi = min(lo + chunk, n_total)
-            g = _labels(grouping, lo, hi, **label_src)
-            s_w[lo:hi] += _fused_sw_step(slab, g, inv_gs, lo_r)
-            del g   # freed before the next chunk's labels are drawn
+        with _slab_span(span, lo_r):
+            n_slabs += 1
+            row_sums[lo_r:lo_r + slab.shape[0]] = slab.sum(
+                dim=1, dtype=torch.float64)
+            for lo in range(0, n_total, chunk):
+                hi = min(lo + chunk, n_total)
+                g = _labels(grouping, lo, hi, **label_src)
+                s_w[lo:hi] += _fused_sw_step(slab, g, inv_gs, lo_r)
+                del g   # freed before the next chunk's labels are drawn
+            _obs.maybe_block(s_w)
     return s_w, row_sums, n_slabs
+
+
+def _slab_span(name: Optional[str], lo_r: int, **attrs):
+    """A slab's or a chunk's span, attrs {"lo": lo_r, **attrs}: the shared
+    no-op span without a name or while tracing is off (nothing is
+    allocated)."""
+    if name is None or not _obs.trace_enabled():
+        return _obs.core.NOOP_SPAN
+    return _obs.span(name, {"lo": lo_r, **attrs})
+
+
+def _count_fused(n_slabs: int, n_chunks: int) -> None:
+    """The fused bridge's counters: row slabs and (slab, chunk) steps."""
+    _obs.metrics.inc("fused.row_slabs", n_slabs)
+    _obs.metrics.inc("fused.chunk_steps", n_slabs * n_chunks)
 
 
 def _fused_sw_step_cols(m2rows: torch.Tensor, v: torch.Tensor, lo_r: int,
@@ -180,11 +212,12 @@ def _design_strata(design, n: int, device) -> torch.Tensor:
 
 
 def _sweep_cols(slabs, n: int, design, n_total: int, chunk: int, *,
-                seed: int, index_perms, groups=(), draw_budget=None):
+                seed: int, index_perms, groups=(), draw_budget=None,
+                span: Optional[str] = None):
     """_sweep for a dense design: per (slab, chunk) cell, the chunk's
     index permutations gather the basis and the per-column forms are
-    accumulated. (s_cols (n_total, K) f64, row_sums (n,) f64, number of
-    slabs)."""
+    accumulated; each slab's work a `span` span as in _sweep. (s_cols
+    (n_total, K) f64, row_sums (n,) f64, number of slabs)."""
     basis = design.basis
     dev = basis.device
     strata = _design_strata(design, n, dev)
@@ -193,16 +226,18 @@ def _sweep_cols(slabs, n: int, design, n_total: int, chunk: int, *,
     row_sums = torch.empty((n,), dtype=torch.float64, device=dev)
     n_slabs = 0
     for lo_r, slab in slabs:
-        n_slabs += 1
-        row_sums[lo_r:lo_r + slab.shape[0]] = slab.sum(dim=1,
-                                                      dtype=torch.float64)
-        for lo in range(0, n_total, chunk):
-            hi = min(lo + chunk, n_total)
-            v = fstat.basis_perm_factors(basis, _index_perms(
-                strata, lo, hi, seed=seed, index_perms=index_perms,
-                draw_budget=draw_budget))
-            s_cols[lo:hi] += _fused_sw_step_cols(slab, v, lo_r, groups)
-            del v   # freed before the next chunk's index draw
+        with _slab_span(span, lo_r, cols=design.k_cols):
+            n_slabs += 1
+            row_sums[lo_r:lo_r + slab.shape[0]] = slab.sum(
+                dim=1, dtype=torch.float64)
+            for lo in range(0, n_total, chunk):
+                hi = min(lo + chunk, n_total)
+                v = fstat.basis_perm_factors(basis, _index_perms(
+                    strata, lo, hi, seed=seed, index_perms=index_perms,
+                    draw_budget=draw_budget))
+                s_cols[lo:hi] += _fused_sw_step_cols(slab, v, lo_r, groups)
+                del v   # freed before the next chunk's index draw
+            _obs.maybe_block(s_cols)
     return s_cols, row_sums, n_slabs
 
 
@@ -243,11 +278,12 @@ def fused_sw(xprep: torch.Tensor, rows_fn: Callable, grouping: torch.Tensor,
     chunk = int(max(1, min(chunk, n_total)))
     s_w, row_sums, n_slabs = _sweep(
         mat2_row_blocks(xprep, rows_fn, block=row_block), n, grouping,
-        inv_gs, n_total, chunk, **src)
+        inv_gs, n_total, chunk, span="fused.row_slab", **src)
     stats = FusedStats(
         n_total=n_total, chunk=chunk, n_chunks=-(-n_total // chunk),
         row_block=row_block, n_row_blocks=n_slabs,
         peak_slab_bytes=4 * row_block * n, peak_label_bytes=4 * chunk * n)
+    _count_fused(n_slabs, stats.n_chunks)
     return s_w, row_sums.sum() / 2.0 / n, stats
 
 
@@ -264,12 +300,17 @@ def fused_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
                     n_total: int, *, row_block: int, chunk: int,
                     seed: int = 0,
                     index_perms: Optional[torch.Tensor] = None,
-                    draw_budget: Optional[float] = None):
+                    draw_budget: Optional[float] = None,
+                    onepass: bool = False):
     """The plain design sweep (the fused bridge, and the torch kind of
     the fused-kernel bridge): per-column quadratic forms accumulated over
     mat2 row slabs, nothing (n, n)-shaped ever resident. Strata-blocked
     bases contract block-sparsely (each column group only touches its
     strata's samples; the skipped terms are exact zeros).
+
+    onepass: run as the torch kind of the fused-kernel bridge, which the
+    reference counts as `engine.perm_chunks` (no slab spans, no fused
+    counters).
 
     Returns (s_cols (n_total, K) float64, s_t 0-d float64, FusedStats).
     """
@@ -282,12 +323,16 @@ def fused_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
     s_cols, row_sums, n_slabs = _sweep_cols(
         mat2_row_blocks(xprep, rows_fn, block=row_block), n, design,
         n_total, chunk, seed=seed, index_perms=index_perms, groups=groups,
-        draw_budget=draw_budget)
+        draw_budget=draw_budget, span=None if onepass else "fused.row_slab")
     stats = FusedStats(
         n_total=n_total, chunk=chunk, n_chunks=-(-n_total // chunk),
         row_block=row_block, n_row_blocks=n_slabs,
         peak_slab_bytes=4 * row_block * n,
         peak_label_bytes=4 * chunk * n * (k + 1))
+    if onepass:
+        _obs.metrics.inc("engine.perm_chunks", stats.n_chunks)
+    else:
+        _count_fused(n_slabs, stats.n_chunks)
     return s_cols, row_sums.sum() / 2.0 / n, stats
 
 
@@ -349,32 +394,36 @@ def ooc_mat2_row_blocks(cache, prepare: Callable, rows_fn: Callable, *,
         for r in range(n_slabs):
             _, x_rows = next(pf)
             lo_r, rows_r = r * block, cache.rows_in_slab(r)
-            prep_r = prepare(x_rows[:rows_r])
-            done = []          # the events of this row's tiles
-            for c in range(n_slabs):
-                if len(done) >= 2:
-                    # one host sync a tile: the tile before last is done,
-                    # so its column slab is free before the next arrives
-                    done[-2].synchronize()
-                _, x_cols = next(pf)
-                lo_c, rows_c = c * block, cache.rows_in_slab(c)
-                tile = rows_fn(prep_r, prepare(x_cols[:rows_c]))
-                dst = buf[:rows_r, lo_c:lo_c + rows_c]
-                torch.mul(tile, tile, out=dst)
-                if c == r:
-                    torch.diagonal(dst).zero_()
-                tiles += 1
-                del x_cols, tile
-                if cuda:
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(device))
-                    done.append(ev)
-            if done:
-                # and one a row: its last tiles are done, so its slabs
-                # are free before the consumer draws labels
-                done[-1].synchronize()
-            del x_rows, prep_r
-            yield lo_r, buf[:rows_r]
+            # the row's span stays open across the yield: it covers the
+            # row's column fetches and tiles and the consumer's chunks
+            with _slab_span("ooc.row_slab", lo_r):
+                prep_r = prepare(x_rows[:rows_r])
+                done = []          # the events of this row's tiles
+                for c in range(n_slabs):
+                    if len(done) >= 2:
+                        # one host sync a tile: the tile before last is
+                        # done, so its column slab is free before the
+                        # next arrives
+                        done[-2].synchronize()
+                    _, x_cols = next(pf)
+                    lo_c, rows_c = c * block, cache.rows_in_slab(c)
+                    tile = rows_fn(prep_r, prepare(x_cols[:rows_c]))
+                    dst = buf[:rows_r, lo_c:lo_c + rows_c]
+                    torch.mul(tile, tile, out=dst)
+                    if c == r:
+                        torch.diagonal(dst).zero_()
+                    tiles += 1
+                    del x_cols, tile
+                    if cuda:
+                        ev = torch.cuda.Event()
+                        ev.record(torch.cuda.current_stream(device))
+                        done.append(ev)
+                if done:
+                    # and one a row: its last tiles are done, so its slabs
+                    # are free before the consumer draws labels
+                    done[-1].synchronize()
+                del x_rows, prep_r
+                yield lo_r, buf[:rows_r]
     finally:
         pf.close()
         if stats is not None:
@@ -417,6 +466,7 @@ def fused_sw_ooc(cache, prepare: Callable, rows_fn: Callable,
         n, grouping, inv_gs, n_total, chunk, **src)
     s_t = row_sums.sum() / 2.0 / n
     s_t.item()
+    _count_fused(cache.n_slabs, -(-n_total // chunk))
     return s_w, s_t, _ooc_stats(cache, n_total, chunk, counters, t0)
 
 
@@ -440,6 +490,7 @@ def fused_sw_ooc_design(cache, prepare: Callable, rows_fn: Callable, design,
         groups=_design_groups(design), draw_budget=draw_budget)
     s_t = row_sums.sum() / 2.0 / n
     s_t.item()
+    _count_fused(cache.n_slabs, -(-n_total // chunk))
     return s_cols, s_t, _ooc_stats(cache, n_total, chunk, counters, t0)
 
 
@@ -492,6 +543,7 @@ def fused_sw_onepass(xprep: torch.Tensor, rows_fn: Callable,
         n_chunks=-(-n_total // chunk), row_block=block,
         peak_slab_bytes=4 * block * n,
         peak_label_bytes=4 * chunk * n * (int(inv_gs.shape[0]) + 1))
+    _obs.metrics.inc("engine.perm_chunks", stats.n_chunks)
     return s_w, row_sums.sum() / 2.0 / n, stats
 
 
@@ -571,16 +623,19 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
     s_w = torch.empty((n_total,), dtype=torch.float64, device=xprep.device)
     total = None
     for lo in range(0, n_total, chunk):
-        hi = min(lo + chunk, n_total)
-        g = _labels(grouping, lo, hi, **src)
-        sw, tot = _fops.fused_sw_rows(xprep, xprep, g, g, inv_gs, 0,
-                                      metric=kernel_metric,
-                                      workspace=workspace, row_sums=False,
-                                      **tuning)
-        s_w[lo:hi] = sw
-        if total is None:
-            total = tot
-        del g   # freed before the next chunk's labels are drawn
+        with _slab_span("fusedk.chunk", lo):
+            hi = min(lo + chunk, n_total)
+            g = _labels(grouping, lo, hi, **src)
+            sw, tot = _fops.fused_sw_rows(xprep, xprep, g, g, inv_gs, 0,
+                                          metric=kernel_metric,
+                                          workspace=workspace,
+                                          row_sums=False, **tuning)
+            s_w[lo:hi] = sw
+            if total is None:
+                total = tot
+            del g   # freed before the next chunk's labels are drawn
+            _obs.maybe_block(s_w)
+    _obs.metrics.inc("engine.perm_chunks", -(-n_total // chunk))
     rows, draw = _draw_stats(n, chunk, draw_budget, "labels"
                              if strata is None else "strata",
                              perms is None and index_perms is None)
@@ -635,18 +690,21 @@ def fused_sw_megakernel_design(xprep: torch.Tensor, design, n_total: int, *,
                          device=xprep.device)
     total = None
     for lo in range(0, n_total, chunk):
-        hi = min(lo + chunk, n_total)
-        v = fstat.basis_perm_factors(basis, _index_perms(
-            strata, lo, hi, seed=seed, index_perms=index_perms,
-            draw_budget=draw_budget))
-        sc, tot = _fops.fused_sw_rows_cols(xprep, xprep, v, v, 0,
-                                           metric=kernel_metric,
-                                           workspace=workspace,
-                                           row_sums=False, **tuning)
-        s_cols[lo:hi] = sc
-        if total is None:
-            total = tot
-        del v   # freed before the next chunk's index draw
+        with _slab_span("fusedk.chunk", lo, cols=k):
+            hi = min(lo + chunk, n_total)
+            v = fstat.basis_perm_factors(basis, _index_perms(
+                strata, lo, hi, seed=seed, index_perms=index_perms,
+                draw_budget=draw_budget))
+            sc, tot = _fops.fused_sw_rows_cols(xprep, xprep, v, v, 0,
+                                               metric=kernel_metric,
+                                               workspace=workspace,
+                                               row_sums=False, **tuning)
+            s_cols[lo:hi] = sc
+            if total is None:
+                total = tot
+            del v   # freed before the next chunk's index draw
+            _obs.maybe_block(s_cols)
+    _obs.metrics.inc("engine.perm_chunks", -(-n_total // chunk))
     rows, draw = _draw_stats(n, chunk, draw_budget, "index",
                              index_perms is None)
     stats = FusedKernelStats(
@@ -710,7 +768,7 @@ def fused_kernel_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
         s_cols, s_t, st = fused_sw_design(
             _precision_roundtrip(xprep, kernel_metric, tuning), rows_fn,
             design, n_total, row_block=row_block, chunk=chunk, seed=seed,
-            index_perms=index_perms, draw_budget=draw_budget)
+            index_perms=index_perms, draw_budget=draw_budget, onepass=True)
         return s_cols, s_t, FusedKernelStats(
             impl="torch", n_total=st.n_total, chunk=st.chunk,
             n_chunks=st.n_chunks, row_block=st.row_block,

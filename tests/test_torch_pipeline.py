@@ -736,6 +736,20 @@ def _slab_cache(tmp_path):
                                       slab_rows=16)
 
 
+def _exported_trace(path):
+    """The call's Chrome trace was written to `path` (stage 1 and the
+    engine's sweep in it) and telemetry is off again after the call."""
+    import json
+
+    from repro_torch import obs
+    with open(path) as f:
+        doc = json.load(f)
+    names = {e["name"] for e in doc["traceEvents"]}
+    return ({"stage1.braycurtis", "engine.sw"} <= names
+            and doc["otherData"]["source"] == "repro_torch.obs"
+            and not obs.enabled())
+
+
 @pytest.mark.parametrize("case", [
     "feat_bf16", "ordination", "mesh", "autotune", "trace", "path",
     "slab-cache", "covariates", "strata", "weights"])
@@ -765,7 +779,10 @@ def test_not_ported_options_raise(case, tmp_path, monkeypatch):
         kw["autotune"] = True
         exc = None
     elif case == "trace":
-        kw["trace"] = True
+        # ported since the telemetry slice: it runs, and the Chrome trace
+        # of the call is exported to the path given
+        kw["trace"] = str(tmp_path / "trace.json")
+        exc = None
     elif case == "path":
         # ported since the out-of-core slice: a cache's directory runs; at
         # the default 2 GiB device budget the table is resident ('hbm')
@@ -792,6 +809,7 @@ def test_not_ported_options_raise(case, tmp_path, monkeypatch):
         ran = {"ordination": lambda: (res.ordination.k == 2
                                       and res.ordination.method == "eigh"),
                "autotune": lambda: "empirical autotune winner" in res.plan,
+               "trace": lambda: _exported_trace(kw["trace"]),
                "path": lambda: res.plan.endswith(
                    "| features=slab-cache(residency=hbm)"),
                "slab-cache": lambda: (res.method
