@@ -327,6 +327,35 @@ Phases, each timed:
    three longest idle gaps, each with the innermost obs span open across
    it. A profile with fewer device kernels than the run's counted
    launches fails the phase.
+23. Serving (repro_torch.serve). (a) Each s_W kernel on a study of n =
+   3,000 (Bray-Curtis, the distance kernel) zero-padded to 4,096 whose pad
+   rows carry the sentinel label G (one serving block's masked draw, 128
+   permutations): against its plain version on the padded input and the
+   same kernel on the unpadded study, rtol=1e-4, atol=1e-5. (b) The
+   slice's entry point, `repro_torch.launch.serve permanova --batch 4
+   --inject-death` (6 studies, n 18-40, 199 permutations, block 32):
+   serial, coalesced (bit for bit, then a warm replay with no kernel build
+   or load and no bucket miss) and with worker 0 killed after 2 blocks
+   (bit for bit), the brute kernel only. (c) A card-sized stream by
+   features (synthetic_study(n, 128, 8), Bray-Curtis, 999 permutations,
+   block 128, power-of-two buckets): 12 requests with n over 1,500-9,000,
+   a strata and a covariate-design request at n = 4,000
+   (synthetic_design), and the EMP request (n = 25,145, 3,999
+   permutations, bucket 32,768). Served serially (each request's wall
+   time and launches: braycurtis once, brute once a 128-permutation
+   block, none for the design's plain companion; requests/s and p50 / p99
+   from serve.step spans; the device peak) and coalesced at max_batch 4
+   (bit for bit the serial results); each result against the port's
+   unpadded pipeline() on the dense bridge with the same seed (F at
+   rtol=1e-4, p equal, each null F within the f32 allowance, per term for
+   the design). One warm serial replay profiled as in phase 22: the idle
+   share, and each request's host <-> device copies (bytes and ms of the
+   memcpy events inside its serve.step range, beside the bytes the server
+   must move). (d) On the EMP request: a worker death, a deadline that
+   degrades it (its null the clean null's prefix, its CI holding the clean
+   p) and checkpoints it, then a new server resuming the checkpoint and
+   the first server's resume_degraded(): each bit for bit the clean
+   serial result.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -345,6 +374,7 @@ import contextlib
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -4003,7 +4033,7 @@ def merged(intervals):
     return out
 
 
-def idle_profile(tag, fn, dev, warm=True):
+def idle_profile(tag, fn, dev, warm=True, events_out=None, lead=None):
     """One warm run of fn() under torch.profiler (CPU and CUDA) with obs
     tracing on, so its spans show as ranges. From the exported Chrome
     trace: the window (the run's own range, its final sync included), the
@@ -4013,7 +4043,11 @@ def idle_profile(tag, fn, dev, warm=True):
     with the innermost obs span open across it. Fails unless the trace
     holds at least as many device kernels as the run's counted launches
     (an empty trace cannot pass). warm=False: the caller ran the path
-    just before."""
+    just before. events_out: a list that receives the trace's complete
+    events (phase 23 reads its copies from them). lead: run under the
+    profiler before the window opens, so that the trace is recording
+    when it does (a profile's first ~tens of ms of device activity may
+    be dropped: phase 23 lost its first request's copies once)."""
     import tempfile
     import torch
     from repro_torch import obs
@@ -4029,6 +4063,9 @@ def idle_profile(tag, fn, dev, warm=True):
     obs.clear()
     with obs.session(), profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
+        if lead is not None:
+            lead()
+            torch.cuda.synchronize(dev)
         with record_function("smoke.window"):
             fn()
             torch.cuda.synchronize(dev)
@@ -4045,6 +4082,8 @@ def idle_profile(tag, fn, dev, warm=True):
         events = events.get("traceEvents", [])
     spans = {e["name"] for e in obs.events()}
     xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    if events_out is not None:
+        events_out.extend(xs)
     wins = [e for e in xs if e.get("name") == "smoke.window"
             and e.get("cat") == "user_annotation"]
     check(len(wins) == 1, f"idle {tag}: the profile has {len(wins)} "
@@ -4199,6 +4238,415 @@ def phase_telemetry(dev, x_np, grouping, cache_dir):
             "time")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: serving on the card (repro_torch.serve).
+# ---------------------------------------------------------------------------
+
+SENTINEL_N, SENTINEL_PAD, SENTINEL_P = 3000, 4096, 128
+SERVE_SIZES = (1500, 2200, 2900, 3600, 4300, 5000, 5700, 6400, 7100, 7800,
+               8500, 9000)
+SERVE_PERMS, SERVE_BLOCK, SERVE_WORKERS, SERVE_BATCH = 999, 128, 3, 4
+SERVE_DESIGN_N = 4000
+SERVE_CLI = ["permanova", "--batch", "4", "--inject-death", "--device",
+             "cuda"]
+SERVE_CLI_LAUNCHES = 4 * 6 * 7      # 4 runs of 6 studies, 7 blocks of 32
+SERVE_COPY_SLACK = 2 ** 20          # bytes a request may copy beyond its
+                                    # operands (the draws' seeds, scalars)
+
+
+def serve_sentinel_checks(dev):
+    """(a) Each s_W kernel on a study of n = 3,000 zero-padded to 4,096
+    whose pad rows carry the sentinel label G (the masked draw of one
+    serving block): against its plain version on the padded input and
+    against the same kernel on the unpadded study, at the repo's bar."""
+    import torch
+    from repro_torch.core import distance, permutations
+    from repro_torch.data.microbiome import synthetic_study
+    from repro_torch.kernels.distance import ops as dops
+    from repro_torch.kernels.permanova_sw import ops, ref
+    x, g = synthetic_study(SENTINEL_N, EMP_FEATURES, EMP_GROUPS,
+                           effect_size=1.0, seed=23)
+    xt = distance.ROW_METRICS["braycurtis"].prepare(
+        torch.from_numpy(x).to(dev)).contiguous()
+    d = dops.pairwise_distance(xt, metric="braycurtis")
+    mat2 = (d * d).contiguous()
+    m_pad = torch.zeros((SENTINEL_PAD, SENTINEL_PAD), device=dev)
+    m_pad[:SENTINEL_N, :SENTINEL_N] = mat2
+    g_pad = torch.full((SENTINEL_PAD,), EMP_GROUPS, dtype=torch.int32,
+                       device=dev)
+    g_pad[:SENTINEL_N] = torch.from_numpy(g).to(dev)
+    labels = permutations.masked_permutation_batch(g_pad, SENTINEL_N, 0,
+                                                   SENTINEL_P, seed=0)
+    inv_gs = permutations.inv_group_sizes(g_pad, EMP_GROUPS)
+    plain = ref.sw_ref(m_pad, labels, inv_gs)
+    unpadded_labels = labels[:, :SENTINEL_N].contiguous()
+    for v in ops.VARIANTS:
+        got = ops.permanova_sw(m_pad, labels, inv_gs, variant=v)
+        unpadded = ops.permanova_sw(mat2, unpadded_labels, inv_gs,
+                                    variant=v)
+        torch.cuda.synchronize()
+        e_plain, e_unpad = rel_err(got, plain), rel_err(got, unpadded)
+        log(f"[smoke] serve sentinel {v:9s} (n, n_pad, P, G)="
+            f"{(SENTINEL_N, SENTINEL_PAD, SENTINEL_P, EMP_GROUPS)}: "
+            f"max_rel_err {e_plain:.3e} vs the plain version on the padded "
+            f"input, {e_unpad:.3e} vs the unpadded kernel call")
+        check(bool(torch.isfinite(got).all())
+              and torch.allclose(got, plain, rtol=RTOL, atol=ATOL)
+              and torch.allclose(got, unpadded, rtol=RTOL, atol=ATOL),
+              f"serve sentinel: the {v} kernel on sentinel-padded labels "
+              f"misses the bar ({e_plain:.3e} vs plain, {e_unpad:.3e} vs "
+              "unpadded)")
+
+
+def serve_cli_stream():
+    """(b) The slice's entry point on the card: `repro_torch.launch.serve
+    permanova --batch 4 --inject-death` (6 studies, n 18-40, 199
+    permutations, block 32): serial, batched at max_batch 4 (bit for
+    bit, then a warm replay with no kernel build or load and no bucket
+    miss) and with worker 0 killed after 2 blocks (bit for bit); the
+    brute kernel once a block."""
+    from repro_torch.launch import serve as serve_cli
+    zero_launches()
+    t0 = time.perf_counter()
+    rc = serve_cli.main(list(SERVE_CLI))
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    log(f"[smoke] serve CLI {' '.join(SERVE_CLI)}: rc {rc} in {dt:.2f}s, "
+        f"launches {launches}")
+    check(rc == 0, f"serve CLI exited {rc}")
+    check(set(launches) == {"brute"}
+          and launches["brute"] >= SERVE_CLI_LAUNCHES,
+          f"serve CLI: the brute kernel once a block at least "
+          f"({SERVE_CLI_LAUNCHES}), nothing else: {launches}")
+
+
+def serve_requests():
+    """(c)'s stream: 12 features requests (n over 1,500-9,000), a strata
+    and a covariate-design request at n = 4,000, and the EMP request
+    (n = 25,145, 3,999 permutations); Bray-Curtis, 128 features."""
+    from repro_torch.data.microbiome import synthetic_design, synthetic_study
+    from repro_torch.serve import StudyRequest
+    reqs = []
+    for i, n in enumerate(SERVE_SIZES):
+        x, g = synthetic_study(n, EMP_FEATURES, EMP_GROUPS, effect_size=0.3,
+                               seed=200 + i)
+        reqs.append(StudyRequest(grouping=g, x=x, n_perms=SERVE_PERMS,
+                                 seed=i, request_id=f"n{n}"))
+    x, g = synthetic_study(SERVE_DESIGN_N, EMP_FEATURES, EMP_GROUPS,
+                           effect_size=0.3, seed=300)
+    cov, strata, _ = synthetic_design(
+        SERVE_DESIGN_N, covariate_names=DESIGN_COVARIATES,
+        n_strata=DESIGN_STRATA, seed=0)
+    reqs.append(StudyRequest(grouping=g, x=x, strata=strata,
+                             n_perms=SERVE_PERMS, seed=20,
+                             request_id="strata"))
+    reqs.append(StudyRequest(grouping=g, x=x, covariates=cov,
+                             n_perms=SERVE_PERMS, seed=21,
+                             request_id="covariates"))
+    x, g = synthetic_study(EMP_N, EMP_FEATURES, EMP_GROUPS, effect_size=1.0,
+                           seed=0)
+    reqs.append(StudyRequest(grouping=g, x=x, n_perms=EMP_PERMS, seed=0,
+                             request_id="emp"))
+    return reqs
+
+
+def serve_expected(req) -> dict:
+    """The launches a served features request makes: its distance kernel
+    once (stage 1), brute once a 128-permutation block on a label mode;
+    a dense design's per-column companion is plain torch."""
+    blocks = -(-(req.n_perms + 1) // SERVE_BLOCK)
+    out = {"braycurtis": 1}
+    if req.covariates is None:
+        out["brute"] = blocks
+    return out
+
+
+def serve_copy_bytes(req) -> tuple:
+    """(host -> device, device -> host) bytes the server moves for one
+    features request: the features and every operand once (mat2 at the
+    bucket, labels, weights, strata or the basis), the distances back,
+    and each block's s_W back."""
+    from repro_torch.serve.permanova import _next_bucket
+    n, d = req.x.shape
+    n_pad = _next_bucket(n, None)
+    h2d = 4 * n * d + 4 * n_pad * n_pad
+    n_total = req.n_perms + 1
+    if req.covariates is not None:           # the basis and the strata
+        return (h2d + 4 * n_pad * (DESIGN_K + 1),
+                4 * n * n + 4 * n_total * DESIGN_K)
+    h2d += 4 * n_pad + 4 * EMP_GROUPS        # labels, 1 / group sizes
+    if req.strata is not None:
+        h2d += 4 * n_pad
+    return h2d, 4 * n * n + 4 * n_total
+
+
+def serve_copies(events) -> dict:
+    """{request index: (H2D bytes, H2D ms, D2H bytes, D2H ms, memcpys)}
+    of the profiled window's `serve.step` ranges, from the memcpy events
+    whose host call (the cuda_runtime
+    event of the same correlation id, on the host's clock like the obs
+    ranges) lies inside each `serve.step` range; the device's timestamps
+    are on another clock and may sit a request off."""
+    win = next(e for e in events if e.get("name") == "smoke.window"
+               and e.get("cat") == "user_annotation")
+    w0, w1 = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    steps = [e for e in events if e.get("name") == "serve.step"
+             and e.get("cat") == "user_annotation"
+             and w0 <= float(e["ts"]) <= w1]
+    host_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+               if e.get("cat") == "cuda_runtime"
+               and "correlation" in e.get("args", {})}
+    copies = [(host_ts.get(c["args"].get("correlation"), float(c["ts"])),
+               c) for c in events if c.get("cat") == "gpu_memcpy"]
+    out = {}
+    for i, s in enumerate(sorted(steps, key=lambda e: float(e["ts"]))):
+        a, b = float(s["ts"]), float(s["ts"]) + float(s["dur"])
+        tot = {"HtoD": [0, 0.0], "DtoH": [0, 0.0]}
+        n = 0
+        for t, c in copies:
+            kind = next((k for k in tot if k in c["name"]), None)
+            if kind is None or not a <= t <= b:
+                continue
+            n += 1
+            tot[kind][0] += int(c["args"]["bytes"])
+            tot[kind][1] += float(c["dur"]) / 1e3
+        out[i] = (*tot["HtoD"], *tot["DtoH"], n)
+    return out
+
+
+def serve_same(a, b) -> bool:
+    import torch
+    pairs = [(a.result, b.result)] + list(zip(a.result.terms or (),
+                                              b.result.terms or ()))
+    return all(torch.equal(u.f_stat, v.f_stat)
+               and torch.equal(u.p_value, v.p_value)
+               and torch.equal(u.f_perms, v.f_perms) for u, v in pairs)
+
+
+def serve_vs_unpadded(dev, req, res):
+    """A served request against the port's own unpadded run on the same
+    seed (pipeline() on the dense bridge: the distance kernel, then
+    engine.run / run_design): F at rtol 1e-4, p equal, each null F within
+    the f32 allowance (per term for the design). The masked draws are
+    the unpadded draws, so only the summation order differs."""
+    import numpy as np
+    import torch
+    from repro_torch import pipeline
+    x = torch.from_numpy(req.x).to(dev)
+    g = torch.from_numpy(req.grouping).to(dev)
+    ref = pipeline.pipeline(x, g, metric="braycurtis", n_perms=req.n_perms,
+                            seed=req.seed, strata=req.strata,
+                            covariates=req.covariates,
+                            matrix_budget_bytes=BRIDGE_BUDGETS["dense"],
+                            device=dev)
+    got = res.result
+    if req.covariates is not None:
+        allow = design_null_allowance(got, sum(t.df for t in got.terms) + 1)
+        pairs = [(t.name, t, u) for t, u in zip(got.terms, ref.terms)]
+    else:
+        c = (got.n_objects - EMP_GROUPS) / (EMP_GROUPS - 1)
+        allow = {None: 2 * SW_MAIN_RTOL * (ref.f_perms.double().cpu().abs()
+                                           + c)}
+        pairs = [(None, got, ref)]
+    worst = 0.0
+    for name, t, u in pairs:
+        d_null = (t.f_perms.double().cpu() - u.f_perms.double().cpu()).abs()
+        a = allow[name].double().cpu()
+        worst = max(worst, float((d_null / a).max()))
+        f_err = abs(float(t.f_stat) - float(u.f_stat)) / abs(float(u.f_stat))
+        # p equal: the served p is float64, pipeline()'s float32, both
+        # (count + 1) / (n_perms + 1) correctly rounded
+        same_p = np.float32(float(t.p_value)) == np.float32(float(u.p_value))
+        check(f_err <= RTOL and same_p
+              and bool((d_null <= a).all()),
+              f"serve {req.request_id} term {name}: served F "
+              f"{float(t.f_stat)!r} p {float(t.p_value)!r} vs unpadded "
+              f"{float(u.f_stat)!r} {float(u.p_value)!r}; null "
+              f"{float((d_null / a).max()):.3g}x the allowance")
+    return worst
+
+
+def serve_stream(dev, tmpdir):
+    """(c) and (d): the card-sized stream served serially and coalesced,
+    each result held to the port's unpadded run; then chaos and restart
+    on the EMP request, each bit for bit the clean serial result."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.runtime.faultinject import FaultInjector, VirtualClock
+    from repro_torch.serve import (PermanovaServer, StudyRequest,
+                                   serve_stats_from_events)
+
+    def server(**kw):
+        return PermanovaServer(workers=SERVE_WORKERS, block=SERVE_BLOCK,
+                               device=dev, **kw)
+    reqs = serve_requests()
+    srv = server(max_batch=SERVE_BATCH)
+    # serially, one request at a time, launches counted around each
+    serial, per_launch = [], []
+    obs.clear()
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with obs.session():
+        for req in reqs:
+            zero_launches()
+            serial.append(srv.process(req))
+            per_launch.append({k: v for k, v in launch_counts().items()
+                               if v})
+        stats = serve_stats_from_events(obs.events())
+        spans = [e for e in obs.events() if e["name"] in (
+            "serve.stage1", "serve.block")]
+    t_serial = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    log(f"[smoke] serve stream serially: {len(reqs)} requests in "
+        f"{t_serial:.3f}s; serve.step spans: {stats['requests']} requests, "
+        f"{stats['requests_per_s']:.4f} requests/s, p50 "
+        f"{stats['p50_s']:.4f}s, p99 {stats['p99_s']:.4f}s; device peak "
+        f"above the start {peak / 2**20:.1f} MiB; {card_line()}")
+    stage1 = {}
+    for e in spans:
+        stage1.setdefault(e["name"], []).append(e["dur"] / 1e6)
+    log(f"[smoke] serve stream serially: serve.stage1 "
+        f"{sum(stage1.get('serve.stage1', [])):.3f}s over "
+        f"{len(stage1.get('serve.stage1', []))} spans, serve.block "
+        f"{sum(stage1.get('serve.block', [])):.3f}s over "
+        f"{len(stage1.get('serve.block', []))} spans")
+    for req, res, launches in zip(reqs, serial, per_launch):
+        check(res.status == "ok", f"serve {req.request_id}: {res.status} "
+              f"{res.error}")
+        want = serve_expected(req)
+        h2d, d2h = serve_copy_bytes(req)
+        log(f"[smoke] serve {req.request_id} (n={req.x.shape[0]}, "
+            f"{res.bucket}): wall {res.wall_s:.4f}s, F="
+            f"{float(res.result.f_stat):.7g} p={float(res.result.p_value)}"
+            f", launches {launches}, modelled copies H2D {h2d / 2**20:.1f} "
+            f"MiB, D2H {d2h / 2**20:.1f} MiB")
+        check(launches == want, f"serve {req.request_id}: launches "
+              f"{launches}, expected {want}")
+    # coalesced
+    zero_launches()
+    srv_b = server(max_batch=SERVE_BATCH)
+    obs.clear()
+    t0 = time.perf_counter()
+    with obs.session():
+        snap = obs.metrics.snapshot()
+        batched = srv_b.serve(reqs, batched=True)
+        b_stats = serve_stats_from_events(obs.events())
+        n_batches = obs.metrics.counter_delta(snap).get("serve.batches", 0)
+    t_batched = time.perf_counter() - t0
+    b_launches = {k: v for k, v in launch_counts().items() if v}
+    want_total = {}
+    for w in map(serve_expected, reqs):
+        for k, v in w.items():
+            want_total[k] = want_total.get(k, 0) + v
+    log(f"[smoke] serve stream coalesced (max_batch {SERVE_BATCH}): "
+        f"{t_batched:.3f}s, {n_batches:.0f} batches, "
+        f"{b_stats['requests_per_s']:.4f} requests/s, p50 "
+        f"{b_stats['p50_s']:.4f}s, p99 {b_stats['p99_s']:.4f}s, launches "
+        f"{b_launches}")
+    check(b_launches == want_total, f"serve coalesced: launches "
+          f"{b_launches}, expected {want_total}")
+    for a, b in zip(serial, batched):
+        check(b.status == "ok" and serve_same(a, b),
+              f"serve {a.request_id}: coalesced != serial bit for bit")
+    log("[smoke] serve stream: coalesced == serial bit for bit (F, p, "
+        "every null F, every term)")
+    # against the port's unpadded runs
+    t0 = time.perf_counter()
+    worst = {}
+    for req, res in zip(reqs, serial):
+        worst[req.request_id] = serve_vs_unpadded(dev, req, res)
+    log(f"[smoke] serve stream vs the unpadded pipeline() runs "
+        f"({time.perf_counter() - t0:.2f}s): F within rtol {RTOL}, p equal, "
+        f"null F within the f32 allowance; worst null / allowance "
+        f"{ {k: round(v, 4) for k, v in worst.items()} }")
+    # the idle share and the copies of one warm serial replay
+    events = []
+    idle_profile("phase 23 serving stream, warm serial replay",
+                 lambda: srv.serve(reqs), dev, warm=False,
+                 events_out=events, lead=lambda: (srv.process(reqs[0]),
+                                                  time.sleep(0.5)))
+    for i, (h2d, h2d_ms, d2h, d2h_ms, n) in serve_copies(events).items():
+        req = reqs[i]
+        mh2d, md2h = serve_copy_bytes(req)
+        log(f"[smoke] serve copies {req.request_id}: H2D "
+            f"{h2d / 2**20:.1f} MiB in {h2d_ms:.3f} ms, D2H "
+            f"{d2h / 2**20:.1f} MiB in {d2h_ms:.3f} ms ({n} memcpys; "
+            f"modelled {mh2d / 2**20:.1f} / {md2h / 2**20:.1f} MiB)")
+        # beside the operands, the draws copy a few bytes a sub-block
+        check(0 <= h2d - mh2d < SERVE_COPY_SLACK
+              and 0 <= d2h - md2h < SERVE_COPY_SLACK,
+              f"serve copies {req.request_id}: {h2d} / {d2h} B moved, the "
+              f"server must move {mh2d} / {md2h} B")
+    # (d) chaos and restart on the EMP request
+    emp = reqs[-1]
+    clean = serial[-1]
+
+    def emp_req(**kw):
+        fields = dict(grouping=emp.grouping, x=emp.x, n_perms=emp.n_perms,
+                      seed=emp.seed, request_id="emp")
+        fields.update(kw)
+        return StudyRequest(**fields)
+    t0 = time.perf_counter()
+    res = server(injector=FaultInjector(seed=1).kill_worker_after_blocks(
+        0, 2)).process(emp_req())
+    check(res.status == "ok" and serve_same(res, clean)
+          and any("kill worker=0" in h for h in res.report.history),
+          "serve chaos: a worker death changed the EMP result")
+    log(f"[smoke] serve chaos EMP worker death: == clean bit for bit "
+        f"({time.perf_counter() - t0:.2f}s; died {res.report.workers_died},"
+        f" committed {res.report.committed} of {res.report.n_blocks})")
+    # one degraded run feeds both resumes: a new server from the
+    # checkpoint first (it removes the checkpoint), then the first
+    # server's resume_degraded() from the partial s_W it kept
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmpdir, "serve_ckpt")
+    srv_d = server(clock=VirtualClock(), ckpt_dir=ckpt, checkpoint_every=2,
+                   injector=FaultInjector(seed=2).delay_block(None, 0.2))
+    deg = srv_d.process(emp_req(deadline_s=1.0))
+    m = deg.n_perms_done
+    lo, hi = deg.p_ci or (None, None)
+    check(deg.status == "degraded" and 0 < m < emp.n_perms
+          and torch.equal(deg.result.f_perms, clean.result.f_perms[: m + 1])
+          and lo <= float(clean.result.p_value) <= hi
+          and os.path.isdir(os.path.join(ckpt, "emp")),
+          f"serve chaos: the degraded EMP result ({deg.status}, {m} "
+          f"permutations, CI {deg.p_ci}) is not the clean null's prefix "
+          "with a checkpoint")
+    log(f"[smoke] serve chaos EMP deadline: degraded at {m} permutations "
+        f"(p {float(deg.result.p_value):.6g}, CI ({lo:.6g}, {hi:.6g}) holds "
+        f"the clean p {float(clean.result.p_value):.6g}), checkpointed "
+        f"({time.perf_counter() - t0:.2f}s)")
+    t0 = time.perf_counter()
+    r2 = server(ckpt_dir=ckpt).process(emp_req())
+    check(r2.status == "ok" and r2.report.committed < r2.report.n_blocks
+          and serve_same(r2, clean)
+          and not os.path.exists(os.path.join(ckpt, "emp")),
+          f"serve restart: the resumed EMP result != clean (committed "
+          f"{r2.report.committed} of {r2.report.n_blocks})")
+    log(f"[smoke] serve restart EMP: a new server resumed the checkpoint "
+        f"({r2.report.committed} of {r2.report.n_blocks} blocks run) == "
+        f"clean bit for bit ({time.perf_counter() - t0:.2f}s)")
+    t0 = time.perf_counter()
+    (exact,) = srv_d.resume_degraded()
+    check(exact.status == "ok" and serve_same(exact, clean)
+          and deg.final.result() is exact,
+          "serve chaos: resume_degraded() != the clean EMP result")
+    log(f"[smoke] serve chaos EMP resume_degraded(): == clean bit for bit "
+        f"({exact.report.committed} of {exact.report.n_blocks} blocks run, "
+        f"{time.perf_counter() - t0:.2f}s)")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_serving(dev, cache_dir):
+    """Phase 23: serving on the card. (a) the sentinel checks, (b) the
+    CLI stream, (c) the card-sized stream, (d) chaos and restart."""
+    serve_sentinel_checks(dev)
+    serve_cli_stream()
+    serve_stream(dev, cache_dir)
+
+
 def main() -> int:
     import tempfile
 
@@ -4219,9 +4667,7 @@ def main() -> int:
     try:
         return run_phases(torch, dev, cache_dir)
     finally:
-        for name in os.listdir(cache_dir):
-            os.unlink(os.path.join(cache_dir, name))
-        os.rmdir(cache_dir)
+        shutil.rmtree(cache_dir, ignore_errors=True)
 
 
 def run_phases(torch, dev, cache_dir) -> int:
@@ -4314,6 +4760,9 @@ def run_phases(torch, dev, cache_dir) -> int:
     t0 = time.perf_counter()
     phase_telemetry(dev, x, grouping, cache_dir)
     log(f"[smoke] phase 22 (telemetry) {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_serving(dev, cache_dir)
+    log(f"[smoke] phase 23 (serving) {time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 
     print(json.dumps({"kernels": rows}))

@@ -17,7 +17,9 @@ Twin of `repro/core/fstat.py`. Forms:
 
 All take mat2 = D * D precomputed. These are the plain versions the CUDA
 kernels are held against; on the card they are what `chip_smoke.py`
-times as `plain_ms`.
+times as `plain_ms`. A label outside [0, G) weighs 0 in every form, as in
+the kernels (`row_weight`): a study zero-padded to a shape bucket, its pad
+rows carrying the sentinel label G, gives the unpadded study's s_W.
 """
 
 from __future__ import annotations
@@ -56,11 +58,22 @@ def sw_algorithm1_numpy(mat: np.ndarray, groupings: np.ndarray,
 # Brute force (paper Algorithm 3 dataflow).
 # ---------------------------------------------------------------------------
 
+def label_weights(groupings: torch.Tensor, inv_gs: torch.Tensor
+                  ) -> torch.Tensor:
+    """w[g] for every label, and 0 for a label outside [0, G) (the
+    sentinel G of a padded study's pad rows)."""
+    g = groupings.long()
+    n_groups = inv_gs.shape[0]
+    ext = torch.cat([inv_gs, inv_gs.new_zeros(1)])
+    return ext[torch.where((g >= 0) & (g < n_groups), g,
+                           torch.full_like(g, n_groups))]
+
+
 def _brute_block(mat2, gblock, inv_gs, triu):
     """(B,) s_W for a block of B label rows: every (row < col) pair adds
     mat2[row,col] * w[g[row]] iff g[col] == g[row]."""
     same = gblock[:, :, None] == gblock[:, None, :]          # (B, n, n)
-    w_row = inv_gs[gblock.long()][:, :, None]                # hoisted weight
+    w_row = label_weights(gblock, inv_gs)[:, :, None]        # hoisted weight
     contrib = torch.where(same & triu, mat2 * w_row,
                           torch.zeros((), dtype=w_row.dtype,
                                       device=mat2.device))
@@ -103,7 +116,7 @@ def _tiled_block(mat2, gblock, inv_gs, tile):
     than shrinking the tile."""
     n = mat2.shape[0]
     tile = min(tile, n)
-    w = inv_gs[gblock.long()]                               # (B, n)
+    w = label_weights(gblock, inv_gs)                       # (B, n)
     g = gblock.long()
     pad = (-n) % tile
     if pad:
@@ -155,13 +168,14 @@ def onehot_perm_factors(groupings_block: torch.Tensor,
                         inv_group_sizes: torch.Tensor, dtype
                         ) -> torch.Tensor:
     """E[p,:,g] = sqrt(w_g) * 1[g_p[i] == g] — the (P, n, G) one-hot
-    factor. sqrt(w) is rounded to `dtype`, as the reference does: taken
-    in float64 and rounded once, so it is the correctly rounded f32
-    square root (torch's f32 sqrt is 1 ulp off on some CPUs)."""
+    factor; a label outside [0, G) gets a zero row. sqrt(w) is rounded to
+    `dtype`, as the reference does: taken in float64 and rounded once, so
+    it is the correctly rounded f32 square root (torch's f32 sqrt is 1 ulp
+    off on some CPUs)."""
     n_groups = inv_group_sizes.shape[0]
     sqrt_w = rounded_sqrt(inv_group_sizes, dtype)
-    e = torch.nn.functional.one_hot(groupings_block.long(),
-                                    n_groups).to(dtype)
+    groups = torch.arange(n_groups, device=groupings_block.device)
+    e = (groupings_block.long()[..., None] == groups).to(dtype)
     return e * sqrt_w[None, None, :]
 
 

@@ -175,3 +175,130 @@ def sw_cols_streaming(mat2: torch.Tensor, basis: torch.Tensor,
     return out, _count(StreamStats(n_total=n_total, chunk=chunk,
                                    n_chunks=n_chunks,
                                    peak_label_bytes=4 * chunk * n * (k + 1)))
+
+
+# ---------------------------------------------------------------------------
+# Serving block steps: masked variants of the chunk sweeps above.
+#
+# The always-on server (serve/permanova.py) pads every study up to a SHAPE
+# BUCKET; the true sample count rides along as `n_valid`, and the pad rows
+# carry the sentinel label G (weight 0 in every s_W form and kernel) or an
+# exactly-zero basis row. Each step computes s_W (or the per-column
+# statistic) for ONE BLOCK of global permutation indices [lo, lo + block):
+# the idempotent unit the elastic executor dispatches, re-dispatches and
+# speculates. The masked draws key the valid prefix with the unpadded
+# study's counter keys (core.permutations), so a block is a pure function
+# of (seed, lo) and a padded study's null is its unpadded null. Explicit
+# `perms` / `index_perms` (one block's (block, n) rows) replace the draw,
+# as on engine.run: the parity tests feed the reference's masked draws.
+# ---------------------------------------------------------------------------
+
+def _block_labels(grouping, n_valid, lo, block, *, seed, strata, perms,
+                  draw_budget):
+    n = grouping.shape[0]
+    if perms is not None:
+        _check_perms(perms, block, n)
+        return perms.to(grouping.device, torch.int32).contiguous()
+    if strata is None:
+        rows = permutations.draw_rows(n, planner.label_budget(draw_budget),
+                                      "labels")
+        return permutations.masked_permutation_batch(
+            grouping, n_valid, lo, lo + block, seed=seed, block_rows=rows)
+    rows = permutations.draw_rows(n, planner.label_budget(draw_budget),
+                                  "strata")
+    return permutations.strata_label_batch(
+        grouping, permutations.masked_strata(strata, n_valid), lo,
+        lo + block, seed=seed, block_rows=rows)
+
+
+def sw_block(mat2: torch.Tensor, grouping: torch.Tensor, n_valid: int,
+             inv_gs: torch.Tensor, seed: int, lo: int, *, fn: Callable,
+             block: int, strata: Optional[torch.Tensor] = None,
+             perms: Optional[torch.Tensor] = None,
+             draw_budget: Optional[float] = None) -> torch.Tensor:
+    """One label-mode serving block: (block,) s_W on mat2's device for
+    global permutation indices [lo, lo + block) of a padded study (the
+    caller slices a last ragged block). strata: the padded study's blocks
+    (masked_strata moves the pads into a stratum of their own); perms: the
+    block's explicit (block, n) labels instead of the seed's draw."""
+    return fn(mat2, _block_labels(grouping, n_valid, lo, block, seed=seed,
+                                  strata=strata, perms=perms,
+                                  draw_budget=draw_budget), inv_gs)
+
+
+def sw_cols_block(mat2: torch.Tensor, basis: torch.Tensor,
+                  strata: torch.Tensor, n_valid: int, seed: int, lo: int, *,
+                  fn: Callable, block: int,
+                  index_perms: Optional[torch.Tensor] = None,
+                  draw_budget: Optional[float] = None) -> torch.Tensor:
+    """One dense-design serving block: (block, K) per-column statistics
+    for global permutation indices [lo, lo + block): index permutations
+    within the masked strata (zeros for free permutations), or the
+    block's explicit `index_perms`, gather the basis rows."""
+    from repro_torch.core import fstat
+    n = strata.shape[0]
+    if index_perms is not None:
+        _check_perms(index_perms, block, n, "index_perms")
+        idx = index_perms.to(strata.device, torch.int32)
+    else:
+        idx = permutations.strata_permutation_batch(
+            permutations.masked_strata(strata, n_valid), lo, lo + block,
+            seed=seed, block_rows=permutations.draw_rows(
+                n, planner.label_budget(draw_budget), "index"))
+    return fn(mat2, fstat.basis_perm_factors(basis, idx))
+
+
+def _study_rows(block: int, lo: int, n_totals, s: int) -> int:
+    """Rows study s computes in the batch block at lo: the serial step's
+    block (min(block, n_total)), or 0 once lo is past its sweep."""
+    if n_totals is None:
+        return block
+    n_total = int(n_totals[s])
+    return 0 if lo >= n_total else min(block, n_total)
+
+
+def sw_block_many(mat2, grouping, n_valid, inv_gs, seeds, lo: int, *,
+                  fn: Callable, block: int, strata=None, n_totals=None,
+                  perms=None, draw_budget: Optional[float] = None
+                  ) -> torch.Tensor:
+    """One label-mode serving block for a BATCH of same-bucket studies:
+    (S, block) s_W. Operands are stacks (or sequences) with a leading
+    study axis; study s runs on its own launches, the ones sw_block makes
+    for it alone, one study after another, so row s equals the serial
+    step bit for bit. n_totals: each study's n_perms + 1; a study computes
+    the serial step's min(block, n_total) rows and none past its sweep
+    (those entries stay 0). perms: per-study explicit labels."""
+    s_count = len(seeds)
+    out = torch.zeros((s_count, block), dtype=torch.float32,
+                      device=mat2[0].device)
+    for s in range(s_count):
+        rows = _study_rows(block, lo, n_totals, s)
+        if rows:
+            out[s, :rows] = sw_block(
+                mat2[s], grouping[s], int(n_valid[s]), inv_gs[s],
+                int(seeds[s]), lo, fn=fn, block=rows,
+                strata=None if strata is None else strata[s],
+                perms=None if perms is None else perms[s],
+                draw_budget=draw_budget)
+    return out
+
+
+def sw_cols_block_many(mat2, basis, strata, n_valid, seeds, lo: int, *,
+                       fn: Callable, block: int, n_totals=None,
+                       index_perms=None,
+                       draw_budget: Optional[float] = None) -> torch.Tensor:
+    """One dense-design serving block for a batch of same-bucket studies:
+    (S, block, K), each study on the serial step's own launches (see
+    sw_block_many)."""
+    s_count = len(seeds)
+    out = torch.zeros((s_count, block, int(basis[0].shape[1])),
+                      dtype=torch.float32, device=mat2[0].device)
+    for s in range(s_count):
+        rows = _study_rows(block, lo, n_totals, s)
+        if rows:
+            out[s, :rows] = sw_cols_block(
+                mat2[s], basis[s], strata[s], int(n_valid[s]),
+                int(seeds[s]), lo, fn=fn, block=rows,
+                index_perms=None if index_perms is None else index_perms[s],
+                draw_budget=draw_budget)
+    return out
