@@ -22,6 +22,7 @@ import json
 import os
 import stat
 import tracemalloc
+import types
 
 import numpy as np
 import pytest
@@ -691,16 +692,80 @@ def test_engine_run_tree_counters_and_bytes_equal_the_reference(chunk):
                               device="cpu"))
 
 
-def test_autotune_counters_equal_the_reference():
+AUTOTUNE_ORDER = ("brute", "matmul", "tiled")   # both packages' order
+
+
+def _pin_shootout(monkeypatch, winner):
+    """Give both shoot-outs a clock that ranks the candidates the same
+    way, `winner` fastest: the port's `planner.time_call` (called once a
+    candidate, in `AUTOTUNE_ORDER`) and the reference's
+    `time.perf_counter` (read twice a candidate, in the same order) by
+    a stand-in `time` in its planner's namespace. Each stand-in still
+    runs its candidate (the port's calls it once). Host timing on a
+    loaded machine could otherwise rank them differently in the two
+    packages, and the span trees, counters and predicted bytes follow
+    the winner."""
+    ms = {name: 1.0 + (name != winner) * (1 + AUTOTUNE_ORDER.index(name))
+          for name in AUTOTUNE_ORDER}
+    port_times = iter(ms[name] for _ in range(2) for name in AUTOTUNE_ORDER)
+
+    def time_call(fn, device, calls=eplanner.TIMED_CALLS):
+        fn()
+        return next(port_times)
+
+    ticks = iter(t for _ in range(2) for name in AUTOTUNE_ORDER
+                 for t in (0.0, ms[name] * 1e-3))
+    monkeypatch.setattr(eplanner, "time_call", time_call)
+    monkeypatch.setattr(jeplanner, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(ticks)))
+    assert eplanner.registry.names() == list(AUTOTUNE_ORDER)
+    assert jeplanner._default_candidates("cpu") == list(AUTOTUNE_ORDER)
+
+
+def _autotune_runs(dm, g):
+    return (lambda: jengine.run(jnp.asarray(dm), jnp.asarray(g),
+                                n_perms=PERMS, key=KEY, n_groups=G,
+                                autotune=True),
+            lambda: engine.run(torch.from_numpy(dm), torch.from_numpy(g),
+                               n_perms=PERMS, perms=_labels(g), n_groups=G,
+                               autotune=True, device="cpu"))
+
+
+@pytest.mark.parametrize("winner", AUTOTUNE_ORDER)
+def test_autotune_winner_trees_counters_and_bytes_equal_the_reference(
+        winner, monkeypatch):
+    """With the shoot-outs' clocks pinned, both packages pick `winner`:
+    its span tree, counters and predicted bytes are the reference's, on
+    the measuring call and on the cached one."""
+    _pin_shootout(monkeypatch, winner)
     x, g, _, _ = _study()
     dm = np.array(jpipe.get("braycurtis.blocked").bound()[2](jnp.asarray(x)))
+    ref_fn, port_fn = _autotune_runs(dm, g)
     for _ in range(2):      # a miss and a measurement, then hits
-        _check(lambda: jengine.run(jnp.asarray(dm), jnp.asarray(g),
-                                   n_perms=PERMS, key=KEY, n_groups=G,
-                                   autotune=True),
-               lambda: engine.run(torch.from_numpy(dm), torch.from_numpy(g),
-                                  n_perms=PERMS, perms=_labels(g),
-                                  n_groups=G, autotune=True, device="cpu"))
+        _check(ref_fn, port_fn)
+    for planner in (eplanner, jeplanner):
+        (entry,) = planner.load_autotune_cache().values()
+        assert entry["impl"] == winner
+
+
+def test_autotune_counters_equal_the_reference():
+    """On the host's own clocks the two shoot-outs may pick different
+    winners, so only what no winner changes is compared: F and p, and
+    the autotune counters (a miss and a measurement, then a hit)."""
+    x, g, _, _ = _study()
+    dm = np.array(jpipe.get("braycurtis.blocked").bound()[2](jnp.asarray(x)))
+    ref_fn, port_fn = _autotune_runs(dm, g)
+    keys = ("autotune.cache.miss", "autotune.cache.hit", "autotune.measured")
+    for call in range(2):
+        res_j, _, snap_j = _traced(jobs, ref_fn)
+        res_t, _, snap_t = _traced(obs, port_fn)
+        _assert_same_test(res_t, res_j)
+        want = ({"autotune.cache.miss": 1.0, "autotune.measured": 1.0}
+                if call == 0 else {"autotune.cache.hit": 1.0})
+        for snap in (snap_j, snap_t):
+            got = {k: snap["counters"][k] for k in keys
+                   if k in snap["counters"]}
+            assert got == want
 
 
 def _many_inputs(s_count=3):
