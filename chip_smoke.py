@@ -356,6 +356,28 @@ Phases, each timed:
    p) and checkpoints it, then a new server resuming the checkpoint and
    the first server's resume_degraded(): each bit for bit the clean
    serial result.
+24. Multi-device (core.distributed, launch.mesh, the sharded sweeps).
+   (a) The brute kernel's row-slab entry (sw_brute_rows_launch) at the EMP
+   n and the main path's chunk (2,668): the slabs at row offsets 0 and
+   12,608 (two whole-band shards), concatenated, are the whole launch's
+   (P, bands) partials bit for bit; the first slab against its plain
+   version at that P, the second at P = 256 (band partials within
+   ROWS_RTOL); a row offset off the 64-row band raises in the wrapper and
+   the C entry returns cudaErrorInvalidValue without a launch; timed
+   beside the whole launch, its plain version, the one-hot torch.matmul
+   of the slab and its bound (a compare per (pair, permutation) of the
+   slab's pairs and an add per match, counted from these labels). (b) An
+   NCCL world of one, mesh (1, 1): permanova_distributed (brute_rows once
+   a chunk) equals phase 3's F and p bit for bit, and pipeline(mesh=)
+   (fused_sw only) the single-host fused-kernel bridge's null. (c) Two
+   gloo ranks on the one card (processes of their own; gloo traffic
+   through host copies), meshes (2, 1) and (1, 2): permanova_distributed
+   and pipeline(mesh=) equal (b)'s nulls bit for bit, but pipeline's row
+   slabs (1, 2), held to the reference's bar (F rtol 1e-4, p equal, each
+   null F within 2e-6 (F + (n - G)/(G - 1))) and the same bits twice;
+   permanova_many over 3 EMP studies at 'data' = 2 (wrap-padded to 4)
+   equals the serial batch bit for bit; each rank's launches, times and
+   peaks logged.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -843,7 +865,8 @@ def phase_main_path(dev):
           and res.plan.endswith("chunks=2"),
           f"expected the brute kernel in 2 streamed chunks, got "
           f"{res.plan!r}")
-    check(paths["auto"] == {"brute": 2, "permblock": 0, "matmul": 0},
+    check(paths["auto"] == {k: 2 if k == "brute" else 0
+                            for k in ops.LAUNCHES},
           f"each chunk must launch the brute kernel once: {paths['auto']}")
     check(res.f_perms.is_cuda and res.f_perms.shape == (EMP_PERMS + 1,)
           and bool(torch.isfinite(res.f_perms).all()),
@@ -869,7 +892,7 @@ def phase_main_path(dev):
         cross_chunks = -(-(CROSS_PERMS + 1) // planner.plan(
             EMP_N, CROSS_PERMS + 1, backend="cuda", impl=impl).chunk)
         want = {v: cross_chunks if v == KERNEL_OF[impl] else 0
-                for v in ops.VARIANTS}
+                for v in ops.LAUNCHES}
         check(paths[impl] == want,
               f"impl {impl} must launch only its kernel, once per chunk: "
               f"{paths[impl]} != {want}")
@@ -4647,6 +4670,379 @@ def phase_serving(dev, cache_dir):
     serve_stream(dev, cache_dir)
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: multi-device (core.distributed, launch.mesh).
+# ---------------------------------------------------------------------------
+
+MESH_AXES = ("data", "model")
+ROWS_SHARDS = 2                 # the row-sharded meshes' 'model' ways
+ROWS_PLAIN_PERMS = 256          # the second slab against its plain version
+ROWS_RTOL = 1e-5                # band partials against the plain version
+GLOO_TIMEOUT = 420
+RANK_SCRIPT = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, store, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
+                               sys.argv[3], sys.argv[4])
+n, n_feat, n_groups, n_perms, s_count = (int(v) for v in sys.argv[5:10])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"file://{store}",
+                        world_size=world, rank=rank)
+from repro_torch import engine, pipeline
+from repro_torch.core import permanova_distributed
+from repro_torch.core.distance import distance_matrix
+from repro_torch.data.microbiome import synthetic_study
+from repro_torch.kernels.distance import ops as dops
+from repro_torch.kernels.fused_sw import ops as fops
+from repro_torch.kernels.permanova_sw import ops
+from repro_torch.launch import mesh as M
+
+FAMILIES = (ops.LAUNCHES, dops.LAUNCHES, fops.LAUNCHES)
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+
+
+def zero():
+    for d in FAMILIES:
+        for k in d:
+            d[k] = 0
+
+
+def counts():
+    return {k: v for d in FAMILIES for k, v in d.items() if v}
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero()
+    t0 = time.perf_counter()
+    res = fn()
+    res.f_stat.sum().item()
+    return res, time.perf_counter() - t0, counts()
+
+
+record, arrays = {}, {}
+x, g = synthetic_study(n, n_feat, n_groups, effect_size=1.0, seed=0)
+xt, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g)
+for shape in ((2, 1), (1, 2)):
+    mesh = M.make_mesh(shape, ("data", "model"), device_type="cuda")
+    tag = "x".join(map(str, shape))
+    dm = distance_matrix(xt, "braycurtis")
+    torch.cuda.reset_peak_memory_stats()
+    res, dt, launches = timed(lambda: permanova_distributed(
+        mesh, dm, gt, n_perms=n_perms, seed=0))
+    record[f"dist {tag}"] = dict(
+        s=dt, launches=launches, plan=res.plan, F=float(res.f_stat),
+        p=float(res.p_value),
+        peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    arrays[f"dist_{tag}"] = res.f_perms.cpu().numpy()
+    del dm
+    torch.cuda.empty_cache()
+    runs = []
+    for _ in range(2 if shape[1] > 1 else 1):
+        res, dt, launches = timed(lambda: pipeline.pipeline(
+            xt, gt, n_perms=n_perms, seed=0, mesh=mesh))
+        runs.append(res.f_perms.cpu().numpy())
+    record[f"pipe {tag}"] = dict(
+        s=dt, launches=launches, plan=res.plan, F=float(res.f_stat),
+        p=float(res.p_value),
+        repeat_bits=bool(np.array_equal(runs[0], runs[-1])))
+    arrays[f"pipe_{tag}"] = runs[0]
+mesh = M.make_mesh((2, 1), ("data", "model"), device_type="cuda")
+studies = [synthetic_study(n, n_feat, n_groups, effect_size=1.0, seed=s)
+           for s in range(s_count)]
+dms = torch.stack([distance_matrix(torch.from_numpy(xs).to(dev),
+                                   "braycurtis") for xs, _ in studies])
+gs = torch.from_numpy(np.stack([gg for _, gg in studies]))
+del studies
+torch.cuda.reset_peak_memory_stats()
+res, dt, launches = timed(lambda: engine.permanova_many(
+    dms, gs, n_groups=n_groups, n_perms=n_perms, seed=0, mesh=mesh))
+record["many 2x1"] = dict(
+    s=dt, launches=launches, plan=res.plan, F=res.f_stat.tolist(),
+    p=res.p_value.tolist(),
+    peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+if rank == 0:
+    serial = engine.permanova_many(dms, gs, n_groups=n_groups,
+                                   n_perms=n_perms, seed=0, device=dev)
+    record["many 2x1"]["serial_bits"] = bool(
+        torch.equal(serial.f_perms, res.f_perms)
+        and torch.equal(serial.p_value, res.p_value))
+    record["many 2x1"]["serial_plan"] = serial.plan
+with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+    json.dump(record, f)
+if rank == 0:
+    np.savez(os.path.join(out_dir, "f_perms.npz"), **arrays)
+dist.barrier()
+dist.destroy_process_group()
+'''
+
+
+def rows_bound_ms(slab, row_offset, labels, inv_gs, chip) -> tuple:
+    """(ms, 'bytes' | 'operations'): the least time this card could take
+    for a row slab's band partials, as bound_ms counts the whole matrix:
+    the slab, the labels and w read once and the (P, bands) partials
+    written once at the HBM rate, against a compare per (pair, perm) of
+    the slab's pairs j > i and an add per matching pair, counted for each
+    permutation of these labels, at the f32 peak."""
+    import torch
+    n_rows, n = slab.shape
+    p, g = labels.shape[0], inv_gs.shape[0]
+    bands = -(-n_rows // 64)
+    nbytes = slab.numel() * 4 + labels.numel() * 4 + g * 4 + p * bands * 4
+    pairs = sum(n - i - 1 for i in range(row_offset, row_offset + n_rows))
+    matches = 0
+    for lab in labels.split(128):
+        onehot = torch.nn.functional.one_hot(lab.long(), g).to(torch.int32)
+        # same-label columns after each row: the suffix counts less itself
+        after = onehot.flip(1).cumsum(1).flip(1) - onehot
+        rows = lab[:, row_offset:row_offset + n_rows].long()
+        matches += int(after[:, row_offset:row_offset + n_rows].gather(
+            2, rows[..., None]).sum())
+        del onehot, after
+    ops_ = p * pairs + matches
+    t_bytes = nbytes / chip.hbm_bandwidth * 1e3
+    t_ops = ops_ / chip.peak_flops_f32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_rows_kernel(dev, mat2, g_dev):
+    """(a) The brute kernel's row-slab entry at the EMP n and the main
+    path's chunk: the slabs at row offsets 0 and 12,608 (two whole-band
+    shards) concatenated are the whole launch's band partials bit for
+    bit, each slab against its plain version; a row offset off the
+    64-row band raises in the wrapper and is refused by the C entry.
+    Timed beside the whole launch, its plain version, the one-hot
+    torch.matmul of the slab and its bound. Returns the kernels-line
+    entry without its launches."""
+    import ctypes
+
+    import torch
+    from repro_torch.core import distributed, fstat, permutations
+    from repro_torch.engine import planner
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels.permanova_sw import ops, ref
+
+    inv_gs = permutations.inv_group_sizes(g_dev, EMP_GROUPS)
+    per = EMP_PERMS + 1
+    chunk = planner.plan(EMP_N, per, backend="cuda", impl="brute").chunk
+    labels = permutations.permutation_batch(g_dev, 0, chunk, seed=0)
+    rows = distributed.rows_per_shard(EMP_N, ROWS_SHARDS)
+    lib = ops.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    whole = ops.launch_partials(lib, "brute", mat2, labels, inv_gs, stream)
+    slabs = [(0, mat2[:rows]), (rows, mat2[rows:])]
+    parts = [ops.permanova_sw_rows(s, labels, inv_gs, row_offset=o)
+             for o, s in slabs]
+    check(torch.equal(torch.cat(parts, dim=1), whole),
+          "brute_rows: the slabs' band partials != the whole launch's")
+    log(f"[smoke] multi rows: slabs at 0 and {rows} ({parts[0].shape[1]} + "
+        f"{parts[1].shape[1]} bands, P={chunk}) == the whole launch's "
+        f"{tuple(whole.shape)} band partials bit for bit")
+    plain_ms, want = cuda_ms_once(
+        lambda: ref.sw_rows_ref(slabs[0][1], labels, inv_gs, 0),
+        warm=lambda: ref.sw_rows_ref(slabs[0][1], labels[:2].contiguous(),
+                                     inv_gs, 0))
+    small = labels[:ROWS_PLAIN_PERMS].contiguous()
+    pairs = [(parts[0], want),
+             (ops.permanova_sw_rows(slabs[1][1], small, inv_gs,
+                                    row_offset=rows),
+              ref.sw_rows_ref(slabs[1][1], small, inv_gs, rows))]
+    err_abs = max(float((a - b).abs().max()) for a, b in pairs)
+    err = max(rel_err(a, b) for a, b in pairs)
+    check(err <= ROWS_RTOL, f"brute_rows != plain: rel {err:.3e} "
+          f"(limit {ROWS_RTOL})")
+    before = dict(ops.LAUNCHES)
+    try:
+        ops.permanova_sw_rows(mat2[rows - 8:], labels, inv_gs,
+                              row_offset=rows - 8)
+        raised = False
+    except ValueError:
+        raised = True
+    out = torch.empty((chunk, 1), device=dev)
+    rc = lib.sw_brute_rows_launch(
+        mat2[rows - 8:].data_ptr(), labels.data_ptr(), inv_gs.data_ptr(),
+        out.data_ptr(), EMP_N, 8, rows - 8, chunk, EMP_GROUPS,
+        ctypes.c_void_p(stream))
+    check(raised and rc == 1 and ops.LAUNCHES == before,
+          f"brute_rows at row offset {rows - 8}: the wrapper must raise "
+          f"(raised={raised}) and the C entry return cudaErrorInvalidValue "
+          f"(1, got {rc}) without a launch")
+    ms = cuda_ms(lambda: ops.permanova_sw_rows(slabs[0][1], labels, inv_gs,
+                                               row_offset=0), reps=3)
+    ms_second = cuda_ms(lambda: ops.permanova_sw_rows(
+        slabs[1][1], labels, inv_gs, row_offset=rows), reps=3)
+    ms_whole = cuda_ms(lambda: ops.permanova_sw(mat2, labels, inv_gs,
+                                                variant="brute"), reps=3)
+    e = fstat.onehot_perm_factors(labels, inv_gs, mat2.dtype)
+    e2d = e.permute(1, 0, 2).reshape(EMP_N, -1).contiguous()
+    del e
+    library_ms = cuda_ms(lambda: torch.matmul(slabs[0][1], e2d), reps=3)
+    del e2d
+    b_ms, b_by = rows_bound_ms(slabs[0][1], 0, labels, inv_gs, H100_SXM)
+    check(ms > b_ms, f"brute_rows {ms:.3f} ms reads under its bound "
+          f"{b_ms:.3f} ms: a count is wrong")
+    log(f"[smoke] timing brute_rows (rows={rows} of n={EMP_N}, P={chunk}, "
+        f"G={EMP_GROUPS}): kernel {ms:.3f} ms (the second slab, "
+        f"{EMP_N - rows} rows, {ms_second:.3f} ms; the whole launch "
+        f"{ms_whole:.3f} ms), plain {plain_ms:.3f} ms, library "
+        f"{library_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); band partials "
+        f"max_abs_err {err_abs:.3e} max_rel_err {err:.3e}; a misaligned "
+        f"offset raised and the C entry returned {rc}")
+    return {
+        "name": "permanova_sw.brute_rows", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["brute"], "path": "permanova_distributed",
+        "max_abs_err": err_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "shape": {"n": EMP_N, "rows": rows, "row_offset": 0, "P": chunk,
+                  "G": EMP_GROUPS},
+        "max_rel_err": err, "ms_second_slab": ms_second,
+        "ms_whole_launch": ms_whole}
+
+
+def phase_multi_device(dev, x_np, grouping, f_p_main):
+    """Phase 24. (a) phase_rows_kernel. (b) An NCCL world of one, mesh
+    (1, 1): permanova_distributed and pipeline(mesh=) at the EMP shape
+    (3,999 permutations, seed 0) equal phase 3's engine.run and the
+    single-host fused-kernel pipeline bit for bit. (c) Two gloo ranks on
+    the one card (processes of their own, host copies for the gloo
+    traffic), meshes (2, 1) and (1, 2): permanova_distributed and
+    pipeline(mesh=) against (b) (bit for bit, but the fused kernel's row
+    slabs at the reference's bar and the same bits on a second run), and
+    permanova_many over 3 EMP studies at 'data' = 2 (wrap-padded) equal to
+    the serial batch bit for bit; each rank's launches logged. Returns
+    the brute_rows entry of the kernels line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import pipeline
+    from repro_torch.core import permanova_distributed
+    from repro_torch.core.distance import distance_matrix
+    from repro_torch.launch import mesh as pmesh
+
+    g_dev = torch.from_numpy(grouping).to(dev)
+    xt = torch.from_numpy(x_np).to(dev)
+    dm = distance_matrix(xt, "braycurtis")
+    mat2 = dm * dm
+    row = phase_rows_kernel(dev, mat2, g_dev)
+    del mat2
+    torch.cuda.empty_cache()
+
+    single = {}
+    with pmesh.world_of_one("cuda") as backend:
+        mesh = pmesh.make_mesh((1, 1), MESH_AXES)
+        zero_launches()
+        t0 = time.perf_counter()
+        res = permanova_distributed(mesh, dm, g_dev, n_perms=EMP_PERMS,
+                                    seed=0)
+        f, p = float(res.f_stat), float(res.p_value)
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        row["launches"] = launches.get("brute_rows", 0)
+        log(f"[smoke] multi {backend} world of 1, mesh (1, 1): "
+            f"permanova_distributed {dt:.3f}s F={f!r} p={p!r} launches="
+            f"{launches}; plan: {res.plan}")
+        check((f, p) == f_p_main, f"permanova_distributed (1, 1) F/p "
+              f"{(f, p)} != phase 3's {f_p_main}")
+        check(launches == {"brute_rows": -(-(EMP_PERMS + 1) // 2668)},
+              f"permanova_distributed (1, 1): brute_rows once a chunk, "
+              f"nothing else: {launches}")
+        single["dist"] = res.f_perms.cpu().numpy()
+        del dm
+        torch.cuda.empty_cache()
+        one = pipeline.pipeline(xt, g_dev, n_perms=EMP_PERMS, seed=0,
+                                device=dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        res = pipeline.pipeline(xt, g_dev, n_perms=EMP_PERMS, seed=0,
+                                mesh=mesh)
+        f, p = float(res.f_stat), float(res.p_value)
+        dt = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        log(f"[smoke] multi {backend} world of 1, mesh (1, 1): "
+            f"pipeline(mesh=) {dt:.3f}s F={f!r} p={p!r} launches="
+            f"{launches}; plan: {res.plan}")
+        check(torch.equal(res.f_perms, one.f_perms)
+              and p == float(one.p_value) and "+mesh" in res.plan,
+              f"pipeline(mesh=(1, 1)) != the single-host fused-kernel "
+              f"bridge: F {f!r} vs {float(one.f_stat)!r}")
+        check(set(launches) == {"fused_sw"},
+              f"pipeline(mesh=(1, 1)): fused_sw only: {launches}")
+        single["pipe"] = res.f_perms.cpu().numpy()
+        single["pipe_p"] = p
+    del xt, g_dev, one, res
+    torch.cuda.empty_cache()
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")
+                   + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_SCRIPT, str(r), "2",
+             os.path.join(tmp, "store"), tmp, str(EMP_N), str(EMP_FEATURES),
+             str(EMP_GROUPS), str(EMP_PERMS), str(MANY_STUDIES)],
+            env=dict(env, LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=GLOO_TIMEOUT)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        dt = time.perf_counter() - t0
+        for r, (proc, out) in enumerate(zip(procs, outs)):
+            check(proc.returncode == 0, f"gloo rank {r} exited "
+                  f"{proc.returncode}:\n{out[-4000:]}")
+        recs = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                for r in range(2)]
+        arrays = dict(np.load(os.path.join(tmp, "f_perms.npz")))
+    log(f"[smoke] multi gloo world of 2 on one card: {dt:.2f}s with the "
+        "ranks' start")
+    for r, rec in enumerate(recs):
+        for tag, v in rec.items():
+            log(f"[smoke] multi gloo rank {r} {tag}: {v['s']:.3f}s "
+                f"launches={v['launches']} F={v['F']} p={v['p']}"
+                + (f" peak {v['peak_mib']:.1f} MiB"
+                   if "peak_mib" in v else "") + f"; plan: {v['plan']}")
+    rec = recs[0]
+    for tag in ("dist_2x1", "dist_1x2", "pipe_2x1"):
+        check(np.array_equal(arrays[tag], single[tag.split("_")[0]]),
+              f"gloo {tag}: the null != the world of one's bit for bit")
+    null, want = arrays["pipe_1x2"], single["pipe"]
+    c = (EMP_N - EMP_GROUPS) / (EMP_GROUPS - 1)
+    tol = 2e-6 * (np.abs(want) + c)
+    excess = float(np.max(np.abs(null - want) / tol))
+    check(abs(null[0] - want[0]) <= RTOL * abs(want[0])
+          and rec["pipe 1x2"]["p"] == single["pipe_p"] and excess <= 1.0
+          and rec["pipe 1x2"]["repeat_bits"],
+          f"gloo pipe 1x2 (row slabs): F rtol {RTOL}, p equal, null within "
+          f"2e-6 (F + {c:.1f}) ({excess:.3f}x), the same bits twice")
+    many = rec["many 2x1"]
+    check(many["serial_bits"]
+          and many["plan"].endswith("[studies@data[2]+pad1]"),
+          f"gloo permanova_many at data = 2 != the serial batch, or its "
+          f"plan {many['plan']!r}")
+    for r in range(2):
+        check(recs[r]["dist 1x2"]["launches"].get("brute_rows", 0) > 0
+              and recs[r]["many 2x1"]["launches"].get("brute", 0) > 0,
+              f"gloo rank {r}: no kernel launched: {recs[r]}")
+    log(f"[smoke] multi gloo: dist (2, 1) and (1, 2) and pipe (2, 1) == the "
+        f"world of one bit for bit; pipe (1, 2) within the f32 allowance "
+        f"({excess:.3f}x) and the same bits twice; permanova_many "
+        f"(S={MANY_STUDIES}, data 2) == the serial batch bit for bit")
+    return row
+
+
 def main() -> int:
     import tempfile
 
@@ -4763,6 +5159,9 @@ def run_phases(torch, dev, cache_dir) -> int:
     t0 = time.perf_counter()
     phase_serving(dev, cache_dir)
     log(f"[smoke] phase 23 (serving) {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    rows.append(phase_multi_device(dev, x, grouping, f_p_main))
+    log(f"[smoke] phase 24 (multi-device) {time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 
     print(json.dumps({"kernels": rows}))

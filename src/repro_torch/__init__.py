@@ -11,10 +11,14 @@ each module here has a twin there at the same relative path:
   kernels/       hand-written CUDA C++ kernels (sm_90a) + plain versions
   engine/        s_W registry, planner, streaming scheduler, run()
   pipeline/      features -> p under one plan (bridges, out of core)
-  launch/        the permanova CLI (matrix, features and cache paths)
+  launch/        the permanova CLI (matrix, features and cache paths;
+                 --distributed / --shard-rows under torchrun) and the
+                 DeviceMesh helpers (launch/mesh.py)
 
 Entry points run on the card (`device="cuda"`) and raise when there is
 none; pass `device="cpu"` to run the plain PyTorch forms on the host.
 """
 
 __version__ = "0.1.0"
+
+from repro_torch.core.distributed import permanova_distributed  # noqa: E402,F401

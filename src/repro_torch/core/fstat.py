@@ -14,6 +14,8 @@ Twin of `repro/core/fstat.py`. Forms:
                        ragged (e.g. prime) n
   sw_matmul*           one-hot reformulation: s_W from mat2 @ E with
                        E in {0, sqrt(w_g)}^{n x (P*G)}
+  sw_*rows_*           row-slab partials for row-sharded s_W
+                       (core.distributed): brute bands, matmul, per-column
 
 All take mat2 = D * D precomputed. These are the plain versions the CUDA
 kernels are held against; on the card they are what `chip_smoke.py`
@@ -212,6 +214,95 @@ def sw_matmul(mat2: torch.Tensor, groupings: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Row-sharded partials (core.distributed): a slab of rows
+# [row_offset, row_offset + n_local) against every column. Partials of
+# disjoint slabs sum to the full statistic. On the CPU each row's value is
+# summed per pair in a fixed order, so a row's contribution does not
+# depend on how many rows share the slab (a CPU matmul picks its blocking
+# by the call's shape).
+# ---------------------------------------------------------------------------
+
+BAND_ROWS = 64          # the brute kernel's band (kBruteRows)
+_PAIR_BLOCK_ELEMS = 2 ** 24
+
+
+def _rows_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, n) @ (n, c). On the CPU each entry is a multiply-and-sum over
+    its n pairs, in row blocks of bounded products, so a row's bits do
+    not depend on m; on the card the matmul stays."""
+    if a.device.type != "cpu":
+        return a @ b
+    rows = max(1, _PAIR_BLOCK_ELEMS // max(b.numel(), 1))
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for lo in range(0, a.shape[0], rows):
+        out[lo:lo + rows] = (a[lo:lo + rows, :, None] * b[None]).sum(dim=1)
+    return out
+
+
+def sw_rows_bands(mat2_rows: torch.Tensor, row_offset: int,
+                  groupings: torch.Tensor, inv_group_sizes: torch.Tensor,
+                  *, block: int = 32) -> torch.Tensor:
+    """(P, ceil(n_local / 64)) band partials of a row slab: row i adds
+    mat2[i, j] for the columns j > i (global) of its permuted group, in
+    column order, weighted once by w[g[i]]; each band of 64 slab rows sums
+    its rows in order. With row_offset a multiple of 64 the bands are the
+    matrix's own (the brute kernel's partial columns), so the slabs'
+    columns concatenated are the whole matrix's. groupings: the (P, n)
+    labels of every sample."""
+    n_local, n = mat2_rows.shape
+    dev = mat2_rows.device
+    gi = row_offset + torch.arange(n_local, device=dev)[:, None]
+    upper = torch.arange(n, device=dev)[None, :] > gi      # (n_local, n)
+    pad = (-n_local) % BAND_ROWS
+    per = max(1, min(block, groupings.shape[0],
+                     _PAIR_BLOCK_ELEMS // max(n_local * n, 1)))
+    out = []
+    for gb in torch.split(groupings, per):
+        g_rows = gb[:, row_offset:row_offset + n_local]
+        same = gb[:, None, :] == g_rows[:, :, None]         # (B, n_local, n)
+        local = torch.where(same & upper, mat2_rows,
+                            torch.zeros((), dtype=mat2_rows.dtype,
+                                        device=dev)).sum(dim=2)
+        rows = local * label_weights(g_rows, inv_group_sizes)
+        rows = torch.nn.functional.pad(rows, (0, pad))
+        out.append(rows.view(gb.shape[0], -1, BAND_ROWS).sum(dim=2))
+    return torch.cat(out)
+
+
+def sw_rows_partial(mat2_rows: torch.Tensor, row_offset: int,
+                    groupings: torch.Tensor, inv_group_sizes: torch.Tensor,
+                    *, block: int = 32) -> torch.Tensor:
+    """(P,) partial s_W over the rows [row_offset, row_offset + n_local):
+    pairs (i, j) with i in the slab and j > i (global). Summing the
+    partials of disjoint slabs gives the full s_W. groupings is the FULL
+    (P, n) label array."""
+    return sw_rows_bands(mat2_rows, row_offset, groupings, inv_group_sizes,
+                         block=block).sum(dim=1)
+
+
+def sw_matmul_rows_partial(mat2_rows: torch.Tensor, row_offset: int,
+                           groupings: torch.Tensor,
+                           inv_group_sizes: torch.Tensor, *,
+                           perm_block: int = 64) -> torch.Tensor:
+    """(P,) row-slab partial of the one-hot formulation: 1/2 * sum over
+    the slab's rows i of (M2[i, :] @ E) . E[i, :], the full i != j sum
+    (zero diagonal), so the partials of disjoint slabs sum to s_W. On the
+    card the product is one torch.matmul (sw_matmul_contract's); on the
+    CPU each row's product is summed per pair (_rows_matmul)."""
+    n_local, n = mat2_rows.shape
+    perm_block = max(1, min(perm_block, groupings.shape[0]))
+    out = []
+    for gb in torch.split(groupings, perm_block):
+        e = onehot_perm_factors(gb, inv_group_sizes, mat2_rows.dtype)
+        p, _, g = e.shape
+        y = _rows_matmul(mat2_rows, e.permute(1, 0, 2).reshape(n, p * g))
+        e_rows = e[:, row_offset:row_offset + n_local]
+        out.append(0.5 * (y.view(n_local, p, g)
+                          * e_rows.permute(1, 0, 2)).sum(dim=(0, 2)))
+    return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
 # Design-basis (hat-matrix) contraction: per-column quadratic forms.
 #
 # The design subsystem (core.design) generalizes the one-hot factor E to an
@@ -271,6 +362,21 @@ def sw_cols_brute(mat2: torch.Tensor, vperms: torch.Tensor, *,
     dense-design analogue of Algorithm 3. (P, K)."""
     del block
     return torch.stack([0.5 * ((mat2 @ v) * v).sum(dim=0) for v in vperms])
+
+
+def sw_cols_rows_partial(mat2_rows: torch.Tensor, row_offset: int,
+                         vperms: torch.Tensor, *, perm_block: int = 64
+                         ) -> torch.Tensor:
+    """(P, K) row-slab partial of the per-column contraction: each
+    permutation's basis (n, K) against the slab's rows, the rows' own
+    basis rows weighting; the partials of disjoint slabs sum to the full
+    (P, K). Each product as _rows_matmul takes it."""
+    n_local = mat2_rows.shape[0]
+    del perm_block      # each permutation is contracted on its own
+    return torch.stack([
+        0.5 * (_rows_matmul(mat2_rows, v)
+               * v[row_offset:row_offset + n_local]).sum(dim=0)
+        for v in vperms])
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ streaming chunk, runs the sweep through the scheduler and assembles F and
 p. Every label argument routes through `Design.from_labels`: a plain
 single-factor design is the label path below, anything else (strata,
 covariates, weights) goes to run_design(). permanova_many() runs a batch
-of studies, stacked or ragged, one after another. While tracing (obs) the
+of studies, stacked or ragged, one after another (over a DeviceMesh's
+'data' axis each rank runs a block of them). While tracing (obs) the
 sweep is an `engine.sw` span (a batch of studies `engine.studies`) whose
 `predicted_bytes` is the traffic model `_sw_traffic_bytes`; with metrics
 on, each run gauges the card's peak memory and `engine.studies` counts
@@ -25,7 +26,7 @@ from repro_torch import hw
 from repro_torch import obs as _obs
 from repro_torch.core import design as design_mod
 from repro_torch.core import permutations
-from repro_torch.core.permanova import (PermanovaResult, TermResult, _later,
+from repro_torch.core.permanova import (PermanovaResult, TermResult,
                                         f_from_sw, p_value_from_null, s_total)
 from repro_torch.engine import planner, registry, scheduler
 
@@ -469,15 +470,111 @@ def _many_plan(backend: str, n: int, n_valid: int, n_total: int, *, impl,
                         n_cols=n_cols, n_groups=n_groups)
 
 
-def _many_plan_string(plans, chunks, s_count: int, ragged: bool) -> str:
+def _many_plan_string(plans, s_count: int, ragged: bool, n_total: int,
+                      where: str = "in turn") -> str:
     """The batch's plan record: each distinct study plan once, the chunks
-    per study."""
+    per study, where the studies ran."""
     seen = list(dict.fromkeys(p.describe() for p in plans))
+    chunks = [-(-n_total // p.chunk) for p in plans]
     counts = list(dict.fromkeys(chunks))
     per = (str(counts[0]) if len(counts) == 1
            else ",".join(str(c) for c in chunks))
     return (f"{' / '.join(seen)} studies={s_count}"
-            f"{' ragged' if ragged else ''} chunks={per} [in turn]")
+            f"{' ragged' if ragged else ''} chunks={per} [{where}]")
+
+
+def study_axis_padding(mesh, s_count: int):
+    """(data_ways, s_pad, wrap_idx) for sharding a study axis over 'data'.
+
+    Study counts that do not divide the axis are wrap-padded (any S works,
+    even S < data_ways); callers slice results back to S. Shared by
+    permanova_many and pipeline_many, so the two keep one contract."""
+    from repro_torch.launch import mesh as _mesh   # deferred: a leaf
+    data_ways = _mesh.axis_size(mesh, "data") if mesh is not None else 0
+    if data_ways <= 1:
+        return data_ways, 0, None
+    s_pad = (-s_count) % data_ways
+    idx = torch.arange(s_count + s_pad) % s_count if s_pad else None
+    return data_ways, s_pad, idx
+
+
+def put_study_sharded(mesh, s_count: int):
+    """The studies this rank runs, and where the batch runs for the plan
+    record. The (wrap-padded) study axis is split into data_ways
+    contiguous blocks and a rank takes the block at its 'data' index (the
+    port's counterpart of the reference's device_put over 'data'; ranks
+    that differ only in other axes run the same block). A padded slot
+    replays its source study. Without a 'data' axis to shard: every
+    study, 'in turn'. Returns (global study indices, where)."""
+    data_ways, s_pad, idx = study_axis_padding(mesh, s_count)
+    if data_ways <= 1:
+        return list(range(s_count)), "in turn"
+    from repro_torch.core import distributed as _distrib
+    lay = _distrib.layout(mesh)
+    slots = (idx.tolist() if idx is not None else list(range(s_count)))
+    per = len(slots) // data_ways
+    d = lay.data_index[lay.rank]
+    return (slots[d * per:(d + 1) * per],
+            f"studies@data[{data_ways}]" + (f"+pad{s_pad}" if s_pad else ""))
+
+
+def _many_device(mesh, device) -> torch.device:
+    """A batch's device: the mesh's for this rank, else `device`."""
+    if mesh is None:
+        return hw.resolve_device(device)
+    from repro_torch.launch import mesh as _mesh
+    return _mesh.mesh_device(mesh)
+
+
+def _many_tensors(res) -> dict:
+    """Every study-leading tensor of a PermanovaManyResult, by name."""
+    out = {k: getattr(res, k)
+           for k in ("f_stat", "p_value", "s_t", "s_w", "f_perms")}
+    for i, t in enumerate(res.terms or ()):
+        for k in ("ss", "f_stat", "p_value", "r2", "f_perms"):
+            out[f"terms.{i}.{k}"] = getattr(t, k)
+    ordn = res.ordination
+    if ordn is not None:
+        for k in ("coords", "eigvals", "explained"):
+            out[f"ordination.{k}"] = getattr(ordn, k)
+        if isinstance(ordn.iterations, tuple):
+            out["ordination.iterations"] = torch.tensor(
+                ordn.iterations, device=res.f_stat.device)
+    return out
+
+
+def gather_studies(mesh, res, s_count: int, plan: str):
+    """The whole batch from each rank's block (put_study_sharded): every
+    study-leading tensor all-gathered, the blocks taken in 'data' order
+    and cut back to the S studies (a padded slot's copy is dropped).
+    Without a 'data' axis every rank ran every study: res as it is."""
+    if study_axis_padding(mesh, s_count)[0] <= 1:
+        return dataclasses.replace(res, plan=plan)
+    from repro_torch.core import distributed as _distrib
+    lay = _distrib.layout(mesh)
+    full = {}
+    for k, t in _many_tensors(res).items():
+        parts = _distrib.all_gather(t, lay)
+        full[k] = torch.cat([parts[lay.first_rank(data=d)]
+                             for d in range(lay.data_ways)])[:s_count]
+    terms = ordn = None
+    if res.terms is not None:
+        terms = tuple(dataclasses.replace(
+            t, **{k: full[f"terms.{i}.{k}"] for k in (
+                "ss", "f_stat", "p_value", "r2", "f_perms")})
+            for i, t in enumerate(res.terms))
+    if res.ordination is not None:
+        its = res.ordination.iterations
+        if "ordination.iterations" in full:
+            its = tuple(int(v) for v in full["ordination.iterations"])
+        ordn = dataclasses.replace(
+            res.ordination, coords=full["ordination.coords"],
+            eigvals=full["ordination.eigvals"],
+            explained=full["ordination.explained"], iterations=its)
+    return dataclasses.replace(
+        res, **{k: full[k] for k in ("f_stat", "p_value", "s_t", "s_w",
+                                     "f_perms")},
+        terms=terms, ordination=ordn, plan=plan)
 
 
 def _check_study_perms(perms, s_count, n_total, n, name):
@@ -534,18 +631,20 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
                 pcoa_many: the implicit centered operator on the study's
                 own matrix) in `result.ordination`, stacked (S, n, k),
                 a ragged study's rows past its n_s exactly zero.
+    mesh:       a DeviceMesh (launch.mesh) with a 'data' axis shards the
+                STUDY axis: every rank passes the same batch, runs its
+                block of studies (put_study_sharded; S wrap-padded to a
+                multiple of 'data') on the mesh's device, and returns the
+                whole batch, all-gathered: each study's bits are its
+                serial run's. The plan ends [studies@data[k](+padN)].
     device:     'cuda' (default; raises without a card) or 'cpu'.
 
     The studies run one after another on the existing kernels (brute and
     its kin on each study's resident matrix). A 'cuda' plan gives each
     study the whole label budget and plans it at its own n_valid; a 'cpu'
     plan keeps the reference's: one plan at n with 1/S of the budget.
-    mesh= (study-axis sharding) raises NotImplementedError naming its
-    slice.
     """
-    if mesh is not None:
-        raise _later("mesh= (study-axis sharding)", "multi-device")
-    dev = hw.resolve_device(device)
+    dev = _many_device(mesh, device)
     if covariates is not None or strata is not None or weights is not None:
         if perms is not None:
             raise ValueError("perms= (explicit labels) applies to the labels "
@@ -555,7 +654,7 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
             weights=weights, n_groups=n_groups, n_perms=n_perms, seed=seed,
             index_perms=index_perms, impl=impl, chunk=chunk,
             memory_budget_bytes=memory_budget_bytes, n_pad=n_pad,
-            ordination=ordination, dev=dev)
+            ordination=ordination, dev=dev, mesh=mesh)
     if index_perms is not None:
         raise ValueError("index_perms= applies to design batches; the "
                          "labels path takes perms=")
@@ -570,14 +669,18 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
     n_total = n_perms + 1
     _check_study_perms(perms, s_count, n_total, n, "perms")
     budget = _study_budgets(dev.type, memory_budget_bytes, s_count)
-    plans, chunks, f_rows, s_ts, s_ws, p_vals = [], [], [], [], [], []
-    attrs = _studies_attrs(s_count)
+    studies, where = put_study_sharded(mesh, s_count)
+    plans = []
+    for s in range(s_count):        # every study's plan, on every rank
+        plans.append(_many_plan(dev.type, n, int(groupings[s].shape[0]),
+                                n_total, impl=impl, budget=budget,
+                                chunk=chunk, n_groups=n_groups, plans=plans))
+    f_rows, s_ts, s_ws, p_vals = [], [], [], []
+    attrs = _studies_attrs(s_count, where)
     with _obs.span("engine.studies", attrs):
-        for s in range(s_count):
+        for s in studies:
             nv = int(groupings[s].shape[0])
-            pl = _many_plan(dev.type, n, nv, n_total, impl=impl,
-                            budget=budget, chunk=chunk, n_groups=n_groups,
-                            plans=plans)
+            pl = plans[s]
             fn = registry.get(pl.impl).bound(**pl.tuning)
             mat2 = dms[s] * dms[s]
             inv_gs = permutations.inv_group_sizes(groupings[s], n_groups)
@@ -587,31 +690,39 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
                 perms=_study_draws(perms, s, nv), draw_budget=budget)
             s_t = s_total(mat2)
             f_all = f_from_sw(s_w_all, s_t, nv, n_groups)
-            plans.append(pl)
-            chunks.append(stats.n_chunks)
             f_rows.append(f_all)
             s_ts.append(s_t)
             s_ws.append(s_w_all[0])
             p_vals.append(p_value_from_null(f_all))
-            _add_study_traffic(attrs, pl, n if dev.type == "cpu" else nv,
-                               n_total, dev.type, n_groups)
+        for s, pl in enumerate(plans):
+            _add_study_traffic(attrs, pl, n if dev.type == "cpu"
+                               else int(groupings[s].shape[0]), n_total,
+                               dev.type, n_groups)
         _obs.maybe_block(f_rows)
     _count_studies(s_count)
     f_perms = torch.stack(f_rows)
-    return PermanovaManyResult(
+    local = PermanovaManyResult(
         f_stat=f_perms[:, 0], p_value=torch.stack(p_vals),
         s_t=torch.stack(s_ts), s_w=torch.stack(s_ws), f_perms=f_perms,
         n_objects=n, n_groups=n_groups, n_perms=n_perms, n_valid=n_valid,
-        plan=_many_plan_string(plans, chunks, s_count, ragged),
-        ordination=_many_ordination(dms, ordination, n))
+        ordination=_many_ordination(_pick(dms, studies), ordination, n))
+    return gather_studies(mesh, local, s_count, _many_plan_string(
+        plans, s_count, ragged, n_total, where))
 
 
-def _studies_attrs(s_count: int):
+def _pick(dms, studies):
+    """The studies' matrices, stacked or a list as given."""
+    if isinstance(dms, (list, tuple)):
+        return [dms[s] for s in studies]
+    return dms if list(studies) == list(range(len(dms))) else dms[studies]
+
+
+def _studies_attrs(s_count: int, where: str = "in turn"):
     """The `engine.studies` span's attrs, filled study by study
     (_add_study_traffic); None while tracing is off."""
     if not _obs.trace_enabled():
         return None
-    return {"studies": s_count, "where": "in turn", "predicted_bytes": 0.0}
+    return {"studies": s_count, "where": where, "predicted_bytes": 0.0}
 
 
 def _add_study_traffic(attrs, pl, n: int, n_total: int, backend: str,
@@ -711,8 +822,8 @@ def _build_study_designs(groupings, covariates, strata, weights, *,
 def _permanova_many_design(dms, groupings, *, covariates, strata, weights,
                            n_groups: int, n_perms: int, seed: int,
                            index_perms, impl: str, chunk,
-                           memory_budget_bytes, n_pad, ordination, dev
-                           ) -> PermanovaManyResult:
+                           memory_budget_bytes, n_pad, ordination, dev,
+                           mesh=None) -> PermanovaManyResult:
     """The many-study dense-design path: every study's design (strata-only
     ones too) as one dense structure, each study's per-column sweep run
     in turn on its own operands from study_seed(seed, s), then per-term F
@@ -731,32 +842,37 @@ def _permanova_many_design(dms, groupings, *, covariates, strata, weights,
     n_total = n_perms + 1
     _check_study_perms(index_perms, s_count, n_total, n, "index_perms")
     budget = _study_budgets(dev.type, memory_budget_bytes, s_count)
-    plans, chunks, s_cols = [], [], []
-    attrs = _studies_attrs(s_count)
+    studies, where = put_study_sharded(mesh, s_count)
+    plans = []
+    for d in designs:               # every study's plan, on every rank
+        plans.append(_many_plan(dev.type, n, d.n, n_total, impl=impl,
+                                budget=budget, chunk=chunk, n_cols=k,
+                                plans=plans))
+    s_cols = []
+    attrs = _studies_attrs(s_count, where)
     with _obs.span("engine.studies", attrs):
-        for s, d in enumerate(designs):
+        for s in studies:
+            d = designs[s]
             nv = d.n
             st = (d.strata if d.strata is not None
                   else torch.zeros((nv,), dtype=torch.int32, device=dev))
-            pl = _many_plan(dev.type, n, nv, n_total, impl=impl,
-                            budget=budget, chunk=chunk, n_cols=k,
-                            plans=plans)
+            pl = plans[s]
             cols_fn = registry.bound_cols(pl.impl, **pl.tuning)
             sc, stats = scheduler.sw_cols_streaming(
                 dms[s] * dms[s], d.basis, st, n_total, cols_fn,
                 chunk=pl.chunk, seed=permutations.study_seed(seed, s),
                 index_perms=_study_draws(index_perms, s, nv),
                 draw_budget=budget)
-            plans.append(pl)
-            chunks.append(stats.n_chunks)
             s_cols.append(sc)
-            _add_study_traffic(attrs, pl, n if dev.type == "cpu" else nv,
+        for d, pl in zip(designs, plans):
+            _add_study_traffic(attrs, pl, n if dev.type == "cpu" else d.n,
                                n_total, dev.type, n_groups, n_cols=k)
         _obs.maybe_block(s_cols)
     _count_studies(s_count)
-    return design_many_result(
-        torch.stack(s_cols), designs, n_objects=n, n_groups=n_groups,
-        n_perms=n_perms, n_valid=n_valid,
-        plan=(f"{_many_plan_string(plans, chunks, s_count, ragged)} "
-              f"cols={k} ({designs[0].describe()})"),
-        ordination=_many_ordination(dms, ordination, n))
+    local = design_many_result(
+        torch.stack(s_cols), [designs[s] for s in studies], n_objects=n,
+        n_groups=n_groups, n_perms=n_perms, n_valid=n_valid,
+        ordination=_many_ordination(_pick(dms, studies), ordination, n))
+    return gather_studies(mesh, local, s_count, (
+        f"{_many_plan_string(plans, s_count, ragged, n_total, where)} "
+        f"cols={k} ({designs[0].describe()})"))

@@ -23,6 +23,16 @@ label-only and routes dense designs to matmul's (`resolve_cols`). The
 companions are plain torch matrix products on every device; labels-mode
 designs (one factor with strata) need none, since every impl consumes
 permuted labels unchanged.
+
+Row-sharded s_W (core.distributed) needs a `sharded` companion,
+`sharded(mat2_rows, row_offset, groupings, inv_gs) -> (P, k)` partial
+columns of a row slab: the slabs' columns concatenated in row order and
+summed over the columns give s_W. brute's are its 64-row bands (the brute
+kernel's row-slab entry on CUDA tensors, `fstat.sw_rows_bands` on CPU
+ones), so whole-band slabs give the whole launch's bits; matmul's is one
+column, `fstat.sw_matmul_rows_partial` (a torch.matmul on the card: the
+reference takes this product outside any kernel too). `get_sharded` gives
+tiled brute's.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ class SwImpl:
     card_bytes_per_perm: Optional[Callable[[int], int]] = None
     # device bytes the kernel's partials add per permutation at n, charged
     # by a cuda plan beside the labels (None: nothing to charge)
+    sharded: Optional[Callable] = None    # row-slab partial columns
 
     def bound(self, **overrides) -> Callable:
         """The batch callable, with tuning resolved (defaults <-
@@ -94,6 +105,24 @@ def names():
     return sorted(_REGISTRY)
 
 
+def get_sharded(name: str) -> Callable:
+    """The row-sharded companion of `name` (or its alias); tiled, which
+    has none, runs brute's bands (its kernel's tiles are brute's)."""
+    impl = get(name)
+    return impl.sharded if impl.sharded is not None \
+        else get("brute").sharded
+
+
+def _brute_rows(mat2_rows, row_offset, groupings, inv_group_sizes):
+    return ops.permanova_sw_rows(mat2_rows, groupings, inv_group_sizes,
+                                 row_offset=row_offset)
+
+
+def _matmul_rows(mat2_rows, row_offset, groupings, inv_group_sizes):
+    return fstat.sw_matmul_rows_partial(mat2_rows, row_offset, groupings,
+                                        inv_group_sizes)[:, None]
+
+
 def resolve_cols(name: str) -> Tuple[str, Callable]:
     """(impl name, dense-design companion) for `name`, falling back to the
     matmul form when the impl is label-only (tiled)."""
@@ -116,7 +145,7 @@ register(SwImpl(
     tuning={"block": 32},
     description="paper Algorithm 3 dataflow: every perm re-streams mat2 "
                 "(the MI300A GPU winner)",
-    cols=fstat.sw_cols_brute,
+    cols=fstat.sw_cols_brute, sharded=_brute_rows,
 ))
 register(SwImpl(
     name="tiled", plain=fstat.sw_tiled, kernel="permblock",
@@ -131,5 +160,5 @@ register(SwImpl(
     tuning={"perm_block": 64},
     description="one-hot matmul reformulation (amortizes each mat2 byte "
                 "over perm_block*G columns)",
-    cols=fstat.sw_cols_matmul,
+    cols=fstat.sw_cols_matmul, sharded=_matmul_rows,
 ))

@@ -109,16 +109,18 @@ static_assert(kBruteCols % 4 == 0 && kBruteRows % kWarps == 0 &&
               kBrutePerms % 32 == 0, "whole vectors, warps and lanes");
 
 // Start the copies of the mat2 tile of rows r0.. and columns c0.. into
-// shared memory, zero where j <= i, i >= n or j >= n (so a diagonal tile
-// adds only j > i and nothing past n is read). Both kernels below.
+// shared memory, zero where j <= i, i >= row_end or j >= n (so a diagonal
+// tile adds only j > i and nothing past the slab or n is read). mat2
+// points at global row row_base (pitch n): 0 for a whole matrix, the
+// slab's first row for brute's row-slab entry. Both kernels below.
 __device__ __forceinline__ void load_mat2_tile(
     float* ms, const float* __restrict__ mat2, int64_t n, int64_t r0,
-    int64_t c0) {
+    int64_t c0, int64_t row_base, int64_t row_end) {
   for (int e = threadIdx.x; e < kBruteTileFloats; e += kThreads) {
     const int r = e / kBruteCols, c = e % kBruteCols;
     const int64_t i = r0 + r, j = c0 + c;
-    const bool ok = i < n && j < n && j > i;
-    cp_async4(ms + e, ok ? (const void*)(mat2 + i * n + j)
+    const bool ok = i < row_end && j < n && j > i;
+    cp_async4(ms + e, ok ? (const void*)(mat2 + (i - row_base) * n + j)
                          : (const void*)mat2, ok ? 4 : 0);
   }
 }
@@ -169,15 +171,22 @@ __device__ __forceinline__ void apply_tile(
   }
 }
 
+// mat2 holds global rows [row_offset, row_end) with pitch n (the whole
+// matrix: row_offset 0, row_end n); row_offset is a multiple of 64, so
+// block y runs global band row_offset / 64 + y, from its diagonal tile,
+// exactly as the whole-matrix launch runs that band, and writes partial
+// column y: a slab's partials are the whole launch's columns of its bands,
+// bit for bit.
 __global__ void __launch_bounds__(kThreads, 2)
 sw_brute_kernel(const float* __restrict__ mat2,
                 const int* __restrict__ groupings,
                 const float* __restrict__ w, float* __restrict__ partials,
-                int64_t n, int64_t n_perms, int n_groups) {
+                int64_t n, int64_t n_perms, int n_groups,
+                int64_t row_offset, int64_t row_end) {
   extern __shared__ __align__(16) unsigned char brute_smem[];
   __shared__ float red[kWarps][kBrutePerms];
   const int64_t p0 = (int64_t)blockIdx.x * kBrutePerms;
-  const int64_t band = blockIdx.y;
+  const int64_t band = row_offset / kBruteRows + blockIdx.y;
   const int64_t r0 = band * kBruteRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rw = warp * kBruteWarpRows;   // the warp's first row in the band
@@ -198,7 +207,8 @@ sw_brute_kernel(const float* __restrict__ mat2,
   auto stage_ms = [&](int64_t t) {
     return reinterpret_cast<float*>(brute_smem + (t & 1) * kBruteStageBytes);
   };
-  load_mat2_tile(stage_ms(0), mat2, n, r0, band * kBruteCols);
+  load_mat2_tile(stage_ms(0), mat2, n, r0, band * kBruteCols, row_offset,
+                 row_end);
   load_col_labels(reinterpret_cast<int*>(stage_ms(0) + kBruteTileFloats),
                   groupings, n, n_perms, band * kBruteCols, p0);
   cp_async_commit();
@@ -207,7 +217,8 @@ sw_brute_kernel(const float* __restrict__ mat2,
     __syncthreads();   // tile t has landed; stage t + 1's readers are done
     if (t + 1 < n_tiles) {
       float* nxt = stage_ms(t + 1);
-      load_mat2_tile(nxt, mat2, n, r0, (band + t + 1) * kBruteCols);
+      load_mat2_tile(nxt, mat2, n, r0, (band + t + 1) * kBruteCols,
+                     row_offset, row_end);
       load_col_labels(reinterpret_cast<int*>(nxt + kBruteTileFloats),
                       groupings, n, n_perms, (band + t + 1) * kBruteCols,
                       p0);
@@ -235,7 +246,7 @@ sw_brute_kernel(const float* __restrict__ mat2,
     float s = 0.f;
 #pragma unroll
     for (int k = 0; k < kWarps; ++k) s += red[k][threadIdx.x];
-    partials[p * gridDim.y + band] = s;
+    partials[p * gridDim.y + blockIdx.y] = s;
   }
 }
 
@@ -329,14 +340,14 @@ sw_permblock_kernel(const float* __restrict__ mat2,
   const int64_t n_pass = (n_perms + kPbPass - 1) / kPbPass;
   float* __restrict__ out = partials + (int64_t)blockIdx.x * n_perms;
 
-  load_mat2_tile(tile, mat2, n, r0, blk.jt0 * kBruteCols);
+  load_mat2_tile(tile, mat2, n, r0, blk.jt0 * kBruteCols, 0, n);
   load_col_labels(labs, groupings, n, n_perms, blk.jt0 * kBruteCols, 0);
   cp_async_commit();
   int64_t s = 0;
   for (int t = 0; t < n_t; ++t) {
     const int64_t c0 = (blk.jt0 + t) * kBruteCols;
     if (t > 0) {   // tile t - 1's readers passed its last reduction barrier
-      load_mat2_tile(tile, mat2, n, r0, c0);
+      load_mat2_tile(tile, mat2, n, r0, c0, 0, n);
       cp_async_commit();
     }
     for (int64_t q = 0; q < n_pass; ++q, ++s) {
@@ -914,7 +925,35 @@ int sw_brute_launch(const void* mat2, const void* groupings, const void* w,
   sw_brute_kernel<<<grid, kThreads, kBruteSmemBytes,
                     (cudaStream_t)stream>>>(
       (const float*)mat2, (const int*)groupings, (const float*)w,
-      (float*)partials, n, n_perms, n_groups);
+      (float*)partials, n, n_perms, n_groups, 0, n);
+  return (int)cudaGetLastError();
+}
+
+// The row-slab entry (row-sharded s_W): mat2_rows holds global rows
+// [row_offset, row_offset + n_rows) of the (n, n) matrix with pitch n;
+// groupings are the (P, n) labels of every sample. partials: (P,
+// ceil(n_rows / 64)) f32, column y the partial of global band
+// row_offset / 64 + y, bit for bit the whole-matrix launch's. row_offset
+// must be a multiple of 64 (a band is the unit of the partials) and the
+// slab must lie inside the matrix; otherwise nothing is launched and
+// cudaErrorInvalidValue is returned.
+int sw_brute_rows_launch(const void* mat2_rows, const void* groupings,
+                         const void* w, void* partials, long long n,
+                         long long n_rows, long long row_offset,
+                         long long n_perms, int n_groups, void* stream) {
+  if (n < 1 || n_rows < 1 || n_perms < 1 || row_offset < 0 ||
+      row_offset % kBruteRows != 0 || row_offset + n_rows > n)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((n_perms + kBrutePerms - 1) / kBrutePerms),
+                  (unsigned)((n_rows + kBruteRows - 1) / kBruteRows));
+  cudaFuncSetAttribute(sw_brute_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kBruteSmemBytes);
+  sw_brute_kernel<<<grid, kThreads, kBruteSmemBytes,
+                    (cudaStream_t)stream>>>(
+      (const float*)mat2_rows, (const int*)groupings, (const float*)w,
+      (float*)partials, n, n_perms, n_groups, row_offset,
+      row_offset + n_rows);
   return (int)cudaGetLastError();
 }
 

@@ -27,7 +27,8 @@ from repro_torch.kernels.permanova_sw import ref
 from repro_torch.obs import cudahooks
 
 VARIANTS = ("brute", "permblock", "matmul")
-LAUNCHES = {v: 0 for v in VARIANTS}
+# brute's row-slab entry (permanova_sw_rows) counts under its own key
+LAUNCHES = {v: 0 for v in VARIANTS + ("brute_rows",)}
 SOURCE = Path(__file__).resolve().parent / "csrc" / "permanova_sw.cu"
 
 _MAX_GRID_Y = 65535
@@ -42,6 +43,8 @@ _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     "sw_kernel_config": ([_PTR], None),
     "sw_brute_launch": ([_PTR] * 4 + [_I64, _I64, _I32, _PTR], _I32),
+    "sw_brute_rows_launch": ([_PTR] * 4 + [_I64] * 4 + [_I32, _PTR],
+                             _I32),
     "sw_permblock_launch": ([_PTR] * 4 + [_I64, _I64, _I32, _PTR], _I32),
     "sw_matmul_launch": ([_PTR] * 4 + [_I64, _I64, _I32, _I32, _PTR], _I32),
 }
@@ -135,6 +138,28 @@ def launch_bytes(variant: str, n: int, n_perms: int, n_groups: int,
                                + 4 * n * span)
         return loads + 2 * 4 * p * nb + 4 * p
     raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+
+
+def rows_launch_bytes(n: int, n_rows: int, row_offset: int, n_perms: int,
+                      elem_bytes: int = 4) -> int:
+    """Device bytes one launch of brute's row-slab entry moves: the
+    whole-matrix count (launch_bytes) restricted to the slab's bands, each
+    band from its diagonal tile: the slab's pairs j > i once per
+    128-permutation block, each visited tile's column labels with it, the
+    slab's row labels once, the (P, bands) partials written and the
+    wrapper's gather reads them (the sum over every slab's bands is the
+    caller's)."""
+    tile = PERMBLOCK_TILE
+    b0 = row_offset // tile
+    b1 = -(-(row_offset + n_rows) // tile)
+    nt = -(-n // tile)
+    pairs = sum(max(0, n - i - 1)
+                for i in range(row_offset, row_offset + n_rows))
+    cols = sum(min(tile, n - c * tile) for b in range(b0, b1)
+               for c in range(b, nt))
+    passes = -(-n_perms // 128)
+    reads = elem_bytes * passes * pairs + 4 * n_perms * (cols + n_rows)
+    return reads + 2 * 4 * n_perms * (b1 - b0)
 
 
 def _rounded_sqrt_w(inv_group_sizes: torch.Tensor, dtype) -> torch.Tensor:
@@ -259,6 +284,77 @@ def permanova_sw(mat2: torch.Tensor, groupings: torch.Tensor,
     lib = load_library()
     stream = torch.cuda.current_stream(mat2.device).cuda_stream
     return _launch(lib, variant, mat2, groupings, inv_group_sizes, stream)
+
+
+def permanova_sw_rows(mat2_rows: torch.Tensor, groupings: torch.Tensor,
+                      inv_group_sizes: torch.Tensor, *, row_offset: int
+                      ) -> torch.Tensor:
+    """(P, ceil(n_rows / 64)) f32 band partials of a row slab of mat2, the
+    unit of row-sharded s_W (core.distributed).
+
+    mat2_rows:       (n_rows, n) rows [row_offset, row_offset + n_rows) of
+                     the (n, n) squared distances (zero diagonal), f32.
+    groupings:       (P, n) int32 permuted labels of every sample.
+    inv_group_sizes: (G,) f32.
+    row_offset:      a multiple of 64 (the brute kernel's band), else
+                     ValueError; the slab must lie inside the matrix.
+
+    On CUDA tensors the brute kernel's row-slab entry runs each band from
+    its diagonal tile as the whole-matrix launch does: column y is global
+    band row_offset / 64 + y of `launch_partials(.., 'brute', ..)`, bit
+    for bit, so the slabs' partials concatenated in row order and summed
+    as permanova_sw sums them give its s_W bit for bit. On CPU tensors the
+    plain version (ref.sw_rows_ref). Launches count under 'brute_rows'.
+    """
+    if mat2_rows.dim() != 2 or mat2_rows.shape[0] < 1:
+        raise ValueError(f"mat2_rows must be (n_rows, n), got "
+                         f"{tuple(mat2_rows.shape)}")
+    n_rows, n = (int(v) for v in mat2_rows.shape)
+    row_offset = int(row_offset)
+    if row_offset % PERMBLOCK_TILE or row_offset < 0 \
+            or row_offset + n_rows > n:
+        raise ValueError(f"row_offset={row_offset} must be a multiple of "
+                         f"{PERMBLOCK_TILE} with the {n_rows}-row slab "
+                         f"inside the ({n}, {n}) matrix")
+    if mat2_rows.dtype != torch.float32:
+        raise TypeError(f"mat2_rows must be float32, got {mat2_rows.dtype}")
+    if groupings.dim() != 2 or groupings.shape[1] != n \
+            or groupings.shape[0] < 1 or groupings.dtype != torch.int32:
+        raise ValueError(f"groupings must be (P, {n}) int32 with P >= 1, "
+                         f"got {groupings.dtype} {tuple(groupings.shape)}")
+    if inv_group_sizes.dim() != 1 or inv_group_sizes.shape[0] < 1 \
+            or inv_group_sizes.dtype != torch.float32:
+        raise TypeError("inv_group_sizes must be a non-empty 1-D float32 "
+                        "tensor")
+    devices = {mat2_rows.device, groupings.device, inv_group_sizes.device}
+    if len(devices) != 1:
+        raise ValueError(f"operands on different devices: {devices}")
+    if not (mat2_rows.is_contiguous() and groupings.is_contiguous()
+            and inv_group_sizes.is_contiguous()):
+        raise ValueError("mat2_rows, groupings and inv_group_sizes must be "
+                         "contiguous")
+    if mat2_rows.device.type == "cpu":
+        return ref.sw_rows_ref(mat2_rows, groupings, inv_group_sizes,
+                               row_offset)
+    n_perms = int(groupings.shape[0])
+    shape = (n_perms, -(-n_rows // PERMBLOCK_TILE))
+    if shape[1] > _MAX_GRID_Y or n_perms >= 2 ** 31:
+        raise ShapeNotSupported(f"shape (P={n_perms}, rows={n_rows}) "
+                                "exceeds the brute kernel's grid")
+    lib = load_library()
+    stream = torch.cuda.current_stream(mat2_rows.device).cuda_stream
+    partials = torch.empty(shape, dtype=torch.float32,
+                           device=mat2_rows.device)
+    err = lib.sw_brute_rows_launch(
+        mat2_rows.data_ptr(), groupings.data_ptr(),
+        inv_group_sizes.data_ptr(), partials.data_ptr(), n, n_rows,
+        row_offset, n_perms, int(inv_group_sizes.shape[0]), stream)
+    if err != 0:
+        raise RuntimeError(f"permanova_sw brute_rows kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["brute_rows"] += 1
+    cudahooks.count_launch("brute_rows")
+    return partials
 
 
 def make_sw_fn(variant: str = "matmul"):

@@ -27,6 +27,18 @@ def sw_ref(mat2: torch.Tensor, groupings: torch.Tensor,
     return fstat.sw_brute(mat2, groupings, inv_group_sizes, block=block)
 
 
+def sw_rows_ref(mat2_rows: torch.Tensor, groupings: torch.Tensor,
+                inv_group_sizes: torch.Tensor, row_offset: int
+                ) -> torch.Tensor:
+    """(P, ceil(n_rows / 64)) f32 band partials of a row slab, the plain
+    version of the brute kernel's row-slab entry (fstat.sw_rows_bands)."""
+    n_rows, n = mat2_rows.shape
+    block = max(1, min(8, groupings.shape[0],
+                       _MAX_BLOCK_ELEMS // (n_rows * n)))
+    return fstat.sw_rows_bands(mat2_rows, row_offset, groupings,
+                               inv_group_sizes, block=block)
+
+
 def _host(a, dtype) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu()

@@ -51,13 +51,26 @@ under one joint plan (distance kernel, bridge, s_W).
       --samples 25145 --perms 3999 --from-features \
       --trace /tmp/permanova.json --metrics
 
+  # several cards: every rank runs the same command under torchrun.
+  # --distributed shards the matrix path over (data = world, model = 1)
+  # (permutations; core.permanova_distributed); --shard-rows N runs the
+  # fused-kernel sweep over (data = world / N, model = N) (rows over
+  # 'model', permutations over 'data'). Rank 0 prints the result lines:
+  torchrun --standalone --nproc-per-node=4 -m repro_torch.launch.permanova \
+      --samples 25145 --perms 3999 --distributed
+  torchrun --standalone --nproc-per-node=4 -m repro_torch.launch.permanova \
+      --samples 25145 --perms 3999 --shard-rows 2
+
 Runs on the card (`--device cuda`, the default) and fails without one;
-`--device cpu` runs the plain PyTorch forms on the host.
+`--device cpu` runs the plain PyTorch forms on the host (a gloo world
+under --distributed / --shard-rows; without torchrun those run as a world
+of one).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -89,6 +102,24 @@ def _emit_obs(args):
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def _world(dev: torch.device):
+    """The process group of a torchrun launch (env://), or a world of one
+    without one; torn down after the run. NCCL on the card, gloo on the
+    CPU. Yields the rank."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as _mesh
+    if "WORLD_SIZE" not in os.environ:
+        with _mesh.world_of_one(dev):
+            yield 0
+        return
+    _mesh.init_distributed(dev)
+    try:
+        yield dist.get_rank()
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> int:
@@ -138,6 +169,17 @@ def main(argv=None) -> int:
                          "packed (jaccard only: presence bits in 32-bit "
                          "words, popcount tiles; the same F and p as f32); "
                          "implies --materialize fused-kernel when not f32")
+    ap.add_argument("--shard-rows", type=int, default=None, metavar="N",
+                    help="run the fused-kernel sweep over an N-way 'model' "
+                         "mesh axis (row slabs sharded, the ranks' partials "
+                         "all-gathered and summed in rank order; the other "
+                         "ranks shard permutations); implies --materialize "
+                         "fused-kernel; every rank of a torchrun launch "
+                         "runs it")
+    ap.add_argument("--distributed", action="store_true",
+                    help="shard the matrix path's permutations over every "
+                         "rank of the torchrun launch "
+                         "(core.permanova_distributed)")
     ap.add_argument("--dist-impl", default="auto",
                     help="pin the stage-1 distance impl (e.g. "
                          "'braycurtis.cuda', 'euclidean.blocked'); "
@@ -252,69 +294,123 @@ def main(argv=None) -> int:
 
     if args.from_features or args.materialize != "auto" \
             or args.dist_impl != "auto" or args.fused_impl != "auto" \
+            or args.shard_rows is not None \
             or args.pcoa is not None or design_path \
             or args.features_cache is not None:
+        if args.distributed:
+            ap.error("--distributed is not supported with the pipeline "
+                     "path (--from-features/--materialize/--dist-impl); "
+                     "use --shard-rows for the fused-kernel mesh, or "
+                     "precompute the matrix and drop --distributed")
+        sharded = args.shard_rows is not None
+        if sharded and args.materialize not in ("auto", "fused-kernel"):
+            ap.error("--shard-rows runs the fused-kernel sweep; drop "
+                     "--materialize or set it to fused-kernel")
+        if sharded and args.shard_rows < 1:
+            ap.error("--shard-rows takes a positive number of row shards")
+        with (_world(dev) if sharded else contextlib.nullcontext(0)) as rank:
+            mesh = None
+            if sharded:
+                from repro_torch.launch import mesh as _mesh
+                mesh = _mesh.make_host_mesh(model_ways=args.shard_rows,
+                                            device_type=dev.type)
+                dev = _mesh.mesh_device(mesh)
+            return _pipeline_run(args, features, grouping, budget,
+                                 fused_tuning, covariates, strata, weights,
+                                 dev_budget, dev, mesh=mesh,
+                                 quiet=rank != 0)
+
+    with (_world(dev) if args.distributed
+          else contextlib.nullcontext(0)) as rank:
+        mesh = None
+        if args.distributed:
+            from repro_torch.launch import mesh as _mesh
+            mesh = _mesh.make_host_mesh(device_type=dev.type)
+            dev = _mesh.mesh_device(mesh)
         t0 = time.perf_counter()
-        res = pipeline.pipeline(
-            features, torch.from_numpy(grouping),
-            metric=args.metric, n_perms=args.perms, seed=args.seed,
-            dist_impl=args.dist_impl, sw_impl=args.impl,
-            materialize=args.materialize, chunk=args.chunk,
-            fused_impl=args.fused_impl, fused_tuning=fused_tuning,
-            memory_budget_bytes=budget, ordination=args.pcoa,
-            covariates=covariates, strata=strata, weights=weights,
-            autotune=args.autotune, device_budget_bytes=dev_budget,
-            device=dev)
+        dm = distance_matrix(torch.from_numpy(x).to(dev), args.metric)
+        checks = validate_distance_matrix(dm)
+        if not checks["ok"]:
+            raise RuntimeError(f"distance matrix failed its checks: "
+                               f"{checks}")
+        _sync(dev)
+        t_dm = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        if mesh is None:
+            res = engine.run(dm, torch.from_numpy(grouping),
+                             n_perms=args.perms, seed=args.seed,
+                             impl=args.impl, memory_budget_bytes=budget,
+                             chunk=args.chunk, autotune=args.autotune,
+                             device=dev)
+        else:
+            from repro_torch.core import permanova_distributed
+            res = permanova_distributed(
+                mesh, dm, torch.from_numpy(grouping), n_perms=args.perms,
+                seed=args.seed, impl=args.impl, chunk=args.chunk,
+                memory_budget_bytes=budget)
         f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
         t_pa = time.perf_counter() - t0
-        print(f"[permanova] n={args.samples} groups={args.groups} "
-              f"perms={res.n_perms} metric={args.metric} pipeline "
-              f"device={dev}")
-        print(f"[permanova] plan: {res.plan}")
-        print(f"[permanova] features->p-value {t_pa:.2f}s "
-              f"({res.n_perms / t_pa:.1f} perms/s)")
-        print(f"[permanova] F={f_stat:.6g} p={p_value:.6g} "
-              f"R2={float(res.r2):.4g}")
-        if res.terms is not None:
-            print(f"[permanova] {'term':<12} {'df':>3} {'SS':>10} "
-                  f"{'F':>9} {'R2':>8} {'p':>8}")
-            for t in res.terms:
-                print(f"[permanova] {t.name:<12} {t.df:>3} "
-                      f"{float(t.ss):>10.4g} {float(t.f_stat):>9.4g} "
-                      f"{float(t.r2):>8.4g} {float(t.p_value):>8.4g}")
-        if res.ordination is not None:
-            o = res.ordination
-            expl = ", ".join(f"{float(v):.3f}" for v in o.explained)
-            print(f"[permanova] pcoa[{o.method}] k={o.k} "
-                  f"explained=[{expl}] coords={tuple(o.coords.shape)} "
-                  f"iterations={o.iterations}")
-        _emit_obs(args)
-        return 0
+        if rank == 0:
+            _print_matrix_run(args, res, dev, t_dm, t_pa, f_stat, p_value,
+                              " +distributed" if mesh is not None else "")
+    return 0
 
-    t0 = time.perf_counter()
-    dm = distance_matrix(torch.from_numpy(x).to(dev), args.metric)
-    checks = validate_distance_matrix(dm)
-    if not checks["ok"]:
-        raise RuntimeError(f"distance matrix failed its checks: {checks}")
-    _sync(dev)
-    t_dm = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    res = engine.run(dm, torch.from_numpy(grouping), n_perms=args.perms,
-                     seed=args.seed, impl=args.impl,
-                     memory_budget_bytes=budget, chunk=args.chunk,
-                     autotune=args.autotune, device=dev)
-    f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
-    t_pa = time.perf_counter() - t0
-
+def _print_matrix_run(args, res, dev, t_dm, t_pa, f_stat, p_value,
+                      tag=""):
     print(f"[permanova] n={args.samples} groups={args.groups} "
-          f"perms={res.n_perms} metric={args.metric} impl={args.impl} "
-          f"device={dev}")
+          f"perms={res.n_perms} metric={args.metric} impl={args.impl}"
+          f"{tag} device={dev}")
     print(f"[permanova] plan: {res.plan}")
     print(f"[permanova] distance-matrix {t_dm:.2f}s  "
           f"permutation-test {t_pa:.2f}s "
           f"({res.n_perms / t_pa:.1f} perms/s)")
     print(f"[permanova] F={f_stat:.6g} p={p_value:.6g}")
+    _emit_obs(args)
+
+
+def _pipeline_run(args, features, grouping, budget, fused_tuning,
+                  covariates, strata, weights, dev_budget, dev, *,
+                  mesh=None, quiet=False) -> int:
+    """The features -> p-value path (over `mesh` with --shard-rows); the
+    result lines unless `quiet` (the ranks other than 0)."""
+    t0 = time.perf_counter()
+    res = pipeline.pipeline(
+        features, torch.from_numpy(grouping),
+        metric=args.metric, n_perms=args.perms, seed=args.seed,
+        dist_impl=args.dist_impl, sw_impl=args.impl,
+        materialize=args.materialize, chunk=args.chunk,
+        fused_impl=args.fused_impl, fused_tuning=fused_tuning,
+        memory_budget_bytes=budget, ordination=args.pcoa,
+        covariates=covariates, strata=strata, weights=weights,
+        autotune=args.autotune, device_budget_bytes=dev_budget,
+        mesh=mesh, device=dev)
+    f_stat, p_value = float(res.f_stat), float(res.p_value)   # waits
+    t_pa = time.perf_counter() - t0
+    if quiet:
+        return 0
+    print(f"[permanova] n={args.samples} groups={args.groups} "
+          f"perms={res.n_perms} metric={args.metric} pipeline "
+          f"device={dev}")
+    print(f"[permanova] plan: {res.plan}")
+    print(f"[permanova] features->p-value {t_pa:.2f}s "
+          f"({res.n_perms / t_pa:.1f} perms/s)")
+    print(f"[permanova] F={f_stat:.6g} p={p_value:.6g} "
+          f"R2={float(res.r2):.4g}")
+    if res.terms is not None:
+        print(f"[permanova] {'term':<12} {'df':>3} {'SS':>10} "
+              f"{'F':>9} {'R2':>8} {'p':>8}")
+        for t in res.terms:
+            print(f"[permanova] {t.name:<12} {t.df:>3} "
+                  f"{float(t.ss):>10.4g} {float(t.f_stat):>9.4g} "
+                  f"{float(t.r2):>8.4g} {float(t.p_value):>8.4g}")
+    if res.ordination is not None:
+        o = res.ordination
+        expl = ", ".join(f"{float(v):.3f}" for v in o.explained)
+        print(f"[permanova] pcoa[{o.method}] k={o.k} "
+              f"explained=[{expl}] coords={tuple(o.coords.shape)} "
+              f"iterations={o.iterations}")
     _emit_obs(args)
     return 0
 

@@ -10,7 +10,11 @@ or the sweeps' design twins, per-term F and p in `.terms`.
 `core.permanova.permanova()` delegates here when handed features instead
 of a matrix, and the launch CLI exposes it as `--from-features`.
 `pipeline_many` runs a stack of studies one after another through the
-same bridges (dense, or the fused-kernel sweeps). `ordination=k` adds the
+same bridges (dense, or the fused-kernel sweeps). Over a DeviceMesh
+(launch.mesh), `pipeline(mesh=)` shards the fused-kernel sweep
+(streaming.fused_sw_sharded: rows over 'model', permutations over the
+other axes) and `pipeline_many(mesh=)` the study axis over 'data'; every
+rank passes the same arguments and returns the whole result. `ordination=k` adds the
 top-k PCoA axes from the same dataflow (pipeline.ordination): eigh on the
 dense bridge, the implicit centered operator on the stream bridge's mat2,
 the feature-streamed slabs on the fused bridges. `autotune=True` runs the
@@ -39,7 +43,7 @@ from repro_torch import engine, hw
 from repro_torch import obs as _obs
 from repro_torch.core import design as _design
 from repro_torch.core import permutations
-from repro_torch.core.permanova import (PermanovaResult, _later, f_from_sw,
+from repro_torch.core.permanova import (PermanovaResult, f_from_sw,
                                         p_value_from_null)
 from repro_torch.data import slabcache as _slabcache
 from repro_torch.pipeline import ordination as _ordination
@@ -241,11 +245,24 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
                  spans time finished device work; F, p and the null are
                  unchanged.
 
+    mesh:        a DeviceMesh (launch.mesh.make_mesh) with a 'model' axis:
+                 every rank runs the same call and gets the whole result
+                 on the mesh's device. The fused-kernel bridge only
+                 (materialize 'auto' / 'fused-kernel', else ValueError):
+                 'model' shards the table's rows, the other axes the
+                 permutation windows (streaming.fused_sw_sharded). The
+                 sweep is the card's megakernel (`.fusedk.cuda`; its plain
+                 version on the CPU) unless fused_impl pins 'torch'. With
+                 'model' = 1 the result is the single-host fused-kernel
+                 bridge's (fused_impl='cuda') bit for bit. Plain
+                 single-factor designs only (ValueError otherwise, as the
+                 reference: shard design studies with pipeline_many); a
+                 slab cache with a mesh raises ValueError. The plan
+                 records '+mesh'.
+
     Budgets split per stage: matrix/slab for distances,
-    memory_budget_bytes for s_W labels. mesh (with or without a design)
-    raises NotImplementedError naming its slice (a slab cache with a mesh
-    raises ValueError, as the reference does). For the same labels every
-    bridge gives the same F and p-value (to f32 accumulation order).
+    memory_budget_bytes for s_W labels. For the same labels every bridge
+    gives the same F and p-value (to f32 accumulation order).
     """
     if trace:
         with _obs.session(trace if isinstance(trace, str) else None):
@@ -263,7 +280,6 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
                 autotune=autotune, trace=None,
                 device_budget_bytes=device_budget_bytes,
                 host_budget_bytes=host_budget_bytes, device=device)
-    dev = hw.resolve_device(device)
     if isinstance(x, (str, os.PathLike)):
         x = _slabcache.SlabCache.open(x)
     if isinstance(x, _slabcache.SlabCache):
@@ -279,9 +295,24 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
             ordination=ordination, covariates=covariates, strata=strata,
             weights=weights, autotune=autotune,
             device_budget_bytes=device_budget_bytes,
-            host_budget_bytes=host_budget_bytes, dev=dev)
+            host_budget_bytes=host_budget_bytes,
+            dev=hw.resolve_device(device))
     if mesh is not None:
-        raise _later("mesh execution", "multi-device")
+        if (covariates is not None or strata is not None
+                or weights is not None
+                or (isinstance(grouping, _design.Design)
+                    and not grouping.is_plain_labels)):
+            raise ValueError(_MESH_DESIGN)
+        if materialize not in ("auto", "fused-kernel"):
+            raise ValueError(
+                "mesh execution is fused-kernel only; use "
+                "materialize='auto'/'fused-kernel' (or core.distributed "
+                "for matrix-resident sharding)")
+        materialize = "fused-kernel"
+        from repro_torch.launch import mesh as _mesh   # deferred: a leaf
+        dev = _mesh.mesh_device(mesh)   # the rank's, whatever `device` says
+    else:
+        dev = hw.resolve_device(device)
     x = torch.as_tensor(x).to(dev, torch.float32)
     if x.dim() != 2:
         raise ValueError(f"features must be (n, d); got shape "
@@ -305,6 +336,19 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
     grouping = torch.as_tensor(grouping).to(dev, torch.int32)
     if n_groups is None:
         n_groups = int(grouping.max()) + 1
+    if mesh is not None:
+        if index_perms is not None:
+            raise ValueError("mesh execution takes labels (seed= or "
+                             "perms=), not index_perms=")
+        if autotune:
+            warnings.warn("autotune=True ignored: mesh execution runs the "
+                          "megakernel sweep (or a pinned fused_impl)",
+                          stacklevel=2)
+            autotune = False
+        if fused_impl == "auto":
+            # the port's mesh runs the card's kernel (its plain version on
+            # the CPU), where the reference's runs its XLA sweep
+            fused_impl = "cuda"
 
     def _plan():
         return _planner.plan_pipeline(
@@ -343,7 +387,7 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
         xprep = prepare(x)
         res = _fused_bridge(pl, xprep, rows_fn, grouping, n_perms,
                             n_groups, seed, perms, index_perms,
-                            memory_budget_bytes, d=int(d))
+                            memory_budget_bytes, d=int(d), mesh=mesh)
         return dataclasses.replace(res, ordination=_features_ordination(
             pl, xprep, rows_fn, ordination))
     run_kw = dict(n_perms=n_perms, seed=seed, perms=perms,
@@ -384,6 +428,11 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
         ordination=ordn)
 
 
+_MESH_DESIGN = ("single-study mesh execution supports plain single-factor "
+                "designs only; shard design studies over the 'data' axis "
+                "via pipeline_many/permanova_many instead")
+
+
 def _features_ordination(pl: _planner.PipelinePlan, xprep, rows_fn,
                          ordination):
     """The fused bridges' PCoA: every matvec of the subspace iteration
@@ -399,11 +448,12 @@ def _features_ordination(pl: _planner.PipelinePlan, xprep, rows_fn,
 
 def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
                   n_perms: int, n_groups: int, seed: int, perms,
-                  index_perms, draw_budget, *, d: int):
-    """The fused and fused-kernel bridges: s_W from the streaming sweeps,
-    then F and p as engine.run assembles them; the joint plan string is
-    authoritative (no engine.run runs). Each bridge is a span while
-    tracing (`bridge.fused` / `bridge.fused-kernel`, `_fused_attrs`)."""
+                  index_perms, draw_budget, *, d: int, mesh=None):
+    """The fused and fused-kernel bridges: s_W from the streaming sweeps
+    (over `mesh`, the sharded fused-kernel sweep), then F and p as
+    engine.run assembles them; the joint plan string is authoritative (no
+    engine.run runs). Each bridge is a span while tracing (`bridge.fused`
+    / `bridge.fused-kernel`, `_fused_attrs`)."""
     n = int(xprep.shape[0])
     n_total = n_perms + 1
     inv_gs = permutations.inv_group_sizes(grouping, n_groups)
@@ -424,15 +474,24 @@ def _fused_bridge(pl: _planner.PipelinePlan, xprep, rows_fn, grouping,
         fspec = _registry.get_fused(pl.fused_impl)
         with _obs.span("bridge.fused-kernel", _fused_attrs(
                 pl, n, d, n_groups, n_total, fspec=fspec, backend=backend)):
-            s_w, s_t, stats = _streaming.fused_kernel_sw(
-                xprep, rows_fn, grouping, inv_gs, n_total, impl=fspec.kind,
-                kernel_metric=fspec.kernel_metric, row_block=pl.row_block,
-                chunk=pl.sw.chunk, tuning=pl.fused_tuning, seed=seed,
-                perms=perms, index_perms=index_perms,
-                draw_budget=_draw_budget(pl, draw_budget))
+            if mesh is not None:
+                s_w, s_t, stats = _streaming.fused_sw_sharded(
+                    mesh, xprep, rows_fn, grouping, inv_gs, n_total,
+                    impl=fspec.kind, kernel_metric=fspec.kernel_metric,
+                    row_block=pl.row_block, chunk=pl.sw.chunk,
+                    tuning=pl.fused_tuning, seed=seed, perms=perms,
+                    draw_budget=_draw_budget(pl, draw_budget))
+            else:
+                s_w, s_t, stats = _streaming.fused_kernel_sw(
+                    xprep, rows_fn, grouping, inv_gs, n_total,
+                    impl=fspec.kind, kernel_metric=fspec.kernel_metric,
+                    row_block=pl.row_block, chunk=pl.sw.chunk,
+                    tuning=pl.fused_tuning, seed=seed, perms=perms,
+                    index_perms=index_perms,
+                    draw_budget=_draw_budget(pl, draw_budget))
             _obs.maybe_block(s_w)
         _obs.record_device_memory()
-        ran = _kernel_ran(stats)
+        ran = _kernel_ran(stats, mesh is not None)
     return _sweep_result(
         s_w, s_t, n, n_groups, n_perms,
         method=f"pipeline[{pl.dist_impl}->{pl.materialize}->{pl.sw.impl}]",
@@ -451,14 +510,15 @@ def _sweep_result(s_w, s_t, n: int, n_groups: int, n_perms: int, *,
         n_groups=n_groups, n_perms=n_perms, method=method, plan=plan)
 
 
-def _kernel_ran(stats) -> str:
+def _kernel_ran(stats, mesh: bool = False) -> str:
     """How a fused-kernel sweep ran, for the plan record: its chunks and
-    buffers, and on the card the kernel's slots and the draws'
-    sub-blocks (rows and modelled transients)."""
-    ran = (f"{stats.impl} rows={stats.row_block} chunks={stats.n_chunks} "
+    buffers ('+mesh' when sharded), and on the card the kernel's slots and
+    the draws' sub-blocks (rows and modelled transients)."""
+    ran = (f"{stats.impl}{'+mesh' if mesh else ''} rows={stats.row_block} "
+           f"chunks={stats.n_chunks} "
            f"slab={stats.peak_slab_bytes/2**20:.2f}MiB "
            f"labels={stats.peak_label_bytes/2**20:.2f}MiB")
-    if stats.impl == "cuda":
+    if stats.impl == "cuda" and not mesh:
         ran += (f" slots={stats.slots} draw={stats.draw_rows}rows/"
                 f"{stats.peak_draw_bytes/2**20:.2f}MiB")
     return ran
@@ -850,15 +910,23 @@ def pipeline_many(xs, groupings, *, n_groups: int,
                  feature-streamed slabs on the fused-kernel bridge
                  (nothing (n, n) added).
 
+    mesh:        a DeviceMesh with a 'data' axis shards the STUDY axis of
+                 the fused-kernel bridge (materialize 'auto' picks it; any
+                 other raises ValueError): every rank passes the same
+                 batch, runs its block of studies (engine.api.
+                 put_study_sharded; S wrap-padded to a multiple of 'data'),
+                 each exactly as its serial run, and returns the whole
+                 batch, all-gathered. The plan ends [studies@data[k]
+                 (+padN)].
+
     The studies run one after another. A 'cuda' plan gives each study the
     whole label budget (the reference splits it S ways because its vmap
     holds every study live); a 'cpu' plan keeps the reference's 1/S.
-    mesh= (study-axis sharding) raises NotImplementedError naming its
-    slice.
     """
-    if mesh is not None:
-        raise _later("mesh= (study-axis sharding)", "multi-device")
-    dev = hw.resolve_device(device)
+    if mesh is not None and materialize not in ("auto", "fused-kernel"):
+        raise ValueError("mesh execution of pipeline_many is fused-kernel "
+                         "only; use materialize='auto'/'fused-kernel'")
+    dev = engine.api._many_device(mesh, device)
     xs = torch.as_tensor(xs).to(dev, torch.float32)
     if xs.dim() != 3:
         raise ValueError(f"stacked features must be (S, n, d); got shape "
@@ -873,7 +941,8 @@ def pipeline_many(xs, groupings, *, n_groups: int,
     matrix_budget = (_planner.DEFAULT_MATRIX_BUDGET_BYTES
                      if matrix_budget_bytes is None else matrix_budget_bytes)
     if materialize == "auto":
-        materialize = ("fused-kernel" if stack_bytes > matrix_budget
+        materialize = ("fused-kernel"
+                       if mesh is not None or stack_bytes > matrix_budget
                        else "dense")
     if materialize not in ("dense", "fused-kernel"):
         raise ValueError(
@@ -912,8 +981,9 @@ def pipeline_many(xs, groupings, *, n_groups: int,
         groupings, covariates, strata, weights, n_groups=n_groups,
         s_count=s_count, sizes=[n] * s_count, device=dev)
         if designed else None)
+    studies, where = engine.api.put_study_sharded(mesh, s_count)
     results = []
-    for s in range(s_count):
+    for s in studies:
         kw = dict(metric=metric, n_perms=n_perms,
                   seed=permutations.study_seed(seed, s),
                   index_perms=None if index_perms is None else index_perms[s],
@@ -935,15 +1005,17 @@ def pipeline_many(xs, groupings, *, n_groups: int,
                     "slab_budget_bytes", "dist_tuning")}))
     _obs.metrics.inc("engine.studies", s_count)
     _obs.record_device_memory()
-    return _stack_results(results, n_objects=n, n_groups=n_groups,
-                          n_perms=n_perms)
+    local = _stack_results(results, n_objects=n, n_groups=n_groups,
+                           n_perms=n_perms)
+    return engine.api.gather_studies(
+        mesh, local, s_count,
+        f"{results[0].plan} studies={s_count} [{where}]")
 
 
 def _stack_results(results, *, n_objects: int, n_groups: int,
                    n_perms: int) -> engine.PermanovaManyResult:
     """Stack per-study PermanovaResults (one plan) into the many-study
-    result; each study's plan record is the same but its chunks, so the
-    first is kept with the study count."""
+    result (its plan is the caller's)."""
     def stack(get):
         return torch.stack([get(r) for r in results])
     terms = ordn = None
@@ -966,5 +1038,4 @@ def _stack_results(results, *, n_objects: int, n_groups: int,
         f_stat=stack(lambda r: r.f_stat), p_value=stack(lambda r: r.p_value),
         s_t=stack(lambda r: r.s_t), s_w=stack(lambda r: r.s_w),
         f_perms=stack(lambda r: r.f_perms), n_objects=n_objects,
-        n_groups=n_groups, n_perms=n_perms, terms=terms, ordination=ordn,
-        plan=f"{results[0].plan} studies={len(results)} [in turn]")
+        n_groups=n_groups, n_perms=n_perms, terms=terms, ordination=ordn)

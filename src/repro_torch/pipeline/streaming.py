@@ -35,14 +35,18 @@ lives in a slab cache (data.slabcache): `ooc_mat2_row_blocks` plays
 `mat2_row_blocks`' part, assembling each mat2 row slab from (slab, slab)
 distance tiles of slabs the prefetcher streams in, and the same `_sweep`
 / `_sweep_cols` consume it, so the statistic equals the in-memory fused
-bridge's at row_block == slab_rows bit for bit. (Sharded sweeps come with
-a later slice.)
+bridge's at row_block == slab_rows bit for bit.
+
+Over a DeviceMesh (`fused_sw_sharded`) 'model' shards the feature rows and
+the other axes the permutation windows; each rank sweeps its row slab and
+the ranks' partials are all-gathered and summed in rank order.
 
 Telemetry (obs), at the reference's sites: while tracing, each stream
 block is a `stream.mat2_block` span, each row slab of the fused bridge a
 `fused.row_slab`, of the out-of-core sweep an `ooc.row_slab` (its column
 slabs' fetch waits and tiles and its chunks), each megakernel launch a
-`fusedk.chunk`; each waits for its device work. With metrics on:
+`fusedk.chunk`, each permutation window of the sharded sweep a
+`fusedk.window`; each waits for its device work. With metrics on:
 `pipeline.mat2_bytes_built`, `fused.row_slabs` / `fused.chunk_steps`
 (the fused bridge, in memory or out of core) and `engine.perm_chunks`
 (the fused-kernel sweeps, either kind).
@@ -93,15 +97,18 @@ def gower_center(mat2: torch.Tensor,
     return -0.5 * (mat2 - rm - cm + total / (n * n))
 
 
-def mat2_row_blocks(xprep: torch.Tensor, rows_fn: Callable, *, block: int):
-    """Yield (lo, mat2_rows) covering rows [0, n) in order: each slab is
-    rows_fn's distances squared, with the exact global diagonal
-    (global_row == col) zeroed. The last slab holds the n - lo remaining
-    rows: the kernels mask ragged shapes, so no row is padded."""
+def mat2_row_blocks(xprep: torch.Tensor, rows_fn: Callable, *, block: int,
+                    rows: Optional[tuple] = None):
+    """Yield (lo, mat2_rows) covering rows [0, n) (or the range `rows`,
+    (r0, r1)) in order: each slab is rows_fn's distances squared, with
+    the exact global diagonal (global_row == col) zeroed. The last slab
+    holds the remaining rows: the kernels mask ragged shapes, so no row
+    is padded."""
     n = int(xprep.shape[0])
     block = int(max(1, min(block, n)))
-    for lo in range(0, n, block):
-        slab = rows_fn(xprep[lo:lo + block], xprep)
+    r0, r1 = (0, n) if rows is None else rows
+    for lo in range(r0, r1, block):
+        slab = rows_fn(xprep[lo:min(lo + block, r1)], xprep)
         slab = slab * slab
         torch.diagonal(slab, offset=lo).zero_()
         yield lo, slab
@@ -575,16 +582,18 @@ def _fp8_scale_kwargs(xprep: torch.Tensor, metric: str,
 
 
 def _sweep_tuning(xprep: torch.Tensor, metric: str,
-                  tuning: Optional[dict]) -> dict:
+                  tuning: Optional[dict], x_rows=None) -> dict:
     """A megakernel sweep's keyword arguments for every launch: the
-    precision knobs, the fp8 scale (_fp8_scale_kwargs) and the table
-    quantized ONCE for the sweep (`quantized`), so neither the
-    quantization's time nor its transients are paid a launch."""
+    precision knobs, the fp8 scale (_fp8_scale_kwargs) and the table (and
+    the row slab `x_rows`, default the table) quantized ONCE for the
+    sweep (`quantized`), so neither the quantization's time nor its
+    transients are paid a launch."""
     tuning = dict(tuning or {})
     tuning.update(_fp8_scale_kwargs(xprep, metric, tuning))
     mode, scale = _fref.resolve_precision(
         xprep, metric, **{k: tuning.get(k) for k in _PRECISION_KEYS})
-    tuning["quantized"] = _fops.quantize_slabs(xprep, xprep, mode, scale)
+    tuning["quantized"] = _fops.quantize_slabs(
+        xprep if x_rows is None else x_rows, xprep, mode, scale)
     return tuning
 
 
@@ -776,3 +785,117 @@ def fused_kernel_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
             peak_label_bytes=st.peak_label_bytes)
     raise ValueError(f"unknown fused-kernel impl {impl!r}; "
                      "expected 'cuda' or 'torch'")
+
+
+# ---------------------------------------------------------------------------
+# Multi-device fused sharding: row slabs over 'model', perms over the rest.
+# ---------------------------------------------------------------------------
+
+def fused_sw_sharded(mesh, xprep: torch.Tensor, rows_fn: Callable,
+                     grouping: torch.Tensor, inv_gs: torch.Tensor,
+                     n_total: int, *, impl: str, kernel_metric: str,
+                     row_block: int, chunk: int,
+                     tuning: Optional[dict] = None, seed: int = 0,
+                     perms: Optional[torch.Tensor] = None,
+                     draw_budget: Optional[float] = None):
+    """The fused-kernel sweep over a (..., 'data', 'model') DeviceMesh,
+    every rank returning the whole result.
+
+    'model' shards the feature-table ROWS: each rank sweeps only its row
+    slab, ceil(n / model_ways) rows up to a multiple of row_block (the
+    last slab ends at n); the other axes shard the PERMUTATIONS by window:
+    window w holds global indices [w, w + perm_ways * chunk_local), the
+    rank's chunk of it [w + b * chunk_local, ...) at its permutation
+    block b. impl 'cuda' launches kernels/fused_sw's fused_sw_rows on the
+    slab with its row offset (the whole table, visited j >= i, when
+    model_ways is 1; its plain version on CPU tensors); 'torch' runs the
+    slab's row blocks through the one-hot contraction. Each window is one
+    `fusedk.window` span; its partials (and the slabs' D2 totals) are
+    all-gathered and each permutation's s_W summed over the slabs in
+    float64, in row order. A permutation's s_W from fused_sw_rows is the
+    same bits in any chunk, so with model_ways 1 the result is the
+    single-host sweep's bit for bit.
+
+    Returns (s_w (n_total,) float64, s_t 0-d float64, FusedKernelStats).
+    """
+    from repro_torch.core import distributed as _distrib
+    lay = _distrib.layout(mesh)
+    n = int(xprep.shape[0])
+    _check_perms(perms, n_total, n)
+    rows = -(-n // lay.model_ways)
+    block = int(max(1, min(row_block, rows)))
+    rows = -(-rows // block) * block
+    r0 = min(n, lay.model_index[lay.rank] * rows)
+    r1 = min(n, r0 + rows)
+    chunk_local = int(max(1, min(chunk, -(-n_total // lay.perm_ways))))
+    window = chunk_local * lay.perm_ways
+    pidx = lay.perm_index[lay.rank]
+    xprep = xprep.to(torch.float32).contiguous()
+    whole = r0 == 0 and r1 == n
+    x_rows = xprep if whole else xprep[r0:r1]
+    workspace = None
+    if impl == "cuda":
+        tuning = _sweep_tuning(xprep, kernel_metric, tuning, x_rows)
+        if xprep.device.type == "cuda" and r1 > r0:
+            workspace = _fops.alloc_workspace(r1 - r0, n, chunk_local,
+                                              xprep.device, whole)
+    elif impl == "torch":
+        xprep = _precision_roundtrip(xprep, kernel_metric, tuning)
+    else:
+        raise ValueError(f"unknown fused-kernel impl {impl!r}; "
+                         "expected 'cuda' or 'torch'")
+    src = dict(seed=seed, perms=perms, strata=None, index_perms=None,
+               draw_budget=draw_budget)
+    out = torch.empty((n_total,), dtype=torch.float64, device=xprep.device)
+    total = None
+    n_windows = 0
+    for wlo in range(0, n_total, window):
+        with _slab_span("fusedk.window", wlo):
+            lo = min(n_total, wlo + pidx * chunk_local)
+            hi = min(n_total, lo + chunk_local)
+            # this rank's partials (zero past n_total) and, in the last
+            # slot, its slab's D2 total
+            mine = torch.zeros((chunk_local + 1,), dtype=torch.float64,
+                               device=xprep.device)
+            if hi > lo and r1 > r0:
+                g = _labels(grouping, lo, hi, **src)
+                if impl == "cuda":
+                    sw, tot = _fops.fused_sw_rows(
+                        x_rows, xprep,
+                        g if whole else g[:, r0:r1].contiguous(), g, inv_gs,
+                        r0, metric=kernel_metric, workspace=workspace,
+                        row_sums=False, **tuning)
+                    mine[:hi - lo] = sw
+                    mine[-1] = tot
+                else:
+                    for lo_r, slab in mat2_row_blocks(
+                            xprep, rows_fn, block=block, rows=(r0, r1)):
+                        mine[:hi - lo] += _fused_sw_step(slab, g, inv_gs,
+                                                         lo_r)
+                        mine[-1] += slab.sum(dtype=torch.float64)
+                del g
+            parts = _distrib.all_gather(mine, lay)
+            for b in range(lay.perm_ways):
+                blo = wlo + b * chunk_local
+                bhi = min(n_total, blo + chunk_local)
+                if bhi <= blo:
+                    continue
+                acc = parts[lay.first_rank(perm=b, model=0)].clone()
+                for m in range(1, lay.model_ways):
+                    acc += parts[lay.first_rank(perm=b, model=m)]
+                out[blo:bhi] = acc[:bhi - blo]
+                if total is None:
+                    total = acc[-1]
+            _obs.maybe_block(out)
+        n_windows += 1
+    stats = FusedKernelStats(
+        impl=impl, n_total=n_total, chunk=chunk_local,
+        n_chunks=n_windows * lay.perm_ways,
+        row_block=_fops.TILE if impl == "cuda" else block,
+        peak_slab_bytes=(_fops.workspace_bytes(max(1, r1 - r0), n,
+                                               chunk_local, whole)
+                         if impl == "cuda" else 4 * block * n),
+        peak_label_bytes=4 * chunk_local * n * (
+            1 if impl == "cuda" else int(inv_gs.shape[0]) + 1))
+    _obs.metrics.inc("engine.perm_chunks", stats.n_chunks)
+    return out, total / 2.0 / n, stats

@@ -376,8 +376,9 @@ class PermanovaServer:
                  latency_window: int = 512,
                  draws: Optional[Callable] = None):
         if mesh is not None:
-            raise _later("mesh= (study-axis sharding of a batch)",
-                         "multi-device")
+            raise _later("mesh= (study-axis sharding of a batch: a rank-0 "
+                         "admission loop with follower ranks)",
+                         "multi-device serving")
         self.device = hw.resolve_device(device)
         self.backend = self.device.type
         self.workers = int(workers)

@@ -805,8 +805,12 @@ def test_pipeline_design_rejects_what_it_cannot_run():
     xt = torch.from_numpy(x)
     des = design.build(grouping=labels, covariates=cov, n_groups=G,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(ValueError, match="plain single-factor") as port:
         pipeline.pipeline(xt, des, n_perms=3, mesh=object(), device="cpu")
+    with pytest.raises(ValueError) as ref:      # the reference's refusal
+        jpipe.pipeline(jnp.asarray(x), jnp.asarray(labels), n_perms=3,
+                       covariates=cov, mesh=object())
+    assert str(port.value) == str(ref.value)
     with pytest.raises(ValueError, match="not both"):
         pipeline.pipeline(xt, des, n_perms=3, strata=strata, device="cpu")
     with pytest.raises(ValueError, match="design is for"):

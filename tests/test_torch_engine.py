@@ -233,11 +233,12 @@ def test_run_seed_path_is_chunk_invariant():
     assert 0.0 < float(a.p_value) <= 1.0
 
 
-def test_run_designs_not_ported_yet():
+def test_run_designs_not_ported_yet(tmp_path):
     """Designs came with the designs slice: a strata design now runs and
     reports its term; the many-study design runs came with the
-    many-study slice (engine.permanova_many, its study-axis sharding still
-    to come with the multi-device slice); a custom sw_fn with a design
+    many-study slice (engine.permanova_many), its study-axis sharding
+    with the multi-device slice (here a one-rank world's mesh: the
+    unsharded batch bit for bit); a custom sw_fn with a design
     raises ValueError as in the reference."""
     dm, grouping, _, _, _ = _study("null48")
     res = engine.run(dm, grouping, strata=np.zeros(48, np.int32), n_perms=9,
@@ -249,10 +250,16 @@ def test_run_designs_not_ported_yet():
                                  strata=np.zeros((2, 48), np.int32),
                                  n_perms=9, device="cpu")
     assert len(many) == 2 and many.terms is not None
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        engine.permanova_many(np.stack([dm]), np.stack([grouping]),
-                              n_groups=int(grouping.max()) + 1, mesh=object(),
-                              device="cpu")
+    from repro_torch.launch import mesh as pmesh
+    with pmesh.world_of_one("cpu", tmp_path):
+        mesh = pmesh.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        one = engine.permanova_many(np.stack([dm]), np.stack([grouping]),
+                                    n_groups=int(grouping.max()) + 1,
+                                    n_perms=9, mesh=mesh, device="cpu")
+    assert torch.equal(one.f_perms, engine.permanova_many(
+        np.stack([dm]), np.stack([grouping]),
+        n_groups=int(grouping.max()) + 1, n_perms=9,
+        device="cpu").f_perms)
     with pytest.raises(ValueError, match="sw_fn"):
         engine.run(dm, grouping, strata=np.zeros(48, np.int32),
                    sw_fn=lambda *a: None, device="cpu")

@@ -462,11 +462,18 @@ def test_budget_split_cuda_whole_cpu_a_share():
     assert res.plan.replace("[in turn]", "[vmap]") == ref.plan
 
 
-def test_many_rejects_what_it_cannot_run():
+def test_many_rejects_what_it_cannot_run(tmp_path):
+    from repro_torch.launch import mesh as pmesh
     dms, gs, xs = _ragged()
     kw = dict(n_groups=G, n_perms=9, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        engine.permanova_many(dms, gs, mesh=object(), **kw)
+    # study-axis sharding runs since the multi-device slice (worlds of
+    # several ranks: tests/test_torch_mesh.py); a one-rank world's mesh
+    # runs the ragged batch as it is
+    with pmesh.world_of_one("cpu", tmp_path):
+        mesh = pmesh.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        assert torch.equal(
+            engine.permanova_many(dms, gs, mesh=mesh, **kw).f_perms,
+            engine.permanova_many(dms, gs, **kw).f_perms)
     # ordination runs since the ordination slice: each ragged study's
     # axes, zero past its n_s
     assert engine.permanova_many(dms, gs, ordination=2, **kw) \
@@ -484,8 +491,9 @@ def test_many_rejects_what_it_cannot_run():
     with pytest.raises(ValueError, match="different design structures"):
         engine.permanova_many(dms, gs, covariates=cov, **kw)
     _, gs2, xs2 = _stacked()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        pipeline.pipeline_many(xs2, gs2, mesh=object(), **kw)
+    with pytest.raises(ValueError, match="fused-kernel only"):
+        pipeline.pipeline_many(xs2, gs2, mesh=object(), materialize="dense",
+                               **kw)
     with pytest.raises(ValueError, match="stream/fused are single-study"):
         pipeline.pipeline_many(xs2, gs2, materialize="stream", **kw)
     with pytest.raises(ValueError, match=r"\(S, n, d\)"):

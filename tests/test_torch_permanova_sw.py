@@ -130,7 +130,7 @@ def test_cpu_calls_launch_nothing():
         ops.permanova_sw(torch.from_numpy(mat2), torch.from_numpy(gperms),
                          torch.from_numpy(inv_gs), variant=v)
     assert ops.LAUNCHES == before
-    assert set(ops.LAUNCHES) == set(ops.VARIANTS)
+    assert set(ops.LAUNCHES) == set(ops.VARIANTS) | {"brute_rows"}
 
 
 def _operands():
@@ -269,10 +269,12 @@ def test_source_names_the_kernels_it_replaces():
     brute = src[src.index("// brute —"):src.index("// permblock —")]
     for needle in ("instruction rate: an integer compare", "INT32 pipe",
                    "if (g == gc[k].x) acc[r][k] += m.x;",
-                   "const bool ok = i < n && j < n && j > i;",
+                   "const bool ok = i < row_end && j < n && j > i;",
                    "row_weight(gr[r][k], w, n_groups)"):
         assert needle in brute, needle
     assert "wgmma" not in brute.split("// ----")[-1]
+    # the row-slab entry refuses an offset off the 64-row band
+    assert "row_offset % kBruteRows != 0" in src
 
 
 def test_brute_band_tile_and_partials_from_the_source():

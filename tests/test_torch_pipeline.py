@@ -7,7 +7,9 @@ streaming mat2 build and Gower marginals; engine.run(squared=, s_t=);
 permanova() on features; the CLI; and the options that wait for later
 slices."""
 
+import contextlib
 import functools
+import re
 import sys
 
 import numpy as np
@@ -757,6 +759,7 @@ def test_not_ported_options_raise(case, tmp_path, monkeypatch):
     x, grouping, _, _, _ = _study()
     x = torch.from_numpy(x)
     kw = {}
+    stack = contextlib.ExitStack()      # the mesh case's one-rank world
     exc, match = NotImplementedError, "slice"
     if case == "feat_bf16":
         # the precision knobs run on the fused-kernel bridge since the
@@ -770,7 +773,14 @@ def test_not_ported_options_raise(case, tmp_path, monkeypatch):
         kw["ordination"] = 2
         exc = None
     elif case == "mesh":
-        kw["mesh"] = object()
+        # ported since the multi-device slice: a one-rank world's mesh runs
+        # the sharded fused-kernel sweep (worlds of several ranks:
+        # tests/test_torch_mesh.py)
+        from repro_torch.launch import mesh as pmesh
+        stack.enter_context(pmesh.world_of_one("cpu", tmp_path))
+        kw["mesh"] = pmesh.make_mesh((1, 1), ("data", "model"),
+                                     device_type="cpu")
+        exc = None
     elif case == "autotune":
         # ported since the autotune slice: it runs, and its cache is a
         # file of this test's own
@@ -795,17 +805,24 @@ def test_not_ported_options_raise(case, tmp_path, monkeypatch):
         x = port_slabcache.SlabCache.open(_slab_cache(tmp_path).path)
         kw["device_budget_bytes"] = 1024
         exc = None
-    # designs run since the designs slice; a design with a mesh still
-    # raises (the multi-device slice), as the reference refuses it too
+    # designs run since the designs slice; a design with a mesh raises
+    # the reference's ValueError (shard design studies with pipeline_many)
     elif case == "covariates":
         kw.update(covariates={"age": np.zeros(len(grouping))}, mesh=object())
     elif case == "strata":
         kw.update(strata=np.zeros(len(grouping), np.int32), mesh=object())
     elif case == "weights":
         kw.update(weights=np.ones(len(grouping)), mesh=object())
+    if case in ("covariates", "strata", "weights"):
+        exc, match = ValueError, "plain single-factor"
+        with pytest.raises(ValueError) as ref:
+            jpipe.pipeline(jnp.asarray(x.numpy()), jnp.asarray(grouping),
+                           n_perms=9, **kw)
+        match = re.escape(str(ref.value))
     if exc is None:
-        res = pipeline.pipeline(x, torch.from_numpy(grouping), n_perms=9,
-                                device="cpu", **kw)
+        with stack:
+            res = pipeline.pipeline(x, torch.from_numpy(grouping),
+                                    n_perms=9, device="cpu", **kw)
         ran = {"ordination": lambda: (res.ordination.k == 2
                                       and res.ordination.method == "eigh"),
                "autotune": lambda: "empirical autotune winner" in res.plan,
@@ -813,7 +830,8 @@ def test_not_ported_options_raise(case, tmp_path, monkeypatch):
                "path": lambda: res.plan.endswith(
                    "| features=slab-cache(residency=hbm)"),
                "slab-cache": lambda: (res.method
-                                      == "pipeline[ooc-fused-kernel]")}
+                                      == "pipeline[ooc-fused-kernel]"),
+               "mesh": lambda: ":: cuda+mesh " in res.plan}
         assert ran[case](), res.plan
         return
     with pytest.raises(exc, match=match):
