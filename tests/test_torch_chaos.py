@@ -10,10 +10,17 @@ approximate reconciliation. All chaos is seeded and applied against a
 virtual clock, so any failure replays exactly.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+# Plans follow the planner's rules, never a winner persisted in the
+# host's default autotune cache (the reference's conftest turns its
+# own off); tests of the cache point it at files of their own.
+os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE", "off")
 
 from repro_torch.core.distance import distance_matrix  # noqa: E402
 from repro_torch.engine import planner  # noqa: E402

@@ -5,12 +5,18 @@ int32, uint8 and bf16 leaves bit for bit, with the reference's key
 strings (sorted dict keys, list indices)."""
 
 import json
+import os
 import pathlib
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+# Plans follow the planner's rules, never a winner persisted in the
+# host's default autotune cache (the reference's conftest turns its
+# own off); tests of the cache point it at files of their own.
+os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE", "off")
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -11,11 +11,17 @@ reference's kernel."""
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+# Plans follow the planner's rules, never a winner persisted in the
+# host's default autotune cache (the reference's conftest turns its
+# own off); tests of the cache point it at files of their own.
+os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE", "off")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

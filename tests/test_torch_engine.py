@@ -3,10 +3,17 @@ reference's own label draws (F at rtol=1e-4, p exactly equal) in batch and
 streaming mode, the planner's rules and plan strings, the registry, the
 scheduler's chunk invariance, the CLI, and the no-card behaviour."""
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+# Plans follow the planner's rules, never a winner persisted in the
+# host's default autotune cache (the reference's conftest turns its
+# own off); tests of the cache point it at files of their own.
+os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE", "off")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -4,10 +4,17 @@ reference draws fed through v0= / probe=, trace == s_T, every bridge,
 designs, many-study batches (stacked, study views, ragged pad rows exactly
 zero), ordination off by default, and --pcoa on the CLI."""
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+# Plans follow the planner's rules, never a winner persisted in the
+# host's default autotune cache (the reference's conftest turns its
+# own off); tests of the cache point it at files of their own.
+os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE", "off")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -5,10 +5,17 @@ scaffold). The blocks are the port's s_W on its own label draws, so
 recovery, rescaling and straggler re-dispatch must reproduce the clean
 run bit for bit."""
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+# Plans follow the planner's rules, never a winner persisted in the
+# host's default autotune cache (the reference's conftest turns its
+# own off); tests of the cache point it at files of their own.
+os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE", "off")
 
 from repro_torch.core import fstat, permutations  # noqa: E402
 from repro_torch.runtime import (ElasticPermutationRunner,  # noqa: E402

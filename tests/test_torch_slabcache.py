@@ -15,6 +15,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# Plans follow the planner's rules, never a winner persisted in the
+# host's default autotune cache (the reference's conftest turns its
+# own off); tests of the cache point it at files of their own.
+os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE", "off")
+
 from repro.data import microbiome as jmicro  # noqa: E402
 from repro.data import slabcache as jslab  # noqa: E402
 from repro_torch.data import microbiome  # noqa: E402

@@ -14,6 +14,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# Plans follow the planner's rules, never a winner persisted in the
+# host's default autotune cache (the reference's conftest turns its
+# own off); tests of the cache point it at files of their own.
+os.environ.setdefault("REPRO_TORCH_AUTOTUNE_CACHE", "off")
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.stream import ops as jops  # noqa: E402
