@@ -4679,6 +4679,7 @@ ROWS_SHARDS = 2                 # the row-sharded meshes' 'model' ways
 ROWS_PLAIN_PERMS = 256          # the second slab against its plain version
 ROWS_RTOL = 1e-5                # band partials against the plain version
 GLOO_TIMEOUT = 420
+MANY_PEAK_SLACK_MIB = 64        # a sharded batch's peak over one study's
 RANK_SCRIPT = r'''
 import json, os, sys, time
 import numpy as np
@@ -4754,19 +4755,31 @@ for shape in ((2, 1), (1, 2)):
         repeat_bits=bool(np.array_equal(runs[0], runs[-1])))
     arrays[f"pipe_{tag}"] = runs[0]
 mesh = M.make_mesh((2, 1), ("data", "model"), device_type="cuda")
+del xt
 studies = [synthetic_study(n, n_feat, n_groups, effect_size=1.0, seed=s)
            for s in range(s_count)]
-dms = torch.stack([distance_matrix(torch.from_numpy(xs).to(dev),
-                                   "braycurtis") for xs, _ in studies])
+# the batch on the host, as a user passes it: a rank moves only its own
+# studies to the card
+dms = torch.from_numpy(np.stack([distance_matrix(
+    torch.from_numpy(xs).to(dev), "braycurtis").cpu().numpy()
+    for xs, _ in studies]))
 gs = torch.from_numpy(np.stack([gg for _, gg in studies]))
 del studies
+torch.cuda.empty_cache()
+base = torch.cuda.memory_allocated()
+torch.cuda.reset_peak_memory_stats()
+engine.run(dms[0], gs[0], n_groups=n_groups, n_perms=n_perms, seed=0,
+           device=dev).f_stat.item()
+one_peak = torch.cuda.max_memory_allocated() - base
+torch.cuda.empty_cache()
 torch.cuda.reset_peak_memory_stats()
 res, dt, launches = timed(lambda: engine.permanova_many(
     dms, gs, n_groups=n_groups, n_perms=n_perms, seed=0, mesh=mesh))
 record["many 2x1"] = dict(
     s=dt, launches=launches, plan=res.plan, F=res.f_stat.tolist(),
     p=res.p_value.tolist(),
-    peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    peak_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+    one_study_peak_mib=one_peak / 2 ** 20, d_mib=n * n * 4 / 2 ** 20)
 if rank == 0:
     serial = engine.permanova_many(dms, gs, n_groups=n_groups,
                                    n_perms=n_perms, seed=0, device=dev)
@@ -4914,9 +4927,11 @@ def phase_multi_device(dev, x_np, grouping, f_p_main):
     traffic), meshes (2, 1) and (1, 2): permanova_distributed and
     pipeline(mesh=) against (b) (bit for bit, but the fused kernel's row
     slabs at the reference's bar and the same bits on a second run), and
-    permanova_many over 3 EMP studies at 'data' = 2 (wrap-padded) equal to
-    the serial batch bit for bit; each rank's launches logged. Returns
-    the brute_rows entry of the kernels line."""
+    permanova_many over 3 EMP studies passed from the host at 'data' = 2
+    (wrap-padded) equal to the serial batch bit for bit, each rank's
+    peak no more than one study's engine.run (a rank moves only its own
+    studies, one at a time); each rank's launches logged. Returns the
+    brute_rows entry of the kernels line."""
     import tempfile
 
     import numpy as np
@@ -5032,6 +5047,19 @@ def phase_multi_device(dev, x_np, grouping, f_p_main):
           and many["plan"].endswith("[studies@data[2]+pad1]"),
           f"gloo permanova_many at data = 2 != the serial batch, or its "
           f"plan {many['plan']!r}")
+    for r in range(2):
+        # a rank moves its own studies one at a time: its peak is one
+        # study's run (engine.run on the same card), not its block's two
+        # matrices or the batch's three
+        m = recs[r]["many 2x1"]
+        check(m["peak_mib"] <= m["one_study_peak_mib"] + MANY_PEAK_SLACK_MIB,
+              f"gloo rank {r} permanova_many peak {m['peak_mib']:.1f} MiB "
+              f"over one study's {m['one_study_peak_mib']:.1f} MiB")
+        log(f"[smoke] multi gloo rank {r} permanova_many peak "
+            f"{m['peak_mib']:.1f} MiB = {m['peak_mib'] / m['d_mib']:.3f} D "
+            f"(one study's run {m['one_study_peak_mib']:.1f} MiB; the "
+            f"batch is {MANY_STUDIES} D = "
+            f"{MANY_STUDIES * m['d_mib']:.1f} MiB)")
     for r in range(2):
         check(recs[r]["dist 1x2"]["launches"].get("brute_rows", 0) > 0
               and recs[r]["many 2x1"]["launches"].get("brute", 0) > 0,

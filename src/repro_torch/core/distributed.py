@@ -2,7 +2,8 @@
 
 Twin of `repro/core/distributed.py`, on torch.distributed. Every rank runs
 the same call with the same arguments and returns the whole result
-(SPMD); `mesh=None` runs the same sweep on one host, without collectives.
+(SPMD); a world of one (launch.mesh.world_of_one) with a (1, 1) mesh runs
+the same sweep on one host.
 
   * 'data' (and 'pod' when present) shard the PERMUTATION range: each rank
     draws only its own global indices [lo, lo + per) from the counter-hash
@@ -26,7 +27,6 @@ from typing import List, NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch import hw
 from repro_torch.core import fstat, permutations
 from repro_torch.core import permanova as _permanova
 
@@ -74,10 +74,11 @@ class Layout(NamedTuple):
         raise ValueError(f"no rank at {where}")
 
 
+ONE_HOST = Layout(0, 1, 1, 1, (0,), (0,), (0,))   # one rank, no collective
+
+
 def layout(mesh) -> Layout:
-    """The Layout of `mesh` over the world (one rank for mesh=None)."""
-    if mesh is None:
-        return Layout(0, 1, 1, 1, (0,), (0,), (0,))
+    """The Layout of `mesh` over the world."""
     from repro_torch.launch import mesh as _mesh   # deferred: a leaf
     names = tuple(mesh.mesh_dim_names)
     shape = {a: _mesh.axis_size(mesh, a) for a in names}
@@ -109,6 +110,14 @@ def rows_per_shard(n: int, model_ways: int) -> int:
     bands (the last rank's slab ends at n and may be shorter or empty)."""
     rows = -(-n // model_ways)
     return -(-rows // BAND_ROWS) * BAND_ROWS
+
+
+def row_slab(n: int, model_ways: int, model_index: int) -> tuple:
+    """(r0, r1): the rows of mat2 the 'model' rank at `model_index` holds
+    (rows_per_shard each; empty past n)."""
+    rows = rows_per_shard(n, model_ways)
+    r0 = min(n, model_index * rows)
+    return r0, min(n, r0 + rows)
 
 
 def all_gather(t: torch.Tensor, lay: Layout) -> List[torch.Tensor]:
@@ -167,31 +176,27 @@ def sw_distributed(mesh, mat2: torch.Tensor, grouping: torch.Tensor,
         chunk = planner.plan(n, per, backend=mat2.device.type, impl=impl,
                              memory_budget_bytes=memory_budget_bytes).chunk
     chunk = int(max(1, min(chunk, per)))
-    rows = rows_per_shard(n, lay.model_ways)
-    r0 = min(n, lay.model_index[lay.rank] * rows)
-    r1 = min(n, r0 + rows)
-    slab = mat2[r0:r1]
-    partial_fn = registry.get_sharded(impl)
-    cols = []
-    for c0 in range(lo, lo + per, chunk):
-        labels = scheduler._labels(grouping, c0, min(c0 + chunk, lo + per),
-                                   seed=seed, perms=perms,
-                                   draw_budget=memory_budget_bytes)
-        if r1 > r0:
-            cols.append(partial_fn(slab, r0, labels, inv_gs))
-        else:   # a slab past n holds no rows, so no columns
-            cols.append(mat2.new_zeros((labels.shape[0], 0)))
-    width = int(cols[0].shape[1])
-    widths = [int(w) for w in all_gather(
-        torch.tensor([width], device=mat2.device), lay)]
+    # every slab's partial width, computed alike on every rank
+    widths = [registry.sharded_width(impl, r1 - r0) for r0, r1 in (
+        row_slab(n, lay.model_ways, m) for m in range(lay.model_ways))]
+    r0, r1 = row_slab(n, lay.model_ways, lay.model_index[lay.rank])
     mine = mat2.new_zeros((per, max(widths)))
-    mine[:, :width] = torch.cat(cols)
+    if r1 > r0:     # a slab past n holds no rows, so no columns
+        partial_fn = registry.get_sharded(impl)
+        slab = mat2[r0:r1]
+        cols = []
+        for c0 in range(lo, lo + per, chunk):
+            labels = scheduler._labels(
+                grouping, c0, min(c0 + chunk, lo + per), seed=seed,
+                perms=perms, draw_budget=memory_budget_bytes)
+            cols.append(partial_fn(slab, r0, labels, inv_gs))
+            del labels
+        mine[:, :widths[lay.model_index[lay.rank]]] = torch.cat(cols)
     parts = all_gather(mine, lay)
     out = []
     for b in range(lay.perm_ways):
-        full = torch.cat([parts[r][:, :widths[r]] for r in (
-            lay.first_rank(perm=b, model=m) for m in range(lay.model_ways))],
-            dim=1)
+        full = torch.cat([parts[lay.first_rank(perm=b, model=m)][
+            :, :widths[m]] for m in range(lay.model_ways)], dim=1)
         # chunk by chunk, each a fresh tensor: one launch's partials sum
         out += [blk.clone().sum(dim=1) for blk in full.split(chunk)]
     return torch.cat(out), chunk
@@ -202,15 +207,14 @@ def permanova_distributed(mesh, dm, grouping, *, n_perms: int = 999,
                           perms: Optional[torch.Tensor] = None,
                           n_groups: Optional[int] = None,
                           impl: str = "auto", chunk: Optional[int] = None,
-                          memory_budget_bytes: Optional[float] = None,
-                          device="cuda"):
+                          memory_budget_bytes: Optional[float] = None):
     """Distributed full PERMANOVA on a DeviceMesh (launch.mesh.make_mesh):
     core.permanova's test, up to the permutation count's padding, which
     only adds null draws (f_perms carries them).
 
     Every rank passes the same dm (n, n), grouping and arguments and gets
-    the whole result. The rank's device is the mesh's (mesh=None: one
-    host on `device`, 'cuda' by default, without collectives). Only plain
+    the whole result. The rank's device is the mesh's (one host: a world
+    of one, launch.mesh.world_of_one, with a (1, 1) mesh). Only plain
     single-factor designs run here; strata / covariate / weighted designs
     shard over the STUDY axis (engine.permanova_many(mesh=...)).
     impl: 'auto' (the engine planner) or a registry name; brute and tiled
@@ -220,8 +224,7 @@ def permanova_distributed(mesh, dm, grouping, *, n_perms: int = 999,
     """
     from repro_torch.core import design as _design
     from repro_torch.launch import mesh as _mesh
-    dev = (_mesh.mesh_device(mesh) if mesh is not None
-           else hw.resolve_device(device))
+    dev = _mesh.mesh_device(mesh)
     design = _design.Design.from_labels(grouping, n_groups=n_groups,
                                         device=dev)
     if not design.is_plain_labels:
@@ -252,5 +255,4 @@ def permanova_distributed(mesh, dm, grouping, *, n_perms: int = 999,
         plan=(f"{name} perms@{'x'.join(_perm_axes(mesh)) or '-'}"
               f"[{lay.perm_ways}] rows@model[{lay.model_ways}]"
               f"(rows={rows_per_shard(n, lay.model_ways)}) chunk={ch} "
-              f"on {dev.type}") if mesh is not None else
-        f"{name} single-host chunk={ch} on {dev.type}")
+              f"on {dev.type}"))

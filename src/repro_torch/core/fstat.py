@@ -365,14 +365,12 @@ def sw_cols_brute(mat2: torch.Tensor, vperms: torch.Tensor, *,
 
 
 def sw_cols_rows_partial(mat2_rows: torch.Tensor, row_offset: int,
-                         vperms: torch.Tensor, *, perm_block: int = 64
-                         ) -> torch.Tensor:
+                         vperms: torch.Tensor) -> torch.Tensor:
     """(P, K) row-slab partial of the per-column contraction: each
     permutation's basis (n, K) against the slab's rows, the rows' own
     basis rows weighting; the partials of disjoint slabs sum to the full
     (P, K). Each product as _rows_matmul takes it."""
     n_local = mat2_rows.shape[0]
-    del perm_block      # each permutation is contracted on its own
     return torch.stack([
         0.5 * (_rows_matmul(mat2_rows, v)
                * v[row_offset:row_offset + n_local]).sum(dim=0)

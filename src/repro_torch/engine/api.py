@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -407,19 +407,20 @@ class PermanovaManyResult:
 
 
 def _ragged_studies(dms, groupings, n_pad=None, device="cpu"):
-    """Check a ragged study list and move it to `device`. Nothing is
-    padded: each study keeps its own (n_s, n_s) f32 matrix and (n_s,)
+    """Check a ragged study list and move its labels to `device`. Nothing
+    is padded: each study keeps its own (n_s, n_s) matrix and (n_s,)
     int32 labels and runs on them alone, so a study's statistic is its
     unpadded run's by construction (the reference pads to one stack
-    because its vmap needs one shape). n is `n_pad` (a fixed bucket
-    width, at least the largest study) or the largest n_s: the batch's
-    recorded width and the width of explicit per-study draws. Returns
-    (dms, groupings, n_valid (S,) int32, n)."""
+    because its vmap needs one shape). The matrices stay where they are
+    given; a study's goes to the device when it runs (_study_matrix). n
+    is `n_pad` (a fixed bucket width, at least the largest study) or the
+    largest n_s: the batch's recorded width and the width of explicit
+    per-study draws. Returns (dms, groupings, n_valid (S,) int32, n)."""
     if len(dms) != len(groupings):
         raise ValueError(f"ragged input: {len(dms)} matrices vs "
                          f"{len(groupings)} groupings")
     dev = hw.resolve_device(device)
-    dms = [torch.as_tensor(d).to(dev, torch.float32) for d in dms]
+    dms = [torch.as_tensor(d) for d in dms]
     groupings = [torch.as_tensor(g).to(dev, torch.int32) for g in groupings]
     for i, (d, g) in enumerate(zip(dms, groupings)):
         m = int(d.shape[0])
@@ -436,6 +437,13 @@ def _ragged_studies(dms, groupings, n_pad=None, device="cpu"):
         n = int(n_pad)
     return (dms, groupings, torch.tensor(sizes, dtype=torch.int32,
                                          device=dev), n)
+
+
+def _study_matrix(dms, s: int, dev) -> torch.Tensor:
+    """Study s's (n_s, n_s) f32 matrix on `dev`, moved when the study
+    runs: a rank holds the matrices of its own studies only, one at a
+    time."""
+    return dms[s].to(dev, torch.float32)
 
 
 def _study_draws(perms, s: int, n_valid: int):
@@ -498,24 +506,35 @@ def study_axis_padding(mesh, s_count: int):
     return data_ways, s_pad, idx
 
 
-def put_study_sharded(mesh, s_count: int):
+class StudyBlock(NamedTuple):
+    """The studies a rank runs (put_study_sharded)."""
+    studies: list       # global study indices, a padded slot's its source
+    where: str          # where the batch runs, for the plan record
+    n_own: int          # the block's studies that are not padding
+
+
+def put_study_sharded(mesh, s_count: int) -> StudyBlock:
     """The studies this rank runs, and where the batch runs for the plan
     record. The (wrap-padded) study axis is split into data_ways
     contiguous blocks and a rank takes the block at its 'data' index (the
-    port's counterpart of the reference's device_put over 'data'; ranks
-    that differ only in other axes run the same block). A padded slot
-    replays its source study. Without a 'data' axis to shard: every
-    study, 'in turn'. Returns (global study indices, where)."""
+    port's counterpart of the reference's device_put over 'data': a rank
+    moves only its block's matrices to its device; ranks that differ
+    only in other axes run the same block). A padded slot replays its
+    source study. Without a 'data' axis to shard: every study, 'in
+    turn'."""
     data_ways, s_pad, idx = study_axis_padding(mesh, s_count)
     if data_ways <= 1:
-        return list(range(s_count)), "in turn"
+        return StudyBlock(list(range(s_count)), "in turn", s_count)
     from repro_torch.core import distributed as _distrib
     lay = _distrib.layout(mesh)
     slots = (idx.tolist() if idx is not None else list(range(s_count)))
     per = len(slots) // data_ways
     d = lay.data_index[lay.rank]
-    return (slots[d * per:(d + 1) * per],
-            f"studies@data[{data_ways}]" + (f"+pad{s_pad}" if s_pad else ""))
+    lo, hi = d * per, (d + 1) * per
+    return StudyBlock(
+        slots[lo:hi],
+        f"studies@data[{data_ways}]" + (f"+pad{s_pad}" if s_pad else ""),
+        max(0, min(hi, s_count) - lo))
 
 
 def _many_device(mesh, device) -> torch.device:
@@ -585,7 +604,9 @@ def _check_study_perms(perms, s_count, n_total, n, name):
 
 
 def _stacked(dms, groupings, dev):
-    dms = torch.as_tensor(dms).to(dev, torch.float32)
+    """Check a stacked batch and move its labels to `dev`; the matrices
+    stay where they are given (_study_matrix moves each as it runs)."""
+    dms = torch.as_tensor(dms)
     groupings = torch.as_tensor(groupings).to(dev, torch.int32)
     if dms.dim() != 3 or groupings.dim() != 2 \
             or tuple(dms.shape[:2]) != tuple(groupings.shape) \
@@ -669,20 +690,22 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
     n_total = n_perms + 1
     _check_study_perms(perms, s_count, n_total, n, "perms")
     budget = _study_budgets(dev.type, memory_budget_bytes, s_count)
-    studies, where = put_study_sharded(mesh, s_count)
+    block = put_study_sharded(mesh, s_count)
     plans = []
     for s in range(s_count):        # every study's plan, on every rank
         plans.append(_many_plan(dev.type, n, int(groupings[s].shape[0]),
                                 n_total, impl=impl, budget=budget,
                                 chunk=chunk, n_groups=n_groups, plans=plans))
     f_rows, s_ts, s_ws, p_vals = [], [], [], []
-    attrs = _studies_attrs(s_count, where)
+    attrs = _studies_attrs(len(block.studies), block.where)
     with _obs.span("engine.studies", attrs):
-        for s in studies:
+        for s in block.studies:
             nv = int(groupings[s].shape[0])
             pl = plans[s]
             fn = registry.get(pl.impl).bound(**pl.tuning)
-            mat2 = dms[s] * dms[s]
+            d = _study_matrix(dms, s, dev)
+            mat2 = d * d
+            del d
             inv_gs = permutations.inv_group_sizes(groupings[s], n_groups)
             s_w_all, stats = _sweep(
                 pl, mat2, groupings[s], inv_gs, n_total, fn, n_groups,
@@ -694,32 +717,28 @@ def permanova_many(dms, groupings, *, n_groups: int, n_perms: int = 999,
             s_ts.append(s_t)
             s_ws.append(s_w_all[0])
             p_vals.append(p_value_from_null(f_all))
-        for s, pl in enumerate(plans):
-            _add_study_traffic(attrs, pl, n if dev.type == "cpu"
+            del mat2    # freed before the next study's matrix moves
+        for s in block.studies:
+            _add_study_traffic(attrs, plans[s], n if dev.type == "cpu"
                                else int(groupings[s].shape[0]), n_total,
                                dev.type, n_groups)
         _obs.maybe_block(f_rows)
-    _count_studies(s_count)
+    _count_studies(block.n_own)
     f_perms = torch.stack(f_rows)
     local = PermanovaManyResult(
         f_stat=f_perms[:, 0], p_value=torch.stack(p_vals),
         s_t=torch.stack(s_ts), s_w=torch.stack(s_ws), f_perms=f_perms,
         n_objects=n, n_groups=n_groups, n_perms=n_perms, n_valid=n_valid,
-        ordination=_many_ordination(_pick(dms, studies), ordination, n))
+        ordination=_many_ordination(dms, block.studies, ordination, n, dev))
     return gather_studies(mesh, local, s_count, _many_plan_string(
-        plans, s_count, ragged, n_total, where))
-
-
-def _pick(dms, studies):
-    """The studies' matrices, stacked or a list as given."""
-    if isinstance(dms, (list, tuple)):
-        return [dms[s] for s in studies]
-    return dms if list(studies) == list(range(len(dms))) else dms[studies]
+        plans, s_count, ragged, n_total, block.where))
 
 
 def _studies_attrs(s_count: int, where: str = "in turn"):
     """The `engine.studies` span's attrs, filled study by study
-    (_add_study_traffic); None while tracing is off."""
+    (_add_study_traffic): s_count is the studies this rank runs (under a
+    mesh its block, a padded slot's replay included, since its traffic
+    is the rank's). None while tracing is off."""
     if not _obs.trace_enabled():
         return None
     return {"studies": s_count, "where": where, "predicted_bytes": 0.0}
@@ -740,18 +759,22 @@ def _add_study_traffic(attrs, pl, n: int, n_total: int, backend: str,
 
 
 def _count_studies(s_count: int) -> None:
-    """A finished batch: `engine.studies` and the card's peak memory."""
+    """A finished batch: `engine.studies` (the rank's studies that are
+    not padding, so the ranks of one 'data' column sum to S) and the
+    card's peak memory."""
     _obs.metrics.inc("engine.studies", s_count)
     _obs.record_device_memory()
 
 
-def _many_ordination(dms, ordination, n: int):
-    """Each study's PCoA (pipeline.ordination.pcoa_many) at width n, or
-    None without ordination=."""
+def _many_ordination(dms, studies, ordination, n: int, dev):
+    """The PCoA (pipeline.ordination.pcoa_many) at width n of each study
+    in `studies`, their matrices moved to `dev`, or None without
+    ordination=."""
     if ordination is None:
         return None
     from repro_torch.pipeline import ordination as _ord   # deferred: cycle
-    return _ord.pcoa_many(dms, int(ordination), n_pad=n)
+    return _ord.pcoa_many([_study_matrix(dms, s, dev) for s in studies],
+                          int(ordination), n_pad=n)
 
 
 def design_many_result(s_cols, designs, *, n_objects: int, n_groups: int,
@@ -832,7 +855,7 @@ def _permanova_many_design(dms, groupings, *, covariates, strata, weights,
     if ragged:
         dms, _, n_valid, n = _ragged_studies(dms, groupings, n_pad, dev)
     else:
-        dms = torch.as_tensor(dms).to(dev, torch.float32)
+        dms = torch.as_tensor(dms)
         n_valid, n = None, int(dms.shape[1])
     s_count = len(dms)
     designs = _build_study_designs(
@@ -842,37 +865,42 @@ def _permanova_many_design(dms, groupings, *, covariates, strata, weights,
     n_total = n_perms + 1
     _check_study_perms(index_perms, s_count, n_total, n, "index_perms")
     budget = _study_budgets(dev.type, memory_budget_bytes, s_count)
-    studies, where = put_study_sharded(mesh, s_count)
+    block = put_study_sharded(mesh, s_count)
     plans = []
     for d in designs:               # every study's plan, on every rank
         plans.append(_many_plan(dev.type, n, d.n, n_total, impl=impl,
                                 budget=budget, chunk=chunk, n_cols=k,
                                 plans=plans))
     s_cols = []
-    attrs = _studies_attrs(s_count, where)
+    attrs = _studies_attrs(len(block.studies), block.where)
     with _obs.span("engine.studies", attrs):
-        for s in studies:
+        for s in block.studies:
             d = designs[s]
             nv = d.n
             st = (d.strata if d.strata is not None
                   else torch.zeros((nv,), dtype=torch.int32, device=dev))
             pl = plans[s]
             cols_fn = registry.bound_cols(pl.impl, **pl.tuning)
+            m = _study_matrix(dms, s, dev)
+            mat2 = m * m
+            del m
             sc, stats = scheduler.sw_cols_streaming(
-                dms[s] * dms[s], d.basis, st, n_total, cols_fn,
+                mat2, d.basis, st, n_total, cols_fn,
                 chunk=pl.chunk, seed=permutations.study_seed(seed, s),
                 index_perms=_study_draws(index_perms, s, nv),
                 draw_budget=budget)
             s_cols.append(sc)
-        for d, pl in zip(designs, plans):
-            _add_study_traffic(attrs, pl, n if dev.type == "cpu" else d.n,
-                               n_total, dev.type, n_groups, n_cols=k)
+            del mat2    # freed before the next study's matrix moves
+        for s in block.studies:
+            _add_study_traffic(attrs, plans[s], n if dev.type == "cpu"
+                               else designs[s].n, n_total, dev.type,
+                               n_groups, n_cols=k)
         _obs.maybe_block(s_cols)
-    _count_studies(s_count)
+    _count_studies(block.n_own)
     local = design_many_result(
-        torch.stack(s_cols), [designs[s] for s in studies], n_objects=n,
-        n_groups=n_groups, n_perms=n_perms, n_valid=n_valid,
-        ordination=_many_ordination(_pick(dms, studies), ordination, n))
+        torch.stack(s_cols), [designs[s] for s in block.studies],
+        n_objects=n, n_groups=n_groups, n_perms=n_perms, n_valid=n_valid,
+        ordination=_many_ordination(dms, block.studies, ordination, n, dev))
     return gather_studies(mesh, local, s_count, (
-        f"{_many_plan_string(plans, s_count, ragged, n_total, where)} "
+        f"{_many_plan_string(plans, s_count, ragged, n_total, block.where)} "
         f"cols={k} ({designs[0].describe()})"))

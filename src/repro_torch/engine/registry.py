@@ -32,7 +32,7 @@ kernel's row-slab entry on CUDA tensors, `fstat.sw_rows_bands` on CPU
 ones), so whole-band slabs give the whole launch's bits; matmul's is one
 column, `fstat.sw_matmul_rows_partial` (a torch.matmul on the card: the
 reference takes this product outside any kernel too). `get_sharded` gives
-tiled brute's.
+tiled brute's, and `sharded_width` a slab's count of partial columns.
 """
 
 from __future__ import annotations
@@ -111,6 +111,16 @@ def get_sharded(name: str) -> Callable:
     impl = get(name)
     return impl.sharded if impl.sharded is not None \
         else get("brute").sharded
+
+
+def sharded_width(name: str, n_rows: int) -> int:
+    """The partial columns get_sharded(name) gives a slab of n_rows rows:
+    brute's 64-row bands, matmul's one column; none for an empty slab."""
+    if n_rows <= 0:
+        return 0
+    if get_sharded(name) is _brute_rows:
+        return -(-n_rows // fstat.BAND_ROWS)
+    return 1
 
 
 def _brute_rows(mat2_rows, row_offset, groupings, inv_group_sizes):

@@ -140,28 +140,6 @@ def launch_bytes(variant: str, n: int, n_perms: int, n_groups: int,
     raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
 
 
-def rows_launch_bytes(n: int, n_rows: int, row_offset: int, n_perms: int,
-                      elem_bytes: int = 4) -> int:
-    """Device bytes one launch of brute's row-slab entry moves: the
-    whole-matrix count (launch_bytes) restricted to the slab's bands, each
-    band from its diagonal tile: the slab's pairs j > i once per
-    128-permutation block, each visited tile's column labels with it, the
-    slab's row labels once, the (P, bands) partials written and the
-    wrapper's gather reads them (the sum over every slab's bands is the
-    caller's)."""
-    tile = PERMBLOCK_TILE
-    b0 = row_offset // tile
-    b1 = -(-(row_offset + n_rows) // tile)
-    nt = -(-n // tile)
-    pairs = sum(max(0, n - i - 1)
-                for i in range(row_offset, row_offset + n_rows))
-    cols = sum(min(tile, n - c * tile) for b in range(b0, b1)
-               for c in range(b, nt))
-    passes = -(-n_perms // 128)
-    reads = elem_bytes * passes * pairs + 4 * n_perms * (cols + n_rows)
-    return reads + 2 * 4 * n_perms * (b1 - b0)
-
-
 def _rounded_sqrt_w(inv_group_sizes: torch.Tensor, dtype) -> torch.Tensor:
     """sqrt(w) rounded to mat2's dtype, as f32 — what the matmul kernel
     multiplies by (the reference rounds it the same way)."""

@@ -927,7 +927,7 @@ def pipeline_many(xs, groupings, *, n_groups: int,
         raise ValueError("mesh execution of pipeline_many is fused-kernel "
                          "only; use materialize='auto'/'fused-kernel'")
     dev = engine.api._many_device(mesh, device)
-    xs = torch.as_tensor(xs).to(dev, torch.float32)
+    xs = torch.as_tensor(xs)        # each study moves to dev as it runs
     if xs.dim() != 3:
         raise ValueError(f"stacked features must be (S, n, d); got shape "
                          f"{tuple(xs.shape)}")
@@ -965,7 +965,8 @@ def pipeline_many(xs, groupings, *, n_groups: int,
                 "materialize='fused-kernel' (never builds the stack) or "
                 "split the studies", stacklevel=2)
         _, _, dense_fn = _registry.get(pl.dist_impl).bound(**pl.dist_tuning)
-        dms = torch.stack([dense_fn(xs[s]) for s in range(s_count)])
+        dms = torch.stack([dense_fn(xs[s].to(dev, torch.float32))
+                           for s in range(s_count)])
         res = engine.permanova_many(
             dms, groupings, n_groups=n_groups, n_perms=n_perms, seed=seed,
             perms=perms, index_perms=index_perms,
@@ -981,9 +982,10 @@ def pipeline_many(xs, groupings, *, n_groups: int,
         groupings, covariates, strata, weights, n_groups=n_groups,
         s_count=s_count, sizes=[n] * s_count, device=dev)
         if designed else None)
-    studies, where = engine.api.put_study_sharded(mesh, s_count)
+    block = engine.api.put_study_sharded(mesh, s_count)
     results = []
-    for s in studies:
+    for s in block.studies:
+        x = xs[s].to(dev, torch.float32)
         kw = dict(metric=metric, n_perms=n_perms,
                   seed=permutations.study_seed(seed, s),
                   index_perms=None if index_perms is None else index_perms[s],
@@ -996,20 +998,20 @@ def pipeline_many(xs, groupings, *, n_groups: int,
                   ordination=ordination)
         if designed:
             kw.update(perms=None, dev=dev)
-            results.append(_pipeline_design(xs[s], designs[s], **kw))
+            results.append(_pipeline_design(x, designs[s], **kw))
         else:
             results.append(pipeline(
-                xs[s], groupings[s], n_groups=n_groups,
+                x, groupings[s], n_groups=n_groups,
                 perms=None if perms is None else perms[s], device=dev,
                 **{k: v for k, v in kw.items() if k not in (
                     "slab_budget_bytes", "dist_tuning")}))
-    _obs.metrics.inc("engine.studies", s_count)
-    _obs.record_device_memory()
+        del x
+    engine.api._count_studies(block.n_own)
     local = _stack_results(results, n_objects=n, n_groups=n_groups,
                            n_perms=n_perms)
     return engine.api.gather_studies(
         mesh, local, s_count,
-        f"{results[0].plan} studies={s_count} [{where}]")
+        f"{results[0].plan} studies={s_count} [{block.where}]")
 
 
 def _stack_results(results, *, n_objects: int, n_groups: int,

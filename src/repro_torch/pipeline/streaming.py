@@ -604,7 +604,8 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
                         perms: Optional[torch.Tensor] = None,
                         strata: Optional[torch.Tensor] = None,
                         index_perms: Optional[torch.Tensor] = None,
-                        draw_budget: Optional[float] = None):
+                        draw_budget: Optional[float] = None, mesh=None,
+                        row_block: Optional[int] = None):
     """The fused sweep through the megakernel (kernels/fused_sw): one
     launch per permutation chunk covers every pair and permutation of the
     chunk (the whole table against itself, so the kernel visits the tiles
@@ -619,41 +620,61 @@ def fused_sw_megakernel(xprep: torch.Tensor, grouping: torch.Tensor,
     gives the same one). `tuning` holds the precision knobs (feat_bf16 /
     feat_fp8 / feat_packed / feat_scale).
 
+    Over a `mesh` (fused_sw_sharded's 'cuda' form) the rank launches on
+    its row slab (_rank_rows, rows in multiples of `row_block`) with its
+    row offset, and each chunk is the rank's share of a permutation
+    window (_windows), one `fusedk.window` span; without one, a chunk is
+    a `fusedk.chunk` span. Either way a chunk's partials pass through
+    _gather_window, which on one host is a copy.
+
     Returns (s_w (n_total,) float64, s_t 0-d float64, FusedKernelStats).
     """
+    from repro_torch.core import distributed as _distrib
+    lay = _distrib.ONE_HOST if mesh is None else _distrib.layout(mesh)
     n = int(xprep.shape[0])
     src = _label_src(n_total, n, seed=seed, perms=perms, strata=strata,
                      index_perms=index_perms, draw_budget=draw_budget)
-    chunk = int(max(1, min(chunk, n_total)))
+    r0, r1, _ = _rank_rows(n, lay, n if row_block is None else row_block)
+    chunk = _chunk_local(chunk, n_total, lay)
     xprep = xprep.to(torch.float32).contiguous()
-    tuning = _sweep_tuning(xprep, kernel_metric, tuning)
-    workspace = (_fops.alloc_workspace(n, n, chunk, xprep.device)
-                 if xprep.device.type == "cuda" else None)
+    whole = r0 == 0 and r1 == n
+    x_rows = xprep if whole else xprep[r0:r1]
+    tuning = _sweep_tuning(xprep, kernel_metric, tuning, x_rows)
+    workspace = (_fops.alloc_workspace(r1 - r0, n, chunk, xprep.device,
+                                       whole)
+                 if xprep.device.type == "cuda" and r1 > r0 else None)
     s_w = torch.empty((n_total,), dtype=torch.float64, device=xprep.device)
     total = None
-    for lo in range(0, n_total, chunk):
-        with _slab_span("fusedk.chunk", lo):
-            hi = min(lo + chunk, n_total)
-            g = _labels(grouping, lo, hi, **src)
-            sw, tot = _fops.fused_sw_rows(xprep, xprep, g, g, inv_gs, 0,
-                                          metric=kernel_metric,
-                                          workspace=workspace,
-                                          row_sums=False, **tuning)
-            s_w[lo:hi] = sw
-            if total is None:
-                total = tot
-            del g   # freed before the next chunk's labels are drawn
+    windows = _windows(n_total, chunk, lay)
+    for wlo, lo, hi in windows:
+        with _slab_span("fusedk.chunk" if mesh is None else "fusedk.window",
+                        wlo):
+            # the rank's partials (zero past n_total) and, in the last
+            # slot, its slab's D2 total
+            mine = torch.zeros((chunk + 1,), dtype=torch.float64,
+                               device=xprep.device)
+            if hi > lo and r1 > r0:
+                g = _labels(grouping, lo, hi, **src)
+                mine[:hi - lo], mine[-1] = _fops.fused_sw_rows(
+                    x_rows, xprep, g if whole else g[:, r0:r1].contiguous(),
+                    g, inv_gs, r0, metric=kernel_metric, workspace=workspace,
+                    row_sums=False, **tuning)
+                del g   # freed before the next chunk's labels are drawn
+            tot = _gather_window(mine, lay, s_w, wlo, chunk, n_total)
+            total = tot if total is None else total
             _obs.maybe_block(s_w)
-    _obs.metrics.inc("engine.perm_chunks", -(-n_total // chunk))
+    n_chunks = len(windows) * lay.perm_ways
+    _obs.metrics.inc("engine.perm_chunks", n_chunks)
     rows, draw = _draw_stats(n, chunk, draw_budget, "labels"
                              if strata is None else "strata",
                              perms is None and index_perms is None)
     stats = FusedKernelStats(
-        impl="cuda", n_total=n_total, chunk=chunk,
-        n_chunks=-(-n_total // chunk), row_block=_fops.TILE,
-        peak_slab_bytes=_fops.workspace_bytes(n, n, chunk),
+        impl="cuda", n_total=n_total, chunk=chunk, n_chunks=n_chunks,
+        row_block=_fops.TILE,
+        peak_slab_bytes=_fops.workspace_bytes(max(1, r1 - r0), n, chunk,
+                                              whole),
         peak_label_bytes=4 * chunk * n,
-        slots=_fops.n_slots(n, n, True, "fused_sw"),
+        slots=_fops.n_slots(max(1, r1 - r0), n, whole, "fused_sw"),
         draw_rows=rows, peak_draw_bytes=draw)
     return s_w, total / 2.0 / n, stats
 
@@ -791,6 +812,57 @@ def fused_kernel_sw_design(xprep: torch.Tensor, rows_fn: Callable, design,
 # Multi-device fused sharding: row slabs over 'model', perms over the rest.
 # ---------------------------------------------------------------------------
 
+def _rank_rows(n: int, lay, row_block: int) -> tuple:
+    """(r0, r1, block): the feature rows this rank's 'model' index holds,
+    ceil(n / model_ways) up to a multiple of block = min(row_block, that)
+    (the last slab ends at n and may be shorter or empty)."""
+    rows = -(-n // lay.model_ways)
+    block = int(max(1, min(row_block, rows)))
+    rows = -(-rows // block) * block
+    r0 = min(n, lay.model_index[lay.rank] * rows)
+    return r0, min(n, r0 + rows), block
+
+
+def _chunk_local(chunk: int, n_total: int, lay) -> int:
+    """A rank's permutations a window: `chunk`, at most its share."""
+    return int(max(1, min(chunk, -(-n_total // lay.perm_ways))))
+
+
+def _windows(n_total: int, chunk_local: int, lay) -> list:
+    """[(wlo, lo, hi)]: window wlo holds the global indices [wlo, wlo +
+    perm_ways * chunk_local); this rank's chunk of it is [lo, hi) at its
+    permutation block (empty past n_total)."""
+    pidx = lay.perm_index[lay.rank]
+    out = []
+    for wlo in range(0, n_total, chunk_local * lay.perm_ways):
+        lo = min(n_total, wlo + pidx * chunk_local)
+        out.append((wlo, lo, min(n_total, lo + chunk_local)))
+    return out
+
+
+def _gather_window(mine: torch.Tensor, lay, out: torch.Tensor, wlo: int,
+                   chunk_local: int, n_total: int) -> torch.Tensor:
+    """All-gather a window's partials (each rank's chunk_local values and,
+    last, its slab's D2 total), and write each permutation block's s_W
+    into `out`, summed over the 'model' slabs in float64, in row order.
+    Returns the window's D2 total (its first block's)."""
+    from repro_torch.core import distributed as _distrib
+    parts = _distrib.all_gather(mine, lay)
+    total = None
+    for b in range(lay.perm_ways):
+        blo = wlo + b * chunk_local
+        bhi = min(n_total, blo + chunk_local)
+        if bhi <= blo:
+            continue
+        acc = parts[lay.first_rank(perm=b, model=0)].clone()
+        for m in range(1, lay.model_ways):
+            acc += parts[lay.first_rank(perm=b, model=m)]
+        out[blo:bhi] = acc[:bhi - blo]
+        if total is None:
+            total = acc[-1]
+    return total
+
+
 def fused_sw_sharded(mesh, xprep: torch.Tensor, rows_fn: Callable,
                      grouping: torch.Tensor, inv_gs: torch.Tensor,
                      n_total: int, *, impl: str, kernel_metric: str,
@@ -802,100 +874,60 @@ def fused_sw_sharded(mesh, xprep: torch.Tensor, rows_fn: Callable,
     every rank returning the whole result.
 
     'model' shards the feature-table ROWS: each rank sweeps only its row
-    slab, ceil(n / model_ways) rows up to a multiple of row_block (the
-    last slab ends at n); the other axes shard the PERMUTATIONS by window:
-    window w holds global indices [w, w + perm_ways * chunk_local), the
-    rank's chunk of it [w + b * chunk_local, ...) at its permutation
-    block b. impl 'cuda' launches kernels/fused_sw's fused_sw_rows on the
-    slab with its row offset (the whole table, visited j >= i, when
-    model_ways is 1; its plain version on CPU tensors); 'torch' runs the
-    slab's row blocks through the one-hot contraction. Each window is one
-    `fusedk.window` span; its partials (and the slabs' D2 totals) are
-    all-gathered and each permutation's s_W summed over the slabs in
-    float64, in row order. A permutation's s_W from fused_sw_rows is the
-    same bits in any chunk, so with model_ways 1 the result is the
-    single-host sweep's bit for bit.
+    slab (_rank_rows); the other axes shard the PERMUTATIONS by window
+    (_windows). impl 'cuda' is fused_sw_megakernel over the mesh
+    (fused_sw_rows on the slab with its row offset; the whole table,
+    visited j >= i, when model_ways is 1; its plain version on CPU
+    tensors); 'torch' runs the slab's row blocks through the one-hot
+    contraction, each block built once for every window. Each window's
+    partials (and the slabs' D2 totals) are all-gathered and each
+    permutation's s_W summed over the slabs in float64, in row order
+    (_gather_window), one `fusedk.window` span a window. A permutation's
+    s_W from fused_sw_rows is the same bits in any chunk, so with
+    model_ways 1 the 'cuda' result is the single-host sweep's bit for
+    bit.
 
     Returns (s_w (n_total,) float64, s_t 0-d float64, FusedKernelStats).
     """
+    if impl == "cuda":
+        return fused_sw_megakernel(
+            xprep, grouping, inv_gs, n_total, kernel_metric=kernel_metric,
+            chunk=chunk, tuning=tuning, seed=seed, perms=perms,
+            draw_budget=draw_budget, mesh=mesh, row_block=row_block)
+    if impl != "torch":
+        raise ValueError(f"unknown fused-kernel impl {impl!r}; "
+                         "expected 'cuda' or 'torch'")
     from repro_torch.core import distributed as _distrib
     lay = _distrib.layout(mesh)
     n = int(xprep.shape[0])
-    _check_perms(perms, n_total, n)
-    rows = -(-n // lay.model_ways)
-    block = int(max(1, min(row_block, rows)))
-    rows = -(-rows // block) * block
-    r0 = min(n, lay.model_index[lay.rank] * rows)
-    r1 = min(n, r0 + rows)
-    chunk_local = int(max(1, min(chunk, -(-n_total // lay.perm_ways))))
-    window = chunk_local * lay.perm_ways
-    pidx = lay.perm_index[lay.rank]
-    xprep = xprep.to(torch.float32).contiguous()
-    whole = r0 == 0 and r1 == n
-    x_rows = xprep if whole else xprep[r0:r1]
-    workspace = None
-    if impl == "cuda":
-        tuning = _sweep_tuning(xprep, kernel_metric, tuning, x_rows)
-        if xprep.device.type == "cuda" and r1 > r0:
-            workspace = _fops.alloc_workspace(r1 - r0, n, chunk_local,
-                                              xprep.device, whole)
-    elif impl == "torch":
-        xprep = _precision_roundtrip(xprep, kernel_metric, tuning)
-    else:
-        raise ValueError(f"unknown fused-kernel impl {impl!r}; "
-                         "expected 'cuda' or 'torch'")
-    src = dict(seed=seed, perms=perms, strata=None, index_perms=None,
-               draw_budget=draw_budget)
+    src = _label_src(n_total, n, seed=seed, perms=perms, strata=None,
+                     index_perms=None, draw_budget=draw_budget)
+    r0, r1, block = _rank_rows(n, lay, row_block)
+    chunk = _chunk_local(chunk, n_total, lay)
+    xprep = _precision_roundtrip(xprep.to(torch.float32).contiguous(),
+                                 kernel_metric, tuning)
+    windows = _windows(n_total, chunk, lay)
+    mine = torch.zeros((len(windows), chunk + 1), dtype=torch.float64,
+                       device=xprep.device)
+    for lo_r, slab in mat2_row_blocks(xprep, rows_fn, block=block,
+                                      rows=(r0, r1)):
+        for w, (_, lo, hi) in enumerate(windows):
+            if hi > lo:
+                g = _labels(grouping, lo, hi, **src)
+                mine[w, :hi - lo] += _fused_sw_step(slab, g, inv_gs, lo_r)
+                del g
+        mine[:, -1] += slab.sum(dtype=torch.float64)
     out = torch.empty((n_total,), dtype=torch.float64, device=xprep.device)
     total = None
-    n_windows = 0
-    for wlo in range(0, n_total, window):
+    for w, (wlo, _, _) in enumerate(windows):
         with _slab_span("fusedk.window", wlo):
-            lo = min(n_total, wlo + pidx * chunk_local)
-            hi = min(n_total, lo + chunk_local)
-            # this rank's partials (zero past n_total) and, in the last
-            # slot, its slab's D2 total
-            mine = torch.zeros((chunk_local + 1,), dtype=torch.float64,
-                               device=xprep.device)
-            if hi > lo and r1 > r0:
-                g = _labels(grouping, lo, hi, **src)
-                if impl == "cuda":
-                    sw, tot = _fops.fused_sw_rows(
-                        x_rows, xprep,
-                        g if whole else g[:, r0:r1].contiguous(), g, inv_gs,
-                        r0, metric=kernel_metric, workspace=workspace,
-                        row_sums=False, **tuning)
-                    mine[:hi - lo] = sw
-                    mine[-1] = tot
-                else:
-                    for lo_r, slab in mat2_row_blocks(
-                            xprep, rows_fn, block=block, rows=(r0, r1)):
-                        mine[:hi - lo] += _fused_sw_step(slab, g, inv_gs,
-                                                         lo_r)
-                        mine[-1] += slab.sum(dtype=torch.float64)
-                del g
-            parts = _distrib.all_gather(mine, lay)
-            for b in range(lay.perm_ways):
-                blo = wlo + b * chunk_local
-                bhi = min(n_total, blo + chunk_local)
-                if bhi <= blo:
-                    continue
-                acc = parts[lay.first_rank(perm=b, model=0)].clone()
-                for m in range(1, lay.model_ways):
-                    acc += parts[lay.first_rank(perm=b, model=m)]
-                out[blo:bhi] = acc[:bhi - blo]
-                if total is None:
-                    total = acc[-1]
+            tot = _gather_window(mine[w], lay, out, wlo, chunk, n_total)
+            total = tot if total is None else total
             _obs.maybe_block(out)
-        n_windows += 1
     stats = FusedKernelStats(
-        impl=impl, n_total=n_total, chunk=chunk_local,
-        n_chunks=n_windows * lay.perm_ways,
-        row_block=_fops.TILE if impl == "cuda" else block,
-        peak_slab_bytes=(_fops.workspace_bytes(max(1, r1 - r0), n,
-                                               chunk_local, whole)
-                         if impl == "cuda" else 4 * block * n),
-        peak_label_bytes=4 * chunk_local * n * (
-            1 if impl == "cuda" else int(inv_gs.shape[0]) + 1))
+        impl="torch", n_total=n_total, chunk=chunk,
+        n_chunks=len(windows) * lay.perm_ways, row_block=block,
+        peak_slab_bytes=4 * block * n,
+        peak_label_bytes=4 * chunk * n * (int(inv_gs.shape[0]) + 1))
     _obs.metrics.inc("engine.perm_chunks", stats.n_chunks)
     return out, total / 2.0 / n, stats

@@ -8,7 +8,8 @@ worlds of four ranks over meshes (4, 1), (2, 2), (1, 4) and (pod, data,
 model) = (2, 1, 2), for brute and matmul: every rank returns the same
 result; each matches the reference's single-host permanova on the
 reference's draws (F at rtol 1e-4, p equal); permutation-only sharding
-('model' = 1) equals the port's single-host run (mesh=None) bit for bit;
+('model' = 1) equals the port's single-host run (a (1, 1) mesh in a
+world of one) bit for bit;
 row sharding meets the reference's bar (F rtol 1e-4, p equal, each null F
 within 2e-6 (F + (n - G)/(G - 1))) and gives the same bits on a second
 run. The reference's side is computed here; the ranks are processes of
@@ -67,7 +68,7 @@ rank, world, store, cases_path, out_path = (
     int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
 dist.init_process_group("gloo", init_method=f"file://{store}",
                         world_size=world, rank=rank)
-from repro_torch import engine, pipeline
+from repro_torch import engine, obs, pipeline
 from repro_torch.core import permanova_distributed
 from repro_torch.launch import mesh as M
 
@@ -98,21 +99,54 @@ def call(case, mesh):
           for k, v in case["kw"].items()}
     args = [torch.from_numpy(a) for a in case["args"]]
     if case["fn"] == "permanova_distributed":
-        return fn(mesh, *args, device="cpu", **kw)
+        return fn(mesh, *args, **kw)
     return fn(*args, mesh=mesh, device="cpu", **kw)
 
 
+def observed(case, mesh):
+    """One run under telemetry: its engine.studies counter and the
+    engine.studies spans' studies and predicted bytes."""
+    obs.enable(trace=True, metrics=True)
+    obs.metrics.reset()
+    obs.clear()
+    try:
+        call(case, mesh)
+        return {"studies": obs.metrics.value("engine.studies"),
+                "spans": [(e["args"]["studies"], e["args"]["predicted_bytes"])
+                          for e in obs.events()
+                          if e["name"] == "engine.studies"]}
+    finally:
+        obs.disable()
+
+
+def single_mesh(case):
+    """The single-host yardstick: permanova_distributed on a (1, 1) mesh
+    of a world of one, every other entry point without a mesh."""
+    if case["fn"] == "permanova_distributed":
+        return M.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    return None
+
+
+cases = pickle.load(open(cases_path, "rb"))
 out = {}
-for case in pickle.load(open(cases_path, "rb")):
+for case in cases:
     mesh = M.make_mesh(case["shape"], case["axes"], device_type="cpu")
     runs = [flat(call(case, mesh)) for _ in range(case.get("repeat", 1))]
-    single = None
-    if case.get("single") is not None:
-        one = dict(case, kw={**case["kw"], **case["single"]})
-        single = flat(call(one, None))
-    out[case["id"]] = {"runs": runs, "single": single}
-pickle.dump(out, open(out_path, "wb"))
+    out[case["id"]] = {"runs": runs, "single": None, "obs": None,
+                       "single_obs": None}
+    if case.get("observe"):
+        out[case["id"]]["obs"] = observed(case, mesh)
 dist.destroy_process_group()
+if rank == 0:       # the single-host runs, in a world of one
+    with M.world_of_one("cpu"):
+        for case in cases:
+            if case.get("single") is None:
+                continue
+            one = dict(case, kw={**case["kw"], **case["single"]})
+            out[case["id"]]["single"] = flat(call(one, single_mesh(case)))
+            if case.get("observe"):
+                out[case["id"]]["single_obs"] = observed(one, None)
+pickle.dump(out, open(out_path, "wb"))
 '''
 
 
@@ -268,16 +302,27 @@ def test_band_partials_are_the_whole_matrix_bands():
     assert ops.LAUNCHES == before
 
 
-def test_rows_launch_bytes_add_up_to_the_whole_launch():
-    """The row-slab entry's traffic model: the whole matrix as one slab
-    is the whole launch's bytes less the wrapper's sum, and whole-band
-    slabs split the mat2 reads between them."""
-    n, p = 1000, 300
-    whole = ops.rows_launch_bytes(n, n, 0, p)
-    assert whole + 4 * p == ops.launch_bytes("brute", n, p, 8)
-    halves = ops.rows_launch_bytes(n, 512, 0, p) \
-        + ops.rows_launch_bytes(n, n - 512, 512, p)
-    assert halves == whole
+@pytest.mark.parametrize("impl", ["brute", "tiled", "matmul"])
+def test_slab_widths_are_the_partials_widths(impl):
+    """Every rank computes each slab's partial width (registry.
+    sharded_width on distributed.row_slab) instead of gathering it: the
+    width is the sharded partial's own, and an empty slab has none."""
+    _, grouping, dm = _study()
+    mat2 = torch.from_numpy((dm * dm).astype(np.float32))
+    labels = torch.from_numpy(_ref_labels(grouping)[:3])
+    inv = torch.full((G,), 1.0 / 50)
+    partial = engine.registry.get_sharded(impl)
+    for ways in (1, 2, 3, 4, 5):
+        slabs = [distributed.row_slab(N, ways, m) for m in range(ways)]
+        assert slabs[0][0] == 0 and slabs[-1][1] == N
+        assert all(a[1] == b[0] for a, b in zip(slabs, slabs[1:]))
+        for r0, r1 in slabs:
+            want = engine.registry.sharded_width(impl, r1 - r0)
+            if r1 == r0:
+                assert want == 0
+                continue
+            got = partial(mat2[r0:r1].contiguous(), r0, labels, inv)
+            assert got.shape == (3, want)
 
 
 def test_get_sharded_maps_every_impl():
@@ -308,22 +353,31 @@ def test_helpers_are_the_references():
     assert distributed.pad_to_multiple(x, 3, axis=1)[0].shape == (5, 3)
     assert distributed.rows_per_shard(200, 2) == 128
     assert distributed.rows_per_shard(200, 4) == 64
-    lay = distributed.layout(None)
-    assert (lay.perm_ways, lay.model_ways, lay.world) == (1, 1, 1)
-    assert distributed._my_perm_range(lay, 40) == (0, 40)
+    assert distributed.row_slab(200, 2, 1) == (128, 200)
+    assert distributed.row_slab(200, 4, 3) == (192, 200)
+    assert distributed.row_slab(10, 4, 1) == (10, 10)     # past n: empty
 
 
-def test_a_design_is_refused():
+def test_a_design_is_refused(tmp_path):
+    """A world of one with a (1, 1) mesh is the single host: one
+    permutation block, the whole matrix; a design is refused as the
+    reference refuses it, and a card's mesh raises without a card."""
     _, grouping, dm = _study()
     from repro_torch.core import design
+    from repro_torch.launch import mesh as pmesh
     des = design.build(grouping=grouping, strata=np.arange(N) % 2,
                        n_groups=G, device="cpu")
-    with pytest.raises(ValueError, match="plain single-factor"):
-        distributed.permanova_distributed(None, dm, des, n_perms=9,
-                                          device="cpu")
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            distributed.permanova_distributed(None, dm, grouping, n_perms=9)
+    with pmesh.world_of_one("cpu", tmp_path):
+        mesh = pmesh.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        lay = distributed.layout(mesh)
+        assert (lay.perm_ways, lay.model_ways, lay.world) == (1, 1, 1)
+        assert distributed._my_perm_range(lay, 40) == (0, 40)
+        with pytest.raises(ValueError, match="plain single-factor"):
+            distributed.permanova_distributed(mesh, dm, des, n_perms=9)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="card"):
+                pmesh.make_mesh((1, 1), ("data", "model"))
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------------------------------------------------------------------

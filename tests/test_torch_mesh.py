@@ -108,7 +108,7 @@ def _many_case(world, fn, kind):
     if fn == "pipeline_many":
         kw["materialize"] = "fused-kernel"
     return dict(id=_many_id(world, fn, kind), fn=fn, shape=(world, 1),
-                axes=AXES, args=[data, gs], kw=kw, single={})
+                axes=AXES, args=[data, gs], kw=kw, single={}, observe=True)
 
 
 @pytest.fixture(scope="module")
@@ -204,6 +204,31 @@ def test_many_over_the_study_axis(worlds, world, fn, kind):
                                rtol=RTOL)
     np.testing.assert_array_equal(np.asarray(got["p_value"], np.float64),
                                   np.asarray(ref.p_value, np.float64))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("fn,kind", MANY)
+def test_many_ranks_count_only_their_own_studies(worlds, world, fn, kind):
+    """A rank's telemetry is its block's: the ranks' `engine.studies`
+    counters sum to S (a padded replay is not counted), and a rank's
+    `engine.studies` span holds its block's studies (the replay included,
+    since the rank ran it) and their predicted bytes, the single-host
+    batch's share (every study plans alike on the CPU)."""
+    per_rank = worlds[_many_id(world, fn, kind)]
+    single = per_rank[0]["single_obs"]
+    assert single["studies"] == S
+    assert sum(r["obs"]["studies"] for r in per_rank) == S
+    block = (S + (-S) % world) // world
+    if fn == "pipeline_many":       # the fused-kernel bridge: no span
+        assert all(not r["obs"]["spans"] for r in per_rank)
+        return
+    (n_single, bytes_single), = single["spans"]
+    assert n_single == S and bytes_single > 0
+    for r in per_rank:
+        (n_rank, bytes_rank), = r["obs"]["spans"]
+        assert n_rank == block
+        np.testing.assert_allclose(bytes_rank, bytes_single * block / S,
+                                   rtol=1e-12)
 
 
 # ---------------------------------------------------------------------------
