@@ -4680,6 +4680,10 @@ ROWS_PLAIN_PERMS = 256          # the second slab against its plain version
 ROWS_RTOL = 1e-5                # band partials against the plain version
 GLOO_TIMEOUT = 420
 MANY_PEAK_SLACK_MIB = 64        # a sharded batch's peak over one study's
+# the served batch of phase 24: three EMP-width features requests that
+# coalesce into one batch of the 32,768 bucket
+SERVE_MESH_SEEDS = (0, 1, 2)
+SERVE_MESH_BUCKET = 32768
 RANK_SCRIPT = r'''
 import json, os, sys, time
 import numpy as np
@@ -4689,6 +4693,8 @@ import torch.distributed as dist
 rank, world, store, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
                                sys.argv[3], sys.argv[4])
 n, n_feat, n_groups, n_perms, s_count = (int(v) for v in sys.argv[5:10])
+serve_perms, serve_block, serve_workers = (int(v) for v in sys.argv[10:13])
+serve_seeds = [int(v) for v in sys.argv[13].split(",")]
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dist.init_process_group("gloo", init_method=f"file://{store}",
@@ -4787,6 +4793,69 @@ if rank == 0:
         torch.equal(serial.f_perms, res.f_perms)
         and torch.equal(serial.p_value, res.p_value))
     record["many 2x1"]["serial_plan"] = serial.plan
+del dms, gs, res
+if rank == 0:
+    del serial
+torch.cuda.empty_cache()
+
+# the served batch: rank 0 admits three EMP-width features requests and
+# serves them as one batch sharded over 'data' (S = 3 padded to 4, two
+# studies a rank); rank 1 follows. Once clean, once with a worker death.
+from repro_torch import obs
+from repro_torch.runtime.faultinject import FaultInjector
+from repro_torch.serve import PermanovaServer, StudyRequest
+
+
+def serve_reqs():
+    out = []
+    for s in serve_seeds:
+        xs, gg = synthetic_study(n, n_feat, n_groups, effect_size=1.0,
+                                 seed=s)
+        out.append(StudyRequest(grouping=gg, x=xs, n_perms=serve_perms,
+                                seed=s, request_id=f"emp{s}"))
+    return out
+
+
+for tag, inj in (("serve 2x1", None),
+                 ("serve 2x1 death",
+                  FaultInjector(seed=1).kill_worker_after_blocks(0, 2))):
+    torch.cuda.synchronize()
+    zero()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    obs.metrics.reset()
+    obs.clear()
+    t0 = time.perf_counter()
+    with obs.session(), PermanovaServer(
+            mesh=mesh, workers=serve_workers, block=serve_block,
+            max_batch=len(serve_seeds), injector=inj) as srv:
+        if rank == 0:
+            out = srv.serve(serve_reqs(), batched=True)
+        else:
+            srv.follow()
+    torch.cuda.synchronize()
+    # this rank's side of the mesh batch, from obs
+    stats = {k: obs.metrics.value(f"serve.mesh.{k}")
+             for k in ("batches", "blocks", "bytes")}
+    stats["seconds"] = sum(e["dur"] for e in obs.events()
+                           if e["name"] == "serve.mesh.batch") / 1e6
+    rec = dict(s=time.perf_counter() - t0, launches=counts(), stats=stats,
+               peak_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+               plan="", device=str(srv.device))
+    if rank == 0:
+        rec.update(F=[float(r.result.f_stat) for r in out],
+                   p=[float(r.result.p_value) for r in out],
+                   status=[r.status for r in out],
+                   batched=[r.batched for r in out],
+                   errors=[r.error for r in out], plan=out[0].bucket,
+                   history=[h for r in out for h in r.report.history])
+        for r in out:
+            arrays[f"{tag.replace(' ', '_')}_{r.request_id}"] = \
+                r.result.f_perms.cpu().numpy()
+    else:
+        rec.update(F=[], p=[])
+    record[tag] = rec
+    torch.cuda.empty_cache()
 with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
     json.dump(record, f)
 if rank == 0:
@@ -4918,6 +4987,64 @@ def phase_rows_kernel(dev, mat2, g_dev):
         "ms_whole_launch": ms_whole}
 
 
+def serve_mesh_requests():
+    """Phase 24's served batch: three EMP-width studies by features (seeds
+    SERVE_MESH_SEEDS), Bray-Curtis, SERVE_PERMS permutations each."""
+    from repro_torch.data.microbiome import synthetic_study
+    from repro_torch.serve import StudyRequest
+    out = []
+    for s in SERVE_MESH_SEEDS:
+        x, g = synthetic_study(EMP_N, EMP_FEATURES, EMP_GROUPS,
+                               effect_size=1.0, seed=s)
+        out.append(StudyRequest(grouping=g, x=x, n_perms=SERVE_PERMS,
+                                seed=s, request_id=f"emp{s}"))
+    return out
+
+
+def serve_mesh_operand_bytes() -> int:
+    """One served study's batch operands in the bucket: mat2, the
+    sentinel-padded labels and 1 / group sizes."""
+    b = SERVE_MESH_BUCKET
+    return 4 * (b * b + b + EMP_GROUPS)
+
+
+def serve_mesh_world_of_one(dev, mesh) -> dict:
+    """(b)'s served batch: PermanovaServer(mesh=(1, 1)) serves the three
+    requests as one batch, unsharded on the one rank ('data' = 1), equal
+    bit for bit to the same server without a mesh serving them serially
+    (one request at a time: the serial path's own steps); the batch's
+    launches are the requests' distance kernel once each and brute once
+    a block. Returns the batch's {request id: (null F, p)}."""
+    import torch
+    from repro_torch.serve import PermanovaServer
+
+    kw = dict(workers=SERVE_WORKERS, block=SERVE_BLOCK,
+              max_batch=len(SERVE_MESH_SEEDS))
+    blocks = -(-(SERVE_PERMS + 1) // SERVE_BLOCK)
+    zero_launches()
+    t0 = time.perf_counter()
+    with PermanovaServer(mesh=mesh, **kw) as srv:
+        got = srv.serve(serve_mesh_requests(), batched=True)
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    t0 = time.perf_counter()
+    want = PermanovaServer(device=dev, **kw).serve(serve_mesh_requests())
+    dt_plain = time.perf_counter() - t0
+    log(f"[smoke] multi serve (1, 1): {len(got)} EMP requests in "
+        f"{dt:.3f}s (batch wall {got[0].wall_s:.3f}s), the server without "
+        f"a mesh serially {dt_plain:.3f}s; launches {launches}; "
+        f"{got[0].bucket}; {card_line()}")
+    for a, b in zip(got, want):
+        check(a.status == b.status == "ok" and a.batched
+              and not b.batched and serve_same(a, b),
+              f"multi serve (1, 1) {a.request_id}: {a.status} {a.error} "
+              f"!= the serial server without a mesh bit for bit")
+    check(launches == {"braycurtis": len(got), "brute": len(got) * blocks},
+          f"multi serve (1, 1): launches {launches}")
+    return {r.request_id: (r.result.f_perms.cpu().numpy(),
+                           float(r.result.p_value)) for r in got}
+
+
 def phase_multi_device(dev, x_np, grouping, f_p_main):
     """Phase 24. (a) phase_rows_kernel. (b) An NCCL world of one, mesh
     (1, 1): permanova_distributed and pipeline(mesh=) at the EMP shape
@@ -4930,8 +5057,13 @@ def phase_multi_device(dev, x_np, grouping, f_p_main):
     permanova_many over 3 EMP studies passed from the host at 'data' = 2
     (wrap-padded) equal to the serial batch bit for bit, each rank's
     peak no more than one study's engine.run (a rank moves only its own
-    studies, one at a time); each rank's launches logged. Returns the
-    brute_rows entry of the kernels line."""
+    studies, one at a time); each rank's launches logged. (b) and (c)
+    also serve a batch of 3 EMP-width requests by features through
+    PermanovaServer(mesh=): on (1, 1) equal to the server without a mesh
+    serving them serially (serve_mesh_world_of_one), on (2, 1) sharded, rank 1 following,
+    clean and with a worker death, equal to that unsharded batch
+    (serve_mesh_checks). Returns the brute_rows entry of the kernels
+    line."""
     import tempfile
 
     import numpy as np
@@ -4991,7 +5123,10 @@ def phase_multi_device(dev, x_np, grouping, f_p_main):
               f"pipeline(mesh=(1, 1)): fused_sw only: {launches}")
         single["pipe"] = res.f_perms.cpu().numpy()
         single["pipe_p"] = p
-    del xt, g_dev, one, res
+        del one, res
+        torch.cuda.empty_cache()
+        single["serve"] = serve_mesh_world_of_one(dev, mesh)
+    del xt, g_dev
     torch.cuda.empty_cache()
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -5002,7 +5137,9 @@ def phase_multi_device(dev, x_np, grouping, f_p_main):
         procs = [subprocess.Popen(
             [sys.executable, "-c", RANK_SCRIPT, str(r), "2",
              os.path.join(tmp, "store"), tmp, str(EMP_N), str(EMP_FEATURES),
-             str(EMP_GROUPS), str(EMP_PERMS), str(MANY_STUDIES)],
+             str(EMP_GROUPS), str(EMP_PERMS), str(MANY_STUDIES),
+             str(SERVE_PERMS), str(SERVE_BLOCK), str(SERVE_WORKERS),
+             ",".join(map(str, SERVE_MESH_SEEDS))],
             env=dict(env, LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for r in range(2)]
         outs = []
@@ -5064,11 +5201,70 @@ def phase_multi_device(dev, x_np, grouping, f_p_main):
         check(recs[r]["dist 1x2"]["launches"].get("brute_rows", 0) > 0
               and recs[r]["many 2x1"]["launches"].get("brute", 0) > 0,
               f"gloo rank {r}: no kernel launched: {recs[r]}")
+    serve_mesh_checks(recs, arrays, single["serve"])
     log(f"[smoke] multi gloo: dist (2, 1) and (1, 2) and pipe (2, 1) == the "
         f"world of one bit for bit; pipe (1, 2) within the f32 allowance "
         f"({excess:.3f}x) and the same bits twice; permanova_many "
-        f"(S={MANY_STUDIES}, data 2) == the serial batch bit for bit")
+        f"(S={MANY_STUDIES}, data 2) == the serial batch bit for bit; the "
+        f"served batch (2, 1), clean and with a worker death, == the "
+        f"unsharded batch bit for bit")
     return row
+
+
+def serve_mesh_checks(recs, arrays, unsharded):
+    """(c)'s served batch on two gloo ranks, mesh (2, 1): S = 3 padded to
+    4, rank 0 runs studies [0, 1], rank 1 [2, 0]. Clean and with a worker
+    death, each request's null and p equal the unsharded batch's bit for
+    bit; rank 1 received (and rank 0 sent) exactly two studies' operands;
+    each rank's peak is its block's two studies' operands plus one
+    study's sweep (the label budget and the slack); brute launched on
+    both ranks, the distance kernel on rank 0 alone."""
+    import numpy as np
+    from repro_torch.engine import planner
+    blocks = -(-(SERVE_PERMS + 1) // SERVE_BLOCK)
+    block_bytes = 2 * serve_mesh_operand_bytes()
+    bound_mib = (block_bytes + planner.label_budget(None)) / 2 ** 20 \
+        + MANY_PEAK_SLACK_MIB
+    for tag in ("serve 2x1", "serve 2x1 death"):
+        lead, fol = recs[0][tag], recs[1][tag]
+        check(lead["status"] == ["ok"] * len(SERVE_MESH_SEEDS)
+              and all(lead["batched"]),
+              f"gloo {tag}: {lead['status']} {lead['errors']}")
+        for s, p in zip(SERVE_MESH_SEEDS, lead["p"]):
+            null, p_want = unsharded[f"emp{s}"]
+            key = f"{tag.replace(' ', '_')}_emp{s}"
+            check(np.array_equal(arrays[key], null) and p == p_want,
+                  f"gloo {tag} emp{s}: != the unsharded batch bit for bit")
+        if tag.endswith("death"):
+            check(any("kill worker=0" in h for h in lead["history"]),
+                  f"gloo {tag}: no worker died")
+        for r, rec in enumerate((lead, fol)):
+            st = rec["stats"]
+            check(st["bytes"] == block_bytes and st["batches"] == 1
+                  and st["seconds"] > 0
+                  and st["blocks"] == lead["stats"]["blocks"] > 0,
+                  f"gloo {tag} rank {r}: moved {st['bytes']:.0f} B in "
+                  f"{st['batches']:.0f} batches, {st['blocks']:.0f} block "
+                  f"commands, expected {block_bytes} in 1 and rank 0's "
+                  f"{lead['stats']['blocks']:.0f}")
+            check(rec["peak_mib"] <= bound_mib,
+                  f"gloo {tag} rank {r}: peak {rec['peak_mib']:.1f} MiB over "
+                  f"{bound_mib:.1f} MiB (two studies' operands and one "
+                  f"sweep)")
+            brute = rec["launches"].get("brute", 0)
+            bc = rec["launches"].get("braycurtis", 0)
+            clean = not tag.endswith("death")
+            check((brute == 2 * blocks if clean else brute >= 2 * blocks)
+                  and bc == (len(SERVE_MESH_SEEDS) if r == 0 else 0)
+                  and set(rec["launches"]) <= {"brute", "braycurtis"},
+                  f"gloo {tag} rank {r}: launches {rec['launches']}")
+            log(f"[smoke] multi gloo {tag} rank {r} on {rec['device']}: "
+                f"{rec['s']:.3f}s with admission, batch wall "
+                f"{st['seconds']:.3f}s, {st['blocks']:.0f} block commands, "
+                f"{'sent' if r == 0 else 'received'} {st['bytes']:.0f} B "
+                f"({st['bytes'] / 2 ** 30:.3f} GiB), peak "
+                f"{rec['peak_mib']:.1f} MiB (bound {bound_mib:.1f} MiB), "
+                f"launches {rec['launches']}")
 
 
 def main() -> int:

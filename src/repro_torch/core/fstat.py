@@ -93,6 +93,16 @@ def sw_brute_one(mat2: torch.Tensor, grouping: torch.Tensor,
     return _brute_block(mat2, grouping[None], inv_group_sizes, triu)[0]
 
 
+def sw_full_one(mat2: torch.Tensor, grouping: torch.Tensor,
+                inv_group_sizes: torch.Tensor) -> torch.Tensor:
+    """Full-matrix (i != j) form, one perm: sums every same-group pair of
+    the symmetric matrix and halves (its zero diagonal needs no
+    correction); a label outside [0, G) weighs 0."""
+    same = (grouping[:, None] == grouping[None, :]).to(mat2.dtype)
+    w_row = label_weights(grouping, inv_group_sizes)[:, None]
+    return 0.5 * (mat2 * same * w_row).sum()
+
+
 def sw_brute(mat2: torch.Tensor, groupings: torch.Tensor,
              inv_group_sizes: torch.Tensor, *, block: int = 32
              ) -> torch.Tensor:

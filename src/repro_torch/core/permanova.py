@@ -96,12 +96,6 @@ def p_value_from_null(f_perms: torch.Tensor) -> torch.Tensor:
     return (greater + 1.0) / (n_perms + 1.0)
 
 
-def _later(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the {slice_name} slice "
-        "of the port; use the reference package `repro` meanwhile")
-
-
 def permanova(dm, grouping=None, *, n_perms: int = 999, seed: int = 0,
               perms: Optional[torch.Tensor] = None,
               index_perms: Optional[torch.Tensor] = None,

@@ -513,15 +513,16 @@ class StudyBlock(NamedTuple):
     n_own: int          # the block's studies that are not padding
 
 
-def put_study_sharded(mesh, s_count: int) -> StudyBlock:
-    """The studies this rank runs, and where the batch runs for the plan
-    record. The (wrap-padded) study axis is split into data_ways
-    contiguous blocks and a rank takes the block at its 'data' index (the
-    port's counterpart of the reference's device_put over 'data': a rank
-    moves only its block's matrices to its device; ranks that differ
-    only in other axes run the same block). A padded slot replays its
-    source study. Without a 'data' axis to shard: every study, 'in
-    turn'."""
+def put_study_sharded(mesh, s_count: int,
+                      rank: Optional[int] = None) -> StudyBlock:
+    """The studies this rank (or world rank `rank`) runs, and where the
+    batch runs for the plan record. The (wrap-padded) study axis is split
+    into data_ways contiguous blocks and a rank takes the block at its
+    'data' index (the port's counterpart of the reference's device_put
+    over 'data': a rank moves only its block's matrices to its device;
+    ranks that differ only in other axes run the same block). A padded
+    slot replays its source study. Without a 'data' axis to shard: every
+    study, 'in turn'."""
     data_ways, s_pad, idx = study_axis_padding(mesh, s_count)
     if data_ways <= 1:
         return StudyBlock(list(range(s_count)), "in turn", s_count)
@@ -529,7 +530,7 @@ def put_study_sharded(mesh, s_count: int) -> StudyBlock:
     lay = _distrib.layout(mesh)
     slots = (idx.tolist() if idx is not None else list(range(s_count)))
     per = len(slots) // data_ways
-    d = lay.data_index[lay.rank]
+    d = lay.data_index[lay.rank if rank is None else rank]
     lo, hi = d * per, (d + 1) * per
     return StudyBlock(
         slots[lo:hi],

@@ -150,6 +150,15 @@ def bound_cols(name: str, **overrides) -> Callable:
     return functools.partial(fn, **kw) if kw else fn
 
 
+def bound_sw(name: str, *, cols: bool = False, **overrides) -> Callable:
+    """A serving bucket's s_W callable: `name`'s label-mode form with its
+    tuning bound, or with `cols` its dense-design companion
+    (bound_cols)."""
+    if cols:
+        return bound_cols(name, **overrides)
+    return get(name).bound(**overrides)
+
+
 register(SwImpl(
     name="brute", plain=fstat.sw_brute, kernel="brute",
     tuning={"block": 32},

@@ -87,6 +87,9 @@ from repro_torch.hw import resolve_device
 
 IMPL_CHOICES = ["auto", "brute", "tiled", "matmul",
                 "pallas_brute", "pallas_permblock", "pallas_matmul"]
+# the reference's legacy --kernel: its kernel family's name for each impl
+KERNEL_IMPLS = {"auto": "pallas_matmul", "brute": "pallas_brute",
+                "tiled": "pallas_permblock", "matmul": "pallas_matmul"}
 
 
 def _emit_obs(args):
@@ -176,6 +179,14 @@ def main(argv=None) -> int:
                          "ranks shard permutations); implies --materialize "
                          "fused-kernel; every rank of a torchrun launch "
                          "runs it")
+    ap.add_argument("--kernel", action="store_true",
+                    help="legacy alias, as in the reference: --impl auto "
+                         "or matmul -> pallas_matmul, brute -> "
+                         "pallas_brute, tiled -> pallas_permblock (ignored "
+                         "for a pallas_* --impl); on the port those names "
+                         "are aliases of matmul, brute and tiled, each its "
+                         "CUDA kernel on the card and its plain version "
+                         "on --device cpu")
     ap.add_argument("--distributed", action="store_true",
                     help="shard the matrix path's permutations over every "
                          "rank of the torchrun launch "
@@ -241,6 +252,8 @@ def main(argv=None) -> int:
 
     if args.trace or args.metrics:
         obs.enable(trace=bool(args.trace) or args.metrics, metrics=True)
+    if args.kernel and not args.impl.startswith("pallas_"):
+        args.impl = KERNEL_IMPLS[args.impl]
 
     dev = resolve_device(args.device)
     x, grouping = synthetic_study(args.samples, args.features, args.groups,

@@ -21,11 +21,11 @@ Layers:
     no bucket for a request of a known bucket (the reference counts zero
     jaxpr retraces; the port has none to count).
   * BATCH COALESCING — queued requests of the SAME bucket are coalesced
-    into one dispatch: their operands are stacked along a leading study
-    axis in one host -> device copy per operand, and every permutation
-    block runs through the batched steps (scheduler.sw_block_many /
-    sw_cols_block_many), which run each study on the launches its serial
-    step makes: batched results equal serial ones bit for bit. Blocks
+    into one dispatch (serve.mesh.Batch): each study's operands take one
+    host -> device copy, and every permutation block runs through the
+    batched steps (scheduler.sw_block_many / sw_cols_block_many), which
+    run each study on the launches its serial step makes: batched
+    results equal serial ones bit for bit. Blocks
     span the largest n_perms in the batch; a study computes no rows past
     its own sweep.
   * ASYNC ADMISSION — submit() returns a concurrent.futures.Future.
@@ -51,6 +51,9 @@ Layers:
     Deadline-degraded requests keep their partial s_W in memory and are
     OPPORTUNISTICALLY RESUMED in idle capacity: `ServeResult.final`
     receives the exact full-n_perms result.
+  * MESH — with `mesh=`, every rank builds the server: rank 0 admits and
+    answers, the others follow(); a coalesced batch's study axis is
+    sharded over 'data' with the unsharded bits (serve/mesh.py).
 
 Admission state is host-side, as the reference keeps it: the padded mat2
 is a numpy array (a features request's distances come from the device's
@@ -67,6 +70,7 @@ the request is recomputed from scratch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -85,12 +89,12 @@ from repro_torch import hw
 from repro_torch import obs as _obs
 from repro_torch.checkpoint import manager as ckpt_mod
 from repro_torch.core import design as design_mod
-from repro_torch.core.permanova import (PermanovaResult, TermResult, _later,
-                                        f_from_sw)
+from repro_torch.core.permanova import PermanovaResult, TermResult, f_from_sw
 from repro_torch.engine import planner, registry, scheduler
 from repro_torch.pipeline import registry as dist_registry
 from repro_torch.runtime.elastic import AllWorkersDead, ElasticBlockExecutor
 from repro_torch.runtime.faultinject import FaultInjector, SimulatedOOM
+from repro_torch.serve import mesh as _mesh_serve
 
 _log = logging.getLogger("repro_torch.serve")
 
@@ -247,7 +251,7 @@ class _Prepared:
     """Admission-side request state, all on the host: numpy arrays, and a
     dense design's padded basis and strata as CPU tensors. The execution
     paths copy each operand to the device once per dispatch unit — per
-    request on the serial path, per stacked batch on the coalesced path
+    request on the serial path, per study of a batch on the coalesced path
     — so admitting a request moves nothing to the device."""
     req: StudyRequest
     mode: str
@@ -341,11 +345,20 @@ class PermanovaServer:
     granularity (the unit of re-dispatch, speculation, and checkpoint).
     queue_limit: bounded admission queue; submissions past it are SHED.
     max_batch: coalescing bound — a drain pass batches up to this many
-    queued same-bucket requests into one stacked dispatch.
+    queued same-bucket requests into one dispatch.
     device: 'cuda' (default; raises without a card) or 'cpu'; the planner
     plans for its type, and the s_W impls run their kernels on 'cuda'.
-    mesh: the reference shards a batch's study axis over a mesh; that
-    comes with the multi-device slice (NotImplementedError here).
+    mesh: a DeviceMesh (launch.mesh.make_mesh) with a 'data' axis. Every
+    rank constructs the server with the same arguments; the device is
+    the mesh's for the rank (`device` must name its type). Rank 0 admits
+    and answers as without a mesh; every other rank calls follow(), which
+    returns when rank 0's stop() (or the end of its `with` block)
+    releases it (admission calls on a follower raise RuntimeError).
+    Coalesced batches shard their study axis over 'data', wrap-padded as
+    engine.api.put_study_sharded splits it, and equal the unsharded batch
+    bit for bit (serve.mesh holds the protocol); serial requests,
+    resume_degraded() and batches on a mesh whose 'data' axis is 1 run
+    unsharded on rank 0.
     opportunistic_resume: keep degraded requests' partial s_W and finish
     the permutation tail in idle capacity (ServeResult.final).
     clock / injector: injectable time and faults — production uses the
@@ -375,11 +388,14 @@ class PermanovaServer:
                  ckpt_dir=None, checkpoint_every: int = 8,
                  latency_window: int = 512,
                  draws: Optional[Callable] = None):
-        if mesh is not None:
-            raise _later("mesh= (study-axis sharding of a batch: a rank-0 "
-                         "admission loop with follower ranks)",
-                         "multi-device serving")
-        self.device = hw.resolve_device(device)
+        self.mesh = mesh
+        self.rank = 0
+        self._channel = None
+        self._released = False
+        if mesh is None:
+            self.device = hw.resolve_device(device)
+        else:
+            self.device = self._mesh_device(mesh, device)
         self.backend = self.device.type
         self.workers = int(workers)
         self.block = int(block)
@@ -410,6 +426,79 @@ class PermanovaServer:
         self._abandon = False
         self._inflight = 0
 
+    def _mesh_device(self, mesh, device) -> torch.device:
+        """The rank's device on `mesh`; joins the command channel when the
+        world has followers."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.launch import mesh as launch_mesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch DeviceMesh "
+                            f"(launch.mesh.make_mesh), got "
+                            f"{type(mesh).__name__}")
+        if "data" not in tuple(mesh.mesh_dim_names or ()):
+            raise ValueError(f"a serving mesh shards batches over a 'data' "
+                             f"axis; this one has {mesh.mesh_dim_names}")
+        dev = launch_mesh.mesh_device(mesh)
+        if torch.device(device).type != dev.type:
+            raise ValueError(f"device={device!r} differs from the mesh's "
+                             f"device type {mesh.device_type!r}")
+        self.rank = dist.get_rank()
+        if dist.get_world_size() > 1:
+            self._channel = _mesh_serve.Channel()
+        return dev
+
+    # -- ranks ------------------------------------------------------------
+    @property
+    def is_leader(self) -> bool:
+        """True on rank 0, which admits and answers (always without a
+        mesh)."""
+        return self.rank == 0
+
+    def _leader_only(self, what: str) -> None:
+        if not self.is_leader:
+            raise RuntimeError(
+                f"{what}() runs on rank 0 of the serving mesh, which admits "
+                f"and batches; rank {self.rank} is a follower: call "
+                "follow()")
+
+    def follow(self) -> None:
+        """A follower rank's loop: run rank 0's sharded batches until its
+        stop() releases this rank (obs counts serve.mesh.batches, .blocks
+        and .bytes received, and a serve.mesh.batch span each batch);
+        raises RuntimeError at stop when a block failed on this rank
+        (rank 0 failed that batch)."""
+        if self.is_leader:
+            raise RuntimeError("follow() runs on the follower ranks; rank 0 "
+                               "admits and answers")
+        if self._channel is None:
+            raise RuntimeError("follow() needs a mesh server in a world of "
+                               "several ranks")
+        with self._on_device():
+            _mesh_serve.follow(self._channel, self.mesh, self.device)
+
+    def _shards(self) -> bool:
+        """Whether coalesced batches shard over the mesh's 'data' axis."""
+        if self.mesh is None:
+            return False
+        from repro_torch.launch import mesh as launch_mesh
+        return launch_mesh.axis_size(self.mesh, "data") > 1
+
+    def _on_device(self):
+        """This server's card as the thread's current device: start()'s
+        worker threads do not inherit torch.cuda.set_device."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def __enter__(self) -> "PermanovaServer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self.is_leader:
+            self.stop(drain=exc_type is None and bool(self._threads))
+
     # -- admission --------------------------------------------------------
     @property
     def queue_depth(self) -> int:
@@ -429,6 +518,7 @@ class PermanovaServer:
         immediately to ServeResult(status='shed'); with shed='raise'
         ServerOverloaded is raised. A request that cannot fit any
         configured bucket resolves immediately to status='failed'."""
+        self._leader_only("submit")
         fut: Future = Future()
         with self._cv:
             if not req.request_id:
@@ -462,6 +552,7 @@ class PermanovaServer:
         """Process queued requests FIFO, one at a time; returns their
         results. The single-threaded SERIAL shim — no batch coalescing —
         and the bit-identity reference for the batched path."""
+        self._leader_only("pump")
         out: List[ServeResult] = []
         while True:
             with self._cv:
@@ -480,8 +571,8 @@ class PermanovaServer:
                       ) -> List[ServeResult]:
         """Drain the queue with same-bucket coalescing: each pass pops
         the head request plus every queued request sharing its bucket
-        signature (up to max_batch) and executes them as ONE stacked
-        dispatch."""
+        signature (up to max_batch) and executes them as ONE dispatch."""
+        self._leader_only("drain_batched")
         out: List[ServeResult] = []
         mb = self.max_batch if max_batch is None else max(1, int(max_batch))
         while True:
@@ -495,9 +586,10 @@ class PermanovaServer:
               max_batch: Optional[int] = None) -> List[ServeResult]:
         """Convenience: submit everything, drain, return results in
         request order (shed results land inline). batched=True coalesces
-        same-bucket requests into stacked dispatches; the default drains
+        same-bucket requests into batched dispatches; the default drains
         serially through pump(). When background workers are running
         (start()), this just submits and waits on the futures."""
+        self._leader_only("serve")
         futs = [self.submit(r) for r in reqs]
         if not self._threads:
             if batched:
@@ -512,6 +604,7 @@ class PermanovaServer:
         (coalescing same-bucket requests up to max_batch), completes
         futures, and — when the queue is empty — opportunistically
         finishes degraded requests' permutation tails."""
+        self._leader_only("start")
         with self._cv:
             if self._threads:
                 return
@@ -528,7 +621,11 @@ class PermanovaServer:
              timeout: Optional[float] = None) -> None:
         """Stop the background workers. drain=True (default) waits for
         the admission and resume queues to empty first; drain=False
-        abandons queued work (its futures stay pending)."""
+        abandons queued work (its futures stay pending). On rank 0 of a
+        mesh it then releases every follower (follow() returns), which is
+        final: a later sharded batch fails. A no-op on a follower."""
+        if not self.is_leader:
+            return
         with self._cv:
             if drain:
                 while self._queue or self._resume_q or self._inflight:
@@ -539,6 +636,11 @@ class PermanovaServer:
         for t in self._threads:
             t.join(timeout=timeout)
         self._threads = []
+        if self._channel is not None:
+            with self._exec_lock:       # after any batch in flight
+                if not self._released:
+                    self._released = True
+                    self._channel.publish({"op": "stop"})
 
     def _worker_loop(self) -> None:
         while True:
@@ -629,7 +731,7 @@ class PermanovaServer:
     def _process_batch(self, items: List[_QItem]) -> List[ServeResult]:
         """Execute one coalesced batch; completes each item's future and
         returns the results in item order."""
-        with self._exec_lock:
+        with self._exec_lock, self._on_device():
             return self._process_batch_locked(items)
 
     def _process_batch_locked(self, items: List[_QItem]
@@ -705,7 +807,8 @@ class PermanovaServer:
         """Serve one request now (the serial path). prepared: its
         admission state where a batch pass already made it (a request
         peeled off a batch is not prepared twice)."""
-        with self._exec_lock:
+        self._leader_only("process")
+        with self._exec_lock, self._on_device():
             t0 = self.clock()
             with _obs.span("serve.step", {"request": req.request_id}):
                 res = self._process_with_retries(req, t0, prepared)
@@ -866,10 +969,8 @@ class PermanovaServer:
                 planner.record_entry(cache_key, {
                     "impl": impl, "tuning": tuning, "block": self.block,
                     "reason": pl.reason})
-            if p.mode == _MODE_COLS:
-                fn = registry.bound_cols(impl, **tuning)
-            else:
-                fn = registry.get(impl).bound(**tuning)
+            fn = registry.bound_sw(impl, cols=p.mode == _MODE_COLS,
+                                   **tuning)
             b = _Bucket(key=key, impl=impl, tuning=tuning, fn=fn, hits=1)
             self._buckets[key] = b
             return b
@@ -990,80 +1091,50 @@ class PermanovaServer:
         return self._assemble(p, b, out, done, spans, rep, degraded=False)
 
     # -- batched execution ------------------------------------------------
-    def _stack_studies(self, lists):
-        """Stack per-study operands along a leading study axis on the
-        host and ship each stack to the device in ONE copy per operand
-        per batch (numpy lists stack as numpy, CPU tensors as tensors)."""
-        out = []
-        for a in lists:
-            if all(isinstance(x, torch.Tensor) for x in a):
-                out.append(torch.stack(a).to(self.device))
-            else:
-                out.append(torch.from_numpy(np.stack(a)).to(self.device))
-        return out
-
     def _execute_batch(self, preps: List[_Prepared],
                        t0: float) -> List[ServeResult]:
         """One coalesced same-bucket dispatch: every permutation block is
-        one batched step over the stacked study axis, run through the
+        one step over the batch's study axis (serve.mesh.Batch, each
+        study's operands moved to the device once), run through the
         elastic executor as a bag spanning the WHOLE batch. Each study
         runs on its serial step's launches, so each column equals the
-        serial path bit for bit. Handles per-request deadlines (expired
-        members degrade and leave; the rest keep going) and batch-level
-        transient retries."""
+        serial path bit for bit. On a mesh whose 'data' axis is over 1
+        the study axis is sharded over the followers, with the same bits.
+        Handles per-request deadlines (expired members degrade and leave;
+        the rest keep going) and batch-level transient retries."""
         bkt = self._bucket_for(preps[0])
         for p in preps[1:]:
             self._bucket_for(p)     # same key: per-request hit accounting
         S = len(preps)
-        mode = preps[0].mode
         max_total = max(p.n_total for p in preps)
         block = min(self.block, max_total)
         spans = [(lo, min(lo + block, max_total))
                  for lo in range(0, max_total, block)]
+        out = (np.zeros((max_total, S, preps[0].k_cols), np.float32)
+               if preps[0].mode == _MODE_COLS
+               else np.zeros((max_total, S), np.float32))
+        channel = None
+        if self._shards():
+            if self._released:
+                raise RuntimeError("stop() released the serving mesh's "
+                                   "followers: a batch cannot shard")
+            channel = self._channel
+        with _mesh_serve.Batch(preps, bkt.impl, bkt.tuning, bkt.fn, block,
+                               self.device, mesh=self.mesh, channel=channel,
+                               draws=self.draws) as batch:
+
+            def compute(lo, hi):
+                with _obs.span("serve.block", {"lo": lo, "batch": S}):
+                    return batch.compute(lo, hi)
+
+            return self._run_batch(preps, bkt, compute, out, spans, t0)
+
+    def _run_batch(self, preps: List[_Prepared], bkt: _Bucket, compute,
+                   out: np.ndarray, spans, t0: float) -> List[ServeResult]:
+        """The batch's bag of blocks through the elastic executor, with
+        deadline degradation and batch-level transient retries."""
+        S = len(preps)
         n_blocks = len(spans)
-        seeds = [int(p.req.seed) for p in preps]
-        n_valid = [p.n for p in preps]
-        n_totals = [p.n_total for p in preps]
-
-        def explicit(lo):
-            if self.draws is None:
-                return None
-            return [self._explicit(p.req, lo, scheduler._study_rows(
-                block, lo, n_totals, s), p.n_pad)
-                for s, p in enumerate(preps)]
-
-        if mode == _MODE_COLS:
-            mat2_b, basis_b, strata_b = self._stack_studies(
-                [[p.mat2 for p in preps], [p.basis for p in preps],
-                 [p.strata for p in preps]])
-            k_cols = preps[0].k_cols
-            out = np.zeros((max_total, S, k_cols), np.float32)
-
-            def compute(lo, hi):
-                with _obs.span("serve.block", {"lo": lo, "batch": S}):
-                    s = scheduler.sw_cols_block_many(
-                        mat2_b, basis_b, strata_b, n_valid, seeds, lo,
-                        fn=bkt.fn, block=block, n_totals=n_totals,
-                        index_perms=explicit(lo))
-                    return s.cpu().numpy().transpose(1, 0, 2)[: hi - lo]
-        else:
-            lists = [[p.mat2 for p in preps], [p.grouping for p in preps],
-                     [p.inv_gs for p in preps]]
-            if mode == _MODE_STRATA:
-                lists.append([p.strata for p in preps])
-            ops = self._stack_studies(lists)
-            mat2_b, grouping_b, invgs_b = ops[:3]
-            strata_b = ops[3] if mode == _MODE_STRATA else None
-            out = np.zeros((max_total, S), np.float32)
-
-            def compute(lo, hi):
-                with _obs.span("serve.block", {"lo": lo, "batch": S}):
-                    s = scheduler.sw_block_many(
-                        mat2_b, grouping_b, n_valid, invgs_b, seeds, lo,
-                        fn=bkt.fn, block=block, strata=strata_b,
-                        n_totals=n_totals, perms=explicit(lo))
-                    return s.cpu().numpy().T[: hi - lo]
-
         done = np.zeros((n_blocks,), bool)
         need = [np.array([lo < p.n_total for (lo, _) in spans], bool)
                 for p in preps]
@@ -1189,6 +1260,7 @@ class PermanovaServer:
         """Synchronously finish queued degraded tails (the cooperative
         twin of the background workers' idle-time resume). Returns the
         exact results, which are also pushed to each ServeResult.final."""
+        self._leader_only("resume_degraded")
         out: List[ServeResult] = []
         while True:
             with self._cv:
@@ -1199,7 +1271,7 @@ class PermanovaServer:
             out.append(self._run_resume(work))
 
     def _run_resume(self, w: _ResumeWork) -> ServeResult:
-        with self._exec_lock:
+        with self._exec_lock, self._on_device():
             try:
                 out, done, rep = self._executor(len(w.spans)).run(
                     self._compute_block_fn(w.p, w.bucket), w.spans,

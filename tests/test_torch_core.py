@@ -380,6 +380,29 @@ def test_single_perm_forms_match_reference(form, n, g):
     np.testing.assert_allclose(float(got), float(want), rtol=5e-5)
 
 
+@pytest.mark.parametrize("n,g,n_pad", [(37, 4, 37), (64, 3, 64),
+                                       (9, 8, 9), (23, 3, 32)])
+def test_sw_full_one_matches_reference_and_brute(n, g, n_pad):
+    """The full-matrix form against the reference's and the port's
+    upper-triangle brute form, also on a study zero-padded to n_pad whose
+    pad rows carry the sentinel label G (weight 0)."""
+    mat2, grouping, inv_gs, gperms = _sw_instance(n, g, seed=n + 1)
+    m = np.zeros((n_pad, n_pad), np.float32)
+    m[:n, :n] = mat2
+    for labels in [grouping, *gperms[:2]]:
+        lab = np.full((n_pad,), g, np.int32)
+        lab[:n] = labels
+        got = fstat.sw_full_one(torch.from_numpy(m), torch.from_numpy(lab),
+                                torch.from_numpy(inv_gs))
+        want = jfstat.sw_full_one(jnp.asarray(m), jnp.asarray(lab),
+                                  jnp.asarray(inv_gs))
+        brute = fstat.sw_brute_one(torch.from_numpy(mat2),
+                                   torch.from_numpy(labels),
+                                   torch.from_numpy(inv_gs))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+        np.testing.assert_allclose(float(got), float(brute), rtol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_onehot_factors_and_matmul_block_match_reference(dtype):
     mat2, _, inv_gs, gperms = _sw_instance(40, 3, seed=5)

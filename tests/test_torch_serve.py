@@ -340,9 +340,18 @@ def test_served_equals_the_unpadded_port_run(studies, kind):
         _assert_close(res.result, ref)
 
 
-def test_mesh_and_a_missing_card_raise():
-    with pytest.raises(NotImplementedError, match="multi-device"):
+def test_mesh_and_a_missing_card_raise(tmp_path):
+    """A mesh that is not a DeviceMesh, or one without a 'data' axis to
+    shard batches over, is refused (multi-device serving itself:
+    tests/test_torch_serve_mesh.py); so is a missing card."""
+    from repro_torch.launch import mesh as pmesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PermanovaServer(device="cpu", mesh=object())
+    with pmesh.world_of_one("cpu", tmp_path):
+        no_data = pmesh.make_mesh((1,), ("model",), device_type="cpu")
+        with pytest.raises(ValueError, match="'data' axis"):
+            PermanovaServer(device="cpu", mesh=no_data)
+    assert not torch.distributed.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             PermanovaServer()
