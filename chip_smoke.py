@@ -378,6 +378,28 @@ Phases, each timed:
    permanova_many over 3 EMP studies at 'data' = 2 (wrap-padded to 4)
    equals the serial batch bit for bit; each rank's launches, times and
    peaks logged.
+25. The LM serving path (repro_torch.configs, .models, .serve.engine,
+   launch/serve.py lm) at internlm2-1.8b's full width and depth, weights
+   drawn on the card from seed 0. (a) In f32: the parameter count
+   (1,889,110,016) equal to the specs'; the decode loop with KV caches
+   against the teacher-forced logits at every position (B = 2, T = 12)
+   within LM_LOGIT_BAR (1e-3 absolute on unit-scale logits); prefill and
+   the first decode step on the card against the same weights moved to the
+   host, at the same bar. (c) Embeddings -> PERMANOVA: 1,024 sequences of
+   64 tokens in two conditions (the whole vocabulary, a 16-token dialect),
+   hidden states mean-pooled to (1,024, 2,048) f32, then pipeline(metric=
+   'euclidean', 999 permutations) on the card, which must launch the
+   euclidean and brute kernels, against the CPU's euclidean distances +
+   permanova with the same seed: F at rtol 1e-4, p equal. (b) The serve
+   demo in the config's bf16 through `repro_torch.launch.serve lm --arch
+   internlm2-1.8b` with the reference's defaults (12 requests, batch 4,
+   max_len 128, 16 new tokens, temperature 0.8): main() exits 0; greedy
+   twice and temperature (seed 0) twice, each pair equal, every request
+   done, every token in [0, vocab); tokens/s, serve.steps, the median
+   serve.step and the peak device memory against the weights plus caches
+   are logged. Before the demo, 8 decode steps of its shape (bf16, batch
+   4, a 128-long cache) are profiled as in phase 22: the device's idle
+   share, its kernels and its top ops.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -4056,7 +4078,8 @@ def merged(intervals):
     return out
 
 
-def idle_profile(tag, fn, dev, warm=True, events_out=None, lead=None):
+def idle_profile(tag, fn, dev, warm=True, events_out=None, lead=None,
+                 counted=True):
     """One warm run of fn() under torch.profiler (CPU and CUDA) with obs
     tracing on, so its spans show as ranges. From the exported Chrome
     trace: the window (the run's own range, its final sync included), the
@@ -4070,7 +4093,9 @@ def idle_profile(tag, fn, dev, warm=True, events_out=None, lead=None):
     events (phase 23 reads its copies from them). lead: run under the
     profiler before the window opens, so that the trace is recording
     when it does (a profile's first ~tens of ms of device activity may
-    be dropped: phase 23 lost its first request's copies once)."""
+    be dropped: phase 23 lost its first request's copies once).
+    counted=False: a path with no hand-written kernel (the LM's decode
+    step), held only to a non-empty trace."""
     import tempfile
     import torch
     from repro_torch import obs
@@ -4155,7 +4180,7 @@ def idle_profile(tag, fn, dev, warm=True, events_out=None, lead=None):
         f"{busy / 1e3:.3f} ms, idle share {idle:.4f}{plain}; {kernels} device "
         f"kernels, {launched} counted launches; top device ops: {top_txt}; "
         f"longest idle gaps: {gap_txt}; {card_line()}")
-    check(kernels >= launched > 0,
+    check(kernels >= launched > 0 if counted else kernels > 0,
           f"idle {tag}: the profile holds {kernels} device kernels, fewer "
           f"than the run's {launched} counted launches (no CUPTI trace?)")
     return idle
@@ -5267,6 +5292,279 @@ def serve_mesh_checks(recs, arrays, unsharded):
                 f"launches {rec['launches']}")
 
 
+LM_ARCH = "internlm2-1.8b"
+LM_PARAMS = 1_889_110_016       # 24 x 62,918,656 + 2 x 189,530,112 + 2,048
+LM_B, LM_T = 2, 12              # the reference's decode-parity case
+LM_LOGIT_BAR = 1e-3             # max abs error on unit-scale f32 logits
+LM_EMB_N, LM_EMB_S = 1024, 64   # sequences and tokens of the embeddings
+LM_DIALECT = 16                 # the second condition's token range
+LM_EMB_PERMS = 999
+LM_F_RTOL = 1e-4
+LM_DEMO = ["lm", "--arch", LM_ARCH, "--device", "cuda"]
+LM_PROFILE_STEPS = 8
+
+
+def lm_teacher_forced(model, toks):
+    """The f32 logits of every position by the forward pass."""
+    import torch
+    from repro_torch.models import model as lm
+    with torch.inference_mode():
+        h, _ = model._embed_input({"tokens": toks})
+        h, _, _ = model._backbone(h, lm._positions(*toks.shape,
+                                                   device=toks.device))
+        return (h @ model.unembed["w"]).float()
+
+
+def lm_prefill_and_step(model, toks, nxt=None):
+    """(prefill's last logits, the first decode step's logits after it on
+    prefill's caches, the token that step was fed: `nxt`, by default
+    prefill's argmax)."""
+    import torch
+    logits_p, caches = model.prefill({"tokens": toks}, max_len=LM_T + 1)
+    if nxt is None:
+        nxt = torch.argmax(logits_p[:, -1], dim=-1).to(torch.int32)[:, None]
+    logits_d, _ = model.decode_step(nxt, caches, LM_T)
+    return logits_p, logits_d, nxt
+
+
+def lm_decode_checks(dev, model, card):
+    """(a): the decode loop == the teacher-forced logits on the card, then
+    prefill + one decode step on the card against the same weights on the
+    host. Returns the card's (prefill, step) logits on the host."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(LM_B, LM_T))
+                            .astype(np.int32)).to(dev)
+    ref = lm_teacher_forced(model, toks)
+    caches = model.init_caches(LM_B, LM_T + 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = []
+    for t in range(LM_T):
+        logits, caches = model.decode_step(toks[:, t:t + 1], caches, t)
+        errs.append(float((logits[:, 0] - ref[:, t]).abs().max()))
+    dt = time.perf_counter() - t0
+    scale = float(ref.abs().max())
+    check(all(np.isfinite(errs)) and max(errs) <= LM_LOGIT_BAR,
+          f"LM decode != teacher-forced logits: {max(errs):.3e} (bar "
+          f"{LM_LOGIT_BAR})")
+    log(f"[smoke] lm (a) decode == teacher-forced at B={LM_B} T={LM_T}: "
+        f"max abs err {max(errs):.3e} (bar {LM_LOGIT_BAR}), max |logit| "
+        f"{scale:.3f}; {LM_T} decode steps {dt:.3f}s on {card}")
+    card_out = [x.cpu() for x in lm_prefill_and_step(model, toks)]
+    return toks.cpu(), card_out
+
+
+def lm_embeddings(dev, model, card):
+    """(c): mean-pooled hidden states of LM_EMB_N sequences in two
+    conditions (the whole vocabulary, a LM_DIALECT-token dialect) ->
+    pipeline(metric='euclidean') on the card against the CPU's euclidean
+    distances + permanova with the same seed (the counter-hash draws are
+    the same on both)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import distance
+    from repro_torch.core.permanova import permanova
+    from repro_torch.models import model as lm
+    from repro_torch.pipeline.api import pipeline
+    n, s = LM_EMB_N, LM_EMB_S
+    rng = np.random.default_rng(0)
+    groups = np.repeat([0, 1], n // 2).astype(np.int32)
+    toks = np.where(groups[:, None] == 0,
+                    rng.integers(0, model.cfg.vocab, size=(n, s)),
+                    rng.integers(0, LM_DIALECT, size=(n, s))).astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        h, _ = model._embed_input({"tokens": torch.from_numpy(toks).to(dev)})
+        h, _, _ = model._backbone(h, lm._positions(n, s, device=dev))
+        emb = h.mean(dim=1)
+    torch.cuda.synchronize()
+    t_emb = time.perf_counter() - t0
+    check(tuple(emb.shape) == (n, model.cfg.d_model)
+          and emb.dtype == torch.float32 and bool(emb.isfinite().all()),
+          f"LM embeddings: {tuple(emb.shape)} {emb.dtype}, not finite")
+    emb = emb.clone()          # out of inference mode for the pipeline
+    g_dev = torch.from_numpy(groups).to(dev)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipeline(emb, g_dev, metric="euclidean", n_perms=LM_EMB_PERMS,
+                   seed=0, device=dev)
+    f_card, p_card = float(res.f_stat), float(res.p_value)     # waits
+    t_pipe = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    t0 = time.perf_counter()
+    emb_cpu = emb.cpu()
+    ref = permanova(distance.euclidean(emb_cpu), torch.from_numpy(groups),
+                    n_perms=LM_EMB_PERMS, seed=0, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    f_cpu, p_cpu = float(ref.f_stat), float(ref.p_value)
+    check(counts.get("euclidean", 0) >= 1 and counts.get("brute", 0) >= 1,
+          f"LM embeddings -> PERMANOVA did not run the euclidean and brute "
+          f"kernels: {counts}")
+    check(abs(f_card - f_cpu) <= LM_F_RTOL * abs(f_cpu) and p_card == p_cpu,
+          f"LM embeddings -> PERMANOVA card F={f_card} p={p_card} vs CPU "
+          f"F={f_cpu} p={p_cpu}")
+    log(f"[smoke] lm (c) embeddings ({n}, {s}) -> ({n}, "
+        f"{model.cfg.d_model}) f32 in {t_emb:.3f}s; pipeline(euclidean, "
+        f"{LM_EMB_PERMS} perms) on the card {t_pipe:.3f}s F={f_card:.6f} "
+        f"p={p_card:.4f} launches {counts}; the CPU's euclidean + "
+        f"permanova {t_cpu:.3f}s F={f_cpu:.6f} p={p_cpu:.4f} (rel "
+        f"{abs(f_card - f_cpu) / abs(f_cpu):.3e}); plan {res.plan} on "
+        f"{card}")
+
+
+def lm_card_vs_cpu(model, toks, card_out, card):
+    """(a) continued: the same weights moved to the host (the model is
+    moved, not copied: the card is done with it), prefill + one decode
+    step there at the same bar."""
+    import torch
+    t0 = time.perf_counter()
+    model.to("cpu")
+    t_move = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out = lm_prefill_and_step(model, toks, nxt=card_out[2])
+    t_cpu = time.perf_counter() - t0
+    errs = [float((c - h).abs().max())
+            for c, h in zip(card_out[:2], cpu_out[:2])]
+    check(max(errs) <= LM_LOGIT_BAR,
+          f"LM card != CPU logits (prefill, first decode step): {errs}")
+    log(f"[smoke] lm (a) card == CPU at full depth ({model.cfg.n_layers} "
+        f"layers, f32): prefill max abs err {errs[0]:.3e}, first decode "
+        f"step {errs[1]:.3e} (bar {LM_LOGIT_BAR}); weights to the host "
+        f"{t_move:.3f}s, host prefill + step {t_cpu:.3f}s (threads "
+        f"{torch.get_num_threads()}); card {card}")
+
+
+def lm_demo(argv, card):
+    """One run of the serve demo's entry point on the card: (tokens of
+    each request, summary dict)."""
+    import statistics
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    args = serve.parser().parse_args(argv)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with obs.session():
+        obs.clear()
+        steps0 = obs.metrics.value("serve.steps", 0.0)
+        cfg, done, wall = serve.serve_lm(args)
+        steps = obs.metrics.value("serve.steps", 0.0) - steps0
+        spans = [e["dur"] / 1e3 for e in obs.events()
+                 if e.get("name") == "serve.step" and e.get("ph") == "X"]
+    peak = torch.cuda.max_memory_allocated() - start
+    toks = [list(r.generated) for r in done]
+    n_tok = sum(len(t) for t in toks)
+    check(all(r.done for r in done) and len(done) == args.requests
+          and all(len(t) == args.max_new for t in toks),
+          f"LM serve demo {argv}: unfinished requests")
+    check(all(0 <= x < cfg.vocab for t in toks for x in t),
+          f"LM serve demo {argv}: a token outside [0, {cfg.vocab})")
+    flat = cfg.n_kv_heads * cfg.d_head
+    params_b = LM_PARAMS * cfg.torch_dtype.itemsize
+    cache_b = (2 * cfg.n_layers * args.batch * args.max_len * flat
+               * cfg.torch_kv_dtype.itemsize)
+    info = {"tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+            "steps": steps, "step_ms_median": statistics.median(spans),
+            "step_ms_max": max(spans), "peak_mib": peak / 2 ** 20,
+            "params_caches_mib": (params_b + cache_b) / 2 ** 20}
+    log(f"[smoke] lm (b) {' '.join(argv[1:])}: {n_tok} tokens of "
+        f"{len(done)} requests in {wall:.3f}s ({info['tok_per_s']:.1f} "
+        f"tok/s), serve.steps {steps:.0f}, step median "
+        f"{info['step_ms_median']:.3f} ms (max {info['step_ms_max']:.3f}), "
+        f"peak {info['peak_mib']:.1f} MiB against params + caches "
+        f"{info['params_caches_mib']:.1f} MiB ({cfg.dtype}, kv "
+        f"{cfg.kv_cache_dtype}) on {card}")
+    return toks, info
+
+
+def lm_step_profile(dev, card):
+    """(b): LM_PROFILE_STEPS decode steps of the demo's shape (bf16, batch
+    4, a max_len 128 cache half full) under torch.profiler: the device's
+    idle share, its kernels a step and the ops that take its time."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model as lm
+    cfg = ARCHS[LM_ARCH]
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    caches = model.init_caches(4, 128)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+
+    def steps():
+        for t in range(64, 64 + LM_PROFILE_STEPS):
+            model.decode_step(tok, caches, t)
+
+    idle = idle_profile(f"lm decode x{LM_PROFILE_STEPS} ({cfg.dtype}, "
+                        f"batch 4, cache_len 64-{63 + LM_PROFILE_STEPS} of "
+                        f"128)", steps, dev, counted=False)
+    log(f"[smoke] lm (b) decode step profile: idle share {idle:.4f} on "
+        f"{card}")
+
+
+def phase_lm(dev):
+    """Phase 25: the LM serving path at internlm2-1.8b's full width."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    from repro_torch.models import nn
+    card = card_line()
+    cfg = ARCHS[LM_ARCH].replace(dtype="float32")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == nn.count_params(model.param_specs()) == LM_PARAMS
+          and all(p.device == dev and p.dtype == torch.float32
+                  for p in model.parameters()),
+          f"LM {LM_ARCH}: {n_params} parameters, the specs say "
+          f"{nn.count_params(model.param_specs())}, expected {LM_PARAMS}")
+    log(f"[smoke] lm (a) {LM_ARCH} full width, {cfg.n_layers} layers, f32: "
+        f"{n_params:,} parameters (== the specs), "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, drawn on the "
+        f"card in {t_init:.3f}s on {card}")
+    toks, card_out = lm_decode_checks(dev, model, card)
+    lm_embeddings(dev, model, card)
+    lm_card_vs_cpu(model, toks, card_out, card)
+    del model, card_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the serve demo in the config's bf16 with the reference's
+    # defaults: the CLI's own entry once, then greedy and temperature
+    # runs twice each (the same seed)
+    lm_step_profile(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check(serve.main(list(LM_DEMO)) == 0, "LM serve demo: main() failed")
+    log(f"[smoke] lm (b) python -m repro_torch.launch.serve "
+        f"{' '.join(LM_DEMO)}: exit 0 in {time.perf_counter() - t0:.3f}s")
+    greedy = [lm_demo(LM_DEMO + ["--greedy"], card) for _ in range(2)]
+    temp = [lm_demo(LM_DEMO, card) for _ in range(2)]
+    check(greedy[0][0] == greedy[1][0],
+          "LM serve demo: two greedy runs gave different tokens")
+    check(temp[0][0] == temp[1][0],
+          "LM serve demo: the same seed gave different sampled tokens")
+    log(f"[smoke] lm (b) greedy twice: equal tokens; temperature 0.8 "
+        f"(seed 0) twice: equal tokens; greedy != sampled: "
+        f"{greedy[0][0] != temp[0][0]}")
+
+
 def main() -> int:
     import tempfile
 
@@ -5386,6 +5684,10 @@ def run_phases(torch, dev, cache_dir) -> int:
     t0 = time.perf_counter()
     rows.append(phase_multi_device(dev, x, grouping, f_p_main))
     log(f"[smoke] phase 24 (multi-device) {time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_lm(dev)
+    log(f"[smoke] phase 25 (LM serving path) "
+        f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 
     print(json.dumps({"kernels": rows}))

@@ -11,9 +11,13 @@ each module here has a twin there at the same relative path:
   kernels/       hand-written CUDA C++ kernels (sm_90a) + plain versions
   engine/        s_W registry, planner, streaming scheduler, run()
   pipeline/      features -> p under one plan (bridges, out of core)
+  serve/         the PERMANOVA service and the LM decode loop
+  configs/       the LM architectures (the reference's, field for field)
+  models/        the dense decoder LM (attention, blocks, DecoderLM)
   launch/        the permanova CLI (matrix, features and cache paths;
-                 --distributed / --shard-rows under torchrun) and the
-                 DeviceMesh helpers (launch/mesh.py)
+                 --distributed / --shard-rows under torchrun), the serve
+                 CLI (permanova, lm) and the DeviceMesh helpers
+                 (launch/mesh.py)
 
 Entry points run on the card (`device="cuda"`) and raise when there is
 none; pass `device="cpu"` to run the plain PyTorch forms on the host.

@@ -18,6 +18,11 @@ from typing import Callable, NamedTuple
 
 import torch
 
+# the fp8 cast, shared with the LM's caches; read here by the fused
+# kernels' plain versions
+from repro_torch.precision import (FP8_MAX, FP8_NAN_ABOVE,  # noqa: F401
+                                   fp8_quantize)
+
 
 def _identity_prepare(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
@@ -135,13 +140,6 @@ def pack_presence_bits(xprep) -> torch.Tensor:
 # fused kernels' feat_fp8 knob and the plain versions' round trips.
 # ---------------------------------------------------------------------------
 
-FP8_MAX = 448.0            # largest finite float8_e4m3fn magnitude
-# Past this |x| / scale the reference's cast (ml_dtypes, round to nearest
-# even) gives NaN, while torch's saturates to +-448; 464 itself, the
-# midpoint to the next (absent) step, still rounds to 448.
-FP8_NAN_ABOVE = 464.0
-
-
 def fp8_scale(xprep) -> torch.Tensor:
     """Calibration scale so max|x| / scale hits the e4m3 range: a 0-d
     float32 tensor, at least 1e-12 (an all-zero table must not divide by
@@ -158,17 +156,6 @@ def fp8_metric_scale(xprep, metric: str) -> torch.Tensor:
         return torch.ones((), dtype=torch.float32,
                           device=torch.as_tensor(xprep).device)
     return fp8_scale(xprep)
-
-
-def fp8_quantize(xprep, scale) -> torch.Tensor:
-    """x / scale cast to float8_e4m3fn, byte for byte the reference's cast:
-    round to nearest even, and NaN (with x's sign) where |x| / scale >
-    FP8_NAN_ABOVE, where torch alone would saturate to +-448."""
-    x = torch.as_tensor(xprep, dtype=torch.float32)
-    y = x / torch.as_tensor(scale, dtype=torch.float32, device=x.device)
-    y = torch.where(y.abs() > FP8_NAN_ABOVE,
-                    torch.copysign(torch.full_like(y, float("nan")), y), y)
-    return y.to(torch.float8_e4m3fn)
 
 
 def fp8_roundtrip(xprep, scale=None) -> torch.Tensor:

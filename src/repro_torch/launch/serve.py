@@ -1,7 +1,10 @@
-"""Serving launcher: the always-on PERMANOVA service on the port.
+"""Serving launchers on the port (twin of `repro/launch/serve.py`).
 
-Twin of `repro/launch/serve.py permanova` (the `lm` subcommand belongs to
-the LM scaffold, not ported here):
+  # LM decode demo with continuous batching (running without a
+  # subcommand defaults here, as the reference's does); --greedy samples
+  # by argmax in place of the temperature draw
+  PYTHONPATH=src python -m repro_torch.launch.serve lm \
+      --arch internlm2-1.8b --smoke --requests 12 --batch 4 --max-new 16
 
   # chaos smoke: a synthetic stream of studies, replayed coalesced by
   # shape bucket (bit-identical to serial, then a warm replay that builds
@@ -19,12 +22,32 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.obs import cudahooks
+
+
+def _device_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (default; fails without a card) or cpu")
+
+
+def _lm_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--greedy", action="store_true",
+                    help="argmax sampling in place of the temperature draw")
+    ap.add_argument("--seed", type=int, default=0)
+    _device_arg(ap)
 
 
 def _pa_args(ap: argparse.ArgumentParser) -> None:
@@ -49,8 +72,55 @@ def _pa_args(ap: argparse.ArgumentParser) -> None:
                          "build or load and no bucket miss")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the serve session")
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="cuda (default; fails without a card) or cpu")
+    _device_arg(ap)
+
+
+def serve_lm(args: argparse.Namespace) -> tuple:
+    """The LM demo's run: (config, finished requests, wall seconds). The
+    model's weights are drawn on the device from `--seed`, the prompts
+    from a numpy generator of the same seed."""
+    from repro_torch.configs.registry import ARCHS, SMOKES
+    from repro_torch.hw import resolve_device
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import (Request, ServeLoop, greedy_sample,
+                                          temperature_sample)
+
+    cfg = (SMOKES if args.smoke else ARCHS)[args.arch]
+    if cfg.family == "encdec":
+        raise SystemExit("use a decoder-only arch for the serve demo")
+    dev = resolve_device(args.device)
+    model = build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(args.seed),
+        device=dev)
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, size=(4,))
+                    .astype(np.int32), max_new_tokens=args.max_new)
+            for _ in range(args.requests)]
+    sampler = (greedy_sample if args.greedy
+               else temperature_sample(args.temperature))
+    loop = ServeLoop(model, batch_size=args.batch, max_len=args.max_len,
+                     sampler=sampler)
+    t0 = time.perf_counter()
+    done = loop.run(reqs, max_steps=args.max_len * 4,
+                    generator=torch.Generator(device=dev)
+                    .manual_seed(args.seed))
+    return cfg, done, time.perf_counter() - t0
+
+
+def cmd_lm(args: argparse.Namespace) -> int:
+    cfg, done, dt = serve_lm(args)
+    n_tok = sum(len(r.generated) for r in done)
+    print(f"[serve] arch={cfg.name} requests={len(done)} "
+          f"generated={n_tok} tok wall={dt:.1f}s tok/s={n_tok/dt:.1f} "
+          f"on {args.device}")
+    for i, r in enumerate(done[:3]):
+        print(f"  req{i}: prompt={r.prompt.tolist()} -> "
+              f"{r.generated[:12]}{'...' if len(r.generated) > 12 else ''}")
+    unfinished = [i for i, r in enumerate(done) if not r.done]
+    if unfinished:
+        print(f"[serve] unfinished requests: {unfinished}")
+        return 1
+    return 0
 
 
 def _synth_stream(args: argparse.Namespace) -> list:
@@ -152,14 +222,22 @@ def cmd_permanova(args: argparse.Namespace) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    _lm_args(sub.add_parser("lm", help="LM decode demo"))
     _pa_args(sub.add_parser(
         "permanova", help="always-on PERMANOVA service smoke"))
-    args = ap.parse_args(argv)
-    return cmd_permanova(args)
+    return ap
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # as the reference: no subcommand (or flags only) means the LM demo
+    if not argv or argv[0] not in ("lm", "permanova", "-h", "--help"):
+        argv.insert(0, "lm")
+    args = parser().parse_args(argv)
+    return {"lm": cmd_lm, "permanova": cmd_permanova}[args.cmd](args)
 
 
 if __name__ == "__main__":

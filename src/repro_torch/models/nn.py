@@ -1,0 +1,195 @@
+"""Minimal module system: param specs with logical axes (twin of
+`repro/models/nn.py`).
+
+Every layer declares a spec tree of ParamSpec entries (shape, logical axis
+names, init law, dtype). `init_params` draws a spec tree from a
+`torch.Generator` into a nested dict of tensors, and `Params` holds such a
+tree as a `torch.nn.Module`. The functional forms (`dense`, `rmsnorm`, the
+attention and block functions) index their params by key, so they take a
+`Params` module or a plain dict of tensors alike.
+
+Logical axes are kept as data for the sharding rules of a later slice:
+  "vocab" embedding rows / logits columns, "embed" the d_model dimension,
+  "heads" / "kv" flattened head projections, "mlp" the d_ff dimension,
+  "layers" a stacked-layer dimension, None replicated.
+
+Weights keep the reference's (d_in, d_out) layout and `x @ w`, so a
+reference param tree carries across as copies (`compat.lm_params_from_
+reference`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.precision import fp8_quantize
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    axes: tuple                 # logical axis per dim (str | None)
+    init: str = "normal"        # normal | zeros | ones | fanin | fanin_deep
+    dtype: torch.dtype = torch.float32
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in rank")
+
+
+def _fan_in(shape) -> int:
+    return shape[0] if len(shape) == 1 else math.prod(shape[:-1])
+
+
+def _init_one(generator: torch.Generator, spec: ParamSpec, device, *,
+              stack: int = 0) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "normal":
+        std = spec.scale * 0.02
+    elif spec.init in ("fanin", "fanin_deep"):
+        fan_in = _fan_in(((stack,) if stack else ()) + tuple(spec.shape))
+        std = spec.scale / math.sqrt(max(fan_in, 1))
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
+    # scaled in place: a leaf holds one f32 transient beside its result
+    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device)
+    return draw.mul_(std).to(spec.dtype)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def init_params(spec_tree, generator: torch.Generator, device, *,
+                stack: int = 0) -> dict:
+    """Materialize a spec tree into a nested dict of tensors on `device`,
+    drawing the leaves from `generator` in sorted-key order.
+
+    With `stack` = L the tree is one layer of an L-layer stack, and a
+    fan-in law takes the fan-in of the stacked (L, ...) leaf, as the
+    reference initialises its stacked layers: std = scale / sqrt(L *
+    d_in), not scale / sqrt(d_in)."""
+    return {k: (_init_one(generator, s, device, stack=stack) if is_spec(s)
+                else init_params(s, generator, device, stack=stack))
+            for k, s in sorted(spec_tree.items())}
+
+
+def spec_leaves(spec_tree, prefix: str = ""):
+    """(path, ParamSpec) of every leaf, paths as 'a/b/c', sorted."""
+    for k, s in sorted(spec_tree.items()):
+        path = f"{prefix}{k}"
+        if is_spec(s):
+            yield path, s
+        else:
+            yield from spec_leaves(s, path + "/")
+
+
+def count_params(spec_tree) -> int:
+    """Parameters a spec tree declares, counted without allocation."""
+    return sum(math.prod(s.shape) for _, s in spec_leaves(spec_tree))
+
+
+def stack_specs(spec_tree, n: int):
+    """Prepend a stacked 'layers' dim to every spec (the reference's
+    scanned layout; the port holds the layers as a list of modules)."""
+    return {k: (dataclasses.replace(s, shape=(n,) + s.shape,
+                                    axes=("layers",) + s.axes)
+                if is_spec(s) else stack_specs(s, n))
+            for k, s in spec_tree.items()}
+
+
+class Params(torch.nn.Module):
+    """A param tree as a module: a leaf is a (frozen) Parameter, a subtree
+    a child Params. `params[key]` and `key in params` read either, as on
+    the reference's dicts."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, Params(v))
+            else:
+                self.register_parameter(
+                    k, torch.nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x.astype(dtype) as the reference casts: float8_e4m3fn rounds to
+    nearest even and gives NaN past its range (precision.fp8_quantize),
+    where torch alone would saturate."""
+    if dtype == torch.float8_e4m3fn:
+        return fp8_quantize(x, 1.0)
+    return x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Common primitives
+# ---------------------------------------------------------------------------
+
+def dense_spec(d_in: int, d_out: int, ax_in: Optional[str],
+               ax_out: Optional[str], *, bias: bool = False,
+               dtype=torch.float32, init: str = "fanin", scale: float = 1.0):
+    spec = {"w": ParamSpec((d_in, d_out), (ax_in, ax_out), init=init,
+                           dtype=dtype, scale=scale)}
+    if bias:
+        spec["b"] = ParamSpec((d_out,), (ax_out,), init="zeros", dtype=dtype)
+    return spec
+
+
+def dense(params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["w"]
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
+def rmsnorm_spec(d: int, dtype=torch.float32):
+    return {"scale": ParamSpec((d,), ("embed",), init="ones", dtype=dtype)}
+
+
+def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+def layernorm_spec(d: int, dtype=torch.float32):
+    return {"scale": ParamSpec((d,), ("embed",), init="ones", dtype=dtype),
+            "bias": ParamSpec((d,), ("embed",), init="zeros", dtype=dtype)}
+
+
+def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dt)
+
+
+def embedding_spec(vocab: int, d: int, dtype=torch.float32):
+    return {"table": ParamSpec((vocab, d), ("vocab", "embed"), init="normal",
+                               dtype=dtype)}
+
+
+def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens.long()]

@@ -1,7 +1,5 @@
-"""Serving (twin of `repro.serve`): the always-on PERMANOVA service.
-
-The reference's LM decode loop (`serve/engine.py`) belongs to the LM
-scaffold and is not ported here.
+"""Serving (twin of `repro.serve`): the always-on PERMANOVA service, and
+the LM decode loop with continuous batching (`serve/engine.py`).
 """
 
 from repro_torch.serve.permanova import (  # noqa: F401

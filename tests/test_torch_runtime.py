@@ -180,12 +180,15 @@ class TestIncarnationFencing:
 
 
 def test_runtime_imports_no_jax_or_reference():
-    """The runtime, checkpoint and serving modules import torch, numpy and
-    the port only: neither jax, ml_dtypes nor the reference package."""
+    """The runtime, checkpoint and serving modules, and the LM configs,
+    models and serving engine, import torch, numpy and the port only:
+    neither jax, ml_dtypes nor the reference package."""
     import subprocess
     import sys
     code = ("import sys; import repro_torch.runtime, repro_torch.checkpoint,"
-            " repro_torch.serve, repro_torch.launch.serve;"
+            " repro_torch.serve, repro_torch.launch.serve,"
+            " repro_torch.configs, repro_torch.models.model,"
+            " repro_torch.serve.engine;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'ml_dtypes', 'repro'));"
             " print(bad); sys.exit(1 if bad else 0)")
