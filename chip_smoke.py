@@ -400,6 +400,27 @@ Phases, each timed:
    are logged. Before the demo, 8 decode steps of its shape (bf16, batch
    4, a 128-long cache) are profiled as in phase 22: the device's idle
    share, its kernels and its top ops.
+26. The LM training path (repro_torch.optim, .train.step, .runtime.trainer,
+   .launch.train). (a) internlm2-1.8b at full width, depth cut to 2
+   layers, in f32: one AdamW step at the launcher's schedule where its
+   warm-up ends (lr 3e-3) from the same weights and batch (B = 2, S = 16)
+   on the card and on the host: the loss and the step's grad norm at rtol
+   1e-4, every gradient leaf within 1e-3 of its largest entry, the params
+   after the step within lr everywhere and within 1e-5 |p| + 1e-6 at 99%
+   of them (AdamW's step is ~ lr sign(g), so a gradient near 0 may flip
+   it); the host's peak RSS is logged. (b) `repro_torch.launch.train
+   --arch internlm2-1.8b --steps 12 --batch 8 --seq 64` at full width and
+   depth in the config's bf16 with AdamW: main() exits 0, 12 finite
+   losses, 1,889,110,016 parameters trained; tokens/s, the median step,
+   the first and last loss and the peak device memory against the
+   modelled states (params, grads, mu, nu: 12 B a parameter) are logged;
+   no checkpoint is written (a save would copy ~19 GB of params, mu and
+   nu to the host). Then 3 warm steps of that shape in each remat policy
+   (none, full, dots: time a step and peak memory above the states), and
+   3 in the config's (dots) profiled as in phase 22. (c) At internlm2-smoke (f32) on the card: a run that fails
+   at step 8 of 12 and restarts from its checkpoint ends on the
+   uninterrupted run's params bit for bit; 4 microbatches against 1 at the
+   reference's bar (loss 1e-4, params rtol 2e-3, atol 2e-5).
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -5565,6 +5586,360 @@ def phase_lm(dev):
         f"{greedy[0][0] != temp[0][0]}")
 
 
+TRAIN_PARITY_LAYERS = 2         # (a): full width, depth cut (~12 GB host)
+TRAIN_B, TRAIN_S = 2, 16        # (a)'s batch
+TRAIN_STEPS = 12                # (b)'s steps; the launcher's schedule
+TRAIN_LR = 3e-3                 # the launcher's default peak
+TRAIN_AT = TRAIN_STEPS // 10 + 1    # (a) steps at the warm-up's end: lr peak
+TRAIN_LOSS_RTOL = 1e-4          # (a): loss, grad norm, card against CPU
+TRAIN_GRAD_TOL = 1e-3           # (a): of each gradient leaf's largest entry
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6     # (a), (c) tight bars
+TRAIN_TIGHT_SHARE = 0.99        # (a): params within the tight bar
+TRAIN_ARGV = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+              "8", "--seq", "64", "--device", "cuda", "--ckpt-every", "1000"]
+TRAIN_PROFILE_STEPS = 3         # (b): warm steps under torch.profiler
+# (b): params + grads (bf16) + AdamW's mu + nu (f32), bytes a parameter
+TRAIN_STATE_BYTES = 2 + 2 + 4 + 4
+TRAIN_MICRO_LOSS, TRAIN_MICRO_RTOL, TRAIN_MICRO_ATOL = 1e-4, 2e-3, 2e-5
+
+
+def rss_gib() -> tuple:
+    """(the process's resident set now, its peak), GiB."""
+    import resource
+    now = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) / 2 ** 20
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def train_parity(dev, card):
+    """(a): one AdamW step of internlm2-1.8b at full width, depth cut to
+    TRAIN_PARITY_LAYERS, in f32, on the card and on the host from the
+    same weights and batch, at the launcher's schedule where its warm-up
+    ends (lr = its peak): the loss, every gradient leaf, the step's loss
+    and grad norm and the params after it, card against host."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.tokens import SyntheticTokenDataset
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import step as ts
+    from repro_torch.utils.tree import tree_count, tree_leaves, tree_map
+    cfg = ARCHS[LM_ARCH].replace(dtype="float32",
+                                 n_layers=TRAIN_PARITY_LAYERS)
+    card_model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    host_model = lm.DecoderLM(cfg, device="cpu", params=tree_map(
+        lambda p: p.detach().to("cpu", copy=True), card_model.param_tree()))
+    n_params = tree_count(card_model.param_tree())
+    schedule = warmup_cosine(peak=TRAIN_LR, warmup_steps=TRAIN_AT,
+                             total_steps=TRAIN_STEPS)
+    batch = SyntheticTokenDataset(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B, seed=0).batch(0)
+    out = {}
+    for tag, model in (("card", card_model), ("host", host_model)):
+        opt = adamw()
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = ts.value_and_grad(
+            model, ts.to_device(batch, model.device))
+        grads = [g.cpu() for g in tree_leaves(grads)]
+        params = model.param_tree()
+        state = ts.TrainState(params=params, opt_state=opt.init(params),
+                              step=torch.tensor(TRAIN_AT, dtype=torch.int32,
+                                                device=model.device))
+        state, met = ts.make_train_step(model, opt, schedule=schedule)(
+            state, batch)
+        met = {k: float(v) for k, v in met.items()}     # waits
+        out[tag] = (float(loss), grads, met,
+                    [p.detach().cpu() for p in tree_leaves(state.params)],
+                    time.perf_counter() - t0)
+        del state, params
+    (l_c, g_c, m_c, p_c, t_c), (l_h, g_h, m_h, p_h, t_h) = \
+        out["card"], out["host"]
+    names = [k for k, _ in card_model.named_parameters()]
+    grad_errs = [float((a - b).abs().max()) / float(b.abs().max())
+                 for a, b in zip(g_c, g_h)]
+    worst = max(range(len(names)), key=lambda i: grad_errs[i])
+    lr = m_h["lr"]
+    n_tight = n_all = 0
+    p_worst = 0.0
+    for a, b in zip(p_c, p_h):
+        err = (a - b).abs()
+        check(bool((err <= TRAIN_PARAM_RTOL * b.abs() + lr).all()),
+              f"train (a): a param moved more than lr = {lr} apart")
+        n_tight += int((err <= TRAIN_PARAM_RTOL * b.abs()
+                        + TRAIN_PARAM_ATOL).sum())
+        n_all += err.numel()
+        p_worst = max(p_worst, float(err.max()))
+    errs = {k: abs(m_c[k] - m_h[k]) / abs(m_h[k])
+            for k in ("loss", "grad_norm")}
+    check(abs(l_c - l_h) <= TRAIN_LOSS_RTOL * abs(l_h)
+          and max(errs.values()) <= TRAIN_LOSS_RTOL,
+          f"train (a): card loss {l_c} / step {m_c} against the host's "
+          f"{l_h} / {m_h} (rtol {TRAIN_LOSS_RTOL})")
+    check(max(grad_errs) <= TRAIN_GRAD_TOL,
+          f"train (a): gradient of {names[worst]} {grad_errs[worst]:.3e} "
+          f"of its largest entry apart (bar {TRAIN_GRAD_TOL})")
+    check(m_c["lr"] == m_h["lr"] == float(np.float32(TRAIN_LR)) and all(
+        np.isfinite(list(m_c.values()))),
+        f"train (a): lr {m_c['lr']} / {m_h['lr']}, expected {TRAIN_LR}")
+    check(n_tight >= TRAIN_TIGHT_SHARE * n_all,
+          f"train (a): {n_tight} of {n_all} params within the tight bar")
+    now, peak = rss_gib()
+    log(f"[smoke] train (a) {LM_ARCH} full width, {cfg.n_layers} layers, "
+        f"f32, {n_params:,} params, B={TRAIN_B} S={TRAIN_S}: loss card "
+        f"{l_c:.7f} host {l_h:.7f}; gradient leaves within "
+        f"{max(grad_errs):.3e} of their largest entry (worst "
+        f"{names[worst]}; bar {TRAIN_GRAD_TOL}); AdamW step at lr "
+        f"{lr:g} (schedule step {TRAIN_AT}): loss rel {errs['loss']:.3e}, "
+        f"grad norm {m_c['grad_norm']:.6f} rel {errs['grad_norm']:.3e} (bar "
+        f"{TRAIN_LOSS_RTOL}); params after it: {n_tight / n_all:.6f} within "
+        f"{TRAIN_PARAM_RTOL}|p| + {TRAIN_PARAM_ATOL}, all within lr, max "
+        f"abs {p_worst:.3e}; card {t_c:.3f}s, host {t_h:.3f}s (threads "
+        f"{torch.get_num_threads()}); host RSS {now:.2f} GiB now, peak "
+        f"{peak:.2f} GiB; {card}")
+    del card_model, host_model, out, g_c, g_h, p_c, p_h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_full(dev, card, tmpdir):
+    """(b): `launch.train.main` at internlm2-1.8b's full width and depth in
+    the config's bf16 (AdamW), TRAIN_STEPS steps of 8 x 64 tokens, no
+    checkpoint written: a save at this size would copy ~19 GB of params,
+    mu and nu to the host. Returns the step spans' median ms."""
+    import contextlib
+    import io
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.launch import train as launch_train
+    argv = TRAIN_ARGV + ["--ckpt-dir", os.path.join(tmpdir, "full")]
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with obs.session():
+        obs.clear()
+        with contextlib.redirect_stdout(buf):
+            rc = launch_train.main(list(argv))
+        events = [e for e in obs.events() if e.get("ph") == "X"]
+        n_params = obs.metrics.gauge_value("train.params")
+    spans = [e for e in events if e.get("name") == "train.step"]
+    parts = {name: statistics.median(e["dur"] / 1e3 for e in events
+                                     if e.get("name") == name)
+             for name in ("train.grads", "train.update")}
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[smoke] train (b) | {line}")
+    losses = [s["args"]["loss"] for s in spans]
+    ms = [s["dur"] / 1e3 for s in spans]
+    check(rc == 0 and len(lines) == 2, f"train (b): main() gave {rc}")
+    check(len(spans) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train (b): {len(spans)} steps, losses {losses}")
+    check(n_params == LM_PARAMS,
+          f"train (b): {n_params:.0f} parameters trained, not {LM_PARAMS}")
+    tok_s = float(lines[0].split("tok/s=")[1].split()[0])
+    first, last = (float(x.split("=")[1]) for x in lines[1].split()[2:])
+    check(abs(first - losses[0]) < 1e-4 and abs(last - losses[-1]) < 1e-4,
+          f"train (b): printed losses {first} / {last}, spans' "
+          f"{losses[0]} / {losses[-1]}")
+    states = LM_PARAMS * TRAIN_STATE_BYTES
+    med = statistics.median(ms)
+    med_tok_s = 8 * 64 / med * 1e3
+    log(f"[smoke] train (b) {LM_ARCH} full width and depth, bf16, AdamW, "
+        f"{LM_PARAMS:,} params, {TRAIN_STEPS} steps of 8 x 64 tokens: "
+        f"main() {wall:.3f}s; the launcher's {tok_s:.0f} tok/s (its wall "
+        f"includes the weights' draws); step median {med:.3f} ms "
+        f"({med_tok_s:.0f} tok/s), min {min(ms):.3f}, max {max(ms):.3f}, the "
+        f"first {ms[0]:.3f} (medians: train.grads "
+        f"{parts['train.grads']:.3f}, train.update "
+        f"{parts['train.update']:.3f}); loss first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f}; peak {peak / 1e9:.3f} GB above the start "
+        f"against the modelled states {states / 1e9:.3f} GB (params, "
+        f"grads, mu, nu); {card}")
+    return med
+
+
+def train_profile(dev, card):
+    """(b) continued, at (b)'s shape: TRAIN_PROFILE_STEPS warm steps in
+    each remat policy (host clock around a synchronised run; the peak
+    device memory above the start, where the states already live), then
+    the config's policy under torch.profiler as phase 22 profiles its
+    paths: the device's idle share, its kernels a step and the ops that
+    take its time."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.tokens import SyntheticTokenDataset
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as ts
+    cfg = ARCHS[LM_ARCH]
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    opt = adamw()
+    step = ts.make_train_step(model, opt,
+                              schedule=lambda s: torch.tensor(
+                                  TRAIN_LR, device=s.device))
+    params = model.param_tree()
+    box = [ts.TrainState(params=params, opt_state=opt.init(params),
+                         step=torch.zeros((), dtype=torch.int32,
+                                          device=dev))]
+    ds = SyntheticTokenDataset(vocab=cfg.vocab, seq_len=64,
+                               global_batch=8, seed=1)
+
+    def steps():
+        for _ in range(TRAIN_PROFILE_STEPS):
+            box[0], met = step(box[0], ds.batch(int(box[0].step)))
+        return met
+
+    costs = []
+    for policy in ("none", "full", cfg.remat):
+        model.cfg = cfg.replace(remat=policy)
+        float(steps()["loss"])      # warm: cuBLAS handles, the allocator
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(steps()["loss"])       # waits
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_PROFILE_STEPS
+        peak = torch.cuda.max_memory_allocated() - start
+        check(np.isfinite(loss), f"train (b) remat {policy}: loss {loss}")
+        costs.append(f"{policy} {ms:.3f} ms a step, peak +{peak / 1e9:.3f} "
+                     f"GB")
+    log(f"[smoke] train (b) remat at 8 x 64 tokens, {TRAIN_PROFILE_STEPS} "
+        f"warm steps each: {'; '.join(costs)}; {card}")
+    idle = idle_profile(f"train x{TRAIN_PROFILE_STEPS} ({cfg.dtype}, "
+                        f"AdamW, remat {cfg.remat}, 8 x 64 tokens)", steps,
+                        dev, counted=False)
+    log(f"[smoke] train (b) step profile: idle share {idle:.4f} on {card}")
+
+
+def train_restart(dev, card, tmpdir):
+    """(c): at internlm2-smoke (f32) on the card, a run that fails at step
+    8 of 12 and restarts from its step-5 checkpoint ends on the
+    uninterrupted run's params bit for bit (tests/test_torch_trainer.py's
+    check on the host); then 4 microbatches against 1 at the reference's
+    bar (glm4-9b's smoke config, SGD)."""
+    import torch
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.data.tokens import SyntheticTokenDataset
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw, sgdm
+    from repro_torch.runtime.trainer import FaultTolerantTrainer
+    from repro_torch.train import step as ts
+    from repro_torch.utils.tree import tree_leaves
+
+    def trainer(tag):
+        cfg = SMOKES[LM_ARCH]
+        model = lm.build_model(cfg, device=dev)
+        opt = adamw()
+        ds = SyntheticTokenDataset(vocab=cfg.vocab, seq_len=16,
+                                   global_batch=4, seed=5)
+        return FaultTolerantTrainer(
+            train_step=ts.make_train_step(model, opt),
+            init_state=ts.make_train_state_init(model, opt), dataset=ds,
+            ckpt_dir=os.path.join(tmpdir, tag), checkpoint_every=5,
+            device=dev), model
+
+    t0 = time.perf_counter()
+    clean, m_clean = trainer("clean")
+    rep_clean = clean.run(n_steps=12, seed=0)
+    final = [p.detach().clone() for p in m_clean.parameters()]
+    faulty, m_faulty = trainer("faulty")
+    rep = faulty.run(n_steps=12, seed=0, fail_at_step=8)
+    same = all(torch.equal(a, b) for a, b in zip(final,
+                                                 m_faulty.parameters()))
+    s_clean, _ = clean.manager.restore(clean.init_state(clean.generator(0)))
+    s_faulty, _ = faulty.manager.restore(
+        faulty.init_state(faulty.generator(0)))
+    same_ckpt = all(torch.equal(a, b) for a, b in
+                    zip(tree_leaves(s_clean), tree_leaves(s_faulty)))
+    check(rep_clean.restarts == 0 and rep.restarts == 1
+          and rep.final_step == 12 and rep.steps_run == 15,
+          f"train (c): reports {rep_clean} / {rep}")
+    check(same and same_ckpt and rep.losses[8:11] == rep_clean.losses[5:8],
+          f"train (c): restart != uninterrupted on the card (final params "
+          f"equal {same}, step-10 checkpoints equal {same_ckpt})")
+    t_restart = time.perf_counter() - t0
+
+    cfg = SMOKES["glm4-9b"]
+    batch = SyntheticTokenDataset(vocab=cfg.vocab, seq_len=16,
+                                  global_batch=8, seed=1).batch(0)
+    res = {}
+    for n in (1, 4):
+        model = lm.build_model(
+            cfg, generator=torch.Generator(device=dev).manual_seed(1),
+            device=dev)
+        opt = sgdm(momentum=0.0)
+        state = ts.make_train_state_init(model, opt)(
+            torch.Generator(device=dev).manual_seed(1))
+        state, met = ts.make_train_step(
+            model, opt, schedule=lambda s: torch.tensor(1e-2, device=dev),
+            n_microbatches=n)(state, batch)
+        res[n] = (float(met["loss"]), [p.detach().clone()
+                                       for p in tree_leaves(state.params)])
+    d_loss = abs(res[1][0] - res[4][0])
+    close = all(torch.allclose(a, b, rtol=TRAIN_MICRO_RTOL,
+                               atol=TRAIN_MICRO_ATOL)
+                for a, b in zip(res[1][1], res[4][1]))
+    d_param = max(float((a - b).abs().max())
+                  for a, b in zip(res[1][1], res[4][1]))
+    check(d_loss < TRAIN_MICRO_LOSS and close,
+          f"train (c): 4 microbatches against 1: loss {d_loss:.3e}, params "
+          f"max abs {d_param:.3e}")
+    log(f"[smoke] train (c) internlm2-smoke f32 on the card: fail at 8 of "
+        f"12, restart from step 5 -> final params == uninterrupted bit for "
+        f"bit, step-10 checkpoints equal, replayed losses equal "
+        f"({rep.steps_run} steps run, {t_restart:.3f}s both runs); glm4 "
+        f"smoke, 4 microbatches against 1: loss {d_loss:.3e} (bar "
+        f"{TRAIN_MICRO_LOSS}), params max abs {d_param:.3e} (bar rtol "
+        f"{TRAIN_MICRO_RTOL}, atol {TRAIN_MICRO_ATOL}); {card}")
+
+
+def phase_train(dev):
+    """Phase 26: the LM training path (optim, train.step, the trainer,
+    launch.train)."""
+    import gc
+    import tempfile
+
+    import torch
+    card = card_line()
+    tmpdir = tempfile.mkdtemp(prefix="repro_torch_train.")
+    try:
+        t0 = time.perf_counter()
+        train_parity(dev, card)
+        log(f"[smoke] train (a) {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        train_full(dev, card, tmpdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_profile(dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[smoke] train (b) {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        train_restart(dev, card, tmpdir)
+        log(f"[smoke] train (c) {time.perf_counter() - t0:.2f}s")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def main() -> int:
     import tempfile
 
@@ -5687,6 +6062,10 @@ def run_phases(torch, dev, cache_dir) -> int:
     t0 = time.perf_counter()
     phase_lm(dev)
     log(f"[smoke] phase 25 (LM serving path) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_train(dev)
+    log(f"[smoke] phase 26 (LM training path) "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 

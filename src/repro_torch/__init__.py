@@ -13,11 +13,16 @@ each module here has a twin there at the same relative path:
   pipeline/      features -> p under one plan (bridges, out of core)
   serve/         the PERMANOVA service and the LM decode loop
   configs/       the LM architectures (the reference's, field for field)
-  models/        the dense decoder LM (attention, blocks, DecoderLM)
+  models/        the dense decoder LM (attention, blocks, DecoderLM, its
+                 loss)
+  optim/         AdamW, Adafactor, SGDM, schedules, gradient compression
+  train/         the training step (microbatches, clip, optimizer)
+  runtime/       the serving runtime and the fault-tolerant trainer
+  utils/         tree and timing helpers
   launch/        the permanova CLI (matrix, features and cache paths;
                  --distributed / --shard-rows under torchrun), the serve
-                 CLI (permanova, lm) and the DeviceMesh helpers
-                 (launch/mesh.py)
+                 CLI (permanova, lm), the training CLI and the DeviceMesh
+                 helpers (launch/mesh.py)
 
 Entry points run on the card (`device="cuda"`) and raise when there is
 none; pass `device="cpu"` to run the plain PyTorch forms on the host.

@@ -15,9 +15,10 @@ Layout:  <dir>/step_<N>/
     bucket on the serving path).
 
 Only the tree and dtype code differs from the reference. A tree is nested
-dicts, lists and tuples of torch tensors, numpy arrays and scalars; its
-leaves are keyed by their path as `jax.tree_util` keys them (dict keys
-sorted, list and tuple indices, joined by '/'), and None is an empty
+dicts, lists, tuples and dataclasses (a `train.step.TrainState`) of torch
+tensors, numpy arrays and scalars (`utils.tree`); its leaves are keyed by
+their path as `jax.tree_util` keys them (dict keys sorted, list and tuple
+indices and dataclass field indices, joined by '/'), and None is an empty
 subtree. npz holds no bf16 or fp8, so those leaves are stored as integer
 bit views (torch's own views, no ml_dtypes) under their true dtype name in
 the manifest. A checkpoint written by either package opens in the other.
@@ -35,6 +36,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.utils.tree import leaves_with_paths as _flatten_with_paths
+from repro_torch.utils.tree import unflatten as _unflatten
 
 # dtype name in the manifest -> (torch dtype, the torch integer view of its
 # bits and that view's numpy twin, the numpy dtype npz stores: the
@@ -70,38 +74,8 @@ def _decode(arr: np.ndarray, dtype_name: str, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def _flatten_with_paths(tree, prefix=()):
-    """[(path tuple, leaf)] in jax.tree_util's order: dict keys sorted,
-    sequences by index; None holds no leaf."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten_with_paths(tree[k], prefix + (k,))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten_with_paths(v, prefix + (i,))
-        return out
-    return [(prefix, tree)]
-
-
 def _key(path) -> str:
     return "/".join(str(p) for p in path)
-
-
-def _unflatten(template, leaves):
-    """The template's structure with its leaves replaced, in order."""
-    if template is None:
-        return None
-    if isinstance(template, dict):
-        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
-    if isinstance(template, (list, tuple)):
-        vals = [_unflatten(v, leaves) for v in template]
-        return tuple(vals) if isinstance(template, tuple) else vals
-    return leaves.pop(0)
 
 
 def _write(encoded: dict, dtypes: dict, directory, *, step: int,

@@ -2,13 +2,17 @@
 
 `np.asarray` of a JAX array is read-only, and `torch.from_numpy` warns on
 (and would alias) such an array, so read-only inputs are copied.
-`lm_params_from_reference` carries an LM's weights across.
+`lm_params_from_reference` carries an LM's weights across,
+`train_state_from_reference` a training state (weights, optimizer state,
+step), so both packages start a step from the same state.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.utils.tree import tree_map
 
 
 def _tensor(a, dtype, device):
@@ -54,6 +58,20 @@ def _tensor_tree(specs, arrays, device, layer=None):
             for k, spec in specs.items()}
 
 
+def _param_tree(cfg, params, dev) -> dict:
+    """The reference's param tree (numpy, layers stacked) as the port's
+    (a list of per-layer trees), each leaf checked against its spec and
+    in its spec's dtype."""
+    from repro_torch.models import model
+    specs = model.param_specs(cfg)
+    arrays = _float_tree(specs, params)
+    tree = {k: _tensor_tree(specs[k], arrays[k], dev)
+            for k in ("embed", "final_norm", "unembed")}
+    tree["layers"] = [_tensor_tree(specs["layers"], arrays["layers"], dev,
+                                   layer=l) for l in range(cfg.n_layers)]
+    return tree
+
+
 def lm_params_from_reference(cfg, params, *, device):
     """A `models.model.DecoderLM` on `device` holding the reference's
     weights: `params` is the reference model's param tree as numpy arrays
@@ -63,10 +81,49 @@ def lm_params_from_reference(cfg, params, *, device):
     from repro_torch.hw import resolve_device
     from repro_torch.models import model
     dev = resolve_device(device)
-    specs = model.param_specs(cfg)
-    arrays = _float_tree(specs, params)
-    tree = {k: _tensor_tree(specs[k], arrays[k], dev)
-            for k in ("embed", "final_norm", "unembed")}
-    tree["layers"] = [_tensor_tree(specs["layers"], arrays["layers"], dev,
-                                   layer=l) for l in range(cfg.n_layers)]
-    return model.DecoderLM(cfg, device=dev, params=tree)
+    return model.DecoderLM(cfg, device=dev,
+                           params=_param_tree(cfg, params, dev))
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype; an ml_dtypes bfloat16
+    array (np.asarray of a JAX bf16 array) widens exactly through f32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return _tensor(a.astype(np.float32), torch.bfloat16, device)
+    return _tensor(a, None, device)
+
+
+def _per_layer(tree, n_layers: int, device) -> dict:
+    """A param-shaped numpy tree of the reference (layers stacked) in the
+    port's layout: 'layers' split into a list of per-layer trees."""
+    out = {k: tree_map(lambda a: _leaf(a, device), v)
+           for k, v in tree.items() if k != "layers"}
+    out["layers"] = [tree_map(lambda a, l=l: _leaf(np.asarray(a)[l],
+                                                   device), tree["layers"])
+                     for l in range(n_layers)]
+    return out
+
+
+def train_state_from_reference(cfg, state, *, device):
+    """The port's `train.step.TrainState` on `device` from the
+    reference's, as numpy (`jax.tree.map(np.asarray, state)`): the
+    stacked params (checked against the specs, in the config's dtype),
+    the optimizer state and the step. AdamW's `mu` / `nu` and SGDM's `m`
+    are split per layer like the params; Adafactor's `f` stays stacked,
+    the layout its statistics need (`optim.optimizers.stack_layers`).
+    The params are fresh tensors: the first step copies them into the
+    model it trains."""
+    from repro_torch.hw import resolve_device
+    from repro_torch.train.step import TrainState
+    dev = resolve_device(device)
+    ref = state.opt_state
+    opt_state = {}
+    for k, v in ref.items():
+        if k in ("mu", "nu", "m"):
+            opt_state[k] = _per_layer(v, cfg.n_layers, dev)
+        else:       # Adafactor's stacked 'f', a 'count'
+            opt_state[k] = tree_map(lambda a: _leaf(a, dev), v)
+    return TrainState(params=_param_tree(cfg, state.params, dev),
+                      opt_state=opt_state,
+                      step=_leaf(state.step, dev))

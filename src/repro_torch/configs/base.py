@@ -8,9 +8,10 @@ of the same family for CPU tests. Input-shape cells come from SHAPES below
 
 The port builds only the dense family so far (`models/model.py`). The
 MoE, SSM, xLSTM, enc-dec and VLM fields are kept as data, so every config
-compares equal to the reference's; so are `remat` and `decode_unroll`,
-which have no effect here (the port's stacks are Python loops over
-per-layer modules, and serving runs under `torch.inference_mode()`).
+compares equal to the reference's; so is `decode_unroll`, which has no
+effect here (the port's decode stacks are Python loops over per-layer
+modules). `remat` checkpoints each layer of a training forward
+(`models/blocks.stack_forward`).
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ class ArchConfig:
 
     # runtime
     max_seq: int = 8192              # learned-pos table size
-    remat: str = "dots"              # no effect in the port yet
+    remat: str = "dots"              # none | full | dots
     attn_q_chunk: int = 1024
     ssd_chunk: int = 128
     decode_unroll: bool = False      # no effect in the port

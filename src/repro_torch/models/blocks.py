@@ -2,18 +2,26 @@
 `repro/models/blocks.py`).
 
 The reference scans stacked params with `jax.lax.scan`; the port holds one
-params module per layer and loops over them in Python, so the stacks
-take no `remat` or `unroll` knob (the configs keep those fields as data).
-With no mesh the reference's activation sharding constraints are the
-identity, so the port has none. The MoE, mamba, xLSTM and encoder blocks come with the other
+params module per layer and loops over them in Python, so the decode
+stacks take no `unroll` knob (the configs keep the field as data).
+`stack_forward`'s `remat` checkpoints each layer while gradients are
+recorded: "full" (`jax.checkpoint`) recomputes the whole layer in the
+backward pass, "dots" (`dots_with_no_batch_dims_saveable`) keeps the
+outputs of the weight products (`aten.mm` / `aten.addmm`) and recomputes
+the rest. Remat changes memory, never the bits. With no mesh the
+reference's activation sharding constraints are the identity, so the port
+has none. The MoE, mamba, xLSTM and encoder blocks come with the other
 families.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, mlp, nn
 
@@ -93,15 +101,45 @@ def decoder_block_decode_readonly(params, cfg, x, cache, cache_len):
 # Layer stacks (a Python loop over the per-layer params)
 # ---------------------------------------------------------------------------
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    # the weight products have no batch dims once matmul folds (B, S) into
+    # rows; the attention's batched products (bmm) are recomputed
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, policy: Optional[str]):
+    if policy is None or policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(policy)
+
+
 def stack_forward(layers: Sequence, cfg, x, positions, *, causal=True,
-                  q_chunk=1024, collect_kv=False):
+                  q_chunk=1024, remat: Optional[str] = "dots",
+                  collect_kv=False):
     """Run the decoder stack. Returns (x, aux_sum, (k, v) stacked over
-    layers as (L, B, S, KVH, Dh), or None)."""
+    layers as (L, B, S, KVH, Dh), or None). `remat` applies only while
+    gradients are recorded."""
+    def body(layer, x):
+        return decoder_block(layer, cfg, x, positions, causal=causal,
+                             q_chunk=q_chunk)
+
+    if torch.is_grad_enabled():
+        body = _maybe_remat(body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for layer in layers:
-        x, a, (k, v) = decoder_block(layer, cfg, x, positions,
-                                     causal=causal, q_chunk=q_chunk)
+        x, a, (k, v) = body(layer, x)
         aux = aux + a
         if collect_kv:
             ks.append(k)
@@ -114,15 +152,18 @@ def _layer_cache(caches, l):
     return {"k": caches["k"][l], "v": caches["v"][l]}
 
 
+@torch.no_grad()
 def stack_decode(layers: Sequence, cfg, x, caches, cache_len):
     """Decode across layers; caches {'k': (L,B,S,KV), 'v': ...}, each
-    layer's column written in place. Returns (x, caches)."""
+    layer's column written in place. Returns (x, caches). The decode
+    stacks are serving's: they record no gradient of the weights."""
     for l, layer in enumerate(layers):
         x, _ = decoder_block_decode(layer, cfg, x, _layer_cache(caches, l),
                                     cache_len)
     return x, caches
 
 
+@torch.no_grad()
 def stack_decode_readonly(layers: Sequence, cfg, x, caches, cache_len):
     """Decode across layers reading caches without writing them; returns
     (x, k_news, v_news), the per-layer new k/v stacked as (L, B, 1, KV)

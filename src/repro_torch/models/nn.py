@@ -109,9 +109,9 @@ def stack_specs(spec_tree, n: int):
 
 
 class Params(torch.nn.Module):
-    """A param tree as a module: a leaf is a (frozen) Parameter, a subtree
-    a child Params. `params[key]` and `key in params` read either, as on
-    the reference's dicts."""
+    """A param tree as a module: a leaf is a trainable Parameter, a
+    subtree a child Params. `params[key]` and `key in params` read either,
+    as on the reference's dicts."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -119,14 +119,20 @@ class Params(torch.nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, Params(v))
             else:
-                self.register_parameter(
-                    k, torch.nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, torch.nn.Parameter(v))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+    def tree(self) -> dict:
+        """The params as a nested dict of this module's own Parameters
+        (not copies), keys sorted."""
+        return {k: (self._modules[k].tree() if k in self._modules
+                    else self._parameters[k])
+                for k in sorted([*self._parameters, *self._modules])}
 
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -1,13 +1,13 @@
-"""Fault-tolerant runtime of the serving path (twin of `repro.runtime`).
+"""Fault-tolerant runtime of the serving and training paths (twin of
+`repro.runtime`).
 
   faultinject  seeded, clock-driven chaos: worker death, stragglers,
                dropped heartbeats, simulated device OOM, corrupt caches
   heartbeat    failure detection with incarnation fencing
   elastic      the bag of idempotent permutation blocks: re-dispatch,
                speculation, zombie fencing, partial runs and resume
-
-The reference's `FaultTolerantTrainer` belongs to the LM scaffold and is
-not ported here.
+  trainer      the LM's fault-tolerant training loop (checkpoint/restart
+               with a rewound data cursor)
 """
 
 from repro_torch.runtime.heartbeat import HeartbeatMonitor, WorkerState  # noqa: F401
@@ -23,3 +23,4 @@ from repro_torch.runtime.faultinject import (  # noqa: F401
     SimulatedOOM,
     VirtualClock,
 )
+from repro_torch.runtime.trainer import FaultTolerantTrainer  # noqa: F401
