@@ -421,6 +421,29 @@ Phases, each timed:
    at step 8 of 12 and restarts from its checkpoint ends on the
    uninterrupted run's params bit for bit; 4 microbatches against 1 at the
    reference's bar (loss 1e-4, params rtol 2e-3, atol 2e-5).
+27. The other LM families (MoE, VLM, hybrid, xLSTM, enc-dec), weights
+   drawn on the card from seed 0. (a) In f32 at full width, prefill and 4
+   decode steps on the card and, the model moved to the host, on the
+   same tokens there, within 1e-3 of the logits: zamba2-1.2b, xlstm-350m
+   and whisper-base (1,500 frames) at full depth, qwen2-moe-a2.7b cut to
+   2 layers and internvl2-76b to 1 with a 256-token vision prefix (the
+   host's copy under ~16 GB). (b) At the smoke configs in f32, the decode
+   loop == the teacher-forced logits within 2e-4 for each family (MoE at
+   capacity factor 8, whisper with its frames). (c) In the configs' bf16
+   at the launcher's defaults: `repro_torch.launch.serve lm --arch
+   qwen2-moe-a2.7b` (and zamba2-1.2b, xlstm-350m) at full width and
+   depth, main() then a measured run; grok-1-314b (2 of 64 layers) and
+   internvl2-76b (8 of 80) through ServeLoop; whisper-base's
+   prefill(frames) and 16 greedy steps. Every request done, every token
+   in [0, vocab); tokens/s, the median serve.step, the peak against
+   weights plus caches, and one warm decode step of each profiled as in
+   phase 22 (kernels a step, idle share). (d) bf16, AdamW at peak lr
+   1e-5 (FAM_TRAIN_LR: the default 3e-3 spikes at full width, in the
+   reference too), 8 x 64 tokens: `repro_torch.launch.train` for
+   zamba2-1.2b and xlstm-350m at full width and depth (6 steps), and
+   qwen2-moe-a2.7b cut to 4 layers through the train API (3 steps):
+   finite losses, the last below the first; the step median and the peak
+   against the modelled states are logged.
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -5940,6 +5963,527 @@ def phase_train(dev):
         shutil.rmtree(tmpdir, ignore_errors=True)
 
 
+FAM_LOGIT_BAR = LM_LOGIT_BAR    # (a): card == CPU, f32, unit-scale logits
+FAM_TF_BAR = 2e-4               # (b): the reference's decode == teacher-forced
+FAM_STEPS = 4                   # (a): decode steps after prefill
+FAM_VIS = 256                   # (a): internvl2's vision prefix
+FAM_FRAMES = 1500               # whisper's 30 s of frames (init_caches' default)
+FAM_NO_DROP = 8.0               # (b): MoE capacity factor, as the reference's test
+# (a): (arch, depth cut or None): the host's f32 copy stays under ~16 GB
+FAM_CARD_CPU = (("zamba2-1.2b", None), ("xlstm-350m", None),
+                ("whisper-base", None), ("qwen2-moe-a2.7b", 2),
+                ("internvl2-76b", 1))
+# (c): the launcher at full width and depth, its defaults but the arch
+FAM_DEMOS = ("qwen2-moe-a2.7b", "zamba2-1.2b", "xlstm-350m")
+# (c): ServeLoop at full width, depth cut (the launcher has no depth flag)
+FAM_LOOPS = (("grok-1-314b", 2), ("internvl2-76b", 8))
+FAM_TRAIN_STEPS = 6             # (d): launcher steps, 8 x 64 tokens
+# (d): the peak lr, by the launcher's own flag. At its default 3e-3 the
+# losses spike at full width in bf16, in the reference too (8 layers on
+# the host: xlstm-350m 11.29 -> 15.92 by the fourth step, zamba2-1.2b
+# 10.94 -> 19.47, grad norms ~150-600); the reference's zamba2 at full
+# depth still spikes at 1e-4 (10.78 -> 9.69 -> 13.47); at 1e-5 the
+# port's falls every step on the card
+FAM_TRAIN_LR = 1e-5
+FAM_TRAIN_ARGS = {arch: ["--lr", str(FAM_TRAIN_LR)]
+                  for arch in ("zamba2-1.2b", "xlstm-350m")}
+FAM_TRAIN_MOE_LAYERS = 4        # (d): qwen2-moe through the train API
+FAM_TRAIN_MOE_STEPS = 3
+
+
+def fam_batch(cfg, dev, b=LM_B, t=LM_T, seed=1):
+    """The family's inputs on `dev`: tokens, internvl2's vision prefix,
+    whisper's frames (numpy draws from `seed`)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, size=(b, t)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = rng.normal(size=(b, FAM_VIS, cfg.d_model)) \
+            .astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(b, FAM_FRAMES, cfg.d_model)) \
+            .astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
+def fam_prefill_and_steps(model, batch, toks=None):
+    """(prefill's last logits and FAM_STEPS decode steps' logits on its
+    caches, the tokens fed: `toks`, or each step's argmax)."""
+    import torch
+    n_vis = batch["vision_embeds"].shape[1] if "vision_embeds" in batch \
+        else 0
+    s0 = batch["tokens"].shape[1] + n_vis
+    logits, caches = model.prefill(batch, max_len=s0 + FAM_STEPS)
+    outs, fed = [logits], []
+    for i in range(FAM_STEPS):
+        nxt = (toks[i] if toks is not None else torch.argmax(
+            logits[:, -1], dim=-1).to(torch.int32)[:, None])
+        fed.append(nxt)
+        logits, caches = model.decode_step(nxt, caches, s0 + i)
+        outs.append(logits)
+    return outs, fed
+
+
+def fam_card_vs_cpu(dev, card):
+    """(a): each family in f32 at full width (depth cut where the host's
+    copy would pass ~16 GB), prefill + FAM_STEPS decode steps on the card,
+    then the same weights moved to the host and the same tokens there."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model as lm
+    for arch, cut in FAM_CARD_CPU:
+        over = {"dtype": "float32", "kv_cache_dtype": "float32"}
+        if cut:
+            over["n_layers"] = cut
+        cfg = ARCHS[arch].replace(**over)
+        t0 = time.perf_counter()
+        model = lm.build_model(
+            cfg, generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = fam_batch(cfg, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        card_out, fed = fam_prefill_and_steps(model, batch)
+        card_out = [x.cpu() for x in card_out]
+        t_card = time.perf_counter() - t1
+        model.to("cpu")
+        cpu_out, _ = fam_prefill_and_steps(
+            model, {k: v.cpu() for k, v in batch.items()},
+            toks=[x.cpu() for x in fed])
+        t_cpu = time.perf_counter() - t1 - t_card
+        errs = [float((c - h).abs().max()) for c, h in zip(card_out, cpu_out)]
+        scale = max(float(h.abs().max()) for h in cpu_out)
+        check(all(e == e for e in errs) and max(errs) <= FAM_LOGIT_BAR,
+              f"family (a) {arch}: card != CPU logits {errs} (bar "
+              f"{FAM_LOGIT_BAR})")
+        log(f"[smoke] family (a) {arch} f32, full width, "
+            f"{cfg.n_layers} layers{' (cut)' if cut else ''}, "
+            f"{n_params:,} parameters, B={LM_B} T={LM_T}"
+            f"{f' + {FAM_VIS} vision tokens' if cfg.family == 'vlm' else ''}"
+            f"{f' + {FAM_FRAMES} frames' if cfg.family == 'encdec' else ''}: "
+            f"card == CPU, prefill {errs[0]:.3e}, {FAM_STEPS} decode steps "
+            f"max {max(errs[1:]):.3e} (bar {FAM_LOGIT_BAR}; max |logit| "
+            f"{scale:.3f}); card {t_card:.3f}s, host {t_cpu:.3f}s, all "
+            f"{time.perf_counter() - t0:.3f}s; {card}")
+        del model, card_out, cpu_out, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def fam_teacher_forced(model, batch):
+    """Every text position's f32 logits by the forward pass."""
+    import torch
+    from repro_torch.models import model as lm
+    with torch.inference_mode():
+        toks = batch["tokens"]
+        fam = model.cfg.family
+        if fam in ("dense", "moe", "vlm"):
+            h, n_vis = model._embed_input(batch)
+            h, _, _ = model._backbone(
+                h, lm._positions(*h.shape[:2], device=h.device))
+            h = h[:, n_vis:]
+        elif fam == "hybrid":
+            h = model._forward(model._embed_tokens(toks),
+                               lm._positions(*toks.shape, device=toks.device))
+        elif fam == "xlstm":
+            h = model._forward(model._embed_tokens(toks))
+        else:
+            h, _ = model._decoder(toks, model.encode(batch["frames"]))
+        return (h @ model.unembed["w"]).float()
+
+
+def fam_decode_teacher_forced(dev, card):
+    """(b): at each family's smoke config in f32 on the card, the decode
+    loop from init_caches == the teacher-forced logits (MoE at capacity
+    factor FAM_NO_DROP, whisper's cross caches from its frames)."""
+    import torch
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.models import attention
+    from repro_torch.models import model as lm
+    errs = {}
+    for arch in ("grok-1-314b", "qwen2-moe-a2.7b", "internvl2-76b",
+                 "zamba2-1.2b", "xlstm-350m", "whisper-base"):
+        cfg = SMOKES[arch]
+        if cfg.family == "moe":
+            cfg = cfg.replace(moe_capacity_factor=FAM_NO_DROP)
+        model = lm.build_model(
+            cfg, generator=torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        batch = fam_batch(cfg, dev, seed=2)
+        batch.pop("vision_embeds", None)
+        if cfg.family == "encdec":
+            batch["frames"] = batch["frames"][:, :16]
+        ref = fam_teacher_forced(model, batch)
+        toks = batch["tokens"]
+        if cfg.family == "encdec":
+            caches = model.init_caches(LM_B, LM_T + 4, enc_len=16)
+            with torch.inference_mode():
+                enc = model.encode(batch["frames"])
+                kvs = [attention.cross_kv(layer["cross"], cfg, enc)
+                       for layer in model.dec_layers]
+            caches["cross"] = {k: torch.stack([c[k] for c in kvs])
+                               for k in ("k", "v")}
+        else:
+            caches = model.init_caches(LM_B, LM_T + 4)
+        worst = 0.0
+        for t in range(LM_T):
+            logits, caches = model.decode_step(toks[:, t:t + 1], caches, t)
+            worst = max(worst, float((logits[:, 0] - ref[:, t]).abs().max()))
+        errs[arch] = worst
+    check(max(errs.values()) < FAM_TF_BAR,
+          f"family (b): decode != teacher-forced on the card: {errs}")
+    log(f"[smoke] family (b) decode == teacher-forced on the card, smoke "
+        f"configs, f32, {LM_T} steps: "
+        + ", ".join(f"{a} {e:.3e}" for a, e in errs.items())
+        + f" (bar {FAM_TF_BAR}); {card}")
+
+
+def fam_cache_bytes(cfg, batch, max_len) -> int:
+    """Bytes of a model's decode caches / states (`init_caches`)."""
+    import math as m_
+    from repro_torch.models import model as lm
+    from repro_torch.models import ssm, xlstm
+    # k and v of one layer, a position
+    kv_pos = 2 * batch * cfg.n_kv_heads * cfg.d_head \
+        * cfg.torch_kv_dtype.itemsize
+
+    def spec_bytes(spec, n):
+        return n * sum(m_.prod(s) * dt.itemsize for s, dt in spec.values())
+    if cfg.family == "hybrid":
+        q = cfg.n_layers // cfg.hybrid_shared_every
+        return q * kv_pos * max_len + spec_bytes(ssm.mamba2_state_spec(
+            cfg, batch, dtype=cfg.torch_dtype), cfg.n_layers)
+    if cfg.family == "xlstm":
+        every, n_seg, rem = lm.XLSTMLM._segments_of(cfg)
+        return (spec_bytes(xlstm.mlstm_state_spec(cfg, batch),
+                           n_seg * (every - 1) + rem)
+                + spec_bytes(xlstm.slstm_state_spec(cfg, batch), n_seg))
+    if cfg.family == "encdec":      # self caches and the cross k / v
+        return cfg.n_layers * kv_pos * (max_len
+                                        + min(cfg.max_enc_len, 1500))
+    return cfg.n_layers * kv_pos * max_len
+
+
+def fam_report(tag, cfg, n_tok, wall, spans, peak, batch, max_len, card):
+    """The (c) line of one run: tok/s, serve.step median, peak against
+    weights + caches."""
+    import statistics
+    from repro_torch.models import model as lm
+    from repro_torch.models import nn
+    params_b = nn.count_params(lm.param_specs(cfg)) * cfg.torch_dtype.itemsize
+    cache_b = fam_cache_bytes(cfg, batch, max_len)
+    log(f"[smoke] family (c) {tag}: {n_tok} tokens in {wall:.3f}s "
+        f"({n_tok / wall:.1f} tok/s), {len(spans)} steps, step median "
+        f"{statistics.median(spans):.3f} ms (max {max(spans):.3f}), peak "
+        f"{peak / 2 ** 20:.1f} MiB against weights + caches "
+        f"{(params_b + cache_b) / 2 ** 20:.1f} MiB ({cfg.dtype}, kv "
+        f"{cfg.kv_cache_dtype}); {card}")
+    check(peak >= params_b, f"family (c) {tag}: peak {peak} under the "
+          f"weights' {params_b} bytes")
+
+
+def fam_step_profile(dev, model, batch, max_len, tag, card):
+    """One warm decode step at the demo's shape (its cache half full)
+    under torch.profiler: the kernels a step and the idle share."""
+    import torch
+    caches = model.init_caches(batch, max_len)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    box = [caches]
+
+    def step():
+        _, box[0] = model.decode_step(tok, box[0], max_len // 2)
+
+    idle = idle_profile(f"{tag} decode x1 ({model.cfg.dtype}, batch "
+                        f"{batch}, cache_len {max_len // 2} of {max_len})",
+                        step, dev, counted=False)
+    log(f"[smoke] family (c) {tag} decode step profile: idle share "
+        f"{idle:.4f}; {card}")
+
+
+def fam_demo(dev, arch, card):
+    """(c): `launch.serve` lm --arch at full width and depth in the
+    config's dtype with the launcher's defaults (temperature 0.8, seed
+    0), then one of its decode steps profiled."""
+    import gc
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    argv = ["lm", "--arch", arch, "--device", "cuda"]
+    args = serve.parser().parse_args(argv)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with obs.session():
+        obs.clear()
+        check(serve.main(list(argv)) == 0, f"family (c) {arch}: main() != 0")
+        spans = [e["dur"] / 1e3 for e in obs.events()
+                 if e.get("name") == "serve.step" and e.get("ph") == "X"]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    with obs.session():
+        obs.clear()
+        cfg, done, wall = serve.serve_lm(args)
+        spans = [e["dur"] / 1e3 for e in obs.events()
+                 if e.get("name") == "serve.step" and e.get("ph") == "X"]
+    toks = [t for r in done for t in r.generated]
+    check(all(r.done and len(r.generated) == args.max_new for r in done)
+          and all(0 <= t < cfg.vocab for t in toks),
+          f"family (c) {arch}: unfinished requests or tokens outside the "
+          "vocabulary")
+    fam_report(f"python -m repro_torch.launch.serve {' '.join(argv)} "
+               "(second run)", cfg, len(toks), wall, spans, peak,
+               args.batch, args.max_len, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = lm.build_model(ARCHS[arch], device=dev)
+    fam_step_profile(dev, model, args.batch, args.max_len, arch, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fam_loop(dev, arch, depth, card):
+    """(c): ServeLoop at full width with the depth cut, the launcher's
+    defaults (12 requests of 4-token prompts, batch 4, max_len 128, 16
+    new tokens, temperature 0.8, seed 0)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model as lm
+    from repro_torch.serve.engine import Request, ServeLoop, \
+        temperature_sample
+    cfg = ARCHS[arch].replace(n_layers=depth)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, size=(4,))
+                    .astype(np.int32), max_new_tokens=16) for _ in range(12)]
+    loop = ServeLoop(model, batch_size=4, max_len=128,
+                     sampler=temperature_sample(0.8))
+    with obs.session():
+        obs.clear()
+        t0 = time.perf_counter()
+        done = loop.run(reqs, max_steps=512,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+        wall = time.perf_counter() - t0
+        spans = [e["dur"] / 1e3 for e in obs.events()
+                 if e.get("name") == "serve.step" and e.get("ph") == "X"]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    toks = [t for r in done for t in r.generated]
+    check(all(r.done and len(r.generated) == 16 for r in done)
+          and all(0 <= t < cfg.vocab for t in toks),
+          f"family (c) {arch}: unfinished requests or bad tokens")
+    fam_report(f"ServeLoop {arch} full width, {depth} of "
+               f"{ARCHS[arch].n_layers} layers", cfg, len(toks), wall, spans,
+               peak, 4, 128, card)
+    del loop
+    fam_step_profile(dev, model, 4, 128, f"{arch} ({depth} layers)", card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fam_whisper(dev, card):
+    """(c): whisper-base at full width and depth in its dtype:
+    prefill(frames) of 4 requests (FAM_FRAMES frames, 4-token prompts),
+    then 16 greedy decode steps on its caches."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import model as lm
+    cfg = ARCHS["whisper-base"]
+    b, prompt, new = 4, 4, 16
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = fam_batch(cfg, dev, b=b, t=prompt, seed=3)
+    ms = []
+    for _ in range(2):          # the second run is the measured one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(batch, max_len=prompt + new)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        ms, toks = [], [tok]
+        for i in range(new - 1):
+            t1 = time.perf_counter()
+            logits, caches = model.decode_step(tok, caches, prompt + i)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok.cpu())           # waits, as ServeLoop's step
+            ms.append((time.perf_counter() - t1) * 1e3)
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    out = torch.cat([t.cpu() for t in toks], dim=1)
+    check(bool(((out >= 0) & (out < cfg.vocab)).all())
+          and tuple(out.shape) == (b, new),
+          f"family (c) whisper: tokens {tuple(out.shape)}")
+    log(f"[smoke] family (c) whisper-base full width and depth "
+        f"({cfg.dtype}): prefill of {b} x {FAM_FRAMES} frames + {prompt} "
+        f"tokens {t_prefill * 1e3:.3f} ms, then {new - 1} greedy steps, step "
+        f"median {statistics.median(ms):.3f} ms; {b * new} tokens in "
+        f"{wall:.3f}s ({b * new / wall:.1f} tok/s)")
+    fam_report("whisper-base prefill(frames) + decode", cfg, b * new, wall,
+               ms, peak, b, prompt + new, card)
+    box = [caches]
+
+    def step():
+        _, box[0] = model.decode_step(tok, box[0], prompt + new // 2)
+
+    idle = idle_profile(f"whisper-base decode x1 ({cfg.dtype}, batch {b}, "
+                        f"{FAM_FRAMES} frames)", step, dev, counted=False)
+    log(f"[smoke] family (c) whisper-base decode step profile: idle share "
+        f"{idle:.4f}; {card}")
+    del model, caches, box
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fam_train(dev, card, tmpdir):
+    """(d): `launch.train` at full width and depth in bf16 for zamba2 and
+    xlstm (AdamW, FAM_TRAIN_STEPS steps of 8 x 64 tokens), then
+    qwen2-moe at FAM_TRAIN_MOE_LAYERS layers through the train API: finite
+    losses, the last below the first, the step median and the peak."""
+    import contextlib
+    import gc
+    import io
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.tokens import SyntheticTokenDataset
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as ts
+    for arch, extra in FAM_TRAIN_ARGS.items():
+        argv = ["--arch", arch, "--steps", str(FAM_TRAIN_STEPS), "--batch",
+                "8", "--seq", "64", "--device", "cuda", "--ckpt-every",
+                "1000", "--ckpt-dir", os.path.join(tmpdir, arch)] + extra
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with obs.session():
+            obs.clear()
+            with contextlib.redirect_stdout(buf):
+                rc = launch_train.main(list(argv))
+            spans = [e for e in obs.events() if e.get("ph") == "X"
+                     and e.get("name") == "train.step"]
+            n_params = obs.metrics.gauge_value("train.params")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - start
+        losses = [s["args"]["loss"] for s in spans]
+        ms = [s["dur"] / 1e3 for s in spans]
+        check(rc == 0 and len(spans) == FAM_TRAIN_STEPS
+              and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"family (d) {arch}: rc {rc}, losses {losses}")
+        states = n_params * (2 + 2 + 4 + 4)
+        log(f"[smoke] family (d) {arch} launch.train full width and depth, "
+            f"{ARCHS[arch].dtype}, AdamW, {n_params:,.0f} params, "
+            f"{FAM_TRAIN_STEPS} steps of 8 x 64{''.join(' ' + a for a in extra)}: "
+            f"main() {wall:.3f}s; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; step median {statistics.median(ms):.3f} ms "
+            f"({8 * 64 / statistics.median(ms) * 1e3:.0f} tok/s), first "
+            f"{ms[0]:.3f}; peak {peak / 1e9:.3f} GB above the start against "
+            f"the modelled states {states / 1e9:.3f} GB; {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = ARCHS["qwen2-moe-a2.7b"].replace(n_layers=FAM_TRAIN_MOE_LAYERS)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.build_model(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = adamw()
+    step = ts.make_train_step(model, opt, schedule=lambda s: torch.tensor(
+        FAM_TRAIN_LR, device=s.device))
+    state = ts.make_train_state_init(model, opt)(
+        torch.Generator(device=dev).manual_seed(0))
+    ds = SyntheticTokenDataset(vocab=cfg.vocab, seq_len=64, global_batch=8,
+                               seed=0)
+    losses, ms, auxes = [], [], []
+    for i in range(FAM_TRAIN_MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, ds.batch(i))
+        losses.append(float(met["loss"]))           # waits
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - start
+    n_params = sum(p.numel() for p in model.parameters())
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"family (d) qwen2-moe: losses {losses}")
+    log(f"[smoke] family (d) qwen2-moe-a2.7b train API, full width, "
+        f"{FAM_TRAIN_MOE_LAYERS} of 24 layers, {cfg.dtype}, AdamW at lr "
+        f"{FAM_TRAIN_LR}, {n_params:,} params, {FAM_TRAIN_MOE_STEPS} steps of "
+        f"8 x 64 (remat {cfg.remat}, {cfg.moe_token_chunks} token chunks): "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; step median "
+        f"{statistics.median(ms):.3f} ms (first {ms[0]:.3f}); peak "
+        f"{peak / 1e9:.3f} GB above the start against the modelled states "
+        f"{n_params * 12 / 1e9:.3f} GB; {card}")
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_families(dev):
+    """Phase 27: the other LM families (MoE, VLM, hybrid, xLSTM, enc-dec)
+    on the card: (a) card == CPU in f32 at full width, (b) decode ==
+    teacher-forced, (c) serving at full width, the headline
+    `launch.serve lm --arch qwen2-moe-a2.7b`, (d) training."""
+    import gc
+    import tempfile
+
+    import torch
+    card = card_line()
+    tmpdir = tempfile.mkdtemp(prefix="repro_torch_families.")
+    try:
+        t0 = time.perf_counter()
+        fam_card_vs_cpu(dev, card)
+        log(f"[smoke] family (a) {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        fam_decode_teacher_forced(dev, card)
+        log(f"[smoke] family (b) {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        for arch in FAM_DEMOS:
+            fam_demo(dev, arch, card)
+        for arch, depth in FAM_LOOPS:
+            fam_loop(dev, arch, depth, card)
+        fam_whisper(dev, card)
+        log(f"[smoke] family (c) {time.perf_counter() - t0:.2f}s")
+        t0 = time.perf_counter()
+        fam_train(dev, card, tmpdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[smoke] family (d) {time.perf_counter() - t0:.2f}s")
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
 def main() -> int:
     import tempfile
 
@@ -6066,6 +6610,10 @@ def run_phases(torch, dev, cache_dir) -> int:
     t0 = time.perf_counter()
     phase_train(dev)
     log(f"[smoke] phase 26 (LM training path) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_families(dev)
+    log(f"[smoke] phase 27 (the other LM families) "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 

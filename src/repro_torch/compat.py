@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def _tensor(a, dtype, device):
@@ -50,39 +50,54 @@ def _float_tree(specs, ref, path=""):
     return out
 
 
-def _tensor_tree(specs, arrays, device, layer=None):
+def _tensor_tree(specs, arrays, device):
     from repro_torch.models import nn
-    return {k: (_tensor(arrays[k] if layer is None else arrays[k][layer],
-                        spec.dtype, device) if nn.is_spec(spec)
-                else _tensor_tree(spec, arrays[k], device, layer))
+    if nn.is_spec(specs):
+        return _tensor(arrays, specs.dtype, device)
+    return {k: _tensor_tree(spec, arrays[k], device)
             for k, spec in specs.items()}
+
+
+def _split_layers(fn, tree, depth: int):
+    """A stacked numpy tree (`depth` stacked dims) as nested lists of
+    per-layer trees, each passed through `fn`."""
+    if depth == 0:
+        return fn(tree)
+    n = np.asarray(tree_leaves(tree)[0]).shape[0]
+    return [_split_layers(fn, tree_map(lambda a, i=i: np.asarray(a)[i],
+                                       tree), depth - 1)
+            for i in range(n)]
 
 
 def _param_tree(cfg, params, dev) -> dict:
     """The reference's param tree (numpy, layers stacked) as the port's
-    (a list of per-layer trees), each leaf checked against its spec and
-    in its spec's dtype."""
-    from repro_torch.models import model
+    (each stacked subtree a list of per-layer trees, nested for a stack
+    of stacks), each leaf checked against its spec and in its spec's
+    dtype."""
+    from repro_torch.models import model, nn
     specs = model.param_specs(cfg)
     arrays = _float_tree(specs, params)
-    tree = {k: _tensor_tree(specs[k], arrays[k], dev)
-            for k in ("embed", "final_norm", "unembed")}
-    tree["layers"] = [_tensor_tree(specs["layers"], arrays["layers"], dev,
-                                   layer=l) for l in range(cfg.n_layers)]
+    tree = {}
+    for k, spec in specs.items():
+        depth = model.STACK_DEPTH.get(k, 0)
+        one, _ = nn.unstack_specs(spec, depth)
+        tree[k] = _split_layers(
+            lambda a, one=one: _tensor_tree(one, a, dev), arrays[k], depth)
     return tree
 
 
 def lm_params_from_reference(cfg, params, *, device):
-    """A `models.model.DecoderLM` on `device` holding the reference's
-    weights: `params` is the reference model's param tree as numpy arrays
-    (layers stacked (L, ...)), in the config's dtype. The port keeps the
-    reference's (d_in, d_out) layout, so the weights are copies and the
-    model computes the same function."""
+    """The port's model of `cfg`'s family (`models.model.build_model`) on
+    `device` holding the reference's weights: `params` is the reference
+    model's param tree as numpy arrays (layers stacked (L, ...)), in the
+    config's dtype. The port keeps the reference's (d_in, d_out) layout,
+    so the weights are copies and the model computes the same
+    function."""
     from repro_torch.hw import resolve_device
     from repro_torch.models import model
     dev = resolve_device(device)
-    return model.DecoderLM(cfg, device=dev,
-                           params=_param_tree(cfg, params, dev))
+    return model.build_model(cfg, device=dev,
+                             params=_param_tree(cfg, params, dev))
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -94,15 +109,15 @@ def _leaf(a, device) -> torch.Tensor:
     return _tensor(a, None, device)
 
 
-def _per_layer(tree, n_layers: int, device) -> dict:
+def _per_layer(tree, device) -> dict:
     """A param-shaped numpy tree of the reference (layers stacked) in the
-    port's layout: 'layers' split into a list of per-layer trees."""
-    out = {k: tree_map(lambda a: _leaf(a, device), v)
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [tree_map(lambda a, l=l: _leaf(np.asarray(a)[l],
-                                                   device), tree["layers"])
-                     for l in range(n_layers)]
-    return out
+    port's layout: each stacked subtree split into (nested) lists of
+    per-layer trees."""
+    from repro_torch.models import model
+    return {k: _split_layers(lambda t: tree_map(lambda a: _leaf(a, device),
+                                                t),
+                             v, model.STACK_DEPTH.get(k, 0))
+            for k, v in tree.items()}
 
 
 def train_state_from_reference(cfg, state, *, device):
@@ -121,7 +136,7 @@ def train_state_from_reference(cfg, state, *, device):
     opt_state = {}
     for k, v in ref.items():
         if k in ("mu", "nu", "m"):
-            opt_state[k] = _per_layer(v, cfg.n_layers, dev)
+            opt_state[k] = _per_layer(v, dev)
         else:       # Adafactor's stacked 'f', a 'count'
             opt_state[k] = tree_map(lambda a: _leaf(a, dev), v)
     return TrainState(params=_param_tree(cfg, state.params, dev),

@@ -6,12 +6,11 @@ the exact public-literature hyperparameters, plus a reduced `smoke()` variant
 of the same family for CPU tests. Input-shape cells come from SHAPES below
 (the assigned seq_len x global_batch grid).
 
-The port builds only the dense family so far (`models/model.py`). The
-MoE, SSM, xLSTM, enc-dec and VLM fields are kept as data, so every config
-compares equal to the reference's; so is `decode_unroll`, which has no
-effect here (the port's decode stacks are Python loops over per-layer
-modules). `remat` checkpoints each layer of a training forward
-(`models/blocks.stack_forward`).
+The port builds every family (`models/model.py`), and every config
+compares equal to the reference's field for field; `decode_unroll` is
+kept as data and has no effect here (the port's decode stacks are Python
+loops over per-layer modules). `remat` checkpoints each layer of a
+training forward in every stack the reference wraps (`models/blocks`).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Grouped-query attention: training/prefill (chunked over queries) and
-single-token decode against a KV cache (twin of
-`repro/models/attention.py`).
+"""Grouped-query attention: training/prefill (chunked over queries),
+single-token decode against a KV cache, and whisper's cross attention
+(twin of `repro/models/attention.py`).
 
 The reference's plain form, kept as it is: einsums with an fp32 softmax
 over repeated k/v heads, the decode step attending over the whole
@@ -206,6 +206,40 @@ def decode_attention(params, cfg, x, cache, cache_len):
     out = _attend_block(q.to(k.dtype), k, v, valid, cfg.d_head ** -0.5)
     out = out.reshape(b, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
     return nn.dense(params["wo"], out), cache
+
+
+def cross_attention(params, cfg, x, enc_out=None, kv_flat=None):
+    """Encoder-decoder cross attention (whisper): no positional rotation,
+    no mask. Either enc_out (B,Se,D), whose k/v are projected here, or
+    precomputed flattened kv_flat {'k','v'}: (B,Se,KVH*Dh)."""
+    b, s, _ = x.shape
+    q = nn.dense(params["wq"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
+    if kv_flat is None:
+        se = enc_out.shape[1]
+        k = nn.dense(params["wk"], enc_out).reshape(
+            b, se, cfg.n_kv_heads, cfg.d_head)
+        v = nn.dense(params["wv"], enc_out).reshape(
+            b, se, cfg.n_kv_heads, cfg.d_head)
+    else:
+        se = kv_flat["k"].shape[1]
+        k = kv_flat["k"].reshape(b, se, cfg.n_kv_heads,
+                                 cfg.d_head).to(x.dtype)
+        v = kv_flat["v"].reshape(b, se, cfg.n_kv_heads,
+                                 cfg.d_head).to(x.dtype)
+    k = _repeat_kv(k, cfg.n_heads)
+    v = _repeat_kv(v, cfg.n_heads)
+    out = _attend_block(q.to(k.dtype), k, v, None, cfg.d_head ** -0.5)
+    out = out.reshape(b, s, cfg.n_heads * cfg.d_head).to(x.dtype)
+    return nn.dense(params["wo"], out)
+
+
+def cross_kv(params, cfg, enc_out):
+    """Precomputed flattened cross-attention K/V of the encoder output:
+    {'k', 'v'}: (B, Se, KVH*Dh)."""
+    b, se, _ = enc_out.shape
+    flat = cfg.n_kv_heads * cfg.d_head
+    return {"k": nn.dense(params["wk"], enc_out).reshape(b, se, flat),
+            "v": nn.dense(params["wv"], enc_out).reshape(b, se, flat)}
 
 
 def seed_cache(cache, k, v, *, start: int = 0):

@@ -48,7 +48,7 @@ def _fan_in(shape) -> int:
 
 
 def _init_one(generator: torch.Generator, spec: ParamSpec, device, *,
-              stack: int = 0) -> torch.Tensor:
+              stack: tuple = ()) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
@@ -56,7 +56,7 @@ def _init_one(generator: torch.Generator, spec: ParamSpec, device, *,
     if spec.init == "normal":
         std = spec.scale * 0.02
     elif spec.init in ("fanin", "fanin_deep"):
-        fan_in = _fan_in(((stack,) if stack else ()) + tuple(spec.shape))
+        fan_in = _fan_in(tuple(stack) + tuple(spec.shape))
         std = spec.scale / math.sqrt(max(fan_in, 1))
     else:
         raise ValueError(f"unknown init {spec.init!r}")
@@ -71,16 +71,20 @@ def is_spec(x) -> bool:
 
 
 def init_params(spec_tree, generator: torch.Generator, device, *,
-                stack: int = 0) -> dict:
+                stack: tuple = ()):
     """Materialize a spec tree into a nested dict of tensors on `device`,
-    drawing the leaves from `generator` in sorted-key order.
+    drawing the leaves from `generator` in sorted-key order (a single
+    ParamSpec gives a single tensor).
 
-    With `stack` = L the tree is one layer of an L-layer stack, and a
+    With `stack` = (L,) the tree is one layer of an L-layer stack, and a
     fan-in law takes the fan-in of the stacked (L, ...) leaf, as the
     reference initialises its stacked layers: std = scale / sqrt(L *
-    d_in), not scale / sqrt(d_in)."""
-    return {k: (_init_one(generator, s, device, stack=stack) if is_spec(s)
-                else init_params(s, generator, device, stack=stack))
+    d_in), not scale / sqrt(d_in). With (n_seg, L) it is a layer of a
+    stack of stacks (xLSTM's mLSTM), whose leaf is (n_seg, L, ...):
+    fan-in n_seg * L * d_in."""
+    if is_spec(spec_tree):
+        return _init_one(generator, spec_tree, device, stack=stack)
+    return {k: init_params(s, generator, device, stack=stack)
             for k, s in sorted(spec_tree.items())}
 
 
@@ -106,6 +110,19 @@ def stack_specs(spec_tree, n: int):
                                     axes=("layers",) + s.axes)
                 if is_spec(s) else stack_specs(s, n))
             for k, s in spec_tree.items()}
+
+
+def unstack_specs(spec_tree, depth: int):
+    """`stack_specs` undone `depth` times: (one layer's spec tree, the
+    stacked dims that were taken off)."""
+    if is_spec(spec_tree):
+        return (dataclasses.replace(spec_tree, shape=spec_tree.shape[depth:],
+                                    axes=spec_tree.axes[depth:]),
+                tuple(spec_tree.shape[:depth]))
+    out, dims = {}, ()
+    for k, s in spec_tree.items():
+        out[k], dims = unstack_specs(s, depth)
+    return out, dims
 
 
 class Params(torch.nn.Module):
@@ -158,8 +175,26 @@ def dense_spec(d_in: int, d_out: int, ax_in: Optional[str],
     return spec
 
 
+def promote(*xs):
+    """The tensors cast to their common dtype, as JAX promotes the
+    operands of a product (bf16 with f32 is f32); torch's matmul and
+    einsum refuse mixed dtypes."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return [x if x.dtype == dt else x.to(dt) for x in xs]
+
+
+def einsum(eq: str, *xs) -> torch.Tensor:
+    """jnp.einsum: the operands promoted to one dtype first."""
+    return torch.einsum(eq, *promote(*xs))
+
+
 def dense(params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ params["w"]
+    w = params["w"]
+    if x.dtype != w.dtype:
+        x, w = promote(x, w)
+    y = x @ w
     if "b" in params:
         y = y + params["b"]
     return y

@@ -70,8 +70,10 @@ class ServeLoop:
     As in the reference, every slot decodes at one shared cache_len (the
     longest slot's length), and a slot taken over by a new request keeps
     the cache columns of its previous occupant: a late-admitted request
-    attends to [0, cache_len) of them. The port reproduces this so that
-    its tokens equal the reference's.
+    attends to [0, cache_len) of them. Where the caches are recurrent
+    states (hybrid, xLSTM), admission resets nothing either: the new
+    request continues from the previous occupant's state. The port
+    reproduces this so that its tokens equal the reference's.
     """
 
     def __init__(self, model, *, batch_size: int, max_len: int,

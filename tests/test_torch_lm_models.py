@@ -1,7 +1,8 @@
-"""The port's LM configs and dense models (`repro_torch.configs`,
+"""The port's LM configs and decoder models (`repro_torch.configs`,
 `repro_torch.models`) against the reference on the CPU: the configs field
-for field, the spec trees leaf for leaf, each module of the dense decoder
-and the whole model on the reference's own weights (carried across by
+for field, every family's spec trees leaf for leaf, each module of the
+decoder (dense, MoE and VLM) and the whole model on the reference's own
+weights (carried across by
 `compat.lm_params_from_reference`), the precision cases, and the port's
 own identities (decode == teacher-forced, q-chunk invariance, the init
 laws' statistics)."""
@@ -41,6 +42,10 @@ from repro_torch.models import attention, blocks, mlp, nn, rope  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 
 DENSE = ["internlm2-1.8b", "qwen1.5-110b", "command-r-35b", "glm4-9b"]
+# every family `DecoderLM` builds: dense, MoE and VLM
+DECODER = DENSE + ["grok-1-314b", "qwen2-moe-a2.7b", "internvl2-76b"]
+# the reference's decode test lifts MoE capacity so no token is dropped
+NO_DROP = {"moe_capacity_factor": 8.0}
 # f32 parity of a module or the model with the reference: the two
 # frameworks sum in different orders (~1e-6 on unit-scale values)
 RTOL = ATOL = 1e-5
@@ -123,17 +128,13 @@ def _ref_leaves(spec_tree):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_param_specs_equal_reference(arch):
-    """Full configs: the dense families' spec trees equal the reference's
-    leaf for leaf, so the parameter counts (from specs, no allocation)
-    are equal; the other families are not ported yet and say so."""
+    """Full configs: every family's spec tree equals the reference's leaf
+    for leaf, so the parameter counts (from specs, no allocation) are
+    equal, and `build_model` picks the reference's class for it."""
     cfg, jcfg = ARCHS[arch], JARCHS[arch]
-    jspecs = jbuild(jcfg).param_specs()
-    if cfg.family != "dense":
-        with pytest.raises(NotImplementedError, match=r"slice \(c\)"):
-            tmodel.param_specs(cfg)
-        with pytest.raises(NotImplementedError, match=r"slice \(c\)"):
-            tmodel.build_model(cfg, device="cpu")
-        return
+    jm = jbuild(jcfg)
+    jspecs = jm.param_specs()
+    assert tmodel.FAMILIES[cfg.family].__name__ == type(jm).__name__
     ref = _ref_leaves(jspecs)
     port = dict(nn.spec_leaves(tmodel.param_specs(cfg)))
     assert sorted(port) == sorted(ref)
@@ -273,7 +274,7 @@ def test_mlps_match_reference(kind):
     _close(got, want)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODER)
 @pytest.mark.parametrize("s,q_chunk", [(32, 16), (32, 1024), (24, 16)])
 def test_full_attention_matches_reference(arch, s, q_chunk):
     """q_chunk 16 over 32 tokens runs two chunks; 1,024 the whole
@@ -293,7 +294,7 @@ def test_full_attention_matches_reference(arch, s, q_chunk):
     _close(gv, wv)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODER)
 def test_decode_attention_matches_reference(arch):
     """Both decode forms at cache_len 5 of a 12-long cache filled with
     random k/v (entries past cache_len must be masked, whatever they
@@ -325,7 +326,7 @@ def test_decode_attention_matches_reference(arch):
         _close(gcache[k], wcache[k])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODER)
 def test_decoder_block_matches_reference(arch):
     jcfg, tcfg, layer = _layer0(arch)
     rng = np.random.default_rng(5)
@@ -339,10 +340,11 @@ def test_decoder_block_matches_reference(arch):
     _close(got, want)
     _close(gk, wk)
     _close(gv, wv)
-    assert float(gaux) == float(aux) == 0.0
+    np.testing.assert_allclose(float(gaux), float(aux), rtol=1e-6)
+    assert (float(gaux) > 0) == (jcfg.family == "moe")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODER)
 def test_prefill_and_decode_step_match_reference(arch):
     """The whole model on the reference's weights: prefill's last logits
     and caches (padded to max_len), then three decode steps' logits and
@@ -517,12 +519,14 @@ def _teacher_forced_logits(m, toks):
     return (h @ m.unembed["w"]).float()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODER)
 def test_decode_matches_teacher_forced(arch):
     """The reference's identity (tests/test_decode_parity.py), on the
     port's own weights: the decode loop with caches reproduces the
-    teacher-forced logits at every position."""
-    cfg = SMOKES[arch]
+    teacher-forced logits at every position (MoE at capacity factor 8,
+    as there)."""
+    cfg = SMOKES[arch].replace(**(NO_DROP if SMOKES[arch].family == "moe"
+                                  else {}))
     m = tmodel.build_model(cfg, device="cpu",
                            generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
@@ -553,7 +557,7 @@ def test_prefill_matches_decode_loop():
         _close(caches_p[k][:, :, :T], caches[k][:, :, :T], rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODER)
 def test_full_attention_is_q_chunk_invariant(arch):
     """Each query row attends to the same keys whatever chunk holds it:
     chunks of 4, 8, 16 and the whole sequence agree within 1e-6."""
