@@ -444,6 +444,17 @@ Phases, each timed:
    qwen2-moe-a2.7b cut to 4 layers through the train API (3 steps):
    finite losses, the last below the first; the step median and the peak
    against the modelled states are logged.
+28. The dry-run's counted terms on the card (`launch.cells`,
+   `roofline.op_cost`, `roofline.analysis`), on a (1, 1) NCCL mesh in a
+   world of one: internlm2-1.8b decode at phase 25's demo shape (bf16,
+   batch 4, a 128-long cache), internlm2-1.8b training at phase 26 (b)'s
+   8 x 64 (bf16, AdamW, one microbatch) and qwen2-moe-a2.7b decode at
+   phase 27 (c)'s shape. Each cell is counted on fake shards (FLOPs,
+   unfused HBM bytes, collective bytes, the peak of live bytes) and its
+   real step is run on the card: the counted FLOPs must equal a
+   FlopCounterMode count of the real step within 1e-6 relative, and the
+   cell's roofline bound, max(compute, memory), must not exceed the
+   step's median of 10 timed steps (CUDA events).
 
 Prints, before the last line, a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -6484,6 +6495,110 @@ def phase_families(dev):
         shutil.rmtree(tmpdir, ignore_errors=True)
 
 
+DRY_CELLS = [   # (arch, kind, batch, seq): phases 25, 26 (b), 27 (c)
+    ("internlm2-1.8b", "decode", 4, 128),
+    ("internlm2-1.8b", "train", 8, 64),
+    ("qwen2-moe-a2.7b", "decode", 4, 128),
+]
+DRY_FLOP_RTOL = 1e-6    # counted FLOPs against FlopCounterMode's
+DRY_WARM, DRY_STEPS = 2, 10
+
+
+def dry_real_step(dev, cfg, kind, b, s):
+    """The cell's step on the card with weights drawn from seed 0: a
+    callable running one step."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as lm
+    from repro_torch.serve.engine import make_serve_step
+    from repro_torch.train import step as tstep
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = lm.build_model(cfg, device=dev, generator=gen)
+    if kind == "decode":
+        caches = model.init_caches(batch=b, max_len=s)
+        token = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        serve = make_serve_step(model)
+        return lambda: serve(token, caches, s - 1, gen)
+    opt = tstep.default_optimizer_for(cfg)
+    state = tstep.make_train_state_init(model, opt)(gen)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "targets")}
+    train = tstep.make_train_step(model, opt)
+    return lambda: train(state, batch)
+
+
+def dry_measure(run) -> tuple:
+    """(FlopCounterMode's FLOPs of one step, median ms of DRY_STEPS)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    for _ in range(DRY_WARM):
+        run()
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as fc:
+        run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DRY_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(fc.get_total_flops()), sorted(times)[len(times) // 2]
+
+
+def phase_dryrun(dev):
+    """Phase 28: each DRY_CELLS cell counted on fake shards on a (1, 1)
+    NCCL mesh, then its real step run on the card: FLOPs equal within
+    DRY_FLOP_RTOL, the roofline bound within the measured median."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.launch.mesh import make_mesh, world_of_one
+    card = card_line()
+    for arch, kind, b, s in DRY_CELLS:
+        cfg = ARCHS[arch]
+        shape = ShapeConfig(f"{kind}_{b}x{s}", s, b, kind)
+        t0 = time.perf_counter()
+        with world_of_one("cuda"):
+            mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+            cell = cells.build_cell(arch, shape, mesh, n_microbatches=1)
+            terms, cost, peak = dryrun.count_cell(cell, mesh, chips=1,
+                                                  cfg=cfg, shape=shape)
+            del cell
+        t_count = time.perf_counter() - t0
+        run = dry_real_step(dev, cfg, kind, b, s)
+        flops, median_ms = dry_measure(run)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = abs(terms.flops - flops) / flops
+        bound_ms = 1e3 * max(terms.compute_s, terms.memory_s)
+        log(f"[smoke] dry-run {arch} {shape.name}: counted flops "
+            f"{terms.flops:.6e} (FlopCounterMode on the card {flops:.6e}, "
+            f"rel {rel:.2e}), hbm bytes {terms.hbm_bytes:.6e} (unfused), "
+            f"collective bytes {terms.collective_bytes:.0f}, peak live "
+            f"{peak / 2**30:.3f} GiB; compute {terms.compute_s * 1e3:.4f} "
+            f"ms, memory {terms.memory_s * 1e3:.4f} ms, collective "
+            f"{terms.collective_s * 1e3:.4f} ms -> bound {bound_ms:.4f} ms "
+            f"({terms.dominant}); measured median {median_ms:.4f} ms of "
+            f"{DRY_STEPS} steps = {median_ms / bound_ms:.2f} x bound; "
+            f"counted in {t_count:.1f}s on {card}")
+        check(rel <= DRY_FLOP_RTOL,
+              f"dry-run {arch} {shape.name}: counted flops {terms.flops} "
+              f"!= FlopCounterMode's {flops} (rel {rel:.2e})")
+        check(bound_ms <= median_ms,
+              f"dry-run {arch} {shape.name}: bound {bound_ms:.4f} ms above "
+              f"the measured median {median_ms:.4f} ms")
+
+
 def main() -> int:
     import tempfile
 
@@ -6614,6 +6729,10 @@ def run_phases(torch, dev, cache_dir) -> int:
     t0 = time.perf_counter()
     phase_families(dev)
     log(f"[smoke] phase 27 (the other LM families) "
+        f"{time.perf_counter() - t0:.2f}s")
+    t0 = time.perf_counter()
+    phase_dryrun(dev)
+    log(f"[smoke] phase 28 (dry-run counts on the card) "
         f"{time.perf_counter() - t0:.2f}s")
     log(f"[smoke] total {time.perf_counter() - t_all:.2f}s")
 

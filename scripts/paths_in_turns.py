@@ -65,40 +65,53 @@ def turn() -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def in_turns(script: str, other: str, rounds: int):
+    """Run `script --turn` from OTHER and THIS tree in turns (OTHER, THIS,
+    THIS, OTHER a round), each on its own tree's `src/`, after printing
+    the card's name and power limit: yields (round, tree name, the
+    turn's JSON result); raises if a turn fails."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    trees = {"other": os.path.abspath(other), "this": here}
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    for r in range(rounds):
+        for name in ("other", "this", "this", "other"):
+            tree = trees[name]
+            env = dict(os.environ, PYTHONPATH=os.path.join(tree, "src"))
+            done = subprocess.run(
+                [sys.executable, os.path.abspath(script), "--turn"],
+                cwd=tree, env=env, capture_output=True, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"turn {name} failed:\n{done.stderr}")
+            yield r, name, json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def parse_args(doc: str):
+    """OTHER_DIR, --rounds and the hidden --turn of an in-turns script."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("other", nargs="?")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--turn", action="store_true",
                     help=argparse.SUPPRESS)     # one turn, JSON on stdout
     args = ap.parse_args()
+    if not args.turn and not args.other:
+        ap.error("OTHER_DIR is required")
+    return args
+
+
+def main() -> int:
+    args = parse_args(__doc__)
     if args.turn:
         print(json.dumps(turn()))
         return 0
-    if not args.other:
-        ap.error("OTHER_DIR is required")
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    trees = {"other": os.path.abspath(args.other), "this": here}
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
-    for r in range(args.rounds):
-        for name in ("other", "this", "this", "other"):
-            tree = trees[name]
-            env = dict(os.environ, PYTHONPATH=os.path.join(tree, "src"))
-            done = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--turn"],
-                cwd=tree, env=env, capture_output=True, text=True)
-            if done.returncode != 0:
-                print(done.stderr, file=sys.stderr)
-                return done.returncode
-            res = json.loads(done.stdout.strip().splitlines()[-1])
-            for tag, v in res.items():
-                print(f"round {r} {name:5s} {tag:10s} best {v['s']:.4f} s "
-                      f"(of {', '.join(f'{t:.4f}' for t in v['times'])}) "
-                      f"F, p {v['f_p']} launches {v['launches']} peak "
-                      f"{v['peak_mib']:.2f} MiB", flush=True)
+    for r, name, res in in_turns(__file__, args.other, args.rounds):
+        for tag, v in res.items():
+            print(f"round {r} {name:5s} {tag:10s} best {v['s']:.4f} s "
+                  f"(of {', '.join(f'{t:.4f}' for t in v['times'])}) "
+                  f"F, p {v['f_p']} launches {v['launches']} peak "
+                  f"{v['peak_mib']:.2f} MiB", flush=True)
     return 0
 
 

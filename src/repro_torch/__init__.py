@@ -13,16 +13,22 @@ each module here has a twin there at the same relative path:
   pipeline/      features -> p under one plan (bridges, out of core)
   serve/         the PERMANOVA service and the LM decode loop
   configs/       the LM architectures (the reference's, field for field)
-  models/        the dense decoder LM (attention, blocks, DecoderLM, its
-                 loss)
+  models/        every LM family (attention, blocks, MoE, SSM, xLSTM,
+                 DecoderLM / HybridLM / XLSTMLM / EncDecLM, the loss)
+  sharding/      logical-axis sharding rules, the train state's axes,
+                 the models' activation constraints under a mesh
   optim/         AdamW, Adafactor, SGDM, schedules, gradient compression
   train/         the training step (microbatches, clip, optimizer)
   runtime/       the serving runtime and the fault-tolerant trainer
   utils/         tree and timing helpers
   launch/        the permanova CLI (matrix, features and cache paths;
                  --distributed / --shard-rows under torchrun), the serve
-                 CLI (permanova, lm), the training CLI and the DeviceMesh
-                 helpers (launch/mesh.py)
+                 CLI (permanova, lm), the training CLI, the DeviceMesh
+                 helpers (launch/mesh.py: production meshes on a fake
+                 process group) and the dry-run (launch/cells.py,
+                 launch/dryrun.py)
+  roofline/      the dry-run's counted step (op_cost), its roofline
+                 terms (analysis) and tables (report)
 
 Entry points run on the card (`device="cuda"`) and raise when there is
 none; pass `device="cpu"` to run the plain PyTorch forms on the host.

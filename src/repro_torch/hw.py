@@ -4,6 +4,14 @@ The target is one NVIDIA H100 SXM. The numbers are NVIDIA's datasheet
 values (dense rates, no sparsity) at the card's full 700 W power limit;
 a card set to a lower limit runs slower under load, so every measurement
 is reported beside `nvidia-smi`'s name and power limit.
+
+The interconnect is that of an 8-GPU HGX H100 node (NVIDIA's H100 and
+DGX H100 datasheets): NVLink 4 joins the node's cards at 900 GB/s per
+card in total, 450 GB/s each way, and each card has its own 400 Gb/s NDR
+InfiniBand port (50 GB/s) to the other nodes. The dry-run's collective
+term (`roofline.analysis`) divides a collective's bytes by the first when
+its group's ranks stay within one node of `node_gpus` consecutive ranks,
+by the second otherwise: the reference's one ICI link rate becomes two.
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ class ChipSpec:
     sms: int
     smem_per_block: int         # bytes a block may opt in to (above
                                 # 48 KB: cudaFuncSetAttribute first)
+    nvlink_bandwidth: float     # B/s each way, card to card in a node
+    ib_bandwidth: float         # B/s a card's own port between nodes
+    node_gpus: int              # cards joined by NVLink
 
 
 H100_SXM = ChipSpec(
@@ -35,6 +46,9 @@ H100_SXM = ChipSpec(
     l2_bytes=50e6,
     sms=132,
     smem_per_block=232_448,     # 227 KB
+    nvlink_bandwidth=450e9,     # NVLink 4: 900 GB/s in total
+    ib_bandwidth=50e9,          # NDR InfiniBand: 400 Gb/s
+    node_gpus=8,                # HGX H100 8-GPU
 )
 
 # The paper's benchmark workload (EMP, Fig. 1).

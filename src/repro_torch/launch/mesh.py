@@ -11,6 +11,12 @@ also drive ranks that share one card, its traffic through host copies).
 A rank's device is its mesh's `device_type`: cuda:{local rank % cards}
 on the card, the CPU for a 'cpu' mesh. Functions only: importing this
 module touches no process group and no device.
+
+The production meshes of the reference's dry-run, (16, 16) over
+("data", "model") and (2, 16, 16) over ("pod", "data", "model"), are
+built over a fake world (`fake_world`): one process stands for rank 0 of
+256 or 512, its collectives do nothing, and DTensors on the mesh carry
+each rank's shard shapes (`make_production_mesh`).
 """
 
 from __future__ import annotations
@@ -66,6 +72,38 @@ def world_of_one(device="cuda", store_dir=None):
             yield backend
         finally:
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A fake process group of `world_size` ranks in which this process
+    is rank 0 (torch's `fake` backend: collectives return at once and
+    move nothing), destroyed on exit. Raises if a process group is
+    already initialised: `init_distributed` would join a leaked fake
+    group silently. Yields the world size."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs no process group to be "
+                           "initialised; one already is "
+                           f"({dist.get_backend()}, world "
+                           f"{dist.get_world_size()})")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world_size))
+    try:
+        yield int(world_size)
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cpu") -> DeviceMesh:
+    """The reference's production mesh over the initialised world (a
+    `fake_world` of 256 or 512 ranks): (16, 16) ("data", "model"), or
+    (2, 16, 16) ("pod", "data", "model") with multi_pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def local_rank() -> int:

@@ -26,6 +26,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import nn, rope
+from repro_torch.sharding import shard_activation
 
 NEG_INF = -1e30
 
@@ -92,8 +93,11 @@ def full_attention(params, cfg, x, positions, *, causal=True,
     """
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
-    k_rep = _repeat_kv(k, cfg.n_heads)
-    v_rep = _repeat_kv(v, cfg.n_heads)
+    q = shard_activation(q, ("batch", None, "heads", None))
+    k_rep = shard_activation(_repeat_kv(k, cfg.n_heads),
+                             ("batch", None, "heads", None))
+    v_rep = shard_activation(_repeat_kv(v, cfg.n_heads),
+                             ("batch", None, "heads", None))
     scale = cfg.d_head ** -0.5
 
     q_chunk = min(q_chunk, s)
@@ -109,6 +113,7 @@ def full_attention(params, cfg, x, positions, *, causal=True,
                                   scale))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     out = out.reshape(b, s, cfg.n_heads * cfg.d_head)
+    out = shard_activation(out, ("batch", None, "heads"))
     return nn.dense(params["wo"], out), (k, v)
 
 
@@ -196,11 +201,15 @@ def decode_attention(params, cfg, x, cache, cache_len):
     s_max = cache["k"].shape[1]
     col = update_start(cache_len, 1, s_max)
     for name, new in (("k", k_new), ("v", v_new)):
-        cache[name][:, col] = nn.cast(new.reshape(b, flat),
-                                      cache[name].dtype)
+        nn.write_slice(cache[name], 1, col,
+                       nn.cast(new.reshape(b, 1, flat), cache[name].dtype))
+    # cache layout: sequence-sharded over 'model' (matches launch/cells
+    # decode sharding): partial attention + reduce, no cache gathers
+    k_cache = shard_activation(cache["k"], ("batch", "kv_seq", None))
+    v_cache = shard_activation(cache["v"], ("batch", "kv_seq", None))
 
-    k = _cache_heads(cache["k"], cfg, x.dtype)
-    v = _cache_heads(cache["v"], cfg, x.dtype)
+    k = _cache_heads(k_cache, cfg, x.dtype)
+    v = _cache_heads(v_cache, cfg, x.dtype)
     valid = (torch.arange(s_max, device=x.device)
              <= int(cache_len))[None, None, None, :]
     out = _attend_block(q.to(k.dtype), k, v, valid, cfg.d_head ** -0.5)
@@ -248,6 +257,6 @@ def seed_cache(cache, k, v, *, start: int = 0):
     b, s, kvh, dh = k.shape
     lo = update_start(start, s, cache["k"].shape[1])
     for name, new in (("k", k), ("v", v)):
-        cache[name][:, lo:lo + s] = nn.cast(
-            new.reshape(b, s, kvh * dh), cache[name].dtype)
+        nn.write_slice(cache[name], 1, lo, nn.cast(
+            new.reshape(b, s, kvh * dh), cache[name].dtype))
     return cache

@@ -12,8 +12,9 @@ gradients are recorded (`_maybe_remat`): "full" (`jax.checkpoint`)
 recomputes the whole layer in the backward pass, "dots"
 (`dots_with_no_batch_dims_saveable`) keeps the outputs of the weight
 products (`aten.mm` / `aten.addmm`) and recomputes the rest. Remat
-changes memory, never the bits. With no mesh the reference's activation
-sharding constraints are the identity, so the port has none.
+changes memory, never the bits. The reference's activation sharding
+constraints sit at its sites (`repro_torch.sharding.shard_activation`):
+the identity without an active mesh.
 
 The KV caches of the attention blocks are written in place; a recurrent
 block's decode returns new state tensors (their dtype follows the
@@ -31,6 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, mlp, moe, nn, ssm, xlstm
+from repro_torch.sharding import shard_activation
 
 
 def _norm(cfg):
@@ -72,16 +74,21 @@ def decoder_block_spec(cfg, dtype):
 
 def decoder_block(params, cfg, x, positions, *, causal=True,
                   q_chunk=1024):
-    """Returns (x, aux, (k, v)); aux is the MoE balance loss (0, dense)."""
+    """Returns (x, aux, (k, v)); aux is the MoE balance loss (0, dense).
+    Under an active mesh the residual stream is sequence-sharded over
+    'model' around the attention and the FFN (`shard_activation`)."""
     _, norm_fn = _norm(cfg)
+    x = shard_activation(x, ("batch", "act_seq", None))
     h, (k, v) = attention.full_attention(
         params["attn"], cfg, norm_fn(params["ln1"], x, eps=cfg.norm_eps),
         positions, causal=causal, q_chunk=q_chunk)
+    h = shard_activation(h, ("batch", "act_seq", None))
     x = x + h
     y = norm_fn(params["ln2"], x, eps=cfg.norm_eps)
     f, aux = _ffn(params, cfg, y)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    f = shard_activation(f, ("batch", "act_seq", None))
     return x + f, aux, (k, v)
 
 
@@ -197,7 +204,8 @@ def write_cache_column(caches, k_news, v_news, cache_len):
     write per cache tensor); returns the caches."""
     col = attention.update_start(cache_len, 1, caches["k"].shape[2])
     for name, new in (("k", k_news), ("v", v_news)):
-        caches[name][:, :, col] = nn.cast(new[:, :, 0], caches[name].dtype)
+        nn.write_slice(caches[name], 2, col,
+                       nn.cast(new, caches[name].dtype))
     return caches
 
 

@@ -1,6 +1,7 @@
 """Dense MLP blocks: SwiGLU (LLaMA-family default) and GELU (whisper/ViT)
-(twin of `repro/models/mlp.py`; with no mesh the reference's activation
-sharding constraints are the identity, so the port has none)."""
+(twin of `repro/models/mlp.py`; the hidden activation is constrained to
+the "mlp" sharding of `repro_torch.sharding` under an active mesh, the
+identity otherwise)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
+from repro_torch.sharding import shard_activation
 
 
 def swiglu_spec(d_model: int, d_ff: int, n_layers: int, dtype):
@@ -23,7 +25,8 @@ def swiglu_spec(d_model: int, d_ff: int, n_layers: int, dtype):
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     g = nn.dense(params["w_gate"], x)
     u = nn.dense(params["w_up"], x)
-    return nn.dense(params["w_down"], F.silu(g) * u)
+    h = shard_activation(F.silu(g) * u, ("batch", None, "mlp"))
+    return nn.dense(params["w_down"], h)
 
 
 def gelu_mlp_spec(d_model: int, d_ff: int, n_layers: int, dtype,
@@ -40,4 +43,5 @@ def gelu_mlp_spec(d_model: int, d_ff: int, n_layers: int, dtype,
 def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(nn.dense(params["w_in"], x), approximate="tanh")
+    h = shard_activation(h, ("batch", None, "mlp"))
     return nn.dense(params["w_out"], h)

@@ -42,6 +42,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.hw import resolve_device
 from repro_torch.models import attention, blocks, nn, ssm, xlstm
+from repro_torch.sharding import gather_weight, shard_activation
 from repro_torch.utils.tree import tree_map
 
 # stacked dims before a layer's leaves, by top-level key of a param tree
@@ -83,7 +84,8 @@ def chunked_cross_entropy(x, targets, mask, w_unembed, *,
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, s, chunk):
-        logits = (x[:, lo:lo + chunk] @ w_unembed).float()
+        logits = (x[:, lo:lo + chunk] @ gather_weight(w_unembed)).float()
+        logits = shard_activation(logits, ("batch", None, "act_vocab"))
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             targets[:, lo:lo + chunk, None].long())[..., 0]
@@ -100,7 +102,7 @@ def _positions(b, s, device=None):
 
 def _logits_last(unembed, h_last):
     """(B,1,D) -> (B,1,V) f32 logits for decode/prefill outputs."""
-    return (h_last @ unembed["w"]).float()
+    return (h_last @ gather_weight(unembed["w"])).float()
 
 
 def _module(tree):
@@ -196,6 +198,25 @@ class BaseLM(torch.nn.Module):
             out[k] = _draw_stack(one, dims, g, dev, dims)
         return out
 
+    def param_axes(self) -> dict:
+        """The logical axes of every weight, a tree of `param_tree`'s
+        layout (a layer's leaf without the stacked dims' "layers")."""
+        specs = self.param_specs()
+
+        def axes(spec):
+            return (spec.axes if nn.is_spec(spec)
+                    else {k: axes(v) for k, v in spec.items()})
+
+        def nest(tree, dims):
+            return tree if not dims else [nest(tree, dims[1:])
+                                          for _ in range(dims[0])]
+
+        out = {}
+        for k in self._param_keys:
+            one, dims = nn.unstack_specs(specs[k], STACK_DEPTH.get(k, 0))
+            out[k] = nest(axes(one), dims)
+        return out
+
     def param_tree(self) -> dict:
         """The weights as the port's param tree, each leaf this module's
         own Parameter (not a copy)."""
@@ -227,8 +248,12 @@ class BaseLM(torch.nn.Module):
         cfg = self.cfg
         spec = attention.KVCacheSpec(batch, length, cfg.n_kv_heads,
                                      cfg.d_head, dtype=cfg.torch_kv_dtype)
-        return {k: torch.zeros((n,) + spec.shape, dtype=spec.dtype,
-                               device=self.device) for k in ("k", "v")}
+        # sequence-sharded over 'model' under a mesh, as the reference's
+        # decode caches are (launch.cells)
+        return {k: shard_activation(
+            torch.zeros((n,) + spec.shape, dtype=spec.dtype,
+                        device=self.device),
+            ("layers", "batch", "kv_seq", None)) for k in ("k", "v")}
 
     def _kv_seeded(self, n, k, v, max_len):
         """Caches (n, B, max(S, max_len), KVH*Dh) holding the prefill's k/v
@@ -236,8 +261,8 @@ class BaseLM(torch.nn.Module):
         _, b, s = k.shape[:3]
         caches = self._kv_zeros(n, b, max(s, max_len or 0))
         for name, new in (("k", k), ("v", v)):
-            caches[name][:, :, :s] = nn.cast(new.reshape(n, b, s, -1),
-                                             caches[name].dtype)
+            nn.write_slice(caches[name], 2, 0, nn.cast(
+                new.reshape(n, b, s, -1), caches[name].dtype))
         return caches
 
 
@@ -271,7 +296,7 @@ class DecoderLM(BaseLM):
             vis = batch["vision_embeds"].to(self.dtype)
             h = torch.cat([vis, h], dim=1)
             n_vis = vis.shape[1]
-        return h, n_vis
+        return shard_activation(h, ("batch", None, "act_embed")), n_vis
 
     def _backbone(self, h, positions, collect_kv=False):
         cfg = self.cfg
@@ -372,7 +397,8 @@ class HybridLM(BaseLM):
         return self._final_norm(h)
 
     def loss(self, batch):
-        h = self._embed_tokens(batch["tokens"])
+        h = shard_activation(self._embed_tokens(batch["tokens"]),
+                             ("batch", None, "act_embed"))
         b, s, _ = h.shape
         h = self._forward(h, _positions(b, s, device=h.device))
         ce = _ce_loss(h, batch, self.unembed)
@@ -396,7 +422,8 @@ class HybridLM(BaseLM):
         """Process the prompt: (last logits, decode caches)."""
         cfg = self.cfg
         dense_cfg = dataclasses.replace(cfg, family="dense")
-        h = self._embed_tokens(batch["tokens"])
+        h = shard_activation(self._embed_tokens(batch["tokens"]),
+                             ("batch", None, "act_embed"))
         b, s, _ = h.shape
         positions = _positions(b, s, device=h.device)
         seg, q, r = self._segments()
@@ -506,7 +533,8 @@ class XLSTMLM(BaseLM):
         return self._final_norm(h)
 
     def loss(self, batch):
-        h = self._forward(self._embed_tokens(batch["tokens"]))
+        h = self._forward(shard_activation(
+            self._embed_tokens(batch["tokens"]), ("batch", None, "act_embed")))
         ce = _ce_loss(h, batch, self.unembed)
         return ce, {"ce": ce}
 
@@ -533,7 +561,8 @@ class XLSTMLM(BaseLM):
     def prefill(self, batch, max_len: Optional[int] = None):
         cfg = self.cfg
         every, n_seg, rem = self._segments()
-        h = self._embed_tokens(batch["tokens"])
+        h = shard_activation(self._embed_tokens(batch["tokens"]),
+                             ("batch", None, "act_embed"))
         m_states, s_states = [], []
         for i in range(n_seg):
             h, st = blocks.mlstm_stack_prefill(self.mlstm[i], cfg, h,
@@ -611,6 +640,7 @@ class EncDecLM(BaseLM):
         cfg = self.cfg
         b, se, _ = frames.shape
         h = frames.to(self.dtype) + self.enc_pos[None, :se, :]
+        h = shard_activation(h, ("batch", None, "act_embed"))
         h = blocks.encoder_stack(self.enc_layers, cfg, h,
                                  _positions(b, se, device=h.device),
                                  q_chunk=cfg.attn_q_chunk, remat=cfg.remat)

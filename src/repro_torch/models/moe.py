@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mlp, nn
+from repro_torch.sharding import gather_weight, shard_activation
 
 
 def moe_spec(cfg, dtype):
@@ -107,7 +108,10 @@ def moe_ffn(params, cfg, x: torch.Tensor):
 
 
 def _one_expert(wg, wu, wd, be):
-    return (F.silu(be @ wg) * (be @ wu)) @ wd
+    ge = shard_activation(be @ wg, ("moe_capacity", "mlp"))
+    ue = shard_activation(be @ wu, ("moe_capacity", "mlp"))
+    he = shard_activation(F.silu(ge) * ue, ("moe_capacity", "mlp"))
+    return he @ wd
 
 
 def _experts(params, cfg, buf):
@@ -120,12 +124,14 @@ def _experts(params, cfg, buf):
         if torch.is_grad_enabled():
             fn = functools.partial(checkpoint, _one_expert,
                                    use_reentrant=False)
-        return torch.stack([fn(params["w_gate"][e], params["w_up"][e],
-                               params["w_down"][e], buf[e])
+        return torch.stack([fn(gather_weight(params["w_gate"][e]),
+                               gather_weight(params["w_up"][e]),
+                               gather_weight(params["w_down"][e]), buf[e])
                             for e in range(buf.shape[0])])
-    g = torch.einsum("ecd,edf->ecf", buf, params["w_gate"])
-    u = torch.einsum("ecd,edf->ecf", buf, params["w_up"])
-    return torch.einsum("ecf,efd->ecd", F.silu(g) * u, params["w_down"])
+    g = torch.einsum("ecd,edf->ecf", buf, gather_weight(params["w_gate"]))
+    u = torch.einsum("ecd,edf->ecf", buf, gather_weight(params["w_up"]))
+    h = shard_activation(F.silu(g) * u, ("expert", "moe_capacity", "mlp"))
+    return torch.einsum("ecf,efd->ecd", h, gather_weight(params["w_down"]))
 
 
 def _moe_ffn_flat(params, cfg, x: torch.Tensor):
@@ -133,7 +139,9 @@ def _moe_ffn_flat(params, cfg, x: torch.Tensor):
     t = b * s
     e, k = cfg.moe_n_experts, cfg.moe_top_k
     capacity = int(cfg.moe_capacity_factor * t * k / e) + 1
-    x2d = x.reshape(t, d)
+    # explicit token-dim sharding under a mesh (the reference's
+    # constraint: merging (batch, seq) loses tuple-axis sharding)
+    x2d = shard_activation(x.reshape(t, d), ("moe_capacity", None))
 
     weights, ids, aux = _route(params["router"], x2d, e, k)
     pos, keep = _dispatch_indices(ids, e, capacity)
@@ -147,13 +155,17 @@ def _moe_ffn_flat(params, cfg, x: torch.Tensor):
     e_idx = ids.reshape(-1)
     c_idx = torch.where(keep_f, pos.reshape(-1), capacity - 1)
     src = torch.where(keep_f[:, None], x2d[tok_idx], x2d.new_zeros(()))
+    src = shard_activation(src, ("moe_capacity", None))
     buf = x.new_zeros((e, capacity, d)).index_put(
         (e_idx, c_idx), src, accumulate=True)
+    buf = shard_activation(buf, ("expert", "moe_capacity", None))
 
-    y_buf = _experts(params, cfg, buf)
+    y_buf = shard_activation(_experts(params, cfg, buf),
+                             ("expert", "moe_capacity", None))
 
     # combine: gather each (token, choice) slot back, weight, sum over k
-    y_tk = y_buf[e_idx, c_idx] * weights.reshape(-1)[:, None].to(y_buf.dtype)
+    y_tk = shard_activation(y_buf[e_idx, c_idx], ("moe_capacity", None))
+    y_tk = y_tk * weights.reshape(-1)[:, None].to(y_buf.dtype)
     y = y_tk.reshape(t, k, d).sum(dim=1)
 
     if "shared" in params:

@@ -8,7 +8,9 @@ tree as a `torch.nn.Module`. The functional forms (`dense`, `rmsnorm`, the
 attention and block functions) index their params by key, so they take a
 `Params` module or a plain dict of tensors alike.
 
-Logical axes are kept as data for the sharding rules of a later slice:
+Logical axes map to mesh axes through `repro_torch.sharding`'s rules (the
+dry-run's shardings; `shard_activation` / `gather_weight` under an active
+mesh):
   "vocab" embedding rows / logits columns, "embed" the d_model dimension,
   "heads" / "kv" flattened head projections, "mlp" the d_ff dimension,
   "layers" a stacked-layer dimension, None replicated.
@@ -27,6 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.precision import fp8_quantize
+from repro_torch.sharding.rules import gather_weight, is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,7 +194,7 @@ def einsum(eq: str, *xs) -> torch.Tensor:
 
 
 def dense(params, x: torch.Tensor) -> torch.Tensor:
-    w = params["w"]
+    w = gather_weight(params["w"])
     if x.dtype != w.dtype:
         x, w = promote(x, w)
     y = x @ w
@@ -209,7 +212,7 @@ def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(dt)
+    return (y * gather_weight(params["scale"]).float()).to(dt)
 
 
 def layernorm_spec(d: int, dtype=torch.float32):
@@ -223,8 +226,52 @@ def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, correction=0)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    y = y * params["scale"].float() + params["bias"].float()
+    y = y * gather_weight(params["scale"]).float() \
+        + gather_weight(params["bias"]).float()
     return y.to(dt)
+
+
+def write_slice(dst: torch.Tensor, dim: int, start: int,
+                value: torch.Tensor) -> torch.Tensor:
+    """dst[..., start:start + n, ...] = value along `dim` (n =
+    value.shape[dim]), in place; returns dst. On a DTensor sharded along
+    `dim` (a sequence-sharded KV cache under a mesh) each rank writes the
+    part of the slice that falls in its own shard, from the value
+    gathered along `dim`, as GSPMD partitions an update: DTensor's own
+    indexed copy would gather the whole of `dst` first."""
+    n = value.shape[dim]
+    if not is_dtensor(dst) or not any(
+            getattr(p, "dim", None) == dim for p in dst.placements):
+        dst.narrow(dim, start, n).copy_(value)
+        return dst
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = dst.device_mesh
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    if start == 0 and n == dst.shape[dim]:
+        # the whole dimension: each rank takes its own shard of the value
+        dst.to_local().copy_(
+            value.redistribute(mesh, dst.placements).to_local())
+        return dst
+    # the value whole along `dim`, sharded as dst along every other dim
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in dst.placements]
+    src = value.redistribute(mesh, pl).to_local()
+    # this rank's shard of `dim`, [offset, offset + size): DTensor's
+    # chunks of ceil(size / ways), the mesh axes split in their order
+    offset, size, coord = 0, dst.shape[dim], mesh.get_coordinate()
+    for i, p in enumerate(dst.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            first = min(coord[i] * chunk, size)
+            offset, size = offset + first, min(chunk, size - first)
+    lo, hi = max(start, offset), min(start + n, offset + size)
+    if hi > lo:
+        dst.to_local().narrow(dim, lo - offset, hi - lo).copy_(
+            src.narrow(dim, lo - start, hi - lo))
+    return dst
 
 
 def embedding_spec(vocab: int, d: int, dtype=torch.float32):
@@ -233,4 +280,4 @@ def embedding_spec(vocab: int, d: int, dtype=torch.float32):
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+    return gather_weight(params["table"])[tokens.long()]

@@ -22,8 +22,9 @@ and p under ONE plan:
 
 Entry points routing here: core.permanova.permanova(features, metric=...)
 and the launch CLI's --from-features / --features-cache; designs
-(covariates, strata, weights) run through every bridge. (Study-axis and
-row sharding come with a later slice.)
+(covariates, strata, weights) run through every bridge. `mesh=` shards
+the fused-kernel bridge's rows (`pipeline`) or the study axis
+(`pipeline_many`) over a torch.distributed mesh (`launch.mesh`).
 """
 
 from repro_torch.pipeline import (api, planner, registry,  # noqa: F401

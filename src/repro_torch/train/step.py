@@ -93,8 +93,9 @@ def make_train_step(model, optimizer: _opt.Optimizer, *,
         with _obs.span("train.grads"):
             if n_microbatches > 1:
                 per = next(iter(batch.values())).shape[0] // n_microbatches
-                gsum = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=accum_dtype, device=p.device), params)
+                # zeros_like: a sharded param's sum is sharded as it is
+                gsum = tree_map(lambda p: torch.zeros_like(
+                    p, dtype=accum_dtype), params)
                 lsum = torch.zeros((), dtype=torch.float32,
                                    device=model.device)
                 for i in range(n_microbatches):
