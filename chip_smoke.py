@@ -6495,10 +6495,13 @@ def phase_families(dev):
         shutil.rmtree(tmpdir, ignore_errors=True)
 
 
-DRY_CELLS = [   # (arch, kind, batch, seq): phases 25, 26 (b), 27 (c)
+DRY_CELLS = [   # (arch, kind, batch, seq): phases 25, 26 (b), 27 (c, d)
     ("internlm2-1.8b", "decode", 4, 128),
     ("internlm2-1.8b", "train", 8, 64),
     ("qwen2-moe-a2.7b", "decode", 4, 128),
+    # sLSTM's time loop counted one step at a time (`dryrun.
+    # _slstm_counted_once`) against the real step's unrolled loop
+    ("xlstm-350m", "train", 2, 128),
 ]
 DRY_FLOP_RTOL = 1e-6    # counted FLOPs against FlopCounterMode's
 DRY_WARM, DRY_STEPS = 2, 10

@@ -45,9 +45,9 @@ from repro_torch.roofline.op_cost import counting, peak_bytes
 from repro_torch.sharding.rules import set_active
 
 
-# local ops a cell may run: ~1.5M at most for every cell but xLSTM's
-# train and prefill, whose sLSTM time loop runs unrolled (~0.2-0.5 ms a
-# DTensor op on one core); past it the cell is recorded as an error
+# local ops a cell may run: ~1.5M at most for every cell (~0.2-0.5 ms a
+# DTensor op on one core), sLSTM's time loop counted from four steps a
+# layer (`_slstm_counted_once`); past it the cell is recorded as an error
 MAX_LOCAL_OPS = 4_000_000
 
 
@@ -102,6 +102,85 @@ def _microbatch_counted_once(cost, n_microbatches: int):
         train_step.value_and_grad = orig
 
 
+SLSTM_WARMUP = 2    # steps run before the one counted for the rest
+
+
+def _live_bytes(mem) -> int:
+    return sum(d.get("Total", 0)
+               for d in mem.get_tracker_snapshot("current").values())
+
+
+@contextlib.contextmanager
+def _slstm_counted_once(cost, mem):
+    """sLSTM's time loop counted as the reference's scan: one step's
+    counts times the trip count. Steps 0 .. SLSTM_WARMUP - 1 and the
+    last two run, the state of the warm-up's last handed to step S - 2;
+    the k = S - SLSTM_WARMUP - 2 steps between are not run. Step S - 2
+    is an inner step, warm state in and a step after it: its forward's
+    counts are added k times, and so are its backward's. Autograd runs
+    a node only after every node made later in the forward, and a
+    step's h is its last op, so the backward of step t starts with the
+    node of h_t: step S - 2's backward spans from that node's pre-hook
+    to the warm-up's last h's. Each step's h stays live for the stack
+    and, in training, its saved tensors for the backward: k times step
+    S - 2's growth of live bytes is held as one fake buffer while the
+    loop's outputs are (prefill) or until the skipped steps' backward
+    would have freed them (training). The stack reads S tensors of h's
+    shape, the skipped ones a detached h that takes no gradient."""
+    from repro_torch.models import xlstm
+
+    orig = xlstm.slstm_forward
+
+    def forward(params, cfg, x, *, state=None):
+        b, s, d = x.shape
+        k = s - SLSTM_WARMUP - 2
+        if k < 1:
+            return orig(params, cfg, x, state=state)
+        if state is None:
+            state = {key: torch.zeros((b, d), dtype=torch.float32,
+                                      device=x.device)
+                     for key in ("c", "n", "h", "m")}
+
+        def step(t, state):
+            return xlstm._slstm_cell(params, cfg, x[:, t], state)
+
+        hs = []
+        for t in range(SLSTM_WARMUP):
+            state = step(t, state)
+            hs.append(state["h"])
+        before, live = cost.snapshot(), _live_bytes(mem)
+        state = step(s - 2, state)
+        cost.add_since(before, cost.snapshot(), k)
+        grown = _live_bytes(mem) - live
+        counts = cost.snapshot()
+        held = [torch.empty((k * grown,), dtype=torch.uint8,
+                            device=x.device)]
+        cost.restore(counts)
+        h_inner = state["h"]
+        if h_inner.grad_fn is not None:
+            bwd = {}
+
+            def inner_starts(grads):
+                bwd["start"] = cost.snapshot()
+
+            def inner_ends(grads):
+                cost.add_since(bwd.pop("start"), cost.snapshot(), k)
+                held.clear()
+
+            h_inner.grad_fn.register_prehook(inner_starts)
+            hs[-1].grad_fn.register_prehook(inner_ends)
+        state = step(s - 1, state)
+        hs += [h_inner.detach()] * k + [h_inner, state["h"]]
+        y = torch.stack(hs, dim=1).to(x.dtype)
+        return xlstm._slstm_out(params, cfg, y), state
+
+    xlstm.slstm_forward = forward
+    try:
+        yield
+    finally:
+        xlstm.slstm_forward = orig
+
+
 def count_cell(cell, mesh, *, chips: int, cfg, shape,
                max_ops: int = MAX_LOCAL_OPS):
     """Run the cell's step once under the counters: (RooflineTerms,
@@ -111,7 +190,8 @@ def count_cell(cell, mesh, *, chips: int, cfg, shape,
             counting(cell.model, *_tensors_of(cell.args_abs),
                      fake_mode=cell.fake_mode,
                      max_ops=max_ops) as (cost, mem), \
-            _microbatch_counted_once(cost, cell.n_microbatches):
+            _microbatch_counted_once(cost, cell.n_microbatches), \
+            _slstm_counted_once(cost, mem):
         cell.fn(*cell.args_abs)
     terms = analyze_cell(cost, chips=chips, model_flops_total=(
         cell_model_flops(cfg, shape, cell.kind)))

@@ -429,10 +429,14 @@ def slstm_block_spec(cfg, dtype):
 
 
 def slstm_block(params, cfg, x, *, state=None):
+    """Under an active mesh the time loop's input is gathered along the
+    sequence once (`shard_activation`), as GSPMD gathers the reference's
+    scan input: DTensor would gather the whole sequence for each step's
+    slice and keep each gathered copy for the backward."""
     _, norm_fn = _norm(cfg)
-    y, new_state = xlstm.slstm_forward(
-        params["cell"], cfg, norm_fn(params["ln"], x, eps=cfg.norm_eps),
-        state=state)
+    y = shard_activation(norm_fn(params["ln"], x, eps=cfg.norm_eps),
+                         ("batch", None, "act_embed"))
+    y, new_state = xlstm.slstm_forward(params["cell"], cfg, y, state=state)
     return x + y, new_state
 
 

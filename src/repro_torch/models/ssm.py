@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
+from repro_torch.sharding import shard_activation
 
 
 def mamba2_spec(cfg, dtype):
@@ -167,6 +168,7 @@ def mamba2_forward(params, cfg, x, *, chunk: int = 128, state=None):
     y = y + xh * params["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(bsz, s, d_inner)
     y = nn.rmsnorm(params["norm"], y * F.silu(z), eps=cfg.norm_eps)
+    y = shard_activation(y, ("batch", None, "mlp"))
     return nn.dense(params["out_proj"], y), {"conv": new_conv, "ssm": final}
 
 

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
+from repro_torch.sharding import shard_activation
 
 NEG_INF = -1e30
 
@@ -168,6 +169,7 @@ def mlstm_forward(params, cfg, x, *, chunk: int = 256, state=None,
     o = o.reshape(b, s, d_inner)
     o = nn.rmsnorm(params["norm"], o, eps=cfg.norm_eps)
     o = o * F.silu(z)
+    o = shard_activation(o, ("batch", None, "mlp"))
     y = nn.dense(params["down"], o)
     if return_state:
         if conv_state is None:

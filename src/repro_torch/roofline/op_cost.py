@@ -21,8 +21,10 @@ over a fake process group, and counts what one rank's program does:
               the group's ranks stay within one node of `node_gpus`
               consecutive ranks, InfiniBand otherwise (`hw`)
 
-The layers are Python loops and run unrolled, so no trip count
-multiplies anything. Where DTensor has no sharding rule for an op, the
+The layers are Python loops and run unrolled. Two loops repeat one
+program, the train step's microbatches and sLSTM's time loop: they run
+one or a few trips, and `launch.dryrun` adds one trip's counts for each
+of the rest, as the reference multiplies a loop body by its trip count. Where DTensor has no sharding rule for an op, the
 op runs with its operands' innermost mesh axes replicated, one axis more
 at a time until a rule fits, on local shards replicated over the whole
 mesh at worst (their gathers counted), and its name is recorded
@@ -128,11 +130,16 @@ def _dtensor_patches():
 
     def real(self, *args, **kwargs):
         # pure in its arguments, and it splits an arange of the whole
-        # dimension: memoised, a step's thousands of calls cost a few
+        # dimension: memoised, a step's thousands of calls cost a few;
+        # DTensor's bookkeeping, not the program, so not counted
         key = (self, args, tuple(sorted(kwargs.items())))
         if key not in memo:
-            with unset_fake_temporarily():
-                memo[key] = sizes(self, *args, **kwargs)
+            _PROPAGATION.depth += 1
+            try:
+                with unset_fake_temporarily():
+                    memo[key] = sizes(self, *args, **kwargs)
+            finally:
+                _PROPAGATION.depth -= 1
         size, offsets = memo[key]
         return size, (list(offsets) if isinstance(offsets, list)
                       else offsets)
@@ -162,19 +169,18 @@ def _collective_kind(name: str) -> Optional[str]:
     return None
 
 
-def _tensors(tree):
-    out = []
-
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            out.append(x)
-        elif isinstance(x, (list, tuple)):
-            for y in x:
-                walk(y)
-        elif isinstance(x, dict):
-            for y in x.values():
-                walk(y)
-    walk(tree)
+def _tensors(tree, out=None):
+    # no nested recursive function: its closure cycle would hold every
+    # op's tensors until the collector ran, in MemTracker's live bytes
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for y in tree:
+            _tensors(y, out)
+    elif isinstance(tree, dict):
+        for y in tree.values():
+            _tensors(y, out)
     return out
 
 
@@ -411,9 +417,19 @@ def _replicate_inner(tree, mesh, k: int):
             return x
         pl = tuple(Replicate() if i >= mesh.ndim - k else p
                    for i, p in enumerate(x.placements))
-        return x if pl == tuple(x.placements) else x.redistribute(mesh, pl)
+        return (x if pl == tuple(x.placements)
+                else _no_graph(x).redistribute(mesh, pl))
 
     return tree_map(one, tree)
+
+
+def _no_graph(x):
+    """`x` detached where autograd records nothing (grad mode off, as in
+    a backward): redistributed as it is, a tensor that needs grad has its
+    result detached in place, an op that some DTensor versions have no
+    sharding rule for, and whose bytes are not the program's."""
+    return x.detach() if x.requires_grad and not torch.is_grad_enabled() \
+        else x
 
 
 def _signature(tree):
@@ -454,7 +470,7 @@ def _replicated_call(func, args, kwargs):
 
     def local(x):
         if isinstance(x, DTensor):
-            return x.redistribute(mesh, repl).to_local()
+            return _no_graph(x).redistribute(mesh, repl).to_local()
         return x
 
     out = func(*tree_map(local, args), **tree_map(local, kwargs))

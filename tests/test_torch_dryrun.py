@@ -6,12 +6,15 @@ shape) cells, full and smoke (32 run, 8 skip; decode caches from the
 port's `init_caches` on fake tensors); `pick_microbatches` the
 reference's counts; the reference test's six smoke cells end `ok` on a
 (2, 2) fake mesh and the seventh `skip`, with collective bytes counted;
+sLSTM's time loop counted once a step counts what the unrolled loop
+counts, with its peak, and a 4,096-step loop stays under the op budget;
 a record written by `run_cell` keeps the reference's keys; and the
 report tables render the reference's text from one record set, but for
 the card's remedies and capacity. Shapes, counts and text compare
 exactly.
 """
 
+import contextlib
 import json
 import os
 
@@ -33,6 +36,8 @@ from repro_torch.configs.registry import ARCHS, SMOKES, list_archs  # noqa: E402
 from repro_torch.launch import cells, dryrun  # noqa: E402
 from repro_torch.launch.mesh import fake_world, make_mesh  # noqa: E402
 from repro_torch.roofline import report  # noqa: E402
+
+real_slstm_counted_once = dryrun._slstm_counted_once
 
 _JDTYPES = {"int32": torch.int32, "uint32": None, "bfloat16": torch.bfloat16,
             "float32": torch.float32, "float8_e4m3fn": torch.float8_e4m3fn}
@@ -119,6 +124,65 @@ def test_smoke_cells_run_and_count_on_a_fake_mesh():
     assert len(ok) == 6, results
     # sharded programs must actually communicate
     assert any(v.get("coll", 0) > 0 for v in results.values()), results
+
+
+def _count_xlstm(kind, seq, *, loops_once, monkeypatch):
+    """xlstm-smoke's cell at (4, seq) on a (2, 2) fake mesh: (OpCost,
+    peak, sLSTM steps run); the time loop unrolled without `loops_once`."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import xlstm
+
+    monkeypatch.setattr(cells, "ARCHS", SMOKES)   # smoke widths, any seq
+    monkeypatch.setattr(dryrun, "_slstm_counted_once", (
+        real_slstm_counted_once if loops_once
+        else lambda cost, mem: contextlib.nullcontext()))
+    steps = []
+    cell_fn = xlstm._slstm_cell
+    monkeypatch.setattr(xlstm, "_slstm_cell",
+                        lambda *a: steps.append(1) or cell_fn(*a))
+    shape = ShapeConfig(f"{kind}_4x{seq}", seq, 4, kind)
+    with fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+        cell = cells.build_cell("xlstm-350m", shape, mesh, n_microbatches=1)
+        _, cost, peak = dryrun.count_cell(
+            cell, mesh, chips=4, cfg=SMOKES["xlstm-350m"], shape=shape)
+    assert not dist.is_initialized()
+    return cost, peak, len(steps)
+
+
+@pytest.mark.parametrize("kind,seq", [("prefill", 32), ("train", 12)])
+def test_slstm_loop_counted_once_equals_unrolled(kind, seq, monkeypatch):
+    """One sLSTM step counted and added S - 4 times (the reference's scan
+    body times its trip count), forward and backward, counts what the
+    unrolled loop counts; the held bytes keep its peak."""
+    once, peak_once, ran_once = _count_xlstm(kind, seq, loops_once=True,
+                                             monkeypatch=monkeypatch)
+    full, peak_full, ran_full = _count_xlstm(kind, seq, loops_once=False,
+                                             monkeypatch=monkeypatch)
+    n_slstm = 2                          # xlstm-smoke: 4 layers, every 2nd
+    assert (ran_once, ran_full) == (4 * n_slstm, seq * n_slstm)
+    assert full.coll_bytes > 0
+    for name in ("flops", "hbm_bytes", "coll_bytes"):
+        assert getattr(once, name) == pytest.approx(getattr(full, name),
+                                                    rel=1e-6), name
+    for name in ("coll_by_kind", "coll_by_link"):
+        for key, v in getattr(full, name).items():
+            assert getattr(once, name)[key] == pytest.approx(v, rel=1e-6), \
+                (name, key)
+    assert abs(peak_once - peak_full) <= 0.01 * peak_full, (peak_once,
+                                                            peak_full)
+
+
+def test_long_slstm_loop_counts_under_the_op_budget(monkeypatch):
+    """At S = 4,096 the sLSTM loop runs 4 steps a layer under the default
+    op budget and counts S steps' ops."""
+    seq = 4096
+    cost, peak, ran = _count_xlstm("prefill", seq, loops_once=True,
+                                   monkeypatch=monkeypatch)
+    assert ran == 4 * 2
+    assert cost.flops > 0 and peak > 0
+    # each sLSTM step runs > 100 local ops (DTensor's redistributions)
+    assert cost.n_ops > 100 * seq * 2
 
 
 def test_run_cell_writes_the_reference_record(tmp_path, monkeypatch):
