@@ -4266,16 +4266,21 @@ def phase_telemetry(dev, x_np, grouping, cache_dir):
             return engine.run(dm, g, n_perms=EMP_PERMS, seed=0, device=dev)
         with obs.session(path):
             return engine.run(dm, g, n_perms=EMP_PERMS, seed=0, device=dev)
-    sw = {("engine.sw", None, 0): 1,
-          ("engine.sw_chunk", "engine.sw", 1): 2}
+    sw = {("engine.run", None, 0): 1,
+          ("engine.plan", "engine.run", 1): 1,
+          ("engine.sw", "engine.run", 1): 1,
+          ("engine.sw_chunk", "engine.sw", 2): 2,
+          ("engine.draw", "engine.sw_chunk", 3): 2}
     cases = [
         ("labels, fused-kernel bridge", pipe(),
          {("bridge.fused-kernel", None, 0): 1,
-          ("fusedk.chunk", "bridge.fused-kernel", 1): n_fused},
+          ("fusedk.chunk", "bridge.fused-kernel", 1): n_fused,
+          ("engine.draw", "fusedk.chunk", 2): n_fused},
          "fusedk.chunk", "fused_sw"),
         ("covariates, fused-kernel bridge", pipe(covariates=cov),
          {("bridge.fused-kernel", None, 0): 1,
-          ("fusedk.chunk", "bridge.fused-kernel", 1): n_cols},
+          ("fusedk.chunk", "bridge.fused-kernel", 1): n_cols,
+          ("engine.draw", "fusedk.chunk", 2): n_cols},
          "fusedk.chunk", "fused_sw_cols"),
         ("labels, stream bridge (3 GiB)",
          pipe(matrix_budget_bytes=BRIDGE_BUDGETS["stream"]),

@@ -7,10 +7,13 @@ single-factor design is the label path below, anything else (strata,
 covariates, weights) goes to run_design(). permanova_many() runs a batch
 of studies, stacked or ragged, one after another (over a DeviceMesh's
 'data' axis each rank runs a block of them). While tracing (obs) the
-sweep is an `engine.sw` span (a batch of studies `engine.studies`) whose
-`predicted_bytes` is the traffic model `_sw_traffic_bytes`; with metrics
-on, each run gauges the card's peak memory and `engine.studies` counts
-the studies of a batch.
+call from outside is one `engine.run` span (attrs `seed`, `impl`, `n`,
+`n_total`, `chunks`) holding an `engine.plan` span (every host step before
+the sweep: the design, the matrix squared, the group sizes, the plan and
+its impl; attrs `impl`, `reason`) and the sweep, an `engine.sw` span (a
+batch of studies `engine.studies`) whose `predicted_bytes` is the traffic
+model `_sw_traffic_bytes`; with metrics on, each run gauges the card's
+peak memory and `engine.studies` counts the studies of a batch.
 """
 
 from __future__ import annotations
@@ -120,25 +123,72 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
     device: 'cuda' (default; raises without a card) or 'cpu'.
     """
     dev = hw.resolve_device(device)
-    if covariates is not None or strata is not None or weights is not None:
-        if isinstance(grouping, design_mod.Design):
-            raise ValueError("pass covariates/strata/weights either to "
-                             "run() or inside the Design, not both")
-        design = design_mod.build(
-            grouping=grouping, covariates=covariates, strata=strata,
-            weights=weights, n_groups=n_groups, device=dev)
-    else:
-        design = design_mod.Design.from_labels(grouping, n_groups=n_groups,
-                                               device=dev).to(dev)
-    if not design.is_plain_labels:
-        if sw_fn is not None:
-            raise ValueError("sw_fn is not supported with strata/covariate/"
-                             "weighted designs; use a registry impl")
-        return run_design(dm, design, n_perms=n_perms, seed=seed,
-                          perms=perms, index_perms=index_perms, impl=impl,
-                          memory_budget_bytes=memory_budget_bytes,
-                          chunk=chunk, squared=squared, s_t=s_t,
-                          autotune=autotune, device=dev)
+
+    def plan() -> _Planned:
+        if (covariates is not None or strata is not None
+                or weights is not None):
+            if isinstance(grouping, design_mod.Design):
+                raise ValueError("pass covariates/strata/weights either to "
+                                 "run() or inside the Design, not both")
+            design = design_mod.build(
+                grouping=grouping, covariates=covariates, strata=strata,
+                weights=weights, n_groups=n_groups, device=dev)
+        else:
+            design = design_mod.Design.from_labels(
+                grouping, n_groups=n_groups, device=dev).to(dev)
+        if not design.is_plain_labels:
+            if sw_fn is not None:
+                raise ValueError("sw_fn is not supported with strata/"
+                                 "covariate/weighted designs; use a "
+                                 "registry impl")
+            return _plan_design(dm, design, n_perms=n_perms, seed=seed,
+                                perms=perms, index_perms=index_perms,
+                                impl=impl,
+                                memory_budget_bytes=memory_budget_bytes,
+                                chunk=chunk, squared=squared, s_t=s_t,
+                                autotune=autotune, dev=dev)
+        return _plan_labels(dm, design, n_perms=n_perms, seed=seed,
+                            perms=perms, index_perms=index_perms, impl=impl,
+                            sw_fn=sw_fn,
+                            memory_budget_bytes=memory_budget_bytes,
+                            chunk=chunk, squared=squared, s_t=s_t,
+                            autotune=autotune, dev=dev)
+    return _traced_run(seed, plan)
+
+
+class _Planned(NamedTuple):
+    """A call planned: what its spans record, and the rest of the call
+    (the sweep and the result) as finish() -> (result, chunks)."""
+    impl: str
+    reason: str
+    n: int
+    n_total: int
+    finish: Callable
+
+
+def _traced_run(seed: int, plan: Callable[[], _Planned]) -> PermanovaResult:
+    """A call from outside: one `engine.run` span around plan() (inside an
+    `engine.plan` span: every host step before the sweep) and the planned
+    finish(). Their attrs are dicts only while tracing, read at exit."""
+    run_attrs = {"seed": seed} if _obs.trace_enabled() else None
+    plan_attrs = None if run_attrs is None else {}
+    with _obs.span("engine.run", run_attrs):
+        with _obs.span("engine.plan", plan_attrs):
+            planned = plan()
+            if plan_attrs is not None:
+                plan_attrs.update(impl=planned.impl, reason=planned.reason)
+        result, chunks = planned.finish()
+        if run_attrs is not None:
+            run_attrs.update(impl=planned.impl, n=planned.n,
+                             n_total=planned.n_total, chunks=chunks)
+    return result
+
+
+def _plan_labels(dm, design, *, n_perms, seed, perms, index_perms, impl,
+                 sw_fn, memory_budget_bytes, chunk, squared, s_t, autotune,
+                 dev) -> _Planned:
+    """run()'s plain single-factor path up to the sweep: the matrix
+    squared, the group sizes, the plan and its impl."""
     dm = torch.as_tensor(dm).to(dev, torch.float32)
     grouping, n_groups = design.grouping, design.n_groups
     n = dm.shape[0]
@@ -164,26 +214,28 @@ def run(dm, grouping, *, n_perms: int = 999, seed: int = 0,
         fn = sw_fn
         pl = dataclasses.replace(pl, impl="<custom sw_fn>", kernel=None,
                                  reason="caller-supplied sw_fn")
-    s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
-                            n_groups, seed=seed, perms=perms,
-                            index_perms=index_perms,
-                            draw_budget=memory_budget_bytes)
 
-    s_t = s_total(mat2) if s_t is None else torch.tensor(
-        s_t, dtype=torch.float32, device=dev)
-    f_all = f_from_sw(s_w_all, s_t, n, n_groups)
-    return PermanovaResult(
-        f_stat=f_all[0],
-        p_value=p_value_from_null(f_all),
-        s_t=s_t,
-        s_w=s_w_all[0],
-        f_perms=f_all,
-        n_objects=n,
-        n_groups=n_groups,
-        n_perms=n_perms,
-        method=f"permanova[{pl.impl}]",
-        plan=f"{pl.describe()} chunks={stats.n_chunks}",
-    )
+    def finish():
+        s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
+                                n_groups, seed=seed, perms=perms,
+                                index_perms=index_perms,
+                                draw_budget=memory_budget_bytes)
+        s_tot = s_total(mat2) if s_t is None else torch.tensor(
+            s_t, dtype=torch.float32, device=dev)
+        f_all = f_from_sw(s_w_all, s_tot, n, n_groups)
+        return PermanovaResult(
+            f_stat=f_all[0],
+            p_value=p_value_from_null(f_all),
+            s_t=s_tot,
+            s_w=s_w_all[0],
+            f_perms=f_all,
+            n_objects=n,
+            n_groups=n_groups,
+            n_perms=n_perms,
+            method=f"permanova[{pl.impl}]",
+            plan=f"{pl.describe()} chunks={stats.n_chunks}",
+        ), stats.n_chunks
+    return _Planned(pl.impl, pl.reason, n, n_total, finish)
 
 
 _TUNED = "empirical autotune winner (measured on operands)"
@@ -191,11 +243,12 @@ _TUNED = "empirical autotune winner (measured on operands)"
 
 def _autotuned(autotune: bool, impl: str) -> bool:
     """Whether a run measures its impl: autotune=True with impl='auto'
-    (a pinned impl wins, with a warning, as in the reference)."""
+    (a pinned impl wins, with a warning, as in the reference; the warning
+    names the caller of run() or run_design(), five frames up)."""
     if autotune and impl != "auto":
         warnings.warn(
             f"autotune=True ignored: impl is pinned to {impl!r} (use "
-            "impl='auto' to let measurements pick)", stacklevel=3)
+            "impl='auto' to let measurements pick)", stacklevel=6)
     return autotune and impl == "auto"
 
 
@@ -294,6 +347,19 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
     as without it, as the reference does.
     """
     dev = hw.resolve_device(device)
+    return _traced_run(seed, lambda: _plan_design(
+        dm, design, n_perms=n_perms, seed=seed, perms=perms,
+        index_perms=index_perms, impl=impl,
+        memory_budget_bytes=memory_budget_bytes, chunk=chunk,
+        squared=squared, s_t=s_t, autotune=autotune, dev=dev))
+
+
+def _plan_design(dm, design, *, n_perms, seed, perms, index_perms, impl,
+                 memory_budget_bytes, chunk, squared, s_t, autotune,
+                 dev) -> _Planned:
+    """run_design() up to the sweep: the design and the matrix on the
+    device, the plan and its impl (a labels-mode design's, or the dense
+    design's per-column companion)."""
     design = design.to(dev)
     dm = torch.as_tensor(dm).to(dev, torch.float32)
     n = dm.shape[0]
@@ -302,6 +368,10 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
     mat2 = dm if squared else dm * dm
     n_total = n_perms + 1
     pinned = None if impl == "auto" else impl
+
+    def total():
+        return s_total(mat2) if s_t is None else torch.tensor(
+            s_t, dtype=torch.float32, device=dev)
 
     if design.mode == design_mod.MODE_LABELS:
         grouping, n_groups = design.grouping, design.n_groups
@@ -315,25 +385,27 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
         if tuned:
             pl = dataclasses.replace(pl, reason=_TUNED)
         fn = registry.get(pl.impl).bound(**pl.tuning)
-        s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
-                                n_groups, seed=seed, perms=perms,
-                                strata=design.strata,
-                                index_perms=index_perms,
-                                draw_budget=memory_budget_bytes)
-        s_t = s_total(mat2) if s_t is None else torch.tensor(
-            s_t, dtype=torch.float32, device=dev)
-        return label_design_result(
-            s_w_all, s_t, design, n_objects=n, n_perms=n_perms,
-            method=f"permanova[{pl.impl}+strata]",
-            plan=f"{pl.describe()} chunks={stats.n_chunks} strata")
+
+        def finish_labels():
+            s_w_all, stats = _sweep(pl, mat2, grouping, inv_gs, n_total, fn,
+                                    n_groups, seed=seed, perms=perms,
+                                    strata=design.strata,
+                                    index_perms=index_perms,
+                                    draw_budget=memory_budget_bytes)
+            return label_design_result(
+                s_w_all, total(), design, n_objects=n, n_perms=n_perms,
+                method=f"permanova[{pl.impl}+strata]",
+                plan=f"{pl.describe()} chunks={stats.n_chunks} strata"
+            ), stats.n_chunks
+        return _Planned(pl.impl, pl.reason, n, n_total, finish_labels)
 
     if perms is not None:
         raise ValueError("perms= (explicit labels) applies to labels-mode "
                          "designs; a dense design takes index_perms=")
-    if autotune:
+    if autotune:     # named at the caller of run() / run_design()
         warnings.warn(
             "autotune=True ignored for dense designs: the contraction is "
-            "the per-column companion on every device", stacklevel=2)
+            "the per-column companion on every device", stacklevel=5)
     k = design.k_cols
     pl = planner.plan(n, n_total, backend=dev.type, impl=pinned,
                       memory_budget_bytes=memory_budget_bytes, chunk=chunk,
@@ -341,18 +413,22 @@ def run_design(dm, design: design_mod.Design, *, n_perms: int = 999,
     cols_fn = registry.bound_cols(pl.impl, **pl.tuning)
     strata = (design.strata if design.strata is not None
               else torch.zeros((n,), dtype=torch.int32, device=dev))
-    with _obs.span("engine.sw", _sw_span_attrs(
-            pl.impl, n, n_total, pl.chunk, n_cols=k,
-            backend=dev.type)):
-        s_cols, stats = scheduler.sw_cols_streaming(
-            mat2, design.basis, strata, n_total, cols_fn, chunk=pl.chunk,
-            seed=seed, index_perms=index_perms,
-            draw_budget=memory_budget_bytes)
-    _obs.record_device_memory()
-    return design_result(
-        s_cols, design, n_objects=n, n_perms=n_perms,
-        method=f"permanova-design[{pl.impl}]",
-        plan=f"{pl.describe()} chunks={stats.n_chunks} cols={k}")
+
+    def finish_dense():
+        with _obs.span("engine.sw", _sw_span_attrs(
+                pl.impl, n, n_total, pl.chunk, n_cols=k,
+                backend=dev.type)):
+            s_cols, stats = scheduler.sw_cols_streaming(
+                mat2, design.basis, strata, n_total, cols_fn,
+                chunk=pl.chunk, seed=seed, index_perms=index_perms,
+                draw_budget=memory_budget_bytes)
+        _obs.record_device_memory()
+        return design_result(
+            s_cols, design, n_objects=n, n_perms=n_perms,
+            method=f"permanova-design[{pl.impl}]",
+            plan=f"{pl.describe()} chunks={stats.n_chunks} cols={k}"
+        ), stats.n_chunks
+    return _Planned(pl.impl, pl.reason, n, n_total, finish_dense)
 
 
 # ---------------------------------------------------------------------------

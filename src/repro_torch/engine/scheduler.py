@@ -7,8 +7,10 @@ their GLOBAL permutation indices (`core.permutations`), so the
 labels; or they are sliced from a caller's explicit `perms` tensor. The
 s_W values stay on the device: the sweep never waits for the card between
 chunks. While tracing (obs), each chunk is an `engine.sw_chunk` span that
-waits for its chunk; with metrics on, `engine.perm_chunks` counts the
-chunks and `engine.peak_label_bytes` gauges the live label footprint.
+waits for its chunk (unless a torch.profiler records: obs.maybe_block),
+holding the chunk's `engine.draw` span; with metrics on,
+`engine.perm_chunks` counts the chunks and `engine.peak_label_bytes`
+gauges the live label footprint.
 """
 
 from __future__ import annotations
@@ -37,40 +39,62 @@ def _count(stats: StreamStats) -> StreamStats:
     return stats
 
 
+def _draw_attrs(source: str, kind: str, lo: int, hi: int,
+                rows: Optional[int]) -> Optional[dict]:
+    """An `engine.draw` span's attrs (None while tracing is off): where the
+    chunk's rows come from (`seed`, `perms`, `index_perms`), the draw's
+    kind, its rows and the sub-blocks of `rows` rows a seed's draw makes
+    of them (0 for rows sliced from a caller's tensor)."""
+    if not _obs.trace_enabled():
+        return None
+    return {"source": source, "kind": kind, "rows": hi - lo,
+            "sub_blocks": -(-(hi - lo) // rows) if rows else 0}
+
+
 def _labels(grouping, lo, hi, *, seed, perms, strata=None,
             index_perms=None, draw_budget=None):
     """(hi - lo, n) int32 permuted labels for global indices [lo, hi):
     sliced from explicit `perms`, or the grouping gathered through
     explicit `index_perms`, or drawn from `seed` (within `strata` blocks
     when given) in sub-blocks whose transients fit `draw_budget` bytes
-    (the label budget; None: the planner's default)."""
-    if perms is not None:
-        return perms[lo:hi].to(grouping.device, torch.int32).contiguous()
-    if index_perms is not None:
-        return grouping.to(torch.int32)[
-            index_perms[lo:hi].to(grouping.device).long()]
+    (the label budget; None: the planner's default). While tracing, an
+    `engine.draw` span; the caller passes the labels straight on, so one
+    chunk's labels are live at a time."""
     kind = "labels" if strata is None else "strata"
+    if perms is not None:
+        with _obs.span("engine.draw", _draw_attrs("perms", kind, lo, hi,
+                                                  None)):
+            return perms[lo:hi].to(grouping.device, torch.int32).contiguous()
+    if index_perms is not None:
+        with _obs.span("engine.draw", _draw_attrs("index_perms", kind, lo,
+                                                  hi, None)):
+            return grouping.to(torch.int32)[
+                index_perms[lo:hi].to(grouping.device).long()]
     rows = permutations.draw_rows(grouping.shape[0],
                                   planner.label_budget(draw_budget), kind)
-    if strata is not None:
-        return permutations.strata_label_batch(grouping, strata, lo, hi,
-                                               seed=seed, block_rows=rows)
-    return permutations.permutation_batch(grouping, lo, hi, seed=seed,
-                                          block_rows=rows)
+    with _obs.span("engine.draw", _draw_attrs("seed", kind, lo, hi, rows)):
+        if strata is not None:
+            return permutations.strata_label_batch(
+                grouping, strata, lo, hi, seed=seed, block_rows=rows)
+        return permutations.permutation_batch(grouping, lo, hi, seed=seed,
+                                              block_rows=rows)
 
 
 def _index_perms(strata, lo, hi, *, seed, index_perms, draw_budget=None):
     """(hi - lo, n) int32 index permutations for global indices [lo, hi):
     sliced from explicit `index_perms`, or drawn from `seed` within
     `strata` blocks (a constant strata vector is the free draw) in
-    sub-blocks sized to `draw_budget` as _labels draws them."""
+    sub-blocks sized to `draw_budget` as _labels draws them; an
+    `engine.draw` span while tracing, as _labels'."""
     if index_perms is not None:
-        return index_perms[lo:hi].to(strata.device, torch.int32)
-    return permutations.strata_permutation_batch(
-        strata, lo, hi, seed=seed,
-        block_rows=permutations.draw_rows(strata.shape[0],
-                                          planner.label_budget(draw_budget),
-                                          "index"))
+        with _obs.span("engine.draw", _draw_attrs("index_perms", "index",
+                                                  lo, hi, None)):
+            return index_perms[lo:hi].to(strata.device, torch.int32)
+    rows = permutations.draw_rows(strata.shape[0],
+                                  planner.label_budget(draw_budget), "index")
+    with _obs.span("engine.draw", _draw_attrs("seed", "index", lo, hi, rows)):
+        return permutations.strata_permutation_batch(
+            strata, lo, hi, seed=seed, block_rows=rows)
 
 
 def _check_perms(perms, n_total, n, name="perms"):

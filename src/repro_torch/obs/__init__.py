@@ -19,7 +19,6 @@ from repro_torch.obs import core, cudahooks, metrics, trace
 from repro_torch.obs.core import (
     buffer_cap,
     clear,
-    device_sync,
     disable,
     dropped_events,
     emit_complete,
@@ -41,6 +40,6 @@ __all__ = [
     "span", "enable", "disable", "enabled", "session",
     "trace_enabled", "metrics_enabled", "events", "clear",
     "set_buffer_cap", "buffer_cap", "dropped_events", "emit_complete",
-    "maybe_block", "device_sync", "record_device_memory",
+    "maybe_block", "record_device_memory",
     "report", "stage_rows", "budget_violations",
 ]

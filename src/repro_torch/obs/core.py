@@ -16,10 +16,18 @@ beside the card's kernels. A new thread starts with an empty stack: its
 spans (the prefetcher's `prefetch.fetch`) sit at depth 0 on their own
 `tid`.
 
-`maybe_block` / `device_sync` are the sync points: while tracing they
-wait for the device of the given tensors (`torch.cuda.synchronize`), so a
-span's wall time covers completed device work; CPU tensors need nothing;
-with tracing off they never sync.
+An event's `ts` is on the profiler's clock: microseconds since the Unix
+epoch, as `torch.profiler`'s events carry them, so an exported obs trace
+and a device trace of the same run lie over each other. Durations come
+from `perf_counter_ns`; a stamp is that counter plus an offset to the
+epoch taken once at import.
+
+`maybe_block` is the sync point: while tracing, outside a
+`torch.profiler` session, it waits for the device of the given tensors
+(`torch.cuda.synchronize`), so a span's wall time covers completed device
+work. Under a profiler it does not wait: the device trace times the card,
+and the traced run keeps the untraced schedule. CPU tensors need nothing;
+with tracing off it never syncs.
 """
 
 from __future__ import annotations
@@ -38,7 +46,23 @@ _metrics_on = False
 
 _events: list = []                 # completed spans (trace_event dicts)
 _events_lock = threading.Lock()
-_t0_ns = time.perf_counter_ns()    # trace epoch (ts are relative to this)
+# perf_counter_ns + _EPOCH_NS = nanoseconds since the Unix epoch
+_EPOCH_NS = time.time_ns() - time.perf_counter_ns()
+
+
+def _stamp_us(counter_ns: int) -> float:
+    """A perf_counter_ns reading as the profiler's microseconds since the
+    Unix epoch (int true division: correctly rounded)."""
+    return (int(counter_ns) + _EPOCH_NS) / 1000
+
+
+def _bounds_us(start_ns: int, end_ns: int):
+    """(ts, dur) in microseconds of [start_ns, end_ns] (perf_counter_ns),
+    dur taken as the difference of the two stamps, so ts + dur is the end's
+    stamp exactly and nested spans stay nested."""
+    ts = _stamp_us(start_ns)
+    return ts, max(0.0, _stamp_us(end_ns) - ts)
+
 
 # Span-buffer ring cap: a long-running process traces indefinitely, so the
 # buffer keeps only the most recent `_max_events` COMPLETE spans (oldest
@@ -81,6 +105,7 @@ _stack: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_obs_span_stack", default=())
 
 _record_function = None            # resolved lazily at first enable()
+_profiler_enabled = None           # likewise: is a torch.profiler recording?
 
 
 class _NoopSpan:
@@ -129,12 +154,13 @@ class _Span:
             args["parent"] = stack[-2]
         if self.attrs:
             args.update(self.attrs)
+        ts, dur = _bounds_us(self._start_ns, end_ns)
         ev = {
             "name": self.name,
             "cat": "repro_torch",
             "ph": "X",
-            "ts": (self._start_ns - _t0_ns) / 1e3,   # microseconds
-            "dur": (end_ns - self._start_ns) / 1e3,
+            "ts": ts,
+            "dur": dur,
             "pid": os.getpid(),
             "tid": threading.get_ident(),
             "args": args,
@@ -162,8 +188,9 @@ def span(name: str, attrs: Optional[dict] = None):
 def enable(*, trace: bool = True, metrics: bool = True) -> None:
     """Turn telemetry on (idempotent). The first enable with tracing
     resolves torch.profiler.record_function, so every span is also a
-    profiler range."""
-    global _trace_on, _metrics_on, _record_function
+    profiler range, and the probe of a recording profiler that
+    maybe_block asks."""
+    global _trace_on, _metrics_on, _record_function, _profiler_enabled
     _trace_on = bool(trace)
     _metrics_on = bool(metrics)
     if _trace_on and _record_function is None:
@@ -172,6 +199,12 @@ def enable(*, trace: bool = True, metrics: bool = True) -> None:
             _record_function = _rf
         except Exception:           # torch without profiler: spans work
             pass
+    if _trace_on and _profiler_enabled is None:
+        try:
+            from torch._C._autograd import _profiler_enabled as _pe
+            _profiler_enabled = _pe
+        except ImportError:         # no probe: no profiler to defer to
+            _profiler_enabled = bool
     _sync_metrics_flag()
 
 
@@ -242,21 +275,12 @@ def _synchronize(x) -> None:
 
 def maybe_block(x):
     """Device sync point: wait for the device of x (a tensor or a tuple /
-    list of them) only while tracing, so span wall-times measure completed
-    device work without perturbing the untraced asynchronous launches.
+    list of them) only while tracing and no torch.profiler records, so
+    span wall-times measure completed device work without perturbing the
+    untraced asynchronous launches; under a profiler the device trace
+    times the card and the launches keep their untraced schedule.
     Returns x."""
-    if _trace_on and x is not None:
-        _synchronize(x)
-    return x
-
-
-def device_sync(x, name: str = "sync"):
-    """Explicit named sync point: while tracing, a `sync.<name>` span
-    records how long the host waited for the device. No-op (and no
-    waiting) when disabled."""
-    if not _trace_on:
-        return x
-    with span(f"sync.{name}"):
+    if _trace_on and x is not None and not _profiler_enabled():
         _synchronize(x)
     return x
 
@@ -264,7 +288,7 @@ def device_sync(x, name: str = "sync"):
 def emit_complete(name: str, start_ns: int, end_ns: int,
                   attrs: Optional[dict] = None) -> None:
     """Append a complete (`ph: "X"`) trace event with caller-supplied
-    wall-clock bounds (perf_counter_ns values).
+    wall-clock bounds (perf_counter_ns values), stamped as spans are.
 
     Batched serving uses this to record one event per request of a
     coalesced dispatch: the requests overlap in time, so they cannot be
@@ -273,12 +297,13 @@ def emit_complete(name: str, start_ns: int, end_ns: int,
     """
     if not _trace_on:
         return
+    ts, dur = _bounds_us(start_ns, end_ns)
     ev = {
         "name": name,
         "cat": "repro_torch",
         "ph": "X",
-        "ts": (int(start_ns) - _t0_ns) / 1e3,   # microseconds
-        "dur": max(0, int(end_ns) - int(start_ns)) / 1e3,
+        "ts": ts,
+        "dur": dur,
         "pid": os.getpid(),
         "tid": threading.get_ident(),
         "args": dict(attrs) if attrs else {},

@@ -242,8 +242,9 @@ def pipeline(x, grouping=None, *, metric: str = "braycurtis",
                  (nothing recorded, no sync, when it is off). Read it with
                  obs.report() / obs.trace.stage_table() afterwards.
                  Tracing waits for the card at each span's end, so the
-                 spans time finished device work; F, p and the null are
-                 unchanged.
+                 spans time finished device work (not while a
+                 torch.profiler records: obs.maybe_block); F, p and the
+                 null are unchanged.
 
     mesh:        a DeviceMesh (launch.mesh.make_mesh) with a 'model' axis:
                  every rank runs the same call and gets the whole result

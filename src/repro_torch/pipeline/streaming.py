@@ -46,7 +46,9 @@ block is a `stream.mat2_block` span, each row slab of the fused bridge a
 `fused.row_slab`, of the out-of-core sweep an `ooc.row_slab` (its column
 slabs' fetch waits and tiles and its chunks), each megakernel launch a
 `fusedk.chunk`, each permutation window of the sharded sweep a
-`fusedk.window`; each waits for its device work. With metrics on:
+`fusedk.window`; each waits for its device work (obs.maybe_block), and
+each chunk's labels or index permutations are an `engine.draw` span
+(engine.scheduler's draws). With metrics on:
 `pipeline.mat2_bytes_built`, `fused.row_slabs` / `fused.chunk_steps`
 (the fused bridge, in memory or out of core) and `engine.perm_chunks`
 (the fused-kernel sweeps, either kind).

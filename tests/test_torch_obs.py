@@ -44,6 +44,7 @@ from repro.core import permutations as jperm  # noqa: E402
 from repro.data import slabcache as jslabcache  # noqa: E402
 from repro.engine import planner as jeplanner  # noqa: E402
 from repro_torch import engine, hw, obs, pipeline  # noqa: E402
+from repro_torch.core import design as design_mod  # noqa: E402
 from repro_torch.data import slabcache  # noqa: E402
 from repro_torch.engine import api as eapi  # noqa: E402
 from repro_torch.engine import planner as eplanner  # noqa: E402
@@ -221,6 +222,29 @@ class TestSpans:
         (ev,) = obs.events()
         assert ev["dur"] == 3.0 and ev["args"] == {"request": 3}
 
+    def test_stamps_are_on_the_profilers_clock(self):
+        """An obs span's ts (microseconds since the Unix epoch) lies within
+        1 ms of the start of its own record_function range in the
+        profiler's events, so the two traces lie over each other."""
+        obs.enable(trace=True, metrics=False)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            # the first range a process records sets up the profiler's
+            # per-thread state after its start is stamped (~0.7 ms on an
+            # idle host): a one-off delay, not an offset of the clocks
+            with torch.profiler.record_function("warm-up"):
+                pass
+            for _ in range(3):
+                with obs.span("stage1.clocked"):
+                    torch.ones(4).sum()
+        starts = sorted(e.start_ns() / 1e3
+                        for e in prof.profiler.kineto_results.events()
+                        if e.name() == "stage1.clocked")
+        ts = sorted(e["ts"] for e in obs.events())
+        assert len(starts) == len(ts) == 3
+        for a, b in zip(starts, ts):
+            assert abs(a - b) < 1e3, (a, b)
+
     def test_spans_are_profiler_ranges(self):
         obs.enable(trace=True, metrics=False)
         with torch.profiler.profile(
@@ -282,13 +306,33 @@ class TestDisabledMode:
                             lambda x: {Dev.device})
         x = torch.zeros(3)
         assert obs.maybe_block(x) is x
-        assert obs.device_sync(x, "chunk") is x
         assert calls == [] and obs.events() == []
         obs.enable(trace=True, metrics=False)
         obs.maybe_block(x)
-        obs.device_sync(x, "chunk")
-        assert len(calls) == 2
-        assert [e["name"] for e in obs.events()] == ["sync.chunk"]
+        assert len(calls) == 1 and obs.events() == []
+
+    def test_no_device_sync_under_a_profiler(self, monkeypatch):
+        """While a torch.profiler records, the traced run keeps the
+        untraced schedule: maybe_block waits for nothing; outside it, it
+        waits as before."""
+        calls = []
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda *a: calls.append(a))
+
+        class Dev:                 # a stand-in tensor on a CUDA device
+            device = torch.device("cuda", 0)
+        monkeypatch.setattr(obs.core, "_cuda_devices",
+                            lambda x: {Dev.device})
+        x = torch.zeros(3)
+        obs.enable(trace=True, metrics=False)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            assert obs.maybe_block(x) is x
+            with obs.span("engine.sw_chunk"):
+                obs.maybe_block(x)
+        assert calls == []
+        obs.maybe_block(x)
+        assert len(calls) == 1
 
     def test_cpu_tensors_need_no_sync(self, monkeypatch):
         calls = []
@@ -531,6 +575,47 @@ def _tree(events):
         for e in events)
 
 
+# The port's own spans, which the reference has not: a call of
+# engine.run / run_design, its planning, each chunk's draw. They are taken
+# out of the port's tree before it is held to the reference's, and held
+# on their own by TestPortOnlySpans.
+PORT_ONLY = ("engine.run", "engine.plan", "engine.draw")
+
+
+def _without(events, names=PORT_ONLY):
+    """The events with the spans `names` taken out, each other span's
+    parent and depth as if those had never been opened. The nesting is
+    rebuilt from the completion order: a span's event is appended when
+    it closes, after its children's, on its own thread."""
+    done = collections.defaultdict(list)     # tid -> [(event, children)]
+    for e in events:
+        depth = e["args"]["depth"]
+        pending = done[e["tid"]]
+        children = []
+        while pending and pending[-1][0]["args"]["depth"] > depth:
+            children.append(pending.pop())
+        pending.append((e, children[::-1]))
+    out = []
+
+    def walk(node, parent, depth):
+        e, children = node
+        if e["name"] in names:
+            for c in children:
+                walk(c, parent, depth)
+            return
+        args = {k: v for k, v in e["args"].items() if k != "parent"}
+        args["depth"] = depth
+        if parent is not None:
+            args["parent"] = parent
+        out.append({**e, "args": args})
+        for c in children:
+            walk(c, e["name"], depth + 1)
+    for roots in done.values():
+        for node in roots:
+            walk(node, None, 0)
+    return out
+
+
 def _shared(snap):
     c = snap["counters"]
     return {k: c[k] for k in SHARED if k in c}
@@ -564,15 +649,16 @@ def _assert_same_test(res_t, res_j):
 
 
 def _check(ref_fn, port_fn, *, tree=None, counters=None, predicted=None):
-    """Run both traced; hold the port's tree, shared counters and
-    predicted bytes to the reference's, each transformed first by the
-    case's named divergence (tree / counters / predicted: a function of
-    the reference's value returning what the port must show)."""
+    """Run both traced; hold the port's tree (less PORT_ONLY), shared
+    counters and predicted bytes to the reference's, each transformed
+    first by the case's named divergence (tree / counters / predicted: a
+    function of the reference's value returning what the port must
+    show)."""
     res_j, ev_j, snap_j = _traced(jobs, ref_fn)
     res_t, ev_t, snap_t = _traced(obs, port_fn)
     _assert_same_test(res_t, res_j)
     want_tree = _tree(ev_j) if tree is None else tree(_tree(ev_j))
-    assert _tree(ev_t) == want_tree
+    assert _tree(_without(ev_t)) == want_tree
     want_counters = (_shared(snap_j) if counters is None
                      else counters(_shared(snap_j)))
     assert _shared(snap_t) == want_counters
@@ -695,6 +781,105 @@ def test_engine_run_tree_counters_and_bytes_equal_the_reference(chunk):
                               torch.from_numpy(g), n_perms=PERMS,
                               perms=_labels(g), n_groups=G, chunk=chunk,
                               device="cpu"))
+
+
+def _engine_inputs():
+    x, g, cov, strata = _study()
+    dm = np.array(jpipe.get("braycurtis.blocked").bound()[2](jnp.asarray(x)))
+    return torch.from_numpy(dm), torch.from_numpy(g), cov, strata
+
+
+# each case's draw kind: plain labels; strata, which run() hands over to
+# the design path; covariates (and strata), a dense design
+PORT_CASES = {"labels": "labels", "strata": "strata", "covariates": "index"}
+
+
+class TestPortOnlySpans:
+    """engine.run -> {engine.plan, engine.sw -> engine.sw_chunk ->
+    engine.draw}: one engine.run and one engine.plan a call (also when
+    run() hands over to the design path), one engine.draw a chunk."""
+
+    def _run(self, case, chunk, seed=5, **extra):
+        dm, g, cov, strata = _engine_inputs()
+        design = {"labels": {}, "strata": {"strata": strata},
+                  "covariates": {"covariates": cov, "strata": strata}}[case]
+        return engine.run(dm, g, n_perms=PERMS, seed=seed, n_groups=G,
+                          chunk=chunk, device="cpu", **design, **extra)
+
+    @pytest.mark.parametrize("chunk", [None, CHUNK])
+    @pytest.mark.parametrize("case", list(PORT_CASES))
+    def test_tree_and_attrs(self, case, chunk):
+        res, ev, _ = _traced(obs, lambda: self._run(case, chunk))
+        n_chunks = int(res.plan.split("chunks=")[1].split()[0])
+        if chunk is not None:
+            assert n_chunks == -(-N_TOTAL // CHUNK)
+        assert _tree(ev) == collections.Counter({
+            ("engine.run", None, 0): 1,
+            ("engine.plan", "engine.run", 1): 1,
+            ("engine.sw", "engine.run", 1): 1,
+            ("engine.sw_chunk", "engine.sw", 2): n_chunks,
+            ("engine.draw", "engine.sw_chunk", 3): n_chunks})
+        (run,) = [e for e in ev if e["name"] == "engine.run"]
+        (plan,) = [e for e in ev if e["name"] == "engine.plan"]
+        assert {k: run["args"][k] for k in ("seed", "n", "n_total",
+                                            "chunks")} == {
+            "seed": 5, "n": N, "n_total": N_TOTAL, "chunks": n_chunks}
+        assert run["args"]["impl"] == plan["args"]["impl"]
+        assert plan["args"]["reason"]
+        draws = [e["args"] for e in ev if e["name"] == "engine.draw"]
+        assert {(d["source"], d["kind"]) for d in draws} == {
+            ("seed", PORT_CASES[case])}
+        assert sum(d["rows"] for d in draws) == N_TOTAL
+        assert all(d["sub_blocks"] >= 1 for d in draws)
+        # the plan closes before the sweep opens, inside the call
+        (sw,) = [e for e in ev if e["name"] == "engine.sw"]
+        assert run["ts"] <= plan["ts"]
+        assert plan["ts"] + plan["dur"] <= sw["ts"]
+        assert sw["ts"] + sw["dur"] <= run["ts"] + run["dur"]
+
+    def test_sliced_draws_name_their_source(self):
+        dm, g, _, strata = _engine_inputs()
+        _, ev, _ = _traced(obs, lambda: engine.run(
+            dm, g, n_perms=PERMS, perms=_labels(g), n_groups=G, chunk=CHUNK,
+            device="cpu"))
+        draws = [e["args"] for e in ev if e["name"] == "engine.draw"]
+        assert [d["source"] for d in draws] == ["perms"] * 3
+        assert [d["sub_blocks"] for d in draws] == [0] * 3
+        # run_design entered directly is one engine.run too
+        des = design_mod.build(grouping=g, strata=strata, n_groups=G,
+                               device="cpu")
+        _, ev, _ = _traced(obs, lambda: engine.run_design(
+            dm, des, n_perms=PERMS, index_perms=_index_perms(strata),
+            chunk=CHUNK, device="cpu"))
+        assert sum(e["name"] == "engine.run" for e in ev) == 1
+        assert {e["args"]["source"] for e in ev
+                if e["name"] == "engine.draw"} == {"index_perms"}
+
+    @pytest.mark.parametrize("case", list(PORT_CASES))
+    def test_traced_equals_untraced_bit_for_bit(self, case):
+        plain = self._run(case, CHUNK)
+        traced, _, _ = _traced(obs, lambda: self._run(case, CHUNK))
+        pairs = ([(plain, traced)] if plain.terms is None
+                 else list(zip(plain.terms, traced.terms)))
+        for a, b in pairs:
+            assert torch.equal(a.f_perms, b.f_perms)
+            assert torch.equal(a.p_value, b.p_value)
+
+    def test_without_rebuilds_the_reference_nesting(self):
+        """_without takes the port's spans out and leaves what they held
+        one level up, on each thread."""
+        obs.enable(trace=True, metrics=False)
+        with obs.span("engine.run"):
+            with obs.span("engine.plan"):
+                pass
+            with obs.span("engine.sw"):
+                for _ in range(2):
+                    with obs.span("engine.sw_chunk"):
+                        with obs.span("engine.draw"):
+                            pass
+        assert _tree(_without(obs.events())) == collections.Counter({
+            ("engine.sw", None, 0): 1,
+            ("engine.sw_chunk", "engine.sw", 1): 2})
 
 
 AUTOTUNE_ORDER = ("brute", "matmul", "tiled")   # both packages' order
